@@ -255,10 +255,10 @@ class ZKeyIndex:
     def query_rows(self, index_name: str, boxes, intervals_ms,
                    host_cap: int | None, block_cap: int | None):
         """ONE range decomposition serving both index tiers: returns
-        ("exact", rows) when the candidates fit ``host_cap``,
-        ("candidates", rows) when they fit only ``block_cap`` (caller
-        runs the gathered device scan), or (None, None) for the dense
-        path."""
+        ("exact", sorted int64 rows) when the candidates fit
+        ``host_cap``, ("candidates", int32 rows in z-order) when they fit
+        only ``block_cap`` (caller runs the gathered device scan), or
+        (None, None) for the dense path."""
         use_z3 = index_name == "z3" and bool(intervals_ms)
         # the z2 order cannot evaluate time: with intervals present but
         # no z3 order in play, results may only be CANDIDATES
@@ -287,8 +287,9 @@ class ZKeyIndex:
                 pos = multi_arange(los, his)
         if pos is None:
             return None, None
-        rows = perm[pos].astype(np.int64)
+        # the perm's own int32: the gathered kernel takes int32 ids
+        rows = perm[pos]
         if not exact_ok or (host_cap is not None and len(pos) > host_cap):
             return "candidates", rows
         keep = self._eval_rows(rows, boxes, intervals_ms if use_z3 else [])
-        return "exact", np.sort(rows[keep])
+        return "exact", np.sort(rows[keep]).astype(np.int64)

@@ -4,7 +4,8 @@ Three kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu`` (see
 the note at its head for what they replace and what bounds them):
 
 - ``scan_mask``: the dense tier, bool[cap] over every row;
-- ``scan_mask_gather``: the gathered tier, bool[m] over rows ``idx``;
+- ``scan_mask_gather``: the gathered tier, bool[m] over rows ``idx``
+  (int32), read from the row-major gather table (``ScanData.rows``);
 - ``scan_count``: the predicate summed to one int32 on the device.
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
@@ -91,9 +92,13 @@ def scan_mask_plain(cols, n: int, boxes, times, time_any: bool):
     return out
 
 
-def scan_mask_gather_plain(cols, idx, boxes, times, time_any: bool):
-    """bool[len(idx)]: the predicate on rows ``idx``."""
-    return _predicate(*(c[idx] for c in cols), boxes, times, time_any)
+def scan_mask_gather_plain(rows, idx, boxes, times, time_any: bool):
+    """bool[len(idx)]: the predicate on rows ``idx``, unpacked from the
+    gather table's words [xhi, xlo, yhi, ylo, tday, tms, 0, 0]."""
+    w = rows[idx.long()]
+    f = w[:, :4].view(torch.float32)
+    return _predicate(f[:, 0], f[:, 1], f[:, 2], f[:, 3], w[:, 4], w[:, 5],
+                      boxes, times, time_any)
 
 
 def scan_count_plain(cols, n: int, boxes, times, time_any: bool):
@@ -161,7 +166,7 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_scan_mask.argtypes = (
                 cols + [i64, i64, p, i32, p, i32, i32, p, p])
             lib.geomesa_scan_mask_gather.argtypes = (
-                cols + [p, i64, p, i32, p, i32, i32, p, p])
+                [p, p, i64, p, i32, p, i32, i32, p, p])
             lib.geomesa_scan_count.argtypes = (
                 cols + [i64, p, i32, p, i32, i32, p, p])
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
@@ -199,6 +204,11 @@ def _check(cols, boxes, times):
             raise ValueError(f"column must be 1-d {dt} of length {cap}")
         if not c.is_contiguous():
             raise ValueError("columns must be contiguous")
+    _check_tables(boxes, times)
+    return cap
+
+
+def _check_tables(boxes, times):
     if (boxes.dtype != torch.float32 or boxes.dim() != 2
             or boxes.shape[1] != 8 or boxes.shape[0] < 1
             or not boxes.is_contiguous()):
@@ -213,7 +223,6 @@ def _check(cols, boxes, times):
             f"query tables of {boxes.shape[0]} boxes and {times.shape[0]} "
             f"intervals take {table_bytes} bytes of shared memory; the "
             f"kernels take at most {MAX_TABLE_BYTES}")
-    return cap
 
 
 def _ptrs(cols):
@@ -245,21 +254,31 @@ def scan_mask(cols, n: int, boxes, times, time_any: bool):
     return out
 
 
-def scan_mask_gather(cols, idx, boxes, times, time_any: bool):
-    """Gathered tier: bool[len(idx)] mask over rows ``idx`` (int64, each
-    in range; the caller checks the bounds on the host)."""
-    _check(cols, boxes, times)
-    if idx.dtype != torch.int64 or idx.dim() != 1 or not idx.is_contiguous():
-        raise ValueError("idx must be a contiguous 1-d int64 tensor")
-    if _on_cpu(cols, boxes, times, idx):
-        return scan_mask_gather_plain(cols, idx, boxes, times, time_any)
+def scan_mask_gather(rows, idx, boxes, times, time_any: bool):
+    """Gathered tier: bool[len(idx)] mask over rows ``idx``.
+
+    ``rows`` is the (cap, 8) int32 gather table (``ScanData.rows``);
+    ``idx`` holds int32 row ids, each in range (the caller checks the
+    bounds on the host)."""
+    _check_tables(boxes, times)
+    if (rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[1] != 8
+            or not rows.is_contiguous()):
+        raise ValueError("rows must be a contiguous (cap, 8) int32 table")
+    if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
+        raise ValueError("idx must be a contiguous 1-d int32 tensor")
+    if _on_cpu((rows,), boxes, times, idx):
+        return scan_mask_gather_plain(rows, idx, boxes, times, time_any)
+    if rows.data_ptr() % 32 or idx.data_ptr() % 16:
+        raise ValueError("the gather kernel reads rows as 32-byte sectors and "
+                         "ids as 16-byte vectors: rows must be 32-byte and "
+                         "idx 16-byte aligned")
     m = idx.shape[0]
     out = torch.empty(m, dtype=torch.bool, device=idx.device)
     if m == 0:
         return out
     lib = _library()
     rc = lib.geomesa_scan_mask_gather(
-        *_ptrs(cols), idx.data_ptr(), m, boxes.data_ptr(), boxes.shape[0],
+        rows.data_ptr(), idx.data_ptr(), m, boxes.data_ptr(), boxes.shape[0],
         times.data_ptr(), times.shape[0], int(time_any), out.data_ptr(),
         torch.cuda.current_stream(out.device).cuda_stream)
     _raise_on(rc, "scan_mask_gather")

@@ -11,9 +11,10 @@ scan/zscan.py, in PyTorch).
 - times live as (days-since-epoch int32, millis-in-day int32) pairs.
 
 The column split stays numpy on the host; ``ScanData`` holds the six
-columns as tensors on one device with power-of-two capacity, and
-appends copy into that capacity in place. The predicate itself runs in
-the hand kernels of ``kernels.py`` (their plain versions on the CPU).
+columns as tensors on one device with power-of-two capacity, beside a
+row-major copy of the same words for the gathered tier, and appends
+copy into that capacity in place. The predicate itself runs in the
+hand kernels of ``kernels.py`` (their plain versions on the CPU).
 """
 
 from __future__ import annotations
@@ -25,13 +26,17 @@ import torch
 
 from . import kernels
 
-__all__ = ["MILLIS_PER_DAY", "ScanData", "ScanQuery", "boundary_candidates",
-           "build_scan_data", "exact_patch", "extend_scan_data",
-           "make_query", "next_pow2", "patch_hit_rows", "scan_count",
-           "scan_data_from_numpy", "scan_mask", "scan_mask_at",
-           "split_two_float"]
+__all__ = ["MAX_ROWS", "MILLIS_PER_DAY", "ScanData", "ScanQuery",
+           "boundary_candidates", "build_scan_data", "exact_patch",
+           "extend_scan_data", "make_query", "next_pow2", "pack_rows",
+           "patch_hit_rows", "scan_count", "scan_data_from_numpy",
+           "scan_mask", "scan_mask_at", "split_two_float"]
 
 MILLIS_PER_DAY = 86_400_000
+
+# row ids are int32 on the device (the z-index's permutation and the
+# gathered kernel's ids), as the reference caps a table's rows
+MAX_ROWS = 2**31 - 1
 
 
 def split_two_float(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -63,14 +68,29 @@ def next_pow2(n: int) -> int:
 @dataclasses.dataclass
 class ScanData:
     """Device columns for the scan: ``cap`` rows allocated, the first
-    ``n`` valid. Rows >= n are never matches."""
+    ``n`` valid. Rows >= n are never matches.
+
+    ``rows`` is the gathered tier's copy of the same words, row-major: a
+    (cap, 8) int32 table [xhi, xlo, yhi, ylo, tday, tms, 0, 0] with the
+    floats as their bit patterns, so a random candidate row is one
+    32-byte sector instead of six. The dense kernels keep reading the
+    columns, which cost them 24 B/row (16 B without time) against the
+    table's 32. Build it with ``pack_rows``."""
     xhi: torch.Tensor
     xlo: torch.Tensor
     yhi: torch.Tensor
     ylo: torch.Tensor
     tday: torch.Tensor
     tms: torch.Tensor
+    rows: torch.Tensor
     n: int
+
+    def __post_init__(self):
+        if self.cap > MAX_ROWS:
+            raise ValueError(f"a capacity of {self.cap} rows: row ids are "
+                             f"int32, so a table holds at most {MAX_ROWS}")
+        if tuple(self.rows.shape) != (self.cap, 8):
+            raise ValueError("rows must be the (cap, 8) gather table")
 
     @property
     def cap(self) -> int:
@@ -86,7 +106,24 @@ class ScanData:
 
     @property
     def nbytes(self) -> int:
-        return self.cap * (4 * 4 + 2 * 4)
+        """Device bytes: 24 B/row of columns + 32 B/row of the table."""
+        return self.cap * (4 * 4 + 2 * 4 + 8 * 4)
+
+
+def pack_rows(cols, n: int | None = None, rows=None,
+              lo: int = 0) -> torch.Tensor:
+    """Write rows ``lo`` .. ``n`` of the (cap, 8) int32 gather table from
+    the columns' words, on the columns' device (a strided copy per
+    column, no host traffic). ``rows=None`` allocates a zeroed table;
+    ``n=None`` means every row of the columns."""
+    cap = cols[0].shape[0]
+    n = cap if n is None else n
+    if rows is None:
+        rows = torch.zeros((cap, 8), dtype=torch.int32,
+                           device=cols[0].device)
+    for j, c in enumerate(cols):
+        rows[lo:n, j].copy_(c[lo:n].view(torch.int32))
+    return rows
 
 
 def scan_data_from_numpy(xhi, xlo, yhi, ylo, tday, tms, n: int,
@@ -97,12 +134,12 @@ def scan_data_from_numpy(xhi, xlo, yhi, ylo, tday, tms, n: int,
     def put(a, dt):
         return torch.from_numpy(np.require(a, dt, ["C", "W"])).to(device)
     f, i = np.float32, np.int32
-    data = ScanData(put(xhi, f), put(xlo, f), put(yhi, f), put(ylo, f),
-                    put(tday, i), put(tms, i), int(n))
-    if not 0 <= data.n <= data.cap or any(
-            c.shape[0] != data.cap for c in data.cols):
+    cols = (put(xhi, f), put(xlo, f), put(yhi, f), put(ylo, f),
+            put(tday, i), put(tms, i))
+    if not 0 <= n <= len(cols[0]) or any(
+            len(c) != len(cols[0]) for c in cols):
         raise ValueError("columns must share one length >= n")
-    return data
+    return ScanData(*cols, pack_rows(cols), int(n))
 
 
 def build_scan_data(x: np.ndarray, y: np.ndarray, millis: np.ndarray,
@@ -122,21 +159,24 @@ def build_scan_data(x: np.ndarray, y: np.ndarray, millis: np.ndarray,
     cap = n if cap is None else cap
     if cap < n:
         raise ValueError(f"cap={cap} < n={n}")
+    if cap > MAX_ROWS:
+        raise ValueError(f"cap={cap} above {MAX_ROWS} rows")
     cols = []
     for a in (xhi, xlo, yhi, ylo, tday, tms):
         t = torch.zeros(cap, dtype=torch.from_numpy(a[:0]).dtype,
                         device=device)
         t[:n].copy_(torch.from_numpy(np.ascontiguousarray(a)))
         cols.append(t)
-    return ScanData(*cols, n)
+    return ScanData(*cols, pack_rows(cols, n), n)
 
 
 def extend_scan_data(data: ScanData, x, y, millis,
                      xy_split=None) -> ScanData | None:
     """Append rows IN PLACE within the existing capacity (a slice
-    ``copy_`` into each column), or None when the capacity is exhausted
-    (the caller rebuilds with fresh headroom). The returned ScanData
-    shares the columns of ``data``."""
+    ``copy_`` into each column, then the same rows of the gather table
+    from the columns on the device), or None when the capacity is
+    exhausted (the caller rebuilds with fresh headroom). The returned
+    ScanData shares the tensors of ``data``."""
     d = len(x)
     if d == 0:
         return data
@@ -150,6 +190,7 @@ def extend_scan_data(data: ScanData, x, y, millis,
     tday, tms = _split_time(millis)
     for col, a in zip(data.cols, (xhi, xlo, yhi, ylo, tday, tms)):
         col[data.n:data.n + d].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    pack_rows(data.cols, data.n + d, data.rows, lo=data.n)
     return dataclasses.replace(data, n=data.n + d)
 
 
@@ -242,15 +283,18 @@ def scan_mask(data: ScanData, q: ScanQuery) -> torch.Tensor:
 def scan_mask_at(data: ScanData, q: ScanQuery,
                  rows: np.ndarray) -> np.ndarray:
     """Gathered tier: the scan over just ``rows`` (original-order row
-    indices from the z-key index); returns a host bool[len(rows)]."""
-    rows = np.asarray(rows, dtype=np.int64)
+    indices; the z-key index hands them as int32, which go to the device
+    as they are) through the gather table; returns a host
+    bool[len(rows)]."""
+    rows = np.asarray(rows)
     if len(rows) == 0:
         return np.zeros(0, dtype=bool)
     if rows.min() < 0 or rows.max() >= data.n:
         raise IndexError(f"row ids outside [0, {data.n})")
     boxes, times = q.tables(data.device)
-    idx = torch.from_numpy(rows).to(data.device)
-    out = kernels.scan_mask_gather(data.cols, idx, boxes, times, q.time_any)
+    idx = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int32))
+    out = kernels.scan_mask_gather(data.rows, idx.to(data.device), boxes,
+                                   times, q.time_any)
     return out.cpu().numpy()
 
 

@@ -364,7 +364,7 @@ class InMemoryDataStore(DataStore):
         sub = zscan.scan_mask_at(st.scan_data, sq, rows)
         sub = self._patch_mask(st, sub, st.host_xhi[rows], st.host_yhi[rows],
                                rows, sq, explain)
-        return np.sort(rows[sub])
+        return np.sort(rows[sub]).astype(np.int64)
 
     def _scan_dense(self, st: _TypeState, sq: zscan.ScanQuery,
                     explain: Explainer) -> np.ndarray:

@@ -98,11 +98,50 @@ def test_kernels_match_plain(cuda, boxes, intervals):
     assert torch.equal(got, want) and not got[d.n:].any()
     cnt = kernels.scan_count(d.cols, d.n, b, t, q.time_any)
     assert int(cnt.item()) == int(want.sum())
-    idx = torch.randint(0, d.n, (70_001,), device=cuda,
+    idx = torch.randint(0, d.n, (70_001,), device=cuda, dtype=torch.int32,
                         generator=torch.Generator(cuda).manual_seed(1))
-    got = kernels.scan_mask_gather(d.cols, idx, b, t, q.time_any)
+    got = kernels.scan_mask_gather(d.rows, idx, b, t, q.time_any)
     assert torch.equal(got, kernels.scan_mask_gather_plain(
-        d.cols, idx, b, t, q.time_any))
+        d.rows, idx, b, t, q.time_any))
+
+
+@pytest.fixture(scope="module")
+def gather_data():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    return _data(2_000_003, 2**21, torch.device("cuda"), seed=4)[3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("time_any", [False, True])
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("m", [1, 31, 33, 4097, 1_000_000])
+def test_gather_kernel_matches_plain(gather_data, m, order, time_any):
+    """The kernel equals the plain version on the gather table, ragged
+    edges included, and each call is one launch."""
+    d = gather_data
+    dev = d.device
+    q = zscan.make_query(*QUERIES[1 if time_any else 0])
+    b, t = q.tables(dev)
+    idx = torch.randint(0, d.n, (m,), device=dev, dtype=torch.int32,
+                        generator=torch.Generator(dev).manual_seed(m))
+    if order == "sorted":
+        idx = torch.sort(idx).values
+    want = kernels.scan_mask_gather_plain(d.rows, idx, b, t, time_any)
+    kernels.reset_launches()
+    got = kernels.scan_mask_gather(d.rows, idx, b, t, time_any)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert kernels.launches["scan_mask_gather"] == 1
+    with pytest.raises(ValueError, match="int32"):
+        kernels.scan_mask_gather(d.rows, idx.long(), b, t, time_any)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.scan_mask_gather(d.rows, torch.cat([idx, idx])[1:m + 1], b,
+                                 t, time_any)
+    flat = torch.zeros(8 * 16 + 4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.scan_mask_gather(flat[4:].view(16, 8), idx % 16, b, t,
+                                 time_any)
 
 
 @pytest.mark.gpu

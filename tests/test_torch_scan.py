@@ -14,6 +14,8 @@ import torch
 
 from geomesa_tpu.scan import pallas_scan as jpallas
 from geomesa_tpu.scan import zscan as jzscan
+from geomesa_tpu_torch import InMemoryDataStore
+from geomesa_tpu_torch.index.zkeys import ZKeyIndex
 from geomesa_tpu_torch.scan import kernels
 from geomesa_tpu_torch.scan import zscan as tzscan
 
@@ -64,15 +66,78 @@ def test_count_matches_pallas(data, boxes, intervals):
     assert got == want
 
 
+def _gather_ids(order, data, boxes, intervals):
+    """int32 row ids: distinct in random order, heavily repeated, or the
+    z-index's candidates in its z-order (as the store's gathered tier
+    gets them)."""
+    x, y, ms, jd, _, _ = data
+    rng = np.random.default_rng(7)
+    if order == "random":
+        return rng.choice(jd.n, 20_001, replace=False).astype(np.int32)
+    if order == "repeated":
+        pool = rng.choice(jd.n, 2_000).astype(np.int32)
+        return pool[rng.integers(0, len(pool), 20_001)]
+    index = "z3" if intervals else "z2"
+    kind, rows = ZKeyIndex(x, y, ms).query_rows(index, boxes, intervals,
+                                                0, jd.n)
+    assert kind == "candidates" and rows.dtype == np.int32
+    return rows
+
+
+@pytest.mark.parametrize("order", ["random", "repeated", "zorder"])
 @pytest.mark.parametrize("boxes,intervals", QUERIES)
-def test_gathered_matches_xla(data, boxes, intervals):
+def test_gathered_matches_xla(data, boxes, intervals, order):
     _, _, _, jd, td, _ = data
-    rows = np.random.default_rng(7).choice(jd.n, 20_001, replace=False)
+    rows = _gather_ids(order, data, boxes, intervals)
     got = tzscan.scan_mask_at(td, tzscan.make_query(boxes, intervals), rows)
-    want = jzscan.scan_mask_at(jd, jzscan.make_query(boxes, intervals),
-                               rows.astype(np.int32))
+    want = jzscan.scan_mask_at(jd, jzscan.make_query(boxes, intervals), rows)
     assert got.shape == (len(rows),)
     assert np.array_equal(got, want)
+
+
+def _interleaved(td):
+    """The gather table the columns imply: their int32 words in row
+    order, then two zero words."""
+    words = [c.numpy().view(np.int32) for c in td.cols]
+    zero = np.zeros(td.cap, dtype=np.int32)
+    return np.stack(words + [zero, zero], axis=1)
+
+
+@pytest.mark.parametrize("path", ["build", "extend", "rebuild",
+                                  "from_numpy"])
+def test_rows_table_interleaves_columns(data, path):
+    """The gather table holds the columns' words on every path that
+    fills the columns, capacity padding included."""
+    rng = np.random.default_rng(17)
+    x = rng.uniform(-180, 180, 1000)
+    y = rng.uniform(-90, 90, 1000)
+    ms = rng.integers(0, 100 * MS_DAY, 1000)
+    if path in ("build", "extend"):
+        td = tzscan.build_scan_data(x[:600], y[:600], ms[:600], "cpu",
+                                    cap=1024)
+        if path == "extend":
+            table = td.rows
+            td = tzscan.extend_scan_data(td, x[600:], y[600:], ms[600:])
+            assert td.rows is table and td.n == 1000
+    elif path == "rebuild":
+        # 600 rows build a 1024-row capacity; 500 more overrun it
+        ds = InMemoryDataStore(device="cpu")
+        ds.create_schema("pts", "dtg:Date,*geom:Point:srid=4326")
+        ds.write_dict("pts", [f"a{i}" for i in range(600)],
+                      {"dtg": ms[:600], "geom": (x[:600], y[:600])})
+        ds.query("BBOX(geom, 0, 0, 1, 1)", "pts")
+        xs, ys = np.concatenate([x, x[:100]]), np.concatenate([y, y[:100]])
+        mss = np.concatenate([ms, ms[:100]])
+        ds.write_dict("pts", [f"b{i}" for i in range(500)],
+                      {"dtg": mss[600:], "geom": (xs[600:], ys[600:])})
+        ds.query("BBOX(geom, 0, 0, 1, 1)", "pts")
+        td = ds._types["pts"].scan_data
+        assert (td.n, td.cap) == (1100, 2048)
+    else:
+        td = data[4]
+    assert td.rows.dtype == torch.int32 and td.rows.is_contiguous()
+    assert np.array_equal(td.rows.numpy(), _interleaved(td))
+    assert td.nbytes == td.cap * 56
 
 
 @pytest.mark.parametrize("boxes,intervals", QUERIES[:2])
@@ -206,17 +271,37 @@ def test_query_tables_fold_unused_slots():
 def test_wrapper_checks():
     cols = tuple(torch.zeros(8, dtype=dt) for dt in
                  (torch.float32,) * 4 + (torch.int32,) * 2)
+    rows = tzscan.pack_rows(cols)
     boxes = torch.zeros(1, 8)
     times = torch.zeros(1, 4, dtype=torch.int32)
+    ids = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(ValueError):
         kernels.scan_mask(cols, 9, boxes, times, True)
     with pytest.raises(ValueError):
         kernels.scan_mask(cols, 8, torch.zeros(2048, 8), times, True)
     with pytest.raises(ValueError):
         kernels.scan_mask(cols[:5] + (torch.zeros(8),), 8, boxes, times, True)
-    with pytest.raises(ValueError):
-        kernels.scan_mask_gather(cols, torch.zeros(3, dtype=torch.int32),
-                                 boxes, times, True)
+    # the gathered kernel takes the (cap, 8) table and int32 ids only
+    with pytest.raises(ValueError, match="int32"):
+        kernels.scan_mask_gather(rows, ids.long(), boxes, times, True)
+    with pytest.raises(ValueError, match="rows"):
+        kernels.scan_mask_gather(cols[0], ids, boxes, times, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.scan_mask_gather(rows, torch.zeros(6, dtype=torch.int32)[::2],
+                                 boxes, times, False)
+    assert kernels.scan_mask_gather(rows, ids, boxes, times, True).shape == (3,)
     q = tzscan.make_query([(0.0, 0.0, 1.0, 1.0)], [])
-    with pytest.raises(IndexError):
-        tzscan.scan_mask_at(tzscan.ScanData(*cols, 8), q, np.array([8]))
+    data = tzscan.ScanData(*cols, rows, 8)
+    for bad in ([8], [-1], [0, 3, 8]):
+        with pytest.raises(IndexError):
+            tzscan.scan_mask_at(data, q, np.array(bad))
+    with pytest.raises(ValueError, match="gather table"):
+        tzscan.ScanData(*cols, rows[:4], 8)
+    # row ids are int32: a capacity of 2^31 rows is refused (stride-0
+    # views, so nothing is allocated)
+    big = [c[:1].expand(2**31) for c in cols]
+    with pytest.raises(ValueError, match="int32"):
+        tzscan.ScanData(*big, rows[:1].expand(2**31, 8), 0)
+    with pytest.raises(ValueError, match="above"):
+        tzscan.build_scan_data(np.zeros(1), np.zeros(1), np.zeros(1), "cpu",
+                               cap=2**31)
