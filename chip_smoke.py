@@ -5,8 +5,9 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-1. build   the CUDA scan kernels from geomesa_tpu_torch/csrc/scan.cu
-           (nvcc, sm_90a), with the card's name and power limit.
+1. build   the CUDA kernels from geomesa_tpu_torch/csrc/scan.cu and
+           csrc/batch.cu (one nvcc per source, started together, then
+           one link; sm_90a), with the card's name and power limit.
 2. kernels each hand kernel against its plain PyTorch version on the
            same device tensors: 100M rows from --seed, in a capacity
            of 2^27 (so rows n..cap are capacity padding), the four
@@ -19,7 +20,11 @@ Phases, one JSON line each; any failure exits non-zero:
            gathered kernel is timed with the L2 cache flushed before
            each launch (its 1M rows would otherwise stay in the 50 MB
            L2 between launches), beside its warm time and the sector
-           floor (32 B per random row).
+           floor (32 B per random row). The batched kernels at the
+           same 100M rows with a batch of 32 queries (the four reference
+           queries, then seeded ones: boxes 1-40 degrees wide, a quarter
+           time-free, an eighth with two boxes): bitmaps, partials and
+           compacted ids held exactly against the plain versions.
 3. store   the main path: InMemoryDataStore() on CUDA, 10M rows written
            in chunks through write_dict (in-place appends and one
            capacity rebuild), the BBOX+time north-star query and two
@@ -30,6 +35,22 @@ Phases, one JSON line each; any failure exits non-zero:
            each kernel must have launched. Then, outside the counted
            run, the gathered kernel at the main path's own shape: the
            north-star query's candidate ids from the store's z-index.
+4. batched the serving path on the store phase's 10M rows: 32 seeded
+           queries in the store's dates through query_batched at batch
+           sizes 2, 8 and 32, every query's ids equal to the float64
+           brute force and to scalar query(), with the fused path shown
+           by the explain text; p50 of one batched call beside the same
+           queries as sequential query() calls. Then QueryBatcher(ds)
+           with 32 threads each submitting 8 queries: all exact, with
+           queries/s, the coalesce ratio and the batch count. Launch
+           counts are zeroed before this phase and read after; both
+           batched kernels must have launched. Every stacked batch that
+           the path ran (batch sizes and the batcher's) is recorded and,
+           outside the counted run, both batched kernels are held
+           exactly against their plain versions on it over the store's
+           columns. Then where one call of 32 queries spends its time:
+           the device path alone, the gather of the result ids, and a
+           cProfile of the call (host clock).
 
 Then the kernels summary line, the card line, and the final
 {"ok": true, ...} line. Without CUDA it exits 1 and prints no result.
@@ -39,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -79,7 +101,16 @@ SOURCES = {
     "scan_mask": "geomesa_tpu/scan/pallas_scan.py:140 _mask_call",
     "scan_mask_gather": "geomesa_tpu/scan/zscan.py:304 _gather_scan_mask",
     "scan_count": "geomesa_tpu/scan/pallas_scan.py:162 _count_call",
+    "scan_batch_bits": "geomesa_tpu/scan/zscan.py:536 _batch_mask_cand "
+                       "(+ :558 _batch_count)",
+    "compact_bits": "geomesa_tpu/scan/zscan.py:563 _batch_nonzero",
 }
+SOURCE_FILES = {"scan_batch_bits": "geomesa_tpu_torch/csrc/batch.cu",
+                "compact_bits": "geomesa_tpu_torch/csrc/batch.cu"}
+BATCH = 32          # queries per batch in the kernels phase
+STORE_BATCH_QUERIES = 32
+BATCH_SIZES = (2, 8, 32)
+BATCHER_THREADS, BATCHER_PER_THREAD = 32, 8
 
 
 def emit(obj):
@@ -165,6 +196,116 @@ def gather_timing(rows, idx, b, t, time_any, flush) -> dict:
     return out
 
 
+def random_queries(rng, count: int, lo_ms: int, hi_ms: int):
+    """``count`` seeded (boxes, interval or None) queries: boxes 1-40
+    degrees wide on a 0.001-degree grid, a quarter time-free, an eighth
+    with two boxes; intervals of 1-40 days on whole seconds in
+    [lo_ms, hi_ms)."""
+    out = []
+    for i in range(count):
+        boxes = []
+        for _ in range(2 if i % 8 == 7 else 1):
+            w, h = (round(float(v), 3) for v in rng.uniform(1, 40, 2))
+            x0 = round(float(rng.uniform(-180, 180 - w)), 3)
+            y0 = round(float(rng.uniform(-90, 90 - h)), 3)
+            boxes.append((x0, y0, round(x0 + w, 3), round(y0 + h, 3)))
+        iv = None
+        if i % 4 != 1:
+            span = int(rng.integers(1, 41)) * MS_DAY
+            lo = int(rng.integers(lo_ms // 1000, (hi_ms - span) // 1000)) * 1000
+            iv = (lo, lo + span)
+        out.append((boxes, iv))
+    return out
+
+
+def batch_kernel_stats(data, seed: int) -> dict:
+    """The two batched kernels at the kernels phase's rows with a batch
+    of BATCH queries, against their plain versions (exact), timed held
+    (medians of 10 launches; the plain versions of 1) with their
+    bounds."""
+    from geomesa_tpu_torch.scan import kernels, zscan
+    rng = np.random.default_rng(seed + 7)
+    specs = list(KERNEL_QUERIES) + [
+        (boxes, [iv] if iv else [])
+        for boxes, iv in random_queries(rng, BATCH - len(KERNEL_QUERIES), 0,
+                                        1000 * MS_DAY)]
+    bq = zscan.stack_queries([zscan.make_query(*q) for q in specs])
+    b, t = bq.tables(data.device)
+    n, qp, k, nb_ = data.n, bq.n_queries, b.shape[1], t.shape[1]
+    words, nblocks = kernels.batch_shape(data.cap)
+
+    def bits_k():
+        return kernels.scan_batch_bits(data.cols, n, b, t)
+
+    def bits_p():
+        return kernels.scan_batch_bits_plain(data.cols, n, b, t)
+    bits, parts = bits_k()
+    torch.cuda.synchronize()
+    want_bits, want_parts = bits_p()
+    equal = torch.equal(bits, want_bits) and torch.equal(parts, want_parts)
+    del want_bits, want_parts
+
+    # the wrapper whole: the offsets' prefix, the counts' copy to the
+    # host (its one sync) and the kernel
+    def comp_k():
+        return kernels.compact_bits(bits, parts)
+
+    def comp_p():
+        return kernels.compact_bits_plain(bits, parts)
+    comp_equal = _compact_equal(comp_k(), comp_p())
+    n_ids = int(parts.sum().item())
+    table_bytes = b.numel() * 4 + t.numel() * 4
+    bits_bytes = 24 * n + 2 * qp * words * 4 + 2 * qp * nblocks * 4 + table_bytes
+    # per row and query: 13 operations per box of the predicate, 8 of the
+    # candidate test, 7 per interval; counted over each query's own boxes
+    # and intervals (the padded slots are no work the function needs),
+    # and over the padded (Qp, K, B) the kernel evaluates
+    ops = n * sum(21 * q.n_boxes + 7 * len(q.host_intervals)
+                  for q in bq.queries)
+    bits_bound = bound_ms(bits_bytes, ops)
+    padded_bound = bound_ms(bits_bytes, n * qp * (13 * k + 7 * nb_ + 8 * k))
+    nonempty = int((parts != 0).sum().item())
+    comp_bound = bound_ms(
+        2 * qp * nblocks * (4 + 8) + nonempty * 64 * 4 + 4 * n_ids,
+        4 * n_ids)
+    out = {
+        "scan_batch_bits": {
+            "max_abs_err": 0 if equal else 1, "queries": qp, "k": k, "b": nb_,
+            "ms": cuda_ms(bits_k, 10), "plain_ms": cuda_ms(bits_p, 1, 1),
+            "bound_ms": bits_bound[0], "bound_by": bits_bound[1],
+            "padded_bound_ms": padded_bound[0],
+            "hits": int(parts[0].sum().item()),
+            "candidates": int(parts[1].sum().item())},
+        "compact_bits": {
+            "max_abs_err": 0 if comp_equal else 1, "ids": n_ids,
+            "nonempty_blocks": nonempty, "blocks": 2 * qp * nblocks,
+            "ms": cuda_ms(comp_k, 10), "plain_ms": cuda_ms(comp_p, 1, 1),
+            "bound_ms": comp_bound[0], "bound_by": comp_bound[1]},
+    }
+    del bits, parts
+    return out
+
+
+def _compact_equal(got, want) -> bool:
+    """compact_bits' (hit ids, candidate ids, counts) equal, exactly."""
+    return (np.array_equal(got[2], want[2])
+            and all(torch.equal(g, w) for g, w in zip(got[:2], want[:2])))
+
+
+def check_batch(data, bq) -> bool:
+    """Both batched kernels against their plain versions on the batch
+    ``bq`` over ``data``: bitmaps, partials, ids and counts equal."""
+    from geomesa_tpu_torch.scan import kernels
+    b, t = bq.tables(data.device)
+    bits, parts = kernels.scan_batch_bits(data.cols, data.n, b, t)
+    torch.cuda.synchronize()
+    want_bits, want_parts = kernels.scan_batch_bits_plain(data.cols, data.n,
+                                                          b, t)
+    return (torch.equal(bits, want_bits) and torch.equal(parts, want_parts)
+            and _compact_equal(kernels.compact_bits(bits, parts),
+                               kernels.compact_bits_plain(bits, parts)))
+
+
 def phase_build():
     from geomesa_tpu_torch.scan import kernels
     info = kernels.build_library()
@@ -237,6 +378,8 @@ def phase_kernels(seed: int, rows: int) -> dict:
         s = stats["scan_mask_gather"]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["per_query"].append(g)
+    for name, st in batch_kernel_stats(data, seed).items():
+        stats[name] = {"max_abs_err": st["max_abs_err"], "per_query": [st]}
     emit({"phase": "kernels", "rows": n, "cap": cap, "gathered_rows": m,
           "upload_s": upload_s, "scan_data_bytes": data.nbytes,
           "kernels": stats})
@@ -257,7 +400,7 @@ def _brute(x, y, ms, boxes, iv):
     return np.flatnonzero(hit)
 
 
-def phase_store(seed: int, rows: int, gather_stats: dict) -> dict:
+def phase_store(seed: int, rows: int, gather_stats: dict):
     from geomesa_tpu_torch import InMemoryDataStore
     from geomesa_tpu_torch.index.zkeys import search_rows
     from geomesa_tpu_torch.scan import kernels, zscan
@@ -349,10 +492,196 @@ def phase_store(seed: int, rows: int, gather_stats: dict) -> dict:
         raise SystemExit("scan_count disagrees with the mask on the store")
     if appends[0] != "build" or "in_place" not in appends:
         raise SystemExit(f"no in-place append among the writes: {appends}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in ("scan_mask", "scan_mask_gather", "scan_count")
+               if counts[k] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the main path: {missing}")
+    return counts, ds, (x, y, ms, ids)
+
+
+def _ecql(boxes, iv) -> str:
+    bb = " OR ".join(f"BBOX(geom, {x0!r}, {y0!r}, {x1!r}, {y1!r})"
+                     for x0, y0, x1, y1 in boxes)
+    if len(boxes) > 1:
+        bb = f"({bb})"
+    if iv is None:
+        return bb
+    lo, hi = (str(np.datetime64(v // 1000, "s")) + "Z" for v in iv)
+    return f"{bb} AND dtg DURING {lo}/{hi}"
+
+
+def _timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_batched(seed: int, ds, rows) -> dict:
+    """The micro-batched serving path on the store phase's rows."""
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.scan import kernels, zscan
+    from geomesa_tpu_torch.scan.batcher import QueryBatcher
+    x, y, ms, ids = rows
+    rng = np.random.default_rng(seed + 2)
+    specs = random_queries(rng, STORE_BATCH_QUERIES, T0_DAY * MS_DAY,
+                           T1_DAY * MS_DAY)
+    ecqls = [_ecql(boxes, iv) for boxes, iv in specs]
+    truth = [_brute(x, y, ms, boxes, iv) for boxes, iv in specs]
+    scalar = [ds.query(e, "ais") for e in ecqls]   # also warms the planner
+    for e, res, want in zip(ecqls, scalar, truth):
+        if not np.array_equal(res.rows, want):
+            raise SystemExit(f"scalar query() wrong for {e!r}")
+
+    # every stacked batch that the store hands the device path while the
+    # path is checked and while the batcher serves, to hold the kernels
+    # against their plain versions at those shapes afterwards
+    seen = []
+    device_path = zscan.batch_hit_rows
+
+    def recording(data, bq):
+        seen.append(bq)
+        return device_path(data, bq)
+
+    kernels.reset_launches()
+    t_main = time.perf_counter()
+    zscan.batch_hit_rows = recording
+    sizes = {}
+    try:
+        for size in BATCH_SIZES:
+            chunks = [list(range(i, i + size))
+                      for i in range(0, len(ecqls), size)]
+            for chunk in chunks:
+                res = ds.query_batched([Query("ais", ecqls[i])
+                                        for i in chunk])
+                for i, r in zip(chunk, res):
+                    if not (np.array_equal(r.rows, truth[i])
+                            and np.array_equal(r.ids, scalar[i].ids)):
+                        raise SystemExit(f"query_batched wrong for "
+                                         f"{ecqls[i]!r} at batch size {size}")
+                    if "Fused device scan" not in r.explain.text:
+                        raise SystemExit(f"{ecqls[i]!r} did not take the "
+                                         f"fused path at batch size {size}")
+            zscan.batch_hit_rows = device_path
+            batched, seq = [], []
+            for _ in range(3):
+                for chunk in chunks:
+                    qs = [Query("ais", ecqls[i]) for i in chunk]
+                    batched.append(_timed(lambda: ds.query_batched(qs)))
+                    seq.append(_timed(lambda: [ds.query(q) for q in qs]))
+            sizes[size] = {"calls": len(batched),
+                           "batched_p50_ms": statistics.median(batched),
+                           "sequential_p50_ms": statistics.median(seq)}
+            zscan.batch_hit_rows = recording
+        batcher_runs = {"default": run_batcher(QueryBatcher(ds), ecqls,
+                                               truth)}
+    finally:
+        zscan.batch_hit_rows = device_path
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    counts = dict(kernels.launches)
+
+    # outside the counted run: both kernels against their plain versions
+    # on every batch the path ran, at its own (Q, K, B) over the store's
+    # columns
+    st = ds._types["ais"]
+    data = st.scan_data
+    shapes = sorted({(bq.n_queries, bq.boxes_np.shape[1], bq.times_np.shape[1])
+                     for bq in seen})
+    wrong = [bq.n_queries for bq in seen if not check_batch(data, bq)]
+    checked = {"batches": len(seen), "shapes": shapes, "wrong": wrong}
+
+    # the same callers with a static 200 ms linger
+    batcher_runs["linger_200ms_static"] = run_batcher(
+        QueryBatcher(ds, linger_us=200_000, adaptive=False), ecqls, truth)
+
+    # where one call of 32 queries spends its time: the device path
+    # alone (both kernels, the sync, the ids' copy to the host), the
+    # gather of the result ids from the id column as query_batched does
+    # it, and a cProfile of the call
+    qs = [Query("ais", e) for e in ecqls]
+    bq = zscan.stack_queries([zscan.make_query(
+        boxes, [(iv[0] + 1, iv[1] - 1)] if iv else [])
+        for boxes, iv in specs])
+    res = ds.query_batched(qs)
+    breakdown = {
+        "call_ms": statistics.median(_timed(lambda: ds.query_batched(qs))
+                                     for _ in range(5)),
+        "batch_hit_rows_ms": statistics.median(
+            _timed(lambda: zscan.batch_hit_rows(data, bq)) for _ in range(5)),
+        "id_gather_ms": statistics.median(
+            _timed(lambda: [st.batch.ids[r.rows] for r in res])
+            for _ in range(5)),
+        "ids": sum(r.n for r in res),
+        "profile": profile_top(lambda: ds.query_batched(qs)),
+    }
+    b, t = bq.tables(st.device)
+    emit({"phase": "batched", "rows": len(x), "queries": len(ecqls),
+          "hits": [len(w) for w in truth], "sizes": sizes,
+          "batcher": batcher_runs, "checked": checked,
+          "breakdown_32": breakdown,
+          "scan_batch_bits_ms": cuda_ms(lambda: kernels.scan_batch_bits(
+              data.cols, data.n, b, t), 10),
+          "launches": counts, "seconds": main_s})
+    if wrong or not seen:
+        raise SystemExit(f"batched kernels disagree with their plain "
+                         f"versions on the batched path: {checked}")
+    bad = {k: r["errors"] for k, r in batcher_runs.items() if r["errors"]}
+    if bad:
+        raise SystemExit(f"QueryBatcher results wrong: {bad}")
+    missing = [k for k in ("scan_batch_bits", "compact_bits")
+               if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"kernels never launched on the batched path: "
+                         f"{missing}")
     return counts
+
+
+def profile_top(fn, top: int = 12) -> list:
+    """cProfile of one fn() call: the ``top`` functions by own time,
+    as [where, own ms, cumulative ms, calls]."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: kv[1][2], reverse=True)[:top]
+    return [[f"{os.path.basename(f)}:{line}({name})", tt * 1e3, ct * 1e3, nc]
+            for (f, line, name), (_cc, nc, tt, ct, _callers) in rows]
+
+
+def run_batcher(batcher, ecqls, truth) -> dict:
+    """BATCHER_THREADS callers each submitting BATCHER_PER_THREAD of the
+    queries through ``batcher``; every result checked against the brute
+    force."""
+    import threading
+    results, errors = {}, []
+
+    def caller(t):
+        try:
+            for j in range(BATCHER_PER_THREAD):
+                i = (t * BATCHER_PER_THREAD + j) % len(ecqls)
+                results[t, j] = (i, batcher.query(ecqls[i], "ais"))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+    threads = [threading.Thread(target=caller, args=(t,))
+               for t in range(BATCHER_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    errors += [f"wrong ids for query {i}" for (i, r) in results.values()
+               if not np.array_equal(r.rows, truth[i])]
+    if len(results) != BATCHER_THREADS * BATCHER_PER_THREAD:
+        errors.append(f"{len(results)} results")
+    st = batcher.stats()
+    return {"threads": BATCHER_THREADS, "per_thread": BATCHER_PER_THREAD,
+            "seconds": wall, "queries_per_s": len(results) / wall,
+            "coalesce_ratio": st["coalesce_ratio"], "batches": st["batches"],
+            "stats": st, "errors": errors[:3]}
 
 
 def main():
@@ -366,15 +695,20 @@ def main():
         return 1
     phase_build()
     stats = phase_kernels(args.seed, args.rows)
-    launches = phase_store(args.seed, args.store_rows,
-                           stats["scan_mask_gather"])
+    launches, ds, rows = phase_store(args.seed, args.store_rows,
+                                     stats["scan_mask_gather"])
+    batched = phase_batched(args.seed, ds, rows)
+    for name in ("scan_batch_bits", "compact_bits"):
+        launches[name] = batched[name]
     summary = []
     for name, s in stats.items():
         q0 = s["per_query"][0]   # the BBOX+time query (1M random ids
-                                 # for the gathered kernel, L2 cold)
+                                 # for the gathered kernel, L2 cold); the
+                                 # batch of 32 for the batched kernels
         summary.append({
             "name": name, "route": "cuda",
-            "source": "geomesa_tpu_torch/csrc/scan.cu",
+            "source": SOURCE_FILES.get(name,
+                                       "geomesa_tpu_torch/csrc/scan.cu"),
             "replaces": SOURCES[name], "launches": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": q0["ms"],
             "plain_ms": q0["plain_ms"], "bound_ms": q0["bound_ms"],

@@ -27,7 +27,7 @@ from typing import Any
 from ..curves.timebin import TimePeriod
 
 __all__ = ["AttributeType", "AttributeSpec", "SimpleFeatureType",
-           "parse_spec", "encode_spec", "Configs"]
+           "parse_spec", "encode_spec", "Configs", "CURRENT_INDEX_VERSION"]
 
 
 class Configs:
@@ -36,6 +36,11 @@ class Configs:
     DEFAULT_DATE = "geomesa.index.dtg"
     IGNORE_INDEX_DTG = "geomesa.ignore.dtg"
     Z3_INTERVAL = "geomesa.z3.interval"
+    INDEX_VERSION = "geomesa.index.version"
+
+
+# current z-index layout version (see SimpleFeatureType.index_version)
+CURRENT_INDEX_VERSION = 2
 
 
 GEOMETRY_TYPES = {
@@ -157,6 +162,14 @@ class SimpleFeatureType:
     @property
     def z3_interval(self) -> TimePeriod:
         return TimePeriod.parse(self.user_data.get(Configs.Z3_INTERVAL, "week"))
+
+    @property
+    def index_version(self) -> int:
+        """Z-index layout version (GeoMesaFeatureIndex keys table names
+        by version, GeoMesaFeatureIndex.scala:33-35). The batcher keys
+        its shape classes on it."""
+        return int(self.user_data.get(Configs.INDEX_VERSION,
+                                      CURRENT_INDEX_VERSION))
 
     # -- encoding ---------------------------------------------------------
 

@@ -1,16 +1,18 @@
 """Device scan of the point query slice: the two-float column layout
-(zscan.py) and the hand-written scan kernels behind it (kernels.py,
-csrc/scan.cu)."""
+(zscan.py), the hand-written scan kernels behind it (kernels.py,
+csrc/scan.cu, csrc/batch.cu) and the micro-batching admission queue in
+front of the store (batcher.py)."""
 
 from .kernels import launches, reset_launches
-from .zscan import (ScanData, ScanQuery, boundary_candidates,
-                    build_scan_data, exact_patch, extend_scan_data,
-                    make_query, patch_hit_rows, scan_count,
+from .zscan import (BatchedScanQuery, ScanData, ScanQuery, batch_hit_rows,
+                    boundary_candidates, build_scan_data, exact_patch,
+                    extend_scan_data, make_query, patch_hit_rows, scan_count,
                     scan_data_from_numpy, scan_mask, scan_mask_at,
-                    split_two_float)
+                    scan_mask_batch, split_two_float, stack_queries)
 
-__all__ = ["ScanData", "ScanQuery", "boundary_candidates", "build_scan_data",
-           "exact_patch", "extend_scan_data", "launches", "make_query",
-           "patch_hit_rows", "reset_launches", "scan_count",
-           "scan_data_from_numpy", "scan_mask", "scan_mask_at",
-           "split_two_float"]
+__all__ = ["BatchedScanQuery", "ScanData", "ScanQuery", "batch_hit_rows",
+           "boundary_candidates", "build_scan_data", "exact_patch",
+           "extend_scan_data", "launches", "make_query", "patch_hit_rows",
+           "reset_launches", "scan_count", "scan_data_from_numpy",
+           "scan_mask", "scan_mask_at", "scan_mask_batch", "split_two_float",
+           "stack_queries"]

@@ -1,12 +1,18 @@
 """The scan kernels: wrappers, launch counts and plain versions.
 
-Three kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu`` (see
-the note at its head for what they replace and what bounds them):
+Five kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu`` and
+``csrc/batch.cu`` (see the notes at their heads for what they replace
+and what bounds them):
 
 - ``scan_mask``: the dense tier, bool[cap] over every row;
 - ``scan_mask_gather``: the gathered tier, bool[m] over rows ``idx``
   (int32), read from the row-major gather table (``ScanData.rows``);
-- ``scan_count``: the predicate summed to one int32 on the device.
+- ``scan_count``: the predicate summed to one int32 on the device;
+- ``scan_batch_bits``: a batch of Qp queries in one pass over the rows,
+  as hit and boundary-candidate bitmaps int32[2, Qp, words] with
+  per-block popcounts int32[2, Qp, nb];
+- ``compact_bits``: those bitmaps compacted into each query's ascending
+  int32 row ids, one flat buffer per kind, with the per-query counts.
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device). On CUDA tensors it launches its kernel
@@ -14,9 +20,11 @@ or raises; it never falls back. ``launches`` counts kernel launches per
 wrapper, so a run can show that its main path went through them.
 
 The kernels build at first use with ``nvcc`` into ``_build/`` beside
-this package, keyed on a hash of the sources, and load with ctypes.
-Query tables: boxes (K, 8) f32 and times (B, 4) i32 with unused slots
-folded into impossible bounds (see ``zscan.make_query``).
+this package (one ``nvcc`` per source, started together, then one
+link), keyed on a hash of the sources, and load with ctypes. Query
+tables: boxes (K, 8) f32 and times (B, 4) i32 with unused slots folded
+into impossible bounds (see ``zscan.make_query``); the batched kernels
+take them stacked, (Qp, K, 8) and (Qp, B, 4) (``zscan.stack_queries``).
 """
 
 from __future__ import annotations
@@ -34,21 +42,35 @@ import time
 import torch
 
 __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
-           "scan_count", "scan_mask_plain", "scan_mask_gather_plain",
-           "scan_count_plain", "build_library", "BuildInfo",
-           "MAX_TABLE_BYTES"]
+           "scan_count", "scan_batch_bits", "compact_bits",
+           "scan_mask_plain", "scan_mask_gather_plain", "scan_count_plain",
+           "scan_batch_bits_plain", "compact_bits_plain", "batch_shape",
+           "unpack_bits",
+           "build_library", "BuildInfo", "MAX_TABLE_BYTES",
+           "BATCH_ROWS_PER_BLOCK", "BATCH_MAX_GROUP"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCES = [os.path.join(_PKG, "csrc", "scan.cu")]
+_SOURCES = [os.path.join(_PKG, "csrc", f) for f in ("scan.cu", "batch.cu")]
 _BUILD_DIR = os.path.join(_PKG, "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v"]
 
 # the kernels stage both query tables in dynamic shared memory, which a
 # launch may use up to 48 KB without opting in to more
 MAX_TABLE_BYTES = 48 * 1024
 
-launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0}
+# the batched kernels (csrc/batch.cu): a block of the bitmap kernel, and
+# so one partial count, covers this many rows (64 bitmap words); one
+# launch takes at most BATCH_MAX_GROUP queries (one per lane of a warp),
+# and its shared memory holds the group's tables beside
+# _BATCH_SMEM_EXTRA bytes of counters
+BATCH_ROWS_PER_BLOCK = 2048
+BATCH_MAX_GROUP = 32
+_BATCH_SMEM_EXTRA = 2 * BATCH_MAX_GROUP * 4
+
+launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0,
+            "scan_batch_bits": 0, "compact_bits": 0}
 
 
 def reset_launches():
@@ -107,6 +129,75 @@ def scan_count_plain(cols, n: int, boxes, times, time_any: bool):
     return hits.sum(dtype=torch.int32).reshape(1)
 
 
+def batch_shape(cap: int) -> tuple[int, int]:
+    """(words, nb) of the batched kernels' outputs for ``cap`` rows:
+    32 rows per bitmap word, BATCH_ROWS_PER_BLOCK rows per partial."""
+    words = -(-cap // 32)
+    return words, -(-words // (BATCH_ROWS_PER_BLOCK // 32))
+
+
+def _candidates(xhi, yhi, boxes):
+    """The boundary-candidate test (a port of zscan._cand_body): the
+    row's hi cell equals a box bound's hi cell, over the K boxes."""
+    b = boxes[None, :, :]
+    xh, yh = xhi[:, None], yhi[:, None]
+    return ((xh == b[..., 0]) | (xh == b[..., 2])
+            | (yh == b[..., 4]) | (yh == b[..., 6])).any(dim=1)
+
+
+def _pack_bits(mask, words: int):
+    """bool[rows] -> int32[words], bit j of word w = row 32w + j. Distinct
+    powers of two (bit 31 as -2^31) sum without a carry, so the int32
+    sum is the bitwise OR."""
+    m = torch.zeros(words * 32, dtype=torch.int32, device=mask.device)
+    m[:mask.shape[0]] = mask
+    shifts = torch.arange(32, dtype=torch.int32, device=mask.device)
+    return (m.view(words, 32) << shifts).sum(dim=1, dtype=torch.int32)
+
+
+def unpack_bits(words):
+    """int32[words] -> bool[32 * words]; the inverse of _pack_bits."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[:, None] >> shifts) & 1).bool().flatten()
+
+
+def scan_batch_bits_plain(cols, n: int, boxes, times):
+    """(bits int32[2, Qp, words], partials int32[2, Qp, nb]): per query,
+    the predicate (kind 0) and the boundary-candidate test (kind 1) on
+    rows < n as bitmaps, and their popcounts per BATCH_ROWS_PER_BLOCK
+    rows."""
+    cap = cols[0].shape[0]
+    qp = boxes.shape[0]
+    words, nb = batch_shape(cap)
+    dev = cols[0].device
+    bits = torch.empty((2, qp, words), dtype=torch.int32, device=dev)
+    partials = torch.empty((2, qp, nb), dtype=torch.int32, device=dev)
+    if cap == 0:
+        return bits, partials
+    for q in range(qp):
+        hit = _predicate(*cols, boxes[q], times[q], False)
+        cand = _candidates(cols[0], cols[2], boxes[q])
+        for kind, m in enumerate((hit, cand)):
+            m[n:] = False
+            bits[kind, q] = _pack_bits(m, words)
+            blocks = torch.zeros(nb * BATCH_ROWS_PER_BLOCK, dtype=torch.int32,
+                                 device=dev)
+            blocks[:cap] = m
+            partials[kind, q] = blocks.view(nb, -1).sum(dim=1,
+                                                        dtype=torch.int32)
+    return bits, partials
+
+
+def compact_bits_plain(bits, partials):
+    """(hit ids, candidate ids, counts): per kind the set rows of query
+    0, then query 1, ..., ascending within a query (torch.nonzero), as
+    int32; counts int64[2, Qp] on the host, query q's share of kind k."""
+    counts = partials.sum(dim=2, dtype=torch.int64).cpu().numpy()
+    return (*(torch.cat([torch.nonzero(unpack_bits(bits[kind, q])).flatten()
+                         .to(torch.int32) for q in range(bits.shape[1])])
+              for kind in range(2)), counts)
+
+
 # -- build -----------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -130,8 +221,9 @@ def _nvcc() -> str:
 
 
 def build_library() -> BuildInfo:
-    """Compile csrc/scan.cu (once per source hash) and return where the
-    shared library is. Raises on a failed build; there is no fallback."""
+    """Compile csrc/*.cu (once per source hash) and return where the
+    shared library is: one ``nvcc -c`` per source, all started together,
+    then one link. Raises on a failed build; there is no fallback."""
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for p in _SOURCES:
         with open(p, "rb") as f:
@@ -140,21 +232,27 @@ def build_library() -> BuildInfo:
     if os.path.exists(path):
         return BuildInfo(path, 0.0, "")
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, *_SOURCES],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o")
+                for p in _SOURCES]
+        procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", o, p],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(_SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        log = "".join(logs)
+        if any(proc.returncode != 0 for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *_ARCH, "-shared", "-o", lib, *objs],
                               capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildInfo(path, time.perf_counter() - t0,
-                     proc.stdout + proc.stderr)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(lib, path)
+    return BuildInfo(path, time.perf_counter() - t0, log)
 
 
 def _library() -> ctypes.CDLL:
@@ -169,9 +267,22 @@ def _library() -> ctypes.CDLL:
                 [p, p, i64, p, i32, p, i32, i32, p, p])
             lib.geomesa_scan_count.argtypes = (
                 cols + [i64, p, i32, p, i32, i32, p, p])
+            lib.geomesa_scan_batch_bits.argtypes = (
+                cols + [i64, i64, p, p, i32, i32, i32, p, i64, p, i64, p])
+            lib.geomesa_compact_bits.argtypes = (
+                [p, p, p, i32, i64, i64, p, p, p])
+            lib.geomesa_batch_rows_per_block.argtypes = []
+            lib.geomesa_batch_max_group.argtypes = []
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
-                       lib.geomesa_scan_count):
+                       lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
+                       lib.geomesa_compact_bits,
+                       lib.geomesa_batch_rows_per_block,
+                       lib.geomesa_batch_max_group):
                 fn.restype = ctypes.c_int
+            if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
+                    or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP):
+                raise RuntimeError("csrc/batch.cu and kernels.py disagree "
+                                   "on the batched kernels' block shape")
             _lib["lib"] = lib
         return _lib["lib"]
 
@@ -195,7 +306,7 @@ def _on_cpu(cols, *others) -> bool:
     return False
 
 
-def _check(cols, boxes, times):
+def _check_cols(cols, n: int) -> int:
     if len(cols) != 6:
         raise ValueError("cols are (xhi, xlo, yhi, ylo, tday, tms)")
     cap = cols[0].shape[0]
@@ -204,6 +315,13 @@ def _check(cols, boxes, times):
             raise ValueError(f"column must be 1-d {dt} of length {cap}")
         if not c.is_contiguous():
             raise ValueError("columns must be contiguous")
+    if not 0 <= n <= cap:
+        raise ValueError(f"n={n} outside [0, {cap}]")
+    return cap
+
+
+def _check(cols, n: int, boxes, times):
+    cap = _check_cols(cols, n)
     _check_tables(boxes, times)
     return cap
 
@@ -236,9 +354,7 @@ def _raise_on(rc: int, name: str):
 
 def scan_mask(cols, n: int, boxes, times, time_any: bool):
     """Dense tier: bool[cap] mask over every row, False past ``n``."""
-    cap = _check(cols, boxes, times)
-    if not 0 <= n <= cap:
-        raise ValueError(f"n={n} outside [0, {cap}]")
+    cap = _check(cols, n, boxes, times)
     if _on_cpu(cols, boxes, times):
         return scan_mask_plain(cols, n, boxes, times, time_any)
     out = torch.empty(cap, dtype=torch.bool, device=cols[0].device)
@@ -288,9 +404,7 @@ def scan_mask_gather(rows, idx, boxes, times, time_any: bool):
 
 def scan_count(cols, n: int, boxes, times, time_any: bool):
     """int32[1] on the columns' device: matching rows among the first n."""
-    cap = _check(cols, boxes, times)
-    if not 0 <= n <= cap:
-        raise ValueError(f"n={n} outside [0, {cap}]")
+    _check(cols, n, boxes, times)
     if _on_cpu(cols, boxes, times):
         return scan_count_plain(cols, n, boxes, times, time_any)
     out = torch.zeros(1, dtype=torch.int32, device=cols[0].device)
@@ -304,3 +418,117 @@ def scan_count(cols, n: int, boxes, times, time_any: bool):
     _raise_on(rc, "scan_count")
     launches["scan_count"] += 1
     return out
+
+
+def _batch_group(boxes, times) -> int:
+    """Queries per launch of the bitmap kernel: at most BATCH_MAX_GROUP,
+    and as many as keep their tables (and the kernel's counters) within
+    MAX_TABLE_BYTES of shared memory. A batch whose tables exceed that
+    runs as several launches over query groups."""
+    if (boxes.dtype != torch.float32 or boxes.dim() != 3
+            or boxes.shape[2] != 8 or boxes.shape[1] < 1
+            or not boxes.is_contiguous()):
+        raise ValueError("boxes must be a contiguous (Qp, K>=1, 8) float32 "
+                         "table")
+    if (times.dtype != torch.int32 or times.dim() != 3
+            or times.shape[2] != 4 or times.shape[1] < 1
+            or not times.is_contiguous()):
+        raise ValueError("times must be a contiguous (Qp, B>=1, 4) int32 "
+                         "table")
+    if boxes.shape[0] < 1 or boxes.shape[0] != times.shape[0]:
+        raise ValueError("boxes and times must stack the same Qp >= 1 "
+                         "queries")
+    per_query = boxes.shape[1] * 8 * 4 + times.shape[1] * 4 * 4
+    group = min(BATCH_MAX_GROUP,
+                (MAX_TABLE_BYTES - _BATCH_SMEM_EXTRA) // per_query)
+    if group < 1:
+        raise ValueError(
+            f"one query's tables of {boxes.shape[1]} boxes and "
+            f"{times.shape[1]} intervals take {per_query} bytes of shared "
+            f"memory; the kernels take at most "
+            f"{MAX_TABLE_BYTES - _BATCH_SMEM_EXTRA}")
+    return group
+
+
+def scan_batch_bits(cols, n: int, boxes, times):
+    """A batch of Qp queries in one pass over the rows: (bits
+    int32[2, Qp, words], partials int32[2, Qp, nb]), ``batch_shape``.
+
+    Kind 0 is the predicate, kind 1 the boundary-candidate test; bit j
+    of word w is row 32w + j, rows >= n are 0; partials[kind, q, j] is
+    the popcount of rows j*BATCH_ROWS_PER_BLOCK .. of query q. ``boxes``
+    (Qp, K, 8) f32 and ``times`` (Qp, B, 4) i32 are stacked tables with
+    no time_any: a time-free query carries a catch-all interval
+    (``zscan.stack_queries``)."""
+    cap = _check_cols(cols, n)
+    group = _batch_group(boxes, times)
+    if _on_cpu(cols, boxes, times):
+        return scan_batch_bits_plain(cols, n, boxes, times)
+    qp, k, b = boxes.shape[0], boxes.shape[1], times.shape[1]
+    words, nb = batch_shape(cap)
+    dev = cols[0].device
+    bits = torch.empty((2, qp, words), dtype=torch.int32, device=dev)
+    partials = torch.empty((2, qp, nb), dtype=torch.int32, device=dev)
+    if cap == 0:
+        return bits, partials
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for q0 in range(0, qp, group):
+        qg = min(group, qp - q0)
+        rc = lib.geomesa_scan_batch_bits(
+            *_ptrs(cols), n, words, boxes[q0].data_ptr(), times[q0].data_ptr(),
+            qg, k, b, bits[0, q0].data_ptr(), qp * words,
+            partials[0, q0].data_ptr(), qp * nb, stream)
+        _raise_on(rc, "scan_batch_bits")
+        launches["scan_batch_bits"] += 1
+    return bits, partials
+
+
+def _compact_plan(partials):
+    """(offsets int64[2, Qp*nb] on the device, counts int64[2, Qp] on
+    the host) for the compaction: per kind the exclusive prefix of the
+    partials over (Qp, nb), query-major (torch.cumsum), and each query's
+    total, which comes to the host (the one sync) to size the outputs
+    and to split them by query."""
+    # one 1-d scan over both kinds, then kind 1 restarts at 0: PyTorch
+    # scans the rows of a 2-row matrix with a few blocks, a 1-d tensor
+    # with a device-wide scan (PERF.md has the times)
+    flat = partials.reshape(-1).to(torch.int64)
+    offsets = (torch.cumsum(flat, dim=0) - flat).view(2, flat.shape[0] // 2)
+    if offsets.shape[1]:
+        offsets[1] -= offsets[1, 0].clone()
+    counts = partials.sum(dim=2, dtype=torch.int64).cpu().numpy()
+    return offsets, counts
+
+
+def compact_bits(bits, partials):
+    """(hit ids, candidate ids, counts): the ids int32 on the bitmaps'
+    device, per kind the rows of query 0, then query 1, ..., each
+    ascending; counts int64[2, Qp] on the host, query q's share of kind
+    k (the sums of ``partials``). ``bits`` and ``partials`` are
+    ``scan_batch_bits``'s. The counts' copy to the host is the one sync."""
+    if (bits.dtype != torch.int32 or bits.dim() != 3 or bits.shape[0] != 2
+            or not bits.is_contiguous()):
+        raise ValueError("bits must be a contiguous int32[2, Qp, words]")
+    qp, words = bits.shape[1], bits.shape[2]
+    if (partials.dtype != torch.int32 or not partials.is_contiguous()
+            or tuple(partials.shape) != (2, qp, batch_shape(32 * words)[1])):
+        raise ValueError("partials must be the contiguous int32[2, Qp, nb] "
+                         "of these bits")
+    if _on_cpu((bits, partials)):
+        return compact_bits_plain(bits, partials)
+    offsets, counts = _compact_plan(partials)
+    hit_total, cand_total = (int(c) for c in counts.sum(axis=1))
+    dev = bits.device
+    out_hit = torch.empty(hit_total, dtype=torch.int32, device=dev)
+    out_cand = torch.empty(cand_total, dtype=torch.int32, device=dev)
+    if hit_total + cand_total == 0:
+        return out_hit, out_cand, counts
+    lib = _library()
+    rc = lib.geomesa_compact_bits(
+        bits.data_ptr(), partials.data_ptr(), offsets.data_ptr(), qp,
+        partials.shape[2], words, out_hit.data_ptr(), out_cand.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "compact_bits")
+    launches["compact_bits"] += 1
+    return out_hit, out_cand, counts

@@ -14,7 +14,9 @@ The column split stays numpy on the host; ``ScanData`` holds the six
 columns as tensors on one device with power-of-two capacity, beside a
 row-major copy of the same words for the gathered tier, and appends
 copy into that capacity in place. The predicate itself runs in the
-hand kernels of ``kernels.py`` (their plain versions on the CPU).
+hand kernels of ``kernels.py`` (their plain versions on the CPU); a
+batch of queries runs in one pass of the batched kernels
+(``stack_queries`` + ``batch_hit_rows``).
 """
 
 from __future__ import annotations
@@ -26,11 +28,12 @@ import torch
 
 from . import kernels
 
-__all__ = ["MAX_ROWS", "MILLIS_PER_DAY", "ScanData", "ScanQuery",
-           "boundary_candidates", "build_scan_data", "exact_patch",
-           "extend_scan_data", "make_query", "next_pow2", "pack_rows",
-           "patch_hit_rows", "scan_count", "scan_data_from_numpy",
-           "scan_mask", "scan_mask_at", "split_two_float"]
+__all__ = ["MAX_ROWS", "MILLIS_PER_DAY", "BatchedScanQuery", "ScanData",
+           "ScanQuery", "batch_hit_rows", "boundary_candidates",
+           "build_scan_data", "exact_patch", "extend_scan_data", "make_query",
+           "next_pow2", "pack_rows", "patch_hit_rows", "scan_count",
+           "scan_data_from_numpy", "scan_mask", "scan_mask_at",
+           "scan_mask_batch", "split_two_float", "stack_queries"]
 
 MILLIS_PER_DAY = 86_400_000
 
@@ -305,6 +308,103 @@ def scan_count(data: ScanData, q: ScanQuery) -> int:
     boxes, times = q.tables(data.device)
     return int(kernels.scan_count(data.cols, data.n, boxes, times,
                                   q.time_any).item())
+
+
+# -- micro-batched multi-query scan -------------------------------------------
+#
+# N concurrent queries become ONE pass of the batched kernels: each
+# query's padded boxes/intervals are stacked along a leading batch dim
+# of exactly N. Per-query time_any may differ within a batch, so a
+# time-free query gets the reference's CATCH-ALL interval (all
+# representable days) and the batched kernel always runs the temporal
+# compare.
+
+_CATCH_ALL_INTERVAL = (-(2 ** 30), 0, 2 ** 30, MILLIS_PER_DAY)
+# an unused box slot of a stacked table holds NaN in every bound, so
+# neither the predicate nor the boundary-candidate test (hi == bound)
+# matches any row; an unused interval slot is never after its day_lo
+# nor before its day_hi
+_NO_BOX = np.full(8, np.nan, dtype=np.float32)
+_NO_INTERVAL = (np.iinfo(np.int32).max, 0, np.iinfo(np.int32).min, 0)
+
+
+class BatchedScanQuery:
+    """Stacked queries padded to common box/interval counts, as the
+    batched kernels' tables.
+
+    boxes: (Q, K, 8) f32; times: (Q, B, 4) i32
+
+    ``queries`` keeps the original ScanQuery objects (exact f64 bounds
+    for the per-query boundary patch). The tables move to a device on
+    first use there."""
+
+    def __init__(self, boxes: np.ndarray, times: np.ndarray,
+                 queries: list[ScanQuery]):
+        self.boxes_np = boxes
+        self.times_np = times
+        self.queries = list(queries)
+        self._tables: dict = {}
+
+    @property
+    def n_queries(self) -> int:
+        return len(self.queries)
+
+    def tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(boxes, times) tensors on ``device``, uploaded once."""
+        key = str(torch.device(device))
+        if key not in self._tables:
+            self._tables[key] = (torch.from_numpy(self.boxes_np).to(device),
+                                 torch.from_numpy(self.times_np).to(device))
+        return self._tables[key]
+
+
+def stack_queries(queries: list[ScanQuery]) -> BatchedScanQuery:
+    """Stack padded ScanQueries into one BatchedScanQuery.
+
+    Box/interval dims are padded to the max across the batch. Only each
+    query's used slots are copied; every other slot matches nothing."""
+    if not queries:
+        raise ValueError("stack_queries needs at least one query")
+    k = max(q.boxes_np.shape[0] for q in queries)
+    b = max(q.times_np.shape[0] for q in queries)
+    boxes = np.empty((len(queries), k, 8), dtype=np.float32)
+    boxes[:] = _NO_BOX
+    times = np.empty((len(queries), b, 4), dtype=np.int32)
+    times[:] = _NO_INTERVAL
+    for i, q in enumerate(queries):
+        boxes[i, :q.n_boxes] = q.boxes_np[:q.n_boxes]
+        if q.time_any:
+            times[i, 0] = _CATCH_ALL_INTERVAL
+        else:
+            m = len(q.host_intervals)
+            times[i, :m] = q.times_np[:m]
+    return BatchedScanQuery(boxes, times, queries)
+
+
+def scan_mask_batch(data: ScanData, bq: BatchedScanQuery) -> torch.Tensor:
+    """One pass of the batched kernel over all queries: bool[Q, cap]
+    on the data's device, False on rows >= data.n."""
+    boxes, times = bq.tables(data.device)
+    bits, _ = kernels.scan_batch_bits(data.cols, data.n, boxes, times)
+    q = bq.n_queries
+    return kernels.unpack_bits(bits[0].reshape(-1)).view(q, -1)[:, :data.cap]
+
+
+def batch_hit_rows(data: ScanData, bq: BatchedScanQuery
+                   ) -> tuple[list[np.ndarray], list[np.ndarray]]:
+    """The batched scan + compaction on the device: per query (ascending
+    int32 hit rows, boundary-candidate rows), on the host.
+
+    The bitmap kernel finds both sets in one pass; the compaction copies
+    the per-query counts (2*Q ints) to the host, its one sync, and writes
+    every query's ids into one buffer per kind, so the host receives
+    O(hits) and runs no O(n) candidate pass."""
+    boxes, times = bq.tables(data.device)
+    bits, partials = kernels.scan_batch_bits(data.cols, data.n, boxes, times)
+    hit_ids, cand_ids, counts = kernels.compact_bits(bits, partials)
+    return tuple(np.split(ids.cpu().numpy(), np.cumsum(cnt)[:-1])
+                 for ids, cnt in ((hit_ids, counts[0]),
+                                  (cand_ids, counts[1])))
 
 
 # -- exact f64 boundary patch (host) -----------------------------------------

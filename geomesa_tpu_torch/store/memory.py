@@ -9,6 +9,11 @@ GPU.
                     dense        scan kernel over every row
                  -> exact f64 boundary patch of the kernel tiers
                  -> sorted row ids
+    query_batched(qs)
+                 -> plan each query; the fusible ones of a type run as
+                    ONE pass of the batched kernels (hits, boundary
+                    candidates, compaction on the device), then the
+                    per-query f64 patch; the rest go through query()
 
 The device columns (two-float coordinates, (day, ms) times) live on
 the store's device with power-of-two capacity; appends copy into that
@@ -260,6 +265,95 @@ class InMemoryDataStore(DataStore):
         return QueryResult(idx, ids, explain, strategy)
 
     @_synchronized
+    def query_batched(self, queries: list[Query],
+                      explain_out=None) -> list[QueryResult]:
+        """Micro-batched execution: evaluate several queries with ONE
+        pass of the batched scan kernels and demultiplex per-query
+        results.
+
+        Queries whose plan cannot fuse (strategies other than z3/z2, a
+        secondary residual filter, an exact geometry predicate) run
+        through ``query()`` one by one, so the result list is exactly
+        what per-query ``query()`` calls return, id for id, in input
+        order. A type with fewer than two fusible queries, and a
+        one-element list, go through ``query()`` entirely."""
+        queries = [self._as_query(q, None) for q in queries]
+        if len(queries) <= 1:
+            return [self.query(q, explain_out=explain_out) for q in queries]
+        results: list[QueryResult | None] = [None] * len(queries)
+        groups: dict[str, list[int]] = {}
+        for i, q in enumerate(queries):
+            groups.setdefault(q.type_name, []).append(i)
+        for tn, members in groups.items():
+            st = self._types.get(tn)
+            fused: dict[int, tuple] = {}
+            for i in members:
+                plan = (self._fusible_plan(queries[i], st, explain_out)
+                        if st is not None and st.n > 0 else None)
+                if plan is not None:
+                    fused[i] = plan
+            if len(fused) < 2:
+                fused = {}
+            for i in members:
+                if i not in fused:
+                    results[i] = self.query(queries[i],
+                                            explain_out=explain_out)
+            if not fused:
+                continue
+            rows_per_q = self._batched_scan_rows(st, list(fused.values()))
+            for (i, (strategy, explain, _b, _iv)), idx in zip(fused.items(),
+                                                               rows_per_q):
+                q = queries[i]
+                if q.max_features is not None:
+                    idx = idx[:q.max_features]
+                explain(f"Hits: {len(idx)}").pop()
+                results[i] = QueryResult(idx, st.batch.ids[idx], explain,
+                                         strategy)
+        return results  # type: ignore[return-value]
+
+    def _fusible_plan(self, q: Query, st: _TypeState, explain_out):
+        """(strategy, explainer, boxes, intervals) when the query can run
+        in the batched scan: a z3/z2 strategy with no secondary filter
+        and no exact geometry predicate (a rectangular INTERSECTS or
+        WITHIN goes through query(), as in the reference); else None."""
+        _check_filter(q.filter, st.sft)
+        explain = Explainer(explain_out)
+        explain.push(lambda: f"Batched '{q.type_name}' filter={q.filter}")
+        strategy = decide_strategy(st.sft, q, ["z3", "z2"], st.n,
+                                   explain=explain)
+        if strategy.index not in ("z3", "z2") or strategy.secondary is not None:
+            return None
+        boxes, intervals, needs_exact = _scan_inputs(st.sft, strategy)
+        if needs_exact:
+            return None
+        return strategy, explain, boxes, intervals
+
+    def _batched_scan_rows(self, st: _TypeState, plans) -> list[np.ndarray]:
+        """One pass of the batched kernels over the stacked queries, then
+        the per-query exact boundary patch on the candidates that the
+        kernels compacted on the device (no per-query O(n) host work).
+        ``plans`` are _fusible_plan's, all of one type."""
+        st.ensure_index()
+        sqs = [zscan.make_query(boxes, intervals)
+               for _s, _e, boxes, intervals in plans]
+        bq = zscan.stack_queries(sqs)
+        hits, cands = zscan.batch_hit_rows(st.scan_data, bq)
+        col = st.batch.col(st.sft.geom_field)
+        millis = st._millis(st.batch)
+        out = []
+        for (_s, explain, _b, _iv), sq, rows, cand in zip(plans, sqs, hits,
+                                                          cands):
+            explain(f"Fused device scan: query {len(out) + 1} of "
+                    f"{bq.n_queries}, "
+                    f"{sq.n_boxes} box(es), {len(sq.host_intervals)} "
+                    f"interval(s), n={st.n}")
+            if len(cand):
+                explain(f"Boundary recheck: {len(cand)} candidate(s)")
+            rows = zscan.patch_hit_rows(rows, sq, col.x, col.y, millis, cand)
+            out.append(rows.astype(np.int64))
+        return out
+
+    @_synchronized
     def query_count(self, q: Query | str,
                     type_name: str | None = None) -> int:
         """Count without gathering ids: the same row selection, then the
@@ -306,15 +400,7 @@ class InMemoryDataStore(DataStore):
         the scan kernel over gathered candidates or every row, + exact
         boundary patch + the polygon predicate of INTERSECTS/WITHIN.
         Returns sorted row indices."""
-        sft = st.sft
-        primary = (strategy.primary if strategy.primary is not None
-                   else ast.Include())
-        geoms = extract_geometries(primary, sft.geom_field)
-        boxes = [g.envelope.as_tuple() for g in geoms] or [_WHOLE_WORLD]
-        intervals = (_intervals_ms(primary, sft.dtg_field)
-                     if sft.dtg_field is not None and strategy.index == "z3"
-                     else [])
-
+        boxes, intervals, needs_exact = _scan_inputs(st.sft, strategy)
         block_cap = int(float(SCAN_BLOCK_THRESHOLD.get()) * st.n)
         host_cap = min(block_cap, int(HOST_SCAN_ROWS.get()))
         kind, rows = search_rows(st.zindex, strategy.index, boxes,
@@ -331,12 +417,12 @@ class InMemoryDataStore(DataStore):
                 idx = self._scan_dense(st, sq, explain)
 
         # polygon predicates are exact on their polygon, not its envelope
-        spatial_f, _ = spatial_part(primary, sft.geom_field)
-        if spatial_f is not None and any(
-                isinstance(c, ast.SpatialPredicate) for c in ast.walk(spatial_f)):
-            if len(idx):
-                idx = idx[evaluate(spatial_f, st.batch.take(idx))]
-            explain("Exact geometry predicate applied")
+        if needs_exact:
+            spatial_f, _ = spatial_part(strategy.primary, st.sft.geom_field)
+            if spatial_f is not None:
+                if len(idx):
+                    idx = idx[evaluate(spatial_f, st.batch.take(idx))]
+                explain("Exact geometry predicate applied")
         return idx
 
     def _patch_mask(self, st: _TypeState, mask: np.ndarray, xhi, yhi, sel,
@@ -376,6 +462,24 @@ class InMemoryDataStore(DataStore):
         mask = self._patch_mask(st, mask, st.host_xhi, st.host_yhi, None,
                                 sq, explain)
         return np.flatnonzero(mask)
+
+
+def _scan_inputs(sft: SimpleFeatureType, strategy: FilterStrategy):
+    """(boxes, intervals, needs_exact) of a z3/z2 strategy, for the
+    scalar and the batched scan alike: the query envelopes (the whole
+    world when the filter has none), the inclusive millis intervals (z3
+    only), and whether an exact geometry predicate (INTERSECTS, WITHIN,
+    a non-rectangular geometry) must re-check the scan's rows."""
+    primary = (strategy.primary if strategy.primary is not None
+               else ast.Include())
+    geoms = extract_geometries(primary, sft.geom_field)
+    boxes = [g.envelope.as_tuple() for g in geoms] or [_WHOLE_WORLD]
+    intervals = (_intervals_ms(primary, sft.dtg_field)
+                 if sft.dtg_field is not None and strategy.index == "z3"
+                 else [])
+    needs_exact = any(not is_box(g) for g in geoms) or any(
+        isinstance(c, ast.SpatialPredicate) for c in ast.walk(primary))
+    return boxes, intervals, needs_exact
 
 
 def _intervals_ms(primary: ast.Filter, dtg: str) -> list[tuple[int, int]]:

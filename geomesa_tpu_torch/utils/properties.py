@@ -3,7 +3,8 @@
 Analog of GeoMesaSystemProperties.SystemProperty (geomesa-utils/.../conf/
 GeoMesaSystemProperties.scala:17-60): a named flag resolved, in order,
 from (1) the process environment (dots become underscores, uppercased),
-(2) a process-wide override map, (3) the declared default."""
+(2) a process-wide override map, (3) the declared default. Typed
+accessors mirror the reference (`.toInt/.toBoolean` -> as_int/as_bool)."""
 
 from __future__ import annotations
 
@@ -33,6 +34,20 @@ class SystemProperty:
             _overrides.pop(self.name, None)
         else:
             _overrides[self.name] = str(value)
+
+    # -- typed accessors ---------------------------------------------------
+
+    def as_int(self) -> int | None:
+        v = self.get()
+        return None if v is None else int(v)
+
+    def as_float(self) -> float | None:
+        v = self.get()
+        return None if v is None else float(v)
+
+    def as_bool(self) -> bool | None:
+        v = self.get()
+        return None if v is None else v.strip().lower() in ("true", "1", "yes")
 
 
 # coarser range target for the host index tiers, which re-check every

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import geomesa_tpu_torch
-from geomesa_tpu_torch import InMemoryDataStore
+from geomesa_tpu_torch import InMemoryDataStore, Query
 from geomesa_tpu_torch.scan import kernels
 from geomesa_tpu_torch.scan import zscan
 
@@ -25,7 +25,8 @@ MS_DAY = 86_400_000
 
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, geomesa_tpu_torch, geomesa_tpu_torch.store, "
-            "geomesa_tpu_torch.scan.kernels\n"
+            "geomesa_tpu_torch.scan.kernels, geomesa_tpu_torch.scan.batcher, "
+            "geomesa_tpu_torch.metrics\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -41,15 +42,18 @@ def test_import_leaves_jax_and_reference_out():
 def test_no_source_imports_jax_or_reference():
     pat = re.compile(r"^\s*(from|import)\s+(jax\b|geomesa_tpu\b(?!_torch))",
                      re.M)
-    offenders = []
+    offenders, seen = [], set()
     for dirpath, _, files in os.walk(PKG):
         for f in files:
             if f.endswith(".py"):
                 path = os.path.join(dirpath, f)
+                seen.add(os.path.relpath(path, PKG))
                 with open(path) as fh:
                     if pat.search(fh.read()):
                         offenders.append(path)
     assert offenders == []
+    assert {"metrics/__init__.py", "metrics/registry.py",
+            "scan/batcher.py", "scan/zscan.py"} <= seen
 
 
 def test_store_defaults_to_cuda(monkeypatch):
@@ -161,7 +165,8 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("plain version called on CUDA tensors")
     for name in ("scan_mask_plain", "scan_mask_gather_plain",
-                 "scan_count_plain", "_predicate"):
+                 "scan_count_plain", "scan_batch_bits_plain",
+                 "compact_bits_plain", "_predicate", "_candidates"):
         monkeypatch.setattr(kernels, name, refuse)
     _, _, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -169,8 +174,11 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
     zscan.scan_mask(d, q)
     zscan.scan_mask_at(d, q, np.arange(0, 10_000, 7))
     zscan.scan_count(d, q)
+    zscan.batch_hit_rows(d, zscan.stack_queries(
+        [zscan.make_query(*qq) for qq in QUERIES]))
     assert kernels.launches == {"scan_mask": 1, "scan_mask_gather": 1,
-                                "scan_count": 1}
+                                "scan_count": 1, "scan_batch_bits": 1,
+                                "compact_bits": 1}
 
 
 @pytest.mark.gpu
@@ -193,3 +201,117 @@ def test_store_on_cuda_matches_cpu(cuda, monkeypatch):
         got = stores[0].query(q, "pts")
         assert sum(kernels.launches.values()) == 1
         assert list(got.ids) == list(stores[1].query(q, "pts").ids)
+
+
+def _batch(count, k_boxes=None, intervals=None, seed=0):
+    """``count`` stacked queries: the QUERIES cycled, or ``k_boxes``
+    seeded boxes and ``intervals`` intervals each (the split path)."""
+    rng = np.random.default_rng(seed)
+    qs = []
+    for i in range(count):
+        if k_boxes is None:
+            qs.append(zscan.make_query(*QUERIES[i % len(QUERIES)]))
+            continue
+        corners = rng.uniform([-180, -90], [170, 80], (k_boxes, 2))
+        boxes = [(x0, y0, x0 + 10, y0 + 10) for x0, y0 in corners]
+        ivs = [(j * 5 * MS_DAY, (j * 5 + 3) * MS_DAY) for j in range(intervals)]
+        qs.append(zscan.make_query(boxes, ivs))
+    return zscan.stack_queries(qs)
+
+
+def _check_batch(d, bq, n_launch=1):
+    """Both batched kernels against their plain versions on the card,
+    exactly; the bitmap kernel in ``n_launch`` launches."""
+    b, t = bq.tables(d.device)
+    want_bits, want_parts = kernels.scan_batch_bits_plain(d.cols, d.n, b, t)
+    kernels.reset_launches()
+    bits, parts = kernels.scan_batch_bits(d.cols, d.n, b, t)
+    torch.cuda.synchronize()
+    assert kernels.launches["scan_batch_bits"] == n_launch
+    assert torch.equal(bits, want_bits) and torch.equal(parts, want_parts)
+    *ids, counts = kernels.compact_bits(bits, parts)
+    torch.cuda.synchronize()
+    *want, want_counts = kernels.compact_bits_plain(want_bits, want_parts)
+    assert np.array_equal(counts, want_counts)
+    for got, exp in zip(ids, want):
+        assert torch.equal(got, exp)
+    assert kernels.launches["compact_bits"] == (1 if sum(map(len, want)) else 0)
+    return want
+
+
+@pytest.fixture(scope="module")
+def batch_data():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    out = {}
+    for n in (0, 1, 31, 33, 4097, 1_000_000):
+        # capacity padding beyond n, and a capacity off a word boundary
+        out[n] = _data(n, max(n + 77, 64), torch.device("cuda"), seed=n)[3]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", [1, 2, 3, 32, 64])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 4097, 1_000_000])
+def test_batch_kernels_match_plain(batch_data, n, count):
+    """Qp = 1, 2, 3, 32 in one launch; 64 in two (32 queries per
+    launch)."""
+    d = batch_data[n]
+    bq = _batch(count)
+    hits, cands = _check_batch(d, bq, -(-count // 32))
+    if n == 1_000_000:
+        assert len(hits) > 0
+    if count == 1:
+        # a batch of one through scan_mask_batch is the scalar dense mask
+        q = zscan.make_query(*QUERIES[0])
+        assert torch.equal(zscan.scan_mask_batch(d, bq)[0],
+                           zscan.scan_mask(d, q))
+
+
+@pytest.mark.gpu
+def test_store_batched_on_cuda_matches_cpu(cuda):
+    rng = np.random.default_rng(19)
+    n = 40_000
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    ms = 1_577_836_800_000 + rng.integers(0, 100 * MS_DAY, n)
+    ids = [f"f{i}" for i in range(n)]
+    stores = [InMemoryDataStore(), InMemoryDataStore(device="cpu")]
+    for s in stores:
+        s.create_schema("pts", "dtg:Date,*geom:Point:srid=4326")
+        s.write_dict("pts", ids, {"dtg": ms, "geom": (x, y)})
+    qs = ["BBOX(geom, -80, 30, -60, 45) AND dtg DURING "
+          "2020-01-10T00:00:00Z/2020-02-20T00:00:00Z",
+          "BBOX(geom, -10, -10, 10, 10)",
+          "(BBOX(geom, 0, 0, 30, 20) OR BBOX(geom, 100, -50, 140, -10)) AND "
+          "dtg DURING 2020-01-05T00:00:00Z/2020-03-01T00:00:00Z"]
+    stores[0].query(qs[0], "pts")   # builds the index
+    kernels.reset_launches()
+    got = stores[0].query_batched([Query("pts", q) for q in qs])
+    assert kernels.launches["scan_batch_bits"] == 1
+    assert kernels.launches["compact_bits"] == 1
+    want = stores[1].query_batched([Query("pts", q) for q in qs])
+    for g, w, q in zip(got, want, qs):
+        assert "Fused device scan" in g.explain.text
+        assert list(g.ids) == list(w.ids) == list(stores[1].query(q, "pts").ids)
+
+
+@pytest.mark.gpu
+def test_batch_kernels_split_wide_tables(batch_data):
+    """Tables past the shared memory of one launch run as several
+    launches over query groups, and still equal the plain version."""
+    bq = _batch(32, k_boxes=64, intervals=8)
+    b, t = bq.tables("cuda")
+    group = kernels._batch_group(b, t)
+    assert b.numel() * 4 + t.numel() * 4 > kernels.MAX_TABLE_BYTES
+    hits, _ = _check_batch(batch_data[1_000_000], bq, -(-32 // group))
+    assert len(hits) > 0
+
+
+@pytest.mark.gpu
+def test_batch_kernels_keep_subnormals(cuda):
+    _, _, _, d = _data(100_000, 131_072, cuda, seed=3, scale=1e-42)
+    bq = zscan.stack_queries([
+        zscan.make_query([(-5e-41, -2e-41, 7e-41, 3e-41)], []),
+        zscan.make_query([(0.0, 0.0, 2e-41, 2e-41)], [(0, 50 * MS_DAY)])])
+    hits, _ = _check_batch(d, bq)
+    assert 0 < len(hits) < 2 * d.n
