@@ -23,8 +23,11 @@ Phases, one JSON line each; any failure exits non-zero:
            floor (32 B per random row). The batched kernels at the
            same 100M rows with a batch of 32 queries (the four reference
            queries, then seeded ones: boxes 1-40 degrees wide, a quarter
-           time-free, an eighth with two boxes): bitmaps, partials and
-           compacted ids held exactly against the plain versions.
+           time-free, an eighth with two boxes), each query over its own
+           slots: bitmaps, partials, the prefix kernel's offsets and
+           totals, and compacted ids held exactly against the plain
+           versions; the compaction timed through its wrapper and alone,
+           the prefix kernel beside one torch.cumsum of the partials.
 3. store   the main path: InMemoryDataStore() on CUDA, 10M rows written
            in chunks through write_dict (in-place appends and one
            capacity rebuild), the BBOX+time north-star query and two
@@ -43,14 +46,16 @@ Phases, one JSON line each; any failure exits non-zero:
            queries as sequential query() calls. Then QueryBatcher(ds)
            with 32 threads each submitting 8 queries: all exact, with
            queries/s, the coalesce ratio and the batch count. Launch
-           counts are zeroed before this phase and read after; both
-           batched kernels must have launched. Every stacked batch that
-           the path ran (batch sizes and the batcher's) is recorded and,
-           outside the counted run, both batched kernels are held
+           counts are zeroed before this phase and read after; the
+           three batched kernels must have launched. Every stacked batch
+           that the path ran (batch sizes and the batcher's) is recorded
+           and, outside the counted run, the batched kernels are held
            exactly against their plain versions on it over the store's
            columns. Then where one call of 32 queries spends its time:
            the device path alone, the gather of the result ids, and a
-           cProfile of the call (host clock).
+           cProfile of the call (host clock); and the batched kernels
+           timed at this phase's own shape beside their bounds
+           (``kernels_32``).
 
 Then the kernels summary line, the card line, and the final
 {"ok": true, ...} line. Without CUDA it exits 1 and prints no result.
@@ -103,10 +108,12 @@ SOURCES = {
     "scan_count": "geomesa_tpu/scan/pallas_scan.py:162 _count_call",
     "scan_batch_bits": "geomesa_tpu/scan/zscan.py:536 _batch_mask_cand "
                        "(+ :558 _batch_count)",
+    "compact_prefix": "geomesa_tpu/scan/zscan.py:563 _batch_nonzero "
+                      "(its offsets; + :558 _batch_count's totals)",
     "compact_bits": "geomesa_tpu/scan/zscan.py:563 _batch_nonzero",
 }
-SOURCE_FILES = {"scan_batch_bits": "geomesa_tpu_torch/csrc/batch.cu",
-                "compact_bits": "geomesa_tpu_torch/csrc/batch.cu"}
+SOURCE_FILES = {k: "geomesa_tpu_torch/csrc/batch.cu"
+                for k in ("scan_batch_bits", "compact_prefix", "compact_bits")}
 BATCH = 32          # queries per batch in the kernels phase
 STORE_BATCH_QUERIES = 32
 BATCH_SIZES = (2, 8, 32)
@@ -218,72 +225,143 @@ def random_queries(rng, count: int, lo_ms: int, hi_ms: int):
     return out
 
 
-def batch_kernel_stats(data, seed: int) -> dict:
-    """The two batched kernels at the kernels phase's rows with a batch
-    of BATCH queries, against their plain versions (exact), timed held
-    (medians of 10 launches; the plain versions of 1) with their
-    bounds."""
-    from geomesa_tpu_torch.scan import kernels, zscan
-    rng = np.random.default_rng(seed + 7)
-    specs = list(KERNEL_QUERIES) + [
-        (boxes, [iv] if iv else [])
-        for boxes, iv in random_queries(rng, BATCH - len(KERNEL_QUERIES), 0,
-                                        1000 * MS_DAY)]
-    bq = zscan.stack_queries([zscan.make_query(*q) for q in specs])
+def batch_stats(data, bq, plain: bool = True) -> dict:
+    """The batched kernels on the batch ``bq`` over ``data``: each
+    against its plain version (exact), timed held (medians of 10
+    launches; the plain versions of 1 when ``plain``) beside its bound;
+    ``compact_bits`` through its wrapper (prefix kernel, the totals'
+    copy to the host, compaction kernel) and its kernel alone."""
+    from geomesa_tpu_torch.scan import kernels
     b, t = bq.tables(data.device)
+    c = bq.counts(data.device)
     n, qp, k, nb_ = data.n, bq.n_queries, b.shape[1], t.shape[1]
     words, nblocks = kernels.batch_shape(data.cap)
 
     def bits_k():
-        return kernels.scan_batch_bits(data.cols, n, b, t)
+        return kernels.scan_batch_bits(data.cols, n, b, t, c)
 
     def bits_p():
-        return kernels.scan_batch_bits_plain(data.cols, n, b, t)
+        return kernels.scan_batch_bits_plain(data.cols, n, b, t, c)
     bits, parts = bits_k()
     torch.cuda.synchronize()
     want_bits, want_parts = bits_p()
     equal = torch.equal(bits, want_bits) and torch.equal(parts, want_parts)
     del want_bits, want_parts
 
-    # the wrapper whole: the offsets' prefix, the counts' copy to the
-    # host (its one sync) and the kernel
+    def prefix_k():
+        return kernels.compact_prefix(parts)
+
+    def prefix_p():
+        return kernels.compact_prefix_plain(parts)
+    offsets, totals = prefix_k()
+    prefix_equal = all(torch.equal(g, w) for g, w in zip((offsets, totals),
+                                                         prefix_p()))
+
     def comp_k():
         return kernels.compact_bits(bits, parts)
 
     def comp_p():
         return kernels.compact_bits_plain(bits, parts)
     comp_equal = _compact_equal(comp_k(), comp_p())
-    n_ids = int(parts.sum().item())
+    counts = totals.cpu().numpy()
+    outs = [torch.empty(int(x), dtype=torch.int32, device=data.device)
+            for x in counts.sum(axis=1)]
+    lib = kernels._library()
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+
+    def comp_kernel():   # the compaction kernel alone, outside the counts
+        lib.geomesa_compact_bits(
+            bits.data_ptr(), parts.data_ptr(), offsets.data_ptr(),
+            totals.data_ptr(), qp, nblocks, words, outs[0].data_ptr(),
+            outs[1].data_ptr(), stream)
+    n_ids = int(counts.sum())
     table_bytes = b.numel() * 4 + t.numel() * 4
     bits_bytes = 24 * n + 2 * qp * words * 4 + 2 * qp * nblocks * 4 + table_bytes
     # per row and query: 13 operations per box of the predicate, 8 of the
     # candidate test, 7 per interval; counted over each query's own boxes
     # and intervals (the padded slots are no work the function needs),
-    # and over the padded (Qp, K, B) the kernel evaluates
+    # and over the padded (Qp, K, B)
     ops = n * sum(21 * q.n_boxes + 7 * len(q.host_intervals)
                   for q in bq.queries)
     bits_bound = bound_ms(bits_bytes, ops)
     padded_bound = bound_ms(bits_bytes, n * qp * (13 * k + 7 * nb_ + 8 * k))
     nonempty = int((parts != 0).sum().item())
+    # the bytes the compaction needs: every partial, the int32 offset
+    # and the 64 words of each non-empty block, 4 B per id written
     comp_bound = bound_ms(
+        2 * qp * nblocks * 4 + nonempty * (4 + 64 * 4) + 4 * n_ids,
+        4 * n_ids)
+    # the yardstick of the first compaction design, kept so that times
+    # compare: partials read and int64 offsets for every block
+    comp_bound_int64 = bound_ms(
         2 * qp * nblocks * (4 + 8) + nonempty * 64 * 4 + 4 * n_ids,
         4 * n_ids)
+    prefix_bound = bound_ms(2 * qp * nblocks * (4 + 4) + 2 * qp * 8,
+                            2 * qp * nblocks)
+
+    def timed(kern, plain_fn):
+        out = {"ms": cuda_ms(kern, 10)}
+        if plain:
+            out["plain_ms"] = cuda_ms(plain_fn, 1, 1)
+        return out
     out = {
         "scan_batch_bits": {
             "max_abs_err": 0 if equal else 1, "queries": qp, "k": k, "b": nb_,
-            "ms": cuda_ms(bits_k, 10), "plain_ms": cuda_ms(bits_p, 1, 1),
+            **timed(bits_k, bits_p),
             "bound_ms": bits_bound[0], "bound_by": bits_bound[1],
             "padded_bound_ms": padded_bound[0],
             "hits": int(parts[0].sum().item()),
             "candidates": int(parts[1].sum().item())},
+        "compact_prefix": {
+            "max_abs_err": 0 if prefix_equal else 1, "rows": 2 * qp,
+            "partials": 2 * qp * nblocks, **timed(prefix_k, prefix_p),
+            # one PyTorch call for the same scan (inclusive, int64)
+            "library_ms": cuda_ms(
+                lambda: torch.cumsum(parts, dim=2, dtype=torch.int64), 10),
+            "bound_ms": prefix_bound[0], "bound_by": prefix_bound[1]},
         "compact_bits": {
             "max_abs_err": 0 if comp_equal else 1, "ids": n_ids,
             "nonempty_blocks": nonempty, "blocks": 2 * qp * nblocks,
-            "ms": cuda_ms(comp_k, 10), "plain_ms": cuda_ms(comp_p, 1, 1),
-            "bound_ms": comp_bound[0], "bound_by": comp_bound[1]},
+            **timed(comp_k, comp_p), "kernel_ms": cuda_ms(comp_kernel, 10),
+            "bound_ms": comp_bound[0], "bound_by": comp_bound[1],
+            "int64_offsets_bound_ms": comp_bound_int64[0]},
     }
-    del bits, parts
+    del bits, parts, offsets, totals, outs
     return out
+
+
+def batch_kernel_stats(data, seed: int) -> dict:
+    """The batched kernels at the kernels phase's rows with a batch of
+    BATCH queries (the four reference queries, then seeded ones)."""
+    from geomesa_tpu_torch.scan import zscan
+    return batch_stats(data, zscan.stack_queries(
+        [zscan.make_query(*q) for q in kernel_batch_specs(seed)]))
+
+
+def kernel_batch_specs(seed: int) -> list:
+    """The kernels phase's BATCH queries as (boxes, intervals)."""
+    rng = np.random.default_rng(seed + 7)
+    return list(KERNEL_QUERIES) + [
+        (boxes, [iv] if iv else [])
+        for boxes, iv in random_queries(rng, BATCH - len(KERNEL_QUERIES), 0,
+                                        1000 * MS_DAY)]
+
+
+def store_batch_specs(seed: int) -> list:
+    """The batched phase's STORE_BATCH_QUERIES seeded queries in the
+    store's dates as (boxes, DURING interval or None)."""
+    rng = np.random.default_rng(seed + 2)
+    return random_queries(rng, STORE_BATCH_QUERIES, T0_DAY * MS_DAY,
+                          T1_DAY * MS_DAY)
+
+
+def store_batch(specs):
+    """``specs`` as the store stacks them: DURING's exclusive bounds as
+    inclusive millis."""
+    from geomesa_tpu_torch.scan import zscan
+    return zscan.stack_queries([zscan.make_query(
+        boxes, [(iv[0] + 1, iv[1] - 1)] if iv else [])
+        for boxes, iv in specs])
 
 
 def _compact_equal(got, want) -> bool:
@@ -293,15 +371,20 @@ def _compact_equal(got, want) -> bool:
 
 
 def check_batch(data, bq) -> bool:
-    """Both batched kernels against their plain versions on the batch
-    ``bq`` over ``data``: bitmaps, partials, ids and counts equal."""
+    """The batched kernels against their plain versions on the batch
+    ``bq`` over ``data``: bitmaps, partials, offsets, totals, ids and
+    counts equal."""
     from geomesa_tpu_torch.scan import kernels
     b, t = bq.tables(data.device)
-    bits, parts = kernels.scan_batch_bits(data.cols, data.n, b, t)
+    c = bq.counts(data.device)
+    bits, parts = kernels.scan_batch_bits(data.cols, data.n, b, t, c)
     torch.cuda.synchronize()
     want_bits, want_parts = kernels.scan_batch_bits_plain(data.cols, data.n,
-                                                          b, t)
+                                                          b, t, c)
     return (torch.equal(bits, want_bits) and torch.equal(parts, want_parts)
+            and all(torch.equal(g, w) for g, w in zip(
+                kernels.compact_prefix(parts),
+                kernels.compact_prefix_plain(parts)))
             and _compact_equal(kernels.compact_bits(bits, parts),
                                kernels.compact_bits_plain(bits, parts)))
 
@@ -522,9 +605,7 @@ def phase_batched(seed: int, ds, rows) -> dict:
     from geomesa_tpu_torch.scan import kernels, zscan
     from geomesa_tpu_torch.scan.batcher import QueryBatcher
     x, y, ms, ids = rows
-    rng = np.random.default_rng(seed + 2)
-    specs = random_queries(rng, STORE_BATCH_QUERIES, T0_DAY * MS_DAY,
-                           T1_DAY * MS_DAY)
+    specs = store_batch_specs(seed)
     ecqls = [_ecql(boxes, iv) for boxes, iv in specs]
     truth = [_brute(x, y, ms, boxes, iv) for boxes, iv in specs]
     scalar = [ds.query(e, "ais") for e in ecqls]   # also warms the planner
@@ -599,9 +680,7 @@ def phase_batched(seed: int, ds, rows) -> dict:
     # gather of the result ids from the id column as query_batched does
     # it, and a cProfile of the call
     qs = [Query("ais", e) for e in ecqls]
-    bq = zscan.stack_queries([zscan.make_query(
-        boxes, [(iv[0] + 1, iv[1] - 1)] if iv else [])
-        for boxes, iv in specs])
+    bq = store_batch(specs)
     res = ds.query_batched(qs)
     breakdown = {
         "call_ms": statistics.median(_timed(lambda: ds.query_batched(qs))
@@ -614,22 +693,23 @@ def phase_batched(seed: int, ds, rows) -> dict:
         "ids": sum(r.n for r in res),
         "profile": profile_top(lambda: ds.query_batched(qs)),
     }
-    b, t = bq.tables(st.device)
+    # the batched kernels at this phase's own shape (the store's
+    # columns, the 32-query batch), beside their bounds
+    kernels_32 = batch_stats(data, bq, plain=False)
     emit({"phase": "batched", "rows": len(x), "queries": len(ecqls),
           "hits": [len(w) for w in truth], "sizes": sizes,
           "batcher": batcher_runs, "checked": checked,
-          "breakdown_32": breakdown,
-          "scan_batch_bits_ms": cuda_ms(lambda: kernels.scan_batch_bits(
-              data.cols, data.n, b, t), 10),
+          "breakdown_32": breakdown, "kernels_32": kernels_32,
           "launches": counts, "seconds": main_s})
-    if wrong or not seen:
+    bad = [k for k, v in kernels_32.items() if v["max_abs_err"]]
+    if wrong or not seen or bad:
         raise SystemExit(f"batched kernels disagree with their plain "
-                         f"versions on the batched path: {checked}")
+                         f"versions on the batched path: {checked} {bad}")
     bad = {k: r["errors"] for k, r in batcher_runs.items() if r["errors"]}
     if bad:
         raise SystemExit(f"QueryBatcher results wrong: {bad}")
-    missing = [k for k in ("scan_batch_bits", "compact_bits")
-               if counts[k] == 0]
+    missing = [k for k in ("scan_batch_bits", "compact_prefix",
+                           "compact_bits") if counts[k] == 0]
     if missing:
         raise SystemExit(f"kernels never launched on the batched path: "
                          f"{missing}")
@@ -698,7 +778,7 @@ def main():
     launches, ds, rows = phase_store(args.seed, args.store_rows,
                                      stats["scan_mask_gather"])
     batched = phase_batched(args.seed, ds, rows)
-    for name in ("scan_batch_bits", "compact_bits"):
+    for name in ("scan_batch_bits", "compact_prefix", "compact_bits"):
         launches[name] = batched[name]
     summary = []
     for name, s in stats.items():
@@ -712,7 +792,8 @@ def main():
             "replaces": SOURCES[name], "launches": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": q0["ms"],
             "plain_ms": q0["plain_ms"], "bound_ms": q0["bound_ms"],
-            "bound_by": q0["bound_by"], "library_ms": None})
+            "bound_by": q0["bound_by"],
+            "library_ms": q0.get("library_ms")})
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

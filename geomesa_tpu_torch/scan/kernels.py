@@ -1,6 +1,6 @@
 """The scan kernels: wrappers, launch counts and plain versions.
 
-Five kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu`` and
+Six kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu`` and
 ``csrc/batch.cu`` (see the notes at their heads for what they replace
 and what bounds them):
 
@@ -10,9 +10,13 @@ and what bounds them):
 - ``scan_count``: the predicate summed to one int32 on the device;
 - ``scan_batch_bits``: a batch of Qp queries in one pass over the rows,
   as hit and boundary-candidate bitmaps int32[2, Qp, words] with
-  per-block popcounts int32[2, Qp, nb];
-- ``compact_bits``: those bitmaps compacted into each query's ascending
-  int32 row ids, one flat buffer per kind, with the per-query counts.
+  per-block popcounts int32[2, Qp, nb], each query's own boxes and
+  intervals only (a (Qp, 2) counts table);
+- ``compact_prefix``: the exclusive prefix of those popcounts within each
+  (kind, query), as int32 offsets, and each (kind, query) total as int64;
+- ``compact_bits``: the bitmaps compacted into each query's ascending
+  int32 row ids, one flat buffer per kind, with the per-query counts
+  (it runs ``compact_prefix`` first).
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device). On CUDA tensors it launches its kernel
@@ -24,7 +28,8 @@ this package (one ``nvcc`` per source, started together, then one
 link), keyed on a hash of the sources, and load with ctypes. Query
 tables: boxes (K, 8) f32 and times (B, 4) i32 with unused slots folded
 into impossible bounds (see ``zscan.make_query``); the batched kernels
-take them stacked, (Qp, K, 8) and (Qp, B, 4) (``zscan.stack_queries``).
+take them stacked, (Qp, K, 8) and (Qp, B, 4), beside each query's own
+box and interval counts (``zscan.stack_queries``).
 """
 
 from __future__ import annotations
@@ -44,8 +49,8 @@ import torch
 __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "scan_count", "scan_batch_bits", "compact_bits",
            "scan_mask_plain", "scan_mask_gather_plain", "scan_count_plain",
-           "scan_batch_bits_plain", "compact_bits_plain", "batch_shape",
-           "unpack_bits",
+           "scan_batch_bits_plain", "compact_bits_plain", "compact_prefix",
+           "compact_prefix_plain", "batch_shape", "unpack_bits",
            "build_library", "BuildInfo", "MAX_TABLE_BYTES",
            "BATCH_ROWS_PER_BLOCK", "BATCH_MAX_GROUP"]
 
@@ -62,15 +67,13 @@ MAX_TABLE_BYTES = 48 * 1024
 
 # the batched kernels (csrc/batch.cu): a block of the bitmap kernel, and
 # so one partial count, covers this many rows (64 bitmap words); one
-# launch takes at most BATCH_MAX_GROUP queries (one per lane of a warp),
-# and its shared memory holds the group's tables beside
-# _BATCH_SMEM_EXTRA bytes of counters
+# launch takes at most BATCH_MAX_GROUP queries, and its shared memory
+# (_batch_smem) holds the group's tables and staged bitmap words
 BATCH_ROWS_PER_BLOCK = 2048
 BATCH_MAX_GROUP = 32
-_BATCH_SMEM_EXTRA = 2 * BATCH_MAX_GROUP * 4
 
 launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0,
-            "scan_batch_bits": 0, "compact_bits": 0}
+            "scan_batch_bits": 0, "compact_prefix": 0, "compact_bits": 0}
 
 
 def reset_launches():
@@ -161,11 +164,19 @@ def unpack_bits(words):
     return ((words[:, None] >> shifts) & 1).bool().flatten()
 
 
-def scan_batch_bits_plain(cols, n: int, boxes, times):
+def _own_slots(boxes, times, counts):
+    """Per query, (boxes, times) cut to its own slots: the first
+    counts[q] = (boxes, intervals), each clamped to [0, K] and [0, B]."""
+    k, b = boxes.shape[1], times.shape[1]
+    return [(boxes[q, :min(max(cb, 0), k)], times[q, :min(max(ct, 0), b)])
+            for q, (cb, ct) in enumerate(counts.tolist())]
+
+
+def scan_batch_bits_plain(cols, n: int, boxes, times, counts):
     """(bits int32[2, Qp, words], partials int32[2, Qp, nb]): per query,
     the predicate (kind 0) and the boundary-candidate test (kind 1) on
-    rows < n as bitmaps, and their popcounts per BATCH_ROWS_PER_BLOCK
-    rows."""
+    rows < n over its own slots (``_own_slots``) as bitmaps, and their
+    popcounts per BATCH_ROWS_PER_BLOCK rows."""
     cap = cols[0].shape[0]
     qp = boxes.shape[0]
     words, nb = batch_shape(cap)
@@ -174,9 +185,9 @@ def scan_batch_bits_plain(cols, n: int, boxes, times):
     partials = torch.empty((2, qp, nb), dtype=torch.int32, device=dev)
     if cap == 0:
         return bits, partials
-    for q in range(qp):
-        hit = _predicate(*cols, boxes[q], times[q], False)
-        cand = _candidates(cols[0], cols[2], boxes[q])
+    for q, (bq, tq) in enumerate(_own_slots(boxes, times, counts)):
+        hit = _predicate(*cols, bq, tq, False)
+        cand = _candidates(cols[0], cols[2], bq)
         for kind, m in enumerate((hit, cand)):
             m[n:] = False
             bits[kind, q] = _pack_bits(m, words)
@@ -186,6 +197,18 @@ def scan_batch_bits_plain(cols, n: int, boxes, times):
             partials[kind, q] = blocks.view(nb, -1).sum(dim=1,
                                                         dtype=torch.int32)
     return bits, partials
+
+
+def compact_prefix_plain(partials):
+    """(offsets int32[2, Qp, nb], totals int64[2, Qp]): per (kind,
+    query) row of ``partials`` the exclusive prefix of its partials and
+    its sum. A query's ids start at the sum of its kind's totals over
+    the queries before it (int64: that sum can pass 2^31)."""
+    incl = torch.cumsum(partials, dim=2, dtype=torch.int64)
+    offsets = (incl - partials).to(torch.int32)
+    totals = (incl[:, :, -1] if partials.shape[2]
+              else incl.new_zeros(partials.shape[:2]))
+    return offsets, totals
 
 
 def compact_bits_plain(bits, partials):
@@ -268,19 +291,24 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_scan_count.argtypes = (
                 cols + [i64, p, i32, p, i32, i32, p, p])
             lib.geomesa_scan_batch_bits.argtypes = (
-                cols + [i64, i64, p, p, i32, i32, i32, p, i64, p, i64, p])
+                cols + [i64, i64, p, p, p, i32, i32, i32, p, i64, p, i64, p])
+            lib.geomesa_compact_prefix.argtypes = [p, i32, i64, p, p, p]
             lib.geomesa_compact_bits.argtypes = (
-                [p, p, p, i32, i64, i64, p, p, p])
+                [p, p, p, p, i32, i64, i64, p, p, p])
             lib.geomesa_batch_rows_per_block.argtypes = []
             lib.geomesa_batch_max_group.argtypes = []
+            lib.geomesa_batch_smem_bytes.argtypes = [i32, i32, i32]
+            lib.geomesa_batch_smem_bytes.restype = ctypes.c_longlong
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
-                       lib.geomesa_compact_bits,
+                       lib.geomesa_compact_prefix, lib.geomesa_compact_bits,
                        lib.geomesa_batch_rows_per_block,
                        lib.geomesa_batch_max_group):
                 fn.restype = ctypes.c_int
             if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
-                    or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP):
+                    or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP
+                    or lib.geomesa_batch_smem_bytes(3, 4, 2)
+                    != _batch_smem(3, 4, 2)):
                 raise RuntimeError("csrc/batch.cu and kernels.py disagree "
                                    "on the batched kernels' block shape")
             _lib["lib"] = lib
@@ -420,11 +448,20 @@ def scan_count(cols, n: int, boxes, times, time_any: bool):
     return out
 
 
+def _batch_smem(qg: int, k: int, b: int) -> int:
+    """Shared memory of one bitmap-kernel launch (csrc/batch.cu
+    batch_smem): per query its staged hit and candidate words (2 x 64),
+    its K boxes (4 hi bounds and all 8 f32), its B interval keys (2 i64)
+    and its counts."""
+    return qg * (2 * (BATCH_ROWS_PER_BLOCK // 32) * 4 + k * 12 * 4
+                 + b * 2 * 8 + 2 * 4)
+
+
 def _batch_group(boxes, times) -> int:
     """Queries per launch of the bitmap kernel: at most BATCH_MAX_GROUP,
-    and as many as keep their tables (and the kernel's counters) within
-    MAX_TABLE_BYTES of shared memory. A batch whose tables exceed that
-    runs as several launches over query groups."""
+    and as many as keep their shared memory (``_batch_smem``) within
+    MAX_TABLE_BYTES. A batch that exceeds that runs as several launches
+    over query groups."""
     if (boxes.dtype != torch.float32 or boxes.dim() != 3
             or boxes.shape[2] != 8 or boxes.shape[1] < 1
             or not boxes.is_contiguous()):
@@ -438,19 +475,18 @@ def _batch_group(boxes, times) -> int:
     if boxes.shape[0] < 1 or boxes.shape[0] != times.shape[0]:
         raise ValueError("boxes and times must stack the same Qp >= 1 "
                          "queries")
-    per_query = boxes.shape[1] * 8 * 4 + times.shape[1] * 4 * 4
-    group = min(BATCH_MAX_GROUP,
-                (MAX_TABLE_BYTES - _BATCH_SMEM_EXTRA) // per_query)
+    per_query = _batch_smem(1, boxes.shape[1], times.shape[1])
+    group = min(BATCH_MAX_GROUP, MAX_TABLE_BYTES // per_query)
     if group < 1:
         raise ValueError(
             f"one query's tables of {boxes.shape[1]} boxes and "
             f"{times.shape[1]} intervals take {per_query} bytes of shared "
-            f"memory; the kernels take at most "
-            f"{MAX_TABLE_BYTES - _BATCH_SMEM_EXTRA}")
+            f"memory with its staged words; the kernels take at most "
+            f"{MAX_TABLE_BYTES}")
     return group
 
 
-def scan_batch_bits(cols, n: int, boxes, times):
+def scan_batch_bits(cols, n: int, boxes, times, counts):
     """A batch of Qp queries in one pass over the rows: (bits
     int32[2, Qp, words], partials int32[2, Qp, nb]), ``batch_shape``.
 
@@ -459,11 +495,20 @@ def scan_batch_bits(cols, n: int, boxes, times):
     the popcount of rows j*BATCH_ROWS_PER_BLOCK .. of query q. ``boxes``
     (Qp, K, 8) f32 and ``times`` (Qp, B, 4) i32 are stacked tables with
     no time_any: a time-free query carries a catch-all interval
-    (``zscan.stack_queries``)."""
+    (``zscan.stack_queries``). ``counts`` (Qp, 2) i32 holds each query's
+    own box and interval counts, the slots the kernel evaluates (counts
+    past a query's own slots give the same bits, since unused slots
+    match nothing)."""
     cap = _check_cols(cols, n)
     group = _batch_group(boxes, times)
-    if _on_cpu(cols, boxes, times):
-        return scan_batch_bits_plain(cols, n, boxes, times)
+    if (counts.dtype != torch.int32 or not counts.is_contiguous()
+            or tuple(counts.shape) != (boxes.shape[0], 2)):
+        raise ValueError("counts must be a contiguous (Qp, 2) int32 table")
+    if _on_cpu(cols, boxes, times, counts):
+        return scan_batch_bits_plain(cols, n, boxes, times, counts)
+    if any(c.data_ptr() % 16 for c in cols):
+        raise ValueError("the bitmap kernel reads the columns as 16-byte "
+                         "vectors: they must be 16-byte aligned")
     qp, k, b = boxes.shape[0], boxes.shape[1], times.shape[1]
     words, nb = batch_shape(cap)
     dev = cols[0].device
@@ -477,28 +522,40 @@ def scan_batch_bits(cols, n: int, boxes, times):
         qg = min(group, qp - q0)
         rc = lib.geomesa_scan_batch_bits(
             *_ptrs(cols), n, words, boxes[q0].data_ptr(), times[q0].data_ptr(),
-            qg, k, b, bits[0, q0].data_ptr(), qp * words,
-            partials[0, q0].data_ptr(), qp * nb, stream)
+            counts[q0].data_ptr(), qg, k, b,
+            bits[0, q0].data_ptr(), qp * words, partials[0, q0].data_ptr(),
+            qp * nb, stream)
         _raise_on(rc, "scan_batch_bits")
         launches["scan_batch_bits"] += 1
     return bits, partials
 
 
-def _compact_plan(partials):
-    """(offsets int64[2, Qp*nb] on the device, counts int64[2, Qp] on
-    the host) for the compaction: per kind the exclusive prefix of the
-    partials over (Qp, nb), query-major (torch.cumsum), and each query's
-    total, which comes to the host (the one sync) to size the outputs
-    and to split them by query."""
-    # one 1-d scan over both kinds, then kind 1 restarts at 0: PyTorch
-    # scans the rows of a 2-row matrix with a few blocks, a 1-d tensor
-    # with a device-wide scan (PERF.md has the times)
-    flat = partials.reshape(-1).to(torch.int64)
-    offsets = (torch.cumsum(flat, dim=0) - flat).view(2, flat.shape[0] // 2)
-    if offsets.shape[1]:
-        offsets[1] -= offsets[1, 0].clone()
-    counts = partials.sum(dim=2, dtype=torch.int64).cpu().numpy()
-    return offsets, counts
+def _check_partials(partials):
+    if (partials.dtype != torch.int32 or partials.dim() != 3
+            or partials.shape[0] != 2 or not partials.is_contiguous()):
+        raise ValueError("partials must be a contiguous int32[2, Qp, nb]")
+
+
+def compact_prefix(partials):
+    """(offsets int32[2, Qp, nb], totals int64[2, Qp]) on the partials'
+    device: per (kind, query) row the exclusive prefix of its partials
+    (a block's first id within its query) and its sum. One block of the
+    prefix kernel per row."""
+    _check_partials(partials)
+    if _on_cpu((partials,)):
+        return compact_prefix_plain(partials)
+    qp, nb = partials.shape[1], partials.shape[2]
+    dev = partials.device
+    offsets = torch.empty((2, qp, nb), dtype=torch.int32, device=dev)
+    if qp * nb == 0:
+        return offsets, torch.zeros((2, qp), dtype=torch.int64, device=dev)
+    totals = torch.empty((2, qp), dtype=torch.int64, device=dev)
+    rc = _library().geomesa_compact_prefix(
+        partials.data_ptr(), 2 * qp, nb, offsets.data_ptr(),
+        totals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "compact_prefix")
+    launches["compact_prefix"] += 1
+    return offsets, totals
 
 
 def compact_bits(bits, partials):
@@ -506,29 +563,32 @@ def compact_bits(bits, partials):
     device, per kind the rows of query 0, then query 1, ..., each
     ascending; counts int64[2, Qp] on the host, query q's share of kind
     k (the sums of ``partials``). ``bits`` and ``partials`` are
-    ``scan_batch_bits``'s. The counts' copy to the host is the one sync."""
+    ``scan_batch_bits``'s. ``compact_prefix`` gives the blocks' offsets
+    and the totals on the device; the totals' copy to the host (the one
+    sync) sizes the outputs, and the kernel sums each query's base from
+    the totals on the device."""
     if (bits.dtype != torch.int32 or bits.dim() != 3 or bits.shape[0] != 2
             or not bits.is_contiguous()):
         raise ValueError("bits must be a contiguous int32[2, Qp, words]")
     qp, words = bits.shape[1], bits.shape[2]
-    if (partials.dtype != torch.int32 or not partials.is_contiguous()
-            or tuple(partials.shape) != (2, qp, batch_shape(32 * words)[1])):
+    _check_partials(partials)
+    if tuple(partials.shape) != (2, qp, batch_shape(32 * words)[1]):
         raise ValueError("partials must be the contiguous int32[2, Qp, nb] "
                          "of these bits")
     if _on_cpu((bits, partials)):
         return compact_bits_plain(bits, partials)
-    offsets, counts = _compact_plan(partials)
+    offsets, totals = compact_prefix(partials)
+    counts = totals.cpu().numpy()
     hit_total, cand_total = (int(c) for c in counts.sum(axis=1))
     dev = bits.device
     out_hit = torch.empty(hit_total, dtype=torch.int32, device=dev)
     out_cand = torch.empty(cand_total, dtype=torch.int32, device=dev)
     if hit_total + cand_total == 0:
         return out_hit, out_cand, counts
-    lib = _library()
-    rc = lib.geomesa_compact_bits(
-        bits.data_ptr(), partials.data_ptr(), offsets.data_ptr(), qp,
-        partials.shape[2], words, out_hit.data_ptr(), out_cand.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    rc = _library().geomesa_compact_bits(
+        bits.data_ptr(), partials.data_ptr(), offsets.data_ptr(),
+        totals.data_ptr(), qp, partials.shape[2], words, out_hit.data_ptr(),
+        out_cand.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "compact_bits")
     launches["compact_bits"] += 1
     return out_hit, out_cand, counts

@@ -332,16 +332,19 @@ class BatchedScanQuery:
     """Stacked queries padded to common box/interval counts, as the
     batched kernels' tables.
 
-    boxes: (Q, K, 8) f32; times: (Q, B, 4) i32
+    boxes: (Q, K, 8) f32; times: (Q, B, 4) i32; counts: (Q, 2) i32, each
+    query's own boxes and intervals (a time-free query's catch-all
+    interval counts as one), the slots the bitmap kernel evaluates
 
     ``queries`` keeps the original ScanQuery objects (exact f64 bounds
     for the per-query boundary patch). The tables move to a device on
     first use there."""
 
     def __init__(self, boxes: np.ndarray, times: np.ndarray,
-                 queries: list[ScanQuery]):
+                 counts: np.ndarray, queries: list[ScanQuery]):
         self.boxes_np = boxes
         self.times_np = times
+        self.counts_np = counts
         self.queries = list(queries)
         self._tables: dict = {}
 
@@ -349,20 +352,29 @@ class BatchedScanQuery:
     def n_queries(self) -> int:
         return len(self.queries)
 
-    def tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
-        """(boxes, times) tensors on ``device``, uploaded once."""
+    def _upload(self, device):
         key = str(torch.device(device))
         if key not in self._tables:
-            self._tables[key] = (torch.from_numpy(self.boxes_np).to(device),
-                                 torch.from_numpy(self.times_np).to(device))
+            self._tables[key] = tuple(
+                torch.from_numpy(a).to(device)
+                for a in (self.boxes_np, self.times_np, self.counts_np))
         return self._tables[key]
+
+    def tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(boxes, times) tensors on ``device``, uploaded once."""
+        return self._upload(device)[:2]
+
+    def counts(self, device) -> torch.Tensor:
+        """The (Q, 2) counts on ``device``, uploaded with the tables."""
+        return self._upload(device)[2]
 
 
 def stack_queries(queries: list[ScanQuery]) -> BatchedScanQuery:
     """Stack padded ScanQueries into one BatchedScanQuery.
 
     Box/interval dims are padded to the max across the batch. Only each
-    query's used slots are copied; every other slot matches nothing."""
+    query's used slots are copied, and counted; every other slot matches
+    nothing."""
     if not queries:
         raise ValueError("stack_queries needs at least one query")
     k = max(q.boxes_np.shape[0] for q in queries)
@@ -371,21 +383,25 @@ def stack_queries(queries: list[ScanQuery]) -> BatchedScanQuery:
     boxes[:] = _NO_BOX
     times = np.empty((len(queries), b, 4), dtype=np.int32)
     times[:] = _NO_INTERVAL
+    counts = np.empty((len(queries), 2), dtype=np.int32)
     for i, q in enumerate(queries):
         boxes[i, :q.n_boxes] = q.boxes_np[:q.n_boxes]
         if q.time_any:
             times[i, 0] = _CATCH_ALL_INTERVAL
+            m = 1
         else:
             m = len(q.host_intervals)
             times[i, :m] = q.times_np[:m]
-    return BatchedScanQuery(boxes, times, queries)
+        counts[i] = (q.n_boxes, m)
+    return BatchedScanQuery(boxes, times, counts, queries)
 
 
 def scan_mask_batch(data: ScanData, bq: BatchedScanQuery) -> torch.Tensor:
     """One pass of the batched kernel over all queries: bool[Q, cap]
     on the data's device, False on rows >= data.n."""
     boxes, times = bq.tables(data.device)
-    bits, _ = kernels.scan_batch_bits(data.cols, data.n, boxes, times)
+    bits, _ = kernels.scan_batch_bits(data.cols, data.n, boxes, times,
+                                      bq.counts(data.device))
     q = bq.n_queries
     return kernels.unpack_bits(bits[0].reshape(-1)).view(q, -1)[:, :data.cap]
 
@@ -400,7 +416,8 @@ def batch_hit_rows(data: ScanData, bq: BatchedScanQuery
     every query's ids into one buffer per kind, so the host receives
     O(hits) and runs no O(n) candidate pass."""
     boxes, times = bq.tables(data.device)
-    bits, partials = kernels.scan_batch_bits(data.cols, data.n, boxes, times)
+    bits, partials = kernels.scan_batch_bits(data.cols, data.n, boxes, times,
+                                             bq.counts(data.device))
     hit_ids, cand_ids, counts = kernels.compact_bits(bits, partials)
     return tuple(np.split(ids.cpu().numpy(), np.cumsum(cnt)[:-1])
                  for ids, cnt in ((hit_ids, counts[0]),

@@ -26,11 +26,23 @@ compares two versions within one call. Each process:
 - where the tree has the row-major gather table (``ScanData.rows``),
   times beside it a read of the same rows with no predicate: a probe
   kernel built by this script from PROBE_SOURCE, with the gathered
-  kernel's loads, no query tables, and one byte out per id.
+  kernel's loads, no query tables, and one byte out per id;
+- where the tree has the batched kernels, times them held at two
+  shapes: the kernels-phase rows with chip_smoke.py's kernels-phase
+  batch of 32 queries, and the store-phase rows with its batched-phase
+  batch of 32 (``batched_100m``, ``batched_10m``): ``scan_batch_bits``
+  (over each query's own slots where the tree's ``stack_queries``
+  counts them), ``compact_bits`` through its wrapper and its
+  compaction kernel alone, each batch built by the tree's own
+  ``stack_queries`` and checked against the plain versions; where the
+  tree has the prefix kernel, it on the batch's partials cut into 1x,
+  4x and 16x as many (kind, query) rows, beside one ``torch.cumsum``,
+  and a probe of the compaction built from PROBE_SOURCE, cut short
+  after its loads and before its id stores.
 
-Medians of 20 launches (CUDA events). Every gathered result is checked
-against its plain version. Prints one JSON line per tree, with the
-card's name and power limit.
+Medians of 20 launches (CUDA events; 10 for the batched kernels). Every
+gathered and batched result is checked against its plain version.
+Prints one JSON line per tree, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -99,6 +111,87 @@ extern "C" int probe_read_rows(const int32_t* rows, const int32_t* idx,
       reinterpret_cast<const int4*>(rows), idx, m, out);
   return static_cast<int>(cudaGetLastError());
 }
+
+// csrc/batch.cu's compaction with its grid, its walk over the pairs and
+// its loads, cut short: mode 0 stops after each non-empty pair's loads
+// (its 64 words and its offset), mode 1 also sums the query bases, scans
+// the popcounts and forms every id, but writes no id. Each thread writes
+// one word (an XOR of what it read or formed) so nothing is dropped.
+__global__ void compact_probe(const uint32_t* __restrict__ bits,
+                              const int32_t* __restrict__ partials,
+                              const int32_t* __restrict__ offsets,
+                              const int64_t* __restrict__ totals, int qp,
+                              int64_t nb, int64_t words, int mode,
+                              uint32_t* __restrict__ sink) {
+  const int lane = threadIdx.x & 31;
+  const int64_t gt = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t warp = gt >> 5;
+  const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+  const int64_t pairs = 2 * static_cast<int64_t>(qp) * nb;
+  int64_t row = -1;
+  long long base = 0;
+  uint32_t acc = 0;
+  for (int64_t p0 = warp * 32; p0 < pairs; p0 += warps * 32) {
+    const int64_t p = p0 + lane;
+    const int32_t cnt = p < pairs ? partials[p] : 0;
+    uint32_t todo = __ballot_sync(0xffffffffu, cnt != 0);
+    const int64_t r0 = p0 / nb;
+    while (todo) {
+      const int64_t pp = p0 + (__ffs(todo) - 1);
+      todo &= todo - 1;
+      int64_t r = r0, j = pp - r0 * nb;
+      while (j >= nb) {
+        ++r;
+        j -= nb;
+      }
+      const int64_t w0 = j * 64 + 2 * lane;
+      const uint32_t* src = bits + r * words;
+      const uint32_t a0 = w0 < words ? src[w0] : 0u;
+      const uint32_t a1 = w0 + 1 < words ? src[w0 + 1] : 0u;
+      const int32_t off = offsets[pp];
+      if (mode == 0) {
+        acc ^= a0 ^ a1 ^ static_cast<uint32_t>(off);
+        continue;
+      }
+      const int kind = r >= qp;
+      if (r != row) {
+        row = r;
+        long long s = 0;
+        for (int64_t q = lane; q < r - kind * qp; q += 32)
+          s += totals[kind * static_cast<int64_t>(qp) + q];
+        for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        base = s;
+      }
+      const int mine = __popc(a0) + __popc(a1);
+      int incl = mine;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      long long k = base + off + incl - mine;
+      const int32_t r0w = static_cast<int32_t>(w0 * 32);
+      for (uint32_t m = a0; m; m &= m - 1)
+        acc ^= static_cast<uint32_t>(r0w + __ffs(m) - 1 + k++);
+      for (uint32_t m = a1; m; m &= m - 1)
+        acc ^= static_cast<uint32_t>(r0w + 32 + __ffs(m) - 1 + k++);
+    }
+  }
+  sink[gt] = acc;
+}
+
+extern "C" int probe_compact(const uint32_t* bits, const int32_t* partials,
+                             const int32_t* offsets, const int64_t* totals,
+                             int qp, int64_t nb, int64_t words, int mode,
+                             uint32_t* sink, int64_t sink_len, void* stream) {
+  const int64_t pairs = 2 * static_cast<int64_t>(qp) * nb;
+  int64_t blocks = ((pairs + 31) / 32 + 7) / 8;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  if (blocks * 256 > sink_len) return static_cast<int>(cudaErrorInvalidValue);
+  compact_probe<<<static_cast<int>(blocks), 256, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      bits, partials, offsets, totals, qp, nb, words, mode, sink);
+  return static_cast<int>(cudaGetLastError());
+}
 """
 
 
@@ -121,6 +214,10 @@ def build_probe():
     p = ctypes.c_void_p
     dll.probe_read_rows.argtypes = [p, p, ctypes.c_int64, p, p]
     dll.probe_read_rows.restype = ctypes.c_int
+    i64 = ctypes.c_int64
+    dll.probe_compact.argtypes = [p, p, p, p, ctypes.c_int, i64, i64,
+                                  ctypes.c_int, p, i64, p]
+    dll.probe_compact.restype = ctypes.c_int
     return dll
 
 
@@ -147,6 +244,86 @@ def cuda_ms(fn, held: bool, flush=None, iters: int = 20) -> float:
 def three_ways(fn, flush) -> dict:
     return {"cold": cuda_ms(fn, True, flush), "held": cuda_ms(fn, True),
             "bare": cuda_ms(fn, False)}
+
+
+def _smoke():
+    """This checkout's chip_smoke.py, for its query batches."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def batched_case(kernels, data, bq, tree: str, probe) -> dict:
+    """The tree's batched kernels on batch ``bq``, held: the bitmap
+    kernel, the compaction through its wrapper and its kernel alone, and
+    (int32 offsets) the compaction probe's two cut-short modes."""
+    import torch
+    b, t = bq.tables(data.device)
+    extra = (bq.counts(data.device),) if hasattr(bq, "counts") else ()
+
+    def bits_k():
+        return kernels.scan_batch_bits(data.cols, data.n, b, t, *extra)
+    bits, parts = bits_k()
+    want = kernels.scan_batch_bits_plain(data.cols, data.n, b, t, *extra)
+    if not (torch.equal(bits, want[0]) and torch.equal(parts, want[1])):
+        raise SystemExit(f"{tree}: scan_batch_bits != plain")
+    del want
+    got = kernels.compact_bits(bits, parts)
+    want = kernels.compact_bits_plain(bits, parts)
+    if not (np.array_equal(got[2], want[2])
+            and all(torch.equal(g, w) for g, w in zip(got[:2], want[:2]))):
+        raise SystemExit(f"{tree}: compact_bits != plain")
+    qp, words, nb = bits.shape[1], bits.shape[2], parts.shape[2]
+    outs = [torch.empty_like(ids) for ids in got[:2]]
+    lib = kernels._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(kernels, "compact_prefix"):
+        plan = kernels.compact_prefix(parts)
+    else:   # an older wrapper: int64 offsets from torch.cumsum
+        plan = kernels._compact_plan(parts)[:1]
+    ptrs = [x.data_ptr() for x in plan]
+
+    def comp_kernel():
+        rc = lib.geomesa_compact_bits(
+            bits.data_ptr(), parts.data_ptr(), *ptrs, qp, nb, words,
+            outs[0].data_ptr(), outs[1].data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"compact_bits launch failed: cudaError {rc}")
+    comp_kernel()
+    if not all(torch.equal(o, g) for o, g in zip(outs, got[:2])):
+        raise SystemExit(f"{tree}: compaction kernel alone != plain")
+    out = {"queries": qp, "own_slots": bool(extra),
+           "ids": int(sum(len(g) for g in got[:2])),
+           "scan_batch_bits_ms": cuda_ms(bits_k, True, iters=10),
+           "compact_bits_ms": cuda_ms(
+               lambda: kernels.compact_bits(bits, parts), True, iters=10),
+           "compact_kernel_ms": cuda_ms(comp_kernel, True, iters=10)}
+    if hasattr(kernels, "compact_prefix"):
+        # the prefix kernel runs one block per (kind, query) row: the
+        # same partials as 1x, 4x and 16x as many shorter rows, and one
+        # torch.cumsum of them
+        out["compact_prefix_ms_by_rows"] = {
+            str(2 * qp * m): cuda_ms(
+                lambda m=m: kernels.compact_prefix(
+                    parts.view(2, qp * m, nb // m)), True, iters=10)
+            for m in (1, 4, 16) if nb % m == 0}
+        out["cumsum_ms"] = cuda_ms(
+            lambda: torch.cumsum(parts, dim=2, dtype=torch.int64), True,
+            iters=10)
+        sink = torch.empty(132 * 16 * 256, dtype=torch.int32,
+                           device=bits.device)
+        for mode, name in ((0, "probe_loads_ms"), (1, "probe_no_stores_ms")):
+            def cut(mode=mode):
+                rc = probe.probe_compact(
+                    bits.data_ptr(), parts.data_ptr(), *ptrs, qp, nb, words,
+                    mode, sink.data_ptr(), sink.numel(), stream)
+                if rc:
+                    raise RuntimeError(f"probe launch failed: cudaError {rc}")
+            out[name] = cuda_ms(cut, True, iters=10)
+    return out
 
 
 def worker(tree: str, seed: int, rows: int, store_rows: int) -> dict:
@@ -211,6 +388,12 @@ def worker(tree: str, seed: int, rows: int, store_rows: int) -> dict:
     idx = torch.randint(0, n, (GATHERED_IDS,), device=dev, dtype=torch.int32,
                         generator=torch.Generator(dev).manual_seed(seed))
     res["gather_1m"] = gather_case(data, idx)
+    smoke = _smoke()
+    batched = hasattr(kernels, "scan_batch_bits")
+    if batched:
+        res["batched_100m"] = batched_case(kernels, data, zscan.stack_queries(
+            [zscan.make_query(*q) for q in smoke.kernel_batch_specs(seed)]),
+            tree, probe)
     del data, idx
     torch.cuda.empty_cache()
 
@@ -230,6 +413,10 @@ def worker(tree: str, seed: int, rows: int, store_rows: int) -> dict:
     b, t = q.tables(dev)
     idx = torch.from_numpy(np.ascontiguousarray(cand, dtype=np.int32)).to(dev)
     res["gather_main_path"] = gather_case(data, idx)
+    if batched:
+        res["batched_10m"] = batched_case(
+            kernels, data, smoke.store_batch(smoke.store_batch_specs(seed)),
+            tree, probe)
     return res
 
 

@@ -96,7 +96,8 @@ def test_bitmaps_match_batch_mask_cand(data, count):
         jd.xhi, jd.xlo, jd.yhi, jd.ylo, jd.tday, jd.tms, jb.boxes,
         jb.box_valid, jb.times, jb.time_valid, np.int32(jd.n))
     b, t = tb.tables("cpu")
-    bits, partials = kernels.scan_batch_bits(td.cols, td.n, b, t)
+    bits, partials = kernels.scan_batch_bits(td.cols, td.n, b, t,
+                                             tb.counts("cpu"))
     words, nb = kernels.batch_shape(td.cap)
     assert bits.shape == (2, count, words) and partials.shape == (2, count, nb)
     for kind, want in enumerate((mask, cand)):
@@ -136,14 +137,16 @@ def test_compaction_layout(data):
     _, _, _, _, td = data
     _, tb = _batches(32)
     b, t = tb.tables("cpu")
-    bits, partials = kernels.scan_batch_bits(td.cols, td.n, b, t)
-    offsets, plan_counts = kernels._compact_plan(partials)
-    flat = partials.reshape(2, -1)
-    assert offsets.dtype == torch.int64 and offsets.shape == flat.shape
-    assert torch.equal(offsets[:, 1:], torch.cumsum(flat, dim=1)[:, :-1])
-    assert not offsets[:, 0].any()
+    bits, partials = kernels.scan_batch_bits(td.cols, td.n, b, t,
+                                             tb.counts("cpu"))
+    offsets, totals = kernels.compact_prefix(partials)
+    assert offsets.dtype == torch.int32 and offsets.shape == partials.shape
+    assert torch.equal(offsets[:, :, 1:],
+                       torch.cumsum(partials, dim=2)[:, :, :-1].int())
+    assert not offsets[:, :, 0].any()
+    assert totals.dtype == torch.int64 and totals.shape == (2, 32)
     *ids_by_kind, got_counts = kernels.compact_bits(bits, partials)
-    assert np.array_equal(got_counts, plan_counts)
+    assert np.array_equal(got_counts, totals.numpy())
     for kind, ids in enumerate(ids_by_kind):
         counts = partials[kind].sum(dim=1).tolist()
         assert got_counts[kind].tolist() == counts
@@ -174,6 +177,69 @@ def test_patched_rows_are_exact(data):
         assert np.array_equal(got, np.flatnonzero(want))
 
 
+def test_slot_counts_match_reference():
+    """stack_queries' per-query counts are the reference's box_valid and
+    time_valid prefixes: each query's own boxes, and its intervals (one,
+    the catch-all, when it is time-free)."""
+    for count in (1, 3, 32):
+        jb, tb = _batches(count)
+        assert tb.counts_np.dtype == np.int32
+        assert tb.counts_np.shape == (count, 2)
+        assert np.array_equal(tb.counts_np[:, 0],
+                              np.asarray(jb.box_valid).sum(1)[:count])
+        assert np.array_equal(tb.counts_np[:, 1],
+                              np.asarray(jb.time_valid).sum(1)[:count])
+        c = tb.counts("cpu")
+        assert c.dtype == torch.int32 and np.array_equal(c.numpy(),
+                                                         tb.counts_np)
+    assert tb.counts_np[1].tolist() == [1, 1]   # time-free: the catch-all
+    assert tb.counts_np[2].tolist() == [3, 3]
+
+
+def test_counts_bound_the_slots(data):
+    """The plain bitmap scan over each query's own slots equals the scan
+    over every slot (counts of K boxes and B intervals: unused slots
+    match nothing); counts of 0 boxes or 0 intervals match no row, and
+    counts past the padding are clamped to it."""
+    _, _, _, _, td = data
+    _, tb = _batches(32)
+    b, t = tb.tables("cpu")
+    all_slots = torch.tensor([[b.shape[1], t.shape[1]]] * 32,
+                             dtype=torch.int32)
+    every = kernels.scan_batch_bits(td.cols, td.n, b, t, all_slots)
+    own = kernels.scan_batch_bits(td.cols, td.n, b, t, tb.counts("cpu"))
+    assert all(torch.equal(x, y) for x, y in zip(every, own))
+    c = tb.counts("cpu").clone()
+    c[0, 0] = 0
+    c[3, 1] = 0
+    c[5] = torch.tensor([99, -4])
+    bits, partials = kernels.scan_batch_bits(td.cols, td.n, b, t, c)
+    assert not bits[:, 0].any() and not bits[0, 3].any()
+    assert torch.equal(bits[1, 3], every[0][1, 3])
+    assert not bits[0, 5].any()
+    assert torch.equal(bits[1, 5], every[0][1, 5])
+    assert torch.equal(bits[:, 6:], every[0][:, 6:])
+
+
+def test_prefix_bases_past_int32():
+    """The plain prefix on synthetic partials whose sum over the queries
+    passes 2^31: int32 offsets within each query, int64 totals, and int64
+    bases (the prefix of the totals over the queries of a kind)."""
+    qp, nb = 96, 16_384
+    parts = torch.full((2, qp, nb), 2048, dtype=torch.int32)
+    parts[:, :, 5::7] = 3
+    parts[0, 11] = 0
+    offsets, totals = kernels.compact_prefix(parts)
+    host = parts.numpy().astype(np.int64)
+    sums = host.sum(axis=2)
+    assert offsets.dtype == torch.int32 and totals.dtype == torch.int64
+    assert np.array_equal(offsets.numpy(), np.cumsum(host, axis=2) - host)
+    assert np.array_equal(totals.numpy(), sums)
+    bases = np.cumsum(totals.numpy(), axis=1) - totals.numpy()
+    assert bases.dtype == np.int64 and bases[0, -1] > 2**31
+    assert np.array_equal(bases, np.cumsum(sums, axis=1) - sums)
+
+
 def test_stacked_tables():
     """Unused box slots hold NaN in every bound and unused intervals
     impossible bounds; a time-free query carries the reference's
@@ -201,7 +267,8 @@ def test_empty_and_zero_capacity():
     for n, cap in ((0, 64), (0, 0)):
         cols = tuple(torch.zeros(cap, dtype=dt) for dt in
                      (torch.float32,) * 4 + (torch.int32,) * 2)
-        bits, partials = kernels.scan_batch_bits(cols, n, b, t)
+        bits, partials = kernels.scan_batch_bits(cols, n, b, t,
+                                                 tb.counts("cpu"))
         assert bits.shape[2] == -(-cap // 32) and not bits.any()
         assert not partials.any()
         hit, cand, counts = kernels.compact_bits(bits, partials)
@@ -214,25 +281,35 @@ def test_batch_wrapper_checks():
                  (torch.float32,) * 4 + (torch.int32,) * 2)
     boxes = torch.zeros(2, 1, 8)
     times = torch.zeros(2, 1, 4, dtype=torch.int32)
+    counts = torch.ones(2, 2, dtype=torch.int32)
     with pytest.raises(ValueError, match="outside"):
-        kernels.scan_batch_bits(cols, 65, boxes, times)
+        kernels.scan_batch_bits(cols, 65, boxes, times, counts)
     with pytest.raises(ValueError, match="boxes"):
-        kernels.scan_batch_bits(cols, 64, boxes[0], times)
+        kernels.scan_batch_bits(cols, 64, boxes[0], times, counts)
     with pytest.raises(ValueError, match="same Qp"):
-        kernels.scan_batch_bits(cols, 64, boxes, times[:1])
+        kernels.scan_batch_bits(cols, 64, boxes, times[:1], counts)
     with pytest.raises(ValueError, match="times"):
-        kernels.scan_batch_bits(cols, 64, boxes, times.long())
-    bits, partials = kernels.scan_batch_bits(cols, 64, boxes, times)
+        kernels.scan_batch_bits(cols, 64, boxes, times.long(), counts)
+    bits, partials = kernels.scan_batch_bits(cols, 64, boxes, times, counts)
     with pytest.raises(ValueError, match="partials"):
         kernels.compact_bits(bits, partials[:, :, :0])
     # a batch whose tables exceed the shared memory of one launch runs
     # as several launches over query groups; only one query's own
     # tables past the limit are refused
     assert kernels._batch_group(boxes, times) == kernels.BATCH_MAX_GROUP
+    # (a query's shared memory: its staged hit and candidate words, 2 x
+    # 64 x 4 B, its boxes with their hi bounds again, 48 B each, its
+    # interval keys of 16 B and its counts)
     wide = torch.zeros(32, 64, 8), torch.zeros(32, 8, 4, dtype=torch.int32)
-    assert kernels._batch_group(*wide) == (48 * 1024 - 256) // (64 * 32 + 8 * 16)
+    assert kernels._batch_group(*wide) == (48 * 1024) // (
+        512 + 64 * 48 + 8 * 16 + 8)
     with pytest.raises(ValueError, match="one query"):
         kernels._batch_group(torch.zeros(1, 2048, 8), times[:1])
+    for bad in (torch.zeros(2, 2, dtype=torch.int64),
+                torch.zeros(1, 2, dtype=torch.int32),
+                torch.zeros(2, 3, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="counts"):
+            kernels.scan_batch_bits(cols, 64, boxes, times, bad)
 
 
 # -- the store ---------------------------------------------------------------

@@ -166,7 +166,8 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
         raise AssertionError("plain version called on CUDA tensors")
     for name in ("scan_mask_plain", "scan_mask_gather_plain",
                  "scan_count_plain", "scan_batch_bits_plain",
-                 "compact_bits_plain", "_predicate", "_candidates"):
+                 "compact_bits_plain", "compact_prefix_plain", "_predicate",
+                 "_candidates"):
         monkeypatch.setattr(kernels, name, refuse)
     _, _, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -178,7 +179,7 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
         [zscan.make_query(*qq) for qq in QUERIES]))
     assert kernels.launches == {"scan_mask": 1, "scan_mask_gather": 1,
                                 "scan_count": 1, "scan_batch_bits": 1,
-                                "compact_bits": 1}
+                                "compact_prefix": 1, "compact_bits": 1}
 
 
 @pytest.mark.gpu
@@ -219,24 +220,58 @@ def _batch(count, k_boxes=None, intervals=None, seed=0):
     return zscan.stack_queries(qs)
 
 
-def _check_batch(d, bq, n_launch=1):
-    """Both batched kernels against their plain versions on the card,
-    exactly; the bitmap kernel in ``n_launch`` launches."""
+def _mixed_batch(count, seed=0):
+    """``count`` queries whose own slot counts differ within the batch:
+    1 to 4 boxes, and no interval (time-free), one, or three."""
+    rng = np.random.default_rng(seed)
+    qs = []
+    for i in range(count):
+        boxes = []
+        for _ in range(1 + i % 4):
+            w, h = rng.uniform(5, 120, 2)
+            x0, y0 = rng.uniform(-180, 180 - w), rng.uniform(-90, 90 - h)
+            boxes.append((x0, y0, x0 + w, y0 + h))
+        ivs = [(j * 30 * MS_DAY, (j * 30 + 20) * MS_DAY)
+               for j in range((0, 1, 3)[i % 3])]
+        qs.append(zscan.make_query(boxes, ivs))
+    return zscan.stack_queries(qs)
+
+
+def _check_batch(d, bq, n_launch=1, every_slot=False):
+    """Both batched kernels and the prefix kernel against their plain
+    versions on the card, exactly; the bitmap kernel in ``n_launch``
+    launches, over each query's own slots (or, with ``every_slot``,
+    counts of K boxes and B intervals: the unused NaN and impossible
+    slots too)."""
     b, t = bq.tables(d.device)
-    want_bits, want_parts = kernels.scan_batch_bits_plain(d.cols, d.n, b, t)
+    c = bq.counts(d.device)
+    if every_slot:
+        c = torch.tensor([[b.shape[1], t.shape[1]]] * b.shape[0],
+                         dtype=torch.int32, device=d.device)
+    want_bits, want_parts = kernels.scan_batch_bits_plain(d.cols, d.n, b, t, c)
     kernels.reset_launches()
-    bits, parts = kernels.scan_batch_bits(d.cols, d.n, b, t)
+    bits, parts = kernels.scan_batch_bits(d.cols, d.n, b, t, c)
     torch.cuda.synchronize()
     assert kernels.launches["scan_batch_bits"] == n_launch
     assert torch.equal(bits, want_bits) and torch.equal(parts, want_parts)
+    offsets, totals = kernels.compact_prefix(parts)
+    torch.cuda.synchronize()
+    want_offsets, want_totals = kernels.compact_prefix_plain(want_parts)
+    assert torch.equal(offsets, want_offsets) and torch.equal(totals,
+                                                              want_totals)
+    kernels.reset_launches()
     *ids, counts = kernels.compact_bits(bits, parts)
     torch.cuda.synchronize()
     *want, want_counts = kernels.compact_bits_plain(want_bits, want_parts)
     assert np.array_equal(counts, want_counts)
     for got, exp in zip(ids, want):
         assert torch.equal(got, exp)
+    assert kernels.launches["compact_prefix"] == (1 if d.cap else 0)
     assert kernels.launches["compact_bits"] == (1 if sum(map(len, want)) else 0)
     return want
+
+
+BATCH_N = [0, 1, 3, 5, 31, 33, 2047, 2049, 4097, 1_000_000, 2**20 - 1]
 
 
 @pytest.fixture(scope="module")
@@ -244,15 +279,17 @@ def batch_data():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
     out = {}
-    for n in (0, 1, 31, 33, 4097, 1_000_000):
-        # capacity padding beyond n, and a capacity off a word boundary
-        out[n] = _data(n, max(n + 77, 64), torch.device("cuda"), seed=n)[3]
+    for n in BATCH_N:
+        # capacity padding beyond n, and a capacity off a word boundary;
+        # the last case is n = cap - 1 at a power-of-two capacity
+        cap = n + 1 if n == 2**20 - 1 else max(n + 77, 64)
+        out[n] = _data(n, cap, torch.device("cuda"), seed=n)[3]
     return out
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("count", [1, 2, 3, 32, 64])
-@pytest.mark.parametrize("n", [0, 1, 31, 33, 4097, 1_000_000])
+@pytest.mark.parametrize("n", BATCH_N)
 def test_batch_kernels_match_plain(batch_data, n, count):
     """Qp = 1, 2, 3, 32 in one launch; 64 in two (32 queries per
     launch)."""
@@ -266,6 +303,130 @@ def test_batch_kernels_match_plain(batch_data, n, count):
         q = zscan.make_query(*QUERIES[0])
         assert torch.equal(zscan.scan_mask_batch(d, bq)[0],
                            zscan.scan_mask(d, q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("every_slot", [False, True])
+@pytest.mark.parametrize("count", [3, 32, 64])
+@pytest.mark.parametrize("n", [5, 2049, 1_000_000])
+def test_batch_kernels_own_slots(batch_data, n, count, every_slot):
+    """Queries with 1 to 4 boxes, time-free, one or three intervals in
+    one launch: the kernel over each query's own slots, and with counts
+    that take in every padded slot, equals the plain version."""
+    hits, _ = _check_batch(batch_data[n], _mixed_batch(count, seed=count),
+                           -(-count // 32), every_slot)
+    if n == 1_000_000:
+        assert len(hits) > 0
+
+
+def _boundary_case(device):
+    """Rows on the bounds of four boxes: on each bound's hi word with
+    the lo word below, equal to and above the bound's lo word, on the hi
+    word alone, and at +0.0 and -0.0 against zero bounds (one box has
+    bounds at +0.0, one at -0.0); then the queries, each with its own
+    box, the last two over two boxes and two intervals."""
+    boxes = [(-10.3, 5.7, 20.1, 30.9), (0.0, 0.0, 12.5, 7.25),
+             (-0.0, -0.0, 3.0, 3.0), (-3.0, -3.0, -0.0, -0.0)]
+    qs = [zscan.make_query([bx], []) for bx in boxes]
+    qs.append(zscan.make_query(boxes[:2], [(0, 10 * MS_DAY),
+                                           (20 * MS_DAY, 30 * MS_DAY)]))
+    qs.append(zscan.make_query(boxes[2:], [(5 * MS_DAY, 5 * MS_DAY),
+                                           (6 * MS_DAY, 90 * MS_DAY)]))
+    xs, ys = [], []
+    for x0, y0, x1, y1 in boxes:
+        mid_x, mid_y = (x0 + x1) / 2, (y0 + y1) / 2
+        for v, on_x in ((x0, True), (x1, True), (y0, False), (y1, False)):
+            hi, lo = zscan.split_two_float(np.float64(v))
+            for dlo in (-1, 0, 1, None):
+                if dlo is None:
+                    pair = (hi, np.float32(0))
+                else:
+                    pair = (hi, np.nextafter(lo, np.float32(dlo * np.inf))
+                            if dlo else lo)
+                xs.append(pair if on_x else
+                          zscan.split_two_float(np.float64(mid_x)))
+                ys.append(zscan.split_two_float(np.float64(mid_y))
+                          if on_x else pair)
+    for z in (0.0, -0.0):
+        for w in (0.0, -0.0, 1.0, -1.0):
+            xs += [(np.float32(z), np.float32(0)), (np.float32(w),
+                                                    np.float32(0))]
+            ys += [(np.float32(w), np.float32(0)), (np.float32(z),
+                                                    np.float32(0))]
+    n = len(xs)
+    reps = 41   # the rows again at every offset of a thread's eight rows
+    xy = np.array([[a, b, c, e] for (a, b), (c, e) in zip(xs, ys)],
+                  dtype=np.float32)
+    xy = np.tile(xy, (reps, 1))
+    rng = np.random.default_rng(2)
+    days = rng.integers(0, 40, len(xy)).astype(np.int32)
+    msd = rng.integers(0, MS_DAY, len(xy)).astype(np.int32)
+    msd[::5] = 0
+    msd[1::5] = MS_DAY - 1
+    data = zscan.scan_data_from_numpy(
+        *(np.ascontiguousarray(xy[:, j]) for j in range(4)), days, msd,
+        len(xy), device)
+    assert n * reps == data.n
+    return data, zscan.stack_queries(qs)
+
+
+@pytest.mark.gpu
+def test_batch_kernels_exact_on_bounds(cuda):
+    """Rows on each bound's hi word and hi + lo pair, and +-0.0 in bounds
+    and coordinates: the bitmaps equal the plain version's bit for bit,
+    and every box has candidate rows."""
+    d, bq = _boundary_case(cuda)
+    hits, cands = _check_batch(d, bq)
+    per_query = kernels.compact_bits_plain(
+        *kernels.scan_batch_bits_plain(d.cols, d.n, *bq.tables(cuda),
+                                       bq.counts(cuda)))[2]
+    assert (per_query[1] > 0).all() and (per_query[0] > 0).all()
+
+
+@pytest.mark.gpu
+def test_compact_prefix_past_int32(cuda):
+    """Synthetic partials (no bitmaps) whose totals over the queries pass
+    2^31: int32 offsets within each query, int64 totals, and the int64
+    bases (the prefix of the totals) exact."""
+    qp, nb = 64, 32_768
+    parts = torch.full((2, qp, nb), 2048, dtype=torch.int32, device=cuda)
+    parts[:, :, 7::13] = 5
+    parts[1, 3] = 0
+    offsets, totals = kernels.compact_prefix(parts)
+    want_offsets, want_totals = kernels.compact_prefix_plain(parts.cpu())
+    assert torch.equal(offsets.cpu(), want_offsets)
+    assert torch.equal(totals.cpu(), want_totals)
+    host = parts.cpu().numpy().astype(np.int64)
+    assert np.array_equal(totals.cpu().numpy(), host.sum(axis=2))
+    bases = np.cumsum(totals.cpu().numpy(), axis=1) - totals.cpu().numpy()
+    assert bases[0, -1] > 2**31 and bases[1, -1] > 2**31
+    assert np.array_equal(bases, np.cumsum(host.sum(axis=2), axis=1)
+                          - host.sum(axis=2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [33, 2049, 1_000_000, 2**20 - 1])
+def test_compact_empty_and_full_bitmaps(batch_data, n):
+    """A query that matches every row (every bit up to n set) and one
+    that matches none, and a batch of only the empty one."""
+    d = batch_data[n]
+    full = zscan.make_query([(-180.0, -90.0, 180.0, 90.0)], [])
+    empty = zscan.make_query([(10.0, 10.0, 10.5, 10.5)],
+                             [(200 * MS_DAY, 300 * MS_DAY)])
+    hits, _ = _check_batch(d, zscan.stack_queries([full, empty, full]))
+    assert len(hits) == 2 * d.n
+    hits, cands = _check_batch(d, zscan.stack_queries([empty]))
+    assert len(hits) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("count", [1024, 1030])
+def test_batch_kernels_many_queries(batch_data, count):
+    """Batches of over a thousand queries: each compaction warp sums a
+    query's base from 1024 or more totals."""
+    hits, _ = _check_batch(batch_data[2049], _mixed_batch(count, seed=5),
+                           -(-count // 32))
+    assert len(hits) > 0
 
 
 @pytest.mark.gpu
