@@ -5,9 +5,10 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-1. build   the CUDA kernels from geomesa_tpu_torch/csrc/scan.cu and
-           csrc/batch.cu (one nvcc per source, started together, then
-           one link; sm_90a), with the card's name and power limit.
+1. build   the CUDA kernels from geomesa_tpu_torch/csrc/scan.cu,
+           csrc/batch.cu, csrc/geom.cu and csrc/residual.cu (one nvcc
+           per source, started together, then one link; sm_90a), with
+           the card's name and power limit.
 2. kernels each hand kernel against its plain PyTorch version on the
            same device tensors: 100M rows from --seed, in a capacity
            of 2^27 (so rows n..cap are capacity padding), the four
@@ -56,6 +57,29 @@ Phases, one JSON line each; any failure exits non-zero:
            cProfile of the call (host clock); and the batched kernels
            timed at this phase's own shape beside their bounds
            (``kernels_32``).
+5. predicates  exact polygon and attribute predicates: the earlier
+           stores freed, a store of --store-rows rows shaped like a GDELT
+           1.0 event record (EventCode:String:index=true with 320
+           CAMEO-like codes, Zipf-skewed; Actor1CountryCode:String, 250
+           codes, 15 % null; NumMentions:Integer, heavy-tailed, 0.1 %
+           null; AvgTone:Double in -10..10, a fifth rounded to 0.1 and
+           0.2 % on f64 neighbours of one threshold; IsRootEvent:Boolean;
+           dtg; geom) written through write() with the string columns
+           built from their vocabularies and int32 codes; the residual's
+           device columns uploaded and timed apart; then eight queries
+           (PRED_QUERIES: a 300-vertex polygon with a hole AND DURING and
+           a two-part multipolygon through the point-in-polygon kernel,
+           attribute-only filters through the residual kernel as the
+           fullscan secondary, the dense secondary with f64 band rows and
+           a wide attribute-index range, an attribute-index equality, a
+           fid IN of 1,000 ids, a DISJOINT), each query's ids and
+           query_count equal to a float64 numpy brute force. Launch
+           counts are zeroed before the queries and read after; both
+           kernels must have launched. Outside the counted run, every
+           call the path made to either kernel is held exactly against
+           its plain version (torch.equal), both kernels are timed at the
+           path's own shapes beside their bounds, and each query's p50
+           (host clock, 3 runs) is printed with its strategy.
 
 Then the kernels summary line, the card line, and the final
 {"ok": true, ...} line. Without CUDA it exits 1 and prints no result.
@@ -112,8 +136,16 @@ SOURCES = {
                       "(its offsets; + :558 _batch_count's totals)",
     "compact_bits": "geomesa_tpu/scan/zscan.py:563 _batch_nonzero",
 }
+PRED_KERNELS = ("pip_mask", "residual_mask")   # the predicates phase's
+SOURCES.update({
+    "pip_mask": "geomesa_tpu/scan/gscan.py:239 _pip_kernel",
+    "residual_mask": "geomesa_tpu/scan/residual.py:132 device_mask "
+                     "(+ :214 _pair_cmp, :313 _vocab_gather)",
+})
 SOURCE_FILES = {k: "geomesa_tpu_torch/csrc/batch.cu"
                 for k in ("scan_batch_bits", "compact_prefix", "compact_bits")}
+SOURCE_FILES.update({"pip_mask": "geomesa_tpu_torch/csrc/geom.cu",
+                     "residual_mask": "geomesa_tpu_torch/csrc/residual.cu"})
 BATCH = 32          # queries per batch in the kernels phase
 STORE_BATCH_QUERIES = 32
 BATCH_SIZES = (2, 8, 32)
@@ -419,7 +451,8 @@ def phase_kernels(seed: int, rows: int) -> dict:
                            generator=torch.Generator(dev).manual_seed(seed))
     m = idx.shape[0]
     flush = _l2_flush(dev)
-    stats = {k: {"max_abs_err": 0, "per_query": []} for k in SOURCES}
+    stats = {k: {"max_abs_err": 0, "per_query": []} for k in SOURCES
+             if k not in PRED_KERNELS}
     for qi, (boxes, intervals) in enumerate(KERNEL_QUERIES):
         q = zscan.make_query(boxes, intervals)
         b, t = q.tables(dev)
@@ -764,12 +797,454 @@ def run_batcher(batcher, ecqls, truth) -> dict:
             "stats": st, "errors": errors[:3]}
 
 
+# -- the predicates phase ----------------------------------------------------
+
+PRED_SPEC = ("EventCode:String:index=true,Actor1CountryCode:String,"
+             "NumMentions:Integer,AvgTone:Double,IsRootEvent:Boolean,"
+             "dtg:Date,*geom:Point:srid=4326")
+TONE_T = -5.123456789     # AvgTone threshold; its f64 neighbours are data
+PRED_RUNS = 3             # host-clock runs per query for its p50
+
+
+def event_codes() -> np.ndarray:
+    """320 CAMEO-like event codes: 20 roots, each with its base code,
+    nine 3-digit and six 4-digit refinements, sorted."""
+    out = []
+    for r in range(1, 21):
+        out += [f"{r:02d}{k}" for k in range(10)]
+        out += [f"{r:02d}{k}{m}" for k in (1, 2) for m in (1, 2, 3)]
+    return np.array(sorted(out))
+
+
+def country_codes(rng) -> np.ndarray:
+    """250 three-letter country codes, sorted, with a few real ones."""
+    real = {"USA", "GBR", "CHN", "RUS", "UKR", "UGA", "URY", "UZB", "FRA"}
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    out = set(real)
+    while len(out) < 250:
+        out.add("".join(rng.choice(letters, 3)))
+    return np.array(sorted(out))
+
+
+def star_ring(cx, cy, rx, ry, n, k=0, wobble=0.0, phase=0.0):
+    """A counter-clockwise ring of n vertices, star-shaped about (cx,
+    cy): radius (rx, ry) * (1 + wobble sin(k t + phase)) at parameter
+    angles t in (-pi, pi)."""
+    t = -np.pi + (np.arange(n) + 0.5) * (2 * np.pi / n)
+    r = 1 + wobble * np.sin(k * t + phase)
+    return np.c_[cx + rx * r * np.cos(t), cy + ry * r * np.sin(t)]
+
+
+def _ring_wkt(ring) -> str:
+    closed = np.vstack([ring, ring[:1]])
+    return "(" + ", ".join(f"{float(x)!r} {float(y)!r}" for x, y in closed) + ")"
+
+
+PRED_SHELL = star_ring(10.0, 0.0, 95.0, 60.0, 300, k=7, wobble=0.15, phase=0.3)
+PRED_HOLE = star_ring(20.0, 10.0, 20.0, 20.0, 40)
+PRED_PARTS = [star_ring(-95.0, 0.0, 70.0, 55.0, 64, k=5, wobble=0.1),
+              star_ring(95.0, 5.0, 70.0, 55.0, 64, k=4, wobble=0.1, phase=1.0)]
+PRED_SMALL = star_ring(120.0, -20.0, 15.0, 15.0, 24, k=3, wobble=0.2)
+PRED_POLYGON = f"POLYGON({_ring_wkt(PRED_SHELL)}, {_ring_wkt(PRED_HOLE)})"
+PRED_DURING = (T0_DAY + 5, T0_DAY + 95)   # days, exclusive
+PRED_ATTR_FILTER = ("AvgTone < -5 AND NumMentions >= 10 AND "
+                    "Actor1CountryCode LIKE 'U%'")
+PRED_BAND_FILTER = (f"AvgTone = {TONE_T!r} OR NOT (Actor1CountryCode IN "
+                    f"('USA', 'GBR', 'CHN', 'RUS'))")
+
+
+def in_star(x, y, ring, cx, cy, rx, ry) -> np.ndarray:
+    """Float64 brute force of a point in a ring star-shaped about (cx,
+    cy), boundary included: the ray from the centre to the point crosses
+    the edge of the point's angular sector, and the point lies on the
+    centre's side of that edge or on it (the orientation sign of the
+    edge and the point in f64)."""
+    ang = np.arctan2((ring[:, 1] - cy) / ry, (ring[:, 0] - cx) / rx)
+    phi = np.arctan2((y - cy) / ry, (x - cx) / rx)
+    i = np.searchsorted(ang, phi, side="right") - 1   # -1: the wrap edge
+    x0, y0 = ring[i, 0], ring[i, 1]
+    j = (i + 1) % len(ring)
+    x1, y1 = ring[j, 0], ring[j, 1]
+    return (x1 - x0) * (y - y0) - (y1 - y0) * (x - x0) >= 0
+
+
+def _in_box(x, y, box):
+    return (x >= box[0]) & (x <= box[2]) & (y >= box[1]) & (y <= box[3])
+
+
+def _env(ring):
+    return (ring[:, 0].min(), ring[:, 1].min(), ring[:, 0].max(),
+            ring[:, 1].max())
+
+
+def predicate_data(seed: int, rows: int) -> dict:
+    """The GDELT-shaped columns from ``seed``: strings as sorted vocab +
+    int32 codes (-1 null), numbers with validity, points and dates."""
+    rng = np.random.default_rng(seed + 5)
+    ev_vocab = event_codes()
+    rank = rng.permutation(len(ev_vocab))     # frequency rank -> code
+    ev = rank[np.minimum(rng.zipf(1.4, rows) - 1,
+                         len(ev_vocab) - 1)].astype(np.int32)
+    ac_vocab = country_codes(rng)
+    ac = np.minimum(rng.zipf(1.2, rows) - 1, len(ac_vocab) - 1)
+    ac = rng.permutation(len(ac_vocab))[ac].astype(np.int32)
+    ac[rng.random(rows) < 0.15] = -1
+    mentions = (np.floor(rng.pareto(1.1, rows) * 3) + 1).astype(np.int64)
+    mentions_valid = rng.random(rows) >= 0.001
+    tone = rng.uniform(-10.0, 10.0, rows)
+    tone = np.where(rng.random(rows) < 0.2, np.round(tone, 1), tone)
+    near = np.flatnonzero(rng.random(rows) < 0.002)
+    tone[near] = TONE_T + rng.integers(-8, 9, len(near)) * np.spacing(TONE_T)
+    return {"ev": ev, "ev_vocab": ev_vocab, "ac": ac, "ac_vocab": ac_vocab,
+            "mentions": mentions, "mentions_valid": mentions_valid,
+            "tone": tone, "root": rng.random(rows) < 0.4,
+            "ms": rng.integers(T0_DAY * MS_DAY, T1_DAY * MS_DAY, rows),
+            "x": rng.uniform(-180, 180, rows),
+            "y": rng.uniform(-90, 90, rows)}
+
+
+def predicate_batch(sft, d: dict, ids):
+    """The store's batch from ``predicate_data``'s columns (the string
+    columns from their vocabularies and codes, no Python strings)."""
+    from geomesa_tpu_torch.features.batch import (BoolColumn, DateColumn,
+                                                  FeatureBatch, NumericColumn,
+                                                  PointColumn, StringColumn)
+    n = len(d["x"])
+    ones = np.ones(n, dtype=bool)
+    return FeatureBatch(sft, ids, {
+        "EventCode": StringColumn("EventCode", d["ev"],
+                                  d["ev_vocab"].astype(object)),
+        "Actor1CountryCode": StringColumn("Actor1CountryCode", d["ac"],
+                                          d["ac_vocab"].astype(object)),
+        "NumMentions": NumericColumn("NumMentions", d["mentions"],
+                                     d["mentions_valid"]),
+        "AvgTone": NumericColumn("AvgTone", d["tone"], ones),
+        "IsRootEvent": BoolColumn("IsRootEvent", d["root"], ones),
+        "dtg": DateColumn("dtg", d["ms"], ones),
+        "geom": PointColumn("geom", d["x"], d["y"], ones)})
+
+
+def _iso(day: int) -> str:
+    return str(np.datetime64(day, "D")) + "T00:00:00Z"
+
+
+def predicate_queries(d: dict, ids) -> list:
+    """The phase's eight queries as (name, ecql, brute-force mask): each
+    mask in float64 / int64 numpy over the raw columns."""
+    x, y, ms = d["x"], d["y"], d["ms"]
+    ev, ac = d["ev"], d["ac"]
+    ev_vocab, ac_vocab = d["ev_vocab"], d["ac_vocab"]
+
+    def during(lo_day, hi_day):
+        return (ms > lo_day * MS_DAY) & (ms < hi_day * MS_DAY)
+
+    def star(ring, cx, cy, rx, ry):
+        box = _env(ring)
+        inside = np.zeros(len(x), dtype=bool)
+        sel = np.flatnonzero(_in_box(x, y, box))
+        inside[sel] = in_star(x[sel], y[sel], ring, cx, cy, rx, ry)
+        return inside
+
+    shell = star(PRED_SHELL, 10.0, 0.0, 95.0, 60.0)
+    hole = star(PRED_HOLE, 20.0, 10.0, 20.0, 20.0)
+    # a point on the hole's boundary stays in: the strict interior goes
+    hole_strict = hole & ~_on_ring(x, y, PRED_HOLE, hole)
+    q1 = shell & ~hole_strict & during(*PRED_DURING)
+    parts = (star(PRED_PARTS[0], -95.0, 0.0, 70.0, 55.0)
+             | star(PRED_PARTS[1], 95.0, 5.0, 70.0, 55.0))
+    like_u = np.char.startswith(ac_vocab, "U")
+    q3 = ((d["tone"] < -5) & (d["mentions"] >= 10) & d["mentions_valid"]
+          & (ac >= 0) & like_u[np.maximum(ac, 0)])
+    big4 = np.isin(ac_vocab, ["USA", "GBR", "CHN", "RUS"])
+    q4 = (_in_box(x, y, (-179, -89, 179, 89)) & during(T0_DAY + 1,
+                                                       T0_DAY + 99)
+          & ((d["tone"] == TONE_T) | ~((ac >= 0) & big4[np.maximum(ac, 0)])))
+    # an equality on a code of middling frequency; a range >= the code
+    # at the lexicographic median of the rows
+    counts = np.bincount(ev, minlength=len(ev_vocab))
+    order = np.argsort(-counts)
+    eq_code = ev_vocab[order[10]]
+    ge_code = ev_vocab[np.searchsorted(np.cumsum(counts), len(ev) // 2)]
+    q5 = (ev_vocab[ev] == eq_code) & during(T0_DAY + 10, T0_DAY + 40)
+    q6 = ev_vocab[ev] >= ge_code
+    fid_rows = np.random.default_rng(99).choice(len(x), 1000, replace=False)
+    q7 = np.zeros(len(x), dtype=bool)
+    q7[fid_rows] = True
+    small_box = (100.0, -40.0, 140.0, 0.0)
+    q8 = _in_box(x, y, small_box) & ~star(PRED_SMALL, 120.0, -20.0, 15.0,
+                                          15.0)
+    multi = ("MULTIPOLYGON(" + ", ".join(f"({_ring_wkt(p)})"
+                                         for p in PRED_PARTS) + ")")
+    fids = ", ".join(f"'{ids[i]}'" for i in fid_rows)
+    return [
+        ("polygon_hole_during",
+         f"INTERSECTS(geom, {PRED_POLYGON}) AND dtg DURING "
+         f"{_iso(PRED_DURING[0])}/{_iso(PRED_DURING[1])}", q1),
+        ("multipolygon_within", f"WITHIN(geom, {multi})", parts),
+        ("attributes_fullscan", PRED_ATTR_FILTER, q3),
+        ("dense_secondary_band",
+         f"BBOX(geom, -179, -89, 179, 89) AND dtg DURING "
+         f"{_iso(T0_DAY + 1)}/{_iso(T0_DAY + 99)} AND ({PRED_BAND_FILTER})",
+         q4),
+        ("attr_equality_during",
+         f"EventCode = '{eq_code}' AND dtg DURING "
+         f"{_iso(T0_DAY + 10)}/{_iso(T0_DAY + 40)}", q5),
+        ("attr_wide_range", f"EventCode >= '{ge_code}'", q6),
+        ("fid_in_1000", f"IN ({fids})", q7),
+        ("bbox_disjoint",
+         f"BBOX(geom, {small_box[0]}, {small_box[1]}, {small_box[2]}, "
+         f"{small_box[3]}) AND DISJOINT(geom, POLYGON({_ring_wkt(PRED_SMALL)}))",
+         q8),
+    ]
+
+
+def _on_ring(x, y, ring, cand):
+    """Exactly on one of the ring's edges (f64 orientation zero within
+    the edge's box), over the rows ``cand`` only."""
+    out = np.zeros(len(x), dtype=bool)
+    sel = np.flatnonzero(cand)
+    if not len(sel):
+        return out
+    px, py = x[sel], y[sel]
+    hit = np.zeros(len(sel), dtype=bool)
+    for a, b in zip(ring, np.roll(ring, -1, axis=0)):
+        cross = (b[0] - a[0]) * (py - a[1]) - (b[1] - a[1]) * (px - a[0])
+        hit |= ((cross == 0) & (px >= min(a[0], b[0]))
+                & (px <= max(a[0], b[0])) & (py >= min(a[1], b[1]))
+                & (py <= max(a[1], b[1])))
+    out[sel] = hit
+    return out
+
+
+def _strategy(res) -> str:
+    text = res.explain.text
+    notes = [k for k, line in (
+        ("pip_kernel", "Device point-in-polygon residual"),
+        ("residual_dense", "Device residual scan (dense)"),
+        ("attr_too_wide", "Attribute bounds too wide"),
+        ("attr_index_scan", "Attribute index scan"),
+        ("device_scan", "Device scan:"),
+        ("gathered_scan", "Index-pruned device scan"),
+        ("host_scan", "Index-pruned host scan")) if line in text]
+    return "+".join([res.plan.index] + notes)
+
+
+# pip_mask's operations, each add, subtract, multiply, division, compare,
+# select or xor counted as one at the f32 rate: per (point, edge) the
+# crossing test's two compares and xor, t's two subtracts, two multiplies,
+# add and division, the clamp's two, dx's and dy's three each, d2's three
+# and the minimum's one; three more (xint's multiply, division and add)
+# and two (px < xint, the parity flip) where the edge spans the point's
+# y; once per edge ex, ey, len2 and the two zero guards
+PIP_OPS_PAIR, PIP_OPS_CROSSING, PIP_OPS_EDGE = 21, 5, 9
+
+
+def pip_crossings(py, edges) -> int:
+    """(point, edge) pairs whose edge spans the point's y, the crossing
+    test's ``(y0 > py) != (y1 > py)``: py in [min(y0, y1), max(y0, y1))."""
+    ys = torch.sort(py).values
+    lo = torch.minimum(edges[:, 1], edges[:, 3]).contiguous()
+    hi = torch.maximum(edges[:, 1], edges[:, 3]).contiguous()
+    return int((torch.searchsorted(ys, hi) - torch.searchsorted(ys, lo))
+               .sum().item())
+
+
+def _residual_bytes(slots, n: int) -> int:
+    """Bytes the residual kernel must move: each slot column read once
+    per row, one byte out per row."""
+    return n * (1 + sum(t.element_size() for s in slots for t in s
+                        if t is not None))
+
+
+PIP_STEP_SIZES = (100, 1_000, 10_000, 50_000, 500_000)   # candidates
+
+
+def pip_step_times(ds, st, d: dict) -> list:
+    """The polygon query's exact-geometry step both ways on the same
+    candidates (the first k rows inside the polygon's envelope): the
+    host's float64 crossing number over the candidates' coordinates, and
+    the store's point-in-polygon path (``pip_mask`` plus its float64 band
+    recheck). Host-clock medians of PRED_RUNS interleaved runs each, in
+    ms (a host run of over a second is made once); the two keep masks
+    must agree."""
+    from geomesa_tpu_torch.filters.ecql import parse_ecql
+    f = parse_ecql(f"INTERSECTS(geom, {PRED_POLYGON})")
+    col = st.batch.col("geom")
+    env = np.flatnonzero(_in_box(d["x"], d["y"], _env(PRED_SHELL)))
+    out = []
+    for k in PIP_STEP_SIZES:
+        idx = env[:k]
+
+        def host():
+            return f.geom.contains_points(col.x[idx], col.y[idx]) \
+                & col.valid[idx]
+
+        def device():
+            return ds._pip_residual(st, f, col, idx, lambda _: None)
+        times = {"host": [], "device": []}
+        keep = {}
+        for r in range(PRED_RUNS):
+            for name, fn in (("device", device), ("host", host)):
+                if name == "host" and r and times["host"][0] > 1e3:
+                    continue
+                t0 = time.perf_counter()
+                keep[name] = fn()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        row = {"candidates": len(idx), "hits": int(keep["host"].sum()),
+               "same": bool(np.array_equal(keep["host"], keep["device"]))}
+        for name, ts in times.items():
+            row[f"{name}_ms"] = statistics.median(ts)
+        out.append(row)
+    return out
+
+
+def phase_predicates(seed: int, rows: int, ids) -> dict:
+    """Exact polygon and attribute predicates on a GDELT-shaped store."""
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.scan import kernels
+    d = predicate_data(seed, rows)
+    queries = predicate_queries(d, ids)
+    ds = InMemoryDataStore()
+    ds.create_schema("gdelt", PRED_SPEC)
+    t0 = time.perf_counter()
+    ds.write("gdelt", predicate_batch(ds.get_schema("gdelt"), d, ids))
+    st = ds._types["gdelt"]
+    st.ensure_index()
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    # the residual's device columns, uploaded apart from the queries
+    t0 = time.perf_counter()
+    cols = st.device_cols()
+    for name in ("EventCode", "Actor1CountryCode", "NumMentions", "AvgTone",
+                 "IsRootEvent"):
+        cols.get(name)
+    torch.cuda.synchronize()
+    upload = {"seconds": time.perf_counter() - t0, "bytes": cols.nbytes}
+
+    # the counted run; every call the path makes to either kernel is
+    # recorded for the checks and timings below
+    calls = {"pip_mask": [], "residual_mask": []}
+    real = {k: getattr(kernels, k) for k in calls}
+
+    def recorder(name):
+        def call(*args):
+            calls[name].append(args)
+            return real[name](*args)
+        return call
+    kernels.reset_launches()
+    t_main = time.perf_counter()
+    per_q = []
+    try:
+        for name in calls:
+            setattr(kernels, name, recorder(name))
+        for qname, ecql, want in queries:
+            res = ds.query(ecql, "gdelt")
+            rows_want = np.flatnonzero(want)
+            ok = (np.array_equal(res.rows, rows_want)
+                  and np.array_equal(res.ids, ids[rows_want])
+                  and ds.query_count(ecql, "gdelt") == len(rows_want))
+            per_q.append({"query": qname, "hits": len(rows_want),
+                          "strategy": _strategy(res), "exact": ok})
+            if not ok:
+                raise SystemExit(f"predicates: {qname} disagrees with the "
+                                 f"float64 brute force")
+    finally:
+        for name in calls:
+            setattr(kernels, name, real[name])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    counts = {k: kernels.launches[k] for k in calls}
+
+    # outside the counted run: every recorded call against the plain
+    # version, exactly; then both kernels timed at the path's shapes
+    wrong = []
+    for px, py, edges, eps2 in calls["pip_mask"]:
+        got = kernels.pip_mask(px, py, edges, eps2)
+        want = kernels.pip_mask_plain(px, py, edges, eps2)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            wrong.append(("pip_mask", px.shape[0], edges.shape[0]))
+    for code, consts, table, slots, n in calls["residual_mask"]:
+        got = kernels.residual_mask(code, consts, table, slots, n)
+        if not torch.equal(got, kernels.residual_mask_plain(
+                code, consts, table, slots, n)):
+            wrong.append(("residual_mask", n, code.shape[0]))
+    stats = {}
+    if calls["pip_mask"]:
+        px, py, edges, eps2 = max(
+            calls["pip_mask"], key=lambda a: a[0].shape[0] * a[2].shape[0])
+        n, e = px.shape[0], edges.shape[0]
+        crossings = pip_crossings(py, edges)
+        bms, bby = bound_ms(10 * n + 16 * e, PIP_OPS_PAIR * n * e
+                            + PIP_OPS_CROSSING * crossings + PIP_OPS_EDGE * e)
+        stats["pip_mask"] = {
+            "points": n, "edges": e, "crossing_pairs": crossings,
+            "max_abs_err": 0,
+            "ms": cuda_ms(lambda: kernels.pip_mask(px, py, edges, eps2), 10),
+            "plain_ms": cuda_ms(
+                lambda: kernels.pip_mask_plain(px, py, edges, eps2), 1, 1),
+            "bound_ms": bms, "bound_by": bby, "library_ms": None,
+            "band": int(kernels.pip_mask_plain(px, py, edges, eps2)[1]
+                        .sum().item())}
+    if calls["residual_mask"]:
+        args = max(calls["residual_mask"], key=lambda a: a[4])
+        code, consts, table, slots, n = args
+        bms, bby = bound_ms(_residual_bytes(slots, n)
+                            + code.numel() * 4 + consts.numel() * 4
+                            + table.numel(), n * code.shape[0])
+        out = kernels.residual_mask(*args)
+        ptrs = kernels.slot_table(slots, out.device)
+        lib = kernels._library()
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+
+        def kernel_alone():   # the wrapper without its pointer upload
+            lib.geomesa_residual_mask(
+                code.data_ptr(), code.shape[0], consts.data_ptr(),
+                table.data_ptr(), ptrs.data_ptr(), n, out.data_ptr(), stream)
+        stats["residual_mask"] = {
+            "rows": n, "instructions": code.shape[0], "slots": len(slots),
+            "max_abs_err": 0, "ms": cuda_ms(kernel_alone, 10),
+            "wrapper_ms": cuda_ms(lambda: kernels.residual_mask(*args), 10),
+            "plain_ms": cuda_ms(lambda: kernels.residual_mask_plain(*args),
+                                3, 1),
+            "bound_ms": bms, "bound_by": bby, "library_ms": None,
+            "band": int(((out & 2) != 0).sum().item())}
+    for name, _, _ in wrong:
+        stats.setdefault(name, {})["max_abs_err"] = 1
+    pip_step = pip_step_times(ds, st, d)
+    wrong += [("pip_step", r["candidates"], 0) for r in pip_step
+              if not r["same"]]
+    for q, (qname, ecql, _) in zip(per_q, queries):
+        times = []
+        for _ in range(PRED_RUNS):
+            t0 = time.perf_counter()
+            ds.query(ecql, "gdelt")
+            times.append((time.perf_counter() - t0) * 1e3)
+        q["p50_ms"] = statistics.median(times)
+    emit({"phase": "predicates", "rows": rows, "write_s": write_s,
+          "device_columns": upload, "queries": per_q,
+          "kernel_calls": {k: len(v) for k, v in calls.items()},
+          "kernels": stats, "launches": counts, "seconds": main_s,
+          "pip_step": pip_step, "wrong": wrong})
+    if wrong:
+        raise SystemExit(f"predicates: kernels disagree with their plain "
+                         f"versions, or the exact step's two ways "
+                         f"disagree: {wrong}")
+    missing = [k for k, c in counts.items() if c == 0]
+    if missing:
+        raise SystemExit(f"kernels never launched on the predicates path: "
+                         f"{missing}")
+    del ds, calls
+    torch.cuda.empty_cache()
+    return stats, counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--store-rows", type=int, default=10_000_000)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -780,6 +1255,11 @@ def main():
     batched = phase_batched(args.seed, ds, rows)
     for name in ("scan_batch_bits", "compact_prefix", "compact_bits"):
         launches[name] = batched[name]
+    del ds
+    torch.cuda.empty_cache()
+    pred_stats, pred_counts = phase_predicates(args.seed, args.store_rows,
+                                               rows[3])
+    launches.update(pred_counts)
     summary = []
     for name, s in stats.items():
         q0 = s["per_query"][0]   # the BBOX+time query (1M random ids
@@ -794,6 +1274,13 @@ def main():
             "plain_ms": q0["plain_ms"], "bound_ms": q0["bound_ms"],
             "bound_by": q0["bound_by"],
             "library_ms": q0.get("library_ms")})
+    for name, s in pred_stats.items():   # at the predicates path's shapes
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCE_FILES[name],
+            "replaces": SOURCES[name], "launches": launches[name],
+            **{k: s[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

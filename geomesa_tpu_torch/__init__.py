@@ -2,8 +2,9 @@
 
 A package of its own beside ``geomesa_tpu`` (the JAX reference), with
 the same module layout. It imports torch and numpy, never jax and
-nothing of ``geomesa_tpu``. The scan kernels are hand-written CUDA
-(``csrc/scan.cu``), built at first use.
+nothing of ``geomesa_tpu``. The kernels are hand-written CUDA
+(``csrc/*.cu``: the scans, the batched scan, point-in-polygon and the
+attribute residual), built at first use.
 
 Entry points run on the CUDA card unless the caller passes another
 device: ``InMemoryDataStore()`` is ``InMemoryDataStore(device="cuda")``.

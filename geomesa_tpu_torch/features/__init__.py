@@ -2,8 +2,9 @@
 columnar host batches."""
 
 from .sft import AttributeSpec, AttributeType, Configs, SimpleFeatureType, parse_spec
-from .batch import Column, DateColumn, FeatureBatch, PointColumn, StringColumn
+from .batch import (BoolColumn, Column, DateColumn, FeatureBatch,
+                    NumericColumn, PointColumn, StringColumn)
 
 __all__ = ["AttributeSpec", "AttributeType", "Configs", "SimpleFeatureType",
-           "parse_spec", "Column", "DateColumn", "FeatureBatch",
-           "PointColumn", "StringColumn"]
+           "parse_spec", "BoolColumn", "Column", "DateColumn", "FeatureBatch",
+           "NumericColumn", "PointColumn", "StringColumn"]

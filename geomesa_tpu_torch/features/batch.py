@@ -1,13 +1,14 @@
 """Columnar feature model: struct-of-arrays batches on the host.
 
 One numpy array per attribute with a validity mask: point coordinates
-as float64 x/y pairs, dates as epoch millis, strings dictionary-encoded.
-The in-memory store builds its device columns (two-float coordinates,
-(day, ms) times) from these at index-build time.
+as float64 x/y pairs, dates as epoch millis, strings dictionary-encoded,
+numbers as int64 (Integer, Long) or float64 (Float, Double; a NaN reads
+as null), booleans as bool. The in-memory store builds its device
+columns (two-float coordinates, (day, ms) times, the residual's split
+attribute columns) from these.
 
-The point query slice of the port carries point, date and string
-columns; numeric, boolean and extent-geometry columns arrive with the
-later slices that query them (ROADMAP.md section 6).
+Extent-geometry columns arrive with the extent (XZ) slice of the port
+(ROADMAP.md section 6).
 """
 
 from __future__ import annotations
@@ -20,8 +21,12 @@ import numpy as np
 from ..geometry import Point, parse_wkt
 from .sft import SimpleFeatureType
 
-__all__ = ["FeatureBatch", "Column", "DateColumn", "StringColumn",
-           "PointColumn"]
+__all__ = ["FeatureBatch", "Column", "NumericColumn", "BoolColumn",
+           "DateColumn", "StringColumn", "PointColumn", "COLUMN_TYPES"]
+
+# the attribute types this port stores (String and UUID share one column)
+COLUMN_TYPES = frozenset({"Point", "String", "UUID", "Date", "Boolean",
+                          "Integer", "Long", "Float", "Double"})
 
 
 class Column:
@@ -33,6 +38,35 @@ class Column:
 
     def take(self, idx: np.ndarray) -> "Column":
         raise NotImplementedError
+
+
+@dataclasses.dataclass
+class NumericColumn(Column):
+    """Numbers: int64 (Integer, Long) or float64 (Float, Double)."""
+    name: str
+    values: np.ndarray
+    valid: np.ndarray
+
+    @property
+    def n(self) -> int:
+        return len(self.values)
+
+    def take(self, idx) -> "NumericColumn":
+        return NumericColumn(self.name, self.values[idx], self.valid[idx])
+
+
+@dataclasses.dataclass
+class BoolColumn(Column):
+    name: str
+    values: np.ndarray          # bool
+    valid: np.ndarray
+
+    @property
+    def n(self) -> int:
+        return len(self.values)
+
+    def take(self, idx) -> "BoolColumn":
+        return BoolColumn(self.name, self.values[idx], self.valid[idx])
 
 
 @dataclasses.dataclass
@@ -67,6 +101,13 @@ class StringColumn(Column):
 
     def take(self, idx) -> "StringColumn":
         return StringColumn(self.name, self.codes[idx], self.vocab)
+
+    def code_of(self, s: str) -> int:
+        """Vocab code for s, or -1 if absent."""
+        i = np.searchsorted(self.vocab, s)
+        if i < len(self.vocab) and self.vocab[i] == s:
+            return int(i)
+        return -1
 
     @classmethod
     def from_strings(cls, name: str, values: Iterable) -> "StringColumn":
@@ -128,10 +169,31 @@ def _column_for(spec_type: str, name: str, data) -> Column:
             millis = arr.astype(np.int64)
             valid = np.ones(n, dtype=bool)
         return DateColumn(name, millis, valid)
+    if spec_type == "Boolean":
+        arr = np.asarray(data)
+        if arr.dtype == object:
+            valid = np.array([v is not None for v in arr], dtype=bool)
+            vals = np.array([bool(v) for v in np.where(valid, arr, False)],
+                            dtype=bool)
+        else:
+            vals = arr.astype(bool)
+            valid = np.ones(n, dtype=bool)
+        return BoolColumn(name, vals, valid)
+    if spec_type in ("Integer", "Long", "Float", "Double"):
+        dtype = np.float64 if spec_type in ("Double", "Float") else np.int64
+        arr = np.asarray(data)
+        if arr.dtype == object:
+            valid = np.array([v is not None for v in arr], dtype=bool)
+            vals = np.array([v if v is not None else 0 for v in arr],
+                            dtype=dtype)
+        else:
+            vals = arr.astype(dtype)
+            valid = (~np.isnan(arr) if arr.dtype.kind == "f"
+                     else np.ones(n, dtype=bool))
+        return NumericColumn(name, vals, valid)
     raise NotImplementedError(
         f"{spec_type} columns belong to a later slice of the PyTorch port "
-        f"(ROADMAP.md section 6); this slice stores Point, Date and "
-        f"String attributes")
+        f"(ROADMAP.md section 6); it stores the types {sorted(COLUMN_TYPES)}")
 
 
 class FeatureBatch:
@@ -212,9 +274,13 @@ class FeatureBatch:
                     name, np.concatenate([p.x for p in parts]),
                     np.concatenate([p.y for p in parts]),
                     np.concatenate([p.valid for p in parts]))
-            else:
+            elif isinstance(c, DateColumn):
                 cols[name] = DateColumn(
                     name, np.concatenate([p.millis for p in parts]),
+                    np.concatenate([p.valid for p in parts]))
+            else:
+                cols[name] = type(c)(
+                    name, np.concatenate([p.values for p in parts]),
                     np.concatenate([p.valid for p in parts]))
         return FeatureBatch(first.sft,
                             np.concatenate([b.ids for b in batches]), cols)

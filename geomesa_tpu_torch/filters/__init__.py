@@ -1,10 +1,12 @@
-"""Filters of the point query slice: AST, ECQL parser, extraction of
+"""Filters of point schemas: AST, ECQL parser, extraction of
 index-consumable values, and the host evaluator for residuals."""
 
 from . import ast
 from .ecql import ECQLError, parse_ecql
 from .evaluate import evaluate
-from .helper import extract_geometries, extract_intervals
+from .helper import (extract_attribute_bounds, extract_geometries,
+                     extract_intervals)
 
 __all__ = ["ast", "ECQLError", "parse_ecql", "evaluate",
-           "extract_geometries", "extract_intervals"]
+           "extract_attribute_bounds", "extract_geometries",
+           "extract_intervals"]

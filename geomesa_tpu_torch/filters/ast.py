@@ -1,10 +1,11 @@
-"""Filter AST: the node set of the point query slice.
+"""Filter AST: the CQL/OpenGIS filter algebra of point schemas.
 
-Logical AND/OR, INCLUDE, comparisons and BETWEEN (on the default date),
-BBOX and the INTERSECTS/WITHIN spatial predicates over a geometry
-literal, and DURING. All nodes are immutable dataclasses; geometry
-literals are geomesa_tpu_torch.geometry objects; temporal literals are
-epoch millis.
+Logical AND/OR/NOT, INCLUDE/EXCLUDE, feature-ID filters, comparisons,
+BETWEEN, LIKE, IN and IS NULL on any attribute, BBOX and the
+INTERSECTS/WITHIN/DISJOINT spatial predicates over a polygon literal,
+and the temporal DURING/BEFORE/AFTER/TEQUALS. All nodes are immutable
+dataclasses; geometry literals are geomesa_tpu_torch.geometry objects;
+temporal literals are epoch millis.
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ import numpy as _np
 
 from ..geometry import Geometry
 
-__all__ = ["Filter", "Include", "And", "Or", "Compare", "CompareOp",
-           "Between", "SpatialPredicate", "BBox", "Intersects", "Within",
-           "During", "walk"]
+__all__ = ["Filter", "Include", "Exclude", "And", "Or", "Not", "FidFilter",
+           "Compare", "CompareOp", "Between", "Like", "IsNull", "InList",
+           "SpatialPredicate", "BBox", "Intersects", "Within", "Disjoint",
+           "During", "Before", "After", "TEquals", "walk"]
 
 
 class Filter:
@@ -29,6 +31,9 @@ class Filter:
 
     def __or__(self, other: "Filter") -> "Filter":
         return Or([self, other])
+
+    def __invert__(self) -> "Filter":
+        return Not(self)
 
 
 def _iso(millis: int) -> str:
@@ -41,6 +46,9 @@ def walk(f: Filter):
     yield f
     for c in getattr(f, "children", ()) or ():
         yield from walk(c)
+    child = getattr(f, "child", None)
+    if child is not None:
+        yield from walk(child)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +56,13 @@ class Include(Filter):
     """Matches everything (Filter.INCLUDE)."""
     def __str__(self) -> str:
         return "INCLUDE"
+
+
+@dataclasses.dataclass(frozen=True)
+class Exclude(Filter):
+    """Matches nothing (Filter.EXCLUDE)."""
+    def __str__(self) -> str:
+        return "EXCLUDE"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +99,29 @@ class Or(Filter):
         return "(" + " OR ".join(str(c) for c in self.children) + ")"
 
 
+@dataclasses.dataclass(frozen=True)
+class Not(Filter):
+    child: Filter
+
+    def __str__(self) -> str:
+        return f"NOT ({self.child})"
+
+
+@dataclasses.dataclass(frozen=True)
+class FidFilter(Filter):
+    """Feature-ID filter (GeoTools Id filter)."""
+    ids: tuple
+
+    def __init__(self, ids):
+        object.__setattr__(self, "ids", tuple(ids))
+
+    def __str__(self) -> str:
+        return "IN (" + ", ".join(f"'{i}'" for i in self.ids) + ")"
+
+
 class CompareOp:
     EQ = "="
+    NE = "<>"
     LT = "<"
     GT = ">"
     LE = "<="
@@ -114,6 +150,40 @@ class Between(Filter):
 
 
 @dataclasses.dataclass(frozen=True)
+class Like(Filter):
+    prop: str
+    pattern: str        # SQL LIKE: % and _ wildcards
+    case_sensitive: bool = True
+
+    def __str__(self) -> str:
+        op = "LIKE" if self.case_sensitive else "ILIKE"
+        return f"{self.prop} {op} '{self.pattern}'"
+
+
+@dataclasses.dataclass(frozen=True)
+class IsNull(Filter):
+    prop: str
+
+    def __str__(self) -> str:
+        return f"{self.prop} IS NULL"
+
+
+@dataclasses.dataclass(frozen=True)
+class InList(Filter):
+    prop: str
+    values: tuple
+
+    def __init__(self, prop: str, values):
+        object.__setattr__(self, "prop", prop)
+        object.__setattr__(self, "values", tuple(values))
+
+    def __str__(self) -> str:
+        vals = ", ".join(f"'{v}'" if isinstance(v, str) else str(v)
+                         for v in self.values)
+        return f"{self.prop} IN ({vals})"
+
+
+@dataclasses.dataclass(frozen=True)
 class SpatialPredicate(Filter):
     prop: str
     geom: Geometry
@@ -130,6 +200,10 @@ class Intersects(SpatialPredicate):
 
 class Within(SpatialPredicate):
     op_name = "WITHIN"
+
+
+class Disjoint(SpatialPredicate):
+    op_name = "DISJOINT"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,3 +230,30 @@ class During(Filter):
     def __str__(self) -> str:
         return (f"{self.prop} DURING "
                 f"{_iso(self.start)}/{_iso(self.end)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Before(Filter):
+    prop: str
+    time: int
+
+    def __str__(self) -> str:
+        return f"{self.prop} BEFORE {_iso(self.time)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class After(Filter):
+    prop: str
+    time: int
+
+    def __str__(self) -> str:
+        return f"{self.prop} AFTER {_iso(self.time)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class TEquals(Filter):
+    prop: str
+    time: int
+
+    def __str__(self) -> str:
+        return f"{self.prop} TEQUALS {_iso(self.time)}"

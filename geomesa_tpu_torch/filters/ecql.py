@@ -1,22 +1,29 @@
-"""ECQL parser for the point query slice: CQL text -> Filter AST.
+"""ECQL parser of point schemas: CQL text -> Filter AST.
 
-Recursive descent over the slice's grammar:
+Recursive descent over the grammar:
 
     filter   := or
     or       := and (OR and)*
-    and      := primary (AND primary)*
+    and      := not (AND not)*
+    not      := NOT not | primary
     primary  := '(' filter ')' | predicate
-    predicate:= INCLUDE
+    predicate:= INCLUDE | EXCLUDE
               | BBOX '(' attr ',' num ',' num ',' num ',' num [',' crs] ')'
-              | INTERSECTS|WITHIN '(' attr ',' polygon ')'
+              | INTERSECTS|WITHIN|DISJOINT '(' attr ',' geometry ')'
+              | IN '(' str (',' str)* ')'                  -- fid filter
+              | attr IN '(' literal (',' literal)* ')'
               | attr BETWEEN literal AND literal
+              | attr [NOT] LIKE str | attr ILIKE str
+              | attr IS [NOT] NULL
               | attr DURING instant '/' instant
-              | attr op literal        (op: = < > <= >=)
+              | attr BEFORE instant | attr AFTER instant | attr TEQUALS instant
+              | attr op literal        (op: = <> != < > <= >=)
 
-Every other ECQL construct (NOT, EXCLUDE, fid and IN lists, LIKE,
-IS NULL, DWITHIN and the other spatial and temporal operators, <>)
-raises NotImplementedError: it belongs to a later slice of the port
-(ROADMAP.md section 6). Syntax errors raise ECQLError.
+Dates parse to epoch millis; geometries parse via the WKT reader.
+DWITHIN, BEYOND, CONTAINS, TOUCHES, CROSSES, OVERLAPS and EQUALS raise
+NotImplementedError: they need the JAX package's geometry/relate.py and
+distance helpers, which belong to a later slice of the port (ROADMAP.md
+section 6). Syntax errors raise ECQLError.
 """
 
 from __future__ import annotations
@@ -49,18 +56,18 @@ _TOKEN_RE = re.compile(r"""
     | (?P<word>[A-Za-z_][A-Za-z0-9_.:-]*)
     )""", re.VERBOSE)
 
-_SPATIAL = {"INTERSECTS": ast.Intersects, "WITHIN": ast.Within}
+_SPATIAL = {"INTERSECTS": ast.Intersects, "WITHIN": ast.Within,
+            "DISJOINT": ast.Disjoint}
 
-# ECQL words this slice recognises but does not run
-_LATER = {"NOT", "EXCLUDE", "IN", "LIKE", "ILIKE", "IS", "BEFORE", "AFTER",
-          "TEQUALS", "DWITHIN", "DISJOINT", "CONTAINS", "TOUCHES",
-          "CROSSES", "OVERLAPS", "EQUALS", "BEYOND"}
+# ECQL spatial operators the port recognises but does not run yet
+_LATER = {"DWITHIN", "BEYOND", "CONTAINS", "TOUCHES", "CROSSES", "OVERLAPS",
+          "EQUALS"}
 
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not in the point query slice of the PyTorch port; it "
-        f"belongs to a later slice (ROADMAP.md section 6)")
+        f"{what} is not in the PyTorch port yet; it belongs to the "
+        f"relate/distance slice (ROADMAP.md section 6)")
 
 
 def _parse_instant(s: str) -> int:
@@ -131,6 +138,8 @@ def _literal(tok: tuple[str, str]):
         return int(f) if f.is_integer() and "." not in val and "e" not in val.lower() else f
     if kind == "datetime":
         return _parse_instant(val)
+    if kind == "word" and val.upper() in ("TRUE", "FALSE"):
+        return val.upper() == "TRUE"
     raise ECQLError(f"expected literal, got {val!r}")
 
 
@@ -152,11 +161,17 @@ class _Parser:
         return parts[0] if len(parts) == 1 else ast.Or(parts)
 
     def and_expr(self) -> ast.Filter:
-        parts = [self.primary()]
+        parts = [self.not_expr()]
         while self.t.at_word("AND"):
             self.t.next()
-            parts.append(self.primary())
+            parts.append(self.not_expr())
         return parts[0] if len(parts) == 1 else ast.And(parts)
+
+    def not_expr(self) -> ast.Filter:
+        if self.t.at_word("NOT"):
+            self.t.next()
+            return ast.Not(self.not_expr())
+        return self.primary()
 
     def primary(self) -> ast.Filter:
         kind, val = self.t.peek()
@@ -171,12 +186,17 @@ class _Parser:
         if u == "INCLUDE":
             self.t.next()
             return ast.Include()
+        if u == "EXCLUDE":
+            self.t.next()
+            return ast.Exclude()
         if u == "BBOX":
             return self.bbox()
         if u in _SPATIAL:
             return self.spatial(u)
         if u in _LATER:
             raise _later(f"ECQL {u}")
+        if u == "IN":
+            return self.fid_filter()
         return self.attr_predicate()
 
     def bbox(self) -> ast.Filter:
@@ -213,29 +233,73 @@ class _Parser:
         self.t.expect("rparen")
         return _SPATIAL[name](attr, g)
 
+    def fid_filter(self) -> ast.Filter:
+        self.t.next()
+        self.t.expect("lparen")
+        ids = [_unquote(self.t.expect("string")[1])]
+        while self.t.peek()[0] == "comma":
+            self.t.next()
+            ids.append(_unquote(self.t.expect("string")[1]))
+        self.t.expect("rparen")
+        return ast.FidFilter(ids)
+
     def attr_predicate(self) -> ast.Filter:
         attr = self.t.expect("word")[1]
         kind, val = self.t.peek()
         u = val.upper() if kind == "word" else None
         if kind == "op":
-            if val in ("<>", "!="):
-                raise _later(f"comparison {val}")
             self.t.next()
-            return ast.Compare(val, attr, _literal(self.t.next()))
+            lit = _literal(self.t.next())
+            return ast.Compare("<>" if val == "!=" else val, attr, lit)
         if u == "BETWEEN":
             self.t.next()
             lo = _literal(self.t.next())
             self.t.expect("word", "AND")
             hi = _literal(self.t.next())
             return ast.Between(attr, lo, hi)
+        if u in ("LIKE", "ILIKE"):
+            self.t.next()
+            pat = _unquote(self.t.expect("string")[1])
+            return ast.Like(attr, pat, case_sensitive=(u == "LIKE"))
+        if u == "NOT":
+            self.t.next()
+            if self.t.at_word("LIKE"):
+                self.t.next()
+                pat = _unquote(self.t.expect("string")[1])
+                return ast.Not(ast.Like(attr, pat))
+            raise ECQLError("expected LIKE after NOT")
+        if u == "IS":
+            self.t.next()
+            if self.t.at_word("NOT"):
+                self.t.next()
+                self.t.expect("word", "NULL")
+                return ast.Not(ast.IsNull(attr))
+            self.t.expect("word", "NULL")
+            return ast.IsNull(attr)
+        if u == "IN":
+            self.t.next()
+            self.t.expect("lparen")
+            vals = [_literal(self.t.next())]
+            while self.t.peek()[0] == "comma":
+                self.t.next()
+                vals.append(_literal(self.t.next()))
+            self.t.expect("rparen")
+            return ast.InList(attr, vals)
         if u == "DURING":
             self.t.next()
             start = self._instant()
             self.t.expect("slash")
             end = self._instant()
             return ast.During(attr, start, end)
-        if u in _LATER:
-            raise _later(f"ECQL {u}")
+        if u == "BEFORE":
+            self.t.next()
+            return ast.Before(attr, self._instant())
+        if u == "AFTER":
+            self.t.next()
+            return ast.After(attr, self._instant())
+        if u == "TEQUALS":
+            self.t.next()
+            return ast.TEquals(attr, self._instant())
         raise ECQLError(f"unexpected predicate on {attr!r}: {val!r}")
 
     def _instant(self) -> int:

@@ -3,10 +3,13 @@
 Mirrors FilterHelper (geomesa-filter/.../FilterHelper.scala):
 
 - ``extract_geometries`` (:201): AND intersects extracted geometries,
-  OR unions them; BBOXes crossing the antimeridian split IDL-safe;
+  OR unions them; geometries crossing the antimeridian split IDL-safe;
   results clip to the world.
 - ``extract_intervals`` (:267): date bounds in epoch millis.
-- ``extract_attribute_bounds`` (:318): typed bounds for one attribute.
+- ``extract_attribute_bounds`` (:318): typed bounds for one attribute,
+  the attribute index's ranges.
+- ``like_vocab_mask``: the one source of LIKE semantics, for the host
+  evaluator and the device residual compiler alike.
 
 Bounds carry inclusivity; ``FilterValues.disjoint`` marks provably-empty
 extractions (e.g. ANDed non-overlapping boxes) so planners can return
@@ -16,6 +19,7 @@ empty plans without scanning.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any
 
 import numpy as np
@@ -26,7 +30,7 @@ from . import ast
 
 __all__ = ["Bound", "Bounds", "FilterValues", "extract_geometries",
            "extract_intervals", "extract_attribute_bounds", "is_box",
-           "to_millis"]
+           "like_vocab_mask", "to_millis"]
 
 
 def to_millis(v) -> int:
@@ -36,6 +40,17 @@ def to_millis(v) -> int:
         return int(np.datetime64(v.strip().rstrip("Z").replace(" ", "T"),
                                  "ms").astype(np.int64))
     return int(v)
+
+
+def like_vocab_mask(pattern: str, case_sensitive: bool,
+                    vocab: np.ndarray) -> np.ndarray:
+    """SQL LIKE pattern -> bool mask over a string vocab. The single
+    source of LIKE semantics for the host evaluator and the device
+    residual compiler (their parity is a correctness contract)."""
+    pat = re.escape(pattern).replace("%", ".*").replace("_", ".")
+    rx = re.compile(f"^{pat}$", 0 if case_sensitive else re.IGNORECASE)
+    return np.array([bool(rx.match(s)) for s in vocab.astype(str)],
+                    dtype=bool)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +72,10 @@ class Bound:
 class Bounds:
     lower: Bound
     upper: Bound
+
+    @property
+    def is_bounded(self) -> bool:
+        return self.lower.is_bounded or self.upper.is_bounded
 
     def intersection(self, other: "Bounds") -> "Bounds | None":
         lo = _lower_max(self.lower, other.lower)
@@ -199,14 +218,28 @@ def _clip_world(g: Geometry) -> Geometry | None:
 
 
 def _geom_intersection(a: Geometry, b: Geometry) -> Geometry | None:
-    """AND-combination of two extracted geometries. The slice's grammar
-    only admits rectangles, whose intersection is the envelope overlap."""
-    if not (is_box(a) and is_box(b)):
-        raise NotImplementedError(
-            "non-rectangular query geometries belong to a later slice of "
-            "the PyTorch port (ROADMAP.md section 6)")
-    e = a.envelope.intersection(b.envelope)
-    return None if e.is_empty else e.to_polygon()
+    """AND-combination of two extracted geometries. Exact when either is
+    an axis-aligned envelope box; otherwise conservatively the one with
+    the smaller envelope, clipped to the other's envelope box (a
+    superset of the true intersection: safe for planning, and the exact
+    geometry residual keeps the result exact)."""
+    if not a.envelope.intersects(b.envelope):
+        return None
+    ea, eb = a.envelope, b.envelope
+    a_is_box, b_is_box = is_box(a), is_box(b)
+    if a_is_box and b_is_box:
+        e = ea.intersection(eb)
+        return None if e.is_empty else e.to_polygon()
+    if a_is_box:
+        return b if ea.contains_env(eb) else eb.intersection(ea).to_polygon()
+    if b_is_box:
+        return a if eb.contains_env(ea) else ea.intersection(eb).to_polygon()
+    if not a.intersects(b):
+        return None
+    # both complex: keep the smaller-envelope one (conservative)
+    area_a = (ea.xmax - ea.xmin) * (ea.ymax - ea.ymin)
+    area_b = (eb.xmax - eb.xmin) * (eb.ymax - eb.ymin)
+    return a if area_a <= area_b else b
 
 
 def extract_geometries(f: ast.Filter, attribute: str | None) -> FilterValues:
@@ -260,7 +293,8 @@ def _extract_geoms(f: ast.Filter, attribute: str | None) -> FilterValues:
             return FilterValues.empty()
         box = Envelope(f.xmin, f.ymin, f.xmax, f.ymax).to_polygon()
         return FilterValues(_split_idl(box))
-    if isinstance(f, ast.SpatialPredicate):
+    if isinstance(f, (ast.Intersects, ast.Within)):
+        # DISJOINT constrains nothing the index can range over
         if attribute is not None and f.prop != attribute:
             return FilterValues.empty()
         return FilterValues(_split_idl(f.geom))
@@ -311,11 +345,31 @@ def extract_attribute_bounds(f: ast.Filter, attribute: str) -> FilterValues:
             return FilterValues([Bounds(Bound.unbounded(), Bound(v, True))])
         if f.op == ast.CompareOp.GT:
             return FilterValues([Bounds(Bound(v, False), Bound.unbounded())])
-        return FilterValues([Bounds(Bound(v, True), Bound.unbounded())])
+        if f.op == ast.CompareOp.GE:
+            return FilterValues([Bounds(Bound(v, True), Bound.unbounded())])
+        return FilterValues.empty()  # <> is not index-consumable
     if isinstance(f, ast.Between) and f.prop == attribute:
         return FilterValues([Bounds(Bound(f.lo, True), Bound(f.hi, True))])
+    if isinstance(f, ast.InList) and f.prop == attribute:
+        return FilterValues([Bounds(Bound(v, True), Bound(v, True))
+                             for v in f.values])
     if isinstance(f, ast.During) and f.prop == attribute:
         return FilterValues([Bounds(Bound(f.start, False), Bound(f.end, False))])
+    if isinstance(f, ast.Before) and f.prop == attribute:
+        return FilterValues([Bounds(Bound.unbounded(), Bound(f.time, False))])
+    if isinstance(f, ast.After) and f.prop == attribute:
+        return FilterValues([Bounds(Bound(f.time, False), Bound.unbounded())])
+    if isinstance(f, ast.TEquals) and f.prop == attribute:
+        return FilterValues([Bounds(Bound(f.time, True), Bound(f.time, True))])
+    if isinstance(f, ast.Like) and f.prop == attribute and f.case_sensitive:
+        # prefix patterns are index-consumable: 'abc%' -> [abc, abd)
+        pat = f.pattern
+        i = min((pat.index(c) for c in "%_" if c in pat), default=len(pat))
+        prefix = pat[:i]
+        if prefix and pat[i:] in ("%", ""):
+            hi = prefix[:-1] + chr(ord(prefix[-1]) + 1)
+            return FilterValues([Bounds(Bound(prefix, True), Bound(hi, False))])
+        return FilterValues.empty()
     return FilterValues.empty()
 
 

@@ -1,7 +1,8 @@
-"""Geometry model of the point query path: envelopes, points and
-polygons with exact float64 host predicates, and their WKT."""
+"""Geometry model of point schemas: envelopes, points, polygons and
+multipolygons with exact float64 host predicates, and their WKT."""
 
-from .base import Envelope, Geometry, Point, Polygon
+from .base import Envelope, Geometry, MultiPolygon, Point, Polygon
 from .wkt import parse_wkt, to_wkt
 
-__all__ = ["Envelope", "Geometry", "Point", "Polygon", "parse_wkt", "to_wkt"]
+__all__ = ["Envelope", "Geometry", "MultiPolygon", "Point", "Polygon",
+           "parse_wkt", "to_wkt"]

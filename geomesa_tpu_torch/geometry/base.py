@@ -1,10 +1,11 @@
 """Numpy-backed geometry classes with exact float64 predicates.
 
-The slice of the geometry model that the point query path needs:
-envelopes for planning, points for the feature column, and polygons
-(shell + holes) with a vectorized boundary-inclusive point-in-polygon
-test for the exact INTERSECTS/WITHIN residual. Coordinates are (n, 2)
-float64 arrays.
+The slice of the geometry model that point schemas need: envelopes for
+planning, points for the feature column, and polygons (shell + holes)
+and multipolygons with a vectorized boundary-inclusive point-in-polygon
+test for the exact INTERSECTS/WITHIN/DISJOINT residual, and the
+polygon-polygon ``intersects`` that the planner's geometry extraction
+uses. Coordinates are (n, 2) float64 arrays.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import functools
 
 import numpy as np
 
-__all__ = ["Envelope", "Geometry", "Point", "Polygon", "WHOLE_WORLD"]
+__all__ = ["Envelope", "Geometry", "Point", "Polygon", "MultiPolygon",
+           "WHOLE_WORLD"]
 
 
 class Envelope:
@@ -34,6 +36,14 @@ class Envelope:
     @property
     def is_empty(self) -> bool:
         return self.xmin > self.xmax or self.ymin > self.ymax
+
+    def expand(self, other: "Envelope") -> "Envelope":
+        return Envelope(min(self.xmin, other.xmin), min(self.ymin, other.ymin),
+                        max(self.xmax, other.xmax), max(self.ymax, other.ymax))
+
+    def intersects(self, other: "Envelope") -> bool:
+        return not (self.xmax < other.xmin or other.xmax < self.xmin
+                    or self.ymax < other.ymin or other.ymax < self.ymin)
 
     def contains_env(self, other: "Envelope") -> bool:
         return (self.xmin <= other.xmin and self.xmax >= other.xmax
@@ -84,6 +94,34 @@ def _on_segment(x0, y0, x1, y1, px, py):
     return (cross == 0) & within_x & within_y
 
 
+def _segseg_any_intersection(ca: np.ndarray, cb: np.ndarray) -> bool:
+    """Vectorized: does any segment of polyline ca intersect any of cb?"""
+    if len(ca) < 2 or len(cb) < 2:
+        return False
+    a0 = ca[:-1][:, None, :]  # (na, 1, 2)
+    a1 = ca[1:][:, None, :]
+    b0 = cb[:-1][None, :, :]  # (1, nb, 2)
+    b1 = cb[1:][None, :, :]
+
+    def orient(p, q, r):
+        return np.sign((q[..., 0] - p[..., 0]) * (r[..., 1] - p[..., 1])
+                       - (q[..., 1] - p[..., 1]) * (r[..., 0] - p[..., 0]))
+    o1 = orient(a0, a1, b0)
+    o2 = orient(a0, a1, b1)
+    o3 = orient(b0, b1, a0)
+    o4 = orient(b0, b1, a1)
+    proper = (o1 != o2) & (o3 != o4)
+
+    def between(p, q, r):
+        return ((np.minimum(p[..., 0], q[..., 0]) <= r[..., 0])
+                & (r[..., 0] <= np.maximum(p[..., 0], q[..., 0]))
+                & (np.minimum(p[..., 1], q[..., 1]) <= r[..., 1])
+                & (r[..., 1] <= np.maximum(p[..., 1], q[..., 1])))
+    touch = (((o1 == 0) & between(a0, a1, b0)) | ((o2 == 0) & between(a0, a1, b1))
+             | ((o3 == 0) & between(b0, b1, a0)) | ((o4 == 0) & between(b0, b1, a1)))
+    return bool((proper | touch).any())
+
+
 class Geometry:
     """Base geometry; subclasses hold numpy coordinate arrays."""
 
@@ -99,6 +137,14 @@ class Geometry:
 
     def coords_list(self) -> list[np.ndarray]:
         raise NotImplementedError
+
+    def intersects(self, other: "Geometry") -> bool:
+        """Exact f64 intersection of two (multi)polygons."""
+        if not self.envelope.intersects(other.envelope):
+            return False
+        return any(pa.envelope.intersects(pb.envelope)
+                   and _polygons_intersect(pa, pb)
+                   for pa in _parts_of(self) for pb in _parts_of(other))
 
     def __eq__(self, other) -> bool:
         if not isinstance(other, Geometry) or self.geom_type != other.geom_type:
@@ -174,6 +220,50 @@ class Polygon(Geometry):
                                       np.asarray(y, np.float64)[..., None]).any(axis=-1)
             inside &= ~(_ring_contains(h, x, y) & ~on_boundary)
         return inside
+
+
+class MultiPolygon(Geometry):
+    geom_type = "MultiPolygon"
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @functools.cached_property
+    def envelope(self) -> Envelope:
+        # cached: parts are treated as immutable
+        env = Envelope.empty()
+        for p in self.parts:
+            env = env.expand(p.envelope)
+        return env
+
+    @property
+    def is_empty(self) -> bool:
+        return all(p.is_empty for p in self.parts)
+
+    def coords_list(self) -> list[np.ndarray]:
+        return [c for p in self.parts for c in p.coords_list()]
+
+    def contains_points(self, x, y):
+        out = np.zeros(np.shape(np.asarray(x)), dtype=bool)
+        for p in self.parts:
+            out |= p.contains_points(x, y)
+        return out
+
+
+def _parts_of(g: Geometry) -> list[Geometry]:
+    return list(g.parts) if isinstance(g, MultiPolygon) else [g]
+
+
+def _polygons_intersect(a: Geometry, b: Geometry) -> bool:
+    if not (isinstance(a, Polygon) and isinstance(b, Polygon)):
+        raise TypeError(f"unsupported intersects: {a.geom_type}/{b.geom_type}")
+    if bool(a.contains_points(b.shell[:, 0], b.shell[:, 1]).any()):
+        return True
+    if bool(b.contains_points(a.shell[:, 0], a.shell[:, 1]).any()):
+        return True
+    # all rings matter: a hole boundary of one can cross the other
+    return any(_segseg_any_intersection(ra, rb)
+               for ra in a.coords_list() for rb in b.coords_list())
 
 
 WHOLE_WORLD = Polygon(np.array([[-180.0, -90.0], [180.0, -90.0],

@@ -1,8 +1,9 @@
-"""WKT (Well-Known Text) parse/format for POINT and POLYGON.
+"""WKT (Well-Known Text) parse/format for POINT, POLYGON and
+MULTIPOLYGON.
 
-The point query path needs WKT for point feature values and for the
-polygon literal of INTERSECTS/WITHIN. Line and multi-part geometries
-belong to the extent-geometry slice of the port and raise
+Point schemas need WKT for point feature values and for the polygon
+literal of INTERSECTS/WITHIN/DISJOINT. Line, multi-point and collection
+geometries belong to the extent-geometry slice of the port and raise
 NotImplementedError here.
 """
 
@@ -12,7 +13,7 @@ import re
 
 import numpy as np
 
-from .base import Geometry, Point, Polygon
+from .base import Geometry, MultiPolygon, Point, Polygon
 
 __all__ = ["parse_wkt", "to_wkt"]
 
@@ -104,7 +105,21 @@ def _parse_geom(sc: _Scanner) -> Geometry:
             return Polygon(np.empty((0, 2)))
         rings = _rings(sc)
         return Polygon(rings[0], rings[1:])
-    if tag in ("LINESTRING", "MULTIPOINT", "MULTILINESTRING", "MULTIPOLYGON",
+    if tag == "MULTIPOLYGON":
+        if _maybe_empty(sc):
+            return MultiPolygon([])
+        sc.expect("(")
+        polys = []
+        while True:
+            rings = _rings(sc)
+            polys.append(Polygon(rings[0], rings[1:]))
+            if sc.peek() == ",":
+                sc.expect(",")
+            else:
+                break
+        sc.expect(")")
+        return MultiPolygon(polys)
+    if tag in ("LINESTRING", "MULTIPOINT", "MULTILINESTRING",
                "GEOMETRYCOLLECTION"):
         raise NotImplementedError(
             f"WKT {tag} belongs to the extent-geometry slice of the "
@@ -144,4 +159,11 @@ def to_wkt(g: Geometry) -> str:
             return "POLYGON EMPTY"
         rings = ", ".join(_fmt_coords(r) for r in g.coords_list())
         return f"POLYGON ({rings})"
+    if isinstance(g, MultiPolygon):
+        if g.is_empty:
+            return "MULTIPOLYGON EMPTY"
+        inner = ", ".join(
+            "(" + ", ".join(_fmt_coords(r) for r in p.coords_list()) + ")"
+            for p in g.parts)
+        return f"MULTIPOLYGON ({inner})"
     raise TypeError(f"cannot write WKT for {g.geom_type}")

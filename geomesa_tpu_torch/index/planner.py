@@ -11,17 +11,25 @@ returns do not depend on which one ran.
 from __future__ import annotations
 
 from ..features.sft import SimpleFeatureType
+from ..filters import ast
 from .api import Explainer, FilterStrategy, Query, QueryHints
 from .splitter import split_filter
 
 __all__ = ["decide_strategy", "heuristic_cost"]
 
-# index-priority costs (z3 < z2 < scan); a full scan is a last resort
-_BASE_COST = {"empty": 0.0, "z3": 200.0, "z2": 400.0}
+# index-priority costs (id < attr equality < attr range < z3 < z2 < scan);
+# a full scan is a last resort
+_BASE_COST = {"empty": 0.0, "id": 1.0, "z3": 200.0, "z2": 400.0}
+_ATTR_EQ_COST = 10.0
+_ATTR_RANGE_COST = 100.0
 _FULLSCAN_PENALTY = 1e9
 
 
 def heuristic_cost(s: FilterStrategy, n_features: int) -> float:
+    if s.index.startswith("attr:"):
+        if isinstance(s.primary, ast.Compare) and s.primary.op == "=":
+            return _ATTR_EQ_COST
+        return _ATTR_RANGE_COST
     if s.index == "fullscan":
         return _FULLSCAN_PENALTY + float(max(n_features, 1))
     return _BASE_COST.get(s.index, 1e9)
@@ -38,7 +46,7 @@ def decide_strategy(sft: SimpleFeatureType, query: Query,
     forced = query.hints.get(QueryHints.QUERY_INDEX)
     if forced:
         for s in options:
-            if s.index == forced:
+            if s.index == forced or s.index.startswith(f"{forced}:"):
                 explain(f"Forced via QUERY_INDEX hint: {s}")
                 explain.pop()
                 return s

@@ -6,6 +6,8 @@ for the indexes of a point schema:
 - z3:       spatial values on the default geometry AND bounded intervals
             on the default date (Z3IndexKeySpace.scala:63-119)
 - z2:       spatial values on the default geometry (Z2IndexKeySpace)
+- attr:     bounds on an indexed attribute (AttributeIndex)
+- id:       a FidFilter (RecordIndex/IdIndex)
 - fullscan: anything (the in-memory fallback)
 """
 
@@ -13,7 +15,8 @@ from __future__ import annotations
 
 from ..features.sft import SimpleFeatureType
 from ..filters import ast
-from ..filters.helper import extract_geometries, extract_intervals
+from ..filters.helper import (extract_attribute_bounds, extract_geometries,
+                              extract_intervals)
 from .api import FilterStrategy
 
 __all__ = ["split_filter", "spatial_part", "temporal_part"]
@@ -26,8 +29,13 @@ def _is_spatial(f: ast.Filter, geom: str) -> bool:
 
 def _is_temporal(f: ast.Filter, dtg: str | None) -> bool:
     return (dtg is not None
-            and isinstance(f, (ast.During, ast.Compare, ast.Between))
+            and isinstance(f, (ast.During, ast.Before, ast.After, ast.TEquals,
+                               ast.Compare, ast.Between))
             and getattr(f, "prop", None) == dtg)
+
+
+_ATTR_NODES = (ast.Compare, ast.Between, ast.InList, ast.Like, ast.During,
+               ast.Before, ast.After, ast.TEquals)
 
 
 def _partition(f: ast.Filter, pred) -> tuple[ast.Filter | None, ast.Filter | None]:
@@ -40,9 +48,7 @@ def _partition(f: ast.Filter, pred) -> tuple[ast.Filter | None, ast.Filter | Non
     if isinstance(f, ast.And):
         hit = [c for c in f.children if pred(c)]
         rest = [c for c in f.children if not pred(c)]
-        hit_f = None if not hit else (hit[0] if len(hit) == 1 else ast.And(hit))
-        rest_f = None if not rest else (rest[0] if len(rest) == 1 else ast.And(rest))
-        return hit_f, rest_f
+        return _and_of(hit), _and_of(rest)
     return None, f
 
 
@@ -71,12 +77,20 @@ def _and_opt(a: ast.Filter | None, b: ast.Filter | None) -> ast.Filter | None:
     return ast.And([a, b])
 
 
+def _and_of(fs: list[ast.Filter]) -> ast.Filter | None:
+    return None if not fs else (fs[0] if len(fs) == 1 else ast.And(fs))
+
+
 def split_filter(sft: SimpleFeatureType, f: ast.Filter,
                  indices: list[str]) -> list[FilterStrategy]:
-    """All viable FilterStrategy options for the filter."""
+    """All viable FilterStrategy options for the filter. An OR is a
+    primary only when every child constrains the same dimension;
+    otherwise only fullscan applies."""
     geom = sft.geom_field
     dtg = sft.dtg_field
     options: list[FilterStrategy] = []
+    if isinstance(f, ast.Exclude):
+        return [FilterStrategy("empty", None, None, cost=0)]
     for index in indices:
         if index == "z3" and geom is not None and dtg is not None:
             geoms = extract_geometries(f, geom)
@@ -101,6 +115,30 @@ def split_filter(sft: SimpleFeatureType, f: ast.Filter,
                 spatial, rest = spatial_part(f, geom)
                 if spatial is not None:
                     options.append(FilterStrategy(index, spatial, rest))
+        elif index == "id":
+            if isinstance(f, ast.FidFilter):
+                options.append(FilterStrategy("id", f, None))
+            elif isinstance(f, ast.And):
+                fids = [c for c in f.children if isinstance(c, ast.FidFilter)]
+                if fids:
+                    # several fid filters AND together: intersect the sets
+                    ids = set(fids[0].ids)
+                    for extra in fids[1:]:
+                        ids &= set(extra.ids)
+                    rest = _and_of([c for c in f.children if c not in fids])
+                    options.append(FilterStrategy(
+                        "id", ast.FidFilter(sorted(ids)), rest))
+        elif index.startswith("attr:"):
+            attr = index.split(":", 1)[1]
+            bounds = extract_attribute_bounds(f, attr)
+            if bounds.disjoint:
+                return [FilterStrategy("empty", None, None, cost=0)]
+            if bounds and any(b.is_bounded for b in bounds):
+                primary, rest = _partition(f, _with_or(
+                    lambda c, attr=attr: (getattr(c, "prop", None) == attr
+                                          and isinstance(c, _ATTR_NODES))))
+                if primary is not None:
+                    options.append(FilterStrategy(index, primary, rest))
     residual = None if isinstance(f, ast.Include) else f
     options.append(FilterStrategy("fullscan", None, residual))
     return options

@@ -1,8 +1,8 @@
-"""The scan kernels: wrappers, launch counts and plain versions.
+"""The port's kernels: wrappers, launch counts and plain versions.
 
-Six kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu`` and
-``csrc/batch.cu`` (see the notes at their heads for what they replace
-and what bounds them):
+Eight kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
+``csrc/batch.cu``, ``csrc/geom.cu`` and ``csrc/residual.cu`` (see the
+notes at their heads for what they replace and what bounds them):
 
 - ``scan_mask``: the dense tier, bool[cap] over every row;
 - ``scan_mask_gather``: the gathered tier, bool[m] over rows ``idx``
@@ -16,7 +16,12 @@ and what bounds them):
   (kind, query), as int32 offsets, and each (kind, query) total as int64;
 - ``compact_bits``: the bitmaps compacted into each query's ascending
   int32 row ids, one flat buffer per kind, with the per-query counts
-  (it runs ``compact_prefix`` first).
+  (it runs ``compact_prefix`` first);
+- ``pip_mask``: points against a polygon's edges, the crossing-number
+  parity and the EDGE_EPS band, as bool[n] each (``scan/gscan.py``);
+- ``residual_mask``: a compiled attribute-filter program over split
+  device columns, one byte per row (bit 0 the verdict, bit 1 the f64
+  band; ``scan/residual.py`` compiles the program).
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device). On CUDA tensors it launches its kernel
@@ -44,6 +49,7 @@ import tempfile
 import threading
 import time
 
+import numpy as np
 import torch
 
 __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
@@ -52,10 +58,13 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "scan_batch_bits_plain", "compact_bits_plain", "compact_prefix",
            "compact_prefix_plain", "batch_shape", "unpack_bits",
            "build_library", "BuildInfo", "MAX_TABLE_BYTES",
-           "BATCH_ROWS_PER_BLOCK", "BATCH_MAX_GROUP"]
+           "BATCH_ROWS_PER_BLOCK", "BATCH_MAX_GROUP", "pip_mask",
+           "pip_mask_plain", "residual_mask", "residual_mask_plain",
+           "slot_table", "Op", "Cmp"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCES = [os.path.join(_PKG, "csrc", f) for f in ("scan.cu", "batch.cu")]
+_SOURCES = [os.path.join(_PKG, "csrc", f)
+            for f in ("scan.cu", "batch.cu", "geom.cu", "residual.cu")]
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -73,7 +82,8 @@ BATCH_ROWS_PER_BLOCK = 2048
 BATCH_MAX_GROUP = 32
 
 launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0,
-            "scan_batch_bits": 0, "compact_prefix": 0, "compact_bits": 0}
+            "scan_batch_bits": 0, "compact_prefix": 0, "compact_bits": 0,
+            "pip_mask": 0, "residual_mask": 0}
 
 
 def reset_launches():
@@ -299,11 +309,16 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_batch_max_group.argtypes = []
             lib.geomesa_batch_smem_bytes.argtypes = [i32, i32, i32]
             lib.geomesa_batch_smem_bytes.restype = ctypes.c_longlong
+            lib.geomesa_pip_mask.argtypes = [p, p, i64, p, i64,
+                                             ctypes.c_float, p, p, p]
+            lib.geomesa_residual_mask.argtypes = [p, i32, p, p, p, i64, p, p]
+            lib.geomesa_residual_codes.argtypes = [p, i32]
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
                        lib.geomesa_compact_prefix, lib.geomesa_compact_bits,
                        lib.geomesa_batch_rows_per_block,
-                       lib.geomesa_batch_max_group):
+                       lib.geomesa_batch_max_group, lib.geomesa_pip_mask,
+                       lib.geomesa_residual_mask, lib.geomesa_residual_codes):
                 fn.restype = ctypes.c_int
             if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
                     or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP
@@ -311,6 +326,11 @@ def _library() -> ctypes.CDLL:
                     != _batch_smem(3, 4, 2)):
                 raise RuntimeError("csrc/batch.cu and kernels.py disagree "
                                    "on the batched kernels' block shape")
+            codes = (ctypes.c_int32 * 64)()
+            got = lib.geomesa_residual_codes(codes, len(codes))
+            if tuple(codes[:got]) != RESIDUAL_CODES:
+                raise RuntimeError("csrc/residual.cu and kernels.py disagree "
+                                   "on the residual program's opcodes")
             _lib["lib"] = lib
         return _lib["lib"]
 
@@ -592,3 +612,222 @@ def compact_bits(bits, partials):
     _raise_on(rc, "compact_bits")
     launches["compact_bits"] += 1
     return out_hit, out_cand, counts
+
+
+# -- point in polygon (csrc/geom.cu) ----------------------------------------
+
+# points per chunk of the plain version: (chunk, E) intermediates stay
+# near 2^24 elements, whatever the number of points
+_PIP_PLAIN_ELEMS = 1 << 24
+
+
+def pip_mask_plain(px, py, edges, eps2: float):
+    """(inside, band) bool[n]: a port of gscan._pip_kernel in torch ops,
+    one elementwise op per step in the JAX body's order (so no multiply
+    and add contract), over chunks of points against every edge."""
+    n, e = px.shape[0], edges.shape[0]
+    inside = torch.zeros(n, dtype=torch.bool, device=px.device)
+    band = torch.zeros(n, dtype=torch.bool, device=px.device)
+    if e == 0:
+        return inside, band
+    x0, y0, x1, y1 = (edges[:, k] for k in range(4))
+    ex = x1 - x0
+    ey = y1 - y0
+    len2 = ex * ex + ey * ey
+    len2 = torch.where(len2 == 0, torch.ones_like(len2), len2)
+    dy = torch.where(y1 == y0, torch.full_like(ey, 1e-30), ey)
+    eps = torch.tensor(eps2, dtype=torch.float32, device=px.device)
+    step = max(1, _PIP_PLAIN_ELEMS // e)
+    for lo in range(0, n, step):
+        pxc = px[lo:lo + step, None]
+        pyc = py[lo:lo + step, None]
+        cond = (y0 > pyc) != (y1 > pyc)
+        xint = x0 + ((pyc - y0) * ex) / dy
+        cross = cond & (pxc < xint)
+        inside[lo:lo + step] = (cross.sum(dim=1) % 2) == 1
+        t = (((pxc - x0) * ex + (pyc - y0) * ey) / len2).clamp(0.0, 1.0)
+        dx = pxc - (x0 + t * ex)
+        dyv = pyc - (y0 + t * ey)
+        d2 = dx * dx + dyv * dyv
+        band[lo:lo + step] = d2.min(dim=1).values < eps
+    return inside, band
+
+
+def pip_mask(px, py, edges, eps2: float):
+    """(inside, band) bool[n] on the points' device: the crossing-number
+    parity of each point (px[i], py[i]) against the (E, 4) f32 edges
+    [x0 y0 x1 y1], and whether its least squared distance to an edge is
+    below ``eps2`` (an f32 value)."""
+    if (px.dtype != torch.float32 or py.dtype != torch.float32
+            or px.dim() != 1 or px.shape != py.shape
+            or not (px.is_contiguous() and py.is_contiguous())):
+        raise ValueError("px, py must be contiguous 1-d float32 of one length")
+    if (edges.dtype != torch.float32 or edges.dim() != 2
+            or edges.shape[1] != 4 or not edges.is_contiguous()):
+        raise ValueError("edges must be a contiguous (E, 4) float32 table")
+    if _on_cpu((px, py, edges)):
+        return pip_mask_plain(px, py, edges, eps2)
+    if edges.data_ptr() % 16:
+        raise ValueError("the kernel reads edges as 16-byte vectors: edges "
+                         "must be 16-byte aligned")
+    n = px.shape[0]
+    inside = torch.empty(n, dtype=torch.bool, device=px.device)
+    band = torch.empty(n, dtype=torch.bool, device=px.device)
+    if n == 0:
+        return inside, band
+    rc = _library().geomesa_pip_mask(
+        px.data_ptr(), py.data_ptr(), n, edges.data_ptr(), edges.shape[0],
+        eps2, inside.data_ptr(), band.data_ptr(),
+        torch.cuda.current_stream(px.device).cuda_stream)
+    _raise_on(rc, "pip_mask")
+    launches["pip_mask"] += 1
+    return inside, band
+
+
+# -- attribute residual (csrc/residual.cu) ----------------------------------
+
+class Op:
+    """Opcodes of the residual program (csrc/residual.cu's enum Op)."""
+    TRUE, FALSE, AND, OR, NOT, VALID, ISNULL = range(7)
+    PAIR_I64, PAIR_DATE, PAIR_F64, BOOL = 7, 8, 9, 10
+    STR_EQ, STR_NE, STR_LT, STR_GE, VOCAB = 11, 12, 13, 14, 15
+
+
+class Cmp:
+    """Compare codes of the residual program's pair leaves."""
+    LT, GT, LE, GE, EQ, NE = range(6)
+
+
+# every opcode, then every compare code, in the order of csrc/residual.cu's
+# geomesa_residual_codes; the loader refuses a library that disagrees
+RESIDUAL_CODES = (
+    Op.TRUE, Op.FALSE, Op.AND, Op.OR, Op.NOT, Op.VALID, Op.ISNULL,
+    Op.PAIR_I64, Op.PAIR_DATE, Op.PAIR_F64, Op.BOOL, Op.STR_EQ, Op.STR_NE,
+    Op.STR_LT, Op.STR_GE, Op.VOCAB,
+    Cmp.LT, Cmp.GT, Cmp.LE, Cmp.GE, Cmp.EQ, Cmp.NE)
+
+
+_SIGN = -(1 << 31)
+
+
+def _pick(cmp: int, lt, gt):
+    return (lt, gt, ~gt, ~lt, ~lt & ~gt, lt | gt)[cmp]
+
+
+def residual_mask_plain(code, consts, table, slots, n: int):
+    """uint8[n]: the residual program evaluated with torch ops over whole
+    columns, one step per instruction. The i64 low words hold unsigned
+    bits; they compare with the sign bit flipped, which orders them as
+    signed int32 (torch on the CPU has no unsigned 32-bit compares)."""
+    stack: list = []
+    band = None
+    dev = table.device
+    cst = consts.cpu().numpy()
+    tbl = table.cpu().numpy()
+    for op, slot, a, b in code.cpu().tolist():
+        if op == Op.AND:
+            stack.append(stack.pop() & stack.pop())
+            continue
+        if op == Op.OR:
+            stack.append(stack.pop() | stack.pop())
+            continue
+        if op == Op.NOT:
+            stack.append(~stack.pop())
+            continue
+        if op in (Op.TRUE, Op.FALSE):
+            stack.append(torch.full((n,), op == Op.TRUE, dtype=torch.bool,
+                                    device=dev))
+            continue
+        c0, c1, valid = slots[slot]
+        c0 = c0[:n]
+        valid = valid[:n] if valid is not None else None
+        if op == Op.VALID:
+            v = valid.clone()
+        elif op == Op.ISNULL:
+            v = c0 < 0 if valid is None else ~valid
+        elif op in (Op.PAIR_I64, Op.PAIR_DATE):
+            vh, vl = (int(w) for w in cst[a])
+            lo = c1[:n]
+            if op == Op.PAIR_I64:
+                lo = lo ^ _SIGN
+                vl = int(np.int32(vl) ^ np.int32(_SIGN))
+            lt = (c0 < vh) | ((c0 == vh) & (lo < vl))
+            gt = (c0 > vh) | ((c0 == vh) & (lo > vl))
+            v = _pick(b, lt, gt) & valid
+        elif op == Op.PAIR_F64:
+            vh, vl = (torch.tensor(w, device=dev)
+                      for w in cst[a].view(np.float32))
+            lo = c1[:n]
+            lt = (c0 < vh) | ((c0 == vh) & (lo < vl))
+            gt = (c0 > vh) | ((c0 == vh) & (lo > vl))
+            v = _pick(b, lt, gt) & valid
+            hit = (c0 == vh) & (lo == vl) & valid
+            band = hit if band is None else band | hit
+        elif op == Op.BOOL:
+            v = ((c0 & bool(a & 2)) | (~c0 & bool(a & 1))) & valid
+        elif op == Op.STR_EQ:
+            v = (c0 == a) & (c0 >= 0)
+        elif op == Op.STR_NE:
+            v = (c0 != a) & (c0 >= 0)
+        elif op == Op.STR_LT:
+            v = (c0 < a) & (c0 >= 0)
+        elif op == Op.STR_GE:
+            v = c0 >= a
+        elif op == Op.VOCAB:
+            lut = torch.from_numpy(np.append(tbl[a:a + b] != 0, False)).to(dev)
+            v = lut[torch.where((c0 < 0) | (c0 >= b), b, c0).long()]
+        else:
+            raise ValueError(f"unknown residual opcode {op}")
+        stack.append(v)
+    if len(stack) != 1:
+        raise ValueError("the residual program leaves "
+                         f"{len(stack)} values on its stack, not 1")
+    out = stack[0].to(torch.uint8)
+    if band is not None:
+        out |= band.to(torch.uint8) << 1
+    return out
+
+
+def slot_table(slots, device) -> torch.Tensor:
+    """The residual kernel's (S, 3) int64 table of the slots' device
+    pointers (0 where a slot has no such column), on ``device``."""
+    return torch.tensor([[0 if t is None else t.data_ptr() for t in s]
+                         for s in slots] or [[0, 0, 0]],
+                        dtype=torch.int64).to(device)
+
+
+def residual_mask(code, consts, table, slots, n: int):
+    """uint8[n] on the columns' device: bit 0 the program's verdict per
+    row, bit 1 the f64 band. ``code`` (L, 4) int32 instructions,
+    ``consts`` (T, 2) int32 thresholds, ``table`` uint8 vocab tables
+    (csrc/residual.cu's layout); ``slots`` one (a, b, valid) tensor
+    triple per column slot, None where a slot has no such column."""
+    if (code.dtype != torch.int32 or code.dim() != 2 or code.shape[1] != 4
+            or code.shape[0] < 1 or not code.is_contiguous()):
+        raise ValueError("code must be a contiguous (L>=1, 4) int32 table")
+    if (consts.dtype != torch.int32 or consts.dim() != 2
+            or consts.shape[1] != 2 or not consts.is_contiguous()):
+        raise ValueError("consts must be a contiguous (T, 2) int32 table")
+    if table.dtype != torch.uint8 or table.dim() != 1:
+        raise ValueError("table must be a 1-d uint8 tensor")
+    cols = [t for s in slots for t in s if t is not None]
+    for t in cols:
+        if t.dim() != 1 or t.shape[0] < n or not t.is_contiguous():
+            raise ValueError(f"slot columns must be contiguous 1-d tensors "
+                             f"of at least {n} rows")
+    if _on_cpu(cols, code, consts, table):
+        return residual_mask_plain(code, consts, table, slots, n)
+    dev = code.device
+    out = torch.empty(n, dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    if code.data_ptr() % 16 or consts.data_ptr() % 8:
+        raise ValueError("code must be 16-byte and consts 8-byte aligned")
+    ptrs = slot_table(slots, dev)
+    rc = _library().geomesa_residual_mask(
+        code.data_ptr(), code.shape[0], consts.data_ptr(), table.data_ptr(),
+        ptrs.data_ptr(), n, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "residual_mask")
+    launches["residual_mask"] += 1
+    return out

@@ -1,13 +1,21 @@
-"""In-memory datastore of the point query slice, with its scan on the
-GPU.
+"""In-memory datastore of point schemas, with its scans on the GPU.
 
     write(batch) -> host columns (pending until the next read)
-    query(q)     -> plan (splitter + cost decider)
-                 -> one of three tiers:
+    query(q)     -> plan (splitter + cost decider over z3, z2, id,
+                    attr:<name> and fullscan)
+                 -> z3/z2: one of three tiers:
                     host-exact   z-index candidates evaluated in f64
                     gathered     scan kernel over the index candidates
                     dense        scan kernel over every row
-                 -> exact f64 boundary patch of the kernel tiers
+                    -> exact f64 boundary patch of the kernel tiers
+                    -> the exact geometry of a polygon predicate (the
+                       point-in-polygon kernel for large candidate sets)
+                 -> id: the fid set; attr: the sorted attribute index, or
+                    the residual kernel when its bounds are too wide;
+                    fullscan: every row
+                 -> the secondary filter: the residual kernel over every
+                    row when the candidates are dense, else f64 on the
+                    host
                  -> sorted row ids
     query_batched(qs)
                  -> plan each query; the fusible ones of a type run as
@@ -19,10 +27,11 @@ The device columns (two-float coordinates, (day, ms) times) live on
 the store's device with power-of-two capacity; appends copy into that
 capacity in place and rebuild with fresh headroom only when it runs out.
 
-The slice's schemas have a default Point geometry; its filters are
-BBOX, rectangular INTERSECTS/WITHIN, DURING/BETWEEN/comparisons on the
-default date, AND, OR and INCLUDE. Everything else raises
-NotImplementedError naming the later slice (ROADMAP.md section 6).
+The schemas have a default Point geometry and Integer, Long, Float,
+Double, Boolean, String, Date and Point attributes (``:index=true`` on
+any). The filters are the ECQL grammar of ``filters/ecql.py`` with
+polygon and multipolygon literals. What that leaves out raises
+NotImplementedError naming its later slice (ROADMAP.md section 6).
 """
 
 from __future__ import annotations
@@ -32,17 +41,20 @@ import threading
 
 import numpy as np
 
-from ..features.batch import FeatureBatch
+from ..analytics.st_functions import contains_points
+from ..features.batch import COLUMN_TYPES, FeatureBatch, PointColumn
 from ..features.sft import SimpleFeatureType, parse_spec
 from ..filters import ast
 from ..filters.evaluate import evaluate
-from ..filters.helper import (extract_geometries, extract_intervals, is_box,
-                              to_millis)
+from ..filters.helper import (extract_attribute_bounds, extract_geometries,
+                              extract_intervals, is_box, to_millis)
+from ..geometry import MultiPolygon, Polygon
 from ..index.api import Explainer, FilterStrategy, Query, QueryHints
+from ..index.attr import AttributeKeyIndex
 from ..index.planner import decide_strategy
 from ..index.splitter import spatial_part
 from ..index.zkeys import SCAN_BLOCK_THRESHOLD, ZKeyIndex, search_rows
-from ..scan import zscan
+from ..scan import gscan, residual, zscan
 from ..utils.device import resolve_device
 from ..utils.properties import SystemProperty
 from .api import DataStore
@@ -59,8 +71,8 @@ _WHOLE_WORLD = (-180.0, -90.0, 180.0, 90.0)
 
 def _later(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not in the point query slice of the PyTorch port; it "
-        f"belongs to the {slice_name} slice (ROADMAP.md section 6)")
+        f"{what} is not in the PyTorch port yet; it belongs to the "
+        f"{slice_name} slice (ROADMAP.md section 6)")
 
 
 class QueryResult:
@@ -87,7 +99,9 @@ class _TypeState:
     Writes land in a pending list; the first read flushes it with one
     concat. Once the index exists, a flush appends the delta to the
     device columns in place (within capacity) and merges it into the
-    z-key sort orders instead of rebuilding them."""
+    z-key sort orders instead of rebuilding them. The attribute indexes
+    and the residual's device columns are built on first use and dropped
+    on every flush."""
 
     def __init__(self, sft: SimpleFeatureType, device):
         self.sft = sft
@@ -101,6 +115,8 @@ class _TypeState:
         self.host_xhi: np.ndarray | None = None
         self.host_yhi: np.ndarray | None = None
         self.dirty = False
+        self.attr_idx: dict[str, AttributeKeyIndex | None] = {}
+        self.devcols: residual.DeviceColumns | None = None
 
     @property
     def n(self) -> int:
@@ -129,6 +145,9 @@ class _TypeState:
         self._batch = delta if self._batch is None else self._batch.concat(delta)
         self._pending = []
         self._pending_n = 0
+        # the per-column caches cover the old rows only
+        self.attr_idx.clear()
+        self.devcols = None
         # pessimistically dirty: a failure below rebuilds on the next read
         self.dirty = True
         if not can_merge:
@@ -171,6 +190,31 @@ class _TypeState:
                                 self.sft.z3_interval)
         self.dirty = False
 
+    def attr_index(self, name: str) -> AttributeKeyIndex | None:
+        """Sorted index of one column, built on first use; keyed (value,
+        date) when the schema has a default date, so equality scans
+        narrow by the filter's date bounds. None for a column type the
+        index cannot sort (a point)."""
+        self.flush()
+        if name not in self.attr_idx:
+            dtg = self.sft.dtg_field
+            date_millis = (self.batch.col(dtg).millis
+                           if dtg is not None and dtg != name else None)
+            try:
+                self.attr_idx[name] = AttributeKeyIndex(
+                    self.batch.col(name), date_millis=date_millis)
+            except TypeError:
+                self.attr_idx[name] = None
+        return self.attr_idx[name]
+
+    def device_cols(self) -> residual.DeviceColumns:
+        """The residual kernel's split columns on the store's device,
+        uploaded per column on first use."""
+        self.flush()
+        if self.devcols is None:
+            self.devcols = residual.DeviceColumns(self.batch, self.device)
+        return self.devcols
+
 
 def _synchronized(fn):
     """Serialize a store operation: reads mutate state too (pending
@@ -207,9 +251,10 @@ class InMemoryDataStore(DataStore):
             raise _later("a schema without a default Point geometry",
                          "extent-geometry (XZ) schemas")
         for a in sft.attributes:
-            if a.indexed:
-                raise _later(f"attribute index on {a.name!r}",
-                             "attribute indexes")
+            if a.type.name not in COLUMN_TYPES:
+                raise _later(f"a {a.type} attribute ({a.name!r})",
+                             "extent-geometry (XZ) schemas"
+                             if a.is_geometry else "collection-type")
         self._types[sft.type_name] = _TypeState(sft, self.device)
 
     def get_schema(self, type_name: str) -> SimpleFeatureType:
@@ -316,10 +361,10 @@ class InMemoryDataStore(DataStore):
         in the batched scan: a z3/z2 strategy with no secondary filter
         and no exact geometry predicate (a rectangular INTERSECTS or
         WITHIN goes through query(), as in the reference); else None."""
-        _check_filter(q.filter, st.sft)
+        _check_filter(q.filter)
         explain = Explainer(explain_out)
         explain.push(lambda: f"Batched '{q.type_name}' filter={q.filter}")
-        strategy = decide_strategy(st.sft, q, ["z3", "z2"], st.n,
+        strategy = decide_strategy(st.sft, q, _indices(st.sft), st.n,
                                    explain=explain)
         if strategy.index not in ("z3", "z2") or strategy.secondary is not None:
             return None
@@ -365,34 +410,92 @@ class InMemoryDataStore(DataStore):
         return n if q.max_features is None else min(n, q.max_features)
 
     def _matching_rows(self, q: Query, st: _TypeState, explain: Explainer):
-        _check_filter(q.filter, st.sft)
+        _check_filter(q.filter)
         if st.n == 0:
             explain("Store is empty")
             return (np.empty(0, dtype=np.int64),
                     FilterStrategy("empty", None, None))
-        strategy = decide_strategy(st.sft, q, ["z3", "z2"], st.n,
+        strategy = decide_strategy(st.sft, q, _indices(st.sft), st.n,
                                    explain=explain)
         return self._execute(st, strategy, explain), strategy
 
     def _execute(self, st: _TypeState, strategy: FilterStrategy,
                  explain: Explainer) -> np.ndarray:
-        """Run the chosen strategy; returns sorted matching row indices."""
+        """Run the chosen strategy; returns sorted matching row indices,
+        in index space (an index-pruned scan never pays O(n) host work)."""
         if strategy.index == "empty":
             return np.empty(0, dtype=np.int64)
         if strategy.index in ("z3", "z2"):
             st.ensure_index()
             idx = self._device_scan(st, strategy, explain)
-        elif strategy.primary is None:
-            idx = np.arange(st.n, dtype=np.int64)
+        elif strategy.index == "id":
+            idx = np.flatnonzero(np.isin(
+                st.batch.ids.astype(str),
+                np.asarray(strategy.primary.ids, dtype=str)))
+        elif strategy.index.startswith("attr:"):
+            idx = self._attr_scan(st, strategy, explain)
         else:
-            explain(f"Executing host scan for {strategy.index}")
-            idx = np.flatnonzero(evaluate(strategy.primary, st.batch))
+            # fullscan: every row, the whole filter as the secondary
+            idx = np.arange(st.n, dtype=np.int64)
         if strategy.secondary is not None:
             if len(idx):
-                keep = evaluate(strategy.secondary, st.batch.take(idx))
-                idx = idx[keep]
+                idx = self._apply_residual(st, strategy.secondary, idx,
+                                           explain)
             explain(f"Residual filter applied: {strategy.secondary}")
         return idx
+
+    def _apply_residual(self, st: _TypeState, f: ast.Filter,
+                        idx: np.ndarray, explain: Explainer) -> np.ndarray:
+        """The secondary filter: the residual kernel over every row when
+        the candidates are a large share of the table (gathering them
+        would cost more than re-reading the columns), the f64 host
+        evaluator on the gathered candidates otherwise."""
+        batch = st.batch
+        if len(idx) * 4 > st.n and residual.is_compilable(f, batch):
+            explain("Device residual scan (dense)")
+            mask = residual.device_mask(f, batch, st.device_cols())
+            return idx[mask[idx]]
+        return idx[evaluate(f, batch.take(idx))]
+
+    def _attr_scan(self, st: _TypeState, strategy: FilterStrategy,
+                   explain: Explainer) -> np.ndarray:
+        """Attribute-index scan: binary-searched candidate rows from the
+        sorted column, then the exact primary on those rows (bounds
+        over-approximate, e.g. a non-prefix LIKE); bounds too wide for
+        that run the residual kernel over every row instead."""
+        attr = strategy.index.split(":", 1)[1]
+        aidx = st.attr_index(attr)
+        rows = None
+        narrowed = False
+        if aidx is not None:
+            bounds = extract_attribute_bounds(strategy.primary, attr)
+            # secondary date tier: the residual's date bounds narrow the
+            # equality slices of the (value, date) order
+            dtg = st.sft.dtg_field
+            intervals = []
+            if (dtg is not None and strategy.secondary is not None
+                    and aidx.sorted_millis is not None):
+                intervals = _intervals_ms(strategy.secondary, dtg,
+                                          lo_unbounded=-(2 ** 62))
+            max_rows = int(float(SCAN_BLOCK_THRESHOLD.get()) * st.n)
+            rows = aidx.candidates(bounds, max_rows=max_rows,
+                                   intervals_ms=intervals)
+            narrowed = bool(intervals) and any(
+                aidx.is_point_bound(b) for b in bounds)
+        if rows is None:
+            if residual.is_compilable(strategy.primary, st.batch):
+                explain(f"Attribute bounds too wide; dense device scan "
+                        f"for {strategy.index}")
+                return np.flatnonzero(residual.device_mask(
+                    strategy.primary, st.batch, st.device_cols()))
+            explain(f"Attribute bounds not range-scannable; "
+                    f"host scan for {strategy.index}")
+            return np.flatnonzero(evaluate(strategy.primary, st.batch))
+        explain(f"Attribute index scan: {len(rows)} candidate row(s) "
+                f"of {st.n}" + (" (date-narrowed)" if narrowed else ""))
+        if not len(rows):
+            return rows
+        return rows[evaluate(strategy.primary, st.batch.take(rows))]
 
     def _device_scan(self, st: _TypeState, strategy: FilterStrategy,
                      explain: Explainer) -> np.ndarray:
@@ -419,11 +522,36 @@ class InMemoryDataStore(DataStore):
         # polygon predicates are exact on their polygon, not its envelope
         if needs_exact:
             spatial_f, _ = spatial_part(strategy.primary, st.sft.geom_field)
-            if spatial_f is not None:
-                if len(idx):
-                    idx = idx[evaluate(spatial_f, st.batch.take(idx))]
-                explain("Exact geometry predicate applied")
+            if len(idx) and spatial_f is not None:
+                col = st.batch.col(st.sft.geom_field)
+                keep = self._pip_residual(st, spatial_f, col, idx, explain)
+                if keep is None:
+                    keep = evaluate(spatial_f, st.batch.take(idx))
+                idx = idx[keep]
+            explain("Exact geometry predicate applied")
         return idx
+
+    def _pip_residual(self, st: _TypeState, spatial_f, col: PointColumn,
+                      candidates: np.ndarray, explain: Explainer):
+        """The point-in-polygon kernel for the exact residual of a single
+        INTERSECTS/WITHIN polygon, at any number of candidates (on an
+        H100 this path beat the host's f64 crossing number from 100 to
+        500k candidates: chip_smoke.py's pip_step); the band rows
+        re-evaluated in f64. A bool keep mask over the candidates, or
+        None where it does not apply."""
+        if not (isinstance(spatial_f, (ast.Intersects, ast.Within))
+                and isinstance(spatial_f.geom, (Polygon, MultiPolygon))):
+            return None
+        px, py = col.x[candidates], col.y[candidates]
+        inside, band_idx = gscan.points_in_polygon_device(
+            px, py, gscan.pack_polygon(spatial_f.geom, st.device))
+        if len(band_idx):
+            # the exact f64 predicate, boundary included, on the band rows
+            inside[band_idx] = contains_points(
+                spatial_f.geom, px[band_idx], py[band_idx])
+        explain(f"Device point-in-polygon residual "
+                f"({len(candidates)} candidates, {len(band_idx)} band)")
+        return inside & col.valid[candidates]
 
     def _patch_mask(self, st: _TypeState, mask: np.ndarray, xhi, yhi, sel,
                     sq: zscan.ScanQuery, explain: Explainer) -> np.ndarray:
@@ -482,12 +610,22 @@ def _scan_inputs(sft: SimpleFeatureType, strategy: FilterStrategy):
     return boxes, intervals, needs_exact
 
 
-def _intervals_ms(primary: ast.Filter, dtg: str) -> list[tuple[int, int]]:
-    """Inclusive [lo, hi] epoch-millis intervals for the kernels, with
-    exclusive bounds moved in by one milli (FilterHelper.scala:267-307)."""
+def _indices(sft: SimpleFeatureType) -> list[str]:
+    """The indexes a point schema has: z3 (with a default date), z2, id,
+    and one attr:<name> per indexed attribute."""
+    out = (["z3"] if sft.dtg_field is not None else []) + ["z2", "id"]
+    return out + [f"attr:{a.name}" for a in sft.attributes if a.indexed]
+
+
+def _intervals_ms(primary: ast.Filter, dtg: str,
+                  lo_unbounded: int = 0) -> list[tuple[int, int]]:
+    """Inclusive [lo, hi] epoch-millis intervals, with exclusive bounds
+    moved in by one milli (FilterHelper.scala:267-307). ``lo_unbounded``
+    is the open lower end: 0 for the z3 kernels (the index domain's
+    floor), a large negative for raw-millis consumers."""
     out = []
     for b in extract_intervals(primary, dtg):
-        lo = to_millis(b.lower.value) if b.lower.is_bounded else 0
+        lo = to_millis(b.lower.value) if b.lower.is_bounded else lo_unbounded
         hi = to_millis(b.upper.value) if b.upper.is_bounded else 2**62
         if b.lower.is_bounded and not b.lower.inclusive:
             lo += 1
@@ -497,19 +635,13 @@ def _intervals_ms(primary: ast.Filter, dtg: str) -> list[tuple[int, int]]:
     return out
 
 
-def _check_filter(f: ast.Filter, sft: SimpleFeatureType):
-    """Raise NotImplementedError for what the slice does not run:
-    predicates on other attributes than the default geometry and date,
-    and non-rectangular polygons."""
+def _check_filter(f: ast.Filter):
+    """Raise NotImplementedError for what the port does not run yet: a
+    spatial predicate against another literal than a polygon or
+    multipolygon (the parser already refuses DWITHIN and the relate
+    operators)."""
     for c in ast.walk(f):
-        if isinstance(c, (ast.BBox, ast.SpatialPredicate)):
-            if c.prop != sft.geom_field:
-                raise _later(f"a spatial predicate on {c.prop!r} (not the "
-                             f"default geometry)", "extent-geometry")
-            if isinstance(c, ast.SpatialPredicate) and not is_box(c.geom):
-                raise _later("a non-rectangular query geometry",
-                             "polygon (gscan) predicate")
-        elif isinstance(c, (ast.Compare, ast.Between, ast.During)):
-            if c.prop != sft.dtg_field:
-                raise _later(f"a predicate on attribute {c.prop!r}",
-                             "attribute-index")
+        if (isinstance(c, ast.SpatialPredicate)
+                and not isinstance(c.geom, (Polygon, MultiPolygon))):
+            raise _later(f"{c.op_name} against a {c.geom.geom_type}",
+                         "extent-geometry")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Time the port's scan kernels in several checkouts by one method.
+"""Time the port's kernels in several checkouts by one method.
 
     python3 kernel_ab.py [--seed 0] [--rows 100000000]
                          [--store-rows 10000000] TREE [TREE ...]
@@ -38,7 +38,19 @@ compares two versions within one call. Each process:
   tree has the prefix kernel, it on the batch's partials cut into 1x,
   4x and 16x as many (kind, query) rows, beside one ``torch.cumsum``,
   and a probe of the compaction built from PROBE_SOURCE, cut short
-  after its loads and before its id stores.
+  after its loads and before its id stores;
+- where the tree has the predicate kernels (``scan/gscan.py``,
+  ``scan/residual.py``), times them held at chip_smoke.py's predicates
+  phase's shapes (``predicates_10m``): ``pip_mask`` on the rows of its
+  polygon query's envelope and DURING (the point-in-polygon candidates)
+  against the 340 edges of its polygon, each tree packing the polygon
+  with its own ``pack_polygon``; and the residual kernel alone (a
+  pointer table built once) and through its wrapper on the phase's
+  fullscan attribute filter and its dense secondary with band rows, each
+  program compiled by the tree's own ``compile_program`` over its own
+  ``DeviceColumns`` of the phase's store data (--store-rows rows from
+  chip_smoke.py's ``predicate_data``). Every result is checked against
+  the tree's plain version.
 
 Medians of 20 launches (CUDA events; 10 for the batched kernels). Every
 gathered and batched result is checked against its plain version.
@@ -326,6 +338,63 @@ def batched_case(kernels, data, bq, tree: str, probe) -> dict:
     return out
 
 
+def predicate_case(smoke, seed: int, rows: int) -> dict:
+    """The tree's predicate kernels at chip_smoke.py's predicates-phase
+    shapes, held, each checked against the tree's plain version."""
+    import torch
+    from geomesa_tpu_torch.features.sft import parse_spec
+    from geomesa_tpu_torch.filters import parse_ecql
+    from geomesa_tpu_torch.geometry import parse_wkt
+    from geomesa_tpu_torch.scan import gscan, kernels, residual
+    dev = torch.device("cuda")
+    d = smoke.predicate_data(seed, rows)
+    lo, hi = smoke.PRED_DURING
+    sel = (smoke._in_box(d["x"], d["y"], smoke._env(smoke.PRED_SHELL))
+           & (d["ms"] > lo * MS_DAY) & (d["ms"] < hi * MS_DAY))
+    px, py = (torch.from_numpy(a).to(dev)
+              for a in gscan.pip_points(d["x"][sel], d["y"][sel]))
+    edges = gscan.pack_polygon(parse_wkt(smoke.PRED_POLYGON), dev).edges
+
+    def pip():
+        return kernels.pip_mask(px, py, edges, gscan.EDGE_EPS2)
+    got, want = pip(), kernels.pip_mask_plain(px, py, edges, gscan.EDGE_EPS2)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit("pip_mask != plain")
+    out = {"pip_points": int(px.shape[0]), "pip_edges": int(edges.shape[0]),
+           "pip_mask_ms": cuda_ms(pip, True, iters=10)}
+    batch = smoke.predicate_batch(parse_spec("gdelt", smoke.PRED_SPEC), d,
+                                  np.arange(rows).astype(object))
+    cols = residual.DeviceColumns(batch, dev)
+    lib = kernels._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, ecql in (("attributes", smoke.PRED_ATTR_FILTER),
+                       ("band", smoke.PRED_BAND_FILTER)):
+        prog = residual.compile_program(parse_ecql(ecql), batch, cols)
+        code, consts, table = (torch.from_numpy(a).to(dev)
+                               for a in (prog.code, prog.consts, prog.table))
+        slots = [cols.get(c)["slot"] for c in prog.slots]
+        res = kernels.residual_mask(code, consts, table, slots, rows)
+        if not torch.equal(res, kernels.residual_mask_plain(
+                code, consts, table, slots, rows)):
+            raise SystemExit(f"residual_mask != plain ({name})")
+        ptrs = kernels.slot_table(slots, dev)
+
+        def alone(code=code, consts=consts, table=table, ptrs=ptrs):
+            rc = lib.geomesa_residual_mask(
+                code.data_ptr(), code.shape[0], consts.data_ptr(),
+                table.data_ptr(), ptrs.data_ptr(), rows, res.data_ptr(),
+                stream)
+            if rc:
+                raise RuntimeError(f"residual launch failed: cudaError {rc}")
+        out[f"residual_{name}"] = {
+            "instructions": int(code.shape[0]), "slots": len(slots),
+            "kernel_ms": cuda_ms(alone, True, iters=10),
+            "wrapper_ms": cuda_ms(
+                lambda: kernels.residual_mask(code, consts, table, slots,
+                                              rows), True, iters=10)}
+    return out
+
+
 def worker(tree: str, seed: int, rows: int, store_rows: int) -> dict:
     sys.path.insert(0, tree)
     import torch
@@ -417,6 +486,11 @@ def worker(tree: str, seed: int, rows: int, store_rows: int) -> dict:
         res["batched_10m"] = batched_case(
             kernels, data, smoke.store_batch(smoke.store_batch_specs(seed)),
             tree, probe)
+    del data, idx
+    torch.cuda.empty_cache()
+    if os.path.exists(os.path.join(tree, "geomesa_tpu_torch", "scan",
+                                   "residual.py")):
+        res["predicates_10m"] = predicate_case(smoke, seed, store_rows)
     return res
 
 

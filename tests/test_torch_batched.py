@@ -415,4 +415,4 @@ def test_store_batched_out_of_slice_raises(stores):
     port, _ = stores
     with pytest.raises(NotImplementedError):
         port.query_batched([Query("pts", STORE_QUERIES[0]),
-                            Query("pts", "name = 'a'")])
+                            Query("pts", "INTERSECTS(geom, POINT(1 2))")])

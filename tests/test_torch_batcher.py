@@ -332,7 +332,8 @@ class TestErrorIsolation:
         _fill(ds, "ships")
         b = QueryBatcher(ds, max_batch=2, linger_us=1_000_000,
                          adaptive=False)
-        bad = Query("ships", "name = 'a'")   # outside the slice: raises
+        # outside the port (a point literal): raises
+        bad = Query("ships", "INTERSECTS(geom, POINT(1 2))")
         ds.hold = threading.Event()
         warm = threading.Thread(target=b.query, args=(_gated("ships"),))
         warm.start()

@@ -15,9 +15,11 @@ import pytest
 import torch
 
 import geomesa_tpu_torch
-from geomesa_tpu_torch import InMemoryDataStore, Query
-from geomesa_tpu_torch.scan import kernels
-from geomesa_tpu_torch.scan import zscan
+from geomesa_tpu_torch import FeatureBatch, InMemoryDataStore, Query
+from geomesa_tpu_torch import parse_spec
+from geomesa_tpu_torch.filters import parse_ecql
+from geomesa_tpu_torch.geometry import parse_wkt
+from geomesa_tpu_torch.scan import gscan, kernels, residual, zscan
 
 PKG = os.path.dirname(geomesa_tpu_torch.__file__)
 MS_DAY = 86_400_000
@@ -53,7 +55,9 @@ def test_no_source_imports_jax_or_reference():
                         offenders.append(path)
     assert offenders == []
     assert {"metrics/__init__.py", "metrics/registry.py",
-            "scan/batcher.py", "scan/zscan.py"} <= seen
+            "scan/batcher.py", "scan/zscan.py", "scan/residual.py",
+            "scan/gscan.py", "index/attr.py",
+            "analytics/st_functions.py"} <= seen
 
 
 def test_store_defaults_to_cuda(monkeypatch):
@@ -167,9 +171,9 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
     for name in ("scan_mask_plain", "scan_mask_gather_plain",
                  "scan_count_plain", "scan_batch_bits_plain",
                  "compact_bits_plain", "compact_prefix_plain", "_predicate",
-                 "_candidates"):
+                 "_candidates", "pip_mask_plain", "residual_mask_plain"):
         monkeypatch.setattr(kernels, name, refuse)
-    _, _, _, d = _data(10_000, 16_384, cuda)
+    x, y, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
     kernels.reset_launches()
     zscan.scan_mask(d, q)
@@ -177,9 +181,15 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
     zscan.scan_count(d, q)
     zscan.batch_hit_rows(d, zscan.stack_queries(
         [zscan.make_query(*qq) for qq in QUERIES]))
+    gscan.points_in_polygon_device(x, y, gscan.pack_polygon(
+        parse_wkt(STAR), cuda))
+    batch = _attr_batch(10_000)
+    residual.device_mask(parse_ecql("age > 5 AND name LIKE 'w0%'"), batch,
+                         residual.DeviceColumns(batch, cuda))
     assert kernels.launches == {"scan_mask": 1, "scan_mask_gather": 1,
                                 "scan_count": 1, "scan_batch_bits": 1,
-                                "compact_prefix": 1, "compact_bits": 1}
+                                "compact_prefix": 1, "compact_bits": 1,
+                                "pip_mask": 1, "residual_mask": 1}
 
 
 @pytest.mark.gpu
@@ -476,3 +486,151 @@ def test_batch_kernels_keep_subnormals(cuda):
         zscan.make_query([(0.0, 0.0, 2e-41, 2e-41)], [(0, 50 * MS_DAY)])])
     hits, _ = _check_batch(d, bq)
     assert 0 < len(hits) < 2 * d.n
+
+
+# -- the predicate kernels (csrc/geom.cu, csrc/residual.cu) ------------------
+
+def _star(cx, cy, r1, r2, k):
+    a = np.linspace(0, 2 * np.pi, 2 * k, endpoint=False)
+    r = np.where(np.arange(2 * k) % 2 == 0, r1, r2)
+    pts = np.c_[cx + r * np.cos(a), cy + r * np.sin(a)]
+    pts = np.vstack([pts, pts[:1]])
+    return "POLYGON((" + ", ".join(f"{float(x)!r} {float(y)!r}"
+                                   for x, y in pts) + "))"
+
+
+STAR = _star(-20.5, 10.25, 60, 25, 9)
+# 2,400 edges: the kernel walks three shared-memory tiles
+BIG_STAR = _star(3.0, -4.0, 70, 30, 1200)
+HOLED = ("POLYGON((-120 -60, 120 -60, 120 60, -120 60, -120 -60), "
+         "(-30 -30, 30 -30, 30 30, -30 30, -30 -30))")
+MULTI = ("MULTIPOLYGON(((-100 -50, -20 -50, -20 20, -100 20, -100 -50)), "
+         "((20 0, 90 0, 90 70, 20 70, 20 0), (40 20, 60 20, 60 40, 40 40, "
+         "40 20)))")
+ATTR_SPEC = ("name:String,age:Integer,big:Long,score:Double,flag:Boolean,"
+             "dtg:Date,*geom:Point:srid=4326")
+
+
+def _attr_batch(n, seed=6):
+    rng = np.random.default_rng(seed)
+    names = np.array([f"w{i:03d}" for i in range(40)], dtype=object)
+    name = names[rng.integers(0, 40, n)]
+    name[::29] = None
+    age = rng.integers(0, 100, n).astype(object)
+    age[::31] = None
+    score = rng.uniform(0, 1, n)
+    score[::17] = np.nan
+    score[3::23] = 0.25
+    score[4::23] = np.nextafter(0.25, 1)
+    return FeatureBatch.from_dict(parse_spec("t", ATTR_SPEC),
+                                  [f"f{i}" for i in range(n)], {
+        "name": name, "age": age, "big": rng.integers(-(2**40), 2**40, n),
+        "score": score, "flag": rng.integers(0, 2, n).astype(bool),
+        "dtg": 1_609_459_200_000 + rng.integers(0, 300 * MS_DAY, n),
+        "geom": (rng.uniform(-180, 180, n), rng.uniform(-90, 90, n))})
+
+
+RESIDUAL_FILTERS = [
+    "name = 'w007'", "name <> 'w007'", "name < 'w010'", "name >= 'w035'",
+    "name IN ('w001', 'w002', 'nope')", "name LIKE 'w00%'",
+    "name ILIKE 'W01_'", "name IS NULL", "NOT (name = 'w007')",
+    "age = 41", "age <> 41.5", "age BETWEEN 19.5 AND 30.5",
+    "age IN (" + ", ".join(str(i) for i in range(300)) + ")", "age IS NULL",
+    "big > -3", "big <= 1099511627776", "big BETWEEN -5000000000 AND 7",
+    "score < 0.25 OR score > 0.9", "score = 0.25", "score <> 0.25",
+    "NOT (score >= 0.25)", "score IS NULL", "flag = true", "flag <> 0.5",
+    "dtg DURING 2021-03-01T00:00:00Z/2021-04-01T00:00:00Z",
+    "dtg BEFORE 2021-02-01T00:00:00Z OR dtg TEQUALS 2021-05-01T00:00:00Z",
+    "age > 50 AND name = 'w002' AND score <= 0.5 AND flag = false",
+    "EXCLUDE OR (INCLUDE AND big < 0)",
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 255, 257, 1_000_003])
+def test_residual_kernel_matches_plain(cuda, n):
+    """Every leaf kind and the band bit, byte for byte against the plain
+    version on the same device columns."""
+    batch = _attr_batch(n)
+    cols = residual.DeviceColumns(batch, cuda)
+    for ecql in RESIDUAL_FILTERS:
+        prog = residual.compile_program(parse_ecql(ecql), batch, cols)
+        kernels.reset_launches()
+        got = prog.run(cols, n)
+        torch.cuda.synchronize()
+        assert kernels.launches["residual_mask"] == 1
+        slots = [cols.get(name)["slot"] for name in prog.slots]
+        want = kernels.residual_mask_plain(
+            *(torch.from_numpy(a).to(cuda)
+              for a in (prog.code, prog.consts, prog.table)), slots, n)
+        assert torch.equal(got, want), ecql
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wkt", [STAR, BIG_STAR, HOLED, MULTI])
+@pytest.mark.parametrize("n", [1, 257, 300_001])
+def test_pip_kernel_matches_plain(cuda, wkt, n):
+    """inside and band bit for bit against the plain version, with
+    points on vertices and edges among uniform ones."""
+    rng = np.random.default_rng(n)
+    poly = parse_wkt(wkt)
+    px, py = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    on = np.vstack(poly.coords_list())[:n]
+    px[:len(on)], py[:len(on)] = on[:, 0], on[:, 1]
+    edges = gscan.pack_polygon(poly, cuda).edges
+    x32, y32 = (torch.from_numpy(a).to(cuda) for a in gscan.pip_points(px, py))
+    kernels.reset_launches()
+    got = kernels.pip_mask(x32, y32, edges, gscan.EDGE_EPS2)
+    torch.cuda.synchronize()
+    assert kernels.launches["pip_mask"] == 1
+    want = kernels.pip_mask_plain(x32, y32, edges, gscan.EDGE_EPS2)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if n > 1000:
+        assert 0 < int(got[0].sum()) < n and int(got[1].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_predicate_wrappers_raise_on_cuda(cuda):
+    """On CUDA tensors a wrapper launches or raises; it never falls back
+    to its plain version."""
+    e = gscan.pack_polygon(parse_wkt(STAR), cuda).edges
+    x = torch.zeros(8, dtype=torch.float32, device=cuda)
+    flat = torch.zeros(4 * 9, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.pip_mask(x, x, flat[1:33].view(8, 4), gscan.EDGE_EPS2)
+    with pytest.raises(ValueError, match="devices"):
+        kernels.pip_mask(x, x, e.cpu(), gscan.EDGE_EPS2)
+    batch = _attr_batch(100)
+    cols = residual.DeviceColumns(batch, cuda)
+    prog = residual.compile_program(parse_ecql("age > 5"), batch, cols)
+    with pytest.raises(ValueError, match="devices"):
+        kernels.residual_mask(torch.from_numpy(prog.code),
+                              torch.from_numpy(prog.consts),
+                              torch.from_numpy(prog.table),
+                              [cols.get("age")["slot"]], 100)
+
+
+@pytest.mark.gpu
+def test_store_predicates_on_cuda_match_cpu(cuda):
+    """The predicate path on the card, through both kernels, equals the
+    same store on the CPU id for id."""
+    batch = _attr_batch(60_000, seed=11)
+    stores = [InMemoryDataStore(), InMemoryDataStore(device="cpu")]
+    for s in stores:
+        s.create_schema("t", ATTR_SPEC.replace("age:Integer",
+                                               "age:Integer:index=true"))
+        s.write("t", FeatureBatch(s.get_schema("t"), batch.ids,
+                                  batch.columns))
+    qs = [f"INTERSECTS(geom, {STAR}) AND dtg DURING "
+          f"2021-02-01T00:00:00Z/2021-09-01T00:00:00Z",
+          f"WITHIN(geom, {MULTI})", f"INTERSECTS(geom, {HOLED}) AND "
+          f"score < 0.5",
+          "score = 0.25 OR (name LIKE 'w01%' AND big > -3)",
+          "BBOX(geom, -179, -89, 179, 89) AND NOT (name IN ('w001'))",
+          "age >= 2", "IN ('f1', 'f77')"]
+    kernels.reset_launches()
+    for q in qs:
+        assert list(stores[0].query(q, "t").ids) == \
+            list(stores[1].query(q, "t").ids), q
+    assert kernels.launches["pip_mask"] >= 3
+    assert kernels.launches["residual_mask"] >= 3
