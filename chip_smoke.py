@@ -79,7 +79,16 @@ Phases, one JSON line each; any failure exits non-zero:
            call the path made to either kernel is held exactly against
            its plain version (torch.equal), both kernels are timed at the
            path's own shapes beside their bounds, and each query's p50
-           (host clock, 3 runs) is printed with its strategy.
+           (host clock, 3 runs) is printed with its strategy. pip_mask's
+           bound counts the pairs its skip leaves (counted on the device:
+           within each edge's expanded y range, inside its whole box),
+           beside the earlier all-pairs count (bound_all_pairs_ms); the
+           residual kernel is timed alone (a launch prepared once) and
+           through its wrapper, held (wrapper_ms) and on an idle card,
+           so that the host's work counts: warm (wrapper_bare_ms, the
+           prepared launch found) and cold (wrapper_cold_ms, prepared
+           anew each call, as on a new filter or after a flush), beside
+           the prepared launch on an idle card (kernel_bare_ms).
 
 Then the kernels summary line, the card line, and the final
 {"ok": true, ...} line. Without CUDA it exits 1 and prints no result.
@@ -164,12 +173,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2, flush=None) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2, flush=None,
+            held: bool = True) -> float:
     """Median milliseconds of fn() on the card (CUDA events); ``flush``
-    runs before each timed launch, outside the events. A spin kernel
-    holds the card ahead of the first event while the host enqueues
-    fn(), so the events time the device's work and not the host's
-    launch latency (which exceeds a short kernel's own time)."""
+    runs before each timed launch, outside the events. Held (the
+    default), a spin kernel holds the card ahead of the first event
+    while the host enqueues fn(), so the events time the device's work
+    and not the host's launch latency (which exceeds a short kernel's
+    own time); not held, the card is idle and the events take in the
+    host's work between them too."""
     for _ in range(warmup):
         fn()
     times = []
@@ -178,7 +190,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2, flush=None) -> float:
         b = torch.cuda.Event(enable_timing=True)
         if flush is not None:
             flush()
-        torch.cuda._sleep(HOLD_CYCLES)
+        if held:
+            torch.cuda._sleep(HOLD_CYCLES)
         a.record()
         fn()
         b.record()
@@ -1030,12 +1043,20 @@ def _strategy(res) -> str:
 
 
 # pip_mask's operations, each add, subtract, multiply, division, compare,
-# select or xor counted as one at the f32 rate: per (point, edge) the
-# crossing test's two compares and xor, t's two subtracts, two multiplies,
-# add and division, the clamp's two, dx's and dy's three each, d2's three
-# and the minimum's one; three more (xint's multiply, division and add)
-# and two (px < xint, the parity flip) where the edge spans the point's
-# y; once per edge ex, ey, len2 and the two zero guards
+# select or xor counted as one at the f32 rate, as csrc/geom.cu's note
+# counts what these inputs need: per point its slab (four); per pair
+# within the y reach the y test's two, the span test's three, the x
+# reach's two and the crossing's two; per pair inside the expanded box
+# the full path's 21, five more where the edge spans the point's y; per
+# edge the prologue's 29
+PIP_OPS = {"point": 4, "y_reach": 9, "in_box": 21, "in_box_span": 5,
+           "edge": 29}
+# the count before the skip, kept for continuity: per (point, edge) the
+# crossing test's two compares and xor, t's two subtracts, two
+# multiplies, add and division, the clamp's two, dx's and dy's three
+# each, d2's three and the minimum's one; three more (xint's multiply,
+# division and add) and two (px < xint, the parity flip) where the edge
+# spans the point's y; once per edge ex, ey, len2 and the two zero guards
 PIP_OPS_PAIR, PIP_OPS_CROSSING, PIP_OPS_EDGE = 21, 5, 9
 
 
@@ -1047,6 +1068,31 @@ def pip_crossings(py, edges) -> int:
     hi = torch.maximum(edges[:, 1], edges[:, 3]).contiguous()
     return int((torch.searchsorted(ys, hi) - torch.searchsorted(ys, lo))
                .sum().item())
+
+
+def pip_pair_counts(px, py, edges, eps2) -> dict:
+    """The pairs the kernel's walk needs, counted on the device over
+    chunks of points: within each edge's expanded y range (or not
+    testable: a NaN, infinite or huge point or edge), inside the whole
+    expanded box, and inside it with the edge spanning the point's y
+    (``kernels.pip_edge_terms_plain``: the kernel's own margins)."""
+    from geomesa_tpu_torch.scan import kernels
+    lox, hix, loy, hiy = kernels.pip_edge_terms_plain(edges, eps2)
+    y0, y1 = edges[:, 1], edges[:, 3]
+    out = {"y_reach": 0, "in_box": 0, "in_box_span": 0}
+    step = max(1, (1 << 24) // max(1, edges.shape[0]))
+    for lo in range(0, px.shape[0], step):
+        x, y = px[lo:lo + step], py[lo:lo + step]
+        tame = (x.abs() <= 2.0**60) & (y.abs() <= 2.0**60)
+        sx = torch.where(tame, x, float("nan"))[:, None]
+        sy = torch.where(tame, y, float("nan"))[:, None]
+        iny = ~((sy < loy) | (sy > hiy))
+        inbox = iny & ~((sx < lox) | (sx > hix))
+        cond = (y0 > y[:, None]) != (y1 > y[:, None])
+        out["y_reach"] += int(iny.sum().item())
+        out["in_box"] += int(inbox.sum().item())
+        out["in_box_span"] += int((inbox & cond).sum().item())
+    return out
 
 
 def _residual_bytes(slots, n: int) -> int:
@@ -1163,47 +1209,52 @@ def phase_predicates(seed: int, rows: int, ids) -> dict:
         want = kernels.pip_mask_plain(px, py, edges, eps2)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             wrong.append(("pip_mask", px.shape[0], edges.shape[0]))
-    for code, consts, table, slots, n in calls["residual_mask"]:
-        got = kernels.residual_mask(code, consts, table, slots, n)
-        if not torch.equal(got, kernels.residual_mask_plain(
-                code, consts, table, slots, n)):
-            wrong.append(("residual_mask", n, code.shape[0]))
+    for args in calls["residual_mask"]:
+        got = kernels.residual_mask(*args)
+        if not torch.equal(got, kernels.residual_mask_plain(*args)):
+            wrong.append(("residual_mask", args[4], args[0].shape[0]))
     stats = {}
     if calls["pip_mask"]:
         px, py, edges, eps2 = max(
             calls["pip_mask"], key=lambda a: a[0].shape[0] * a[2].shape[0])
         n, e = px.shape[0], edges.shape[0]
         crossings = pip_crossings(py, edges)
-        bms, bby = bound_ms(10 * n + 16 * e, PIP_OPS_PAIR * n * e
-                            + PIP_OPS_CROSSING * crossings + PIP_OPS_EDGE * e)
+        pairs = pip_pair_counts(px, py, edges, eps2)
+        all_ms, _ = bound_ms(10 * n + 16 * e, PIP_OPS_PAIR * n * e
+                             + PIP_OPS_CROSSING * crossings + PIP_OPS_EDGE * e)
+        bms, bby = bound_ms(10 * n + 16 * e, PIP_OPS["point"] * n + sum(
+            PIP_OPS[k] * pairs[k] for k in pairs) + PIP_OPS["edge"] * e)
         stats["pip_mask"] = {
-            "points": n, "edges": e, "crossing_pairs": crossings,
+            "points": n, "edges": e, "crossing_pairs": crossings, **pairs,
             "max_abs_err": 0,
             "ms": cuda_ms(lambda: kernels.pip_mask(px, py, edges, eps2), 10),
             "plain_ms": cuda_ms(
                 lambda: kernels.pip_mask_plain(px, py, edges, eps2), 1, 1),
-            "bound_ms": bms, "bound_by": bby, "library_ms": None,
+            "bound_ms": bms, "bound_by": bby, "bound_all_pairs_ms": all_ms,
+            "library_ms": None,
             "band": int(kernels.pip_mask_plain(px, py, edges, eps2)[1]
                         .sum().item())}
     if calls["residual_mask"]:
         args = max(calls["residual_mask"], key=lambda a: a[4])
-        code, consts, table, slots, n = args
+        code, consts, table, slots, n = args[:5]
         bms, bby = bound_ms(_residual_bytes(slots, n)
                             + code.numel() * 4 + consts.numel() * 4
                             + table.numel(), n * code.shape[0])
         out = kernels.residual_mask(*args)
-        ptrs = kernels.slot_table(slots, out.device)
-        lib = kernels._library()
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-
-        def kernel_alone():   # the wrapper without its pointer upload
-            lib.geomesa_residual_mask(
-                code.data_ptr(), code.shape[0], consts.data_ptr(),
-                table.data_ptr(), ptrs.data_ptr(), n, out.data_ptr(), stream)
+        launch = kernels.residual_launcher(code, consts, table, slots,
+                                           out.device)
         stats["residual_mask"] = {
             "rows": n, "instructions": code.shape[0], "slots": len(slots),
-            "max_abs_err": 0, "ms": cuda_ms(kernel_alone, 10),
+            "max_abs_err": 0,
+            "ms": cuda_ms(lambda: launch(n, out), 10),
             "wrapper_ms": cuda_ms(lambda: kernels.residual_mask(*args), 10),
+            "kernel_bare_ms": cuda_ms(lambda: launch(n, out), 10,
+                                      held=False),
+            "wrapper_bare_ms": cuda_ms(lambda: kernels.residual_mask(*args),
+                                       10, held=False),
+            "wrapper_cold_ms": cuda_ms(
+                lambda: kernels.residual_mask(*args), 10,
+                flush=kernels._residual_launches.clear, held=False),
             "plain_ms": cuda_ms(lambda: kernels.residual_mask_plain(*args),
                                 3, 1),
             "bound_ms": bms, "bound_by": bby, "library_ms": None,

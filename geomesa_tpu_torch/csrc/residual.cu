@@ -14,7 +14,7 @@
 // push one bit, AND/OR pop two and push one, NOT flips the top. It orders
 // each node's children by the stack they need (Sethi-Ullman), so the
 // stack never holds more than about log2(leaves) + 1 bits; the compiler
-// checks that it fits the 64-bit stack register. Leaves:
+// and the wrapper check that it needs at most 64 levels. Leaves:
 //   TRUE, FALSE; VALID (a constant-true compare: the row is not null);
 //   ISNULL (codes < 0 for strings, !valid otherwise);
 //   PAIR_I64 / PAIR_DATE / PAIR_F64: the lexicographic compare of a
@@ -42,10 +42,26 @@
 // each and valid 1 B for a split column, 4 B of codes, 1 + 1 B for a
 // boolean), plus 1 B out; chip_smoke.py counts them at 3.35 TB/s. A
 // column that several leaves read is fetched from device memory once
-// and then hits in the L1/L2 caches. The program lives in device memory
-// and every thread of a warp reads the same instruction (a broadcast,
-// cached), so no length of program, IN list or nesting is refused. One
-// thread per row, in a grid-stride loop with coalesced column loads.
+// and then hits in the L1/L2 caches.
+//
+// Design. Each thread takes kRows = 16 consecutive rows: a 4-byte
+// column arrives as four 16-byte loads, a 1-byte column as one, and the
+// 16 output bytes leave as one 16-byte store, so the bytes in flight
+// per SM are several times those of a row per thread; a ragged tail is
+// masked in the kernel. Each instruction is decoded once for the 16
+// rows, and a leaf's verdicts form a 16-bit mask. The bit stack is one
+// 16-bit mask per level: the top in a register, the levels below it in
+// dynamic shared memory ([level][thread], 2 B each; the wrapper sizes it
+// from the program's depth), so nothing is indexed in local memory.
+// The program (instructions, thresholds, slot pointers and vocab
+// tables) lives in device memory, uploaded by the wrapper in one copy
+// when it first prepares the launch of a program over a set of columns
+// and reused while both stay the same; every thread of a warp reads the
+// same instruction, a broadcast L1 hit. So no length of program, IN
+// list or nesting is refused. (Passing the program by value as a
+// __grid_constant__ parameter block, with the vocab tables copied into
+// shared memory, ran no faster at the predicates phase's shapes; PERF.md
+// §6.) The wrapper refuses columns that are not 16-byte aligned.
 //
 // C interface (bound with ctypes): the entry returns cudaGetLastError()
 // after its launch, and never synchronises.
@@ -57,7 +73,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
+constexpr int kRows = 16;  // rows per thread
 
 // opcodes and compare codes: equal to scan/kernels.py's Op and Cmp, which
 // the loader checks through geomesa_residual_codes
@@ -76,110 +92,224 @@ struct Slot {
   const uint8_t* valid;
 };
 
-__device__ __forceinline__ bool pick(int32_t cmp, bool lt, bool gt) {
+// the program in device memory
+struct Program {
+  const int4* code;
+  const int2* consts;
+  const Slot* slots;
+  const uint8_t* table;
+};
+
+__device__ __forceinline__ uint32_t bit(bool b) { return b ? 1u : 0u; }
+
+// a compare code as a truth table over (lt, gt): bit 2*lt + gt
+__device__ __forceinline__ uint32_t truth(int32_t cmp) {
   switch (cmp) {
-    case kLt: return lt;
-    case kGt: return gt;
-    case kLe: return !gt;
-    case kGe: return !lt;
-    case kEq: return !lt && !gt;
-    default: return lt || gt;  // kNe
+    case kLt: return 4u;
+    case kGt: return 2u;
+    case kLe: return 5u;
+    case kGe: return 3u;
+    case kEq: return 1u;
+    default: return 6u;  // kNe
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    residual_mask_kernel(const int4* __restrict__ code, int len,
-                         const int2* __restrict__ consts,
-                         const uint8_t* __restrict__ table,
-                         const Slot* __restrict__ slots, int64_t n,
-                         uint8_t* __restrict__ out) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    uint64_t st = 0;  // the bit stack, top in bit 0
-    bool band = false;
-    for (int pc = 0; pc < len; ++pc) {
-      const int4 ins = __ldg(code + pc);
-      bool v;
-      switch (ins.x) {
-        case kTrue: v = true; break;
-        case kFalse: v = false; break;
-        case kAnd: st = (st >> 1) & (st | ~1ull); continue;
-        case kOr: st = (st >> 1) | (st & 1ull); continue;
-        case kNot: st ^= 1ull; continue;
-        default: {
-          const Slot s = slots[ins.y];
-          switch (ins.x) {
-            case kValid: v = s.valid[i] != 0; break;
-            case kIsNull:
-              v = s.valid == nullptr
-                      ? static_cast<const int32_t*>(s.a)[i] < 0
-                      : s.valid[i] == 0;
-              break;
-            case kPairI64:
-            case kPairDate: {
-              const int2 t = __ldg(consts + ins.z);
-              const int32_t hi = static_cast<const int32_t*>(s.a)[i];
-              const int32_t lo = static_cast<const int32_t*>(s.b)[i];
-              bool llt, lgt;
-              if (ins.x == kPairI64) {
-                llt = static_cast<uint32_t>(lo) < static_cast<uint32_t>(t.y);
-                lgt = static_cast<uint32_t>(lo) > static_cast<uint32_t>(t.y);
-              } else {
-                llt = lo < t.y;
-                lgt = lo > t.y;
-              }
-              const bool lt = hi < t.x || (hi == t.x && llt);
-              const bool gt = hi > t.x || (hi == t.x && lgt);
-              v = pick(ins.w, lt, gt) && s.valid[i] != 0;
-              break;
-            }
-            case kPairF64: {
-              const int2 t = __ldg(consts + ins.z);
-              const float vh = __int_as_float(t.x), vl = __int_as_float(t.y);
-              const float hi = static_cast<const float*>(s.a)[i];
-              const float lo = static_cast<const float*>(s.b)[i];
-              const bool ok = s.valid[i] != 0;
-              const bool lt = hi < vh || (hi == vh && lo < vl);
-              const bool gt = hi > vh || (hi == vh && lo > vl);
-              v = pick(ins.w, lt, gt) && ok;
-              band |= hi == vh && lo == vl && ok;
-              break;
-            }
-            case kBool:
-              v = ((ins.z >> (static_cast<const uint8_t*>(s.a)[i] ? 1 : 0)) &
-                   1) != 0 &&
-                  s.valid[i] != 0;
-              break;
-            case kStrEq: {
-              const int32_t c = static_cast<const int32_t*>(s.a)[i];
-              v = c == ins.z && c >= 0;
-              break;
-            }
-            case kStrNe: {
-              const int32_t c = static_cast<const int32_t*>(s.a)[i];
-              v = c != ins.z && c >= 0;
-              break;
-            }
-            case kStrLt: {
-              const int32_t c = static_cast<const int32_t*>(s.a)[i];
-              v = c < ins.z && c >= 0;
-              break;
-            }
-            case kStrGe:
-              v = static_cast<const int32_t*>(s.a)[i] >= ins.z;
-              break;
-            default: {  // kVocab
-              const int32_t c = static_cast<const int32_t*>(s.a)[i];
-              v = c >= 0 && c < ins.w && table[ins.z + c] != 0;
-              break;
-            }
-          }
-        }
-      }
-      st = (st << 1) | static_cast<uint64_t>(v);
+// the kRows 4-byte words of a column from row0: four 16-byte loads, or
+// masked scalar loads (0 past n) at the tail
+__device__ __forceinline__ void load_words(const void* col, int64_t row0,
+                                           bool full, int64_t n,
+                                           int32_t (&v)[kRows]) {
+  const int32_t* p = static_cast<const int32_t*>(col) + row0;
+  if (full) {
+#pragma unroll
+    for (int q = 0; q < kRows / 4; ++q) {
+      const int4 w = __ldg(reinterpret_cast<const int4*>(p) + q);
+      v[4 * q] = w.x;
+      v[4 * q + 1] = w.y;
+      v[4 * q + 2] = w.z;
+      v[4 * q + 3] = w.w;
     }
-    out[i] = static_cast<uint8_t>((st & 1ull) | (band ? 2u : 0u));
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) v[r] = row0 + r < n ? __ldg(p + r) : 0;
+  }
+}
+
+// the kRows bytes of a 1-byte column from row0, packed four to a word:
+// one 16-byte load, or masked scalar loads at the tail
+__device__ __forceinline__ void load_bytes(const void* col, int64_t row0,
+                                           bool full, int64_t n,
+                                           uint32_t (&w)[kRows / 4]) {
+  const uint8_t* p = static_cast<const uint8_t*>(col) + row0;
+  if (full) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    w[0] = q.x;
+    w[1] = q.y;
+    w[2] = q.z;
+    w[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRows / 4; ++k) w[k] = 0;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (row0 + r < n) w[r / 4] |= static_cast<uint32_t>(__ldg(p + r))
+                                    << (8 * (r % 4));
+  }
+}
+
+__device__ __forceinline__ bool byte_at(const uint32_t (&w)[kRows / 4],
+                                        int r) {
+  return ((w[r / 4] >> (8 * (r % 4))) & 0xffu) != 0;
+}
+
+// a leaf's verdicts over the thread's rows as a kRows-bit mask; a
+// PAIR_F64 leaf adds its key-equal rows to band
+__device__ __forceinline__ uint32_t leaf(int4 ins, const Slot s, int2 t,
+                                         const uint8_t* tbl, int64_t row0,
+                                         bool full, int64_t n,
+                                         uint32_t* band) {
+  uint32_t vm = 0;
+  int32_t a[kRows];
+  uint32_t ok[kRows / 4];
+  switch (ins.x) {
+    case kValid:
+      load_bytes(s.valid, row0, full, n, ok);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) vm |= bit(byte_at(ok, r)) << r;
+      break;
+    case kIsNull:
+      if (s.valid == nullptr) {
+        load_words(s.a, row0, full, n, a);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) vm |= bit(a[r] < 0) << r;
+      } else {
+        load_bytes(s.valid, row0, full, n, ok);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) vm |= bit(!byte_at(ok, r)) << r;
+      }
+      break;
+    case kPairI64:
+    case kPairDate: {
+      int32_t lo[kRows];
+      load_words(s.a, row0, full, n, a);
+      load_words(s.b, row0, full, n, lo);
+      load_bytes(s.valid, row0, full, n, ok);
+      const uint32_t tt = truth(ins.w);
+      const bool u = ins.x == kPairI64;  // an unsigned low word
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const bool llt = u ? static_cast<uint32_t>(lo[r]) <
+                                 static_cast<uint32_t>(t.y)
+                           : lo[r] < t.y;
+        const bool lgt = u ? static_cast<uint32_t>(lo[r]) >
+                                 static_cast<uint32_t>(t.y)
+                           : lo[r] > t.y;
+        const bool lt = a[r] < t.x || (a[r] == t.x && llt);
+        const bool gt = a[r] > t.x || (a[r] == t.x && lgt);
+        const uint32_t v = (tt >> (2 * lt + gt)) & 1u;
+        vm |= (v & bit(byte_at(ok, r))) << r;
+      }
+      break;
+    }
+    case kPairF64: {
+      int32_t lo[kRows];
+      load_words(s.a, row0, full, n, a);
+      load_words(s.b, row0, full, n, lo);
+      load_bytes(s.valid, row0, full, n, ok);
+      const uint32_t tt = truth(ins.w);
+      const float vh = __int_as_float(t.x), vl = __int_as_float(t.y);
+      uint32_t eq = 0;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float hi = __int_as_float(a[r]), l = __int_as_float(lo[r]);
+        const uint32_t good = byte_at(ok, r);
+        const bool lt = hi < vh || (hi == vh && l < vl);
+        const bool gt = hi > vh || (hi == vh && l > vl);
+        vm |= (((tt >> (2 * lt + gt)) & 1u) & good) << r;
+        eq |= (bit(hi == vh && l == vl) & good) << r;
+      }
+      *band |= eq;
+      break;
+    }
+    case kBool:
+      load_bytes(s.a, row0, full, n, ok);
+      {
+        uint32_t valid[kRows / 4];
+        load_bytes(s.valid, row0, full, n, valid);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          vm |= ((static_cast<uint32_t>(ins.z) >> (byte_at(ok, r) ? 1 : 0)) &
+                 bit(byte_at(valid, r)) & 1u) << r;
+      }
+      break;
+    default: {  // the string codes
+      load_words(s.a, row0, full, n, a);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int32_t c = a[r];
+        bool v;
+        switch (ins.x) {
+          case kStrEq: v = c == ins.z && c >= 0; break;
+          case kStrNe: v = c != ins.z && c >= 0; break;
+          case kStrLt: v = c < ins.z && c >= 0; break;
+          case kStrGe: v = c >= ins.z; break;
+          default:  // kVocab
+            v = c >= 0 && c < ins.w && tbl[ins.z + c] != 0;
+        }
+        vm |= bit(v) << r;
+      }
+    }
+  }
+  return vm;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    residual_mask_kernel(const Program p, int len, int64_t n,
+                         uint8_t* __restrict__ out) {
+  extern __shared__ uint16_t stk[];  // levels below the top: [level][thread]
+  const int64_t row0 =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kRows;
+  if (row0 >= n) return;
+  const bool full = row0 + kRows <= n;
+  uint32_t top = 0, band = 0;
+  int h = 0;  // stack height, the same in every thread
+  for (int pc = 0; pc < len; ++pc) {
+    const int4 ins = __ldg(p.code + pc);
+    uint32_t vm;
+    switch (ins.x) {
+      case kTrue: vm = (1u << kRows) - 1u; break;
+      case kFalse: vm = 0; break;
+      case kAnd:
+      case kOr: {
+        --h;
+        const uint32_t below = stk[(h - 1) * kThreads + threadIdx.x];
+        top = ins.x == kAnd ? top & below : top | below;
+        continue;
+      }
+      case kNot: top ^= (1u << kRows) - 1u; continue;
+      default: {
+        const Slot s = p.slots[ins.y];
+        const bool pair = ins.x == kPairI64 || ins.x == kPairDate ||
+                          ins.x == kPairF64;
+        int2 t = make_int2(0, 0);
+        if (pair) t = __ldg(p.consts + ins.z);
+        vm = leaf(ins, s, t, p.table, row0, full, n, &band);
+      }
+    }
+    if (h > 0) stk[(h - 1) * kThreads + threadIdx.x] = static_cast<uint16_t>(top);
+    top = vm;
+    ++h;
+  }
+  uint32_t o[kRows / 4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    o[r / 4] |= (((top >> r) & 1u) | (((band >> r) & 1u) << 1)) << (8 * (r % 4));
+  if (full) {
+    *reinterpret_cast<int4*>(out + row0) = make_int4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (row0 + r < n) out[row0 + r] = (o[r / 4] >> (8 * (r % 4))) & 0xffu;
   }
 }
 
@@ -187,21 +317,25 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// out[i] = verdict | band << 1 for rows i < n of the program code (len
-// instructions, int4 each), with thresholds consts (int2 each), the vocab
-// tables and the slot table (three device pointers per slot). Requires
-// n > 0 and len > 0.
-int geomesa_residual_mask(const int32_t* code, int len, const int32_t* consts,
-                          const uint8_t* table, const int64_t* slots,
-                          int64_t n, uint8_t* out, void* stream) {
-  if (n < 1 || len < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
-  residual_mask_kernel<<<blocks, kThreads, 0,
+// out[i] = verdict | band << 1 for rows i < n (out 16-byte aligned) of a
+// program of len instructions needing a stack of depth (1..64) bits:
+// code (int4 each), consts (int2 each), slots (three device pointers
+// each) and table in device memory. Requires n > 0 and len > 0.
+int geomesa_residual_mask(const int32_t* code, const int32_t* consts,
+                          const int64_t* slots, const uint8_t* table, int len,
+                          int depth, int64_t n, uint8_t* out, void* stream) {
+  const int64_t groups = (n + kRows - 1) / kRows;
+  const int64_t blocks = (groups + kThreads - 1) / kThreads;
+  if (n < 1 || len < 1 || depth < 1 || depth > 64 || blocks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Program p{reinterpret_cast<const int4*>(code),
+                  reinterpret_cast<const int2*>(consts),
+                  reinterpret_cast<const Slot*>(slots), table};
+  const size_t smem = static_cast<size_t>(depth - 1) * kThreads *
+                      sizeof(uint16_t);
+  residual_mask_kernel<<<static_cast<int>(blocks), kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const int4*>(code), len,
-      reinterpret_cast<const int2*>(consts), table,
-      reinterpret_cast<const Slot*>(slots), n, out);
+      p, len, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,12 +21,15 @@ notes at their heads for what they replace and what bounds them):
   parity and the EDGE_EPS band, as bool[n] each (``scan/gscan.py``);
 - ``residual_mask``: a compiled attribute-filter program over split
   device columns, one byte per row (bit 0 the verdict, bit 1 the f64
-  band; ``scan/residual.py`` compiles the program).
+  band; ``scan/residual.py`` compiles the program, which the caller
+  passes as host data and the wrapper uploads once per program and
+  column set).
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
-on the CPU (the tests' device). On CUDA tensors it launches its kernel
-or raises; it never falls back. ``launches`` counts kernel launches per
-wrapper, so a run can show that its main path went through them.
+on the CPU (the tests' device; for ``residual_mask``, its columns). On
+CUDA tensors it launches its kernel or raises; it never falls back.
+``launches`` counts kernel launches per wrapper, so a run can show that
+its main path went through them.
 
 The kernels build at first use with ``nvcc`` into ``_build/`` beside
 this package (one ``nvcc`` per source, started together, then one
@@ -52,6 +55,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "scan_count", "scan_batch_bits", "compact_bits",
            "scan_mask_plain", "scan_mask_gather_plain", "scan_count_plain",
@@ -59,8 +64,9 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "compact_prefix_plain", "batch_shape", "unpack_bits",
            "build_library", "BuildInfo", "MAX_TABLE_BYTES",
            "BATCH_ROWS_PER_BLOCK", "BATCH_MAX_GROUP", "pip_mask",
-           "pip_mask_plain", "residual_mask", "residual_mask_plain",
-           "slot_table", "Op", "Cmp"]
+           "pip_mask_plain", "pip_pairs_plain", "pip_edge_terms_plain",
+           "pip_skip_plain", "residual_mask", "residual_mask_plain",
+           "residual_launcher", "residual_depth", "Op", "Cmp"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
@@ -311,7 +317,8 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_batch_smem_bytes.restype = ctypes.c_longlong
             lib.geomesa_pip_mask.argtypes = [p, p, i64, p, i64,
                                              ctypes.c_float, p, p, p]
-            lib.geomesa_residual_mask.argtypes = [p, i32, p, p, p, i64, p, p]
+            lib.geomesa_residual_mask.argtypes = [p, p, p, p, i32, i32, i64,
+                                                  p, p]
             lib.geomesa_residual_codes.argtypes = [p, i32]
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
@@ -621,36 +628,79 @@ def compact_bits(bits, partials):
 _PIP_PLAIN_ELEMS = 1 << 24
 
 
-def pip_mask_plain(px, py, edges, eps2: float):
-    """(inside, band) bool[n]: a port of gscan._pip_kernel in torch ops,
-    one elementwise op per step in the JAX body's order (so no multiply
-    and add contract), over chunks of points against every edge."""
-    n, e = px.shape[0], edges.shape[0]
-    inside = torch.zeros(n, dtype=torch.bool, device=px.device)
-    band = torch.zeros(n, dtype=torch.bool, device=px.device)
-    if e == 0:
-        return inside, band
+def pip_pairs_plain(px, py, edges):
+    """(cross, d2), each (n, E): per (point, edge) pair the crossing bit
+    ``cond & (px < xint)`` and the squared distance to the edge at the
+    clamped projection; one elementwise op per step in the JAX body's
+    order (so no multiply and add contract)."""
     x0, y0, x1, y1 = (edges[:, k] for k in range(4))
     ex = x1 - x0
     ey = y1 - y0
     len2 = ex * ex + ey * ey
     len2 = torch.where(len2 == 0, torch.ones_like(len2), len2)
     dy = torch.where(y1 == y0, torch.full_like(ey, 1e-30), ey)
+    pxc, pyc = px[:, None], py[:, None]
+    cond = (y0 > pyc) != (y1 > pyc)
+    xint = x0 + ((pyc - y0) * ex) / dy
+    cross = cond & (pxc < xint)
+    t = (((pxc - x0) * ex + (pyc - y0) * ey) / len2).clamp(0.0, 1.0)
+    dx = pxc - (x0 + t * ex)
+    dyv = pyc - (y0 + t * ey)
+    return cross, dx * dx + dyv * dyv
+
+
+def pip_mask_plain(px, py, edges, eps2: float):
+    """(inside, band) bool[n]: a port of gscan._pip_kernel in torch ops
+    (``pip_pairs_plain``), over chunks of points against every edge."""
+    n, e = px.shape[0], edges.shape[0]
+    inside = torch.zeros(n, dtype=torch.bool, device=px.device)
+    band = torch.zeros(n, dtype=torch.bool, device=px.device)
+    if e == 0:
+        return inside, band
     eps = torch.tensor(eps2, dtype=torch.float32, device=px.device)
     step = max(1, _PIP_PLAIN_ELEMS // e)
     for lo in range(0, n, step):
-        pxc = px[lo:lo + step, None]
-        pyc = py[lo:lo + step, None]
-        cond = (y0 > pyc) != (y1 > pyc)
-        xint = x0 + ((pyc - y0) * ex) / dy
-        cross = cond & (pxc < xint)
+        cross, d2 = pip_pairs_plain(px[lo:lo + step], py[lo:lo + step], edges)
         inside[lo:lo + step] = (cross.sum(dim=1) % 2) == 1
-        t = (((pxc - x0) * ex + (pyc - y0) * ey) / len2).clamp(0.0, 1.0)
-        dx = pxc - (x0 + t * ex)
-        dyv = pyc - (y0 + t * ey)
-        d2 = dx * dx + dyv * dyv
         band[lo:lo + step] = d2.min(dim=1).values < eps
     return inside, band
+
+
+# csrc/geom.cu's skip: points and edges beyond 2^60 never skip, and the
+# margin is r + 2^-19 * max |coordinate| of the edge
+_PIP_TAME = float(2.0**60)
+_PIP_ULPS = float(2.0**-19)
+
+
+def pip_edge_terms_plain(edges, eps2: float):
+    """(lox, hix, loy, hiy) f32 [E]: each edge's box expanded by the
+    kernel's margin M = r + 2^-19 * A, with r = fl(sqrt(eps2)) * (1 +
+    2^-8) and A the largest |coordinate| of the edge, each step rounded
+    to nearest as csrc/geom.cu's prologue computes it; NaN (no skip)
+    for an edge with a coordinate that is NaN or beyond 2^60."""
+    x0, y0, x1, y1 = (edges[:, k] for k in range(4))
+    r = np.float32(np.sqrt(np.float32(eps2))) * np.float32(1.00390625)
+    mag = edges.abs()
+    tame = (mag <= _PIP_TAME).all(dim=1)
+    m = torch.where(tame, float(r) + mag.max(dim=1).values * _PIP_ULPS,
+                    torch.full_like(x0, float("nan")))
+    return (torch.minimum(x0, x1) - m, torch.maximum(x0, x1) + m,
+            torch.minimum(y0, y1) - m, torch.maximum(y0, y1) + m)
+
+
+def pip_skip_plain(px, py, edges, eps2: float):
+    """(skip, cross), each (n, E): the pairs the kernel skips (a point
+    with |px|, |py| <= 2^60 outside the edge's expanded box) and the
+    division-free crossing it takes for them, ``cond & (px < lox)``."""
+    lox, hix, loy, hiy = pip_edge_terms_plain(edges, eps2)
+    tame = (px.abs() <= _PIP_TAME) & (py.abs() <= _PIP_TAME)
+    sx = torch.where(tame, px, float("nan"))[:, None]
+    sy = torch.where(tame, py, float("nan"))[:, None]
+    skip = (sx < lox) | (sx > hix) | (sy < loy) | (sy > hiy)
+    y0, y1 = edges[:, 1], edges[:, 3]
+    pyc = py[:, None]
+    cond = (y0 > pyc) != (y1 > pyc)
+    return skip, cond & (px[:, None] < lox)
 
 
 def pip_mask(px, py, edges, eps2: float):
@@ -714,14 +764,44 @@ def _pick(cmp: int, lt, gt):
     return (lt, gt, ~gt, ~lt, ~lt & ~gt, lt | gt)[cmp]
 
 
-def residual_mask_plain(code, consts, table, slots, n: int):
+def residual_depth(code, n_consts: int, n_table: int, n_slots: int) -> int:
+    """The stack depth the program ``code`` needs (1..64), after checking
+    that it is well formed: known opcodes, a stack that never runs empty
+    and ends with one value, and every slot, threshold and vocab range
+    inside its table. Raises ValueError otherwise."""
+    height = depth = 0
+    for op, slot, a, b in code.tolist():
+        if not Op.TRUE <= op <= Op.VOCAB:
+            raise ValueError(f"unknown residual opcode {op}")
+        height += -1 if op in (Op.AND, Op.OR) else 0 if op == Op.NOT else 1
+        if height < 1:
+            raise ValueError("the residual program pops an empty stack")
+        depth = max(depth, height)
+        if op >= Op.VALID and not 0 <= slot < n_slots:
+            raise ValueError("a residual instruction names a slot it lacks")
+        if Op.PAIR_I64 <= op <= Op.PAIR_F64 and not 0 <= a < n_consts:
+            raise ValueError("a residual compare names a threshold it lacks")
+        if op == Op.VOCAB and (a < 0 or b < 0 or a + b > n_table):
+            raise ValueError("a vocab range runs past the residual's table")
+    if height != 1:
+        raise ValueError("the residual program does not leave exactly one "
+                         "value on its stack")
+    if depth > 64:
+        raise ValueError(f"the residual program needs a stack of {depth}; "
+                         f"the kernel holds 64")
+    return depth
+
+
+def residual_mask_plain(code, consts, table, slots, n: int, device=None):
     """uint8[n]: the residual program evaluated with torch ops over whole
-    columns, one step per instruction. The i64 low words hold unsigned
+    columns, one step per instruction, on the columns' device (``device``
+    when the program reads no column; None means CUDA). The i64 low words hold unsigned
     bits; they compare with the sign bit flipped, which orders them as
     signed int32 (torch on the CPU has no unsigned 32-bit compares)."""
     stack: list = []
     band = None
-    dev = table.device
+    dev = next((t.device for s in slots for t in s if t is not None), None)
+    dev = resolve_device(device) if dev is None else dev
     cst = consts.cpu().numpy()
     tbl = table.cpu().numpy()
     for op, slot, a, b in code.cpu().tolist():
@@ -788,20 +868,66 @@ def residual_mask_plain(code, consts, table, slots, n: int):
     return out
 
 
-def slot_table(slots, device) -> torch.Tensor:
-    """The residual kernel's (S, 3) int64 table of the slots' device
-    pointers (0 where a slot has no such column), on ``device``."""
-    return torch.tensor([[0 if t is None else t.data_ptr() for t in s]
-                         for s in slots] or [[0, 0, 0]],
-                        dtype=torch.int64).to(device)
+def _host_array(t, dtype) -> np.ndarray:
+    return np.ascontiguousarray(t.numpy(), dtype=dtype)
 
 
-def residual_mask(code, consts, table, slots, n: int):
+# prepared launches kept by residual_mask, oldest dropped first
+_RESIDUAL_LAUNCHES = 256
+_residual_launches: dict = {}
+
+
+class _ResidualLaunch:
+    """A prepared launch of the residual kernel: the program uploaded
+    once, here; ``launch(n, out)`` runs it over rows < n into ``out``
+    (uint8, 16-byte aligned), without checks or a launch count (the
+    wrapper's job)."""
+
+    def __init__(self, code, consts, table, slots, device, depth: int):
+        c = _host_array(code, np.int32)
+        k = _host_array(consts, np.int32)
+        tb = _host_array(table, np.uint8)
+        ptrs = np.array([[0 if t is None else t.data_ptr() for t in s]
+                         for s in slots] or [[0, 0, 0]], dtype=np.uint64)
+        self.lib = _library()
+        self.len, self.depth = c.shape[0], depth
+        # code, consts, slot pointers and table, each 16-byte aligned in
+        # one buffer
+        parts = [c.view(np.uint8).ravel(), k.view(np.uint8).ravel(),
+                 ptrs.view(np.uint8).ravel(), tb]
+        offs = np.cumsum([0] + [-(-a.nbytes // 16) * 16 for a in parts])
+        buf = np.zeros(int(offs[-1]) + 16, dtype=np.uint8)
+        for o, a in zip(offs, parts):
+            buf[o:o + a.nbytes] = a
+        self.keep = torch.from_numpy(buf).to(device)
+        base = self.keep.data_ptr()
+        self.args = tuple(base + int(o) for o in offs[:4])
+
+    def __call__(self, n: int, out):
+        rc = self.lib.geomesa_residual_mask(
+            *self.args, self.len, self.depth, n, out.data_ptr(),
+            torch.cuda.current_stream(out.device).cuda_stream)
+        _raise_on(rc, "residual_mask")
+
+
+def residual_launcher(code, consts, table, slots, device) -> _ResidualLaunch:
+    """The residual kernel's launch of this program over these slots,
+    prepared once (for timing the kernel apart from its wrapper)."""
+    depth = residual_depth(code, consts.shape[0], table.shape[0], len(slots))
+    return _ResidualLaunch(code, consts, table, slots, device, depth)
+
+
+def residual_mask(code, consts, table, slots, n: int, device=None):
     """uint8[n] on the columns' device: bit 0 the program's verdict per
-    row, bit 1 the f64 band. ``code`` (L, 4) int32 instructions,
-    ``consts`` (T, 2) int32 thresholds, ``table`` uint8 vocab tables
-    (csrc/residual.cu's layout); ``slots`` one (a, b, valid) tensor
-    triple per column slot, None where a slot has no such column."""
+    row, bit 1 the f64 band. The program is host data, CPU tensors:
+    ``code`` (L, 4) int32 instructions, ``consts`` (T, 2) int32
+    thresholds, ``table`` uint8 vocab tables (csrc/residual.cu's layout);
+    ``slots`` one (a, b, valid) tensor triple per column slot, None where
+    a slot has no such column, all on one device (``device`` when the
+    program reads no column; None means CUDA, as for every entry point).
+    On CPU columns the plain version runs; on CUDA columns the kernel,
+    the program uploaded in one copy the first time it runs over these
+    columns."""
     if (code.dtype != torch.int32 or code.dim() != 2 or code.shape[1] != 4
             or code.shape[0] < 1 or not code.is_contiguous()):
         raise ValueError("code must be a contiguous (L>=1, 4) int32 table")
@@ -810,24 +936,41 @@ def residual_mask(code, consts, table, slots, n: int):
         raise ValueError("consts must be a contiguous (T, 2) int32 table")
     if table.dtype != torch.uint8 or table.dim() != 1:
         raise ValueError("table must be a 1-d uint8 tensor")
+    if any(t.device.type != "cpu" for t in (code, consts, table)):
+        raise ValueError("the residual program (code, consts, table) is host "
+                         "data: pass CPU tensors")
     cols = [t for s in slots for t in s if t is not None]
     for t in cols:
         if t.dim() != 1 or t.shape[0] < n or not t.is_contiguous():
             raise ValueError(f"slot columns must be contiguous 1-d tensors "
                              f"of at least {n} rows")
-    if _on_cpu(cols, code, consts, table):
-        return residual_mask_plain(code, consts, table, slots, n)
-    dev = code.device
+    devs = {t.device for t in cols}
+    if len(devs) > 1:
+        raise ValueError(f"residual columns on several devices: {devs}")
+    dev = devs.pop() if devs else resolve_device(device)
+    if dev.type == "cpu":
+        residual_depth(code, consts.shape[0], table.shape[0], len(slots))
+        return residual_mask_plain(code, consts, table, slots, n, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"the residual kernel runs on CUDA or CPU, not {dev}")
+    if any(t.data_ptr() % 16 for t in cols):
+        raise ValueError("the residual kernel reads columns as 16-byte "
+                         "vectors: every column must be 16-byte aligned")
     out = torch.empty(n, dtype=torch.uint8, device=dev)
     if n == 0:
         return out
-    if code.data_ptr() % 16 or consts.data_ptr() % 8:
-        raise ValueError("code must be 16-byte and consts 8-byte aligned")
-    ptrs = slot_table(slots, dev)
-    rc = _library().geomesa_residual_mask(
-        code.data_ptr(), code.shape[0], consts.data_ptr(), table.data_ptr(),
-        ptrs.data_ptr(), n, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "residual_mask")
+    # a prepared launch per program (by content) and slot pointers, so a
+    # repeated call does no host work beyond this lookup
+    key = (code.numpy().tobytes(), consts.numpy().tobytes(),
+           table.numpy().tobytes(), dev,
+           tuple(0 if t is None else t.data_ptr() for s in slots for t in s))
+    launch = _residual_launches.get(key)
+    if launch is None:
+        launch = residual_launcher(code, consts, table, slots, dev)
+        with _lock:
+            if len(_residual_launches) >= _RESIDUAL_LAUNCHES:
+                _residual_launches.pop(next(iter(_residual_launches)))
+            _residual_launches[key] = launch
+    launch(n, out)
     launches["residual_mask"] += 1
     return out

@@ -47,7 +47,7 @@ from .zscan import MILLIS_PER_DAY
 __all__ = ["DeviceColumns", "Program", "compile_program", "device_mask",
            "device_columns_from_numpy", "is_compilable"]
 
-# the kernel's bit stack is one 64-bit register
+# the residual kernel's bit stack holds at most 64 levels
 MAX_STACK = 64
 
 _CMP = {ast.CompareOp.LT: Cmp.LT, ast.CompareOp.GT: Cmp.GT,
@@ -56,9 +56,16 @@ _CMP = {ast.CompareOp.LT: Cmp.LT, ast.CompareOp.GT: Cmp.GT,
 
 
 def _split_f64(v):
+    """(f32 hi, f32 residual lo). ±inf splits as (±inf, 0): its residual
+    inf - inf would be NaN, which no compare orders. A finite value past
+    the f32 range keeps (±inf, ∓inf), which orders it below +inf (above
+    -inf) and shares its key with every such value, so the band decides
+    it in float64."""
     v = np.asarray(v, dtype=np.float64)
-    hi = v.astype(np.float32)
-    lo = (v - hi.astype(np.float64)).astype(np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        hi = v.astype(np.float32)
+        lo = (v - hi.astype(np.float64)).astype(np.float32)
+    lo = np.where(np.isinf(v), np.float32(0), lo)
     return hi, lo
 
 
@@ -185,12 +192,11 @@ class Program:
 
     def run(self, cols: DeviceColumns, n: int) -> torch.Tensor:
         """The residual kernel's uint8[n] over ``cols`` (its plain
-        version on CPU columns)."""
-        def put(a):
-            return torch.from_numpy(a).to(cols.device)
+        version on CPU columns); the program itself stays on the host."""
         return kernels.residual_mask(
-            put(self.code), put(self.consts), put(self.table),
-            [cols.get(name)["slot"] for name in self.slots], n)
+            torch.from_numpy(self.code), torch.from_numpy(self.consts),
+            torch.from_numpy(self.table),
+            [cols.get(name)["slot"] for name in self.slots], n, cols.device)
 
 
 class _Compiler:

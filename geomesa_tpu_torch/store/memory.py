@@ -9,7 +9,8 @@
                     dense        scan kernel over every row
                     -> exact f64 boundary patch of the kernel tiers
                     -> the exact geometry of a polygon predicate (the
-                       point-in-polygon kernel for large candidate sets)
+                       point-in-polygon kernel on every candidate set,
+                       then float64 on its band rows)
                  -> id: the fid set; attr: the sorted attribute index, or
                     the residual kernel when its bounds are too wide;
                     fullscan: every row

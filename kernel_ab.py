@@ -2,7 +2,8 @@
 """Time the port's kernels in several checkouts by one method.
 
     python3 kernel_ab.py [--seed 0] [--rows 100000000]
-                         [--store-rows 10000000] TREE [TREE ...]
+                         [--store-rows 10000000] [--predicates-only]
+                         TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repo (a ``git archive`` of a
 commit unpacked into a git-ignored directory will do). The trees run
@@ -50,7 +51,13 @@ compares two versions within one call. Each process:
   program compiled by the tree's own ``compile_program`` over its own
   ``DeviceColumns`` of the phase's store data (--store-rows rows from
   chip_smoke.py's ``predicate_data``). Every result is checked against
-  the tree's plain version.
+  the tree's plain version. A tree whose wrapper takes the program on
+  the host is timed alone through its ``residual_launcher`` (the launch
+  prepared once); an earlier tree's with its pointer table built once.
+  Both it and the wrapper are timed held and on an idle card ("bare",
+  the host's work included), and a wrapper that keeps prepared launches
+  also cold (its cache cleared before each call).
+  ``--predicates-only`` times these and nothing else.
 
 Medians of 20 launches (CUDA events; 10 for the batched kernels). Every
 gathered and batched result is checked against its plain version.
@@ -61,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import statistics
@@ -367,35 +375,54 @@ def predicate_case(smoke, seed: int, rows: int) -> dict:
     cols = residual.DeviceColumns(batch, dev)
     lib = kernels._library()
     stream = torch.cuda.current_stream().cuda_stream
+    host_program = hasattr(kernels, "residual_launcher")
     for name, ecql in (("attributes", smoke.PRED_ATTR_FILTER),
                        ("band", smoke.PRED_BAND_FILTER)):
         prog = residual.compile_program(parse_ecql(ecql), batch, cols)
-        code, consts, table = (torch.from_numpy(a).to(dev)
-                               for a in (prog.code, prog.consts, prog.table))
+        # the program on the host (this tree's wrapper), or on the device
+        # (the earlier wrapper, which uploads a pointer table per call)
+        code, consts, table = (
+            torch.from_numpy(a).to("cpu" if host_program else dev)
+            for a in (prog.code, prog.consts, prog.table))
         slots = [cols.get(c)["slot"] for c in prog.slots]
         res = kernels.residual_mask(code, consts, table, slots, rows)
         if not torch.equal(res, kernels.residual_mask_plain(
                 code, consts, table, slots, rows)):
             raise SystemExit(f"residual_mask != plain ({name})")
-        ptrs = kernels.slot_table(slots, dev)
+        if host_program:
+            alone = functools.partial(kernels.residual_launcher(
+                code, consts, table, slots, dev), rows, res)
+        else:
+            ptrs = kernels.slot_table(slots, dev)
 
-        def alone(code=code, consts=consts, table=table, ptrs=ptrs):
-            rc = lib.geomesa_residual_mask(
-                code.data_ptr(), code.shape[0], consts.data_ptr(),
-                table.data_ptr(), ptrs.data_ptr(), rows, res.data_ptr(),
-                stream)
-            if rc:
-                raise RuntimeError(f"residual launch failed: cudaError {rc}")
-        out[f"residual_{name}"] = {
+            def alone(code=code, consts=consts, table=table, ptrs=ptrs):
+                rc = lib.geomesa_residual_mask(
+                    code.data_ptr(), code.shape[0], consts.data_ptr(),
+                    table.data_ptr(), ptrs.data_ptr(), rows, res.data_ptr(),
+                    stream)
+                if rc:
+                    raise RuntimeError(f"residual launch failed: "
+                                       f"cudaError {rc}")
+
+        def wrapper(code=code, consts=consts, table=table, slots=slots):
+            kernels.residual_mask(code, consts, table, slots, rows)
+        case = out[f"residual_{name}"] = {
             "instructions": int(code.shape[0]), "slots": len(slots),
             "kernel_ms": cuda_ms(alone, True, iters=10),
-            "wrapper_ms": cuda_ms(
-                lambda: kernels.residual_mask(code, consts, table, slots,
-                                              rows), True, iters=10)}
+            "wrapper_ms": cuda_ms(wrapper, True, iters=10),
+            "kernel_bare_ms": cuda_ms(alone, False, iters=10),
+            "wrapper_bare_ms": cuda_ms(wrapper, False, iters=10)}
+        cache = getattr(kernels, "_residual_launches", None)
+        if cache is not None:
+            # the launch prepared anew each call, as on a new filter or
+            # after a flush
+            case["wrapper_cold_ms"] = cuda_ms(wrapper, False, cache.clear,
+                                              iters=10)
     return out
 
 
-def worker(tree: str, seed: int, rows: int, store_rows: int) -> dict:
+def worker(tree: str, seed: int, rows: int, store_rows: int,
+           predicates_only: bool = False) -> dict:
     sys.path.insert(0, tree)
     import torch
     from geomesa_tpu_torch.index.zkeys import ZKeyIndex, search_rows
@@ -404,6 +431,9 @@ def worker(tree: str, seed: int, rows: int, store_rows: int) -> dict:
         raise SystemExit(f"imported {kernels.__file__}, not from {tree}")
     dev = torch.device("cuda")
     kernels.build_library()
+    if predicates_only:
+        return {"tree": tree, "predicates_10m": predicate_case(
+            _smoke(), seed, store_rows)}
     probe = build_probe()
     buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
@@ -500,11 +530,14 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--store-rows", type=int, default=10_000_000)
+    ap.add_argument("--predicates-only", action="store_true",
+                    help="time only the predicate kernels (predicates_10m)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         print(json.dumps(worker(args.worker, args.seed, args.rows,
-                                args.store_rows)), flush=True)
+                                args.store_rows, args.predicates_only)),
+              flush=True)
         return 0
     if not args.trees:
         ap.error("name at least one tree")
@@ -515,7 +548,8 @@ def main():
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
              os.path.abspath(tree), "--seed", str(args.seed), "--rows",
-             str(args.rows), "--store-rows", str(args.store_rows)],
+             str(args.rows), "--store-rows", str(args.store_rows),
+             *(["--predicates-only"] if args.predicates_only else [])],
             capture_output=True, text=True, cwd=ROOT)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)

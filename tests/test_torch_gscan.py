@@ -155,3 +155,105 @@ def test_empty_polygon_and_no_points():
     e = gscan.pack_polygon(parse_wkt(POLYGONS["star"]), "cpu").edges
     inside, band = kernels.pip_mask(px[:0], px[:0], e, gscan.EDGE_EPS2)
     assert inside.shape == band.shape == (0,)
+
+
+# -- the kernel's edge-box skip (csrc/geom.cu's note) ------------------------
+
+def _odd_edges():
+    """Edges the polygons above lack: horizontal and zero-length ones,
+    one spanning 360 degrees of longitude, tiny ones, and a star scaled
+    to |coordinates| near 1e6."""
+    odd = np.array([[-180.0, 10.0, 180.0, 10.5], [180.0, -3.0, -180.0, -3.0],
+                    [5.0, 5.0, 5.0, 5.0], [0.0, 0.0, 0.0, 0.0],
+                    [1e-3, 2e-3, 1.0001e-3, 2e-3],
+                    [-7.25, 1e-30, -7.25, -1e-30]], dtype=np.float32)
+    big = gscan.pack_polygon(parse_wkt(_star(-4.0e5, 6.0e5, 3.5e5, 1.2e5, 9)),
+                             "cpu").edges.numpy()
+    return np.vstack([odd, big])
+
+
+def _skip_points(edges, seed):
+    """Points on the edges' vertices and midpoints, on each side of each
+    expanded box at the margin and one ulp either way (beside the edge's
+    ends and middle across), seeded points around every edge, and NaN
+    and infinite points."""
+    lox, hix, loy, hiy = (t.numpy() for t in
+                          kernels.pip_edge_terms_plain(torch.from_numpy(edges),
+                                                       gscan.EDGE_EPS2))
+    x0, y0, x1, y1 = edges.T
+    xs, ys = [x0, x1, (x0 + x1) / 2], [y0, y1, (y0 + y1) / 2]
+    px, py = list(xs), list(ys)
+    for bound, inward in ((lox, np.inf), (hix, -np.inf)):
+        for at in (np.nextafter(bound, -inward), bound,
+                   np.nextafter(bound, inward)):
+            for y in ys:
+                px.append(at)
+                py.append(y)
+    for bound, inward in ((loy, np.inf), (hiy, -np.inf)):
+        for at in (np.nextafter(bound, -inward), bound,
+                   np.nextafter(bound, inward)):
+            for x in xs:
+                px.append(x)
+                py.append(at)
+    rng = np.random.default_rng(seed)
+    span = np.maximum(np.abs(edges).max(axis=1), 1.0) * 1e-3
+    for _ in range(4):
+        px.append(x0 + rng.uniform(-3, 3, len(x0)) * span)
+        py.append(y0 + rng.uniform(-3, 3, len(y0)) * span)
+    special = np.float32([np.nan, np.inf, -np.inf, 0.0, 3e38, 2.0**61])
+    sx, sy = np.meshgrid(special, special)
+    return (torch.from_numpy(np.concatenate(px + [sx.ravel()])
+                             .astype(np.float32)),
+            torch.from_numpy(np.concatenate(py + [sy.ravel()])
+                             .astype(np.float32)))
+
+
+@pytest.mark.parametrize("name", ["star", "holes", "multi", "odd"])
+def test_skipped_pairs_cannot_change_a_bit(name):
+    """On every (point, edge) pair the kernel skips, the plain d2 is at
+    least eps2 (and not NaN) and the division-free crossing equals
+    ``cond & (px < xint)``; so the kernel's walk (the skip's verdicts,
+    the full path elsewhere) gives pip_mask_plain's bits."""
+    if name == "odd":
+        edges = _odd_edges()
+    else:
+        edges = gscan.pack_polygon(parse_wkt(POLYGONS[name]),
+                                   "cpu").edges.numpy()
+    px, py = _skip_points(edges, seed=len(name))
+    e = torch.from_numpy(edges)
+    cross, d2 = kernels.pip_pairs_plain(px, py, e)
+    skip, cross_skip = kernels.pip_skip_plain(px, py, e, gscan.EDGE_EPS2)
+    eps2 = torch.tensor(gscan.EDGE_EPS2, dtype=torch.float32)
+    assert bool((d2[skip] >= eps2).all())
+    assert torch.equal(cross_skip[skip], cross[skip])
+    # the pairs at the margin: one ulp outside skips, the margin itself
+    # and one ulp inside do not; non-finite points never skip
+    assert skip.any() and (~skip).any()
+    finite = torch.isfinite(px) & torch.isfinite(py)
+    assert not skip[~finite].any()
+    inside = (torch.where(skip, cross_skip, cross).sum(dim=1) % 2) == 1
+    least = torch.where(skip, torch.tensor(float("inf")), d2).min(dim=1).values
+    want = kernels.pip_mask_plain(px, py, e, gscan.EDGE_EPS2)
+    assert torch.equal(inside, want[0])
+    assert torch.equal(least < eps2, want[1])
+    assert want[1].any()
+
+
+def test_margin_points_skip_one_ulp_outside():
+    """A point one ulp beyond an edge's expanded box (beside the edge)
+    is skipped; a point on the box or one ulp inside is not."""
+    edges = torch.tensor([[0.0, 0.0, 10.0, 4.0], [-3e5, 2e5, -2e5, 3e5]])
+    lox, hix, loy, hiy = kernels.pip_edge_terms_plain(edges, gscan.EDGE_EPS2)
+    for k in range(2):
+        ymid = float((edges[k, 1] + edges[k, 3]) / 2)
+        xs = torch.stack([torch.nextafter(lox[k], torch.tensor(-np.inf)),
+                          lox[k], torch.nextafter(lox[k], torch.tensor(np.inf)),
+                          torch.nextafter(hix[k], torch.tensor(np.inf)),
+                          hix[k]])
+        skip, _ = kernels.pip_skip_plain(xs, torch.full_like(xs, ymid),
+                                         edges[k:k + 1], gscan.EDGE_EPS2)
+        assert skip[:, 0].tolist() == [True, False, False, True, False]
+        # the margin exceeds EDGE_EPS by ulps of the edge's magnitude
+        m = float(edges[k, 0] if edges[k, 0] < edges[k, 2] else edges[k, 2]) \
+            - float(lox[k])
+        assert gscan.EDGE_EPS < m < gscan.EDGE_EPS * 1.01 + 2e-6 * 3e5

@@ -547,7 +547,7 @@ RESIDUAL_FILTERS = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 255, 257, 1_000_003])
+@pytest.mark.parametrize("n", [1, 15, 17, 255, 257, 1_000_003])
 def test_residual_kernel_matches_plain(cuda, n):
     """Every leaf kind and the band bit, byte for byte against the plain
     version on the same device columns."""
@@ -603,11 +603,17 @@ def test_predicate_wrappers_raise_on_cuda(cuda):
     batch = _attr_batch(100)
     cols = residual.DeviceColumns(batch, cuda)
     prog = residual.compile_program(parse_ecql("age > 5"), batch, cols)
-    with pytest.raises(ValueError, match="devices"):
-        kernels.residual_mask(torch.from_numpy(prog.code),
-                              torch.from_numpy(prog.consts),
-                              torch.from_numpy(prog.table),
+    # the program is host data; the columns share one device
+    with pytest.raises(ValueError, match="host"):
+        kernels.residual_mask(*(torch.from_numpy(a).to(cuda) for a in
+                                (prog.code, prog.consts, prog.table)),
                               [cols.get("age")["slot"]], 100)
+    age = cols.get("age")["slot"]
+    with pytest.raises(ValueError, match="devices"):
+        kernels.residual_mask(
+            *(torch.from_numpy(a) for a in (prog.code, prog.consts,
+                                            prog.table)),
+            [(age[0], age[1].cpu(), age[2])], 100)
 
 
 @pytest.mark.gpu
@@ -634,3 +640,152 @@ def test_store_predicates_on_cuda_match_cpu(cuda):
             list(stores[1].query(q, "t").ids), q
     assert kernels.launches["pip_mask"] >= 3
     assert kernels.launches["residual_mask"] >= 3
+
+
+# -- the redesigned predicate kernels: edges of the skip, tails, limits -------
+
+def _adversarial_points(edges, n_random, seed):
+    """Points on every vertex and edge midpoint, one ulp either side of
+    each edge's expanded box (the kernel's skip margin) beside its ends
+    and middle, seeded ones around the edges, and NaN, infinite and huge
+    ones."""
+    lox, hix, loy, hiy = (t.numpy() for t in kernels.pip_edge_terms_plain(
+        torch.from_numpy(edges), gscan.EDGE_EPS2))
+    x0, y0, x1, y1 = edges.T
+    xs, ys = [x0, x1, (x0 + x1) / 2], [y0, y1, (y0 + y1) / 2]
+    px, py = list(xs), list(ys)
+    for lo, hi, along, other in ((lox, hix, px, py), (loy, hiy, py, px)):
+        for bound, inward in ((lo, np.inf), (hi, -np.inf)):
+            for at in (np.nextafter(bound, -inward), bound,
+                       np.nextafter(bound, inward)):
+                for c in (ys if along is px else xs):
+                    along.append(at)
+                    other.append(c)
+    rng = np.random.default_rng(seed)
+    scale = np.abs(edges).max()
+    px.append(rng.uniform(-1, 1, n_random) * scale)
+    py.append(rng.uniform(-1, 1, n_random) * scale)
+    special = np.float32([np.nan, np.inf, -np.inf, 0.0, 3e38, 2.0**61])
+    sx, sy = np.meshgrid(special, special)
+    px.append(sx.ravel())
+    py.append(sy.ravel())
+    return (np.concatenate(px).astype(np.float32),
+            np.concatenate(py).astype(np.float32))
+
+
+ODD_EDGES = np.array([[-180.0, 10.0, 180.0, 10.5], [180.0, -3.0, -180.0, -3.0],
+                      [5.0, 5.0, 5.0, 5.0], [0.0, 0.0, 0.0, 0.0],
+                      [1e-3, 2e-3, 1.0001e-3, 2e-3],
+                      [-7.25, 1e-30, -7.25, -1e-30],
+                      [-9.0e5, 4.0e5, 1.0e6, -6.0e5]], dtype=np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wkt", [STAR, HOLED, MULTI, "odd", "5000"])
+def test_pip_kernel_skip_margins_match_plain(cuda, wkt):
+    """inside and band bit for bit against the plain version on points at
+    the skip's margins, NaN, ±inf and huge points, horizontal,
+    zero-length, 360-degree and 1e6-scale edges, and 5,000 edges (ten
+    shared tiles); every n from 1 to past the points of one block, none
+    a multiple of the points per thread."""
+    if wkt == "odd":
+        edges = ODD_EDGES
+    elif wkt == "5000":
+        edges = gscan.pack_polygon(parse_wkt(_star(1.0, 2.0, 80, 35, 2500)),
+                                   "cpu").edges.numpy()
+    else:
+        edges = gscan.pack_polygon(parse_wkt(wkt), "cpu").edges.numpy()
+    px, py = _adversarial_points(edges, 20_000, seed=len(edges))
+    e = torch.from_numpy(edges).to(cuda)
+    for n in (1, 3, 1023, 1025, 4097, len(px)):
+        x = torch.from_numpy(px[-n:].copy()).to(cuda)
+        y = torch.from_numpy(py[-n:].copy()).to(cuda)
+        got = kernels.pip_mask(x, y, e, gscan.EDGE_EPS2)
+        want = kernels.pip_mask_plain(x, y, e, gscan.EDGE_EPS2)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), n
+
+
+INF_SPEC = "v:Double,w:Float,dtg:Date,*geom:Point:srid=4326"
+INF_FILTERS = ["v = 1e300", "v > 1e299", "v > 1e308", "v < -1e308",
+               "w > 3.5e38", "w < -3.5e38", "v = 1e309", "v < 1e309",
+               "v >= 1e309", "v <> 1e309", "v > -1e309", "v <= -1e309",
+               "w = 1e309", "v IN (1e309, -1e309, 1e300)"]
+
+
+def _inf_batch(n):
+    rng = np.random.default_rng(9)
+    v = rng.uniform(-1e3, 1e3, n)
+    v[::7], v[1::7] = np.inf, -np.inf
+    v[2::11] = np.nan
+    v[3::13], v[4::13] = 1e300, -1e300
+    v[5::17], v[6::17] = 1e308, 3.5e38
+    w = np.round(rng.uniform(-2, 2, n), 2)
+    w[::5], w[1::9] = np.inf, -np.inf
+    w[2::11] = np.nan
+    w[3::7], w[4::7] = 3.6e38, -3.6e38
+    return FeatureBatch.from_dict(parse_spec("t", INF_SPEC),
+                                  [f"f{i}" for i in range(n)], {
+        "v": v, "w": w,
+        "dtg": 1_609_459_200_000 + rng.integers(0, 10**9, n),
+        "geom": (rng.uniform(-180, 180, n), rng.uniform(-90, 90, n))})
+
+
+@pytest.mark.gpu
+def test_residual_infinities_on_cuda(cuda):
+    """±inf, NaN and values past the f32 range: the kernel equals its
+    plain version byte for byte, and the store on the card returns the
+    host evaluator's ids (the ±inf repair)."""
+    from geomesa_tpu_torch.filters import evaluate
+    batch = _inf_batch(20_011)
+    cols = residual.DeviceColumns(batch, cuda)
+    ds = InMemoryDataStore()
+    ds.create_schema("t", INF_SPEC)
+    ds.write("t", FeatureBatch(ds.get_schema("t"), batch.ids, batch.columns))
+    for ecql in INF_FILTERS:
+        f = parse_ecql(ecql)
+        prog = residual.compile_program(f, batch, cols)
+        got = prog.run(cols, batch.n)
+        want = kernels.residual_mask_plain(
+            *(torch.from_numpy(a) for a in (prog.code, prog.consts,
+                                            prog.table)),
+            [cols.get(name)["slot"] for name in prog.slots], batch.n)
+        assert torch.equal(got, want), ecql
+        truth = evaluate(f, batch)
+        assert np.array_equal(residual.device_mask(f, batch, cols), truth)
+        assert np.array_equal(ds.query(ecql, "t").rows,
+                              np.flatnonzero(truth)), ecql
+
+
+@pytest.mark.gpu
+def test_residual_long_programs_match_plain(cuda):
+    """Long programs (an IN of 48 values, 33 thresholds, ten vocab
+    tables) and a short one run from device memory, byte for byte as
+    the plain version."""
+    n = 100_003
+    batch = _attr_batch(n)
+    cols = residual.DeviceColumns(batch, cuda)
+    long_in = "age IN (" + ", ".join(str(i) for i in range(48)) + ")"
+    many = " OR ".join(f"score = 0.{i:03d}" for i in range(33))
+    tables = " OR ".join(f"name LIKE 'w{i}%'" for i in range(10))
+    for ecql in ("age > 5 AND name LIKE 'w0%'", long_in, many, tables):
+        prog = residual.compile_program(parse_ecql(ecql), batch, cols)
+        args = [torch.from_numpy(a) for a in (prog.code, prog.consts,
+                                              prog.table)]
+        slots = [cols.get(name)["slot"] for name in prog.slots]
+        got = kernels.residual_mask(*args, slots, n)
+        assert torch.equal(got, kernels.residual_mask_plain(*args, slots, n))
+
+
+@pytest.mark.gpu
+def test_residual_refuses_misaligned_columns(cuda):
+    """The kernel reads 16-byte vectors: a column view that is not
+    16-byte aligned raises; it does not fall back."""
+    batch = _attr_batch(1_000)
+    cols = residual.DeviceColumns(batch, cuda)
+    prog = residual.compile_program(parse_ecql("age > 5"), batch, cols)
+    hi, lo, valid = cols.get("age")["slot"]
+    shifted = (hi[1:], lo[1:], valid[1:])
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.residual_mask(*(torch.from_numpy(a) for a in
+                                (prog.code, prog.consts, prog.table)),
+                              [shifted], 999)

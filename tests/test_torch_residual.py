@@ -21,9 +21,11 @@ from geomesa_tpu.features import parse_spec as jax_parse_spec
 from geomesa_tpu.filters import evaluate as jax_evaluate
 from geomesa_tpu.filters import parse_ecql as jax_parse_ecql
 from geomesa_tpu.scan import residual as jax_residual
+from geomesa_tpu_torch import InMemoryDataStore
 from geomesa_tpu_torch.features import FeatureBatch, parse_spec
 from geomesa_tpu_torch.filters import ast, evaluate, parse_ecql
 from geomesa_tpu_torch.scan import kernels, residual
+from geomesa_tpu_torch.scan.kernels import Op
 
 SPEC = ("name:String,age:Integer,score:Double,flag:Boolean,big:Long,"
         "dtg:Date,*geom:Point:srid=4326")
@@ -252,6 +254,43 @@ def test_wrapper_takes_plain_on_cpu_only(batches):
                               torch.from_numpy(prog.table), [slot], port.n)
 
 
+def test_program_without_columns_takes_the_named_device(monkeypatch):
+    """A program that reads no column runs on ``device``; None means
+    CUDA there, as for every entry point, and never the CPU."""
+    code = torch.tensor([[Op.TRUE, 0, 0, 0], [Op.NOT, 0, 0, 0],
+                         [Op.NOT, 0, 0, 0]], dtype=torch.int32)
+    consts = torch.zeros((0, 2), dtype=torch.int32)
+    table = torch.zeros(0, dtype=torch.uint8)
+    for fn in (kernels.residual_mask, kernels.residual_mask_plain):
+        got = fn(code, consts, table, [], 5, device="cpu")
+        assert got.device.type == "cpu"
+        assert got.tolist() == [1] * 5
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (kernels.residual_mask, kernels.residual_mask_plain):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(code, consts, table, [], 5)
+
+
+@pytest.mark.parametrize("code,match", [
+    ([[Op.AND, 0, 0, 0]], "empty"),
+    ([[Op.TRUE, 0, 0, 0], [Op.TRUE, 0, 0, 0]], "exactly one"),
+    ([[99, 0, 0, 0]], "opcode"),
+    ([[Op.VALID, 3, 0, 0]], "slot"),
+    ([[Op.PAIR_F64, 0, 5, 0]], "threshold"),
+    ([[Op.VOCAB, 0, 1, 40]], "vocab"),
+])
+def test_malformed_programs_raise(batches, code, match):
+    """The wrapper checks a program before either path runs it: the
+    kernel indexes its stack, slots, thresholds and tables by it."""
+    port, cols, _, _ = batches
+    slot = cols.get("age")["slot"]
+    with pytest.raises(ValueError, match=match):
+        kernels.residual_mask(torch.tensor(code, dtype=torch.int32),
+                              torch.zeros((1, 2), dtype=torch.int32),
+                              torch.zeros(40, dtype=torch.uint8), [slot],
+                              port.n)
+
+
 def test_spatial_and_fid_not_compilable(batches):
     port = batches[0]
     for ecql in ("BBOX(geom, 0, 0, 10, 10)", "IN ('f1')",
@@ -280,3 +319,88 @@ def test_opcodes_match_the_kernel_source():
              for name in re.findall(r"\bk(\w+)", table)]
     assert tuple(order) == kernels.RESIDUAL_CODES
     assert len(set(kernels.RESIDUAL_CODES[:16])) == 16
+
+
+# -- ±inf and values past the f32 range in Double and Float columns ---------
+
+INF_SPEC = "v:Double,w:Float,dtg:Date,*geom:Point:srid=4326"
+INF_N = 600
+BIG_LITERALS = ["v = 1e300", "v > 1e299", "v > 1e308", "v < -1e308",
+                "w > 3.5e38", "w < -3.5e38"]
+# 1e309 parses to float inf
+INF_LITERALS = ["v = 1e309", "v < 1e309", "v >= 1e309", "v <> 1e309",
+                "v > -1e309", "v <= -1e309", "w = 1e309", "w > -1e309",
+                "v BETWEEN 1e300 AND 1e309", "v IN (1e309, -1e309, 1e300)",
+                "NOT (v < 1e309) AND w < 1e309"]
+
+
+def _inf_data():
+    """INF_N seeded rows whose Double and Float columns hold +inf, -inf,
+    NaN (null), values past the f32 range and ordinary values."""
+    rng = np.random.default_rng(9)
+    v = rng.uniform(-1e3, 1e3, INF_N)
+    v[::7], v[1::7] = np.inf, -np.inf
+    v[2::11] = np.nan
+    v[3::13], v[4::13] = 1e300, -1e300
+    v[5::17], v[6::17] = 1e308, 3.5e38
+    w = np.round(rng.uniform(-2, 2, INF_N), 2)
+    w[::5], w[1::9] = np.inf, -np.inf
+    w[2::11] = np.nan
+    w[3::7], w[4::7] = 3.6e38, -3.6e38
+    return {"v": v, "w": w,
+            "dtg": _ms("2021-01-01") + rng.integers(0, 10**9, INF_N),
+            "geom": (rng.uniform(-180, 180, INF_N),
+                     rng.uniform(-90, 90, INF_N))}
+
+
+@pytest.fixture(scope="module")
+def inf_batches():
+    data = _inf_data()
+    ids = [f"f{i}" for i in range(INF_N)]
+    return (FeatureBatch.from_dict(parse_spec("t", INF_SPEC), ids, data),
+            JaxBatch.from_dict(jax_parse_spec("t", INF_SPEC), ids, data))
+
+
+@pytest.mark.parametrize("ecql", BIG_LITERALS + INF_LITERALS)
+def test_infinities_match_the_evaluator(inf_batches, ecql):
+    """The residual (its plain version here) and the store's fullscan
+    residual give the host evaluators' rows on ±inf, NaN and values past
+    the f32 range. The JAX package's device residual splits ±inf into
+    (±inf, NaN) and is wrong here, so both evaluators are the oracle."""
+    port, ref = inf_batches
+    f = parse_ecql(ecql)
+    want = jax_evaluate(jax_parse_ecql(ecql), ref)
+    assert np.array_equal(want, evaluate(f, port)), ecql
+    got = residual.device_mask(f, port, residual.DeviceColumns(port, "cpu"))
+    assert np.array_equal(got, want), ecql
+    ds = InMemoryDataStore(device="cpu")
+    ds.create_schema("t", INF_SPEC)
+    ds.write("t", FeatureBatch(ds.get_schema("t"), port.ids, port.columns))
+    res = ds.query(ecql, "t")
+    assert res.plan.index == "fullscan"
+    assert np.array_equal(res.rows, np.flatnonzero(want)), ecql
+    assert ds.query_count(ecql, "t") == int(want.sum())
+
+
+def test_infinities_split_and_band(inf_batches):
+    """±inf splits as (±inf, 0), so it orders against every finite key
+    without the band; a finite value past the f32 range keeps the key
+    (±inf, ∓inf) that every such value and literal shares, so it lands
+    in the band and the float64 recheck decides it."""
+    port, _ = inf_batches
+    hi, lo = residual._split_f64(np.array([np.inf, -np.inf, 1e300, -1e300,
+                                           3.6e38, 1.5]))
+    assert np.array_equal(hi, np.float32([np.inf, -np.inf, np.inf, -np.inf,
+                                          np.inf, 1.5]))
+    assert np.array_equal(lo, np.float32([0, 0, -np.inf, np.inf, -np.inf,
+                                          0]))
+    cols = residual.DeviceColumns(port, "cpu")
+    v = port.col("v").values
+
+    def band(ecql):
+        prog = residual.compile_program(parse_ecql(ecql), port, cols)
+        return (prog.run(cols, port.n).numpy() & 2) != 0
+    top = np.finfo(np.float32).max
+    assert np.array_equal(band("v > 1e299"), np.isfinite(v) & (v > top))
+    assert np.array_equal(band("v < -1e308"), np.isfinite(v) & (v < -top))
+    assert np.array_equal(band("v = 1e309"), v == np.inf)
