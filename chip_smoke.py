@@ -6,9 +6,9 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. build   the CUDA kernels from geomesa_tpu_torch/csrc/scan.cu,
-           csrc/batch.cu, csrc/geom.cu and csrc/residual.cu (one nvcc
-           per source, started together, then one link; sm_90a), with
-           the card's name and power limit.
+           csrc/batch.cu, csrc/geom.cu, csrc/residual.cu and
+           csrc/density.cu (one nvcc per source, started together, then
+           one link; sm_90a), with the card's name and power limit.
 2. kernels each hand kernel against its plain PyTorch version on the
            same device tensors: 100M rows from --seed, in a capacity
            of 2^27 (so rows n..cap are capacity padding), the four
@@ -89,6 +89,33 @@ Phases, one JSON line each; any failure exits non-zero:
            prepared launch found) and cold (wrapper_cold_ms, prepared
            anew each call, as on a new filter or after a flush), beside
            the prepared launch on an idle card (kernel_bare_ms).
+6. surface the query surface and the pushdowns on the predicates
+           phase's store, before it is freed. Launch counts are zeroed,
+           then density() draws three grids (a 256x256 tile over a
+           BBOX and 30 days; the world at 2048x1024 over 73 days
+           weighted by NumMentions, and by AvgTone), each held to a
+           float32 numpy brute force that casts as the reference does
+           and sums with np.add.at: exact where the weights are unit or
+           integers with a cell total under 2^24, else each cell within
+           2 * n_cell * 2^-24 * sum |w|; bin_query on the tile, plain and
+           time-sorted, labelled by EventCode, record for record; a sort
+           by NumMentions descending with max_features, a projection,
+           SAMPLING 0.1 with and without SAMPLE_BY EventCode, id-exact;
+           and a store of 1M rows with four distinct visibility labels at
+           feature and at attribute level, id-exact per auth set (the
+           leak guard's case included); then the density kernel's count
+           is read: it must have launched. Outside the counted run,
+           every recorded launch is held to its plain version on the
+           card (unit weights equal, weighted within the bound), the
+           kernel is timed at the weighted world call's shape beside
+           its byte bound (13 B a row, 4 B a cell), its plain version
+           and one index_add_ over the same cells, and with every row in
+           one cell (a 1x1 grid); one density() call is split into the
+           query, the column gather, the f32 conversion and upload, the
+           kernel and the copy back. Then 1,000 ids are deleted (delete
+           and rebuild timed) and a z3, a polygon and an attribute query
+           are held to the brute force over the kept rows; then
+           remove_schema, with torch.cuda.memory_allocated falling.
 
 Then the kernels summary line, the card line, and the final
 {"ok": true, ...} line. Without CUDA it exits 1 and prints no result.
@@ -151,10 +178,13 @@ SOURCES.update({
     "residual_mask": "geomesa_tpu/scan/residual.py:132 device_mask "
                      "(+ :214 _pair_cmp, :313 _vocab_gather)",
 })
+SURFACE_KERNELS = ("density_grid",)           # the surface phase's
+SOURCES["density_grid"] = "geomesa_tpu/scan/aggregations.py:28 _density_kernel"
 SOURCE_FILES = {k: "geomesa_tpu_torch/csrc/batch.cu"
                 for k in ("scan_batch_bits", "compact_prefix", "compact_bits")}
 SOURCE_FILES.update({"pip_mask": "geomesa_tpu_torch/csrc/geom.cu",
-                     "residual_mask": "geomesa_tpu_torch/csrc/residual.cu"})
+                     "residual_mask": "geomesa_tpu_torch/csrc/residual.cu",
+                     "density_grid": "geomesa_tpu_torch/csrc/density.cu"})
 BATCH = 32          # queries per batch in the kernels phase
 STORE_BATCH_QUERIES = 32
 BATCH_SIZES = (2, 8, 32)
@@ -465,7 +495,7 @@ def phase_kernels(seed: int, rows: int) -> dict:
     m = idx.shape[0]
     flush = _l2_flush(dev)
     stats = {k: {"max_abs_err": 0, "per_query": []} for k in SOURCES
-             if k not in PRED_KERNELS}
+             if k not in PRED_KERNELS + SURFACE_KERNELS}
     for qi, (boxes, intervals) in enumerate(KERNEL_QUERIES):
         q = zscan.make_query(boxes, intervals)
         b, t = q.tables(dev)
@@ -577,7 +607,7 @@ def phase_store(seed: int, rows: int, gather_stats: dict):
             times = []
             for _ in range(5):
                 t0 = time.perf_counter()
-                ds.query(ecql, "ais")
+                ds.query(ecql, "ais").ids
                 times.append((time.perf_counter() - t0) * 1e3)
             per_q.append({"query": ecql, "hits": len(want), "exact": ok,
                           "p50_ms": statistics.median(times)})
@@ -693,8 +723,10 @@ def phase_batched(seed: int, ds, rows) -> dict:
             for _ in range(3):
                 for chunk in chunks:
                     qs = [Query("ais", ecqls[i]) for i in chunk]
-                    batched.append(_timed(lambda: ds.query_batched(qs)))
-                    seq.append(_timed(lambda: [ds.query(q) for q in qs]))
+                    batched.append(_timed(lambda: [
+                        r.ids for r in ds.query_batched(qs)]))
+                    seq.append(_timed(lambda: [ds.query(q).ids
+                                               for q in qs]))
             sizes[size] = {"calls": len(batched),
                            "batched_p50_ms": statistics.median(batched),
                            "sequential_p50_ms": statistics.median(seq)}
@@ -729,8 +761,9 @@ def phase_batched(seed: int, ds, rows) -> dict:
     bq = store_batch(specs)
     res = ds.query_batched(qs)
     breakdown = {
-        "call_ms": statistics.median(_timed(lambda: ds.query_batched(qs))
-                                     for _ in range(5)),
+        "call_ms": statistics.median(
+            _timed(lambda: [r.ids for r in ds.query_batched(qs)])
+            for _ in range(5)),
         "batch_hit_rows_ms": statistics.median(
             _timed(lambda: zscan.batch_hit_rows(data, bq)) for _ in range(5)),
         "id_gather_ms": statistics.median(
@@ -788,7 +821,9 @@ def run_batcher(batcher, ecqls, truth) -> dict:
         try:
             for j in range(BATCHER_PER_THREAD):
                 i = (t * BATCHER_PER_THREAD + j) % len(ecqls)
-                results[t, j] = (i, batcher.query(ecqls[i], "ais"))
+                r = batcher.query(ecqls[i], "ais")
+                r.ids   # the ids on the host inside the timed run
+                results[t, j] = (i, r)
         except Exception as e:  # noqa: BLE001 - reported below
             errors.append(repr(e))
     threads = [threading.Thread(target=caller, args=(t,))
@@ -1268,7 +1303,7 @@ def phase_predicates(seed: int, rows: int, ids) -> dict:
         times = []
         for _ in range(PRED_RUNS):
             t0 = time.perf_counter()
-            ds.query(ecql, "gdelt")
+            ds.query(ecql, "gdelt").ids
             times.append((time.perf_counter() - t0) * 1e3)
         q["p50_ms"] = statistics.median(times)
     emit({"phase": "predicates", "rows": rows, "write_s": write_s,
@@ -1284,9 +1319,482 @@ def phase_predicates(seed: int, rows: int, ids) -> dict:
     if missing:
         raise SystemExit(f"kernels never launched on the predicates path: "
                          f"{missing}")
-    del ds, calls
+    del calls
+    return stats, counts, ds, d, queries
+
+
+# -- the surface phase -------------------------------------------------------
+
+SURFACE_TILE = (-80.0, 30.0, -60.0, 45.0)
+SURFACE_TILE_DAYS = (T0_DAY + 20, T0_DAY + 50)     # 30 days, exclusive
+SURFACE_WORLD_DAYS = (T0_DAY + 2, T0_DAY + 75)     # 73 days, exclusive
+SURFACE_WIDE = (-120.0, 20.0, -70.0, 50.0)         # no time
+WORLD = (-180.0, -90.0, 180.0, 90.0)
+SURFACE_RUNS = 3          # host-clock runs per call for its p50
+VIS_ROWS = 1_000_000
+VIS_LABELS = [None, "a", "a&b", "b|c"]            # feature level
+# attribute level, one part per attribute of VIS_SPEC
+ATTR_VIS_LABELS = [",,,", "a,,,", ",b,a&b,", "c,c,c,c"]
+VIS_SPEC = "EventCode:String,NumMentions:Integer,dtg:Date,*geom:Point:srid=4326"
+AUTH_SETS = ([], ["a"], ["a", "b"], ["a", "b", "c"])
+
+
+def _label_ok(label, auths) -> bool:
+    """An Accumulo visibility label of VIS_LABELS' forms against auths."""
+    if not label:
+        return True
+    if "|" in label:
+        return any(t in auths for t in label.split("|"))
+    return all(t in auths for t in label.split("&"))
+
+
+def java_hash(s: str) -> int:
+    h = 0
+    for ch in s:
+        h = (31 * h + ord(ch)) & 0xFFFFFFFF
+    return h - (1 << 32) if h >= 1 << 31 else h
+
+
+def density_brute(x, y, mask, bbox, width, height, w=None):
+    """(grid, flat): the float32 numpy brute force of the density grid,
+    cast as the reference casts (f32 coordinates rounded to nearest, the
+    scalars in f64 rounded to f32, f32 arithmetic, a saturating
+    truncation with NaN as 0, the clip) and summed in row order by
+    np.add.at in f32; ``flat`` each row's cell."""
+    xmin, ymin, xmax, ymax = (float(v) for v in bbox)
+    sx = np.float32(width / (xmax - xmin) if xmax > xmin else 0.0)
+    sy = np.float32(height / (ymax - ymin) if ymax > ymin else 0.0)
+
+    def bins(v, lo, scale, size):
+        with np.errstate(invalid="ignore", over="ignore"):
+            t = np.trunc((v.astype(np.float32) - np.float32(lo)) * scale)
+        t = np.where(np.isnan(t), 0.0, t.astype(np.float64))
+        return np.clip(t, 0, size - 1).astype(np.int64)
+    flat = bins(y, ymin, sy, height) * width + bins(x, xmin, sx, width)
+    vals = np.where(mask, np.float32(1.0) if w is None
+                    else np.asarray(w, np.float32), np.float32(0.0))
+    grid = np.zeros(height * width, dtype=np.float32)
+    np.add.at(grid, flat, vals.astype(np.float32))
+    return grid.reshape(height, width), flat
+
+
+def grid_bound(flat, mask, w, cells: int):
+    """(bound, exact) float64 and bool [cells]: per cell 2 * n_cell *
+    2^-24 * sum |w|, how far f32 sums of the cell's weights may move
+    with the order of the adds; and the cells that every order sums
+    exactly (unit or integer weights with sum |w| under 2^24, so every
+    partial sum is an exact f32 integer)."""
+    f = flat[mask]
+    n_cell = np.bincount(f, minlength=cells)
+    wm = (np.ones(len(f)) if w is None
+          else np.asarray(w, np.float64)[mask])
+    abs_w = np.bincount(f, np.abs(wm), minlength=cells)
+    exact = ((abs_w < 2**24) if np.all(wm == np.round(wm))
+             else np.zeros(cells, dtype=bool))
+    return 2 * n_cell * 2.0**-24 * abs_w, exact
+
+
+def grid_verdict(got, want, flat, mask, w) -> dict:
+    """Exact on grid_bound's exact cells, within its bound elsewhere."""
+    diff = np.abs(got.astype(np.float64).ravel() - want.astype(np.float64)
+                  .ravel())
+    bound, exact = grid_bound(flat, mask, w, want.size)
+    ok = bool(np.all(diff[exact] == 0) and np.all(diff[~exact]
+                                                  <= bound[~exact]))
+    return {"max_abs_err": float(diff.max()) if diff.size else 0.0,
+            "exact_cells": int(exact.sum()),
+            "bound_cells": int((~exact).sum()), "ok": ok}
+
+
+def _p50(fn, runs: int = SURFACE_RUNS) -> float:
+    return statistics.median(_timed(fn) for _ in range(runs))
+
+
+def density_split(ds, ecql, bbox, width, height, attr) -> dict:
+    """Where one density() call spends its time, each step synchronised
+    (host clock, medians of SURFACE_RUNS): the query, the gather of the
+    result's point (and weight) columns, their f32 conversion and
+    upload, the kernel, the grid's copy back; and the whole call."""
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.scan import aggregations, kernels
+    from geomesa_tpu_torch.store.memory import density_columns
+    steps = {k: [] for k in ("query", "gather", "upload", "kernel",
+                             "copy_back", "call")}
+    xmin, ymin, sx, sy = aggregations.density_scalars(bbox, width, height)
+    for _ in range(SURFACE_RUNS):
+        t0 = time.perf_counter()
+        res = ds.query(Query("gdelt", ecql))
+        t1 = time.perf_counter()
+        x, y, mask, w = density_columns(res, "geom", bbox, attr)
+        t2 = time.perf_counter()
+        xt, yt, wt, mt = aggregations.density_upload(x, y, mask, w, ds.device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        grid = kernels.density_grid(xt, yt, wt, mt, xmin, ymin, sx, sy,
+                                    width, height)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        grid.cpu().numpy()
+        t5 = time.perf_counter()
+        for k, a, b in (("query", t0, t1), ("gather", t1, t2),
+                        ("upload", t2, t3), ("kernel", t3, t4),
+                        ("copy_back", t4, t5)):
+            steps[k].append((b - a) * 1e3)
+        steps["call"].append(_timed(lambda: ds.density(
+            "gdelt", ecql, bbox, width, height, attr)))
+    return {"rows": int(res.n), **{f"{k}_ms": statistics.median(v)
+                                   for k, v in steps.items()}}
+
+
+def _tile_ecql() -> str:
+    x0, y0, x1, y1 = SURFACE_TILE
+    return (f"BBOX(geom, {x0}, {y0}, {x1}, {y1}) AND dtg DURING "
+            f"{_iso(SURFACE_TILE_DAYS[0])}/{_iso(SURFACE_TILE_DAYS[1])}")
+
+
+def _sample_brute(rows, rate, by=None):
+    k = max(1, int(round(1.0 / rate)))
+    if by is None:
+        return rows[np.arange(len(rows)) % k == 0]
+    order = np.argsort(by, kind="stable")
+    g = by[order]
+    start = np.r_[True, g[1:] != g[:-1]]
+    pos = np.arange(len(rows))
+    rank = np.empty(len(rows), dtype=np.int64)
+    rank[order] = pos - np.maximum.accumulate(np.where(start, pos, 0))
+    return rows[rank % k == 0]
+
+
+def surface_queries(ds, d, ids, during) -> list:
+    """The query surface on the store, each result id-exact against
+    the brute force: a sort with max_features, a projection, SAMPLING
+    with and without SAMPLE_BY (with query_count equal to query().n)."""
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.index.api import QueryHints
+    x, y, ms = d["x"], d["y"], d["ms"]
+    tile = np.flatnonzero(_in_box(x, y, SURFACE_TILE) & during(
+        *SURFACE_TILE_DAYS))
+    wide = np.flatnonzero(_in_box(x, y, SURFACE_WIDE))
+    ev = d["ev_vocab"][d["ev"]]
+    x0, y0, x1, y1 = SURFACE_WIDE
+    wide_ecql = f"BBOX(geom, {x0}, {y0}, {x1}, {y1})"
+    order = np.argsort(d["mentions"][tile], kind="stable")[::-1]
+    cases = [
+        ("sort_desc_limit", Query("gdelt", _tile_ecql(),
+                                  sort_by="NumMentions", sort_desc=True,
+                                  max_features=1000), tile[order[:1000]]),
+        ("projection", Query("gdelt", _tile_ecql(),
+                             properties=["EventCode", "geom"]), tile),
+        ("sampling_0.1", Query("gdelt", wide_ecql,
+                               hints={QueryHints.SAMPLING: 0.1}),
+         _sample_brute(wide, 0.1)),
+        ("sampling_0.1_by_EventCode",
+         Query("gdelt", wide_ecql, hints={QueryHints.SAMPLING: 0.1,
+                                          QueryHints.SAMPLE_BY: "EventCode"}),
+         _sample_brute(wide, 0.1, ev[wide])),
+    ]
+    out = []
+    for name, q, want in cases:
+        res = ds.query(q)
+        ok = (np.array_equal(res.rows, want)
+              and np.array_equal(res.ids, ids[want])
+              and ds.query_count(q) == res.n == len(want))
+        if name == "projection":
+            b = res.batch
+            ok = ok and (set(b.columns) == {"EventCode", "geom"}
+                         and np.array_equal(b.col("geom").x, x[want])
+                         and np.array_equal(b.col("EventCode").vocab[
+                             b.col("EventCode").codes], ev[want])
+                         and set(b.feature(0)) == {"id", "EventCode",
+                                                   "geom"})
+        out.append({"query": name, "hits": len(want), "exact": bool(ok),
+                    "p50_ms": _p50(lambda: ds.query(q).ids)})
+    return out
+
+
+def visibility_cases(d, ids, during) -> list:
+    """A store of VIS_ROWS rows (the first rows of the phase's data)
+    with four distinct labels, at feature and at attribute level; the
+    tile query (and at attribute level one on a possibly hidden
+    attribute, the leak guard's case) per auth set, id-exact against
+    the brute force."""
+    from geomesa_tpu_torch import InMemoryDataStore, Query
+    from geomesa_tpu_torch.features.batch import (DateColumn, FeatureBatch,
+                                                  NumericColumn, PointColumn,
+                                                  StringColumn)
+    n = min(VIS_ROWS, len(d["x"]))
+    rng = np.random.default_rng(31)
+    pick = rng.integers(0, 4, n)
+    x, y, ms, ment = d["x"][:n], d["y"][:n], d["ms"][:n], d["mentions"][:n]
+    ones = np.ones(n, dtype=bool)
+    out = []
+    for level, labels in (("feature", VIS_LABELS),
+                          ("attribute", ATTR_VIS_LABELS)):
+        ds = InMemoryDataStore()
+        spec = VIS_SPEC + (";geomesa.visibility.level='attribute'"
+                           if level == "attribute" else "")
+        ds.create_schema("vis", spec)
+        batch = FeatureBatch(ds.get_schema("vis"), ids[:n], {
+            "EventCode": StringColumn("EventCode", d["ev"][:n],
+                                      d["ev_vocab"].astype(object)),
+            "NumMentions": NumericColumn("NumMentions", ment,
+                                         d["mentions_valid"][:n]),
+            "dtg": DateColumn("dtg", ms, ones),
+            "geom": PointColumn("geom", x, y, ones)})
+        t0 = time.perf_counter()
+        ds.write("vis", batch, visibilities=np.array(labels,
+                                                     dtype=object)[pick])
+        ds.query(_tile_ecql(), "vis")
+        write_s = time.perf_counter() - t0
+        tile = _in_box(x, y, SURFACE_TILE) & (ms > SURFACE_TILE_DAYS[0]
+                                              * MS_DAY) & (
+            ms < SURFACE_TILE_DAYS[1] * MS_DAY)
+        x0, y0, x1, y1 = SURFACE_TILE
+        probe = (f"BBOX(geom, {x0}, {y0}, {x1}, {y1}) AND NumMentions >= 5")
+        probe_hit = (_in_box(x, y, SURFACE_TILE) & (ment >= 5)
+                     & d["mentions_valid"][:n])
+        for auths in AUTH_SETS:
+            if level == "feature":
+                seen = np.array([_label_ok(lb, auths) for lb in labels])
+                cases = [("tile", _tile_ecql(), tile & seen[pick])]
+            else:
+                # per label and attribute (EventCode, NumMentions, dtg,
+                # geom): visible; a row shows when any attribute does,
+                # and a filter on a hidden attribute drops it
+                attr_ok = np.array([[_label_ok(p, auths)
+                                     for p in lb.split(",")]
+                                    for lb in labels])[pick]
+                any_ok = attr_ok.any(axis=1)
+                cases = [("tile", _tile_ecql(),
+                          tile & any_ok & attr_ok[:, 2] & attr_ok[:, 3]),
+                         ("hidden_probe", probe,
+                          probe_hit & any_ok & attr_ok[:, 1]
+                          & attr_ok[:, 3])]
+            for name, ecql, want in cases:
+                q = Query("vis", ecql, auths=list(auths))
+                res = ds.query(q)
+                rows = np.flatnonzero(want)
+                ok = (np.array_equal(res.rows, rows)
+                      and np.array_equal(res.ids, ids[rows])
+                      and ds.query_count(q) == len(rows))
+                if level == "attribute" and ok and len(rows):
+                    # redacted cells read as null
+                    code_ok = attr_ok[rows, 0]
+                    ok = bool(np.array_equal(
+                        res.batch.col("EventCode").codes >= 0, code_ok))
+                out.append({"level": level, "query": name,
+                            "auths": list(auths), "hits": len(rows),
+                            "exact": bool(ok), "write_s": write_s,
+                            "p50_ms": _p50(lambda: ds.query(q).ids)})
+        del ds
     torch.cuda.empty_cache()
-    return stats, counts
+    return out
+
+
+def phase_surface(ds, d: dict, ids, queries) -> dict:
+    """The query surface and the density and BIN pushdowns on the
+    predicates phase's store, then a delete and remove_schema."""
+    import gc
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.scan import kernels
+    t_phase = time.perf_counter()
+    x, y, ms = d["x"], d["y"], d["ms"]
+
+    def during(lo_day, hi_day):
+        return (ms > lo_day * MS_DAY) & (ms < hi_day * MS_DAY)
+    tile = _in_box(x, y, SURFACE_TILE) & during(*SURFACE_TILE_DAYS)
+    world = during(*SURFACE_WORLD_DAYS)
+    world_ecql = (f"dtg DURING {_iso(SURFACE_WORLD_DAYS[0])}/"
+                  f"{_iso(SURFACE_WORLD_DAYS[1])}")
+    ment = np.where(d["mentions_valid"], d["mentions"], 0)
+    grids = [
+        ("tile_256", _tile_ecql(), SURFACE_TILE, 256, 256, None, tile, None),
+        ("world_2048x1024_NumMentions", world_ecql, WORLD, 2048, 1024,
+         "NumMentions", world & d["mentions_valid"], ment),
+        ("world_2048x1024_AvgTone", world_ecql, WORLD, 2048, 1024,
+         "AvgTone", world, d["tone"]),
+    ]
+
+    # the counted run: every call of the density kernel is recorded for
+    # the checks and timings below
+    calls = []
+    real = kernels.density_grid
+
+    def recorder(*args):
+        calls.append(args)
+        return real(*args)
+    kernels.reset_launches()
+    t_main = time.perf_counter()
+    density, wrong = [], []
+    try:
+        kernels.density_grid = recorder
+        for name, ecql, bbox, w, h, attr, mask, wts in grids:
+            got = ds.density("gdelt", ecql, bbox, w, h, attr)
+            sel = np.flatnonzero(mask)
+            want, flat = density_brute(x[sel], y[sel], np.ones(len(sel), bool),
+                                       bbox, w, h,
+                                       None if wts is None else wts[sel])
+            v = grid_verdict(got, want, flat, np.ones(len(sel), bool),
+                             None if wts is None else wts[sel])
+            v.update(grid=name, rows=len(sel), mass=float(got.sum(
+                dtype=np.float64)))
+            density.append(v)
+            if not v["ok"]:
+                wrong.append(("density", name))
+        # BIN records of the tile query, plain and time-sorted
+        rows = np.flatnonzero(tile)
+        track = np.array([java_hash(str(i)) for i in ids[rows]], np.int32)
+        secs = (ms[rows] // 1000).astype(np.int32)
+        label = np.array([c[:8].encode() for c in
+                          d["ev_vocab"][d["ev"][rows]]], dtype="S8")
+        bins = []
+        for sort in (False, True):
+            payload = ds.bin_query("gdelt", _tile_ecql(), label="EventCode",
+                                   sort=sort)
+            rec = np.frombuffer(payload, dtype=[
+                ("track", "<i4"), ("secs", "<i4"), ("lat", "<f4"),
+                ("lon", "<f4"), ("label", "S8")])
+            o = (np.argsort(secs, kind="stable") if sort
+                 else np.arange(len(rows)))
+            ok = (len(rec) == ds.query_count(_tile_ecql(), "gdelt")
+                  == len(rows)
+                  and np.array_equal(rec["track"], track[o])
+                  and np.array_equal(rec["secs"], secs[o])
+                  and np.array_equal(rec["lat"], y[rows][o].astype(np.float32))
+                  and np.array_equal(rec["lon"], x[rows][o].astype(np.float32))
+                  and np.array_equal(rec["label"], label[o])
+                  and (not sort or bool(np.all(np.diff(rec["secs"]) >= 0))))
+            bins.append({"sort": sort, "records": len(rec), "exact": bool(ok),
+                         "p50_ms": _p50(lambda: ds.bin_query(
+                             "gdelt", _tile_ecql(), label="EventCode",
+                             sort=sort))})
+            if not ok:
+                wrong.append(("bin_query", sort))
+        surface = surface_queries(ds, d, ids, during)
+        vis = visibility_cases(d, ids, during)
+    finally:
+        kernels.density_grid = real
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    launches = kernels.launches["density_grid"]
+    wrong += [("surface", q["query"]) for q in surface if not q["exact"]]
+    wrong += [("visibility", v["level"], v["query"], str(v["auths"]))
+              for v in vis if not v["exact"]]
+
+    # outside the counted run: every recorded launch against the plain
+    # version on the card (unit weights equal, weights within the bound),
+    # then the kernel timed at the largest call's shape
+    errs = []
+    for args in calls:
+        xt, yt, wt, mt, xmin, ymin, sx, sy, w, h = args
+        got = kernels.density_grid(*args)
+        want = kernels.density_grid_plain(*args)
+        cells = kernels.density_cells_plain(xt, yt, xmin, ymin, sx, sy, w,
+                                            h)[mt]
+        diff = (got.double() - want.double()).abs().flatten()
+        errs.append(float(diff.max().item()) if diff.numel() else 0.0)
+        if wt is None:
+            ok = torch.equal(got, want)
+        else:
+            n_cell = torch.bincount(cells, minlength=w * h).double()
+            abs_w = torch.bincount(cells, wt[mt].abs().double(),
+                                   minlength=w * h)
+            ok = bool((diff <= 2 * n_cell * 2.0**-24 * abs_w).all())
+        if not ok:
+            wrong.append(("density_grid", xt.shape[0], w, h))
+    args = max(calls, key=lambda a: (a[2] is not None, a[0].shape[0]))
+    xt, yt, wt, mt, xmin, ymin, sx, sy, w, h = args
+    n = xt.shape[0]
+    flat = kernels.density_cells_plain(xt, yt, xmin, ymin, sx, sy, w, h)
+    vals = torch.where(mt, wt, torch.zeros_like(wt))
+    bms, bby = bound_ms(n * 13 + 4 * w * h, 0)
+    one_cell = (*args[:8], 1, 1)
+    stats = {
+        "rows": n, "width": w, "height": h, "weighted": True,
+        "max_abs_err": max(errs), "launches": launches,
+        "ms": cuda_ms(lambda: kernels.density_grid(*args), 20),
+        "plain_ms": cuda_ms(lambda: kernels.density_grid_plain(*args), 3, 1),
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            w * h, dtype=torch.float32, device=xt.device).index_add_(
+                0, flat, vals), 20),
+        "bound_ms": bms, "bound_by": bby,
+        "one_cell_ms": cuda_ms(lambda: kernels.density_grid(*one_cell), 20),
+        "one_cell_bound_ms": bound_ms(n * 13 + 4, 0)[0],
+        "one_cell_call_ms": _p50(lambda: ds.density(
+            "gdelt", grids[1][1], WORLD, 1, 1, "NumMentions")),
+    }
+    tile_args = next(a for a in calls if a[2] is None)
+    stats["unweighted"] = {
+        "rows": tile_args[0].shape[0], "width": tile_args[8],
+        "height": tile_args[9],
+        "ms": cuda_ms(lambda: kernels.density_grid(*tile_args), 20),
+        "bound_ms": bound_ms(tile_args[0].shape[0] * 9
+                             + 4 * tile_args[8] * tile_args[9], 0)[0]}
+    del calls, args, one_cell, tile_args, xt, yt, wt, mt, flat, vals
+    split = {name: density_split(ds, ecql, bbox, w, h, attr)
+             for name, ecql, bbox, w, h, attr, _m, _w in grids[:2]}
+    for g, (name, ecql, bbox, w, h, attr, _m, _w) in zip(density, grids):
+        g["p50_ms"] = (split[name]["call_ms"] if name in split else _p50(
+            lambda: ds.density("gdelt", ecql, bbox, w, h, attr)))
+
+    # delete 1,000 ids, then the rebuild and three strategies
+    gone = np.random.default_rng(41).choice(len(x), 1000, replace=False)
+    keep = np.ones(len(x), dtype=bool)
+    keep[gone] = False
+    st = ds._types["gdelt"]
+    t0 = time.perf_counter()
+    ds.delete("gdelt", ids[gone])
+    delete_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st.ensure_index()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    del st
+    by_name = {qn: (e, m) for qn, e, m in queries}
+    after = []
+    for name, ecql, want in (
+            ("z3_tile", _tile_ecql(), tile),
+            ("polygon_within", *by_name["multipolygon_within"]),
+            ("attr_equality", *by_name["attr_equality_during"])):
+        t0 = time.perf_counter()
+        res = ds.query(ecql, "gdelt")
+        first_ms = (time.perf_counter() - t0) * 1e3
+        kept = np.flatnonzero(want & keep)
+        ok = (np.array_equal(res.ids, ids[kept])
+              and ds.query_count(ecql, "gdelt") == len(kept))
+        after.append({"query": name, "hits": len(kept), "exact": bool(ok),
+                      "first_ms": first_ms,
+                      "strategy": _strategy(res)})
+        if not ok:
+            wrong.append(("after_delete", name))
+
+    # remove_schema releases the type's device memory
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ds.remove_schema("gdelt")
+    gc.collect()
+    torch.cuda.synchronize()
+    removed = {"seconds": time.perf_counter() - t0,
+               "allocated_before": before,
+               "allocated_after": torch.cuda.memory_allocated(),
+               "types_after": ds.get_type_names()}
+    if not removed["allocated_after"] < before or removed["types_after"]:
+        wrong.append(("remove_schema", before, removed["allocated_after"]))
+    emit({"phase": "surface", "density": density, "bin_query": bins,
+          "queries": surface, "visibility": vis,
+          "delete": {"ids": len(gone), "delete_s": delete_s,
+                     "rebuild_s": rebuild_s, "queries": after},
+          "remove_schema": removed, "density_split": split,
+          "kernels": {"density_grid": stats}, "launches": {
+              "density_grid": launches}, "counted_s": main_s,
+          "seconds": time.perf_counter() - t_phase, "wrong": wrong})
+    if wrong:
+        raise SystemExit(f"surface: wrong results: {wrong}")
+    if launches == 0:
+        raise SystemExit("density_grid never launched on the surface path")
+    return {"density_grid": stats}, {"density_grid": launches}
 
 
 def main():
@@ -1308,9 +1816,15 @@ def main():
         launches[name] = batched[name]
     del ds
     torch.cuda.empty_cache()
-    pred_stats, pred_counts = phase_predicates(args.seed, args.store_rows,
-                                               rows[3])
+    pred_stats, pred_counts, pred_ds, pred_data, pred_queries = \
+        phase_predicates(args.seed, args.store_rows, rows[3])
     launches.update(pred_counts)
+    surf_stats, surf_counts = phase_surface(pred_ds, pred_data, rows[3],
+                                            pred_queries)
+    launches.update(surf_counts)
+    pred_stats.update(surf_stats)
+    del pred_ds
+    torch.cuda.empty_cache()
     summary = []
     for name, s in stats.items():
         q0 = s["per_query"][0]   # the BBOX+time query (1M random ids
@@ -1325,7 +1839,8 @@ def main():
             "plain_ms": q0["plain_ms"], "bound_ms": q0["bound_ms"],
             "bound_by": q0["bound_by"],
             "library_ms": q0.get("library_ms")})
-    for name, s in pred_stats.items():   # at the predicates path's shapes
+    for name, s in pred_stats.items():   # at the predicates and surface
+                                         # paths' shapes
         summary.append({
             "name": name, "route": "cuda", "source": SOURCE_FILES[name],
             "replaces": SOURCES[name], "launches": launches[name],

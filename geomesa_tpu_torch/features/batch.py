@@ -39,6 +39,10 @@ class Column:
     def take(self, idx: np.ndarray) -> "Column":
         raise NotImplementedError
 
+    def value(self, i: int):
+        """Row i as a Python value; None for a null."""
+        raise NotImplementedError
+
 
 @dataclasses.dataclass
 class NumericColumn(Column):
@@ -54,6 +58,12 @@ class NumericColumn(Column):
     def take(self, idx) -> "NumericColumn":
         return NumericColumn(self.name, self.values[idx], self.valid[idx])
 
+    def value(self, i: int):
+        if not self.valid[i]:
+            return None
+        v = self.values[i]
+        return float(v) if self.values.dtype.kind == "f" else int(v)
+
 
 @dataclasses.dataclass
 class BoolColumn(Column):
@@ -67,6 +77,9 @@ class BoolColumn(Column):
 
     def take(self, idx) -> "BoolColumn":
         return BoolColumn(self.name, self.values[idx], self.valid[idx])
+
+    def value(self, i: int):
+        return bool(self.values[i]) if self.valid[i] else None
 
 
 @dataclasses.dataclass
@@ -82,6 +95,9 @@ class DateColumn(Column):
 
     def take(self, idx) -> "DateColumn":
         return DateColumn(self.name, self.millis[idx], self.valid[idx])
+
+    def value(self, i: int):
+        return int(self.millis[i]) if self.valid[i] else None
 
 
 @dataclasses.dataclass
@@ -101,6 +117,10 @@ class StringColumn(Column):
 
     def take(self, idx) -> "StringColumn":
         return StringColumn(self.name, self.codes[idx], self.vocab)
+
+    def value(self, i: int):
+        c = self.codes[i]
+        return None if c < 0 else str(self.vocab[c])
 
     def code_of(self, s: str) -> int:
         """Vocab code for s, or -1 if absent."""
@@ -134,6 +154,9 @@ class PointColumn(Column):
 
     def take(self, idx) -> "PointColumn":
         return PointColumn(self.name, self.x[idx], self.y[idx], self.valid[idx])
+
+    def value(self, i: int):
+        return Point(self.x[i], self.y[i]) if self.valid[i] else None
 
 
 def _column_for(spec_type: str, name: str, data) -> Column:
@@ -234,6 +257,13 @@ class FeatureBatch:
         idx = np.asarray(idx)
         return FeatureBatch(self.sft, self.ids[idx],
                             {k: c.take(idx) for k, c in self.columns.items()})
+
+    def feature(self, i: int) -> dict[str, Any]:
+        """Row view (for result iteration / debugging)."""
+        out = {"id": self.ids[i]}
+        for name, c in self.columns.items():
+            out[name] = c.value(i)
+        return out
 
     def concat(self, other: "FeatureBatch") -> "FeatureBatch":
         return FeatureBatch.concat_all([self, other])

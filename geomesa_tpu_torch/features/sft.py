@@ -35,6 +35,7 @@ class Configs:
     (SimpleFeatureTypes.scala:28-49)."""
     DEFAULT_DATE = "geomesa.index.dtg"
     IGNORE_INDEX_DTG = "geomesa.ignore.dtg"
+    VIS_LEVEL = "geomesa.visibility.level"
     Z3_INTERVAL = "geomesa.z3.interval"
     INDEX_VERSION = "geomesa.index.version"
 
@@ -162,6 +163,15 @@ class SimpleFeatureType:
     @property
     def z3_interval(self) -> TimePeriod:
         return TimePeriod.parse(self.user_data.get(Configs.Z3_INTERVAL, "week"))
+
+    @property
+    def visibility_level(self) -> str:
+        """'feature' (default) or 'attribute': attribute-level stores
+        one visibility label PER ATTRIBUTE per feature (comma-joined on
+        write), and queries null out unauthorized attributes instead of
+        dropping whole rows (KryoVisibilityRowEncoder semantics,
+        accumulo/iterators/KryoVisibilityRowEncoder.scala:26)."""
+        return str(self.user_data.get(Configs.VIS_LEVEL, "feature"))
 
     @property
     def index_version(self) -> int:

@@ -20,7 +20,7 @@ from ..geometry import Geometry
 __all__ = ["Filter", "Include", "Exclude", "And", "Or", "Not", "FidFilter",
            "Compare", "CompareOp", "Between", "Like", "IsNull", "InList",
            "SpatialPredicate", "BBox", "Intersects", "Within", "Disjoint",
-           "During", "Before", "After", "TEquals", "walk"]
+           "During", "Before", "After", "TEquals", "walk", "props_of"]
 
 
 class Filter:
@@ -49,6 +49,12 @@ def walk(f: Filter):
     child = getattr(f, "child", None)
     if child is not None:
         yield from walk(child)
+
+
+def props_of(f: Filter) -> set:
+    """Attribute names referenced anywhere in a filter tree."""
+    return {p for node in walk(f)
+            if (p := getattr(node, "prop", None))}
 
 
 @dataclasses.dataclass(frozen=True)

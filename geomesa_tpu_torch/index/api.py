@@ -18,20 +18,42 @@ __all__ = ["Query", "FilterStrategy", "Explainer", "QueryHints"]
 
 
 class QueryHints:
-    """Per-query hint keys the slice reads (index/conf/QueryHints.scala)."""
+    """Per-query hint keys (index/conf/QueryHints.scala:22-68). The
+    store reads QUERY_INDEX, SAMPLING and SAMPLE_BY; the rest name
+    pushdowns of later slices (ROADMAP.md section 6)."""
+    DENSITY_BBOX = "DENSITY_BBOX"
+    DENSITY_WIDTH = "DENSITY_WIDTH"
+    DENSITY_HEIGHT = "DENSITY_HEIGHT"
+    DENSITY_WEIGHT = "DENSITY_WEIGHT"
+    STATS_STRING = "STATS_STRING"
+    ENCODE_STATS = "ENCODE_STATS"
+    BIN_TRACK = "BIN_TRACK"
+    BIN_GEOM = "BIN_GEOM"
+    BIN_DTG = "BIN_DTG"
+    BIN_LABEL = "BIN_LABEL"
+    BIN_SORT = "BIN_SORT"
+    BIN_BATCH_SIZE = "BIN_BATCH_SIZE"
+    ARROW_ENCODE = "ARROW_ENCODE"
+    ARROW_DICTIONARY_FIELDS = "ARROW_DICTIONARY_FIELDS"
+    SAMPLING = "SAMPLING"
+    SAMPLE_BY = "SAMPLE_BY"
     QUERY_INDEX = "QUERY_INDEX"
+    COST_EVALUATION = "COST_EVALUATION"
+    EXACT_COUNT = "EXACT_COUNT"
+    LOOSE_BBOX = "LOOSE_BBOX"
 
 
 @dataclasses.dataclass
 class Query:
-    """A query against one feature type (GeoTools Query analog).
-
-    Projection, sorting, sampling and visibility authorizations belong
-    to a later slice of the port (ROADMAP.md section 6)."""
+    """A query against one feature type (GeoTools Query analog)."""
     type_name: str
     filter: ast.Filter = dataclasses.field(default_factory=ast.Include)
+    properties: list[str] | None = None      # projection; None = all
     max_features: int | None = None
+    sort_by: str | None = None
+    sort_desc: bool = False
     hints: dict[str, Any] = dataclasses.field(default_factory=dict)
+    auths: list[str] | None = None   # visibility authorizations
 
     def __post_init__(self):
         if isinstance(self.filter, str):

@@ -1,8 +1,9 @@
 """The port's kernels: wrappers, launch counts and plain versions.
 
-Eight kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
-``csrc/batch.cu``, ``csrc/geom.cu`` and ``csrc/residual.cu`` (see the
-notes at their heads for what they replace and what bounds them):
+Nine kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
+``csrc/batch.cu``, ``csrc/geom.cu``, ``csrc/residual.cu`` and
+``csrc/density.cu`` (see the notes at their heads for what they replace
+and what bounds them):
 
 - ``scan_mask``: the dense tier, bool[cap] over every row;
 - ``scan_mask_gather``: the gathered tier, bool[m] over rows ``idx``
@@ -23,7 +24,10 @@ notes at their heads for what they replace and what bounds them):
   device columns, one byte per row (bit 0 the verdict, bit 1 the f64
   band; ``scan/residual.py`` compiles the program, which the caller
   passes as host data and the wrapper uploads once per program and
-  column set).
+  column set);
+- ``density_grid``: the weights of the masked points summed into a
+  (height, width) f32 pixel grid by atomic adds
+  (``scan/aggregations.py``).
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device; for ``residual_mask``, its columns). On
@@ -66,11 +70,13 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "BATCH_ROWS_PER_BLOCK", "BATCH_MAX_GROUP", "pip_mask",
            "pip_mask_plain", "pip_pairs_plain", "pip_edge_terms_plain",
            "pip_skip_plain", "residual_mask", "residual_mask_plain",
-           "residual_launcher", "residual_depth", "Op", "Cmp"]
+           "residual_launcher", "residual_depth", "Op", "Cmp",
+           "density_grid", "density_grid_plain", "density_cells_plain"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
-            for f in ("scan.cu", "batch.cu", "geom.cu", "residual.cu")]
+            for f in ("scan.cu", "batch.cu", "geom.cu", "residual.cu",
+                      "density.cu")]
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -89,7 +95,7 @@ BATCH_MAX_GROUP = 32
 
 launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0,
             "scan_batch_bits": 0, "compact_prefix": 0, "compact_bits": 0,
-            "pip_mask": 0, "residual_mask": 0}
+            "pip_mask": 0, "residual_mask": 0, "density_grid": 0}
 
 
 def reset_launches():
@@ -320,12 +326,16 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_residual_mask.argtypes = [p, p, p, p, i32, i32, i64,
                                                   p, p]
             lib.geomesa_residual_codes.argtypes = [p, i32]
+            f32 = ctypes.c_float
+            lib.geomesa_density_grid.argtypes = [p, p, p, p, i64, f32, f32,
+                                                 f32, f32, i32, i32, p, p]
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
                        lib.geomesa_compact_prefix, lib.geomesa_compact_bits,
                        lib.geomesa_batch_rows_per_block,
                        lib.geomesa_batch_max_group, lib.geomesa_pip_mask,
-                       lib.geomesa_residual_mask, lib.geomesa_residual_codes):
+                       lib.geomesa_residual_mask, lib.geomesa_residual_codes,
+                       lib.geomesa_density_grid):
                 fn.restype = ctypes.c_int
             if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
                     or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP
@@ -974,3 +984,82 @@ def residual_mask(code, consts, table, slots, n: int, device=None):
     launch(n, out)
     launches["residual_mask"] += 1
     return out
+
+
+# -- density grid (csrc/density.cu) -----------------------------------------
+
+def _density_bins(v, lo, scale, size: int):
+    """Pixel index int64 [n] of coordinates ``v`` (f32): the rounded
+    ``(v - lo) * scale`` in f32, truncated toward zero with NaN as 0,
+    clipped to [0, size - 1] (what the kernel's saturating
+    ``__float2int_rz`` and clip give; the clip runs in float64, exact
+    for every int32)."""
+    lo = torch.tensor(lo, dtype=torch.float32, device=v.device)
+    scale = torch.tensor(scale, dtype=torch.float32, device=v.device)
+    t = torch.trunc((v - lo) * scale)
+    t = torch.where(torch.isnan(t), torch.zeros_like(t), t)
+    return t.double().clamp(0, size - 1).long()
+
+
+def density_cells_plain(x, y, xmin, ymin, sx, sy, width: int, height: int):
+    """int64 [n]: each point's flat cell ``row * width + col``."""
+    return (_density_bins(y, ymin, sy, height) * width
+            + _density_bins(x, xmin, sx, width))
+
+
+def density_grid_plain(x, y, w, mask, xmin, ymin, sx, sy, width: int,
+                       height: int):
+    """float32 (height, width): a port of aggregations._density_kernel
+    in torch ops, the binning step by step (``density_cells_plain``),
+    then ``where(mask, w, 0)`` accumulated into a zeroed grid by
+    ``index_put_``; ``w`` None means unit weights."""
+    flat = density_cells_plain(x, y, xmin, ymin, sx, sy, width, height)
+    ones = torch.ones_like(x)
+    vals = torch.where(mask, ones if w is None else w, torch.zeros_like(x))
+    grid = torch.zeros(height * width, dtype=torch.float32, device=x.device)
+    grid.index_put_((flat,), vals, accumulate=True)
+    return grid.view(height, width)
+
+
+def density_grid(x, y, w, mask, xmin, ymin, sx, sy, width: int,
+                 height: int):
+    """float32 (height, width) grid on the points' device: the sum of
+    the weights ``w`` (f32 [n]; None means 1) of the points (x[i], y[i])
+    (f32 [n]) with ``mask[i]`` (bool [n]) in the cell of row
+    ``clip(int((y - ymin) * sy), 0, height - 1)`` and the column alike.
+    ``xmin``, ``ymin``, ``sx`` and ``sy`` are f32 values
+    (``aggregations.density_scalars``). The cells' f32 sums follow the
+    order of the kernel's atomic adds: exact while a cell's total is an
+    integer below 2^24, else within ``2 * n_cell * 2^-24 * sum |w|``."""
+    tensors = (x, y, mask) + (() if w is None else (w,))
+    if any(t.dim() != 1 or t.shape != x.shape or not t.is_contiguous()
+           for t in tensors):
+        raise ValueError("x, y, w and mask must be contiguous 1-d tensors "
+                         "of one length")
+    if (x.dtype != torch.float32 or y.dtype != torch.float32
+            or (w is not None and w.dtype != torch.float32)
+            or mask.dtype != torch.bool):
+        raise ValueError("x, y and w must be float32 and mask bool")
+    if width < 1 or height < 1 or width * height >= 2**31:
+        raise ValueError(f"a {height} x {width} grid is outside 1 .. 2^31 - 1 "
+                         f"cells")
+    if _on_cpu(tensors):
+        return density_grid_plain(x, y, w, mask, xmin, ymin, sx, sy, width,
+                                  height)
+    if (any(t.data_ptr() % 16 for t in tensors if t is not mask)
+            or mask.data_ptr() % 4):
+        raise ValueError("the density kernel reads x, y and w as 16-byte "
+                         "and the mask as 4-byte vectors: they must be so "
+                         "aligned")
+    n = x.shape[0]
+    grid = torch.zeros((height, width), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return grid
+    rc = _library().geomesa_density_grid(
+        x.data_ptr(), y.data_ptr(), 0 if w is None else w.data_ptr(),
+        mask.data_ptr(), n, float(xmin), float(ymin), float(sx), float(sy),
+        width, height, grid.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(rc, "density_grid")
+    launches["density_grid"] += 1
+    return grid

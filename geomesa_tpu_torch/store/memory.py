@@ -1,6 +1,7 @@
 """In-memory datastore of point schemas, with its scans on the GPU.
 
-    write(batch) -> host columns (pending until the next read)
+    write(batch, visibilities=None)
+                 -> host columns (pending until the next read)
     query(q)     -> plan (splitter + cost decider over z3, z2, id,
                     attr:<name> and fullscan)
                  -> z3/z2: one of three tiers:
@@ -18,11 +19,27 @@
                     row when the candidates are dense, else f64 on the
                     host
                  -> sorted row ids
+                 -> visibility (feature or attribute level, with the
+                    leak guard), then SAMPLING / SAMPLE_BY
+                 -> sort_by, max_features, the projection check
+                 -> QueryResult: ids (gathered eagerly up to 100k hits),
+                    and a lazy batch that copies columns on first read
+                    (attribute-level redaction materializes it)
     query_batched(qs)
                  -> plan each query; the fusible ones of a type run as
                     ONE pass of the batched kernels (hits, boundary
                     candidates, compaction on the device), then the
-                    per-query f64 patch; the rest go through query()
+                    per-query f64 patch, visibility, sampling and result
+                    assembly; the rest go through query()
+    density(...) -> the query, then the result's point and weight
+                    columns as f32 on the device, binned and summed by
+                    the density kernel
+    bin_query(...)
+                 -> the query, then the BIN records on the host
+    delete(ids)  -> the rows dropped; the device columns, z-index and
+                    attribute indexes rebuild on the next read
+    remove_schema
+                 -> the type and its device memory released
 
 The device columns (two-float coordinates, (day, ms) times) live on
 the store's device with power-of-two capacity; appends copy into that
@@ -37,13 +54,17 @@ NotImplementedError naming its later slice (ROADMAP.md section 6).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import threading
+import weakref
+from typing import Any, Iterator
 
 import numpy as np
 
 from ..analytics.st_functions import contains_points
-from ..features.batch import COLUMN_TYPES, FeatureBatch, PointColumn
+from ..features.batch import (COLUMN_TYPES, FeatureBatch, PointColumn,
+                              StringColumn)
 from ..features.sft import SimpleFeatureType, parse_spec
 from ..filters import ast
 from ..filters.evaluate import evaluate
@@ -56,9 +77,14 @@ from ..index.planner import decide_strategy
 from ..index.splitter import spatial_part
 from ..index.zkeys import SCAN_BLOCK_THRESHOLD, ZKeyIndex, search_rows
 from ..scan import gscan, residual, zscan
+from ..scan.aggregations import density_grid, encode_bin_batch, sample_mask
+from ..security import (evaluate_visibilities, parse_visibility,
+                        validate_labels)
+from ..security.visibility import distinct_labels
 from ..utils.device import resolve_device
 from ..utils.properties import SystemProperty
 from .api import DataStore
+from .common import sort_order
 
 __all__ = ["InMemoryDataStore", "QueryResult"]
 
@@ -76,22 +102,132 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
         f"{slice_name} slice (ROADMAP.md section 6)")
 
 
-class QueryResult:
-    """Result of a feature query: the matching ids in row order."""
+class _LazyBatch:
+    """Deferred result materialization: the source batch snapshot (the
+    columnar arrays are immutable — writes and deletes build new
+    objects) plus the matched rows. The column copies happen only if a
+    caller reads ``result.batch``; id-only consumers never pay them."""
 
-    def __init__(self, rows: np.ndarray, ids: np.ndarray,
-                 explain: Explainer, plan: FilterStrategy):
+    def __init__(self, source: FeatureBatch, idx: np.ndarray,
+                 properties, row_order: bool = True):
+        self.source = source
+        self.idx = idx
+        self.properties = properties
+        # False when the caller reordered idx (sort_by): the endpoint
+        # identity check below would misread a permutation as identity
+        self.row_order = row_order
+        self._mat: FeatureBatch | None = None
+
+    def detach(self):
+        """Break the pin on the source snapshot (the store calls this
+        when data mutates): small results materialize; large ones stay
+        lazy."""
+        if self._mat is None and len(self.idx) <= 10_000:
+            self.materialize()
+
+    def column(self, name: str):
+        """One column of the result, without copying the others."""
+        if self._mat is not None:
+            return self._mat.col(name)
+        return self.source.col(name).take(self.idx)
+
+    def materialize(self) -> FeatureBatch:
+        if self._mat is not None:
+            return self._mat
+        if (self.row_order and self.properties is None
+                and len(self.idx) == self.source.n
+                and self.idx[0] == 0 and self.idx[-1] == self.source.n - 1):
+            # full-table result in ascending row order: endpoint and
+            # length checks imply identity, so the immutable source
+            # snapshot IS the result
+            self._mat = self.source
+            return self._mat
+        batch = self.source.take(self.idx)
+        if self.properties is not None:
+            cols = {p: batch.columns[p] for p in self.properties}
+            batch = FeatureBatch(
+                _project_sft(self.source.sft, self.properties),
+                batch.ids, cols)
+        self._mat = batch
+        self.source = None  # release the snapshot pin
+        return batch
+
+
+class QueryResult:
+    """Result of a feature query: the matching row ids (``rows``, in
+    result order), the feature ids, and the result's columns.
+
+    ``ids`` may be handed over as a thunk (gathered on first read) and
+    ``batch`` as a _LazyBatch (copied on first read). ``batch`` is None
+    when the type held no data at all; a zero-hit query still yields an
+    (empty) batch."""
+
+    def __init__(self, rows: np.ndarray, ids, batch, explain: Explainer,
+                 plan: FilterStrategy):
         self.rows = rows
-        self.ids = ids
+        self._ids = ids
+        self._batch = batch          # FeatureBatch | None | _LazyBatch
         self.explain = explain
         self.plan = plan
+
+    @property
+    def ids(self) -> np.ndarray:
+        if callable(self._ids):
+            self._ids = self._ids()
+        return self._ids
+
+    @property
+    def batch(self) -> FeatureBatch | None:
+        if isinstance(self._batch, _LazyBatch):
+            self._batch = self._batch.materialize()
+        return self._batch
+
+    @batch.setter
+    def batch(self, value):
+        self._batch = value
+
+    def column(self, name: str):
+        """One column of the result; a lazy batch copies only it."""
+        if isinstance(self._batch, _LazyBatch):
+            return self._batch.column(name)
+        return self.batch.col(name)
 
     @property
     def n(self) -> int:
         return len(self.rows)
 
+    def features(self) -> Iterator[dict[str, Any]]:
+        if self.batch is None:
+            return iter(())
+        return (self.batch.feature(i) for i in range(self.batch.n))
+
     def __repr__(self) -> str:
         return f"QueryResult(n={self.n}, plan={self.plan.index})"
+
+
+def _attr_vis_masks(vis_rows, n_attr: int, auths) -> np.ndarray:
+    """(len(rows), n_attr) bool authorization matrix for
+    attribute-level visibility labels (comma-joined per attribute;
+    empty part = world-readable). Each distinct label is parsed once."""
+    labels, inverse = distinct_labels(vis_rows)
+    auth_set = set(auths)
+    per = np.ones((len(labels), n_attr), dtype=bool)
+    for k, v in enumerate(labels.tolist()):
+        if v:
+            parts = (v.split(",") + [""] * n_attr)[:n_attr]
+            per[k] = [not p or parse_visibility(p).evaluate(auth_set)
+                      for p in parts]
+    return per[inverse.reshape(-1)]
+
+
+def _null_cells(col, bad: np.ndarray):
+    """Copy of a column with `bad` rows nulled (unauthorized
+    attribute values at query time)."""
+    if isinstance(col, StringColumn):
+        codes = col.codes.copy()
+        codes[bad] = -1
+        return StringColumn(col.name, codes, col.vocab)
+    return dataclasses.replace(col, valid=np.asarray(col.valid) & ~bad)
 
 
 class _TypeState:
@@ -102,13 +238,15 @@ class _TypeState:
     device columns in place (within capacity) and merges it into the
     z-key sort orders instead of rebuilding them. The attribute indexes
     and the residual's device columns are built on first use and dropped
-    on every flush."""
+    on every flush. A delete drops every device and index structure;
+    the next read rebuilds them from the kept rows."""
 
     def __init__(self, sft: SimpleFeatureType, device):
         self.sft = sft
         self.device = device
         self._batch: FeatureBatch | None = None
-        self._pending: list[FeatureBatch] = []
+        # (batch, visibilities or None when no row has a label)
+        self._pending: list[tuple[FeatureBatch, np.ndarray | None]] = []
         self._pending_n = 0
         self.scan_data: zscan.ScanData | None = None
         self.zindex: ZKeyIndex | None = None
@@ -118,6 +256,16 @@ class _TypeState:
         self.dirty = False
         self.attr_idx: dict[str, AttributeKeyIndex | None] = {}
         self.devcols: residual.DeviceColumns | None = None
+        # per-feature visibility labels (None or "" = world-readable),
+        # an object array aligned with the flushed batch; None while no
+        # written row has a label (has_vis False), so unlabeled stores
+        # keep no per-row objects. Attribute-level schemas store
+        # comma-joined per-attribute labels in the same array.
+        self._vis: np.ndarray | None = None
+        self.has_vis = False
+        # outstanding lazy results: on a mutation, small ones are
+        # detached (materialized) so they stop pinning the old snapshot
+        self.live_lazy: weakref.WeakSet = weakref.WeakSet()
 
     @property
     def n(self) -> int:
@@ -128,9 +276,34 @@ class _TypeState:
         self.flush()
         return self._batch
 
-    def append(self, batch: FeatureBatch):
-        self._pending.append(batch)
+    @property
+    def vis(self) -> np.ndarray | None:
+        """The flushed rows' visibility labels (None: no row has one)."""
+        self.flush()
+        return self._vis
+
+    def append(self, batch: FeatureBatch, visibilities=None):
+        # validate everything BEFORE mutating: a failed write must not
+        # leave batch and labels misaligned
+        vis = None
+        if visibilities is not None:
+            vis = np.asarray(visibilities, dtype=object)
+            if len(vis) != batch.n:
+                raise ValueError("visibilities length mismatch")
+            distinct = set(v for v in vis.tolist() if v)
+            validate_labels(self.sft, distinct)  # raises on malformed
+            if distinct:
+                self.has_vis = True
+            else:
+                vis = None
+        self._pending.append((batch, vis))
         self._pending_n += batch.n
+        self._detach_live()
+
+    def _detach_live(self):
+        for lb in list(self.live_lazy):
+            lb.detach()
+        self.live_lazy.clear()
 
     def _millis(self, batch: FeatureBatch) -> np.ndarray:
         dtg = self.sft.dtg_field
@@ -140,9 +313,17 @@ class _TypeState:
     def flush(self):
         if not self._pending:
             return
-        delta = FeatureBatch.concat_all(self._pending)
+        delta = FeatureBatch.concat_all([b for b, _ in self._pending])
         can_merge = (self._batch is not None and not self.dirty
                      and self.scan_data is not None)
+        old_n = 0 if self._batch is None else self._batch.n
+        if self._vis is not None or any(v is not None
+                                        for _, v in self._pending):
+            self._vis = np.concatenate(
+                [self._vis if self._vis is not None
+                 else np.full(old_n, None, dtype=object)]
+                + [np.full(b.n, None, dtype=object) if v is None else v
+                   for b, v in self._pending])
         self._batch = delta if self._batch is None else self._batch.concat(delta)
         self._pending = []
         self._pending_n = 0
@@ -171,6 +352,26 @@ class _TypeState:
         self.zindex = self.zindex.extend(
             col.x, col.y, dmillis if self.sft.dtg_field else None)
         self.dirty = False
+
+    def delete(self, ids: set[str]):
+        """Drop the rows with these feature ids. The device columns,
+        z-index, host split, attribute indexes and residual columns go
+        too (the in-place append path assumes rows only grow); the next
+        read rebuilds them from the kept rows."""
+        self._detach_live()
+        self.flush()
+        if self._batch is None:
+            return
+        keep = ~np.isin(self._batch.ids.astype(str), list(ids))
+        self._batch = self._batch.take(np.flatnonzero(keep))
+        if self._vis is not None:
+            self._vis = self._vis[keep]
+        self.scan_data = None
+        self.zindex = None
+        self.host_xhi = self.host_yhi = None
+        self.attr_idx.clear()
+        self.devcols = None
+        self.dirty = True
 
     def ensure_index(self):
         """(Re)build the device columns and the z-key index if writes
@@ -269,14 +470,32 @@ class InMemoryDataStore(DataStore):
             raise KeyError(f"no such schema: {type_name}")
         return self._types[type_name]
 
+    @_synchronized
+    def remove_schema(self, type_name: str):
+        """Drop a type and its rows. Its device tensors lose their last
+        reference here, so their memory returns to the allocator."""
+        st = self._types.pop(type_name, None)
+        if st is not None:
+            # outstanding small lazy results must not pin the dropped
+            # column snapshot
+            st._detach_live()
+
     # -- writes --------------------------------------------------------------
 
     @_synchronized
-    def write(self, type_name: str, batch: FeatureBatch):
+    def write(self, type_name: str, batch: FeatureBatch, visibilities=None):
+        """Append a batch; ``visibilities`` gives one label per row (None
+        or "" for world-readable; per-attribute, comma-joined, when the
+        schema's visibility level is 'attribute')."""
         st = self._state(type_name)
         if batch.sft != st.sft:
             raise ValueError("batch schema does not match store schema")
-        st.append(batch)
+        st.append(batch, visibilities)
+
+    @_synchronized
+    def delete(self, type_name: str, ids):
+        """Remove the features with these ids."""
+        self._state(type_name).delete(set(map(str, ids)))
 
     @_synchronized
     def count(self, type_name: str) -> int:
@@ -289,10 +508,11 @@ class InMemoryDataStore(DataStore):
             if type_name is None:
                 raise ValueError("type_name required with a filter string")
             q = Query(type_name, q)
-        unknown = set(q.hints) - {QueryHints.QUERY_INDEX}
+        unknown = set(q.hints) - {QueryHints.QUERY_INDEX, QueryHints.SAMPLING,
+                                  QueryHints.SAMPLE_BY}
         if unknown:
             raise _later(f"query hints {sorted(unknown)}",
-                         "sampling/density/stats/bin/arrow")
+                         "stats/arrow pushdown")
         return q
 
     @_synchronized
@@ -302,13 +522,12 @@ class InMemoryDataStore(DataStore):
         st = self._state(q.type_name)
         explain = Explainer(explain_out)
         explain.push(lambda: f"Planning '{q.type_name}' filter={q.filter}")
-        idx, strategy = self._matching_rows(q, st, explain)
-        if q.max_features is not None:
-            idx = idx[:q.max_features]
-        ids = (st.batch.ids[idx] if st.batch is not None
-               else np.empty(0, dtype=object))
-        explain(f"Hits: {len(idx)}").pop()
-        return QueryResult(idx, ids, explain, strategy)
+        idx, strategy, attr_mask = self._matching_rows(q, st, explain)
+        if strategy.index == "empty":
+            explain.pop()
+            return QueryResult(idx, np.empty(0, dtype=object), None, explain,
+                               strategy)
+        return self._finish_query(q, st, idx, attr_mask, strategy, explain)
 
     @_synchronized
     def query_batched(self, queries: list[Query],
@@ -322,7 +541,9 @@ class InMemoryDataStore(DataStore):
         through ``query()`` one by one, so the result list is exactly
         what per-query ``query()`` calls return, id for id, in input
         order. A type with fewer than two fusible queries, and a
-        one-element list, go through ``query()`` entirely."""
+        one-element list, go through ``query()`` entirely. The fused
+        queries take the same post-scan stages as ``query()``:
+        visibility, sampling, sort, max_features and projection."""
         queries = [self._as_query(q, None) for q in queries]
         if len(queries) <= 1:
             return [self.query(q, explain_out=explain_out) for q in queries]
@@ -350,11 +571,9 @@ class InMemoryDataStore(DataStore):
             for (i, (strategy, explain, _b, _iv)), idx in zip(fused.items(),
                                                                rows_per_q):
                 q = queries[i]
-                if q.max_features is not None:
-                    idx = idx[:q.max_features]
-                explain(f"Hits: {len(idx)}").pop()
-                results[i] = QueryResult(idx, st.batch.ids[idx], explain,
-                                         strategy)
+                idx, attr_mask = self._post_scan(q, st, idx, explain)
+                results[i] = self._finish_query(q, st, idx, attr_mask,
+                                                strategy, explain)
         return results  # type: ignore[return-value]
 
     def _fusible_plan(self, q: Query, st: _TypeState, explain_out):
@@ -402,23 +621,184 @@ class InMemoryDataStore(DataStore):
     @_synchronized
     def query_count(self, q: Query | str,
                     type_name: str | None = None) -> int:
-        """Count without gathering ids: the same row selection, then the
-        length."""
+        """Count without gathering ids or columns: the same row
+        selection (plan, scan, visibility, sampling), then the length."""
         q = self._as_query(q, type_name)
         st = self._state(q.type_name)
-        idx, _ = self._matching_rows(q, st, Explainer())
+        idx, _, _ = self._matching_rows(q, st, Explainer())
         n = len(idx)
         return n if q.max_features is None else min(n, q.max_features)
 
     def _matching_rows(self, q: Query, st: _TypeState, explain: Explainer):
+        """The shared row-selection pipeline: plan, scan, visibility,
+        sampling. (idx, strategy, attr_mask): attr_mask is the rows'
+        attribute authorization matrix on an attribute-level schema with
+        labels, else None."""
         _check_filter(q.filter)
         if st.n == 0:
             explain("Store is empty")
             return (np.empty(0, dtype=np.int64),
-                    FilterStrategy("empty", None, None))
+                    FilterStrategy("empty", None, None), None)
         strategy = decide_strategy(st.sft, q, _indices(st.sft), st.n,
                                    explain=explain)
-        return self._execute(st, strategy, explain), strategy
+        idx = self._execute(st, strategy, explain)
+        idx, attr_mask = self._post_scan(q, st, idx, explain)
+        return idx, strategy, attr_mask
+
+    def _post_scan(self, q: Query, st: _TypeState, idx: np.ndarray,
+                   explain: Explainer):
+        """Post-scan row stages shared by the scalar and batched
+        pipelines: visibility filtering (row- or attribute-level) and
+        statistical sampling. Returns (idx, attr_mask)."""
+        attr_mask = None
+        if q.auths is not None or st.has_vis:
+            auths = q.auths or []
+            if st.sft.visibility_level == "attribute" and st.has_vis:
+                # a row survives when ANY of its attributes is
+                # authorized; the mask rides along (aligned with idx)
+                # so materialization nulls cells without re-parsing
+                m = _attr_vis_masks(st.vis[idx], len(st.sft.attributes),
+                                    auths)
+                keep = m.any(axis=1)
+                idx = idx[keep]
+                attr_mask = m[keep]
+                # leak guard: the scan matched on RAW values, but the
+                # caller must not learn hidden cells through the
+                # predicate. Re-evaluate on the NULLED view; hidden
+                # cells compare as NULL (UNKNOWN -> excluded).
+                if (not attr_mask.all()
+                        and not isinstance(q.filter, ast.Include)):
+                    refd = ast.props_of(q.filter)
+                    by_name = {a.name: j for j, a
+                               in enumerate(st.sft.attributes)}
+                    hidden_refd = [a for a in refd if a in by_name
+                                   and not attr_mask[:, by_name[a]].all()]
+                    if hidden_refd:
+                        sub = st.batch.take(idx)
+                        cols = dict(sub.columns)
+                        for a in hidden_refd:
+                            cols[a] = _null_cells(
+                                sub.col(a), ~attr_mask[:, by_name[a]])
+                        nulled = FeatureBatch(sub.sft, sub.ids, cols)
+                        ok = np.asarray(evaluate(q.filter, nulled),
+                                        dtype=bool)
+                        idx = idx[ok]
+                        attr_mask = attr_mask[ok]
+                explain(f"Attribute-level visibility filter applied "
+                        f"({len(auths)} auths)")
+            else:
+                if st.has_vis:
+                    idx = idx[evaluate_visibilities(st.vis[idx], auths)]
+                explain(f"Visibility filter applied ({len(auths)} auths)")
+
+        rate = q.hints.get(QueryHints.SAMPLING)
+        if rate is not None and len(idx):
+            by_attr = q.hints.get(QueryHints.SAMPLE_BY)
+            by = None
+            if by_attr is not None:
+                by = _sample_keys(st.batch.col(by_attr), idx)
+            smask = sample_mask(len(idx), float(rate), by)
+            idx = idx[smask]
+            if attr_mask is not None:
+                attr_mask = attr_mask[smask]
+            explain(f"Sampling applied: rate={rate}")
+        return idx, attr_mask
+
+    def _finish_query(self, q: Query, st: _TypeState, idx: np.ndarray,
+                      attr_mask, strategy: FilterStrategy,
+                      explain: Explainer) -> QueryResult:
+        """Result assembly shared by the scalar and batched pipelines:
+        sort, max_features, projection check, lazy batch with
+        attribute-cell redaction, id gather. (The reference's query
+        metrics and audit record wait for the serving item of ROADMAP.md
+        section 6, queue 1.)"""
+        if q.sort_by is not None:
+            hidden = None
+            if attr_mask is not None:
+                # hidden sort values must not leak through the row
+                # ordering: they sort as NULL
+                aj = {a.name: j for j, a
+                      in enumerate(st.sft.attributes)}.get(q.sort_by)
+                if aj is not None:
+                    hidden = ~attr_mask[:, aj]
+            order = sort_order(st.batch, q.sort_by, q.sort_desc, idx,
+                               hidden=hidden)
+            idx = idx[order]
+            if attr_mask is not None:
+                attr_mask = attr_mask[order]
+        if q.max_features is not None:
+            idx = idx[:q.max_features]
+            if attr_mask is not None:
+                attr_mask = attr_mask[:q.max_features]
+        if q.properties is not None:
+            # validate projection names now: errors belong to query(),
+            # not to whenever (or whether) .batch is first read
+            missing = [p for p in q.properties if p not in st.batch.columns]
+            if missing:
+                raise KeyError(f"unknown propert"
+                               f"{'ies' if len(missing) > 1 else 'y'}: "
+                               f"{', '.join(missing)}")
+        batch: Any = _LazyBatch(st.batch, idx, q.properties,
+                                row_order=q.sort_by is None)
+        st.live_lazy.add(batch)
+        if attr_mask is not None and not attr_mask.all():
+            # null unauthorized attribute values in the result rows
+            # (KryoVisibilityRowEncoder: the row is assembled from the
+            # cells the scanner's auths can see)
+            mb = batch.materialize()
+            by_name = {a.name: j for j, a in enumerate(st.sft.attributes)}
+            cols = {}
+            for a in mb.sft.attributes:
+                bad = ~attr_mask[:, by_name[a.name]]
+                cols[a.name] = (_null_cells(mb.col(a.name), bad)
+                                if bad.any() else mb.col(a.name))
+            batch = FeatureBatch(mb.sft, mb.ids, cols)
+        if isinstance(batch, FeatureBatch):
+            ids = batch.ids
+        elif len(idx) <= 100_000:
+            # eager id gather (the result's identity), lazy columns
+            ids = st.batch.ids[idx]
+        else:
+            # deferred gather against the immutable batch snapshot:
+            # large results are often counted or read by column only
+            src = st.batch
+            ids = (lambda: src.ids[idx])
+        explain(f"Hits: {len(idx)}").pop()
+        return QueryResult(idx, ids, batch, explain, strategy)
+
+    # -- pushdowns -----------------------------------------------------------
+
+    @_synchronized
+    def density(self, type_name: str, ecql, bbox, width: int, height: int,
+                weight_attr: str | None = None) -> np.ndarray:
+        """Density surface (DensityScan pushdown analog): the float32
+        (height, width) heatmap of the matching features over ``bbox``,
+        each weighted by ``weight_attr`` (a null weight drops the row),
+        summed by the density kernel on the store's device. Computed on
+        every call (the reference's result cache waits for the serving
+        item of ROADMAP.md section 6, queue 1)."""
+        st = self._state(type_name)
+        if st.n == 0:
+            return np.zeros((height, width), dtype=np.float32)
+        res = self.query(Query(type_name, ecql))
+        if res.n == 0:
+            return np.zeros((height, width), dtype=np.float32)
+        x, y, mask, w = density_columns(res, st.sft.geom_field, bbox,
+                                        weight_attr)
+        return density_grid(x, y, mask, bbox, width, height, w,
+                            device=self.device)
+
+    @_synchronized
+    def bin_query(self, type_name: str, ecql, track: str | None = None,
+                  label: str | None = None, sort: bool = False) -> bytes:
+        """BIN-format results (BinAggregatingScan analog): 16-byte (or
+        24-byte labeled) records of the matching features."""
+        st = self._state(type_name)
+        res = self.query(Query(type_name, ecql))
+        if res.batch is None or res.batch.n == 0:
+            return b""
+        return encode_bin_batch(st.sft, res.ids, res.batch, track=track,
+                                label=label, sort=sort)
 
     def _execute(self, st: _TypeState, strategy: FilterStrategy,
                  explain: Explainer) -> np.ndarray:
@@ -591,6 +971,43 @@ class InMemoryDataStore(DataStore):
         mask = self._patch_mask(st, mask, st.host_xhi, st.host_yhi, None,
                                 sq, explain)
         return np.flatnonzero(mask)
+
+
+def density_columns(res: QueryResult, geom_field: str, bbox,
+                    weight_attr: str | None = None):
+    """(x, y, mask, weights) of a query result for the density grid:
+    the point coordinates (f64), the rows to count (a valid point, and a
+    valid weight when weighted), and the weights (None: unit). Only
+    these columns of the result are copied. Invalid points sit at the
+    bbox corner, masked."""
+    col = res.column(geom_field)
+    mask = col.valid.copy()
+    w = None
+    if weight_attr is not None:
+        wcol = res.column(weight_attr)
+        w = np.where(wcol.valid, wcol.values, 0.0).astype(np.float32)
+        mask &= wcol.valid
+    x = np.where(col.valid, col.x, bbox[0])
+    y = np.where(col.valid, col.y, bbox[1])
+    return x, y, mask, w
+
+
+def _sample_keys(col, idx: np.ndarray) -> np.ndarray:
+    """SAMPLE_BY group keys of rows ``idx`` as strings, a null as the
+    empty string (sample_mask's argsort needs a total order); a string
+    column through its vocabulary, any other column value by value."""
+    if isinstance(col, StringColumn):
+        codes = col.codes[idx]
+        return np.where(codes >= 0, col.vocab[np.maximum(codes, 0)],
+                        "").astype(str)
+    return np.array([col.value(int(i)) or "" for i in idx],
+                    dtype=object).astype(str)
+
+
+def _project_sft(sft: SimpleFeatureType, props: list[str]) -> SimpleFeatureType:
+    return SimpleFeatureType(
+        sft.type_name, [a for a in sft.attributes if a.name in props],
+        sft.user_data)
 
 
 def _scan_inputs(sft: SimpleFeatureType, strategy: FilterStrategy):

@@ -3,7 +3,7 @@
 
     python3 kernel_ab.py [--seed 0] [--rows 100000000]
                          [--store-rows 10000000] [--predicates-only]
-                         TREE [TREE ...]
+                         [--density-only] [--store-only] TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repo (a ``git archive`` of a
 commit unpacked into a git-ignored directory will do). The trees run
@@ -58,6 +58,24 @@ compares two versions within one call. Each process:
   the host's work included), and a wrapper that keeps prepared launches
   also cold (its cache cleared before each call).
   ``--predicates-only`` times these and nothing else.
+- where the tree has the density kernel (``kernels.density_grid``),
+  times it held at chip_smoke.py's surface phase's shapes
+  (``density_10m``): the rows of its 73-day world query from the
+  predicates phase's data, weighted by NumMentions on the 2048x1024
+  grid, the same rows in one cell (a 1x1 grid), and the rows of its
+  30-day tile unweighted on the 256x256 grid; the inputs made by the
+  tree's own ``density_upload`` and ``density_scalars``, each result
+  checked against the tree's plain version (unit weights equal,
+  weighted within 2 * n_cell * 2^-24 * sum |w| a cell).
+  ``--density-only`` times these and nothing else.
+- ``--store-only`` times nothing of the above: the tree's store on
+  chip_smoke.py's store phase (this checkout's ``phase_store``: the
+  same 10M rows and chunked writes), then each of its queries in the
+  gathered and the dense tier STORE_RUNS more times, host clock until
+  the ids are on the host (``store_10m``: p50 and quartiles in ms); and
+  the dense north-star query in parts (the scan kernel with the mask's
+  copy to the host, the f64 patch; medians) and in a cProfile of five
+  calls.
 
 Medians of 20 launches (CUDA events; 10 for the batched kernels). Every
 gathered and batched result is checked against its plain version.
@@ -421,8 +439,110 @@ def predicate_case(smoke, seed: int, rows: int) -> dict:
     return out
 
 
+def density_case(smoke, seed: int, rows: int) -> dict:
+    """The tree's density kernel at chip_smoke.py's surface-phase
+    shapes, held, each checked against the tree's plain version."""
+    import torch
+    from geomesa_tpu_torch.scan import aggregations, kernels
+    dev = torch.device("cuda")
+    d = smoke.predicate_data(seed, rows)
+    ms = d["ms"]
+    world = ((ms > smoke.SURFACE_WORLD_DAYS[0] * MS_DAY)
+             & (ms < smoke.SURFACE_WORLD_DAYS[1] * MS_DAY))
+    tile = (smoke._in_box(d["x"], d["y"], smoke.SURFACE_TILE)
+            & (ms > smoke.SURFACE_TILE_DAYS[0] * MS_DAY)
+            & (ms < smoke.SURFACE_TILE_DAYS[1] * MS_DAY))
+    ment = np.where(d["mentions_valid"], d["mentions"], 0)
+    out = {}
+    for name, sel, bbox, w, h, wts in (
+            ("world_2048x1024_NumMentions", world, smoke.WORLD, 2048, 1024,
+             ment),
+            ("world_1x1_NumMentions", world, smoke.WORLD, 1, 1, ment),
+            ("tile_256", tile, smoke.SURFACE_TILE, 256, 256, None)):
+        idx = np.flatnonzero(sel)
+        mask = (d["mentions_valid"][idx] if wts is not None
+                else np.ones(len(idx), bool))
+        xt, yt, wt, mt = aggregations.density_upload(
+            d["x"][idx], d["y"][idx], mask,
+            None if wts is None else wts[idx], dev)
+        args = (xt, yt, wt, mt, *aggregations.density_scalars(bbox, w, h),
+                w, h)
+        got = kernels.density_grid(*args)
+        want = kernels.density_grid_plain(*args)
+        diff = (got.double() - want.double()).abs().flatten()
+        if wt is None:
+            ok = torch.equal(got, want)
+        else:
+            cells = kernels.density_cells_plain(*args[:2], *args[4:])[mt]
+            n_cell = torch.bincount(cells, minlength=w * h).double()
+            abs_w = torch.bincount(cells, wt[mt].abs().double(),
+                                   minlength=w * h)
+            ok = bool((diff <= 2 * n_cell * 2.0**-24 * abs_w).all())
+        if not ok:
+            raise SystemExit(f"density_grid != plain ({name})")
+        out[name] = {"rows": len(idx), "max_abs_err": float(diff.max()),
+                     "ms": cuda_ms(lambda: kernels.density_grid(*args),
+                                   True)}
+    return out
+
+
+STORE_RUNS = 21
+
+
+def store_case(smoke, seed: int, rows: int) -> dict:
+    """The tree's store on chip_smoke.py's store phase, each query of it
+    timed STORE_RUNS times per tier (host clock, ids on the host)."""
+    import time
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    _, ds, _ = smoke.phase_store(seed, rows, {"max_abs_err": 0})
+    out = {}
+    for tier, (h, thr) in {"gathered": ("0", "1.0"),
+                           "dense": ("0", "0")}.items():
+        SystemProperty("geomesa.scan.host.rows").set(h)
+        SystemProperty("geomesa.scan.index.threshold").set(thr)
+        for qi, (ecql, _b, _iv) in enumerate(smoke.STORE_QUERIES):
+            times = []
+            for _ in range(STORE_RUNS):
+                t0 = time.perf_counter()
+                ds.query(ecql, "ais").ids
+                times.append((time.perf_counter() - t0) * 1e3)
+            q1, q2, q3 = statistics.quantiles(times, n=4)
+            out[f"{tier}_{qi}"] = {"p50_ms": q2, "q1_ms": q1, "q3_ms": q3}
+    # the dense north-star query in parts: the scan kernel with the
+    # mask's copy to the host, the f64 boundary patch, and a cProfile
+    # of the whole query (top functions by own time)
+    from geomesa_tpu_torch.scan import zscan
+    st = ds._types["ais"]
+    ecql, boxes, iv = smoke.STORE_QUERIES[0]
+    sq = zscan.make_query(boxes, [(iv[0] + 1, iv[1] - 1)])
+
+    def device():
+        return zscan.scan_mask(st.scan_data, sq)[:st.n].cpu().numpy()
+
+    def patch(mask):
+        cand = zscan.boundary_candidates(st.host_xhi, st.host_yhi, sq)
+        col = st.batch.col("geom")
+        return zscan.exact_patch(mask, cand, col.x, col.y,
+                                 st.batch.col("dtg").millis, sq)
+    mask = device()
+    parts = {"device_ms": [], "patch_ms": []}
+    for _ in range(STORE_RUNS):
+        t0 = time.perf_counter()
+        mask = device()
+        t1 = time.perf_counter()
+        patch(mask)
+        t2 = time.perf_counter()
+        parts["device_ms"].append((t1 - t0) * 1e3)
+        parts["patch_ms"].append((t2 - t1) * 1e3)
+    out["dense_0_parts"] = {k: statistics.median(v) for k, v in parts.items()}
+    out["dense_0_profile"] = smoke.profile_top(
+        lambda: [ds.query(ecql, "ais").ids for _ in range(5)], top=10)
+    return out
+
+
 def worker(tree: str, seed: int, rows: int, store_rows: int,
-           predicates_only: bool = False) -> dict:
+           predicates_only: bool = False, density_only: bool = False,
+           store_only: bool = False) -> dict:
     sys.path.insert(0, tree)
     import torch
     from geomesa_tpu_torch.index.zkeys import ZKeyIndex, search_rows
@@ -434,6 +554,13 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
     if predicates_only:
         return {"tree": tree, "predicates_10m": predicate_case(
             _smoke(), seed, store_rows)}
+    if store_only:
+        return {"tree": tree, "store_10m": store_case(_smoke(), seed,
+                                                      store_rows)}
+    has_density = hasattr(kernels, "density_grid")
+    if density_only:
+        return {"tree": tree, "density_10m": density_case(
+            _smoke(), seed, store_rows) if has_density else None}
     probe = build_probe()
     buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
@@ -521,6 +648,8 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
     if os.path.exists(os.path.join(tree, "geomesa_tpu_torch", "scan",
                                    "residual.py")):
         res["predicates_10m"] = predicate_case(smoke, seed, store_rows)
+    if has_density:
+        res["density_10m"] = density_case(smoke, seed, store_rows)
     return res
 
 
@@ -532,11 +661,16 @@ def main():
     ap.add_argument("--store-rows", type=int, default=10_000_000)
     ap.add_argument("--predicates-only", action="store_true",
                     help="time only the predicate kernels (predicates_10m)")
+    ap.add_argument("--density-only", action="store_true",
+                    help="time only the density kernel (density_10m)")
+    ap.add_argument("--store-only", action="store_true",
+                    help="time only the store's queries (store_10m)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         print(json.dumps(worker(args.worker, args.seed, args.rows,
-                                args.store_rows, args.predicates_only)),
+                                args.store_rows, args.predicates_only,
+                                args.density_only, args.store_only)),
               flush=True)
         return 0
     if not args.trees:
@@ -549,7 +683,9 @@ def main():
             [sys.executable, os.path.abspath(__file__), "--worker",
              os.path.abspath(tree), "--seed", str(args.seed), "--rows",
              str(args.rows), "--store-rows", str(args.store_rows),
-             *(["--predicates-only"] if args.predicates_only else [])],
+             *(["--predicates-only"] if args.predicates_only else []),
+             *(["--density-only"] if args.density_only else []),
+             *(["--store-only"] if args.store_only else [])],
             capture_output=True, text=True, cwd=ROOT)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)

@@ -19,7 +19,7 @@ from geomesa_tpu_torch import FeatureBatch, InMemoryDataStore, Query
 from geomesa_tpu_torch import parse_spec
 from geomesa_tpu_torch.filters import parse_ecql
 from geomesa_tpu_torch.geometry import parse_wkt
-from geomesa_tpu_torch.scan import gscan, kernels, residual, zscan
+from geomesa_tpu_torch.scan import aggregations, gscan, kernels, residual, zscan
 
 PKG = os.path.dirname(geomesa_tpu_torch.__file__)
 MS_DAY = 86_400_000
@@ -28,7 +28,9 @@ MS_DAY = 86_400_000
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, geomesa_tpu_torch, geomesa_tpu_torch.store, "
             "geomesa_tpu_torch.scan.kernels, geomesa_tpu_torch.scan.batcher, "
-            "geomesa_tpu_torch.metrics\n"
+            "geomesa_tpu_torch.metrics, geomesa_tpu_torch.security, "
+            "geomesa_tpu_torch.scan.aggregations, "
+            "geomesa_tpu_torch.store.common\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -57,7 +59,9 @@ def test_no_source_imports_jax_or_reference():
     assert {"metrics/__init__.py", "metrics/registry.py",
             "scan/batcher.py", "scan/zscan.py", "scan/residual.py",
             "scan/gscan.py", "index/attr.py",
-            "analytics/st_functions.py"} <= seen
+            "analytics/st_functions.py", "scan/aggregations.py",
+            "security/__init__.py", "security/visibility.py",
+            "store/common.py"} <= seen
 
 
 def test_store_defaults_to_cuda(monkeypatch):
@@ -171,7 +175,8 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
     for name in ("scan_mask_plain", "scan_mask_gather_plain",
                  "scan_count_plain", "scan_batch_bits_plain",
                  "compact_bits_plain", "compact_prefix_plain", "_predicate",
-                 "_candidates", "pip_mask_plain", "residual_mask_plain"):
+                 "_candidates", "pip_mask_plain", "residual_mask_plain",
+                 "density_grid_plain", "density_cells_plain"):
         monkeypatch.setattr(kernels, name, refuse)
     x, y, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -186,10 +191,13 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
     batch = _attr_batch(10_000)
     residual.device_mask(parse_ecql("age > 5 AND name LIKE 'w0%'"), batch,
                          residual.DeviceColumns(batch, cuda))
+    aggregations.density_grid(x, y, np.ones(len(x), bool), (-90, -45, 90, 45),
+                              64, 32, device=cuda)
     assert kernels.launches == {"scan_mask": 1, "scan_mask_gather": 1,
                                 "scan_count": 1, "scan_batch_bits": 1,
                                 "compact_prefix": 1, "compact_bits": 1,
-                                "pip_mask": 1, "residual_mask": 1}
+                                "pip_mask": 1, "residual_mask": 1,
+                                "density_grid": 1}
 
 
 @pytest.mark.gpu
@@ -789,3 +797,173 @@ def test_residual_refuses_misaligned_columns(cuda):
         kernels.residual_mask(*(torch.from_numpy(a) for a in
                                 (prog.code, prog.consts, prog.table)),
                               [shifted], 999)
+
+
+# -- the density kernel --------------------------------------------------------
+
+def _density_inputs(n, bbox, weights, device, seed=0):
+    """``n`` seeded points around ``bbox`` (a tenth outside each side,
+    some on xmax/ymax, the first ones at +-1e30, +-inf and NaN), a
+    mask of about nine in ten, and unit (None), integer or fractional
+    weights, as the kernel's tensors on ``device``."""
+    rng = np.random.default_rng(seed + n)
+    xmin, ymin, xmax, ymax = bbox
+    wx, wy = max(xmax - xmin, 1.0), max(ymax - ymin, 1.0)
+    x = rng.uniform(xmin - 0.2 * wx, xmax + 0.2 * wx, n)
+    y = rng.uniform(ymin - 0.2 * wy, ymax + 0.2 * wy, n)
+    x[n // 3:n // 3 + n // 20] = xmax
+    y[n // 2:n // 2 + n // 20] = ymax
+    special = [1e30, -1e30, np.inf, -np.inf, np.nan]
+    x[:min(n, 5)] = special[:min(n, 5)]
+    y[5:min(n, 10)] = special[:max(0, min(n, 10) - 5)]
+    mask = rng.random(n) < 0.9
+    w = {"unit": None,
+         "integer": rng.integers(-100, 1000, n).astype(np.float32),
+         "fractional": rng.uniform(-3.0, 7.0, n).astype(np.float32)}[weights]
+    xt, yt, wt, mt = aggregations.density_upload(x, y, mask, w, device)
+    return (xt, yt, wt, mt, *aggregations.density_scalars(
+        bbox, 1, 1)[:2])
+
+
+def _density_check(xt, yt, wt, mt, bbox, width, height, exact):
+    """The kernel against its plain version on the same device tensors:
+    equal with unit weights; with ``exact`` integer weights, equal on
+    every cell whose sum |w| is under 2^24 (every partial sum an exact
+    f32 integer); else each cell within 2 * n_cell * 2^-24 * sum |w|."""
+    xmin, ymin, sx, sy = aggregations.density_scalars(bbox, width, height)
+    kernels.reset_launches()
+    got = kernels.density_grid(xt, yt, wt, mt, xmin, ymin, sx, sy, width,
+                               height)
+    torch.cuda.synchronize()
+    assert kernels.launches["density_grid"] == (1 if xt.shape[0] else 0)
+    want = kernels.density_grid_plain(xt, yt, wt, mt, xmin, ymin, sx, sy,
+                                      width, height)
+    if wt is None:
+        assert torch.equal(got, want)
+        return got
+    cells = kernels.density_cells_plain(xt, yt, xmin, ymin, sx, sy, width,
+                                        height)[mt]
+    n_cell = torch.bincount(cells, minlength=width * height).double()
+    abs_w = torch.bincount(cells, wt[mt].abs().double(),
+                           minlength=width * height)
+    bound = (2 * n_cell * 2.0**-24 * abs_w).view(height, width)
+    diff = (got.double() - want.double()).abs()
+    if exact:
+        small = (abs_w < 2**24).view(height, width)
+        assert bool((diff[small] == 0).all())
+        bound = torch.where(small, torch.zeros_like(bound), bound)
+    assert bool((diff <= bound).all())
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weights", ["unit", "integer", "fractional"])
+@pytest.mark.parametrize("width,height", [(1, 1), (256, 256), (2048, 1024)])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 4097, 1_000_000])
+def test_density_kernel_matches_plain(cuda, n, width, height, weights):
+    bbox = (-30.0, -20.0, 50.0, 40.0)
+    xt, yt, wt, mt, _, _ = _density_inputs(n, bbox, weights, cuda)
+    _density_check(xt, yt, wt, mt, bbox, width, height, weights != "fractional")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bbox", [(3.0, 3.0, 3.0, 3.0), (0.0, 5.0, 0.0, 9.0),
+                                  (-1e-3, 7.0, 2e-3, 7.000001),
+                                  (-180.0, -90.0, 180.0, 90.0)])
+@pytest.mark.parametrize("weights", ["unit", "integer"])
+def test_density_kernel_degenerate_and_huge(cuda, bbox, weights):
+    """Degenerate bboxes (a scale of 0: inf * 0 is NaN, read as 0), tiny
+    ones, and points at +-1e30, +-inf and NaN, exactly."""
+    xt, yt, wt, mt, _, _ = _density_inputs(100_003, bbox, weights, cuda, 7)
+    _density_check(xt, yt, wt, mt, bbox, 300, 200, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4097, 1_000_000])
+def test_density_kernel_every_row_in_one_cell(cuda, n):
+    x = torch.full((n,), 2.5, device=cuda)
+    y = torch.full((n,), -1.25, device=cuda)
+    m = torch.ones(n, dtype=torch.bool, device=cuda)
+    got = _density_check(x, y, None, m, (0, -2, 4, 0), 8, 8, True)
+    assert int(got.max().item()) == n
+
+
+@pytest.mark.gpu
+def test_density_wrapper_raises_on_cuda(cuda):
+    x = torch.zeros(64, device=cuda)
+    m = torch.ones(64, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="devices"):
+        kernels.density_grid(x, x.cpu(), None, m, 0, 0, 1, 1, 4, 4)
+    with pytest.raises(ValueError, match="devices"):
+        kernels.density_grid(x, x, None, m.cpu(), 0, 0, 1, 1, 4, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.density_grid(x[1:33], x[:32], None, m[:32], 0, 0, 1, 1, 4, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.density_grid(x[:32], x[:32], None, m[1:33], 0, 0, 1, 1, 4, 4)
+
+
+@pytest.mark.gpu
+def test_store_density_and_bin_on_cuda_match_cpu(cuda):
+    rng = np.random.default_rng(13)
+    n = 60_000
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    x[::101] = np.nan
+    ms = 1_577_836_800_000 + rng.integers(0, 60 * MS_DAY, n)
+    wt = rng.integers(0, 50, n)
+    tone = rng.uniform(-10, 10, n)
+    tone[::37] = np.nan
+    stores = [InMemoryDataStore(), InMemoryDataStore(device="cpu")]
+    for s in stores:
+        s.create_schema("pts", "code:String,wt:Integer,tone:Double,"
+                        "dtg:Date,*geom:Point:srid=4326")
+        s.write_dict("pts", [f"f{i}" for i in range(n)], {
+            "code": [f"c{i % 23}" for i in range(n)], "wt": wt, "tone": tone,
+            "dtg": ms, "geom": (x, y)})
+    ecql = ("BBOX(geom, -100, -50, 60, 70) AND dtg DURING "
+            "2020-01-10T00:00:00Z/2020-02-20T00:00:00Z")
+    for attr in (None, "wt"):
+        kernels.reset_launches()
+        got = stores[0].density("pts", ecql, (-100, -50, 60, 70), 640, 480,
+                                attr)
+        assert kernels.launches["density_grid"] == 1
+        assert np.array_equal(got, stores[1].density(
+            "pts", ecql, (-100, -50, 60, 70), 640, 480, attr))
+    got = stores[0].density("pts", "INCLUDE", (-180, -90, 180, 90), 37, 19,
+                            "tone")
+    want = stores[1].density("pts", "INCLUDE", (-180, -90, 180, 90), 37, 19,
+                             "tone")
+    assert np.all(np.abs(got.astype(np.float64) - want)
+                  <= 2 * n * 2.0**-24 * np.nansum(np.abs(tone)))
+    for kw in ({}, {"sort": True, "label": "code"}):
+        assert stores[0].bin_query("pts", ecql, **kw) == stores[1].bin_query(
+            "pts", ecql, **kw)
+
+
+@pytest.mark.gpu
+def test_store_residual_after_delete_on_cuda(cuda):
+    """The residual kernel's prepared launches are keyed on column
+    pointers; after a delete, and after remove_schema + create_schema of
+    the same name, the columns are uploaded again (possibly at the same
+    addresses). The CUDA store still answers as the CPU store does."""
+    ecqls = ["BBOX(geom, -170, -80, 170, 80) AND age > 30",
+             "age >= 10 AND score < 0.5 AND name LIKE 'w0%'"]
+    stores = [InMemoryDataStore(), InMemoryDataStore(device="cpu")]
+    for s in stores:
+        s.create_schema(parse_spec("t", ATTR_SPEC))
+        s.write("t", _attr_batch(50_000))
+
+    def same():
+        for e in ecqls:
+            kernels.reset_launches()
+            got = stores[0].query(e, "t")
+            assert kernels.launches["residual_mask"] >= 1
+            assert list(got.ids) == list(stores[1].query(e, "t").ids)
+    same()
+    for s in stores:
+        s.delete("t", [f"f{i}" for i in range(0, 50_000, 7)])
+    same()
+    for s in stores:
+        s.remove_schema("t")
+        s.create_schema(parse_spec("t", ATTR_SPEC))
+        s.write("t", _attr_batch(50_000, seed=8))
+    same()
