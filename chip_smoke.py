@@ -52,11 +52,13 @@ Phases, one JSON line each; any failure exits non-zero:
            that the path ran (batch sizes and the batcher's) is recorded
            and, outside the counted run, the batched kernels are held
            exactly against their plain versions on it over the store's
-           columns. Then where one call of 32 queries spends its time:
-           the device path alone, the gather of the result ids, and a
-           cProfile of the call (host clock); and the batched kernels
-           timed at this phase's own shape beside their bounds
-           (``kernels_32``).
+           columns, and every compact_prefix launch of the path (its
+           partials and the offsets and totals it returned) is held to
+           the plain prefix with torch.equal. Then where one call of 32
+           queries spends its time: the device path alone, the gather of
+           the result ids, and a cProfile of the call (host clock); and
+           the batched kernels timed at this phase's own shape beside
+           their bounds (``kernels_32``).
 5. predicates  exact polygon and attribute predicates: the earlier
            stores freed, a store of --store-rows rows shaped like a GDELT
            1.0 event record (EventCode:String:index=true with 320
@@ -91,31 +93,37 @@ Phases, one JSON line each; any failure exits non-zero:
            the prepared launch on an idle card (kernel_bare_ms).
 6. surface the query surface and the pushdowns on the predicates
            phase's store, before it is freed. Launch counts are zeroed,
-           then density() draws three grids (a 256x256 tile over a
-           BBOX and 30 days; the world at 2048x1024 over 73 days
-           weighted by NumMentions, and by AvgTone), each held to a
-           float32 numpy brute force that casts as the reference does
-           and sums with np.add.at: exact where the weights are unit or
-           integers with a cell total under 2^24, else each cell within
-           2 * n_cell * 2^-24 * sum |w|; bin_query on the tile, plain and
-           time-sorted, labelled by EventCode, record for record; a sort
-           by NumMentions descending with max_features, a projection,
+           then density() draws four grids (a 256x256 tile over a BBOX
+           and 30 days; the world at 2048x1024 over 73 days weighted by
+           NumMentions, and by AvgTone; the world at 256x256 unweighted,
+           the zoom-0 WMS tile), each from the query's row ids into the
+           store's device columns, each held to a float32 numpy brute
+           force that casts as the reference does and sums with
+           np.add.at: exact where the weights are unit or integers with
+           a cell total under 2^24, else each cell within 2 * n_cell *
+           2^-24 * sum |w|; bin_query on the tile, plain and time-sorted,
+           labelled by EventCode, record for record; a sort by
+           NumMentions descending with max_features, a projection,
            SAMPLING 0.1 with and without SAMPLE_BY EventCode, id-exact;
            and a store of 1M rows with four distinct visibility labels at
            feature and at attribute level, id-exact per auth set (the
            leak guard's case included); then the density kernel's count
            is read: it must have launched. Outside the counted run,
-           every recorded launch is held to its plain version on the
-           card (unit weights equal, weighted within the bound), the
-           kernel is timed at the weighted world call's shape beside
-           its byte bound (13 B a row, 4 B a cell), its plain version
-           and one index_add_ over the same cells, and with every row in
-           one cell (a 1x1 grid); one density() call is split into the
-           query, the column gather, the f32 conversion and upload, the
-           kernel and the copy back. Then 1,000 ids are deleted (delete
-           and rebuild timed) and a z3, a polygon and an attribute query
-           are held to the brute force over the kept rows; then
-           remove_schema, with torch.cuda.memory_allocated falling.
+           every recorded launch's own grid is held to its plain version
+           on the card (unit weights equal, integer weights exact under
+           2^24 a cell, others within the bound), the kernel is timed at
+           the weighted world call's shape beside its byte bound (the
+           id, the point, the weight and validity bytes a row, 8 B a
+           cell), its plain version, one index_add_ over the same cells
+           and the array loader on the same rows gathered; and with
+           every row in one cell (a 1x1 grid), at the zoom-0 tile and at
+           the tile, each with the path it took; one density() call is
+           split into the query, the ids' upload, the kernel and the copy
+           back, beside the device columns' first upload. Then 1,000 ids
+           are deleted (delete and rebuild timed) and a z3, a polygon and
+           an attribute query are held to the brute force over the kept
+           rows; then remove_schema, with torch.cuda.memory_allocated
+           falling.
 
 Then the kernels summary line, the card line, and the final
 {"ok": true, ...} line. Without CUDA it exits 1 and prints no result.
@@ -692,12 +700,22 @@ def phase_batched(seed: int, ds, rows) -> dict:
     # every stacked batch that the store hands the device path while the
     # path is checked and while the batcher serves, to hold the kernels
     # against their plain versions at those shapes afterwards
-    seen = []
+    seen, prefixes = [], []
     device_path = zscan.batch_hit_rows
+    prefix_kernel = kernels.compact_prefix
 
     def recording(data, bq):
         seen.append(bq)
-        return device_path(data, bq)
+        kernels.compact_prefix = prefix_recorder
+        try:
+            return device_path(data, bq)
+        finally:
+            kernels.compact_prefix = prefix_kernel
+
+    def prefix_recorder(partials):   # each launch with what it returned
+        out = prefix_kernel(partials)
+        prefixes.append((partials, out))
+        return out
 
     kernels.reset_launches()
     t_main = time.perf_counter()
@@ -747,7 +765,14 @@ def phase_batched(seed: int, ds, rows) -> dict:
     shapes = sorted({(bq.n_queries, bq.boxes_np.shape[1], bq.times_np.shape[1])
                      for bq in seen})
     wrong = [bq.n_queries for bq in seen if not check_batch(data, bq)]
-    checked = {"batches": len(seen), "shapes": shapes, "wrong": wrong}
+    # every compact_prefix launch of the path, its own outputs against
+    # the plain version of its partials
+    prefix_wrong = [tuple(parts.shape) for parts, got in prefixes
+                    if not all(torch.equal(g, w) for g, w in zip(
+                        got, kernels.compact_prefix_plain(parts)))]
+    checked = {"batches": len(seen), "shapes": shapes, "wrong": wrong,
+               "prefix_launches": len(prefixes), "prefix_wrong": prefix_wrong}
+    del prefixes
 
     # the same callers with a static 200 ms linger
     batcher_runs["linger_200ms_static"] = run_batcher(
@@ -781,7 +806,8 @@ def phase_batched(seed: int, ds, rows) -> dict:
           "breakdown_32": breakdown, "kernels_32": kernels_32,
           "launches": counts, "seconds": main_s})
     bad = [k for k, v in kernels_32.items() if v["max_abs_err"]]
-    if wrong or not seen or bad:
+    if wrong or not seen or bad or prefix_wrong or not checked[
+            "prefix_launches"]:
         raise SystemExit(f"batched kernels disagree with their plain "
                          f"versions on the batched path: {checked} {bad}")
     bad = {k: r["errors"] for k, r in batcher_runs.items() if r["errors"]}
@@ -1412,38 +1438,85 @@ def _p50(fn, runs: int = SURFACE_RUNS) -> float:
 
 def density_split(ds, ecql, bbox, width, height, attr) -> dict:
     """Where one density() call spends its time, each step synchronised
-    (host clock, medians of SURFACE_RUNS): the query, the gather of the
-    result's point (and weight) columns, their f32 conversion and
-    upload, the kernel, the grid's copy back; and the whole call."""
+    (host clock, medians of SURFACE_RUNS), as the store runs it: the
+    query's rows (plan, scan, visibility), the row ids' upload, the
+    kernel (reading the point and weight from the store's device
+    columns), the grid's copy back; and the whole call. Beside them the
+    upload of the point and weight device columns that a store's first
+    density() call after a write pays (device_columns_s)."""
     from geomesa_tpu_torch import Query
-    from geomesa_tpu_torch.scan import aggregations, kernels
-    from geomesa_tpu_torch.store.memory import density_columns
-    steps = {k: [] for k in ("query", "gather", "upload", "kernel",
-                             "copy_back", "call")}
+    from geomesa_tpu_torch.index.api import Explainer
+    from geomesa_tpu_torch.scan import aggregations, kernels, residual
+    st = ds._types["gdelt"]
+    t0 = time.perf_counter()
+    fresh = residual.DeviceColumns(st.batch, ds.device)
+    for name in ("geom",) + (() if attr is None else (attr,)):
+        fresh.get(name)
+    torch.cuda.synchronize()
+    columns_s = time.perf_counter() - t0
+    del fresh
+    cols = st.device_cols()
+    point = cols.get("geom")["slot"]
+    weight = None if attr is None else (cols.get(attr)["kind"],
+                                        cols.get(attr)["slot"])
+    steps = {k: [] for k in ("query", "ids_upload", "kernel", "copy_back",
+                             "call")}
     xmin, ymin, sx, sy = aggregations.density_scalars(bbox, width, height)
     for _ in range(SURFACE_RUNS):
         t0 = time.perf_counter()
-        res = ds.query(Query("gdelt", ecql))
+        rows, _, _ = ds._matching_rows(Query("gdelt", ecql), st, Explainer())
         t1 = time.perf_counter()
-        x, y, mask, w = density_columns(res, "geom", bbox, attr)
+        ids = torch.from_numpy(rows.astype(np.int32)).to(ds.device)
+        torch.cuda.synchronize()
         t2 = time.perf_counter()
-        xt, yt, wt, mt = aggregations.density_upload(x, y, mask, w, ds.device)
+        grid = kernels.density_grid_rows(ids, point, weight, xmin, ymin, sx,
+                                         sy, width, height)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        grid = kernels.density_grid(xt, yt, wt, mt, xmin, ymin, sx, sy,
-                                    width, height)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
         grid.cpu().numpy()
-        t5 = time.perf_counter()
-        for k, a, b in (("query", t0, t1), ("gather", t1, t2),
-                        ("upload", t2, t3), ("kernel", t3, t4),
-                        ("copy_back", t4, t5)):
+        t4 = time.perf_counter()
+        for k, a, b in (("query", t0, t1), ("ids_upload", t1, t2),
+                        ("kernel", t2, t3), ("copy_back", t3, t4)):
             steps[k].append((b - a) * 1e3)
         steps["call"].append(_timed(lambda: ds.density(
             "gdelt", ecql, bbox, width, height, attr)))
-    return {"rows": int(res.n), **{f"{k}_ms": statistics.median(v)
-                                   for k, v in steps.items()}}
+    return {"rows": len(rows), "device_columns_s": columns_s,
+            **{f"{k}_ms": statistics.median(v) for k, v in steps.items()}}
+
+
+def density_launch_ok(args, got) -> tuple[bool, float]:
+    """A rows-loader launch's grid ``got`` against its plain version:
+    equal unweighted; weighted, exact on cells of integer weights (Long,
+    Integer, Boolean) whose sum |w| is under 2^24 and within 2 * n_cell
+    * 2^-24 * sum |w| elsewhere. (ok, max |difference|)."""
+    from geomesa_tpu_torch.scan import kernels
+    want = kernels.density_grid_rows_plain(*args)
+    diff = (got.double() - want.double()).abs().flatten()
+    err = float(diff.max().item()) if diff.numel() else 0.0
+    if args[2] is None:
+        return torch.equal(got, want), err
+    x, y, w, mask = kernels.density_rows_gather(*args[:3])
+    width, height = args[7], args[8]
+    cells = kernels.density_cells_plain(x, y, *args[3:9])[mask]
+    n_cell = torch.bincount(cells, minlength=width * height).double()
+    abs_w = torch.bincount(cells, w[mask].abs().double(),
+                           minlength=width * height)
+    bound = 2 * n_cell * 2.0**-24 * abs_w
+    if args[2][0] in ("i64", "bool"):
+        bound = torch.where(abs_w < 2**24, torch.zeros_like(bound), bound)
+    return bool((diff <= bound).all()), err
+
+
+def density_bytes(args) -> int:
+    """The bytes a rows-loader launch must move: per row the 4 B id, x
+    and y (8 B), the weight's 4 B (8 B for an int64 as two words, 1 B for
+    a Boolean) and the validity bytes; 4 B a cell to zero the grid and 4
+    B a cell to copy it out."""
+    ids, _point, weight = args[:3]
+    per_row = 4 + 8 + 1
+    if weight is not None:
+        per_row += {"f64": 4, "i64": 8, "bool": 1}[weight[0]] + 1
+    return ids.shape[0] * per_row + 8 * args[7] * args[8]
 
 
 def _tile_ecql() -> str:
@@ -1613,21 +1686,24 @@ def phase_surface(ds, d: dict, ids, queries) -> dict:
          "NumMentions", world & d["mentions_valid"], ment),
         ("world_2048x1024_AvgTone", world_ecql, WORLD, 2048, 1024,
          "AvgTone", world, d["tone"]),
+        ("world_256x256_zoom0", world_ecql, WORLD, 256, 256, None, world,
+         None),
     ]
 
-    # the counted run: every call of the density kernel is recorded for
-    # the checks and timings below
+    # the counted run: every launch of the density kernel is recorded
+    # with its grid for the checks and timings below
     calls = []
-    real = kernels.density_grid
+    real = kernels.density_grid_rows
 
     def recorder(*args):
-        calls.append(args)
-        return real(*args)
+        out = real(*args)
+        calls.append((args, out))
+        return out
     kernels.reset_launches()
     t_main = time.perf_counter()
     density, wrong = [], []
     try:
-        kernels.density_grid = recorder
+        kernels.density_grid_rows = recorder
         for name, ecql, bbox, w, h, attr, mask, wts in grids:
             got = ds.density("gdelt", ecql, bbox, w, h, attr)
             sel = np.flatnonzero(mask)
@@ -1673,7 +1749,7 @@ def phase_surface(ds, d: dict, ids, queries) -> dict:
         surface = surface_queries(ds, d, ids, during)
         vis = visibility_cases(d, ids, during)
     finally:
-        kernels.density_grid = real
+        kernels.density_grid_rows = real
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t_main
     launches = kernels.launches["density_grid"]
@@ -1681,56 +1757,64 @@ def phase_surface(ds, d: dict, ids, queries) -> dict:
     wrong += [("visibility", v["level"], v["query"], str(v["auths"]))
               for v in vis if not v["exact"]]
 
-    # outside the counted run: every recorded launch against the plain
-    # version on the card (unit weights equal, weights within the bound),
-    # then the kernel timed at the largest call's shape
+    # outside the counted run: every recorded launch's own grid against
+    # the plain version of its inputs, then the kernel timed at the
+    # surface's shapes (rows loader) beside its bound, its plain version,
+    # one index_add_ over the same cells, and the array loader on the
+    # same rows gathered
     errs = []
-    for args in calls:
-        xt, yt, wt, mt, xmin, ymin, sx, sy, w, h = args
-        got = kernels.density_grid(*args)
-        want = kernels.density_grid_plain(*args)
-        cells = kernels.density_cells_plain(xt, yt, xmin, ymin, sx, sy, w,
-                                            h)[mt]
-        diff = (got.double() - want.double()).abs().flatten()
-        errs.append(float(diff.max().item()) if diff.numel() else 0.0)
-        if wt is None:
-            ok = torch.equal(got, want)
-        else:
-            n_cell = torch.bincount(cells, minlength=w * h).double()
-            abs_w = torch.bincount(cells, wt[mt].abs().double(),
-                                   minlength=w * h)
-            ok = bool((diff <= 2 * n_cell * 2.0**-24 * abs_w).all())
+    for args, got in calls:
+        ok, err = density_launch_ok(args, got)
+        errs.append(err)
         if not ok:
-            wrong.append(("density_grid", xt.shape[0], w, h))
-    args = max(calls, key=lambda a: (a[2] is not None, a[0].shape[0]))
-    xt, yt, wt, mt, xmin, ymin, sx, sy, w, h = args
-    n = xt.shape[0]
-    flat = kernels.density_cells_plain(xt, yt, xmin, ymin, sx, sy, w, h)
+            wrong.append(("density_grid", args[0].shape[0], args[7], args[8]))
+    by_name = {name: args for (name, *_r), (args, _g)
+               in zip(grids, calls[:len(grids)])}
+    args = by_name["world_2048x1024_NumMentions"]
+    xt, yt, wt, mt = kernels.density_rows_gather(*args[:3])
+    w, h = args[7], args[8]
+    flat = kernels.density_cells_plain(xt, yt, *args[3:9])
     vals = torch.where(mt, wt, torch.zeros_like(wt))
-    bms, bby = bound_ms(n * 13 + 4 * w * h, 0)
-    one_cell = (*args[:8], 1, 1)
+    bms, bby = bound_ms(density_bytes(args), 0)
+    one_cell = (*args[:7], 1, 1)
+    zoom = by_name["world_256x256_zoom0"]
+    tile_args = by_name["tile_256"]
+
+    def path(a):
+        return kernels.density_plan(a[0].shape[0], a[7], a[8],
+                                    None if a[2] is None else a[2][0])["path"]
     stats = {
-        "rows": n, "width": w, "height": h, "weighted": True,
-        "max_abs_err": max(errs), "launches": launches,
-        "ms": cuda_ms(lambda: kernels.density_grid(*args), 20),
-        "plain_ms": cuda_ms(lambda: kernels.density_grid_plain(*args), 3, 1),
+        "rows": int(args[0].shape[0]), "width": w, "height": h,
+        "weighted": "i64", "max_abs_err": max(errs), "launches": launches,
+        "path": path(args),
+        "ms": cuda_ms(lambda: kernels.density_grid_rows(*args), 20),
+        "plain_ms": cuda_ms(lambda: kernels.density_grid_rows_plain(*args), 3,
+                            1),
         "library_ms": cuda_ms(lambda: torch.zeros(
             w * h, dtype=torch.float32, device=xt.device).index_add_(
                 0, flat, vals), 20),
         "bound_ms": bms, "bound_by": bby,
-        "one_cell_ms": cuda_ms(lambda: kernels.density_grid(*one_cell), 20),
-        "one_cell_bound_ms": bound_ms(n * 13 + 4, 0)[0],
+        "array_loader_ms": cuda_ms(lambda: kernels.density_grid(
+            xt, yt, wt, mt, *args[3:9]), 20),
+        "one_cell_path": path(one_cell),
+        "one_cell_ms": cuda_ms(lambda: kernels.density_grid_rows(*one_cell),
+                               20),
+        "one_cell_bound_ms": bound_ms(density_bytes(one_cell), 0)[0],
         "one_cell_call_ms": _p50(lambda: ds.density(
             "gdelt", grids[1][1], WORLD, 1, 1, "NumMentions")),
+        "zoom0": {"rows": int(zoom[0].shape[0]), "width": zoom[7],
+                  "height": zoom[8], "path": path(zoom),
+                  "ms": cuda_ms(lambda: kernels.density_grid_rows(*zoom), 20),
+                  "bound_ms": bound_ms(density_bytes(zoom), 0)[0]},
+        "unweighted": {"rows": int(tile_args[0].shape[0]),
+                       "width": tile_args[7], "height": tile_args[8],
+                       "path": path(tile_args),
+                       "ms": cuda_ms(lambda: kernels.density_grid_rows(
+                           *tile_args), 20),
+                       "bound_ms": bound_ms(density_bytes(tile_args), 0)[0]},
     }
-    tile_args = next(a for a in calls if a[2] is None)
-    stats["unweighted"] = {
-        "rows": tile_args[0].shape[0], "width": tile_args[8],
-        "height": tile_args[9],
-        "ms": cuda_ms(lambda: kernels.density_grid(*tile_args), 20),
-        "bound_ms": bound_ms(tile_args[0].shape[0] * 9
-                             + 4 * tile_args[8] * tile_args[9], 0)[0]}
-    del calls, args, one_cell, tile_args, xt, yt, wt, mt, flat, vals
+    del calls, args, one_cell, tile_args, zoom, xt, yt, wt, mt, flat, vals
+    del by_name
     split = {name: density_split(ds, ecql, bbox, w, h, attr)
              for name, ecql, bbox, w, h, attr, _m, _w in grids[:2]}
     for g, (name, ecql, bbox, w, h, attr, _m, _w) in zip(density, grids):

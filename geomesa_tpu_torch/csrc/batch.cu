@@ -67,12 +67,34 @@
 //
 // compact_prefix_kernel: for each (kind, query) row of partials, the
 // exclusive prefix of its nb partials as int32 offsets within the query
-// (a query's ids are < cap < 2^31) and the row's total as int64. One
-// block per row; 16 partials per thread, a warp scan and a block scan.
-// Bound: bytes (partials read, offsets and totals written). A third of
-// it at 32 queries and 100M rows: the 64 blocks leave half the SMs idle
-// and each walks its row's tiles one after another, load, scan, store;
-// the same partials as 256 rows take 0.74x the time (PERF.md).
+// (a query's ids are < cap < 2^31) and the row's total as int64. Bound:
+// bytes (partials read, offsets and totals written). One pass over
+// fixed tiles of kPrefixTile = 4096 partials (256 threads, four 16-byte
+// vectors a thread, striped so that each warp's load or store covers 512
+// contiguous bytes; the warp scans its 512 partials as four chunks of
+// 128), the grid rows x tiles-per-row, so every SM holds several tiles
+// and their loads are in flight together (1,024 blocks at 32 queries and
+// 100M rows). Within a row the tiles chain by a decoupled look-back:
+// each tile sums its partials, publishes its aggregate in a 64-bit
+// status word, and warp 0 walks back over the row's earlier tiles 32 at
+// a time until it meets a published inclusive prefix; the tile then
+// publishes its own inclusive prefix and stores its offsets, and the
+// row's last tile writes the total. A tile
+// takes its index from a ticket counter, so it only ever waits on tiles
+// that were scheduled before it. The status words and the counter live
+// in a scratch buffer that the wrapper keeps per device and stream,
+// zeroed once when it is made: each launch carries an epoch that its
+// status words hold beside their flag (a word of another epoch reads as
+// not yet published), and the ticket base that the earlier launches on
+// the buffer used up, so no launch needs a memset. Measured against it
+// (kernel_ab.py --prefix-only, NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+// the first design, one 1,024-thread block per row walking its row's
+// tiles in turn (64 blocks at 32 queries: half the SMs idle), 0.029 ms at
+// 100M rows against 0.016; a cooperative launch with one grid-wide
+// barrier between the tiles' sums and their stores, 0.023 ms (and it
+// needs every tile resident); and these tiles with each thread's 16
+// partials contiguous (its four vectors side by side), 0.032 ms: each
+// of the warp's loads and stores then spans 2 KB in 16-byte pieces.
 //
 // compact_bits_kernel: each query's ascending row ids from the bitmaps,
 // in one flat int32 buffer per kind, query after query. A query's int64
@@ -115,9 +137,9 @@ constexpr int kWordsPerBlock = kRowsPerBlock / 32;        // 64
 constexpr int kMaxGroup = 32;                             // queries per launch
 constexpr int kMaxSmem = 48 * 1024;  // dynamic shared memory without opt-in
 constexpr int kMaxBlocks = 132 * 16;
-constexpr int kPrefixThreads = 1024;
-constexpr int kPrefixPerThread = 16;
-constexpr int kPrefixTile = kPrefixThreads * kPrefixPerThread;
+constexpr int kPrefixThreads = 256;
+constexpr int kPrefixVecs = 4;  // 16-byte vectors a thread
+constexpr int kPrefixTile = kPrefixThreads * kPrefixVecs * 4;  // 4096
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Cols {
@@ -346,36 +368,101 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (kind, query) row of partials (nb each).
+// A look-back status word: the high word holds (epoch << 1) | inclusive,
+// the low word the value (an aggregate, or an inclusive prefix within the
+// row). A zeroed word belongs to no launch (epochs start at 1).
+__device__ __forceinline__ unsigned long long status_word(uint32_t epoch,
+                                                          bool inclusive,
+                                                          int32_t value) {
+  return (static_cast<unsigned long long>((epoch << 1) | (inclusive ? 1u : 0u))
+          << 32) |
+         static_cast<uint32_t>(value);
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+// The sum of the row's tiles before tile j, by warp 0 of tile j > 0:
+// lane l reads the status of tile j - 1 - l (- 32 per step), the warp
+// waits until all 32 are published in this epoch, adds the aggregates up
+// to and including the nearest inclusive prefix, and stops there. Tile 0
+// of a row publishes its inclusive prefix without waiting, so the walk
+// ends at the latest there.
+__device__ int32_t look_back(const unsigned long long* status, int j,
+                             uint32_t epoch, int lane) {
+  int32_t prefix = 0;
+  for (int k = j - 1;; k -= 32) {
+    const int p = k - lane;
+    unsigned long long s;
+    bool ready;
+    do {
+      s = p >= 0 ? load_status(status + p) : status_word(epoch, true, 0);
+      ready = static_cast<uint32_t>(s >> 33) == epoch;
+    } while (!__all_sync(kFull, ready));
+    const uint32_t incl = __ballot_sync(kFull, (s >> 32) & 1u);
+    const int first = incl ? __ffs(incl) - 1 : 31;
+    int32_t v = lane <= first ? static_cast<int32_t>(static_cast<uint32_t>(s)) : 0;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    prefix += v;
+    if (incl) return prefix;
+  }
+}
+
+// One block per tile of kPrefixTile partials; tiles_per_row tiles per
+// (kind, query) row of nb partials. scratch[0] is the ticket counter,
+// scratch[1 + t] tile t's status word; base is the counter's value when
+// this launch began, epoch this launch's. vec_rows: every row of
+// partials and offsets is 16-byte aligned.
 __global__ void __launch_bounds__(kPrefixThreads)
     compact_prefix_kernel(const int32_t* __restrict__ partials, int64_t nb,
-                          int32_t* __restrict__ offsets,
-                          int64_t* __restrict__ totals) {
+                          int tiles_per_row, int32_t* __restrict__ offsets,
+                          int64_t* __restrict__ totals,
+                          unsigned long long* __restrict__ scratch,
+                          unsigned long long base, uint32_t epoch,
+                          bool vec_rows) {
   __shared__ int32_t s_warp[kPrefixThreads / 32];
+  __shared__ int s_tile;
+  __shared__ int32_t s_prefix;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int32_t* in = partials + blockIdx.x * nb;
-  int32_t* out = offsets + blockIdx.x * nb;
-  const bool vec = nb % 4 == 0;  // rows 16-byte aligned
-  int32_t carry = 0;
-  for (int64_t base = 0; base < nb; base += kPrefixTile) {
-    const int64_t j0 = base + threadIdx.x * kPrefixPerThread;
-    int32_t v[kPrefixPerThread];
-    if (vec && j0 + kPrefixPerThread <= nb) {
+  if (threadIdx.x == 0)
+    s_tile = static_cast<int>(atomicAdd(scratch, 1ull) - base);
+  __syncthreads();
+  const int tile = s_tile;
+  const int row = tile / tiles_per_row, j = tile - row * tiles_per_row;
+  const int32_t* in = partials + static_cast<int64_t>(row) * nb;
+  int32_t* out = offsets + static_cast<int64_t>(row) * nb;
+  // warp w's 512 partials of the tile in four chunks of 128: chunk e is
+  // one 16-byte vector a lane, lane l at its chunk's 4 * l
+  const int64_t w0 = static_cast<int64_t>(j) * kPrefixTile + warp * 512 + lane * 4;
+  int32_t v[kPrefixVecs][4];
 #pragma unroll
-      for (int e = 0; e < kPrefixPerThread / 4; ++e) {
-        const int4 a = __ldg(reinterpret_cast<const int4*>(in + j0) + e);
-        v[4 * e] = a.x; v[4 * e + 1] = a.y; v[4 * e + 2] = a.z; v[4 * e + 3] = a.w;
-      }
+  for (int e = 0; e < kPrefixVecs; ++e) {
+    const int64_t i = w0 + e * 128;
+    if (vec_rows && i + 4 <= nb) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(in + i));
+      v[e][0] = a.x; v[e][1] = a.y; v[e][2] = a.z; v[e][3] = a.w;
     } else {
 #pragma unroll
-      for (int e = 0; e < kPrefixPerThread; ++e)
-        v[e] = j0 + e < nb ? __ldg(in + j0 + e) : 0;
+      for (int k = 0; k < 4; ++k) v[e][k] = i + k < nb ? __ldg(in + i + k) : 0;
     }
+  }
+  // exclusive prefix of each value within the warp's 512
+  int32_t chunk = 0;
+#pragma unroll
+  for (int e = 0; e < kPrefixVecs; ++e) {
     int32_t sum = 0;
 #pragma unroll
-    for (int e = 0; e < kPrefixPerThread; ++e) {
-      const int32_t x = v[e];
-      v[e] = sum;
+    for (int k = 0; k < 4; ++k) {
+      const int32_t x = v[e][k];
+      v[e][k] = sum;
       sum += x;
     }
     int32_t incl = sum;
@@ -384,34 +471,50 @@ __global__ void __launch_bounds__(kPrefixThreads)
       const int32_t y = __shfl_up_sync(kFull, incl, off);
       if (lane >= off) incl += y;
     }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int32_t w = s_warp[lane];
+    const int32_t lead = chunk + incl - sum;
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int32_t y = __shfl_up_sync(kFull, w, off);
-        if (lane >= off) w += y;
-      }
-      s_warp[lane] = w;
+    for (int k = 0; k < 4; ++k) v[e][k] += lead;
+    chunk += __shfl_sync(kFull, incl, 31);
+  }
+  if (lane == 0) s_warp[warp] = chunk;
+  __syncthreads();
+  int32_t before = 0, agg = 0;
+#pragma unroll
+  for (int w = 0; w < kPrefixThreads / 32; ++w) {
+    const int32_t s = s_warp[w];
+    before += w < warp ? s : 0;
+    agg += s;
+  }
+  if (warp == 0) {
+    unsigned long long* status = scratch + 1 + static_cast<int64_t>(row) * tiles_per_row;
+    int32_t prefix = 0;
+    if (j == 0) {
+      if (lane == 0) store_status(status, status_word(epoch, true, agg));
+    } else {
+      if (lane == 0) store_status(status + j, status_word(epoch, false, agg));
+      prefix = look_back(status, j, epoch, lane);
+      if (lane == 0)
+        store_status(status + j, status_word(epoch, true, prefix + agg));
     }
-    __syncthreads();
-    const int32_t before = carry + (warp ? s_warp[warp - 1] : 0) + incl - sum;
-    if (vec && j0 + kPrefixPerThread <= nb) {
+    if (lane == 0) s_prefix = prefix;
+  }
+  __syncthreads();
+  const int32_t prefix = s_prefix;
+  const int32_t first = prefix + before;
 #pragma unroll
-      for (int e = 0; e < kPrefixPerThread / 4; ++e)
-        reinterpret_cast<int4*>(out + j0)[e] =
-            make_int4(v[4 * e] + before, v[4 * e + 1] + before,
-                      v[4 * e + 2] + before, v[4 * e + 3] + before);
+  for (int e = 0; e < kPrefixVecs; ++e) {
+    const int64_t i = w0 + e * 128;
+    if (vec_rows && i + 4 <= nb) {
+      *reinterpret_cast<int4*>(out + i) =
+          make_int4(v[e][0] + first, v[e][1] + first, v[e][2] + first,
+                    v[e][3] + first);
     } else {
 #pragma unroll
-      for (int e = 0; e < kPrefixPerThread; ++e)
-        if (j0 + e < nb) out[j0 + e] = v[e] + before;
+      for (int k = 0; k < 4; ++k)
+        if (i + k < nb) out[i + k] = v[e][k] + first;
     }
-    carry += s_warp[31];
-    __syncthreads();  // s_warp is rewritten by the next tile
   }
-  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
+  if (threadIdx.x == 0 && j == tiles_per_row - 1) totals[row] = prefix + agg;
 }
 
 // The sum of totals[row0 .. row0 + q - 1], over the warp.
@@ -544,15 +647,33 @@ int geomesa_scan_batch_bits(const float* xhi, const float* xlo,
   return static_cast<int>(cudaGetLastError());
 }
 
+int geomesa_prefix_tile() { return kPrefixTile; }
+
 // offsets[r][j] = partials[r][0] + ... + partials[r][j-1] (int32) and
 // totals[r] = the row's sum (int64), for the rows r < `rows` of nb
-// partials each. Requires rows >= 1 and nb >= 1.
+// partials each. scratch: 1 + rows * ceil(nb / kPrefixTile) words of a
+// buffer that was zeroed when made and is used by one stream; base: the
+// tickets that earlier launches on it took (their tile counts summed);
+// epoch: 1 + the number of earlier launches on it, below 2^31. Requires
+// rows >= 1 and nb >= 1.
 int geomesa_compact_prefix(const int32_t* partials, int rows, int64_t nb,
-                           int32_t* offsets, int64_t* totals, void* stream) {
-  if (rows < 1 || nb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  compact_prefix_kernel<<<rows, kPrefixThreads, 0,
+                           int32_t* offsets, int64_t* totals,
+                           unsigned long long* scratch,
+                           unsigned long long base, unsigned int epoch,
+                           void* stream) {
+  if (rows < 1 || nb < 1 || scratch == nullptr || epoch == 0 ||
+      epoch >= (1u << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per_row = (nb + kPrefixTile - 1) / kPrefixTile;
+  const int64_t tiles = per_row * rows;
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec_rows = nb % 4 == 0 &&
+                        reinterpret_cast<uintptr_t>(partials) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(offsets) % 16 == 0;
+  compact_prefix_kernel<<<static_cast<int>(tiles), kPrefixThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      partials, nb, offsets, totals);
+      partials, nb, static_cast<int>(per_row), offsets, totals, scratch, base,
+      epoch, vec_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

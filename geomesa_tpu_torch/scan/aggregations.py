@@ -3,7 +3,10 @@
 Analogs of the reference's aggregating iterators (index/iterators/:
 DensityScan.scala:30, BinAggregatingScan.scala:22,
 SamplingIterator.scala:22). The density grid runs on the device as the
-hand kernel ``kernels.density_grid`` (csrc/density.cu); BIN encoding and
+hand kernel of csrc/density.cu: over the caller's arrays
+(``density_grid``, the reference's signature) or over a query result's
+row ids into the store's device columns (``density_rows``, which the
+store uses, so only the ids cross from the host); BIN encoding and
 sampling are numpy on the host.
 """
 
@@ -15,7 +18,8 @@ import torch
 from ..utils.device import resolve_device
 from . import kernels
 
-__all__ = ["density_grid", "density_scalars", "density_upload",
+__all__ = ["density_grid", "density_rows", "density_scalars",
+           "density_upload",
            "encode_bin_records", "encode_bin_batch", "decode_bin_records",
            "merge_sorted_bin_chunks", "sample_mask"]
 
@@ -55,6 +59,22 @@ def density_grid(x: np.ndarray, y: np.ndarray, mask: np.ndarray,
                                     resolve_device(device))
     grid = kernels.density_grid(xt, yt, wt, mt, xmin, ymin, sx, sy,
                                 width, height)
+    return grid.cpu().numpy()
+
+
+def density_rows(rows: np.ndarray, point, weight, bbox, width: int,
+                 height: int) -> np.ndarray:
+    """The density grid of the rows ``rows`` (ascending row ids) of the
+    store's device columns, as a float32 (height, width) array: ``point``
+    the point column's DeviceColumns slot, ``weight`` None or a weight
+    column's (kind, slot). Only the row ids (int32) go to the columns'
+    device; a row counts when its point is valid and its weight, if any,
+    is valid."""
+    xmin, ymin, sx, sy = density_scalars(bbox, width, height)
+    ids = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int32)).to(
+        point[0].device)
+    grid = kernels.density_grid_rows(ids, point, weight, xmin, ymin, sx, sy,
+                                     width, height)
     return grid.cpu().numpy()
 
 

@@ -14,7 +14,10 @@ and what bounds them):
   per-block popcounts int32[2, Qp, nb], each query's own boxes and
   intervals only (a (Qp, 2) counts table);
 - ``compact_prefix``: the exclusive prefix of those popcounts within each
-  (kind, query), as int32 offsets, and each (kind, query) total as int64;
+  (kind, query), as int32 offsets, and each (kind, query) total as int64,
+  in one pass over fixed tiles chained by a decoupled look-back (its
+  status words and ticket counter in a scratch buffer kept per device
+  and stream, ``prefix_plan``);
 - ``compact_bits``: the bitmaps compacted into each query's ascending
   int32 row ids, one flat buffer per kind, with the per-query counts
   (it runs ``compact_prefix`` first);
@@ -25,9 +28,12 @@ and what bounds them):
   band; ``scan/residual.py`` compiles the program, which the caller
   passes as host data and the wrapper uploads once per program and
   column set);
-- ``density_grid``: the weights of the masked points summed into a
-  (height, width) f32 pixel grid by atomic adds
-  (``scan/aggregations.py``).
+- ``density_grid``: the weights of the counted points summed into a
+  (height, width) f32 pixel grid by warp-grouped atomic adds, into the
+  grid or, for small grids with many rows, a copy of it in each block's
+  shared memory (``scan/aggregations.py``); two
+  loaders: the caller's arrays (``density_grid``), or a query result's
+  row ids into the store's device columns (``density_grid_rows``).
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device; for ``residual_mask``, its columns). On
@@ -71,7 +77,10 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "pip_mask_plain", "pip_pairs_plain", "pip_edge_terms_plain",
            "pip_skip_plain", "residual_mask", "residual_mask_plain",
            "residual_launcher", "residual_depth", "Op", "Cmp",
-           "density_grid", "density_grid_plain", "density_cells_plain"]
+           "density_grid", "density_grid_plain", "density_cells_plain",
+           "density_grid_rows", "density_grid_rows_plain",
+           "density_rows_gather", "density_weights_plain", "density_plan",
+           "DENSITY_PATHS", "prefix_plan", "PREFIX_TILE"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
@@ -92,6 +101,10 @@ MAX_TABLE_BYTES = 48 * 1024
 # (_batch_smem) holds the group's tables and staged bitmap words
 BATCH_ROWS_PER_BLOCK = 2048
 BATCH_MAX_GROUP = 32
+
+# the prefix kernel's tile: partials per block (256 threads x four
+# 16-byte vectors)
+PREFIX_TILE = 4096
 
 launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0,
             "scan_batch_bits": 0, "compact_prefix": 0, "compact_bits": 0,
@@ -233,6 +246,15 @@ def compact_prefix_plain(partials):
     return offsets, totals
 
 
+def prefix_plan(rows: int, nb: int) -> tuple[int, int, int]:
+    """(tiles per row, tiles, scratch words) of one prefix launch over
+    ``rows`` rows of ``nb`` partials: PREFIX_TILE partials a tile, one
+    block a tile, and a scratch of one ticket counter and one look-back
+    status word a tile."""
+    per_row = -(-nb // PREFIX_TILE)
+    return per_row, rows * per_row, 1 + rows * per_row
+
+
 def compact_bits_plain(bits, partials):
     """(hit ids, candidate ids, counts): per kind the set rows of query
     0, then query 1, ..., ascending within a query (torch.nonzero), as
@@ -314,7 +336,9 @@ def _library() -> ctypes.CDLL:
                 cols + [i64, p, i32, p, i32, i32, p, p])
             lib.geomesa_scan_batch_bits.argtypes = (
                 cols + [i64, i64, p, p, p, i32, i32, i32, p, i64, p, i64, p])
-            lib.geomesa_compact_prefix.argtypes = [p, i32, i64, p, p, p]
+            lib.geomesa_compact_prefix.argtypes = [
+                p, i32, i64, p, p, p, ctypes.c_uint64, ctypes.c_uint32, p]
+            lib.geomesa_prefix_tile.argtypes = []
             lib.geomesa_compact_bits.argtypes = (
                 [p, p, p, p, i32, i64, i64, p, p, p])
             lib.geomesa_batch_rows_per_block.argtypes = []
@@ -328,17 +352,23 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_residual_codes.argtypes = [p, i32]
             f32 = ctypes.c_float
             lib.geomesa_density_grid.argtypes = [p, p, p, p, i64, f32, f32,
-                                                 f32, f32, i32, i32, p, p]
+                                                 f32, f32, i32, i32, i32, p, p]
+            lib.geomesa_density_rows.argtypes = [
+                p, i64, p, p, p, i32, p, p, p, f32, f32, f32, f32, i32, i32,
+                i32, p, p]
+            lib.geomesa_density_plan.argtypes = [i32, i64, i32, i32, i32, p]
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
                        lib.geomesa_compact_prefix, lib.geomesa_compact_bits,
                        lib.geomesa_batch_rows_per_block,
                        lib.geomesa_batch_max_group, lib.geomesa_pip_mask,
                        lib.geomesa_residual_mask, lib.geomesa_residual_codes,
-                       lib.geomesa_density_grid):
+                       lib.geomesa_density_grid, lib.geomesa_density_rows,
+                       lib.geomesa_density_plan, lib.geomesa_prefix_tile):
                 fn.restype = ctypes.c_int
             if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
                     or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP
+                    or lib.geomesa_prefix_tile() != PREFIX_TILE
                     or lib.geomesa_batch_smem_bytes(3, 4, 2)
                     != _batch_smem(3, 4, 2)):
                 raise RuntimeError("csrc/batch.cu and kernels.py disagree "
@@ -573,11 +603,31 @@ def _check_partials(partials):
         raise ValueError("partials must be a contiguous int32[2, Qp, nb]")
 
 
+class _PrefixScratch:
+    """The prefix kernel's scratch on one device and stream: a zeroed
+    int64 buffer (word 0 the ticket counter, then one look-back status
+    word per tile), the tickets that launches on it have taken, and the
+    epoch of the last launch."""
+
+    def __init__(self, words: int, device):
+        self.buf = torch.zeros(words, dtype=torch.int64, device=device)
+        self.issued = 0
+        self.epoch = 0
+
+
+# epochs are 31 bits in the status words; a scratch is made anew before
+# its epoch would pass them
+_PREFIX_EPOCHS = (1 << 31) - 1
+_prefix_scratch: dict = {}
+
+
 def compact_prefix(partials):
     """(offsets int32[2, Qp, nb], totals int64[2, Qp]) on the partials'
     device: per (kind, query) row the exclusive prefix of its partials
     (a block's first id within its query) and its sum. One block of the
-    prefix kernel per row."""
+    prefix kernel per tile of PREFIX_TILE partials (``prefix_plan``); the
+    tiles' look-back runs through a scratch kept per device and stream,
+    which needs no clearing between launches."""
     _check_partials(partials)
     if _on_cpu((partials,)):
         return compact_prefix_plain(partials)
@@ -587,10 +637,25 @@ def compact_prefix(partials):
     if qp * nb == 0:
         return offsets, torch.zeros((2, qp), dtype=torch.int64, device=dev)
     totals = torch.empty((2, qp), dtype=torch.int64, device=dev)
-    rc = _library().geomesa_compact_prefix(
-        partials.data_ptr(), 2 * qp, nb, offsets.data_ptr(),
-        totals.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "compact_prefix")
+    _, tiles, words = prefix_plan(2 * qp, nb)
+    stream = torch.cuda.current_stream(dev)
+    key = (dev, stream.cuda_stream)
+    lib = _library()
+    # one launch at a time per scratch: its ticket base and epoch follow
+    # the launches before it on the stream
+    with _lock:
+        sc = _prefix_scratch.get(key)
+        if (sc is None or sc.buf.numel() < words
+                or sc.epoch >= _PREFIX_EPOCHS):
+            sc = _prefix_scratch[key] = _PrefixScratch(
+                max(words, 0 if sc is None else sc.buf.numel()), dev)
+        sc.epoch += 1
+        rc = lib.geomesa_compact_prefix(
+            partials.data_ptr(), 2 * qp, nb, offsets.data_ptr(),
+            totals.data_ptr(), sc.buf.data_ptr(), sc.issued, sc.epoch,
+            stream.cuda_stream)
+        _raise_on(rc, "compact_prefix")
+        sc.issued += tiles
     launches["compact_prefix"] += 1
     return offsets, totals
 
@@ -1021,6 +1086,12 @@ def density_grid_plain(x, y, w, mask, xmin, ymin, sx, sy, width: int,
     return grid.view(height, width)
 
 
+def _check_grid(width: int, height: int):
+    if width < 1 or height < 1 or width * height >= 2**31:
+        raise ValueError(f"a {height} x {width} grid is outside 1 .. 2^31 - 1 "
+                         f"cells")
+
+
 def density_grid(x, y, w, mask, xmin, ymin, sx, sy, width: int,
                  height: int):
     """float32 (height, width) grid on the points' device: the sum of
@@ -1040,17 +1111,10 @@ def density_grid(x, y, w, mask, xmin, ymin, sx, sy, width: int,
             or (w is not None and w.dtype != torch.float32)
             or mask.dtype != torch.bool):
         raise ValueError("x, y and w must be float32 and mask bool")
-    if width < 1 or height < 1 or width * height >= 2**31:
-        raise ValueError(f"a {height} x {width} grid is outside 1 .. 2^31 - 1 "
-                         f"cells")
+    _check_grid(width, height)
     if _on_cpu(tensors):
         return density_grid_plain(x, y, w, mask, xmin, ymin, sx, sy, width,
                                   height)
-    if (any(t.data_ptr() % 16 for t in tensors if t is not mask)
-            or mask.data_ptr() % 4):
-        raise ValueError("the density kernel reads x, y and w as 16-byte "
-                         "and the mask as 4-byte vectors: they must be so "
-                         "aligned")
     n = x.shape[0]
     grid = torch.zeros((height, width), dtype=torch.float32, device=x.device)
     if n == 0:
@@ -1058,8 +1122,125 @@ def density_grid(x, y, w, mask, xmin, ymin, sx, sy, width: int,
     rc = _library().geomesa_density_grid(
         x.data_ptr(), y.data_ptr(), 0 if w is None else w.data_ptr(),
         mask.data_ptr(), n, float(xmin), float(ymin), float(sx), float(sy),
-        width, height, grid.data_ptr(),
+        width, height, -1, grid.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "density_grid")
     launches["density_grid"] += 1
     return grid
+
+
+# weight slots of the rows loader, by DeviceColumns kind: the kernel's
+# code and the slot's dtypes (a, b)
+_DENSITY_WEIGHTS = {"f64": (1, torch.float32, None),
+                    "i64": (2, torch.int32, torch.int32),
+                    "bool": (3, torch.bool, None)}
+
+
+def density_weights_plain(kind: str, a, b, rows):
+    """float32 weights of ``rows`` (int64) from a weight slot: an f64
+    column's hi word (f32 rounded to nearest); an i64 column's (hi, lo)
+    words rebuilt into the int64, rounded to f64 and then to f32 (as
+    numpy's ``where(valid, v, 0.0).astype(float32)`` does); a bool
+    column's values as 1 or 0."""
+    if kind == "f64":
+        return a[rows]
+    if kind == "i64":
+        v = (a[rows].long() << 32) | (b[rows].long() & 0xFFFFFFFF)
+        return v.double().float()
+    if kind == "bool":
+        return a[rows].float()
+    raise ValueError(f"no density weights from a {kind!r} column")
+
+
+def density_rows_gather(ids, point, weight):
+    """(x, y, w, mask) of rows ``ids`` as the rows loader reads them:
+    the point slot's x and y, the weights (None: unit;
+    ``density_weights_plain``), and the rows that count (a valid point,
+    and a valid weight when weighted)."""
+    rows = ids.long()
+    px, py, pvalid = point
+    mask = pvalid[rows]
+    w = None
+    if weight is not None:
+        kind, (a, b, valid) = weight
+        w = density_weights_plain(kind, a, b, rows)
+        mask = mask & valid[rows]
+    return px[rows], py[rows], w, mask
+
+
+def density_grid_rows_plain(ids, point, weight, xmin, ymin, sx, sy,
+                            width: int, height: int):
+    """The rows loader's grid in torch ops: ``density_rows_gather``,
+    then ``density_grid_plain``."""
+    x, y, w, mask = density_rows_gather(ids, point, weight)
+    return density_grid_plain(x, y, w, mask, xmin, ymin, sx, sy, width,
+                              height)
+
+
+def density_grid_rows(ids, point, weight, xmin, ymin, sx, sy, width: int,
+                      height: int):
+    """``density_grid`` over a query result's rows, read where they
+    live: ``ids`` int32 [m], rows of the columns (the caller keeps them
+    in range); ``point`` the point column's DeviceColumns slot (x f32,
+    y f32 rounded to nearest, valid bool); ``weight`` None or (kind,
+    slot) of a DeviceColumns entry of kind f64 (hi f32), i64 (hi, lo
+    int32 words) or bool (values). A row counts when its point is valid
+    and its weight, if any, is valid. Same tolerance as
+    ``density_grid``."""
+    if ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous():
+        raise ValueError("ids must be a contiguous 1-d int32 tensor")
+    px, py, pvalid = point
+    cap = px.shape[0]
+    cols = [(px, torch.float32), (py, torch.float32), (pvalid, torch.bool)]
+    kind = 0
+    if weight is not None:
+        name, (a, b, valid) = weight
+        if name not in _DENSITY_WEIGHTS:
+            raise ValueError(f"no density weights from a {name!r} column")
+        kind, da, db = _DENSITY_WEIGHTS[name]
+        cols += [(a, da), (valid, torch.bool)] + ([(b, db)] if db else [])
+    for t, dt in cols:
+        if (t.dtype != dt or t.dim() != 1 or t.shape[0] != cap
+                or not t.is_contiguous()):
+            raise ValueError(f"column slots must be contiguous 1-d {dt} of "
+                             f"{cap} rows")
+    _check_grid(width, height)
+    if _on_cpu([t for t, _ in cols], ids):
+        return density_grid_rows_plain(ids, point, weight, xmin, ymin, sx, sy,
+                                       width, height)
+    m = ids.shape[0]
+    grid = torch.zeros((height, width), dtype=torch.float32, device=ids.device)
+    if m == 0:
+        return grid
+    a, b, valid = weight[1] if weight is not None else (None, None, None)
+    rc = _library().geomesa_density_rows(
+        ids.data_ptr(), m, px.data_ptr(), py.data_ptr(), pvalid.data_ptr(),
+        kind, 0 if a is None else a.data_ptr(),
+        b.data_ptr() if kind == 2 else 0,
+        0 if valid is None else valid.data_ptr(), float(xmin), float(ymin),
+        float(sx), float(sy), width, height, -1, grid.data_ptr(),
+        torch.cuda.current_stream(ids.device).cuda_stream)
+    _raise_on(rc, "density_grid")
+    launches["density_grid"] += 1
+    return grid
+
+
+DENSITY_PATHS = ("global", "block")
+
+
+def density_plan(n: int, width: int, height: int, weight=None,
+                 rows: bool = True, mode: int = -1) -> dict:
+    """The path that the density kernel takes on the current card for
+    ``n`` rows into ``width`` x ``height`` cells (``mode`` -1), or what
+    forcing path ``mode`` (0 global, 1 block) would launch; ``rows`` the
+    rows loader with a weight kind of ``_DENSITY_WEIGHTS`` (None: unit),
+    else the array loader (``weight`` None or "f32"). Needs the card."""
+    if rows:
+        loader = 2 + (0 if weight is None else _DENSITY_WEIGHTS[weight][0])
+    else:
+        loader = 0 if weight is None else 1
+    out = (ctypes.c_longlong * 3)()
+    rc = _library().geomesa_density_plan(loader, n, width, height, mode, out)
+    _raise_on(rc, "density_plan")
+    return {"path": DENSITY_PATHS[out[0]], "blocks": out[1],
+            "flush_adds": out[2]}

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..features.batch import (BoolColumn, DateColumn, FeatureBatch,
-                              NumericColumn, StringColumn)
+                              NumericColumn, PointColumn, StringColumn)
 from ..filters import ast
 from ..filters.evaluate import COMPARE_OPS, evaluate
 from ..filters.helper import like_vocab_mask, to_millis
@@ -86,12 +86,14 @@ def _split_ms(v):
 class DeviceColumns:
     """Per-column device uploads of one feature batch.
 
-    A column moves to the device once, on first use by a residual, and
-    serves every query until the batch changes (the store drops the
-    whole cache on every write). Each entry is a dict with ``kind`` and
-    the kernel's slot ``(a, b, valid)``: split columns (hi, lo int32 /
-    f32, valid bool), booleans (values, None, valid), strings (codes,
-    None, None); f64 entries keep the host values for the band."""
+    A column moves to the device once, on first use by a residual or a
+    density grid, and serves every query until the batch changes (the
+    store drops the whole cache on every write). Each entry is a dict
+    with ``kind`` and the kernel's slot ``(a, b, valid)``: split columns
+    (hi, lo int32 / f32, valid bool), booleans (values, None, valid),
+    strings (codes, None, None), points (x, y f32 rounded to nearest,
+    valid bool: the density kernel's coordinates); f64 entries keep the
+    host values for the band."""
 
     def __init__(self, batch: FeatureBatch, device):
         self._batch = batch
@@ -123,6 +125,11 @@ class DeviceColumns:
                                             self._put(col.valid))}
         elif isinstance(col, StringColumn):
             dev = {"kind": "str", "slot": (self._put(col.codes), None, None)}
+        elif isinstance(col, PointColumn):
+            with np.errstate(over="ignore"):
+                x, y = col.x.astype(np.float32), col.y.astype(np.float32)
+            dev = {"kind": "point", "slot": (self._put(x), self._put(y),
+                                             self._put(col.valid))}
         else:
             raise TypeError(f"no device column for {type(col).__name__}")
         self._cache[name] = dev

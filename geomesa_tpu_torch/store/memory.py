@@ -31,9 +31,10 @@
                     candidates, compaction on the device), then the
                     per-query f64 patch, visibility, sampling and result
                     assembly; the rest go through query()
-    density(...) -> the query, then the result's point and weight
-                    columns as f32 on the device, binned and summed by
-                    the density kernel
+    density(...) -> the query's rows (plan, scan, visibility), then only
+                    their ids to the device: the density kernel reads the
+                    point and weight from the device columns, bins and
+                    sums them
     bin_query(...)
                  -> the query, then the BIN records on the host
     delete(ids)  -> the rows dropped; the device columns, z-index and
@@ -77,7 +78,7 @@ from ..index.planner import decide_strategy
 from ..index.splitter import spatial_part
 from ..index.zkeys import SCAN_BLOCK_THRESHOLD, ZKeyIndex, search_rows
 from ..scan import gscan, residual, zscan
-from ..scan.aggregations import density_grid, encode_bin_batch, sample_mask
+from ..scan.aggregations import density_rows, encode_bin_batch, sample_mask
 from ..security import (evaluate_visibilities, parse_visibility,
                         validate_labels)
 from ..security.visibility import distinct_labels
@@ -774,19 +775,37 @@ class InMemoryDataStore(DataStore):
         """Density surface (DensityScan pushdown analog): the float32
         (height, width) heatmap of the matching features over ``bbox``,
         each weighted by ``weight_attr`` (a null weight drops the row),
-        summed by the density kernel on the store's device. Computed on
-        every call (the reference's result cache waits for the serving
-        item of ROADMAP.md section 6, queue 1)."""
+        summed by the density kernel on the store's device from the
+        point and weight columns it keeps there (uploaded on first use),
+        so only the matching row ids cross from the host. A point or
+        weight that attribute-level visibility hides counts as null.
+        Computed on every call (the reference's result cache waits for
+        the serving item of ROADMAP.md section 6, queue 1)."""
         st = self._state(type_name)
+        empty = np.zeros((height, width), dtype=np.float32)
         if st.n == 0:
-            return np.zeros((height, width), dtype=np.float32)
-        res = self.query(Query(type_name, ecql))
-        if res.n == 0:
-            return np.zeros((height, width), dtype=np.float32)
-        x, y, mask, w = density_columns(res, st.sft.geom_field, bbox,
-                                        weight_attr)
-        return density_grid(x, y, mask, bbox, width, height, w,
-                            device=self.device)
+            return empty
+        idx, _, attr_mask = self._matching_rows(Query(type_name, ecql), st,
+                                                Explainer())
+        if not len(idx):
+            return empty
+        geom = st.sft.geom_field
+        if attr_mask is not None:
+            by_name = {a.name: j for j, a in enumerate(st.sft.attributes)}
+            keep = attr_mask[:, by_name[geom]]
+            if weight_attr is not None:
+                keep = keep & attr_mask[:, by_name[weight_attr]]
+            idx = idx[keep]
+        cols = st.device_cols()
+        weight = None
+        if weight_attr is not None:
+            entry = cols.get(weight_attr)
+            if entry["kind"] not in ("f64", "i64", "bool"):
+                raise TypeError(f"density weight {weight_attr!r} is not a "
+                                f"number or a boolean")
+            weight = (entry["kind"], entry["slot"])
+        return density_rows(idx, cols.get(geom)["slot"], weight, bbox, width,
+                            height)
 
     @_synchronized
     def bin_query(self, type_name: str, ecql, track: str | None = None,
@@ -971,25 +990,6 @@ class InMemoryDataStore(DataStore):
         mask = self._patch_mask(st, mask, st.host_xhi, st.host_yhi, None,
                                 sq, explain)
         return np.flatnonzero(mask)
-
-
-def density_columns(res: QueryResult, geom_field: str, bbox,
-                    weight_attr: str | None = None):
-    """(x, y, mask, weights) of a query result for the density grid:
-    the point coordinates (f64), the rows to count (a valid point, and a
-    valid weight when weighted), and the weights (None: unit). Only
-    these columns of the result are copied. Invalid points sit at the
-    bbox corner, masked."""
-    col = res.column(geom_field)
-    mask = col.valid.copy()
-    w = None
-    if weight_attr is not None:
-        wcol = res.column(weight_attr)
-        w = np.where(wcol.valid, wcol.values, 0.0).astype(np.float32)
-        mask &= wcol.valid
-    x = np.where(col.valid, col.x, bbox[0])
-    y = np.where(col.valid, col.y, bbox[1])
-    return x, y, mask, w
 
 
 def _sample_keys(col, idx: np.ndarray) -> np.ndarray:

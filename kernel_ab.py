@@ -3,7 +3,8 @@
 
     python3 kernel_ab.py [--seed 0] [--rows 100000000]
                          [--store-rows 10000000] [--predicates-only]
-                         [--density-only] [--store-only] TREE [TREE ...]
+                         [--density-only] [--store-only] [--prefix-only]
+                         TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repo (a ``git archive`` of a
 commit unpacked into a git-ignored directory will do). The trees run
@@ -63,11 +64,30 @@ compares two versions within one call. Each process:
   (``density_10m``): the rows of its 73-day world query from the
   predicates phase's data, weighted by NumMentions on the 2048x1024
   grid, the same rows in one cell (a 1x1 grid), and the rows of its
-  30-day tile unweighted on the 256x256 grid; the inputs made by the
-  tree's own ``density_upload`` and ``density_scalars``, each result
+  30-day tile unweighted on the 256x256 grid, through the array loader
+  (the inputs made by the tree's own ``density_upload`` and
+  ``density_scalars``, as the parent's store fed it); where the tree has
+  the rows loader (``kernels.density_grid_rows``), the same shapes and
+  the zoom-0 world (256x256, unweighted) and the world call weighted by
+  AvgTone and unweighted, from the rows' ids into
+  ``DeviceColumns`` of the phase's store data, with the path each took
+  and its byte bound; a sweep of the rows loader's two paths forced
+  (global, block; ``path_sweep``) over SWEEP_GRIDS and the
+  world's first SWEEP_ROWS rows, beside the path the kernel chooses;
+  and the atomic rates that bound the global path, from a probe of as
+  many red.global.add.f32 as the world has rows, into an 8 MB grid at
+  hashed cells and at one address (``atomic_rates``). Each result is
   checked against the tree's plain version (unit weights equal,
   weighted within 2 * n_cell * 2^-24 * sum |w| a cell).
   ``--density-only`` times these and nothing else.
+- ``--prefix-only`` times the prefix kernel alone on the partials of
+  chip_smoke.py's kernels-phase batch over --rows rows and of its
+  batched-phase batch over --store-rows rows (``prefix_100m``,
+  ``prefix_10m``), each checked against the plain version, beside one
+  ``torch.cumsum`` of the same partials, an empty kernel on the same
+  stream (the least a launch takes), and a cooperative prefix built by
+  this script from PROBE_SOURCE (the same tiles, one grid-wide barrier
+  between their sums and their stores instead of the look-back).
 - ``--store-only`` times nothing of the above: the tree's store on
   chip_smoke.py's store phase (this checkout's ``phase_store``: the
   same 10M rows and chunked writes), then each of its queries in the
@@ -217,6 +237,157 @@ __global__ void compact_probe(const uint32_t* __restrict__ bits,
   sink[gt] = acc;
 }
 
+// An empty kernel: the least a launch costs on the stream.
+__global__ void empty_kernel() {}
+
+extern "C" int probe_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The prefix kernel's cooperative alternative (csrc/batch.cu's tiles of
+// 4096 partials, 256 threads, four 16-byte vectors a thread, striped):
+// every tile resident at once (a cooperative launch; at most 32
+// registers, so that 8 tiles fit on an SM), each sums its partials and
+// writes its aggregate, one grid-wide barrier (a counter that the host's
+// target says this launch has filled), then each adds its row's earlier
+// aggregates and stores its offsets; the row's last tile writes the
+// total.
+__global__ void __launch_bounds__(256, 8)
+    prefix_coop(const int32_t* __restrict__ partials, int64_t nb,
+                int per_row, int32_t* __restrict__ offsets,
+                int64_t* __restrict__ totals, int32_t* __restrict__ aggs,
+                unsigned int* bar, unsigned int target) {
+  __shared__ int32_t s_warp[8];
+  __shared__ int32_t s_prefix;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x;
+  const int row = tile / per_row, j = tile - row * per_row;
+  const int32_t* in = partials + static_cast<int64_t>(row) * nb;
+  int32_t* out = offsets + static_cast<int64_t>(row) * nb;
+  const int64_t w0 = static_cast<int64_t>(j) * 4096 + warp * 512 + lane * 4;
+  const bool vec_rows = nb % 4 == 0;
+  int32_t v[4][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int64_t i = w0 + e * 128;
+    if (vec_rows && i + 4 <= nb) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(in + i));
+      v[e][0] = a.x; v[e][1] = a.y; v[e][2] = a.z; v[e][3] = a.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[e][k] = i + k < nb ? __ldg(in + i + k) : 0;
+    }
+  }
+  int32_t chunk = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    int32_t sum = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int32_t x = v[e][k];
+      v[e][k] = sum;
+      sum += x;
+    }
+    int32_t incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int32_t y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int32_t lead = chunk + incl - sum;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[e][k] += lead;
+    chunk += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  if (lane == 0) s_warp[warp] = chunk;
+  __syncthreads();
+  int32_t before = 0, agg = 0;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    before += w < warp ? s_warp[w] : 0;
+    agg += s_warp[w];
+  }
+  if (threadIdx.x == 0) {
+    aggs[tile] = agg;
+    __threadfence();
+    atomicAdd(bar, 1u);
+    while (*reinterpret_cast<volatile unsigned int*>(bar) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int32_t p = 0;
+    for (int k = lane; k < j; k += 32)
+      p += __ldcg(aggs + static_cast<int64_t>(row) * per_row + k);
+#pragma unroll
+    for (int off = 16; off; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
+    if (lane == 0) s_prefix = p;
+  }
+  __syncthreads();
+  const int32_t first = s_prefix + before;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int64_t i = w0 + e * 128;
+    if (vec_rows && i + 4 <= nb) {
+      *reinterpret_cast<int4*>(out + i) =
+          make_int4(v[e][0] + first, v[e][1] + first, v[e][2] + first,
+                    v[e][3] + first);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i + k < nb) out[i + k] = v[e][k] + first;
+    }
+  }
+  if (threadIdx.x == 0 && j == per_row - 1) totals[row] = s_prefix + agg;
+}
+
+// aggs: one int32 per tile; bar: a counter zeroed once, to which each
+// launch adds its tile count; target: the counter after this launch.
+extern "C" int probe_prefix_coop(const int32_t* partials, int rows, int64_t nb,
+                                 int32_t* offsets, int64_t* totals,
+                                 int32_t* aggs, unsigned int* bar,
+                                 unsigned int target, void* stream) {
+  int per_row = static_cast<int>((nb + 4095) / 4096);
+  const int64_t tiles = static_cast<int64_t>(per_row) * rows;
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, prefix_coop, 256, 0);
+  if (tiles > static_cast<int64_t>(per_sm) * sms)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&partials, &nb, &per_row, &offsets, &totals, &aggs, &bar,
+                  &target};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(prefix_coop), dim3(static_cast<int>(tiles)),
+      dim3(256), args, 0, static_cast<cudaStream_t>(stream)));
+}
+
+// n f32 adds of 1 (red.global.add.f32) into a grid of mask + 1 cells
+// (a power of two) at hashed cells, or all at cell 0 (one != 0).
+__global__ void atomic_probe(float* __restrict__ grid, int64_t n, uint32_t mask,
+                             int one) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    uint32_t h = static_cast<uint32_t>(i) * 0x9E3779B1u;
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    atomicAdd(grid + (one ? 0u : (h & mask)), 1.0f);
+  }
+}
+
+extern "C" int probe_atomics(float* grid, int64_t n, uint32_t mask, int one,
+                             void* stream) {
+  int64_t blocks = (n + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  atomic_probe<<<static_cast<int>(blocks), 256, 0,
+                 static_cast<cudaStream_t>(stream)>>>(grid, n, mask, one);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int probe_compact(const uint32_t* bits, const int32_t* partials,
                              const int32_t* offsets, const int64_t* totals,
                              int qp, int64_t nb, int64_t words, int mode,
@@ -256,6 +427,13 @@ def build_probe():
     dll.probe_compact.argtypes = [p, p, p, p, ctypes.c_int, i64, i64,
                                   ctypes.c_int, p, i64, p]
     dll.probe_compact.restype = ctypes.c_int
+    dll.probe_empty.argtypes = [p]
+    dll.probe_empty.restype = ctypes.c_int
+    dll.probe_prefix_coop.argtypes = [p, ctypes.c_int, i64, p, p, p, p,
+                                      ctypes.c_uint, p]
+    dll.probe_prefix_coop.restype = ctypes.c_int
+    dll.probe_atomics.argtypes = [p, i64, ctypes.c_uint32, ctypes.c_int, p]
+    dll.probe_atomics.restype = ctypes.c_int
     return dll
 
 
@@ -364,6 +542,99 @@ def batched_case(kernels, data, bq, tree: str, probe) -> dict:
     return out
 
 
+class _Coop:
+    """The cooperative prefix probe's scratch: one aggregate per tile
+    and a barrier counter zeroed once, with the launches' running
+    target."""
+
+    def __init__(self, tiles: int, device):
+        import torch
+        self.aggs = torch.empty(tiles, dtype=torch.int32, device=device)
+        self.bar = torch.zeros(1, dtype=torch.int32, device=device)
+        self.target = 0
+
+
+def prefix_case(kernels, parts, probe) -> dict:
+    """The tree's prefix kernel on ``parts`` (int32[2, Qp, nb]), held,
+    checked against the plain version, beside one torch.cumsum of the
+    same partials, an empty kernel on the same stream, and this
+    checkout's cooperative prefix probe (one grid-wide barrier), also
+    checked."""
+    import torch
+    want = kernels.compact_prefix_plain(parts)
+    got = kernels.compact_prefix(parts)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit("compact_prefix != plain")
+    stream = torch.cuda.current_stream().cuda_stream
+    rows, nb = 2 * parts.shape[1], parts.shape[2]
+    tiles = rows * -(-nb // 4096)
+    coop = _Coop(tiles, parts.device)
+    offsets = torch.empty_like(parts)
+    totals = torch.empty(parts.shape[:2], dtype=torch.int64,
+                         device=parts.device)
+
+    def coop_launch():
+        coop.target += tiles
+        rc = probe.probe_prefix_coop(
+            parts.data_ptr(), rows, nb, offsets.data_ptr(), totals.data_ptr(),
+            coop.aggs.data_ptr(), coop.bar.data_ptr(), coop.target, stream)
+        if rc:
+            coop.target -= tiles
+            raise RuntimeError(f"cooperative prefix launch failed: "
+                               f"cudaError {rc}")
+
+    def empty():
+        rc = probe.probe_empty(stream)
+        if rc:
+            raise RuntimeError(f"empty launch failed: cudaError {rc}")
+    out = {"rows": rows, "nb": nb, "partials": rows * nb, "tiles": tiles,
+           "compact_prefix_ms": cuda_ms(lambda: kernels.compact_prefix(parts),
+                                        True),
+           "cumsum_ms": cuda_ms(lambda: torch.cumsum(
+               parts, dim=2, dtype=torch.int64), True),
+           "empty_kernel_ms": cuda_ms(empty, True)}
+    try:
+        coop_launch()
+    except RuntimeError as e:   # more tiles than fit at once: no number
+        out["coop_prefix_ms"] = None
+        out["coop_error"] = str(e)
+        return out
+    if not (torch.equal(offsets, want[0]) and torch.equal(totals, want[1])):
+        raise SystemExit("cooperative prefix probe != plain")
+    out["coop_prefix_ms"] = cuda_ms(coop_launch, True)
+    return out
+
+
+def prefix_only_case(kernels, zscan, smoke, seed: int, rows: int,
+                store_rows: int, probe) -> dict:
+    """The prefix kernel at chip_smoke.py's shapes: the partials of the
+    kernels phase's batch of 32 over --rows rows (``prefix_100m``) and of
+    the batched phase's 32 over --store-rows rows (``prefix_10m``)."""
+    import torch
+    dev = torch.device("cuda")
+    out = {}
+    for name, seed_off, n, lo, hi, specs in (
+            ("prefix_100m", 0, rows, 0, 1000 * MS_DAY,
+             [zscan.make_query(*q) for q in smoke.kernel_batch_specs(seed)]),
+            ("prefix_10m", 1, store_rows, T0_DAY * MS_DAY, T1_DAY * MS_DAY,
+             None)):
+        rng = np.random.default_rng(seed + seed_off)
+        x = rng.uniform(-180, 180, n)
+        y = rng.uniform(-90, 90, n)
+        ms = rng.integers(lo, hi, n)
+        data = zscan.build_scan_data(x, y, ms, dev, cap=zscan.next_pow2(n))
+        del x, y, ms
+        bq = (zscan.stack_queries(specs) if specs is not None
+              else smoke.store_batch(smoke.store_batch_specs(seed)))
+        b, t = bq.tables(dev)
+        extra = (bq.counts(dev),) if hasattr(bq, "counts") else ()
+        _bits, parts = kernels.scan_batch_bits(data.cols, data.n, b, t, *extra)
+        del data, _bits
+        torch.cuda.empty_cache()
+        out[name] = prefix_case(kernels, parts, probe)
+    return out
+
+
 def predicate_case(smoke, seed: int, rows: int) -> dict:
     """The tree's predicate kernels at chip_smoke.py's predicates-phase
     shapes, held, each checked against the tree's plain version."""
@@ -439,10 +710,56 @@ def predicate_case(smoke, seed: int, rows: int) -> dict:
     return out
 
 
-def density_case(smoke, seed: int, rows: int) -> dict:
-    """The tree's density kernel at chip_smoke.py's surface-phase
-    shapes, held, each checked against the tree's plain version."""
+# the path sweep of the rows loader: grids (width, height) and row
+# counts (the world query's first rows)
+SWEEP_GRIDS = [(1, 1), (32, 32), (64, 64), (128, 64), (128, 128), (256, 128),
+               (256, 256), (512, 256), (512, 512), (1024, 512)]
+SWEEP_ROWS = (None, 1_000_000, 100_000)   # None: all of the world's rows
+
+
+def _rows_launcher(kernels, ids, point, weight, args, mode):
+    """A launch of the rows loader with the path forced (0 global, 1
+    block), outside the wrapper's count; None where the path
+    does not fit the grid."""
     import torch
+    w, h = args[-2:]
+    kind = None if weight is None else weight[0]
+    code = 0 if kind is None else kernels._DENSITY_WEIGHTS[kind][0]
+    try:
+        kernels.density_plan(ids.shape[0], w, h, kind, mode=mode)
+    except RuntimeError:
+        return None
+    a, b, valid = weight[1] if weight is not None else (None, None, None)
+    grid = torch.zeros((h, w), dtype=torch.float32, device=ids.device)
+    lib = kernels._library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        grid.zero_()
+        rc = lib.geomesa_density_rows(
+            ids.data_ptr(), ids.shape[0], *(t.data_ptr() for t in point),
+            code, 0 if a is None else a.data_ptr(),
+            b.data_ptr() if code == 2 else 0,
+            0 if valid is None else valid.data_ptr(), *args[:4], w, h, mode,
+            grid.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"density launch failed: cudaError {rc}")
+        return grid
+    return launch
+
+
+def density_case(smoke, seed: int, rows: int, probe) -> dict:
+    """The tree's density kernel at chip_smoke.py's surface-phase
+    shapes, held, each checked against the tree's plain version: the
+    array loader on the rows gathered on the host (as the parent's
+    store fed it); where the tree has the rows loader, it on the same
+    rows' ids into DeviceColumns of the phase's store data, the zoom-0
+    world at 256x256 and the world call weighted by a Double and
+    unweighted among them, and a sweep of its two paths forced
+    over SWEEP_GRIDS x SWEEP_ROWS (unweighted, plus the zero fill that
+    the launch includes); then the atomic-rate probes."""
+    import torch
+    from geomesa_tpu_torch.features.sft import parse_spec
     from geomesa_tpu_torch.scan import aggregations, kernels
     dev = torch.device("cuda")
     d = smoke.predicate_data(seed, rows)
@@ -453,18 +770,24 @@ def density_case(smoke, seed: int, rows: int) -> dict:
             & (ms > smoke.SURFACE_TILE_DAYS[0] * MS_DAY)
             & (ms < smoke.SURFACE_TILE_DAYS[1] * MS_DAY))
     ment = np.where(d["mentions_valid"], d["mentions"], 0)
+    shapes = (("world_2048x1024_NumMentions", world, smoke.WORLD, 2048, 1024,
+               "NumMentions"),
+              ("world_1x1_NumMentions", world, smoke.WORLD, 1, 1,
+               "NumMentions"),
+              ("tile_256", tile, smoke.SURFACE_TILE, 256, 256, None),
+              ("world_256x256_zoom0", world, smoke.WORLD, 256, 256, None),
+              ("world_2048x1024_AvgTone", world, smoke.WORLD, 2048, 1024,
+               "AvgTone"),
+              ("world_2048x1024_unweighted", world, smoke.WORLD, 2048, 1024,
+               None))
     out = {}
-    for name, sel, bbox, w, h, wts in (
-            ("world_2048x1024_NumMentions", world, smoke.WORLD, 2048, 1024,
-             ment),
-            ("world_1x1_NumMentions", world, smoke.WORLD, 1, 1, ment),
-            ("tile_256", tile, smoke.SURFACE_TILE, 256, 256, None)):
+    for name, sel, bbox, w, h, attr in shapes[:3]:
         idx = np.flatnonzero(sel)
-        mask = (d["mentions_valid"][idx] if wts is not None
+        mask = (d["mentions_valid"][idx] if attr is not None
                 else np.ones(len(idx), bool))
         xt, yt, wt, mt = aggregations.density_upload(
             d["x"][idx], d["y"][idx], mask,
-            None if wts is None else wts[idx], dev)
+            None if attr is None else ment[idx], dev)
         args = (xt, yt, wt, mt, *aggregations.density_scalars(bbox, w, h),
                 w, h)
         got = kernels.density_grid(*args)
@@ -483,6 +806,66 @@ def density_case(smoke, seed: int, rows: int) -> dict:
         out[name] = {"rows": len(idx), "max_abs_err": float(diff.max()),
                      "ms": cuda_ms(lambda: kernels.density_grid(*args),
                                    True)}
+    if not hasattr(kernels, "density_grid_rows"):
+        return out
+    from geomesa_tpu_torch.scan import residual
+    batch = smoke.predicate_batch(parse_spec("gdelt", smoke.PRED_SPEC), d,
+                                  np.arange(rows).astype(object))
+    cols = residual.DeviceColumns(batch, dev)
+    point = cols.get("geom")["slot"]
+    for name, sel, bbox, w, h, attr in shapes:
+        ids = torch.from_numpy(np.flatnonzero(sel).astype(np.int32)).to(dev)
+        weight = None if attr is None else (cols.get(attr)["kind"],
+                                            cols.get(attr)["slot"])
+        args = (ids, point, weight, *aggregations.density_scalars(bbox, w, h),
+                w, h)
+        got = kernels.density_grid_rows(*args)
+        ok, err = smoke.density_launch_ok(args, got)
+        if not ok:
+            raise SystemExit(f"density_grid_rows != plain ({name})")
+        out.setdefault(name, {"rows": int(ids.shape[0])})
+        out[name].update({
+            "rows_ms": cuda_ms(lambda: kernels.density_grid_rows(*args), True),
+            "rows_max_abs_err": err,
+            "rows_bound_ms": smoke.bound_ms(smoke.density_bytes(args), 0)[0],
+            "rows_plan": kernels.density_plan(
+                ids.shape[0], w, h, None if weight is None else weight[0])})
+    world_ids = torch.from_numpy(np.flatnonzero(world).astype(np.int32)).to(dev)
+    sweep = []
+    for n in SWEEP_ROWS:
+        ids = world_ids if n is None else world_ids[:n]
+        for w, h in SWEEP_GRIDS:
+            args = (*aggregations.density_scalars(smoke.WORLD, w, h), w, h)
+            want = kernels.density_grid_rows_plain(ids, point, None, *args)
+            row = {"rows": int(ids.shape[0]), "width": w, "height": h,
+                   "auto": kernels.density_plan(ids.shape[0], w, h)}
+            for mode, path in enumerate(kernels.DENSITY_PATHS):
+                launch = _rows_launcher(kernels, ids, point, None, args, mode)
+                if launch is None:
+                    row[path] = None
+                    continue
+                if not torch.equal(launch(), want):
+                    raise SystemExit(f"density path {path} != plain at "
+                                     f"{ids.shape[0]} rows, {w}x{h}")
+                row[path] = cuda_ms(launch, True, iters=10)
+            sweep.append(row)
+    out["path_sweep"] = sweep
+    # the atomic rates that bound the global path: random adds into an
+    # 8 MB grid that L2 holds, and adds at one address
+    n = int(world_ids.shape[0])
+    grid = torch.zeros(1 << 21, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {"adds": n}
+    for name, one in (("random_8mb", 0), ("one_address", 1)):
+        def launch(one=one):
+            rc = probe.probe_atomics(grid.data_ptr(), n, (1 << 21) - 1, one,
+                                     stream)
+            if rc:
+                raise RuntimeError(f"atomic probe failed: cudaError {rc}")
+        t = cuda_ms(launch, True, iters=10)
+        rates[f"{name}_ms"] = t
+        rates[f"{name}_adds_per_s"] = n / (t * 1e-3)
+    out["atomic_rates"] = rates
     return out
 
 
@@ -542,7 +925,7 @@ def store_case(smoke, seed: int, rows: int) -> dict:
 
 def worker(tree: str, seed: int, rows: int, store_rows: int,
            predicates_only: bool = False, density_only: bool = False,
-           store_only: bool = False) -> dict:
+           store_only: bool = False, prefix_only: bool = False) -> dict:
     sys.path.insert(0, tree)
     import torch
     from geomesa_tpu_torch.index.zkeys import ZKeyIndex, search_rows
@@ -558,10 +941,13 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
         return {"tree": tree, "store_10m": store_case(_smoke(), seed,
                                                       store_rows)}
     has_density = hasattr(kernels, "density_grid")
+    probe = build_probe()
     if density_only:
         return {"tree": tree, "density_10m": density_case(
-            _smoke(), seed, store_rows) if has_density else None}
-    probe = build_probe()
+            _smoke(), seed, store_rows, probe) if has_density else None}
+    if prefix_only:
+        return {"tree": tree, **prefix_only_case(
+            kernels, zscan, _smoke(), seed, rows, store_rows, probe)}
     buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
     def flush():
@@ -649,7 +1035,7 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
                                    "residual.py")):
         res["predicates_10m"] = predicate_case(smoke, seed, store_rows)
     if has_density:
-        res["density_10m"] = density_case(smoke, seed, store_rows)
+        res["density_10m"] = density_case(smoke, seed, store_rows, probe)
     return res
 
 
@@ -665,12 +1051,16 @@ def main():
                     help="time only the density kernel (density_10m)")
     ap.add_argument("--store-only", action="store_true",
                     help="time only the store's queries (store_10m)")
+    ap.add_argument("--prefix-only", action="store_true",
+                    help="time only the prefix kernel (prefix_100m, "
+                         "prefix_10m)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         print(json.dumps(worker(args.worker, args.seed, args.rows,
                                 args.store_rows, args.predicates_only,
-                                args.density_only, args.store_only)),
+                                args.density_only, args.store_only,
+                                args.prefix_only)),
               flush=True)
         return 0
     if not args.trees:
@@ -685,7 +1075,8 @@ def main():
              str(args.rows), "--store-rows", str(args.store_rows),
              *(["--predicates-only"] if args.predicates_only else []),
              *(["--density-only"] if args.density_only else []),
-             *(["--store-only"] if args.store_only else [])],
+             *(["--store-only"] if args.store_only else []),
+             *(["--prefix-only"] if args.prefix_only else [])],
             capture_output=True, text=True, cwd=ROOT)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)

@@ -10,6 +10,17 @@
   xmax/ymax. Tolerance: unit and integer weights exact (every cell an
   integer total below 2^24); fractional weights within
   2 * n_cell * 2^-24 * sum |w| per cell (the f32 sums' order).
+- ``kernels.density_grid_rows_plain`` (the rows loader's plain
+  version: a query result's row ids into the store's device columns)
+  against the reference's ``density_grid`` on the same seeded rows,
+  selected by ids and cast as the JAX store casts them: Integer and Long
+  weights past 2^24 and 2^53 (a Long rounds to f64, then to f32), null
+  weights and points, NaN and +-inf coordinates, a degenerate bbox, an
+  empty id list. Same tolerance.
+- The port store's ``density()`` (ids into device columns) against the
+  JAX store's on a tile, the world and a 1x1 grid, unweighted and
+  weighted by an Integer and a Double column, after an append and after
+  a delete, and with attribute-level visibility.
 - ``encode_bin_*``, ``_id_hashes`` and ``sample_mask`` byte for byte.
 """
 
@@ -21,9 +32,12 @@ from geomesa_tpu.index.api import Query as JQuery
 from geomesa_tpu.index.api import QueryHints as JQueryHints
 from geomesa_tpu.scan import aggregations as jagg
 from geomesa_tpu.store import InMemoryDataStore as JaxStore
-from geomesa_tpu_torch import InMemoryDataStore, Query
+from geomesa_tpu_torch import FeatureBatch, InMemoryDataStore, Query
+from geomesa_tpu_torch import parse_spec
+from geomesa_tpu_torch.features.batch import (BoolColumn, NumericColumn,
+                                              PointColumn)
 from geomesa_tpu_torch.index.api import QueryHints
-from geomesa_tpu_torch.scan import aggregations, kernels
+from geomesa_tpu_torch.scan import aggregations, kernels, residual
 
 MS = lambda s: int(np.datetime64(s, "ms").astype(np.int64))  # noqa: E731
 
@@ -317,6 +331,227 @@ def test_density_wrapper_checks():
     kernels.reset_launches()
     kernels.density_grid(x, x, None, m, 0, 0, 1, 1, 2, 2)
     assert kernels.launches["density_grid"] == 0   # the plain version ran
+
+
+# -- the rows loader's plain version against the reference ----------------------
+
+ROW_SPEC = "wi:Integer,wl:Long,wd:Double,wb:Boolean,*geom:Point"
+
+
+def _row_batch(n, seed, bbox):
+    """A seeded batch of ``n`` rows: edge points around ``bbox`` with a
+    twentieth null (NaN), Integer weights up to 2^31 - 1 (past 2^24),
+    Long weights past 2^53 on a third of the rows, Double and Boolean
+    weights, each about 5 % null."""
+    rng = np.random.default_rng(seed)
+    x, y = _edge_points(rng, n, bbox)
+    null = rng.random(n) < 0.05
+    x[null] = np.nan
+    wi = rng.integers(-50, 200, n)
+    wi[::7] = rng.integers(2**24, 2**31 - 1, len(wi[::7]))
+    wl = rng.integers(-1000, 1000, n)
+    wl[::3] = rng.integers(-2**62, 2**62, len(wl[::3]))
+    valid = lambda: rng.random(n) >= 0.05   # noqa: E731
+    batch = FeatureBatch(parse_spec("r", ROW_SPEC),
+                         np.arange(n).astype(str).astype(object), {
+        "wi": NumericColumn("wi", wi, valid()),
+        "wl": NumericColumn("wl", wl, valid()),
+        "wd": NumericColumn("wd", rng.uniform(-3.0, 7.0, n), valid()),
+        "wb": BoolColumn("wb", rng.random(n) < 0.5, valid()),
+        "geom": PointColumn("geom", x, y, ~(np.isnan(x) | np.isnan(y)))})
+    return batch
+
+
+def _reference_rows(batch, rows, attr, bbox, width, height):
+    """The reference's grid of ``rows`` as the JAX store computes it:
+    the point columns with null points at the bbox corner, masked; the
+    weights ``where(valid, values, 0.0).astype(float32)``, masked when
+    null. Also the (x, y, mask, w) it binned."""
+    col = batch.col("geom")
+    x, y, mask = col.x[rows], col.y[rows], col.valid[rows].copy()
+    w = None
+    if attr is not None:
+        wcol = batch.col(attr)
+        w = np.where(wcol.valid[rows], wcol.values[rows], 0.0).astype(
+            np.float32)
+        mask &= wcol.valid[rows]
+    x = np.where(col.valid[rows], x, bbox[0])
+    y = np.where(col.valid[rows], y, bbox[1])
+    return jagg.density_grid(x, y, mask, bbox, width, height, w), (x, y, mask,
+                                                                   w)
+
+
+def _rows_plain(batch, rows, attr, bbox, width, height):
+    cols = residual.DeviceColumns(batch, "cpu")
+    weight = None if attr is None else (cols.get(attr)["kind"],
+                                        cols.get(attr)["slot"])
+    xmin, ymin, sx, sy = aggregations.density_scalars(bbox, width, height)
+    return kernels.density_grid_rows_plain(
+        torch.from_numpy(rows.astype(np.int32)), cols.get("geom")["slot"],
+        weight, xmin, ymin, sx, sy, width, height).numpy()
+
+
+@pytest.mark.parametrize("attr", [None, "wi", "wl", "wd", "wb"])
+@pytest.mark.parametrize("bbox", [BBOXES[0], BBOXES[3], BBOXES[4]])
+@pytest.mark.parametrize("width,height", [(1, 1), (13, 7), (256, 256)])
+def test_density_rows_plain_matches_reference(attr, bbox, width, height):
+    """Seeded rows selected by ascending ids (a random ninth left out):
+    unit, Boolean and small-integer cells exact; cells of Integer weights
+    past 2^24, of Long weights and of Doubles within the bound."""
+    n = 12_000
+    batch = _row_batch(n, width + height + len(str(attr)), bbox)
+    rows = np.flatnonzero(np.random.default_rng(3).random(n) < 8 / 9)
+    got = _rows_plain(batch, rows, attr, bbox, width, height)
+    want, (x, y, mask, w) = _reference_rows(batch, rows, attr, bbox, width,
+                                            height)
+    assert got.dtype == np.float32 and got.shape == (height, width)
+    if attr in (None, "wb"):
+        assert np.array_equal(got, want)
+        return
+    bound = _cell_bound(x, y, mask, w, bbox, width, height)
+    if attr == "wi":
+        # cells whose integer weights sum |w| under 2^24 are exact
+        xmin, ymin, sx, sy = aggregations.density_scalars(bbox, width, height)
+        cells = kernels.density_cells_plain(
+            torch.from_numpy(x.astype(np.float32)),
+            torch.from_numpy(y.astype(np.float32)), xmin, ymin, sx, sy, width,
+            height).numpy()[mask]
+        abs_w = np.bincount(cells, np.abs(w[mask].astype(np.float64)),
+                            minlength=width * height).reshape(height, width)
+        bound = np.where(abs_w < 2**24, 0.0, bound)
+        assert (abs_w >= 2**24).any()
+    assert np.all(np.abs(got.astype(np.float64) - want) <= bound)
+
+
+def test_density_rows_long_weights_round_through_f64():
+    """Long weights each alone in a cell, past 2^53: the grid holds each
+    weight rounded to f64 and then to f32, exactly as the reference's
+    cast (2^60 + 2^36 + 1 becomes 2^60, where one rounding would give
+    2^60 + 2^37)."""
+    v = np.array([2**60 + 2**36 + 1, -(2**60 + 2**36 + 1), 2**53 + 1,
+                  2**63 - 1, -2**63, 3 * 2**55 + 2**31 + 7, 5, 0])
+    n = len(v)
+    batch = FeatureBatch(parse_spec("r", "wl:Long,*geom:Point"),
+                         np.arange(n).astype(str).astype(object), {
+        "wl": NumericColumn("wl", v, np.ones(n, bool)),
+        "geom": PointColumn("geom", np.arange(n) + 0.5, np.full(n, 0.5),
+                            np.ones(n, bool))})
+    bbox = (0.0, 0.0, float(n), 1.0)
+    rows = np.arange(n)
+    got = _rows_plain(batch, rows, "wl", bbox, n, 1)
+    want, _ = _reference_rows(batch, rows, "wl", bbox, n, 1)
+    assert np.array_equal(got, want)
+    assert got[0, 0] == np.float32(2.0**60)
+    assert np.float32(v[0]) != got[0, 0]          # one rounding differs
+
+
+def test_density_rows_empty_ids():
+    batch = _row_batch(100, 1, BBOXES[0])
+    for attr in (None, "wi"):
+        got = _rows_plain(batch, np.zeros(0, np.int64), attr, BBOXES[0], 5, 3)
+        want, _ = _reference_rows(batch, np.zeros(0, np.int64), attr,
+                                  BBOXES[0], 5, 3)
+        assert np.array_equal(got, want) and not got.any()
+
+
+# -- the port store's density() against the JAX store's ---------------------------
+
+DENSITY_SPEC = "wi:Integer,wd:Double,dtg:Date,*geom:Point"
+T0 = MS("2020-01-01")
+
+
+def _density_rows(rng, lo, hi):
+    n = hi - lo
+    x, y = rng.uniform(-179, 179, n), rng.uniform(-89, 89, n)
+    x[::31] = np.nan
+    return [f"d{i}" for i in range(lo, hi)], {
+        "wi": [None if i % 17 == 0 else int(v)
+               for i, v in enumerate(rng.integers(-20, 500, n))],
+        "wd": np.where(rng.random(n) < 0.05, np.nan, rng.uniform(-5, 5, n)),
+        "dtg": T0 + rng.integers(0, 60 * 86_400_000, n),
+        "geom": (x, y)}
+
+
+DENSITY_CASES = [
+    ("tile", "BBOX(geom, -30, -20, 10, 25) AND dtg DURING "
+     "2020-01-05T00:00:00Z/2020-02-10T00:00:00Z", (-30, -20, 10, 25), 64, 48),
+    ("world", "dtg DURING 2020-01-03T00:00:00Z/2020-02-20T00:00:00Z",
+     (-180, -90, 180, 90), 360, 180),
+    ("world_1x1", "INCLUDE", (-180, -90, 180, 90), 1, 1)]
+
+
+@pytest.fixture(scope="module")
+def density_stores():
+    """A port store on the CPU and a JAX store, written alike, with the
+    rows written so far kept for the bound."""
+    port, ref = InMemoryDataStore(device="cpu"), JaxStore()
+    rng = np.random.default_rng(23)
+    ids, data = _density_rows(rng, 0, 15_000)
+    for ds in (port, ref):
+        ds.create_schema("d", DENSITY_SPEC)
+        ds.write_dict("d", ids, data)
+    return port, ref, rng
+
+
+def _check_store_density(port, ref, stage):
+    for name, ecql, bbox, w, h in DENSITY_CASES:
+        for attr in (None, "wi", "wd"):
+            got = port.density("d", ecql, bbox, w, h, attr)
+            want = ref.density("d", ecql, bbox, w, h, attr)
+            assert got.dtype == np.float32 and got.shape == (h, w)
+            if attr != "wd":
+                assert np.array_equal(got, want), (stage, name, attr)
+                continue
+            res = ref.query(JQuery("d", ecql))
+            col, wcol = res.batch.col("geom"), res.batch.col("wd")
+            mask = col.valid & wcol.valid
+            bound = _cell_bound(np.where(mask, col.x, 0.0),
+                                np.where(mask, col.y, 0.0), mask,
+                                np.where(mask, wcol.values, 0.0), bbox, w, h)
+            assert np.all(np.abs(got.astype(np.float64) - want) <= bound), (
+                stage, name)
+
+
+def test_store_density_matches_reference_through_writes(density_stores):
+    """density() on the tile, the world and a 1x1 grid, unweighted and
+    weighted by Integer (exact) and Double (within the bound), after the
+    first write, after an append (the device columns dropped and
+    uploaded again) and after a delete."""
+    port, ref, rng = density_stores
+    _check_store_density(port, ref, "written")
+    ids, data = _density_rows(rng, 15_000, 20_000)
+    for ds in (port, ref):
+        ds.write_dict("d", ids, data)
+    _check_store_density(port, ref, "appended")
+    gone = [f"d{i}" for i in rng.choice(20_000, 1_000, replace=False)]
+    for ds in (port, ref):
+        ds.delete("d", gone)
+    _check_store_density(port, ref, "deleted")
+    assert port.count("d") == 19_000
+
+
+def test_store_density_attribute_visibility():
+    """Attribute-level visibility: a row whose point or weight is hidden
+    from the (empty) auths drops out of the grid, as in the JAX store."""
+    spec = ("wi:Integer,*geom:Point;geomesa.visibility.level='attribute'")
+    rng = np.random.default_rng(4)
+    n = 3_000
+    labels = np.array([",", "a,", ",a", "a,a"], dtype=object)[
+        rng.integers(0, 4, n)]
+    data = {"wi": rng.integers(0, 100, n),
+            "geom": (rng.uniform(-10, 10, n), rng.uniform(-10, 10, n))}
+    ids = [f"v{i}" for i in range(n)]
+    stores = []
+    for ds in (InMemoryDataStore(device="cpu"), JaxStore()):
+        ds.create_schema("v", spec)
+        ds.write_dict("v", ids, data, visibilities=labels)
+        stores.append(ds)
+    for attr in (None, "wi"):
+        got = stores[0].density("v", "INCLUDE", (-10, -10, 10, 10), 8, 8, attr)
+        want = stores[1].density("v", "INCLUDE", (-10, -10, 10, 10), 8, 8,
+                                 attr)
+        assert np.array_equal(got, want)
+        assert 0 < got.sum() < (n if attr is None else data["wi"].sum())
 
 
 # -- BIN encoders and sampling, byte for byte ------------------------------------

@@ -240,6 +240,66 @@ def test_prefix_bases_past_int32():
     assert np.array_equal(bases, np.cumsum(sums, axis=1) - sums)
 
 
+def _lookback_emulation(partials, order):
+    """The prefix kernel's bookkeeping on the host: the tiles of
+    ``kernels.prefix_plan`` (PREFIX_TILE partials each, row by row) all
+    publish their aggregates (a row's first tile its inclusive prefix),
+    then walk back in ``order`` over their row's earlier tiles to the
+    nearest published inclusive prefix, each publishing its own."""
+    rows = partials.shape[0] * partials.shape[1]
+    nb = partials.shape[2]
+    per_row, tiles, words = kernels.prefix_plan(rows, nb)
+    flat = partials.reshape(rows, nb).to(torch.int64)
+    tile = kernels.PREFIX_TILE
+
+    def part(t):
+        row, j = divmod(t, per_row)
+        return flat[row, j * tile:(j + 1) * tile]
+    status = [("P" if t % per_row == 0 else "A", int(part(t).sum()))
+              for t in range(tiles)]
+    offsets = torch.empty(rows, nb, dtype=torch.int64)
+    totals = torch.empty(rows, dtype=torch.int64)
+    for t in order:
+        row, j = divmod(t, per_row)
+        agg, prefix, k = int(part(t).sum()), 0, t - 1
+        while j:
+            flag, v = status[k]
+            prefix += v
+            if flag == "P":
+                break
+            k -= 1
+        assert k >= row * per_row or not j   # the walk ends in its row
+        status[t] = ("P", prefix + agg)
+        offsets[row, j * tile:(j + 1) * tile] = (
+            prefix + torch.cumsum(part(t), 0) - part(t))
+        if j == per_row - 1:
+            totals[row] = prefix + agg
+    assert words == 1 + tiles
+    return (offsets.view(partials.shape).to(torch.int32),
+            totals.view(partials.shape[:2]))
+
+
+@pytest.mark.parametrize("nb", [1, 4095, 4097, 65536])
+def test_prefix_tiles_and_lookback(nb):
+    """The tile count and scratch size that the wrapper computes for
+    the prefix kernel (one tile of 4096 partials per block, a counter
+    and a status word per tile), and a look-back over those tiles, in
+    ticket order (each tile finds its predecessor's inclusive prefix)
+    and in reverse (each walks over aggregates to its row's first
+    tile), equal the plain prefix."""
+    assert kernels.PREFIX_TILE == 4096
+    rng = np.random.default_rng(nb)
+    parts = torch.from_numpy(rng.integers(0, 2049, (2, 3, nb)).astype(np.int32))
+    parts[:, :, ::5] = 0
+    per_row, tiles, words = kernels.prefix_plan(6, nb)
+    assert per_row == -(-nb // 4096) and tiles == 6 * per_row
+    assert per_row * 4096 >= nb > (per_row - 1) * 4096
+    want = kernels.compact_prefix_plain(parts)
+    for order in (range(tiles), range(tiles - 1, -1, -1)):
+        got = _lookback_emulation(parts, list(order))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_stacked_tables():
     """Unused box slots hold NaN in every bound and unused intervals
     impossible bounds; a time-free query carries the reference's

@@ -422,6 +422,71 @@ def test_compact_prefix_past_int32(cuda):
                           - host.sum(axis=2))
 
 
+def _prefix_partials(qp, nb, fill, device, seed=0):
+    if fill == "zero":
+        return torch.zeros((2, qp, nb), dtype=torch.int32, device=device)
+    if fill == "full":
+        return torch.full((2, qp, nb), 2048, dtype=torch.int32, device=device)
+    rng = np.random.default_rng(seed + qp * 7 + nb)
+    parts = rng.integers(0, 2049, (2, qp, nb)).astype(np.int32)
+    parts[:, :, rng.random(nb) < 0.5] = 0    # runs of empty blocks
+    return torch.from_numpy(parts).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["random", "zero", "full"])
+@pytest.mark.parametrize("nb", [1, 4095, 4097, 65536])
+@pytest.mark.parametrize("qp", [1, 2, 7, 32])
+def test_compact_prefix_lookback_matches_plain(cuda, qp, nb, fill):
+    """2 to 64 rows of 1, a tile - 1, a tile + 1 and 16 tiles of
+    partials, all zero, all full (2048) and random: offsets and totals
+    equal the plain version's, over repeated launches on the same
+    scratch (each launch a new epoch and ticket base)."""
+    assert kernels.PREFIX_TILE == 4096
+    parts = _prefix_partials(qp, nb, fill, cuda)
+    want = kernels.compact_prefix_plain(parts)
+    for _ in range(3):
+        kernels.reset_launches()
+        got = kernels.compact_prefix(parts)
+        torch.cuda.synchronize()
+        assert kernels.launches["compact_prefix"] == 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_compact_prefix_scratch_epochs_and_sizes(cuda):
+    """Launches that alternate small and large partials on one scratch,
+    a scratch grown mid-sequence, an epoch at its limit (the scratch is
+    made anew), a second stream with a scratch of its own, and rows that
+    are not 16-byte aligned."""
+    shapes = [(32, 65536), (1, 1), (5, 9000), (32, 65536), (64, 70000),
+              (2, 4097)]
+    for i, (qp, nb) in enumerate(shapes):
+        parts = _prefix_partials(qp, nb, "random", cuda, seed=i)
+        got = kernels.compact_prefix(parts)
+        want = kernels.compact_prefix_plain(parts)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    parts = _prefix_partials(3, 20000, "random", cuda, seed=9)
+    key = (parts.device, torch.cuda.current_stream(cuda).cuda_stream)
+    old = kernels._prefix_scratch[key]
+    old.epoch = kernels._PREFIX_EPOCHS - 1
+    want = kernels.compact_prefix_plain(parts)
+    for _ in range(2):
+        got = kernels.compact_prefix(parts)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kernels._prefix_scratch[key] is not old
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        got = kernels.compact_prefix(parts)
+    side.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    flat = torch.zeros(2 * 3 * 20000 + 1, dtype=torch.int32, device=cuda)
+    off = flat[1:].view(2, 3, 20000)
+    off.copy_(parts)
+    got = kernels.compact_prefix(off)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [33, 2049, 1_000_000, 2**20 - 1])
 def test_compact_empty_and_full_bitmaps(batch_data, n):
@@ -825,17 +890,13 @@ def _density_inputs(n, bbox, weights, device, seed=0):
         bbox, 1, 1)[:2])
 
 
-def _density_check(xt, yt, wt, mt, bbox, width, height, exact):
-    """The kernel against its plain version on the same device tensors:
-    equal with unit weights; with ``exact`` integer weights, equal on
-    every cell whose sum |w| is under 2^24 (every partial sum an exact
-    f32 integer); else each cell within 2 * n_cell * 2^-24 * sum |w|."""
+def _grid_check(got, xt, yt, wt, mt, bbox, width, height, exact):
+    """A kernel's grid against the plain version of the same rows
+    (point x, y, weights, counted mask, on the card): equal with unit
+    weights; with ``exact`` integer weights, equal on every cell whose
+    sum |w| is under 2^24 (every partial sum an exact f32 integer); else
+    each cell within 2 * n_cell * 2^-24 * sum |w|."""
     xmin, ymin, sx, sy = aggregations.density_scalars(bbox, width, height)
-    kernels.reset_launches()
-    got = kernels.density_grid(xt, yt, wt, mt, xmin, ymin, sx, sy, width,
-                               height)
-    torch.cuda.synchronize()
-    assert kernels.launches["density_grid"] == (1 if xt.shape[0] else 0)
     want = kernels.density_grid_plain(xt, yt, wt, mt, xmin, ymin, sx, sy,
                                       width, height)
     if wt is None:
@@ -854,6 +915,18 @@ def _density_check(xt, yt, wt, mt, bbox, width, height, exact):
         bound = torch.where(small, torch.zeros_like(bound), bound)
     assert bool((diff <= bound).all())
     return got
+
+
+def _density_check(xt, yt, wt, mt, bbox, width, height, exact):
+    """The array loader's kernel against its plain version
+    (``_grid_check``), launched once."""
+    xmin, ymin, sx, sy = aggregations.density_scalars(bbox, width, height)
+    kernels.reset_launches()
+    got = kernels.density_grid(xt, yt, wt, mt, xmin, ymin, sx, sy, width,
+                               height)
+    torch.cuda.synchronize()
+    assert kernels.launches["density_grid"] == (1 if xt.shape[0] else 0)
+    return _grid_check(got, xt, yt, wt, mt, bbox, width, height, exact)
 
 
 @pytest.mark.gpu
@@ -890,16 +963,158 @@ def test_density_kernel_every_row_in_one_cell(cuda, n):
 
 @pytest.mark.gpu
 def test_density_wrapper_raises_on_cuda(cuda):
-    x = torch.zeros(64, device=cuda)
+    """Tensors on two devices raise; views at any offset are read as
+    they are (the loaders read scalars: no alignment is required)."""
+    x = torch.arange(64, dtype=torch.float32, device=cuda) / 16
     m = torch.ones(64, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="devices"):
         kernels.density_grid(x, x.cpu(), None, m, 0, 0, 1, 1, 4, 4)
     with pytest.raises(ValueError, match="devices"):
         kernels.density_grid(x, x, None, m.cpu(), 0, 0, 1, 1, 4, 4)
-    with pytest.raises(ValueError, match="aligned"):
-        kernels.density_grid(x[1:33], x[:32], None, m[:32], 0, 0, 1, 1, 4, 4)
-    with pytest.raises(ValueError, match="aligned"):
-        kernels.density_grid(x[:32], x[:32], None, m[1:33], 0, 0, 1, 1, 4, 4)
+    for xs, ms in ((x[1:33], m[:32]), (x[:32], m[1:33])):
+        got = kernels.density_grid(xs, x[:32], None, ms, 0, 0, 1, 1, 4, 4)
+        assert torch.equal(got, kernels.density_grid_plain(
+            xs, x[:32], None, ms, 0, 0, 1, 1, 4, 4))
+    ids = torch.arange(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="devices"):
+        kernels.density_grid_rows(ids, (x, x, m.cpu()), None, 0, 0, 1, 1, 4, 4)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.density_grid_rows(ids.long(), (x, x, m), None, 0, 0, 1, 1,
+                                  4, 4)
+
+
+def _rows_store_cols(n, device, seed=0, one_cell=False):
+    """DeviceColumns of a seeded batch of ``n`` rows on ``device``:
+    points around (-30, -20, 50, 40) with the first ones at +-1e30, +-inf
+    and NaN (a NaN point is null), Integer weights, Long weights past
+    2^53, Double weights, Boolean weights, each about 5 % null; with
+    ``one_cell`` every point at one place."""
+    from geomesa_tpu_torch.features.batch import (BoolColumn, NumericColumn,
+                                                  PointColumn)
+    rng = np.random.default_rng(seed + n)
+    x = rng.uniform(-46.0, 66.0, n)
+    y = rng.uniform(-32.0, 52.0, n)
+    if one_cell:
+        x[:], y[:] = 2.5, -1.25
+    special = [1e30, -1e30, np.inf, -np.inf, np.nan]
+    x[:min(n, 5)] = special[:min(n, 5)]
+    y[5:min(n, 10)] = special[:max(0, min(n, 10) - 5)]
+    null = lambda: rng.random(n) >= 0.05   # noqa: E731
+    sft = parse_spec("d", "wi:Integer,wl:Long,wd:Double,wb:Boolean,"
+                     "*geom:Point")
+    big = rng.integers(-2**62, 2**62, n)
+    big[::3] = rng.integers(-1000, 1000, (n + 2) // 3)
+    batch = FeatureBatch(sft, np.arange(n).astype(str).astype(object), {
+        "wi": NumericColumn("wi", rng.integers(-100, 1000, n), null()),
+        "wl": NumericColumn("wl", big, null()),
+        "wd": NumericColumn("wd", rng.uniform(-3.0, 7.0, n), null()),
+        "wb": BoolColumn("wb", rng.random(n) < 0.5, null()),
+        "geom": PointColumn("geom", x, y, ~(np.isnan(x) | np.isnan(y)))})
+    return residual.DeviceColumns(batch, device)
+
+
+def _rows_check(cols, ids, attr, bbox, width, height, exact):
+    """The rows loader's kernel against the plain version of the same
+    gathered rows (``_grid_check``)."""
+    point = cols.get("geom")["slot"]
+    weight = None if attr is None else (cols.get(attr)["kind"],
+                                        cols.get(attr)["slot"])
+    xmin, ymin, sx, sy = aggregations.density_scalars(bbox, width, height)
+    kernels.reset_launches()
+    got = kernels.density_grid_rows(ids, point, weight, xmin, ymin, sx, sy,
+                                    width, height)
+    torch.cuda.synchronize()
+    assert kernels.launches["density_grid"] == (1 if ids.shape[0] else 0)
+    return _grid_check(got, *kernels.density_rows_gather(ids, point, weight),
+                       bbox, width, height, exact)
+
+
+def _switches(n, weight=None, rows=True):
+    """The cell counts where the density kernel's path changes for n
+    rows (the plan is monotone in the cells: block, then global)."""
+    def path(cells):
+        return kernels.density_plan(n, cells, 1, weight, rows)["path"]
+    out, lo = [], 1
+    hi = 1 << 22
+    while path(lo) != path(hi):
+        a, b = lo, hi    # path(a) != path(b): bisect to the first change
+        while b - a > 1:
+            mid = (a + b) // 2
+            a, b = (mid, b) if path(mid) == path(a) else (a, mid)
+        out.append(b)
+        lo = b
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attr", [None, "wi", "wl", "wd", "wb"])
+def test_density_paths_at_their_switches(cuda, attr):
+    """Both loaders on grids just below and just above each switch of
+    the path (1 x cells grids over 1M rows), and 1x1: every path (global,
+    block) runs and equals its plain version (integer weights exactly
+    below 2^24 a cell, others within the bound)."""
+    n = 1_000_000
+    cols = _rows_store_cols(n, cuda)
+    ids = torch.from_numpy(np.flatnonzero(
+        np.random.default_rng(1).random(n) < 0.9).astype(np.int32)).to(cuda)
+    kind = None if attr is None else cols.get(attr)["kind"]
+    switches = _switches(ids.shape[0], kind)
+    seen = set()
+    bbox = (-30.0, -20.0, 50.0, 40.0)
+    for cells in sorted({1, *[c - 1 for c in switches], *switches}):
+        seen.add(kernels.density_plan(ids.shape[0], cells, 1, kind)["path"])
+        _rows_check(cols, ids, attr, bbox, cells, 1, attr in ("wi", "wb"))
+        # the same cells as a 2-d grid, where it factors
+        if cells % 4 == 0:
+            _rows_check(cols, ids, attr, bbox, cells // 4, 4,
+                        attr in ("wi", "wb"))
+    assert seen == set(kernels.DENSITY_PATHS)
+    if attr is None:   # the array loader on the same rows
+        point = cols.get("geom")["slot"]
+        rows = ids.long()
+        xt, yt = point[0][rows].contiguous(), point[1][rows].contiguous()
+        mt = point[2][rows].contiguous()
+        at = _switches(ids.shape[0], rows=False)
+        for cells in sorted({1, *[c - 1 for c in at], *at}):
+            _density_check(xt, yt, None, mt, bbox, cells, 1, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,height", [(1, 1), (64, 32), (256, 256),
+                                          (2048, 1024)])
+@pytest.mark.parametrize("attr", [None, "wi", "wl", "wd"])
+def test_density_rows_every_row_in_one_cell(cuda, attr, width, height):
+    """Every point at one place: one cell of a 1x1 grid and a 64x32
+    grid (the block path) and of large grids (the global path's warp
+    groups)."""
+    n = 300_007
+    cols = _rows_store_cols(n, cuda, one_cell=True)
+    ids = torch.arange(n, dtype=torch.int32, device=cuda)
+    _rows_check(cols, ids, attr, (0.0, -2.0, 4.0, 0.0), width, height,
+                attr == "wi")
+
+
+@pytest.mark.gpu
+def test_density_rows_long_weights_round_through_f64(cuda):
+    """A Long weight of 2^60 + 2^36 + 1 rounds to f64 (2^60 + 2^36, a
+    tie in f32) and then to f32 (2^60, the even neighbour), as numpy's
+    where(valid, v, 0.0).astype(float32) does; one rounding would give
+    2^60 + 2^37."""
+    from geomesa_tpu_torch.features.batch import NumericColumn, PointColumn
+    v = 2**60 + 2**36 + 1
+    sft = parse_spec("d", "wl:Long,*geom:Point")
+    batch = FeatureBatch(sft, np.array(["a", "b"], dtype=object), {
+        "wl": NumericColumn("wl", np.array([v, -v]), np.ones(2, bool)),
+        "geom": PointColumn("geom", np.array([0.5, 1.5]), np.array([0.5, 0.5]),
+                            np.ones(2, bool))})
+    cols = residual.DeviceColumns(batch, cuda)
+    got = kernels.density_grid_rows(
+        torch.arange(2, dtype=torch.int32, device=cuda),
+        cols.get("geom")["slot"], ("i64", cols.get("wl")["slot"]),
+        *aggregations.density_scalars((0, 0, 2, 1), 2, 1), 2, 1)
+    want = np.float32(np.float64(v))
+    assert want == np.float32(2.0**60)
+    assert got.cpu().numpy().tolist() == [[want, -want]]
 
 
 @pytest.mark.gpu
