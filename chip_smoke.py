@@ -91,7 +91,27 @@ Phases, one JSON line each; any failure exits non-zero:
            prepared launch found) and cold (wrapper_cold_ms, prepared
            anew each call, as on a new filter or after a flush), beside
            the prepared launch on an idle card (kernel_bare_ms).
-6. surface the query surface and the pushdowns on the predicates
+6. stats   stats and Arrow on the predicates phase's store, before the
+           surface phase frees it (host code; the filtered queries run
+           the store's scans, so launch counts are zeroed before it, read
+           after, and scan_mask must have launched): the write-side
+           stats observation of the store's batch timed alone, analyze()
+           (its z3 histogram equal to the one the write built), then
+           STATS_SPECS (Count, MinMax(dtg), Histogram(NumMentions),
+           Enumeration and TopK of EventCode, DescriptiveStats(AvgTone),
+           GroupBy(IsRootEvent, Count()), Z3Histogram) through
+           stats_query over INCLUDE, the surface phase's tile filter and
+           its 73-day world filter, each the p50 of up to STATS_RUNS
+           host-clock runs (one once a call takes STATS_RUN_BUDGET_MS),
+           each held to a numpy brute force over the same rows (exact;
+           the moments within 1e-9 of max(|x|, 1); the Z3 total equal to
+           the rows); each predicate query's plan cost and
+           estimate_count beside its hits; query_stream of the world
+           filter (windows, ids equal to the query's); arrow_ipc of the
+           tile (read back through FeatureArrowFileReader, value for
+           value) and of the world filter (its ids read back through
+           pyarrow), after one untimed call.
+7. surface the query surface and the pushdowns on the predicates
            phase's store, before it is freed. Launch counts are zeroed,
            then density() draws four grids (a 256x256 tile over a BBOX
            and 30 days; the world at 2048x1024 over 73 days weighted by
@@ -122,8 +142,9 @@ Phases, one JSON line each; any failure exits non-zero:
            back, beside the device columns' first upload. Then 1,000 ids
            are deleted (delete and rebuild timed) and a z3, a polygon and
            an attribute query are held to the brute force over the kept
-           rows; then remove_schema, with torch.cuda.memory_allocated
-           falling.
+           rows, and analyze() must count n - 1,000 rows (the stats stay
+           at n until then); then remove_schema, with
+           torch.cuda.memory_allocated falling.
 
 Then the kernels summary line, the card line, and the final
 {"ok": true, ...} line. Without CUDA it exits 1 and prints no result.
@@ -1251,7 +1272,8 @@ def phase_predicates(seed: int, rows: int, ids) -> dict:
                   and np.array_equal(res.ids, ids[rows_want])
                   and ds.query_count(ecql, "gdelt") == len(rows_want))
             per_q.append({"query": qname, "hits": len(rows_want),
-                          "strategy": _strategy(res), "exact": ok})
+                          "strategy": _strategy(res),
+                          "cost": res.plan.cost, "exact": ok})
             if not ok:
                 raise SystemExit(f"predicates: {qname} disagrees with the "
                                  f"float64 brute force")
@@ -1346,7 +1368,196 @@ def phase_predicates(seed: int, rows: int, ids) -> dict:
         raise SystemExit(f"kernels never launched on the predicates path: "
                          f"{missing}")
     del calls
-    return stats, counts, ds, d, queries
+    return stats, counts, ds, d, queries, per_q
+
+
+# -- the stats phase ---------------------------------------------------------
+
+STATS_SPECS = ("Count()", "MinMax(dtg)", "Histogram(NumMentions,100,0,1000)",
+               "Enumeration(EventCode)", "TopK(EventCode,10)",
+               "DescriptiveStats(AvgTone)", "GroupBy(IsRootEvent,Count())",
+               "Z3Histogram(geom,dtg,week,1024)")
+STATS_RUNS = 3            # host-clock runs per call for its p50, at most
+STATS_RUN_BUDGET_MS = 500  # no repeat once a call's runs took this long
+MOMENTS_RTOL = 1e-9       # DescriptiveStats, relative to max(|x|, 1)
+MS_WEEK = 7 * MS_DAY
+
+
+def stats_brute(spec: str, d: dict, rows: np.ndarray):
+    """The to_json_object that ``spec`` must give over ``rows``, from
+    numpy on the raw columns (the moments in float64, by dot products)."""
+    n = len(rows)
+    ms = d["ms"][rows]
+    if spec == "Count()":
+        return {"count": n}
+    if spec == "MinMax(dtg)":
+        return {"min": int(ms.min()), "max": int(ms.max()),
+                "cardinality": len(np.unique(ms[::max(1, n // 1000)]))}
+    if spec.startswith("Histogram"):
+        v = d["mentions"][rows][d["mentions_valid"][rows]]
+        return {"lower-bound": 0, "upper-bound": 1000,
+                "bins": np.bincount(np.minimum(v // 10, 99),
+                                    minlength=100).tolist()}
+    if spec.startswith(("Enumeration", "TopK")):
+        c = np.bincount(d["ev"][rows], minlength=len(d["ev_vocab"]))
+        items = sorted(((str(d["ev_vocab"][k]), int(c[k]))
+                        for k in np.flatnonzero(c)),
+                       key=lambda kv: (-kv[1], kv[0]))
+        if spec.startswith("TopK"):
+            return [{"value": v, "count": k} for v, k in items[:10]]
+        return dict(items)
+    if spec.startswith("DescriptiveStats"):
+        v = d["tone"][rows]
+        mean = float(np.mean(v))
+        c = v - mean
+        m2, m3, m4 = (float(np.dot(c, c)), float(np.dot(c * c, c)),
+                      float(np.dot(c * c, c * c)))
+        return {"count": n, "minimum": float(v.min()),
+                "maximum": float(v.max()), "mean": mean,
+                "stddev": float(np.sqrt(m2 / (n - 1))),
+                "skewness": float(np.sqrt(n) * m3 / m2 ** 1.5),
+                "kurtosis": float(n * m4 / (m2 * m2) - 3.0)}
+    if spec.startswith("GroupBy"):
+        root = d["root"][rows]
+        return [{str(k): {"count": int(np.sum(root == k))}}
+                for k in (False, True) if np.any(root == k)]
+    if spec.startswith("Z3Histogram"):
+        c = np.bincount(ms // MS_WEEK)
+        return {str(b): int(c[b]) for b in np.flatnonzero(c)}
+    raise ValueError(spec)
+
+
+def stats_ok(spec: str, got, want) -> bool:
+    if spec.startswith("DescriptiveStats"):
+        return set(got) == set(want) and all(
+            abs(got[k] - want[k]) <= MOMENTS_RTOL * max(abs(want[k]), 1.0)
+            for k in want) and got["count"] == want["count"]
+    return json.dumps(got) == json.dumps(want)
+
+
+def _runs(fn) -> tuple:
+    """Host-clock ms of up to STATS_RUNS calls, fewer once they took
+    STATS_RUN_BUDGET_MS (the repeats cut, not the rows, to keep the
+    stats phase near 30 s); the first call's result with them."""
+    times, first = [], None
+    while len(times) < STATS_RUNS and sum(times) < STATS_RUN_BUDGET_MS:
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if first is None:
+            first = out
+    return times, first
+
+
+def phase_stats(ds, d: dict, ids, queries, per_q) -> dict:
+    """Stats and Arrow on the predicates phase's store, before the
+    surface phase frees it. Launch counts are zeroed before it and read
+    after: the filtered stats queries run the store's scans."""
+    import pyarrow as pa
+    from geomesa_tpu_torch.arrow.io import FeatureArrowFileReader
+    from geomesa_tpu_torch.filters import parse_ecql
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.stats.estimator import StatsEstimator
+    t_phase = time.perf_counter()
+    x, y, ms = d["x"], d["y"], d["ms"]
+    n = len(x)
+    kernels.reset_launches()
+    wrong = []
+    # the write-side observation alone, on the phase's batch
+    sft = ds.get_schema("gdelt")
+    batch = predicate_batch(sft, d, ids)
+    t0 = time.perf_counter()
+    StatsEstimator(sft).observe(batch)
+    observe_s = time.perf_counter() - t0
+    del batch
+    before = ds.stats.get("gdelt").z3.to_json_object()
+    t0 = time.perf_counter()
+    est = ds.analyze("gdelt")
+    analyze_s = time.perf_counter() - t0
+    if est.count.count != n or est.z3.to_json_object() != before:
+        wrong.append(("analyze", est.count.count))
+
+    tile = np.flatnonzero(_in_box(x, y, SURFACE_TILE) & (
+        ms > SURFACE_TILE_DAYS[0] * MS_DAY) & (ms < SURFACE_TILE_DAYS[1]
+                                               * MS_DAY))
+    world = np.flatnonzero((ms > SURFACE_WORLD_DAYS[0] * MS_DAY)
+                           & (ms < SURFACE_WORLD_DAYS[1] * MS_DAY))
+    world_ecql = (f"dtg DURING {_iso(SURFACE_WORLD_DAYS[0])}/"
+                  f"{_iso(SURFACE_WORLD_DAYS[1])}")
+    filters = [("INCLUDE", None, np.arange(n)), ("tile", _tile_ecql(), tile),
+               ("world_73d", world_ecql, world)]
+    stat_rows = []
+    for fname, ecql, rows in filters:
+        for spec in STATS_SPECS:
+            want = stats_brute(spec, d, rows)
+            times, stat = _runs(lambda: ds.stats_query("gdelt", spec, ecql))
+            ok = stats_ok(spec, stat.to_json_object(), want)
+            if spec.startswith("Z3Histogram"):
+                ok = ok and stat.total == len(rows)
+            stat_rows.append({"filter": fname, "stat": spec, "exact": ok,
+                              "p50_ms": statistics.median(times),
+                              "runs": len(times)})
+            if not ok:
+                wrong.append(("stats_query", fname, spec))
+
+    # the eight predicate queries: plan, cost and estimate beside hits
+    plans = []
+    for q, (qname, ecql, _) in zip(per_q, queries):
+        plans.append({"query": qname, "hits": q["hits"],
+                      "strategy": q["strategy"], "cost": q["cost"],
+                      "estimate_count": est.estimate_count(
+                          parse_ecql(ecql))})
+
+    # query_stream of the world filter: windows equal to query's ids
+    times, wins = _runs(lambda: list(ds.query_stream(world_ecql, "gdelt")))
+    got_ids = np.concatenate([w.ids for w in wins])
+    stream = {"windows": len(wins), "rows": len(got_ids),
+              "sizes": sorted({w.n for w in wins}),
+              "p50_ms": statistics.median(times), "runs": len(times),
+              "exact": bool(np.array_equal(got_ids, ids[world]))}
+    del wins, got_ids
+    if not stream["exact"]:
+        wrong.append(("query_stream", stream["rows"]))
+
+    # arrow_ipc: the tile read back value for value, the world by id;
+    # one untimed call first pays pyarrow's lazy imports (about 2 s)
+    ds.arrow_ipc("gdelt", _tile_ecql())
+    arrow = []
+    for fname, ecql, rows in (("tile", _tile_ecql(), tile),
+                              ("world_73d", world_ecql, world)):
+        times, payload = _runs(lambda: ds.arrow_ipc("gdelt", ecql))
+        if fname == "tile":
+            b = FeatureArrowFileReader(payload).read_all()
+            ev = b.col("EventCode")
+            ok = (np.array_equal(b.ids, ids[rows])
+                  and np.array_equal(b.col("geom").x, x[rows])
+                  and np.array_equal(b.col("geom").y, y[rows])
+                  and np.array_equal(b.col("dtg").millis, ms[rows])
+                  and np.array_equal(ev.vocab[ev.codes],
+                                     d["ev_vocab"][d["ev"][rows]])
+                  and np.array_equal(b.col("AvgTone").values, d["tone"][rows]))
+        else:
+            fids = pa.ipc.open_file(pa.BufferReader(payload)).read_all(
+            ).column("__fid__").to_numpy(zero_copy_only=False)
+            ok = bool(np.array_equal(fids, ids[rows]))
+        arrow.append({"filter": fname, "rows": len(rows),
+                      "bytes": len(payload), "exact": bool(ok),
+                      "ms": statistics.median(times), "runs": len(times)})
+        if not ok:
+            wrong.append(("arrow_ipc", fname))
+        del payload
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    emit({"phase": "stats", "rows": n, "observe_s": observe_s,
+          "analyze_s": analyze_s, "stats_query": stat_rows,
+          "plans": plans, "query_stream": stream, "arrow_ipc": arrow,
+          "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "wrong": wrong})
+    if wrong:
+        raise SystemExit(f"stats: wrong results: {wrong}")
+    if not launches.get("scan_mask"):
+        raise SystemExit("the stats path launched no scan_mask")
+    return launches
 
 
 # -- the surface phase -------------------------------------------------------
@@ -1852,6 +2063,15 @@ def phase_surface(ds, d: dict, ids, queries) -> dict:
         if not ok:
             wrong.append(("after_delete", name))
 
+    # analyze recounts the kept rows (the stats stay stale until then)
+    stale = ds.stats.get("gdelt").count.count
+    t0 = time.perf_counter()
+    recount = ds.analyze("gdelt").count.count
+    analyzed = {"stale_count": stale, "count": recount,
+                "seconds": time.perf_counter() - t0}
+    if stale != len(x) or recount != len(x) - len(gone):
+        wrong.append(("analyze_after_delete", stale, recount))
+
     # remove_schema releases the type's device memory
     gc.collect()
     torch.cuda.synchronize()
@@ -1869,7 +2089,8 @@ def phase_surface(ds, d: dict, ids, queries) -> dict:
     emit({"phase": "surface", "density": density, "bin_query": bins,
           "queries": surface, "visibility": vis,
           "delete": {"ids": len(gone), "delete_s": delete_s,
-                     "rebuild_s": rebuild_s, "queries": after},
+                     "rebuild_s": rebuild_s, "queries": after,
+                     "analyze": analyzed},
           "remove_schema": removed, "density_split": split,
           "kernels": {"density_grid": stats}, "launches": {
               "density_grid": launches}, "counted_s": main_s,
@@ -1900,9 +2121,10 @@ def main():
         launches[name] = batched[name]
     del ds
     torch.cuda.empty_cache()
-    pred_stats, pred_counts, pred_ds, pred_data, pred_queries = \
+    pred_stats, pred_counts, pred_ds, pred_data, pred_queries, pred_q = \
         phase_predicates(args.seed, args.store_rows, rows[3])
     launches.update(pred_counts)
+    phase_stats(pred_ds, pred_data, rows[3], pred_queries, pred_q)
     surf_stats, surf_counts = phase_surface(pred_ds, pred_data, rows[3],
                                             pred_queries)
     launches.update(surf_counts)

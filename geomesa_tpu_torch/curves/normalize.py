@@ -64,6 +64,13 @@ class NormalizedDimension:
         out = np.minimum(out, self.max_index)
         return out.astype(np.int32)
 
+    def denormalize(self, i):
+        """Vectorized bin-center denormalization."""
+        i = np.asarray(i, dtype=np.int64)
+        denorm = (self.max - self.min) / self.bins
+        i = np.minimum(i, self.max_index)
+        return self.min + (i.astype(np.float64) + 0.5) * denorm
+
     def in_bounds(self, x) -> np.ndarray:
         x = np.asarray(x, dtype=np.float64)
         return (x >= self.min) & (x <= self.max)

@@ -5,6 +5,7 @@ API mirrors the reference's ``SpaceFillingCurve`` /
 and Z2SFC.scala / Z3SFC.scala), vectorized over numpy arrays:
 
 - ``index(x, y[, t])``    normalized-int interleave -> z key(s)
+- ``invert(z)``           z3 key(s) -> bin-center (x, y, t offset)
 - ``ranges(boxes, ...)``  query boxes -> covering z ranges
 
 Out-of-bounds behavior matches the reference: strict by default
@@ -83,6 +84,12 @@ class Z3SFC:
                            lenient, "z3 index")
         return zorder.z3_encode(self.lon.normalize(x), self.lat.normalize(y),
                                 self.time.normalize(t))
+
+    def invert(self, z):
+        """z3 key(s) -> the bin centers (x, y) and the time offset."""
+        xi, yi, ti = zorder.z3_decode(z)
+        return (self.lon.denormalize(xi), self.lat.denormalize(yi),
+                self.time.denormalize(ti).astype(np.int64))
 
     def ranges(self, xy, t, precision: int = 64,
                max_ranges: int | None = None) -> np.ndarray:

@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["z2_split", "z2_encode", "z3_split", "z3_encode",
-           "Z2_BITS", "Z3_BITS", "Z2_MAX", "Z3_MAX"]
+__all__ = ["z2_split", "z2_encode", "z3_split", "z3_combine", "z3_encode",
+           "z3_decode", "Z2_BITS", "Z3_BITS", "Z2_MAX", "Z3_MAX"]
 
 Z2_BITS = 31   # bits per dimension
 Z3_BITS = 21
@@ -56,7 +56,25 @@ def z3_split(x) -> np.ndarray:
     return x
 
 
+def z3_combine(z) -> np.ndarray:
+    """Inverse of z3_split: gather every 3rd bit into the low 21."""
+    x = _u64(z) & np.uint64(0x1249249249249249)
+    x = (x ^ (x >> np.uint64(2))) & np.uint64(0x10C30C30C30C30C3)
+    x = (x ^ (x >> np.uint64(4))) & np.uint64(0x100F00F00F00F00F)
+    x = (x ^ (x >> np.uint64(8))) & np.uint64(0x1F0000FF0000FF)
+    x = (x ^ (x >> np.uint64(16))) & np.uint64(0x1F00000000FFFF)
+    x = (x ^ (x >> np.uint64(32))) & np.uint64(0x1FFFFF)
+    return x.astype(np.int64)
+
+
 def z3_encode(x, y, t) -> np.ndarray:
     """Interleave three 21-bit ints into a 63-bit z3 key (x gets bit 0)."""
     return (z3_split(x) | (z3_split(y) << np.uint64(1))
             | (z3_split(t) << np.uint64(2)))
+
+
+def z3_decode(z):
+    """z3 key(s) -> the (x, y, t) normalized ints (int64)."""
+    z = _u64(z)
+    return (z3_combine(z), z3_combine(z >> np.uint64(1)),
+            z3_combine(z >> np.uint64(2)))

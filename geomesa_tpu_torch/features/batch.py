@@ -7,8 +7,10 @@ as null), booleans as bool. The in-memory store builds its device
 columns (two-float coordinates, (day, ms) times, the residual's split
 attribute columns) from these.
 
-Extent-geometry columns arrive with the extent (XZ) slice of the port
-(ROADMAP.md section 6).
+``to_arrow``/``from_arrow`` convert a batch to and from a pyarrow
+RecordBatch (pyarrow imported when they are called). Extent-geometry
+columns arrive with the extent (XZ) slice of the port (ROADMAP.md
+section 6).
 """
 
 from __future__ import annotations
@@ -138,6 +140,25 @@ class StringColumn(Column):
         codes = codes.astype(np.int32)
         codes[~mask] = -1
         return cls(name, codes, vocab.astype(object))
+
+    @classmethod
+    def from_arrow(cls, name: str, arr) -> "StringColumn":
+        """From a pyarrow string array: dictionary-encode in C, then
+        remap the codes to the sorted-vocab order that ``code_of``'s
+        searchsorted needs (sorting the vocab, not the rows)."""
+        if arr.null_count:
+            return cls.from_strings(
+                name, np.asarray(arr.to_numpy(zero_copy_only=False),
+                                 dtype=object))
+        d = arr.dictionary_encode()
+        codes = np.asarray(d.indices.to_numpy(zero_copy_only=False),
+                           dtype=np.int32)
+        vocab = np.asarray(d.dictionary.to_numpy(zero_copy_only=False),
+                           dtype=object)
+        order = np.argsort(vocab)
+        inv = np.empty(len(order), dtype=np.int32)
+        inv[order] = np.arange(len(order), dtype=np.int32)
+        return cls(name, inv[codes], vocab[order])
 
 
 @dataclasses.dataclass
@@ -314,3 +335,48 @@ class FeatureBatch:
                     np.concatenate([p.valid for p in parts]))
         return FeatureBatch(first.sft,
                             np.concatenate([b.ids for b in batches]), cols)
+
+    # -- arrow interchange ------------------------------------------------
+
+    def to_arrow(self):
+        """The batch as a pyarrow RecordBatch: ``__fid__`` first, points
+        as {x, y} structs, strings dictionary-encoded, dates as
+        timestamp[ms]. Needs pyarrow (imported here)."""
+        import pyarrow as pa
+        arrays = [pa.array(self.ids.astype(str))]
+        names = ["__fid__"]
+        for a in self.sft.attributes:
+            c = self.columns[a.name]
+            names.append(a.name)
+            if isinstance(c, PointColumn):
+                arrays.append(pa.StructArray.from_arrays(
+                    [pa.array(c.x), pa.array(c.y)], ["x", "y"]))
+            elif isinstance(c, StringColumn):
+                null = c.codes < 0
+                arrays.append(pa.DictionaryArray.from_arrays(
+                    np.where(null, 0, c.codes).astype(np.int32),
+                    pa.array(c.vocab.astype(str)), mask=null))
+            elif isinstance(c, DateColumn):
+                arrays.append(pa.array(
+                    np.where(c.valid, c.millis, 0), type=pa.timestamp("ms"),
+                    mask=~c.valid))
+            else:
+                arrays.append(pa.array(c.values, mask=~c.valid))
+        return pa.RecordBatch.from_arrays(arrays, names)
+
+    @classmethod
+    def from_arrow(cls, sft: SimpleFeatureType, rb) -> "FeatureBatch":
+        """A batch from a pyarrow RecordBatch in ``to_arrow``'s layout."""
+        ids = np.asarray(rb.column("__fid__").to_pylist(), dtype=object)
+        data: dict[str, Any] = {}
+        for a in sft.attributes:
+            col = rb.column(a.name)
+            if a.type.name == "Point":
+                flat = col.flatten()
+                data[a.name] = (np.asarray(flat[0]), np.asarray(flat[1]))
+            elif a.type.name == "Date":
+                # datetime64 with NaT for a null
+                data[a.name] = col.to_numpy(zero_copy_only=False)
+            else:
+                data[a.name] = col.to_pylist()
+        return cls.from_dict(sft, ids, data)

@@ -19,8 +19,10 @@ __all__ = ["Query", "FilterStrategy", "Explainer", "QueryHints"]
 
 class QueryHints:
     """Per-query hint keys (index/conf/QueryHints.scala:22-68). The
-    store reads QUERY_INDEX, SAMPLING and SAMPLE_BY; the rest name
-    pushdowns of later slices (ROADMAP.md section 6)."""
+    store's query() reads QUERY_INDEX, SAMPLING and SAMPLE_BY and, as
+    the reference's does, accepts and ignores the rest: its pushdowns
+    (stats_query, density, bin_query, arrow_ipc) take their parameters
+    as arguments."""
     DENSITY_BBOX = "DENSITY_BBOX"
     DENSITY_WIDTH = "DENSITY_WIDTH"
     DENSITY_HEIGHT = "DENSITY_HEIGHT"

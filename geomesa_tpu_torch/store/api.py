@@ -1,6 +1,7 @@
 """The DataStore contract of the port (the GeoTools DataStore SPI
-analog): schema management, batch writes, and ``query`` (a ``Query`` in,
-a ``QueryResult`` of ids and columns out)."""
+analog): schema management, batch writes, ``query`` (a ``Query`` in,
+a ``QueryResult`` of ids and columns out) and ``query_stream`` (the
+result in fixed-size batches)."""
 
 from __future__ import annotations
 
@@ -82,6 +83,17 @@ class DataStore(abc.ABC):
                     type_name: str | None = None) -> int:
         """Matching-feature count."""
         return self.query(q, type_name).n
+
+    def query_stream(self, q: Query | str, type_name: str | None = None,
+                     batch_rows: int | None = None
+                     ) -> Iterator[FeatureBatch]:
+        """The matching features as FeatureBatch windows of
+        ``batch_rows`` rows (``geomesa.stream.batch.rows``, default
+        8192), in result order: the query runs, then its result batch
+        is sliced."""
+        from ..arrow.delta import slice_batches
+        res = self.query(q, type_name)
+        return slice_batches(res.batch, batch_rows)
 
     def features(self, type_name: str,
                  ecql: str = "INCLUDE") -> Iterator[dict]:

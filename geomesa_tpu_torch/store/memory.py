@@ -37,10 +37,28 @@
                     sums them
     bin_query(...)
                  -> the query, then the BIN records on the host
+    stats_query(type_name, spec, ecql)
+                 -> INCLUDE: the sketch observes the stored rows; any
+                    other filter: query() (visibility included), then
+                    the sketch observes its result batch, on the host
+    arrow_ipc / arrow_query
+                 -> the query, then the result batch as an Arrow IPC
+                    file (optionally sorted) or a RecordBatch (pyarrow,
+                    imported when called)
+    analyze(type_name)
+                 -> the type's stats recomputed from its rows
     delete(ids)  -> the rows dropped; the device columns, z-index and
-                    attribute indexes rebuild on the next read
+                    attribute indexes rebuild on the next read; the
+                    stats stay as they were until analyze()
     remove_schema
-                 -> the type and its device memory released
+                 -> the type, its stats and its device memory released
+
+Every write feeds the type's stats (``self.stats``: a row count,
+count-min sketches of the indexed attributes and a z3 histogram, over a
+strided sample of at most about 1M rows a write) before anything goes
+to the device; the planner costs each strategy from them. Unlike the
+JAX package, remove_schema drops the type's stats, so a re-created
+type is costed from its own rows only (ROADMAP.md section 3).
 
 The device columns (two-float coordinates, (day, ms) times) live on
 the store's device with power-of-two capacity; appends copy into that
@@ -68,6 +86,7 @@ from ..features.batch import (COLUMN_TYPES, FeatureBatch, PointColumn,
                               StringColumn)
 from ..features.sft import SimpleFeatureType, parse_spec
 from ..filters import ast
+from ..filters.ecql import parse_ecql
 from ..filters.evaluate import evaluate
 from ..filters.helper import (extract_attribute_bounds, extract_geometries,
                               extract_intervals, is_box, to_millis)
@@ -82,6 +101,7 @@ from ..scan.aggregations import density_rows, encode_bin_batch, sample_mask
 from ..security import (evaluate_visibilities, parse_visibility,
                         validate_labels)
 from ..security.visibility import distinct_labels
+from ..stats import DataStoreStats, parse_stat
 from ..utils.device import resolve_device
 from ..utils.properties import SystemProperty
 from .api import DataStore
@@ -95,6 +115,20 @@ __all__ = ["InMemoryDataStore", "QueryResult"]
 HOST_SCAN_ROWS = SystemProperty("geomesa.scan.host.rows", "2000000")
 
 _WHOLE_WORLD = (-180.0, -90.0, 180.0, 90.0)
+
+# the hints query() reads, and those the reference's query() accepts and
+# ignores (its pushdowns take their parameters as arguments)
+_READ_HINTS = frozenset({QueryHints.QUERY_INDEX, QueryHints.SAMPLING,
+                         QueryHints.SAMPLE_BY})
+_IGNORED_HINTS = frozenset({
+    QueryHints.STATS_STRING, QueryHints.ENCODE_STATS,
+    QueryHints.ARROW_ENCODE, QueryHints.ARROW_DICTIONARY_FIELDS,
+    QueryHints.DENSITY_BBOX, QueryHints.DENSITY_WIDTH,
+    QueryHints.DENSITY_HEIGHT, QueryHints.DENSITY_WEIGHT,
+    QueryHints.BIN_TRACK, QueryHints.BIN_GEOM, QueryHints.BIN_DTG,
+    QueryHints.BIN_LABEL, QueryHints.BIN_SORT, QueryHints.BIN_BATCH_SIZE,
+    QueryHints.EXACT_COUNT, QueryHints.LOOSE_BBOX,
+    QueryHints.COST_EVALUATION})
 
 
 def _later(what: str, slice_name: str) -> NotImplementedError:
@@ -440,6 +474,7 @@ class InMemoryDataStore(DataStore):
         self.device = resolve_device(device)
         self._op_lock = threading.RLock()
         self._types: dict[str, _TypeState] = {}
+        self.stats = DataStoreStats()
 
     # -- schema management -------------------------------------------------
 
@@ -459,6 +494,8 @@ class InMemoryDataStore(DataStore):
                              "extent-geometry (XZ) schemas"
                              if a.is_geometry else "collection-type")
         self._types[sft.type_name] = _TypeState(sft, self.device)
+        # an estimator from creation on: a type with no rows estimates 0
+        self.stats.ensure(sft)
 
     def get_schema(self, type_name: str) -> SimpleFeatureType:
         return self._state(type_name).sft
@@ -473,13 +510,15 @@ class InMemoryDataStore(DataStore):
 
     @_synchronized
     def remove_schema(self, type_name: str):
-        """Drop a type and its rows. Its device tensors lose their last
-        reference here, so their memory returns to the allocator."""
+        """Drop a type, its rows and its stats. Its device tensors lose
+        their last reference here, so their memory returns to the
+        allocator."""
         st = self._types.pop(type_name, None)
         if st is not None:
             # outstanding small lazy results must not pin the dropped
             # column snapshot
             st._detach_live()
+        self.stats.clear(type_name)
 
     # -- writes --------------------------------------------------------------
 
@@ -492,6 +531,8 @@ class InMemoryDataStore(DataStore):
         if batch.sft != st.sft:
             raise ValueError("batch schema does not match store schema")
         st.append(batch, visibilities)
+        # the write-side stats (StatsCombiner analog), on the host batch
+        self.stats.observe(st.sft, batch)
 
     @_synchronized
     def delete(self, type_name: str, ids):
@@ -502,6 +543,17 @@ class InMemoryDataStore(DataStore):
     def count(self, type_name: str) -> int:
         return self._state(type_name).n
 
+    @_synchronized
+    def analyze(self, type_name: str):
+        """Recompute the type's stats from its rows (stats add up on
+        write and go stale after deletes); returns the estimator, None
+        for a type without rows."""
+        st = self._state(type_name)
+        self.stats.clear(type_name)
+        if st.n:
+            self.stats.observe(st.sft, st.batch)
+        return self.stats.get(type_name)
+
     # -- queries -------------------------------------------------------------
 
     def _as_query(self, q: Query | str, type_name: str | None) -> Query:
@@ -509,11 +561,10 @@ class InMemoryDataStore(DataStore):
             if type_name is None:
                 raise ValueError("type_name required with a filter string")
             q = Query(type_name, q)
-        unknown = set(q.hints) - {QueryHints.QUERY_INDEX, QueryHints.SAMPLING,
-                                  QueryHints.SAMPLE_BY}
+        unknown = set(q.hints) - _READ_HINTS - _IGNORED_HINTS
         if unknown:
-            raise _later(f"query hints {sorted(unknown)}",
-                         "stats/arrow pushdown")
+            # TIMEOUT (the query reaper) and any other key
+            raise _later(f"query hints {sorted(unknown)}", "serving")
         return q
 
     @_synchronized
@@ -586,6 +637,7 @@ class InMemoryDataStore(DataStore):
         explain = Explainer(explain_out)
         explain.push(lambda: f"Batched '{q.type_name}' filter={q.filter}")
         strategy = decide_strategy(st.sft, q, _indices(st.sft), st.n,
+                                   stats=self.stats.get(q.type_name),
                                    explain=explain)
         if strategy.index not in ("z3", "z2") or strategy.secondary is not None:
             return None
@@ -641,6 +693,7 @@ class InMemoryDataStore(DataStore):
             return (np.empty(0, dtype=np.int64),
                     FilterStrategy("empty", None, None), None)
         strategy = decide_strategy(st.sft, q, _indices(st.sft), st.n,
+                                   stats=self.stats.get(q.type_name),
                                    explain=explain)
         idx = self._execute(st, strategy, explain)
         idx, attr_mask = self._post_scan(q, st, idx, explain)
@@ -818,6 +871,46 @@ class InMemoryDataStore(DataStore):
             return b""
         return encode_bin_batch(st.sft, res.ids, res.batch, track=track,
                                 label=label, sort=sort)
+
+    @_synchronized
+    def stats_query(self, type_name: str, stat_spec: str, ecql=None):
+        """A stat sketch over the query's rows (StatsScan analog): a new
+        Stat each call, the caller's to keep or mutate. INCLUDE or None
+        observes the stored rows; any other filter runs query(), so
+        visibility applies, and observes its result batch. Computed on
+        every call (the reference's result cache waits for the serving
+        item of ROADMAP.md section 6, queue 1)."""
+        st = self._state(type_name)
+        stat = parse_stat(stat_spec)
+        if st.n == 0:
+            return stat
+        flt = _as_filter(ecql)
+        if isinstance(flt, ast.Include):
+            stat.observe(st.batch)
+            return stat
+        res = self.query(Query(type_name, flt))
+        if res.batch is not None and res.batch.n:
+            stat.observe(res.batch)
+        return stat
+
+    @_synchronized
+    def arrow_ipc(self, type_name: str, ecql="INCLUDE",
+                  sort_by: str | None = None) -> bytes:
+        """Arrow IPC file of the matching features, readable by
+        FeatureArrowFileReader (the ARROW_ENCODE surface); ``sort_by``
+        sorts the rows by an attribute. Needs pyarrow."""
+        from ..arrow.scan import ArrowScan
+        return ArrowScan(self).execute(type_name, _as_filter(ecql),
+                                       sort_by=sort_by)
+
+    @_synchronized
+    def arrow_query(self, type_name: str, ecql):
+        """The matching features as a pyarrow RecordBatch (ArrowScan
+        analog); None when the type holds no rows. Needs pyarrow."""
+        res = self.query(Query(type_name, _as_filter(ecql)))
+        if res.batch is None:
+            return None
+        return res.batch.to_arrow()
 
     def _execute(self, st: _TypeState, strategy: FilterStrategy,
                  explain: Explainer) -> np.ndarray:
@@ -1026,6 +1119,15 @@ def _scan_inputs(sft: SimpleFeatureType, strategy: FilterStrategy):
     needs_exact = any(not is_box(g) for g in geoms) or any(
         isinstance(c, ast.SpatialPredicate) for c in ast.walk(primary))
     return boxes, intervals, needs_exact
+
+
+def _as_filter(ecql) -> ast.Filter:
+    """An ECQL string, a filter, or None (match-all) as a filter."""
+    if ecql is None:
+        return ast.Include()
+    if isinstance(ecql, ast.Filter):
+        return ecql
+    return parse_ecql(str(ecql))
 
 
 def _indices(sft: SimpleFeatureType) -> list[str]:

@@ -383,3 +383,70 @@ def test_residual_after_delete_and_recreate(pair, ecql):
             "dtg": rng.integers(MS("2019-01-01"), MS("2019-03-01"), N),
             "geom": (rng.uniform(-180, 180, N), rng.uniform(-90, 90, N))})
     _same(port, ref, Query("t", ecql))
+
+
+# -- stats and Arrow on the contract battery's rows ----------------------------
+
+def test_arrow_ipc_roundtrip(pair):
+    """The contract case on the port, its payload also read by the JAX
+    package's reader, and the JAX store's by the port's."""
+    pytest.importorskip("pyarrow")
+    from geomesa_tpu.arrow.io import FeatureArrowFileReader as JReader
+    from geomesa_tpu_torch.arrow.io import FeatureArrowFileReader
+    port, ref = pair
+    payload = port.arrow_ipc("t", BBOX, sort_by="dtg")
+    batch = FeatureArrowFileReader(payload, port.get_schema("t")).read_all()
+    res = port.query(BBOX, "t")
+    assert set(np.asarray(batch.ids).astype(str)) == set(
+        res.ids.astype(str))
+    ms = batch.col("dtg").millis
+    assert np.all(np.diff(ms) >= 0)
+    jbatch = JReader(payload, ref.get_schema("t")).read_all()
+    assert list(jbatch.ids) == list(batch.ids)
+    assert np.array_equal(jbatch.col("dtg").millis, ms)
+    back = FeatureArrowFileReader(ref.arrow_ipc("t", BBOX, sort_by="dtg"))
+    assert list(back.read_all().ids) == list(batch.ids)
+
+
+@pytest.mark.parametrize("spec", ["Count()", "MinMax(val)",
+                                  "Enumeration(name)", "TopK(name,4)",
+                                  "Histogram(val,10,0,100)",
+                                  "GroupBy(name,MinMax(dtg))"])
+@pytest.mark.parametrize("ecql", [None, BBOX, "name = 'n3' AND val > 20"])
+def test_stats_query(pair, spec, ecql):
+    port, ref = pair
+    assert port.stats_query("t", spec, ecql).to_json() == \
+        ref.stats_query("t", spec, ecql).to_json()
+
+
+def test_query_stream(pair):
+    port, ref = pair
+    q = Query("t", BBOX, sort_by="dtg")
+    wins = list(port.query_stream(q, batch_rows=64))
+    assert [str(i) for w in wins for i in w.ids] == _ids(port.query(q))
+    assert [w.n for w in wins] == [w.n for w in ref.query_stream(
+        _jq(q), batch_rows=64)]
+
+
+@pytest.mark.parametrize("ecql", ["name = 'n3'", BBOX + " AND name = 'n3'",
+                                  "BBOX(geom, 0, 0, 1, 1) AND name = 'n3'"])
+def test_plans_follow_stats_after_delete_and_analyze(pair, ecql):
+    """Both stores plan the same strategy at the same cost from their
+    stats, stale after a delete and fresh after analyze."""
+    port, ref = pair
+
+    def plans():
+        got, want = port.query(ecql, "t"), ref.query(ecql, "t")
+        assert list(got.ids) == list(want.ids)
+        return (got.plan.index, got.plan.cost), (want.plan.index,
+                                                 want.plan.cost)
+    a, b = plans()
+    assert a == b
+    for s in pair:
+        s.delete("t", [f"f{i}" for i in range(N) if i % 10 == 3])
+    a, b = plans()
+    assert a == b
+    for s in pair:
+        assert s.analyze("t").count.count == N - N // 10
+    a, b = plans()
+    assert a == b

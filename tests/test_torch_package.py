@@ -30,7 +30,8 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.scan.kernels, geomesa_tpu_torch.scan.batcher, "
             "geomesa_tpu_torch.metrics, geomesa_tpu_torch.security, "
             "geomesa_tpu_torch.scan.aggregations, "
-            "geomesa_tpu_torch.store.common\n"
+            "geomesa_tpu_torch.store.common, geomesa_tpu_torch.stats, "
+            "geomesa_tpu_torch.arrow, geomesa_tpu_torch.arrow.delta\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -61,7 +62,10 @@ def test_no_source_imports_jax_or_reference():
             "scan/gscan.py", "index/attr.py",
             "analytics/st_functions.py", "scan/aggregations.py",
             "security/__init__.py", "security/visibility.py",
-            "store/common.py"} <= seen
+            "store/common.py", "stats/sketches.py", "stats/estimator.py",
+            "stats/serialize.py", "arrow/vector.py", "arrow/io.py",
+            "arrow/delta.py", "arrow/scan.py", "arrow/data.py",
+            "arrow/feature.py"} <= seen
 
 
 def test_store_defaults_to_cuda(monkeypatch):
@@ -1182,3 +1186,52 @@ def test_store_residual_after_delete_on_cuda(cuda):
         s.create_schema(parse_spec("t", ATTR_SPEC))
         s.write("t", _attr_batch(50_000, seed=8))
     same()
+
+
+@pytest.mark.gpu
+def test_store_stats_and_arrow_on_cuda_match_cpu(cuda):
+    """The stats registry, the stats-based plans, stats_query,
+    query_stream, analyze and arrow_ipc of a store on the card equal the
+    same store's on the CPU (exact)."""
+    spec = ATTR_SPEC.replace("name:String", "name:String:index=true")
+    stores = [InMemoryDataStore(), InMemoryDataStore(device="cpu")]
+    for s in stores:
+        s.create_schema(parse_spec("t", spec))
+        for lo, hi in ((0, 30_000), (30_000, 80_000)):
+            b = _attr_batch(80_000).take(np.arange(lo, hi))
+            s.write("t", FeatureBatch(s.get_schema("t"), b.ids, b.columns))
+    ecqls = ["INCLUDE", "name = 'w007' AND BBOX(geom, -10, -10, 10, 10)",
+             "name = 'w007' AND dtg DURING 2021-02-01T00:00:00Z/"
+             "2021-03-01T00:00:00Z",
+             "BBOX(geom, -170, -80, 170, 80) AND dtg DURING "
+             "2021-02-01T00:00:00Z/2021-09-01T00:00:00Z"]
+
+    def same():
+        kernels.reset_launches()
+        for e in ecqls:
+            got, want = stores[0].query(e, "t"), stores[1].query(e, "t")
+            assert (got.plan.index, got.plan.cost) == (want.plan.index,
+                                                       want.plan.cost), e
+            assert list(got.ids) == list(want.ids), e
+            for st in ("Count();MinMax(age);Enumeration(name)",
+                       "DescriptiveStats(score)",
+                       "Z3Histogram(geom,dtg,week,1024)"):
+                assert stores[0].stats_query("t", st, e).to_json() == \
+                    stores[1].stats_query("t", st, e).to_json()
+            assert [list(w.ids) for w in stores[0].query_stream(
+                e, "t", batch_rows=5_000)] == [list(w.ids) for w in stores[
+                    1].query_stream(e, "t", batch_rows=5_000)]
+        assert kernels.launches["scan_mask"] >= 1
+    same()
+    for s in stores:
+        s.delete("t", [f"f{i}" for i in range(0, 80_000, 5)])
+    same()
+    assert [s.analyze("t").count.count for s in stores] == [64_000] * 2
+    same()
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError:
+        return
+    for e in ecqls:
+        assert stores[0].arrow_ipc("t", e, sort_by="age") == \
+            stores[1].arrow_ipc("t", e, sort_by="age")
