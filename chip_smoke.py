@@ -6,9 +6,9 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. build   the CUDA kernels from geomesa_tpu_torch/csrc/scan.cu,
-           csrc/batch.cu, csrc/geom.cu, csrc/residual.cu and
-           csrc/density.cu (one nvcc per source, started together, then
-           one link; sm_90a), with the card's name and power limit.
+           csrc/batch.cu, csrc/geom.cu, csrc/residual.cu, csrc/density.cu
+           and csrc/extent.cu (one nvcc per source, started together,
+           then one link; sm_90a), with the card's name and power limit.
 2. kernels each hand kernel against its plain PyTorch version on the
            same device tensors: 100M rows from --seed, in a capacity
            of 2^27 (so rows n..cap are capacity padding), the four
@@ -29,6 +29,14 @@ Phases, one JSON line each; any failure exits non-zero:
            totals, and compacted ids held exactly against the plain
            versions; the compaction timed through its wrapper and alone,
            the prefix kernel beside one torch.cumsum of the partials.
+           Then, the points freed, the extent tristate on --rows boxes
+           (centres uniform over the world, sides log-uniform from 1e-5
+           to 1 degree, 1 % null, the same times) over the four
+           reference queries and one whose f64 edges have no exact f32,
+           held to its plain version with torch.equal, timed beside its
+           bound (the bytes these rows need: 2 B a row, 16 B a valid
+           row, 8 B of times a row the box test kept) and the 26 (18) B
+           a row of reading every row (bound_all_rows_ms).
 3. store   the main path: InMemoryDataStore() on CUDA, 10M rows written
            in chunks through write_dict (in-place appends and one
            capacity rebuild), the BBOX+time north-star query and two
@@ -145,6 +153,31 @@ Phases, one JSON line each; any failure exits non-zero:
            rows, and analyze() must count n - 1,000 rows (the stats stay
            at n until then); then remove_schema, with
            torch.cuda.memory_allocated falling.
+8. extent  an extent (XZ) store shaped like a city's footprint and
+           street layers (NYC Open Data's building footprints, about
+           1.08M polygons, and street centerlines, about 120k segments):
+           the earlier stores freed, 1M rotated rectangles 8-60 m a side
+           and 200k LineStrings of 2-10 vertices, 30-400 m long, in
+           (-74.26, 40.49, -73.70, 40.92) with dtg over 365 days,
+           written as Geometry objects in chunks of 100k (cut, at 500k
+           at the least, once the writes project the phase past 90 s:
+           ``reduced``);
+           then eight queries (a neighbourhood BBOX and 30 days, the
+           tristate: the XZ curve's cells are coarser than the box; the
+           same BBOX and 7 days, the XZ-pruned host scan; a borough BBOX
+           and 90 days and 30 days alone, the tristate; an INTERSECTS of
+           a 100-vertex polygon and 30 days; a DWITHIN of 500 m; a
+           CROSSES of a line across the region; a TOUCHES of a
+           parallelogram on a footprint's corner), the first six id for
+           id against a float64 numpy brute force
+           (orientation tests, crossing numbers both ways, clamped
+           point-segment distances), CROSSES and TOUCHES against the
+           port's host evaluate over the whole batch, query_count equal;
+           launch counts zeroed before them and read after (the
+           tristate must have launched); each query's strategy, explain
+           lines, p50 of 3 host-clock runs and the tristate's OUT, MAYBE
+           and IN counts; then every tristate call of the path held to
+           its plain version with torch.equal and timed at its shape.
 
 Then the kernels summary line, the card line, and the final
 {"ok": true, ...} line. Without CUDA it exits 1 and prints no result.
@@ -211,9 +244,11 @@ SURFACE_KERNELS = ("density_grid",)           # the surface phase's
 SOURCES["density_grid"] = "geomesa_tpu/scan/aggregations.py:28 _density_kernel"
 SOURCE_FILES = {k: "geomesa_tpu_torch/csrc/batch.cu"
                 for k in ("scan_batch_bits", "compact_prefix", "compact_bits")}
+SOURCES["extent_tristate"] = "geomesa_tpu/scan/gscan.py:153 _tristate_body"
 SOURCE_FILES.update({"pip_mask": "geomesa_tpu_torch/csrc/geom.cu",
                      "residual_mask": "geomesa_tpu_torch/csrc/residual.cu",
-                     "density_grid": "geomesa_tpu_torch/csrc/density.cu"})
+                     "density_grid": "geomesa_tpu_torch/csrc/density.cu",
+                     "extent_tristate": "geomesa_tpu_torch/csrc/extent.cu"})
 BATCH = 32          # queries per batch in the kernels phase
 STORE_BATCH_QUERIES = 32
 BATCH_SIZES = (2, 8, 32)
@@ -568,14 +603,16 @@ def phase_kernels(seed: int, rows: int) -> dict:
         s["per_query"].append(g)
     for name, st in batch_kernel_stats(data, seed).items():
         stats[name] = {"max_abs_err": st["max_abs_err"], "per_query": [st]}
+    scan_data_bytes = data.nbytes
+    del data, idx, idx_sorted, idx_l2, flush
+    torch.cuda.empty_cache()
+    stats["extent_tristate"] = extent_kernel_stats(seed, rows)
     emit({"phase": "kernels", "rows": n, "cap": cap, "gathered_rows": m,
-          "upload_s": upload_s, "scan_data_bytes": data.nbytes,
+          "upload_s": upload_s, "scan_data_bytes": scan_data_bytes,
           "kernels": stats})
     bad = [k for k, s in stats.items() if s["max_abs_err"] != 0]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
-    del data, idx, idx_sorted, idx_l2, flush
-    torch.cuda.empty_cache()
     return stats
 
 
@@ -2102,6 +2139,461 @@ def phase_surface(ds, d: dict, ids, queries) -> dict:
     return {"density_grid": stats}, {"density_grid": launches}
 
 
+# -- the extent kernel at --rows, and the extent phase -------------------------
+
+# the kernels phase's extent queries: the four reference queries, then a
+# box and interval whose f64 edges have no exact f32 (MAYBE rows from the
+# rounding itself)
+EXTENT_KERNEL_QUERIES = KERNEL_QUERIES + [
+    ([(-80.123456789, 30.987654321, -60.000000001, 45.333333333)],
+     [(20 * MS_DAY + 1, 50 * MS_DAY - 1)]),
+]
+EXTENT_REGION = (-74.26, 40.49, -73.70, 40.92)   # the five boroughs' box
+EXTENT_POLYGONS, EXTENT_LINES = 1_000_000, 200_000
+EXTENT_MIN_FEATURES = 500_000
+EXTENT_BUDGET_S = 90.0
+EXTENT_CHUNK = 100_000
+EXTENT_SPEC = "name:String,dtg:Date,*geom:Geometry:srid=4326"
+EXTENT_T0_DAY = 19_358       # 2023-01-01; dtg over 365 days from there
+EXTENT_RUNS = 3              # host-clock runs per query for its p50
+# the phase took 2.9-3.4 times its data and writes on an H100 host
+# (PERF.md): the writes stop early when 3 times their pace projects it
+# past its budget
+EXTENT_PHASE_PER_WRITE = 3.0
+M_PER_DEG = 111_320.0        # meters per degree of latitude
+EXTENT_MAX_VERTS = 10        # a street's most vertices; polygons have 5
+
+
+def extent_rows(seed: int, rows: int):
+    """(bounds f64 (rows, 4), millis) for the kernel: box centres uniform
+    over the world, each side log-uniform from 1e-5 to 1 degree, 1 % null
+    rows (NaN), the kernels phase's times."""
+    rng = np.random.default_rng(seed + 7)
+    c = np.empty((rows, 2))
+    c[:, 0] = rng.uniform(-180, 180, rows)
+    c[:, 1] = rng.uniform(-90, 90, rows)
+    half = 10.0 ** rng.uniform(-5, 0, (rows, 2)) / 2
+    bounds = np.concatenate([c - half, c + half], axis=1)
+    del c, half
+    bounds[rng.random(rows) < 0.01] = np.nan
+    return bounds, rng.integers(0, 1000 * MS_DAY, rows)
+
+
+def extent_bound(args) -> tuple[float, str]:
+    """The bytes the tristate needs on these inputs (its wrapper's
+    arguments) over 3.35 TB/s: the valid byte and the state byte of
+    every row, a valid row's 16 B of bounds, and, when the query has
+    intervals, the 8 B of (day, ms) of each row that the box test kept
+    (only those read their times: counted by the plain version without
+    the intervals); the compares are far below the integer rate."""
+    from geomesa_tpu_torch.scan import kernels
+    bounds, valid, times, outer, inner, intervals = args
+    n = valid.shape[0]
+    nbytes = 2 * n + 16 * int(valid.sum().item())
+    if times is not None and intervals.shape[0]:
+        box = kernels.extent_tristate_plain(bounds, valid, None, outer,
+                                            inner, intervals[:0])
+        nbytes += 8 * int((box > 0).sum().item())
+    return bound_ms(nbytes, 0)
+
+
+def extent_kernel_stats(seed: int, rows: int) -> dict:
+    """extent_tristate at --rows rows against its plain version
+    (torch.equal) over EXTENT_KERNEL_QUERIES, timed beside its bound."""
+    from geomesa_tpu_torch.scan import gscan, kernels
+    dev = torch.device("cuda")
+    bounds, ms = extent_rows(seed, rows)
+    t0 = time.perf_counter()
+    data = gscan.build_extent_data(bounds, ms, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del bounds, ms
+    per_q, err = [], 0
+    for qi, (boxes, intervals) in enumerate(EXTENT_KERNEL_QUERIES):
+        q = gscan.extent_query(boxes, intervals)
+        o, i, t = q.tables(dev)
+
+        def kern():
+            return kernels.extent_tristate(data.bounds, data.valid,
+                                           data.times, o, i, t)
+
+        def plain():
+            return kernels.extent_tristate_plain(data.bounds, data.valid,
+                                                 data.times, o, i, t)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = max(err, 0 if same else _err(got, want))
+        bms, bby = extent_bound((data.bounds, data.valid, data.times, o, i,
+                                 t))
+        counts = torch.bincount(want.to(torch.int64), minlength=3).tolist()
+        per_q.append({
+            "query": qi, "ms": cuda_ms(kern, 20),
+            "plain_ms": cuda_ms(plain, 3, warmup=1), "bound_ms": bms,
+            "bound_by": bby,
+            "bound_all_rows_ms": rows * (26 if intervals else 18)
+            / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None, "out": counts[0], "maybe": counts[1],
+            "in": counts[2], "equal": same})
+    out = {"max_abs_err": err, "per_query": per_q, "rows": rows,
+           "build_s": build_s, "device_bytes": data.nbytes}
+    del data
+    torch.cuda.empty_cache()
+    return out
+
+
+def city_arrays(seed: int, n_poly: int, n_line: int) -> dict:
+    """A city's footprint and street layers inside EXTENT_REGION, as
+    padded vertex arrays (n, EXTENT_MAX_VERTS, 2) f64 (a geometry's last
+    vertex repeated to the end), shuffled: rotated rectangles 8-60 m a
+    side (5-vertex closed rings), and streets of 2-10 vertices, 30-400 m
+    long; dtg uniform over 365 days."""
+    rng = np.random.default_rng(seed + 11)
+    x0, y0, x1, y1 = EXTENT_REGION
+    cy = rng.uniform(y0 + 0.005, y1 - 0.005, n_poly)
+    cx = rng.uniform(x0 + 0.005, x1 - 0.005, n_poly)
+    a, b = rng.uniform(8, 60, (2, n_poly)) / 2
+    th = rng.uniform(0, np.pi, n_poly)
+    sa = np.array([-1, 1, 1, -1, -1.0])
+    sb = np.array([-1, -1, 1, 1, -1.0])
+    du = sa[None] * a[:, None]
+    dv = sb[None] * b[:, None]
+    ct, stt = np.cos(th)[:, None], np.sin(th)[:, None]
+    kx = 1 / (M_PER_DEG * np.cos(np.radians(cy)))[:, None]
+    poly = np.empty((n_poly, EXTENT_MAX_VERTS, 2))
+    poly[:, :5, 0] = cx[:, None] + (du * ct - dv * stt) * kx
+    poly[:, :5, 1] = cy[:, None] + (du * stt + dv * ct) / M_PER_DEG
+    poly[:, 5:] = poly[:, 4:5]
+    nv = rng.integers(2, EXTENT_MAX_VERTS + 1, n_line)
+    length = rng.uniform(30, 400, n_line)
+    lx = rng.uniform(x0 + 0.005, x1 - 0.005, n_line)
+    ly = rng.uniform(y0 + 0.005, y1 - 0.005, n_line)
+    heading = (rng.uniform(0, 2 * np.pi, n_line)[:, None]
+               + np.cumsum(rng.normal(0, 0.3, (n_line, EXTENT_MAX_VERTS - 1)),
+                           axis=1))
+    step = (length / (nv - 1))[:, None]
+    k = np.arange(EXTENT_MAX_VERTS - 1)[None]
+    live = k < (nv - 1)[:, None]
+    dx = np.where(live, step * np.cos(heading), 0.0)
+    dy = np.where(live, step * np.sin(heading), 0.0)
+    line = np.empty((n_line, EXTENT_MAX_VERTS, 2))
+    line[:, 0, 0], line[:, 0, 1] = lx, ly
+    kl = 1 / (M_PER_DEG * np.cos(np.radians(ly)))[:, None]
+    line[:, 1:, 0] = lx[:, None] + np.cumsum(dx, axis=1) * kl
+    line[:, 1:, 1] = ly[:, None] + np.cumsum(dy, axis=1) / M_PER_DEG
+    verts = np.concatenate([poly, line])
+    nverts = np.concatenate([np.full(n_poly, 5), nv])
+    is_poly = np.concatenate([np.ones(n_poly, bool), np.zeros(n_line, bool)])
+    order = rng.permutation(len(verts))
+    verts, nverts, is_poly = verts[order], nverts[order], is_poly[order]
+    n = len(verts)
+    return {"verts": verts, "nverts": nverts, "is_poly": is_poly,
+            "bounds": np.concatenate([verts.min(axis=1), verts.max(axis=1)],
+                                     axis=1),
+            "ms": (EXTENT_T0_DAY * MS_DAY
+                   + rng.integers(0, 365 * MS_DAY, n)),
+            "names": np.array(["footprint", "street"], dtype=object)[
+                (~is_poly).astype(int)]}
+
+
+def city_geoms(c: dict, lo: int, hi: int) -> list:
+    from geomesa_tpu_torch.geometry import LineString, Polygon
+    v, nv, poly = c["verts"], c["nverts"], c["is_poly"]
+    return [Polygon(v[i, :5]) if poly[i] else LineString(v[i, :nv[i]])
+            for i in range(lo, hi)]
+
+
+def _seg_hits(p0, p1, q0, q1):
+    """Whether segments p0-p1 and q0-q1 meet (broadcast, f64): a proper
+    crossing by orientations, or an endpoint on the other segment."""
+    def orient(a, b, c):
+        return np.sign((b[..., 0] - a[..., 0]) * (c[..., 1] - a[..., 1])
+                       - (b[..., 1] - a[..., 1]) * (c[..., 0] - a[..., 0]))
+
+    def on(a, b, c):
+        return ((np.minimum(a[..., 0], b[..., 0]) <= c[..., 0])
+                & (c[..., 0] <= np.maximum(a[..., 0], b[..., 0]))
+                & (np.minimum(a[..., 1], b[..., 1]) <= c[..., 1])
+                & (c[..., 1] <= np.maximum(a[..., 1], b[..., 1])))
+    o1, o2 = orient(p0, p1, q0), orient(p0, p1, q1)
+    o3, o4 = orient(q0, q1, p0), orient(q0, q1, p1)
+    return (((o1 != o2) & (o3 != o4)) | ((o1 == 0) & on(p0, p1, q0))
+            | ((o2 == 0) & on(p0, p1, q1)) | ((o3 == 0) & on(q0, q1, p0))
+            | ((o4 == 0) & on(q0, q1, p1)))
+
+
+def _crossing(px, py, r0, r1):
+    """Crossing-number parity of points (..., 1) against edges r0-r1."""
+    cond = (r0[..., 1] > py) != (r1[..., 1] > py)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        xi = r0[..., 0] + (py - r0[..., 1]) * (r1[..., 0] - r0[..., 0]) / (
+            r1[..., 1] - r0[..., 1])
+    return (cond & (px < xi)).sum(axis=-1) % 2 == 1
+
+
+def city_intersects(c: dict, rows: np.ndarray, ring: np.ndarray) -> np.ndarray:
+    """Brute force, f64: does each feature in ``rows`` meet the polygon
+    ``ring`` (closed, (E + 1, 2))? Any of its segments meets an edge, or
+    any of its vertices is inside the ring, or (a footprint) a vertex of
+    the ring is inside it."""
+    out = np.zeros(len(rows), dtype=bool)
+    e0, e1 = ring[:-1], ring[1:]
+    step = max(1, 4_000_000 // (EXTENT_MAX_VERTS * len(e0)))
+    for lo in range(0, len(rows), step):
+        sel = rows[lo:lo + step]
+        v = c["verts"][sel]
+        seg = _seg_hits(v[:, :-1, None], v[:, 1:, None], e0[None, None],
+                        e1[None, None]).any(axis=(1, 2))
+        inside = _crossing(v[..., 0, None], v[..., 1, None], e0[None, None],
+                           e1[None, None]).any(axis=1)
+        fp = v[:, :5]
+        back = _crossing(ring[None, :, 0, None], ring[None, :, 1, None],
+                         fp[:, None, :-1], fp[:, None, 1:]).any(axis=1)
+        out[lo:lo + step] = seg | inside | (back & c["is_poly"][sel])
+    return out
+
+
+def city_dwithin(c: dict, rows: np.ndarray, px: float, py: float,
+                 deg: float) -> np.ndarray:
+    """Brute force, f64: is each feature in ``rows`` within ``deg`` of
+    (px, py)? Inside a footprint, or the least distance to a segment
+    (the projection clamped to it) at most deg."""
+    v = c["verts"][rows]
+    a, b = v[:, :-1], v[:, 1:]
+    dx, dy = b[..., 0] - a[..., 0], b[..., 1] - a[..., 1]
+    len2 = dx * dx + dy * dy
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = ((px - a[..., 0]) * dx + (py - a[..., 1]) * dy) / len2
+    t = np.where(len2 == 0, 0.0, np.clip(t, 0.0, 1.0))
+    d2 = ((px - (a[..., 0] + t * dx)) ** 2
+          + (py - (a[..., 1] + t * dy)) ** 2).min(axis=1)
+    fp = v[:, :5]
+    inside = _crossing(np.full((len(rows), 1), px), np.full((len(rows), 1),
+                                                           py),
+                       fp[:, :-1], fp[:, 1:]) & c["is_poly"][rows]
+    return inside | (np.sqrt(d2) <= deg)
+
+
+def _ring_text(ring) -> str:
+    return "(" + ", ".join(f"{float(x)!r} {float(y)!r}" for x, y in ring) + ")"
+
+
+def city_queries(c: dict, n: int) -> list:
+    """(name, ecql, oracle) of the extent phase: the oracle returns the
+    expected rows, from the brute force above (None: the port's host
+    evaluate over the whole batch)."""
+    from geomesa_tpu_torch.filters.helper import dwithin_degrees
+    from geomesa_tpu_torch.geometry import Point
+    b, ms = c["bounds"][:n], c["ms"][:n]
+
+    def days(lo, hi):   # DURING: exclusive bounds
+        return (f" AND dtg DURING {_iso(EXTENT_T0_DAY + lo)}/"
+                f"{_iso(EXTENT_T0_DAY + hi)}",
+                (ms > (EXTENT_T0_DAY + lo) * MS_DAY)
+                & (ms < (EXTENT_T0_DAY + hi) * MS_DAY))
+
+    def box_ring(x0, y0, x1, y1):
+        return np.array([(x0, y0), (x1, y0), (x1, y1), (x0, y1), (x0, y0)])
+
+    def env_rows(env, tmask=None):
+        m = ((b[:, 0] <= env[2]) & (b[:, 2] >= env[0])
+             & (b[:, 1] <= env[3]) & (b[:, 3] >= env[1]))
+        return np.flatnonzero(m if tmask is None else m & tmask)
+
+    def by_ring(ring, tmask=None):
+        env = (*ring.min(axis=0), *ring.max(axis=0))
+        rows = env_rows(env, tmask)
+        return lambda: rows[city_intersects(c, rows, ring)]
+
+    out = []
+    hood = (-73.99, 40.72, -73.98, 40.73)
+    t30, m30 = days(60, 90)
+    out.append(("hood_bbox_30d", f"BBOX(geom, {', '.join(map(str, hood))})"
+                + t30, by_ring(box_ring(*hood), m30)))
+    # the XZ curve's cells (precision 12: 0.088 degrees of longitude) are
+    # coarser than a neighbourhood, so over 30 days its candidates pass
+    # the pruned path's 50,000 rows at 1.2M features; a week stays under
+    t7, m7 = days(60, 67)
+    out.append(("hood_bbox_7d", f"BBOX(geom, {', '.join(map(str, hood))})"
+                + t7, by_ring(box_ring(*hood), m7)))
+    boro = (-74.10, 40.57, -73.80, 40.87)
+    t90, m90 = days(100, 190)
+    out.append(("borough_bbox_90d", f"BBOX(geom, {', '.join(map(str, boro))})"
+                + t90, by_ring(box_ring(*boro), m90)))
+    tt, mt = days(200, 230)
+    out.append(("time_30d", tt[5:], lambda: np.flatnonzero(mt)))
+    # a 100-vertex star over most of the region: its envelope holds
+    # about 50-100k rows of the 30 days
+    ang = np.linspace(0, 2 * np.pi, 101)[:-1]
+    rad = 0.14 * (1 + 0.12 * np.sin(7 * ang))
+    star = np.stack([-73.98 + rad * np.cos(ang) / 0.76,
+                     40.705 + rad * np.sin(ang)], axis=1)
+    star = np.concatenate([star, star[:1]])
+    out.append(("intersects_polygon_100v_30d",
+                f"INTERSECTS(geom, POLYGON({_ring_text(star)}))" + t30,
+                by_ring(star, m30)))
+    px, py = -73.98, 40.75
+    deg = dwithin_degrees(Point(px, py), 500.0, "meters")
+    drows = env_rows((px - deg, py - deg, px + deg, py + deg))
+    out.append(("dwithin_500m", f"DWITHIN(geom, POINT({px} {py}), 500, "
+                f"meters)", lambda: drows[city_dwithin(c, drows, px, py,
+                                                       deg)]))
+    out.append(("crosses_line",
+                "CROSSES(geom, LINESTRING(-74.25 40.7001, -73.98 40.7002, "
+                "-73.71 40.7003))", None))
+    # a parallelogram on a footprint's far corner, pointing away from
+    # it, touches it at that vertex (a shared vertex is exact in f64,
+    # where a shared rotated edge's midpoint is not)
+    k = int(np.flatnonzero(c["is_poly"][:n])[0])
+    v = c["verts"][k, :5]
+    a, b2 = v[1] - v[0], v[2] - v[1]
+    corner = np.array([v[2], v[2] + a, v[2] + a + b2, v[2] + b2, v[2]])
+    out.append(("touches_polygon",
+                f"TOUCHES(geom, POLYGON({_ring_text(corner)}))", None))
+    return out
+
+
+def _extent_strategy(res) -> str:
+    text = res.explain.text
+    notes = [k for k, line in (("xz_pruned_host", "XZ-pruned host scan"),
+                               ("tristate", "Device extent scan"),
+                               ("exact", "Exact predicate on"))
+             if line in text]
+    return "+".join([res.plan.index] + notes)
+
+
+def phase_extent(seed: int) -> tuple[dict, int]:
+    """An extent store shaped like a city's building footprints and
+    street centerlines, its queries held to the brute force, the
+    tristate's calls held to the plain version."""
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.filters.ecql import parse_ecql
+    from geomesa_tpu_torch.filters.evaluate import evaluate
+    from geomesa_tpu_torch.scan import kernels
+    t_phase = time.perf_counter()
+    c = city_arrays(seed, EXTENT_POLYGONS, EXTENT_LINES)
+    total = len(c["ms"])
+    ids = np.array([f"c{i}" for i in range(total)], dtype=object)
+    ds = InMemoryDataStore()
+    ds.create_schema("city", EXTENT_SPEC)
+    sft = ds.get_schema("city")
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    build_s = write_s = 0.0
+    n = 0
+    reduced = None
+    while n < total:
+        hi = min(total, n + EXTENT_CHUNK)
+        t0 = time.perf_counter()
+        geoms = city_geoms(c, n, hi)
+        t1 = time.perf_counter()
+        ds.write("city", FeatureBatch.from_dict(sft, ids[n:hi], {
+            "name": c["names"][n:hi],
+            "dtg": c["ms"][n:hi].astype("datetime64[ms]"), "geom": geoms}))
+        t2 = time.perf_counter()
+        build_s += t1 - t0
+        write_s += t2 - t1
+        n = hi
+        # stop early (at the least feature count) once the writes so far
+        # project the phase past its budget
+        per_row = (time.perf_counter() - t_phase) / n
+        if (n >= EXTENT_MIN_FEATURES and n < total and per_row * min(
+                total, n + EXTENT_CHUNK) * EXTENT_PHASE_PER_WRITE
+                > EXTENT_BUDGET_S):
+            reduced = {"features": n, "from": total,
+                       "why": f"the writes projected the phase past "
+                              f"{EXTENT_BUDGET_S} s"}
+            break
+    st = ds._types["city"]
+    t0 = time.perf_counter()
+    st.ensure_index()
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    queries = city_queries(c, n)
+
+    calls = []
+    real = kernels.extent_tristate
+    current = [None]
+
+    def recorder(*args):
+        out = real(*args)
+        calls.append((current[0], args, out))
+        return out
+    kernels.reset_launches()
+    per_q, wrong, first_ids = [], [], {}
+    t_main = time.perf_counter()
+    try:
+        kernels.extent_tristate = recorder
+        for qname, ecql, _ in queries:
+            current[0] = qname
+            t0 = time.perf_counter()
+            res = ds.query(ecql, "city")
+            got = res.rows
+            first_ms = (time.perf_counter() - t0) * 1e3
+            count = ds.query_count(ecql, "city")
+            first_ids[qname] = (res, got, count, first_ms)
+    finally:
+        kernels.extent_tristate = real
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    launches = kernels.launches["extent_tristate"]
+
+    batch = st.batch
+    for qname, ecql, oracle in queries:
+        res, got, count, first_ms = first_ids[qname]
+        t0 = time.perf_counter()
+        want = (np.flatnonzero(evaluate(parse_ecql(ecql), batch))
+                if oracle is None else np.sort(oracle()))
+        oracle_s = time.perf_counter() - t0
+        ok = (np.array_equal(got, want) and np.array_equal(res.ids, ids[want])
+              and count == len(want))
+        if not ok:
+            wrong.append((qname, len(got), len(want), count))
+        times = [first_ms] + [_timed(lambda e=ecql: ds.query(e, "city").ids)
+                              for _ in range(EXTENT_RUNS - 1)]
+        states = [out for q, _a, out in calls if q == qname]
+        per_q.append({
+            "query": qname, "hits": len(want), "exact": ok,
+            "strategy": _extent_strategy(res),
+            "explain": [ln.strip() for ln in res.explain.text.splitlines()
+                        if any(k in ln for k in ("XZ-pruned", "extent scan",
+                                                 "Exact predicate"))],
+            "p50_ms": statistics.median(times), "runs_ms": times,
+            "oracle": "brute_f64" if oracle is not None else "host_evaluate",
+            "oracle_s": oracle_s,
+            "tristate": [dict(zip(("out", "maybe", "in"), torch.bincount(
+                s.to(torch.int64), minlength=3).tolist())) for s in states]})
+
+    # outside the counted run: every call the path made against the plain
+    # version, then the kernel timed at each call's shape
+    checks = []
+    for qname, args, out in calls:
+        plain = kernels.extent_tristate_plain(*args)
+        same = torch.equal(out, plain)
+        bms, bby = extent_bound(args)
+        checks.append({
+            "query": qname, "rows": args[0].shape[0],
+            "boxes": args[3].shape[0], "intervals": args[5].shape[0],
+            "equal": same, "ms": cuda_ms(lambda a=args: real(*a), 20),
+            "plain_ms": cuda_ms(
+                lambda a=args: kernels.extent_tristate_plain(*a), 3, 1),
+            "bound_ms": bms, "bound_by": bby})
+        if not same:
+            wrong.append(("extent_tristate", qname))
+    emit({"phase": "extent", "features": n, "reduced": reduced,
+          "build_geoms_s": build_s, "write_s": write_s, "index_s": index_s,
+          "extent_device_bytes": st.extent_data.nbytes,
+          "queries": per_q, "kernel_checks": checks,
+          "launches": {"extent_tristate": launches}, "counted_s": main_s,
+          "seconds": time.perf_counter() - t_phase, "wrong": wrong})
+    if wrong:
+        raise SystemExit(f"extent: wrong results: {wrong}")
+    if launches == 0:
+        raise SystemExit("extent_tristate never launched on the extent path")
+    ds.remove_schema("city")
+    return checks, launches
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2131,10 +2623,13 @@ def main():
     pred_stats.update(surf_stats)
     del pred_ds
     torch.cuda.empty_cache()
+    _, launches["extent_tristate"] = phase_extent(args.seed)
+    torch.cuda.empty_cache()
     summary = []
     for name, s in stats.items():
         q0 = s["per_query"][0]   # the BBOX+time query (1M random ids
-                                 # for the gathered kernel, L2 cold); the
+                                 # for the gathered kernel, L2 cold; the
+                                 # extent tristate on --rows boxes); the
                                  # batch of 32 for the batched kernels
         summary.append({
             "name": name, "route": "cuda",

@@ -1,7 +1,6 @@
-"""Spatial functions of the port: only what point schemas' exact
-predicates need so far (the exact recheck of the point-in-polygon
-kernel's band rows)."""
+"""Spatial functions of the port: the ST_* library over the geometry
+model (``st_functions``), with the vectorized point-column forms."""
 
-from .st_functions import contains_points
+from .st_functions import contains_points, distance_points
 
-__all__ = ["contains_points"]
+__all__ = ["contains_points", "distance_points"]

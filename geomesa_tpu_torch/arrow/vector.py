@@ -8,8 +8,8 @@ as fixed-size-list doubles with configurable precision, strings
 dictionary-encode against explicit dictionaries that can grow in
 deltas, and features read zero-copy through a facade over the vectors.
 
-This is the same surface over pyarrow, for the point schemas of the
-port (a WKB geometry vector arrives with the extent and relate slices): ``SimpleFeatureVector`` owns a
+This is the same surface over pyarrow (other geometries than points
+as WKB binary): ``SimpleFeatureVector`` owns a
 set of ``ArrowAttributeWriter``s (or wraps a RecordBatch with
 ``ArrowAttributeReader``s), ``ArrowDictionary`` carries the explicit
 value <-> code mapping with delta growth, and ``ArrowFeature``
@@ -23,7 +23,7 @@ from typing import Any
 import numpy as np
 
 from ..features.sft import SimpleFeatureType
-from ..geometry import Point
+from ..geometry import Geometry, Point
 
 __all__ = ["ArrowDictionary", "ArrowAttributeWriter",
            "ArrowAttributeReader", "SimpleFeatureVector",
@@ -207,6 +207,26 @@ class PointWriter(ArrowAttributeWriter):
         self._xy[:] = np.nan
 
 
+class GeometryWriter(ArrowAttributeWriter):
+    """Any other geometry as WKB binary (``geometry/wkb.py``)."""
+
+    def __init__(self, name: str, capacity: int):
+        super().__init__(name, capacity)
+        self._wkb: list = [None] * capacity
+
+    def apply(self, i: int, value) -> None:
+        from ..geometry.wkb import to_wkb
+        self._wkb[i] = None if value is None else (
+            to_wkb(value) if isinstance(value, Geometry) else bytes(value))
+
+    def to_arrow(self, n: int):
+        import pyarrow as pa
+        return pa.array(list(self._wkb[:n]), type=pa.binary())
+
+    def reset(self) -> None:
+        self._wkb = [None] * self.capacity
+
+
 _WRITERS = {
     "Integer": IntWriter,
     "Long": LongWriter,
@@ -231,11 +251,7 @@ def writer_for(attr, capacity: int, precision: str = "f64",
     if cls is not None:
         return cls(attr.name, capacity)
     if getattr(attr.type, "is_geometry", False):
-        # the WKB writer of extent geometries
-        raise NotImplementedError(
-            f"Arrow vectors of {t} attributes ({attr.name!r}) belong to "
-            f"the extent-geometry (XZ) slice of the PyTorch port "
-            f"(ROADMAP.md section 6)")
+        return GeometryWriter(attr.name, capacity)
     raise ValueError(f"no Arrow vector writer for attribute type "
                      f"{t!r} ({attr.name!r})")
 
@@ -274,9 +290,8 @@ class ArrowAttributeReader:
             x, y = d["x"], d["y"]
             return None if x != x or y != y else Point(x, y)
         if pa.types.is_binary(t):
-            raise NotImplementedError(
-                "WKB geometries belong to the relate and distance slice "
-                "of the PyTorch port (ROADMAP.md section 6)")
+            from ..geometry.wkb import from_wkb
+            return from_wkb(v.as_py())
         if pa.types.is_timestamp(t):
             return int(v.value)
         if (self.attr is not None

@@ -1,6 +1,7 @@
 """Space-filling curves on the host (numpy): bit normalization, z-order
-interleaving, time binning and z-range decomposition. Z keys are
-planning artifacts; the device scan never sees them."""
+interleaving, time binning, z-range decomposition, and the XZ curves of
+extent geometries (``xz``). Z and XZ keys are planning artifacts; the
+device scans never see them."""
 
 from .normalize import NormalizedDimension, normalized_lat, normalized_lon, normalized_time
 from .timebin import TimePeriod, bins_of_interval, max_offset, to_binned

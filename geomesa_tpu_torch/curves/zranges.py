@@ -26,9 +26,11 @@ DEFAULT_MAX_RANGES = 2000
 
 
 def merge_ranges(ranges: np.ndarray) -> np.ndarray:
-    """Sort and coalesce overlapping/adjacent inclusive [lo, hi] ranges."""
+    """Sort and coalesce overlapping/adjacent inclusive [lo, hi] ranges.
+    A third column, where there is one, is a flag AND-ed across the merged
+    ranges (the XZ curves' 'contained' flag, XZ2SFC.scala:236-252)."""
     if len(ranges) == 0:
-        return ranges.reshape(0, 2)
+        return ranges.reshape(0, ranges.shape[1] if ranges.ndim == 2 else 2)
     ranges = ranges[np.argsort(ranges[:, 0], kind="stable")]
     los, his = ranges[:, 0], ranges[:, 1]
     # a range starts a new group if its lo > running max(hi)+1 of all before
@@ -42,7 +44,13 @@ def merge_ranges(ranges: np.ndarray) -> np.ndarray:
     last = np.empty(len(ranges), dtype=bool)
     last[-1] = True
     last[:-1] = new_group[1:]
-    return np.stack([los[new_group], running[last]], axis=1)
+    out = np.stack([los[new_group], running[last]], axis=1)
+    if ranges.shape[1] > 2:
+        group = np.cumsum(new_group) - 1
+        flags = np.ones(len(out), dtype=ranges.dtype)
+        np.minimum.at(flags, group, ranges[:, 2])
+        out = np.concatenate([out, flags[:, None]], axis=1)
+    return out
 
 
 def _interleave(coords: np.ndarray, dims: int) -> np.ndarray:

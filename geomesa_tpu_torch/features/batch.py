@@ -7,10 +7,12 @@ as null), booleans as bool. The in-memory store builds its device
 columns (two-float coordinates, (day, ms) times, the residual's split
 attribute columns) from these.
 
+Any other geometry (LineString, Polygon, the multi-part types, a
+collection, or the generic Geometry) is a GeometryColumn: the geometry
+objects beside their (n, 4) float64 bounding boxes, NaN for a null.
+
 ``to_arrow``/``from_arrow`` convert a batch to and from a pyarrow
-RecordBatch (pyarrow imported when they are called). Extent-geometry
-columns arrive with the extent (XZ) slice of the port (ROADMAP.md
-section 6).
+RecordBatch (pyarrow imported when they are called).
 """
 
 from __future__ import annotations
@@ -20,15 +22,20 @@ from typing import Any, Iterable
 
 import numpy as np
 
-from ..geometry import Point, parse_wkt
+from ..geometry import Geometry, Point, parse_wkt
 from .sft import SimpleFeatureType
 
 __all__ = ["FeatureBatch", "Column", "NumericColumn", "BoolColumn",
-           "DateColumn", "StringColumn", "PointColumn", "COLUMN_TYPES"]
+           "DateColumn", "StringColumn", "PointColumn", "GeometryColumn",
+           "COLUMN_TYPES", "EXTENT_TYPES"]
 
+# the geometry types stored as a GeometryColumn
+EXTENT_TYPES = frozenset({"LineString", "Polygon", "MultiPoint",
+                          "MultiLineString", "MultiPolygon",
+                          "GeometryCollection", "Geometry"})
 # the attribute types this port stores (String and UUID share one column)
 COLUMN_TYPES = frozenset({"Point", "String", "UUID", "Date", "Boolean",
-                          "Integer", "Long", "Float", "Double"})
+                          "Integer", "Long", "Float", "Double"}) | EXTENT_TYPES
 
 
 class Column:
@@ -180,6 +187,45 @@ class PointColumn(Column):
         return Point(self.x[i], self.y[i]) if self.valid[i] else None
 
 
+@dataclasses.dataclass
+class GeometryColumn(Column):
+    """Any geometries: the host objects and their cached bounding boxes,
+    (n, 4) float64 [xmin ymin xmax ymax], NaN for a null or empty one."""
+    name: str
+    geoms: list  # list[Geometry | None]
+    bounds: np.ndarray
+
+    @property
+    def n(self) -> int:
+        return len(self.geoms)
+
+    @property
+    def valid(self) -> np.ndarray:  # type: ignore[override]
+        return ~np.isnan(self.bounds[:, 0])
+
+    def take(self, idx) -> "GeometryColumn":
+        idx = np.asarray(idx)
+        if idx.dtype == bool:
+            idx = np.flatnonzero(idx)
+        return GeometryColumn(self.name, [self.geoms[i] for i in idx],
+                              self.bounds[idx])
+
+    def value(self, i: int):
+        return self.geoms[i]
+
+    @classmethod
+    def from_geoms(cls, name: str, geoms: Iterable) -> "GeometryColumn":
+        """From Geometry objects, WKT strings or None."""
+        gl = [g if g is None or isinstance(g, Geometry) else parse_wkt(str(g))
+              for g in geoms]
+        bounds = np.full((len(gl), 4), np.nan)
+        for i, g in enumerate(gl):
+            if g is not None and not g.is_empty:
+                e = g.envelope
+                bounds[i] = (e.xmin, e.ymin, e.xmax, e.ymax)
+        return cls(name, gl, bounds)
+
+
 def _column_for(spec_type: str, name: str, data) -> Column:
     n = len(data)
     if spec_type == "Point":
@@ -197,6 +243,8 @@ def _column_for(spec_type: str, name: str, data) -> Column:
             p = g if isinstance(g, Point) else parse_wkt(str(g))
             xs[i], ys[i] = p.x, p.y  # type: ignore[union-attr]
         return PointColumn(name, xs, ys, ~np.isnan(xs))
+    if spec_type in EXTENT_TYPES:
+        return GeometryColumn.from_geoms(name, data)
     if spec_type in ("String", "UUID"):
         return StringColumn.from_strings(name, data)
     if spec_type == "Date":
@@ -329,6 +377,10 @@ class FeatureBatch:
                 cols[name] = DateColumn(
                     name, np.concatenate([p.millis for p in parts]),
                     np.concatenate([p.valid for p in parts]))
+            elif isinstance(c, GeometryColumn):
+                cols[name] = GeometryColumn(
+                    name, [g for p in parts for g in p.geoms],
+                    np.concatenate([p.bounds for p in parts]))
             else:
                 cols[name] = type(c)(
                     name, np.concatenate([p.values for p in parts]),
@@ -340,9 +392,12 @@ class FeatureBatch:
 
     def to_arrow(self):
         """The batch as a pyarrow RecordBatch: ``__fid__`` first, points
-        as {x, y} structs, strings dictionary-encoded, dates as
-        timestamp[ms]. Needs pyarrow (imported here)."""
+        as {x, y} structs, other geometries as WKT strings, strings
+        dictionary-encoded, dates as timestamp[ms]. Needs pyarrow
+        (imported here)."""
         import pyarrow as pa
+
+        from ..geometry.wkt import to_wkt
         arrays = [pa.array(self.ids.astype(str))]
         names = ["__fid__"]
         for a in self.sft.attributes:
@@ -351,6 +406,10 @@ class FeatureBatch:
             if isinstance(c, PointColumn):
                 arrays.append(pa.StructArray.from_arrays(
                     [pa.array(c.x), pa.array(c.y)], ["x", "y"]))
+            elif isinstance(c, GeometryColumn):
+                arrays.append(pa.array(
+                    [to_wkt(g) if g is not None else None for g in c.geoms],
+                    type=pa.string()))
             elif isinstance(c, StringColumn):
                 null = c.codes < 0
                 arrays.append(pa.DictionaryArray.from_arrays(

@@ -1,5 +1,5 @@
-"""Filters of point schemas: AST, ECQL parser, extraction of
-index-consumable values, and the host evaluator for residuals."""
+"""Filters: AST, ECQL parser, extraction of index-consumable values, and
+the host evaluator for residuals and exact geometry predicates."""
 
 from . import ast
 from .ecql import ECQLError, parse_ecql

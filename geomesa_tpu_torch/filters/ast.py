@@ -1,9 +1,10 @@
-"""Filter AST: the CQL/OpenGIS filter algebra of point schemas.
+"""Filter AST: the CQL/OpenGIS filter algebra.
 
 Logical AND/OR/NOT, INCLUDE/EXCLUDE, feature-ID filters, comparisons,
-BETWEEN, LIKE, IN and IS NULL on any attribute, BBOX and the
-INTERSECTS/WITHIN/DISJOINT spatial predicates over a polygon literal,
-and the temporal DURING/BEFORE/AFTER/TEQUALS. All nodes are immutable
+BETWEEN, LIKE, IN and IS NULL on any attribute, BBOX, DWITHIN and the
+spatial predicates INTERSECTS, WITHIN, DISJOINT, CONTAINS, TOUCHES,
+CROSSES, OVERLAPS and EQUALS over any geometry literal, and the temporal
+DURING/BEFORE/AFTER/TEQUALS. All nodes are immutable
 dataclasses; geometry literals are geomesa_tpu_torch.geometry objects;
 temporal literals are epoch millis.
 """
@@ -20,7 +21,9 @@ from ..geometry import Geometry
 __all__ = ["Filter", "Include", "Exclude", "And", "Or", "Not", "FidFilter",
            "Compare", "CompareOp", "Between", "Like", "IsNull", "InList",
            "SpatialPredicate", "BBox", "Intersects", "Within", "Disjoint",
-           "During", "Before", "After", "TEquals", "walk", "props_of"]
+           "Contains", "Touches", "Crosses", "Overlaps", "GeomEquals",
+           "DWithin", "During", "Before", "After", "TEquals", "walk",
+           "props_of"]
 
 
 class Filter:
@@ -212,6 +215,27 @@ class Disjoint(SpatialPredicate):
     op_name = "DISJOINT"
 
 
+class Contains(SpatialPredicate):
+    op_name = "CONTAINS"
+
+
+class Touches(SpatialPredicate):
+    op_name = "TOUCHES"
+
+
+class Crosses(SpatialPredicate):
+    op_name = "CROSSES"
+
+
+class Overlaps(SpatialPredicate):
+    op_name = "OVERLAPS"
+
+
+class GeomEquals(SpatialPredicate):
+    """EQUALS / ST_Equals: topological equality."""
+    op_name = "EQUALS"
+
+
 @dataclasses.dataclass(frozen=True)
 class BBox(Filter):
     prop: str
@@ -223,6 +247,20 @@ class BBox(Filter):
     def __str__(self) -> str:
         return (f"BBOX({self.prop}, {self.xmin}, {self.ymin}, "
                 f"{self.xmax}, {self.ymax})")
+
+
+@dataclasses.dataclass(frozen=True)
+class DWithin(Filter):
+    """DWITHIN(prop, geom, distance, units): within a distance in
+    meters, kilometers, feet, statute or nautical miles (or degrees)."""
+    prop: str
+    geom: Geometry
+    distance: float
+    units: str = "meters"
+
+    def __str__(self) -> str:
+        return (f"DWITHIN({self.prop}, {self.geom!r}, "
+                f"{self.distance}, {self.units})")
 
 
 @dataclasses.dataclass(frozen=True)

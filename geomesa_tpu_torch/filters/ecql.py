@@ -1,4 +1,4 @@
-"""ECQL parser of point schemas: CQL text -> Filter AST.
+"""ECQL parser: CQL text -> Filter AST.
 
 Recursive descent over the grammar:
 
@@ -9,7 +9,9 @@ Recursive descent over the grammar:
     primary  := '(' filter ')' | predicate
     predicate:= INCLUDE | EXCLUDE
               | BBOX '(' attr ',' num ',' num ',' num ',' num [',' crs] ')'
-              | INTERSECTS|WITHIN|DISJOINT '(' attr ',' geometry ')'
+              | INTERSECTS|DISJOINT|CONTAINS|WITHIN|TOUCHES|CROSSES|OVERLAPS
+                  |EQUALS '(' attr ',' geometry ')'
+              | DWITHIN '(' attr ',' geometry ',' num ',' units ')'
               | IN '(' str (',' str)* ')'                  -- fid filter
               | attr IN '(' literal (',' literal)* ')'
               | attr BETWEEN literal AND literal
@@ -19,11 +21,9 @@ Recursive descent over the grammar:
               | attr BEFORE instant | attr AFTER instant | attr TEQUALS instant
               | attr op literal        (op: = <> != < > <= >=)
 
-Dates parse to epoch millis; geometries parse via the WKT reader.
-DWITHIN, BEYOND, CONTAINS, TOUCHES, CROSSES, OVERLAPS and EQUALS raise
-NotImplementedError: they need the JAX package's geometry/relate.py and
-distance helpers, which belong to a later slice of the port (ROADMAP.md
-section 6). Syntax errors raise ECQLError.
+Dates parse to epoch millis; geometries parse via the WKT reader;
+DWITHIN's units are one or more words ("meters", "statute miles").
+Syntax errors raise ECQLError (BEYOND is not in the grammar).
 """
 
 from __future__ import annotations
@@ -56,18 +56,12 @@ _TOKEN_RE = re.compile(r"""
     | (?P<word>[A-Za-z_][A-Za-z0-9_.:-]*)
     )""", re.VERBOSE)
 
-_SPATIAL = {"INTERSECTS": ast.Intersects, "WITHIN": ast.Within,
-            "DISJOINT": ast.Disjoint}
-
-# ECQL spatial operators the port recognises but does not run yet
-_LATER = {"DWITHIN", "BEYOND", "CONTAINS", "TOUCHES", "CROSSES", "OVERLAPS",
-          "EQUALS"}
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it belongs to the "
-        f"relate/distance slice (ROADMAP.md section 6)")
+_SPATIAL = {
+    "INTERSECTS": ast.Intersects, "DISJOINT": ast.Disjoint,
+    "CONTAINS": ast.Contains, "WITHIN": ast.Within,
+    "TOUCHES": ast.Touches, "CROSSES": ast.Crosses,
+    "OVERLAPS": ast.Overlaps, "EQUALS": ast.GeomEquals,
+}
 
 
 def _parse_instant(s: str) -> int:
@@ -191,10 +185,10 @@ class _Parser:
             return ast.Exclude()
         if u == "BBOX":
             return self.bbox()
+        if u == "DWITHIN":
+            return self.dwithin()
         if u in _SPATIAL:
             return self.spatial(u)
-        if u in _LATER:
-            raise _later(f"ECQL {u}")
         if u == "IN":
             return self.fid_filter()
         return self.attr_predicate()
@@ -232,6 +226,21 @@ class _Parser:
         g = self._geometry()
         self.t.expect("rparen")
         return _SPATIAL[name](attr, g)
+
+    def dwithin(self) -> ast.Filter:
+        self.t.next()
+        self.t.expect("lparen")
+        attr = self.t.expect("word")[1]
+        self.t.expect("comma")
+        g = self._geometry()
+        self.t.expect("comma")
+        dist = _number(self.t.next())
+        self.t.expect("comma")
+        units = [self.t.next()[1]]
+        while self.t.peek()[0] == "word":  # "statute miles" etc.
+            units.append(self.t.next()[1])
+        self.t.expect("rparen")
+        return ast.DWithin(attr, g, dist, " ".join(units).lower())
 
     def fid_filter(self) -> ast.Filter:
         self.t.next()

@@ -1,11 +1,16 @@
 """Vectorized filter evaluation on the host: Filter AST x FeatureBatch ->
 bool mask, in exact float64 / int64.
 
-The exact reference evaluator of point schemas: the oracle for the
-device kernels (the residual kernel's f64 band rows and the
-point-in-polygon kernel's band rows are re-evaluated here) and the
-engine for residuals on gathered candidates. String predicates run on
-the (small) dictionary vocab, then map through the code array.
+The exact reference evaluator: the oracle for the device kernels (the
+residual kernel's f64 band rows, the point-in-polygon kernel's band
+rows and the extent tristate's MAYBE rows are re-evaluated here) and
+the engine for residuals on gathered candidates. String predicates run
+on the (small) dictionary vocab, then map through the code array.
+Spatial predicates on a point column are vectorized where the query
+geometry has ``contains_points``; on an extent column, and for the
+relate operators, an envelope prefilter picks the rows that the exact
+per-geometry predicate (``geometry/base.py``, ``geometry/relate.py``)
+then decides.
 """
 
 from __future__ import annotations
@@ -15,9 +20,12 @@ import operator
 import numpy as np
 
 from ..features.batch import (BoolColumn, DateColumn, FeatureBatch,
-                              NumericColumn, PointColumn, StringColumn)
+                              GeometryColumn, NumericColumn, PointColumn,
+                              StringColumn)
+from ..geometry import Envelope, Point
+from ..geometry import relate as _rel
 from . import ast
-from .helper import like_vocab_mask, to_millis
+from .helper import dwithin_degrees, like_vocab_mask, to_millis
 
 __all__ = ["evaluate", "COMPARE_OPS"]
 
@@ -64,25 +72,112 @@ def evaluate(f: ast.Filter, b: FeatureBatch) -> np.ndarray:
             return np.isin(col.codes, codes) if codes else np.zeros(n, bool)
         return np.isin(_values(col), np.asarray(list(f.values))) & col.valid
     if isinstance(f, ast.BBox):
-        col = _points(b, f.prop)
-        return ((col.x >= f.xmin) & (col.x <= f.xmax)
-                & (col.y >= f.ymin) & (col.y <= f.ymax) & col.valid)
+        return _bbox(f, b)
+    if isinstance(f, ast.DWithin):
+        return _dwithin(f, b)
     if isinstance(f, ast.SpatialPredicate):
-        col = _points(b, f.prop)
-        inside = f.geom.contains_points(col.x, col.y)
-        if isinstance(f, ast.Disjoint):
-            inside = ~inside
-        return inside & col.valid
+        return _spatial(f, b)
     if isinstance(f, (ast.During, ast.Before, ast.After, ast.TEquals)):
         return _temporal(f, b)
     raise TypeError(f"cannot evaluate {type(f).__name__}")
 
 
-def _points(b: FeatureBatch, prop: str) -> PointColumn:
+def _geometry_col(b: FeatureBatch, prop: str):
     col = b.col(prop)
-    if not isinstance(col, PointColumn):
-        raise TypeError(f"{prop} is not a point column")
+    if not isinstance(col, (PointColumn, GeometryColumn)):
+        raise TypeError(f"{prop} is not a geometry column")
     return col
+
+
+def _env_overlaps(bounds: np.ndarray, env: Envelope) -> np.ndarray:
+    """Rows whose bounding box meets the envelope (False for NaN rows)."""
+    return ((bounds[:, 0] <= env.xmax) & (bounds[:, 2] >= env.xmin)
+            & (bounds[:, 1] <= env.ymax) & (bounds[:, 3] >= env.ymin))
+
+
+def _in_env(col: PointColumn, env: Envelope) -> np.ndarray:
+    return ((col.x >= env.xmin) & (col.x <= env.xmax) & (col.y >= env.ymin)
+            & (col.y <= env.ymax) & col.valid)
+
+
+def _bbox(f: ast.BBox, b: FeatureBatch) -> np.ndarray:
+    col = _geometry_col(b, f.prop)
+    env = Envelope(f.xmin, f.ymin, f.xmax, f.ymax)
+    if isinstance(col, PointColumn):
+        return _in_env(col, env)
+    # envelope prefilter, then the exact intersection per candidate
+    out = np.zeros(b.n, dtype=bool)
+    box = env.to_polygon()
+    for i in np.flatnonzero(_env_overlaps(col.bounds, env)):
+        out[i] = col.geoms[i] is not None and box.intersects(col.geoms[i])
+    return out
+
+
+def _spatial(f: ast.SpatialPredicate, b: FeatureBatch) -> np.ndarray:
+    col = _geometry_col(b, f.prop)
+    g = f.geom
+    out = np.zeros(b.n, dtype=bool)
+    if isinstance(col, PointColumn):
+        if hasattr(g, "contains_points"):
+            if isinstance(f, (ast.Intersects, ast.Within)):
+                return g.contains_points(col.x, col.y) & col.valid
+            if isinstance(f, ast.Disjoint):
+                return ~g.contains_points(col.x, col.y) & col.valid
+        cand = _in_env(col, g.envelope)
+        if isinstance(f, ast.Disjoint):
+            out = col.valid.copy()
+        for i in np.flatnonzero(cand):
+            out[i] = _apply_pred(f, Point(col.x[i], col.y[i]), g)
+        return out
+    if isinstance(f, ast.Disjoint):
+        cand = np.flatnonzero(col.valid)
+    else:
+        cand = np.flatnonzero(col.valid & _env_overlaps(col.bounds,
+                                                        g.envelope))
+    for i in cand:
+        out[i] = _apply_pred(f, col.geoms[i], g)
+    return out
+
+
+def _apply_pred(f: ast.SpatialPredicate, feature_geom, query_geom) -> bool:
+    if isinstance(f, ast.Intersects):
+        return feature_geom.intersects(query_geom)
+    if isinstance(f, ast.Disjoint):
+        return not feature_geom.intersects(query_geom)
+    if isinstance(f, ast.Contains):
+        # ECQL CONTAINS(attr, g): the feature geometry contains g
+        return feature_geom.contains(query_geom)
+    if isinstance(f, ast.Within):
+        return query_geom.contains(feature_geom)
+    # the DE-9IM predicates (the envelope prefilter already rejected the
+    # cheap negatives)
+    if isinstance(f, ast.Touches):
+        return _rel.touches(feature_geom, query_geom)
+    if isinstance(f, ast.GeomEquals):
+        return _rel.topo_equals(feature_geom, query_geom)
+    if isinstance(f, ast.Crosses):
+        return _rel.crosses(feature_geom, query_geom)
+    if isinstance(f, ast.Overlaps):
+        return _rel.overlaps(feature_geom, query_geom)
+    raise TypeError(type(f).__name__)
+
+
+def _dwithin(f: ast.DWithin, b: FeatureBatch) -> np.ndarray:
+    deg = dwithin_degrees(f.geom, f.distance, f.units)
+    col = _geometry_col(b, f.prop)
+    if isinstance(col, PointColumn) and isinstance(f.geom, Point):
+        dx = col.x - f.geom.x
+        dy = col.y - f.geom.y
+        return (dx * dx + dy * dy <= deg * deg) & col.valid
+    env = f.geom.envelope.buffer(deg)
+    out = np.zeros(b.n, dtype=bool)
+    if isinstance(col, PointColumn):
+        for i in np.flatnonzero(_in_env(col, env)):
+            out[i] = Point(col.x[i], col.y[i]).dwithin(f.geom, deg)
+    else:
+        for i in np.flatnonzero(col.valid & _env_overlaps(col.bounds, env)):
+            out[i] = col.geoms[i].dwithin(f.geom, deg)
+    return out
 
 
 def _values(col) -> np.ndarray:

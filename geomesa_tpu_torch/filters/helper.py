@@ -3,8 +3,9 @@
 Mirrors FilterHelper (geomesa-filter/.../FilterHelper.scala):
 
 - ``extract_geometries`` (:201): AND intersects extracted geometries,
-  OR unions them; geometries crossing the antimeridian split IDL-safe;
-  results clip to the world.
+  OR unions them; DWithin buffers by its distance in degrees
+  (``dwithin_degrees``); geometries crossing the antimeridian split
+  IDL-safe; results clip to the world.
 - ``extract_intervals`` (:267): date bounds in epoch millis.
 - ``extract_attribute_bounds`` (:318): typed bounds for one attribute,
   the attribute index's ranges.
@@ -19,18 +20,58 @@ empty plans without scanning.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any
 
 import numpy as np
 
 from ..geometry import Envelope, Geometry, Polygon
-from ..geometry.base import WHOLE_WORLD
+from ..geometry.base import WHOLE_WORLD, _Multi
 from . import ast
 
 __all__ = ["Bound", "Bounds", "FilterValues", "extract_geometries",
            "extract_intervals", "extract_attribute_bounds", "is_box",
-           "like_vocab_mask", "to_millis"]
+           "like_vocab_mask", "to_millis", "distance_degrees",
+           "dwithin_degrees", "METERS_MULTIPLIERS"]
+
+# ECQL distance units -> meters (FilterHelper.visitDwithin:93-101)
+METERS_MULTIPLIERS = {
+    "meters": 1.0,
+    "kilometers": 1000.0,
+    "feet": 0.3048,
+    "statute miles": 1609.347,
+    "nautical miles": 1852.0,
+}
+
+_WGS84_A = 6378137.0
+_WGS84_E2 = 0.00669437999014
+
+
+def distance_degrees(geom: Geometry, meters: float) -> float:
+    """Meters -> degrees: the widest eastward arc at the geometry's
+    envelope corners (GeometryUtils.distanceDegrees, GeometryUtils.scala:25-39)."""
+    env = geom.envelope
+    best = 0.0
+    for lat in (env.ymin, env.ymax):
+        phi = math.radians(lat)
+        # prime-vertical radius of curvature
+        n = _WGS84_A / math.sqrt(1 - _WGS84_E2 * math.sin(phi) ** 2)
+        circ = n * math.cos(phi)
+        if circ <= 0:
+            continue
+        best = max(best, math.degrees(meters / circ))
+    return best if best > 0 else math.degrees(meters / _WGS84_A)
+
+
+def dwithin_degrees(geom: Geometry, distance: float, units: str) -> float:
+    """DWithin distance -> planar degrees. ECQL units convert via
+    meters (an unknown unit counts as meters); 'degrees' passes through
+    (the Spark-SQL ST_DWithin semantics: CRS units)."""
+    if units == "degrees":
+        return float(distance)
+    return distance_degrees(geom,
+                            distance * METERS_MULTIPLIERS.get(units, 1.0))
 
 
 def to_millis(v) -> int:
@@ -292,13 +333,31 @@ def _extract_geoms(f: ast.Filter, attribute: str | None) -> FilterValues:
         if attribute is not None and f.prop != attribute:
             return FilterValues.empty()
         box = Envelope(f.xmin, f.ymin, f.xmax, f.ymax).to_polygon()
-        return FilterValues(_split_idl(box))
-    if isinstance(f, (ast.Intersects, ast.Within)):
+        return FilterValues([p for g in _split_idl(box) for p in _flatten(g)])
+    if isinstance(f, ast.DWithin):
+        if attribute is not None and f.prop != attribute:
+            return FilterValues.empty()
+        deg = dwithin_degrees(f.geom, f.distance, f.units)
+        buffered = f.geom.envelope.buffer(deg).to_polygon()
+        return FilterValues([p for g in _split_idl(buffered)
+                             for p in _flatten(g)])
+    if isinstance(f, (ast.Intersects, ast.Contains, ast.Within,
+                      ast.Overlaps, ast.Touches, ast.Crosses,
+                      ast.GeomEquals)):
         # DISJOINT constrains nothing the index can range over
         if attribute is not None and f.prop != attribute:
             return FilterValues.empty()
-        return FilterValues(_split_idl(f.geom))
+        return FilterValues([p for g in _split_idl(f.geom)
+                             for p in _flatten(g)])
     return FilterValues.empty()
+
+
+def _flatten(g: Geometry) -> list[Geometry]:
+    """A geometry collection's members, recursively; any other geometry
+    as itself."""
+    if isinstance(g, _Multi) and g.geom_type == "GeometryCollection":
+        return [s for p in g.parts for s in _flatten(p)]
+    return [g]
 
 
 # -- attribute bounds ------------------------------------------------------

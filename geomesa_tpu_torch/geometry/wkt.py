@@ -1,10 +1,8 @@
-"""WKT (Well-Known Text) parse/format for POINT, POLYGON and
-MULTIPOLYGON.
+"""WKT (Well-Known Text) parse/format for the geometry model.
 
-Point schemas need WKT for point feature values and for the polygon
-literal of INTERSECTS/WITHIN/DISJOINT. Line, multi-point and collection
-geometries belong to the extent-geometry slice of the port and raise
-NotImplementedError here.
+Replaces the reference's use of JTS WKTReader/WKTWriter
+(geomesa-utils/.../text/WKTUtils). Supports POINT, LINESTRING, POLYGON,
+MULTIPOINT, MULTILINESTRING, MULTIPOLYGON, GEOMETRYCOLLECTION and EMPTY.
 """
 
 from __future__ import annotations
@@ -13,7 +11,8 @@ import re
 
 import numpy as np
 
-from .base import Geometry, MultiPolygon, Point, Polygon
+from .base import (Geometry, GeometryCollection, LineString, MultiLineString,
+                   MultiPoint, MultiPolygon, Point, Polygon)
 
 __all__ = ["parse_wkt", "to_wkt"]
 
@@ -61,6 +60,7 @@ def _coords(sc: _Scanner) -> np.ndarray:
     while True:
         x = sc.number()
         y = sc.number()
+        # optional extra ordinates (z / m)
         while sc.peek() not in ",)":
             sc.number()
         pts.append((x, y))
@@ -100,11 +100,39 @@ def _parse_geom(sc: _Scanner) -> Geometry:
             return Point(np.nan, np.nan)
         c = _coords(sc)
         return Point(c[0, 0], c[0, 1])
+    if tag == "LINESTRING":
+        if _maybe_empty(sc):
+            return LineString(np.empty((0, 2)))
+        return LineString(_coords(sc))
     if tag == "POLYGON":
         if _maybe_empty(sc):
             return Polygon(np.empty((0, 2)))
         rings = _rings(sc)
         return Polygon(rings[0], rings[1:])
+    if tag == "MULTIPOINT":
+        if _maybe_empty(sc):
+            return MultiPoint([])
+        # both MULTIPOINT(1 2, 3 4) and MULTIPOINT((1 2), (3 4))
+        sc.expect("(")
+        pts = []
+        while True:
+            if sc.peek() == "(":
+                c = _coords(sc)
+                pts.append(Point(c[0, 0], c[0, 1]))
+            else:
+                x = sc.number()
+                y = sc.number()
+                pts.append(Point(x, y))
+            if sc.peek() == ",":
+                sc.expect(",")
+            else:
+                break
+        sc.expect(")")
+        return MultiPoint(pts)
+    if tag == "MULTILINESTRING":
+        if _maybe_empty(sc):
+            return MultiLineString([])
+        return MultiLineString([LineString(c) for c in _rings(sc)])
     if tag == "MULTIPOLYGON":
         if _maybe_empty(sc):
             return MultiPolygon([])
@@ -119,11 +147,16 @@ def _parse_geom(sc: _Scanner) -> Geometry:
                 break
         sc.expect(")")
         return MultiPolygon(polys)
-    if tag in ("LINESTRING", "MULTIPOINT", "MULTILINESTRING",
-               "GEOMETRYCOLLECTION"):
-        raise NotImplementedError(
-            f"WKT {tag} belongs to the extent-geometry slice of the "
-            f"PyTorch port (ROADMAP.md section 6)")
+    if tag == "GEOMETRYCOLLECTION":
+        if _maybe_empty(sc):
+            return GeometryCollection([])
+        sc.expect("(")
+        geoms = [_parse_geom(sc)]
+        while sc.peek() == ",":
+            sc.expect(",")
+            geoms.append(_parse_geom(sc))
+        sc.expect(")")
+        return GeometryCollection(geoms)
     raise ValueError(f"unknown WKT type: {tag}")
 
 
@@ -150,20 +183,39 @@ def _fmt_coords(c: np.ndarray) -> str:
 
 
 def to_wkt(g: Geometry) -> str:
+    t = g.geom_type
     if isinstance(g, Point):
         if g.is_empty:
             return "POINT EMPTY"
         return f"POINT ({_fmt(g.x)} {_fmt(g.y)})"
+    if isinstance(g, LineString):
+        if g.is_empty:
+            return "LINESTRING EMPTY"
+        return "LINESTRING " + _fmt_coords(g.coords)
     if isinstance(g, Polygon):
         if g.is_empty:
             return "POLYGON EMPTY"
         rings = ", ".join(_fmt_coords(r) for r in g.coords_list())
         return f"POLYGON ({rings})"
+    if isinstance(g, MultiPoint):
+        if g.is_empty:
+            return "MULTIPOINT EMPTY"
+        inner = ", ".join(f"({_fmt(p.x)} {_fmt(p.y)})" for p in g.parts)
+        return f"MULTIPOINT ({inner})"
+    if isinstance(g, MultiLineString):
+        if g.is_empty:
+            return "MULTILINESTRING EMPTY"
+        inner = ", ".join(_fmt_coords(p.coords) for p in g.parts)
+        return f"MULTILINESTRING ({inner})"
     if isinstance(g, MultiPolygon):
         if g.is_empty:
             return "MULTIPOLYGON EMPTY"
-        inner = ", ".join(
-            "(" + ", ".join(_fmt_coords(r) for r in p.coords_list()) + ")"
-            for p in g.parts)
+        inner = ", ".join("(" + ", ".join(_fmt_coords(r) for r in p.coords_list()) + ")"
+                          for p in g.parts)
         return f"MULTIPOLYGON ({inner})"
-    raise TypeError(f"cannot write WKT for {g.geom_type}")
+    if isinstance(g, GeometryCollection):
+        if g.is_empty:
+            return "GEOMETRYCOLLECTION EMPTY"
+        inner = ", ".join(to_wkt(p) for p in g.parts)
+        return f"GEOMETRYCOLLECTION ({inner})"
+    raise TypeError(f"cannot write WKT for {t}")

@@ -18,9 +18,10 @@ from .splitter import split_filter
 
 __all__ = ["decide_strategy", "heuristic_cost"]
 
-# index-priority costs (id < attr equality < attr range < z3 < z2 < scan)
-# when no stats are available
-_BASE_COST = {"empty": 0.0, "id": 1.0, "z3": 200.0, "z2": 400.0}
+# index-priority costs (id < attr equality < attr range < z3 < xz3 < z2
+# < xz2 < scan) when no stats are available
+_BASE_COST = {"empty": 0.0, "id": 1.0, "z3": 200.0, "xz3": 201.0,
+              "z2": 400.0, "xz2": 401.0}
 _ATTR_EQ_COST = 10.0
 _ATTR_RANGE_COST = 100.0
 # a full scan is a last resort, never a tie-winner

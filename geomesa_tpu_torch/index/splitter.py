@@ -1,11 +1,12 @@
 """FilterSplitter: decompose a filter into per-index strategy options.
 
 Mirrors the reference's FilterSplitter (index/planning/FilterSplitter.scala:25)
-for the indexes of a point schema:
+for each index of a schema:
 
-- z3:       spatial values on the default geometry AND bounded intervals
-            on the default date (Z3IndexKeySpace.scala:63-119)
-- z2:       spatial values on the default geometry (Z2IndexKeySpace)
+- z3/xz3:   spatial values on the default geometry AND bounded intervals
+            on the default date (Z3IndexKeySpace.scala:63-119; xz3 is the
+            extent schemas' counterpart)
+- z2/xz2:   spatial values on the default geometry (Z2IndexKeySpace)
 - attr:     bounds on an indexed attribute (AttributeIndex)
 - id:       a FidFilter (RecordIndex/IdIndex)
 - fullscan: anything (the in-memory fallback)
@@ -23,7 +24,7 @@ __all__ = ["split_filter", "spatial_part", "temporal_part"]
 
 
 def _is_spatial(f: ast.Filter, geom: str) -> bool:
-    return (isinstance(f, (ast.BBox, ast.SpatialPredicate))
+    return (isinstance(f, (ast.BBox, ast.DWithin, ast.SpatialPredicate))
             and f.prop == geom)
 
 
@@ -92,7 +93,7 @@ def split_filter(sft: SimpleFeatureType, f: ast.Filter,
     if isinstance(f, ast.Exclude):
         return [FilterStrategy("empty", None, None, cost=0)]
     for index in indices:
-        if index == "z3" and geom is not None and dtg is not None:
+        if index in ("z3", "xz3") and geom is not None and dtg is not None:
             geoms = extract_geometries(f, geom)
             intervals = extract_intervals(f, dtg)
             if geoms.disjoint or intervals.disjoint:
@@ -107,7 +108,7 @@ def split_filter(sft: SimpleFeatureType, f: ast.Filter,
                 primary = _and_opt(spatial, temporal)
                 if primary is not None:
                     options.append(FilterStrategy(index, primary, rest2))
-        elif index == "z2" and geom is not None:
+        elif index in ("z2", "xz2") and geom is not None:
             geoms = extract_geometries(f, geom)
             if geoms.disjoint:
                 return [FilterStrategy("empty", None, None, cost=0)]

@@ -25,8 +25,8 @@ from ..curves.sfc import z2sfc, z3sfc
 from ..curves.timebin import TimePeriod
 from ..utils.properties import HOST_RANGES_TARGET, SystemProperty
 
-__all__ = ["ZKeyIndex", "multi_arange", "search_rows",
-           "SCAN_BLOCK_THRESHOLD"]
+__all__ = ["ZKeyIndex", "multi_arange", "search_rows", "prune_candidates",
+           "binned_candidate_positions", "SCAN_BLOCK_THRESHOLD"]
 
 # candidate-fraction above which an indexed scan falls back to the dense
 # full-batch kernel (gather cost crossover)
@@ -54,13 +54,15 @@ def multi_arange(starts: np.ndarray, stops: np.ndarray) -> np.ndarray:
 
 def binned_candidate_positions(ubins, seg_offsets, keys_sorted,
                                intervals_ms, period, range_fn,
-                               max_rows: int | None) -> np.ndarray | None:
+                               max_rows: int | None,
+                               base_total: int = 0) -> np.ndarray | None:
     """Per-time-bin fan-out (Z3IndexKeySpace.getRanges:100-136): clamp
     intervals into the indexable range, union per-bin offset hulls, and
     binary-search each bin's covering ranges inside its sorted segment.
     Returns positions into the sorted order, an empty array when nothing
     matches, or None when the interval set is empty or the candidate
-    count exceeds ``max_rows``."""
+    count (plus ``base_total``) exceeds ``max_rows``. Used by the z3
+    point index and the xz3 extent index."""
     cap = timebin.max_date_millis(period) - 1
     by_bin: dict[int, list[int]] = {}
     for lo_ms, hi_ms in intervals_ms:
@@ -80,9 +82,11 @@ def binned_candidate_positions(ubins, seg_offsets, keys_sorted,
                 cur[1] = max(cur[1], hi)
     if not by_bin:
         return None
+    if max_rows is not None and base_total > max_rows:
+        return None
     range_cache: dict[tuple, np.ndarray] = {}
     pieces: list[np.ndarray] = []
-    total = 0
+    total = base_total
     for b in sorted(by_bin):
         i = int(np.searchsorted(ubins, b))
         if i >= len(ubins) or int(ubins[i]) != b:
@@ -120,6 +124,27 @@ def search_rows(zindex: "ZKeyIndex | None", index_name: str, boxes,
         return None, None
     return zindex.query_rows(index_name, boxes, intervals, host_cap,
                              block_cap)
+
+
+def prune_candidates(zindex, index_name: str, boxes, intervals,
+                     max_rows: int | None) -> np.ndarray | None:
+    """The pruning policy of the xz2/xz3 extent orders: the
+    spatio-temporal or spatial-only order for the strategy, no pruning
+    for an unconstrained (whole-world, no-time) query, and None (the
+    caller's dense path) when the candidates exceed ``max_rows``.
+    Returns candidate row indices or None."""
+    whole_world = list(boxes) == [_WHOLE_WORLD]
+    if zindex is None or (whole_world and not intervals):
+        return None
+    if index_name in ("z3", "xz3") and intervals:
+        fn = getattr(zindex, f"candidates_{index_name}", None)
+        return None if fn is None else fn(boxes, intervals,
+                                          max_rows=max_rows)
+    if not whole_world:
+        spatial = "xz2" if index_name.startswith("xz") else "z2"
+        fn = getattr(zindex, f"candidates_{spatial}", None)
+        return None if fn is None else fn(boxes, max_rows=max_rows)
+    return None
 
 
 class ZKeyIndex:

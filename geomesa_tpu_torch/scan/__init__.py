@@ -1,7 +1,8 @@
-"""Device scan of the point query slice: the two-float column layout
-(zscan.py), the hand-written scan kernels behind it (kernels.py,
-csrc/scan.cu, csrc/batch.cu) and the micro-batching admission queue in
-front of the store (batcher.py)."""
+"""Device scans: the two-float column layout of point schemas
+(zscan.py), the extent tristate and point-in-polygon (gscan.py), the
+attribute residual (residual.py), the aggregations (aggregations.py),
+the hand-written kernels behind them (kernels.py, csrc/*.cu) and the
+micro-batching admission queue in front of the store (batcher.py)."""
 
 from .kernels import launches, reset_launches
 from .zscan import (BatchedScanQuery, ScanData, ScanQuery, batch_hit_rows,

@@ -15,11 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..features.batch import PointColumn
 from ..utils.device import resolve_device
 from . import kernels
 
 __all__ = ["density_grid", "density_rows", "density_scalars",
-           "density_upload",
+           "density_upload", "geometry_centroids",
            "encode_bin_records", "encode_bin_batch", "decode_bin_records",
            "merge_sorted_bin_chunks", "sample_mask"]
 
@@ -127,16 +128,26 @@ def encode_bin_records(ids: np.ndarray, x: np.ndarray, y: np.ndarray,
     return rec.tobytes()
 
 
+def geometry_centroids(col):
+    """(x, y, valid) f64 of a geometry column: a point column's
+    coordinates, or an extent column's bounding-box centres (NaN for a
+    null row)."""
+    if isinstance(col, PointColumn):
+        return col.x, col.y, col.valid
+    b = col.bounds
+    return (b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3]) / 2, col.valid
+
+
 def encode_bin_batch(sft, ids: np.ndarray, batch,
                      track: str | None = None,
                      label: str | None = None,
                      sort: bool = False) -> bytes:
-    """BIN-encode one FeatureBatch of a point schema: the point
-    coordinates, dtg millis and track/label attribute values over
-    ``encode_bin_records``."""
+    """BIN-encode one FeatureBatch: the point coordinates (an extent
+    geometry's bounding-box centre, ``geometry_centroids``), dtg millis
+    and track/label attribute values over ``encode_bin_records``."""
     if batch is None or not batch.n:
         return b""
-    col = batch.col(sft.geom_field)
+    x, y, _ = geometry_centroids(batch.col(sft.geom_field))
     dtg = sft.dtg_field
     millis = (batch.col(dtg).millis if dtg
               else np.zeros(batch.n, dtype=np.int64))
@@ -150,7 +161,7 @@ def encode_bin_batch(sft, ids: np.ndarray, batch,
         lc = batch.col(label)
         labels = np.array([lc.value(i) for i in range(batch.n)],
                           dtype=object)
-    return encode_bin_records(np.asarray(ids), col.x, col.y, millis,
+    return encode_bin_records(np.asarray(ids), x, y, millis,
                               labels=labels, track_values=track_vals,
                               sort=sort)
 

@@ -1,9 +1,9 @@
 """The port's kernels: wrappers, launch counts and plain versions.
 
-Nine kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
-``csrc/batch.cu``, ``csrc/geom.cu``, ``csrc/residual.cu`` and
-``csrc/density.cu`` (see the notes at their heads for what they replace
-and what bounds them):
+Ten kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
+``csrc/batch.cu``, ``csrc/geom.cu``, ``csrc/residual.cu``,
+``csrc/density.cu`` and ``csrc/extent.cu`` (see the notes at their heads
+for what they replace and what bounds them):
 
 - ``scan_mask``: the dense tier, bool[cap] over every row;
 - ``scan_mask_gather``: the gathered tier, bool[m] over rows ``idx``
@@ -34,6 +34,10 @@ and what bounds them):
   shared memory (``scan/aggregations.py``); two
   loaders: the caller's arrays (``density_grid``), or a query result's
   row ids into the store's device columns (``density_grid_rows``).
+- ``extent_tristate``: per row of an extent schema, OUT (0), MAYBE (1)
+  or IN (2) of its outward-rounded f32 bounding box against the query's
+  outward- and inward-rounded boxes, and its (day, ms) against the
+  query's intervals, as int8[n] (``scan/gscan.py``).
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device; for ``residual_mask``, its columns). On
@@ -80,12 +84,13 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "density_grid", "density_grid_plain", "density_cells_plain",
            "density_grid_rows", "density_grid_rows_plain",
            "density_rows_gather", "density_weights_plain", "density_plan",
-           "DENSITY_PATHS", "prefix_plan", "PREFIX_TILE"]
+           "DENSITY_PATHS", "prefix_plan", "PREFIX_TILE", "extent_tristate",
+           "extent_tristate_plain"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
             for f in ("scan.cu", "batch.cu", "geom.cu", "residual.cu",
-                      "density.cu")]
+                      "density.cu", "extent.cu")]
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -108,7 +113,8 @@ PREFIX_TILE = 4096
 
 launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0,
             "scan_batch_bits": 0, "compact_prefix": 0, "compact_bits": 0,
-            "pip_mask": 0, "residual_mask": 0, "density_grid": 0}
+            "pip_mask": 0, "residual_mask": 0, "density_grid": 0,
+            "extent_tristate": 0}
 
 
 def reset_launches():
@@ -357,6 +363,8 @@ def _library() -> ctypes.CDLL:
                 p, i64, p, p, p, i32, p, p, p, f32, f32, f32, f32, i32, i32,
                 i32, p, p]
             lib.geomesa_density_plan.argtypes = [i32, i64, i32, i32, i32, p]
+            lib.geomesa_extent_tristate.argtypes = [p, p, p, i64, p, p, i32,
+                                                    p, i32, p, p]
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
                        lib.geomesa_compact_prefix, lib.geomesa_compact_bits,
@@ -364,7 +372,8 @@ def _library() -> ctypes.CDLL:
                        lib.geomesa_batch_max_group, lib.geomesa_pip_mask,
                        lib.geomesa_residual_mask, lib.geomesa_residual_codes,
                        lib.geomesa_density_grid, lib.geomesa_density_rows,
-                       lib.geomesa_density_plan, lib.geomesa_prefix_tile):
+                       lib.geomesa_density_plan, lib.geomesa_prefix_tile,
+                       lib.geomesa_extent_tristate):
                 fn.restype = ctypes.c_int
             if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
                     or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP
@@ -1244,3 +1253,110 @@ def density_plan(n: int, width: int, height: int, weight=None,
     _raise_on(rc, "density_plan")
     return {"path": DENSITY_PATHS[out[0]], "blocks": out[1],
             "flush_adds": out[2]}
+
+
+# -- extent tristate (csrc/extent.cu) ---------------------------------------
+
+# rows per chunk of the plain version: (chunk, K) intermediates stay near
+# 2^24 elements, whatever the number of boxes or intervals
+_TRISTATE_PLAIN_ELEMS = 1 << 24
+
+
+def _tristate_rows(bounds, valid, times, outer, inner, intervals):
+    """The states of one chunk of rows, in _tristate_body's steps."""
+    bxmin, bymin, bxmax, bymax = (bounds[:, c, None] for c in range(4))
+    ob = outer[None, :, :]
+    # overlap with the outward-rounded box: False means surely disjoint
+    overlap = ((bxmax >= ob[..., 0]) & (bxmin <= ob[..., 2])
+               & (bymax >= ob[..., 1]) & (bymin <= ob[..., 3]))
+    ib = inner[None, :, :]
+    # inside the inward-rounded box: True means surely inside
+    inside = ((bxmin >= ib[..., 0]) & (bxmax <= ib[..., 2])
+              & (bymin >= ib[..., 1]) & (bymax <= ib[..., 3]))
+    any_overlap = overlap.any(dim=1)
+    any_inside = inside.any(dim=1)
+    zero = torch.zeros((), dtype=torch.int8, device=bounds.device)
+    state = torch.where(any_inside, torch.full_like(zero, 2),
+                        torch.where(any_overlap, torch.ones_like(zero), zero))
+    state = torch.where(valid, state, zero)
+    if times is None or intervals.shape[0] == 0:
+        return state
+    tday, tms = times[:, 0, None], times[:, 1, None]
+    tx = intervals[None, :, :]
+    after = (tday > tx[..., 0]) | ((tday == tx[..., 0]) & (tms >= tx[..., 1]))
+    before = (tday < tx[..., 2]) | ((tday == tx[..., 2]) & (tms <= tx[..., 3]))
+    t_ok = (after & before).any(dim=1)
+    return torch.where(t_ok, state, zero)
+
+
+def extent_tristate_plain(bounds, valid, times, outer, inner, intervals):
+    """int8[n]: a port of gscan._tristate_body in torch ops, over chunks
+    of rows against every box and interval. The query's tables hold only
+    its real boxes and intervals (no padded slots, so no validity
+    masks); no interval, or no times (None), means no time test."""
+    n = bounds.shape[0]
+    width = max(outer.shape[0], intervals.shape[0], 1)
+    step = max(1, _TRISTATE_PLAIN_ELEMS // width)
+    out = torch.empty(n, dtype=torch.int8, device=bounds.device)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        out[lo:hi] = _tristate_rows(
+            bounds[lo:hi], valid[lo:hi],
+            None if times is None else times[lo:hi], outer, inner,
+            intervals)
+    return out
+
+
+def extent_tristate(bounds, valid, times, outer, inner, intervals):
+    """int8[n] on the rows' device, 0 OUT, 1 MAYBE, 2 IN: ``bounds`` (n,
+    4) f32 [xmin ymin xmax ymax] rounded outward, ``valid`` bool[n],
+    ``times`` (n, 2) int32 [day, ms] or None; the query's ``outer`` and
+    ``inner`` (K, 4) f32 boxes and its (B, 4) int32 ``intervals``
+    [day_lo ms_lo day_hi ms_hi], all on one device."""
+    if (bounds.dtype != torch.float32 or bounds.dim() != 2
+            or bounds.shape[1] != 4 or not bounds.is_contiguous()):
+        raise ValueError("bounds must be a contiguous (n, 4) float32 table")
+    n = bounds.shape[0]
+    if (valid.dtype != torch.bool or valid.shape != (n,)
+            or not valid.is_contiguous()):
+        raise ValueError(f"valid must be a contiguous bool[{n}]")
+    if times is not None and (times.dtype != torch.int32
+                              or times.shape != (n, 2)
+                              or not times.is_contiguous()):
+        raise ValueError(f"times must be a contiguous ({n}, 2) int32 table")
+    for name, t in (("outer", outer), ("inner", inner)):
+        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != 4
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (K, 4) float32 "
+                             f"table")
+    if outer.shape != inner.shape:
+        raise ValueError("outer and inner must hold the same boxes")
+    if (intervals.dtype != torch.int32 or intervals.dim() != 2
+            or intervals.shape[1] != 4 or not intervals.is_contiguous()):
+        raise ValueError("intervals must be a contiguous (B, 4) int32 table")
+    table_bytes = 16 * (2 * outer.shape[0] + intervals.shape[0])
+    if table_bytes > MAX_TABLE_BYTES:
+        raise ValueError(
+            f"{outer.shape[0]} boxes and {intervals.shape[0]} intervals take "
+            f"{table_bytes} bytes of shared memory; the kernel takes at "
+            f"most {MAX_TABLE_BYTES}")
+    cols = (bounds, valid) if times is None else (bounds, valid, times)
+    if _on_cpu(cols, outer, inner, intervals):
+        return extent_tristate_plain(bounds, valid, times, outer, inner,
+                                     intervals)
+    if bounds.data_ptr() % 16 or (times is not None and times.data_ptr() % 8):
+        raise ValueError("the kernel reads a row's bounds as one 16-byte "
+                         "vector and its times as one 8-byte vector: "
+                         "bounds must be 16-byte aligned, times 8-byte")
+    out = torch.empty(n, dtype=torch.int8, device=bounds.device)
+    if n == 0:
+        return out
+    rc = _library().geomesa_extent_tristate(
+        bounds.data_ptr(), valid.data_ptr(),
+        None if times is None else times.data_ptr(), n, outer.data_ptr(),
+        inner.data_ptr(), outer.shape[0], intervals.data_ptr(),
+        intervals.shape[0], out.data_ptr(),
+        torch.cuda.current_stream(bounds.device).cuda_stream)
+    _raise_on(rc, "extent_tristate")
+    launches["extent_tristate"] += 1
+    return out

@@ -36,11 +36,13 @@ import numpy as np
 import torch
 
 from ..features.batch import (BoolColumn, DateColumn, FeatureBatch,
-                              NumericColumn, PointColumn, StringColumn)
+                              GeometryColumn, NumericColumn, PointColumn,
+                              StringColumn)
 from ..filters import ast
 from ..filters.evaluate import COMPARE_OPS, evaluate
 from ..filters.helper import like_vocab_mask, to_millis
 from . import kernels
+from .aggregations import geometry_centroids
 from .kernels import Cmp, Op
 from .zscan import MILLIS_PER_DAY
 
@@ -92,8 +94,9 @@ class DeviceColumns:
     with ``kind`` and the kernel's slot ``(a, b, valid)``: split columns
     (hi, lo int32 / f32, valid bool), booleans (values, None, valid),
     strings (codes, None, None), points (x, y f32 rounded to nearest,
-    valid bool: the density kernel's coordinates); f64 entries keep the
-    host values for the band."""
+    valid bool: the density kernel's coordinates; an extent geometry's
+    bounding-box centre); f64 entries keep the host values for the
+    band."""
 
     def __init__(self, batch: FeatureBatch, device):
         self._batch = batch
@@ -125,11 +128,13 @@ class DeviceColumns:
                                             self._put(col.valid))}
         elif isinstance(col, StringColumn):
             dev = {"kind": "str", "slot": (self._put(col.codes), None, None)}
-        elif isinstance(col, PointColumn):
+        elif isinstance(col, (PointColumn, GeometryColumn)):
+            # an extent's point is its bounding-box centre
+            cx, cy, valid = geometry_centroids(col)
             with np.errstate(over="ignore"):
-                x, y = col.x.astype(np.float32), col.y.astype(np.float32)
+                x, y = cx.astype(np.float32), cy.astype(np.float32)
             dev = {"kind": "point", "slot": (self._put(x), self._put(y),
-                                             self._put(col.valid))}
+                                             self._put(valid))}
         else:
             raise TypeError(f"no device column for {type(col).__name__}")
         self._cache[name] = dev

@@ -1,17 +1,27 @@
-"""In-memory datastore of point schemas, with its scans on the GPU.
+"""In-memory datastore of point and extent schemas, with its scans on
+the GPU.
 
     write(batch, visibilities=None)
                  -> host columns (pending until the next read)
-    query(q)     -> plan (splitter + cost decider over z3, z2, id,
-                    attr:<name> and fullscan)
+    query(q)     -> plan (splitter + cost decider over z3, z2 (points) or
+                    xz3, xz2 (extents), id, attr:<name> and fullscan)
+                 -> xz3/xz2: the XZ-key index's candidates evaluated
+                    exactly on the host when there are at most
+                    geomesa.scan.extent.host.rows (50,000) of them; else
+                    the extent tristate kernel over every row, then the
+                    exact f64 predicate on its MAYBE rows (on every
+                    non-OUT row for a non-rectangular or relate/DWITHIN
+                    predicate)
                  -> z3/z2: one of three tiers:
                     host-exact   z-index candidates evaluated in f64
                     gathered     scan kernel over the index candidates
                     dense        scan kernel over every row
                     -> exact f64 boundary patch of the kernel tiers
-                    -> the exact geometry of a polygon predicate (the
-                       point-in-polygon kernel on every candidate set,
-                       then float64 on its band rows)
+                    -> the exact geometry of a spatial predicate (an
+                       INTERSECTS/WITHIN polygon: the point-in-polygon
+                       kernel on every candidate set, then float64 on
+                       its band rows; DWITHIN and the relate operators:
+                       float64 on the host)
                  -> id: the fid set; attr: the sorted attribute index, or
                     the residual kernel when its bounds are too wide;
                     fullscan: every row
@@ -33,8 +43,8 @@
                     assembly; the rest go through query()
     density(...) -> the query's rows (plan, scan, visibility), then only
                     their ids to the device: the density kernel reads the
-                    point and weight from the device columns, bins and
-                    sums them
+                    point (an extent's bounding-box centre) and weight
+                    from the device columns, bins and sums them
     bin_query(...)
                  -> the query, then the BIN records on the host
     stats_query(type_name, spec, ecql)
@@ -60,15 +70,21 @@ to the device; the planner costs each strategy from them. Unlike the
 JAX package, remove_schema drops the type's stats, so a re-created
 type is costed from its own rows only (ROADMAP.md section 3).
 
-The device columns (two-float coordinates, (day, ms) times) live on
-the store's device with power-of-two capacity; appends copy into that
-capacity in place and rebuild with fresh headroom only when it runs out.
+A point schema's device columns (two-float coordinates, (day, ms)
+times) live on the store's device with power-of-two capacity; appends
+copy into that capacity in place and rebuild with fresh headroom only
+when it runs out. An extent schema's device columns (outward-rounded f32
+bounding boxes, validity, (day, ms) times) and its XZ-key index rebuild
+on the first read after a write.
 
-The schemas have a default Point geometry and Integer, Long, Float,
-Double, Boolean, String, Date and Point attributes (``:index=true`` on
-any). The filters are the ECQL grammar of ``filters/ecql.py`` with
-polygon and multipolygon literals. What that leaves out raises
-NotImplementedError naming its later slice (ROADMAP.md section 6).
+The schemas have a default geometry (a Point, or any extent type:
+LineString, Polygon, their multi-part forms, GeometryCollection or the
+generic Geometry) and Integer, Long, Float, Double, Boolean, String,
+Date and geometry attributes (``:index=true`` on any). The filters are
+the ECQL grammar of ``filters/ecql.py`` against any geometry literal.
+A schema without a geometry raises NotImplementedError naming its later
+slice; the index versions and reindex are not ported yet (ROADMAP.md
+section 6).
 """
 
 from __future__ import annotations
@@ -82,8 +98,8 @@ from typing import Any, Iterator
 import numpy as np
 
 from ..analytics.st_functions import contains_points
-from ..features.batch import (COLUMN_TYPES, FeatureBatch, PointColumn,
-                              StringColumn)
+from ..features.batch import (COLUMN_TYPES, FeatureBatch, GeometryColumn,
+                              PointColumn, StringColumn)
 from ..features.sft import SimpleFeatureType, parse_spec
 from ..filters import ast
 from ..filters.ecql import parse_ecql
@@ -95,7 +111,9 @@ from ..index.api import Explainer, FilterStrategy, Query, QueryHints
 from ..index.attr import AttributeKeyIndex
 from ..index.planner import decide_strategy
 from ..index.splitter import spatial_part
-from ..index.zkeys import SCAN_BLOCK_THRESHOLD, ZKeyIndex, search_rows
+from ..index.xzkeys import XZKeyIndex
+from ..index.zkeys import (SCAN_BLOCK_THRESHOLD, ZKeyIndex, prune_candidates,
+                           search_rows)
 from ..scan import gscan, residual, zscan
 from ..scan.aggregations import density_rows, encode_bin_batch, sample_mask
 from ..security import (evaluate_visibilities, parse_visibility,
@@ -113,6 +131,12 @@ __all__ = ["InMemoryDataStore", "QueryResult"]
 # the host in f64 instead of a device round trip; larger candidate sets
 # ride the device kernels
 HOST_SCAN_ROWS = SystemProperty("geomesa.scan.host.rows", "2000000")
+
+# the extent pruned path re-checks candidates with per-geometry exact
+# predicates (a Python loop, not the vectorized point math), so its
+# crossover to the dense device tristate sits much lower
+EXTENT_HOST_SCAN_ROWS = SystemProperty("geomesa.scan.extent.host.rows",
+                                       "50000")
 
 _WHOLE_WORLD = (-180.0, -90.0, 180.0, 90.0)
 
@@ -262,6 +286,12 @@ def _null_cells(col, bad: np.ndarray):
         codes = col.codes.copy()
         codes[bad] = -1
         return StringColumn(col.name, codes, col.vocab)
+    if isinstance(col, GeometryColumn):
+        bounds = col.bounds.copy()
+        bounds[bad] = np.nan
+        return GeometryColumn(
+            col.name, [None if b else g for g, b in zip(col.geoms, bad)],
+            bounds)
     return dataclasses.replace(col, valid=np.asarray(col.valid) & ~bad)
 
 
@@ -273,8 +303,10 @@ class _TypeState:
     device columns in place (within capacity) and merges it into the
     z-key sort orders instead of rebuilding them. The attribute indexes
     and the residual's device columns are built on first use and dropped
-    on every flush. A delete drops every device and index structure;
-    the next read rebuilds them from the kept rows."""
+    on every flush. An extent schema's tristate columns and XZ-key
+    index rebuild on the first read after a flush. A delete drops every
+    device and index structure; the next read rebuilds them from the
+    kept rows."""
 
     def __init__(self, sft: SimpleFeatureType, device):
         self.sft = sft
@@ -284,7 +316,9 @@ class _TypeState:
         self._pending: list[tuple[FeatureBatch, np.ndarray | None]] = []
         self._pending_n = 0
         self.scan_data: zscan.ScanData | None = None
-        self.zindex: ZKeyIndex | None = None
+        # an extent schema's tristate columns
+        self.extent_data: gscan.ExtentScanData | None = None
+        self.zindex: ZKeyIndex | XZKeyIndex | None = None
         # hi parts of the coordinates on the host, for the boundary patch
         self.host_xhi: np.ndarray | None = None
         self.host_yhi: np.ndarray | None = None
@@ -401,7 +435,7 @@ class _TypeState:
         self._batch = self._batch.take(np.flatnonzero(keep))
         if self._vis is not None:
             self._vis = self._vis[keep]
-        self.scan_data = None
+        self.scan_data = self.extent_data = None
         self.zindex = None
         self.host_xhi = self.host_yhi = None
         self.attr_idx.clear()
@@ -409,12 +443,21 @@ class _TypeState:
         self.dirty = True
 
     def ensure_index(self):
-        """(Re)build the device columns and the z-key index if writes
-        happened since the last build."""
+        """(Re)build the device columns and the z-key (or XZ-key) index
+        if writes happened since the last build."""
         self.flush()
-        if not self.dirty and self.scan_data is not None:
+        if not self.dirty and (self.scan_data is not None
+                               or self.extent_data is not None):
             return
         col = self._batch.col(self.sft.geom_field)
+        if isinstance(col, GeometryColumn):
+            millis = (self._batch.col(self.sft.dtg_field).millis
+                      if self.sft.dtg_field is not None else None)
+            self.extent_data = gscan.build_extent_data(col.bounds, millis,
+                                                       self.device)
+            self.zindex = XZKeyIndex(col.bounds, millis, self.sft.z3_interval)
+            self.dirty = False
+            return
         millis = self._millis(self._batch)
         xhi, xlo = zscan.split_two_float(col.x)
         yhi, ylo = zscan.split_two_float(col.y)
@@ -485,14 +528,13 @@ class InMemoryDataStore(DataStore):
             sft = parse_spec(sft, spec or "")
         if sft.type_name in self._types:
             raise ValueError(f"schema {sft.type_name!r} already exists")
-        if not sft.is_points:
-            raise _later("a schema without a default Point geometry",
-                         "extent-geometry (XZ) schemas")
+        if sft.geom_field is None:
+            raise _later("a schema without a geometry", "geometry-less "
+                         "schema")
         for a in sft.attributes:
             if a.type.name not in COLUMN_TYPES:
                 raise _later(f"a {a.type} attribute ({a.name!r})",
-                             "extent-geometry (XZ) schemas"
-                             if a.is_geometry else "collection-type")
+                             "collection-type")
         self._types[sft.type_name] = _TypeState(sft, self.device)
         # an estimator from creation on: a type with no rows estimates 0
         self.stats.ensure(sft)
@@ -633,7 +675,6 @@ class InMemoryDataStore(DataStore):
         in the batched scan: a z3/z2 strategy with no secondary filter
         and no exact geometry predicate (a rectangular INTERSECTS or
         WITHIN goes through query(), as in the reference); else None."""
-        _check_filter(q.filter)
         explain = Explainer(explain_out)
         explain.push(lambda: f"Batched '{q.type_name}' filter={q.filter}")
         strategy = decide_strategy(st.sft, q, _indices(st.sft), st.n,
@@ -687,7 +728,6 @@ class InMemoryDataStore(DataStore):
         sampling. (idx, strategy, attr_mask): attr_mask is the rows'
         attribute authorization matrix on an attribute-level schema with
         labels, else None."""
-        _check_filter(q.filter)
         if st.n == 0:
             explain("Store is empty")
             return (np.empty(0, dtype=np.int64),
@@ -921,6 +961,9 @@ class InMemoryDataStore(DataStore):
         if strategy.index in ("z3", "z2"):
             st.ensure_index()
             idx = self._device_scan(st, strategy, explain)
+        elif strategy.index in ("xz3", "xz2"):
+            st.ensure_index()
+            idx = self._device_extent_scan(st, strategy, explain)
         elif strategy.index == "id":
             idx = np.flatnonzero(np.isin(
                 st.batch.ids.astype(str),
@@ -1024,6 +1067,56 @@ class InMemoryDataStore(DataStore):
             explain("Exact geometry predicate applied")
         return idx
 
+    def _device_extent_scan(self, st: _TypeState, strategy: FilterStrategy,
+                            explain: Explainer) -> np.ndarray:
+        """The XZ-index scan of an extent schema: XZ-key candidates
+        evaluated exactly on the host when few; else the extent tristate
+        kernel over every row (definitely in, definitely out, or the
+        boundary band) and the exact host predicate on the band only, or
+        on every non-OUT row when the predicate is not the envelope's
+        (the reference's XZ ranges plus its per-candidate JTS filter,
+        curve/XZ2SFC.scala:146-252). Returns sorted row indices."""
+        primary = (strategy.primary if strategy.primary is not None
+                   else ast.Include())
+        geom = st.sft.geom_field
+        geoms = extract_geometries(primary, geom)
+        boxes = [g.envelope.as_tuple() for g in geoms] or [_WHOLE_WORLD]
+        intervals = (_intervals_ms(primary, st.sft.dtg_field)
+                     if st.sft.dtg_field is not None
+                     and strategy.index == "xz3" else [])
+        max_rows = min(int(float(SCAN_BLOCK_THRESHOLD.get()) * st.n),
+                       int(EXTENT_HOST_SCAN_ROWS.get()))
+        rows = prune_candidates(st.zindex, strategy.index, boxes, intervals,
+                                max_rows)
+        if rows is not None:
+            explain(f"XZ-pruned host scan: {len(rows)} candidate row(s) "
+                    f"of {st.n}")
+            if not len(rows):
+                return rows
+            return np.sort(rows[evaluate(primary, st.batch.take(rows))])
+
+        # the states' copy to the host is the sync point
+        state = gscan.extent_tristate(
+            st.extent_data, gscan.extent_query(boxes, intervals)).cpu().numpy()
+        explain(f"Device extent scan: {len(boxes)} box(es), "
+                f"{len(intervals)} interval(s), n={st.n}")
+        needs_exact = _needs_exact(geoms, primary)
+        spatial_f, _ = spatial_part(primary, geom)
+        if spatial_f is None:
+            # no spatial constraint (a time-only query on xz3): every
+            # non-OUT row matches
+            return np.flatnonzero(state >= gscan.MAYBE)
+        # an envelope's IN rows surely match; otherwise IN only proves
+        # that the boxes meet, and every non-OUT row needs the predicate
+        mask = (np.zeros(st.n, dtype=bool) if needs_exact
+                else state == gscan.IN)
+        check = np.flatnonzero(state >= gscan.MAYBE if needs_exact
+                               else state == gscan.MAYBE)
+        if len(check):
+            mask[check[evaluate(spatial_f, st.batch.take(check))]] = True
+            explain(f"Exact predicate on {len(check)} candidate(s)")
+        return np.flatnonzero(mask)
+
     def _pip_residual(self, st: _TypeState, spatial_f, col: PointColumn,
                       candidates: np.ndarray, explain: Explainer):
         """The point-in-polygon kernel for the exact residual of a single
@@ -1116,9 +1209,16 @@ def _scan_inputs(sft: SimpleFeatureType, strategy: FilterStrategy):
     intervals = (_intervals_ms(primary, sft.dtg_field)
                  if sft.dtg_field is not None and strategy.index == "z3"
                  else [])
-    needs_exact = any(not is_box(g) for g in geoms) or any(
-        isinstance(c, ast.SpatialPredicate) for c in ast.walk(primary))
-    return boxes, intervals, needs_exact
+    return boxes, intervals, _needs_exact(geoms, primary)
+
+
+def _needs_exact(geoms, primary: ast.Filter) -> bool:
+    """Whether the envelope test is not the whole predicate: a query
+    geometry that is not a rectangle, or a DWITHIN or spatial predicate
+    (INTERSECTS, WITHIN, the relate operators) in the filter."""
+    return any(not is_box(g) for g in geoms) or any(
+        isinstance(c, (ast.DWithin, ast.SpatialPredicate))
+        for c in ast.walk(primary))
 
 
 def _as_filter(ecql) -> ast.Filter:
@@ -1131,9 +1231,11 @@ def _as_filter(ecql) -> ast.Filter:
 
 
 def _indices(sft: SimpleFeatureType) -> list[str]:
-    """The indexes a point schema has: z3 (with a default date), z2, id,
-    and one attr:<name> per indexed attribute."""
-    out = (["z3"] if sft.dtg_field is not None else []) + ["z2", "id"]
+    """The indexes a schema has: z3 (with a default date) and z2 for a
+    point schema, xz3 and xz2 for an extent schema; id; and one
+    attr:<name> per indexed attribute."""
+    z = "z" if sft.is_points else "xz"
+    out = ([f"{z}3"] if sft.dtg_field is not None else []) + [f"{z}2", "id"]
     return out + [f"attr:{a.name}" for a in sft.attributes if a.indexed]
 
 
@@ -1153,15 +1255,3 @@ def _intervals_ms(primary: ast.Filter, dtg: str,
             hi -= 1
         out.append((lo, hi))
     return out
-
-
-def _check_filter(f: ast.Filter):
-    """Raise NotImplementedError for what the port does not run yet: a
-    spatial predicate against another literal than a polygon or
-    multipolygon (the parser already refuses DWITHIN and the relate
-    operators)."""
-    for c in ast.walk(f):
-        if (isinstance(c, ast.SpatialPredicate)
-                and not isinstance(c.geom, (Polygon, MultiPolygon))):
-            raise _later(f"{c.op_name} against a {c.geom.geom_type}",
-                         "extent-geometry")

@@ -293,9 +293,21 @@ def test_vectors_and_features():
     assert v.unload().num_rows == 0
     with pytest.raises(ValueError):
         v.reader("val")
-    with pytest.raises(NotImplementedError, match="slice"):
-        SimpleFeatureVector.create(parse_spec(
-            "x", "g:Polygon,*geom:Point"), capacity=4)
+    # a Polygon attribute (refused before the extent slice) is a WKB
+    # vector, byte for byte the reference's, and reads back as written
+    from geomesa_tpu.geometry import parse_wkt as jparse_wkt
+    from geomesa_tpu_torch.geometry import parse_wkt
+    wkt = "POLYGON ((0 0, 4 0, 4 3, 0 0), (1 0.5, 2 0.5, 2 1, 1 0.5))"
+    pv = SimpleFeatureVector.create(parse_spec(
+        "x", "g:Polygon,*geom:Point"), capacity=4)
+    jpv = JVector.create(jparse_spec("x", "g:Polygon,*geom:Point"),
+                         capacity=4)
+    pv.set(0, "p0", {"g": parse_wkt(wkt), "geom": Point(1, 2)})
+    jpv.set(0, "p0", {"g": jparse_wkt(wkt), "geom": (1.0, 2.0)})
+    prb, jprb = pv.unload(), jpv.unload()
+    assert prb.column("g").equals(jprb.column("g"))
+    back = SimpleFeatureVector.wrap(pv.sft, prb).reader("g").apply(0)
+    assert repr(back) == repr(jparse_wkt(wkt))
 
 
 def test_arrow_data_store(tmp_path):

@@ -472,7 +472,10 @@ def test_store_batched_max_features(stores):
 
 
 def test_store_batched_out_of_slice_raises(stores):
+    """A query outside the port (a TIMEOUT hint: the serving slice)
+    raises through query_batched too."""
     port, _ = stores
     with pytest.raises(NotImplementedError):
         port.query_batched([Query("pts", STORE_QUERIES[0]),
-                            Query("pts", "INTERSECTS(geom, POINT(1 2))")])
+                            Query("pts", STORE_QUERIES[0],
+                                  hints={"TIMEOUT": 1000})])

@@ -332,8 +332,9 @@ class TestErrorIsolation:
         _fill(ds, "ships")
         b = QueryBatcher(ds, max_batch=2, linger_us=1_000_000,
                          adaptive=False)
-        # outside the port (a point literal): raises
-        bad = Query("ships", "INTERSECTS(geom, POINT(1 2))")
+        # outside the port (a TIMEOUT hint, the serving slice): raises
+        bad = Query("ships", "BBOX(geom, 0, 0, 1, 1)",
+                    hints={"TIMEOUT": 1000})
         ds.hold = threading.Event()
         warm = threading.Thread(target=b.query, args=(_gated("ships"),))
         warm.start()

@@ -31,7 +31,13 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.metrics, geomesa_tpu_torch.security, "
             "geomesa_tpu_torch.scan.aggregations, "
             "geomesa_tpu_torch.store.common, geomesa_tpu_torch.stats, "
-            "geomesa_tpu_torch.arrow, geomesa_tpu_torch.arrow.delta\n"
+            "geomesa_tpu_torch.arrow, geomesa_tpu_torch.arrow.delta, "
+            "geomesa_tpu_torch.geometry.relate, "
+            "geomesa_tpu_torch.geometry.wkb, "
+            "geomesa_tpu_torch.geometry.geojson, "
+            "geomesa_tpu_torch.analytics.st_functions, "
+            "geomesa_tpu_torch.curves.xz, geomesa_tpu_torch.index.xzkeys, "
+            "geomesa_tpu_torch.scan.gscan\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -65,7 +71,8 @@ def test_no_source_imports_jax_or_reference():
             "store/common.py", "stats/sketches.py", "stats/estimator.py",
             "stats/serialize.py", "arrow/vector.py", "arrow/io.py",
             "arrow/delta.py", "arrow/scan.py", "arrow/data.py",
-            "arrow/feature.py"} <= seen
+            "arrow/feature.py", "geometry/relate.py", "geometry/wkb.py",
+            "geometry/geojson.py", "curves/xz.py", "index/xzkeys.py"} <= seen
 
 
 def test_store_defaults_to_cuda(monkeypatch):
@@ -180,7 +187,8 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                  "scan_count_plain", "scan_batch_bits_plain",
                  "compact_bits_plain", "compact_prefix_plain", "_predicate",
                  "_candidates", "pip_mask_plain", "residual_mask_plain",
-                 "density_grid_plain", "density_cells_plain"):
+                 "density_grid_plain", "density_cells_plain",
+                 "extent_tristate_plain", "_tristate_rows"):
         monkeypatch.setattr(kernels, name, refuse)
     x, y, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -197,11 +205,14 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                          residual.DeviceColumns(batch, cuda))
     aggregations.density_grid(x, y, np.ones(len(x), bool), (-90, -45, 90, 45),
                               64, 32, device=cuda)
+    eb, ems = extent_cases(1000)
+    gscan.extent_tristate(gscan.build_extent_data(eb, ems, cuda),
+                          gscan.extent_query(*EXTENT_QUERIES[0]))
     assert kernels.launches == {"scan_mask": 1, "scan_mask_gather": 1,
                                 "scan_count": 1, "scan_batch_bits": 1,
                                 "compact_prefix": 1, "compact_bits": 1,
                                 "pip_mask": 1, "residual_mask": 1,
-                                "density_grid": 1}
+                                "density_grid": 1, "extent_tristate": 1}
 
 
 @pytest.mark.gpu
@@ -1235,3 +1246,119 @@ def test_store_stats_and_arrow_on_cuda_match_cpu(cuda):
     for e in ecqls:
         assert stores[0].arrow_ipc("t", e, sort_by="age") == \
             stores[1].arrow_ipc("t", e, sort_by="age")
+
+
+# -- the extent tristate (csrc/extent.cu) ------------------------------------
+
+def extent_cases(n, seed=0):
+    """(bounds f64 (n, 4), millis) with the tristate's edge cases: NaN
+    (null) rows, boxes on and across the queries' f64 edges (which have
+    no exact f32), boxes thinner than an f32 ulp, pre-1970 millis and
+    millis on day boundaries."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-20, 20, (n, 2))
+    half = 10.0 ** rng.uniform(-7, 0.5, (n, 2))
+    b = np.concatenate([c - half, c + half], axis=1)
+    edges = np.array([0.1, 1 / 3, -2.7, 5.000000001, -7.3])
+    k = rng.integers(0, len(edges), (n, 4))
+    on = rng.random((n, 4)) < 0.15
+    b = np.where(on, edges[k], b)
+    b[:, [0, 2]] = np.sort(b[:, [0, 2]], axis=1)
+    b[:, [1, 3]] = np.sort(b[:, [1, 3]], axis=1)
+    b[rng.random(n) < 0.05] = np.nan
+    ms = rng.integers(-40 * MS_DAY, 40 * MS_DAY, n)
+    ms[rng.random(n) < 0.1] = rng.integers(-40, 40, n)[:1] * MS_DAY
+    ms[rng.random(n) < 0.05] = -1
+    return b, ms
+
+
+# (boxes, intervals): single boxes on the data's edges, an inverted inner
+# box (thinner than an f32 ulp), 64 boxes, 16 intervals, day-boundary
+# intervals, the whole world with intervals, no boxes
+EXTENT_QUERIES = [
+    ([(0.1, 1 / 3, 5.000000001, 7.3)], [(-3 * MS_DAY, 5 * MS_DAY - 1)]),
+    ([(-2.7, -7.3, 0.1, 1 / 3)], []),
+    ([(0.1, 0.1, 0.1 + 1e-9, 0.1 + 1e-9)], [(-MS_DAY, -1)]),
+    ([(x, y, x + 3.3, y + 2.1) for x in np.linspace(-20, 16, 8)
+      for y in np.linspace(-20, 16, 8)],
+     [(d * 5 * MS_DAY, d * 5 * MS_DAY + 2 * MS_DAY) for d in range(-8, 8)]),
+    ([(-180.0, -90.0, 180.0, 90.0)], [(0, 0), (-40 * MS_DAY, -39 * MS_DAY)]),
+    ([], [(0, 10 * MS_DAY)]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_times", [True, False])
+@pytest.mark.parametrize("n", [1, 255, 257, 100_003])
+def test_extent_tristate_matches_plain(cuda, n, with_times):
+    """The kernel equals its plain version (torch.equal) on the edge
+    cases, at row counts that are not a multiple of the block."""
+    b, ms = extent_cases(n, seed=n)
+    data = gscan.build_extent_data(b, ms if with_times else None, cuda)
+    kernels.reset_launches()
+    for boxes, intervals in EXTENT_QUERIES:
+        o, i, t = gscan.extent_query(boxes, intervals).tables(cuda)
+        got = kernels.extent_tristate(data.bounds, data.valid, data.times,
+                                      o, i, t)
+        want = kernels.extent_tristate_plain(data.bounds, data.valid,
+                                             data.times, o, i, t)
+        assert torch.equal(got, want), (boxes[:1], intervals[:1])
+    assert kernels.launches["extent_tristate"] == len(EXTENT_QUERIES)
+
+
+@pytest.mark.gpu
+def test_extent_tristate_raises_on_cuda(cuda):
+    """On CUDA tensors the wrapper launches or raises: a misaligned
+    column, or query tables on another device, raise."""
+    b, ms = extent_cases(64)
+    data = gscan.build_extent_data(b, ms, cuda)
+    o, i, t = gscan.extent_query(*EXTENT_QUERIES[0]).tables(cuda)
+    flat = torch.zeros(4 * 65, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.extent_tristate(flat[1:257].view(64, 4), data.valid,
+                                data.times, o, i, t)
+    words = torch.zeros(2 * 65, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.extent_tristate(data.bounds, data.valid,
+                                words[1:129].view(64, 2), o, i, t)
+    with pytest.raises(ValueError, match="devices"):
+        kernels.extent_tristate(data.bounds, data.valid, data.times,
+                                o.cpu(), i.cpu(), t.cpu())
+
+
+@pytest.mark.gpu
+def test_extent_store_on_cuda_matches_cpu(cuda, monkeypatch):
+    """An extent store answers through the tristate kernel on the card,
+    id for id with the same store on the CPU."""
+    from geomesa_tpu_torch.geometry import LineString, Polygon
+    monkeypatch.setenv("GEOMESA_SCAN_EXTENT_HOST_ROWS", "0")
+    rng = np.random.default_rng(5)
+    n = 20_000
+    c = rng.uniform(-10, 10, (n, 2))
+    w = rng.uniform(0.001, 0.2, (n, 1))
+    geoms = [Polygon([p - w[j], (p[0] + w[j, 0], p[1] - w[j, 0]), p + w[j],
+                      (p[0] - w[j, 0], p[1] + w[j, 0]), p - w[j]])
+             if j % 3 else LineString([p, p + w[j] * (1, 2), p + w[j] * 3])
+             for j, p in enumerate(c)]
+    geoms[7] = None
+    ms = rng.integers(0, 60 * MS_DAY, n)
+    stores = [InMemoryDataStore(), InMemoryDataStore(device="cpu")]
+    for s in stores:
+        s.create_schema("t", "name:String,dtg:Date,*geom:Geometry:srid=4326")
+        s.write("t", FeatureBatch.from_dict(
+            s.get_schema("t"), [f"g{j}" for j in range(n)],
+            {"name": ["a"] * n, "dtg": ms.astype("datetime64[ms]"),
+             "geom": geoms}))
+    qs = ["BBOX(geom, -2, -2, 3.1, 3.3)",
+          "BBOX(geom, -2, -2, 3, 3) AND dtg DURING "
+          "1970-01-10T00:00:00Z/1970-02-01T00:00:00Z",
+          "INTERSECTS(geom, POLYGON((-5 -5, 5 -4, 6 6, -4 5, -5 -5)))",
+          "DWITHIN(geom, POINT(1 1), 50, kilometers)",
+          "CROSSES(geom, LINESTRING(-10 0.5, 10 0.7))",
+          "dtg DURING 1970-01-10T00:00:00Z/1970-01-20T00:00:00Z"]
+    kernels.reset_launches()
+    for q in qs:
+        got, want = stores[0].query(q, "t"), stores[1].query(q, "t")
+        assert got.plan.index == want.plan.index, q
+        assert list(got.ids) == list(want.ids), q
+    assert kernels.launches["extent_tristate"] == len(qs)
