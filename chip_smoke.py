@@ -6,9 +6,10 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. build   the CUDA kernels from geomesa_tpu_torch/csrc/scan.cu,
-           csrc/batch.cu, csrc/geom.cu, csrc/residual.cu, csrc/density.cu
-           and csrc/extent.cu (one nvcc per source, started together,
-           then one link; sm_90a), with the card's name and power limit.
+           csrc/batch.cu, csrc/geom.cu, csrc/residual.cu, csrc/density.cu,
+           csrc/extent.cu and csrc/join.cu (one nvcc per source, started
+           together, then one link; sm_90a), with the card's name and
+           power limit.
 2. kernels each hand kernel against its plain PyTorch version on the
            same device tensors: 100M rows from --seed, in a capacity
            of 2^27 (so rows n..cap are capacity padding), the four
@@ -67,7 +68,38 @@ Phases, one JSON line each; any failure exits non-zero:
            the result ids, and a cProfile of the call (host clock); and
            the batched kernels timed at this phase's own shape beside
            their bounds (``kernels_32``).
-5. predicates  exact polygon and attribute predicates: the earlier
+5. analytics  BASELINE.md's joins at their shapes, on the store phase's
+           10M rows before they are freed: a DWithin of 1,000 query
+           points (r = 0.25) through proximity_process (counts, ids) and
+           dwithin_join on the store's resident columns (counts, pairs),
+           held to a float64 brute force (a host argsort of x, a
+           searchsorted slab of +-r, the exact distance); KNN, k = 100,
+           of bench.py's 8 points over 50M points in a 2^26-row f32
+           buffer through knn_batched (an argpartition + (d2, id) lexsort
+           oracle per point), and on the store through knn_process (the
+           z-ring host tier and the kernel) and QueryBatcher.knn from 32
+           threads x 8 points, through the default batcher and one with
+           a static 200 ms linger (each answer against a float64 stable
+           sort on the card), with each batcher's queries/s and coalesce
+           ratio; every dispatch of more than one query must launch
+           knn_topk (counted from that batcher's run alone), and the
+           static batcher must make at least one such dispatch; a
+           Contains of 100M points (2^27 rows) against bench.py's 10,000
+           config-5 rectangles and 32 star polygons with holes
+           (contains_join counts; the counts of 256 sampled polygons,
+           every star among them, against a float64 brute force, and
+           the pairs path on 100 of them). Launch counts are zeroed
+           before the store's calls and the Contains calls and read after
+           each; every join kernel must have launched. Every recorded
+           call of a join kernel is held to its plain version
+           (torch.equal), and each kernel is timed alone at its main
+           call's shape (1,000 queries x 10M rows; their slabs; 8
+           queries x 50M rows; 10,032 polygons x 100M rows, the counts
+           pass, and the rows pass apart) beside its plain version once
+           and its bound, the larger of bytes (inputs read once, the
+           slabs' union) and f32 operations (67 TFLOP/s); each call's p50
+           of 3 host-clock runs.
+6. predicates  exact polygon and attribute predicates: the earlier
            stores freed, a store of --store-rows rows shaped like a GDELT
            1.0 event record (EventCode:String:index=true with 320
            CAMEO-like codes, Zipf-skewed; Actor1CountryCode:String, 250
@@ -99,7 +131,7 @@ Phases, one JSON line each; any failure exits non-zero:
            prepared launch found) and cold (wrapper_cold_ms, prepared
            anew each call, as on a new filter or after a flush), beside
            the prepared launch on an idle card (kernel_bare_ms).
-6. stats   stats and Arrow on the predicates phase's store, before the
+7. stats   stats and Arrow on the predicates phase's store, before the
            surface phase frees it (host code; the filtered queries run
            the store's scans, so launch counts are zeroed before it, read
            after, and scan_mask must have launched): the write-side
@@ -119,7 +151,7 @@ Phases, one JSON line each; any failure exits non-zero:
            tile (read back through FeatureArrowFileReader, value for
            value) and of the world filter (its ids read back through
            pyarrow), after one untimed call.
-7. surface the query surface and the pushdowns on the predicates
+8. surface the query surface and the pushdowns on the predicates
            phase's store, before it is freed. Launch counts are zeroed,
            then density() draws four grids (a 256x256 tile over a BBOX
            and 30 days; the world at 2048x1024 over 73 days weighted by
@@ -153,7 +185,7 @@ Phases, one JSON line each; any failure exits non-zero:
            rows, and analyze() must count n - 1,000 rows (the stats stay
            at n until then); then remove_schema, with
            torch.cuda.memory_allocated falling.
-8. extent  an extent (XZ) store shaped like a city's footprint and
+9. extent  an extent (XZ) store shaped like a city's footprint and
            street layers (NYC Open Data's building footprints, about
            1.08M polygons, and street centerlines, about 120k segments):
            the earlier stores freed, 1M rotated rectangles 8-60 m a side
@@ -559,7 +591,7 @@ def phase_kernels(seed: int, rows: int) -> dict:
     m = idx.shape[0]
     flush = _l2_flush(dev)
     stats = {k: {"max_abs_err": 0, "per_query": []} for k in SOURCES
-             if k not in PRED_KERNELS + SURFACE_KERNELS}
+             if k not in PRED_KERNELS + SURFACE_KERNELS + JOIN_KERNELS}
     for qi, (boxes, intervals) in enumerate(KERNEL_QUERIES):
         q = zscan.make_query(boxes, intervals)
         b, t = q.tables(dev)
@@ -648,9 +680,9 @@ def phase_store(seed: int, rows: int, gather_stats: dict):
     write_s, appends = [], []
     for lo, hi in zip(cuts[:-1], cuts[1:]):
         t0 = time.perf_counter()
+        col = st.scan_data.xhi if st.scan_data is not None else None
         ds.write_dict("ais", ids[lo:hi], {"dtg": ms[lo:hi],
                                           "geom": (x[lo:hi], y[lo:hi])})
-        col = st.scan_data.xhi if st.scan_data is not None else None
         ds.query(STORE_QUERIES[0][0], "ais")   # flush + index
         write_s.append(time.perf_counter() - t0)
         appends.append("in_place" if st.scan_data.xhi is col else "build")
@@ -2593,6 +2625,598 @@ def phase_extent(seed: int) -> tuple[dict, int]:
     return checks, launches
 
 
+# -- analytics: the joins and KNN (BASELINE.md configurations 3, 4, 5) -------
+
+JOIN_KERNELS = ("dwithin_counts", "slab_pairs", "contains_counts", "knn_topk")
+SOURCES.update({
+    "dwithin_counts": "geomesa_tpu/analytics/join.py:60 _dwithin_counts_all "
+                      "(body :48 _dwithin_matrices)",
+    "slab_pairs": "geomesa_tpu/analytics/join.py:123 _slab_cand_mask "
+                  "(+ :137, :148, :159; :473 _contains_cand_mask + :493, "
+                  ":501)",
+    "contains_counts": "geomesa_tpu/analytics/join.py:420 "
+                       "_contains_counts_all (+ :389 _pip_body, :454 "
+                       "_contains_band_rows)",
+    "knn_topk": "geomesa_tpu/analytics/join.py:635 _knn_kernel",
+})
+SOURCE_FILES.update({k: "geomesa_tpu_torch/csrc/join.cu" for k in JOIN_KERNELS})
+# H100 SXM float32 instructions a second outside the tensor cores: the
+# data sheet's 67 TFLOP/s counts an FMA as two operations, and the join
+# kernels round every step alone (no FMA), so each operation they count
+# is one instruction at half that rate
+F32_OPS_PER_S = 33.5e12
+DW_QUERIES, DW_RADIUS = 1_000, 0.25      # BASELINE #3 on the store's 10M
+KNN_ROWS, KNN_CAP, KNN_K = 50_000_000, 1 << 26, 100   # BASELINE #4
+KNN_POINTS = [(10.0, 10.0), (-120.0, 40.0), (0.0, 0.0), (150.0, -30.0),
+              (-60.0, -60.0), (80.0, 20.0), (-10.0, 55.0), (100.0, 5.0)]
+CT_ROWS, CT_CAP, CT_RECTS, CT_STARS = 100_000_000, 1 << 27, 10_000, 32
+CT_SAMPLE, CT_PAIRS = 256, 100           # BASELINE #5's checked polygons
+AN_RUNS = 3                              # host-clock runs per call's p50
+PIP_PAIR_OPS, BOX_OPS, KNN_OPS, DW_OPS = 23, 4, 6, 7
+
+
+def contains_polygons(seed: int):
+    """bench.py's config-5 rectangles (half-sides 0.05-0.5 degrees), then
+    star polygons with holes (star_ring, 64 vertices, a 16-vertex hole
+    about the same centre): (wkts, stars as (shell, hole, cx, cy, rx,
+    ry))."""
+    rng = np.random.default_rng(seed + 5)
+    cx = rng.uniform(-175, 175, CT_RECTS)
+    cy = rng.uniform(-85, 85, CT_RECTS)
+    w = rng.uniform(0.05, 0.5, CT_RECTS)
+    h = rng.uniform(0.05, 0.5, CT_RECTS)
+    wkts = [f"POLYGON (({cx[i]-w[i]} {cy[i]-h[i]}, {cx[i]+w[i]} {cy[i]-h[i]}, "
+            f"{cx[i]+w[i]} {cy[i]+h[i]}, {cx[i]-w[i]} {cy[i]+h[i]}, "
+            f"{cx[i]-w[i]} {cy[i]-h[i]}))" for i in range(CT_RECTS)]
+    stars = []
+    for _ in range(CT_STARS):
+        sx, sy = rng.uniform(-170, 170), rng.uniform(-80, 80)
+        rx, ry = rng.uniform(0.5, 3.0), rng.uniform(0.5, 3.0)
+        shell = star_ring(sx, sy, rx, ry, 64, k=int(rng.integers(3, 8)),
+                          wobble=0.3, phase=float(rng.uniform(0, 3)))
+        hole = star_ring(sx, sy, 0.3 * rx, 0.3 * ry, 16)
+        stars.append((shell, hole, sx, sy, rx, ry))
+        wkts.append(f"POLYGON({_ring_wkt(shell)}, {_ring_wkt(hole)})")
+    return wkts, stars
+
+
+def _union_len(los, widths) -> int:
+    """Rows covered by the slabs [lo, lo + width): each counted once."""
+    keep = widths > 0
+    lo, hi = los[keep].astype(np.int64), (los + widths)[keep].astype(np.int64)
+    if not len(lo):
+        return 0
+    o = np.argsort(lo)
+    lo, hi = lo[o], np.maximum.accumulate(hi[o])
+    starts = np.r_[True, lo[1:] > hi[:-1]]
+    ends = np.r_[starts[1:], True]
+    return int((hi[ends] - lo[starts]).sum())
+
+
+def _time_once(fn):
+    """(fn(), its ms on the card): one run between CUDA events."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _join_equal(name, got, want) -> tuple[bool, int]:
+    """(equal, max |error|) of a join wrapper's outputs and its plain
+    version's: integers as integers, the knn window's d2 by its bits
+    (every NaN one NaN)."""
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            return False, -1
+        if g.dtype == torch.float32:
+            g, w = (t.masked_fill(t.isnan(), float("nan")).view(torch.int32)
+                    for t in (g, w))
+        err = max(err, _err(g, w))
+    return err == 0, err
+
+
+def _slab_launcher(args):
+    """Both passes of the slab kernel on buffers prepared once (counts,
+    their host prefix and the outputs), so the events time the kernel."""
+    from geomesa_tpu_torch.scan import kernels
+    xs, ys, order, los, widths, qa, r2, eps, box = args
+    dev = xs.device
+    lib = kernels._library()
+    item = torch.from_numpy(kernels.work_items(widths.cpu().numpy(),
+                                               kernels.SLAB_CHUNK)).to(dev)
+    items = item.shape[0]
+    counts = torch.empty(items, dtype=torch.int32, device=dev)
+    common = (xs.data_ptr(), ys.data_ptr(), order.data_ptr(), los.data_ptr(),
+              widths.data_ptr(), item.data_ptr(), items, int(box),
+              qa.data_ptr(), r2, eps)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib.geomesa_slab_pairs(*common, 0, counts.data_ptr(), None, None, None,
+                           stream)
+    c = counts.cpu().numpy().astype(np.int64)
+    offs = torch.from_numpy(np.r_[0, np.cumsum(c)[:-1]]).to(dev)
+    total = max(int(c.sum()), 1)
+    rows = torch.empty(total, dtype=torch.int32, device=dev)
+    qi = torch.empty(total, dtype=torch.int32, device=dev)
+
+    def run():
+        lib.geomesa_slab_pairs(*common, 0, counts.data_ptr(), None, None,
+                               None, stream)
+        lib.geomesa_slab_pairs(*common, 1, None, offs.data_ptr(),
+                               rows.data_ptr(), qi.data_ptr(), stream)
+    return run
+
+
+def _contains_launcher(args):
+    """The counts pass of the contains kernel on prepared buffers."""
+    from geomesa_tpu_torch.scan import kernels
+    xs, ys, order, los, widths, boxes, edges, ecount, eps, eps2, _ = args
+    dev = xs.device
+    lib = kernels._library()
+    item = torch.from_numpy(kernels.work_items(widths.cpu().numpy(),
+                                               kernels.CONTAINS_CHUNK)).to(dev)
+    items = item.shape[0]
+    dc = torch.zeros(los.shape[0], dtype=torch.int32, device=dev)
+    bc = torch.zeros_like(dc)
+    cband = torch.empty(items, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lambda: lib.geomesa_contains_counts(
+        xs.data_ptr(), ys.data_ptr(), los.data_ptr(), widths.data_ptr(),
+        item.data_ptr(), items, boxes.data_ptr(),
+        edges.data_ptr(), ecount.data_ptr(), edges.shape[1], eps, eps2,
+        dc.data_ptr(), bc.data_ptr(), cband.data_ptr(), stream)
+
+
+def _contains_rows_launcher(args):
+    """The rows pass of the contains kernel alone, on its work items
+    (from one counts pass) and an output prepared once."""
+    from geomesa_tpu_torch.scan import kernels
+    xs, ys, order, los, widths, boxes, edges, ecount, eps, eps2, cap = args
+    dev = xs.device
+    kp = los.shape[0]
+    item = kernels.work_items(widths.cpu().numpy(), kernels.CONTAINS_CHUNK)
+    dc = torch.zeros((2, kp), dtype=torch.int32, device=dev)
+    cband = kernels._contains_counts_launch(xs, ys, los, widths, boxes, edges,
+                                            ecount, eps, eps2, item, dc[0],
+                                            dc[1])
+    banded = np.flatnonzero(dc[1].cpu().numpy())
+    rows = torch.from_numpy(kernels.band_row_items(item, cband, banded, kp,
+                                                   cap)).to(dev)
+    out = torch.full((len(banded), cap), -1, dtype=torch.int32, device=dev)
+    lib = kernels._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return len(rows), lambda: lib.geomesa_contains_band_rows(
+        xs.data_ptr(), ys.data_ptr(), order.data_ptr(), los.data_ptr(),
+        widths.data_ptr(), rows.data_ptr(), rows.shape[0], boxes.data_ptr(),
+        edges.data_ptr(), ecount.data_ptr(), edges.shape[1], eps, eps2, cap,
+        out.data_ptr(), stream)
+
+
+def join_kernel_line(name, args, out) -> dict:
+    """One join kernel at one recorded call's shape: the kernel timed
+    alone (20 held runs), its plain version once (its output is the one
+    compared), and the bound, larger of bytes and operations."""
+    from geomesa_tpu_torch.scan import kernels
+    plain = {"dwithin_counts": kernels.dwithin_counts_plain,
+             "slab_pairs": kernels.slab_pairs_plain,
+             "contains_counts": kernels.contains_counts_plain,
+             "knn_topk": kernels.knn_topk_plain}[name]
+    want, plain_ms = _time_once(lambda: plain(*args))
+    same, err = _join_equal(name, out, want)
+    if name == "dwithin_counts":
+        px, py, qx, qy, _hi, _lo, n = args
+        k = qx.shape[0]
+        kern = lambda: kernels.dwithin_counts(*args)   # noqa: E731
+        nbytes, ops = 8 * n + 16 * k, DW_OPS * n * k
+        shape = {"rows": n, "queries": k}
+    elif name == "slab_pairs":
+        xs, ys, order, los, widths, qa, *_r, box = args
+        w = widths.cpu().numpy()
+        cols, m = int(w.sum()), out[0].shape[0]
+        kern = _slab_launcher(args)
+        nbytes = (8 * _union_len(los.cpu().numpy(), w) + qa.numel() * 4
+                  + 8 * los.shape[0] + 12 * m)
+        ops = (BOX_OPS if box else DW_OPS - 1) * cols
+        shape = {"queries": los.shape[0], "slab_columns": cols,
+                 "pairs": m, "mode": "box" if box else "radius"}
+    elif name == "contains_counts":
+        xs, ys, order, los, widths, boxes, edges, ecount = args[:8]
+        w = widths.cpu().numpy()
+        kern = _contains_launcher(args)
+        # the columns inside each widened box (the box-mode candidates)
+        inbox = kernels.slab_pairs(xs, ys, order, los, widths, boxes, 0.0,
+                                   args[8], True)[1]
+        edge_pairs = int(ecount.to(torch.int64)[inbox.long()].sum().item())
+        nbytes = (8 * _union_len(los.cpu().numpy(), w)
+                  + 16 * int(ecount.sum().item()) + boxes.numel() * 4
+                  + los.shape[0] * (8 + 4 * args[10]))
+        ops = BOX_OPS * int(w.sum()) + PIP_PAIR_OPS * edge_pairs
+        shape = {"polygons": int((w > 0).sum()), "slab_columns": int(w.sum()),
+                 "in_box_rows": int(inbox.shape[0]),
+                 "in_box_edge_pairs": edge_pairs, "band_rows": int(
+                     out[1].sum().item()), "timed": "the counts pass"}
+    else:
+        px, py, qx, qy, kpad, n = args
+        nq = qx.shape[0]
+        kern = lambda: kernels.knn_topk(*args)   # noqa: E731
+        nbytes, ops = 8 * n + 8 * nq + 12 * nq * kpad, KNN_OPS * n * nq
+        shape = {"rows": n, "queries": nq, "kpad": kpad}
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / F32_OPS_PER_S * 1e3
+    return {"equal": same, "max_abs_err": err, **shape,
+            "ms": cuda_ms(kern, 20), "plain_ms": plain_ms,
+            "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
+            else "operations", "bytes_bound_ms": tb, "ops_bound_ms": to,
+            "library_ms": None}
+
+
+def _main_call(calls, name, tag):
+    """(args, outputs) of the recorded call of kernel ``name`` in run
+    ``tag`` with the most queries (or polygons)."""
+    return max(((a, o) for q, nm, a, o in calls if nm == name and q == tag),
+               key=lambda c: c[0][3].shape[0] if name == "slab_pairs"
+               else c[0][2].shape[0])
+
+
+def _f64_knn(xt, yt, qx, qy, k):
+    """Exact f64 top-k on the card, (distance, id) order: a stable sort
+    of the f64 squared distances (ties keep the lower id)."""
+    d2 = (xt - qx) ** 2 + (yt - qy) ** 2
+    return torch.sort(d2, stable=True).indices[:k].cpu().numpy()
+
+
+def run_knn_batcher(qb, bq, k) -> dict:
+    """QueryBatcher.knn from 32 threads x 8 points: the answers, the
+    seconds, the batcher's counters, its dispatches of more than one
+    query and the knn_topk launches of this run alone."""
+    import threading
+    from geomesa_tpu_torch.scan import kernels
+    res = [None] * len(bq)
+    multi = []
+    inner = qb._dispatch_knn
+
+    def counted(type_name, kk, chunk):
+        if len(chunk) > 1:
+            multi.append(len(chunk))
+        inner(type_name, kk, chunk)
+    qb._dispatch_knn = counted
+
+    def worker(t):
+        for i in range(t * 8, t * 8 + 8):
+            res[i] = qb.knn("ais", bq[i][0], bq[i][1], k)
+    before = kernels.launches["knn_topk"]
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(32)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    seconds = time.perf_counter() - t0
+    return {"res": res, "seconds": seconds,
+            "queries_per_s": len(bq) / seconds,
+            "multi_query_dispatches": len(multi),
+            "knn_topk_launches": kernels.launches["knn_topk"] - before,
+            **qb.stats()}
+
+
+def phase_analytics(seed: int, ds, rows) -> tuple[dict, dict]:
+    """The joins and KNN at BASELINE.md's shapes: DWithin on the store,
+    KNN at 50M points and on the store (processes and the batcher),
+    Contains at 100M points x 10k polygons; every answer held to a float64
+    brute force; every recorded join-kernel call held to its plain
+    version."""
+    from geomesa_tpu_torch.analytics import join, processes
+    from geomesa_tpu_torch.geometry import parse_wkt
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.scan.batcher import QueryBatcher
+    t_phase = time.perf_counter()
+    x, y, _ms, ids = rows
+    st = ds._types["ais"]
+    dev = st.device
+    st.ensure_index()
+    resident = (st.scan_data.xhi, st.scan_data.yhi)
+    rng = np.random.default_rng(seed + 11)
+    wrong = []
+
+    calls = []
+    real = {k: getattr(kernels, k) for k in
+            JOIN_KERNELS + ("contains_band_rows",)}
+    current = [None]
+
+    def recorder(name):
+        def rec(*args, **kw):   # keywords are the trailing parameters
+            args += tuple(kw.values())
+            out = real[name](*args)
+            calls.append((current[0], name, args,
+                          out if isinstance(out, tuple) else (out,)))
+            return out
+        return rec
+
+    # BASELINE #3's inputs and its f64 brute force: a host argsort of x,
+    # a searchsorted slab of +-r, the exact d2 over every query's slab
+    qx = rng.uniform(-170, 170, DW_QUERIES)
+    qy = rng.uniform(-80, 80, DW_QUERIES)
+    t0 = time.perf_counter()
+    xo = np.argsort(x, kind="stable")
+    xsort = x[xo]
+    lo = np.searchsorted(xsort, qx - DW_RADIUS, side="left")
+    hi = np.searchsorted(xsort, qx + DW_RADIUS, side="right")
+    dw_rows = []
+    for j in range(DW_QUERIES):
+        c = xo[lo[j]:hi[j]]
+        dw_rows.append(np.sort(c[(x[c] - qx[j]) ** 2 + (y[c] - qy[j]) ** 2
+                                 <= DW_RADIUS * DW_RADIUS]))
+    dw_counts = np.array([len(r) for r in dw_rows])
+    dw_oracle_s = time.perf_counter() - t0
+
+    # BASELINE #4's table: 50M points as f32 in a 2^26-row buffer
+    rk = np.random.default_rng(seed + 12)
+    kx = rk.uniform(-180, 180, KNN_ROWS)
+    ky = rk.uniform(-90, 90, KNN_ROWS)
+    kdev = tuple(torch.zeros(KNN_CAP, dtype=torch.float32, device=dev)
+                 for _ in range(2))
+    kdev[0][:KNN_ROWS] = torch.from_numpy(kx.astype(np.float32)).to(dev)
+    kdev[1][:KNN_ROWS] = torch.from_numpy(ky.astype(np.float32)).to(dev)
+    kqx = np.array([q[0] for q in KNN_POINTS])
+    kqy = np.array([q[1] for q in KNN_POINTS])
+    # batcher queries: 32 threads x 8 points over the store, through the
+    # default (adaptive) batcher and one whose static 200 ms linger makes
+    # its dispatches carry many queries each
+    bq = [(float(a), float(b)) for a, b in zip(
+        rng.uniform(-170, 170, 256), rng.uniform(-80, 80, 256))]
+    batchers = {"default": QueryBatcher(ds),
+                "linger_200ms_static": QueryBatcher(
+                    ds, linger_us=200_000, adaptive=False)}
+
+    kernels.reset_launches()
+    t_main = time.perf_counter()
+    out = {}
+    try:
+        for name in real:
+            setattr(kernels, name, recorder(name))
+        current[0] = "dwithin"
+        t0 = time.perf_counter()
+        out["prox_counts"] = processes.proximity_process(
+            ds, "ais", qx, qy, DW_RADIUS, counts_only=True)
+        out["first_prox_counts_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prox_pairs"] = processes.proximity_process(ds, "ais", qx, qy,
+                                                        DW_RADIUS)
+        out["dw_counts"] = join.dwithin_join(x, y, qx, qy, DW_RADIUS,
+                                             counts_only=True,
+                                             device_xy=resident)
+        out["dw_pairs"] = join.dwithin_join(x, y, qx, qy, DW_RADIUS,
+                                            device_xy=resident)
+        current[0] = "knn_50m"
+        out["knn50"] = join.knn_batched(kx, ky, kqx, kqy, KNN_K,
+                                        device_xy=kdev)
+        current[0] = "knn_store"
+        out["knn_scalar"] = [processes.knn_process(ds, "ais", a, b, KNN_K)
+                             for a, b in KNN_POINTS]
+        out["knn_array"] = processes.knn_process(ds, "ais", kqx, kqy, KNN_K)
+        current[0] = "batcher"
+        out["batcher"] = {name: run_knn_batcher(qb, bq, KNN_K)
+                          for name, qb in batchers.items()}
+    finally:
+        for name, fn in real.items():
+            setattr(kernels, name, fn)
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t_main
+    launches = {k: kernels.launches[k] for k in JOIN_KERNELS}
+
+    # -- exactness on the store -------------------------------------------
+    pc, _ = out["prox_counts"]
+    _, pids = out["prox_pairs"]
+    want_ids = ids[np.unique(np.concatenate(dw_rows))]
+    if not (np.array_equal(pc, dw_counts)
+            and np.array_equal(out["prox_pairs"][0], dw_counts)
+            and list(pids) == list(want_ids)):
+        wrong.append("proximity_process")
+    jc, _ = out["dw_counts"]
+    pcnt, pairs = out["dw_pairs"]
+    got_pairs = pairs[np.lexsort((pairs[:, 0], pairs[:, 1]))]
+    want_pairs = np.concatenate(
+        [np.stack([r, np.full(len(r), j)], 1) for j, r in enumerate(dw_rows)])
+    if not (np.array_equal(jc, dw_counts) and np.array_equal(pcnt, dw_counts)
+            and np.array_equal(got_pairs, want_pairs)):
+        wrong.append("dwithin_join")
+    xt = torch.from_numpy(x).to(dev)
+    yt = torch.from_numpy(y).to(dev)
+    for (a, b), (sids, sd), (aids, ad) in zip(
+            KNN_POINTS, out["knn_scalar"], out["knn_array"]):
+        want = ids[_f64_knn(xt, yt, a, b, KNN_K)]
+        if list(sids) != list(want) or list(aids) != list(want):
+            wrong.append(("knn_process", a, b))
+    for i, (a, b) in enumerate(bq):
+        want = list(ids[_f64_knn(xt, yt, a, b, KNN_K)])
+        for name, run in out["batcher"].items():
+            if list(run["res"][i][0]) != want:
+                wrong.append(("batcher", name, a, b))
+    # a dispatch of more than one query goes through the batched kernel
+    # (one query alone may take the host z-ring); the static linger must
+    # coalesce, so its run holds this check to at least one such dispatch
+    for name, run in out["batcher"].items():
+        if run["knn_topk_launches"] < run["multi_query_dispatches"]:
+            wrong.append(("batcher dispatches without knn_topk", name,
+                          run["multi_query_dispatches"],
+                          run["knn_topk_launches"]))
+    if out["batcher"]["linger_200ms_static"]["multi_query_dispatches"] == 0:
+        wrong.append(("batcher never coalesced", "linger_200ms_static"))
+    del xt, yt
+    # BASELINE #4's oracle: argpartition + (d2, id) lexsort per query
+    t0 = time.perf_counter()
+    for i, (a, b) in enumerate(KNN_POINTS):
+        d2 = (kx - a) ** 2 + (ky - b) ** 2
+        cand = np.argpartition(d2, KNN_K + 64)[:KNN_K + 64]
+        if not np.array_equal(out["knn50"][1][i],
+                              cand[np.lexsort((cand, d2[cand]))][:KNN_K]):
+            wrong.append(("knn_batched_50m", a, b))
+    knn_oracle_s = time.perf_counter() - t0
+
+    p50 = {
+        "proximity_counts": [_timed(lambda: processes.proximity_process(
+            ds, "ais", qx, qy, DW_RADIUS, counts_only=True))
+            for _ in range(AN_RUNS)],
+        "proximity_pairs": [_timed(lambda: processes.proximity_process(
+            ds, "ais", qx, qy, DW_RADIUS)) for _ in range(AN_RUNS)],
+        "dwithin_counts": [_timed(lambda: join.dwithin_join(
+            x, y, qx, qy, DW_RADIUS, counts_only=True, device_xy=resident))
+            for _ in range(AN_RUNS)],
+        "dwithin_pairs": [_timed(lambda: join.dwithin_join(
+            x, y, qx, qy, DW_RADIUS, device_xy=resident))
+            for _ in range(AN_RUNS)],
+        "knn_batched_50m_8q": [_timed(lambda: join.knn_batched(
+            kx, ky, kqx, kqy, KNN_K, device_xy=kdev)) for _ in range(AN_RUNS)],
+        "knn_process_scalar": [_timed(lambda: processes.knn_process(
+            ds, "ais", *KNN_POINTS[i % 8], KNN_K)) for i in range(AN_RUNS)],
+        "knn_process_array_8q": [_timed(lambda: processes.knn_process(
+            ds, "ais", kqx, kqy, KNN_K)) for _ in range(AN_RUNS)],
+    }
+    del kx, ky
+    # the kernel lines at the store's and the 50M table's shapes (the
+    # calls are still referenced by ``calls``)
+    lines = {name: join_kernel_line(name, *_main_call(calls, name, tag))
+             for name, tag in (("dwithin_counts", "dwithin"),
+                               ("slab_pairs", "dwithin"),
+                               ("knn_topk", "knn_50m"))}
+    checks = []
+    for q, name, args, res_ in calls:
+        if name in ("contains_counts", "contains_band_rows"):
+            continue
+        plain = getattr(kernels, name + "_plain")
+        same = _join_equal(name, res_, plain(*args))[0]
+        checks.append((q, name, same))
+    calls.clear()
+    del kdev
+    torch.cuda.empty_cache()
+
+    # -- BASELINE #5: 100M points x 10k rectangles + 32 stars -------------
+    rc = np.random.default_rng(seed + 13)
+    cx_ = rc.uniform(-180, 180, CT_ROWS)
+    cy_ = rc.uniform(-90, 90, CT_ROWS)
+    cdev = tuple(torch.zeros(CT_CAP, dtype=torch.float32, device=dev)
+                 for _ in range(2))
+    cdev[0][:CT_ROWS] = torch.from_numpy(cx_.astype(np.float32)).to(dev)
+    cdev[1][:CT_ROWS] = torch.from_numpy(cy_.astype(np.float32)).to(dev)
+    wkts, stars = contains_polygons(seed)
+    t0 = time.perf_counter()
+    polys = [parse_wkt(w) for w in wkts]
+    parse_s = time.perf_counter() - t0
+    sample = np.sort(np.r_[rc.choice(CT_RECTS, CT_SAMPLE - CT_STARS,
+                                     replace=False),
+                           CT_RECTS + np.arange(CT_STARS)])
+    pair_sel = np.r_[sample[:CT_PAIRS - 16], CT_RECTS + np.arange(16)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for name in real:
+            setattr(kernels, name, recorder(name))
+        current[0] = "contains"
+        counts, _ = join.contains_join(polys, cx_, cy_, counts_only=True,
+                                       device_xy=cdev)
+        first_contains_s = time.perf_counter() - t0
+        current[0] = "contains_pairs"
+        pcounts, cpairs = join.contains_join([polys[j] for j in pair_sel],
+                                             cx_, cy_, device_xy=cdev)
+    finally:
+        for name, fn in real.items():
+            setattr(kernels, name, fn)
+    torch.cuda.synchronize()
+    for k in JOIN_KERNELS:
+        launches[k] += kernels.launches[k]
+    # the f64 brute force of the sample: the closed box on the card for
+    # a rectangle; the box's candidates through in_star (shell minus the
+    # hole's interior) on the host for a star
+    X = torch.from_numpy(cx_).to(dev)
+    Y = torch.from_numpy(cy_).to(dev)
+
+    def brute_rows(j):
+        env = polys[j].envelope
+        m = (X >= env.xmin) & (X <= env.xmax) & (Y >= env.ymin) & \
+            (Y <= env.ymax)
+        cand = torch.nonzero(m).flatten().cpu().numpy()
+        if j < CT_RECTS:
+            return cand
+        shell, hole, sx, sy, rx, ry = stars[j - CT_RECTS]
+        px_, py_ = cx_[cand], cy_[cand]
+        inside = in_star(px_, py_, shell, sx, sy, rx, ry)
+        in_hole = in_star(px_, py_, hole, sx, sy, 0.3 * rx, 0.3 * ry)
+        on_hole = _on_ring(px_, py_, hole, in_hole)
+        return cand[inside & ~(in_hole & ~on_hole)]
+
+    t0 = time.perf_counter()
+    brute = {int(j): brute_rows(int(j)) for j in np.union1d(sample, pair_sel)}
+    ct_oracle_s = time.perf_counter() - t0
+    bad = [int(j) for j in sample if counts[j] != len(brute[int(j)])]
+    if bad:
+        wrong.append(("contains_join counts", bad[:10]))
+    order_ = np.lexsort((cpairs[:, 0], cpairs[:, 1]))
+    cpairs = cpairs[order_]
+    bounds = np.searchsorted(cpairs[:, 1], np.arange(len(pair_sel) + 1))
+    for i, j in enumerate(pair_sel):
+        got = cpairs[bounds[i]:bounds[i + 1], 0]
+        if not (np.array_equal(got, brute[int(j)])
+                and pcounts[i] == len(brute[int(j)])):
+            wrong.append(("contains_join pairs", int(j)))
+    del X, Y
+    p50["contains_counts_10k"] = [_timed(lambda: join.contains_join(
+        polys, cx_, cy_, counts_only=True, device_xy=cdev))
+        for _ in range(AN_RUNS)]
+    args, res_ = _main_call(calls, "contains_counts", "contains")
+    lines["contains_counts"] = join_kernel_line("contains_counts", args, res_)
+    band_polys = np.flatnonzero(res_[1].cpu().numpy())
+    rows_items, rows_run = _contains_rows_launcher(args)
+    rows_ms = cuda_ms(rows_run, 20) if rows_items else None
+    for q, name, args, res_ in calls:
+        if name == "contains_counts" and q == "contains":
+            continue   # held to its plain version in its line above
+        plain = getattr(kernels, name + "_plain")
+        checks.append((q, name, _join_equal(name, res_, plain(*args))[0]))
+    checks += [("kernel line", nm, ln["equal"]) for nm, ln in lines.items()]
+    calls.clear()
+    join.clear_xsort_cache()
+    del cdev, cx_, cy_
+    torch.cuda.empty_cache()
+    for q, name, same in checks:
+        if not same:
+            wrong.append(("plain", q, name))
+    emit({"phase": "analytics", "store_rows": len(x),
+          "dwithin": {"queries": DW_QUERIES, "radius": DW_RADIUS,
+                      "pairs": int(dw_counts.sum()),
+                      "first_proximity_counts_ms":
+                          out["first_prox_counts_ms"],
+                      "oracle_s": dw_oracle_s},
+          "knn": {"rows": KNN_ROWS, "cap": KNN_CAP, "k": KNN_K,
+                  "queries": len(KNN_POINTS), "oracle_s": knn_oracle_s,
+                  "batcher": {name: {"threads": 32, "per_thread": 8,
+                                     **{k: v for k, v in run.items()
+                                        if k != "res"}}
+                              for name, run in out["batcher"].items()}},
+          "contains": {"rows": CT_ROWS, "cap": CT_CAP,
+                       "polygons": len(polys), "stars": CT_STARS,
+                       "checked": len(sample), "pairs_checked": len(pair_sel),
+                       "total": int(counts.sum()),
+                       "band_polygons": int(len(band_polys)),
+                       "parse_s": parse_s, "first_s": first_contains_s,
+                       "band_rows_pass_ms": rows_ms,
+                       "band_rows_pass_items": rows_items,
+                       "oracle_s": ct_oracle_s},
+          "p50_ms": {k: statistics.median(v) for k, v in p50.items()},
+          "runs_ms": p50, "store_counted_s": store_s,
+          "launches": launches, "kernel_lines": lines,
+          "plain_checks": len(checks),
+          "seconds": time.perf_counter() - t_phase, "wrong": wrong})
+    if wrong:
+        raise SystemExit(f"analytics: wrong results: {wrong}")
+    missing = [k for k in JOIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise SystemExit(f"join kernels never launched on the analytics "
+                         f"path: {missing}")
+    return lines, launches
+
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2611,6 +3235,8 @@ def main():
     batched = phase_batched(args.seed, ds, rows)
     for name in ("scan_batch_bits", "compact_prefix", "compact_bits"):
         launches[name] = batched[name]
+    join_stats, join_launches = phase_analytics(args.seed, ds, rows)
+    launches.update(join_launches)
     del ds
     torch.cuda.empty_cache()
     pred_stats, pred_counts, pred_ds, pred_data, pred_queries, pred_q = \
@@ -2642,6 +3268,12 @@ def main():
             "library_ms": q0.get("library_ms")})
     for name, s in pred_stats.items():   # at the predicates and surface
                                          # paths' shapes
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCE_FILES[name],
+            "replaces": SOURCES[name], "launches": launches[name],
+            **{k: s[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}})
+    for name, s in join_stats.items():   # at the analytics phase's shapes
         summary.append({
             "name": name, "route": "cuda", "source": SOURCE_FILES[name],
             "replaces": SOURCES[name], "launches": launches[name],

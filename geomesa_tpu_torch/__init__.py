@@ -4,8 +4,8 @@ A package of its own beside ``geomesa_tpu`` (the JAX reference), with
 the same module layout. It imports torch and numpy, never jax and
 nothing of ``geomesa_tpu``. The kernels are hand-written CUDA
 (``csrc/*.cu``: the scans, the batched scan, point-in-polygon, the
-attribute residual, the density grid and the extent tristate), built at
-first use. The stats
+attribute residual, the density grid, the extent tristate and the joins
+and KNN of ``analytics/``), built at first use. The stats
 (``stats/``) and the Arrow encoding (``arrow/``, pyarrow imported only
 when an Arrow entry point is called) run on the host.
 

@@ -32,6 +32,7 @@ from . import ast
 
 __all__ = ["Bound", "Bounds", "FilterValues", "extract_geometries",
            "extract_intervals", "extract_attribute_bounds", "is_box",
+           "coerce_literals",
            "like_vocab_mask", "to_millis", "distance_degrees",
            "dwithin_degrees", "METERS_MULTIPLIERS"]
 
@@ -430,6 +431,63 @@ def extract_attribute_bounds(f: ast.Filter, attribute: str) -> FilterValues:
             return FilterValues([Bounds(Bound(prefix, True), Bound(hi, False))])
         return FilterValues.empty()
     return FilterValues.empty()
+
+
+_INT_TYPES = frozenset({"Integer", "Long"})
+_FLOAT_TYPES = frozenset({"Float", "Double"})
+
+
+def _coerce(v, kind: str | None):
+    """A quoted literal as the attribute's type: epoch millis for a Date,
+    an int (else a float) for an Integer or Long, a float for a Float or
+    Double. Anything else, and a string that does not parse, as it is."""
+    if not isinstance(v, str):
+        return v
+    try:
+        if kind == "Date":
+            return to_millis(v)
+        if kind in _INT_TYPES:
+            try:
+                return int(v)
+            except ValueError:
+                return float(v)
+        if kind in _FLOAT_TYPES:
+            return float(v)
+    except ValueError:
+        pass
+    return v
+
+
+def coerce_literals(f: ast.Filter, sft) -> ast.Filter:
+    """The filter with each quoted compare and BETWEEN literal on a Date
+    or numeric attribute of ``sft`` coerced to the attribute's type, so
+    that one attribute bounded by a quoted and an unquoted literal under
+    AND intersects as numbers (``val > '2' AND val < 8``). The JAX
+    package raises TypeError there; this is a departure (ROADMAP.md
+    section 3). IN lists keep their literals, as the reference's
+    evaluator compares them."""
+    kinds = {a.name: a.type.name for a in sft.attributes}
+
+    def walk(g):
+        if isinstance(g, (ast.And, ast.Or)):
+            kids = tuple(walk(c) for c in g.children)
+            if all(a is b for a, b in zip(kids, g.children)):
+                return g
+            return type(g)(kids)
+        if isinstance(g, ast.Not):
+            c = walk(g.child)
+            return g if c is g.child else ast.Not(c)
+        kind = kinds.get(getattr(g, "prop", None))
+        if isinstance(g, ast.Compare):
+            v = _coerce(g.value, kind)
+            return g if v is g.value else dataclasses.replace(g, value=v)
+        if isinstance(g, ast.Between):
+            lo, hi = _coerce(g.lo, kind), _coerce(g.hi, kind)
+            return (g if lo is g.lo and hi is g.hi
+                    else dataclasses.replace(g, lo=lo, hi=hi))
+        return g
+
+    return walk(f)
 
 
 def _union(acc: list[Bounds], more: list[Bounds]) -> list[Bounds]:

@@ -33,6 +33,9 @@ Knobs (system properties / environment):
   derive the wait from an EWMA of per-schema inter-arrival time,
   clamped to ``[0, linger_us]`` (the static knob stays the ceiling);
   default true.
+- ``geomesa.knn.batch`` (``GEOMESA_KNN_BATCH``): coalesce concurrent
+  ``knn()`` calls of one (type, k) into one batched KNN call, default
+  true; false sends each through ``knn_process`` alone.
 - ``geomesa.batch.latency.budget.ms``
   (``GEOMESA_BATCH_LATENCY_BUDGET_MS``): derive the effective
   ``max_batch`` from the observed per-query cost EWMA of fused
@@ -54,17 +57,20 @@ from __future__ import annotations
 import threading
 import time
 
+import numpy as np
+
 from ..index.api import Query
 from ..metrics import metrics, sanitize_key
 from ..utils.properties import SystemProperty
 
 __all__ = ["QueryBatcher", "BATCH_MAX_SIZE", "BATCH_LINGER_MICROS",
-           "BATCH_LINGER_ADAPTIVE", "BATCH_LATENCY_BUDGET_MS"]
+           "BATCH_LINGER_ADAPTIVE", "KNN_BATCH", "BATCH_LATENCY_BUDGET_MS"]
 
 BATCH_MAX_SIZE = SystemProperty("geomesa.batch.max.size", "32")
 BATCH_LINGER_MICROS = SystemProperty("geomesa.batch.linger.micros", "2000")
 BATCH_LINGER_ADAPTIVE = SystemProperty("geomesa.batch.linger.adaptive",
                                        "true")
+KNN_BATCH = SystemProperty("geomesa.knn.batch", "true")
 BATCH_LATENCY_BUDGET_MS = SystemProperty("geomesa.batch.latency.budget.ms",
                                          None)
 
@@ -191,10 +197,33 @@ class QueryBatcher:
         return p.get()
 
     def knn(self, type_name: str, qx: float, qy: float, k: int):
-        raise NotImplementedError(
-            "batched KNN is not in the point query slice of the PyTorch "
-            "port; it belongs to the analytics (KNN / join) slice "
-            "(ROADMAP.md section 6)")
+        """Submit one KNN query; blocks until (ids, distances) is ready.
+        Concurrent callers on the same (type, k) coalesce into ONE
+        batched top-k call: the KNN analog of ``query()``'s admission
+        queue (``geomesa.knn.batch``)."""
+        from ..analytics.processes import knn_process
+        enabled = str(KNN_BATCH.get()).lower() in ("true", "1", "yes")
+        if not enabled or self.max_batch <= 1:
+            self._note(1)
+            return knn_process(self.store, type_name, float(qx), float(qy),
+                               k)
+        p = _Pending((float(qx), float(qy)))
+        key = f"{type_name}\x00knn\x00{int(k)}"
+        with self._cond:
+            tq = self._queues.setdefault(key, _TypeQueue())
+            tq.observe_arrival(time.monotonic())
+            tq.items.append(p)
+            depth = len(tq.items)
+            leader = not tq.has_leader
+            if leader:
+                tq.has_leader = True
+            elif depth >= self.max_batch:
+                self._cond.notify_all()
+        self.registry.gauge(f"batcher.queue_depth.{sanitize_key(key)}", depth)
+        if leader:
+            self._lead(key, tq, dispatch=lambda _key, chunk:
+                       self._dispatch_knn(type_name, int(k), chunk))
+        return p.get()
 
     def stats(self) -> dict:
         """Batching counters (also mirrored into the metrics registry)."""
@@ -215,9 +244,11 @@ class QueryBatcher:
 
     # -- leader path -------------------------------------------------------
 
-    def _lead(self, type_name: str, tq: _TypeQueue):
+    def _lead(self, type_name: str, tq: _TypeQueue, dispatch=None):
         """Linger for followers (only under load), then drain the queue
-        in max_batch chunks and dispatch each as one fused scan."""
+        in max_batch chunks and dispatch each as one fused scan.
+        ``dispatch`` overrides the query dispatcher (the KNN path shares
+        the admission and linger machinery)."""
         t0 = time.perf_counter()
         with self._cond:
             # linger pays only when arrivals inside the window can
@@ -244,9 +275,10 @@ class QueryBatcher:
         self.registry.gauge(
             f"batcher.queue_depth.{sanitize_key(type_name)}", 0)
         self.registry.observe("batcher.linger", time.perf_counter() - t0)
+        dispatch = dispatch or self._dispatch
         try:
             for chunk in chunks:
-                self._dispatch(type_name, chunk)
+                dispatch(type_name, chunk)
         finally:
             with self._cond:
                 self._in_flight -= 1
@@ -292,6 +324,35 @@ class QueryBatcher:
             for p in chunk:
                 try:
                     p.resolve(result=self.store.query(p.q))
+                except Exception as e:  # noqa: BLE001
+                    p.resolve(error=e)
+            return
+        for p, r in zip(chunk, results):
+            p.resolve(result=r)
+
+    def _dispatch_knn(self, type_name: str, k: int, chunk: list[_Pending]):
+        """One batched top-k for a drained KNN chunk: the chunk's query
+        points go to the batched process in one call; (ids, distances)
+        go back per caller. A failure replays each caller alone through
+        the batched call, as ``_dispatch`` does, so errors land on the
+        caller that owns them and no caller gives way to the host
+        z-ring."""
+        from ..analytics.processes import knn_batch_process, knn_process
+        occupancy = len(chunk)
+        self._note(occupancy)
+        try:
+            if occupancy == 1:
+                qx, qy = chunk[0].q
+                results = [knn_process(self.store, type_name, qx, qy, k)]
+            else:
+                results = knn_batch_process(
+                    self.store, type_name, np.array([p.q[0] for p in chunk]),
+                    np.array([p.q[1] for p in chunk]), k)
+        except Exception:  # noqa: BLE001
+            for p in chunk:
+                try:
+                    p.resolve(result=knn_batch_process(
+                        self.store, type_name, [p.q[0]], [p.q[1]], k)[0])
                 except Exception as e:  # noqa: BLE001
                     p.resolve(error=e)
             return

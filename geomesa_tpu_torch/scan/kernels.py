@@ -1,9 +1,9 @@
 """The port's kernels: wrappers, launch counts and plain versions.
 
-Ten kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
+Fourteen kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
 ``csrc/batch.cu``, ``csrc/geom.cu``, ``csrc/residual.cu``,
-``csrc/density.cu`` and ``csrc/extent.cu`` (see the notes at their heads
-for what they replace and what bounds them):
+``csrc/density.cu``, ``csrc/extent.cu`` and ``csrc/join.cu`` (see the
+notes at their heads for what they replace and what bounds them):
 
 - ``scan_mask``: the dense tier, bool[cap] over every row;
 - ``scan_mask_gather``: the gathered tier, bool[m] over rows ``idx``
@@ -38,6 +38,19 @@ for what they replace and what bounds them):
   or IN (2) of its outward-rounded f32 bounding box against the query's
   outward- and inward-rounded boxes, and its (day, ms) against the
   query's intervals, as int8[n] (``scan/gscan.py``).
+- ``dwithin_counts``: per query point, the rows whose f32 squared
+  distance is within the radius band's lower edge (definite) and between
+  its edges (band), as int32 counts (``analytics/join.py``);
+- ``slab_pairs``: over each query's slab of the x-sorted table, the rows
+  within the radius band's upper edge (radius mode) or inside the
+  widened box (box mode), as (row, query) pairs in query-major, slab
+  order, in two passes (counts, then writes at their prefix offsets);
+- ``contains_counts``: per polygon, the slab rows inside its widened box
+  and, for those, the crossing number and the EDGE_EPS band: definite
+  and band counts and the first band rows in slab order
+  (``contains_band_rows``: more band rows of listed polygons);
+- ``knn_topk``: per query point, the kpad smallest (f32 d2, row) keys in
+  lexicographic order, over chunks of rows and then of the chunks' keys.
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device; for ``residual_mask``, its columns). On
@@ -85,12 +98,17 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "density_grid_rows", "density_grid_rows_plain",
            "density_rows_gather", "density_weights_plain", "density_plan",
            "DENSITY_PATHS", "prefix_plan", "PREFIX_TILE", "extent_tristate",
-           "extent_tristate_plain"]
+           "extent_tristate_plain", "dwithin_counts", "dwithin_counts_plain",
+           "slab_pairs", "slab_pairs_plain", "contains_counts",
+           "contains_counts_plain", "contains_band_rows",
+           "contains_band_rows_plain", "knn_topk", "knn_topk_plain",
+           "KNN_MAX_KPAD", "work_items", "band_row_items", "SLAB_CHUNK",
+           "CONTAINS_CHUNK", "KNN_TILE"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
             for f in ("scan.cu", "batch.cu", "geom.cu", "residual.cu",
-                      "density.cu", "extent.cu")]
+                      "density.cu", "extent.cu", "join.cu")]
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -114,7 +132,8 @@ PREFIX_TILE = 4096
 launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0,
             "scan_batch_bits": 0, "compact_prefix": 0, "compact_bits": 0,
             "pip_mask": 0, "residual_mask": 0, "density_grid": 0,
-            "extent_tristate": 0}
+            "extent_tristate": 0, "dwithin_counts": 0, "slab_pairs": 0,
+            "contains_counts": 0, "knn_topk": 0}
 
 
 def reset_launches():
@@ -365,6 +384,21 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_density_plan.argtypes = [i32, i64, i32, i32, i32, p]
             lib.geomesa_extent_tristate.argtypes = [p, p, p, i64, p, p, i32,
                                                     p, i32, p, p]
+            lib.geomesa_join_constant.argtypes = [i32]
+            lib.geomesa_dwithin_counts.argtypes = [p, p, i64, p, p, i32, f32,
+                                                   f32, p, p, p]
+            lib.geomesa_slab_pairs.argtypes = [p, p, p, p, p, p, i64, i32, p,
+                                               f32, f32, i32, p, p, p, p, p]
+            lib.geomesa_contains_counts.argtypes = [p, p, p, p, p, i64, p, p,
+                                                    p, i32, f32, f32, p, p, p,
+                                                    p]
+            lib.geomesa_contains_band_rows.argtypes = [p, p, p, p, p, p, i64,
+                                                       p, p, p, i32, f32, f32,
+                                                       i32, p, p]
+            lib.geomesa_knn_select.argtypes = [p, p, i64, p, p, p, i64, i32,
+                                               i32, i32, i64, p, p]
+            lib.geomesa_knn_chunk.argtypes = [i64, i32, i32, i32, i32]
+            lib.geomesa_knn_chunk.restype = ctypes.c_longlong
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
                        lib.geomesa_compact_prefix, lib.geomesa_compact_bits,
@@ -373,7 +407,10 @@ def _library() -> ctypes.CDLL:
                        lib.geomesa_residual_mask, lib.geomesa_residual_codes,
                        lib.geomesa_density_grid, lib.geomesa_density_rows,
                        lib.geomesa_density_plan, lib.geomesa_prefix_tile,
-                       lib.geomesa_extent_tristate):
+                       lib.geomesa_extent_tristate, lib.geomesa_join_constant,
+                       lib.geomesa_dwithin_counts, lib.geomesa_slab_pairs,
+                       lib.geomesa_contains_counts,
+                       lib.geomesa_contains_band_rows, lib.geomesa_knn_select):
                 fn.restype = ctypes.c_int
             if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
                     or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP
@@ -387,6 +424,10 @@ def _library() -> ctypes.CDLL:
             if tuple(codes[:got]) != RESIDUAL_CODES:
                 raise RuntimeError("csrc/residual.cu and kernels.py disagree "
                                    "on the residual program's opcodes")
+            if tuple(lib.geomesa_join_constant(i) for i in range(4)) != (
+                    SLAB_CHUNK, CONTAINS_CHUNK, KNN_TILE, KNN_MAX_BUF):
+                raise RuntimeError("csrc/join.cu and kernels.py disagree on "
+                                   "the join kernels' chunks and buffers")
             _lib["lib"] = lib
         return _lib["lib"]
 
@@ -1360,3 +1401,464 @@ def extent_tristate(bounds, valid, times, outer, inner, intervals):
     _raise_on(rc, "extent_tristate")
     launches["extent_tristate"] += 1
     return out
+
+
+# -- spatial joins and knn (csrc/join.cu) ------------------------------------
+
+# the slab and contains kernels' work items (slab columns per block), the
+# knn kernel's tile (keys a block reads between threshold updates) and
+# its largest shared buffer (keys); the buffer holds kpad keys beside more
+# than a tile, so kpad is at most KNN_MAX_KPAD
+SLAB_CHUNK = 2048
+CONTAINS_CHUNK = 2048
+KNN_TILE = 2048
+KNN_MAX_BUF = 16384
+KNN_MAX_KPAD = 8192
+
+# rows per chunk of the dwithin plain version: (chunk, k) intermediates
+# stay near 2^24 elements, whatever the number of queries
+_JOIN_PLAIN_ELEMS = 1 << 24
+
+
+def _check_vec(name: str, t, dtype, n: int | None = None):
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() or (
+            n is not None and t.shape[0] != n):
+        raise ValueError(f"{name} must be a contiguous 1-d {dtype}"
+                         + ("" if n is None else f" of length {n}"))
+
+
+def _f32_scalar(v: float, device):
+    return torch.tensor(float(v), dtype=torch.float32, device=device)
+
+
+def work_items(widths: np.ndarray, chunk: int) -> np.ndarray:
+    """int32[items, 2]: each query's ceil(width / chunk) work items of
+    the slab and contains kernels, one block each, as (query, chunk)
+    pairs in query order."""
+    chunks = (np.maximum(np.asarray(widths, np.int64), 0) + chunk - 1) // chunk
+    q = np.repeat(np.arange(len(chunks), dtype=np.int64), chunks)
+    first = np.cumsum(chunks) - chunks
+    return np.stack([q, np.arange(len(q)) - first[q]],
+                    axis=1).astype(np.int32)
+
+
+def dwithin_counts_plain(px, py, qx, qy, r2_hi: float, r2_lo: float,
+                         nrows: int):
+    """(definite, band) int32[k]: per query, the rows < nrows with f32
+    d2 = dx*dx + dy*dy <= r2_lo, and those with r2_lo < d2 <= r2_hi (a
+    port of _dwithin_counts_all, one elementwise op per step)."""
+    k, dev = qx.shape[0], px.device
+    definite = torch.zeros(k, dtype=torch.int32, device=dev)
+    band = torch.zeros(k, dtype=torch.int32, device=dev)
+    if k == 0 or nrows == 0:
+        return definite, band
+    hi, lo = _f32_scalar(r2_hi, dev), _f32_scalar(r2_lo, dev)
+    step = max(1, _JOIN_PLAIN_ELEMS // k)
+    for a in range(0, nrows, step):
+        b = min(nrows, a + step)
+        dx = px[a:b, None] - qx[None, :]
+        dy = py[a:b, None] - qy[None, :]
+        d2 = dx * dx + dy * dy
+        d = d2 <= lo
+        definite += d.sum(dim=0, dtype=torch.int32)
+        band += (~d & (d2 <= hi)).sum(dim=0, dtype=torch.int32)
+    return definite, band
+
+
+def dwithin_counts(px, py, qx, qy, r2_hi: float, r2_lo: float, nrows: int):
+    """(definite, band) int32[k] on the points' device: per query point
+    (qx[q], qy[q]), the rows i < nrows of (px, py) whose f32 squared
+    distance is <= r2_lo, and those with r2_lo < d2 <= r2_hi. r2_hi and
+    r2_lo are f32 values."""
+    cap = px.shape[0]
+    _check_vec("px", px, torch.float32)
+    _check_vec("py", py, torch.float32, cap)
+    _check_vec("qx", qx, torch.float32)
+    _check_vec("qy", qy, torch.float32, qx.shape[0])
+    if not 0 <= nrows <= cap:
+        raise ValueError(f"nrows={nrows} outside [0, {cap}]")
+    if _on_cpu((px, py, qx, qy)):
+        return dwithin_counts_plain(px, py, qx, qy, r2_hi, r2_lo, nrows)
+    k, dev = qx.shape[0], px.device
+    definite = torch.zeros(k, dtype=torch.int32, device=dev)
+    band = torch.zeros(k, dtype=torch.int32, device=dev)
+    if k == 0 or nrows == 0:
+        return definite, band
+    rc = _library().geomesa_dwithin_counts(
+        px.data_ptr(), py.data_ptr(), nrows, qx.data_ptr(), qy.data_ptr(), k,
+        r2_hi, r2_lo, definite.data_ptr(), band.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "dwithin_counts")
+    launches["dwithin_counts"] += 1
+    return definite, band
+
+
+def _check_slabs(xs, ys, order, los, widths) -> tuple[np.ndarray, np.ndarray]:
+    """The sorted table's and the slabs' checks; the slabs on the host."""
+    cap = xs.shape[0]
+    _check_vec("xs", xs, torch.float32)
+    _check_vec("ys", ys, torch.float32, cap)
+    _check_vec("order", order, torch.int32, cap)
+    _check_vec("los", los, torch.int32)
+    _check_vec("widths", widths, torch.int32, los.shape[0])
+    lo_h = los.cpu().numpy().astype(np.int64)
+    w_h = widths.cpu().numpy().astype(np.int64)
+    if len(lo_h) and ((lo_h < 0).any() or (w_h < 0).any()
+                      or (lo_h + w_h > cap).any()):
+        raise ValueError(f"slabs must lie within the table's {cap} rows")
+    return lo_h, w_h
+
+
+def slab_pairs_plain(xs, ys, order, los, widths, qa, r2_hi: float,
+                     eps: float, box: bool):
+    """(rows, qi) int32[m]: per query in order, its slab columns in order
+    that match (box mode: inside qa[q]'s [xmin ymin xmax ymax] widened by
+    the f32 eps; radius mode: f32 d2 to qa[q]'s (x, y) <= r2_hi), as
+    order[lo + col] and q (a port of _slab_cand_flat and
+    _contains_cand_flat mapped to rows)."""
+    dev = xs.device
+    e, hi = _f32_scalar(eps, dev), _f32_scalar(r2_hi, dev)
+    rows, qis = [], []
+    for q, (lo, w) in enumerate(zip(los.tolist(), widths.tolist())):
+        if w <= 0:
+            continue
+        x, y = xs[lo:lo + w], ys[lo:lo + w]
+        a = qa[q]
+        if box:
+            hit = ((x >= a[0] - e) & (x <= a[2] + e)
+                   & (y >= a[1] - e) & (y <= a[3] + e))
+        else:
+            dx, dy = x - a[0], y - a[1]
+            hit = dx * dx + dy * dy <= hi
+        r = order[lo:lo + w][hit]
+        rows.append(r)
+        qis.append(torch.full_like(r, q))
+    if not rows:
+        empty = torch.empty(0, dtype=torch.int32, device=dev)
+        return empty, empty.clone()
+    return torch.cat(rows), torch.cat(qis)
+
+
+def slab_pairs(xs, ys, order, los, widths, qa, r2_hi: float, eps: float,
+               box: bool):
+    """(rows, qi) int32[m] on the table's device: the matching slab rows
+    of every query, query-major and in slab order. ``xs``, ``ys``: the
+    x-sorted f32 table (padded rows at x = +inf, y = NaN); ``order``:
+    its int32 row ids; ``los``, ``widths``: int32 slabs [lo, lo + width)
+    per query; ``qa``: (k, 4) f32 boxes (box mode) or (k, 2) f32 points
+    (radius mode); r2_hi and eps are f32 values."""
+    lo_h, w_h = _check_slabs(xs, ys, order, los, widths)
+    k = los.shape[0]
+    if (qa.dtype != torch.float32 or qa.shape != (k, 4 if box else 2)
+            or not qa.is_contiguous()):
+        raise ValueError(f"qa must be a contiguous ({k}, {4 if box else 2}) "
+                         f"float32 table")
+    if _on_cpu((xs, ys, order, los, widths, qa)):
+        return slab_pairs_plain(xs, ys, order, los, widths, qa, r2_hi, eps,
+                                box)
+    dev = xs.device
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    item = torch.from_numpy(work_items(w_h, SLAB_CHUNK)).to(dev)
+    items = item.shape[0]
+    if items == 0:
+        return empty, empty.clone()
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = torch.empty(items, dtype=torch.int32, device=dev)
+    args = (xs.data_ptr(), ys.data_ptr(), order.data_ptr(), los.data_ptr(),
+            widths.data_ptr(), item.data_ptr(), items, int(box),
+            qa.data_ptr(), r2_hi, eps)
+    rc = lib.geomesa_slab_pairs(*args, 0, counts.data_ptr(), None, None, None,
+                                stream)
+    _raise_on(rc, "slab_pairs")
+    launches["slab_pairs"] += 1
+    c = counts.cpu().numpy().astype(np.int64)
+    offsets = np.zeros(items, np.int64)
+    np.cumsum(c[:-1], out=offsets[1:])
+    total = int(c.sum())
+    if total == 0:
+        return empty, empty.clone()
+    offs = torch.from_numpy(offsets).to(dev)
+    rows = torch.empty(total, dtype=torch.int32, device=dev)
+    qi = torch.empty(total, dtype=torch.int32, device=dev)
+    rc = lib.geomesa_slab_pairs(*args, 1, None, offs.data_ptr(),
+                                rows.data_ptr(), qi.data_ptr(), stream)
+    _raise_on(rc, "slab_pairs")
+    launches["slab_pairs"] += 1
+    return rows, qi
+
+
+def _check_polys(xs, ys, order, los, widths, boxes, edges, ecount):
+    lo_h, w_h = _check_slabs(xs, ys, order, los, widths)
+    kp = los.shape[0]
+    if (boxes.dtype != torch.float32 or boxes.shape != (kp, 4)
+            or not boxes.is_contiguous()):
+        raise ValueError(f"boxes must be a contiguous ({kp}, 4) float32 table")
+    if (edges.dtype != torch.float32 or edges.dim() != 3
+            or edges.shape[0] != kp or edges.shape[1] < 1
+            or edges.shape[2] != 4 or not edges.is_contiguous()):
+        raise ValueError(f"edges must be a contiguous ({kp}, ne >= 1, 4) "
+                         f"float32 table")
+    _check_vec("ecount", ecount, torch.int32, kp)
+    ec = ecount.cpu().numpy()
+    if len(ec) and ((ec < 0).any() or (ec > edges.shape[1]).any()):
+        raise ValueError("ecount must lie in [0, ne]")
+    return lo_h, w_h
+
+
+def _contains_one(xs, ys, order, lo, w, box, edges, ec, e, eps2):
+    """(definite, band, band rows in slab order) of one polygon: its slab
+    rows inside the widened box, then pip_pairs_plain against its ec
+    valid edges (a port of _contains_counts_all's body)."""
+    x, y = xs[lo:lo + w], ys[lo:lo + w]
+    inbox = ((x >= box[0] - e) & (x <= box[2] + e)
+             & (y >= box[1] - e) & (y <= box[3] + e))
+    idx = torch.nonzero(inbox).flatten()
+    if ec == 0 or not len(idx):
+        return 0, 0, order[:0]
+    xi, yi, edg = x[idx], y[idx], edges[:ec]
+    inside = torch.empty(len(idx), dtype=torch.bool, device=xs.device)
+    band = torch.empty_like(inside)
+    step = max(1, _PIP_PLAIN_ELEMS // ec)
+    for a in range(0, len(idx), step):
+        cross, d2 = pip_pairs_plain(xi[a:a + step], yi[a:a + step], edg)
+        inside[a:a + step] = (cross.sum(dim=1) % 2) == 1
+        band[a:a + step] = d2.min(dim=1).values < eps2
+    rows = order[lo:lo + w][idx[band]]
+    return int((inside & ~band).sum()), int(band.sum()), rows
+
+
+def contains_counts_plain(xs, ys, order, los, widths, boxes, edges, ecount,
+                          eps: float, eps2: float, band_cap: int):
+    """(definite, band, band_rows): int32[kp] counts and the first
+    band_cap band rows per polygon, -1 filled (a port of
+    _contains_counts_all)."""
+    dev = xs.device
+    kp = los.shape[0]
+    dc = torch.zeros(kp, dtype=torch.int32, device=dev)
+    bc = torch.zeros(kp, dtype=torch.int32, device=dev)
+    brows = torch.full((kp, band_cap), -1, dtype=torch.int32, device=dev)
+    e, e2 = _f32_scalar(eps, dev), _f32_scalar(eps2, dev)
+    for p, (lo, w, ec) in enumerate(zip(los.tolist(), widths.tolist(),
+                                        ecount.tolist())):
+        if w <= 0:
+            continue
+        d, b, rows = _contains_one(xs, ys, order, lo, w, boxes[p], edges[p],
+                                   ec, e, e2)
+        dc[p], bc[p] = d, b
+        rows = rows[:band_cap]
+        brows[p, :len(rows)] = rows
+    return dc, bc, brows
+
+
+def contains_counts(xs, ys, order, los, widths, boxes, edges, ecount,
+                    eps: float, eps2: float, band_cap: int):
+    """(definite, band, band_rows) on the table's device: per polygon p,
+    its slab rows inside boxes[p] ([xmin ymin xmax ymax] widened by the
+    f32 eps) counted as definite (inside by the crossing number, least
+    squared distance to its ecount[p] valid edges of edges[p] >= eps2)
+    or band (< eps2), and its first band_cap band rows in slab order
+    (int32, -1 filled). The counts pass, then the rows pass for the
+    polygons with band rows."""
+    _, w_h = _check_polys(xs, ys, order, los, widths, boxes, edges, ecount)
+    if _on_cpu((xs, ys, order, los, widths, boxes, edges, ecount)):
+        return contains_counts_plain(xs, ys, order, los, widths, boxes, edges,
+                                     ecount, eps, eps2, band_cap)
+    if edges.data_ptr() % 16:
+        raise ValueError("the kernel reads edges as 16-byte vectors: edges "
+                         "must be 16-byte aligned")
+    dev = xs.device
+    kp = los.shape[0]
+    dc = torch.zeros(kp, dtype=torch.int32, device=dev)
+    bc = torch.zeros(kp, dtype=torch.int32, device=dev)
+    brows = torch.full((kp, band_cap), -1, dtype=torch.int32, device=dev)
+    item = work_items(w_h, CONTAINS_CHUNK)
+    if not len(item):
+        return dc, bc, brows
+    cband = _contains_counts_launch(xs, ys, los, widths, boxes, edges, ecount,
+                                    eps, eps2, item, dc, bc)
+    banded = np.flatnonzero(bc.cpu().numpy())
+    if len(banded) and band_cap > 0:
+        brows[torch.from_numpy(banded).to(xs.device)] = _contains_rows_launch(
+            xs, ys, order, los, widths, boxes, edges, ecount, eps, eps2, item,
+            cband, banded, kp, band_cap)
+    return dc, bc, brows
+
+
+def _contains_counts_launch(xs, ys, los, widths, boxes, edges, ecount, eps,
+                            eps2, item, dc, bc):
+    """The counts pass over the work items ``item`` (host (polygon,
+    chunk) pairs): dc, bc (zeroed) += the counts; the items' band counts
+    on the host."""
+    dev = xs.device
+    it = torch.from_numpy(item).to(dev)
+    cband = torch.empty(len(item), dtype=torch.int32, device=dev)
+    rc = _library().geomesa_contains_counts(
+        xs.data_ptr(), ys.data_ptr(), los.data_ptr(), widths.data_ptr(),
+        it.data_ptr(), len(item), boxes.data_ptr(), edges.data_ptr(),
+        ecount.data_ptr(), edges.shape[1], eps, eps2, dc.data_ptr(),
+        bc.data_ptr(), cband.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "contains_counts")
+    launches["contains_counts"] += 1
+    return cband.cpu().numpy()
+
+
+def band_row_items(item, cband, polys, kp: int, cap: int) -> np.ndarray:
+    """(n, 4) int32 work items of the contains kernel's rows pass:
+    (polygon, chunk, slot, offset) for each counts-pass item of a listed
+    polygon (slot: its index in ``polys``) with band rows (``cband``, the
+    counts pass's per-item band counts) that start before ``cap``; the
+    offset is the band rows of the polygon's earlier items."""
+    p = item[:, 0].astype(np.int64)
+    excl = np.cumsum(cband, dtype=np.int64) - cband
+    first = np.r_[True, p[1:] != p[:-1]]
+    off = excl - excl[np.maximum.accumulate(
+        np.where(first, np.arange(len(p)), 0))]
+    slot = np.full(kp, -1, np.int64)
+    slot[np.asarray(polys, np.int64)] = np.arange(len(polys))
+    keep = (cband > 0) & (off < cap) & (slot[p] >= 0)
+    return np.stack([p, item[:, 1], slot[p], off],
+                    axis=1)[keep].astype(np.int32)
+
+
+def _contains_rows_launch(xs, ys, order, los, widths, boxes, edges, ecount,
+                          eps, eps2, item, cband, polys, kp, cap):
+    """int32[len(polys), cap]: the rows pass over the items of the listed
+    polygons (distinct) that hold band rows, each from its offset within
+    its polygon (the exclusive prefix of the polygon's earlier items'
+    band counts), -1 filled."""
+    dev = xs.device
+    out = torch.full((len(polys), cap), -1, dtype=torch.int32, device=dev)
+    rows = band_row_items(item, cband, polys, kp, cap)
+    if not len(rows):
+        return out
+    rows = torch.from_numpy(rows).to(dev)
+    rc = _library().geomesa_contains_band_rows(
+        xs.data_ptr(), ys.data_ptr(), order.data_ptr(), los.data_ptr(),
+        widths.data_ptr(), rows.data_ptr(), rows.shape[0], boxes.data_ptr(),
+        edges.data_ptr(), ecount.data_ptr(), edges.shape[1], eps, eps2, cap,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "contains_counts")
+    launches["contains_counts"] += 1
+    return out
+
+
+def contains_band_rows_plain(xs, ys, order, los, widths, boxes, edges, ecount,
+                             eps: float, eps2: float, polys, cap: int):
+    """int32[len(polys), cap]: each listed polygon's first cap band rows
+    in slab order, -1 filled (a port of _contains_band_rows)."""
+    dev = xs.device
+    out = torch.full((len(polys), cap), -1, dtype=torch.int32, device=dev)
+    e, e2 = _f32_scalar(eps, dev), _f32_scalar(eps2, dev)
+    for i, p in enumerate(polys):
+        lo, w, ec = int(los[p]), int(widths[p]), int(ecount[p])
+        if w <= 0:
+            continue
+        rows = _contains_one(xs, ys, order, lo, w, boxes[p], edges[p], ec,
+                             e, e2)[2][:cap]
+        out[i, :len(rows)] = rows
+    return out
+
+
+def contains_band_rows(xs, ys, order, los, widths, boxes, edges, ecount,
+                       eps: float, eps2: float, polys, cap: int):
+    """int32[len(polys), cap] on the table's device: the first cap band
+    rows, in slab order, of each listed polygon (distinct indices into
+    the tables of ``contains_counts``), -1 filled: a counts pass over the
+    listed polygons' work items, then the rows pass."""
+    _check_polys(xs, ys, order, los, widths, boxes, edges, ecount)
+    polys = [int(p) for p in polys]
+    if any(not 0 <= p < los.shape[0] for p in polys) or cap < 1:
+        raise ValueError("polys must index the polygon tables, cap >= 1")
+    if _on_cpu((xs, ys, order, los, widths, boxes, edges, ecount)):
+        return contains_band_rows_plain(xs, ys, order, los, widths, boxes,
+                                        edges, ecount, eps, eps2, polys, cap)
+    if edges.data_ptr() % 16:
+        raise ValueError("the kernel reads edges as 16-byte vectors: edges "
+                         "must be 16-byte aligned")
+    if not polys:
+        return torch.full((0, cap), -1, dtype=torch.int32, device=xs.device)
+    if len(set(polys)) != len(polys):
+        raise ValueError("polys must be distinct")
+    # the listed polygons' work items, their band counts by a counts pass
+    # into scratch counts, then the rows pass
+    w_h = widths.cpu().numpy()
+    item = work_items(w_h[polys], CONTAINS_CHUNK)
+    item[:, 0] = np.asarray(polys)[item[:, 0]]
+    kp = los.shape[0]
+    out = torch.full((len(polys), cap), -1, dtype=torch.int32,
+                     device=xs.device)
+    if not len(item):
+        return out
+    scratch = torch.zeros((2, kp), dtype=torch.int32, device=xs.device)
+    cband = _contains_counts_launch(xs, ys, los, widths, boxes, edges, ecount,
+                                    eps, eps2, item, scratch[0], scratch[1])
+    return _contains_rows_launch(xs, ys, order, los, widths, boxes, edges,
+                                 ecount, eps, eps2, item, cband, polys, kp, cap)
+
+
+def knn_topk_plain(px, py, qx, qy, kpad: int, nrows: int):
+    """(d2 f32, idx int64), each (Q, kpad): per query the kpad smallest
+    f32 d2 = dx*dx + dy*dy over every row (+inf for rows >= nrows),
+    ascending, ties and NaNs (last) by row id: a stable sort, which is
+    lax.top_k's order on -d2 (a port of _knn_kernel)."""
+    q = qx.shape[0]
+    d2 = torch.empty((q, kpad), dtype=torch.float32, device=px.device)
+    idx = torch.empty((q, kpad), dtype=torch.int64, device=px.device)
+    for i in range(q):
+        dx, dy = px - qx[i], py - qy[i]
+        v = dx * dx + dy * dy
+        v[nrows:] = float("inf")
+        s, o = torch.sort(v, stable=True)
+        d2[i], idx[i] = s[:kpad], o[:kpad]
+    return d2, idx
+
+
+def knn_topk(px, py, qx, qy, kpad: int, nrows: int):
+    """(d2 f32, idx int64), each (Q, kpad), on the points' device: per
+    query point the kpad smallest (f32 squared distance, row) keys over
+    the rows of (px, py), rows >= nrows at +inf, ascending in (d2, row)
+    order with NaN above +inf. kpad is at most KNN_MAX_KPAD on CUDA."""
+    cap = px.shape[0]
+    _check_vec("px", px, torch.float32)
+    _check_vec("py", py, torch.float32, cap)
+    _check_vec("qx", qx, torch.float32)
+    _check_vec("qy", qy, torch.float32, qx.shape[0])
+    if not 1 <= kpad <= cap or not 0 <= nrows <= cap:
+        raise ValueError(f"kpad={kpad} must lie in [1, {cap}] and "
+                         f"nrows={nrows} in [0, {cap}]")
+    if _on_cpu((px, py, qx, qy)):
+        return knn_topk_plain(px, py, qx, qy, kpad, nrows)
+    if kpad > KNN_MAX_KPAD:
+        raise ValueError(f"kpad={kpad}: the knn kernel keeps at most "
+                         f"{KNN_MAX_KPAD} keys a query")
+    dev = px.device
+    nq = qx.shape[0]
+    if nq == 0:
+        return (torch.empty((0, kpad), dtype=torch.float32, device=dev),
+                torch.empty((0, kpad), dtype=torch.int64, device=dev))
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sbuf = 1 << (kpad + KNN_TILE).bit_length()   # > kpad + a tile
+    # rows past nrows + kpad rank after those before them
+    length = min(cap, nrows + kpad)
+    keys_in = None
+    while True:
+        chunk = lib.geomesa_knn_chunk(length, nq, kpad, sbuf,
+                                      int(keys_in is not None))
+        if chunk < 1:
+            raise RuntimeError("knn_topk: the kernel's occupancy is unknown")
+        nchunks = -(-length // chunk)
+        keys = torch.empty((nq, nchunks, kpad), dtype=torch.int64, device=dev)
+        rc = lib.geomesa_knn_select(
+            px.data_ptr(), py.data_ptr(), nrows, qx.data_ptr(), qy.data_ptr(),
+            None if keys_in is None else keys_in.data_ptr(), length, nq, kpad,
+            sbuf, chunk, keys.data_ptr(), stream)
+        _raise_on(rc, "knn_topk")
+        launches["knn_topk"] += 1
+        if nchunks == 1:
+            break
+        keys_in, length = keys, nchunks * kpad
+    keys = keys.view(nq, kpad)
+    return (keys >> 32).to(torch.int32).view(torch.float32), keys & 0xFFFFFFFF

@@ -33,7 +33,8 @@ __all__ = ["MAX_ROWS", "MILLIS_PER_DAY", "BatchedScanQuery", "ScanData",
            "build_scan_data", "exact_patch", "extend_scan_data", "make_query",
            "next_pow2", "pack_rows", "patch_hit_rows", "scan_count",
            "scan_data_from_numpy", "scan_mask", "scan_mask_at",
-           "scan_mask_batch", "split_two_float", "stack_queries"]
+           "scan_mask_batch", "split_two_float", "stack_points",
+           "stack_queries"]
 
 MILLIS_PER_DAY = 86_400_000
 
@@ -422,6 +423,28 @@ def batch_hit_rows(data: ScanData, bq: BatchedScanQuery
     return tuple(np.split(ids.cpu().numpy(), np.cumsum(cnt)[:-1])
                  for ids, cnt in ((hit_ids, counts[0]),
                                   (cand_ids, counts[1])))
+
+
+def stack_points(qx, qy, min_batch: int = 1
+                 ) -> tuple[np.ndarray, np.ndarray, int]:
+    """Stack query POINTS into one pow2-padded f32 batch, the point-query
+    analog of ``stack_queries`` (multi-query KNN). Returns ``(qx_pad,
+    qy_pad, nq)``: the batch dim is the next power of two >= max(nq,
+    min_batch), and padding rows repeat the first query, so they are
+    valid coordinates (callers slice results back to ``nq``)."""
+    qx = np.atleast_1d(np.asarray(qx, np.float64))
+    qy = np.atleast_1d(np.asarray(qy, np.float64))
+    if qx.shape != qy.shape or qx.ndim != 1:
+        raise ValueError("stack_points needs matching 1-d coordinates")
+    nq = len(qx)
+    if nq == 0:
+        raise ValueError("stack_points needs at least one query point")
+    qp = max(next_pow2(nq), max(min_batch, 1))
+    qxp = np.full(qp, qx[0], dtype=np.float32)
+    qyp = np.full(qp, qy[0], dtype=np.float32)
+    qxp[:nq] = qx.astype(np.float32)
+    qyp[:nq] = qy.astype(np.float32)
+    return qxp, qyp, nq
 
 
 # -- exact f64 boundary patch (host) -----------------------------------------

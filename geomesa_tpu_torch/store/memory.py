@@ -91,6 +91,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import threading
 import weakref
 from typing import Any, Iterator
@@ -104,7 +105,8 @@ from ..features.sft import SimpleFeatureType, parse_spec
 from ..filters import ast
 from ..filters.ecql import parse_ecql
 from ..filters.evaluate import evaluate
-from ..filters.helper import (extract_attribute_bounds, extract_geometries,
+from ..filters.helper import (coerce_literals, extract_attribute_bounds,
+                              extract_geometries,
                               extract_intervals, is_box, to_millis)
 from ..geometry import MultiPolygon, Polygon
 from ..index.api import Explainer, FilterStrategy, Query, QueryHints
@@ -137,6 +139,11 @@ HOST_SCAN_ROWS = SystemProperty("geomesa.scan.host.rows", "2000000")
 # crossover to the dense device tristate sits much lower
 EXTENT_HOST_SCAN_ROWS = SystemProperty("geomesa.scan.extent.host.rows",
                                        "50000")
+
+# ready the join and KNN paths (analytics/join.prewarm_join_kernels: the
+# kernel library's build and the table's x-sort) at bulk-ingest time,
+# so the first join or KNN query does not pay them
+JOIN_PREWARM = SystemProperty("geomesa.join.prewarm", "true")
 
 _WHOLE_WORLD = (-180.0, -90.0, 180.0, 90.0)
 
@@ -513,6 +520,10 @@ class InMemoryDataStore(DataStore):
     the caller asks for another device, and raises when CUDA is absent.
     """
 
+    # bulk writes at or above this into an empty type build the index
+    # (and ready the join paths) eagerly, so the first query finds it
+    _EAGER_INDEX_ROWS = 5_000_000
+
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self._op_lock = threading.RLock()
@@ -572,9 +583,36 @@ class InMemoryDataStore(DataStore):
         st = self._state(type_name)
         if batch.sft != st.sft:
             raise ValueError("batch schema does not match store schema")
+        was_empty = st.n == 0
         st.append(batch, visibilities)
         # the write-side stats (StatsCombiner analog), on the host batch
         self.stats.observe(st.sft, batch)
+        # initial bulk load only: later chunks fold into one incremental
+        # merge at the next read
+        if was_empty and batch.n >= self._EAGER_INDEX_ROWS:
+            try:
+                st.ensure_index()
+                self._prewarm_join(st)
+            except MemoryError:
+                raise
+            except Exception:
+                logging.getLogger("geomesa_tpu_torch").warning(
+                    "ingest-time index build failed; falling back to "
+                    "lazy build on first read", exc_info=True)
+
+    @staticmethod
+    def _prewarm_join(st: _TypeState):
+        """Ready the join paths for this type's table during ingest
+        (``geomesa.join.prewarm``): the kernel library's build and the
+        resident columns' x-sort, as the reference compiles its join
+        kernels there."""
+        if str(JOIN_PREWARM.get()).lower() not in ("true", "1", "yes"):
+            return
+        sd = st.scan_data
+        if sd is None:   # an extent schema: no point columns to join
+            return
+        from ..analytics.join import prewarm_join_kernels
+        prewarm_join_kernels(device_xy=(sd.xhi, sd.yhi), nrows=st.n)
 
     @_synchronized
     def delete(self, type_name: str, ids):
@@ -677,6 +715,7 @@ class InMemoryDataStore(DataStore):
         WITHIN goes through query(), as in the reference); else None."""
         explain = Explainer(explain_out)
         explain.push(lambda: f"Batched '{q.type_name}' filter={q.filter}")
+        q = _coerced(q, st.sft)
         strategy = decide_strategy(st.sft, q, _indices(st.sft), st.n,
                                    stats=self.stats.get(q.type_name),
                                    explain=explain)
@@ -732,6 +771,7 @@ class InMemoryDataStore(DataStore):
             explain("Store is empty")
             return (np.empty(0, dtype=np.int64),
                     FilterStrategy("empty", None, None), None)
+        q = _coerced(q, st.sft)
         strategy = decide_strategy(st.sft, q, _indices(st.sft), st.n,
                                    stats=self.stats.get(q.type_name),
                                    explain=explain)
@@ -1219,6 +1259,13 @@ def _needs_exact(geoms, primary: ast.Filter) -> bool:
     return any(not is_box(g) for g in geoms) or any(
         isinstance(c, (ast.DWithin, ast.SpatialPredicate))
         for c in ast.walk(primary))
+
+
+def _coerced(q: Query, sft: SimpleFeatureType) -> Query:
+    """``q`` with its quoted Date and numeric literals as the attributes'
+    types (filters/helper.coerce_literals)."""
+    f = coerce_literals(q.filter, sft)
+    return q if f is q.filter else dataclasses.replace(q, filter=f)
 
 
 def _as_filter(ecql) -> ast.Filter:

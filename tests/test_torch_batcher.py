@@ -161,9 +161,17 @@ class TestPassthrough:
         assert b._queues == {}
 
     def test_knn_belongs_to_a_later_slice(self):
-        b = QueryBatcher(GatingStore(), max_batch=8)
-        with pytest.raises(NotImplementedError, match="slice"):
-            b.knn("ships", 0.0, 0.0, 5)
+        """The analytics slice brought knn: it answers as the JAX
+        package's knn_process does, id for id (no longer raising)."""
+        from geomesa_tpu.analytics.processes import knn_process
+        ds = GatingStore()
+        _fill(ds, "ships")
+        ref = JaxStore()
+        _fill(ref, "ships")
+        b = QueryBatcher(ds, max_batch=8)
+        ids, d = b.knn("ships", 0.0, 0.0, 5)
+        want_ids, want_d = knn_process(ref, "ships", 0.0, 0.0, 5)
+        assert list(ids) == list(want_ids) and np.array_equal(d, want_d)
 
 
 class TestCoalescing:

@@ -1,0 +1,705 @@
+"""The port's spatial joins and KNN (analytics/join.py, utils/fp.py,
+zscan.stack_points, and the plain versions of the four join kernels)
+against the JAX package's analytics/join.py on the CPU, on the same
+seeded numpy inputs: 20k-point clouds with duplicated coordinates,
+points on thresholds and polygon edges, holes, multipolygons, a band
+that overflows its cap, capacity-padded device columns.
+
+Tolerance: exact everywhere. Counts, pairs, ids and f64 distances are
+equal arrays in the same order; so are the kernels' f32 intermediates
+(definite and band counts, candidate pairs, polygon counts and band
+rows, the knn window's d2 bits and rows) against the JAX package's
+jitted programs."""
+
+import gc
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from geomesa_tpu.analytics import join as jj
+from geomesa_tpu.geometry import parse_wkt as jwkt
+from geomesa_tpu.scan import zscan as jzscan
+from geomesa_tpu.utils import fp as jfp
+from geomesa_tpu_torch.analytics import join as tj
+from geomesa_tpu_torch.geometry import parse_wkt
+from geomesa_tpu_torch.scan import kernels, zscan
+from geomesa_tpu_torch.scan.gscan import EDGE_EPS, EDGE_EPS2
+from geomesa_tpu_torch.utils import fp
+
+CPU = "cpu"
+
+
+@pytest.fixture(scope="module")
+def cloud():
+    rng = np.random.default_rng(7)
+    n = 20_000
+    px = rng.uniform(-180, 180, n)
+    py = rng.uniform(-90, 90, n)
+    # duplicate coordinates: distance ties across distinct ids
+    px[1000:1200] = px[:200]
+    py[1000:1200] = py[:200]
+    return px, py
+
+
+def _padded(px, py, pad, fill):
+    """(torch, jax) f32 device columns of (px, py) with ``pad`` padding
+    rows at ``fill``."""
+    x = np.concatenate([px, np.full(pad, fill[0])]).astype(np.float32)
+    y = np.concatenate([py, np.full(pad, fill[1])]).astype(np.float32)
+    return ((torch.from_numpy(x), torch.from_numpy(y)),
+            (jnp.asarray(x), jnp.asarray(y)))
+
+
+def _rect(cx, cy, w, h):
+    return (f"POLYGON(({cx - w} {cy - h}, {cx + w} {cy - h}, {cx + w} "
+            f"{cy + h}, {cx - w} {cy + h}, {cx - w} {cy - h}))")
+
+
+def _star(cx, cy, r1, r2, k, hole=None):
+    a = np.linspace(0, 2 * np.pi, 2 * k, endpoint=False)
+    r = np.where(np.arange(2 * k) % 2 == 0, r1, r2)
+    pts = np.c_[cx + r * np.cos(a), cy + r * np.sin(a)]
+    rings = [np.vstack([pts, pts[:1]])]
+    if hole:
+        h = np.array([[cx - hole, cy - hole], [cx + hole, cy - hole],
+                      [cx + hole, cy + hole], [cx - hole, cy + hole],
+                      [cx - hole, cy - hole]])
+        rings.append(h)
+    return "POLYGON(" + ", ".join(
+        "(" + ", ".join(f"{float(x)!r} {float(y)!r}" for x, y in r) + ")"
+        for r in rings) + ")"
+
+
+POLYGONS = [
+    _rect(0.0, 0.0, 20.0, 20.0),
+    "POLYGON((-60 -40, 60 -40, 60 40, -60 40, -60 -40), "
+    "(-20 -20, 20 -20, 20 20, -20 20, -20 -20))",
+    "MULTIPOLYGON(((-170 -80, -120 -80, -120 -30, -170 -30, -170 -80)), "
+    "((120 30, 170 30, 170 80, 120 80, 120 30), "
+    "(130 40, 160 40, 160 70, 130 70, 130 40)))",
+    _star(50.0, -20.0, 30.0, 12.0, 7, hole=4.0),
+    _rect(100.0, 50.0, 10.0, 10.0),
+    _rect(179.0, 89.0, 0.5, 0.5),
+    "POLYGON((200 200, 201 200, 201 201, 200 201, 200 200))",
+]
+
+
+def _polys(wkts):
+    return [jwkt(w) for w in wkts], [parse_wkt(w) for w in wkts]
+
+
+# -- fp and stack_points ---------------------------------------------------
+
+@pytest.mark.parametrize("r", [0.0, 1e-9, 1e-4, 0.25, 3.0, 90.0])
+@pytest.mark.parametrize("span", [1.0, 360.0])
+def test_f32_band_matches_reference(r, span):
+    assert fp.f32_band(r, span) == jfp.f32_band(r, span)
+
+
+@pytest.mark.parametrize("nq,min_batch", [(1, 1), (3, 1), (8, 1), (9, 1),
+                                          (2, 16)])
+def test_stack_points_matches_reference(nq, min_batch):
+    rng = np.random.default_rng(nq)
+    qx, qy = rng.uniform(-180, 180, nq), rng.uniform(-90, 90, nq)
+    got = zscan.stack_points(qx, qy, min_batch)
+    want = jzscan.stack_points(qx, qy, min_batch)
+    assert got[2] == want[2]
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert got[0].dtype == want[0].dtype == np.float32
+
+
+def test_stack_points_refuses_what_the_reference_refuses():
+    for args in ((np.zeros(2), np.zeros(3)), (np.zeros(0), np.zeros(0))):
+        with pytest.raises(ValueError):
+            jzscan.stack_points(*args)
+        with pytest.raises(ValueError):
+            zscan.stack_points(*args)
+
+
+# -- dwithin ----------------------------------------------------------------
+
+@pytest.mark.parametrize("counts_only", [True, False])
+@pytest.mark.parametrize("radius", [0.5, 3.0, 40.0])
+def test_dwithin_join_matches_reference(cloud, counts_only, radius):
+    px, py = cloud
+    rng = np.random.default_rng(int(radius * 10))
+    qx, qy = rng.uniform(-170, 170, 64), rng.uniform(-80, 80, 64)
+    got = tj.dwithin_join(px, py, qx, qy, radius, counts_only=counts_only,
+                          device=CPU)
+    want = jj.dwithin_join(px, py, qx, qy, radius, counts_only=counts_only)
+    assert np.array_equal(got[0], want[0])
+    if counts_only:
+        assert got[1] is None and want[1] is None
+    else:
+        assert np.array_equal(got[1], want[1])
+        d2 = (px[:, None] - qx) ** 2 + (py[:, None] - qy) ** 2
+        assert np.array_equal(got[0], (d2 <= radius * radius).sum(axis=0))
+
+
+@pytest.mark.parametrize("counts_only", [True, False])
+def test_dwithin_threshold_boundary(counts_only):
+    """A point exactly at the radius is in (closed), its neighbour 1e-6
+    beyond is out (test_analytics.py:90)."""
+    px, py = np.array([3.0, 3.000001]), np.array([4.0, 4.0])
+    got = tj.dwithin_join(px, py, np.array([0.0]), np.array([0.0]), 5.0,
+                          counts_only=counts_only, device=CPU)
+    want = jj.dwithin_join(px, py, np.array([0.0]), np.array([0.0]), 5.0,
+                           counts_only=counts_only)
+    assert got[0][0] == want[0][0] == 1
+    if not counts_only:
+        assert np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("counts_only", [True, False])
+def test_dwithin_device_xy_padded(counts_only):
+    """Capacity-padded resident columns (test_analytics.py:120): padded
+    rows sit inside the query area and never match."""
+    rng = np.random.default_rng(23)
+    px, py = rng.uniform(-10, 10, 5_000), rng.uniform(-10, 10, 5_000)
+    qx, qy = rng.uniform(-10, 10, 64), rng.uniform(-10, 10, 64)
+    tdev, jdev = _padded(px, py, 1000, (0.0, 0.0))
+    got = tj.dwithin_join(px, py, qx, qy, 0.5, counts_only=counts_only,
+                          device_xy=tdev)
+    want = jj.dwithin_join(px, py, qx, qy, 0.5, counts_only=counts_only,
+                           device_xy=jdev)
+    d2 = (px[:, None] - qx) ** 2 + (py[:, None] - qy) ** 2
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[0], (d2 <= 0.25).sum(axis=0))
+    if not counts_only:
+        assert np.array_equal(got[1], want[1])
+
+
+def test_dwithin_empty_sides():
+    one = np.array([1.0])
+    for px, qx in ((np.empty(0), one), (one, np.empty(0))):
+        for co in (True, False):
+            got = tj.dwithin_join(px, px, qx, qx, 1.0, counts_only=co,
+                                  device=CPU)
+            want = jj.dwithin_join(px, px, qx, qx, 1.0, counts_only=co)
+            assert np.array_equal(got[0], want[0])
+            if not co:
+                assert got[1].shape == want[1].shape == (0, 2)
+
+
+@pytest.mark.parametrize("nrows", [20_000, 13_001, 0])
+def test_dwithin_counts_plain_matches_reference(cloud, nrows):
+    """J1's plain version against _dwithin_counts_all on the same f32
+    columns (past nrows: capacity padding), definite and band counts."""
+    px, py = cloud
+    rng = np.random.default_rng(3)
+    k = 256
+    qx = rng.uniform(-170, 170, k).astype(np.float32)
+    qy = rng.uniform(-80, 80, k).astype(np.float32)
+    qx[:8], qy[:8] = px[:8] + 2.0, py[:8]   # rows on each band's edge
+    r2_hi, r2_lo = fp.f32_band(2.0, 360.0)
+    x32, y32 = px.astype(np.float32), py.astype(np.float32)
+    got = kernels.dwithin_counts_plain(
+        torch.from_numpy(x32), torch.from_numpy(y32), torch.from_numpy(qx),
+        torch.from_numpy(qy), float(np.float32(r2_hi)),
+        float(np.float32(r2_lo)), nrows)
+    want = jj._dwithin_counts_all(
+        jnp.asarray(x32), jnp.asarray(y32), jnp.asarray(qx[None]),
+        jnp.asarray(qy[None]), jnp.ones((1, k), bool), np.float32(r2_hi),
+        np.float32(r2_lo), np.int32(nrows))
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0])[0])
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1])[0])
+    assert nrows == 0 or int(got[1].sum()) > 0
+
+
+def _jax_sorted(x32, y32, nrows):
+    xs, order = jj._sorted_by_x(jnp.asarray(x32), np.int32(nrows))
+    return np.asarray(xs), np.asarray(order)
+
+
+@pytest.mark.parametrize("nrows", [20_000, 19_000])
+def test_sorted_by_x_matches_reference(cloud, nrows):
+    px, py = cloud
+    x32, y32 = px.astype(np.float32), py.astype(np.float32)
+    x32[5:9] = 0.0
+    x32[9:12] = -0.0   # signed zeros tie, as jnp.argsort's order keeps them
+    xs, ys, order = tj._sorted_by_x(torch.from_numpy(x32),
+                                    torch.from_numpy(y32), nrows)
+    jxs, jorder = _jax_sorted(x32, y32, nrows)
+    assert np.array_equal(xs.numpy(), jxs)
+    assert np.array_equal(order.numpy(), jorder)
+    real = jorder < nrows
+    assert np.array_equal(ys.numpy()[real], y32[jorder[real]])
+    assert np.isnan(ys.numpy()[~real]).all()
+
+
+def _slab_case(cloud, nrows, box):
+    """The port's and the reference's slab candidates over the same
+    slabs: (rows, qi) from the plain kernel, and the reference's flat
+    grid indices mapped through its order."""
+    px, py = cloud
+    x32, y32 = px.astype(np.float32), py.astype(np.float32)
+    xs, ys, order = tj._sorted_by_x(torch.from_numpy(x32),
+                                    torch.from_numpy(y32), nrows)
+    rng = np.random.default_rng(5)
+    k = 40
+    cx, cy = rng.uniform(-170, 170, k), rng.uniform(-80, 80, k)
+    if box:
+        b64 = np.stack([cx - 2, cy - 3, cx + 2.5, cy + 1], axis=1)
+        los_t, w_t, los, widths = tj._contains_slab_setup(xs, b64)
+        qa = b64.astype(np.float32)
+        eps = float(np.float32(EDGE_EPS))
+        r2_hi = 0.0
+    else:
+        r2_hi, _ = fp.f32_band(2.0, 360.0)
+        r2_hi = float(np.float32(r2_hi))
+        los_t, w_t, los, widths = tj._slab_bounds(
+            xs, cx.astype(np.float32), np.float32(2.1))
+        qa = np.stack([cx, cy], axis=1).astype(np.float32)
+        eps = 0.0
+    rows, qi = kernels.slab_pairs_plain(xs, ys, order, los_t, w_t,
+                                        torch.from_numpy(qa), r2_hi, eps,
+                                        box)
+    jxs, jorder = _jax_sorted(x32, y32, nrows)
+    smax = 1 << (int(widths.max()) - 1).bit_length()
+    args = (jnp.asarray(jxs), jnp.asarray(jorder), jnp.asarray(los),
+            jnp.asarray(widths))
+    if box:
+        total = int(jj._contains_cand_count(
+            *args, jnp.asarray(qa), jnp.asarray(x32), jnp.asarray(y32),
+            np.int32(nrows), smax))
+        flat = np.asarray(jj._contains_cand_flat(
+            *args, jnp.asarray(qa), jnp.asarray(x32), jnp.asarray(y32),
+            np.int32(nrows), smax, max(total, 1)))
+    else:
+        cargs = (jnp.asarray(qa[:, 0]), jnp.asarray(qa[:, 1]),
+                 jnp.asarray(x32), jnp.asarray(y32), np.float32(r2_hi))
+        total = int(jj._slab_cand_count(*args, *cargs, smax))
+        flat = np.asarray(jj._slab_cand_flat(*args, *cargs, smax,
+                                             max(total, 1)))
+    flat = flat[flat >= 0]
+    jqi = flat // smax
+    jrows = jorder[np.minimum(los[jqi] + flat - jqi * smax, len(jorder) - 1)]
+    keep = jrows < nrows
+    return rows.numpy(), qi.numpy(), jrows[keep], jqi[keep], total
+
+
+@pytest.mark.parametrize("box", [False, True])
+@pytest.mark.parametrize("nrows", [20_000, 17_500])
+def test_slab_pairs_plain_matches_reference(cloud, box, nrows):
+    """J2's plain version: the reference's flatnonzero of the (query,
+    column) grid, query-major and column-ascending, mapped to rows."""
+    rows, qi, jrows, jqi, total = _slab_case(cloud, nrows, box)
+    assert total > 100
+    assert np.array_equal(rows, jrows) and np.array_equal(qi, jqi)
+
+
+# -- contains ---------------------------------------------------------------
+
+@pytest.mark.parametrize("counts_only", [True, False])
+def test_contains_join_matches_reference(cloud, counts_only):
+    px, py = cloud
+    jp, tp = _polys(POLYGONS)
+    got = tj.contains_join(tp, px, py, counts_only=counts_only, device=CPU)
+    want = jj.contains_join(jp, px, py, counts_only=counts_only)
+    assert np.array_equal(got[0], want[0])
+    assert got[0][-1] == 0 and got[0][:5].min() > 0
+    for j, p in enumerate(tp):
+        assert got[0][j] == int(p.contains_points(px, py).sum())
+    if not counts_only:
+        assert np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("counts_only", [True, False])
+def test_contains_band_overflow(counts_only):
+    """More than band_cap = 256 band rows in one polygon: 600 points on
+    its right edge and 30 on its bottom edge (test_batched_knn.py:297),
+    resolved through the band-row re-extraction, exact."""
+    rng = np.random.default_rng(6)
+    n = 20_000
+    px, py = rng.uniform(-2, 2, n), rng.uniform(-2, 2, n)
+    px[:600], py[:600] = 1.0, np.linspace(-1, 1, 600)
+    px[600:630], py[600:630] = np.linspace(-1, 1, 30), -1.0
+    jp, tp = _polys([_rect(0.0, 0.0, 1.0, 1.0), _rect(0.5, 0.5, 0.25, 0.25)])
+    got = tj.contains_join(tp, px, py, counts_only=counts_only, device=CPU)
+    want = jj.contains_join(jp, px, py, counts_only=counts_only)
+    assert np.array_equal(got[0], want[0])
+    assert got[0][0] == int(tp[0].contains_points(px, py).sum())
+    if not counts_only:
+        assert np.array_equal(got[1], want[1])
+
+
+def _contains_tables(px, py, nrows, wkts):
+    """Both packages' batched polygon tables over the same f32 columns."""
+    x32, y32 = px.astype(np.float32), py.astype(np.float32)
+    jp, tp = _polys(wkts)
+    xs, ys, order = tj._sorted_by_x(torch.from_numpy(x32),
+                                    torch.from_numpy(y32), nrows)
+    b64 = np.array([p.envelope.as_tuple() for p in tp])
+    _, _, los, widths = tj._contains_slab_setup(xs, b64)
+    kp = tj._poly_pad(len(tp))
+    edges, evalid, boxes32 = tj.pack_polygon_batch(tp, pad_to=kp)
+    jedges, jevalid, jboxes32 = jj.pack_polygon_batch(jp, pad_to=kp)
+    assert np.array_equal(edges, jedges) and np.array_equal(evalid, jevalid)
+    assert np.array_equal(boxes32, jboxes32)
+    lp, wp = np.zeros(kp, np.int32), np.zeros(kp, np.int32)
+    lp[:len(tp)], wp[:len(tp)] = los, widths
+    tables = (xs, ys, order, torch.from_numpy(lp), torch.from_numpy(wp),
+              torch.from_numpy(boxes32), torch.from_numpy(edges),
+              torch.from_numpy(evalid.sum(axis=1).astype(np.int32)))
+    jxs, jorder = _jax_sorted(x32, y32, nrows)
+    smax = 1 << (int(widths.max()) - 1).bit_length()
+    jargs = (jnp.asarray(jxs), jnp.asarray(jorder), jnp.asarray(lp),
+             jnp.asarray(wp), jnp.asarray(boxes32), jnp.asarray(edges),
+             jnp.asarray(evalid), jnp.asarray(x32), jnp.asarray(y32),
+             np.int32(nrows), smax)
+    return tables, jargs
+
+
+@pytest.mark.parametrize("band_cap", [256, 3])
+def test_contains_counts_plain_matches_reference(band_cap):
+    """J3's plain version against _contains_counts_all: definite and
+    band counts and the first band_cap band rows, on points placed on
+    edges and vertices (the band) and capacity padding past nrows."""
+    rng = np.random.default_rng(11)
+    n = 30_000
+    px, py = rng.uniform(-100, 100, n), rng.uniform(-60, 60, n)
+    px[:40], py[:40] = 20.0, np.linspace(-20, 20, 40)
+    px[40:70], py[40:70] = np.linspace(-60, 60, 30), -40.0
+    tables, jargs = _contains_tables(px, py, n - 500, POLYGONS[:5])
+    dc, bc, brows = kernels.contains_counts_plain(
+        *tables, float(np.float32(EDGE_EPS)), EDGE_EPS2, band_cap)
+    jdc, jbc, jbrows = jj._contains_counts_all(*jargs, band_cap)
+    assert np.array_equal(dc.numpy(), np.asarray(jdc))
+    assert np.array_equal(bc.numpy(), np.asarray(jbc))
+    assert np.array_equal(brows.numpy(), np.asarray(jbrows))
+    assert int(bc.max()) > 3   # a band past the smaller cap
+
+
+def test_contains_band_rows_plain_matches_reference():
+    rng = np.random.default_rng(6)
+    n = 20_000
+    px, py = rng.uniform(-2, 2, n), rng.uniform(-2, 2, n)
+    px[:600], py[:600] = 1.0, np.linspace(-1, 1, 600)
+    tables, jargs = _contains_tables(px, py, n, [_rect(0.0, 0.0, 1.0, 1.0)])
+    got = kernels.contains_band_rows_plain(
+        *tables, float(np.float32(EDGE_EPS)), EDGE_EPS2, [0], 1024)
+    xs, order, los, widths, boxes, edges, evalid, x, y, nrows, smax = jargs
+    want = jj._contains_band_rows(xs, order, np.int32(los[0]),
+                                  np.int32(widths[0]), boxes[0], edges[0],
+                                  evalid[0], x, y, nrows, smax, 1024)
+    assert np.array_equal(got.numpy()[0], np.asarray(want))
+    assert (got >= 0).sum() >= 600
+
+
+def test_contains_device_xy_padded(cloud):
+    px, py = cloud
+    jp, tp = _polys(POLYGONS)
+    tdev, jdev = _padded(px, py, 3000, (0.0, 0.0))
+    for co in (True, False):
+        got = tj.contains_join(tp, px, py, counts_only=co, device_xy=tdev)
+        want = jj.contains_join(jp, px, py, counts_only=co, device_xy=jdev)
+        assert np.array_equal(got[0], want[0])
+        if not co:
+            assert np.array_equal(got[1], want[1])
+
+
+def test_contains_empty_inputs():
+    jp, tp = _polys([_rect(0, 0, 1, 1)])
+    one = np.array([1.0])
+    got = tj.contains_join([], one, one, device=CPU)
+    assert len(got[0]) == 0 and got[1].shape == (0, 2)
+    got = tj.contains_join(tp, np.empty(0), np.empty(0), counts_only=True,
+                           device=CPU)
+    want = jj.contains_join(jp, np.empty(0), np.empty(0), counts_only=True)
+    assert np.array_equal(got[0], want[0]) and got[1] is None
+
+
+# -- knn --------------------------------------------------------------------
+
+def _knn_oracle(px, py, qx, qy, k):
+    d2 = (px - qx) ** 2 + (py - qy) ** 2
+    return np.lexsort((np.arange(len(px)), d2))[:k]
+
+
+@pytest.mark.parametrize("k", [1, 100])
+@pytest.mark.parametrize("nq", [1, 8, 64])
+def test_knn_batched_matches_reference(cloud, k, nq):
+    px, py = cloud
+    rng = np.random.default_rng(nq * 100 + k)
+    qx, qy = rng.uniform(-180, 180, nq), rng.uniform(-90, 90, nq)
+    d, ids = tj.knn_batched(px, py, qx, qy, k, device=CPU)
+    jd, jids = jj.knn_batched(px, py, qx, qy, k)
+    assert np.array_equal(ids, jids) and np.array_equal(d, jd)
+    for i in range(nq):
+        assert np.array_equal(ids[i], _knn_oracle(px, py, qx[i], qy[i], k))
+
+
+def test_knn_out_of_envelope_and_single_path(cloud):
+    px, py = cloud
+    qx = np.array([-250.0, 250.0, 0.0, -250.0])
+    qy = np.array([-120.0, 120.0, 119.0, 0.0])
+    got = tj.knn_batched(px, py, qx, qy, 50, device=CPU)
+    want = jj.knn_batched(px, py, qx, qy, 50)
+    assert np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0])
+    d1, i1 = tj.knn(px, py, 12.5, -33.0, 25, device=CPU)
+    db, ib = tj.knn_batched(px, py, np.array([12.5]), np.array([-33.0]), 25,
+                            device=CPU)
+    assert np.array_equal(i1, ib[0]) and np.array_equal(d1, db[0])
+    jd1, ji1 = jj.knn(px, py, 12.5, -33.0, 25)
+    assert np.array_equal(i1, ji1) and np.array_equal(d1, jd1)
+
+
+def test_knn_k_boundary_tie_is_id_stable():
+    px, py = np.zeros(500), np.zeros(500)
+    px[400:] = 50.0
+    d, ids = tj.knn_batched(px, py, np.array([0.0]), np.array([0.0]), 10,
+                            device=CPU)
+    jd, jids = jj.knn_batched(px, py, np.array([0.0]), np.array([0.0]), 10)
+    assert np.array_equal(ids[0], np.arange(10)) and np.all(d[0] == 0.0)
+    assert np.array_equal(ids, jids) and np.array_equal(d, jd)
+
+
+def test_knn_k_clamped_and_empty():
+    for px, qx, k in ((np.array([1.0, 2.0]), np.array([0.0]), 10),
+                      (np.empty(0), np.array([0.0]), 5),
+                      (np.array([1.0]), np.empty(0), 3),
+                      (np.array([1.0]), np.array([0.0]), 0)):
+        d, ids = tj.knn_batched(px, np.zeros_like(px), qx, np.zeros_like(qx),
+                                k, device=CPU)
+        jd, jids = jj.knn_batched(px, np.zeros_like(px), qx,
+                                  np.zeros_like(qx), k)
+        assert ids.shape == jids.shape and np.array_equal(ids, jids)
+        assert np.array_equal(d, jd)
+
+
+def test_knn_two_stage_size():
+    """n > 4 * 16384: the reference's blocked two-stage top-k."""
+    rng = np.random.default_rng(11)
+    n = 70_000
+    px, py = rng.uniform(-10, 10, n), rng.uniform(-10, 10, n)
+    px[100:150], py[100:150] = px[:50], py[:50]
+    qx, qy = np.array([0.0, 9.0, px[0]]), np.array([0.0, -9.0, py[0]])
+    got = tj.knn_batched(px, py, qx, qy, 100, device=CPU)
+    want = jj.knn_batched(px, py, qx, qy, 100)
+    assert np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0])
+
+
+def _select(d2, nrows, kpad):
+    """(d2, rows) of the kpad smallest keys per query, in (d2, row) order
+    with +inf past nrows: a stable argsort, the windows' common order."""
+    d2 = d2.copy()
+    d2[:, nrows:] = np.inf
+    rows = np.argsort(d2, axis=1, kind="stable")[:, :kpad]
+    return np.take_along_axis(d2, rows, axis=1), rows
+
+
+@pytest.mark.parametrize("n,cap,kpad", [(20_000, 20_000, 128),
+                                        (70_000, 70_000, 256),
+                                        (3_000, 4_096, 4_096),
+                                        (100, 128, 128)])
+def test_knn_plain_matches_reference(n, cap, kpad):
+    """J4's plain version against _knn_kernel: capacity-padded rows at
+    +inf, duplicated points for ties, the two-stage form past 65,536
+    rows, kpad above nrows. Both windows are the same stable selection;
+    they differ only in d2's last rounding. XLA's CPU backend contracts
+    _knn_kernel's dx*dx + dy*dy into fma(dx, dx, fl(dy*dy)) (one
+    rounding); the port rounds each step, as the kernel's intrinsics do.
+    So the reference's window is the selection over the fused d2 and the
+    port's over the stepwise d2, each bit for bit, and knn_batched's ids
+    and f64 distances stay equal (the tests above)."""
+    rng = np.random.default_rng(n)
+    x = rng.uniform(-10, 10, cap).astype(np.float32)
+    y = rng.uniform(-10, 10, cap).astype(np.float32)
+    x[10:40], y[10:40] = x[0], y[0]
+    qx, qy, _ = zscan.stack_points([x[0], 3.0, -7.5], [y[0], 1.0, 2.0])
+    got = kernels.knn_topk_plain(torch.from_numpy(x), torch.from_numpy(y),
+                                 torch.from_numpy(qx), torch.from_numpy(qy),
+                                 kpad, n)
+    want = jj._knn_kernel(jnp.asarray(x), jnp.asarray(y), jnp.asarray(qx),
+                          jnp.asarray(qy), kpad, np.int32(n))
+    dx, dy = x[None, :] - qx[:, None], y[None, :] - qy[:, None]
+    stepwise = dx * dx + dy * dy
+    fused = (dx.astype(np.float64) * dx + dy * dy).astype(np.float32)
+    for (d2, rows), model in ((got, stepwise), (want, fused)):
+        sd2, srows = _select(model, n, kpad)
+        assert np.array_equal(np.asarray(d2).view(np.int32),
+                              sd2.view(np.int32))
+        assert np.array_equal(np.asarray(rows), srows)
+    assert (stepwise[:, :n] != fused[:, :n]).any()
+
+
+def test_knn_device_xy_padded():
+    """Padded rows sit exactly at the query point: masked, they never
+    win (test_analytics.py knn_device_xy_padded)."""
+    rng = np.random.default_rng(29)
+    px, py = rng.uniform(-10, 10, 3_000), rng.uniform(-10, 10, 3_000)
+    tdev, jdev = _padded(px, py, 500, (1.0, 2.0))
+    d, idx = tj.knn(px, py, 1.0, 2.0, 10, device_xy=tdev)
+    jd, jidx = jj.knn(px, py, 1.0, 2.0, 10, device_xy=jdev)
+    assert np.array_equal(idx, jidx) and np.array_equal(d, jd)
+    assert (idx < 3_000).all()
+
+
+# -- the x-sort cache ---------------------------------------------------------
+
+def test_xsort_cache_follows_in_place_appends():
+    """The port's resident columns grow in place (zscan.extend_scan_data):
+    a join after an append sorts the new rows too, where a cache keyed
+    on the tensors alone would serve the old sort."""
+    rng = np.random.default_rng(4)
+    cap, n0, n1 = 4096, 2000, 3000
+    x, y = rng.uniform(-10, 10, n1), rng.uniform(-10, 10, n1)
+    xt = torch.zeros(cap, dtype=torch.float32)
+    yt = torch.zeros(cap, dtype=torch.float32)
+    xt[:n0], yt[:n0] = torch.from_numpy(x[:n0]), torch.from_numpy(y[:n0])
+    q = (np.array([0.0, 5.0]), np.array([0.0, -5.0]))
+    tj.clear_xsort_cache()
+    first = tj.dwithin_join(x[:n0], y[:n0], *q, 2.0, device_xy=(xt, yt))
+    assert len(tj._XSORT_CACHE) == 1
+    xt[n0:n1] = torch.from_numpy(x[n0:].astype(np.float32))
+    yt[n0:n1] = torch.from_numpy(y[n0:].astype(np.float32))
+    second = tj.dwithin_join(x, y, *q, 2.0, device_xy=(xt, yt))
+    want = jj.dwithin_join(x, y, *q, 2.0)
+    assert np.array_equal(second[1], want[1])
+    assert len(second[1]) > len(first[1])
+    # the same rows count, new data written in place: a new sort too
+    xt[:n1] = xt[:n1].flip(0)
+    yt[:n1] = yt[:n1].flip(0)
+    third = tj.dwithin_join(x[::-1].copy(), y[::-1].copy(), *q, 2.0,
+                            device_xy=(xt, yt))
+    want = jj.dwithin_join(x[::-1].copy(), y[::-1].copy(), *q, 2.0)
+    assert np.array_equal(third[1], want[1])
+    tj.clear_xsort_cache()
+
+
+def test_xsort_cache_after_store_append():
+    """A join through a store between writes gets the reference's answer
+    every time: the second write appends in place (3,000 + 1,000 rows in
+    a capacity of 4,096), the third rebuilds the columns."""
+    from geomesa_tpu.analytics.processes import proximity_process as jprox
+    from geomesa_tpu.store import InMemoryDataStore as JaxStore
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.analytics.processes import proximity_process
+    rng = np.random.default_rng(8)
+    port, ref = InMemoryDataStore(device=CPU), JaxStore()
+    for s in (port, ref):
+        s.create_schema("pts", "*geom:Point:srid=4326")
+    xhi = []
+    for chunk, n in enumerate((3000, 1000, 2000)):
+        x, y = rng.uniform(-10, 10, n), rng.uniform(-10, 10, n)
+        ids = [f"c{chunk}_{i}" for i in range(n)]
+        for s in (port, ref):
+            s.write_dict("pts", ids, {"geom": (x, y)})
+        for co in (True, False):
+            got = proximity_process(port, "pts", [0.0, 3.0], [0.0, 3.0], 1.5,
+                                    counts_only=co)
+            want = jprox(ref, "pts", [0.0, 3.0], [0.0, 3.0], 1.5,
+                         counts_only=co)
+            assert np.array_equal(got[0], want[0])
+            if not co:
+                assert list(got[1]) == list(want[1])
+        xhi.append(port._state("pts").scan_data.xhi)
+    assert xhi[0] is xhi[1] and xhi[1] is not xhi[2]
+    tj.clear_xsort_cache()
+
+
+def test_prewarm_runs_on_the_cpu(cloud):
+    """The prewarm caches the resident columns' x-sort (plain versions
+    only on the CPU); the first join then reuses it and gets the
+    reference's answer."""
+    px, py = cloud
+    n = len(px)
+    xt = torch.from_numpy(px.astype(np.float32))
+    yt = torch.from_numpy(py.astype(np.float32))
+    tj.clear_xsort_cache()
+    kernels.reset_launches()
+    tj.prewarm_join_kernels(device_xy=(xt, yt), nrows=n)
+    assert sum(kernels.launches.values()) == 0   # plain versions only
+    assert len(tj._XSORT_CACHE) == 1
+    tables = next(iter(tj._XSORT_CACHE.values()))[3]
+    assert tj._sorted_by_x_cached(xt, yt, n, True) is tables
+    q = (np.array([0.0, 3.0]), np.array([0.0, -3.0]))
+    got = tj.dwithin_join(px, py, *q, 0.5, device_xy=(xt, yt))
+    want = jj.dwithin_join(px, py, *q, 0.5)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert len(tj._XSORT_CACHE) == 1
+    tj.prewarm_join_kernels(device_xy=(xt[:0], yt[:0]), nrows=0)
+    assert len(tj._XSORT_CACHE) == 1
+    tj.clear_xsort_cache()
+
+
+def test_xsort_cache_replaces_an_entry_on_a_miss():
+    """A miss on the version counters or the row count of the same
+    columns replaces their entry: the cache holds one sort a table."""
+    rng = np.random.default_rng(6)
+    cap, n0 = 4096, 2000
+    x, y = rng.uniform(-10, 10, cap), rng.uniform(-10, 10, cap)
+    xt = torch.zeros(cap, dtype=torch.float32)
+    yt = torch.zeros(cap, dtype=torch.float32)
+    xt[:n0], yt[:n0] = torch.from_numpy(x[:n0]), torch.from_numpy(y[:n0])
+    tj.clear_xsort_cache()
+    q = (np.array([1.0]), np.array([1.0]))
+    for n in (n0, 3000, cap):
+        xt[:n] = torch.from_numpy(x[:n].astype(np.float32))
+        yt[:n] = torch.from_numpy(y[:n].astype(np.float32))
+        got = tj.dwithin_join(x[:n], y[:n], *q, 3.0, device_xy=(xt, yt))
+        want = jj.dwithin_join(x[:n], y[:n], *q, 3.0)
+        assert np.array_equal(got[1], want[1])
+        assert len(tj._XSORT_CACHE) == 1
+        assert next(iter(tj._XSORT_CACHE.values()))[2][2] == n
+    tj.clear_xsort_cache()
+
+
+def test_xsort_cache_drops_dead_columns():
+    """An entry leaves with its columns, so no sort of a dropped table
+    stays alive; the bound keeps the live tables to a few."""
+    rng = np.random.default_rng(7)
+    q = (np.array([0.0]), np.array([0.0]))
+    tj.clear_xsort_cache()
+    cols = []
+    for _ in range(tj._XSORT_ENTRIES + 2):
+        x, y = rng.uniform(-5, 5, 500), rng.uniform(-5, 5, 500)
+        xt = torch.from_numpy(x.astype(np.float32))
+        yt = torch.from_numpy(y.astype(np.float32))
+        tj.dwithin_join(x, y, *q, 1.0, device_xy=(xt, yt))
+        cols.append((xt, yt))
+    assert len(tj._XSORT_CACHE) == tj._XSORT_ENTRIES
+    del xt, yt
+    cols.pop()
+    gc.collect()
+    assert len(tj._XSORT_CACHE) == tj._XSORT_ENTRIES - 1
+    cols.clear()
+    gc.collect()
+    assert not tj._XSORT_CACHE
+
+
+@pytest.mark.parametrize("drop", ["remove_schema", "delete"])
+def test_xsort_cache_leaves_with_the_store_columns(drop):
+    """The store's remove_schema and delete drop its resident columns,
+    and their x-sort with them; a join after a delete gets the
+    reference's answer."""
+    from geomesa_tpu.analytics.processes import proximity_process as jprox
+    from geomesa_tpu.store import InMemoryDataStore as JaxStore
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.analytics.processes import proximity_process
+    rng = np.random.default_rng(9)
+    n = 3000
+    x, y = rng.uniform(-10, 10, n), rng.uniform(-10, 10, n)
+    ids = [str(i) for i in range(n)]
+    port, ref = InMemoryDataStore(device=CPU), JaxStore()
+    for s in (port, ref):
+        s.create_schema("pts", "*geom:Point:srid=4326")
+        s.write_dict("pts", ids, {"geom": (x, y)})
+    tj.clear_xsort_cache()
+    args = ("pts", [0.0, 3.0], [0.0, 3.0], 1.5)
+    proximity_process(port, *args)
+    assert len(tj._XSORT_CACHE) == 1
+    if drop == "remove_schema":
+        port.remove_schema("pts")
+    else:
+        for s in (port, ref):
+            s.delete("pts", ids[::3])
+    gc.collect()
+    assert not tj._XSORT_CACHE
+    if drop == "delete":
+        got, want = proximity_process(port, *args), jprox(ref, *args)
+        assert np.array_equal(got[0], want[0])
+        assert list(got[1]) == list(want[1])
+    tj.clear_xsort_cache()

@@ -17,6 +17,7 @@ import torch
 import geomesa_tpu_torch
 from geomesa_tpu_torch import FeatureBatch, InMemoryDataStore, Query
 from geomesa_tpu_torch import parse_spec
+from geomesa_tpu_torch.analytics import join
 from geomesa_tpu_torch.filters import parse_ecql
 from geomesa_tpu_torch.geometry import parse_wkt
 from geomesa_tpu_torch.scan import aggregations, gscan, kernels, residual, zscan
@@ -37,7 +38,11 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.geometry.geojson, "
             "geomesa_tpu_torch.analytics.st_functions, "
             "geomesa_tpu_torch.curves.xz, geomesa_tpu_torch.index.xzkeys, "
-            "geomesa_tpu_torch.scan.gscan\n"
+            "geomesa_tpu_torch.scan.gscan, geomesa_tpu_torch.analytics, "
+            "geomesa_tpu_torch.analytics.join, "
+            "geomesa_tpu_torch.analytics.partitioning, "
+            "geomesa_tpu_torch.analytics.processes, "
+            "geomesa_tpu_torch.analytics.tube, geomesa_tpu_torch.utils.fp\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -72,7 +77,10 @@ def test_no_source_imports_jax_or_reference():
             "stats/serialize.py", "arrow/vector.py", "arrow/io.py",
             "arrow/delta.py", "arrow/scan.py", "arrow/data.py",
             "arrow/feature.py", "geometry/relate.py", "geometry/wkb.py",
-            "geometry/geojson.py", "curves/xz.py", "index/xzkeys.py"} <= seen
+            "geometry/geojson.py", "curves/xz.py", "index/xzkeys.py",
+            "analytics/join.py", "analytics/partitioning.py",
+            "analytics/processes.py", "analytics/tube.py",
+            "utils/fp.py"} <= seen
 
 
 def test_store_defaults_to_cuda(monkeypatch):
@@ -188,7 +196,10 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                  "compact_bits_plain", "compact_prefix_plain", "_predicate",
                  "_candidates", "pip_mask_plain", "residual_mask_plain",
                  "density_grid_plain", "density_cells_plain",
-                 "extent_tristate_plain", "_tristate_rows"):
+                 "extent_tristate_plain", "_tristate_rows",
+                 "dwithin_counts_plain", "slab_pairs_plain",
+                 "contains_counts_plain", "contains_band_rows_plain",
+                 "_contains_one", "knn_topk_plain"):
         monkeypatch.setattr(kernels, name, refuse)
     x, y, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -208,11 +219,25 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
     eb, ems = extent_cases(1000)
     gscan.extent_tristate(gscan.build_extent_data(eb, ems, cuda),
                           gscan.extent_query(*EXTENT_QUERIES[0]))
+    # the joins on the scan columns: counts (no band rows on these
+    # rows), pairs (two slab passes), knn (10,064 rows in three chunks,
+    # then their keys), contains counts and pairs
+    dev = (d.xhi, d.yhi)
+    join.dwithin_join(x, y, [0.0], [0.0], 20.0, counts_only=True,
+                      device_xy=dev)
+    join.dwithin_join(x, y, [0.0], [0.0], 20.0, device_xy=dev)
+    join.knn(x, y, 0.0, 0.0, 5, device_xy=dev)
+    for counts_only in (True, False):
+        join.contains_join([parse_wkt(STAR)], x, y, counts_only=counts_only,
+                           device_xy=dev)
     assert kernels.launches == {"scan_mask": 1, "scan_mask_gather": 1,
                                 "scan_count": 1, "scan_batch_bits": 1,
                                 "compact_prefix": 1, "compact_bits": 1,
                                 "pip_mask": 1, "residual_mask": 1,
-                                "density_grid": 1, "extent_tristate": 1}
+                                "density_grid": 1, "extent_tristate": 1,
+                                "dwithin_counts": 1, "slab_pairs": 4,
+                                "contains_counts": 1, "knn_topk": 2}
+    join.clear_xsort_cache()
 
 
 @pytest.mark.gpu
@@ -1362,3 +1387,226 @@ def test_extent_store_on_cuda_matches_cpu(cuda, monkeypatch):
         assert got.plan.index == want.plan.index, q
         assert list(got.ids) == list(want.ids), q
     assert kernels.launches["extent_tristate"] == len(qs)
+
+
+# -- the join kernels (csrc/join.cu) -----------------------------------------
+
+def _join_points(n, cap, device, seed=0, scale=(180.0, 90.0)):
+    """(x64, y64, px, py): n seeded points (duplicates for ties) and their
+    f32 columns on ``device`` with cap - n padding rows at the origin."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-scale[0], scale[0], n)
+    y = rng.uniform(-scale[1], scale[1], n)
+    dup = min(200, n // 4)
+    x[n - dup:], y[n - dup:] = x[:dup], y[:dup]
+    px = torch.zeros(cap, dtype=torch.float32, device=device)
+    py = torch.zeros(cap, dtype=torch.float32, device=device)
+    px[:n] = torch.from_numpy(x.astype(np.float32))
+    py[:n] = torch.from_numpy(y.astype(np.float32))
+    return x, y, px, py
+
+
+def _same_f32(a, b) -> bool:
+    """Equal bit for bit, every NaN equal to every NaN."""
+    na, nb = a.isnan(), b.isnan()
+    return torch.equal(na, nb) and torch.equal(
+        a.masked_fill(na, 0).view(torch.int32),
+        b.masked_fill(nb, 0).view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [0.25, 7.0])
+@pytest.mark.parametrize("n,cap,k", [(1, 1, 1), (1000, 1024, 1),
+                                     (300_001, 524_288, 1000),
+                                     (1_000_000, 1_048_576, 37),
+                                     (50_000, 65_536, 2049)])
+def test_dwithin_counts_kernel_matches_plain(cuda, n, cap, k, radius):
+    from geomesa_tpu_torch.utils.fp import f32_band
+    x, y, px, py = _join_points(n, cap, cuda, seed=k)
+    rng = np.random.default_rng(n)
+    qx = rng.uniform(-170, 170, k).astype(np.float32)
+    qy = rng.uniform(-80, 80, k).astype(np.float32)
+    qx[0], qy[0] = x[0] + radius, y[0]   # a row on the threshold
+    hi, lo = (float(np.float32(v)) for v in f32_band(radius, 360.0))
+    args = (px, py, torch.from_numpy(qx).to(cuda),
+            torch.from_numpy(qy).to(cuda), hi, lo, n)
+    kernels.reset_launches()
+    got = kernels.dwithin_counts(*args)
+    want = kernels.dwithin_counts_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["dwithin_counts"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _slabs(xs, centres, halves):
+    from geomesa_tpu_torch.analytics.join import _slab_bounds
+    return _slab_bounds(xs, centres.astype(np.float32),
+                        halves.astype(np.float32))[:2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("box", [False, True])
+@pytest.mark.parametrize("n,cap,k", [(1, 1, 1), (10_000, 16_384, 3),
+                                     (1_000_000, 1_048_576, 1000)])
+def test_slab_pairs_kernel_matches_plain(cuda, box, n, cap, k):
+    from geomesa_tpu_torch.analytics.join import _sorted_by_x
+    from geomesa_tpu_torch.utils.fp import f32_band
+    _, _, px, py = _join_points(n, cap, cuda, seed=3)
+    xs, ys, order = _sorted_by_x(px, py, n)
+    rng = np.random.default_rng(k)
+    cx, cy = rng.uniform(-170, 170, k), rng.uniform(-80, 80, k)
+    if box:
+        h = rng.uniform(0.0, 2.0, k)
+        h[-1] = 0.0   # an empty slab
+        b = np.stack([cx - h, cy - h / 2, cx + h, cy + h / 2], axis=1)
+        los, widths = _slabs(xs, (b[:, 0] + b[:, 2]) / 2, h + 2e-4)
+        qa, r2, eps = torch.from_numpy(b.astype(np.float32)), 0.0, 1e-4
+    else:
+        los, widths = _slabs(xs, cx, np.full(k, 0.3))
+        qa = torch.from_numpy(np.stack([cx, cy], 1).astype(np.float32))
+        r2, eps = float(np.float32(f32_band(0.25, 360.0)[0])), 0.0
+    args = (xs, ys, order, los, widths, qa.to(cuda), r2,
+            float(np.float32(eps)), box)
+    got = kernels.slab_pairs(*args)
+    want = kernels.slab_pairs_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _contains_case(cuda, n, cap, wkts, on_edges=0):
+    from geomesa_tpu_torch.analytics.join import (_contains_slab_setup,
+                                                  _sorted_by_x,
+                                                  pack_polygon_batch)
+    x, y, px, py = _join_points(n, cap, cuda, seed=5)
+    polys = [parse_wkt(w) for w in wkts]
+    if on_edges:   # points on the first polygon's first edge: the band
+        e = np.asarray(polys[0].shell if hasattr(polys[0], "shell")
+                       else polys[0].parts[0].shell)
+        t = np.linspace(0, 1, on_edges)
+        ex = e[0, 0] + t * (e[1, 0] - e[0, 0])
+        ey = e[0, 1] + t * (e[1, 1] - e[0, 1])
+        px[:on_edges] = torch.from_numpy(ex.astype(np.float32)).to(cuda)
+        py[:on_edges] = torch.from_numpy(ey.astype(np.float32)).to(cuda)
+    xs, ys, order = _sorted_by_x(px, py, n)
+    b64 = np.array([p.envelope.as_tuple() for p in polys])
+    los, widths, _, _ = _contains_slab_setup(xs, b64)
+    edges, evalid, boxes = pack_polygon_batch(polys)
+    return (xs, ys, order, los, widths, torch.from_numpy(boxes).to(cuda),
+            torch.from_numpy(edges).to(cuda),
+            torch.from_numpy(evalid.sum(1).astype(np.int32)).to(cuda))
+
+
+CONTAINS_WKTS = [STAR, HOLED, MULTI, BIG_STAR,
+                 "POLYGON((10 10, 10.3 10, 10.3 10.2, 10 10.2, 10 10))",
+                 "POLYGON((200 200, 201 200, 201 201, 200 201, 200 200))"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band_cap", [256, 3])
+@pytest.mark.parametrize("n,cap", [(1, 1), (300_001, 524_288),
+                                   (2_000_000, 2_097_152)])
+def test_contains_counts_kernel_matches_plain(cuda, n, cap, band_cap):
+    """Counts and the first band rows of each polygon: a star, holes, a
+    multipolygon, 2,400 edges (more than one shared-memory tile), a
+    small rectangle, one outside the data; points on an edge."""
+    tables = _contains_case(cuda, n, cap, CONTAINS_WKTS,
+                            on_edges=min(n, 600))
+    eps, eps2 = float(np.float32(gscan.EDGE_EPS)), gscan.EDGE_EPS2
+    kernels.reset_launches()
+    got = kernels.contains_counts(*tables, eps, eps2, band_cap)
+    want = kernels.contains_counts_plain(*tables, eps, eps2, band_cap)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if n > 1:
+        assert int(want[1][0]) > band_cap   # the band overflows the cap
+        assert kernels.launches["contains_counts"] == 2
+        polys = list(range(len(CONTAINS_WKTS)))
+        rows = kernels.contains_band_rows(*tables, eps, eps2, polys, 1024)
+        assert torch.equal(rows, kernels.contains_band_rows_plain(
+            *tables, eps, eps2, polys, 1024))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,cap,nq,kpad", [(1, 1, 1, 1), (100, 128, 1, 128),
+                                           (2_500, 3_000, 2, 3_000),
+                                           (3_000, 4_096, 3, 4_096),
+                                           (1_000_000, 1_048_576, 8, 256),
+                                           (50_000, 65_536, 32, 8_192),
+                                           (2_000_000, 2_097_152, 2, 64)])
+def test_knn_kernel_matches_plain(cuda, n, cap, nq, kpad):
+    """The window of each query: ties (duplicated points), capacity rows
+    at +inf (the tail when kpad > n), NaN rows last, several stages."""
+    _, _, px, py = _join_points(n, cap, cuda, seed=nq)
+    if n > 10:
+        px[3:6] = float("nan")
+    rng = np.random.default_rng(kpad)
+    qx = torch.from_numpy(rng.uniform(-170, 170, nq).astype(np.float32))
+    qy = torch.from_numpy(rng.uniform(-80, 80, nq).astype(np.float32))
+    qx[0], qy[0] = px[0].cpu(), py[0].cpu()
+    args = (px, py, qx.to(cuda), qy.to(cuda), kpad, n)
+    got = kernels.knn_topk(*args)
+    want = kernels.knn_topk_plain(*args)
+    torch.cuda.synchronize()
+    assert _same_f32(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_join_wrappers_raise_on_cuda(cuda):
+    _, _, px, py = _join_points(1000, 1024, cuda)
+    q = torch.zeros(1, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="kpad"):
+        kernels.knn_topk(px, py, q, q, 16_384, 1000)
+    with pytest.raises(ValueError):
+        kernels.dwithin_counts(px, py, q, q.cpu(), 1.0, 0.5, 1000)
+    tables = _contains_case(cuda, 1000, 1024, [STAR])
+    bad = list(tables)
+    bad[6] = torch.zeros(8 * 4 + 1, dtype=torch.float32,
+                         device=cuda)[1:].view(1, 8, 4)
+    bad[7] = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.contains_counts(*bad, 1e-4, 1e-8, 4)
+
+
+@pytest.mark.gpu
+def test_analytics_on_cuda_match_cpu(cuda):
+    """The processes and QueryBatcher.knn on a CUDA store equal a CPU
+    store's, id for id."""
+    from geomesa_tpu_torch.analytics import processes
+    from geomesa_tpu_torch.scan.batcher import QueryBatcher
+    rng = np.random.default_rng(12)
+    n = 200_000
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    x[:100], y[:100] = x[100:200], y[100:200]
+    stores = [InMemoryDataStore(), InMemoryDataStore(device="cpu")]
+    for s in stores:
+        s.create_schema("pts", "kind:String,*geom:Point:srid=4326")
+        s.write_dict("pts", [f"p{i}" for i in range(n)],
+                     {"kind": [f"k{i % 3}" for i in range(n)],
+                      "geom": (x, y)})
+    polys = [parse_wkt(STAR), parse_wkt(HOLED)]
+    qx, qy = rng.uniform(-170, 170, 8), rng.uniform(-80, 80, 8)
+    kernels.reset_launches()
+    out = []
+    for s in stores:
+        r = [processes.knn_process(s, "pts", 1.0, 2.0, 50),
+             processes.knn_process(s, "pts", qx, qy, 100),
+             processes.knn_process(s, "pts", 1.0, 2.0, 20, ecql="kind = 'k1'"),
+             processes.proximity_process(s, "pts", qx, qy, 2.0),
+             processes.proximity_process(s, "pts", qx, qy, 2.0,
+                                         counts_only=True),
+             processes.contains_process(s, "pts", polys),
+             processes.contains_process(s, "pts", polys, counts_only=False),
+             QueryBatcher(s, max_batch=8).knn("pts", -3.0, 4.0, 10)]
+        out.append(r)
+    for a, b in zip(*out):
+        a = a if isinstance(a, list) else [a]
+        b = b if isinstance(b, list) else [b]
+        for u, v in zip(a, b):
+            for p, q in zip(u, v):
+                if isinstance(p, list):
+                    assert all(np.array_equal(i, j) for i, j in zip(p, q))
+                else:
+                    assert (p is None and q is None) or np.array_equal(p, q)
+    assert all(kernels.launches[k] > 0 for k in
+               ("dwithin_counts", "slab_pairs", "contains_counts",
+                "knn_topk"))

@@ -214,3 +214,67 @@ def test_extent_schema_raises():
     assert not s.get_schema("poly").is_points
     with pytest.raises(NotImplementedError, match="slice"):
         s.create_schema("plain", "name:String,dtg:Date")
+
+
+# one attribute bounded by a quoted and an unquoted literal under AND:
+# (filter, the same filter with every literal unquoted)
+MIXED = [
+    ("dtg AFTER 1969-11-27T01:49:17Z AND dtg BETWEEN "
+     "'1970-01-01T12:00:00Z' AND '1970-01-03T00:00:00Z'",
+     "dtg AFTER 1969-11-27T01:49:17Z AND dtg BETWEEN "
+     "1970-01-01T12:00:00Z AND 1970-01-03T00:00:00Z"),
+    ("val > '2' AND val < 8", "val > 2 AND val < 8"),
+    ("val = '5' AND val > 1", "val = 5 AND val > 1"),
+    ("val BETWEEN 1 AND '5' AND val <> 3", "val BETWEEN 1 AND 5 AND val <> 3"),
+    ("score >= '2.5' AND score < 9", "score >= 2.5 AND score < 9"),
+    ("val > '2.5' OR dtg < '1970-01-02T00:00:00Z'",
+     "val > 2.5 OR dtg < 1970-01-02T00:00:00Z"),
+]
+
+
+@pytest.mark.parametrize("indexed", [False, True])
+@pytest.mark.parametrize("ecql,unquoted", MIXED)
+def test_mixed_literal_bounds_match_the_evaluator(ecql, unquoted, indexed):
+    """A quoted literal is coerced to its attribute's type before the
+    bounds intersect (a departure: the JAX store raises TypeError, and
+    its evaluator raises on a quoted number). The oracle is the JAX
+    package's host evaluate of the filter with every literal unquoted,
+    and of the filter itself where it answers (the dates); exact."""
+    from geomesa_tpu.features import parse_spec as jparse_spec
+    from geomesa_tpu.features.batch import FeatureBatch as JBatch
+    from geomesa_tpu.filters import parse_ecql as jparse
+    from geomesa_tpu.filters.evaluate import evaluate as jevaluate
+    idx = ":index=true" if indexed else ""
+    spec = f"val:Integer{idx},score:Double{idx},dtg:Date,*geom:Point"
+    n = 400
+    rng = np.random.default_rng(2)
+    data = {"val": rng.integers(0, 10, n), "score": rng.uniform(0, 10, n),
+            "dtg": rng.integers(-2, 4, n) * MS_DAY // 2,
+            "geom": (rng.uniform(-10, 10, n), rng.uniform(-10, 10, n))}
+    ids = [f"f{i}" for i in range(n)]
+    port = InMemoryDataStore(device="cpu")
+    port.create_schema("m", spec)
+    port.write_dict("m", ids, data)
+    batch = JBatch.from_dict(jparse_spec("m", spec), ids, data)
+    want = np.asarray(ids)[jevaluate(jparse(unquoted), batch)]
+    if ecql.startswith("dtg"):
+        assert list(np.asarray(ids)[jevaluate(jparse(ecql), batch)]) == \
+            list(want)
+    assert len(want) > 0
+    assert sorted(port.query(ecql, "m").ids) == sorted(want)
+    assert port.query_count(ecql, "m") == len(want)
+    from geomesa_tpu_torch import Query
+    got = port.query_batched([Query("m", ecql),
+                              Query("m", "BBOX(geom, -5, -5, 5, 5)")])[0]
+    assert sorted(got.ids) == sorted(want)
+    ref = JaxStore()
+    ref.create_schema("m", spec)
+    ref.write_dict("m", ids, data)
+    if (ecql, unquoted) in MIXED[:3] and (indexed or ecql.startswith("dtg")):
+        # ROADMAP's three, where the JAX store intersects the bounds
+        with pytest.raises(TypeError):
+            ref.query(ecql, "m")
+    elif (ecql, unquoted) in MIXED[1:3]:
+        # unindexed integers: its device residual coerces, and answers
+        assert list(port.query(ecql, "m").ids) == \
+            list(ref.query(ecql, "m").ids)
