@@ -97,8 +97,16 @@ Phases, one JSON line each; any failure exits non-zero:
            queries x 50M rows; 10,032 polygons x 100M rows, the counts
            pass, and the rows pass apart) beside its plain version once
            and its bound, the larger of bytes (inputs read once, the
-           slabs' union) and f32 operations (67 TFLOP/s); each call's p50
-           of 3 host-clock runs.
+           slabs' union) and f32 operations (33.5 T instructions/s: 7 a
+           slab column for the dwithin kernel, with the all-pairs count
+           beside it as all_pairs_bound_ms); the dwithin and contains
+           kernels with the host-clock time of their tile lists
+           (lists_ms), the dwithin wrapper held (wrapper_ms), and the
+           dwithin kernel at a wide radius (30 degrees, 64 seeded points
+           on the store) held to its plain version and timed; the
+           x-sort of the store's and the 100M table's columns on a line
+           of its own (analytics_xsort); each call's p50 of 3 host-clock
+           runs.
 6. predicates  exact polygon and attribute predicates: the earlier
            stores freed, a store of --store-rows rows shaped like a GDELT
            1.0 event record (EventCode:String:index=true with 320
@@ -2646,6 +2654,7 @@ SOURCE_FILES.update({k: "geomesa_tpu_torch/csrc/join.cu" for k in JOIN_KERNELS})
 # is one instruction at half that rate
 F32_OPS_PER_S = 33.5e12
 DW_QUERIES, DW_RADIUS = 1_000, 0.25      # BASELINE #3 on the store's 10M
+DW_WIDE_QUERIES, DW_WIDE_RADIUS = 64, 30.0   # slabs of a sixth of the table
 KNN_ROWS, KNN_CAP, KNN_K = 50_000_000, 1 << 26, 100   # BASELINE #4
 KNN_POINTS = [(10.0, 10.0), (-120.0, 40.0), (0.0, 0.0), (150.0, -30.0),
               (-60.0, -60.0), (80.0, 20.0), (-10.0, 55.0), (100.0, 5.0)]
@@ -2750,49 +2759,127 @@ def _slab_launcher(args):
     return run
 
 
+def _xsorted(args):
+    """The (xs, ys) of a recorded dwithin call: its ``xsorted``, or a
+    sort of its columns."""
+    from geomesa_tpu_torch.scan import kernels
+    if len(args) > 7 and args[7] is not None:
+        return args[7][:2]
+    return kernels.sorted_by_x(args[0], args[1], args[6])[:2]
+
+
+def _dwithin_launcher(args):
+    """The dwithin kernel alone on its tile lists, built once from the
+    call's x-sorted table (the recorded ``xsorted``, or a sort here) and
+    its own slabs, into outputs prepared once; and the lists."""
+    from geomesa_tpu_torch.scan import kernels
+    px, py, qx, qy, hi, lo, n = args[:7]
+    xs, ys = _xsorted(args)
+    lists = kernels.tile_lists(*kernels.dwithin_slabs(xs, qx, hi, lo),
+                               xs.shape[0])
+    definite = torch.zeros(qx.shape[0], dtype=torch.int32, device=px.device)
+    band = torch.zeros_like(definite)
+    return lambda: kernels._dwithin_counts_launch(
+        xs, ys, lists, qx, qy, hi, lo, definite, band), lists
+
+
 def _contains_launcher(args):
-    """The counts pass of the contains kernel on prepared buffers."""
+    """The counts pass of the contains kernel (the edge terms, then the
+    counts) on its tile lists and buffers prepared once; and the lists."""
     from geomesa_tpu_torch.scan import kernels
     xs, ys, order, los, widths, boxes, edges, ecount, eps, eps2, _ = args
-    dev = xs.device
-    lib = kernels._library()
-    item = torch.from_numpy(kernels.work_items(widths.cpu().numpy(),
-                                               kernels.CONTAINS_CHUNK)).to(dev)
-    items = item.shape[0]
-    dc = torch.zeros(los.shape[0], dtype=torch.int32, device=dev)
+    lists = kernels.tile_lists(los, widths, xs.shape[0])
+    dc = torch.zeros(los.shape[0], dtype=torch.int32, device=xs.device)
     bc = torch.zeros_like(dc)
-    cband = torch.empty(items, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    return lambda: lib.geomesa_contains_counts(
-        xs.data_ptr(), ys.data_ptr(), los.data_ptr(), widths.data_ptr(),
-        item.data_ptr(), items, boxes.data_ptr(),
-        edges.data_ptr(), ecount.data_ptr(), edges.shape[1], eps, eps2,
-        dc.data_ptr(), bc.data_ptr(), cband.data_ptr(), stream)
+    terms = torch.empty_like(edges)
+    return lambda: kernels._contains_counts_launch(
+        xs, ys, los, widths, boxes, edges, ecount, eps, eps2, lists, terms,
+        dc, bc), lists
 
 
 def _contains_rows_launcher(args):
-    """The rows pass of the contains kernel alone, on its work items
-    (from one counts pass) and an output prepared once."""
+    """The rows pass of the contains kernel alone (the edge terms, then
+    the rows), on its work items (from one counts pass) and an output
+    prepared once: (items, launch)."""
     from geomesa_tpu_torch.scan import kernels
     xs, ys, order, los, widths, boxes, edges, ecount, eps, eps2, cap = args
     dev = xs.device
     kp = los.shape[0]
-    item = kernels.work_items(widths.cpu().numpy(), kernels.CONTAINS_CHUNK)
+    lists = kernels.tile_lists(los, widths, xs.shape[0])
     dc = torch.zeros((2, kp), dtype=torch.int32, device=dev)
+    terms = torch.empty_like(edges)
     cband = kernels._contains_counts_launch(xs, ys, los, widths, boxes, edges,
-                                            ecount, eps, eps2, item, dc[0],
-                                            dc[1])
+                                            ecount, eps, eps2, lists, terms,
+                                            dc[0], dc[1])
     banded = np.flatnonzero(dc[1].cpu().numpy())
-    rows = torch.from_numpy(kernels.band_row_items(item, cband, banded, kp,
-                                                   cap)).to(dev)
+    items = kernels.contains_rows_items(lists, cband, banded, kp, cap)
     out = torch.full((len(banded), cap), -1, dtype=torch.int32, device=dev)
     lib = kernels._library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return len(rows), lambda: lib.geomesa_contains_band_rows(
-        xs.data_ptr(), ys.data_ptr(), order.data_ptr(), los.data_ptr(),
-        widths.data_ptr(), rows.data_ptr(), rows.shape[0], boxes.data_ptr(),
-        edges.data_ptr(), ecount.data_ptr(), edges.shape[1], eps, eps2, cap,
-        out.data_ptr(), stream)
+    return items.shape[0], lambda: lib.geomesa_contains_band_rows(
+        xs.data_ptr(), ys.data_ptr(), order.data_ptr(), xs.shape[0],
+        los.data_ptr(), widths.data_ptr(), items.data_ptr(), items.shape[0],
+        boxes.data_ptr(), edges.data_ptr(), ecount.data_ptr(), kp,
+        edges.shape[1], eps, eps2, terms.data_ptr(), cap, out.data_ptr(),
+        stream)
+
+
+def _lists_ms(los, widths, ncols) -> float:
+    """Host-clock ms of one tile_lists build (torch ops on the card, one
+    copy to the host), the median of five."""
+    from geomesa_tpu_torch.scan import kernels
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernels.tile_lists(los, widths, ncols)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _plain_args(name, args):
+    """A recorded call's arguments for its plain version: the dwithin
+    wrapper's x-sorted table is its own business."""
+    return args[:7] if name == "dwithin_counts" else args
+
+
+def dwithin_wide(seed: int, resident, n: int) -> dict:
+    """The dwithin kernel at a wide radius (DW_WIDE_RADIUS over
+    DW_WIDE_QUERIES seeded points on the store's resident columns, whose
+    slabs cover about a sixth of the table each): the wrapper held to its
+    plain version, the kernel timed alone beside the plain version and
+    the bounds."""
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.utils.fp import f32_band
+    px, py = resident
+    rng = np.random.default_rng(seed + 14)
+    dev = px.device
+    qx = torch.from_numpy(rng.uniform(-170, 170, DW_WIDE_QUERIES)
+                          .astype(np.float32)).to(dev)
+    qy = torch.from_numpy(rng.uniform(-80, 80, DW_WIDE_QUERIES)
+                          .astype(np.float32)).to(dev)
+    hi, lo = (float(np.float32(v)) for v in f32_band(DW_WIDE_RADIUS, 360.0))
+    xsorted = kernels.sorted_by_x(px, py, n)[:2]
+    args = (px, py, qx, qy, hi, lo, n, xsorted)
+    got = kernels.dwithin_counts(*args)
+    want, plain_ms = _time_once(
+        lambda: kernels.dwithin_counts_plain(*args[:7]))
+    same, err = _join_equal("dwithin_counts", got, want)
+    kern, lists = _dwithin_launcher(args)
+    los, widths = kernels.dwithin_slabs(xsorted[0], qx, hi, lo)
+    w = widths.cpu().numpy()
+    tb = (8 * _union_len(los.cpu().numpy(), w) + 16 * DW_WIDE_QUERIES) \
+        / HBM_BYTES_PER_S * 1e3
+    to = DW_OPS * int(w.sum()) / F32_OPS_PER_S * 1e3
+    return {"equal": same, "max_abs_err": err, "radius": DW_WIDE_RADIUS,
+            "queries": DW_WIDE_QUERIES, "rows": n,
+            "slab_columns": int(w.sum()), "tile_entries": lists.total,
+            "pairs": int(got[0].sum().item() + got[1].sum().item()),
+            "ms": cuda_ms(kern, 20), "plain_ms": plain_ms,
+            "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
+            else "operations", "all_pairs_bound_ms":
+                DW_OPS * n * DW_WIDE_QUERIES / F32_OPS_PER_S * 1e3}
 
 
 def join_kernel_line(name, args, out) -> dict:
@@ -2804,14 +2891,25 @@ def join_kernel_line(name, args, out) -> dict:
              "slab_pairs": kernels.slab_pairs_plain,
              "contains_counts": kernels.contains_counts_plain,
              "knn_topk": kernels.knn_topk_plain}[name]
-    want, plain_ms = _time_once(lambda: plain(*args))
+    want, plain_ms = _time_once(lambda: plain(*_plain_args(name, args)))
     same, err = _join_equal(name, out, want)
+    extra = {}
     if name == "dwithin_counts":
-        px, py, qx, qy, _hi, _lo, n = args
+        px, py, qx, qy, hi, lo, n = args[:7]
         k = qx.shape[0]
-        kern = lambda: kernels.dwithin_counts(*args)   # noqa: E731
-        nbytes, ops = 8 * n + 16 * k, DW_OPS * n * k
-        shape = {"rows": n, "queries": k}
+        kern, lists = _dwithin_launcher(args)
+        los, widths = kernels.dwithin_slabs(_xsorted(args)[0], qx, hi, lo)
+        w = widths.cpu().numpy()
+        # the slabs' union read once, the queries and the counts
+        nbytes = 8 * _union_len(los.cpu().numpy(), w) + 16 * k
+        ops = DW_OPS * int(w.sum())
+        shape = {"rows": n, "queries": k, "slab_columns": int(w.sum()),
+                 "tile_entries": lists.total,
+                 "tile_columns": lists.total * kernels.JOIN_TILE,
+                 "lists_ms": _lists_ms(los, widths, px.shape[0]),
+                 "wrapper_ms": cuda_ms(lambda: kernels.dwithin_counts(*args),
+                                       20)}
+        extra["all_pairs_bound_ms"] = DW_OPS * n * k / F32_OPS_PER_S * 1e3
     elif name == "slab_pairs":
         xs, ys, order, los, widths, qa, *_r, box = args
         w = widths.cpu().numpy()
@@ -2825,7 +2923,7 @@ def join_kernel_line(name, args, out) -> dict:
     elif name == "contains_counts":
         xs, ys, order, los, widths, boxes, edges, ecount = args[:8]
         w = widths.cpu().numpy()
-        kern = _contains_launcher(args)
+        kern, lists = _contains_launcher(args)
         # the columns inside each widened box (the box-mode candidates)
         inbox = kernels.slab_pairs(xs, ys, order, los, widths, boxes, 0.0,
                                    args[8], True)[1]
@@ -2837,7 +2935,10 @@ def join_kernel_line(name, args, out) -> dict:
         shape = {"polygons": int((w > 0).sum()), "slab_columns": int(w.sum()),
                  "in_box_rows": int(inbox.shape[0]),
                  "in_box_edge_pairs": edge_pairs, "band_rows": int(
-                     out[1].sum().item()), "timed": "the counts pass"}
+                     out[1].sum().item()), "tile_entries": lists.total,
+                 "tiles": lists.ntiles, "longest_list": lists.most,
+                 "lists_ms": _lists_ms(los, widths, xs.shape[0]),
+                 "timed": "the counts pass"}
     else:
         px, py, qx, qy, kpad, n = args
         nq = qx.shape[0]
@@ -2850,7 +2951,7 @@ def join_kernel_line(name, args, out) -> dict:
             "ms": cuda_ms(kern, 20), "plain_ms": plain_ms,
             "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
             else "operations", "bytes_bound_ms": tb, "ops_bound_ms": to,
-            "library_ms": None}
+            **extra, "library_ms": None}
 
 
 def _main_call(calls, name, tag):
@@ -3081,12 +3182,16 @@ def phase_analytics(seed: int, ds, rows) -> tuple[dict, dict]:
              for name, tag in (("dwithin_counts", "dwithin"),
                                ("slab_pairs", "dwithin"),
                                ("knn_topk", "knn_50m"))}
-    checks = []
+    lines["dwithin_counts"]["wide"] = dwithin_wide(seed, resident, len(x))
+    xsort_ms = {"store_10m": cuda_ms(
+        lambda: kernels.sorted_by_x(*resident, len(x)), 5)}
+    checks = [("wide radius", "dwithin_counts",
+               lines["dwithin_counts"]["wide"]["equal"])]
     for q, name, args, res_ in calls:
         if name in ("contains_counts", "contains_band_rows"):
             continue
         plain = getattr(kernels, name + "_plain")
-        same = _join_equal(name, res_, plain(*args))[0]
+        same = _join_equal(name, res_, plain(*_plain_args(name, args)))[0]
         checks.append((q, name, same))
     calls.clear()
     del kdev
@@ -3161,6 +3266,8 @@ def phase_analytics(seed: int, ds, rows) -> tuple[dict, dict]:
                 and pcounts[i] == len(brute[int(j)])):
             wrong.append(("contains_join pairs", int(j)))
     del X, Y
+    xsort_ms["contains_100m"] = cuda_ms(
+        lambda: kernels.sorted_by_x(*cdev, CT_ROWS), 5)
     p50["contains_counts_10k"] = [_timed(lambda: join.contains_join(
         polys, cx_, cy_, counts_only=True, device_xy=cdev))
         for _ in range(AN_RUNS)]
@@ -3173,7 +3280,8 @@ def phase_analytics(seed: int, ds, rows) -> tuple[dict, dict]:
         if name == "contains_counts" and q == "contains":
             continue   # held to its plain version in its line above
         plain = getattr(kernels, name + "_plain")
-        checks.append((q, name, _join_equal(name, res_, plain(*args))[0]))
+        checks.append((q, name, _join_equal(name, res_, plain(
+            *_plain_args(name, args)))[0]))
     checks += [("kernel line", nm, ln["equal"]) for nm, ln in lines.items()]
     calls.clear()
     join.clear_xsort_cache()
@@ -3182,6 +3290,10 @@ def phase_analytics(seed: int, ds, rows) -> tuple[dict, dict]:
     for q, name, same in checks:
         if not same:
             wrong.append(("plain", q, name))
+    # the x-sort on a line of its own: the dwithin and contains calls
+    # read a resident table's cached sort, outside their kernels' times
+    emit({"phase": "analytics_xsort", "ms": xsort_ms,
+          "rows": {"store_10m": len(x), "contains_100m": CT_ROWS}})
     emit({"phase": "analytics", "store_rows": len(x),
           "dwithin": {"queries": DW_QUERIES, "radius": DW_RADIUS,
                       "pairs": int(dw_counts.sum()),

@@ -7,8 +7,9 @@ SpatialJoinStrategy:270). Here the large side is one f32 table on the
 card and the small side (query points, polygons) is handed to the hand
 kernels of ``scan/kernels.py`` (``csrc/join.cu``) in one call:
 
-- ``dwithin_counts``: every (row, query) pair's f32 distance against
-  the radius's error band, reduced to counts on the device;
+- ``dwithin_counts``: each query's f32 distances against the radius's
+  error band over the tiles of the x-sorted table that its slab meets,
+  reduced to counts on the device;
 - ``slab_pairs``: the candidate pairs within each query's x-slab of the
   x-sorted table (a device sort kept per resident table), compacted on
   the device, so only O(candidates) ids reach the host;
@@ -48,16 +49,8 @@ def psum_counts(leg_counts) -> int:
     return int(sum(int(c) for c in leg_counts))
 
 
-def _sorted_by_x(px, py, nrows: int):
-    """(xs, ys, order): the rows sorted by x (stable, as jnp.argsort),
-    rows >= nrows pushed to +inf so they land at the tail, with the
-    rows' y beside (NaN for those padded rows, so no slab test passes
-    them) and the int32 row ids."""
-    pad = torch.arange(px.shape[0], device=px.device) >= nrows
-    key = px.masked_fill(pad, float("inf"))
-    xs, order = torch.sort(key, stable=True)
-    ys = py[order].masked_fill(pad[order], float("nan"))
-    return xs, ys, order.to(torch.int32)
+# (xs, ys, order): the rows sorted by x, padded rows at +inf (y NaN)
+_sorted_by_x = kernels.sorted_by_x
 
 
 # the x-sorted tables of resident columns, most recent last, keyed on
@@ -131,11 +124,12 @@ class _Slabs(NamedTuple):
     widths_host: np.ndarray
 
 
-def _slab_setup(pxj, pyj, n, cacheable, q_x64, radius_deg, r2_hi) -> _Slabs:
+def _slab_setup(tables, q_x64, radius_deg, r2_hi) -> _Slabs:
     """The shared slab setup of the banded count resolution and the
-    pairs path: the device x-sort, slab half-width = radius + f32
-    rounding + band, the batched searchsorted."""
-    xs, ys, order = _sorted_by_x_cached(pxj, pyj, n, cacheable)
+    pairs path over the x-sorted ``tables`` (xs, ys, order): slab
+    half-width = radius + f32 rounding + band, the batched
+    searchsorted."""
+    xs, ys, order = tables
     eps = float(np.sqrt(max(r2_hi, 0.0))) - radius_deg + 1e-4
     w = radius_deg + eps
     los, widths, _, w_h = _slab_bounds(xs, q_x64.astype(np.float32),
@@ -159,14 +153,14 @@ def _slab_pairs_exact(slabs: _Slabs, qx64, qy64, px64, py64, radius_deg,
     return rows[exact], qi[exact]
 
 
-def _resolve_band_counts(pxj, pyj, px64, py64, qx64, qy64, banded,
-                         radius_deg, r2_hi, n, counts, cacheable):
+def _resolve_band_counts(tables, px64, py64, qx64, qy64, banded,
+                         radius_deg, r2_hi, counts):
     """Exact f64 counts of the queries with in-band pairs, from their
-    x-slab candidates |x - qx| <= r + eps: the device x-sort, a batched
-    searchsorted, the slab kernel's in-band rows, then the f64 distance
-    on the host. No O(n) host work and no (k, n) band matrix."""
-    slabs = _slab_setup(pxj, pyj, n, cacheable, qx64[banded], radius_deg,
-                        r2_hi)
+    x-slab candidates |x - qx| <= r + eps: the device x-sort's
+    ``tables``, a batched searchsorted, the slab kernel's in-band rows,
+    then the f64 distance on the host. No O(n) host work and no (k, n)
+    band matrix."""
+    slabs = _slab_setup(tables, qx64[banded], radius_deg, r2_hi)
     if not len(slabs.widths_host) or slabs.widths_host.max() == 0:
         return
     _, qi = _slab_pairs_exact(slabs, qx64[banded], qy64[banded], px64, py64,
@@ -197,12 +191,13 @@ def dwithin_join(px: np.ndarray, py: np.ndarray,
     (point_idx, query_idx), query-major, or (counts, None) with
     counts_only.
 
-    ``counts_only`` counts every pair on the device, with only the
-    queries that have in-band pairs resolved exactly through their
-    x-slabs (the kernel tiles the queries itself, so the reference's
-    ``chunk`` tile has no counterpart here). The pairs path
-    runs on x-slab candidates: in-band pairs compact on the device and
-    only they reach the host, where f64 filters the f32 band.
+    ``counts_only`` counts every pair on the device (the kernel walks
+    the x-sorted table, each query over the tiles its slab meets, and
+    groups the queries itself, so the reference's ``chunk`` tile has no
+    counterpart here), with only the queries that have in-band pairs
+    resolved exactly through their x-slabs. The pairs path runs on
+    x-slab candidates: in-band pairs compact on the device and only they
+    reach the host, where f64 filters the f32 band.
 
     ``device_xy`` passes resident f32 columns of the large side (possibly
     capacity-padded past len(px); padded rows never match); without it
@@ -219,22 +214,26 @@ def dwithin_join(px: np.ndarray, py: np.ndarray,
     cacheable = device_xy is not None
 
     if counts_only:
+        if n == 0 or k == 0:
+            return counts, None
         dev = pxj.device
         qxj = torch.from_numpy(qx64.astype(np.float32)).to(dev)
         qyj = torch.from_numpy(qy64.astype(np.float32)).to(dev)
+        tables = _sorted_by_x_cached(pxj, pyj, n, cacheable)
         def_counts, band_counts = kernels.dwithin_counts(
             pxj, pyj, qxj, qyj, float(np.float32(r2_hi)),
-            float(np.float32(r2_lo)), n)
+            float(np.float32(r2_lo)), n, tables[:2])
         counts[:] = def_counts.cpu().numpy()
         banded = np.flatnonzero(band_counts.cpu().numpy())
         if len(banded):
-            _resolve_band_counts(pxj, pyj, px64, py64, qx64, qy64, banded,
-                                 radius_deg, r2_hi, n, counts, cacheable)
+            _resolve_band_counts(tables, px64, py64, qx64, qy64, banded,
+                                 radius_deg, r2_hi, counts)
         return counts, None
 
     if n == 0 or k == 0:
         return counts, np.empty((0, 2), dtype=np.int64)
-    slabs = _slab_setup(pxj, pyj, n, cacheable, qx64, radius_deg, r2_hi)
+    slabs = _slab_setup(_sorted_by_x_cached(pxj, pyj, n, cacheable), qx64,
+                        radius_deg, r2_hi)
     if not len(slabs.widths_host) or slabs.widths_host.max() == 0:
         return counts, np.empty((0, 2), dtype=np.int64)
     rows, qi = _slab_pairs_exact(slabs, qx64, qy64, px64, py64, radius_deg,

@@ -4,19 +4,49 @@
 // (geomesa_tpu/analytics/join.py), which serve dwithin_join,
 // contains_join, knn_batched / knn and the processes above them:
 //
+// The x-sorted table and its tiles. J1 and J3 walk the rows sorted by x
+// (xs, ys: the rows' f32 coordinates in x order, padded rows at x = +inf,
+// y = NaN, so no test passes them), cut into tiles of kTile columns
+// aligned to 0. Each query or polygon has a slab [lo, lo + width) of the
+// table that holds every row it can match; the wrapper lists, per tile,
+// the objects whose slab meets it (tile_off, tile_obj: a CSR built on
+// the device by torch ops, objects ascending within a tile). A block
+// takes one tile and up to kGroup of its listed objects: it copies the
+// tile's xs and ys into shared memory once (cp.async, 16 bytes a copy),
+// and every listed object is tested from there. So a column is read
+// from device memory once for all the slabs that cover it. Several
+// blocks reside on each SM (40 KB of shared memory each at most), so
+// one block's copy overlaps another's tests.
+//
 // dwithin_counts_kernel   <- _dwithin_counts_all (:60, body
 //   _dwithin_matrices :48). Per query q and row i < nrows, in f32 with
 //   every step rounded to nearest,
 //     d2 = (px[i] - qx[q])^2 + (py[i] - qy[q])^2
 //     definite[q] += d2 <= r2_lo;  band[q] += !(d2 <= r2_lo) && d2 <= r2_hi
-//   Design: each thread keeps kDwQpt queries and their two counts in
-//   registers; the block stages kDwTile rows at a time in shared memory
-//   and every thread walks them (a broadcast read serves the whole
-//   warp); one atomicAdd per (block, query) at the end, never per pair.
-//   The grid is row chunks x query groups, sized so that every SM holds
-//   several blocks. Bound: about 7 f32 operations a pair (d2's five, two
-//   compares) over 67 TFLOP/s; the bytes (8 B a row, read once per query
-//   group) are far below it.
+//   Design: a block tests EVERY column of its tile against each of its
+//   listed queries, with no slab mask. The tiles partition the table,
+//   so a query's counts over the tiles it visits equal its all-pairs
+//   counts whenever every row that passes lies in a visited tile, which
+//   J1's own slab half-width w guarantees for every f32 input: a pair
+//   passes only if fl(fl(dx*dx) + fl(dy*dy)) <= r2 (r2 the larger of
+//   r2_hi and r2_lo), so fl(dx*dx) <= r2, dx*dx <= r2 (1 + 2^-24) (or
+//   below the least subnormal), and the exact |px - qx| <= D =
+//   sqrt(r2) (1 + 2^-22) + 1e-20. A slab edge fl(qx -+ w) decides
+//   something only where it falls among the finite rows, in [-M, M]
+//   (M the table's largest finite |x|; beyond, rounding is monotone and
+//   keeps or drops every finite row alike), and there it rounds by at
+//   most 2^-24 M; so w = (D + 2^-23 M)(1 + 2^-22), rounded up to f32,
+//   holds every row within D of qx. A non-finite qx passes nothing
+//   (d2 is inf or NaN), so its slab is empty; an infinite w makes every
+//   slab the whole table, so every tile lists every query. The
+//   queries sit in registers, kDwQpt a thread: P query slots (a power
+//   of two, P * kDwQpt >= the listed queries) by kThreads / P column
+//   stripes, so with few queries the threads split the tile's columns
+//   and with 256 slots each thread walks the whole tile (a broadcast
+//   read serves the warp). Counts add up in shared memory, then one
+//   atomicAdd per (tile, query). Bound: the larger of 8 B a column of
+//   the slabs' union and 7 f32 operations a slab column (d2's five, two
+//   compares).
 //
 // slab_pairs_kernel       <- _slab_cand_mask (:123) with
 //   _slab_cand_count (:137) and _slab_cand_flat (:148) in radius mode;
@@ -40,32 +70,41 @@
 //   match written).
 //
 // contains_counts_kernel  <- _contains_counts_all (:420) with _pip_body
-//   (:389), and _contains_band_rows (:454). Per polygon: the columns of
-//   its slab inside its EDGE_EPS-widened f32 box, and for those the f32
-//   crossing number and the squared distance to the nearest edge, in
-//   the operation order of _pip_body (and of csrc/geom.cu):
+//   (:389). Per polygon: the columns of its slab inside its
+//   EDGE_EPS-widened f32 box (each bound rounded as the reference's), and
+//   for those the f32 crossing number and the squared distance to the
+//   nearest edge, in the operation order of _pip_body (and of
+//   csrc/geom.cu):
 //     cond = (y0 > y) != (y1 > y);  dy = y1 == y0 ? 1e-30 : y1 - y0
 //     cross = cond && x < x0 + ((y - y0) * (x1 - x0)) / dy
 //     t = clamp(((x - x0)*ex + (y - y0)*ey) / (len2 == 0 ? 1 : len2), 0, 1)
 //     d2 = (x - (x0 + t*ex))^2 + (y - (y0 + t*ey))^2
 //     band = min over edges of d2 < eps2;  inside = parity of cross
-//   Counts mode: blocks over (polygon, chunk of kCtChunk columns) work
-//   items (the host's (polygon, chunk) pairs, as in the slab kernel).
-//   A block gathers its columns that pass the box test into shared
-//   memory (a box holds a few percent of its slab, so without this a
-//   warp would run the edge loop for one or two lanes), then its
-//   threads take the gathered rows against the edges, staged in shared
-//   memory in tiles (with each edge's ex, ey, len2 and dy computed
-//   once); a block with no row in the box skips the edges. One
-//   atomicAdd per (block, polygon) for the definite (in box, inside,
-//   not band) and band counts, and the block's band count. Rows mode:
-//   blocks over the items with band rows, each writing its band rows in
-//   column order from its offset (the band rows of the polygon's earlier
-//   chunks, prefixed on the host from the counts pass), the first cap of
-//   each polygon kept: the reference's jnp.flatnonzero(..., size=cap).
-//   Bound: the larger of the bytes (8 B a column of the slabs' union,
-//   16 B an edge) and the operations (4 a slab column for the box test,
-//   about 23 a (column in the box, edge) pair).
+//   Design: a block holds its tile's columns, eight a thread, in
+//   registers, and tests them against each listed polygon's box (the
+//   polygons' boxes and column spans staged in shared memory 256 at a
+//   time), only the columns inside that polygon's slab (the reference's
+//   cols < width). A warp appends its in-box (column, polygon) pairs to
+//   its own list in shared memory, placed by a ballot: no atomic and
+//   no barrier a polygon. Once a warp's list holds 32 pairs, or the
+//   polygons are done, each lane takes one pair through the polygon's
+//   edges, read as the edges A = (x0, y0, x1, y1) and their terms B =
+//   (ex, ey, len2 guarded, dy guarded), computed once per call by
+//   edge_terms_kernel.
+//   Definite (in box, inside, not band) and band counts add up per
+//   polygon in shared memory, then one atomicAdd per (tile, polygon),
+//   and the (tile, polygon) band count goes to cband, the rows pass's
+//   offsets. Bound: the larger of the bytes (8 B a column of the slabs'
+//   union, 16 B an edge) and the operations (4 a slab column for the
+//   box test, about 23 a (column in the box, edge) pair).
+//
+// contains_rows_kernel    <- _contains_counts_all's band rows (:443) and
+//   _contains_band_rows (:454). One block per (tile, polygon) entry with
+//   band rows: the columns of the tile inside the slab, in column order,
+//   through the box test and the edges; the band rows written from the
+//   entry's offset (the band rows of the polygon's earlier tiles, the
+//   wrapper's segmented prefix of cband), the first cap of each polygon
+//   kept: the reference's jnp.flatnonzero(..., size=cap).
 //
 // knn_select_kernel       <- _knn_kernel (:635). Per query, the kpad
 //   smallest keys (d2, row) in lexicographic order, where d2 is the f32
@@ -106,15 +145,13 @@
 
 namespace {
 
-constexpr int kDwThreads = 256;  // most threads of a dwithin block
-constexpr int kDwQpt = 4;        // queries per thread
-constexpr int kDwTile = 2048;    // rows staged in shared memory at a time
-
-constexpr int kThreads = 256;    // slab, contains and knn blocks
+constexpr int kThreads = 256;    // threads of every join block
+constexpr int kTile = 2048;      // columns of the x-sorted table a tile
+constexpr int kPer = kTile / kThreads;  // a tile's columns a thread
+constexpr int kDwQpt = 4;        // dwithin queries a thread
+constexpr int kGroup = kThreads * kDwQpt;  // listed objects a block takes
+constexpr int kWarpPairs = 32 * kPer + 32;  // a warp's contains pairs
 constexpr int kSlabChunk = 2048; // slab columns per work item
-constexpr int kCtChunk = 2048;   // contains columns per work item
-constexpr int kCtPer = kCtChunk / kThreads;
-constexpr int kEdgeTile = 512;   // edges staged at a time (16 KB)
 constexpr int kKnTile = 2048;    // knn keys per tile (eight a thread)
 constexpr int kKnMaxBuf = 16384; // largest knn buffer (128 KB)
 
@@ -157,54 +194,130 @@ __device__ __forceinline__ float sq_dist(float x, float y, float qx, float qy) {
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
 }
 
+// -- the tiles: async copies (cp.async, sm_80 and up) ------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// -- end of the async copies --------------------------------------------------
+
+// columns [t0, t0 + n) of xs and ys (n <= kTile) into sx and sy, 16 bytes
+// a copy where both tables are 16-byte aligned (the same in every
+// thread); ends in a barrier
+__device__ void load_tile(const float* xs, const float* ys, int64_t t0,
+                          int n, float* sx, float* sy) {
+  const float* gx = xs + t0;
+  const float* gy = ys + t0;
+  int head = 0;
+  if (((reinterpret_cast<uintptr_t>(gx) | reinterpret_cast<uintptr_t>(gy)) &
+       15) == 0) {
+    head = n & ~3;
+    for (int i = 4 * threadIdx.x; i < head; i += 4 * kThreads) {
+      cp_async16(sx + i, gx + i);
+      cp_async16(sy + i, gy + i);
+    }
+  }
+  for (int i = head + threadIdx.x; i < n; i += kThreads) {
+    cp_async4(sx + i, gx + i);
+    cp_async4(sy + i, gy + i);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// the block's slice of tile blockIdx.x's list: entries [b, b + m) of
+// tile_obj, and the tile's first column t0 and columns n; m == 0 when
+// the tile lists fewer than blockIdx.y * kGroup + 1 objects
+struct TileWork {
+  int b, m, n;
+  int64_t t0;
+};
+
+__device__ __forceinline__ TileWork tile_work(const int32_t* tile_off,
+                                              int64_t ncols) {
+  TileWork w;
+  const int64_t tile = blockIdx.x;
+  w.b = tile_off[tile] + static_cast<int>(blockIdx.y) * kGroup;
+  const int e = tile_off[tile + 1];
+  w.m = e - w.b < 0 ? 0 : (e - w.b < kGroup ? e - w.b : kGroup);
+  w.t0 = tile * kTile;
+  w.n = static_cast<int>(ncols - w.t0 < kTile ? ncols - w.t0 : kTile);
+  return w;
+}
+
 // -- J1: dwithin counts -----------------------------------------------------
 
-__global__ void __launch_bounds__(kDwThreads)
-    dwithin_counts_kernel(const float* __restrict__ px,
-                          const float* __restrict__ py, int64_t nrows,
-                          int64_t rows_per_block, const float* __restrict__ qx,
-                          const float* __restrict__ qy, int k, float r2_hi,
+__global__ void __launch_bounds__(kThreads)
+    dwithin_counts_kernel(const float* __restrict__ xs,
+                          const float* __restrict__ ys, int64_t ncols,
+                          const int32_t* __restrict__ tile_off,
+                          const int32_t* __restrict__ tile_obj,
+                          const float* __restrict__ qx,
+                          const float* __restrict__ qy, float r2_hi,
                           float r2_lo, int32_t* __restrict__ definite,
                           int32_t* __restrict__ band) {
-  __shared__ float2 s_xy[kDwTile];
-  const int group = blockIdx.y * blockDim.x * kDwQpt;
+  __shared__ __align__(16) float sx[kTile];
+  __shared__ __align__(16) float sy[kTile];
+  __shared__ int s_d[kGroup], s_b[kGroup];
+  const TileWork w = tile_work(tile_off, ncols);
+  if (w.m == 0) return;  // the same in every thread
+  for (int i = threadIdx.x; i < w.m; i += kThreads) s_d[i] = s_b[i] = 0;
+  // P query slots by kThreads / P column stripes: slot j of this thread
+  // is listed query slot + j * P; a slot past the list holds a NaN
+  // query, whose compares never pass
+  int P = 1;
+  while (P * kDwQpt < w.m && P < kThreads) P <<= 1;
+  const int stride = kThreads / P;
+  const int slot = threadIdx.x & (P - 1);
   float ax[kDwQpt], ay[kDwQpt];
   int cd[kDwQpt], cb[kDwQpt];
 #pragma unroll
   for (int j = 0; j < kDwQpt; ++j) {
-    const int q = group + j * blockDim.x + threadIdx.x;
-    // a slot past k: a NaN query, whose compares never pass
-    ax[j] = q < k ? qx[q] : __int_as_float(0x7fc00000);
-    ay[j] = q < k ? qy[q] : __int_as_float(0x7fc00000);
+    const int idx = slot + j * P;
+    const int q = idx < w.m ? tile_obj[w.b + idx] : -1;
+    ax[j] = q >= 0 ? qx[q] : __int_as_float(0x7fc00000);
+    ay[j] = q >= 0 ? qy[q] : __int_as_float(0x7fc00000);
     cd[j] = cb[j] = 0;
   }
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-  const int64_t row1 =
-      row0 + rows_per_block < nrows ? row0 + rows_per_block : nrows;
-  for (int64_t t0 = row0; t0 < row1; t0 += kDwTile) {
-    const int m = static_cast<int>(row1 - t0 < kDwTile ? row1 - t0 : kDwTile);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < m; i += blockDim.x)
-      s_xy[i] = make_float2(px[t0 + i], py[t0 + i]);
-    __syncthreads();
-    for (int i = 0; i < m; ++i) {
-      const float2 p = s_xy[i];
+  load_tile(xs, ys, w.t0, w.n, sx, sy);
+  for (int i = threadIdx.x / P; i < w.n; i += stride) {
+    const float x = sx[i];
+    const float y = sy[i];
 #pragma unroll
-      for (int j = 0; j < kDwQpt; ++j) {
-        const float d2 = sq_dist(p.x, p.y, ax[j], ay[j]);
-        const bool d = d2 <= r2_lo;
-        cd[j] += d;
-        cb[j] += !d & (d2 <= r2_hi);
-      }
+    for (int j = 0; j < kDwQpt; ++j) {
+      const float d2 = sq_dist(x, y, ax[j], ay[j]);
+      const bool d = d2 <= r2_lo;
+      cd[j] += d;
+      cb[j] += !d & (d2 <= r2_hi);
     }
   }
 #pragma unroll
   for (int j = 0; j < kDwQpt; ++j) {
-    const int q = group + j * blockDim.x + threadIdx.x;
-    if (q < k) {
-      if (cd[j]) atomicAdd(definite + q, cd[j]);
-      if (cb[j]) atomicAdd(band + q, cb[j]);
+    const int idx = slot + j * P;
+    if (idx < w.m) {
+      if (cd[j]) atomicAdd(&s_d[idx], cd[j]);
+      if (cb[j]) atomicAdd(&s_b[idx], cb[j]);
     }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < w.m; i += kThreads) {
+    const int q = tile_obj[w.b + i];
+    if (s_d[i]) atomicAdd(definite + q, s_d[i]);
+    if (s_b[i]) atomicAdd(band + q, s_b[i]);
   }
 }
 
@@ -268,29 +381,31 @@ __global__ void __launch_bounds__(kThreads)
 
 // -- J3: contains counts and band rows ---------------------------------------
 
-// the edge tile's terms: A = (x0, y0, x1, y1), B = (ex, ey, len2 guarded,
-// dy guarded), in the reference's rounding
-__device__ __forceinline__ void stage_edges(const float4* __restrict__ e,
-                                            int te, float4* sA, float4* sB) {
-  for (int j = threadIdx.x; j < te; j += kThreads) {
-    const float4 g = e[j];
-    const float ex = __fsub_rn(g.z, g.x);
-    const float ey = __fsub_rn(g.w, g.y);
-    const float len2 = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
-    sA[j] = g;
-    sB[j] = make_float4(ex, ey, len2 == 0.f ? 1.f : len2,
-                        g.w == g.y ? 1e-30f : ey);
-  }
+// the terms B = (ex, ey, len2 guarded, dy guarded) of the valid edges
+// (the first ecount[p] of polygon p's ne), in the reference's rounding
+__global__ void __launch_bounds__(kThreads)
+    edge_terms_kernel(const float4* __restrict__ edges,
+                      const int32_t* __restrict__ ecount, int ne, int64_t n,
+                      float4* __restrict__ terms) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n || static_cast<int>(i % ne) >= ecount[i / ne]) return;
+  const float4 g = edges[i];
+  const float ex = __fsub_rn(g.z, g.x);
+  const float ey = __fsub_rn(g.w, g.y);
+  const float len2 = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
+  terms[i] = make_float4(ex, ey, len2 == 0.f ? 1.f : len2,
+                         g.w == g.y ? 1e-30f : ey);
 }
 
-// one point against te staged edges: the crossing parity and the least
+// one point against te edges (A, B): the crossing parity and the least
 // squared distance (a NaN stays, as the reference's minimum keeps it)
-__device__ __forceinline__ void pip_edges(float x, float y, const float4* sA,
-                                          const float4* sB, int te,
-                                          bool* parity, float* m) {
+__device__ __forceinline__ void pip_edges(float x, float y,
+                                          const float4* __restrict__ A,
+                                          const float4* __restrict__ B,
+                                          int te, bool* parity, float* m) {
   for (int j = 0; j < te; ++j) {
-    const float4 a = sA[j];
-    const float4 c = sB[j];
+    const float4 a = A[j];
+    const float4 c = B[j];
     const float ry = __fsub_rn(y, a.y);
     if ((a.y > y) != (a.w > y)) {
       const float xint = __fadd_rn(a.x, __fdiv_rn(__fmul_rn(ry, c.x), c.w));
@@ -307,155 +422,179 @@ __device__ __forceinline__ void pip_edges(float x, float y, const float4* sA,
   }
 }
 
-struct Poly {
-  int64_t lo;
-  int width;
-  float bx0, by0, bx1, by1;  // the widened box
-  const float4* edges;
-  int ec;
-};
-
-__device__ __forceinline__ Poly load_poly(int p, const int32_t* los,
-                                          const int32_t* widths,
-                                          const float* boxes,
-                                          const float* edges,
-                                          const int32_t* ecount, int ne,
-                                          float eps) {
-  Poly g;
-  g.lo = los[p];
-  g.width = widths[p];
-  g.bx0 = __fsub_rn(boxes[4 * p], eps);
-  g.by0 = __fsub_rn(boxes[4 * p + 1], eps);
-  g.bx1 = __fadd_rn(boxes[4 * p + 2], eps);
-  g.by1 = __fadd_rn(boxes[4 * p + 3], eps);
-  g.edges = reinterpret_cast<const float4*>(edges) +
-            static_cast<int64_t>(p) * ne;
-  g.ec = ecount[p];
-  return g;
+// polygon p's box widened by eps, each bound rounded as the reference's
+__device__ __forceinline__ float4 widened_box(const float4* boxes, int p,
+                                              float eps) {
+  const float4 g = boxes[p];
+  return make_float4(__fsub_rn(g.x, eps), __fsub_rn(g.y, eps),
+                     __fadd_rn(g.z, eps), __fadd_rn(g.w, eps));
 }
 
-__device__ __forceinline__ bool in_box(const Poly& g, float x, float y) {
-  return x >= g.bx0 && x <= g.bx1 && y >= g.by0 && y <= g.by1;
+__device__ __forceinline__ bool in_box(const float4& g, float x, float y) {
+  return x >= g.x && x <= g.z && y >= g.y && y <= g.w;
 }
 
-// R columns a thread against every edge of g, tile by tile; every thread
-// of the block calls it (it synchronises)
-template <int R>
-__device__ void pip_block(const Poly& g, const float (&x)[R],
-                          const float (&y)[R], const bool (&in)[R],
-                          bool (&parity)[R], float (&m)[R], float4* sA,
-                          float4* sB) {
-  for (int e0 = 0; e0 < g.ec; e0 += kEdgeTile) {
-    const int te = g.ec - e0 < kEdgeTile ? g.ec - e0 : kEdgeTile;
-    __syncthreads();  // the previous tile is no longer read
-    stage_edges(g.edges + e0, te, sA, sB);
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (in[r]) pip_edges(x[r], y[r], sA, sB, te, &parity[r], &m[r]);
+// polygons [s0, s0 + kThreads) of the block's list, one a thread, into
+// shared memory: the slab's columns [c0, c1) within the tile and the
+// widened box
+__device__ __forceinline__ void stage_polys(
+    const TileWork& w, int s0, const int32_t* __restrict__ tile_obj,
+    const int32_t* __restrict__ los, const int32_t* __restrict__ widths,
+    const float4* __restrict__ boxes, float eps, int2* span, float4* box) {
+  const int s = s0 + threadIdx.x;
+  if (s < w.m) {
+    const int p = tile_obj[w.b + s];
+    const int64_t lo = los[p] - w.t0;
+    const int64_t hi = lo + widths[p];
+    span[threadIdx.x] = make_int2(lo > 0 ? static_cast<int>(lo) : 0,
+                                  hi < w.n ? static_cast<int>(hi) : w.n);
+    box[threadIdx.x] = widened_box(boxes, p, eps);
   }
 }
 
-template <bool kRows>
-__global__ void __launch_bounds__(kThreads)
+// the warp's n held pairs (column << 10 | slot in the list) through
+// their polygons' edges, one a lane, into the shared counts
+__device__ __forceinline__ void flush_pairs(
+    const int* pairs, int n, const TileWork& w, const float* sx,
+    const float* sy, const int32_t* __restrict__ tile_obj,
+    const float4* __restrict__ edges, const float4* __restrict__ terms,
+    const int32_t* __restrict__ ecount, int ne, float eps2, int* s_d,
+    int* s_b) {
+  __syncwarp();  // the lanes' appends are visible
+  for (int i = threadIdx.x & 31; i < n; i += 32) {
+    const int v = pairs[i];
+    const int col = v >> 10;
+    const int k = v & (kGroup - 1);
+    const int q = tile_obj[w.b + k];
+    const int64_t e0 = static_cast<int64_t>(q) * ne;
+    bool parity = false;
+    float m = __int_as_float(0x7f800000);
+    pip_edges(sx[col], sy[col], edges + e0, terms + e0, ecount[q], &parity,
+              &m);
+    if (m < eps2)
+      atomicAdd(&s_b[k], 1);
+    else if (parity)
+      atomicAdd(&s_d[k], 1);
+  }
+  __syncwarp();  // every pair is read before the list refills
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
     contains_counts_kernel(const float* __restrict__ xs,
-                           const float* __restrict__ ys,
-                           const int32_t* __restrict__ order,
+                           const float* __restrict__ ys, int64_t ncols,
+                           const int32_t* __restrict__ tile_off,
+                           const int32_t* __restrict__ tile_obj,
                            const int32_t* __restrict__ los,
                            const int32_t* __restrict__ widths,
-                           const int* __restrict__ item,
-                           const float* __restrict__ boxes,
-                           const float* __restrict__ edges,
+                           const float4* __restrict__ boxes,
+                           const float4* __restrict__ edges,
+                           const float4* __restrict__ terms,
                            const int32_t* __restrict__ ecount, int ne,
                            float eps, float eps2, int32_t* __restrict__ dc,
                            int32_t* __restrict__ bc,
-                           int32_t* __restrict__ cband, int cap_rows,
-                           int32_t* __restrict__ rows_out) {
-  __shared__ float4 sA[kEdgeTile], sB[kEdgeTile];
-  __shared__ int s_scan[2 * kThreads];
-  const float inf = __int_as_float(0x7f800000);
-  const int64_t b = blockIdx.x;
-  if (!kRows) {
-    // counts: item b = (polygon, chunk). The chunk's columns inside the
-    // box are gathered in shared memory first, so the crossing-number
-    // loop runs on full warps of in-box rows (a polygon's box holds a
-    // small share of its slab's columns, one or two of a warp's 32)
-    __shared__ float2 s_in[kCtChunk];
-    __shared__ int s_n, s_d, s_b;
-    const int p = item[2 * b];
-    const Poly g = load_poly(p, los, widths, boxes, edges, ecount, ne, eps);
-    const int c0 = item[2 * b + 1] * kCtChunk;
-    if (threadIdx.x == 0) s_n = s_d = s_b = 0;
-    __syncthreads();
+                           int32_t* __restrict__ cband) {
+  __shared__ __align__(16) float sx[kTile];
+  __shared__ __align__(16) float sy[kTile];
+  __shared__ int s_pair[kThreads / 32][kWarpPairs];  // a list a warp
+  __shared__ int s_d[kGroup], s_b[kGroup];
+  __shared__ int2 s_span[kThreads];  // the staged polygons' columns
+  __shared__ float4 s_box[kThreads]; // and widened boxes
+  const TileWork w = tile_work(tile_off, ncols);
+  if (w.m == 0) return;  // the same in every thread
+  for (int i = threadIdx.x; i < w.m; i += kThreads) s_d[i] = s_b[i] = 0;
+  // the first polygons' loads overlap the tile's copy
+  stage_polys(w, 0, tile_obj, los, widths, boxes, eps, s_span, s_box);
+  load_tile(xs, ys, w.t0, w.n, sx, sy);
+  const float nan = __int_as_float(0x7fc00000);
+  float x[kPer], y[kPer];  // a NaN past the tile fails every box
 #pragma unroll
-    for (int r = 0; r < kCtPer; ++r) {
-      const int col = c0 + r * kThreads + threadIdx.x;
-      if (col < g.width) {
-        const float x = xs[g.lo + col];
-        const float y = ys[g.lo + col];
-        if (in_box(g, x, y)) s_in[atomicAdd(&s_n, 1)] = make_float2(x, y);
-      }
-    }
-    __syncthreads();
-    const int n_in = s_n;
-    if (n_in > 0) {  // the same in every thread
-      float x[kCtPer], y[kCtPer], m[kCtPer];
-      bool in[kCtPer], parity[kCtPer];
-#pragma unroll
-      for (int r = 0; r < kCtPer; ++r) {
-        const int j = r * kThreads + threadIdx.x;
-        in[r] = j < n_in;
-        const float2 v = in[r] ? s_in[j] : make_float2(0.f, 0.f);
-        x[r] = v.x;
-        y[r] = v.y;
-        parity[r] = false;
-        m[r] = inf;
-      }
-      pip_block<kCtPer>(g, x, y, in, parity, m, sA, sB);
-      int d = 0, bnd = 0;
-#pragma unroll
-      for (int r = 0; r < kCtPer; ++r) {
-        const bool band = in[r] && m[r] < eps2;
-        d += in[r] && parity[r] && !band;
-        bnd += band;
-      }
-      if (d) atomicAdd(&s_d, d);
-      if (bnd) atomicAdd(&s_b, bnd);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      if (s_d) atomicAdd(dc + p, s_d);
-      if (s_b) atomicAdd(bc + p, s_b);
-      cband[b] = s_b;
-    }
-    return;
+  for (int r = 0; r < kPer; ++r) {
+    const int col = r * kThreads + threadIdx.x;
+    x[r] = col < w.n ? sx[col] : nan;
+    y[r] = col < w.n ? sy[col] : nan;
   }
-  // rows: item b = (polygon, chunk, output slot, offset in the slot): the
-  // chunk's band rows in column order, from the offset (the band rows of
-  // the polygon's earlier chunks, by the counts pass), the first
-  // cap_rows of the polygon kept
-  const int p = item[4 * b];
-  const Poly g = load_poly(p, los, widths, boxes, edges, ecount, ne, eps);
-  const int c0 = item[4 * b + 1] * kCtChunk;
-  int32_t* out = rows_out + static_cast<int64_t>(item[4 * b + 2]) * cap_rows;
-  int found = item[4 * b + 3];
-  const int c1 = c0 + kCtChunk < g.width ? c0 + kCtChunk : g.width;
-  for (int s0 = c0; s0 < c1 && found < cap_rows; s0 += kThreads) {
-    const int col = s0 + threadIdx.x;
-    float x[1] = {0.f}, y[1] = {0.f}, m[1] = {inf};
-    bool in[1] = {false}, parity[1] = {false};
-    if (col < c1) {
-      x[0] = xs[g.lo + col];
-      y[0] = ys[g.lo + col];
-      in[0] = in_box(g, x[0], y[0]);
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1;
+  int* pairs = s_pair[threadIdx.x / 32];
+  int held = 0;  // the warp's pairs, under 32 before each polygon
+  for (int s = 0; s < w.m; ++s) {
+    if (s > 0 && s % kThreads == 0) {  // the same in every thread
+      __syncthreads();  // every staged entry is read
+      stage_polys(w, s, tile_obj, los, widths, boxes, eps, s_span, s_box);
+      __syncthreads();
     }
-    if (__syncthreads_or(in[0])) pip_block<1>(g, x, y, in, parity, m, sA, sB);
-    const bool band = in[0] && m[0] < eps2;
-    const int step = __syncthreads_count(band);
+    const int2 c = s_span[s % kThreads];
+    const float4 g = s_box[s % kThreads];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int col = r * kThreads + threadIdx.x;
+      const bool hit = col >= c.x && col < c.y && in_box(g, x[r], y[r]);
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      if (hit) pairs[held + __popc(mask & below)] = (col << 10) | s;
+      held += __popc(mask);
+    }
+    if (held >= 32) {  // the same in the warp
+      flush_pairs(pairs, held, w, sx, sy, tile_obj, edges, terms, ecount, ne,
+                  eps2, s_d, s_b);
+      held = 0;
+    }
+  }
+  flush_pairs(pairs, held, w, sx, sy, tile_obj, edges, terms, ecount, ne,
+              eps2, s_d, s_b);
+  __syncthreads();
+  for (int i = threadIdx.x; i < w.m; i += kThreads) {
+    const int p = tile_obj[w.b + i];
+    if (s_d[i]) atomicAdd(dc + p, s_d[i]);
+    if (s_b[i]) atomicAdd(bc + p, s_b[i]);
+    cband[w.b + i] = s_b[i];
+  }
+}
+
+// item: (tile, polygon, slot, offset)
+__global__ void __launch_bounds__(kThreads)
+    contains_rows_kernel(const float* __restrict__ xs,
+                         const float* __restrict__ ys,
+                         const int32_t* __restrict__ order, int64_t ncols,
+                         const int32_t* __restrict__ los,
+                         const int32_t* __restrict__ widths,
+                         const int4* __restrict__ item,
+                         const float4* __restrict__ boxes,
+                         const float4* __restrict__ edges,
+                         const float4* __restrict__ terms,
+                         const int32_t* __restrict__ ecount, int ne,
+                         float eps, float eps2, int cap_rows,
+                         int32_t* __restrict__ rows_out) {
+  __shared__ int s_scan[2 * kThreads];
+  const int4 it = item[blockIdx.x];
+  const int p = it.y;
+  const int64_t t0 = static_cast<int64_t>(it.x) * kTile;
+  const int64_t lo = los[p];
+  int64_t c1 = lo + widths[p];
+  c1 = c1 < t0 + kTile ? c1 : t0 + kTile;
+  c1 = c1 < ncols ? c1 : ncols;
+  const float4 g = widened_box(boxes, p, eps);
+  const float4* A = edges + static_cast<int64_t>(p) * ne;
+  const float4* B = terms + static_cast<int64_t>(p) * ne;
+  const int ec = ecount[p];
+  int32_t* out = rows_out + static_cast<int64_t>(it.z) * cap_rows;
+  int found = it.w;
+  for (int64_t s0 = lo > t0 ? lo : t0; s0 < c1 && found < cap_rows;
+       s0 += kThreads) {
+    const int64_t col = s0 + threadIdx.x;
+    bool band = false;
+    if (col < c1) {
+      const float x = xs[col];
+      const float y = ys[col];
+      if (in_box(g, x, y)) {
+        bool parity = false;
+        float m = __int_as_float(0x7f800000);
+        pip_edges(x, y, A, B, ec, &parity, &m);
+        band = m < eps2;
+      }
+    }
+    const int step = __syncthreads_count(band);  // the same in every thread
     if (step) {
       const int rank = block_exclusive(band, s_scan);
-      if (band && found + rank < cap_rows)
-        out[found + rank] = order[g.lo + col];
+      if (band && found + rank < cap_rows) out[found + rank] = order[col];
       found += step;
     }
   }
@@ -652,41 +791,40 @@ cudaError_t knn_opt_in() {
 extern "C" {
 
 
-// The chunk and buffer constants the wrappers must agree with:
-// 0 kSlabChunk, 1 kCtChunk, 2 kKnTile, 3 kKnMaxBuf.
+// The chunk, tile and buffer constants the wrappers must agree with:
+// 0 kSlabChunk, 1 kTile, 2 kKnTile, 3 kKnMaxBuf, 4 kGroup.
 int geomesa_join_constant(int which) {
   switch (which) {
     case 0: return kSlabChunk;
-    case 1: return kCtChunk;
+    case 1: return kTile;
     case 2: return kKnTile;
     case 3: return kKnMaxBuf;
+    case 4: return kGroup;
     default: return -1;
   }
 }
 
-// definite[q], band[q] (zeroed by the caller) += the counts of the rows
-// < nrows against the k queries. Requires nrows > 0 and k > 0.
-int geomesa_dwithin_counts(const float* px, const float* py, int64_t nrows,
-                           const float* qx, const float* qy, int k,
+// The tile-major calls' common arguments: the x-sorted table (xs, ys) of
+// ncols > 0 columns, cut into ceil(ncols / kTile) tiles; tile_off
+// (int32, one more than the tiles) and tile_obj: the objects whose slab
+// meets each tile, ascending within it; groups (1 to 65535): blocks a
+// tile, ceil(the longest list / kGroup).
+
+// definite[q], band[q] (zeroed by the caller) += the counts of every
+// column of each tile that lists q against query (qx[q], qy[q]).
+int geomesa_dwithin_counts(const float* xs, const float* ys, int64_t ncols,
+                           const int32_t* tile_off, const int32_t* tile_obj,
+                           int groups, const float* qx, const float* qy,
                            float r2_hi, float r2_lo, int32_t* definite,
                            int32_t* band, void* stream) {
-  const int sms = sm_count();
-  if (nrows < 1 || k < 1 || sms < 1)
+  const int64_t tiles = (ncols + kTile - 1) / kTile;
+  if (ncols < 1 || tiles > INT_MAX || groups < 1 || groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  int threads = (k + kDwQpt - 1) / kDwQpt;
-  threads = threads >= kDwThreads ? kDwThreads : ((threads + 31) / 32) * 32;
-  const int64_t groups = (k + threads * kDwQpt - 1) / (threads * kDwQpt);
-  if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  // enough row blocks that every SM holds several blocks
-  const int64_t want = (static_cast<int64_t>(sms) * 8 + groups - 1) / groups;
-  int64_t per = (nrows + want - 1) / want;
-  per = ((per + kDwTile - 1) / kDwTile) * kDwTile;
-  const int64_t bx = (nrows + per - 1) / per;
-  if (bx > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  dwithin_counts_kernel<<<dim3(static_cast<unsigned>(bx),
+  dwithin_counts_kernel<<<dim3(static_cast<unsigned>(tiles),
                                static_cast<unsigned>(groups)),
-                          threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      px, py, nrows, per, qx, qy, k, r2_hi, r2_lo, definite, band);
+                          kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      xs, ys, ncols, tile_off, tile_obj, qx, qy, r2_hi, r2_lo, definite,
+      band);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -725,46 +863,72 @@ int geomesa_slab_pairs(const float* xs, const float* ys, const int32_t* order,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Counts mode over `items` (polygon, chunk) work items (item: int32
-// pairs, each polygon's ceil(width / kCtChunk) chunks in order): dc[p],
-// bc[p] (zeroed by the caller) += the definite and band counts;
-// cband[item] the item's band count. edges (kp, ne, 4) 16-byte aligned,
-// the first ecount[p] of polygon p valid. Requires items > 0.
-int geomesa_contains_counts(const float* xs, const float* ys,
-                            const int32_t* los, const int32_t* widths,
-                            const int32_t* item, int64_t items,
-                            const float* boxes, const float* edges,
-                            const int32_t* ecount, int ne, float eps,
-                            float eps2, int32_t* dc, int32_t* bc,
-                            int32_t* cband, void* stream) {
-  if (items < 1 || items > INT_MAX || ne < 1)
+// The polygons' edge terms into terms ((kp, ne, 4) f32 scratch) for
+// the contains kernels; edges (kp, ne, 4) and boxes (kp, 4), both
+// 16-byte aligned, the first ecount[p] edges of polygon p valid.
+
+// The counts pass over the tile-major lists of polygons: dc[p], bc[p]
+// (zeroed by the caller) += the definite and band counts of polygon p;
+// cband[e] the band count of list entry e of tile_obj.
+int geomesa_contains_counts(const float* xs, const float* ys, int64_t ncols,
+                            const int32_t* tile_off, const int32_t* tile_obj,
+                            int groups, const int32_t* los,
+                            const int32_t* widths, const float* boxes,
+                            const float* edges, const int32_t* ecount, int kp,
+                            int ne, float eps, float eps2, float* terms,
+                            int32_t* dc, int32_t* bc, int32_t* cband,
+                            void* stream) {
+  const int64_t tiles = (ncols + kTile - 1) / kTile;
+  if (ncols < 1 || tiles > INT_MAX || groups < 1 || groups > 65535 ||
+      kp < 1 || ne < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  contains_counts_kernel<false><<<static_cast<unsigned>(items), kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      xs, ys, nullptr, los, widths, item, boxes, edges, ecount, ne, eps, eps2,
-      dc, bc, cband, 0, nullptr);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int64_t n = static_cast<int64_t>(kp) * ne;
+  edge_terms_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                      kThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(edges), ecount, ne, n,
+      reinterpret_cast<float4*>(terms));
+  contains_counts_kernel<<<dim3(static_cast<unsigned>(tiles),
+                                static_cast<unsigned>(groups)),
+                           kThreads, 0, s>>>(
+      xs, ys, ncols, tile_off, tile_obj, los, widths,
+      reinterpret_cast<const float4*>(boxes),
+      reinterpret_cast<const float4*>(edges),
+      reinterpret_cast<const float4*>(terms), ecount, ne, eps, eps2, dc, bc,
+      cband);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Rows mode over `items` work items (item: int32 quadruples (polygon,
-// chunk, slot, offset)): each chunk's band rows in column order into
-// rows_out[slot] from the offset on, at most cap_rows a slot (rows_out
-// (slots, cap_rows), pre-filled with -1 by the caller). The offset is the
-// band rows of the polygon's earlier chunks (the counts pass's cband).
-// Requires items > 0.
+// The rows pass over `items` work items (item: int32 quadruples (tile,
+// polygon, slot, offset)): the band rows of the tile's columns inside
+// the polygon's slab, in column order, into rows_out[slot] from the
+// offset on, at most cap_rows a slot (rows_out (slots, cap_rows),
+// pre-filled with -1 by the caller). The offset is the band rows of the
+// polygon's earlier tiles (from the counts pass's cband). Requires
+// items > 0.
 int geomesa_contains_band_rows(const float* xs, const float* ys,
-                               const int32_t* order, const int32_t* los,
-                               const int32_t* widths, const int32_t* item,
-                               int64_t items, const float* boxes,
-                               const float* edges, const int32_t* ecount,
-                               int ne, float eps, float eps2, int cap_rows,
-                               int32_t* rows_out, void* stream) {
-  if (items < 1 || items > INT_MAX || cap_rows < 1 || ne < 1)
+                               const int32_t* order, int64_t ncols,
+                               const int32_t* los, const int32_t* widths,
+                               const int32_t* item, int64_t items,
+                               const float* boxes, const float* edges,
+                               const int32_t* ecount, int kp, int ne,
+                               float eps, float eps2, float* terms,
+                               int cap_rows, int32_t* rows_out,
+                               void* stream) {
+  if (items < 1 || items > INT_MAX || cap_rows < 1 || kp < 1 || ne < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  contains_counts_kernel<true><<<static_cast<unsigned>(items), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      xs, ys, order, los, widths, item, boxes, edges, ecount, ne, eps, eps2,
-      nullptr, nullptr, nullptr, cap_rows, rows_out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int64_t n = static_cast<int64_t>(kp) * ne;
+  edge_terms_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                      kThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(edges), ecount, ne, n,
+      reinterpret_cast<float4*>(terms));
+  contains_rows_kernel<<<static_cast<unsigned>(items), kThreads, 0, s>>>(
+      xs, ys, order, ncols, los, widths, reinterpret_cast<const int4*>(item),
+      reinterpret_cast<const float4*>(boxes),
+      reinterpret_cast<const float4*>(edges),
+      reinterpret_cast<const float4*>(terms), ecount, ne, eps, eps2,
+      cap_rows, rows_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -40,15 +40,19 @@ notes at their heads for what they replace and what bounds them):
   query's intervals, as int8[n] (``scan/gscan.py``).
 - ``dwithin_counts``: per query point, the rows whose f32 squared
   distance is within the radius band's lower edge (definite) and between
-  its edges (band), as int32 counts (``analytics/join.py``);
+  its edges (band), as int32 counts (``analytics/join.py``), over the
+  tiles of the x-sorted table that each query's slab meets
+  (``sorted_by_x``, ``dwithin_slabs``, ``tile_lists``);
 - ``slab_pairs``: over each query's slab of the x-sorted table, the rows
   within the radius band's upper edge (radius mode) or inside the
   widened box (box mode), as (row, query) pairs in query-major, slab
   order, in two passes (counts, then writes at their prefix offsets);
 - ``contains_counts``: per polygon, the slab rows inside its widened box
   and, for those, the crossing number and the EDGE_EPS band: definite
-  and band counts and the first band rows in slab order
-  (``contains_band_rows``: more band rows of listed polygons);
+  and band counts, each tile of the x-sorted table read once for every
+  polygon whose slab meets it (``tile_lists``), and the first band rows
+  in slab order (``contains_band_rows``: more band rows of listed
+  polygons);
 - ``knn_topk``: per query point, the kpad smallest (f32 d2, row) keys in
   lexicographic order, over chunks of rows and then of the chunks' keys.
 
@@ -78,6 +82,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -102,8 +107,10 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "slab_pairs", "slab_pairs_plain", "contains_counts",
            "contains_counts_plain", "contains_band_rows",
            "contains_band_rows_plain", "knn_topk", "knn_topk_plain",
-           "KNN_MAX_KPAD", "work_items", "band_row_items", "SLAB_CHUNK",
-           "CONTAINS_CHUNK", "KNN_TILE"]
+           "KNN_MAX_KPAD", "work_items", "SLAB_CHUNK", "KNN_TILE",
+           "JOIN_TILE", "JOIN_GROUP", "sorted_by_x", "TileLists",
+           "tile_lists", "dwithin_slabs", "dwithin_counts_tiles_plain",
+           "contains_rows_items", "contains_counts_tiles_plain"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
@@ -385,16 +392,16 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_extent_tristate.argtypes = [p, p, p, i64, p, p, i32,
                                                     p, i32, p, p]
             lib.geomesa_join_constant.argtypes = [i32]
-            lib.geomesa_dwithin_counts.argtypes = [p, p, i64, p, p, i32, f32,
-                                                   f32, p, p, p]
+            lib.geomesa_dwithin_counts.argtypes = [p, p, i64, p, p, i32, p, p,
+                                                   f32, f32, p, p, p]
             lib.geomesa_slab_pairs.argtypes = [p, p, p, p, p, p, i64, i32, p,
                                                f32, f32, i32, p, p, p, p, p]
-            lib.geomesa_contains_counts.argtypes = [p, p, p, p, p, i64, p, p,
-                                                    p, i32, f32, f32, p, p, p,
-                                                    p]
-            lib.geomesa_contains_band_rows.argtypes = [p, p, p, p, p, p, i64,
-                                                       p, p, p, i32, f32, f32,
-                                                       i32, p, p]
+            lib.geomesa_contains_counts.argtypes = [p, p, i64, p, p, i32, p,
+                                                    p, p, p, p, i32, i32, f32,
+                                                    f32, p, p, p, p, p]
+            lib.geomesa_contains_band_rows.argtypes = [p, p, p, i64, p, p, p,
+                                                       i64, p, p, p, i32, i32,
+                                                       f32, f32, p, i32, p, p]
             lib.geomesa_knn_select.argtypes = [p, p, i64, p, p, p, i64, i32,
                                                i32, i32, i64, p, p]
             lib.geomesa_knn_chunk.argtypes = [i64, i32, i32, i32, i32]
@@ -424,10 +431,11 @@ def _library() -> ctypes.CDLL:
             if tuple(codes[:got]) != RESIDUAL_CODES:
                 raise RuntimeError("csrc/residual.cu and kernels.py disagree "
                                    "on the residual program's opcodes")
-            if tuple(lib.geomesa_join_constant(i) for i in range(4)) != (
-                    SLAB_CHUNK, CONTAINS_CHUNK, KNN_TILE, KNN_MAX_BUF):
+            if tuple(lib.geomesa_join_constant(i) for i in range(5)) != (
+                    SLAB_CHUNK, JOIN_TILE, KNN_TILE, KNN_MAX_BUF, JOIN_GROUP):
                 raise RuntimeError("csrc/join.cu and kernels.py disagree on "
-                                   "the join kernels' chunks and buffers")
+                                   "the join kernels' chunks, tiles and "
+                                   "buffers")
             _lib["lib"] = lib
         return _lib["lib"]
 
@@ -1405,12 +1413,15 @@ def extent_tristate(bounds, valid, times, outer, inner, intervals):
 
 # -- spatial joins and knn (csrc/join.cu) ------------------------------------
 
-# the slab and contains kernels' work items (slab columns per block), the
-# knn kernel's tile (keys a block reads between threshold updates) and
-# its largest shared buffer (keys); the buffer holds kpad keys beside more
-# than a tile, so kpad is at most KNN_MAX_KPAD
+# the slab kernel's work items (slab columns per block); the tile of the
+# dwithin and contains kernels (columns of the x-sorted table) and the
+# listed objects one of their blocks takes; the knn kernel's tile (keys
+# a block reads between threshold updates) and its largest shared buffer
+# (keys); the buffer holds kpad keys beside more than a tile, so kpad is
+# at most KNN_MAX_KPAD
 SLAB_CHUNK = 2048
-CONTAINS_CHUNK = 2048
+JOIN_TILE = 2048
+JOIN_GROUP = 1024
 KNN_TILE = 2048
 KNN_MAX_BUF = 16384
 KNN_MAX_KPAD = 8192
@@ -1433,13 +1444,112 @@ def _f32_scalar(v: float, device):
 
 def work_items(widths: np.ndarray, chunk: int) -> np.ndarray:
     """int32[items, 2]: each query's ceil(width / chunk) work items of
-    the slab and contains kernels, one block each, as (query, chunk)
-    pairs in query order."""
+    the slab kernel, one block each, as (query, chunk) pairs in query
+    order."""
     chunks = (np.maximum(np.asarray(widths, np.int64), 0) + chunk - 1) // chunk
     q = np.repeat(np.arange(len(chunks), dtype=np.int64), chunks)
     first = np.cumsum(chunks) - chunks
     return np.stack([q, np.arange(len(q)) - first[q]],
                     axis=1).astype(np.int32)
+
+
+def sorted_by_x(px, py, nrows: int):
+    """(xs, ys, order): the rows sorted by x (stable, as jnp.argsort),
+    rows >= nrows and rows whose x is NaN (which no test passes) pushed
+    to +inf so they land at the tail, with the rows' y beside (NaN for
+    those rows, so no slab test passes them) and the int32 row ids. xs
+    holds no NaN, so a binary search of it is well defined."""
+    pad = (torch.arange(px.shape[0], device=px.device) >= nrows) | px.isnan()
+    key = px.masked_fill(pad, float("inf"))
+    xs, order = torch.sort(key, stable=True)
+    ys = py[order].masked_fill(pad[order], float("nan"))
+    return xs, ys, order.to(torch.int32)
+
+
+class TileLists(NamedTuple):
+    """Slabs [lo, lo + width) over a table of ``ncols`` columns cut into
+    ``ntiles`` tiles of ``tile`` columns aligned to 0: tile t lists the
+    objects whose slab meets it, objs[offsets[t]:offsets[t + 1]],
+    ascending. ``tiles`` is each entry's tile; entry i is entry perm[i]
+    of the object-major order (each object's tiles in order, objects in
+    order), whose object o starts at start[o]. ``most``: the longest
+    list."""
+    offsets: torch.Tensor   # int32[ntiles + 1]
+    objs: torch.Tensor      # int32[total]
+    tiles: torch.Tensor     # int64[total]
+    perm: torch.Tensor      # int64[total]
+    start: torch.Tensor     # int64[k]
+    ntiles: int
+    total: int
+    most: int
+
+
+def tile_lists(los, widths, ncols: int, tile: int = JOIN_TILE) -> TileLists:
+    """The tile-major incidence lists of the slabs, built where the slabs
+    lie with torch ops (one copy to the host: the total and the longest
+    list): per-tile counts by a difference array, each object's entries
+    by repeat_interleave, then a stable sort by tile."""
+    dev = los.device
+    lo, w = los.to(torch.int64), widths.to(torch.int64)
+    k = lo.shape[0]
+    ntiles = -(-int(ncols) // tile)
+    live = (w > 0).to(torch.int64)
+    first = torch.div(lo, tile, rounding_mode="floor")
+    count = torch.where(live > 0, torch.div(lo + w - 1, tile,
+                                            rounding_mode="floor") - first + 1,
+                        0)
+    start = torch.cumsum(count, 0) - count
+    diff = torch.zeros(ntiles + 1, dtype=torch.int64, device=dev)
+    diff.index_add_(0, first.clamp(0, ntiles), live)
+    diff.index_add_(0, (first + count).clamp(0, ntiles), -live)
+    per_tile = torch.cumsum(diff[:ntiles], 0)
+    offsets = torch.zeros(ntiles + 1, dtype=torch.int32, device=dev)
+    if ntiles == 0:
+        total = most = 0
+    else:
+        offsets[1:] = torch.cumsum(per_tile, 0)
+        total, most = (int(v) for v in torch.stack(
+            [count.sum(), per_tile.max()]).tolist())
+    if total > (1 << 31) - 1:
+        raise ValueError(f"{total} (tile, object) entries: the lists hold "
+                         f"int32 offsets")
+    obj = torch.repeat_interleave(torch.arange(k, device=dev), count,
+                                  output_size=total)
+    tile_of = first[obj] + torch.arange(total, device=dev) - start[obj]
+    tiles, perm = torch.sort(tile_of, stable=True)
+    return TileLists(offsets, obj[perm].to(torch.int32), tiles, perm, start,
+                     ntiles, total, most)
+
+
+def dwithin_slabs(xs, qx, r2_hi: float, r2_lo: float):
+    """(los, widths) int32 on the table's device: each query's slab of
+    the x-sorted table xs that holds every row whose f32 d2 to the query
+    can pass r2_hi or r2_lo (csrc/join.cu's head note has the argument):
+    [searchsorted(fl(qx - w), left), searchsorted(fl(qx + w), right))
+    with w = (D + 2^-23 M)(1 + 2^-22) rounded up to f32, D = sqrt(r2)
+    (1 + 2^-22) + 1e-20 for the larger threshold r2, M the table's
+    largest finite |x|. A non-finite qx's slab is empty, every slab is
+    the whole table where w is infinite. No copy to the host."""
+    dev, cap, k = xs.device, xs.shape[0], qx.shape[0]
+    r2 = [v for v in (float(r2_hi), float(r2_lo)) if v == v]
+    if cap == 0 or not r2:
+        zero = torch.zeros(k, dtype=torch.int32, device=dev)
+        return zero, zero.clone()
+    d = float(np.sqrt(max(max(r2), 0.0))) * (1 + 2.0**-22) + 1e-20
+    inf = torch.full((1,), float("inf"), dtype=torch.float32, device=dev)
+    a = torch.searchsorted(xs, -inf, right=True)   # the first finite column
+    z = torch.searchsorted(xs, inf) - 1            # and the last
+    ends = xs[torch.cat([a, z]).clamp(0, cap - 1)].abs().to(torch.float64)
+    big = torch.where(a <= z, ends.max(), 0.0)
+    w64 = (d + big * 2.0**-23) * (1 + 2.0**-22)
+    w = w64.to(torch.float32)
+    w = torch.where(w.to(torch.float64) < w64, torch.nextafter(w, inf), w)
+    los = torch.searchsorted(xs, qx - w)
+    his = torch.searchsorted(xs, qx + w, right=True)
+    widths = torch.where(torch.isfinite(qx), his - los, 0)
+    full = torch.isinf(w)
+    return (torch.where(full, 0, los).to(torch.int32),
+            torch.where(full, cap, widths).to(torch.int32))
 
 
 def dwithin_counts_plain(px, py, qx, qy, r2_hi: float, r2_lo: float,
@@ -1465,11 +1575,44 @@ def dwithin_counts_plain(px, py, qx, qy, r2_hi: float, r2_lo: float,
     return definite, band
 
 
-def dwithin_counts(px, py, qx, qy, r2_hi: float, r2_lo: float, nrows: int):
+def dwithin_counts_tiles_plain(xs, ys, qx, qy, r2_hi: float, r2_lo: float,
+                               tile: int = JOIN_TILE):
+    """(definite, band) int32[k]: the dwithin kernel's walk of the
+    x-sorted table (xs, ys): dwithin_slabs, tile_lists, then every column
+    of each tile against each query it lists. It equals dwithin_counts_plain
+    on the original columns."""
+    k, dev, cap = qx.shape[0], xs.device, xs.shape[0]
+    definite = torch.zeros(k, dtype=torch.int32, device=dev)
+    band = torch.zeros(k, dtype=torch.int32, device=dev)
+    lists = tile_lists(*dwithin_slabs(xs, qx, r2_hi, r2_lo), cap, tile)
+    hi, lo = _f32_scalar(r2_hi, dev), _f32_scalar(r2_lo, dev)
+    step = max(1, _JOIN_PLAIN_ELEMS // tile)
+    cols = torch.arange(tile, device=dev)
+    for a in range(0, lists.total, step):
+        q = lists.objs[a:a + step].to(torch.int64)
+        c = lists.tiles[a:a + step, None] * tile + cols[None, :]
+        ok = c < cap
+        c = c.clamp(max=cap - 1)
+        dx = xs[c] - qx[q][:, None]
+        dy = ys[c] - qy[q][:, None]
+        d2 = dx * dx + dy * dy
+        d = (d2 <= lo) & ok
+        definite.index_add_(0, q, d.sum(dim=1, dtype=torch.int32))
+        band.index_add_(0, q, (~(d2 <= lo) & (d2 <= hi) & ok).sum(
+            dim=1, dtype=torch.int32))
+    return definite, band
+
+
+def dwithin_counts(px, py, qx, qy, r2_hi: float, r2_lo: float, nrows: int,
+                   xsorted=None):
     """(definite, band) int32[k] on the points' device: per query point
     (qx[q], qy[q]), the rows i < nrows of (px, py) whose f32 squared
     distance is <= r2_lo, and those with r2_lo < d2 <= r2_hi. r2_hi and
-    r2_lo are f32 values."""
+    r2_lo are f32 values. On CUDA the kernel walks the rows sorted by x
+    (``sorted_by_x``), each query over the tiles its slab meets
+    (``dwithin_slabs``, ``tile_lists``); ``xsorted`` passes the (xs, ys)
+    of ``sorted_by_x(px, py, nrows)`` where the caller holds them (a
+    resident table's cached sort), else the wrapper sorts."""
     cap = px.shape[0]
     _check_vec("px", px, torch.float32)
     _check_vec("py", py, torch.float32, cap)
@@ -1484,13 +1627,28 @@ def dwithin_counts(px, py, qx, qy, r2_hi: float, r2_lo: float, nrows: int):
     band = torch.zeros(k, dtype=torch.int32, device=dev)
     if k == 0 or nrows == 0:
         return definite, band
+    xs, ys = (sorted_by_x(px, py, nrows) if xsorted is None else xsorted)[:2]
+    _check_vec("xs", xs, torch.float32, cap)
+    _check_vec("ys", ys, torch.float32, cap)
+    _on_cpu((px, xs, ys))
+    lists = tile_lists(*dwithin_slabs(xs, qx, r2_hi, r2_lo), cap)
+    if lists.total == 0:
+        return definite, band
+    _dwithin_counts_launch(xs, ys, lists, qx, qy, r2_hi, r2_lo, definite,
+                           band)
+    return definite, band
+
+
+def _dwithin_counts_launch(xs, ys, lists, qx, qy, r2_hi, r2_lo, definite,
+                           band):
+    """The dwithin kernel over the lists: definite, band += the counts."""
     rc = _library().geomesa_dwithin_counts(
-        px.data_ptr(), py.data_ptr(), nrows, qx.data_ptr(), qy.data_ptr(), k,
-        r2_hi, r2_lo, definite.data_ptr(), band.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        xs.data_ptr(), ys.data_ptr(), xs.shape[0], lists.offsets.data_ptr(),
+        lists.objs.data_ptr(), -(-lists.most // JOIN_GROUP), qx.data_ptr(),
+        qy.data_ptr(), r2_hi, r2_lo, definite.data_ptr(), band.data_ptr(),
+        torch.cuda.current_stream(xs.device).cuda_stream)
     _raise_on(rc, "dwithin_counts")
     launches["dwithin_counts"] += 1
-    return definite, band
 
 
 def _check_slabs(xs, ys, order, los, widths) -> tuple[np.ndarray, np.ndarray]:
@@ -1606,6 +1764,12 @@ def _check_polys(xs, ys, order, los, widths, boxes, edges, ecount):
     return lo_h, w_h
 
 
+def _check_aligned(boxes, edges):
+    if boxes.data_ptr() % 16 or edges.data_ptr() % 16:
+        raise ValueError("the kernel reads boxes and edges as 16-byte "
+                         "vectors: both must be 16-byte aligned")
+
+
 def _contains_one(xs, ys, order, lo, w, box, edges, ec, e, eps2):
     """(definite, band, band rows in slab order) of one polygon: its slab
     rows inside the widened box, then pip_pairs_plain against its ec
@@ -1651,6 +1815,68 @@ def contains_counts_plain(xs, ys, order, los, widths, boxes, edges, ecount,
     return dc, bc, brows
 
 
+def contains_rows_items(lists: TileLists, cband, polys, kp: int,
+                        cap: int):
+    """int32 (n, 4) work items of the contains kernel's rows pass, on the
+    lists' device: (tile, polygon, slot, offset) for each list entry of a
+    listed polygon (slot: its index in ``polys``, distinct) with band
+    rows (``cband``, the counts pass's band count of each entry) that
+    start before ``cap``; the offset is the band rows of the polygon's
+    earlier tiles (a prefix of cband in object-major order)."""
+    dev = cband.device
+    om = torch.empty(lists.total, dtype=torch.int64, device=dev)
+    om[lists.perm] = cband.to(torch.int64)
+    excl = torch.cumsum(om, 0) - om
+    obj = lists.objs.to(torch.int64)
+    off = excl[lists.perm] - excl[lists.start[obj]]
+    slot = torch.full((kp,), -1, dtype=torch.int64, device=dev)
+    slot[torch.as_tensor(polys, dtype=torch.int64, device=dev)] = \
+        torch.arange(len(polys), device=dev)
+    keep = torch.nonzero((cband > 0) & (off < cap) & (slot[obj] >= 0))
+    keep = keep.flatten()
+    return torch.stack([lists.tiles[keep], obj[keep], slot[obj[keep]],
+                        off[keep]], dim=1).to(torch.int32).contiguous()
+
+
+def contains_counts_tiles_plain(xs, ys, order, los, widths, boxes, edges,
+                                ecount, eps: float, eps2: float,
+                                band_cap: int, tile: int = JOIN_TILE):
+    """(definite, band, band_rows) as contains_counts_plain, by the
+    contains kernels' walk: tile_lists over the polygons' slabs; per
+    list entry the tile's columns inside the polygon's slab through the
+    box and the edges (the counts pass, with each entry's band count);
+    then contains_rows_items and each item's band rows from its offset
+    (the rows pass)."""
+    dev, cap = xs.device, xs.shape[0]
+    kp = los.shape[0]
+    dc = torch.zeros(kp, dtype=torch.int32, device=dev)
+    bc = torch.zeros(kp, dtype=torch.int32, device=dev)
+    brows = torch.full((kp, band_cap), -1, dtype=torch.int32, device=dev)
+    lists = tile_lists(los, widths, cap, tile)
+    e, e2 = _f32_scalar(eps, dev), _f32_scalar(eps2, dev)
+    lo_h, w_h, ec_h = los.tolist(), widths.tolist(), ecount.tolist()
+
+    def entry(t, p):
+        c0 = max(lo_h[p], t * tile)
+        c1 = min(lo_h[p] + w_h[p], (t + 1) * tile, cap)
+        return _contains_one(xs, ys, order, c0, c1 - c0, boxes[p], edges[p],
+                             ec_h[p], e, e2)
+    cband = torch.zeros(lists.total, dtype=torch.int32, device=dev)
+    for i, (t, p) in enumerate(zip(lists.tiles.tolist(),
+                                   lists.objs.tolist())):
+        d, b, _ = entry(t, p)
+        dc[p] += d
+        bc[p] += b
+        cband[i] = b
+    banded = torch.nonzero(bc).flatten().tolist()
+    if banded and band_cap > 0:
+        for t, p, s, off in contains_rows_items(lists, cband, banded, kp,
+                                                band_cap).tolist():
+            rows = entry(t, p)[2][:band_cap - off]
+            brows[p, off:off + len(rows)] = rows
+    return dc, bc, brows
+
+
 def contains_counts(xs, ys, order, los, widths, boxes, edges, ecount,
                     eps: float, eps2: float, band_cap: int):
     """(definite, band, band_rows) on the table's device: per polygon p,
@@ -1658,86 +1884,67 @@ def contains_counts(xs, ys, order, los, widths, boxes, edges, ecount,
     f32 eps) counted as definite (inside by the crossing number, least
     squared distance to its ecount[p] valid edges of edges[p] >= eps2)
     or band (< eps2), and its first band_cap band rows in slab order
-    (int32, -1 filled). The counts pass, then the rows pass for the
-    polygons with band rows."""
-    _, w_h = _check_polys(xs, ys, order, los, widths, boxes, edges, ecount)
+    (int32, -1 filled). On CUDA: the counts pass over the table's tiles
+    (``tile_lists``), then the rows pass for the polygons with band
+    rows."""
+    _check_polys(xs, ys, order, los, widths, boxes, edges, ecount)
     if _on_cpu((xs, ys, order, los, widths, boxes, edges, ecount)):
         return contains_counts_plain(xs, ys, order, los, widths, boxes, edges,
                                      ecount, eps, eps2, band_cap)
-    if edges.data_ptr() % 16:
-        raise ValueError("the kernel reads edges as 16-byte vectors: edges "
-                         "must be 16-byte aligned")
+    _check_aligned(boxes, edges)
     dev = xs.device
     kp = los.shape[0]
     dc = torch.zeros(kp, dtype=torch.int32, device=dev)
     bc = torch.zeros(kp, dtype=torch.int32, device=dev)
     brows = torch.full((kp, band_cap), -1, dtype=torch.int32, device=dev)
-    item = work_items(w_h, CONTAINS_CHUNK)
-    if not len(item):
+    lists = tile_lists(los, widths, xs.shape[0])
+    if lists.total == 0:
         return dc, bc, brows
+    terms = torch.empty_like(edges)
     cband = _contains_counts_launch(xs, ys, los, widths, boxes, edges, ecount,
-                                    eps, eps2, item, dc, bc)
+                                    eps, eps2, lists, terms, dc, bc)
     banded = np.flatnonzero(bc.cpu().numpy())
     if len(banded) and band_cap > 0:
-        brows[torch.from_numpy(banded).to(xs.device)] = _contains_rows_launch(
-            xs, ys, order, los, widths, boxes, edges, ecount, eps, eps2, item,
-            cband, banded, kp, band_cap)
+        brows[torch.from_numpy(banded).to(dev)] = _contains_rows_launch(
+            xs, ys, order, los, widths, boxes, edges, ecount, eps, eps2,
+            lists, terms, cband, banded, band_cap)
     return dc, bc, brows
 
 
 def _contains_counts_launch(xs, ys, los, widths, boxes, edges, ecount, eps,
-                            eps2, item, dc, bc):
-    """The counts pass over the work items ``item`` (host (polygon,
-    chunk) pairs): dc, bc (zeroed) += the counts; the items' band counts
-    on the host."""
+                            eps2, lists, terms, dc, bc):
+    """The counts pass over the lists: dc, bc (zeroed) += the counts;
+    returns each list entry's band count (on the device). ``terms``: an
+    edges-shaped scratch that the pass fills."""
     dev = xs.device
-    it = torch.from_numpy(item).to(dev)
-    cband = torch.empty(len(item), dtype=torch.int32, device=dev)
+    cband = torch.empty(lists.total, dtype=torch.int32, device=dev)
     rc = _library().geomesa_contains_counts(
-        xs.data_ptr(), ys.data_ptr(), los.data_ptr(), widths.data_ptr(),
-        it.data_ptr(), len(item), boxes.data_ptr(), edges.data_ptr(),
-        ecount.data_ptr(), edges.shape[1], eps, eps2, dc.data_ptr(),
-        bc.data_ptr(), cband.data_ptr(),
+        xs.data_ptr(), ys.data_ptr(), xs.shape[0], lists.offsets.data_ptr(),
+        lists.objs.data_ptr(), -(-lists.most // JOIN_GROUP), los.data_ptr(),
+        widths.data_ptr(), boxes.data_ptr(), edges.data_ptr(),
+        ecount.data_ptr(), edges.shape[0], edges.shape[1], eps, eps2,
+        terms.data_ptr(), dc.data_ptr(), bc.data_ptr(), cband.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "contains_counts")
     launches["contains_counts"] += 1
-    return cband.cpu().numpy()
-
-
-def band_row_items(item, cband, polys, kp: int, cap: int) -> np.ndarray:
-    """(n, 4) int32 work items of the contains kernel's rows pass:
-    (polygon, chunk, slot, offset) for each counts-pass item of a listed
-    polygon (slot: its index in ``polys``) with band rows (``cband``, the
-    counts pass's per-item band counts) that start before ``cap``; the
-    offset is the band rows of the polygon's earlier items."""
-    p = item[:, 0].astype(np.int64)
-    excl = np.cumsum(cband, dtype=np.int64) - cband
-    first = np.r_[True, p[1:] != p[:-1]]
-    off = excl - excl[np.maximum.accumulate(
-        np.where(first, np.arange(len(p)), 0))]
-    slot = np.full(kp, -1, np.int64)
-    slot[np.asarray(polys, np.int64)] = np.arange(len(polys))
-    keep = (cband > 0) & (off < cap) & (slot[p] >= 0)
-    return np.stack([p, item[:, 1], slot[p], off],
-                    axis=1)[keep].astype(np.int32)
+    return cband
 
 
 def _contains_rows_launch(xs, ys, order, los, widths, boxes, edges, ecount,
-                          eps, eps2, item, cband, polys, kp, cap):
-    """int32[len(polys), cap]: the rows pass over the items of the listed
-    polygons (distinct) that hold band rows, each from its offset within
-    its polygon (the exclusive prefix of the polygon's earlier items'
-    band counts), -1 filled."""
+                          eps, eps2, lists, terms, cband, polys, cap):
+    """int32[len(polys), cap]: the rows pass over the list entries of the
+    listed polygons (distinct) that hold band rows, each from its offset
+    within its polygon, -1 filled."""
     dev = xs.device
     out = torch.full((len(polys), cap), -1, dtype=torch.int32, device=dev)
-    rows = band_row_items(item, cband, polys, kp, cap)
-    if not len(rows):
+    items = contains_rows_items(lists, cband, polys, los.shape[0], cap)
+    if not items.shape[0]:
         return out
-    rows = torch.from_numpy(rows).to(dev)
     rc = _library().geomesa_contains_band_rows(
-        xs.data_ptr(), ys.data_ptr(), order.data_ptr(), los.data_ptr(),
-        widths.data_ptr(), rows.data_ptr(), rows.shape[0], boxes.data_ptr(),
-        edges.data_ptr(), ecount.data_ptr(), edges.shape[1], eps, eps2, cap,
+        xs.data_ptr(), ys.data_ptr(), order.data_ptr(), xs.shape[0],
+        los.data_ptr(), widths.data_ptr(), items.data_ptr(), items.shape[0],
+        boxes.data_ptr(), edges.data_ptr(), ecount.data_ptr(),
+        edges.shape[0], edges.shape[1], eps, eps2, terms.data_ptr(), cap,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "contains_counts")
     launches["contains_counts"] += 1
@@ -1766,7 +1973,7 @@ def contains_band_rows(xs, ys, order, los, widths, boxes, edges, ecount,
     """int32[len(polys), cap] on the table's device: the first cap band
     rows, in slab order, of each listed polygon (distinct indices into
     the tables of ``contains_counts``), -1 filled: a counts pass over the
-    listed polygons' work items, then the rows pass."""
+    listed polygons' tiles, then the rows pass."""
     _check_polys(xs, ys, order, los, widths, boxes, edges, ecount)
     polys = [int(p) for p in polys]
     if any(not 0 <= p < los.shape[0] for p in polys) or cap < 1:
@@ -1774,28 +1981,28 @@ def contains_band_rows(xs, ys, order, los, widths, boxes, edges, ecount,
     if _on_cpu((xs, ys, order, los, widths, boxes, edges, ecount)):
         return contains_band_rows_plain(xs, ys, order, los, widths, boxes,
                                         edges, ecount, eps, eps2, polys, cap)
-    if edges.data_ptr() % 16:
-        raise ValueError("the kernel reads edges as 16-byte vectors: edges "
-                         "must be 16-byte aligned")
+    _check_aligned(boxes, edges)
+    dev = xs.device
     if not polys:
-        return torch.full((0, cap), -1, dtype=torch.int32, device=xs.device)
+        return torch.full((0, cap), -1, dtype=torch.int32, device=dev)
     if len(set(polys)) != len(polys):
         raise ValueError("polys must be distinct")
-    # the listed polygons' work items, their band counts by a counts pass
-    # into scratch counts, then the rows pass
-    w_h = widths.cpu().numpy()
-    item = work_items(w_h[polys], CONTAINS_CHUNK)
-    item[:, 0] = np.asarray(polys)[item[:, 0]]
-    kp = los.shape[0]
-    out = torch.full((len(polys), cap), -1, dtype=torch.int32,
-                     device=xs.device)
-    if not len(item):
-        return out
-    scratch = torch.zeros((2, kp), dtype=torch.int32, device=xs.device)
-    cband = _contains_counts_launch(xs, ys, los, widths, boxes, edges, ecount,
-                                    eps, eps2, item, scratch[0], scratch[1])
-    return _contains_rows_launch(xs, ys, order, los, widths, boxes, edges,
-                                 ecount, eps, eps2, item, cband, polys, kp, cap)
+    # the listed polygons' slabs alone, their band counts by a counts
+    # pass into scratch counts, then the rows pass
+    sel = torch.tensor(polys, dtype=torch.int64, device=dev)
+    listed = torch.zeros_like(widths)
+    listed[sel] = widths[sel]
+    lists = tile_lists(los, listed, xs.shape[0])
+    if lists.total == 0:
+        return torch.full((len(polys), cap), -1, dtype=torch.int32, device=dev)
+    scratch = torch.zeros((2, los.shape[0]), dtype=torch.int32, device=dev)
+    terms = torch.empty_like(edges)
+    cband = _contains_counts_launch(xs, ys, los, listed, boxes, edges, ecount,
+                                    eps, eps2, lists, terms, scratch[0],
+                                    scratch[1])
+    return _contains_rows_launch(xs, ys, order, los, listed, boxes, edges,
+                                 ecount, eps, eps2, lists, terms, cband, polys,
+                                 cap)
 
 
 def knn_topk_plain(px, py, qx, qy, kpad: int, nrows: int):

@@ -4,7 +4,7 @@
     python3 kernel_ab.py [--seed 0] [--rows 100000000]
                          [--store-rows 10000000] [--predicates-only]
                          [--density-only] [--store-only] [--prefix-only]
-                         TREE [TREE ...]
+                         [--joins-only] TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repo (a ``git archive`` of a
 commit unpacked into a git-ignored directory will do). The trees run
@@ -96,6 +96,23 @@ compares two versions within one call. Each process:
   the dense north-star query in parts (the scan kernel with the mask's
   copy to the host, the f64 patch; medians) and in a cProfile of five
   calls.
+- ``--joins-only`` times the dwithin and contains kernels and nothing
+  else, at chip_smoke.py's analytics shapes, through the tree's own
+  wrappers and its own chip_smoke.py's launchers, each result checked
+  against the tree's plain version: the dwithin kernel (``dwithin_10m``)
+  on --store-rows rows (the store phase's seeded points in a power-of-two
+  capacity) against the analytics phase's 1,000 query points at r =
+  0.25 (BASELINE.md's configuration 3) and against 64 points at r = 30
+  degrees (``dwithin_wide_10m``): the kernel alone (its launch on lists
+  built once, where the tree's chip_smoke.py has ``_dwithin_launcher``;
+  an earlier tree's wrapper is its launch) and the wrapper held and on
+  an idle card (where the tree takes it, the wrapper gets the resident
+  table's x-sort, as the join passes its cached sort); the contains
+  kernel (``contains_100m``) on 100M seeded points (2^27 capacity)
+  against chip_smoke.py's 10,032 polygons (configuration 5), tables
+  built by the tree's own join module: its counts pass alone, its rows
+  pass alone, and the contains_counts wrapper on an idle card; and the
+  x-sort of both tables.
 
 Medians of 20 launches (CUDA events; 10 for the batched kernels). Every
 gathered and batched result is checked against its plain version.
@@ -923,9 +940,115 @@ def store_case(smoke, seed: int, rows: int) -> dict:
     return out
 
 
+def _tree_smoke(tree: str):
+    """The tree's own chip_smoke.py, for its launchers and polygons."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "tree_chip_smoke", os.path.join(tree, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def joins_case(tree: str, seed: int, store_rows: int) -> dict:
+    """The dwithin and contains kernels at chip_smoke.py's analytics
+    shapes, through the tree's own wrappers and launchers, each checked
+    against the tree's plain version."""
+    import torch
+    from geomesa_tpu_torch.analytics import join
+    from geomesa_tpu_torch.geometry import parse_wkt
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.scan.gscan import EDGE_EPS, EDGE_EPS2
+    from geomesa_tpu_torch.utils.fp import f32_band
+    dev = torch.device("cuda")
+    smoke = _tree_smoke(tree)
+    presort = hasattr(kernels, "sorted_by_x")
+
+    def columns(x, y, cap):
+        px = torch.zeros(cap, dtype=torch.float32, device=dev)
+        py = torch.zeros(cap, dtype=torch.float32, device=dev)
+        px[:len(x)] = torch.from_numpy(x.astype(np.float32)).to(dev)
+        py[:len(y)] = torch.from_numpy(y.astype(np.float32)).to(dev)
+        return px, py
+
+    out = {}
+    rng = np.random.default_rng(seed + 1)
+    x = rng.uniform(-180, 180, store_rows)
+    y = rng.uniform(-90, 90, store_rows)
+    px, py = columns(x, y, 1 << (store_rows - 1).bit_length())
+    n = store_rows
+    out["xsort_10m_ms"] = cuda_ms(lambda: join._sorted_by_x(px, py, n), True,
+                                  iters=5)
+    xsorted = join._sorted_by_x(px, py, n)[:2] if presort else None
+    rq = np.random.default_rng(seed + 11)
+    rw = np.random.default_rng(seed + 14)
+    for name, k, radius, qrng in (("dwithin_10m", 1_000, 0.25, rq),
+                                  ("dwithin_wide_10m", 64, 30.0, rw)):
+        qx = torch.from_numpy(qrng.uniform(-170, 170, k)
+                              .astype(np.float32)).to(dev)
+        qy = torch.from_numpy(qrng.uniform(-80, 80, k)
+                              .astype(np.float32)).to(dev)
+        hi, lo = (float(np.float32(v)) for v in f32_band(radius, 360.0))
+        args = (px, py, qx, qy, hi, lo, n) + ((xsorted,) if presort else ())
+        got = kernels.dwithin_counts(*args)
+        want = kernels.dwithin_counts_plain(*args[:7])
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"{tree}: {name}: dwithin_counts != plain")
+
+        def wrapper(args=args):
+            kernels.dwithin_counts(*args)
+        launcher = getattr(smoke, "_dwithin_launcher", None)
+        alone = launcher(args)[0] if launcher is not None else wrapper
+        out[name] = {"queries": k, "radius": radius,
+                     "pairs": int(want[0].sum() + want[1].sum()),
+                     "kernel_ms": cuda_ms(alone, True),
+                     "wrapper_ms": cuda_ms(wrapper, True),
+                     "wrapper_bare_ms": cuda_ms(wrapper, False)}
+    del px, py, xsorted
+    torch.cuda.empty_cache()
+
+    rc = np.random.default_rng(seed + 13)
+    cx = rc.uniform(-180, 180, smoke.CT_ROWS)
+    cy = rc.uniform(-90, 90, smoke.CT_ROWS)
+    px, py = columns(cx, cy, smoke.CT_CAP)
+    n = smoke.CT_ROWS
+    del cx, cy
+    polys = [parse_wkt(w) for w in smoke.contains_polygons(seed)[0]]
+    out["xsort_100m_ms"] = cuda_ms(lambda: join._sorted_by_x(px, py, n),
+                                   True, iters=5)
+    xs, ys, order = join._sorted_by_x(px, py, n)
+    b64 = np.array([p.envelope.as_tuple() for p in polys], np.float64)
+    _, _, los, widths = join._contains_slab_setup(xs, b64)
+    kp = join._poly_pad(len(polys))
+    edges, evalid, boxes = join.pack_polygon_batch(polys, pad_to=kp)
+    lp, wp = np.zeros(kp, np.int32), np.zeros(kp, np.int32)
+    lp[:len(polys)], wp[:len(polys)] = los, widths
+    args = (xs, ys, order, torch.from_numpy(lp).to(dev),
+            torch.from_numpy(wp).to(dev), torch.from_numpy(boxes).to(dev),
+            torch.from_numpy(edges).to(dev),
+            torch.from_numpy(evalid.sum(axis=1).astype(np.int32)).to(dev),
+            float(np.float32(EDGE_EPS)), EDGE_EPS2, 256)
+    got = kernels.contains_counts(*args)
+    want = kernels.contains_counts_plain(*args)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit(f"{tree}: contains_counts != plain")
+    counts = smoke._contains_launcher(args)
+    items, rows_run = smoke._contains_rows_launcher(args)
+    out["contains_100m"] = {
+        "polygons": len(polys), "slab_columns": int(wp.sum()),
+        "band_rows": int(want[1].sum()), "rows_items": items,
+        "counts_ms": cuda_ms(counts[0] if isinstance(counts, tuple)
+                             else counts, True),
+        "rows_ms": cuda_ms(rows_run, True),
+        "wrapper_bare_ms": cuda_ms(lambda: kernels.contains_counts(*args),
+                                   False, iters=5)}
+    return out
+
+
 def worker(tree: str, seed: int, rows: int, store_rows: int,
            predicates_only: bool = False, density_only: bool = False,
-           store_only: bool = False, prefix_only: bool = False) -> dict:
+           store_only: bool = False, prefix_only: bool = False,
+           joins_only: bool = False) -> dict:
     sys.path.insert(0, tree)
     import torch
     from geomesa_tpu_torch.index.zkeys import ZKeyIndex, search_rows
@@ -940,6 +1063,8 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
     if store_only:
         return {"tree": tree, "store_10m": store_case(_smoke(), seed,
                                                       store_rows)}
+    if joins_only:
+        return {"tree": tree, **joins_case(tree, seed, store_rows)}
     has_density = hasattr(kernels, "density_grid")
     probe = build_probe()
     if density_only:
@@ -1054,13 +1179,16 @@ def main():
     ap.add_argument("--prefix-only", action="store_true",
                     help="time only the prefix kernel (prefix_100m, "
                          "prefix_10m)")
+    ap.add_argument("--joins-only", action="store_true",
+                    help="time only the dwithin and contains kernels "
+                         "(dwithin_10m, dwithin_wide_10m, contains_100m)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         print(json.dumps(worker(args.worker, args.seed, args.rows,
                                 args.store_rows, args.predicates_only,
                                 args.density_only, args.store_only,
-                                args.prefix_only)),
+                                args.prefix_only, args.joins_only)),
               flush=True)
         return 0
     if not args.trees:
@@ -1076,7 +1204,8 @@ def main():
              *(["--predicates-only"] if args.predicates_only else []),
              *(["--density-only"] if args.density_only else []),
              *(["--store-only"] if args.store_only else []),
-             *(["--prefix-only"] if args.prefix_only else [])],
+             *(["--prefix-only"] if args.prefix_only else []),
+             *(["--joins-only"] if args.joins_only else [])],
             capture_output=True, text=True, cwd=ROOT)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)

@@ -208,6 +208,169 @@ def test_dwithin_counts_plain_matches_reference(cloud, nrows):
     assert nrows == 0 or int(got[1].sum()) > 0
 
 
+# -- the tile walk of the dwithin kernel -------------------------------------
+
+def _adversarial_points(n, cap, seed):
+    """f32 (x, y) of n seeded rows in a capacity of ``cap`` (padding rows
+    at the origin, inside every query area): rows exactly on each
+    query's slab edges are added by the caller; here rows near and at
+    |x| = 180, at |x| = 1e6, NaN and +-inf coordinates, duplicates."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros(cap, np.float32)
+    y = np.zeros(cap, np.float32)
+    x[:n] = rng.uniform(-180, 180, n)
+    y[:n] = rng.uniform(-90, 90, n)
+    x[:40] = np.float32(180.0) - rng.uniform(0, 1e-4, 40).astype(np.float32)
+    x[40:60] = -180.0
+    x[60:70], x[70:80] = 1e6, -1e6
+    x[80:85], y[85:90] = np.nan, np.nan
+    x[90:93], x[93:96] = np.inf, -np.inf
+    y[96:99], y[99:102] = np.inf, -np.inf
+    x[102:140], y[102:140] = x[140:178], y[140:178]
+    return x, y
+
+
+def _adversarial_queries(x, y, radius, k, seed):
+    """k query points: seeded ones, ones exactly r away from rows in x
+    (the band's edge) and in both, ones near 180 and at 1e6, NaN and
+    +-inf coordinates, one far outside the table (an empty slab)."""
+    rng = np.random.default_rng(seed)
+    qx = rng.uniform(-170, 170, k).astype(np.float32)
+    qy = rng.uniform(-80, 80, k).astype(np.float32)
+    r = np.float32(radius)
+    qx[0:4], qy[0:4] = x[200:204] + r, y[200:204]
+    qx[4:8], qy[4:8] = x[204:208] - r, y[204:208]
+    qx[8:10], qy[8:10] = x[208:210], y[208:210] + r
+    qx[10:12], qy[10:12] = np.float32(179.99), x[20:22]
+    qx[12], qy[12] = x[60], y[60]
+    qx[13], qy[13] = np.float32(1e6) + np.float32(64), 0.0
+    qx[14], qx[15], qx[16] = np.nan, np.inf, -np.inf
+    qy[17], qy[18] = np.nan, np.inf
+    qx[19] = 5e3
+    qx[20], qy[20] = -180.0 - r, y[41]
+    return qx, qy
+
+
+DW_RADII = [0.0, 1e-6, 0.25, 90.0, 400.0]
+
+
+@pytest.mark.parametrize("tile", [kernels.JOIN_TILE, 1, 5])
+@pytest.mark.parametrize("radius", DW_RADII)
+@pytest.mark.parametrize("n,cap", [(6_000, 6_000), (5_000, 6_144)])
+def test_dwithin_tile_walk_matches_all_pairs(radius, tile, n, cap):
+    """The dwithin kernel's decomposition (its own slabs, the tile lists,
+    every column of a listed tile against each of its queries) on the
+    x-sorted table equals the all-pairs plain version on the original
+    columns and the reference's _dwithin_counts_all, bit for bit, on
+    adversarial rows and queries, capacity padding past n and tiles of
+    one column."""
+    x, y = _adversarial_points(n, cap, seed=int(radius * 7) + tile)
+    qx, qy = _adversarial_queries(x, y, radius, 48, seed=tile)
+    r2_hi, r2_lo = (float(np.float32(v)) for v in fp.f32_band(radius, 360.0))
+    t = [torch.from_numpy(a) for a in (x, y, qx, qy)]
+    xs, ys, _ = tj._sorted_by_x(t[0], t[1], n)
+    got = kernels.dwithin_counts_tiles_plain(xs, ys, t[2], t[3], r2_hi,
+                                             r2_lo, tile)
+    want = kernels.dwithin_counts_plain(*t, r2_hi, r2_lo, n)
+    ref = jj._dwithin_counts_all(
+        jnp.asarray(x), jnp.asarray(y), jnp.asarray(qx[None]),
+        jnp.asarray(qy[None]), jnp.ones((1, len(qx)), bool),
+        np.float32(r2_hi), np.float32(r2_lo), np.int32(n))
+    for g, w, r in zip(got, want, ref):
+        assert torch.equal(g, w)
+        assert np.array_equal(g.numpy(), np.asarray(r)[0])
+    assert int(want[0].sum() + want[1].sum()) > 0
+
+
+def _passing_pairs(x, y, qx, qy, r2, n):
+    """(row, query) index pairs whose stepwise f32 d2 <= r2."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        dx = x[:n, None] - qx[None, :]
+        dy = y[:n, None] - qy[None, :]
+        d2 = dx * dx + dy * dy
+    return np.nonzero(d2 <= np.float32(r2))
+
+
+@pytest.mark.parametrize("r2_hi,r2_lo", [(0.0, 0.0), (1e-30, 0.0),
+                                         (0.0625, 0.0624), (8100.0, 8099.0),
+                                         (np.inf, 1.0), (np.nan, 4.0),
+                                         (-1.0, -1.0)])
+def test_dwithin_slabs_hold_every_passing_row(r2_hi, r2_lo):
+    """Every row whose f32 d2 passes either threshold lies in its query's
+    J1 slab, on rows a subnormal away from a query (dx*dx underflows to
+    0), rows at 1e6 (ulp 0.0625) and +-180, NaN and +-inf rows and
+    queries; an infinite threshold makes every slab the whole table."""
+    n, cap = 4_000, 4_096
+    x, y = _adversarial_points(n, cap, seed=3)
+    x[300:304], y[300:304] = np.float32(1e-40), np.float32(2.0)
+    x[304:308], y[304:308] = np.float32(1e6) + np.float32(0.0625), 0.0
+    qx, qy = _adversarial_queries(x, y, 0.25, 40, seed=9)
+    qx[30], qy[30] = 0.0, 2.0
+    qx[31], qy[31] = np.float32(1e6), 0.0
+    t = [torch.from_numpy(a) for a in (x, y, qx)]
+    xs, ys, order = tj._sorted_by_x(t[0], t[1], n)
+    los, widths = kernels.dwithin_slabs(xs, t[2], r2_hi, r2_lo)
+    pos = np.empty(cap, np.int64)
+    pos[order.numpy()] = np.arange(cap)
+    lo, w = los.numpy().astype(np.int64), widths.numpy().astype(np.int64)
+    assert ((lo >= 0) & (w >= 0) & (lo + w <= cap)).all()
+    for r2 in (r2_hi, r2_lo):
+        rows, q = _passing_pairs(x, y, qx, qy, r2, n)
+        assert ((pos[rows] >= lo[q]) & (pos[rows] < lo[q] + w[q])).all()
+    if np.isinf(r2_hi):
+        assert (lo == 0).all() and (w == cap).all()
+    elif r2_hi == 0.0:
+        assert len(_passing_pairs(x, y, qx, qy, 0.0, n)[0]) >= 4
+        assert w[14:17].sum() == 0   # non-finite qx: empty slabs
+
+
+@pytest.mark.parametrize("tile", [1, 3, 2048])
+def test_tile_lists_match_a_brute_force(tile):
+    """Each tile lists, in ascending order, exactly the objects whose
+    slab meets it; perm maps the tile-major entries to the object-major
+    ones (each object's tiles in order), start to each object's first."""
+    rng = np.random.default_rng(tile)
+    ncols, k = 20_000, 300
+    lo = rng.integers(0, ncols, k)
+    w = np.minimum(rng.integers(0, 3_000, k), ncols - lo)
+    w[:20] = 0
+    w[20], lo[20] = ncols, 0          # the whole table
+    w[21], lo[21] = 1, ncols - 1      # the last column
+    lists = kernels.tile_lists(torch.from_numpy(lo.astype(np.int32)),
+                               torch.from_numpy(w.astype(np.int32)), ncols,
+                               tile)
+    ntiles = -(-ncols // tile)
+    want, om = [[] for _ in range(ntiles)], []
+    for o in range(k):
+        if w[o] > 0:
+            for t in range(lo[o] // tile, (lo[o] + w[o] - 1) // tile + 1):
+                want[t].append(o)
+                om.append((o, t))
+    off = lists.offsets.numpy()
+    assert lists.ntiles == ntiles and off[0] == 0 and off[-1] == lists.total
+    assert lists.total == len(om)
+    assert lists.most == max(len(v) for v in want)
+    objs, tiles = lists.objs.numpy(), lists.tiles.numpy()
+    for t in range(ntiles):
+        assert list(objs[off[t]:off[t + 1]]) == want[t]
+        assert (tiles[off[t]:off[t + 1]] == t).all()
+    om = np.array(om)
+    perm = lists.perm.numpy()
+    assert np.array_equal(om[perm, 0], objs) and np.array_equal(om[perm, 1],
+                                                                tiles)
+    live = np.flatnonzero(w > 0)
+    assert np.array_equal(om[lists.start.numpy()[live], 0], live)
+
+
+def test_tile_lists_of_nothing():
+    for los, widths, ncols in (([], [], 100), ([5], [0], 100), ([0], [0], 0)):
+        lists = kernels.tile_lists(torch.tensor(los, dtype=torch.int32),
+                                   torch.tensor(widths, dtype=torch.int32),
+                                   ncols)
+        assert lists.total == lists.most == 0 and not len(lists.objs)
+        assert lists.offsets.shape == (lists.ntiles + 1,)
+
+
 def _jax_sorted(x32, y32, nrows):
     xs, order = jj._sorted_by_x(jnp.asarray(x32), np.int32(nrows))
     return np.asarray(xs), np.asarray(order)
@@ -386,6 +549,92 @@ def test_contains_band_rows_plain_matches_reference():
                                   evalid[0], x, y, nrows, smax, 1024)
     assert np.array_equal(got.numpy()[0], np.asarray(want))
     assert (got >= 0).sum() >= 600
+
+
+# -- the tile walk of the contains kernels -----------------------------------
+
+WHOLE = _rect(0.0, 0.0, 200.0, 100.0)   # every finite row in its slab
+
+
+def _contains_points(n, seed):
+    """n seeded f64 rows: rows on a rectangle's and a hole's edges and
+    vertices (the band), NaN and +-inf coordinates."""
+    rng = np.random.default_rng(seed)
+    px, py = rng.uniform(-100, 100, n), rng.uniform(-60, 60, n)
+    px[:40], py[:40] = 20.0, np.linspace(-20, 20, 40)
+    px[40:70], py[40:70] = np.linspace(-60, 60, 30), -40.0
+    px[70:80], py[70:80] = -20.0, np.linspace(-20, 20, 10)
+    px[80:84], py[84:88] = np.nan, np.nan
+    px[88:90], px[90:92], py[92:94] = np.inf, -np.inf, np.inf
+    return px, py
+
+
+@pytest.mark.parametrize("band_cap", [256, 3])
+@pytest.mark.parametrize("tile,n", [(kernels.JOIN_TILE, 30_000),
+                                    (64, 30_000), (1, 3_000)])
+def test_contains_tile_walk_matches_plain_and_reference(tile, n, band_cap):
+    """The contains kernels' decomposition (the tile lists of the
+    polygons' slabs, each entry's columns through the box and the edges,
+    then the rows pass from each entry's prefix offset) equals the
+    per-polygon plain version and _contains_counts_all: counts and the
+    first band_cap band rows, with a polygon whose slab is the whole
+    table, one with an empty slab, capacity padding past nrows, NaN and
+    infinite rows, and tiles of one column."""
+    px, py = _contains_points(n, seed=tile)
+    wkts = POLYGONS[:5] + [WHOLE, POLYGONS[6]]
+    tables, jargs = _contains_tables(px, py, n - 500, wkts)
+    eps = float(np.float32(EDGE_EPS))
+    got = kernels.contains_counts_tiles_plain(*tables, eps, EDGE_EPS2,
+                                              band_cap, tile)
+    want = kernels.contains_counts_plain(*tables, eps, EDGE_EPS2, band_cap)
+    ref = jj._contains_counts_all(*jargs, band_cap)
+    for g, w, r in zip(got, want, ref):
+        assert torch.equal(g, w)
+        assert np.array_equal(g.numpy(), np.asarray(r))
+    assert int(want[1].max()) > 3 and int(want[0][5]) > 0
+    assert int(tables[4][6]) == 0   # the empty slab
+
+
+@pytest.mark.parametrize("tile", [kernels.JOIN_TILE, 7])
+def test_contains_band_rows_tile_walk(tile):
+    """contains_band_rows' decomposition (the listed polygons' slabs
+    alone, a counts pass, the rows pass) against the plain version and
+    _contains_band_rows, more band rows than the counts path keeps."""
+    rng = np.random.default_rng(6)
+    n = 20_000
+    px, py = rng.uniform(-2, 2, n), rng.uniform(-2, 2, n)
+    px[:600], py[:600] = 1.0, np.linspace(-1, 1, 600)
+    wkts = [_rect(0.0, 0.0, 1.0, 1.0), _rect(0.5, 0.5, 0.25, 0.25)]
+    tables, jargs = _contains_tables(px, py, n, wkts)
+    eps = float(np.float32(EDGE_EPS))
+    listed = torch.zeros_like(tables[4])
+    listed[0] = tables[4][0]
+    walked = kernels.contains_counts_tiles_plain(
+        *tables[:4], listed, *tables[5:], eps, EDGE_EPS2, 1024, tile)[2][:1]
+    want = kernels.contains_band_rows_plain(*tables, eps, EDGE_EPS2, [0],
+                                            1024)
+    xs, order, los, widths, boxes, edges, evalid, x, y, nrows, smax = jargs
+    ref = jj._contains_band_rows(xs, order, np.int32(los[0]),
+                                 np.int32(widths[0]), boxes[0], edges[0],
+                                 evalid[0], x, y, nrows, smax, 1024)
+    assert torch.equal(walked, want)
+    assert np.array_equal(walked.numpy()[0], np.asarray(ref))
+    assert (walked >= 0).sum() >= 600
+
+
+def test_contains_rows_items_offsets():
+    """Each rows-pass item starts at the band rows of its polygon's
+    earlier tiles, and items past the cap are left out."""
+    lists = kernels.tile_lists(torch.tensor([0, 5], dtype=torch.int32),
+                               torch.tensor([10, 3], dtype=torch.int32), 16,
+                               4)
+    # tile-major entries: (0, 0), (1, 0), (1, 1), (2, 0)
+    assert lists.objs.tolist() == [0, 0, 1, 0]
+    cband = torch.tensor([2, 0, 5, 3], dtype=torch.int32)
+    items = kernels.contains_rows_items(lists, cband, [1, 0], 2, 4)
+    assert items.tolist() == [[0, 0, 1, 0], [1, 1, 0, 0], [2, 0, 1, 2]]
+    items = kernels.contains_rows_items(lists, cband, [0], 2, 2)
+    assert items.tolist() == [[0, 0, 0, 0]]
 
 
 def test_contains_device_xy_padded(cloud):

@@ -199,7 +199,9 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                  "extent_tristate_plain", "_tristate_rows",
                  "dwithin_counts_plain", "slab_pairs_plain",
                  "contains_counts_plain", "contains_band_rows_plain",
-                 "_contains_one", "knn_topk_plain"):
+                 "_contains_one", "knn_topk_plain",
+                 "dwithin_counts_tiles_plain",
+                 "contains_counts_tiles_plain"):
         monkeypatch.setattr(kernels, name, refuse)
     x, y, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -1438,6 +1440,71 @@ def test_dwithin_counts_kernel_matches_plain(cuda, n, cap, k, radius):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _adversarial_join_case(n, cap, radius, k, device, seed=0):
+    """f32 rows and queries for the dwithin kernel: rows near and at
+    |x| = 180, at |x| = 1e6, NaN and +-inf coordinates, capacity padding
+    at the origin; queries r away from rows (the band's edges), near 180
+    and at 1e6, NaN and +-inf, one far outside the table."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros(cap, np.float32)
+    y = np.zeros(cap, np.float32)
+    x[:n], y[:n] = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    x[:40] = np.float32(180.0) - rng.uniform(0, 1e-4, 40).astype(np.float32)
+    x[40:60], x[60:70], x[70:80] = -180.0, 1e6, -1e6
+    x[80:85], y[85:90] = np.nan, np.nan
+    x[90:93], x[93:96], y[96:99] = np.inf, -np.inf, np.inf
+    qx = rng.uniform(-170, 170, k).astype(np.float32)
+    qy = rng.uniform(-80, 80, k).astype(np.float32)
+    r = np.float32(radius)
+    qx[0:4], qy[0:4] = x[200:204] + r, y[200:204]
+    qx[4:8], qy[4:8] = x[204:208] - r, y[204:208]
+    qx[8], qy[8] = np.float32(179.99), x[20]
+    qx[9], qy[9] = x[60], y[60]
+    qx[10], qx[11], qx[12], qy[13] = np.nan, np.inf, -np.inf, np.nan
+    qx[14] = 5e3
+    return [torch.from_numpy(a).to(device) for a in (x, y, qx, qy)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("presorted", [False, True])
+@pytest.mark.parametrize("radius", [0.0, 1e-6, 0.25, 90.0, 400.0])
+@pytest.mark.parametrize("n,cap,k", [(6_000, 6_144, 48),
+                                     (300_001, 524_288, 1500)])
+def test_dwithin_counts_kernel_adversarial(cuda, n, cap, k, radius,
+                                           presorted):
+    """The tile walk on adversarial rows and queries, the x-sort done by
+    the wrapper or passed in, equal to the all-pairs plain version."""
+    from geomesa_tpu_torch.utils.fp import f32_band
+    px, py, qx, qy = _adversarial_join_case(n, cap, radius, k, cuda, seed=k)
+    hi, lo = (float(np.float32(v)) for v in f32_band(radius, 360.0))
+    xsorted = kernels.sorted_by_x(px, py, n)[:2] if presorted else None
+    kernels.reset_launches()
+    got = kernels.dwithin_counts(px, py, qx, qy, hi, lo, n, xsorted)
+    want = kernels.dwithin_counts_plain(px, py, qx, qy, hi, lo, n)
+    torch.cuda.synchronize()
+    assert kernels.launches["dwithin_counts"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[0].sum() + want[1].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_dwithin_counts_kernel_wide_radius(cuda):
+    """A wide radius (30 degrees: each slab about a sixth of the table)
+    and one past the world (every slab the whole table)."""
+    from geomesa_tpu_torch.utils.fp import f32_band
+    _, _, px, py = _join_points(1_000_000, 1_048_576, cuda, seed=14)
+    rng = np.random.default_rng(14)
+    qx = torch.from_numpy(rng.uniform(-170, 170, 64).astype(np.float32))
+    qy = torch.from_numpy(rng.uniform(-80, 80, 64).astype(np.float32))
+    for radius in (30.0, 200.0):
+        hi, lo = (float(np.float32(v)) for v in f32_band(radius, 360.0))
+        args = (px, py, qx.to(cuda), qy.to(cuda), hi, lo, 1_000_000)
+        got = kernels.dwithin_counts(*args)
+        want = kernels.dwithin_counts_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def _slabs(xs, centres, halves):
     from geomesa_tpu_torch.analytics.join import _slab_bounds
     return _slab_bounds(xs, centres.astype(np.float32),
@@ -1473,11 +1540,16 @@ def test_slab_pairs_kernel_matches_plain(cuda, box, n, cap, k):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def _contains_case(cuda, n, cap, wkts, on_edges=0):
+def _contains_case(cuda, n, cap, wkts, on_edges=0, odd_rows=False,
+                   scale=(180.0, 90.0)):
     from geomesa_tpu_torch.analytics.join import (_contains_slab_setup,
                                                   _sorted_by_x,
                                                   pack_polygon_batch)
-    x, y, px, py = _join_points(n, cap, cuda, seed=5)
+    x, y, px, py = _join_points(n, cap, cuda, seed=5, scale=scale)
+    if odd_rows:   # rows with NaN and infinite coordinates
+        odd = torch.tensor([np.nan, np.inf, -np.inf], device=cuda)
+        px[on_edges:on_edges + 3] = odd
+        py[on_edges + 3:on_edges + 6] = odd
     polys = [parse_wkt(w) for w in wkts]
     if on_edges:   # points on the first polygon's first edge: the band
         e = np.asarray(polys[0].shell if hasattr(polys[0], "shell")
@@ -1524,6 +1596,53 @@ def test_contains_counts_kernel_matches_plain(cuda, n, cap, band_cap):
         rows = kernels.contains_band_rows(*tables, eps, eps2, polys, 1024)
         assert torch.equal(rows, kernels.contains_band_rows_plain(
             *tables, eps, eps2, polys, 1024))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band_cap", [256, 3])
+def test_contains_counts_kernel_adversarial(cuda, band_cap):
+    """A polygon whose slab is the whole table, one with an empty slab,
+    NaN and infinite rows, points on edges: the counts pass, the rows
+    pass and contains_band_rows equal their plain versions."""
+    whole = "POLYGON((-200 -100, 200 -100, 200 100, -200 100, -200 -100))"
+    wkts = CONTAINS_WKTS + [whole]
+    tables = _contains_case(cuda, 300_001, 524_288, wkts, on_edges=600,
+                            odd_rows=True)
+    assert int(tables[4][-1]) == 300_001 - 3 and int(tables[4][5]) == 0
+    eps, eps2 = float(np.float32(gscan.EDGE_EPS)), gscan.EDGE_EPS2
+    kernels.reset_launches()
+    got = kernels.contains_counts(*tables, eps, eps2, band_cap)
+    want = kernels.contains_counts_plain(*tables, eps, eps2, band_cap)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert kernels.launches["contains_counts"] == 2
+    polys = [0, len(wkts) - 1, 3]
+    rows = kernels.contains_band_rows(*tables, eps, eps2, polys, 2048)
+    assert torch.equal(rows, kernels.contains_band_rows_plain(
+        *tables, eps, eps2, polys, 2048))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kpolys", [700, 1300])
+def test_contains_counts_kernel_long_lists(cuda, kpolys):
+    """Thin rectangles stacked over one x range, so each tile lists
+    hundreds of polygons (a block stages them 256 at a time) or more
+    than a block takes (1,024: two blocks a tile)."""
+    rng = np.random.default_rng(kpolys)
+    wkts = [f"POLYGON(({cx - w} {cy - 0.05}, {cx + w} {cy - 0.05}, "
+            f"{cx + w} {cy + 0.05}, {cx - w} {cy + 0.05}, "
+            f"{cx - w} {cy - 0.05}))"
+            for cx, w, cy in zip(rng.uniform(-1, 1, kpolys),
+                                 rng.uniform(0.5, 2, kpolys),
+                                 np.linspace(-78, 78, kpolys))]
+    tables = _contains_case(cuda, 20_000, 32_768, wkts, scale=(3.0, 80.0))
+    assert kernels.tile_lists(tables[3], tables[4], 32_768).most > 256
+    eps, eps2 = float(np.float32(gscan.EDGE_EPS)), gscan.EDGE_EPS2
+    got = kernels.contains_counts(*tables, eps, eps2, 8)
+    want = kernels.contains_counts_plain(*tables, eps, eps2, 8)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int(want[0].sum()) > 1000
 
 
 @pytest.mark.gpu
