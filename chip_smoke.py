@@ -101,9 +101,15 @@ Phases, one JSON line each; any failure exits non-zero:
            slab column for the dwithin kernel, with the all-pairs count
            beside it as all_pairs_bound_ms); the dwithin and contains
            kernels with the host-clock time of their tile lists
-           (lists_ms), the dwithin wrapper held (wrapper_ms), and the
-           dwithin kernel at a wide radius (30 degrees, 64 seeded points
-           on the store) held to its plain version and timed; the
+           (lists_ms), the dwithin and slab wrappers held (wrapper_ms),
+           the dwithin kernel at a wide radius (30 degrees, 64 seeded
+           points on the store) held to its plain version and timed;
+           the slab kernels' two passes also in box mode at the
+           Contains pairs call's shape; the knn kernel also at the
+           batcher's largest shape (the store's 10M rows x 32 of its
+           points, kpad 256), each knn line with its plan and, as
+           library_ms, one torch.topk(d2, kpad, largest=False) over a
+           precomputed (queries, rows) d2 (selection only); the
            x-sort of the store's and the 100M table's columns on a line
            of its own (analytics_xsort); each call's p50 of 3 host-clock
            runs.
@@ -2729,34 +2735,36 @@ def _join_equal(name, got, want) -> tuple[bool, int]:
 
 
 def _slab_launcher(args):
-    """Both passes of the slab kernel on buffers prepared once (counts,
-    their host prefix and the outputs), so the events time the kernel."""
+    """Both passes of the slab kernels (counts, then writes) on their
+    tile lists and buffers prepared once (the prefix of the counts taken
+    once), so the events time the kernels; and the lists."""
     from geomesa_tpu_torch.scan import kernels
     xs, ys, order, los, widths, qa, r2, eps, box = args
     dev = xs.device
     lib = kernels._library()
-    item = torch.from_numpy(kernels.work_items(widths.cpu().numpy(),
-                                               kernels.SLAB_CHUNK)).to(dev)
-    items = item.shape[0]
-    counts = torch.empty(items, dtype=torch.int32, device=dev)
-    common = (xs.data_ptr(), ys.data_ptr(), order.data_ptr(), los.data_ptr(),
-              widths.data_ptr(), item.data_ptr(), items, int(box),
-              qa.data_ptr(), r2, eps)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib.geomesa_slab_pairs(*common, 0, counts.data_ptr(), None, None, None,
-                           stream)
-    c = counts.cpu().numpy().astype(np.int64)
-    offs = torch.from_numpy(np.r_[0, np.cumsum(c)[:-1]]).to(dev)
-    total = max(int(c.sum()), 1)
+    lists = kernels.tile_lists(los, widths, xs.shape[0])
+    counts = torch.empty(max(lists.total, 1), dtype=torch.int32, device=dev)
+    bits = torch.empty(max(lists.total, 1) * (kernels.JOIN_TILE // 32),
+                       dtype=torch.int32, device=dev)
+    incl = kernels._slab_counts_launch(xs, ys, los, widths, qa, r2, eps, box,
+                                       lists, counts, bits)
+    total = max(int(incl[-1]), 1)
     rows = torch.empty(total, dtype=torch.int32, device=dev)
     qi = torch.empty(total, dtype=torch.int32, device=dev)
+    groups = -(-lists.most // kernels.SLAB_GROUP)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tables = (lists.offsets.data_ptr(), lists.objs.data_ptr(), groups,
+              lists.perm.data_ptr(), los.data_ptr(), widths.data_ptr())
 
     def run():
-        lib.geomesa_slab_pairs(*common, 0, counts.data_ptr(), None, None,
-                               None, stream)
-        lib.geomesa_slab_pairs(*common, 1, None, offs.data_ptr(),
-                               rows.data_ptr(), qi.data_ptr(), stream)
-    return run
+        lib.geomesa_slab_counts(xs.data_ptr(), ys.data_ptr(), xs.shape[0],
+                                *tables, int(box), qa.data_ptr(), r2, eps,
+                                counts.data_ptr(), bits.data_ptr(), stream)
+        lib.geomesa_slab_write(order.data_ptr(), xs.shape[0], *tables,
+                               counts.data_ptr(), incl.data_ptr(),
+                               bits.data_ptr(), rows.data_ptr(),
+                               qi.data_ptr(), stream)
+    return run, lists
 
 
 def _xsorted(args):
@@ -2914,12 +2922,16 @@ def join_kernel_line(name, args, out) -> dict:
         xs, ys, order, los, widths, qa, *_r, box = args
         w = widths.cpu().numpy()
         cols, m = int(w.sum()), out[0].shape[0]
-        kern = _slab_launcher(args)
+        kern, lists = _slab_launcher(args)
         nbytes = (8 * _union_len(los.cpu().numpy(), w) + qa.numel() * 4
-                  + 8 * los.shape[0] + 12 * m)
+                  + 8 * los.shape[0] + 8 * m)
         ops = (BOX_OPS if box else DW_OPS - 1) * cols
         shape = {"queries": los.shape[0], "slab_columns": cols,
-                 "pairs": m, "mode": "box" if box else "radius"}
+                 "pairs": m, "mode": "box" if box else "radius",
+                 "tile_entries": lists.total, "timed": "both passes",
+                 "lists_ms": _lists_ms(los, widths, xs.shape[0]),
+                 "wrapper_ms": cuda_ms(lambda: kernels.slab_pairs(*args),
+                                       20)}
     elif name == "contains_counts":
         xs, ys, order, los, widths, boxes, edges, ecount = args[:8]
         w = widths.cpu().numpy()
@@ -2944,14 +2956,48 @@ def join_kernel_line(name, args, out) -> dict:
         nq = qx.shape[0]
         kern = lambda: kernels.knn_topk(*args)   # noqa: E731
         nbytes, ops = 8 * n + 8 * nq + 12 * nq * kpad, KNN_OPS * n * nq
-        shape = {"rows": n, "queries": nq, "kpad": kpad}
+        shape = {"rows": n, "queries": nq, "kpad": kpad,
+                 "plan": kernels.knn_plan(min(px.shape[0], n + kpad), nq,
+                                          kpad)}
+        extra["library_ms"] = _topk_ms(args)
+        extra["library"] = ("torch.topk(d2, kpad, largest=False): selection "
+                            "only, d2 precomputed")
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / F32_OPS_PER_S * 1e3
     return {"equal": same, "max_abs_err": err, **shape,
             "ms": cuda_ms(kern, 20), "plain_ms": plain_ms,
             "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to
             else "operations", "bytes_bound_ms": tb, "ops_bound_ms": to,
-            **extra, "library_ms": None}
+            "library_ms": None, **extra}
+
+
+def _topk_ms(args) -> float:
+    """The nearest library yardstick for the knn kernel: one
+    torch.topk(d2, kpad, largest=False) over the (nq, n) f32 d2 of the
+    call's rows, precomputed outside the timing (selection only; the
+    port never calls it)."""
+    px, py, qx, qy, kpad, n = args
+    d2 = (px[None, :n] - qx[:, None]) ** 2 + (py[None, :n] - qy[:, None]) ** 2
+    ms = cuda_ms(lambda: torch.topk(d2, kpad, dim=1, largest=False), 10)
+    del d2
+    torch.cuda.empty_cache()
+    return ms
+
+
+def knn_batcher_line(resident, n: int, bq) -> dict:
+    """The knn kernel at the batcher's largest shape: the store's resident
+    columns against the first 32 of its queries, k = KNN_K (kpad 256),
+    held to its plain version and timed beside its bounds."""
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.scan.zscan import next_pow2
+    dev = resident[0].device
+    qx = torch.tensor([q[0] for q in bq[:32]], dtype=torch.float32,
+                      device=dev)
+    qy = torch.tensor([q[1] for q in bq[:32]], dtype=torch.float32,
+                      device=dev)
+    kpad = min(next_pow2(KNN_K + 32), resident[0].shape[0])
+    args = (resident[0], resident[1], qx, qy, kpad, n)
+    return join_kernel_line("knn_topk", args, kernels.knn_topk(*args))
 
 
 def _main_call(calls, name, tag):
@@ -3183,10 +3229,16 @@ def phase_analytics(seed: int, ds, rows) -> tuple[dict, dict]:
                                ("slab_pairs", "dwithin"),
                                ("knn_topk", "knn_50m"))}
     lines["dwithin_counts"]["wide"] = dwithin_wide(seed, resident, len(x))
+    lines["knn_topk"]["batcher_32"] = knn_batcher_line(resident, len(x), bq)
+    lines["knn_topk"]["batcher_largest_call"] = max(
+        a[2].shape[0] for q, nm, a, _ in calls
+        if nm == "knn_topk" and q == "batcher")
     xsort_ms = {"store_10m": cuda_ms(
         lambda: kernels.sorted_by_x(*resident, len(x)), 5)}
     checks = [("wide radius", "dwithin_counts",
-               lines["dwithin_counts"]["wide"]["equal"])]
+               lines["dwithin_counts"]["wide"]["equal"]),
+              ("batcher 32", "knn_topk",
+               lines["knn_topk"]["batcher_32"]["equal"])]
     for q, name, args, res_ in calls:
         if name in ("contains_counts", "contains_band_rows"):
             continue
@@ -3273,6 +3325,9 @@ def phase_analytics(seed: int, ds, rows) -> tuple[dict, dict]:
         for _ in range(AN_RUNS)]
     args, res_ = _main_call(calls, "contains_counts", "contains")
     lines["contains_counts"] = join_kernel_line("contains_counts", args, res_)
+    # the slab kernels in box mode at contains_join's pairs shape
+    lines["slab_pairs"]["box_contains_pairs"] = join_kernel_line(
+        "slab_pairs", *_main_call(calls, "slab_pairs", "contains_pairs"))
     band_polys = np.flatnonzero(res_[1].cpu().numpy())
     rows_items, rows_run = _contains_rows_launcher(args)
     rows_ms = cuda_ms(rows_run, 20) if rows_items else None
@@ -3283,6 +3338,8 @@ def phase_analytics(seed: int, ds, rows) -> tuple[dict, dict]:
         checks.append((q, name, _join_equal(name, res_, plain(
             *_plain_args(name, args)))[0]))
     checks += [("kernel line", nm, ln["equal"]) for nm, ln in lines.items()]
+    checks.append(("kernel line", "slab_pairs box",
+                   lines["slab_pairs"]["box_contains_pairs"]["equal"]))
     calls.clear()
     join.clear_xsort_cache()
     del cdev, cx_, cy_

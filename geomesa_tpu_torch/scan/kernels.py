@@ -46,7 +46,9 @@ notes at their heads for what they replace and what bounds them):
 - ``slab_pairs``: over each query's slab of the x-sorted table, the rows
   within the radius band's upper edge (radius mode) or inside the
   widened box (box mode), as (row, query) pairs in query-major, slab
-  order, in two passes (counts, then writes at their prefix offsets);
+  order, in two passes over the tiles its slab meets (``tile_lists``):
+  each entry's count and match bitmap, then the writes at their prefix
+  offsets (a prefix on the card);
 - ``contains_counts``: per polygon, the slab rows inside its widened box
   and, for those, the crossing number and the EDGE_EPS band: definite
   and band counts, each tile of the x-sorted table read once for every
@@ -54,7 +56,9 @@ notes at their heads for what they replace and what bounds them):
   in slab order (``contains_band_rows``: more band rows of listed
   polygons);
 - ``knn_topk``: per query point, the kpad smallest (f32 d2, row) keys in
-  lexicographic order, over chunks of rows and then of the chunks' keys.
+  lexicographic order: a sample pass seeds a bound a query, chunks of
+  rows are each read once for a group of queries, then each query's
+  kept keys are sorted (``knn_plan``).
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device; for ``residual_mask``, its columns). On
@@ -107,10 +111,11 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "slab_pairs", "slab_pairs_plain", "contains_counts",
            "contains_counts_plain", "contains_band_rows",
            "contains_band_rows_plain", "knn_topk", "knn_topk_plain",
-           "KNN_MAX_KPAD", "work_items", "SLAB_CHUNK", "KNN_TILE",
-           "JOIN_TILE", "JOIN_GROUP", "sorted_by_x", "TileLists",
-           "tile_lists", "dwithin_slabs", "dwithin_counts_tiles_plain",
-           "contains_rows_items", "contains_counts_tiles_plain"]
+           "KNN_MAX_KPAD", "SLAB_GROUP", "JOIN_TILE", "JOIN_GROUP",
+           "sorted_by_x", "TileLists", "tile_lists", "dwithin_slabs",
+           "dwithin_counts_tiles_plain", "contains_rows_items",
+           "contains_counts_tiles_plain", "slab_pairs_tiles_plain",
+           "knn_plan", "knn_topk_blocks_plain"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
@@ -394,18 +399,19 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_join_constant.argtypes = [i32]
             lib.geomesa_dwithin_counts.argtypes = [p, p, i64, p, p, i32, p, p,
                                                    f32, f32, p, p, p]
-            lib.geomesa_slab_pairs.argtypes = [p, p, p, p, p, p, i64, i32, p,
-                                               f32, f32, i32, p, p, p, p, p]
+            lib.geomesa_slab_counts.argtypes = [p, p, i64, p, p, i32, p, p,
+                                                p, i32, p, f32, f32, p, p, p]
+            lib.geomesa_slab_write.argtypes = [p, i64, p, p, i32, p, p, p, p,
+                                               p, p, p, p, p]
             lib.geomesa_contains_counts.argtypes = [p, p, i64, p, p, i32, p,
                                                     p, p, p, p, i32, i32, f32,
                                                     f32, p, p, p, p, p]
             lib.geomesa_contains_band_rows.argtypes = [p, p, p, i64, p, p, p,
                                                        i64, p, p, p, i32, i32,
                                                        f32, f32, p, i32, p, p]
-            lib.geomesa_knn_select.argtypes = [p, p, i64, p, p, p, i64, i32,
-                                               i32, i32, i64, p, p]
-            lib.geomesa_knn_chunk.argtypes = [i64, i32, i32, i32, i32]
-            lib.geomesa_knn_chunk.restype = ctypes.c_longlong
+            lib.geomesa_knn_plan.argtypes = [i64, i32, i32, p]
+            lib.geomesa_knn_topk.argtypes = [p, p, i64, p, p, i64, i32, i32,
+                                             p, p, p, p, p, p, p, p, p, p]
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
                        lib.geomesa_compact_prefix, lib.geomesa_compact_bits,
@@ -415,9 +421,10 @@ def _library() -> ctypes.CDLL:
                        lib.geomesa_density_grid, lib.geomesa_density_rows,
                        lib.geomesa_density_plan, lib.geomesa_prefix_tile,
                        lib.geomesa_extent_tristate, lib.geomesa_join_constant,
-                       lib.geomesa_dwithin_counts, lib.geomesa_slab_pairs,
-                       lib.geomesa_contains_counts,
-                       lib.geomesa_contains_band_rows, lib.geomesa_knn_select):
+                       lib.geomesa_dwithin_counts, lib.geomesa_slab_counts,
+                       lib.geomesa_slab_write, lib.geomesa_contains_counts,
+                       lib.geomesa_contains_band_rows, lib.geomesa_knn_plan,
+                       lib.geomesa_knn_topk):
                 fn.restype = ctypes.c_int
             if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
                     or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP
@@ -431,11 +438,11 @@ def _library() -> ctypes.CDLL:
             if tuple(codes[:got]) != RESIDUAL_CODES:
                 raise RuntimeError("csrc/residual.cu and kernels.py disagree "
                                    "on the residual program's opcodes")
-            if tuple(lib.geomesa_join_constant(i) for i in range(5)) != (
-                    SLAB_CHUNK, JOIN_TILE, KNN_TILE, KNN_MAX_BUF, JOIN_GROUP):
+            if tuple(lib.geomesa_join_constant(i) for i in range(4)) != (
+                    JOIN_TILE, JOIN_GROUP, SLAB_GROUP, KNN_MAX_KPAD):
                 raise RuntimeError("csrc/join.cu and kernels.py disagree on "
-                                   "the join kernels' chunks, tiles and "
-                                   "buffers")
+                                   "the join kernels' tiles, groups and "
+                                   "windows")
             _lib["lib"] = lib
         return _lib["lib"]
 
@@ -1413,17 +1420,13 @@ def extent_tristate(bounds, valid, times, outer, inner, intervals):
 
 # -- spatial joins and knn (csrc/join.cu) ------------------------------------
 
-# the slab kernel's work items (slab columns per block); the tile of the
-# dwithin and contains kernels (columns of the x-sorted table) and the
-# listed objects one of their blocks takes; the knn kernel's tile (keys
-# a block reads between threshold updates) and its largest shared buffer
-# (keys); the buffer holds kpad keys beside more than a tile, so kpad is
-# at most KNN_MAX_KPAD
-SLAB_CHUNK = 2048
+# the tile of the dwithin, slab and contains kernels (columns of the
+# x-sorted table) and the listed objects one of the dwithin or contains
+# kernels' blocks takes (the slab kernels' blocks take SLAB_GROUP); the
+# knn kernel keeps at most KNN_MAX_KPAD keys a query
 JOIN_TILE = 2048
 JOIN_GROUP = 1024
-KNN_TILE = 2048
-KNN_MAX_BUF = 16384
+SLAB_GROUP = 256
 KNN_MAX_KPAD = 8192
 
 # rows per chunk of the dwithin plain version: (chunk, k) intermediates
@@ -1440,17 +1443,6 @@ def _check_vec(name: str, t, dtype, n: int | None = None):
 
 def _f32_scalar(v: float, device):
     return torch.tensor(float(v), dtype=torch.float32, device=device)
-
-
-def work_items(widths: np.ndarray, chunk: int) -> np.ndarray:
-    """int32[items, 2]: each query's ceil(width / chunk) work items of
-    the slab kernel, one block each, as (query, chunk) pairs in query
-    order."""
-    chunks = (np.maximum(np.asarray(widths, np.int64), 0) + chunk - 1) // chunk
-    q = np.repeat(np.arange(len(chunks), dtype=np.int64), chunks)
-    first = np.cumsum(chunks) - chunks
-    return np.stack([q, np.arange(len(q)) - first[q]],
-                    axis=1).astype(np.int32)
 
 
 def sorted_by_x(px, py, nrows: int):
@@ -1651,20 +1643,18 @@ def _dwithin_counts_launch(xs, ys, lists, qx, qy, r2_hi, r2_lo, definite,
     launches["dwithin_counts"] += 1
 
 
-def _check_slabs(xs, ys, order, los, widths) -> tuple[np.ndarray, np.ndarray]:
-    """The sorted table's and the slabs' checks; the slabs on the host."""
+def _check_slabs(xs, ys, order, los, widths):
+    """The sorted table's and the slabs' checks (one copy to the host)."""
     cap = xs.shape[0]
     _check_vec("xs", xs, torch.float32)
     _check_vec("ys", ys, torch.float32, cap)
     _check_vec("order", order, torch.int32, cap)
     _check_vec("los", los, torch.int32)
     _check_vec("widths", widths, torch.int32, los.shape[0])
-    lo_h = los.cpu().numpy().astype(np.int64)
-    w_h = widths.cpu().numpy().astype(np.int64)
-    if len(lo_h) and ((lo_h < 0).any() or (w_h < 0).any()
-                      or (lo_h + w_h > cap).any()):
-        raise ValueError(f"slabs must lie within the table's {cap} rows")
-    return lo_h, w_h
+    if los.shape[0]:
+        lo, w = los.to(torch.int64), widths.to(torch.int64)
+        if bool(((lo < 0) | (w < 0) | (lo + w > cap)).any()):
+            raise ValueError(f"slabs must lie within the table's {cap} rows")
 
 
 def slab_pairs_plain(xs, ys, order, los, widths, qa, r2_hi: float,
@@ -1680,14 +1670,7 @@ def slab_pairs_plain(xs, ys, order, los, widths, qa, r2_hi: float,
     for q, (lo, w) in enumerate(zip(los.tolist(), widths.tolist())):
         if w <= 0:
             continue
-        x, y = xs[lo:lo + w], ys[lo:lo + w]
-        a = qa[q]
-        if box:
-            hit = ((x >= a[0] - e) & (x <= a[2] + e)
-                   & (y >= a[1] - e) & (y <= a[3] + e))
-        else:
-            dx, dy = x - a[0], y - a[1]
-            hit = dx * dx + dy * dy <= hi
+        hit = _slab_hits(xs[lo:lo + w], ys[lo:lo + w], qa[q], hi, e, box)
         r = order[lo:lo + w][hit]
         rows.append(r)
         qis.append(torch.full_like(r, q))
@@ -1697,6 +1680,50 @@ def slab_pairs_plain(xs, ys, order, los, widths, qa, r2_hi: float,
     return torch.cat(rows), torch.cat(qis)
 
 
+def _slab_hits(x, y, a, hi, e, box: bool):
+    """The slab test of columns (x, y) against one query's row ``a`` of
+    qa (box mode: its box widened by the f32 e; radius mode: f32 d2 <=
+    hi)."""
+    if box:
+        return ((x >= a[0] - e) & (x <= a[2] + e)
+                & (y >= a[1] - e) & (y <= a[3] + e))
+    dx, dy = x - a[0], y - a[1]
+    return dx * dx + dy * dy <= hi
+
+
+def slab_pairs_tiles_plain(xs, ys, order, los, widths, qa, r2_hi: float,
+                           eps: float, box: bool, tile: int = JOIN_TILE):
+    """(rows, qi) as slab_pairs_plain, by the slab kernels' walk:
+    tile_lists over the slabs; per list entry, the tile's columns inside
+    its query's slab through the test, their count and columns kept at
+    the entry's object-major index (the counts pass); the inclusive
+    prefix of the counts in that order; then each entry's matches
+    written from its prefix less its count (the write pass)."""
+    dev, cap = xs.device, xs.shape[0]
+    lists = tile_lists(los, widths, cap, tile)
+    e, hi = _f32_scalar(eps, dev), _f32_scalar(r2_hi, dev)
+    lo_h, w_h = los.tolist(), widths.tolist()
+    counts = torch.zeros(lists.total, dtype=torch.int64, device=dev)
+    cols = [None] * lists.total
+    perm = lists.perm.tolist()
+    entries = list(zip(lists.tiles.tolist(), lists.objs.tolist(), perm))
+    for t, q, at in entries:
+        c0 = max(lo_h[q], t * tile)
+        c1 = min(lo_h[q] + w_h[q], (t + 1) * tile, cap)
+        hit = _slab_hits(xs[c0:c1], ys[c0:c1], qa[q], hi, e, box)
+        cols[at] = c0 + torch.nonzero(hit).flatten()
+        counts[at] = len(cols[at])
+    incl = torch.cumsum(counts, 0)
+    total = int(incl[-1]) if lists.total else 0
+    rows = torch.empty(total, dtype=torch.int32, device=dev)
+    qi = torch.empty(total, dtype=torch.int32, device=dev)
+    for t, q, at in entries:
+        off, n = int(incl[at] - counts[at]), int(counts[at])
+        rows[off:off + n] = order[cols[at]]
+        qi[off:off + n] = q
+    return rows, qi
+
+
 def slab_pairs(xs, ys, order, los, widths, qa, r2_hi: float, eps: float,
                box: bool):
     """(rows, qi) int32[m] on the table's device: the matching slab rows
@@ -1704,8 +1731,11 @@ def slab_pairs(xs, ys, order, los, widths, qa, r2_hi: float, eps: float,
     x-sorted f32 table (padded rows at x = +inf, y = NaN); ``order``:
     its int32 row ids; ``los``, ``widths``: int32 slabs [lo, lo + width)
     per query; ``qa``: (k, 4) f32 boxes (box mode) or (k, 2) f32 points
-    (radius mode); r2_hi and eps are f32 values."""
-    lo_h, w_h = _check_slabs(xs, ys, order, los, widths)
+    (radius mode); r2_hi and eps are f32 values. On CUDA: the counts
+    pass over the tiles each slab meets (``tile_lists``), an inclusive
+    prefix of the counts in query order on the card (one copy to the
+    host: the total), then the write pass."""
+    _check_slabs(xs, ys, order, los, widths)
     k = los.shape[0]
     if (qa.dtype != torch.float32 or qa.shape != (k, 4 if box else 2)
             or not qa.is_contiguous()):
@@ -1714,40 +1744,57 @@ def slab_pairs(xs, ys, order, los, widths, qa, r2_hi: float, eps: float,
     if _on_cpu((xs, ys, order, los, widths, qa)):
         return slab_pairs_plain(xs, ys, order, los, widths, qa, r2_hi, eps,
                                 box)
-    dev = xs.device
+    dev, cap = xs.device, xs.shape[0]
     empty = torch.empty(0, dtype=torch.int32, device=dev)
-    item = torch.from_numpy(work_items(w_h, SLAB_CHUNK)).to(dev)
-    items = item.shape[0]
-    if items == 0:
+    lists = tile_lists(los, widths, cap)
+    if lists.total == 0:
         return empty, empty.clone()
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    counts = torch.empty(items, dtype=torch.int32, device=dev)
-    args = (xs.data_ptr(), ys.data_ptr(), order.data_ptr(), los.data_ptr(),
-            widths.data_ptr(), item.data_ptr(), items, int(box),
-            qa.data_ptr(), r2_hi, eps)
-    rc = lib.geomesa_slab_pairs(*args, 0, counts.data_ptr(), None, None, None,
-                                stream)
-    _raise_on(rc, "slab_pairs")
-    launches["slab_pairs"] += 1
-    c = counts.cpu().numpy().astype(np.int64)
-    offsets = np.zeros(items, np.int64)
-    np.cumsum(c[:-1], out=offsets[1:])
-    total = int(c.sum())
+    counts = torch.empty(lists.total, dtype=torch.int32, device=dev)
+    bits = torch.empty(lists.total * (JOIN_TILE // 32), dtype=torch.int32,
+                       device=dev)
+    incl = _slab_counts_launch(xs, ys, los, widths, qa, r2_hi, eps, box,
+                               lists, counts, bits)
+    total = int(incl[-1])
     if total == 0:
         return empty, empty.clone()
-    offs = torch.from_numpy(offsets).to(dev)
     rows = torch.empty(total, dtype=torch.int32, device=dev)
     qi = torch.empty(total, dtype=torch.int32, device=dev)
-    rc = lib.geomesa_slab_pairs(*args, 1, None, offs.data_ptr(),
-                                rows.data_ptr(), qi.data_ptr(), stream)
-    _raise_on(rc, "slab_pairs")
-    launches["slab_pairs"] += 1
+    _slab_write_launch(order, los, widths, lists, counts, incl, bits, rows,
+                       qi)
     return rows, qi
 
 
+def _slab_counts_launch(xs, ys, los, widths, qa, r2_hi, eps, box, lists,
+                        counts, bits):
+    """The slab counts pass over the lists into counts and bits (each
+    entry's at its object-major index); returns their inclusive prefix
+    (int64, on the device)."""
+    rc = _library().geomesa_slab_counts(
+        xs.data_ptr(), ys.data_ptr(), xs.shape[0], lists.offsets.data_ptr(),
+        lists.objs.data_ptr(), -(-lists.most // SLAB_GROUP),
+        lists.perm.data_ptr(), los.data_ptr(), widths.data_ptr(), int(box),
+        qa.data_ptr(), r2_hi, eps, counts.data_ptr(), bits.data_ptr(),
+        torch.cuda.current_stream(xs.device).cuda_stream)
+    _raise_on(rc, "slab_pairs")
+    launches["slab_pairs"] += 1
+    return torch.cumsum(counts, 0, dtype=torch.int64)
+
+
+def _slab_write_launch(order, los, widths, lists, counts, incl, bits, rows,
+                       qi):
+    """The slab write pass over the lists into rows and qi."""
+    rc = _library().geomesa_slab_write(
+        order.data_ptr(), order.shape[0], lists.offsets.data_ptr(),
+        lists.objs.data_ptr(), -(-lists.most // SLAB_GROUP),
+        lists.perm.data_ptr(), los.data_ptr(), widths.data_ptr(),
+        counts.data_ptr(), incl.data_ptr(), bits.data_ptr(), rows.data_ptr(),
+        qi.data_ptr(), torch.cuda.current_stream(order.device).cuda_stream)
+    _raise_on(rc, "slab_pairs")
+    launches["slab_pairs"] += 1
+
+
 def _check_polys(xs, ys, order, los, widths, boxes, edges, ecount):
-    lo_h, w_h = _check_slabs(xs, ys, order, los, widths)
+    _check_slabs(xs, ys, order, los, widths)
     kp = los.shape[0]
     if (boxes.dtype != torch.float32 or boxes.shape != (kp, 4)
             or not boxes.is_contiguous()):
@@ -1761,7 +1808,6 @@ def _check_polys(xs, ys, order, los, widths, boxes, edges, ecount):
     ec = ecount.cpu().numpy()
     if len(ec) and ((ec < 0).any() or (ec > edges.shape[1]).any()):
         raise ValueError("ecount must lie in [0, ne]")
-    return lo_h, w_h
 
 
 def _check_aligned(boxes, edges):
@@ -2022,11 +2068,111 @@ def knn_topk_plain(px, py, qx, qy, kpad: int, nrows: int):
     return d2, idx
 
 
+# the fields of a knn plan (csrc/join.cu's geomesa_knn_plan)
+_KNN_PLAN = ("group", "groups", "chunks", "chunk", "cut", "sbuf", "stride",
+             "samples", "sample_stride", "launches")
+# the bins of the knn kernel's histograms of published keys (a query's)
+_KNN_HIST_BINS = 2048
+
+
+def _knn_plan(length: int, nq: int, kpad: int):
+    plan = (ctypes.c_int64 * len(_KNN_PLAN))()
+    _raise_on(_library().geomesa_knn_plan(length, nq, kpad, plan),
+              "knn_topk")
+    return plan
+
+
+def knn_plan(length: int, nq: int, kpad: int) -> dict:
+    """The knn kernel's plan over ``length`` rows (needs the card, for
+    the occupancy): queries a rows block (``group``), the groups, the
+    chunks of rows and their size, the keys a block keeps at most
+    (``cut``), its buffer, the survivor slots a query, the sample pass's
+    blocks and their tiles' stride, and the launches."""
+    return dict(zip(_KNN_PLAN, _knn_plan(length, nq, kpad)))
+
+
+def _knn_keys(px, py, qx, qy, q: int, a: int, b: int, nrows: int):
+    """int64 keys (d2 bits << 32 | row) of rows [a, b) for query q: f32
+    d2 rounded at every step, +inf for rows >= nrows, every NaN one
+    NaN."""
+    dx, dy = px[a:b] - qx[q], py[a:b] - qy[q]
+    d2 = dx * dx + dy * dy
+    rows = torch.arange(a, b, dtype=torch.int64, device=px.device)
+    d2 = torch.where(rows >= nrows, float("inf"), d2)
+    bits = d2.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(d2.isnan(), 0x7FC00000, bits)
+    return (bits << 32) | rows
+
+
+def _bin_top(key: int) -> int:
+    """The largest key of ``key``'s bin in the knn kernel's histograms
+    (the key's bits 63..52)."""
+    return (((key >> 52) + 1) << 52) - 1
+
+
+def knn_topk_blocks_plain(px, py, qx, qy, kpad: int, nrows: int, chunk: int,
+                          group: int, tile: int = 1024):
+    """(d2, idx) as knn_topk_plain, by the knn kernel's walk over rows 0
+    .. min(cap, nrows + kpad) - 1 (later rows rank after those). The
+    sample pass: whole tiles of ``tile`` rows spread over the table (4
+    a block, as the kernel's plan spaces them); in each, the least key
+    of every group of 32 rows a warp holds (rows 4 * (32 w + l) + i of
+    the tile for l < 32) counts in a histogram by the key's bits 63..52,
+    and a query's bound is the top of the bin where the counts reach
+    kpad. The rows pass: chunks of ``chunk`` rows, a block for each
+    chunk and ``group`` queries; per query the block keeps its kpad
+    best keys at or below the query's bound, lowers the bound to the
+    kpad-th where it has that many (the kernel's cut, exact here), and
+    leaves them as the query's survivors. The final pass sorts each
+    query's survivors at or below its bound and keeps kpad. (The kernel
+    also lowers the bound from the rows pass's own published keys; any
+    such bound holds kpad keys below it, so the answer is the same.)"""
+    cap, nq = px.shape[0], qx.shape[0]
+    length = min(cap, nrows + kpad)
+    bound = [(1 << 63) - 1] * nq
+    tiles = -(-length // tile)
+    samples = min(max(tiles // 128, 1), 4096)
+    stride = max(tiles // (samples * 4), 1)
+    starts = [i * stride * tile for i in range(samples * 4)
+              if i * stride * tile + tile <= length]
+    for q in range(nq):
+        mins = [_knn_keys(px, py, qx, qy, q, a, a + tile, nrows)
+                .view(8, 32, 4).min(dim=1).values.flatten() for a in starts]
+        if mins:
+            m = torch.sort(torch.cat(mins)).values
+            if len(m) >= kpad:
+                bound[q] = _bin_top(int(m[kpad - 1]))
+
+    def best(q, k):
+        k = torch.sort(k[k <= bound[q]]).values[:kpad]
+        if len(k) == kpad:
+            bound[q] = min(bound[q], int(k[-1]))
+        return k
+    surv = [[] for _ in range(nq)]
+    for a in range(0, length, chunk):
+        for g in range(0, nq, group):
+            for q in range(g, min(g + group, nq)):
+                surv[q].append(best(q, _knn_keys(px, py, qx, qy, q, a,
+                                                 min(a + chunk, length),
+                                                 nrows)))
+    d2 = torch.empty((nq, kpad), dtype=torch.float32, device=px.device)
+    idx = torch.empty((nq, kpad), dtype=torch.int64, device=px.device)
+    for q in range(nq):
+        k = best(q, torch.cat(surv[q]))
+        d2[q] = (k >> 32).to(torch.int32).view(torch.float32)
+        idx[q] = k & 0xFFFFFFFF
+    return d2, idx
+
+
 def knn_topk(px, py, qx, qy, kpad: int, nrows: int):
     """(d2 f32, idx int64), each (Q, kpad), on the points' device: per
     query point the kpad smallest (f32 squared distance, row) keys over
     the rows of (px, py), rows >= nrows at +inf, ascending in (d2, row)
-    order with NaN above +inf. kpad is at most KNN_MAX_KPAD on CUDA."""
+    order with NaN above +inf. kpad is at most KNN_MAX_KPAD on CUDA,
+    where a sample pass over a 32nd of the rows seeds a bound a query,
+    the rows pass reads each row once for a group of queries and keeps
+    a block's best keys a query against bounds the blocks share, and a
+    final pass cuts and sorts the survivors (``knn_plan``)."""
     cap = px.shape[0]
     _check_vec("px", px, torch.float32)
     _check_vec("py", py, torch.float32, cap)
@@ -2040,32 +2186,35 @@ def knn_topk(px, py, qx, qy, kpad: int, nrows: int):
     if kpad > KNN_MAX_KPAD:
         raise ValueError(f"kpad={kpad}: the knn kernel keeps at most "
                          f"{KNN_MAX_KPAD} keys a query")
+    if cap > 1 << 32:
+        raise ValueError(f"{cap} rows: the knn kernel keys rows by 32-bit "
+                         f"ids")
     dev = px.device
     nq = qx.shape[0]
     if nq == 0:
         return (torch.empty((0, kpad), dtype=torch.float32, device=dev),
                 torch.empty((0, kpad), dtype=torch.int64, device=dev))
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sbuf = 1 << (kpad + KNN_TILE).bit_length()   # > kpad + a tile
     # rows past nrows + kpad rank after those before them
     length = min(cap, nrows + kpad)
-    keys_in = None
-    while True:
-        chunk = lib.geomesa_knn_chunk(length, nq, kpad, sbuf,
-                                      int(keys_in is not None))
-        if chunk < 1:
-            raise RuntimeError("knn_topk: the kernel's occupancy is unknown")
-        nchunks = -(-length // chunk)
-        keys = torch.empty((nq, nchunks, kpad), dtype=torch.int64, device=dev)
-        rc = lib.geomesa_knn_select(
-            px.data_ptr(), py.data_ptr(), nrows, qx.data_ptr(), qy.data_ptr(),
-            None if keys_in is None else keys_in.data_ptr(), length, nq, kpad,
-            sbuf, chunk, keys.data_ptr(), stream)
-        _raise_on(rc, "knn_topk")
-        launches["knn_topk"] += 1
-        if nchunks == 1:
-            break
-        keys_in, length = keys, nchunks * kpad
-    keys = keys.view(nq, kpad)
-    return (keys >> 32).to(torch.int32).view(torch.float32), keys & 0xFFFFFFFF
+    plan = _knn_plan(length, nq, kpad)
+    # zeroed state (int32 words): the sample pass's and the rows pass's
+    # histograms of published keys, the shared bounds (int64, inverted,
+    # so zero is the empty bound), the survivor counts
+    hist = _KNN_HIST_BINS * nq
+    state = torch.zeros(2 * hist + 3 * nq, dtype=torch.int32, device=dev)
+    surv = torch.empty(nq * plan[6], dtype=torch.int64, device=dev)
+    # the rows pass's buffers: G * sbuf keys a block
+    gbuf = torch.empty(plan[1] * plan[2] * plan[0] * plan[5],
+                       dtype=torch.int64, device=dev)
+    d2 = torch.empty((nq, kpad), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, kpad), dtype=torch.int64, device=dev)
+    base = state.data_ptr()
+    rc = _library().geomesa_knn_topk(
+        px.data_ptr(), py.data_ptr(), nrows, qx.data_ptr(), qy.data_ptr(),
+        length, nq, kpad, plan, base, base + 4 * hist, base + 8 * hist,
+        base + 8 * hist + 8 * nq, gbuf.data_ptr(), surv.data_ptr(),
+        d2.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "knn_topk")
+    launches["knn_topk"] += plan[9]
+    return d2, idx

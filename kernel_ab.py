@@ -96,7 +96,7 @@ compares two versions within one call. Each process:
   the dense north-star query in parts (the scan kernel with the mask's
   copy to the host, the f64 patch; medians) and in a cProfile of five
   calls.
-- ``--joins-only`` times the dwithin and contains kernels and nothing
+- ``--joins-only`` times the join kernels and nothing
   else, at chip_smoke.py's analytics shapes, through the tree's own
   wrappers and its own chip_smoke.py's launchers, each result checked
   against the tree's plain version: the dwithin kernel (``dwithin_10m``)
@@ -111,8 +111,18 @@ compares two versions within one call. Each process:
   kernel (``contains_100m``) on 100M seeded points (2^27 capacity)
   against chip_smoke.py's 10,032 polygons (configuration 5), tables
   built by the tree's own join module: its counts pass alone, its rows
-  pass alone, and the contains_counts wrapper on an idle card; and the
-  x-sort of both tables.
+  pass alone, and the contains_counts wrapper on an idle card; the slab
+  kernels (both passes alone, by the tree's chip_smoke.py launcher, and
+  the slab_pairs wrapper held and bare) in radius mode at the DWithin
+  pairs call's shape (``slab_10m``: the 1,000 points, r = 0.25, slabs
+  by the join's own ``_slab_setup``) and in box mode at the Contains
+  pairs call's (``slab_box_100m``: chip_smoke.py's 100 polygons on the
+  100M points); the knn kernel through its wrapper (its launches are
+  the call), held and bare, with its launches a call, at the batcher's
+  largest shape (``knn_10m_32q``: the 10M points, 32 of the analytics
+  phase's batcher points, kpad 256) and at BASELINE.md's configuration
+  4 (``knn_50m_8q``: 50M points in a 2^26-row buffer, bench.py's 8
+  points, kpad 256); and the x-sort of both tables.
 
 Medians of 20 launches (CUDA events; 10 for the batched kernels). Every
 gathered and batched result is checked against its plain version.
@@ -1004,6 +1014,22 @@ def joins_case(tree: str, seed: int, store_rows: int) -> dict:
                      "kernel_ms": cuda_ms(alone, True),
                      "wrapper_ms": cuda_ms(wrapper, True),
                      "wrapper_bare_ms": cuda_ms(wrapper, False)}
+    # the slab kernels in radius mode at the DWithin pairs call's shape,
+    # and the knn kernel at the batcher's largest (32 of its points)
+    rq = np.random.default_rng(seed + 11)
+    qx64 = rq.uniform(-170, 170, 1_000)
+    qy64 = rq.uniform(-80, 80, 1_000)
+    r2_hi = float(np.float32(f32_band(0.25, 360.0)[0]))
+    slabs = join._slab_setup(join._sorted_by_x(px, py, n), qx64, 0.25, r2_hi)
+    qa = torch.from_numpy(np.stack([qx64, qy64], 1).astype(np.float32))
+    out["slab_10m"] = slab_case(smoke, kernels, (
+        slabs.xs, slabs.ys, slabs.order, slabs.los, slabs.widths,
+        qa.to(dev), r2_hi, 0.0, False))
+    del slabs
+    bx = torch.from_numpy(rq.uniform(-170, 170, 256)[:32].astype(np.float32))
+    by = torch.from_numpy(rq.uniform(-80, 80, 256)[:32].astype(np.float32))
+    out["knn_10m_32q"] = knn_case(kernels, (px, py, bx.to(dev), by.to(dev),
+                                            256, n))
     del px, py, xsorted
     torch.cuda.empty_cache()
 
@@ -1042,7 +1068,82 @@ def joins_case(tree: str, seed: int, store_rows: int) -> dict:
         "rows_ms": cuda_ms(rows_run, True),
         "wrapper_bare_ms": cuda_ms(lambda: kernels.contains_counts(*args),
                                    False, iters=5)}
+    # the slab kernels in box mode at the Contains pairs call's shape
+    # (chip_smoke.py's 100 polygons: 84 sampled rectangles, 16 stars)
+    sample = np.sort(np.r_[rc.choice(smoke.CT_RECTS,
+                                     smoke.CT_SAMPLE - smoke.CT_STARS,
+                                     replace=False),
+                           smoke.CT_RECTS + np.arange(smoke.CT_STARS)])
+    sel = np.r_[sample[:smoke.CT_PAIRS - 16], smoke.CT_RECTS + np.arange(16)]
+    _, _, los, widths = join._contains_slab_setup(xs, b64[sel])
+    out["slab_box_100m"] = slab_case(smoke, kernels, (
+        xs, ys, order, torch.from_numpy(los).to(dev),
+        torch.from_numpy(widths).to(dev),
+        torch.from_numpy(b64[sel].astype(np.float32)).to(dev), 0.0,
+        float(np.float32(EDGE_EPS)), True))
+    del px, py, xs, ys, order, args, counts, rows_run
+    torch.cuda.empty_cache()
+    # the knn kernel at BASELINE #4: 50M points in a 2^26-row buffer,
+    # bench.py's 8 points, k = 100 (kpad 256)
+    rk = np.random.default_rng(seed + 12)
+    px, py = columns(rk.uniform(-180, 180, smoke.KNN_ROWS),
+                     rk.uniform(-90, 90, smoke.KNN_ROWS), smoke.KNN_CAP)
+    kq = torch.tensor(smoke.KNN_POINTS, dtype=torch.float32)
+    out["knn_50m_8q"] = knn_case(kernels, (
+        px, py, kq[:, 0].contiguous().to(dev), kq[:, 1].contiguous().to(dev),
+        256, smoke.KNN_ROWS))
     return out
+
+
+def slab_case(smoke, kernels, args) -> dict:
+    """The slab kernels' two passes alone (the tree's chip_smoke.py
+    launcher: buffers prepared once) and the slab_pairs wrapper, held
+    and bare, after its result is checked against the tree's plain
+    version."""
+    got = kernels.slab_pairs(*args)
+    want = kernels.slab_pairs_plain(*args)
+    if not all(torch_equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit("slab_pairs != plain")
+    run = smoke._slab_launcher(args)
+    run = run[0] if isinstance(run, tuple) else run
+
+    def wrapper():
+        kernels.slab_pairs(*args)
+    return {"queries": int(args[3].shape[0]),
+            "slab_columns": int(args[4].sum()), "pairs": int(want[0].shape[0]),
+            "mode": "box" if args[-1] else "radius",
+            "kernel_ms": cuda_ms(run, True),
+            "wrapper_ms": cuda_ms(wrapper, True),
+            "wrapper_bare_ms": cuda_ms(wrapper, False)}
+
+
+def knn_case(kernels, args) -> dict:
+    """The knn wrapper (its launches are the whole call) held and bare,
+    with its launches a call, after its result is checked against the
+    tree's plain version (d2 by its bits, every NaN equal)."""
+    import torch
+    before = kernels.launches["knn_topk"]
+    got = kernels.knn_topk(*args)
+    calls = kernels.launches["knn_topk"] - before
+    want = kernels.knn_topk_plain(*args)
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = (t.masked_fill(t.isnan(), float("nan")).view(torch.int32)
+                    for t in (g, w))
+        if not torch.equal(g, w):
+            raise SystemExit("knn_topk != plain")
+    del want
+
+    def run():
+        kernels.knn_topk(*args)
+    return {"rows": args[5], "queries": int(args[2].shape[0]),
+            "kpad": args[4], "launches": calls, "ms": cuda_ms(run, True),
+            "bare_ms": cuda_ms(run, False)}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return torch.equal(a, b)
 
 
 def worker(tree: str, seed: int, rows: int, store_rows: int,
@@ -1180,8 +1281,9 @@ def main():
                     help="time only the prefix kernel (prefix_100m, "
                          "prefix_10m)")
     ap.add_argument("--joins-only", action="store_true",
-                    help="time only the dwithin and contains kernels "
-                         "(dwithin_10m, dwithin_wide_10m, contains_100m)")
+                    help="time only the join kernels (dwithin_10m, "
+                         "dwithin_wide_10m, slab_10m, knn_10m_32q, "
+                         "contains_100m, slab_box_100m, knn_50m_8q)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:

@@ -453,6 +453,93 @@ def test_slab_pairs_plain_matches_reference(cloud, box, nrows):
     assert np.array_equal(rows, jrows) and np.array_equal(qi, jqi)
 
 
+# -- the slab kernels' tile walk -------------------------------------------
+
+def _slab_walk_case(n, cap, k, half, box, seed):
+    """f32 rows (NaN and +-inf coordinates among them, capacity rows past
+    n), their port and reference x-sorts, and k slabs: seeded centres
+    with half-width ``half`` (overlapping where it is wide), the first
+    empty and the second the whole table; with each query's f32 point
+    or box (finite, so no non-finite row passes)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-180, 180, cap).astype(np.float32)
+    y = rng.uniform(-90, 90, cap).astype(np.float32)
+    x[:4], y[4:8] = np.nan, np.nan
+    x[8:11], x[11:13], y[13:15] = np.inf, -np.inf, -np.inf
+    xs, ys, order = tj._sorted_by_x(torch.from_numpy(x), torch.from_numpy(y),
+                                    n)
+    cx, cy = rng.uniform(-170, 170, k), rng.uniform(-80, 80, k)
+    los_t, w_t, los, widths = tj._slab_bounds(
+        xs, cx.astype(np.float32), np.full(k, half, np.float32))
+    los, widths = los.copy(), widths.copy()
+    widths[0] = 0
+    los[1], widths[1] = 0, cap
+    if box:
+        qa = np.stack([cx - half, cy - half / 2, cx + half, cy + half / 2],
+                      axis=1).astype(np.float32)
+        r2_hi, eps = 0.0, float(np.float32(EDGE_EPS))
+    else:
+        qa = np.stack([cx, cy], axis=1).astype(np.float32)
+        r2_hi, eps = float(np.float32(half * half)), 0.0
+    args = (xs, ys, order, torch.from_numpy(los), torch.from_numpy(widths),
+            torch.from_numpy(qa), r2_hi, eps, box)
+    return x, y, args
+
+
+def _slab_reference(x, y, n, args):
+    """The reference's flatnonzero of its (query, column) grid over the
+    same slabs and its own x-sort, mapped to rows (< n) and queries."""
+    _, _, _, los_t, w_t, qa_t, r2_hi, _, box = args
+    los, widths, qa = los_t.numpy(), w_t.numpy(), qa_t.numpy()
+    jxs, jorder = _jax_sorted(x, y, n)
+    smax = 1 << (int(widths.max()) - 1).bit_length()
+    common = (jnp.asarray(jxs), jnp.asarray(jorder), jnp.asarray(los),
+              jnp.asarray(widths))
+    if box:
+        tail = (jnp.asarray(qa), jnp.asarray(x), jnp.asarray(y), np.int32(n))
+        total = int(jj._contains_cand_count(*common, *tail, smax))
+        flat = np.asarray(jj._contains_cand_flat(*common, *tail, smax,
+                                                 max(total, 1)))
+    else:
+        tail = (jnp.asarray(qa[:, 0]), jnp.asarray(qa[:, 1]), jnp.asarray(x),
+                jnp.asarray(y), np.float32(r2_hi))
+        total = int(jj._slab_cand_count(*common, *tail, smax))
+        flat = np.asarray(jj._slab_cand_flat(*common, *tail, smax,
+                                             max(total, 1)))
+    flat = flat[flat >= 0]
+    qi = flat // smax
+    rows = jorder[np.minimum(los[qi] + flat - qi * smax, len(jorder) - 1)]
+    keep = rows < n
+    return rows[keep], qi[keep]
+
+
+@pytest.mark.parametrize("box", [False, True])
+@pytest.mark.parametrize("k,half,tile", [(40, 6.0, kernels.JOIN_TILE),
+                                         (40, 6.0, 7),
+                                         (600, 100.0, kernels.JOIN_TILE),
+                                         (600, 100.0, 256)])
+def test_slab_tile_walk_matches_plain_and_reference(k, half, tile, box):
+    """The slab kernels' decomposition (the tile lists of the slabs, each
+    entry's matches counted at its object-major index, their prefix,
+    then each entry's matches written from its offset) equals the
+    per-query plain version and the reference's flat candidates, row for
+    row and in order: overlapping slabs (600 wide ones: tiles that list
+    more queries than a block of the kernel takes), an empty slab and
+    one that is the whole table, NaN and +-inf rows, capacity rows."""
+    n, cap = 9_000, 9_500
+    x, y, args = _slab_walk_case(n, cap, k, half, box, seed=k + int(box))
+    walk = kernels.slab_pairs_tiles_plain(*args, tile=tile)
+    plain = kernels.slab_pairs_plain(*args)
+    rows, qi = _slab_reference(x, y, n, args)
+    assert torch.equal(walk[0], plain[0]) and torch.equal(walk[1], plain[1])
+    assert np.array_equal(walk[0].numpy(), rows)
+    assert np.array_equal(walk[1].numpy(), qi)
+    assert len(rows) > 50 and not (qi == 0).any() and (qi == 1).any()
+    lists = kernels.tile_lists(args[3], args[4], cap)
+    if k == 600 and tile == kernels.JOIN_TILE:
+        assert lists.most > kernels.SLAB_GROUP
+
+
 # -- contains ---------------------------------------------------------------
 
 @pytest.mark.parametrize("counts_only", [True, False])
@@ -784,6 +871,77 @@ def test_knn_device_xy_padded():
     jd, jidx = jj.knn(px, py, 1.0, 2.0, 10, device_xy=jdev)
     assert np.array_equal(idx, jidx) and np.array_equal(d, jd)
     assert (idx < 3_000).all()
+
+
+# -- the knn kernel's walk -------------------------------------------------
+
+def _knn_grid_case(n, cap, nq, layout, seed):
+    """f32 rows and queries on a quarter-unit grid, so every d2 is exact
+    in f32 and the reference's fused rounding equals the port's stepwise
+    one: ``x`` sorts the rows by x (a block's rows lie in one band, far
+    from most queries), ``far`` by distance from query 0, farthest first
+    (the first blocks' bounds are loose and every later row passes),
+    ``equal`` puts every row on one point (ties across blocks), ``nan``
+    has NaN rows and a NaN query; capacity rows past n sit at the
+    origin."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros(cap, np.float32)
+    y = np.zeros(cap, np.float32)
+    x[:n] = rng.integers(-400, 400, n) / 2
+    y[:n] = rng.integers(-200, 200, n) / 2
+    qx = (rng.integers(-760, 760, nq) / 4).astype(np.float32)
+    qy = (rng.integers(-360, 360, nq) / 4).astype(np.float32)
+    if layout == "x":
+        o = np.argsort(x[:n], kind="stable")
+        x[:n], y[:n] = x[:n][o], y[:n][o]
+    elif layout == "far":
+        d2 = (x[:n] - qx[0]) ** 2 + (y[:n] - qy[0]) ** 2
+        o = np.argsort(-d2, kind="stable")
+        x[:n], y[:n] = x[:n][o], y[:n][o]
+    elif layout == "equal":
+        x[:n], y[:n] = 3.5, -1.25
+    elif layout == "nan":
+        x[5:40], y[100:130] = np.nan, np.nan
+        qx[0] = np.nan
+        qy[min(1, nq - 1)] = np.nan
+    return x, y, qx, qy
+
+
+@pytest.mark.parametrize("layout,n,cap,nq,kpad,chunk,group", [
+    ("x", 40_000, 40_960, 8, 256, 1_024, 8),      # a middle pass
+    ("far", 40_000, 40_000, 1, 128, 1_024, 1),
+    ("equal", 30_000, 30_720, 9, 64, 2_048, 8),   # two groups
+    ("nan", 20_000, 20_480, 32, 100, 2_048, 8),
+    ("uniform", 100, 128, 1, 128, 4_096, 1),      # kpad > nrows
+    ("uniform", 5_000, 5_000, 64, 1, 1_024, 8),   # kpad 1, eight groups
+    ("uniform", 10_000, 10_000, 2, 8_192, 4_096, 2),
+    ("uniform", 20_000, 20_000, 32, 256, 2_048, 8)])
+def test_knn_block_walk_matches_plain_and_reference(layout, n, cap, nq,
+                                                    kpad, chunk, group):
+    """The knn kernel's decomposition (chunks of rows for groups of
+    queries, each block's kpad best at or below a bound the blocks
+    share and lower, the survivors cut again by blocks of 16 blocks'
+    survivors where there are more, a last sort) equals the plain
+    version and _knn_kernel, d2 bits and rows, on rows sorted by x and
+    by distance from the query, equal rows, NaN rows and queries, kpad
+    above nrows, kpad 1 and 8,192, and 1 to 64 queries."""
+    x, y, qx, qy = _knn_grid_case(n, cap, nq, layout, seed=n + nq)
+    t = [torch.from_numpy(a) for a in (x, y, qx, qy)]
+    walk = kernels.knn_topk_blocks_plain(*t, kpad, n, chunk, group)
+    plain = kernels.knn_topk_plain(*t, kpad, n)
+    ref = jj._knn_kernel(jnp.asarray(x), jnp.asarray(y), jnp.asarray(qx),
+                         jnp.asarray(qy), kpad, np.int32(n))
+    for (d2, rows) in (plain, ref):
+        d2 = torch.from_numpy(np.array(d2))
+        nan = d2.isnan()
+        assert torch.equal(walk[0].isnan(), nan)
+        assert torch.equal(walk[0].masked_fill(nan, 0).view(torch.int32),
+                           d2.masked_fill(nan, 0).view(torch.int32))
+        assert np.array_equal(walk[1].numpy(), np.asarray(rows))
+    if layout == "nan":   # a NaN query ranks the +inf capacity rows first
+        for q in (0, 1):
+            assert torch.equal(walk[1][q], torch.arange(n, n + kpad))
+            assert torch.isinf(walk[0][q]).all()
 
 
 # -- the x-sort cache ---------------------------------------------------------

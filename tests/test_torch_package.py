@@ -201,7 +201,8 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                  "contains_counts_plain", "contains_band_rows_plain",
                  "_contains_one", "knn_topk_plain",
                  "dwithin_counts_tiles_plain",
-                 "contains_counts_tiles_plain"):
+                 "contains_counts_tiles_plain", "slab_pairs_tiles_plain",
+                 "_slab_hits", "knn_topk_blocks_plain", "_knn_keys"):
         monkeypatch.setattr(kernels, name, refuse)
     x, y, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -238,7 +239,7 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                                 "pip_mask": 1, "residual_mask": 1,
                                 "density_grid": 1, "extent_tristate": 1,
                                 "dwithin_counts": 1, "slab_pairs": 4,
-                                "contains_counts": 1, "knn_topk": 2}
+                                "contains_counts": 1, "knn_topk": 3}
     join.clear_xsort_cache()
 
 
@@ -1513,12 +1514,23 @@ def _slabs(xs, centres, halves):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("box", [False, True])
-@pytest.mark.parametrize("n,cap,k", [(1, 1, 1), (10_000, 16_384, 3),
-                                     (1_000_000, 1_048_576, 1000)])
-def test_slab_pairs_kernel_matches_plain(cuda, box, n, cap, k):
+@pytest.mark.parametrize("n,cap,k,odd", [(1, 1, 1, False),
+                                         (10_000, 16_384, 3, False),
+                                         (1_000_000, 1_048_576, 1000, False),
+                                         (2_000_000, 2_097_152, 1000, True),
+                                         (300_001, 524_288, 600, True)])
+def test_slab_pairs_kernel_matches_plain(cuda, box, n, cap, k, odd):
+    """The slab kernels' pairs against the plain version; ``odd``: NaN
+    and +-inf rows, an empty slab and one that is the whole table, and
+    slabs 200 degrees wide around small tests (overlapping, so tiles
+    list more queries than a block takes); two launches a call (one
+    where nothing matches, none where no slab meets a tile)."""
     from geomesa_tpu_torch.analytics.join import _sorted_by_x
     from geomesa_tpu_torch.utils.fp import f32_band
     _, _, px, py = _join_points(n, cap, cuda, seed=3)
+    if odd:
+        odd_vals = torch.tensor([np.nan, np.inf, -np.inf], device=cuda)
+        px[:3], py[3:6], px[6:9] = odd_vals, odd_vals, float("nan")
     xs, ys, order = _sorted_by_x(px, py, n)
     rng = np.random.default_rng(k)
     cx, cy = rng.uniform(-170, 170, k), rng.uniform(-80, 80, k)
@@ -1526,18 +1538,27 @@ def test_slab_pairs_kernel_matches_plain(cuda, box, n, cap, k):
         h = rng.uniform(0.0, 2.0, k)
         h[-1] = 0.0   # an empty slab
         b = np.stack([cx - h, cy - h / 2, cx + h, cy + h / 2], axis=1)
-        los, widths = _slabs(xs, (b[:, 0] + b[:, 2]) / 2, h + 2e-4)
+        los, widths = _slabs(xs, (b[:, 0] + b[:, 2]) / 2,
+                             np.full(k, 100.0) if odd else h + 2e-4)
         qa, r2, eps = torch.from_numpy(b.astype(np.float32)), 0.0, 1e-4
     else:
-        los, widths = _slabs(xs, cx, np.full(k, 0.3))
+        los, widths = _slabs(xs, cx, np.full(k, 100.0 if odd else 0.3))
         qa = torch.from_numpy(np.stack([cx, cy], 1).astype(np.float32))
         r2, eps = float(np.float32(f32_band(0.25, 360.0)[0])), 0.0
+    if odd:
+        widths[0] = 0
+        los[1], widths[1] = 0, cap
+        assert kernels.tile_lists(los, widths, cap).most > kernels.SLAB_GROUP
     args = (xs, ys, order, los, widths, qa.to(cuda), r2,
             float(np.float32(eps)), box)
+    kernels.reset_launches()
     got = kernels.slab_pairs(*args)
     want = kernels.slab_pairs_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    listed = kernels.tile_lists(los, widths, cap).total
+    assert kernels.launches["slab_pairs"] == (
+        0 if not listed else 2 if len(want[0]) else 1)
 
 
 def _contains_case(cuda, n, cap, wkts, on_edges=0, odd_rows=False,
@@ -1646,15 +1667,20 @@ def test_contains_counts_kernel_long_lists(cuda, kpolys):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,cap,nq,kpad", [(1, 1, 1, 1), (100, 128, 1, 128),
-                                           (2_500, 3_000, 2, 3_000),
-                                           (3_000, 4_096, 3, 4_096),
-                                           (1_000_000, 1_048_576, 8, 256),
-                                           (50_000, 65_536, 32, 8_192),
-                                           (2_000_000, 2_097_152, 2, 64)])
-def test_knn_kernel_matches_plain(cuda, n, cap, nq, kpad):
+@pytest.mark.parametrize("n,cap,nq,kpad,layout", [
+    (1, 1, 1, 1, ""), (100, 128, 1, 128, ""), (2_500, 3_000, 2, 3_000, ""),
+    (3_000, 4_096, 3, 4_096, ""), (1_000_000, 1_048_576, 8, 256, ""),
+    (50_000, 65_536, 32, 8_192, ""), (2_000_000, 2_097_152, 2, 64, ""),
+    (2_000_000, 2_097_152, 32, 256, "x"), (2_000_000, 2_000_000, 1, 256,
+                                            "far"),
+    (1_000_000, 1_048_576, 64, 128, ""), (500_000, 524_288, 9, 64, "equal"),
+    (1_000_000, 1_048_576, 8, 1, "nan"), (300_000, 300_000, 2, 8_192, "x")])
+def test_knn_kernel_matches_plain(cuda, n, cap, nq, kpad, layout):
     """The window of each query: ties (duplicated points), capacity rows
-    at +inf (the tail when kpad > n), NaN rows last, several stages."""
+    at +inf (the tail when kpad > n), NaN rows last; rows sorted by x
+    and by distance from the first query (farthest first), every row on
+    one point, a NaN query; 1 to 64 queries (several groups), kpad 1 to
+    8,192; the launches of the call's plan."""
     _, _, px, py = _join_points(n, cap, cuda, seed=nq)
     if n > 10:
         px[3:6] = float("nan")
@@ -1662,11 +1688,25 @@ def test_knn_kernel_matches_plain(cuda, n, cap, nq, kpad):
     qx = torch.from_numpy(rng.uniform(-170, 170, nq).astype(np.float32))
     qy = torch.from_numpy(rng.uniform(-80, 80, nq).astype(np.float32))
     qx[0], qy[0] = px[0].cpu(), py[0].cpu()
+    if layout == "x":
+        o = torch.sort(px[:n], stable=True).indices
+        px[:n], py[:n] = px[:n][o].clone(), py[:n][o].clone()
+    elif layout == "far":
+        d2 = (px[:n] - qx[0].item()) ** 2 + (py[:n] - qy[0].item()) ** 2
+        o = torch.sort(d2, descending=True, stable=True).indices
+        px[:n], py[:n] = px[:n][o].clone(), py[:n][o].clone()
+    elif layout == "equal":
+        px[:n], py[:n] = 3.5, -1.25
+    elif layout == "nan":
+        qx[0] = float("nan")
     args = (px, py, qx.to(cuda), qy.to(cuda), kpad, n)
+    kernels.reset_launches()
     got = kernels.knn_topk(*args)
     want = kernels.knn_topk_plain(*args)
     torch.cuda.synchronize()
     assert _same_f32(got[0], want[0]) and torch.equal(got[1], want[1])
+    plan = kernels.knn_plan(min(cap, n + kpad), nq, kpad)
+    assert kernels.launches["knn_topk"] == plan["launches"] == 3
 
 
 @pytest.mark.gpu
