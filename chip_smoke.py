@@ -7,9 +7,11 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. build   the CUDA kernels from geomesa_tpu_torch/csrc/scan.cu,
            csrc/batch.cu, csrc/geom.cu, csrc/residual.cu, csrc/density.cu,
-           csrc/extent.cu and csrc/join.cu (one nvcc per source, started
-           together, then one link; sm_90a), with the card's name and
-           power limit.
+           csrc/extent.cu, csrc/join.cu and csrc/tube.cu (one nvcc per
+           source, started together, then one link; sm_90a), with the
+           card's name and power limit; then the native host library
+           from geomesa_tpu_torch/native/src (one g++), its seconds and
+           path.
 2. kernels each hand kernel against its plain PyTorch version on the
            same device tensors: 100M rows from --seed, in a capacity
            of 2^27 (so rows n..cap are capacity padding), the four
@@ -37,7 +39,19 @@ Phases, one JSON line each; any failure exits non-zero:
            held to its plain version with torch.equal, timed beside its
            bound (the bytes these rows need: 2 B a row, 16 B a valid
            row, 8 B of times a row the box test kept) and the 26 (18) B
-           a row of reading every row (bound_all_rows_ms).
+           a row of reading every row (bound_all_rows_ms). The tube
+           kernel on the same 100M rows against two tubes: 720 pairs
+           (hourly bins of a 30-day track, boxes 0.1-0.5 degrees wide)
+           and 1,000 pairs (overlapping intervals of 1-5 days anywhere
+           in the rows' dates, boxes 20-90 degrees wide, so millions of
+           rows match and the pairs span two staged chunks), each held
+           to its plain version with torch.equal, timed beside its
+           bound (the bytes these rows need: 8 B of times a row, 16 B
+           of coordinates a row some interval holds, 1 B written; or the
+           operations of the time tests and of the box tests of the
+           pairs whose interval holds a row) and the operations of
+           testing every (row, pair) (bound_all_pairs_ms), and its
+           plain time.
 3. store   the main path: InMemoryDataStore() on CUDA, 10M rows written
            in chunks through write_dict (in-place appends and one
            capacity rebuild), the BBOX+time north-star query and two
@@ -48,6 +62,24 @@ Phases, one JSON line each; any failure exits non-zero:
            each kernel must have launched. Then, outside the counted
            run, the gathered kernel at the main path's own shape: the
            north-star query's candidate ids from the store's z-index.
+           Then on the same store (store_native): the native host paths
+           on its columns (the DAY/WEEK binning, z3 and z2 encode, the
+           fused binned z3 encode, sort_bin_z, sort_z, gather_xyz, and
+           zranges for the three store queries), each held bit for bit
+           to its numpy plain twin, with the host-clock seconds of both,
+           and a new index's z3 and z2 sort orders and first z3 query;
+           (store_versions) reindex to index version 1 (the legacy
+           curve) and back to 2, each timed, the three store queries
+           after each id-exact against the float64 brute force with the
+           z3 plan on the gathered tier; (store_tube) tube_select_process
+           along two vessels' AIS-like tracks (1,440 fixes, one every 30
+           minutes over 30 days at about 12 knots, hourly bins, a 0.1
+           degree buffer; the second silent for 48 hours, which the gap
+           fill bridges), ids equal to a numpy brute force of the
+           kernel's two-float and (day, ms) compares, the rows where a
+           float64 brute force differs counted (information), p50 of 3;
+           launch counts zeroed before the calls and read after:
+           tube_mask must have launched.
 4. batched the serving path on the store phase's 10M rows: 32 seeded
            queries in the store's dates through query_batched at batch
            sizes 2, 8 and 32, every query's ids equal to the float64
@@ -199,7 +231,14 @@ Phases, one JSON line each; any failure exits non-zero:
            rows, and analyze() must count n - 1,000 rows (the stats stay
            at n until then); then remove_schema, with
            torch.cuda.memory_allocated falling.
-9. extent  an extent (XZ) store shaped like a city's footprint and
+9. geometry_less  the predicates phase's attribute columns as a
+           schema without a geometry (an event table keyed by its
+           attributes), written through write(): an attr: equality, a
+           fid IN of 100 ids and a fullscan whose residual runs
+           residual_mask, each id-exact against a numpy brute force,
+           with its strategy and p50 of 3; launch counts zeroed before
+           the queries and read after: residual_mask must have launched.
+10. extent an extent (XZ) store shaped like a city's footprint and
            street layers (NYC Open Data's building footprints, about
            1.08M polygons, and street centerlines, about 120k segments):
            the earlier stores freed, 1M rotated rectangles 8-60 m a side
@@ -295,6 +334,8 @@ SOURCE_FILES.update({"pip_mask": "geomesa_tpu_torch/csrc/geom.cu",
                      "residual_mask": "geomesa_tpu_torch/csrc/residual.cu",
                      "density_grid": "geomesa_tpu_torch/csrc/density.cu",
                      "extent_tristate": "geomesa_tpu_torch/csrc/extent.cu"})
+SOURCES["tube_mask"] = "geomesa_tpu/analytics/tube.py:85 _tube_kernel"
+SOURCE_FILES["tube_mask"] = "geomesa_tpu_torch/csrc/tube.cu"
 BATCH = 32          # queries per batch in the kernels phase
 STORE_BATCH_QUERIES = 32
 BATCH_SIZES = (2, 8, 32)
@@ -575,10 +616,13 @@ def check_batch(data, bq) -> bool:
 
 
 def phase_build():
+    from geomesa_tpu_torch import native
     from geomesa_tpu_torch.scan import kernels
     info = kernels.build_library()
     print(info.log, file=sys.stderr, flush=True)
+    host_path, host_s = native.build()
     emit({"phase": "build", "seconds": info.seconds, "library": info.path,
+          "native_seconds": host_s, "native_library": host_path,
           "card": card_line(), "device": torch.cuda.get_device_name(0)})
 
 
@@ -605,7 +649,8 @@ def phase_kernels(seed: int, rows: int) -> dict:
     m = idx.shape[0]
     flush = _l2_flush(dev)
     stats = {k: {"max_abs_err": 0, "per_query": []} for k in SOURCES
-             if k not in PRED_KERNELS + SURFACE_KERNELS + JOIN_KERNELS}
+             if k not in PRED_KERNELS + SURFACE_KERNELS + JOIN_KERNELS
+             + ("tube_mask",)}
     for qi, (boxes, intervals) in enumerate(KERNEL_QUERIES):
         q = zscan.make_query(boxes, intervals)
         b, t = q.tables(dev)
@@ -649,6 +694,7 @@ def phase_kernels(seed: int, rows: int) -> dict:
         s["per_query"].append(g)
     for name, st in batch_kernel_stats(data, seed).items():
         stats[name] = {"max_abs_err": st["max_abs_err"], "per_query": [st]}
+    stats["tube_mask"] = tube_kernel_stats(data, seed)
     scan_data_bytes = data.nbytes
     del data, idx, idx_sorted, idx_l2, flush
     torch.cuda.empty_cache()
@@ -768,6 +814,449 @@ def phase_store(seed: int, rows: int, gather_stats: dict):
     if missing:
         raise SystemExit(f"kernels never launched on the main path: {missing}")
     return counts, ds, (x, y, ms, ids)
+
+
+# -- the tube kernel, the native host paths, index versions, tube select ------
+
+HOUR_MS = 3_600_000
+TUBE_PAIRS = 720          # hourly bins of a 30-day track
+TUBE_RUNS = 3             # host-clock runs per tube select for its p50
+KNOTS_12 = 0.2            # degrees an hour (12 nm/h, a degree is 60 nm)
+
+
+def ais_track(rng, n, t0_ms, step_ms, x0, y0, gap_at=None, gap_ms=0):
+    """A vessel's AIS-like track: n fixes every ``step_ms`` from (x0, y0)
+    at about 12 knots, its heading a random walk; after fix ``gap_at`` a
+    silence of ``gap_ms`` (the vessel keeps moving)."""
+    ms = t0_ms + np.arange(n, dtype=np.int64) * step_ms
+    if gap_at is not None:
+        ms[gap_at:] += gap_ms
+    heading = rng.normal(0.0, 0.1, n).cumsum()
+    hours = np.diff(ms, prepend=ms[0]) / HOUR_MS
+    x = x0 + np.cumsum(KNOTS_12 * hours * np.cos(heading))
+    y = y0 + np.cumsum(KNOTS_12 * hours * np.sin(heading))
+    return x, y, ms
+
+
+TUBE_DENSE_PAIRS = 1000   # past the kernel's 768 staged pairs: two chunks
+
+
+def tube_cases(seed: int) -> list:
+    """The kernels phase's two tubes as (label, boxes, intervals): boxes
+    (K, 4) f64 [xmin, ymin, xmax, ymax], intervals (K, 2) int64 millis,
+    inclusive. "sparse": 720 pairs, hourly bins of a 30-day track from
+    day 500, boxes 0.1-0.5 degrees wide (about 3 % of the rows' times in
+    the tube, a handful of hits). "dense": 1,000 pairs in random order,
+    intervals 1-5 days long starting anywhere in the rows' 1,000 days
+    (overlapping), boxes 20-90 degrees wide anywhere, so millions of rows
+    take the match path and a row's pairs span both staged chunks."""
+    rng = np.random.default_rng(seed + 9)
+    t0 = 500 * MS_DAY
+    cx, cy, _ = ais_track(rng, TUBE_PAIRS, t0, HOUR_MS, -100.0, 0.0)
+    w = rng.uniform(0.1, 0.5, (TUBE_PAIRS, 2))
+    sparse = np.stack([cx - w[:, 0] / 2, cy - w[:, 1] / 2, cx + w[:, 0] / 2,
+                       cy + w[:, 1] / 2], axis=1)
+    lo = t0 + np.arange(TUBE_PAIRS, dtype=np.int64) * HOUR_MS
+    k = TUBE_DENSE_PAIRS
+    w = rng.uniform(20.0, 90.0, (k, 2))
+    cx, cy = rng.uniform(-180, 180, k), rng.uniform(-90, 90, k)
+    dense = np.stack([cx - w[:, 0] / 2, cy - w[:, 1] / 2, cx + w[:, 0] / 2,
+                      cy + w[:, 1] / 2], axis=1)
+    dlo = rng.integers(0, 1000 * MS_DAY, k)
+    dhi = dlo + rng.integers(MS_DAY, 5 * MS_DAY, k)
+    return [("sparse", sparse, np.stack([lo, lo + HOUR_MS - 1], 1)),
+            ("dense", dense, np.stack([dlo, dhi], 1))]
+
+
+def tube_needs(cols, n: int, times) -> tuple[int, int]:
+    """(rows of the first n whose (day, ms) some pair's interval holds,
+    (row, pair) pairs whose interval holds the row), by searches over the
+    intervals' keys (day * 2^32 + ms + 2^31, the (day, ms) order). The
+    first is exact for any table: among the pairs with lo <= t, the
+    largest hi reaches t. The second counts lo <= t less hi < t, exact
+    where every interval has lo <= hi, as both tubes' do."""
+    def key(day, ms):
+        return day.long() * (1 << 32) + ms.long() + (1 << 31)
+    t = key(cols[4][:n], cols[5][:n])
+    lo, hi = key(times[:, 0], times[:, 1]), key(times[:, 2], times[:, 3])
+    if bool((lo > hi).any()):
+        raise SystemExit("tube_needs: an interval with lo > hi")
+    order = torch.argsort(lo)
+    lo, pm = lo[order], torch.cummax(hi[order], dim=0).values
+    a = torch.searchsorted(lo, t, right=True)
+    held = (a > 0) & (pm[(a - 1).clamp(min=0)] >= t)
+    pairs = a - torch.searchsorted(torch.sort(hi).values, t)
+    return int(held.sum().item()), int(pairs.sum().item())
+
+
+def tube_kernel_stats(data, seed: int) -> dict:
+    """tube_mask on the kernels phase's rows against the two tubes of
+    tube_cases, each held to tube_mask_plain with torch.equal and timed
+    beside its bound: the bytes this call's rows need (8 B of time words
+    a row, 16 B of coordinates a row whose time some interval holds, 1 B
+    written, the tables) or the operations they need (a time test of 7
+    a row, a box test of 13 for each (row, pair) whose interval holds the
+    row), whichever is larger; beside it, the operations of testing every
+    (row, pair) at one each (bound_all_pairs_ms)."""
+    from geomesa_tpu_torch.analytics.tube import tube_tables
+    from geomesa_tpu_torch.scan import kernels
+    n = data.n
+    err, out = 0, []
+    for label, boxes, iv in tube_cases(seed):
+        bx, tm = (torch.from_numpy(a).to(data.device)
+                  for a in tube_tables(boxes, iv))
+        k = bx.shape[0]
+
+        def kern():
+            return kernels.tube_mask(data.cols, n, bx, tm)
+
+        def plain():
+            return kernels.tube_mask_plain(data.cols, n, bx, tm)
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        err = max(err, 0 if equal else 1)
+        held, pair_tests = tube_needs(data.cols, n, tm)
+        nbytes = 9 * n + 16 * held + k * 48
+        ops = 7 * n + 13 * pair_tests
+        bms, bby = bound_ms(nbytes, ops)
+        out.append({
+            "query": f"{label} tube of {k} pairs", "pairs": k,
+            "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 1, warmup=0),
+            "bound_ms": bms, "bound_by": bby,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_bound_ms": ops / INT32_OPS_PER_S * 1e3,
+            "bound_all_pairs_ms": k * n / INT32_OPS_PER_S * 1e3,
+            "rows_in_interval": held, "pair_tests_needed": pair_tests,
+            "hits": int(want.sum().item()), "equal": equal,
+            "library_ms": None})
+    return {"max_abs_err": err, "per_query": out}
+
+
+def _same_bits(a, b) -> bool:
+    """Bit for bit (NaN included): arrays, or tuples of them."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(_same_bits, a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def store_zranges() -> list:
+    """(lows, highs, bits) of the three store queries' range
+    decompositions: per box, the z3 cube of each distinct (lo, hi)
+    offset key of its bins (the index's per-bin fan-out), or the z2
+    square of a query without time."""
+    from geomesa_tpu_torch.curves import timebin
+    from geomesa_tpu_torch.curves.sfc import z2sfc, z3sfc
+    sfc3, sfc2 = z3sfc("week"), z2sfc()
+    out = []
+    for _, boxes, iv in STORE_QUERIES:
+        keys = []
+        if iv is not None:
+            _, los, his = timebin.bins_of_interval(iv[0] + 1, iv[1] - 1,
+                                                   "week")
+            keys = sorted(set(zip(los.tolist(), his.tolist())))
+        for x0, y0, x1, y1 in boxes:
+            if iv is None:
+                out.append(((sfc2.lon.normalize(x0), sfc2.lat.normalize(y0)),
+                            (sfc2.lon.normalize(x1), sfc2.lat.normalize(y1)),
+                            31))
+            for lo, hi in keys:
+                out.append(((sfc3.lon.normalize(x0), sfc3.lat.normalize(y0),
+                             sfc3.time.normalize(lo)),
+                            (sfc3.lon.normalize(x1), sfc3.lat.normalize(y1),
+                             sfc3.time.normalize(hi)), 21))
+    return out
+
+
+def phase_native(ds, rows) -> dict:
+    """The native host paths on the store's columns, each against its
+    numpy plain twin (bit for bit), with the host-clock seconds of both;
+    then the sort-order builds and the first z3 query of a new index."""
+    import importlib
+    from geomesa_tpu_torch.curves import timebin
+    from geomesa_tpu_torch.curves.sfc import z2sfc, z3sfc
+    from geomesa_tpu_torch.index import zkeys
+    from geomesa_tpu_torch.utils.properties import HOST_RANGES_TARGET
+    zr = importlib.import_module("geomesa_tpu_torch.curves.zranges")
+    x, y, ms, _ = rows
+    paths, wrong = {}, []
+
+    def pair(name, fn, plain):
+        t0 = time.perf_counter()
+        got = fn()
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = plain()
+        plain_s = time.perf_counter() - t0
+        same = _same_bits(got, want)
+        paths[name] = {"native_s": native_s, "plain_s": plain_s,
+                       "equal": same}
+        if not same:
+            wrong.append(name)
+        return got
+
+    sfc = z3sfc("week")
+    _, offs = pair("to_binned_week",
+                   lambda: timebin.to_binned(ms, "week", lenient=True),
+                   lambda: timebin.to_binned_plain(ms, "week", lenient=True))
+    offs = offs.astype(np.float64)
+    pair("z3_encode", lambda: sfc.index(x, y, offs, lenient=True),
+         lambda: sfc.index_plain(x, y, offs, lenient=True))
+    z2 = pair("z2_encode", lambda: z2sfc().index(x, y, lenient=True),
+              lambda: z2sfc().index_plain(x, y, lenient=True))
+    bins, z = pair("encode_binned_z3",
+                   lambda: zkeys.encode_binned_z3(x, y, ms, "week"),
+                   lambda: zkeys.encode_binned_z3_plain(x, y, ms, "week"))
+    perm = pair("sort_bin_z", lambda: zkeys.sort_bin_z(bins, z),
+                lambda: zkeys.sort_bin_z_plain(bins, z))[1]
+    z2 = z2.astype(np.int64)
+    pair("sort_z", lambda: zkeys.sort_z(z2), lambda: zkeys.sort_z_plain(z2))
+    pair("gather_xyz", lambda: zkeys.gather_xyz(x, y, ms, perm),
+         lambda: zkeys.gather_xyz_plain(x, y, ms, perm))
+    del offs, z2, bins, z, perm
+    cubes = store_zranges()
+    mr = int(HOST_RANGES_TARGET.get())
+    pair("zranges", lambda: tuple(zr.zranges(lo, hi, b, max_ranges=mr)
+                                  for lo, hi, b in cubes),
+         lambda: tuple(zr.zranges_plain(lo, hi, b, max_ranges=mr)
+                       for lo, hi, b in cubes))
+    paths["zranges"]["decompositions"] = len(cubes)
+
+    # a new index's sort orders, and its first z3 query
+    north_iv = [(17_020 * MS_DAY + 1, 17_050 * MS_DAY - 1)]
+    t0 = time.perf_counter()
+    zi = zkeys.ZKeyIndex(x, y, ms, "week")
+    zi._build_z3()
+    z3_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    kind, got = zi.query_rows("z3", STORE_QUERIES[0][1], north_iv,
+                              2_000_000, len(x))
+    first_z3_s = time.perf_counter() - t0
+    query_s = time.perf_counter() - t1
+    t0 = time.perf_counter()
+    zi._build_z2()
+    z2_s = time.perf_counter() - t0
+    want = _brute(x, y, ms, STORE_QUERIES[0][1], STORE_QUERIES[0][2])
+    if kind != "exact" or not np.array_equal(got, want):
+        wrong.append("first_z3_query")
+    del zi
+    emit({"phase": "store_native", "rows": len(x), "paths": paths,
+          "z3_sort_order_s": z3_s, "first_z3_query_s": first_z3_s,
+          "first_z3_query_after_build_s": query_s, "z2_sort_order_s": z2_s,
+          "wrong": wrong})
+    if wrong:
+        raise SystemExit(f"native paths disagree with numpy: {wrong}")
+    return paths
+
+
+def phase_versions(ds, rows) -> dict:
+    """reindex the store's type to index version 1 (the legacy curve),
+    then back to 2, each timed; after each, the three store queries
+    id-exact against the f64 brute force, the z3 plan on the gathered
+    tier (host tier off, block cap the table)."""
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    host_rows = SystemProperty("geomesa.scan.host.rows")
+    threshold = SystemProperty("geomesa.scan.index.threshold")
+    x, y, ms, ids = rows
+    st = ds._types["ais"]
+    out, wrong = {}, []
+    host_rows.set("0")
+    threshold.set("1.0")
+    try:
+        for version in (1, None):
+            t0 = time.perf_counter()
+            ds.reindex("ais", version)
+            reindex_s = time.perf_counter() - t0
+            v = st.zindex.version
+            if v != (version or 2) or ds.get_schema("ais").index_version != v:
+                wrong.append(("version", version, v))
+            per_q = []
+            for ecql, boxes, iv in STORE_QUERIES:
+                want = _brute(x, y, ms, boxes, iv)
+                t0 = time.perf_counter()
+                res = ds.query(ecql, "ais")
+                res_ids = res.ids
+                first_ms = (time.perf_counter() - t0) * 1e3
+                gathered = "Index-pruned device scan" in res.explain.text
+                ok = (np.array_equal(res.rows, want)
+                      and np.array_equal(res_ids, ids[want])
+                      and ds.query_count(ecql, "ais") == len(want)
+                      and gathered and (iv is None or res.plan.index == "z3"))
+                per_q.append({"query": ecql, "strategy": res.plan.index,
+                              "gathered": gathered, "hits": len(want),
+                              "exact": bool(ok), "first_ms": first_ms})
+                if not ok:
+                    wrong.append((v, ecql))
+            out[f"v{v}"] = {"reindex_s": reindex_s, "queries": per_q}
+    finally:
+        host_rows.set(None)
+        threshold.set(None)
+    emit({"phase": "store_versions", "rows": len(x), **out, "wrong": wrong})
+    if wrong:
+        raise SystemExit(f"index versions: wrong results: {wrong}")
+    return out
+
+
+def _tube_brute(tables, cols, order, ms_sorted):
+    """The rows a tube's pairs hold, by the kernel's own compares in
+    numpy (two-float boxes, (day, ms) intervals), and by float64: each
+    pair's candidates are the rows whose millis lie in its interval
+    widened by 1 ms (a superset: the floor split orders (day, ms) as the
+    millis)."""
+    boxes, iv, bx, tm = tables
+    x, y, ms, xhi, xlo, yhi, ylo, tday, tms = cols
+
+    def ge2(h, lo, bh, bl):
+        return (h > bh) | ((h == bh) & (lo >= bl))
+
+    def le2(h, lo, bh, bl):
+        return (h < bh) | ((h == bh) & (lo <= bl))
+    two, f64 = [], []
+    for i in range(len(boxes)):
+        a = np.searchsorted(ms_sorted, iv[i, 0] - 1, side="left")
+        b = np.searchsorted(ms_sorted, iv[i, 1] + 1, side="right")
+        r = order[a:b]
+        d, m = tday[r], tms[r]
+        during = (((d > tm[i, 0]) | ((d == tm[i, 0]) & (m >= tm[i, 1])))
+                  & ((d < tm[i, 2]) | ((d == tm[i, 2]) & (m <= tm[i, 3]))))
+        inside = (ge2(xhi[r], xlo[r], bx[i, 0], bx[i, 1])
+                  & le2(xhi[r], xlo[r], bx[i, 2], bx[i, 3])
+                  & ge2(yhi[r], ylo[r], bx[i, 4], bx[i, 5])
+                  & le2(yhi[r], ylo[r], bx[i, 6], bx[i, 7]))
+        two.append(r[during & inside])
+        f64.append(r[(x[r] >= boxes[i, 0]) & (x[r] <= boxes[i, 2])
+                     & (y[r] >= boxes[i, 1]) & (y[r] <= boxes[i, 3])
+                     & (ms[r] >= iv[i, 0]) & (ms[r] <= iv[i, 1])])
+    return np.unique(np.concatenate(two)), np.unique(np.concatenate(f64))
+
+
+def phase_tube(seed: int, ds, rows) -> int:
+    """tube_select_process on the store: two vessels' AIS-like tracks of
+    1,440 fixes, one every 30 minutes over 30 days inside the store's
+    dates at about 12 knots, the second silent for 48 hours (the gap
+    fill), hourly bins, a 0.1 degree buffer; the ids held to a numpy
+    brute force of the kernel's compares, the rows where an f64 brute
+    force differs counted, p50 of 3 host-clock runs. Launch counts are
+    zeroed before the calls and read after: tube_mask must launch."""
+    from geomesa_tpu_torch.analytics import processes
+    from geomesa_tpu_torch.analytics.tube import TubeBuilder, tube_tables
+    from geomesa_tpu_torch.scan import kernels, zscan
+    x, y, ms, ids = rows
+    rng = np.random.default_rng(seed + 13)
+    t0_ms = (T0_DAY + 30) * MS_DAY
+    tracks = {
+        "continuous": ais_track(rng, 1440, t0_ms, HOUR_MS // 2, -150.0,
+                                10.0),
+        "gap_48h": ais_track(rng, 1440, t0_ms, HOUR_MS // 2, 20.0, -30.0,
+                             gap_at=720, gap_ms=48 * HOUR_MS)}
+    order = np.argsort(ms, kind="stable")
+    cols = (x, y, ms, *zscan.split_two_float(x), *zscan.split_two_float(y),
+            ms // MS_DAY, ms % MS_DAY)
+    ms_sorted = ms[order]
+    kernels.reset_launches()
+    out, wrong = {}, []
+    for name, (tx, ty, tms) in tracks.items():
+        runs, got = [], None
+        for _ in range(TUBE_RUNS):
+            t0 = time.perf_counter()
+            got = processes.tube_select_process(ds, "ais", tx, ty, tms, 0.1,
+                                                bin_millis=HOUR_MS)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        boxes, iv = TubeBuilder(0.1, HOUR_MS).build(tx, ty, tms)
+        want, f64 = _tube_brute((boxes, iv, *tube_tables(boxes, iv)), cols,
+                                order, ms_sorted)
+        ok = np.array_equal(got.astype(str), ids[want].astype(str))
+        out[name] = {"pairs": len(boxes), "hits": len(want),
+                     "exact": bool(ok), "differ_from_f64": int(
+                         len(np.setxor1d(want, f64))),
+                     "p50_ms": statistics.median(runs), "runs_ms": runs}
+        if not ok:
+            wrong.append(name)
+    launches = kernels.launches["tube_mask"]
+    emit({"phase": "store_tube", "rows": len(x), "tracks": out,
+          "launches": {"tube_mask": launches}, "wrong": wrong})
+    if wrong:
+        raise SystemExit(f"tube select: wrong ids: {wrong}")
+    if launches == 0:
+        raise SystemExit("tube_mask never launched on the tube select path")
+    return launches
+
+
+PLAIN_IDS = 100           # ids in the geometry-less phase's id query
+
+
+def phase_plain(d: dict, ids) -> int:
+    """A schema without a geometry: the predicates phase's GDELT-shaped
+    attribute columns as an event table keyed by its attributes (the
+    same rows, no geom), written through write(); an attr: query, an id
+    query and a fullscan whose residual runs residual_mask, each id-exact
+    against a numpy brute force, with its strategy and p50 of 3
+    host-clock runs. Launch counts are zeroed before the queries and read
+    after: residual_mask must launch."""
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import parse_spec
+    from geomesa_tpu_torch.scan import kernels
+    sft = parse_spec("events", PRED_SPEC.replace(",*geom:Point:srid=4326",
+                                                 ""))
+    full = predicate_batch(parse_spec("gdelt", PRED_SPEC), d, ids)
+    batch = FeatureBatch(sft, ids, {a.name: full.col(a.name)
+                                    for a in sft.attributes})
+    del full
+    ds = InMemoryDataStore()
+    ds.create_schema(sft)
+    t0 = time.perf_counter()
+    ds.write("events", batch)
+    write_s = time.perf_counter() - t0
+    code = int(np.searchsorted(d["ev_vocab"], "190"))
+    pick = np.random.default_rng(43).choice(len(ids), PLAIN_IDS,
+                                            replace=False)
+    in_ids = np.zeros(len(ids), dtype=bool)
+    in_ids[pick] = True
+    queries = [
+        ("attr_equality", "EventCode = '190'", d["ev"] == code, "attr:"),
+        ("id_in", "IN (" + ", ".join(f"'{i}'" for i in ids[pick]) + ")",
+         in_ids, "id"),
+        ("fullscan_residual", "AvgTone < -5 AND NumMentions >= 10",
+         (d["tone"] < -5) & (d["mentions"] >= 10) & d["mentions_valid"],
+         "fullscan"),
+    ]
+    kernels.reset_launches()
+    out, wrong = [], []
+    for name, ecql, mask, plan in queries:
+        runs = []
+        for _ in range(PRED_RUNS):
+            t0 = time.perf_counter()
+            res = ds.query(ecql, "events")
+            res.ids
+            runs.append((time.perf_counter() - t0) * 1e3)
+        want = np.flatnonzero(mask)
+        ok = (np.array_equal(res.rows, want)
+              and np.array_equal(res.ids, ids[want])
+              and ds.query_count(ecql, "events") == len(want)
+              and res.plan.index.startswith(plan))
+        if name == "fullscan_residual":
+            ok = ok and "Device residual scan (dense)" in res.explain.text
+        out.append({"query": name, "strategy": res.plan.index,
+                    "hits": len(want), "exact": bool(ok),
+                    "p50_ms": statistics.median(runs), "runs_ms": runs})
+        if not ok:
+            wrong.append(name)
+    launches = kernels.launches["residual_mask"]
+    ds.remove_schema("events")
+    emit({"phase": "geometry_less", "rows": len(ids), "reduced": None,
+          "write_s": write_s, "queries": out,
+          "launches": {"residual_mask": launches}, "wrong": wrong})
+    if wrong:
+        raise SystemExit(f"geometry-less store: wrong results: {wrong}")
+    if launches == 0:
+        raise SystemExit("residual_mask never launched on the geometry-less "
+                         "fullscan")
+    return launches
 
 
 def _ecql(boxes, iv) -> str:
@@ -3401,6 +3890,9 @@ def main():
     stats = phase_kernels(args.seed, args.rows)
     launches, ds, rows = phase_store(args.seed, args.store_rows,
                                      stats["scan_mask_gather"])
+    phase_native(ds, rows)
+    phase_versions(ds, rows)
+    launches["tube_mask"] = phase_tube(args.seed, ds, rows)
     batched = phase_batched(args.seed, ds, rows)
     for name in ("scan_batch_bits", "compact_prefix", "compact_bits"):
         launches[name] = batched[name]
@@ -3418,6 +3910,8 @@ def main():
     pred_stats.update(surf_stats)
     del pred_ds
     torch.cuda.empty_cache()
+    phase_plain(pred_data, rows[3])
+    del pred_data
     _, launches["extent_tristate"] = phase_extent(args.seed)
     torch.cuda.empty_cache()
     summary = []

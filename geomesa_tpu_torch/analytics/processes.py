@@ -2,11 +2,11 @@
 search, proximity search, unique values, min/max, tube select, each the
 WPS-process API shape minus GeoServer.
 
-The device joins run on the store's resident columns (its device) or,
-for a filtered subset, on the store's device. The geohash-spiral KNN
-and the geohash processes wait for the port's geohash module (ROADMAP.md
-section 6, queue 1 item 10); tube select waits for its paired kernel
-(queue 2 row K4). They raise NotImplementedError."""
+The device joins and tube select run on the store's resident columns
+(its device) or, for a filtered subset, on the store's device. The
+geohash-spiral KNN and the geohash processes wait for the port's geohash
+module (ROADMAP.md section 6, queue 1 item 10) and raise
+NotImplementedError."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from ..features.batch import PointColumn
 from ..index.api import Query
 from ..stats import EnumerationStat, MinMax
 from .join import contains_join, dwithin_join, knn, knn_batched
+from .tube import TubeBuilder, tube_select_mask
 
 
 __all__ = ["knn_process", "knn_batch_process", "contains_process",
@@ -245,9 +246,20 @@ def tube_select_process(store, type_name: str, track_x, track_y,
                         track_millis, buffer_deg: float,
                         bin_millis: int = 3_600_000, max_bins: int = 256):
     """TubeSelectProcess: features inside the space-time tube around the
-    track (analytics/tube.TubeBuilder's pairs). Its paired kernel is the
-    tube slice's."""
-    raise _later("tube select", "the tube slice, queue 2 row K4")
+    track (analytics/tube.TubeBuilder's pairs, evaluated by the tube
+    kernel on the store's resident columns). Returns matched feature
+    ids."""
+    st, col = _point_cols(store, type_name)
+    if col is None:
+        return np.empty(0, object)
+    st.ensure_index()
+    if st.scan_data is None:
+        raise TypeError("tube select requires a point-indexed store")
+    boxes, intervals = TubeBuilder(buffer_deg, bin_millis,
+                                   max_bins).build(track_x, track_y,
+                                                   track_millis)
+    mask = tube_select_mask(st.scan_data, boxes, intervals)
+    return st.batch.ids[np.flatnonzero(mask)]
 
 
 def sampling_process(store, type_name: str, ecql=None, rate: float = 0.1,

@@ -4,17 +4,21 @@
 The reference buffers and time-bins the input track (TubeBuilder:36,
 with line-gap interpolation) and issues one spatio-temporal query per
 bin. ``TubeBuilder`` makes those (bbox, time-interval) pairs on the
-host. Their device program (a row matches if it falls in box_i AND
-interval_i for some i; the JAX package's ``_tube_kernel``) is the next
-slice of the port (ROADMAP.md section 6, queue 2 row K4), so
-``tube_select_mask`` raises until then.
+host; ``tube_select_mask`` evaluates them in one pass of the tube kernel
+(``scan/kernels.tube_mask``, ``csrc/tube.cu``; the JAX package's
+``_tube_kernel``): a row matches if it falls in box_i AND interval_i for
+some pair i, by the scan's two-float and (day, ms) compares.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["TubeBuilder", "tube_select_mask"]
+from ..scan import kernels
+from ..scan.zscan import MILLIS_PER_DAY, split_two_float
+
+__all__ = ["TubeBuilder", "tube_select_mask", "tube_tables"]
 
 
 class TubeBuilder:
@@ -72,11 +76,35 @@ class TubeBuilder:
         return np.array(boxes, np.float64), np.array(intervals, np.int64)
 
 
-def tube_select_mask(data, boxes: np.ndarray,
-                     intervals: np.ndarray) -> np.ndarray:
-    """Tube membership of every row of ``data`` (a ScanData): the paired
-    (box, interval) kernel belongs to the tube slice."""
-    raise NotImplementedError(
-        "tube select's paired (box, interval) kernel is not in the "
-        "PyTorch port yet; it belongs to the tube slice (ROADMAP.md "
-        "section 6, queue 2 row K4)")
+def tube_tables(boxes, intervals) -> tuple[np.ndarray, np.ndarray]:
+    """The tube kernel's tables of K pairs: (K, 8) f32 two-float box
+    edges [xmin_hi, xmin_lo, xmax_hi, xmax_lo, ymin_hi, ymin_lo, ymax_hi,
+    ymax_lo] and (K, 4) int32 [day_lo, ms_lo, day_hi, ms_hi], the
+    inclusive millis split with floor division (a negative millis, before
+    1970, has a negative day and a non-negative ms)."""
+    boxes = np.asarray(boxes, dtype=np.float64).reshape(-1, 4)
+    iv = np.asarray(intervals, dtype=np.int64).reshape(-1, 2)
+    if len(boxes) != len(iv):
+        raise ValueError("one interval per box")
+    bx = np.empty((len(boxes), 8), dtype=np.float32)
+    for j, c in enumerate((0, 2, 1, 3)):   # xmin, xmax, ymin, ymax
+        bx[:, 2 * j], bx[:, 2 * j + 1] = split_two_float(boxes[:, c])
+    days = iv // MILLIS_PER_DAY
+    if len(iv) and (days.min() < -2**31 or days.max() >= 2**31):
+        raise ValueError("an interval's day falls outside int32")
+    tm = np.stack([days[:, 0], iv[:, 0] % MILLIS_PER_DAY,
+                   days[:, 1], iv[:, 1] % MILLIS_PER_DAY],
+                  axis=1).astype(np.int32)
+    return bx, tm
+
+
+def tube_select_mask(data, boxes, intervals) -> np.ndarray:
+    """Tube membership of the ``data.n`` rows of ``data`` (a ScanData),
+    as a host bool mask: the tube kernel over the columns on their
+    device, against the K (box, inclusive millis interval) pairs (any
+    order; K = 0 matches nothing). Capacity rows past n never match."""
+    bx, tm = tube_tables(boxes, intervals)
+    mask = kernels.tube_mask(data.cols, data.n,
+                             torch.from_numpy(bx).to(data.device),
+                             torch.from_numpy(tm).to(data.device))
+    return mask.cpu().numpy()

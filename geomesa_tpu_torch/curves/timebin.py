@@ -19,8 +19,10 @@ import enum
 
 import numpy as np
 
+from .. import native
+
 __all__ = ["TimePeriod", "max_offset", "max_date_millis", "to_binned",
-           "bins_of_interval"]
+           "to_binned_plain", "bins_of_interval", "NATIVE_BINNED_ROWS"]
 
 MILLIS_PER_DAY = 86_400_000
 MILLIS_PER_WEEK = 7 * MILLIS_PER_DAY
@@ -73,12 +75,45 @@ def max_date_millis(period: TimePeriod) -> int:
     return int(_epoch_ms(np.datetime64(n, "Y")))
 
 
+# a lenient 1-D column of at least this many DAY or WEEK millis is
+# binned by the native library (constant-divisor multiply-shift; numpy's
+# int64 division loops a scalar divide)
+NATIVE_BINNED_ROWS = 4096
+
+
 def to_binned(millis, period: TimePeriod, lenient: bool = False):
     """Vectorized epoch-millis -> (bins:int32, offsets:int64).
 
     Matches BinnedTime.scala to{Day,Week,Month,Year}And* semantics.
-    With ``lenient`` out-of-range values clamp instead of raising.
+    With ``lenient`` out-of-range values clamp instead of raising. A
+    lenient DAY or WEEK column of NATIVE_BINNED_ROWS or more runs the
+    native binning (``native/src/zbuild.cpp``); ``to_binned_plain`` is
+    its numpy twin, and the path of every other call.
     """
+    period = TimePeriod.parse(period)
+    millis = np.asarray(millis, dtype=np.int64)
+    if (lenient and period in (TimePeriod.DAY, TimePeriod.WEEK)
+            and millis.ndim == 1 and len(millis) >= NATIVE_BINNED_ROWS):
+        return _native_binned(millis, period)
+    return to_binned_plain(millis, period, lenient)
+
+
+def _native_binned(millis: np.ndarray, period: TimePeriod):
+    """(bins, offsets) of a 1-D DAY or WEEK column, clamped as lenient."""
+    millis = np.ascontiguousarray(millis, dtype=np.int64)
+    bins = np.empty(len(millis), dtype=np.int32)
+    offs = np.empty(len(millis), dtype=np.int64)
+    rc = native.library().geomesa_binned(
+        native.ptr(millis, native.I64P), len(millis),
+        0 if period is TimePeriod.DAY else 1,
+        native.ptr(bins, native.I32P), native.ptr(offs, native.I64P))
+    if rc != 0:
+        raise RuntimeError(f"geomesa_binned failed ({rc})")
+    return bins, offs
+
+
+def to_binned_plain(millis, period: TimePeriod, lenient: bool = False):
+    """``to_binned`` in numpy (the native binning's plain twin)."""
     period = TimePeriod.parse(period)
     millis = np.asarray(millis, dtype=np.int64)
     lo, hi = 0, max_date_millis(period)

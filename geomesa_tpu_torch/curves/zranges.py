@@ -7,19 +7,25 @@ decompose an axis-aligned box in normalized integer space into at most
 z key inside the box (over-approximation is allowed and expected — an
 exact filter always runs downstream).
 
-Implementation is a vectorized level-by-level BFS over z-prefix cells:
-at level L each cell is a 2^dims-ary hypercube of side 2^(maxbits-L);
+Implementation is a level-by-level BFS over z-prefix cells: at level L
+each cell is a 2^dims-ary hypercube of side 2^(maxbits-L);
 fully-contained cells emit their whole z interval, partially-overlapping
-cells split. All cell tests at one level run as single numpy array ops.
+cells split. ``zranges`` runs it in the native library
+(``native/src/zrange.cpp``); ``zranges_plain`` is its numpy twin, every
+cell test of a level one array op, and gives the same ranges bit for
+bit.
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
+from .. import native
 from . import zorder
 
-__all__ = ["zranges", "merge_ranges", "DEFAULT_MAX_RANGES"]
+__all__ = ["zranges", "zranges_plain", "merge_ranges", "DEFAULT_MAX_RANGES"]
 
 # the reference's `geomesa.scan.ranges.target` default (QueryProperties.scala:18)
 DEFAULT_MAX_RANGES = 2000
@@ -62,8 +68,43 @@ def _interleave(coords: np.ndarray, dims: int) -> np.ndarray:
     raise ValueError(f"unsupported dims: {dims}")
 
 
+# the native output buffer, reused per thread: concurrent store queries
+# must not write into one buffer
+_scratch = threading.local()
+
+
 def zranges(lows, highs, max_bits: int, *, precision: int = 64,
             max_ranges: int | None = None) -> np.ndarray:
+    """``zranges_plain``'s decomposition, run by the native library."""
+    lows = np.ascontiguousarray(lows, dtype=np.int64)
+    highs = np.ascontiguousarray(highs, dtype=np.int64)
+    dims = len(lows)
+    if max_ranges is None:
+        max_ranges = DEFAULT_MAX_RANGES
+    max_level = min(max_bits, max(1, precision // dims))
+    if np.any(highs < lows):
+        return np.empty((0, 2), dtype=np.int64)
+    if dims not in (2, 3) or len(highs) != dims:
+        raise ValueError(f"unsupported dims: {dims}")
+    lib = native.library()
+    # the budget lets the last level's partial cells through, so at most
+    # about 2 * max_ranges ranges come out; a larger buffer is a retry
+    cap = 4 * int(max_ranges) + 64
+    while True:
+        out = getattr(_scratch, "buf", None)
+        if out is None or len(out) < cap:
+            out = _scratch.buf = np.empty((cap, 2), dtype=np.int64)
+        n = lib.geomesa_zranges(
+            native.ptr(lows, native.I64P), native.ptr(highs, native.I64P),
+            dims, max_bits, max_level, int(max_ranges),
+            native.ptr(out, native.I64P), len(out))
+        if n >= 0:
+            return out[:n].copy()
+        cap = 4 * len(out)
+
+
+def zranges_plain(lows, highs, max_bits: int, *, precision: int = 64,
+                  max_ranges: int | None = None) -> np.ndarray:
     """Decompose box [lows[d], highs[d]] (inclusive, normalized-int space)
     into covering z ranges.
 

@@ -27,7 +27,8 @@ from typing import Any
 from ..curves.timebin import TimePeriod
 
 __all__ = ["AttributeType", "AttributeSpec", "SimpleFeatureType",
-           "parse_spec", "encode_spec", "Configs", "CURRENT_INDEX_VERSION"]
+           "parse_spec", "encode_spec", "Configs", "CURRENT_INDEX_VERSION",
+           "KNOWN_INDEX_VERSIONS", "check_index_version"]
 
 
 class Configs:
@@ -42,6 +43,20 @@ class Configs:
 
 # current z-index layout version (see SimpleFeatureType.index_version)
 CURRENT_INDEX_VERSION = 2
+# versions a store can read or migrate to (1 = the legacy z3 curve)
+KNOWN_INDEX_VERSIONS = frozenset({1, CURRENT_INDEX_VERSION})
+
+
+def check_index_version(to_version) -> int:
+    """A reindex target: None means the current version; an unknown
+    version raises ValueError."""
+    if to_version is None:
+        return CURRENT_INDEX_VERSION
+    v = int(to_version)
+    if v not in KNOWN_INDEX_VERSIONS:
+        raise ValueError(f"unknown index version {to_version}; "
+                         f"known: {sorted(KNOWN_INDEX_VERSIONS)}")
+    return v
 
 
 GEOMETRY_TYPES = {

@@ -12,21 +12,35 @@ host-side key array + permutation. Planning a query:
 
 The candidate set over-approximates the matches; either the host tier
 evaluates it exactly here, or the store's gathered device tier does.
-Sort orders build lazily per curve, with numpy (the native C++ sort and
-encode fast paths of the reference package are a later slice).
+Sort orders build lazily per curve, in the native host library
+(``native/src/zbuild.cpp``, ``zsort.cpp``): the fused clamp + bin + z3
+encode, a counting sort by bin with radix-sorted segments, and the
+sorted-order coordinate copies of the host tier (``gather_xyz``). Each
+has its numpy plain twin beside it (``*_plain``), equal bit for bit, tie
+order included.
+
+An index has a layout version: 1 sorts and prunes by the legacy z3
+curve (``curves/legacy.py``), 2 by the current one. The sort order and
+every query's ranges come from the same curve, or pruning would drop
+rows silently.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..curves import timebin
+from ..curves.legacy import legacy_z3sfc
 from ..curves.sfc import z2sfc, z3sfc
 from ..curves.timebin import TimePeriod
 from ..utils.properties import HOST_RANGES_TARGET, SystemProperty
 
 __all__ = ["ZKeyIndex", "multi_arange", "search_rows", "prune_candidates",
-           "binned_candidate_positions", "SCAN_BLOCK_THRESHOLD"]
+           "binned_candidate_positions", "SCAN_BLOCK_THRESHOLD",
+           "encode_binned_z3", "encode_binned_z3_plain", "sort_bin_z",
+           "sort_bin_z_plain", "sort_z", "sort_z_plain", "gather_xyz",
+           "gather_xyz_plain"]
 
 # candidate-fraction above which an indexed scan falls back to the dense
 # full-batch kernel (gather cost crossover)
@@ -50,6 +64,173 @@ def multi_arange(starts: np.ndarray, stops: np.ndarray) -> np.ndarray:
     out[0] = starts[0]
     out[ends[:-1]] = starts[1:] - (starts[:-1] + counts[:-1] - 1)
     return np.cumsum(out)
+
+
+# -- native build paths and their plain twins -------------------------------
+
+_PERIOD_CODE = {TimePeriod.DAY: 0, TimePeriod.WEEK: 1}
+_EDGE_CACHE: dict = {}  # period -> int64 bin-edge epoch millis
+
+
+def _bin_edges(period: TimePeriod) -> np.ndarray:
+    """Epoch millis of every MONTH or YEAR bin's first instant, one past
+    the last indexable bin included (computed once, 262 KB)."""
+    if period not in _EDGE_CACHE:
+        unit = "M" if period is TimePeriod.MONTH else "Y"
+        grid = np.arange(0, timebin.MAX_BIN + 2).astype(f"datetime64[{unit}]")
+        _EDGE_CACHE[period] = grid.astype("datetime64[ms]").astype(np.int64)
+    return _EDGE_CACHE[period]
+
+
+def _raise_rc(rc: int, name: str):
+    if rc != 0:
+        raise ValueError(f"{name} refused its inputs ({rc})")
+
+
+def encode_binned_z3(x, y, millis, period):
+    """(bins int32, z int64) of the current z3 curve in one native pass:
+    the lenient clamp, the bin split and the encode, fused. DAY and WEEK
+    split by constant divisors; MONTH and YEAR search a table of bin
+    edges."""
+    period = TimePeriod.parse(period)
+    x = np.ascontiguousarray(x, dtype=np.float64)
+    y = np.ascontiguousarray(y, dtype=np.float64)
+    millis = np.ascontiguousarray(millis, dtype=np.int64)
+    n = len(x)
+    if x.ndim != 1 or y.shape != (n,) or millis.shape != (n,):
+        raise ValueError("x, y and millis must be 1-d of one length")
+    bins = np.empty(n, dtype=np.int32)
+    z = np.empty(n, dtype=np.int64)
+    if n == 0:
+        return bins, z
+    lib = native.library()
+    t_max = float(z3sfc(period).time.max)
+    args = (native.ptr(x, native.F64P), native.ptr(y, native.F64P),
+            native.ptr(millis, native.I64P), n)
+    out = (native.ptr(bins, native.I32P), native.ptr(z, native.I64P))
+    code = _PERIOD_CODE.get(period)
+    if code is not None:
+        rc = lib.geomesa_encode_binned_z3(*args, code, t_max, *out)
+    else:
+        edges = _bin_edges(period)
+        off_div = 1000 if period is TimePeriod.MONTH else 60_000
+        rc = lib.geomesa_encode_binned_z3_edges(
+            *args, native.ptr(edges, native.I64P), len(edges) - 1, off_div,
+            t_max, *out)
+    _raise_rc(rc, "geomesa_encode_binned_z3")
+    return bins, z
+
+
+def encode_binned_z3_plain(x, y, millis, period):
+    """``encode_binned_z3`` in numpy: to_binned, then the lenient z3."""
+    bins, offs = timebin.to_binned_plain(millis, period, lenient=True)
+    z = z3sfc(period).index_plain(x, y, offs.astype(np.float64),
+                                  lenient=True).astype(np.int64)
+    return bins, z
+
+
+def _check_keys(z: np.ndarray):
+    if len(z) and int(z.min()) < 0:
+        raise ValueError("z-order keys are non-negative")
+
+
+def sort_bin_z(bins, z):
+    """(z_sorted, perm int32, ubins, seg_offsets): the rows ordered by
+    (bin, z, row), as np.lexsort((z, bins)) orders them; ubins are the
+    bins present and seg_offsets their segments' bounds in that order.
+    Natively: a counting sort by bin, then each bin's segment radix
+    sorted, on as many threads as the rows are worth."""
+    bins = np.ascontiguousarray(bins, dtype=np.int32)
+    z = np.ascontiguousarray(z, dtype=np.int64)
+    n = len(z)
+    if bins.shape != (n,) or n >= 2**31:
+        raise ValueError("bins and z must be 1-d of one length under 2^31")
+    if n == 0:
+        return (z.copy(), np.empty(0, np.int32), bins.copy(),
+                np.zeros(1, np.int64))
+    _check_keys(z)
+    max_bin = int(bins.max())
+    perm = np.empty(n, dtype=np.int32)
+    z_sorted = np.empty(n, dtype=np.int64)
+    offsets = np.empty(max_bin + 2, dtype=np.int64)
+    rc = native.library().geomesa_sort_bin_z(
+        native.ptr(bins, native.I32P), native.ptr(z, native.I64P), n,
+        max_bin, native.ptr(perm, native.I32P),
+        native.ptr(z_sorted, native.I64P), native.ptr(offsets, native.I64P))
+    _raise_rc(rc, "geomesa_sort_bin_z (a bin outside [0, 2^20]?)")
+    # the counting sort's prefix sums give the segments without a pass
+    present = np.diff(offsets) > 0
+    ubins = np.flatnonzero(present).astype(np.int32)
+    return z_sorted, perm, ubins, np.append(offsets[:-1][present], n)
+
+
+def sort_bin_z_plain(bins, z):
+    """``sort_bin_z`` in numpy (np.lexsort, then np.unique)."""
+    bins = np.asarray(bins, dtype=np.int32)
+    z = np.asarray(z, dtype=np.int64)
+    perm = np.lexsort((z, bins)).astype(np.int32)
+    ubins, seg_starts = np.unique(bins[perm], return_index=True)
+    return z[perm], perm, ubins, np.append(seg_starts, len(z))
+
+
+def sort_z(z):
+    """(z_sorted, perm int32): the rows ordered by (z, row), as a stable
+    argsort orders them. Natively: one MSD pass, then radix-sorted
+    buckets."""
+    z = np.ascontiguousarray(z, dtype=np.int64)
+    n = len(z)
+    if z.ndim != 1 or n >= 2**31:
+        raise ValueError("z must be 1-d, under 2^31 rows")
+    if n == 0:
+        return z.copy(), np.empty(0, np.int32)
+    _check_keys(z)
+    perm = np.empty(n, dtype=np.int32)
+    z_sorted = np.empty(n, dtype=np.int64)
+    rc = native.library().geomesa_sort_z(
+        native.ptr(z, native.I64P), n, native.ptr(perm, native.I32P),
+        native.ptr(z_sorted, native.I64P))
+    _raise_rc(rc, "geomesa_sort_z")
+    return z_sorted, perm
+
+
+def sort_z_plain(z):
+    """``sort_z`` in numpy (a stable argsort)."""
+    z = np.asarray(z, dtype=np.int64)
+    perm = np.argsort(z, kind="stable").astype(np.int32)
+    return z[perm], perm
+
+
+def gather_xyz(x, y, ms, perm):
+    """(x[perm], y[perm], ms[perm] or None) in one threaded native pass:
+    perm read once a row, the outputs written in order."""
+    x = np.ascontiguousarray(x, dtype=np.float64)
+    y = np.ascontiguousarray(y, dtype=np.float64)
+    if ms is not None:
+        ms = np.ascontiguousarray(ms, dtype=np.int64)
+    perm = np.ascontiguousarray(perm)
+    n = len(perm)
+    if (perm.dtype != np.int32 or perm.ndim != 1 or y.shape != x.shape
+            or (ms is not None and ms.shape != x.shape)):
+        raise ValueError("perm must be 1-d int32, x, y (and ms) of one "
+                         "length")
+    if n and (int(perm.min()) < 0 or int(perm.max()) >= len(x)):
+        raise ValueError("perm holds a row outside the columns")
+    xo = np.empty(n, dtype=np.float64)
+    yo = np.empty(n, dtype=np.float64)
+    mo = None if ms is None else np.empty(n, dtype=np.int64)
+    rc = native.library().geomesa_gather_xyz(
+        native.ptr(x, native.F64P), native.ptr(y, native.F64P),
+        native.ptr(ms, native.I64P), native.ptr(perm, native.I32P), n,
+        native.ptr(xo, native.F64P), native.ptr(yo, native.F64P),
+        native.ptr(mo, native.I64P))
+    _raise_rc(rc, "geomesa_gather_xyz")
+    return xo, yo, mo
+
+
+def gather_xyz_plain(x, y, ms, perm):
+    """``gather_xyz`` in numpy (three fancy-index gathers)."""
+    return (np.asarray(x, np.float64)[perm], np.asarray(y, np.float64)[perm],
+            None if ms is None else np.asarray(ms, np.int64)[perm])
 
 
 def binned_candidate_positions(ubins, seg_offsets, keys_sorted,
@@ -151,89 +332,143 @@ class ZKeyIndex:
     """Sorted (bin, z3) and z2 key orders over point columns.
 
     Parameters are host arrays in insertion order; ``millis`` may be
-    None for a time-less schema (z2 only).
+    None for a time-less schema (z2 only). ``version`` is the layout:
+    1 = the legacy z3 curve, 2 = the current one.
     """
+
+    # exact-tier queries per curve before the sorted-order coordinate
+    # copies are worth their full-table gathers: the first query answers
+    # from a gather of its candidates, a repeat builds the copies
+    _COORDS_AFTER = 1
 
     def __init__(self, x: np.ndarray, y: np.ndarray,
                  millis: np.ndarray | None,
-                 period: TimePeriod | str = TimePeriod.WEEK):
+                 period: TimePeriod | str = TimePeriod.WEEK,
+                 version: int = 2):
         self._x = np.asarray(x, dtype=np.float64)
         self._y = np.asarray(y, dtype=np.float64)
         self._millis = (None if millis is None
                         else np.asarray(millis, dtype=np.int64))
         self.period = TimePeriod.parse(period)
+        self.version = int(version)
         self.n = len(self._x)
         if self.n >= 2**31:
             raise ValueError("a single table holds fewer than 2^31 rows")
         self._z3 = None  # (ubins, seg_offsets, z_sorted, perm)
         self._z2 = None  # (z_sorted, perm)
+        # the coordinates in each sort order: a query's candidate
+        # positions are runs of the order, so its exact test reads them
+        # in sequence instead of gathering from the insertion order
+        self._z3_coords = None  # (xs, ys, ms)
+        self._z2_coords = None  # (xs, ys, None)
+        self._z3_uses = 0       # exact-tier queries served per curve
+        self._z2_uses = 0
 
     # -- build -------------------------------------------------------------
+
+    def _sfc3(self):
+        """The z3 curve of this index's layout version."""
+        if self.version == 1:
+            return legacy_z3sfc(self.period)
+        return z3sfc(self.period)
+
+    def _keys3(self, x, y, millis):
+        """(bins, z) of rows under this index's z3 curve."""
+        if self.version != 1:
+            return encode_binned_z3(x, y, millis, self.period)
+        # the fused native encode implements only the current curve
+        bins, offs = timebin.to_binned(millis, self.period, lenient=True)
+        z = self._sfc3().index(x, y, offs.astype(np.float64),
+                               lenient=True).astype(np.int64)
+        return bins, z
 
     def _build_z3(self):
         if self._z3 is not None or self._millis is None:
             return self._z3
-        bins, offs = timebin.to_binned(self._millis, self.period,
-                                       lenient=True)
-        z = z3sfc(self.period).index(self._x, self._y,
-                                     offs.astype(np.float64),
-                                     lenient=True).astype(np.int64)
-        perm = np.lexsort((z, bins)).astype(np.int32)
-        bins_sorted = bins[perm]
-        z_sorted = z[perm]
-        ubins, seg_starts = np.unique(bins_sorted, return_index=True)
-        self._z3 = (ubins, np.append(seg_starts, self.n), z_sorted, perm)
+        bins, z = self._keys3(self._x, self._y, self._millis)
+        z_sorted, perm, ubins, seg_offsets = sort_bin_z(bins, z)
+        self._z3 = (ubins, seg_offsets, z_sorted, perm)
         return self._z3
 
     def _build_z2(self):
         if self._z2 is None:
             z = z2sfc().index(self._x, self._y,
                               lenient=True).astype(np.int64)
-            perm = np.argsort(z, kind="stable").astype(np.int32)
-            self._z2 = (z[perm], perm)
+            self._z2 = sort_z(z)
         return self._z2
+
+    def _coords(self, use_z3: bool, perm: np.ndarray):
+        """The sorted-order coordinate copies of a curve once it has
+        served _COORDS_AFTER exact queries, else None."""
+        if use_z3:
+            self._z3_uses += 1
+            if self._z3_coords is None and self._z3_uses > self._COORDS_AFTER:
+                self._z3_coords = gather_xyz(self._x, self._y, self._millis,
+                                             perm)
+            return self._z3_coords
+        self._z2_uses += 1
+        if self._z2_coords is None and self._z2_uses > self._COORDS_AFTER:
+            self._z2_coords = gather_xyz(self._x, self._y, None, perm)
+        return self._z2_coords
+
+    def with_version(self, version: int) -> "ZKeyIndex":
+        """New index over the same rows at layout ``version``, its z3
+        order built under that version's curve; the z2 order and its
+        coordinate copies carry over (the z2 curve has one version)."""
+        out = ZKeyIndex(self._x, self._y, self._millis, self.period,
+                        version=version)
+        out._z2, out._z2_coords = self._z2, self._z2_coords
+        out._build_z3()
+        return out
 
     # -- incremental maintenance -------------------------------------------
 
     def extend(self, x: np.ndarray, y: np.ndarray,
                millis: np.ndarray | None) -> "ZKeyIndex":
         """New index covering the existing rows plus appended rows, with
-        already-built sort orders MERGED (sorted-run merge: O(N) memcpy
-        + O(D log D) delta sort) instead of re-sorted from scratch."""
+        already-built sort orders (and coordinate copies) MERGED (O(N)
+        memcpy + O(D log D) delta sort) instead of re-sorted from
+        scratch."""
         if (self._millis is None) != (millis is None):
             raise ValueError("time column presence must match")
+        x = np.asarray(x, dtype=np.float64)
+        y = np.asarray(y, dtype=np.float64)
         out = ZKeyIndex(
-            np.concatenate([self._x, np.asarray(x, dtype=np.float64)]),
-            np.concatenate([self._y, np.asarray(y, dtype=np.float64)]),
+            np.concatenate([self._x, x]), np.concatenate([self._y, y]),
             None if millis is None else np.concatenate(
                 [self._millis, np.asarray(millis, dtype=np.int64)]),
-            self.period)
+            self.period, self.version)
+        out._z3_uses, out._z2_uses = self._z3_uses, self._z2_uses
         if self._z3 is not None:
-            out._z3 = self._merged_z3(x, y, millis)
+            out._z3, out._z3_coords = self._merged_z3(x, y, millis)
         if self._z2 is not None:
-            out._z2 = self._merged_z2(x, y)
+            out._z2, out._z2_coords = self._merged_z2(x, y)
         return out
+
+    @staticmethod
+    def _merged_coords(coords, pos, dorder, x, y, millis):
+        if coords is None:
+            return None
+        xs, ys, ms = coords
+        return (np.insert(xs, pos, x[dorder]), np.insert(ys, pos, y[dorder]),
+                None if ms is None else np.insert(ms, pos, millis[dorder]))
 
     def _merged_z2(self, x, y):
         z_sorted, perm = self._z2
-        dz = z2sfc().index(np.asarray(x, dtype=np.float64),
-                           np.asarray(y, dtype=np.float64),
-                           lenient=True).astype(np.int64)
+        dz = z2sfc().index(x, y, lenient=True).astype(np.int64)
         dorder = np.argsort(dz, kind="stable")
         dzs = dz[dorder]
         # side="right": appended rows land after equal existing keys,
         # preserving stable insertion order
         pos = np.searchsorted(z_sorted, dzs, side="right")
-        return (np.insert(z_sorted, pos, dzs),
-                np.insert(perm, pos, (dorder + self.n).astype(perm.dtype)))
+        return ((np.insert(z_sorted, pos, dzs),
+                 np.insert(perm, pos, (dorder + self.n).astype(perm.dtype))),
+                self._merged_coords(self._z2_coords, pos, dorder, x, y, None))
 
     def _merged_z3(self, x, y, millis):
         ubins, seg_offsets, z_sorted, perm = self._z3
-        dbins, doffs = timebin.to_binned(np.asarray(millis, dtype=np.int64),
-                                         self.period, lenient=True)
-        dz = z3sfc(self.period).index(
-            np.asarray(x, dtype=np.float64), np.asarray(y, dtype=np.float64),
-            doffs.astype(np.float64), lenient=True).astype(np.int64)
+        millis = np.asarray(millis, dtype=np.int64)
+        dbins, dz = self._keys3(x, y, millis)
         dorder = np.lexsort((dz, dbins))
         dbs, dzs = dbins[dorder], dz[dorder]
         pos = np.empty(len(dbs), dtype=np.int64)
@@ -253,27 +488,26 @@ class ZKeyIndex:
         # new_bins is sorted: segment bounds from value changes
         steps = np.flatnonzero(new_bins[1:] != new_bins[:-1]) + 1
         seg_starts = np.concatenate([[0], steps])
-        return (new_bins[seg_starts], np.append(seg_starts, len(new_bins)),
-                np.insert(z_sorted, pos, dzs),
-                np.insert(perm, pos, (dorder + self.n).astype(perm.dtype)))
+        return ((new_bins[seg_starts], np.append(seg_starts, len(new_bins)),
+                 np.insert(z_sorted, pos, dzs),
+                 np.insert(perm, pos, (dorder + self.n).astype(perm.dtype))),
+                self._merged_coords(self._z3_coords, pos, dorder, x, y,
+                                    millis))
 
     # -- search ------------------------------------------------------------
 
-    def _eval_rows(self, rows, boxes, intervals_ms) -> np.ndarray:
-        """Exact f64 evaluation over original-order rows; identical
-        semantics to zscan.exact_patch (inclusive box bounds, inclusive
-        [lo, hi] millis intervals). Returns keep mask over rows."""
-        x = self._x[rows]
-        y = self._y[rows]
-        keep = np.zeros(len(rows), dtype=bool)
+    @staticmethod
+    def _keep(x, y, ms, boxes, intervals_ms) -> np.ndarray:
+        """Exact f64 evaluation; identical semantics to zscan.exact_patch
+        (inclusive box bounds, inclusive [lo, hi] millis intervals)."""
+        keep = np.zeros(len(x), dtype=bool)
         for xmin, ymin, xmax, ymax in boxes:
             keep |= ((x >= xmin) & (x <= xmax)
                      & (y >= ymin) & (y <= ymax))
         if intervals_ms:
-            m = self._millis[rows]
-            tk = np.zeros(len(rows), dtype=bool)
+            tk = np.zeros(len(x), dtype=bool)
             for lo, hi in intervals_ms:
-                tk |= (m >= lo) & (m <= hi)
+                tk |= (ms >= lo) & (ms <= hi)
             keep &= tk
         return keep
 
@@ -296,7 +530,7 @@ class ZKeyIndex:
             if built is None:
                 return None, None
             ubins, seg_offsets, z_sorted, perm = built
-            sfc = z3sfc(self.period)
+            sfc = self._sfc3()
             pos = binned_candidate_positions(
                 ubins, seg_offsets, z_sorted, intervals_ms, self.period,
                 lambda key: sfc.ranges(boxes, [key], max_ranges=max_ranges),
@@ -316,5 +550,12 @@ class ZKeyIndex:
         rows = perm[pos]
         if not exact_ok or (host_cap is not None and len(pos) > host_cap):
             return "candidates", rows
-        keep = self._eval_rows(rows, boxes, intervals_ms if use_z3 else [])
+        coords = self._coords(use_z3, perm)
+        if coords is not None:
+            x, y = coords[0][pos], coords[1][pos]
+            ms = coords[2][pos] if use_z3 else None
+        else:
+            x, y = self._x[rows], self._y[rows]
+            ms = self._millis[rows] if use_z3 else None
+        keep = self._keep(x, y, ms, boxes, intervals_ms if use_z3 else [])
         return "exact", np.sort(rows[keep]).astype(np.int64)

@@ -1,9 +1,10 @@
 """The port's kernels: wrappers, launch counts and plain versions.
 
-Fourteen kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
+Fifteen kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
 ``csrc/batch.cu``, ``csrc/geom.cu``, ``csrc/residual.cu``,
-``csrc/density.cu``, ``csrc/extent.cu`` and ``csrc/join.cu`` (see the
-notes at their heads for what they replace and what bounds them):
+``csrc/density.cu``, ``csrc/extent.cu``, ``csrc/join.cu`` and
+``csrc/tube.cu`` (see the notes at their heads for what they replace and
+what bounds them):
 
 - ``scan_mask``: the dense tier, bool[cap] over every row;
 - ``scan_mask_gather``: the gathered tier, bool[m] over rows ``idx``
@@ -59,6 +60,9 @@ notes at their heads for what they replace and what bounds them):
   lexicographic order: a sample pass seeds a bound a query, chunks of
   rows are each read once for a group of queries, then each query's
   kept keys are sorted (``knn_plan``).
+- ``tube_mask``: per row, whether some pair i of a tube's (box, interval)
+  pairs holds it in box_i AND interval_i (``analytics/tube.py``), by a
+  search over the pairs sorted by their intervals (``tube_pairs``).
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device; for ``residual_mask``, its columns). On
@@ -115,12 +119,13 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "sorted_by_x", "TileLists", "tile_lists", "dwithin_slabs",
            "dwithin_counts_tiles_plain", "contains_rows_items",
            "contains_counts_tiles_plain", "slab_pairs_tiles_plain",
-           "knn_plan", "knn_topk_blocks_plain"]
+           "knn_plan", "knn_topk_blocks_plain", "tube_mask", "tube_mask_plain",
+           "tube_pairs", "tube_mask_search_plain", "TUBE_CHUNK"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
             for f in ("scan.cu", "batch.cu", "geom.cu", "residual.cu",
-                      "density.cu", "extent.cu", "join.cu")]
+                      "density.cu", "extent.cu", "join.cu", "tube.cu")]
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -145,7 +150,7 @@ launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0,
             "scan_batch_bits": 0, "compact_prefix": 0, "compact_bits": 0,
             "pip_mask": 0, "residual_mask": 0, "density_grid": 0,
             "extent_tristate": 0, "dwithin_counts": 0, "slab_pairs": 0,
-            "contains_counts": 0, "knn_topk": 0}
+            "contains_counts": 0, "knn_topk": 0, "tube_mask": 0}
 
 
 def reset_launches():
@@ -412,6 +417,9 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_knn_plan.argtypes = [i64, i32, i32, p]
             lib.geomesa_knn_topk.argtypes = [p, p, i64, p, p, i64, i32, i32,
                                              p, p, p, p, p, p, p, p, p, p]
+            lib.geomesa_tube_mask.argtypes = cols + [i64, p, p, p, p, i32, p,
+                                                     p]
+            lib.geomesa_tube_constant.argtypes = [i32]
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
                        lib.geomesa_compact_prefix, lib.geomesa_compact_bits,
@@ -424,7 +432,8 @@ def _library() -> ctypes.CDLL:
                        lib.geomesa_dwithin_counts, lib.geomesa_slab_counts,
                        lib.geomesa_slab_write, lib.geomesa_contains_counts,
                        lib.geomesa_contains_band_rows, lib.geomesa_knn_plan,
-                       lib.geomesa_knn_topk):
+                       lib.geomesa_knn_topk, lib.geomesa_tube_mask,
+                       lib.geomesa_tube_constant):
                 fn.restype = ctypes.c_int
             if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
                     or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP
@@ -443,6 +452,9 @@ def _library() -> ctypes.CDLL:
                 raise RuntimeError("csrc/join.cu and kernels.py disagree on "
                                    "the join kernels' tiles, groups and "
                                    "windows")
+            if lib.geomesa_tube_constant(0) != TUBE_CHUNK:
+                raise RuntimeError("csrc/tube.cu and kernels.py disagree on "
+                                   "the pairs staged at once")
             _lib["lib"] = lib
         return _lib["lib"]
 
@@ -2218,3 +2230,127 @@ def knn_topk(px, py, qx, qy, kpad: int, nrows: int):
     _raise_on(rc, "knn_topk")
     launches["knn_topk"] += plan[9]
     return d2, idx
+
+
+# -- tube select (csrc/tube.cu) ----------------------------------------------
+
+# pairs the tube kernel stages in shared memory at once
+TUBE_CHUNK = 768
+
+# (rows, pairs) elements per chunk of the plain version
+_TUBE_PLAIN_ELEMS = 1 << 26
+
+
+def _check_tube(cols, n: int, boxes, times) -> int:
+    _check_cols(cols, n)
+    if (boxes.dtype != torch.float32 or boxes.dim() != 2
+            or boxes.shape[1] != 8 or not boxes.is_contiguous()):
+        raise ValueError("boxes must be a contiguous (K, 8) float32 table")
+    if (times.dtype != torch.int32 or times.dim() != 2
+            or times.shape[1] != 4 or not times.is_contiguous()):
+        raise ValueError("times must be a contiguous (K, 4) int32 table")
+    if boxes.shape[0] != times.shape[0]:
+        raise ValueError("boxes and times must hold the same K pairs")
+    return boxes.shape[0]
+
+
+def tube_mask_plain(cols, n: int, boxes, times):
+    """bool[n]: a port of _tube_kernel in torch ops, over chunks of rows
+    against every pair: row r matches when, for some pair i, its
+    two-float (x, y) lies in box i ([xmin_hi, xmin_lo, xmax_hi, xmax_lo,
+    ymin_hi, ymin_lo, ymax_hi, ymax_lo]) AND its (day, ms) in interval i
+    ([day_lo, ms_lo, day_hi, ms_hi]), edges inclusive."""
+    k = boxes.shape[0]
+    out = torch.zeros(n, dtype=torch.bool, device=cols[0].device)
+    if k == 0:
+        return out
+    b, t = boxes[None, :, :], times[None, :, :]
+    step = max(1, _TUBE_PLAIN_ELEMS // k)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        xh, xl, yh, yl, td, tm = (c[lo:hi, None] for c in cols)
+        box = (_ge2(xh, xl, b[..., 0], b[..., 1])
+               & _le2(xh, xl, b[..., 2], b[..., 3])
+               & _ge2(yh, yl, b[..., 4], b[..., 5])
+               & _le2(yh, yl, b[..., 6], b[..., 7]))
+        during = (((td > t[..., 0]) | ((td == t[..., 0]) & (tm >= t[..., 1])))
+                  & ((td < t[..., 2])
+                     | ((td == t[..., 2]) & (tm <= t[..., 3]))))
+        out[lo:hi] = (box & during).any(dim=1)
+    return out
+
+
+def _time_keys(day, ms):
+    """int64 keys whose order is the lexicographic (day, ms) order of any
+    int32 words: day * 2^32 + (ms + 2^31)."""
+    return day.to(torch.int64) * (1 << 32) + (ms.to(torch.int64) + (1 << 31))
+
+
+def tube_pairs(boxes, times):
+    """The tube kernel's pair tables, on the tables' device: the pairs
+    sorted by their interval's lo key (stable), as (lo, pm, hi) int64[K]
+    keys, pm the running max of hi, and the (K, 8) f32 boxes in that
+    order. A row of key t can match only the pairs at or before the last
+    lo <= t and from the first pm >= t on."""
+    lo = _time_keys(times[:, 0], times[:, 1])
+    order = torch.sort(lo, stable=True).indices
+    hi = _time_keys(times[:, 2], times[:, 3])[order]
+    return (lo[order].contiguous(), torch.cummax(hi, dim=0).values,
+            hi.contiguous(), boxes[order].contiguous())
+
+
+def tube_mask_search_plain(cols, n: int, lo, pm, hi, boxes,
+                           chunk: int = TUBE_CHUNK):
+    """bool[n]: the tube kernel's search in torch ops, over the sorted
+    tables of ``tube_pairs``, a chunk of ``chunk`` pairs at a time as the
+    kernel stages them: in each chunk a row still open is decided
+    (no match) when the chunk's first lo passes its key; else, when the
+    chunk's last pm reaches it, it tests the pairs from its last lo <= t
+    back while pm >= t. Tests only; ``tube_mask_plain`` is the version
+    the CPU wrapper runs."""
+    t = _time_keys(cols[4][:n], cols[5][:n])
+    hit = torch.zeros(n, dtype=torch.bool, device=t.device)
+    open_ = torch.ones(n, dtype=torch.bool, device=t.device)
+    for c0 in range(0, lo.shape[0], chunk):
+        c1 = min(lo.shape[0], c0 + chunk)
+        open_ &= lo[c0] <= t
+        rows = torch.nonzero(open_ & (pm[c1 - 1] >= t)).flatten()
+        # the next pair to test, walking back: the last lo <= t
+        i = torch.searchsorted(lo[c0:c1], t[rows], right=True) - 1 + c0
+        while True:
+            live = (i >= c0) & (pm[i.clamp(min=c0)] >= t[rows])
+            rows, i = rows[live], i[live]
+            if not rows.numel():
+                break
+            b = boxes[i]
+            x = (cols[0][rows], cols[1][rows], cols[2][rows], cols[3][rows])
+            m = ((hi[i] >= t[rows]) & _ge2(x[0], x[1], b[:, 0], b[:, 1])
+                 & _le2(x[0], x[1], b[:, 2], b[:, 3])
+                 & _ge2(x[2], x[3], b[:, 4], b[:, 5])
+                 & _le2(x[2], x[3], b[:, 6], b[:, 7]))
+            hit[rows[m]] = True
+            open_[rows[m]] = False
+            rows, i = rows[~m], i[~m] - 1
+    return hit
+
+
+def tube_mask(cols, n: int, boxes, times):
+    """bool[n] on the columns' device: for each of the first n rows of
+    the scan columns (xhi, xlo, yhi, ylo, tday, tms), whether some pair i
+    of the (K, 8) f32 ``boxes`` and (K, 4) int32 ``times`` holds it in
+    box i AND interval i (both tables on the columns' device; any K, in
+    any order, intervals overlapping or not; K = 0 matches nothing)."""
+    k = _check_tube(cols, n, boxes, times)
+    if _on_cpu(cols, boxes, times):
+        return tube_mask_plain(cols, n, boxes, times)
+    out = torch.zeros(n, dtype=torch.bool, device=cols[0].device)
+    if n == 0 or k == 0:
+        return out
+    lo, pm, hi, bx = tube_pairs(boxes, times)
+    rc = _library().geomesa_tube_mask(
+        *_ptrs(cols), n, lo.data_ptr(), pm.data_ptr(), hi.data_ptr(),
+        bx.data_ptr(), k, out.data_ptr(),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _raise_on(rc, "tube_mask")
+    launches["tube_mask"] += 1
+    return out

@@ -60,6 +60,11 @@ the GPU.
     delete(ids)  -> the rows dropped; the device columns, z-index and
                     attribute indexes rebuild on the next read; the
                     stats stay as they were until analyze()
+    reindex(type_name, to_version=None)
+                 -> a point schema's z-key sort orders rebuilt under the
+                    z3 curve of the index version (1: the legacy curve,
+                    2: the current one), then swapped in at once; the
+                    old index serves every query until then
     remove_schema
                  -> the type, its stats and its device memory released
 
@@ -73,18 +78,22 @@ type is costed from its own rows only (ROADMAP.md section 3).
 A point schema's device columns (two-float coordinates, (day, ms)
 times) live on the store's device with power-of-two capacity; appends
 copy into that capacity in place and rebuild with fresh headroom only
-when it runs out. An extent schema's device columns (outward-rounded f32
-bounding boxes, validity, (day, ms) times) and its XZ-key index rebuild
-on the first read after a write.
+when it runs out. Its z-key index sorts on the host, in the native
+library (``native/``), under the z3 curve of the schema's index version
+(``geomesa.index.version``). An extent schema's device columns
+(outward-rounded f32 bounding boxes, validity, (day, ms) times) and its
+XZ-key index rebuild on the first read after a write.
 
-The schemas have a default geometry (a Point, or any extent type:
+A schema has a default geometry (a Point, or any extent type:
 LineString, Polygon, their multi-part forms, GeometryCollection or the
-generic Geometry) and Integer, Long, Float, Double, Boolean, String,
-Date and geometry attributes (``:index=true`` on any). The filters are
-the ECQL grammar of ``filters/ecql.py`` against any geometry literal.
-A schema without a geometry raises NotImplementedError naming its later
-slice; the index versions and reindex are not ported yet (ROADMAP.md
-section 6).
+generic Geometry) or none: a geometry-less schema (an event table keyed
+by attributes) has no device columns or z-index, and its queries take
+the id, ``attr:<name>`` and fullscan strategies (the residual kernel
+over the attribute columns where the candidates are dense); density,
+BIN and the spatial processes raise KeyError for it, as in the JAX
+package. Attributes: Integer, Long, Float, Double, Boolean, String,
+Date and geometry (``:index=true`` on any). The filters are the ECQL
+grammar of ``filters/ecql.py`` against any geometry literal.
 """
 
 from __future__ import annotations
@@ -101,7 +110,8 @@ import numpy as np
 from ..analytics.st_functions import contains_points
 from ..features.batch import (COLUMN_TYPES, FeatureBatch, GeometryColumn,
                               PointColumn, StringColumn)
-from ..features.sft import SimpleFeatureType, parse_spec
+from ..features.sft import (Configs, SimpleFeatureType, check_index_version,
+                            parse_spec)
 from ..filters import ast
 from ..filters.ecql import parse_ecql
 from ..filters.evaluate import evaluate
@@ -453,6 +463,10 @@ class _TypeState:
         """(Re)build the device columns and the z-key (or XZ-key) index
         if writes happened since the last build."""
         self.flush()
+        if self.sft.geom_field is None:
+            # a geometry-less schema: nothing to build
+            self.dirty = False
+            return
         if not self.dirty and (self.scan_data is not None
                                or self.extent_data is not None):
             return
@@ -474,8 +488,23 @@ class _TypeState:
         self.host_xhi, self.host_yhi = xhi, yhi
         self.zindex = ZKeyIndex(col.x, col.y,
                                 millis if self.sft.dtg_field else None,
-                                self.sft.z3_interval)
+                                self.sft.z3_interval,
+                                version=self.sft.index_version)
         self.dirty = False
+
+    def reindex(self, version: int):
+        """Set the schema's index version. A built z-key index gets its
+        z3 sort order rebuilt under that version's curve (the z2 order
+        does not depend on it) and swapped in once it is whole; an
+        index not built yet builds at that version on the next read."""
+        self.flush()
+        old = self.zindex
+        new = None
+        if isinstance(old, ZKeyIndex) and not self.dirty:
+            new = old.with_version(version)
+        self.sft.user_data[Configs.INDEX_VERSION] = version
+        if new is not None:
+            self.zindex = new
 
     def attr_index(self, name: str) -> AttributeKeyIndex | None:
         """Sorted index of one column, built on first use; keyed (value,
@@ -539,9 +568,6 @@ class InMemoryDataStore(DataStore):
             sft = parse_spec(sft, spec or "")
         if sft.type_name in self._types:
             raise ValueError(f"schema {sft.type_name!r} already exists")
-        if sft.geom_field is None:
-            raise _later("a schema without a geometry", "geometry-less "
-                         "schema")
         for a in sft.attributes:
             if a.type.name not in COLUMN_TYPES:
                 raise _later(f"a {a.type} attribute ({a.name!r})",
@@ -622,6 +648,19 @@ class InMemoryDataStore(DataStore):
     @_synchronized
     def count(self, type_name: str) -> int:
         return self._state(type_name).n
+
+    @_synchronized
+    def reindex(self, type_name: str, to_version: int | None = None):
+        """Migrate the type's z-index layout to ``to_version`` (None: the
+        current version; an unknown one raises ValueError), as the
+        reference's reindex jobs move a table to a new index version
+        (GeoMesaFeatureIndex.scala:33-35): the z3 sort order is rebuilt
+        under the new curve and swapped in at once, so the old index
+        serves every query until then."""
+        to_version = check_index_version(to_version)
+        st = self._state(type_name)
+        if st.sft.index_version != to_version:
+            st.reindex(to_version)
 
     @_synchronized
     def analyze(self, type_name: str):
@@ -923,6 +962,8 @@ class InMemoryDataStore(DataStore):
         if not len(idx):
             return empty
         geom = st.sft.geom_field
+        if geom is None:
+            raise KeyError("density needs a geometry; the schema has none")
         if attr_mask is not None:
             by_name = {a.name: j for j, a in enumerate(st.sft.attributes)}
             keep = attr_mask[:, by_name[geom]]
@@ -949,6 +990,8 @@ class InMemoryDataStore(DataStore):
         res = self.query(Query(type_name, ecql))
         if res.batch is None or res.batch.n == 0:
             return b""
+        if st.sft.geom_field is None:
+            raise KeyError("BIN records need a geometry; the schema has none")
         return encode_bin_batch(st.sft, res.ids, res.batch, track=track,
                                 label=label, sort=sort)
 
@@ -1279,11 +1322,14 @@ def _as_filter(ecql) -> ast.Filter:
 
 def _indices(sft: SimpleFeatureType) -> list[str]:
     """The indexes a schema has: z3 (with a default date) and z2 for a
-    point schema, xz3 and xz2 for an extent schema; id; and one
-    attr:<name> per indexed attribute."""
-    z = "z" if sft.is_points else "xz"
-    out = ([f"{z}3"] if sft.dtg_field is not None else []) + [f"{z}2", "id"]
-    return out + [f"attr:{a.name}" for a in sft.attributes if a.indexed]
+    point schema, xz3 and xz2 for an extent schema, none of these for a
+    geometry-less one; id; and one attr:<name> per indexed attribute."""
+    out = []
+    if sft.geom_field is not None:
+        z = "z" if sft.is_points else "xz"
+        out = ([f"{z}3"] if sft.dtg_field is not None else []) + [f"{z}2"]
+    return out + ["id"] + [f"attr:{a.name}" for a in sft.attributes
+                           if a.indexed]
 
 
 def _intervals_ms(primary: ast.Filter, dtg: str,

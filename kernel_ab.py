@@ -4,7 +4,7 @@
     python3 kernel_ab.py [--seed 0] [--rows 100000000]
                          [--store-rows 10000000] [--predicates-only]
                          [--density-only] [--store-only] [--prefix-only]
-                         [--joins-only] TREE [TREE ...]
+                         [--joins-only] [--tube-only] TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repo (a ``git archive`` of a
 commit unpacked into a git-ignored directory will do). The trees run
@@ -123,6 +123,18 @@ compares two versions within one call. Each process:
   phase's batcher points, kpad 256) and at BASELINE.md's configuration
   4 (``knn_50m_8q``: 50M points in a 2^26-row buffer, bench.py's 8
   points, kpad 256); and the x-sort of both tables.
+- ``--tube-only`` times the tube kernel and nothing else, on
+  chip_smoke.py's kernels-phase rows (--rows rows from --seed in a
+  power-of-two capacity) against this checkout's chip_smoke.py tubes
+  (``tube_cases``: 720 sparse pairs, 1,000 dense ones): the tree's
+  ``tube_mask`` held and on an idle card (its pair sort included), and
+  held beside it the simpler design built by this script from
+  PROBE_SOURCE (``tube_linear``: one row a thread, a row outside the
+  table's overall time range out after its time words, else a linear
+  walk of the pairs staged in shared memory in the table's own order,
+  the interval test first, out at the first match), both checked
+  against the tree's ``tube_mask_plain``; with chip_smoke.py's bound of
+  each tube (``tube_needs``).
 
 Medians of 20 launches (CUDA events; 10 for the batched kernels). Every
 gathered and batched result is checked against its plain version.
@@ -415,6 +427,105 @@ extern "C" int probe_atomics(float* grid, int64_t n, uint32_t mask, int one,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The simple tube design: one row a thread; a row whose (day, ms) key
+// lies outside [t_min, t_max] (the table's least lo, greatest hi) is out
+// after its time words; else its coordinates are read and the pairs
+// walked in the table's own order, staged in shared memory 768 at a time,
+// the interval test first, out at the first match.
+constexpr int kLinChunk = 768;
+
+__device__ __forceinline__ bool lin_ge(float hi, float lo, float bhi,
+                                      float blo) {
+  return (hi > bhi) | ((hi == bhi) & (lo >= blo));
+}
+
+__device__ __forceinline__ bool lin_le(float hi, float lo, float bhi,
+                                      float blo) {
+  return (hi < bhi) | ((hi == bhi) & (lo <= blo));
+}
+
+__global__ void __launch_bounds__(256)
+tube_linear(const float* __restrict__ xhi, const float* __restrict__ xlo,
+            const float* __restrict__ yhi, const float* __restrict__ ylo,
+            const int* __restrict__ tday, const int* __restrict__ tms,
+            int64_t n, const int4* __restrict__ times,
+            const float4* __restrict__ boxes, int k, long long t_min,
+            long long t_max, bool* __restrict__ out) {
+  __shared__ int4 s_t[kLinChunk];
+  __shared__ float4 s_b[2 * kLinChunk];
+  const int nchunks = (k + kLinChunk - 1) / kLinChunk;
+  bool staged = false;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+       base < n; base += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t row = base + threadIdx.x;
+    bool live = row < n, hit = false;
+    int d = 0, ms = 0;
+    float xh = 0.f, xl = 0.f, yh = 0.f, yl = 0.f;
+    if (live) {
+      d = tday[row];
+      ms = tms[row];
+      const long long t = static_cast<long long>(d) * 4294967296LL +
+                          (static_cast<long long>(ms) + 2147483648LL);
+      live = t >= t_min && t <= t_max;
+    }
+    if (live) {
+      xh = xhi[row]; xl = xlo[row]; yh = yhi[row]; yl = ylo[row];
+    }
+    for (int c = 0; c < nchunks; ++c) {
+      const int c0 = c * kLinChunk;
+      const int m = k - c0 < kLinChunk ? k - c0 : kLinChunk;
+      if (nchunks > 1 || !staged) {
+        if (!__syncthreads_or(live)) break;
+        for (int i = threadIdx.x; i < m; i += blockDim.x) {
+          s_t[i] = times[c0 + i];
+          s_b[2 * i] = boxes[2 * (c0 + i)];
+          s_b[2 * i + 1] = boxes[2 * (c0 + i) + 1];
+        }
+        __syncthreads();
+        staged = true;
+      }
+      if (live) {
+        for (int i = 0; i < m; ++i) {
+          const int4 iv = s_t[i];
+          if (((d > iv.x) | ((d == iv.x) & (ms >= iv.y))) &
+              ((d < iv.z) | ((d == iv.z) & (ms <= iv.w)))) {
+            const float4 bx = s_b[2 * i], by = s_b[2 * i + 1];
+            if (lin_ge(xh, xl, bx.x, bx.y) & lin_le(xh, xl, bx.z, bx.w) &
+                lin_ge(yh, yl, by.x, by.y) & lin_le(yh, yl, by.z, by.w)) {
+              hit = true;
+              live = false;
+              break;
+            }
+          }
+        }
+      }
+    }
+    if (row < n) out[row] = hit;
+  }
+}
+
+extern "C" int probe_tube_linear(const float* xhi, const float* xlo,
+                                 const float* yhi, const float* ylo,
+                                 const int* tday, const int* tms, int64_t n,
+                                 const int* times, const float* boxes, int k,
+                                 long long t_min, long long t_max, bool* out,
+                                 void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tube_linear, 256, 0);
+  int64_t blocks = (n + 255) / 256;
+  if (blocks > static_cast<int64_t>(sms) * per_sm)
+    blocks = static_cast<int64_t>(sms) * per_sm;
+  if (n < 1 || k < 1 || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tube_linear<<<static_cast<int>(blocks), 256, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      xhi, xlo, yhi, ylo, tday, tms, n, reinterpret_cast<const int4*>(times),
+      reinterpret_cast<const float4*>(boxes), k, t_min, t_max, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int probe_compact(const uint32_t* bits, const int32_t* partials,
                              const int32_t* offsets, const int64_t* totals,
                              int qp, int64_t nb, int64_t words, int mode,
@@ -461,6 +572,10 @@ def build_probe():
     dll.probe_prefix_coop.restype = ctypes.c_int
     dll.probe_atomics.argtypes = [p, i64, ctypes.c_uint32, ctypes.c_int, p]
     dll.probe_atomics.restype = ctypes.c_int
+    dll.probe_tube_linear.argtypes = [p] * 6 + [i64, p, p, ctypes.c_int,
+                                                ctypes.c_longlong,
+                                                ctypes.c_longlong, p, p]
+    dll.probe_tube_linear.restype = ctypes.c_int
     return dll
 
 
@@ -1141,6 +1256,58 @@ def knn_case(kernels, args) -> dict:
             "bare_ms": cuda_ms(run, False)}
 
 
+def tube_case(kernels, zscan, seed: int, rows: int, probe) -> dict:
+    """The tree's tube kernel and the linear probe on chip_smoke.py's
+    kernels-phase rows against this checkout's chip_smoke.py tubes, each
+    checked against the tree's plain version."""
+    import torch
+    from geomesa_tpu_torch.analytics.tube import tube_tables
+    dev = torch.device("cuda")
+    smoke = _smoke()
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-180, 180, rows)
+    y = rng.uniform(-90, 90, rows)
+    ms = rng.integers(0, 1000 * MS_DAY, rows)
+    data = zscan.build_scan_data(x, y, ms, dev, cap=zscan.next_pow2(rows))
+    del x, y, ms
+    n = data.n
+    out = {}
+    for label, boxes, iv in smoke.tube_cases(seed):
+        bx, tm = (torch.from_numpy(a).to(dev) for a in tube_tables(boxes, iv))
+        k = bx.shape[0]
+        t = tm.cpu().numpy().astype(np.int64)
+        t_min = int((t[:, 0] * (1 << 32) + t[:, 1] + (1 << 31)).min())
+        t_max = int((t[:, 2] * (1 << 32) + t[:, 3] + (1 << 31)).max())
+        res = torch.empty(n, dtype=torch.bool, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def kern():
+            return kernels.tube_mask(data.cols, n, bx, tm)
+
+        def linear():
+            rc = probe.probe_tube_linear(
+                *(c.data_ptr() for c in data.cols), n, tm.data_ptr(),
+                bx.data_ptr(), k, t_min, t_max, res.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"probe launch failed: cudaError {rc}")
+        want = kernels.tube_mask_plain(data.cols, n, bx, tm)
+        if not torch.equal(kern(), want):
+            raise SystemExit(f"{label} tube: tube_mask != plain")
+        linear()
+        if not torch.equal(res, want):
+            raise SystemExit(f"{label} tube: the linear probe != plain")
+        held, pair_tests = smoke.tube_needs(data.cols, n, tm)
+        nbytes = 9 * n + 16 * held + k * 48
+        out[f"tube_{label}_100m"] = {
+            "pairs": k, "hits": int(want.sum().item()),
+            "rows_in_interval": held, "pair_tests_needed": pair_tests,
+            "bound_ms": smoke.bound_ms(nbytes, 7 * n + 13 * pair_tests)[0],
+            "tube_mask": {"held": cuda_ms(kern, True),
+                          "bare": cuda_ms(kern, False)},
+            "linear_probe": {"held": cuda_ms(linear, True)}}
+    return out
+
+
 def torch_equal(a, b) -> bool:
     import torch
     return torch.equal(a, b)
@@ -1149,7 +1316,7 @@ def torch_equal(a, b) -> bool:
 def worker(tree: str, seed: int, rows: int, store_rows: int,
            predicates_only: bool = False, density_only: bool = False,
            store_only: bool = False, prefix_only: bool = False,
-           joins_only: bool = False) -> dict:
+           joins_only: bool = False, tube_only: bool = False) -> dict:
     sys.path.insert(0, tree)
     import torch
     from geomesa_tpu_torch.index.zkeys import ZKeyIndex, search_rows
@@ -1171,6 +1338,8 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
     if density_only:
         return {"tree": tree, "density_10m": density_case(
             _smoke(), seed, store_rows, probe) if has_density else None}
+    if tube_only:
+        return {"tree": tree, **tube_case(kernels, zscan, seed, rows, probe)}
     if prefix_only:
         return {"tree": tree, **prefix_only_case(
             kernels, zscan, _smoke(), seed, rows, store_rows, probe)}
@@ -1284,13 +1453,17 @@ def main():
                     help="time only the join kernels (dwithin_10m, "
                          "dwithin_wide_10m, slab_10m, knn_10m_32q, "
                          "contains_100m, slab_box_100m, knn_50m_8q)")
+    ap.add_argument("--tube-only", action="store_true",
+                    help="time only the tube kernel and the linear probe "
+                         "(tube_sparse_100m, tube_dense_100m)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         print(json.dumps(worker(args.worker, args.seed, args.rows,
                                 args.store_rows, args.predicates_only,
                                 args.density_only, args.store_only,
-                                args.prefix_only, args.joins_only)),
+                                args.prefix_only, args.joins_only,
+                                args.tube_only)),
               flush=True)
         return 0
     if not args.trees:
@@ -1307,7 +1480,8 @@ def main():
              *(["--density-only"] if args.density_only else []),
              *(["--store-only"] if args.store_only else []),
              *(["--prefix-only"] if args.prefix_only else []),
-             *(["--joins-only"] if args.joins_only else [])],
+             *(["--joins-only"] if args.joins_only else []),
+             *(["--tube-only"] if args.tube_only else [])],
             capture_output=True, text=True, cwd=ROOT)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)

@@ -18,6 +18,7 @@ import geomesa_tpu_torch
 from geomesa_tpu_torch import FeatureBatch, InMemoryDataStore, Query
 from geomesa_tpu_torch import parse_spec
 from geomesa_tpu_torch.analytics import join
+from geomesa_tpu_torch.analytics.tube import tube_select_mask
 from geomesa_tpu_torch.filters import parse_ecql
 from geomesa_tpu_torch.geometry import parse_wkt
 from geomesa_tpu_torch.scan import aggregations, gscan, kernels, residual, zscan
@@ -42,7 +43,8 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.analytics.join, "
             "geomesa_tpu_torch.analytics.partitioning, "
             "geomesa_tpu_torch.analytics.processes, "
-            "geomesa_tpu_torch.analytics.tube, geomesa_tpu_torch.utils.fp\n"
+            "geomesa_tpu_torch.analytics.tube, geomesa_tpu_torch.utils.fp, "
+            "geomesa_tpu_torch.native, geomesa_tpu_torch.curves.legacy\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -80,7 +82,15 @@ def test_no_source_imports_jax_or_reference():
             "geometry/geojson.py", "curves/xz.py", "index/xzkeys.py",
             "analytics/join.py", "analytics/partitioning.py",
             "analytics/processes.py", "analytics/tube.py",
-            "utils/fp.py"} <= seen
+            "utils/fp.py", "native/__init__.py", "curves/legacy.py"} <= seen
+    # the native library's C++ sources are the port's own copies
+    src = os.path.join(PKG, "native", "src")
+    assert sorted(os.listdir(src)) == ["zbuild.cpp", "zencode.cpp",
+                                       "zrange.cpp", "zsort.cpp"]
+    for f in os.listdir(src):
+        with open(os.path.join(src, f)) as fh:
+            assert not re.search(r"#include\s+[<\"][^>\"]*geomesa_tpu/",
+                                 fh.read())
 
 
 def test_store_defaults_to_cuda(monkeypatch):
@@ -202,7 +212,8 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                  "_contains_one", "knn_topk_plain",
                  "dwithin_counts_tiles_plain",
                  "contains_counts_tiles_plain", "slab_pairs_tiles_plain",
-                 "_slab_hits", "knn_topk_blocks_plain", "_knn_keys"):
+                 "_slab_hits", "knn_topk_blocks_plain", "_knn_keys",
+                 "tube_mask_plain", "tube_mask_search_plain"):
         monkeypatch.setattr(kernels, name, refuse)
     x, y, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -233,13 +244,15 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
     for counts_only in (True, False):
         join.contains_join([parse_wkt(STAR)], x, y, counts_only=counts_only,
                            device_xy=dev)
+    tube_select_mask(d, [(-50.0, -40.0, 50.0, 40.0)], [(0, 50 * MS_DAY)])
     assert kernels.launches == {"scan_mask": 1, "scan_mask_gather": 1,
                                 "scan_count": 1, "scan_batch_bits": 1,
                                 "compact_prefix": 1, "compact_bits": 1,
                                 "pip_mask": 1, "residual_mask": 1,
                                 "density_grid": 1, "extent_tristate": 1,
                                 "dwithin_counts": 1, "slab_pairs": 4,
-                                "contains_counts": 1, "knn_topk": 3}
+                                "contains_counts": 1, "knn_topk": 3,
+                                "tube_mask": 1}
     join.clear_xsort_cache()
 
 
@@ -1769,3 +1782,41 @@ def test_analytics_on_cuda_match_cpu(cuda):
     assert all(kernels.launches[k] > 0 for k in
                ("dwithin_counts", "slab_pairs", "contains_counts",
                 "knn_topk"))
+
+
+@pytest.mark.gpu
+def test_geometry_less_and_versioned_stores_on_cuda_match_cpu(cuda):
+    """A schema without a geometry (its dense fullscan residual through
+    residual_mask) and a version-1 point schema before and after
+    reindex, on a CUDA store and a CPU store, id for id."""
+    rng = np.random.default_rng(14)
+    n = 300_000
+    ids = [f"e{i}" for i in range(n)]
+    plain = {"name": [f"n{i}" for i in rng.integers(0, 40, n)],
+             "age": rng.integers(0, 90, n), "score": rng.uniform(0, 1, n)}
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    ms = rng.integers(0, 30 * MS_DAY, n) + 1_500_000_000_000
+    stores = [InMemoryDataStore(), InMemoryDataStore(device="cpu")]
+    for s in stores:
+        s.create_schema("ev", "name:String:index=true,age:Integer,"
+                              "score:Double")
+        s.write_dict("ev", ids, plain)
+        s.create_schema("pts", "dtg:Date,*geom:Point:srid=4326;"
+                               "geomesa.index.version='1'")
+        s.write_dict("pts", ids, {"dtg": ms, "geom": (x, y)})
+    kernels.reset_launches()
+    plain_q = ["score > 0.3", "name = 'n7'", "IN ('e1', 'e99')",
+               "age < 5 OR score > 0.99"]
+    point_q = ["BBOX(geom, -30, -30, 30, 30) AND dtg DURING "
+               "2017-07-15T00:00:00Z/2017-07-25T00:00:00Z",
+               "BBOX(geom, 100, -50, 140, -10)"]
+    for reindexed in (False, True):
+        for tn, qs in (("ev", plain_q), ("pts", point_q)):
+            for q in qs:
+                got, want = (s.query(q, tn) for s in stores)
+                assert got.plan.index == want.plan.index
+                assert np.array_equal(got.ids, want.ids)
+        for s in stores:
+            s.reindex("pts")
+    assert kernels.launches["residual_mask"] >= 1
+    assert stores[0]._state("pts").zindex.version == 2

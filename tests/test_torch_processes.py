@@ -5,8 +5,8 @@ beside a JAX store holding the same seeded rows.
 Tolerance: exact. Ids are equal in the same order, distances and
 counts are equal arrays, process outputs (segments, labels, hashes,
 BIN and Arrow bytes, per-feature geometries) are equal. The processes
-that the port leaves to later slices (the geohash ones and tube select)
-raise NotImplementedError naming their slice."""
+that the port leaves to later slices (the geohash ones) raise
+NotImplementedError naming their slice."""
 
 import threading
 
@@ -252,11 +252,6 @@ def test_later_slices_raise(trk):
         tp.geohash_process(port, "trk", "geom")
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         tp.geohash_decode_process(["9q8y"])
-    with pytest.raises(NotImplementedError, match="K4"):
-        tp.tube_select_process(port, "trk", [0.0, 1.0], [0.0, 0.0],
-                               [0, 60_000], 0.5)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tube.tube_select_mask(None, np.zeros((1, 4)), np.zeros((1, 2)))
 
 
 @pytest.mark.parametrize("bin_millis,max_bins", [(86_400_000, 256),

@@ -207,13 +207,17 @@ def test_former_out_of_slice_filters_match_reference(stores, ecql):
 
 
 def test_extent_schema_raises():
-    """An extent schema is created (the extent slice); a schema with no
-    geometry still raises, naming its slice."""
+    """An extent schema is created (the extent slice), and so is a
+    schema with no geometry (the geometry-less slice); a spatial filter
+    on the latter raises KeyError, as in the JAX store."""
     s = InMemoryDataStore(device="cpu")
     s.create_schema("poly", "dtg:Date,*geom:Polygon:srid=4326")
     assert not s.get_schema("poly").is_points
-    with pytest.raises(NotImplementedError, match="slice"):
-        s.create_schema("plain", "name:String,dtg:Date")
+    s.create_schema("plain", "name:String,dtg:Date")
+    assert s.get_schema("plain").geom_field is None
+    s.write_dict("plain", ["a"], {"name": ["x"], "dtg": [0]})
+    with pytest.raises(KeyError):
+        s.query("BBOX(geom, 0, 0, 1, 1)", "plain")
 
 
 # one attribute bounded by a quoted and an unquoted literal under AND:
@@ -278,3 +282,106 @@ def test_mixed_literal_bounds_match_the_evaluator(ecql, unquoted, indexed):
         # unindexed integers: its device residual coerces, and answers
         assert list(port.query(ecql, "m").ids) == \
             list(ref.query(ecql, "m").ids)
+
+
+# -- a schema without a geometry ---------------------------------------------
+
+PLAIN_SPEC = ("name:String:index=true,age:Integer:index=true,score:Double,"
+              "dtg:Date")
+PLAIN_N = 20_000
+PLAIN_QUERIES = [
+    "age > 80", "age = 33", "name = 'n3'", "IN ('p1', 'p5', 'p19999')",
+    "INCLUDE", "score > 0.25", "age > 10 AND score < 0.2",
+    "dtg AFTER 2020-01-10T00:00:00Z", "name LIKE 'n1%' OR age < 5",
+    "NOT (age BETWEEN 20 AND 60)", "score IS NULL",
+]
+
+
+@pytest.fixture(scope="module")
+def plain_stores():
+    """A port store on the CPU and a JAX store, each holding the same
+    seeded rows of a schema with no geometry."""
+    rng = np.random.default_rng(31)
+    ids = [f"p{i}" for i in range(PLAIN_N)]
+    score = rng.uniform(0, 1, PLAIN_N)
+    score[::97] = np.nan
+    data = {"name": [f"n{i}" for i in rng.integers(0, 20, PLAIN_N)],
+            "age": rng.integers(0, 90, PLAIN_N),
+            "score": score,
+            "dtg": T0 + rng.integers(0, 30 * MS_DAY, PLAIN_N)}
+    out = []
+    for s in (InMemoryDataStore(device="cpu"), JaxStore()):
+        s.create_schema("events", PLAIN_SPEC)
+        for lo, hi in ((0, 12_000), (12_000, PLAIN_N)):
+            s.write_dict("events", ids[lo:hi],
+                         {k: v[lo:hi] for k, v in data.items()})
+        out.append(s)
+    return out
+
+
+def _same_query(port, ref, ecql):
+    got, want = port.query(ecql, "events"), ref.query(ecql, "events")
+    assert got.plan.index == want.plan.index
+    assert list(got.ids) == list(want.ids)
+    assert port.query_count(ecql, "events") == \
+        ref.query_count(ecql, "events") == len(want.ids)
+    return got
+
+
+@pytest.mark.parametrize("ecql", PLAIN_QUERIES)
+def test_geometry_less_queries_match_reference(plain_stores, ecql):
+    """id, attr:<name> and fullscan on a schema with no geometry, id for
+    id and plan for plan with the JAX store (exact); a fullscan whose
+    residual covers more than a quarter of the rows runs the residual
+    program on the device path (its plain version on the CPU)."""
+    port, ref = plain_stores
+    assert port.get_schema("events").geom_field is None
+    got = _same_query(port, ref, ecql)
+    if ecql == "score > 0.25":
+        assert got.plan.index == "fullscan"
+        assert "Device residual scan (dense)" in got.explain.text
+
+
+def test_geometry_less_delete_and_stats_match_reference():
+    port, ref = (InMemoryDataStore(device="cpu"), JaxStore())
+    rng = np.random.default_rng(32)
+    ages = rng.integers(0, 90, 5_000)
+    for s in (port, ref):
+        s.create_schema("events", "name:String,age:Integer:index=true")
+        s.write_dict("events", [f"e{i}" for i in range(5_000)],
+                     {"name": [f"n{a % 7}" for a in ages], "age": ages})
+    _same_query(port, ref, "age > 70")
+    for s in (port, ref):
+        s.delete("events", [f"e{i}" for i in range(0, 5_000, 3)])
+    for ecql in ("age > 70", "name = 'n2'", "IN ('e1', 'e3', 'e4')",
+                 "INCLUDE"):
+        _same_query(port, ref, ecql)
+    assert port.count("events") == ref.count("events")
+    for spec in ("Count()", "MinMax(age)", "Enumeration(name)"):
+        for ecql in (None, "age < 30"):
+            assert (port.stats_query("events", spec, ecql).to_json_object()
+                    == ref.stats_query("events", spec, ecql)
+                    .to_json_object())
+
+
+def test_geometry_less_spatial_entry_points_raise_as_reference(
+        plain_stores):
+    """The entry points that need a geometry raise KeyError in both
+    stores."""
+    from geomesa_tpu.analytics import processes as jp
+    from geomesa_tpu_torch.analytics import processes as tp
+    port, ref = plain_stores
+    for s, procs in ((port, tp), (ref, jp)):
+        calls = [
+            lambda: s.density("events", "INCLUDE", (-180, -90, 180, 90),
+                              8, 8),
+            lambda: s.bin_query("events", "INCLUDE"),
+            lambda: s.query("BBOX(geom, 0, 0, 1, 1)", "events"),
+            lambda: procs.tube_select_process(s, "events", [0.0, 1.0],
+                                              [0.0, 1.0], [0, 60_000], 0.5),
+            lambda: procs.knn_process(s, "events", 0.0, 0.0, 3),
+            lambda: procs.proximity_process(s, "events", [0.0], [0.0], 1.0),
+        ]
+        for call in calls:
+            with pytest.raises(KeyError):
+                call()
