@@ -43,15 +43,16 @@ Phases, one JSON line each; any failure exits non-zero:
            kernel on the same 100M rows against two tubes: 720 pairs
            (hourly bins of a 30-day track, boxes 0.1-0.5 degrees wide)
            and 1,000 pairs (overlapping intervals of 1-5 days anywhere
-           in the rows' dates, boxes 20-90 degrees wide, so millions of
-           rows match and the pairs span two staged chunks), each held
+           in the rows' dates, boxes 20-90 degrees wide, so nearly
+           every row is a candidate and millions match), each held
            to its plain version with torch.equal, timed beside its
            bound (the bytes these rows need: 8 B of times a row, 16 B
            of coordinates a row some interval holds, 1 B written; or the
            operations of the time tests and of the box tests of the
-           pairs whose interval holds a row) and the operations of
-           testing every (row, pair) (bound_all_pairs_ms), and its
-           plain time.
+           pairs whose interval holds a row), its sector floor (32 B
+           for each sector of each coordinate column that holds such a
+           row, sector_floor_ms) and the operations of testing every
+           (row, pair) (bound_all_pairs_ms), and its plain time.
 3. store   the main path: InMemoryDataStore() on CUDA, 10M rows written
            in chunks through write_dict (in-place appends and one
            capacity rebuild), the BBOX+time north-star query and two
@@ -79,7 +80,8 @@ Phases, one JSON line each; any failure exits non-zero:
            kernel's two-float and (day, ms) compares, the rows where a
            float64 brute force differs counted (information), p50 of 3;
            launch counts zeroed before the calls and read after:
-           tube_mask must have launched.
+           tube_mask must have launched; then one call of each track
+           split into TubeBuilder, tables, kernel and ids (host clock).
 4. batched the serving path on the store phase's 10M rows: 32 seeded
            queries in the store's dates through query_batched at batch
            sizes 2, 8 and 32, every query's ids equal to the float64
@@ -355,7 +357,7 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2, flush=None,
-            held: bool = True) -> float:
+            held: bool = True, hold: int = HOLD_CYCLES) -> float:
     """Median milliseconds of fn() on the card (CUDA events); ``flush``
     runs before each timed launch, outside the events. Held (the
     default), a spin kernel holds the card ahead of the first event
@@ -372,7 +374,7 @@ def cuda_ms(fn, iters: int, warmup: int = 2, flush=None,
         if flush is not None:
             flush()
         if held:
-            torch.cuda._sleep(HOLD_CYCLES)
+            torch.cuda._sleep(hold)
         a.record()
         fn()
         b.record()
@@ -821,6 +823,8 @@ def phase_store(seed: int, rows: int, gather_stats: dict):
 HOUR_MS = 3_600_000
 TUBE_PAIRS = 720          # hourly bins of a 30-day track
 TUBE_RUNS = 3             # host-clock runs per tube select for its p50
+TUBE_WARMUP = 30          # launches ahead of the tube's second timing
+TUBE_HOLD = 4 * HOLD_CYCLES   # and its spin, past the wrapper's host work
 KNOTS_12 = 0.2            # degrees an hour (12 nm/h, a degree is 60 nm)
 
 
@@ -838,7 +842,7 @@ def ais_track(rng, n, t0_ms, step_ms, x0, y0, gap_at=None, gap_ms=0):
     return x, y, ms
 
 
-TUBE_DENSE_PAIRS = 1000   # past the kernel's 768 staged pairs: two chunks
+TUBE_DENSE_PAIRS = 1000   # overlapping intervals: several pairs a row
 
 
 def tube_cases(seed: int) -> list:
@@ -848,8 +852,8 @@ def tube_cases(seed: int) -> list:
     day 500, boxes 0.1-0.5 degrees wide (about 3 % of the rows' times in
     the tube, a handful of hits). "dense": 1,000 pairs in random order,
     intervals 1-5 days long starting anywhere in the rows' 1,000 days
-    (overlapping), boxes 20-90 degrees wide anywhere, so millions of rows
-    take the match path and a row's pairs span both staged chunks."""
+    (overlapping), boxes 20-90 degrees wide anywhere, so nearly every row
+    is a candidate and millions match."""
     rng = np.random.default_rng(seed + 9)
     t0 = 500 * MS_DAY
     cx, cy, _ = ais_track(rng, TUBE_PAIRS, t0, HOUR_MS, -100.0, 0.0)
@@ -868,13 +872,16 @@ def tube_cases(seed: int) -> list:
             ("dense", dense, np.stack([dlo, dhi], 1))]
 
 
-def tube_needs(cols, n: int, times) -> tuple[int, int]:
+def tube_needs(cols, n: int, times) -> tuple[int, int, int]:
     """(rows of the first n whose (day, ms) some pair's interval holds,
-    (row, pair) pairs whose interval holds the row), by searches over the
+    (row, pair) pairs whose interval holds the row, 32-byte sectors of a
+    coordinate column that hold such a row), by searches over the
     intervals' keys (day * 2^32 + ms + 2^31, the (day, ms) order). The
-    first is exact for any table: among the pairs with lo <= t, the
-    largest hi reaches t. The second counts lo <= t less hi < t, exact
-    where every interval has lo <= hi, as both tubes' do."""
+    first and third are exact for any table: among the pairs with lo <=
+    t, the largest hi reaches t. The second counts lo <= t less hi < t,
+    exact where every interval has lo <= hi, as the tubes' do. A sector
+    is 8 rows of a column from a 32-byte aligned start (the columns'
+    allocations are)."""
     def key(day, ms):
         return day.long() * (1 << 32) + ms.long() + (1 << 31)
     t = key(cols[4][:n], cols[5][:n])
@@ -886,7 +893,9 @@ def tube_needs(cols, n: int, times) -> tuple[int, int]:
     a = torch.searchsorted(lo, t, right=True)
     held = (a > 0) & (pm[(a - 1).clamp(min=0)] >= t)
     pairs = a - torch.searchsorted(torch.sort(hi).values, t)
-    return int(held.sum().item()), int(pairs.sum().item())
+    sectors = torch.nn.functional.pad(held, (0, -n % 8)).view(-1, 8).any(1)
+    return (int(held.sum().item()), int(pairs.sum().item()),
+            int(sectors.sum().item()))
 
 
 def tube_kernel_stats(data, seed: int) -> dict:
@@ -896,8 +905,13 @@ def tube_kernel_stats(data, seed: int) -> dict:
     a row, 16 B of coordinates a row whose time some interval holds, 1 B
     written, the tables) or the operations they need (a time test of 7
     a row, a box test of 13 for each (row, pair) whose interval holds the
-    row), whichever is larger; beside it, the operations of testing every
-    (row, pair) at one each (bound_all_pairs_ms)."""
+    row), whichever is larger; beside it the sector floor (the same with
+    32 B for each sector of each coordinate column that holds such a row,
+    as reads by row cost), and the operations of testing every (row,
+    pair) at one each (bound_all_pairs_ms). ``ms`` is timed as every
+    wrapper's; ``ms_long_spin`` after 30 warm-up launches and behind a
+    spin 4x as long, which covers the wrapper's host work (its pair sort
+    and two launches), so the card's time alone."""
     from geomesa_tpu_torch.analytics.tube import tube_tables
     from geomesa_tpu_torch.scan import kernels
     n = data.n
@@ -917,18 +931,24 @@ def tube_kernel_stats(data, seed: int) -> dict:
         torch.cuda.synchronize()
         equal = torch.equal(got, want)
         err = max(err, 0 if equal else 1)
-        held, pair_tests = tube_needs(data.cols, n, tm)
+        held, pair_tests, sectors = tube_needs(data.cols, n, tm)
         nbytes = 9 * n + 16 * held + k * 48
         ops = 7 * n + 13 * pair_tests
         bms, bby = bound_ms(nbytes, ops)
         out.append({
             "query": f"{label} tube of {k} pairs", "pairs": k,
-            "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 1, warmup=0),
+            "ms": cuda_ms(kern, 20),
+            "ms_long_spin": cuda_ms(kern, 20, warmup=TUBE_WARMUP,
+                                    hold=TUBE_HOLD),
+            "plain_ms": cuda_ms(plain, 1, warmup=0),
             "bound_ms": bms, "bound_by": bby,
+            "sector_floor_ms": (9 * n + 4 * SECTOR_BYTES * sectors + k * 48)
+            / HBM_BYTES_PER_S * 1e3,
             "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "ops_bound_ms": ops / INT32_OPS_PER_S * 1e3,
             "bound_all_pairs_ms": k * n / INT32_OPS_PER_S * 1e3,
             "rows_in_interval": held, "pair_tests_needed": pair_tests,
+            "sectors_with_candidates": sectors,
             "hits": int(want.sum().item()), "equal": equal,
             "library_ms": None})
     return {"max_abs_err": err, "per_query": out}
@@ -1134,6 +1154,35 @@ def _tube_brute(tables, cols, order, ms_sorted):
     return np.unique(np.concatenate(two)), np.unique(np.concatenate(f64))
 
 
+def tube_split(ds, tx, ty, tms) -> tuple[dict, np.ndarray]:
+    """One tube_select_process call on the store's "ais" type in its
+    parts, host clock in ms: TubeBuilder's pairs (pairs_ms), the tables
+    split and copied to the card (tables_ms), the kernel with its pairs'
+    sort (kernel_ms), the hit rows taken on the card and their ids
+    gathered on the host (ids_ms); and the ids."""
+    from geomesa_tpu_torch.analytics import processes
+    from geomesa_tpu_torch.analytics.tube import TubeBuilder, tube_tables
+    from geomesa_tpu_torch.scan import kernels
+    st, _ = processes._point_cols(ds, "ais")
+    data = st.scan_data
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    boxes, iv = TubeBuilder(0.1, HOUR_MS).build(tx, ty, tms)
+    t1 = time.perf_counter()
+    bx, tm = (torch.from_numpy(a).to(data.device)
+              for a in tube_tables(boxes, iv))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    mask = kernels.tube_mask(data.cols, data.n, bx, tm)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ids = st.batch.ids[torch.nonzero(mask).flatten().cpu().numpy()]
+    t4 = time.perf_counter()
+    return ({"pairs_ms": (t1 - t0) * 1e3, "tables_ms": (t2 - t1) * 1e3,
+             "kernel_ms": (t3 - t2) * 1e3, "ids_ms": (t4 - t3) * 1e3,
+             "total_ms": (t4 - t0) * 1e3}, ids)
+
+
 def phase_tube(seed: int, ds, rows) -> int:
     """tube_select_process on the store: two vessels' AIS-like tracks of
     1,440 fixes, one every 30 minutes over 30 days inside the store's
@@ -1141,7 +1190,9 @@ def phase_tube(seed: int, ds, rows) -> int:
     fill), hourly bins, a 0.1 degree buffer; the ids held to a numpy
     brute force of the kernel's compares, the rows where an f64 brute
     force differs counted, p50 of 3 host-clock runs. Launch counts are
-    zeroed before the calls and read after: tube_mask must launch."""
+    zeroed before the calls and read after: tube_mask must launch. Then,
+    outside the counted runs, one call of each track in its parts
+    (``tube_split``), its ids held to the process's."""
     from geomesa_tpu_torch.analytics import processes
     from geomesa_tpu_torch.analytics.tube import TubeBuilder, tube_tables
     from geomesa_tpu_torch.scan import kernels, zscan
@@ -1158,7 +1209,7 @@ def phase_tube(seed: int, ds, rows) -> int:
             ms // MS_DAY, ms % MS_DAY)
     ms_sorted = ms[order]
     kernels.reset_launches()
-    out, wrong = {}, []
+    out, wrong, got_ids = {}, [], {}
     for name, (tx, ty, tms) in tracks.items():
         runs, got = [], None
         for _ in range(TUBE_RUNS):
@@ -1166,6 +1217,7 @@ def phase_tube(seed: int, ds, rows) -> int:
             got = processes.tube_select_process(ds, "ais", tx, ty, tms, 0.1,
                                                 bin_millis=HOUR_MS)
             runs.append((time.perf_counter() - t0) * 1e3)
+        got_ids[name] = got
         boxes, iv = TubeBuilder(0.1, HOUR_MS).build(tx, ty, tms)
         want, f64 = _tube_brute((boxes, iv, *tube_tables(boxes, iv)), cols,
                                 order, ms_sorted)
@@ -1177,6 +1229,12 @@ def phase_tube(seed: int, ds, rows) -> int:
         if not ok:
             wrong.append(name)
     launches = kernels.launches["tube_mask"]
+    for name, (tx, ty, tms) in tracks.items():
+        split, split_ids = tube_split(ds, tx, ty, tms)
+        out[name]["split"] = split
+        if not np.array_equal(split_ids.astype(str),
+                              got_ids[name].astype(str)):
+            wrong.append(f"{name} split")
     emit({"phase": "store_tube", "rows": len(x), "tracks": out,
           "launches": {"tube_mask": launches}, "wrong": wrong})
     if wrong:

@@ -16,7 +16,7 @@ from ..features.batch import PointColumn
 from ..index.api import Query
 from ..stats import EnumerationStat, MinMax
 from .join import contains_join, dwithin_join, knn, knn_batched
-from .tube import TubeBuilder, tube_select_mask
+from .tube import TubeBuilder, tube_select_rows
 
 
 __all__ = ["knn_process", "knn_batch_process", "contains_process",
@@ -247,8 +247,8 @@ def tube_select_process(store, type_name: str, track_x, track_y,
                         bin_millis: int = 3_600_000, max_bins: int = 256):
     """TubeSelectProcess: features inside the space-time tube around the
     track (analytics/tube.TubeBuilder's pairs, evaluated by the tube
-    kernel on the store's resident columns). Returns matched feature
-    ids."""
+    kernel on the store's resident columns; only the hit rows come to
+    the host). Returns matched feature ids, in row order."""
     st, col = _point_cols(store, type_name)
     if col is None:
         return np.empty(0, object)
@@ -258,8 +258,7 @@ def tube_select_process(store, type_name: str, track_x, track_y,
     boxes, intervals = TubeBuilder(buffer_deg, bin_millis,
                                    max_bins).build(track_x, track_y,
                                                    track_millis)
-    mask = tube_select_mask(st.scan_data, boxes, intervals)
-    return st.batch.ids[np.flatnonzero(mask)]
+    return st.batch.ids[tube_select_rows(st.scan_data, boxes, intervals)]
 
 
 def sampling_process(store, type_name: str, ecql=None, rate: float = 0.1,

@@ -18,7 +18,8 @@ import torch
 from ..scan import kernels
 from ..scan.zscan import MILLIS_PER_DAY, split_two_float
 
-__all__ = ["TubeBuilder", "tube_select_mask", "tube_tables"]
+__all__ = ["TubeBuilder", "tube_select_mask", "tube_select_rows",
+           "tube_tables"]
 
 
 class TubeBuilder:
@@ -98,13 +99,24 @@ def tube_tables(boxes, intervals) -> tuple[np.ndarray, np.ndarray]:
     return bx, tm
 
 
+def _tube_mask(data, boxes, intervals):
+    bx, tm = tube_tables(boxes, intervals)
+    return kernels.tube_mask(data.cols, data.n,
+                             torch.from_numpy(bx).to(data.device),
+                             torch.from_numpy(tm).to(data.device))
+
+
 def tube_select_mask(data, boxes, intervals) -> np.ndarray:
     """Tube membership of the ``data.n`` rows of ``data`` (a ScanData),
     as a host bool mask: the tube kernel over the columns on their
     device, against the K (box, inclusive millis interval) pairs (any
     order; K = 0 matches nothing). Capacity rows past n never match."""
-    bx, tm = tube_tables(boxes, intervals)
-    mask = kernels.tube_mask(data.cols, data.n,
-                             torch.from_numpy(bx).to(data.device),
-                             torch.from_numpy(tm).to(data.device))
-    return mask.cpu().numpy()
+    return _tube_mask(data, boxes, intervals).cpu().numpy()
+
+
+def tube_select_rows(data, boxes, intervals) -> np.ndarray:
+    """The rows of ``data`` in the tube, ascending, as host int64: the
+    mask of ``tube_select_mask`` is reduced to its set rows where it lies
+    (torch.nonzero), so only those are copied to the host."""
+    return torch.nonzero(_tube_mask(data, boxes,
+                                    intervals)).flatten().cpu().numpy()

@@ -61,8 +61,10 @@ what bounds them):
   rows are each read once for a group of queries, then each query's
   kept keys are sorted (``knn_plan``).
 - ``tube_mask``: per row, whether some pair i of a tube's (box, interval)
-  pairs holds it in box_i AND interval_i (``analytics/tube.py``), by a
-  search over the pairs sorted by their intervals (``tube_pairs``).
+  pairs holds it in box_i AND interval_i (``analytics/tube.py``): a
+  streaming pass over the time words rejects the rows no interval can
+  hold by a time-bucket index and packs the rest, then each is searched
+  for over the pairs sorted by their intervals (``tube_pairs``).
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device; for ``residual_mask``, its columns). On
@@ -120,7 +122,9 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "dwithin_counts_tiles_plain", "contains_rows_items",
            "contains_counts_tiles_plain", "slab_pairs_tiles_plain",
            "knn_plan", "knn_topk_blocks_plain", "tube_mask", "tube_mask_plain",
-           "tube_pairs", "tube_mask_search_plain", "TUBE_CHUNK"]
+           "tube_pairs", "tube_index_plain", "tube_mask_index_plain",
+           "tube_bucket_bits", "TUBE_STAGE", "TUBE_TILE",
+           "TUBE_MAX_BUCKET_BITS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
@@ -417,8 +421,8 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_knn_plan.argtypes = [i64, i32, i32, p]
             lib.geomesa_knn_topk.argtypes = [p, p, i64, p, p, i64, i32, i32,
                                              p, p, p, p, p, p, p, p, p, p]
-            lib.geomesa_tube_mask.argtypes = cols + [i64, p, p, p, p, i32, p,
-                                                     p]
+            lib.geomesa_tube_mask.argtypes = cols + [i64, p, p, p, p, i32, i32,
+                                                     p, p]
             lib.geomesa_tube_constant.argtypes = [i32]
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
@@ -452,9 +456,11 @@ def _library() -> ctypes.CDLL:
                 raise RuntimeError("csrc/join.cu and kernels.py disagree on "
                                    "the join kernels' tiles, groups and "
                                    "windows")
-            if lib.geomesa_tube_constant(0) != TUBE_CHUNK:
+            if (tuple(lib.geomesa_tube_constant(i) for i in range(3))
+                    != (TUBE_STAGE, TUBE_TILE, TUBE_MAX_BUCKET_BITS)):
                 raise RuntimeError("csrc/tube.cu and kernels.py disagree on "
-                                   "the pairs staged at once")
+                                   "the tube kernel's staging, tiles or "
+                                   "buckets")
             _lib["lib"] = lib
         return _lib["lib"]
 
@@ -2234,15 +2240,28 @@ def knn_topk(px, py, qx, qy, kpad: int, nrows: int):
 
 # -- tube select (csrc/tube.cu) ----------------------------------------------
 
-# pairs the tube kernel stages in shared memory at once
-TUBE_CHUNK = 768
+# pairs the tube kernel stages in shared memory (it reads the rest through
+# the caches), rows a tile of its time pass, and its most bucket bits
+TUBE_STAGE = 2048
+TUBE_TILE = 2048
+TUBE_MAX_BUCKET_BITS = 12
 
 # (rows, pairs) elements per chunk of the plain version
 _TUBE_PLAIN_ELEMS = 1 << 26
 
+_MS_DAY = 86_400_000
+
+# an entry of the tube kernel's time-bucket index: the first pair of the
+# bucket, ORed with this bit where some interval reaches the bucket
+_TUBE_REACHED = 1 << 31
+
 
 def _check_tube(cols, n: int, boxes, times) -> int:
     _check_cols(cols, n)
+    return _check_tube_tables(boxes, times)
+
+
+def _check_tube_tables(boxes, times) -> int:
     if (boxes.dtype != torch.float32 or boxes.dim() != 2
             or boxes.shape[1] != 8 or not boxes.is_contiguous()):
         raise ValueError("boxes must be a contiguous (K, 8) float32 table")
@@ -2299,38 +2318,117 @@ def tube_pairs(boxes, times):
             hi.contiguous(), boxes[order].contiguous())
 
 
-def tube_mask_search_plain(cols, n: int, lo, pm, hi, boxes,
-                           chunk: int = TUBE_CHUNK):
-    """bool[n]: the tube kernel's search in torch ops, over the sorted
-    tables of ``tube_pairs``, a chunk of ``chunk`` pairs at a time as the
-    kernel stages them: in each chunk a row still open is decided
-    (no match) when the chunk's first lo passes its key; else, when the
-    chunk's last pm reaches it, it tests the pairs from its last lo <= t
-    back while pm >= t. Tests only; ``tube_mask_plain`` is the version
-    the CPU wrapper runs."""
+def _tube_order(times):
+    """The stable argsort of the pairs' lo keys (day * 2^32 + ms + 2^31,
+    the low half never negative), on the tables' device."""
+    t = times[:, :2].to(torch.int64)
+    return torch.argsort((t[:, 0] << 32) | (t[:, 1] + (1 << 31)),
+                         stable=True)
+
+
+def tube_bucket_bits(k: int) -> int:
+    """The tube kernel's time buckets for a table of k pairs, as bits:
+    about two buckets a pair, at least 2 and at most
+    2^TUBE_MAX_BUCKET_BITS (the wrapper passes them to the kernel)."""
+    b = 1
+    while b < TUBE_MAX_BUCKET_BITS and (1 << b) < 2 * k:
+        b += 1
+    return b
+
+
+def _spread(keys):
+    """The kernel's monotone map of int64 time keys onto about epoch
+    millis: day * 86,400,000 + ms clamped to [0, 86,399,999] (|value| <
+    2^58, no overflow)."""
+    ms = ((keys & 0xFFFFFFFF) - (1 << 31)).clamp(0, _MS_DAY - 1)
+    return (keys >> 32) * _MS_DAY + ms
+
+
+def tube_index_plain(lo, pm, hi, bits: int):
+    """The tube kernel's time-bucket index over ``tube_pairs``' sorted
+    tables, as each block builds it: (lo_min, pm_max, base, shift,
+    index). A key t >= lo_min lies in bucket (spread(t) - base) >> shift
+    (``_spread``; base the least lo's), clamped to 2^bits, with the least
+    shift that leaves pm_max's bucket below 2^bits; the map is monotone.
+    Entry j of the int64 index (j = 0..2^bits) is the number of pairs
+    whose lo lies in a bucket before j, ORed with 2^31 where some
+    interval with lo <= hi reaches bucket j (a difference array over the
+    buckets and its running sum). Tests only."""
+    nb = 1 << bits
+    lo_min, top = int(lo[0]), int(pm[-1])
+    base = int(_spread(lo[:1]))
+    shift = (max(0, (int(_spread(pm[-1:])) - base).bit_length() - bits)
+             if top >= lo_min else 0)
+    bl = ((_spread(lo) - base) >> shift).clamp(max=nb)
+    valid = lo <= hi
+    diff = torch.zeros(nb + 1, dtype=torch.int64, device=lo.device)
+    diff.index_add_(0, bl[valid], torch.ones_like(bl[valid]))
+    bh = ((_spread(hi[valid]) - base) >> shift).clamp(max=nb)
+    diff.index_add_(0, bh + 1, -torch.ones_like(bh))
+    reach = torch.cumsum(diff, 0) > 0
+    reach[nb] = False
+    first = torch.searchsorted(bl, torch.arange(nb + 1, device=lo.device))
+    return lo_min, top, base, shift, first | (reach.to(torch.int64)
+                                              * _TUBE_REACHED)
+
+
+def tube_mask_index_plain(cols, n: int, lo, pm, hi, boxes,
+                          bits: int | None = None, stage: int = TUBE_STAGE):
+    """bool[n]: the tube kernel's decomposition in torch ops, over the
+    sorted tables of ``tube_pairs`` and the index of
+    ``tube_index_plain`` (``bits`` defaults to the kernel's
+    ``tube_bucket_bits``): a row outside [lo_min, pm_max] or in a bucket
+    no interval reaches is rejected; the rest, packed in row order, each
+    binary-search the pairs between their bucket's two index entries for
+    the last lo <= t and walk back while pm >= t, testing hi >= t and the
+    box. The first ``stage`` pairs are read from a staged copy, the rest
+    from the tables, as the kernel reads shared and global memory. Tests
+    only; ``tube_mask_plain`` is the version the CPU wrapper runs."""
+    k = lo.shape[0]
+    bits = tube_bucket_bits(k) if bits is None else bits
+    lo_min, top, base, shift, index = tube_index_plain(lo, pm, hi, bits)
     t = _time_keys(cols[4][:n], cols[5][:n])
     hit = torch.zeros(n, dtype=torch.bool, device=t.device)
-    open_ = torch.ones(n, dtype=torch.bool, device=t.device)
-    for c0 in range(0, lo.shape[0], chunk):
-        c1 = min(lo.shape[0], c0 + chunk)
-        open_ &= lo[c0] <= t
-        rows = torch.nonzero(open_ & (pm[c1 - 1] >= t)).flatten()
-        # the next pair to test, walking back: the last lo <= t
-        i = torch.searchsorted(lo[c0:c1], t[rows], right=True) - 1 + c0
-        while True:
-            live = (i >= c0) & (pm[i.clamp(min=c0)] >= t[rows])
-            rows, i = rows[live], i[live]
-            if not rows.numel():
-                break
-            b = boxes[i]
-            x = (cols[0][rows], cols[1][rows], cols[2][rows], cols[3][rows])
-            m = ((hi[i] >= t[rows]) & _ge2(x[0], x[1], b[:, 0], b[:, 1])
-                 & _le2(x[0], x[1], b[:, 2], b[:, 3])
-                 & _ge2(x[2], x[3], b[:, 4], b[:, 5])
-                 & _le2(x[2], x[3], b[:, 6], b[:, 7]))
-            hit[rows[m]] = True
-            open_[rows[m]] = False
-            rows, i = rows[~m], i[~m] - 1
+    if top < lo_min:
+        return hit                  # every interval is empty
+    inside = (t >= lo_min) & (t <= top)
+    j = (_spread(torch.where(inside, t, lo_min)) - base) >> shift
+    rows = torch.nonzero(inside & ((index[j] & _TUBE_REACHED) != 0)).flatten()
+    t, j = t[rows], j[rows]
+    staged = min(k, stage)
+    tables = [(tb[:staged].clone(), tb) for tb in (lo, pm, hi, boxes)]
+
+    def pair(which, i):
+        s, g = tables[which]
+        i = i.clamp(0, k - 1)
+        near = i < staged
+        got = torch.where(near.view(-1, *[1] * (g.dim() - 1)),
+                          s[i.clamp(max=staged - 1)], g[i])
+        return got
+    a = index[j] & ~_TUBE_REACHED
+    b = index[j + 1] & ~_TUBE_REACHED
+    while True:
+        live = a < b
+        if not live.any():
+            break
+        mid = (a + b) >> 1
+        le = pair(0, mid) <= t
+        a = torch.where(live & le, mid + 1, a)
+        b = torch.where(live & ~le, mid, b)
+    i = a - 1
+    while True:
+        live = (i >= 0) & (pair(1, i) >= t)
+        rows, i, t = rows[live], i[live], t[live]
+        if not rows.numel():
+            break
+        bx = pair(3, i)
+        x = (cols[0][rows], cols[1][rows], cols[2][rows], cols[3][rows])
+        m = ((pair(2, i) >= t) & _ge2(x[0], x[1], bx[:, 0], bx[:, 1])
+             & _le2(x[0], x[1], bx[:, 2], bx[:, 3])
+             & _ge2(x[2], x[3], bx[:, 4], bx[:, 5])
+             & _le2(x[2], x[3], bx[:, 6], bx[:, 7]))
+        hit[rows[m]] = True
+        rows, i, t = rows[~m], i[~m] - 1, t[~m]
     return hit
 
 
@@ -2339,18 +2437,26 @@ def tube_mask(cols, n: int, boxes, times):
     the scan columns (xhi, xlo, yhi, ylo, tday, tms), whether some pair i
     of the (K, 8) f32 ``boxes`` and (K, 4) int32 ``times`` holds it in
     box i AND interval i (both tables on the columns' device; any K, in
-    any order, intervals overlapping or not; K = 0 matches nothing)."""
+    any order, intervals overlapping or not; K = 0 matches nothing). On
+    CUDA, two launches, both counted: the pairs' records in their sorted
+    order, then the mask (tday and tms read as 16-byte vectors where both
+    are 16-byte aligned, as a ScanData's are, else word by word; a table
+    that is not is copied, K rows)."""
     k = _check_tube(cols, n, boxes, times)
     if _on_cpu(cols, boxes, times):
         return tube_mask_plain(cols, n, boxes, times)
-    out = torch.zeros(n, dtype=torch.bool, device=cols[0].device)
+    boxes, times = (t.clone() if t.data_ptr() % 16 else t
+                    for t in (boxes, times))
+    dev = cols[0].device
     if n == 0 or k == 0:
-        return out
-    lo, pm, hi, bx = tube_pairs(boxes, times)
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    rec = torch.empty((k, 8), dtype=torch.int64, device=dev)
     rc = _library().geomesa_tube_mask(
-        *_ptrs(cols), n, lo.data_ptr(), pm.data_ptr(), hi.data_ptr(),
-        bx.data_ptr(), k, out.data_ptr(),
-        torch.cuda.current_stream(out.device).cuda_stream)
+        *_ptrs(cols), n, times.data_ptr(), boxes.data_ptr(),
+        _tube_order(times).data_ptr(), rec.data_ptr(), k,
+        tube_bucket_bits(k), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "tube_mask")
-    launches["tube_mask"] += 1
+    launches["tube_mask"] += 2
     return out

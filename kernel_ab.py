@@ -126,15 +126,27 @@ compares two versions within one call. Each process:
 - ``--tube-only`` times the tube kernel and nothing else, on
   chip_smoke.py's kernels-phase rows (--rows rows from --seed in a
   power-of-two capacity) against this checkout's chip_smoke.py tubes
-  (``tube_cases``: 720 sparse pairs, 1,000 dense ones): the tree's
-  ``tube_mask`` held and on an idle card (its pair sort included), and
+  (``tube_cases``: 720 sparse pairs, 1,000 dense ones) and a year-long
+  hourly track of 8,760 pairs at 36.5 % of the rows' times
+  (``year_tube``), and one pair before every row's time (``outside``:
+  the time pass alone): the tree's ``tube_mask`` held (as every wrapper
+  is timed, and after 30 warm-up launches behind a spin 4x as long, which
+  covers the wrapper's host work) and on an idle card (its pair sort
+  included), and its kernel alone (the pair tables built once), with its
+  bucket bits and pairs staged where the tree has ``tube_bucket_bits``;
   held beside it the simpler design built by this script from
-  PROBE_SOURCE (``tube_linear``: one row a thread, a row outside the
-  table's overall time range out after its time words, else a linear
-  walk of the pairs staged in shared memory in the table's own order,
-  the interval test first, out at the first match), both checked
-  against the tree's ``tube_mask_plain``; with chip_smoke.py's bound of
-  each tube (``tube_needs``).
+  PROBE_SOURCE (``tube_linear``: one row a thread, a
+  row outside the table's overall time range out after its time words,
+  else a linear walk of the pairs staged in shared memory in the
+  table's own order, the interval test first, out at the first match;
+  sparse and dense only) and the kernel's time pass alone
+  (``tube_stream``: the same tiles, ring and stores, the range test
+  only, at the occupancy the query gives and at 2 and 1 blocks an SM).
+  The sparse and dense masks and the linear probe's are checked against
+  the tree's ``tube_mask_plain``, the year-long one in the first tree
+  only (tens of seconds); every tree's masks must equal the first
+  tree's (sha256). With chip_smoke.py's bound and sector floor of each
+  tube (``tube_needs``).
 
 Medians of 20 launches (CUDA events; 10 for the batched kernels). Every
 gathered and batched result is checked against its plain version.
@@ -526,6 +538,93 @@ extern "C" int probe_tube_linear(const float* xhi, const float* xlo,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tube kernel's time pass alone: its persistent grid, tiles of 2,048
+// rows and ring of two tiles filled by cp.async, each thread's 4 rows'
+// words read as two 16-byte vectors and a verdict (the range test
+// t_min <= t <= t_max) stored as one 4-byte word; no index, no
+// candidates, no pairs. The floor of the kernel's streaming half, at the
+// occupancy the query gives or at most per_sm_cap blocks an SM.
+constexpr int kStreamThreads = 512;
+constexpr int kStreamTile = 4 * kStreamThreads;
+
+__device__ __forceinline__ void stream_copy(int* stage, const int* tday,
+                                            const int* tms, int64_t tile,
+                                            int64_t n) {
+  const int64_t row = tile * kStreamTile + 4 * threadIdx.x;
+  if (row < n) {
+    const int bytes = n - row >= 4 ? 16 : static_cast<int>(n - row) * 4;
+    const unsigned d = static_cast<unsigned>(
+        __cvta_generic_to_shared(stage + 4 * threadIdx.x));
+    const unsigned m = static_cast<unsigned>(
+        __cvta_generic_to_shared(stage + kStreamTile + 4 * threadIdx.x));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(tday + row), "r"(bytes) : "memory");
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(m),
+                 "l"(tms + row), "r"(bytes) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kStreamThreads)
+tube_stream(const int* __restrict__ tday, const int* __restrict__ tms,
+            int64_t n, long long t_min, long long t_max,
+            unsigned char* __restrict__ out) {
+  __shared__ __align__(16) int ring[2 * 2 * kStreamTile];
+  const int64_t ntiles = (n + kStreamTile - 1) / kStreamTile;
+  for (int s = 0; s < 2; ++s) {
+    const int64_t t = blockIdx.x + static_cast<int64_t>(s) * gridDim.x;
+    stream_copy(ring + s * 2 * kStreamTile, tday, tms, t < ntiles ? t : ntiles,
+                n);
+  }
+  int stage = 0;
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    const int* sd = ring + stage * 2 * kStreamTile;
+    const int4 d = reinterpret_cast<const int4*>(sd)[threadIdx.x];
+    const int4 m = reinterpret_cast<const int4*>(sd + kStreamTile)[threadIdx.x];
+    const int days[4] = {d.x, d.y, d.z, d.w};
+    const int mss[4] = {m.x, m.y, m.z, m.w};
+    unsigned w = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const long long t = static_cast<long long>(days[r]) * 4294967296LL +
+                          (static_cast<long long>(mss[r]) + 2147483648LL);
+      w |= static_cast<unsigned>(t >= t_min && t <= t_max) << (8 * r);
+    }
+    const int64_t row0 = tile * kStreamTile + 4 * threadIdx.x;
+    if (row0 + 4 <= n) {
+      *reinterpret_cast<unsigned*>(out + row0) = w;
+    } else {
+      for (int r = 0; r < 4; ++r)
+        if (row0 + r < n) out[row0 + r] = static_cast<unsigned char>(w >> (8 * r));
+    }
+    __syncthreads();  // as the kernel's barriers a tile
+    const int64_t next = tile + 2 * static_cast<int64_t>(gridDim.x);
+    stream_copy(ring + stage * 2 * kStreamTile, tday, tms,
+                next < ntiles ? next : ntiles, n);
+    stage ^= 1;
+  }
+}
+
+extern "C" int probe_tube_stream(const int* tday, const int* tms, int64_t n,
+                                 long long t_min, long long t_max, bool* out,
+                                 int per_sm_cap, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tube_stream,
+                                                kStreamThreads, 0);
+  if (per_sm_cap > 0 && per_sm > per_sm_cap) per_sm = per_sm_cap;
+  int64_t blocks = (n + kStreamTile - 1) / kStreamTile;
+  if (blocks > static_cast<int64_t>(sms) * per_sm)
+    blocks = static_cast<int64_t>(sms) * per_sm;
+  if (n < 1 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  tube_stream<<<static_cast<int>(blocks), kStreamThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      tday, tms, n, t_min, t_max, reinterpret_cast<unsigned char*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int probe_compact(const uint32_t* bits, const int32_t* partials,
                              const int32_t* offsets, const int64_t* totals,
                              int qp, int64_t nb, int64_t words, int mode,
@@ -576,12 +675,16 @@ def build_probe():
                                                 ctypes.c_longlong,
                                                 ctypes.c_longlong, p, p]
     dll.probe_tube_linear.restype = ctypes.c_int
+    dll.probe_tube_stream.argtypes = [p, p, i64, ctypes.c_longlong,
+                                      ctypes.c_longlong, p, ctypes.c_int, p]
+    dll.probe_tube_stream.restype = ctypes.c_int
     return dll
 
 
-def cuda_ms(fn, held: bool, flush=None, iters: int = 20) -> float:
+def cuda_ms(fn, held: bool, flush=None, iters: int = 20,
+            warmup: int = 2, hold: int = HOLD_CYCLES) -> float:
     import torch
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
@@ -590,7 +693,7 @@ def cuda_ms(fn, held: bool, flush=None, iters: int = 20) -> float:
         if flush is not None:
             flush()
         if held:
-            torch.cuda._sleep(HOLD_CYCLES)
+            torch.cuda._sleep(hold)
         a.record()
         fn()
         b.record()
@@ -1256,10 +1359,76 @@ def knn_case(kernels, args) -> dict:
             "bare_ms": cuda_ms(run, False)}
 
 
-def tube_case(kernels, zscan, seed: int, rows: int, probe) -> dict:
-    """The tree's tube kernel and the linear probe on chip_smoke.py's
-    kernels-phase rows against this checkout's chip_smoke.py tubes, each
-    checked against the tree's plain version."""
+YEAR_PAIRS = 8760        # hourly bins of a year-long track
+# launches ahead of a tube's long-spin timing and of the probes' timings
+TUBE_WARMUP = 30
+# the spin ahead of a tube's long-spin timing: past the wrapper's host
+# work (its pair sort and two launches), where HOLD_CYCLES may not be
+TUBE_HOLD = 4 * HOLD_CYCLES
+
+
+def year_tube(smoke, seed: int):
+    """The third tube: a vessel's year-long AIS-like track
+    (chip_smoke.ais_track, 12 knots) binned by the hour, 8,760 pairs from
+    day 300 of the rows' 1,000 days (36.5 % of their times), its
+    positions wrapped into the world, boxes 0.1-0.5 degrees wide."""
+    rng = np.random.default_rng(seed + 21)
+    t0 = 300 * MS_DAY
+    hour = smoke.HOUR_MS
+    cx, cy, _ = smoke.ais_track(rng, YEAR_PAIRS, t0, hour, -60.0, 20.0)
+    cx = (cx + 180.0) % 360.0 - 180.0
+    cy = (cy + 90.0) % 360.0
+    cy = np.where(cy > 180.0, 360.0 - cy, cy) - 90.0
+    w = rng.uniform(0.1, 0.5, (YEAR_PAIRS, 2))
+    boxes = np.stack([cx - w[:, 0] / 2, cy - w[:, 1] / 2, cx + w[:, 0] / 2,
+                      cy + w[:, 1] / 2], axis=1)
+    lo = t0 + np.arange(YEAR_PAIRS, dtype=np.int64) * hour
+    return "year", boxes, np.stack([lo, lo + hour - 1], 1)
+
+
+def tube_alone(kernels, cols, n: int, bx, tm):
+    """The tree's tube kernel alone: its pair tables built once, then a
+    launch of the library's entry as the tree's wrapper makes it (the
+    lo keys' argsort and the records' room where the tree has
+    ``_tube_order``, its records made by the entry's first launch; else
+    the four sorted tables the earlier entry takes)."""
+    import torch
+    out = torch.empty(n, dtype=torch.bool, device=bx.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [c.data_ptr() for c in cols]
+    k = bx.shape[0]
+    lib = kernels._library()
+    if hasattr(kernels, "_tube_order"):
+        order = kernels._tube_order(tm)
+        rec = (order, torch.empty((k, 8), dtype=torch.int64, device=bx.device))
+        # the bucket bits, where the entry takes them (15 arguments)
+        bits = ((kernels.tube_bucket_bits(k),)
+                if len(lib.geomesa_tube_mask.argtypes) == 15 else ())
+        args = (*ptrs, n, tm.data_ptr(), bx.data_ptr(), order.data_ptr(),
+                rec[1].data_ptr(), k, *bits, out.data_ptr(), stream)
+    else:
+        lo, pm, hi, sb = kernels.tube_pairs(bx, tm)
+        rec = (lo, pm, hi, sb)
+        args = (*ptrs, n, lo.data_ptr(), pm.data_ptr(), hi.data_ptr(),
+                sb.data_ptr(), bx.shape[0], out.data_ptr(), stream)
+
+    def run():
+        rc = lib.geomesa_tube_mask(*args)
+        if rc:
+            raise RuntimeError(f"tube launch failed: cudaError {rc}")
+    run.keep = rec     # the tables live as long as the launch
+    return run, out
+
+
+def tube_case(kernels, zscan, seed: int, rows: int, probe,
+              plain_check: bool) -> dict:
+    """The tree's tube kernel on chip_smoke.py's kernels-phase rows
+    against this checkout's chip_smoke.py tubes and the year-long one,
+    beside the linear probe (sparse and dense) and the streaming probe;
+    the sparse and dense masks checked against the tree's plain version,
+    the year-long one where ``plain_check`` (once a call: it takes tens
+    of seconds), every mask's sha256 printed for the trees to agree."""
+    import hashlib
     import torch
     from geomesa_tpu_torch.analytics.tube import tube_tables
     dev = torch.device("cuda")
@@ -1272,14 +1441,20 @@ def tube_case(kernels, zscan, seed: int, rows: int, probe) -> dict:
     del x, y, ms
     n = data.n
     out = {}
-    for label, boxes, iv in smoke.tube_cases(seed):
+    stream = torch.cuda.current_stream().cuda_stream
+    res = torch.empty(n, dtype=torch.bool, device=dev)
+    keys = (data.cols[4][:n].long() * (1 << 32) + data.cols[5][:n].long()
+            + (1 << 31))
+    # a tube before every row's time: the time pass alone
+    outside = ("outside", np.array([[-10.0, -10.0, 10.0, 10.0]]),
+               np.array([[-10 * MS_DAY, -9 * MS_DAY]]))
+    for label, boxes, iv in [*smoke.tube_cases(seed), year_tube(smoke, seed),
+                             outside]:
         bx, tm = (torch.from_numpy(a).to(dev) for a in tube_tables(boxes, iv))
         k = bx.shape[0]
         t = tm.cpu().numpy().astype(np.int64)
         t_min = int((t[:, 0] * (1 << 32) + t[:, 1] + (1 << 31)).min())
         t_max = int((t[:, 2] * (1 << 32) + t[:, 3] + (1 << 31)).max())
-        res = torch.empty(n, dtype=torch.bool, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
 
         def kern():
             return kernels.tube_mask(data.cols, n, bx, tm)
@@ -1290,21 +1465,58 @@ def tube_case(kernels, zscan, seed: int, rows: int, probe) -> dict:
                 bx.data_ptr(), k, t_min, t_max, res.data_ptr(), stream)
             if rc:
                 raise RuntimeError(f"probe launch failed: cudaError {rc}")
-        want = kernels.tube_mask_plain(data.cols, n, bx, tm)
-        if not torch.equal(kern(), want):
-            raise SystemExit(f"{label} tube: tube_mask != plain")
-        linear()
-        if not torch.equal(res, want):
-            raise SystemExit(f"{label} tube: the linear probe != plain")
-        held, pair_tests = smoke.tube_needs(data.cols, n, tm)
+
+        def streaming(cap):
+            def run():
+                rc = probe.probe_tube_stream(
+                    data.cols[4].data_ptr(), data.cols[5].data_ptr(), n, t_min,
+                    t_max, res.data_ptr(), cap, stream)
+                if rc:
+                    raise RuntimeError(f"probe launch failed: cudaError {rc}")
+            return run
+        got = kern()
+        case = {"pairs": k, "hits": int(got.sum().item()),
+                "mask_sha256": hashlib.sha256(
+                    got.cpu().numpy().tobytes()).hexdigest()}
+        if label != "year" or plain_check:
+            want = kernels.tube_mask_plain(data.cols, n, bx, tm)
+            if not torch.equal(got, want):
+                raise SystemExit(f"{label} tube: tube_mask != plain")
+            case["equal_plain"] = True
+        alone, alone_out = tube_alone(kernels, data.cols, n, bx, tm)
+        alone()
+        if not torch.equal(alone_out, got):
+            raise SystemExit(f"{label} tube: the kernel alone != tube_mask")
+        if hasattr(kernels, "tube_bucket_bits"):
+            case["plan"] = {"bucket_bits": kernels.tube_bucket_bits(k),
+                            "staged": min(k, kernels.TUBE_STAGE)}
+        held, pair_tests, sectors = smoke.tube_needs(data.cols, n, tm)
         nbytes = 9 * n + 16 * held + k * 48
-        out[f"tube_{label}_100m"] = {
-            "pairs": k, "hits": int(want.sum().item()),
+        case.update({
             "rows_in_interval": held, "pair_tests_needed": pair_tests,
             "bound_ms": smoke.bound_ms(nbytes, 7 * n + 13 * pair_tests)[0],
+            "sector_floor_ms": (9 * n + 4 * smoke.SECTOR_BYTES * sectors
+                                + k * 48) / smoke.HBM_BYTES_PER_S * 1e3,
             "tube_mask": {"held": cuda_ms(kern, True),
-                          "bare": cuda_ms(kern, False)},
-            "linear_probe": {"held": cuda_ms(linear, True)}}
+                          "held_long_spin": cuda_ms(kern, True,
+                                                    warmup=TUBE_WARMUP,
+                                                    hold=TUBE_HOLD),
+                          "bare": cuda_ms(kern, False),
+                          "alone": cuda_ms(alone, True, warmup=TUBE_WARMUP,
+                                           hold=TUBE_HOLD)}})
+        streaming(0)()
+        if not torch.equal(res, (keys >= t_min) & (keys <= t_max)):
+            raise SystemExit(f"{label} tube: the streaming probe is wrong")
+        case["stream_probe"] = {f"{c}_per_sm" if c else "occupancy":
+                                cuda_ms(streaming(c), True,
+                                        warmup=TUBE_WARMUP)
+                                for c in (0, 2, 1)}
+        if label in ("sparse", "dense"):   # 8,760 pairs take seconds
+            linear()
+            if not torch.equal(res, want):
+                raise SystemExit(f"{label} tube: the linear probe != plain")
+            case["linear_probe"] = {"held": cuda_ms(linear, True)}
+        out[f"tube_{label}_100m"] = case
     return out
 
 
@@ -1316,7 +1528,8 @@ def torch_equal(a, b) -> bool:
 def worker(tree: str, seed: int, rows: int, store_rows: int,
            predicates_only: bool = False, density_only: bool = False,
            store_only: bool = False, prefix_only: bool = False,
-           joins_only: bool = False, tube_only: bool = False) -> dict:
+           joins_only: bool = False, tube_only: bool = False,
+           plain_check: bool = False) -> dict:
     sys.path.insert(0, tree)
     import torch
     from geomesa_tpu_torch.index.zkeys import ZKeyIndex, search_rows
@@ -1339,7 +1552,8 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
         return {"tree": tree, "density_10m": density_case(
             _smoke(), seed, store_rows, probe) if has_density else None}
     if tube_only:
-        return {"tree": tree, **tube_case(kernels, zscan, seed, rows, probe)}
+        return {"tree": tree, **tube_case(kernels, zscan, seed, rows, probe,
+                                          plain_check)}
     if prefix_only:
         return {"tree": tree, **prefix_only_case(
             kernels, zscan, _smoke(), seed, rows, store_rows, probe)}
@@ -1454,16 +1668,19 @@ def main():
                          "dwithin_wide_10m, slab_10m, knn_10m_32q, "
                          "contains_100m, slab_box_100m, knn_50m_8q)")
     ap.add_argument("--tube-only", action="store_true",
-                    help="time only the tube kernel and the linear probe "
-                         "(tube_sparse_100m, tube_dense_100m)")
+                    help="time only the tube kernel and its probes "
+                         "(tube_sparse_100m, tube_dense_100m, "
+                         "tube_year_100m)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--plain-check", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         print(json.dumps(worker(args.worker, args.seed, args.rows,
                                 args.store_rows, args.predicates_only,
                                 args.density_only, args.store_only,
                                 args.prefix_only, args.joins_only,
-                                args.tube_only)),
+                                args.tube_only, args.plain_check)),
               flush=True)
         return 0
     if not args.trees:
@@ -1471,7 +1688,8 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
-    for tree in args.trees:
+    hashes = {}
+    for i, tree in enumerate(args.trees):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
              os.path.abspath(tree), "--seed", str(args.seed), "--rows",
@@ -1481,7 +1699,8 @@ def main():
              *(["--store-only"] if args.store_only else []),
              *(["--prefix-only"] if args.prefix_only else []),
              *(["--joins-only"] if args.joins_only else []),
-             *(["--tube-only"] if args.tube_only else [])],
+             *(["--tube-only"] if args.tube_only else []),
+             *(["--plain-check"] if args.tube_only and i == 0 else [])],
             capture_output=True, text=True, cwd=ROOT)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)
@@ -1489,6 +1708,12 @@ def main():
         line = json.loads(proc.stdout.strip().splitlines()[-1])
         line["card"] = card
         print(json.dumps(line), flush=True)
+        for key, case in line.items():
+            if isinstance(case, dict) and "mask_sha256" in case:
+                if hashes.setdefault(key, case["mask_sha256"]) != \
+                        case["mask_sha256"]:
+                    raise SystemExit(f"{tree}: {key}'s mask differs from "
+                                     f"the first tree's")
     return 0
 
 

@@ -213,7 +213,7 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                  "dwithin_counts_tiles_plain",
                  "contains_counts_tiles_plain", "slab_pairs_tiles_plain",
                  "_slab_hits", "knn_topk_blocks_plain", "_knn_keys",
-                 "tube_mask_plain", "tube_mask_search_plain"):
+                 "tube_mask_plain", "tube_mask_index_plain"):
         monkeypatch.setattr(kernels, name, refuse)
     x, y, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -252,7 +252,7 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                                 "density_grid": 1, "extent_tristate": 1,
                                 "dwithin_counts": 1, "slab_pairs": 4,
                                 "contains_counts": 1, "knn_topk": 3,
-                                "tube_mask": 1}
+                                "tube_mask": 2}
     join.clear_xsort_cache()
 
 
