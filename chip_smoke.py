@@ -82,6 +82,28 @@ Phases, one JSON line each; any failure exits non-zero:
            launch counts zeroed before the calls and read after:
            tube_mask must have launched; then one call of each track
            split into TubeBuilder, tables, kernel and ids (host clock).
+           (durable) bench.py's config 7 on the card at --store-rows:
+           the ais schema written in 100 chunks non-durable, then into
+           a durable store (InMemoryDataStore(durable_dir=...)) under
+           the "always" fsync policy, with rows/s, the overhead against
+           the non-durable run, WAL MB, fsyncs and the seconds of the
+           Arrow IPC encode and of the fsyncs; a cold full recovery of
+           that log, a checkpoint (s, bytes), a reopen bounded by it;
+           8 chunks of 10k new ids, 2 chunks of 1k existing ids moved
+           (delete, then write) and 2 deletes of 1k ids, then an abort
+           with a torn partial frame after the last record and a
+           reopen. Each reopen is split into its snapshot load, tail
+           replay and first query (host clock). After every reopen, and
+           before the crash, the three store queries through the
+           gathered and the dense tiers must equal a float64 brute
+           force over the expected rows (ids, rows, query_count; the
+           count equal to the rows), and each reopen's answers those
+           before the crash; the scan kernels must launch (launch
+           counts zeroed before the phase, read after). Then the
+           "interval" and "never" ingests, at config 7's own 1M rows
+           once the phase would pass 120 s (``cut``). Each durable
+           store writes into a temporary directory of its own, removed
+           when the phase ends.
 4. batched the serving path on the store phase's 10M rows: 32 seeded
            queries in the store's dates through query_batched at batch
            sizes 2, 8 and 32, every query's ids equal to the float64
@@ -1241,6 +1263,366 @@ def phase_tube(seed: int, ds, rows) -> int:
         raise SystemExit(f"tube select: wrong ids: {wrong}")
     if launches == 0:
         raise SystemExit("tube_mask never launched on the tube select path")
+    return launches
+
+
+# -- durability: the write-ahead log, checkpoints, crash recovery ------------
+
+DURABLE_CHUNKS = 100          # bench.py config 7: rows // 100 a write
+DURABLE_REPEATS = 3           # non-durable and "always" ingests, alternated
+DURABLE_POLICIES = ("always", "interval", "never")
+DURABLE_BUDGET_S = 120.0      # the phase's share of the script's time
+DURABLE_CUT_ROWS = 1_000_000  # config 7's own rows, for a cut policy
+DURABLE_TAIL = (8, 10_000)    # new-id chunks written after the checkpoint
+DURABLE_UPDATES = (2, 1_000)  # chunks of existing ids moved (delete, write)
+DURABLE_DELETES = (2, 1_000)  # deletes of existing ids
+TORN_FRAME = b"\x1f\x00\x00\x00 a torn in-flight append"
+
+
+def _wal_timers() -> dict:
+    """Counts and summed seconds of the WAL's encode and fsync timers and
+    its fsync counter, from the port's metrics registry."""
+    from geomesa_tpu_torch.metrics import metrics
+    snap = metrics.snapshot()
+    out = {"fsyncs": snap["counters"].get("wal.fsyncs", 0)}
+    for name in ("wal.encode", "wal.fsync"):
+        t = snap["timers"].get(name, {"count": 0, "mean_ms": 0.0})
+        out[name] = t["count"] * t["mean_ms"] / 1e3
+    return out
+
+
+def _ingest(ds, ids, ms, x, y, chunk: int) -> list:
+    """Chunked write_dict of the rows; the host-clock seconds after each
+    chunk (cumulative)."""
+    marks, t0 = [], time.perf_counter()
+    for lo in range(0, len(ids), chunk):
+        hi = lo + chunk
+        ds.write_dict("ais", ids[lo:hi], {"dtg": ms[lo:hi],
+                                          "geom": (x[lo:hi], y[lo:hi])})
+        marks.append(time.perf_counter() - t0)
+    return marks
+
+
+class _ReplayClock:
+    """Times recovery's parts around a store's construction: replay_into
+    is wrapped for the call, so everything before it (the log's open and
+    torn-tail scan, the checkpoint's read, verify, decode and write) is
+    the snapshot load, and replay_into itself is the tail replay."""
+
+    def __enter__(self):
+        from geomesa_tpu_torch.wal import recovery
+        self._mod, self._real = recovery, recovery.replay_into
+        self.t0 = time.perf_counter()
+        self.replay = [None, None]
+
+        def timed(*a, **k):
+            self.replay[0] = time.perf_counter()
+            try:
+                return self._real(*a, **k)
+            finally:
+                self.replay[1] = time.perf_counter()
+        recovery.replay_into = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.replay_into = self._real
+        self.t1 = time.perf_counter()
+
+    def split(self) -> dict:
+        r0, r1 = self.replay
+        return {"open_s": self.t1 - self.t0, "snapshot_load_s": r0 - self.t0,
+                "tail_replay_s": r1 - r0}
+
+
+def _store_answers(ds, x, y, ms, ids, what: str) -> dict:
+    """The STORE_QUERIES through the gathered and the dense tiers: ids,
+    rows and query_count against the float64 brute force over the
+    expected rows (x, y, ms, ids in the store's row order); the count
+    against the rows. Returns {(tier, query): ids}; raises on any
+    mismatch."""
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    host_rows = SystemProperty("geomesa.scan.host.rows")
+    threshold = SystemProperty("geomesa.scan.index.threshold")
+    if ds.count("ais") != len(ids):
+        raise SystemExit(f"durable {what}: count {ds.count('ais')} != "
+                         f"{len(ids)} expected rows")
+    out = {}
+    try:
+        for tier, (h, thr) in {"gathered": ("0", "1.0"),
+                               "dense": ("0", "0")}.items():
+            host_rows.set(h)
+            threshold.set(thr)
+            for qi, (ecql, boxes, iv) in enumerate(STORE_QUERIES):
+                want = _brute(x, y, ms, boxes, iv)
+                res = ds.query(ecql, "ais")
+                line = ("Index-pruned device scan" if tier == "gathered"
+                        else "Device scan:")
+                if line not in res.explain.text:
+                    raise SystemExit(f"durable {what}: the {tier} tier did "
+                                     f"not run for {ecql!r}")
+                if not (np.array_equal(res.rows, want)
+                        and np.array_equal(res.ids, ids[want])
+                        and ds.query_count(ecql, "ais") == len(want)):
+                    raise SystemExit(f"durable {what}: {tier} tier wrong "
+                                     f"for {ecql!r}")
+                out[(tier, qi)] = res.ids
+    finally:
+        host_rows.set(None)
+        threshold.set(None)
+    return out
+
+
+def _same_answers(got: dict, want: dict, what: str):
+    bad = [k for k in want if not np.array_equal(got[k], want[k])]
+    if bad:
+        raise SystemExit(f"durable {what}: answers differ from the store "
+                         f"before the crash: {bad}")
+
+
+def _reopen(root: str, what: str, x, y, ms, ids) -> tuple:
+    """Open a durable store on CUDA over ``root`` (recovery timed in its
+    parts), run the north-star query once (its first query), then gate
+    every STORE_QUERIES answer; the scan kernels must launch."""
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.scan import kernels
+    with _ReplayClock() as clock:
+        ds = InMemoryDataStore(durable_dir=root)
+    t0 = time.perf_counter()
+    ds.query(STORE_QUERIES[0][0], "ais").ids
+    first_s = time.perf_counter() - t0
+    before = dict(kernels.launches)
+    answers = _store_answers(ds, x, y, ms, ids, what)
+    moved = {k: kernels.launches[k] - before[k]
+             for k in ("scan_mask", "scan_mask_gather")}
+    rep = ds.journal.last_report
+    line = {"reopen": what, **clock.split(), "first_query_s": first_s,
+            "total_s": clock.split()["open_s"] + first_s,
+            "report": rep.to_json_object(), "scan_launches": moved}
+    if min(moved.values()) == 0:
+        raise SystemExit(f"durable {what}: scan kernels never launched: "
+                         f"{moved}")
+    return ds, answers, line
+
+
+def phase_durable(seed: int, rows: int) -> dict:
+    """bench.py's config 7 on the card at the store's rows: the ais
+    schema written in DURABLE_CHUNKS chunks non-durable and into a
+    durable store under the "always" policy, DURABLE_REPEATS times each,
+    alternated (the overhead is the ratio of the medians); a cold full
+    recovery of the last "always" run's
+    log, a checkpoint, a reopen bounded by it; a tail of new ids,
+    updates (delete, then write) and deletes, an abort with a torn
+    partial frame, and a reopen; then the "interval" and "never"
+    ingests, at DURABLE_CUT_ROWS once the phase would pass
+    DURABLE_BUDGET_S. Each durable store writes into a temporary
+    directory of its own, removed when the phase ends. Every reopen's
+    answers are held to the float64 brute force over the expected rows
+    and to the store's before the crash. Launch counts are zeroed
+    before the phase and read after; returns them."""
+    import shutil
+    import tempfile
+
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.wal.log import list_segments
+    rng = np.random.default_rng(seed + 7)
+    x = rng.uniform(-180, 180, rows)
+    y = rng.uniform(-90, 90, rows)
+    ms = rng.integers(T0_DAY * MS_DAY, T1_DAY * MS_DAY, rows)
+    ids = np.arange(rows).astype(str).astype(object)
+    chunk = rows // DURABLE_CHUNKS
+    spec = "dtg:Date,*geom:Point:srid=4326"
+    t_phase = time.perf_counter()
+    roots = []
+
+    def mkroot(policy):
+        roots.append(tempfile.mkdtemp(prefix=f"geomesa-durable-{policy}-"))
+        return roots[-1]
+    kernels.reset_launches()
+    try:
+        # the encode path's first use (pyarrow's import, the first IPC
+        # stream) outside every timed run
+        warm = InMemoryDataStore(durable_dir=mkroot("warm"),
+                                 wal_fsync="never")
+        warm.create_schema("ais", spec)
+        _ingest(warm, ids[:chunk], ms[:chunk], x[:chunk], y[:chunk], chunk)
+        warm.close()
+        del warm
+        # the non-durable and the "always" ingests alternate, the same
+        # rows each time, so that neither side owns a point of the phase;
+        # the overhead is the ratio of their medians
+        base_runs, always_runs, ingest, cut = [], [], {}, []
+
+        def base_ingest():
+            ds = InMemoryDataStore()
+            ds.create_schema("ais", spec)
+            marks = _ingest(ds, ids, ms, x, y, chunk)
+            del ds
+            torch.cuda.empty_cache()
+            base_runs.append(marks)
+            emit({"phase": "durable", "ingest": "non_durable",
+                  "run": len(base_runs), "rows": rows, "chunk_rows": chunk,
+                  "seconds": marks[-1], "rows_per_s": rows / marks[-1]})
+
+        def durable_ingest(policy, n, ref_s):
+            root = mkroot(policy)
+            ds = InMemoryDataStore(durable_dir=root, wal_fsync=policy)
+            ds.create_schema("ais", spec)
+            w0 = _wal_timers()
+            marks = _ingest(ds, ids[:n], ms[:n], x[:n], y[:n], chunk)
+            w1 = _wal_timers()
+            ds.close()
+            del ds
+            torch.cuda.empty_cache()
+            wal_bytes = sum(os.path.getsize(p) for _, p in
+                            list_segments(os.path.join(root, "log")))
+            el = marks[-1]
+            line = {"phase": "durable", "ingest": policy, "rows": n,
+                    "seconds": el, "rows_per_s": n / el,
+                    "overhead_pct": (el / ref_s - 1.0) * 100.0,
+                    "wal_mb": wal_bytes / 1e6,
+                    "fsyncs": w1["fsyncs"] - w0["fsyncs"],
+                    "encode_s": w1["wal.encode"] - w0["wal.encode"],
+                    "fsync_s": w1["wal.fsync"] - w0["wal.fsync"]}
+            line["encode_share"] = line["encode_s"] / el
+            line["fsync_share"] = line["fsync_s"] / el
+            emit(line)
+            return root, line
+        root = None
+        for i in range(DURABLE_REPEATS):
+            base_ingest()
+            if root is not None:     # the last run's log is the one reopened
+                shutil.rmtree(root, ignore_errors=True)
+            # each "always" run against the non-durable run just before it
+            root, line = durable_ingest("always", rows, base_runs[-1][-1])
+            line["run"] = i + 1
+            always_runs.append(line)
+        base_marks = np.median(np.array(base_runs), axis=0)
+        base_s = float(base_marks[-1])
+        med = {k: statistics.median(r[k] for r in always_runs)
+               for k in ("seconds", "encode_s", "fsync_s")}
+        gap = med["seconds"] - base_s
+        ingest["always"] = {
+            "phase": "durable", "ingest": "always_vs_non_durable",
+            "runs": DURABLE_REPEATS, "rows": rows,
+            "non_durable_s": [m[-1] for m in base_runs],
+            "always_s": [r["seconds"] for r in always_runs],
+            "non_durable_median_s": base_s, "seconds": med["seconds"],
+            "rows_per_s": rows / med["seconds"],
+            "overhead_pct": (med["seconds"] / base_s - 1.0) * 100.0,
+            "overhead_pct_pairs": [r["overhead_pct"] for r in always_runs],
+            "encode_median_s": med["encode_s"],
+            "fsync_median_s": med["fsync_s"],
+            "encode_of_gap": med["encode_s"] / gap if gap > 0 else None,
+            "fsync_of_gap": med["fsync_s"] / gap if gap > 0 else None}
+        emit(ingest["always"])
+        reopens = []
+        # a cold full recovery: every record of the log replayed
+        ds, answers, line = _reopen(root, "full", x, y, ms, ids)
+        reopens.append(line)
+        emit({"phase": "durable", **line})
+        t0 = time.perf_counter()
+        info = ds.checkpoint()
+        ckpt = {"seconds": time.perf_counter() - t0, "lsn": info["lsn"],
+                "bytes": sum(os.path.getsize(os.path.join(info["path"], f))
+                             for f in os.listdir(info["path"])),
+                "segments_dropped": info["segments_dropped"]}
+        emit({"phase": "durable", "checkpoint": ckpt})
+        ds.close()
+        del ds
+        torch.cuda.empty_cache()
+        # the reopen bounded by the checkpoint: the snapshot, no tail
+        ds, bounded, line = _reopen(root, "checkpoint", x, y, ms, ids)
+        reopens.append(line)
+        emit({"phase": "durable", **line})
+        _same_answers(bounded, answers, "checkpoint reopen")
+        # the tail: new ids, updates (delete, then write at new
+        # positions), deletes; the expected rows follow the store's
+        # order (kept rows in place, written rows appended)
+        trng = np.random.default_rng(seed + 8)
+        keep = np.ones(rows, dtype=bool)
+        tail = []
+        for c in range(DURABLE_TAIL[0]):
+            k = DURABLE_TAIL[1]
+            tid = np.array([f"n{c}-{i}" for i in range(k)], dtype=object)
+            tx, ty = trng.uniform(-180, 180, k), trng.uniform(-90, 90, k)
+            tms = trng.integers(T0_DAY * MS_DAY, T1_DAY * MS_DAY, k)
+            ds.write_dict("ais", tid, {"dtg": tms, "geom": (tx, ty)})
+            tail.append((tx, ty, tms, tid))
+        picks = trng.choice(rows, DURABLE_UPDATES[0] * DURABLE_UPDATES[1]
+                            + DURABLE_DELETES[0] * DURABLE_DELETES[1],
+                            replace=False)
+        t0 = time.perf_counter()
+        for c in range(DURABLE_UPDATES[0]):
+            rid = picks[c * DURABLE_UPDATES[1]:(c + 1) * DURABLE_UPDATES[1]]
+            tx = np.clip(x[rid] + trng.normal(0, 0.5, len(rid)), -180, 180)
+            ty = np.clip(y[rid] + trng.normal(0, 0.5, len(rid)), -90, 90)
+            ds.delete("ais", ids[rid])
+            ds.write_dict("ais", ids[rid], {"dtg": ms[rid], "geom": (tx, ty)})
+            keep[rid] = False
+            tail.append((tx, ty, ms[rid], ids[rid]))
+        off = DURABLE_UPDATES[0] * DURABLE_UPDATES[1]
+        for c in range(DURABLE_DELETES[0]):
+            rid = picks[off + c * DURABLE_DELETES[1]:
+                        off + (c + 1) * DURABLE_DELETES[1]]
+            ds.delete("ais", ids[rid])
+            keep[rid] = False
+        tail_s = time.perf_counter() - t0
+        ex, ey, ems, eids = (np.concatenate([a[keep]] + [t[i] for t in tail])
+                             for i, a in enumerate((x, y, ms, ids)))
+        before = _store_answers(ds, ex, ey, ems, eids, "before the crash")
+        ds.journal.abort()
+        del ds
+        torch.cuda.empty_cache()
+        _, seg = list_segments(os.path.join(root, "log"))[-1]
+        with open(seg, "ab") as f:
+            f.write(TORN_FRAME)
+        ds, crashed, line = _reopen(root, "crash", ex, ey, ems, eids)
+        line["updates_deletes_s"] = tail_s
+        reopens.append(line)
+        emit({"phase": "durable", **line})
+        _same_answers(crashed, before, "crash reopen")
+        rep = line["report"]
+        if rep["torn_records_dropped"] != 1 or rep["records_failed"]:
+            raise SystemExit(f"durable crash reopen: {rep}")
+        ds.close()
+        del ds
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+        launches = dict(kernels.launches)
+        # the other policies, at config 7's own rows once the phase has
+        # spent its budget's share
+        for policy in DURABLE_POLICIES[1:]:
+            n = rows
+            if rows > DURABLE_CUT_ROWS and time.perf_counter() - t_phase \
+                    + 2 * ingest["always"]["seconds"] > DURABLE_BUDGET_S:
+                n = DURABLE_CUT_ROWS
+                cut.append(policy)
+            ref_s = base_s if n == rows else float(base_marks[n // chunk - 1])
+            shutil.rmtree(durable_ingest(policy, n, ref_s)[0],
+                          ignore_errors=True)
+        counts = {k: launches[k] for k in ("scan_mask", "scan_mask_gather",
+                                           "scan_count")}
+        summary = {
+            "phase": "durable", "rows": rows, "card": card_line(),
+            "seconds": time.perf_counter() - t_phase, "cut": cut,
+            "cut_rows": DURABLE_CUT_ROWS if cut else None,
+            "always_overhead_pct": ingest["always"]["overhead_pct"],
+            "always_overhead_pct_pairs":
+                ingest["always"]["overhead_pct_pairs"],
+            "full_recovery_s": reopens[0]["open_s"],
+            "checkpoint_recovery_s": reopens[1]["open_s"],
+            "crash_recovery_s": reopens[2]["open_s"],
+            "first_query_p50_s": statistics.median(
+                r["first_query_s"] for r in reopens),
+            "checkpoint_bytes": ckpt["bytes"], "launches": counts}
+        emit(summary)
+        if min(counts[k] for k in ("scan_mask", "scan_mask_gather")) == 0:
+            raise SystemExit(f"scan kernels never launched on the durable "
+                             f"path: {counts}")
+    finally:
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
     return launches
 
 
@@ -3951,6 +4333,9 @@ def main():
     phase_native(ds, rows)
     phase_versions(ds, rows)
     launches["tube_mask"] = phase_tube(args.seed, ds, rows)
+    durable = phase_durable(args.seed, args.store_rows)
+    for name in ("scan_mask", "scan_mask_gather", "scan_count"):
+        launches[name] += durable[name]
     batched = phase_batched(args.seed, ds, rows)
     for name in ("scan_batch_bits", "compact_prefix", "compact_bits"):
         launches[name] = batched[name]

@@ -283,9 +283,12 @@ def _column_for(spec_type: str, name: str, data) -> Column:
             valid = (~np.isnan(arr) if arr.dtype.kind == "f"
                      else np.ones(n, dtype=bool))
         return NumericColumn(name, vals, valid)
-    raise NotImplementedError(
-        f"{spec_type} columns belong to a later slice of the PyTorch port "
-        f"(ROADMAP.md section 6); it stores the types {sorted(COLUMN_TYPES)}")
+    # List, Map and Bytes: a schema may declare them, but no column
+    # stores them (the JAX package's _column_for refuses them with the same
+    # type); the SFB codec serializes their values one feature at a time
+    raise ValueError(
+        f"cannot build a {spec_type} column ({name!r}): the store keeps "
+        f"the types {sorted(COLUMN_TYPES)}")
 
 
 class FeatureBatch:
@@ -398,7 +401,10 @@ class FeatureBatch:
         import pyarrow as pa
 
         from ..geometry.wkt import to_wkt
-        arrays = [pa.array(self.ids.astype(str))]
+        # ids and vocabularies from str objects: pyarrow converts a numpy
+        # unicode array of more than about 2M rows into a ChunkedArray,
+        # which a RecordBatch refuses
+        arrays = [pa.array(list(map(str, self.ids)), type=pa.string())]
         names = ["__fid__"]
         for a in self.sft.attributes:
             c = self.columns[a.name]
@@ -414,7 +420,8 @@ class FeatureBatch:
                 null = c.codes < 0
                 arrays.append(pa.DictionaryArray.from_arrays(
                     np.where(null, 0, c.codes).astype(np.int32),
-                    pa.array(c.vocab.astype(str)), mask=null))
+                    pa.array(list(map(str, c.vocab)), type=pa.string()),
+                    mask=null))
             elif isinstance(c, DateColumn):
                 arrays.append(pa.array(
                     np.where(c.valid, c.millis, 0), type=pa.timestamp("ms"),
@@ -426,7 +433,10 @@ class FeatureBatch:
     @classmethod
     def from_arrow(cls, sft: SimpleFeatureType, rb) -> "FeatureBatch":
         """A batch from a pyarrow RecordBatch in ``to_arrow``'s layout."""
-        ids = np.asarray(rb.column("__fid__").to_pylist(), dtype=object)
+        # str objects straight from the column (to_pylist builds a
+        # scalar a row first, about 17x slower)
+        ids = np.asarray(rb.column("__fid__").to_numpy(zero_copy_only=False),
+                         dtype=object)
         data: dict[str, Any] = {}
         for a in sft.attributes:
             col = rb.column(a.name)

@@ -421,6 +421,50 @@ class ZKeyIndex:
         out._build_z3()
         return out
 
+    # -- persistence ---------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """The built sort orders as plain arrays, for persistence beside
+        the rows (the file store's index sidecars); empty when none is
+        built. The keys and dtypes are the JAX package's, so a state
+        written by either package loads in the other. The coordinate
+        copies are gathers, rebuilt on demand."""
+        out: dict = {}
+        if self._z3 is not None:
+            ubins, seg_offsets, z_sorted, perm = self._z3
+            out.update(z3_ubins=ubins, z3_seg_offsets=seg_offsets,
+                       z3_zsorted=z_sorted, z3_perm=perm)
+        if self._z2 is not None:
+            z_sorted, perm = self._z2
+            out.update(z2_zsorted=z_sorted, z2_perm=perm)
+        if out:
+            out["index_version"] = np.array([self.version], dtype=np.int64)
+        return out
+
+    def load_state(self, state: dict) -> bool:
+        """Install persisted sort orders (possibly memory-mapped).
+        Returns False, installing nothing, when the arrays do not cover
+        this table's rows (a stale state after writes) or were built
+        under another index version (a reindexed table must not adopt
+        its old orders)."""
+        if int(np.asarray(state.get("index_version", [2]))[0]) != self.version:
+            return False
+        ok = False
+        if "z3_zsorted" in state and self._millis is not None:
+            z_sorted, perm = state["z3_zsorted"], state["z3_perm"]
+            if len(z_sorted) == self.n and len(perm) == self.n:
+                self._z3 = (state["z3_ubins"], state["z3_seg_offsets"],
+                            z_sorted, perm)
+                self._z3_coords = None
+                ok = True
+        if "z2_zsorted" in state:
+            z_sorted, perm = state["z2_zsorted"], state["z2_perm"]
+            if len(z_sorted) == self.n and len(perm) == self.n:
+                self._z2 = (z_sorted, perm)
+                self._z2_coords = None
+                ok = True
+        return ok
+
     # -- incremental maintenance -------------------------------------------
 
     def extend(self, x: np.ndarray, y: np.ndarray,

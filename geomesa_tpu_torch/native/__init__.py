@@ -1,7 +1,9 @@
-"""The port's native host library: the z-key fast paths in C++.
+"""The port's native host library: the z-key fast paths and the feature
+codec in C++.
 
 Own copies of the JAX package's host sources (``src/``: ``zencode.cpp``,
-``zbuild.cpp``, ``zsort.cpp``, ``zrange.cpp``), compiled at first use
+``zbuild.cpp``, ``zsort.cpp``, ``zrange.cpp``, ``feature_codec.cpp``),
+compiled at first use
 with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` (no ``-ffast-math``)
 into ``_build/`` beside the package, keyed on a hash of the sources and
 flags, and loaded through ctypes. They serve:
@@ -11,7 +13,9 @@ flags, and loaded through ctypes. They serve:
 - ``curves/zranges.py``: the range decomposition;
 - ``index/zkeys.py``: the fused binned z3 encode, the sort orders
   (``sort_bin_z``, ``sort_z``) and the sorted-order coordinate copies
-  (``gather_xyz``).
+  (``gather_xyz``);
+- ``features/codec.py``: the SFB batch encode and the fixed- and
+  variable-width column extracts.
 
 A failed compile raises ``NativeBuildError`` with the compiler's output.
 There is no numpy fallback: each entry point's numpy version is its
@@ -28,11 +32,12 @@ import threading
 import time
 
 __all__ = ["NativeBuildError", "build", "library", "ptr", "F64P", "I32P",
-           "I64P"]
+           "I64P", "U8P"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "src")
-_SOURCES = ("zencode.cpp", "zbuild.cpp", "zsort.cpp", "zrange.cpp")
+_SOURCES = ("zencode.cpp", "zbuild.cpp", "zsort.cpp", "zrange.cpp",
+            "feature_codec.cpp")
 _BUILD = os.path.join(os.path.dirname(_DIR), "_build")
 _CXX = "g++"
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
@@ -43,6 +48,9 @@ _cache: dict = {}
 F64P = ctypes.POINTER(ctypes.c_double)
 I32P = ctypes.POINTER(ctypes.c_int32)
 I64P = ctypes.POINTER(ctypes.c_int64)
+U8P = ctypes.POINTER(ctypes.c_uint8)
+U8PP = ctypes.POINTER(U8P)      # one column pointer per attribute
+I64PP = ctypes.POINTER(I64P)
 _L, _I, _F = ctypes.c_int64, ctypes.c_int32, ctypes.c_double
 
 # symbol -> (restype, argtypes)
@@ -60,6 +68,12 @@ _SIGNATURES = {
                                 I64P]),
     "geomesa_host_threads": (_L, [_L]),
     "geomesa_zranges": (_L, [I64P, I64P, _L, _L, _L, _L, I64P, _L]),
+    "sfb_encoded_size": (_L, [_I, _I, U8P, I32P, I64PP, U8PP]),
+    "sfb_encode_batch": (_L, [_I, _I, U8P, I32P, U8PP, U8PP, I64PP, U8PP,
+                              U8P, _L, I64P]),
+    "sfb_decode_fixed": (_L, [U8P, I64P, _I, _I, _I, _I, U8P, U8P]),
+    "sfb_decode_varlen_sizes": (_L, [U8P, I64P, _I, _I, _I, I64P, U8P]),
+    "sfb_decode_varlen": (_L, [U8P, I64P, _I, _I, _I, I64P, U8P]),
 }
 
 
@@ -125,8 +139,8 @@ def library() -> ctypes.CDLL:
 
 
 def ptr(a, kind):
-    """ctypes pointer of a contiguous numpy array (``kind``: F64P, I32P
-    or I64P), or a null pointer for None."""
+    """ctypes pointer of a contiguous numpy array (``kind``: F64P, I32P,
+    I64P or U8P), or a null pointer for None."""
     if a is None:
         return ctypes.cast(None, kind)
     return a.ctypes.data_as(kind)

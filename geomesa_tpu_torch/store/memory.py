@@ -67,6 +67,21 @@ the GPU.
                     old index serves every query until then
     remove_schema
                  -> the type, its stats and its device memory released
+    InMemoryDataStore(durable_dir=..., wal_fsync=...)
+                 -> the newest checkpoint that verifies, then the log's
+                    records past it, replayed into the new store on its
+                    device (wal/recovery.py); from then on every
+                    mutation is validated, journaled (write-ahead, under
+                    the fsync policy: "always", "interval" or "never"),
+                    then applied. A log that failed a write or fsync is
+                    poisoned: every later mutation raises
+                    DurabilityError at the journal step, before any
+                    state changes, and the store serves reads only.
+    checkpoint(keep=2)
+                 -> the host columns as a snapshot under
+                    <durable_dir>/snapshots/ckpt-<lsn>/, read back and
+                    verified, then the log truncated below the oldest
+                    kept checkpoint; close() syncs and closes the log
 
 Every write feeds the type's stats (``self.stats``: a row count,
 count-min sketches of the indexed attributes and a z3 histogram, over a
@@ -92,8 +107,12 @@ the id, ``attr:<name>`` and fullscan strategies (the residual kernel
 over the attribute columns where the candidates are dense); density,
 BIN and the spatial processes raise KeyError for it, as in the JAX
 package. Attributes: Integer, Long, Float, Double, Boolean, String,
-Date and geometry (``:index=true`` on any). The filters are the ECQL
-grammar of ``filters/ecql.py`` against any geometry literal.
+Date and geometry (``:index=true`` on any). A schema may also declare
+List, Map and Bytes attributes, as in the JAX package, whose
+``_column_for`` refuses them too: writing such a column raises
+ValueError (the SFB codec, ``features/codec.py``, serializes their
+values one feature at a time). The filters are the ECQL grammar of
+``filters/ecql.py`` against any geometry literal.
 """
 
 from __future__ import annotations
@@ -108,8 +127,8 @@ from typing import Any, Iterator
 import numpy as np
 
 from ..analytics.st_functions import contains_points
-from ..features.batch import (COLUMN_TYPES, FeatureBatch, GeometryColumn,
-                              PointColumn, StringColumn)
+from ..features.batch import (FeatureBatch, GeometryColumn, PointColumn,
+                              StringColumn)
 from ..features.sft import (Configs, SimpleFeatureType, check_index_version,
                             parse_spec)
 from ..filters import ast
@@ -352,6 +371,9 @@ class _TypeState:
         # outstanding lazy results: on a mutation, small ones are
         # detached (materialized) so they stop pinning the old snapshot
         self.live_lazy: weakref.WeakSet = weakref.WeakSet()
+        # persisted z-key sort orders (ZKeyIndex.state_dict) that the
+        # next index build adopts when they cover its rows
+        self.zindex_warm: dict | None = None
 
     @property
     def n(self) -> int:
@@ -368,20 +390,27 @@ class _TypeState:
         self.flush()
         return self._vis
 
+    def validate(self, batch: FeatureBatch, visibilities=None):
+        """The append's checks, without mutating: also the durable
+        write's guard, since a record must be known applyable before it
+        is journaled or replay would fail on it again. Returns the
+        labels as an object array, or None when no row has one."""
+        if visibilities is None:
+            return None
+        vis = np.asarray(visibilities, dtype=object)
+        if len(vis) != batch.n:
+            raise ValueError("visibilities length mismatch")
+        distinct = set(v for v in vis.tolist() if v)
+        validate_labels(self.sft, distinct)  # raises on malformed
+        return vis if distinct else None
+
     def append(self, batch: FeatureBatch, visibilities=None):
         # validate everything BEFORE mutating: a failed write must not
         # leave batch and labels misaligned
-        vis = None
-        if visibilities is not None:
-            vis = np.asarray(visibilities, dtype=object)
-            if len(vis) != batch.n:
-                raise ValueError("visibilities length mismatch")
-            distinct = set(v for v in vis.tolist() if v)
-            validate_labels(self.sft, distinct)  # raises on malformed
-            if distinct:
-                self.has_vis = True
-            else:
-                vis = None
+        vis = self.validate(batch, visibilities)
+        if vis is not None:
+            self.has_vis = True
+        self.zindex_warm = None      # persisted orders no longer these rows
         self._pending.append((batch, vis))
         self._pending_n += batch.n
         self._detach_live()
@@ -446,6 +475,7 @@ class _TypeState:
         read rebuilds them from the kept rows."""
         self._detach_live()
         self.flush()
+        self.zindex_warm = None
         if self._batch is None:
             return
         keep = ~np.isin(self._batch.ids.astype(str), list(ids))
@@ -490,6 +520,9 @@ class _TypeState:
                                 millis if self.sft.dtg_field else None,
                                 self.sft.z3_interval,
                                 version=self.sft.index_version)
+        if self.zindex_warm is not None:
+            self.zindex.load_state(self.zindex_warm)  # no-op when stale
+            self.zindex_warm = None
         self.dirty = False
 
     def reindex(self, version: int):
@@ -547,17 +580,31 @@ class InMemoryDataStore(DataStore):
 
     ``device=None`` means ``"cuda"``: the store runs on the GPU unless
     the caller asks for another device, and raises when CUDA is absent.
+
+    ``durable_dir`` journals every mutation to a write-ahead log under
+    that directory (validate, journal, then apply) and, at construction,
+    recovers the newest checkpoint and the log's tail into the store on
+    its device; ``wal_fsync`` is the log's fsync policy (None: the
+    ``geomesa.wal.fsync`` property, "always" by default). The directory
+    has the JAX package's layout, and either package recovers one the
+    other wrote.
     """
 
     # bulk writes at or above this into an empty type build the index
     # (and ready the join paths) eagerly, so the first query finds it
     _EAGER_INDEX_ROWS = 5_000_000
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, durable_dir: str | None = None,
+                 wal_fsync: str | None = None):
         self.device = resolve_device(device)
         self._op_lock = threading.RLock()
         self._types: dict[str, _TypeState] = {}
         self.stats = DataStoreStats()
+        self.journal = None
+        if durable_dir:
+            from ..wal.durable import Journal
+            self.journal = Journal(durable_dir, fsync=wal_fsync)
+            self.journal.recover(self)
 
     # -- schema management -------------------------------------------------
 
@@ -568,10 +615,8 @@ class InMemoryDataStore(DataStore):
             sft = parse_spec(sft, spec or "")
         if sft.type_name in self._types:
             raise ValueError(f"schema {sft.type_name!r} already exists")
-        for a in sft.attributes:
-            if a.type.name not in COLUMN_TYPES:
-                raise _later(f"a {a.type} attribute ({a.name!r})",
-                             "collection-type")
+        if self.journal is not None:
+            self.journal.log_create_schema(sft)
         self._types[sft.type_name] = _TypeState(sft, self.device)
         # an estimator from creation on: a type with no rows estimates 0
         self.stats.ensure(sft)
@@ -592,6 +637,8 @@ class InMemoryDataStore(DataStore):
         """Drop a type, its rows and its stats. Its device tensors lose
         their last reference here, so their memory returns to the
         allocator."""
+        if self.journal is not None and type_name in self._types:
+            self.journal.log_drop_schema(type_name)
         st = self._types.pop(type_name, None)
         if st is not None:
             # outstanding small lazy results must not pin the dropped
@@ -609,6 +656,16 @@ class InMemoryDataStore(DataStore):
         st = self._state(type_name)
         if batch.sft != st.sft:
             raise ValueError("batch schema does not match store schema")
+        if batch.sft is not st.sft:
+            # an equal schema object of its own (a replayed record's, a
+            # caller's parse): the stored rows share the type's object,
+            # so reindex's version change reaches every one of them
+            batch = FeatureBatch(st.sft, batch.ids, batch.columns)
+        if self.journal is not None:
+            # write-ahead: validate (so the journaled record is known
+            # applyable), journal, then apply
+            st.validate(batch, visibilities)
+            self.journal.log_write(type_name, batch, visibilities)
         was_empty = st.n == 0
         st.append(batch, visibilities)
         # the write-side stats (StatsCombiner analog), on the host batch
@@ -643,7 +700,45 @@ class InMemoryDataStore(DataStore):
     @_synchronized
     def delete(self, type_name: str, ids):
         """Remove the features with these ids."""
-        self._state(type_name).delete(set(map(str, ids)))
+        st = self._state(type_name)
+        ids = set(map(str, ids))
+        if self.journal is not None:
+            self.journal.log_delete(type_name, sorted(ids))
+        st.delete(ids)
+
+    # -- durability (wal/, with durable_dir) ---------------------------------
+
+    @_synchronized
+    def checkpoint(self, keep: int = 2) -> dict:
+        """Snapshot the store and compact the journal; needs
+        ``durable_dir``. ``keep=2`` retains the prior checkpoint (and the
+        log back to it), so recovery can fall back to it id for id if
+        the newest snapshot is later found corrupt."""
+        if self.journal is None:
+            raise ValueError("store is not durable (no durable_dir)")
+        return self.journal.checkpoint(self, keep=keep)
+
+    def close(self):
+        """Sync (unless the policy is "never") and close the journal."""
+        if self.journal is not None:
+            self.journal.close()
+
+    @_synchronized
+    def warm_index(self, type_name: str, state: dict):
+        """Install persisted z-key sort orders (``index_state``'s dict,
+        possibly memory-mapped) for the next index build to adopt. A
+        stale state (another row count) or one from another index
+        version installs nothing."""
+        self._state(type_name).zindex_warm = state
+
+    @_synchronized
+    def index_state(self, type_name: str) -> dict | None:
+        """The built z-key sort orders for persistence, or None when no
+        index has been built yet (or the type's is an XZ index)."""
+        st = self._state(type_name)
+        if not isinstance(st.zindex, ZKeyIndex):
+            return None
+        return st.zindex.state_dict() or None
 
     @_synchronized
     def count(self, type_name: str) -> int:

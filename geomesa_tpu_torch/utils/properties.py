@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["SystemProperty", "HOST_RANGES_TARGET"]
+__all__ = ["SystemProperty", "HOST_RANGES_TARGET", "WAL_FSYNC",
+           "WAL_SEGMENT_BYTES", "WAL_INTERVAL_MS", "INTEGRITY_QUARANTINE"]
 
 _overrides: dict[str, str] = {}
 
@@ -54,3 +55,14 @@ class SystemProperty:
 # candidate exactly: deep decompositions are a per-query cost that a
 # selective query stream never earns back
 HOST_RANGES_TARGET = SystemProperty("geomesa.scan.ranges.host", "256")
+
+# the write-ahead log (wal/log.py): its fsync policy ("always",
+# "interval" or "never"), its segment rotation threshold in bytes, and
+# the flush cadence of the "interval" policy
+WAL_FSYNC = SystemProperty("geomesa.wal.fsync", "always")
+WAL_SEGMENT_BYTES = SystemProperty("geomesa.wal.segment.bytes",
+                                   str(64 * 1024 * 1024))
+WAL_INTERVAL_MS = SystemProperty("geomesa.wal.interval.ms", "50")
+
+# rename a checkpoint that fails verification at load to *.corrupt
+INTEGRITY_QUARANTINE = SystemProperty("geomesa.integrity.quarantine", "true")

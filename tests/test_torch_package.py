@@ -44,7 +44,10 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.analytics.partitioning, "
             "geomesa_tpu_torch.analytics.processes, "
             "geomesa_tpu_torch.analytics.tube, geomesa_tpu_torch.utils.fp, "
-            "geomesa_tpu_torch.native, geomesa_tpu_torch.curves.legacy\n"
+            "geomesa_tpu_torch.native, geomesa_tpu_torch.curves.legacy, "
+            "geomesa_tpu_torch.features.codec, geomesa_tpu_torch.wal, "
+            "geomesa_tpu_torch.integrity, geomesa_tpu_torch.integrity.verify, "
+            "geomesa_tpu_torch.store.filebus\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -82,22 +85,31 @@ def test_no_source_imports_jax_or_reference():
             "geometry/geojson.py", "curves/xz.py", "index/xzkeys.py",
             "analytics/join.py", "analytics/partitioning.py",
             "analytics/processes.py", "analytics/tube.py",
-            "utils/fp.py", "native/__init__.py", "curves/legacy.py"} <= seen
+            "utils/fp.py", "native/__init__.py", "curves/legacy.py",
+            "features/codec.py", "integrity/faultfs.py", "integrity/verify.py",
+            "store/filebus.py", "store/live.py", "wal/log.py",
+            "wal/snapshot.py", "wal/recovery.py", "wal/durable.py"} <= seen
     # the native library's C++ sources are the port's own copies
     src = os.path.join(PKG, "native", "src")
-    assert sorted(os.listdir(src)) == ["zbuild.cpp", "zencode.cpp",
-                                       "zrange.cpp", "zsort.cpp"]
+    assert sorted(os.listdir(src)) == ["feature_codec.cpp", "zbuild.cpp",
+                                       "zencode.cpp", "zrange.cpp",
+                                       "zsort.cpp"]
     for f in os.listdir(src):
         with open(os.path.join(src, f)) as fh:
             assert not re.search(r"#include\s+[<\"][^>\"]*geomesa_tpu/",
                                  fh.read())
 
 
-def test_store_defaults_to_cuda(monkeypatch):
+def test_store_defaults_to_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InMemoryDataStore()
     assert InMemoryDataStore(device="cpu").device.type == "cpu"
+    # a durable store too, before it touches its directory
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            InMemoryDataStore(device=device, durable_dir=str(tmp_path / "d"))
+    assert not (tmp_path / "d").exists()
 
 
 # -- on the card -------------------------------------------------------------
@@ -276,6 +288,70 @@ def test_store_on_cuda_matches_cpu(cuda, monkeypatch):
         got = stores[0].query(q, "pts")
         assert sum(kernels.launches.values()) == 1
         assert list(got.ids) == list(stores[1].query(q, "pts").ids)
+
+
+def _durable_history(ds, seed, x, y, ms):
+    """Chunked writes, a checkpoint, then a tail of new rows, an update
+    (delete, then write) and a delete; returns the ids in row order."""
+    ds.create_schema("pts", "dtg:Date,*geom:Point:srid=4326")
+    n = len(x)
+    ids = np.array([f"f{i}" for i in range(n)], dtype=object)
+    for lo in range(0, n - 8_000, 8_000):
+        ds.write_dict("pts", ids[lo:lo + 8_000],
+                      {"dtg": ms[lo:lo + 8_000],
+                       "geom": (x[lo:lo + 8_000], y[lo:lo + 8_000])})
+    ds.checkpoint()
+    lo = n - 8_000
+    ds.write_dict("pts", ids[lo:], {"dtg": ms[lo:], "geom": (x[lo:], y[lo:])})
+    rng = np.random.default_rng(seed)
+    upd = ids[rng.choice(n, 1_000, replace=False)]
+    ds.delete("pts", upd)
+    ds.write_dict("pts", upd, {"dtg": ms[:1_000],
+                               "geom": (y[:1_000] * 2.0, x[:1_000] / 2.0)})
+    ds.delete("pts", ids[rng.choice(n, 500, replace=False)])
+    return list(ds.query("INCLUDE", "pts").ids)
+
+
+@pytest.mark.gpu
+def test_durable_store_on_cuda_matches_cpu(cuda, monkeypatch, tmp_path):
+    """A durable CUDA store written, checkpointed, aborted (a torn
+    partial frame after its last record) and reopened holds its columns
+    on the card and answers as the same sequence on a CPU store does,
+    through the scan kernels."""
+    from geomesa_tpu_torch.wal.log import list_segments
+    rng = np.random.default_rng(10)
+    n = 40_000
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    ms = 1_577_836_800_000 + rng.integers(0, 100 * MS_DAY, n)
+    stores, want = [], []
+    for name, device in (("gpu", None), ("cpu", "cpu")):
+        root = str(tmp_path / name)
+        ds = InMemoryDataStore(device=device, durable_dir=root,
+                               wal_fsync="always")
+        want.append(_durable_history(ds, 10, x, y, ms))
+        ds.journal.abort()
+        _, seg = list_segments(os.path.join(root, "log"))[-1]
+        with open(seg, "ab") as f:
+            f.write(b"\x05\x00\x00\x00 torn")
+        stores.append(InMemoryDataStore(device=device, durable_dir=root))
+    assert want[0] == want[1]
+    gpu, cpu = stores
+    assert gpu.journal.last_report.torn_records_dropped == 1
+    assert gpu.journal.last_report.checkpoint_lsn > 0
+    assert list(gpu.query("INCLUDE", "pts").ids) == want[0]
+    q = ("BBOX(geom, -80, 30, -60, 45) AND dtg DURING "
+         "2020-01-10T00:00:00Z/2020-02-20T00:00:00Z")
+    for host, thr in (("0", "1.0"), ("0", "0")):
+        monkeypatch.setenv("GEOMESA_SCAN_HOST_ROWS", host)
+        monkeypatch.setenv("GEOMESA_SCAN_INDEX_THRESHOLD", thr)
+        kernels.reset_launches()
+        got = gpu.query(q, "pts")
+        assert sum(kernels.launches.values()) >= 1
+        assert list(got.ids) == list(cpu.query(q, "pts").ids)
+        assert gpu.query_count(q, "pts") == cpu.query_count(q, "pts")
+    assert gpu._types["pts"].scan_data.xhi.device.type == "cuda"
+    for s in stores:
+        s.close()
 
 
 def _batch(count, k_boxes=None, intervals=None, seed=0):
