@@ -104,6 +104,38 @@ Phases, one JSON line each; any failure exits non-zero:
            once the phase would pass 120 s (``cut``). Each durable
            store writes into a temporary directory of its own, removed
            when the phase ends.
+           (fs) BASELINE.md configuration 5's storage: bench.py config
+           16's AIS rows (5,000 vessel names, mmsi by vessel, speed,
+           course, heading; the store's 100 days; uniform points) at
+           --store-rows in a FileSystemDataStore on the card under a
+           temporary root, daily partitions: written in 10 chunks
+           (about 1,000 files; fewer chunks, ``cut``, once the writes
+           would pass their share of the two phases' 120 s), compacted
+           to a file a partition (write rows/s, files, bytes a row on
+           disk); a 7-day BBOX+time query cold and warm (its explain
+           line: partitions scanned, pushdown used), projected to one
+           attribute, and with an attribute predicate; 12 one-day
+           loads, 4 past the type's cache of 8 (memory_allocated after
+           each: an evicted load frees its device memory);
+           load_resident split into the Parquet read, the decode and
+           the store writes; the north-star query (gathered tier; the
+           first writes a sidecar) and a wide one (dense); count,
+           bin_query, arrow_ipc; three reopens with the sidecar (no
+           z-key sort, counted) alternated with three without, the load
+           and the first query timed apart (medians); a delete
+           of 1,000 ids and the queries after it; reindex to version 1
+           and back. Every answer's ids and count equal a float64 brute
+           force over the rows that remain; scan_mask and
+           scan_mask_gather must launch (counts zeroed before the
+           phase, read after, added to the kernels line).
+           (convert) bench.py config 16 part A's converter at 1M rows:
+           its CSV through the scalar path (chunks of 4,096) and the
+           vectorized one (65,536), rows/s and their ratio, equal
+           batches (ids, every column, validity) and counters (the
+           scalar leg on the first rows its budget allows, ``cut``);
+           then the batches into a file store and a durable in-memory
+           store on the card, a BBOX+time query on each equal to the
+           brute force over the CSV's values.
 4. batched the serving path on the store phase's 10M rows: 32 seeded
            queries in the store's dates through query_batched at batch
            sizes 2, 8 and 32, every query's ids equal to the float64
@@ -297,6 +329,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1624,6 +1657,613 @@ def phase_durable(seed: int, rows: int) -> dict:
         for r in roots:
             shutil.rmtree(r, ignore_errors=True)
     return launches
+
+
+FS_SPEC = ("name:String,mmsi:Integer,dtg:Date,speed:Double,course:Double,"
+           "heading:Double,*geom:Point:srid=4326")   # bench.py config 16
+FS_VESSELS = 5_000
+FS_CHUNKS = 10            # writes of rows // 10: about 1,000 files
+FS_BUDGET_S = 120.0       # the fs and convert phases' share together
+FS_WRITE_SHARE = 0.35     # of it, the writes' (the cut below)
+FS_DELETES = 1_000
+FS_REOPENS = 3            # reopens with the sidecar, and as many without
+FS_EVICT_DAYS = 12        # one-day loads, 4 past the type's cache of 8
+FS_WEEK = ("BBOX(geom, -80, 30, -60, 45) AND "
+           "dtg DURING 2016-08-07T00:00:00Z/2016-08-14T00:00:00Z",
+           [(-80, 30, -60, 45)], (17_020 * MS_DAY, 17_027 * MS_DAY))
+FS_ATTR = ("speed > 25 AND BBOX(geom, -80, 30, -60, 45) AND "
+           "dtg DURING 2016-08-07T00:00:00Z/2016-08-14T00:00:00Z")
+CONVERT_ROWS = 1_000_000  # bench.py config 16 part A's default
+CONVERT_CHUNKS = (4_096, 65_536)   # scalar, vectorized
+CONVERT_SCALAR_SHARE = 0.5   # of the budget left: the scalar leg's cut
+CONVERT_CSV = {"type": "delimited-text", "format": "CSV",
+               "id-field": "concat('v', $2)",
+               "fields": [
+                   {"name": "name", "transform": "$1"},
+                   {"name": "mmsi", "transform": "$2::int"},
+                   {"name": "dtg", "transform": "isoDate($3)"},
+                   {"name": "geom",
+                    "transform": "point($4::double, $5::double)"},
+                   {"name": "speed", "transform": "$6::double"},
+                   {"name": "course", "transform": "$7::double"},
+                   {"name": "heading", "transform": "$8::double"}]}
+CONVERT_QUERY = ("BBOX(geom, -80, 30, -60, 45) AND "
+                 "dtg DURING 2017-03-05T00:00:00Z/2017-03-12T00:00:00Z")
+
+
+def fs_rows(seed: int, rows: int) -> dict:
+    """bench.py config 16's AIS columns at ``rows``: FS_VESSELS names
+    (mmsi by vessel), times over the store's 100 days, uniform points,
+    speed, course and heading."""
+    rng = np.random.default_rng(seed + 17)
+    vessel = rng.integers(0, FS_VESSELS, rows)
+    names = np.array([f"vessel{i:04d}" for i in range(FS_VESSELS)],
+                     dtype=object)        # sorted: code i is vessel i
+    return {"vessel": vessel.astype(np.int32), "vocab": names,
+            "mmsi": 366_000_000 + vessel.astype(np.int64),
+            "ms": rng.integers(T0_DAY * MS_DAY, T1_DAY * MS_DAY, rows),
+            "x": rng.uniform(-180, 180, rows), "y": rng.uniform(-90, 90, rows),
+            "speed": rng.uniform(0, 30, rows),
+            "course": rng.uniform(0, 360, rows),
+            "heading": rng.uniform(0, 360, rows),
+            "ids": np.arange(rows).astype(str).astype(object)}
+
+
+def fs_batch(sft, d: dict, lo: int, hi: int):
+    from geomesa_tpu_torch.features.batch import (DateColumn, FeatureBatch,
+                                                  NumericColumn, PointColumn,
+                                                  StringColumn)
+    ones = np.ones(hi - lo, dtype=bool)
+    return FeatureBatch(sft, d["ids"][lo:hi], {
+        "name": StringColumn("name", d["vessel"][lo:hi], d["vocab"]),
+        "mmsi": NumericColumn("mmsi", d["mmsi"][lo:hi], ones),
+        "dtg": DateColumn("dtg", d["ms"][lo:hi], ones),
+        "speed": NumericColumn("speed", d["speed"][lo:hi], ones),
+        "course": NumericColumn("course", d["course"][lo:hi], ones),
+        "heading": NumericColumn("heading", d["heading"][lo:hi], ones),
+        "geom": PointColumn("geom", d["x"][lo:hi], d["y"][lo:hi], ones)})
+
+
+def _row_ids(res) -> np.ndarray:
+    """A file store result's ids as the sorted row numbers they name."""
+    return np.sort(np.asarray(res.ids, dtype=object).astype(np.int64))
+
+
+class _LoadClock:
+    """Splits the file store's loads: the Parquet scan (fs._read_table),
+    the decode (FeatureBatch.from_arrow) and the memory store's writes,
+    each summed over the calls inside the block."""
+
+    def __enter__(self):
+        from geomesa_tpu_torch.features.batch import FeatureBatch
+        from geomesa_tpu_torch.store import fs as fs_mod
+        from geomesa_tpu_torch.store.memory import InMemoryDataStore
+        self.s = {"read_s": 0.0, "decode_s": 0.0, "write_s": 0.0,
+                  "writes": 0}
+        self._saved = [(fs_mod, "_read_table", fs_mod._read_table),
+                       (FeatureBatch, "from_arrow",
+                        FeatureBatch.__dict__["from_arrow"]),
+                       (InMemoryDataStore, "write", InMemoryDataStore.write)]
+        clock = self
+
+        def timed(key, fn):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    clock.s[key] += time.perf_counter() - t0
+                    if key == "write_s":
+                        clock.s["writes"] += 1
+            return wrapper
+        fs_mod._read_table = timed("read_s", fs_mod._read_table)
+        real_decode = FeatureBatch.from_arrow
+        FeatureBatch.from_arrow = staticmethod(timed("decode_s", real_decode))
+        InMemoryDataStore.write = timed("write_s", InMemoryDataStore.write)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.s["total_s"] = time.perf_counter() - self.t0
+        for owner, name, real in self._saved:
+            setattr(owner, name, real)
+
+
+class _SortCount:
+    """Counts the z-key sorts (zkeys.sort_bin_z, sort_z) inside the
+    block: a store that adopts a sidecar runs none."""
+
+    def __enter__(self):
+        from geomesa_tpu_torch.index import zkeys
+        self._mod = zkeys
+        self._real = (zkeys.sort_bin_z, zkeys.sort_z)
+        self.n = 0
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                self.n += 1
+                return fn(*a, **k)
+            return wrapper
+        zkeys.sort_bin_z, zkeys.sort_z = (counted(f) for f in self._real)
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.sort_bin_z, self._mod.sort_z = self._real
+
+
+def _fs_tier(tier: str | None):
+    """Force the resident store's tier as _store_answers does: gathered
+    (index-pruned), dense, or the planner's own choice (None)."""
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    host_rows = SystemProperty("geomesa.scan.host.rows")
+    threshold = SystemProperty("geomesa.scan.index.threshold")
+    setting = {"gathered": ("0", "1.0"), "dense": ("0", "0"),
+               None: (None, None)}[tier]
+    host_rows.set(setting[0])
+    threshold.set(setting[1])
+
+
+def _fs_check(ds, ecql: str, want: np.ndarray, what: str,
+              tier: str | None = None) -> dict:
+    """One query through the file store: its ids must name exactly the
+    rows ``want`` (a float64 brute force); host-clock seconds."""
+    _fs_tier(tier)
+    try:
+        t0 = time.perf_counter()
+        res = ds.query(ecql, "ais")
+        got = _row_ids(res)
+        sec = time.perf_counter() - t0
+    finally:
+        _fs_tier(None)
+    if not np.array_equal(got, want):
+        raise SystemExit(f"fs {what}: {len(got)} ids, the brute force "
+                         f"{len(want)}; {ecql!r}")
+    text = res.explain.text
+    if tier == "gathered" and "Index-pruned device scan" not in text:
+        raise SystemExit(f"fs {what}: the gathered tier did not run")
+    if tier == "dense" and "Device scan:" not in text:
+        raise SystemExit(f"fs {what}: the dense tier did not run")
+    return {"step": what, "seconds": sec, "hits": len(got),
+            "explain": text.splitlines()[-1]}
+
+
+def phase_fs(seed: int, rows: int) -> tuple[dict, dict]:
+    """BASELINE.md configuration 5's storage: bench.py config 16's AIS
+    rows in a FileSystemDataStore (daily partitions over the store's 100
+    days), written in FS_CHUNKS writes (cut once the writes would pass
+    their share of FS_BUDGET_S), compacted to a file a partition, then
+    queried cold and warm, projected, with an attribute predicate,
+    resident (the gathered and the dense tiers, the sidecar written),
+    through count, bin_query and arrow_ipc, reopened FS_REOPENS times
+    with the sidecar alternated with as many without, after a delete of FS_DELETES ids and across a reindex
+    to version 1 and back. Every answer is held to a float64 brute force
+    over the rows that remain. Launch counts are zeroed before the phase
+    and read after; returns them and the phase's summary."""
+    import gc
+    import shutil
+    import tempfile
+
+    import pyarrow
+    import pyarrow.dataset  # noqa: F401  (the loads' scan)
+    import pyarrow.parquet  # noqa: F401  (the writes)
+
+    from geomesa_tpu_torch import FileSystemDataStore, Query
+    from geomesa_tpu_torch.features.sft import parse_spec
+    from geomesa_tpu_torch.scan import kernels
+    t_phase = time.perf_counter()
+    emit({"phase": "fs", "pyarrow": pyarrow.__version__})
+    d = fs_rows(seed, rows)
+    root = tempfile.mkdtemp(prefix="geomesa-fs-")
+    kernels.reset_launches()
+    steps = []
+
+    def step(line):
+        steps.append(line)
+        emit({"phase": "fs", **line})
+    try:
+        ds = FileSystemDataStore(root)
+        ds.create_schema(parse_spec("ais", FS_SPEC))
+        sft = ds.get_schema("ais")
+        chunk = rows // FS_CHUNKS
+        t0, written, cut = time.perf_counter(), 0, None
+        for c in range(FS_CHUNKS):
+            ds.write("ais", fs_batch(sft, d, written, written + chunk))
+            written += chunk
+            el = time.perf_counter() - t0
+            if (c + 1 < FS_CHUNKS and el / (c + 1) * (c + 2)
+                    > FS_WRITE_SHARE * FS_BUDGET_S):
+                cut = {"rows": written, "chunks": c + 1, "of": FS_CHUNKS}
+                break
+        write_s = time.perf_counter() - t0
+        n = written
+        for k in ("vessel", "mmsi", "ms", "x", "y", "speed", "ids"):
+            d[k] = d[k][:n]
+        files = ds._files_for(ds._state("ais"), None)
+        on_disk = sum(os.path.getsize(f) for f in files)
+        step({"step": "write", "rows": n, "chunks": written // chunk,
+              "seconds": write_s, "rows_per_s": n / write_s,
+              "files": len(files), "bytes_per_row": on_disk / n,
+              "partitions": len(ds.partitions("ais")), "cut": cut})
+        t0 = time.perf_counter()
+        ds.compact("ais")
+        files = ds._files_for(ds._state("ais"), None)
+        on_disk = sum(os.path.getsize(f) for f in files)
+        step({"step": "compact", "seconds": time.perf_counter() - t0,
+              "files": len(files), "bytes_per_row": on_disk / n})
+        x, y, ms = d["x"], d["y"], d["ms"]
+        week = _brute(x, y, ms, FS_WEEK[1], FS_WEEK[2])
+        for what in ("week_cold", "week_warm"):
+            line = _fs_check(ds, FS_WEEK[0], week, what)
+            if not re.search(r"Partitions scanned: \d+; files: \d+; "
+                             r"parquet pushdown: yes", line["explain"]):
+                raise SystemExit(f"fs {what}: {line['explain']!r}")
+            step(line)
+        t0 = time.perf_counter()
+        res = ds.query(Query("ais", FS_WEEK[0], properties=["name"]))
+        got = _row_ids(res)
+        sec = time.perf_counter() - t0
+        if not (np.array_equal(got, week)
+                and set(res.batch.columns) == {"name"}
+                and "columns: 3" in res.explain.text):
+            raise SystemExit("fs projected load: wrong ids or columns")
+        names = [res.batch.col("name").value(i) for i in range(res.n)]
+        rows_of = np.asarray(res.ids, dtype=object).astype(np.int64)
+        if names != d["vocab"][d["vessel"][rows_of]].tolist():
+            raise SystemExit("fs projected load: wrong names")
+        step({"step": "week_projected", "seconds": sec, "hits": len(got),
+              "explain": res.explain.text.splitlines()[-1]})
+        attr = np.intersect1d(week, np.flatnonzero(d["speed"] > 25))
+        step(_fs_check(ds, FS_ATTR, attr, "attr_predicate"))
+        # LRU evictions: one-day loads past the type's cache of 8; the
+        # evicted stores (and any sidecar they awaited) must let go of
+        # their device memory, so four loads past the 8th add less than
+        # one load's memory
+        mem_at = {}
+        t0 = time.perf_counter()
+        for k in range(FS_EVICT_DAYS):
+            day = T0_DAY + 40 + k
+            want = _brute(x, y, ms, [(-180, -90, 180, 90)],
+                          (day * MS_DAY, (day + 1) * MS_DAY))
+            _fs_check(ds, f"BBOX(geom, -180, -90, 180, 90) AND dtg "
+                      f"DURING {_iso(day)}/{_iso(day + 1)}", want,
+                      f"evict_{k}")
+            gc.collect()
+            mem_at[k + 1] = torch.cuda.memory_allocated()
+        cache = ds._state("ais").cache
+        held = {id(m) for m in cache.values()}
+        one_load = (mem_at[8] - mem_at[1]) / 7
+        if (len(cache) != 8
+                or mem_at[FS_EVICT_DAYS] > mem_at[8] + one_load
+                or not all(id(m) in held for m in
+                           ds._state("ais").pending_sidecar.values())):
+            raise SystemExit(f"fs: evicted loads still held ({mem_at})")
+        del cache    # the phase's only reference besides the store's own
+        step({"step": "evictions", "loads": FS_EVICT_DAYS,
+              "seconds": time.perf_counter() - t0,
+              "memory_allocated_by_load": mem_at})
+        # the full table on the card: the Parquet scan, the decode and
+        # the store writes split
+        with _LoadClock() as clock:
+            ds.load_resident("ais")
+        step({"step": "load_resident", **clock.s,
+              "memory_allocated": torch.cuda.memory_allocated()})
+        north = _brute(x, y, ms, STORE_QUERIES[0][1], STORE_QUERIES[0][2])
+        wide = _brute(x, y, ms, STORE_QUERIES[2][1], STORE_QUERIES[2][2])
+        first = _fs_check(ds, STORE_QUERIES[0][0], north,
+                          "resident_north_star_first", "gathered")
+        step(first)
+        index_dir = os.path.join(root, "ais", "index")
+        if not any(os.path.isfile(os.path.join(index_dir, s,
+                                               "manifest.json"))
+                   for s in os.listdir(index_dir)):
+            raise SystemExit("fs: the first z3 query wrote no sidecar")
+        step(_fs_check(ds, STORE_QUERIES[0][0], north,
+                       "resident_north_star", "gathered"))
+        step(_fs_check(ds, STORE_QUERIES[2][0], wide, "resident_wide",
+                       "dense"))
+        t0 = time.perf_counter()
+        count = ds.count("ais")
+        count_s = time.perf_counter() - t0
+        if count != n:
+            raise SystemExit(f"fs count {count} != {n}")
+        t0 = time.perf_counter()
+        bins = ds.bin_query("ais", STORE_QUERIES[0][0])
+        bin_s = time.perf_counter() - t0
+        if len(bins) != 16 * len(north):
+            raise SystemExit(f"fs bin_query: {len(bins)} bytes for "
+                             f"{len(north)} hits")
+        t0 = time.perf_counter()
+        ipc = ds.arrow_ipc("ais", STORE_QUERIES[0][0])
+        ipc_s = time.perf_counter() - t0
+        table = pyarrow.ipc.open_file(pyarrow.py_buffer(ipc)).read_all()
+        ipc_ids = np.sort(np.asarray(table.column("__fid__").to_pylist(),
+                                     dtype=object).astype(np.int64))
+        if not np.array_equal(ipc_ids, north):
+            raise SystemExit("fs arrow_ipc: wrong ids")
+        step({"step": "surface", "count_s": count_s, "bin_query_s": bin_s,
+              "bin_bytes": len(bins), "arrow_ipc_s": ipc_s,
+              "arrow_ipc_bytes": len(ipc)})
+        before_drop = torch.cuda.memory_allocated()
+        del ds
+        gc.collect()
+        torch.cuda.empty_cache()
+        dropped = torch.cuda.memory_allocated()
+        if dropped >= before_drop:
+            raise SystemExit(f"fs: the dropped store still holds device "
+                             f"memory ({before_drop} -> {dropped})")
+        # reopens, alternated: with the sidecar (adopted: no sort), then
+        # without it (index/ removed: a re-sort, whose query writes the
+        # sidecar again); the open and load timed apart from the first
+        # query, which is where the sort runs
+        reopen = {"with_sidecar": [], "without_sidecar": []}
+        for r in range(2 * FS_REOPENS):
+            what = ("with_sidecar", "without_sidecar")[r % 2]
+            if what == "without_sidecar":
+                shutil.rmtree(index_dir)
+            with _SortCount() as sorts:
+                t0 = time.perf_counter()
+                ds = FileSystemDataStore(root)
+                ds.load_resident("ais")
+                load_s = time.perf_counter() - t0
+                line = _fs_check(ds, STORE_QUERIES[0][0], north,
+                                 f"reopen_{what}", "gathered")
+            line.update(load_s=load_s, z_sorts=sorts.n)
+            if (sorts.n == 0) != (what == "with_sidecar"):
+                raise SystemExit(f"fs reopen {what}: {sorts.n} z-key sorts")
+            reopen[what].append({"load_s": load_s,
+                                 "first_query_s": line["seconds"]})
+            step(line)
+            if r + 1 < 2 * FS_REOPENS:
+                del ds
+                gc.collect()
+        # a delete rewrites the files holding the ids; the loads go
+        drng = np.random.default_rng(seed + 18)
+        gone = np.sort(drng.choice(n, FS_DELETES, replace=False))
+        t0 = time.perf_counter()
+        ds.delete("ais", d["ids"][gone])
+        delete_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        after_delete = torch.cuda.memory_allocated()
+        keep = np.ones(n, dtype=bool)
+        keep[gone] = False
+        north = north[keep[north]]
+        week = week[keep[week]]
+        wide = wide[keep[wide]]
+        step({"step": "delete", "ids": FS_DELETES, "seconds": delete_s,
+              "memory_allocated": after_delete})
+        step(_fs_check(ds, FS_WEEK[0], week, "week_after_delete"))
+        if ds.count("ais") != n - FS_DELETES:
+            raise SystemExit("fs count after delete")
+        ds.load_resident("ais")
+        step(_fs_check(ds, STORE_QUERIES[0][0], north,
+                       "resident_after_delete", "gathered"))
+        step(_fs_check(ds, STORE_QUERIES[2][0], wide,
+                       "wide_after_delete", "dense"))
+        for version in (1, None):
+            t0 = time.perf_counter()
+            ds.reindex("ais", version)
+            sec = time.perf_counter() - t0
+            line = _fs_check(ds, STORE_QUERIES[0][0], north,
+                             f"reindex_{version or 'current'}", "gathered")
+            line["reindex_s"] = sec
+            step(line)
+        del ds
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = dict(kernels.launches)
+        counts = {k: launches[k] for k in ("scan_mask", "scan_mask_gather",
+                                           "scan_count", "residual_mask")}
+        summary = {
+            "phase": "fs", "rows": n, "card": card_line(),
+            "seconds": time.perf_counter() - t_phase, "cut": cut,
+            "write_rows_per_s": steps[0]["rows_per_s"],
+            "files": steps[0]["files"], "files_compacted": steps[1]["files"],
+            "bytes_per_row": steps[1]["bytes_per_row"],
+            "reopens": {what: {
+                "first_query_s_median": statistics.median(
+                    r["first_query_s"] for r in runs),
+                "load_s_median": statistics.median(
+                    r["load_s"] for r in runs),
+                "runs": runs} for what, runs in reopen.items()},
+            "memory_allocated": {"resident": before_drop,
+                                 "after_drop": dropped,
+                                 "after_delete": after_delete,
+                                 "eighth_load": mem_at[8],
+                                 "last_load": mem_at[FS_EVICT_DAYS],
+                                 "end": torch.cuda.memory_allocated()},
+            "launches": counts}
+        emit(summary)
+        if min(counts["scan_mask"], counts["scan_mask_gather"]) == 0:
+            raise SystemExit(f"scan kernels never launched on the file "
+                             f"store path: {counts}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, summary
+
+
+def convert_csv(seed: int, rows: int):
+    """bench.py config 16's CSV (make_csv's lines) and the float64 values
+    of its rows as the converter reads them (the coordinates parsed from
+    the same text)."""
+    rng = np.random.default_rng(seed + 16)
+    x, y = rng.uniform(-180, 180, rows), rng.uniform(-90, 90, rows)
+    day, hh = rng.integers(1, 28, rows), rng.integers(0, 24, rows)
+    spd, crs = rng.uniform(0, 30, rows), rng.uniform(0, 360, rows)
+    xs = [f"{v:.5f}" for v in x.tolist()]
+    ys = [f"{v:.5f}" for v in y.tolist()]
+    text = "".join([
+        f"vessel{i % 5000},{i},2017-03-{d:02d}T{h:02d}:15:00Z,{a},{b},"
+        f"{s:.2f},{c:.2f},{c:.1f}\n"
+        for i, d, h, a, b, s, c in zip(range(rows), day.tolist(),
+                                       hh.tolist(), xs, ys, spd.tolist(),
+                                       crs.tolist())])
+    t0 = int(np.datetime64("2017-03-01", "ms").astype(np.int64))
+    ms = t0 + (day - 1) * MS_DAY + hh * 3_600_000 + 15 * 60_000
+    return (text, np.array(xs, dtype=np.float64),
+            np.array(ys, dtype=np.float64), ms)
+
+
+def _same_batches(a, b) -> bool:
+    """Two FeatureBatches equal id for id, column for column (values and
+    validity; string columns by vocabulary and codes)."""
+    from geomesa_tpu_torch.features.batch import (PointColumn,
+                                                  StringColumn)
+    if a.n != b.n or a.ids.tolist() != b.ids.tolist():
+        return False
+    for name, ca in a.columns.items():
+        cb = b.columns[name]
+        if isinstance(ca, StringColumn):
+            ok = (ca.vocab.tolist() == cb.vocab.tolist()
+                  and np.array_equal(ca.codes, cb.codes))
+        elif isinstance(ca, PointColumn):
+            ok = (np.array_equal(ca.x, cb.x, equal_nan=True)
+                  and np.array_equal(ca.y, cb.y, equal_nan=True)
+                  and np.array_equal(ca.valid, cb.valid))
+        else:
+            va = getattr(ca, "values", getattr(ca, "millis", None))
+            vb = getattr(cb, "values", getattr(cb, "millis", None))
+            ok = (np.array_equal(va, vb) and np.array_equal(ca.valid, cb.valid))
+        if not ok:
+            return False
+    return True
+
+
+def phase_convert(seed: int, budget_s: float) -> tuple[dict, dict]:
+    """bench.py config 16 part A's converter at CONVERT_ROWS: the CSV
+    through the scalar path (chunks of 4,096) and the vectorized one
+    (chunks of 65,536), rows/s and their ratio; the two must give equal
+    batches and equal counters. The scalar leg runs on the first rows
+    only once the whole would pass its share of the budget (``cut``).
+    Then the converted batches go into a file store and a durable
+    in-memory store on the card, and a BBOX+time query on each must equal
+    the brute force over the CSV's values. Launch counts are zeroed
+    before the stores' queries and read after; returns them and the
+    phase's summary."""
+    import gc
+    import shutil
+    import tempfile
+
+    import pyarrow
+    import pyarrow.csv  # noqa: F401  (the vectorized CSV parse)
+    import pyarrow.json  # noqa: F401  (the vectorized JSON parse)
+
+    from geomesa_tpu_torch import FileSystemDataStore, InMemoryDataStore
+    from geomesa_tpu_torch.convert import EvaluationContext, converter_for
+    from geomesa_tpu_torch.convert.vectorized import INGEST_VECTORIZED
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import parse_spec
+    from geomesa_tpu_torch.scan import kernels
+    t_phase = time.perf_counter()
+    rows = CONVERT_ROWS
+    text, x, y, ms = convert_csv(seed, rows)
+    setup_s = time.perf_counter() - t_phase
+    sft = parse_spec("ais16", FS_SPEC)
+    conv = converter_for(sft, CONVERT_CSV)
+    # vectorized first: the scalar leg's cut follows from the budget left
+    ctx = EvaluationContext()
+    t0 = time.perf_counter()
+    vec = [b for b, _ in conv.iter_batches(text, ctx,
+                                           batch_rows=CONVERT_CHUNKS[1])]
+    vec_s = time.perf_counter() - t0
+    # the scalar leg on a 2 % probe, then on the rows its share allows
+    probe = rows // 50
+    cut_at = text.index("\n", len(text) * probe // rows) + 1
+    INGEST_VECTORIZED.set("false")
+    try:
+        t0 = time.perf_counter()
+        list(conv.iter_batches(text[:cut_at], EvaluationContext(),
+                               batch_rows=CONVERT_CHUNKS[0]))
+        probe_rate = text[:cut_at].count("\n") / (time.perf_counter() - t0)
+        left = budget_s - (time.perf_counter() - t_phase)
+        scalar_rows = min(rows, int(probe_rate * max(
+            10.0, CONVERT_SCALAR_SHARE * left)))
+        cut = None if scalar_rows >= rows else {"scalar_rows": scalar_rows,
+                                                "of": rows}
+        sub = text if cut is None else text[:text.index(
+            "\n", len(text) * scalar_rows // rows) + 1]
+        scalar_rows = sub.count("\n")
+        sctx = EvaluationContext()
+        t0 = time.perf_counter()
+        sca = [b for b, _ in conv.iter_batches(sub, sctx,
+                                               batch_rows=CONVERT_CHUNKS[0])]
+        sca_s = time.perf_counter() - t0
+    finally:
+        INGEST_VECTORIZED.set(None)
+    vec_all = FeatureBatch.concat_all(vec)
+    sca_all = FeatureBatch.concat_all(sca)
+    if cut is None:
+        same = (_same_batches(vec_all, sca_all)
+                and (ctx.success, ctx.failure, ctx.line)
+                == (sctx.success, sctx.failure, sctx.line))
+    else:
+        # the scalar rows against the vectorized path on the same rows
+        vctx = EvaluationContext()
+        head = FeatureBatch.concat_all(
+            [b for b, _ in conv.iter_batches(sub, vctx,
+                                             batch_rows=CONVERT_CHUNKS[1])])
+        same = (_same_batches(head, sca_all)
+                and (vctx.success, vctx.failure, vctx.line)
+                == (sctx.success, sctx.failure, sctx.line))
+    if not same or ctx.success != rows or ctx.failure:
+        raise SystemExit("convert: the scalar and vectorized paths differ "
+                         f"({ctx.success} / {sctx.success} rows)")
+    emit({"phase": "convert", "rows": rows, "csv_mb": len(text) / 1e6,
+          "setup_s": setup_s,
+          "vectorized": {"chunk_rows": CONVERT_CHUNKS[1], "seconds": vec_s,
+                         "rows_per_s": rows / vec_s, "batches": len(vec)},
+          "scalar": {"chunk_rows": CONVERT_CHUNKS[0], "rows": scalar_rows,
+                     "seconds": sca_s, "rows_per_s": scalar_rows / sca_s,
+                     "batches": len(sca)},
+          "speedup": (rows / vec_s) / (scalar_rows / sca_s), "cut": cut,
+          "equal": same})
+    del sca, sca_all, text
+    week = [int(np.datetime64(f"2017-03-{d:02d}", "ms").astype(np.int64))
+            for d in (5, 12)]
+    want = _brute(x, y, ms, [(-80, 30, -60, 45)], week)
+    roots = [tempfile.mkdtemp(prefix="geomesa-convert-fs-"),
+             tempfile.mkdtemp(prefix="geomesa-convert-wal-")]
+    kernels.reset_launches()
+    stores = {}
+    try:
+        fs = FileSystemDataStore(roots[0])
+        fs.create_schema(parse_spec("ais16", FS_SPEC))
+        mem = InMemoryDataStore(durable_dir=roots[1], wal_fsync="interval")
+        mem.create_schema(parse_spec("ais16", FS_SPEC))
+        for name, ds in (("fs", fs), ("durable", mem)):
+            t0 = time.perf_counter()
+            for b in vec:
+                ds.write("ais16", b)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = ds.query(CONVERT_QUERY, "ais16")
+            got = np.sort(np.array([int(i[1:]) for i in res.ids],
+                                   dtype=np.int64))
+            q_s = time.perf_counter() - t0
+            if not (np.array_equal(got, want) and ds.count("ais16") == rows):
+                raise SystemExit(f"convert {name}: {len(got)} ids, the "
+                                 f"brute force {len(want)}")
+            stores[name] = {"write_s": write_s,
+                            "write_rows_per_s": rows / write_s,
+                            "query_s": q_s, "hits": len(got)}
+        mem.close()
+        del fs, mem
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    launches = dict(kernels.launches)
+    summary = {"phase": "convert", "rows": rows, "card": card_line(),
+               "seconds": time.perf_counter() - t_phase, "cut": cut,
+               "vectorized_rows_per_s": rows / vec_s,
+               "scalar_rows_per_s": scalar_rows / sca_s,
+               "speedup": (rows / vec_s) / (scalar_rows / sca_s),
+               "stores": stores,
+               "launches": {k: launches[k] for k in ("scan_mask",
+                                                     "scan_mask_gather")}}
+    emit(summary)
+    return launches, summary
 
 
 PLAIN_IDS = 100           # ids in the geometry-less phase's id query
@@ -4336,6 +4976,11 @@ def main():
     durable = phase_durable(args.seed, args.store_rows)
     for name in ("scan_mask", "scan_mask_gather", "scan_count"):
         launches[name] += durable[name]
+    fs_launches, fs_summary = phase_fs(args.seed, args.store_rows)
+    conv_launches, _ = phase_convert(args.seed,
+                                     FS_BUDGET_S - fs_summary["seconds"])
+    for name in ("scan_mask", "scan_mask_gather", "scan_count"):
+        launches[name] += fs_launches[name] + conv_launches[name]
     batched = phase_batched(args.seed, ds, rows)
     for name in ("scan_batch_bits", "compact_prefix", "compact_bits"):
         launches[name] = batched[name]
@@ -4346,6 +4991,8 @@ def main():
     pred_stats, pred_counts, pred_ds, pred_data, pred_queries, pred_q = \
         phase_predicates(args.seed, args.store_rows, rows[3])
     launches.update(pred_counts)
+    launches["residual_mask"] += (fs_launches["residual_mask"]
+                                  + conv_launches["residual_mask"])
     phase_stats(pred_ds, pred_data, rows[3], pred_queries, pred_q)
     surf_stats, surf_counts = phase_surface(pred_ds, pred_data, rows[3],
                                             pred_queries)

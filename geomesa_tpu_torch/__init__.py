@@ -11,11 +11,23 @@ when an Arrow entry point is called) run on the host.
 
 Entry points run on the CUDA card unless the caller passes another
 device: ``InMemoryDataStore()`` is ``InMemoryDataStore(device="cuda")``.
+``FileSystemDataStore(root)`` keeps features as partitioned Parquet
+under ``root`` and answers each query from an in-memory store it loads
+on the card (``store/fs.py``); the converters of ``convert/`` turn
+delimited text, JSON, XML, fixed-width, Avro, shapefile, JDBC and OSM
+records into feature batches.
 """
 
-from .features import FeatureBatch, SimpleFeatureType, parse_spec
-from .index import Query
-from .store import DataStore, InMemoryDataStore, QueryResult
+# equal to the JAX package's: the file store stamps it into each type's
+# metadata.json and refuses a major skew on open, so an equal value lets
+# a root written by either package open in the other without a warning
+__version__ = "0.2.0"
 
-__all__ = ["DataStore", "FeatureBatch", "InMemoryDataStore", "Query",
-           "QueryResult", "SimpleFeatureType", "parse_spec"]
+from .features import FeatureBatch, SimpleFeatureType, parse_spec  # noqa: E402
+from .index import Query  # noqa: E402
+from .store import (DataStore, FileSystemDataStore,  # noqa: E402
+                    InMemoryDataStore, QueryResult)
+
+__all__ = ["DataStore", "FeatureBatch", "FileSystemDataStore",
+           "InMemoryDataStore", "Query", "QueryResult", "SimpleFeatureType",
+           "parse_spec", "__version__"]

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["z2_split", "z2_encode", "z3_split", "z3_combine", "z3_encode",
+__all__ = ["z2_split", "z2_combine", "z2_encode", "z2_decode", "z3_split", "z3_combine", "z3_encode",
            "z3_decode", "Z2_BITS", "Z3_BITS", "Z2_MAX", "Z3_MAX"]
 
 Z2_BITS = 31   # bits per dimension
@@ -40,9 +40,26 @@ def z2_split(x) -> np.ndarray:
     return x
 
 
+def z2_combine(z) -> np.ndarray:
+    """Inverse of z2_split: gather the even bits into the low 31."""
+    x = _u64(z) & np.uint64(0x5555555555555555)
+    x = (x ^ (x >> np.uint64(1))) & np.uint64(0x3333333333333333)
+    x = (x ^ (x >> np.uint64(2))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+    x = (x ^ (x >> np.uint64(4))) & np.uint64(0x00FF00FF00FF00FF)
+    x = (x ^ (x >> np.uint64(8))) & np.uint64(0x0000FFFF0000FFFF)
+    x = (x ^ (x >> np.uint64(16))) & np.uint64(0x00000000FFFFFFFF)
+    return x.astype(np.int64)
+
+
 def z2_encode(x, y) -> np.ndarray:
     """Interleave two 31-bit ints into a 62-bit z2 key (x gets bit 0)."""
     return z2_split(x) | (z2_split(y) << np.uint64(1))
+
+
+def z2_decode(z):
+    """z2 key(s) -> the (x, y) normalized ints (int64)."""
+    z = _u64(z)
+    return z2_combine(z), z2_combine(z >> np.uint64(1))
 
 
 def z3_split(x) -> np.ndarray:

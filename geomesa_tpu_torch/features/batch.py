@@ -18,6 +18,7 @@ RecordBatch (pyarrow imported when they are called).
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Iterable
 
 import numpy as np
@@ -36,6 +37,8 @@ EXTENT_TYPES = frozenset({"LineString", "Polygon", "MultiPoint",
 # the attribute types this port stores (String and UUID share one column)
 COLUMN_TYPES = frozenset({"Point", "String", "UUID", "Date", "Boolean",
                           "Integer", "Long", "Float", "Double"}) | EXTENT_TYPES
+# the attribute types whose Arrow columns without nulls decode as numpy
+_NUMPY_TYPES = frozenset({"Integer", "Long", "Float", "Double", "Boolean"})
 
 
 class Column:
@@ -152,8 +155,18 @@ class StringColumn(Column):
     def from_arrow(cls, name: str, arr) -> "StringColumn":
         """From a pyarrow string array: dictionary-encode in C, then
         remap the codes to the sorted-vocab order that ``code_of``'s
-        searchsorted needs (sorting the vocab, not the rows)."""
-        if arr.null_count:
+        searchsorted needs (sorting the vocab, not the rows). The
+        vocabulary and codes equal ``from_strings``' on the same values;
+        an array with nulls or of another type goes through it."""
+        import pyarrow as pa
+        if pa.types.is_dictionary(arr.type):
+            if (not arr.null_count and not arr.dictionary.null_count
+                    and (pa.types.is_string(arr.type.value_type)
+                         or pa.types.is_large_string(arr.type.value_type))):
+                return cls._from_dictionary(name, arr)
+            arr = arr.dictionary_decode()
+        if arr.null_count or not (pa.types.is_string(arr.type)
+                                  or pa.types.is_large_string(arr.type)):
             return cls.from_strings(
                 name, np.asarray(arr.to_numpy(zero_copy_only=False),
                                  dtype=object))
@@ -166,6 +179,23 @@ class StringColumn(Column):
         inv = np.empty(len(order), dtype=np.int32)
         inv[order] = np.arange(len(order), dtype=np.int32)
         return cls(name, inv[codes], vocab[order])
+
+    @classmethod
+    def _from_dictionary(cls, name: str, arr) -> "StringColumn":
+        """A dictionary array (``to_arrow``'s string layout) by its
+        indices: the dictionary entries some row uses, sorted and
+        deduplicated, become the vocabulary; the rows are not decoded."""
+        idx = arr.indices.to_numpy(zero_copy_only=False)
+        entries = np.asarray(arr.dictionary.to_numpy(zero_copy_only=False),
+                             dtype=object)
+        used = np.zeros(len(entries), dtype=bool)
+        used[idx] = True
+        kept = np.flatnonzero(used)
+        vocab, of_kept = np.unique(entries[kept].astype(str),
+                                   return_inverse=True)
+        remap = np.zeros(len(entries), dtype=np.int32)
+        remap[kept] = of_kept.ravel()
+        return cls(name, remap[idx], vocab.astype(object))
 
 
 @dataclasses.dataclass
@@ -246,6 +276,13 @@ def _column_for(spec_type: str, name: str, data) -> Column:
     if spec_type in EXTENT_TYPES:
         return GeometryColumn.from_geoms(name, data)
     if spec_type in ("String", "UUID"):
+        # an Arrow array (the vectorized converter's, a Parquet or IPC
+        # column) dictionary-encodes in C; pyarrow is loaded if one exists
+        pa = sys.modules.get("pyarrow")
+        if pa is not None and isinstance(data, (pa.Array, pa.ChunkedArray)):
+            if isinstance(data, pa.ChunkedArray):
+                data = data.combine_chunks()
+            return StringColumn.from_arrow(name, data)
         return StringColumn.from_strings(name, data)
     if spec_type == "Date":
         arr = np.asarray(data)
@@ -432,7 +469,11 @@ class FeatureBatch:
 
     @classmethod
     def from_arrow(cls, sft: SimpleFeatureType, rb) -> "FeatureBatch":
-        """A batch from a pyarrow RecordBatch in ``to_arrow``'s layout."""
+        """A batch from a pyarrow RecordBatch in ``to_arrow``'s layout.
+        Columns equal the JAX package's ``from_arrow``: strings through
+        ``StringColumn.from_arrow``, numbers and booleans without nulls
+        as numpy arrays, the rest as Python values."""
+        import pyarrow as pa
         # str objects straight from the column (to_pylist builds a
         # scalar a row first, about 17x slower)
         ids = np.asarray(rb.column("__fid__").to_numpy(zero_copy_only=False),
@@ -445,6 +486,11 @@ class FeatureBatch:
                 data[a.name] = (np.asarray(flat[0]), np.asarray(flat[1]))
             elif a.type.name == "Date":
                 # datetime64 with NaT for a null
+                data[a.name] = col.to_numpy(zero_copy_only=False)
+            elif a.type.name in ("String", "UUID"):
+                data[a.name] = col          # StringColumn.from_arrow
+            elif (a.type.name in _NUMPY_TYPES and not col.null_count
+                  and not pa.types.is_dictionary(col.type)):
                 data[a.name] = col.to_numpy(zero_copy_only=False)
             else:
                 data[a.name] = col.to_pylist()

@@ -116,6 +116,13 @@ class Bounds:
     upper: Bound
 
     @property
+    def is_equality(self) -> bool:
+        """One value, both ends inclusive (an attribute partition's
+        name)."""
+        return (self.lower.is_bounded and self.lower.value == self.upper.value
+                and self.lower.inclusive and self.upper.inclusive)
+
+    @property
     def is_bounded(self) -> bool:
         return self.lower.is_bounded or self.upper.is_bounded
 

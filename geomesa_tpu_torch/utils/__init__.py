@@ -1,6 +1,11 @@
-"""Host utilities of the port (configuration flags, device selection)."""
+"""Host utilities of the port: configuration flags, device selection,
+the metadata catalog, schema locks, age-off and the version check."""
 
 from .device import resolve_device
+from .locking import FileLock, LocalLock, with_lock
+from .metadata import FileMetadata, InMemoryMetadata, MetadataCatalog
 from .properties import SystemProperty
 
-__all__ = ["SystemProperty", "resolve_device"]
+__all__ = ["FileLock", "FileMetadata", "InMemoryMetadata", "LocalLock",
+           "MetadataCatalog", "SystemProperty", "resolve_device",
+           "with_lock"]

@@ -47,7 +47,19 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.native, geomesa_tpu_torch.curves.legacy, "
             "geomesa_tpu_torch.features.codec, geomesa_tpu_torch.wal, "
             "geomesa_tpu_torch.integrity, geomesa_tpu_torch.integrity.verify, "
-            "geomesa_tpu_torch.store.filebus\n"
+            "geomesa_tpu_torch.store.filebus, geomesa_tpu_torch.store.fs, "
+            "geomesa_tpu_torch.store.partitions, geomesa_tpu_torch.utils, "
+            "geomesa_tpu_torch.utils.metadata, geomesa_tpu_torch.utils.version, "
+            "geomesa_tpu_torch.utils.locking, geomesa_tpu_torch.utils.ageoff, "
+            "geomesa_tpu_torch.convert, geomesa_tpu_torch.convert.dsl, "
+            "geomesa_tpu_torch.convert.converter, "
+            "geomesa_tpu_torch.convert.vectorized, "
+            "geomesa_tpu_torch.convert.validators, "
+            "geomesa_tpu_torch.convert.enrichment, "
+            "geomesa_tpu_torch.convert.formats, "
+            "geomesa_tpu_torch.convert.avro_reader, "
+            "geomesa_tpu_torch.convert.avro_writer, "
+            "geomesa_tpu_torch.convert.geo_formats\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -88,7 +100,14 @@ def test_no_source_imports_jax_or_reference():
             "utils/fp.py", "native/__init__.py", "curves/legacy.py",
             "features/codec.py", "integrity/faultfs.py", "integrity/verify.py",
             "store/filebus.py", "store/live.py", "wal/log.py",
-            "wal/snapshot.py", "wal/recovery.py", "wal/durable.py"} <= seen
+            "wal/snapshot.py", "wal/recovery.py", "wal/durable.py",
+            "store/fs.py", "store/partitions.py", "utils/metadata.py",
+            "utils/version.py", "utils/locking.py", "utils/ageoff.py",
+            "convert/__init__.py", "convert/dsl.py", "convert/converter.py",
+            "convert/vectorized.py", "convert/validators.py",
+            "convert/enrichment.py", "convert/formats.py",
+            "convert/avro_reader.py", "convert/avro_writer.py",
+            "convert/geo_formats.py"} <= seen
     # the native library's C++ sources are the port's own copies
     src = os.path.join(PKG, "native", "src")
     assert sorted(os.listdir(src)) == ["feature_codec.cpp", "zbuild.cpp",
@@ -98,6 +117,32 @@ def test_no_source_imports_jax_or_reference():
         with open(os.path.join(src, f)) as fh:
             assert not re.search(r"#include\s+[<\"][^>\"]*geomesa_tpu/",
                                  fh.read())
+
+
+def test_version_equals_the_reference():
+    """The file store stamps the version into each type's metadata.json
+    and refuses a major skew: the two packages' must be equal (read from
+    the JAX package's source, which this file does not import)."""
+    root = os.path.dirname(PKG)
+    with open(os.path.join(root, "geomesa_tpu", "__init__.py")) as fh:
+        ref = re.search(r'^__version__ = "([^"]+)"', fh.read(), re.M)
+    assert ref is not None
+    assert geomesa_tpu_torch.__version__ == ref.group(1)
+
+
+def test_file_store_defaults_to_cuda(monkeypatch, tmp_path):
+    from geomesa_tpu_torch import FileSystemDataStore
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            FileSystemDataStore(str(tmp_path / "fs"), device=device)
+    assert not os.path.exists(tmp_path / "fs")
+    ds = FileSystemDataStore(str(tmp_path / "fs"), device="cpu")
+    ds.create_schema("t", "dtg:Date,*geom:Point")
+    ds.write_dict("t", ["a"], {"dtg": [0], "geom": ([1.0], [2.0])})
+    ds.load_resident("t")
+    (mem,) = ds._state("t").cache.values()
+    assert mem.device.type == "cpu"
 
 
 def test_store_defaults_to_cuda(monkeypatch, tmp_path):
@@ -352,6 +397,62 @@ def test_durable_store_on_cuda_matches_cpu(cuda, monkeypatch, tmp_path):
     assert gpu._types["pts"].scan_data.xhi.device.type == "cuda"
     for s in stores:
         s.close()
+
+
+@pytest.mark.gpu
+def test_file_store_on_cuda_matches_cpu(cuda, monkeypatch, tmp_path):
+    """A file store on the card (partitioned Parquet, loaded into an
+    in-memory store on CUDA) over a root the CPU store wrote: its
+    resident query launches scan_mask_gather, and every answer (pruned
+    and pushed down, an attribute predicate, resident, a reopen that
+    adopts the sidecar with no z-key sort) equals the CPU store's on the
+    same root, id for id in order."""
+    from geomesa_tpu_torch import FileSystemDataStore
+    from geomesa_tpu_torch.index import zkeys
+    rng = np.random.default_rng(17)
+    n = 60_000
+    ids = np.array([f"v{i}" for i in range(n)], dtype=object)
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    data = {"name": np.array([f"n{i % 50}" for i in range(n)], dtype=object),
+            "speed": rng.uniform(0, 30, n),
+            "dtg": 1_577_836_800_000 + rng.integers(0, 20 * MS_DAY, n)}
+    root = str(tmp_path / "root")
+    writer = FileSystemDataStore(root, device="cpu")
+    writer.create_schema("ais", "name:String,speed:Double,dtg:Date,"
+                         "*geom:Point")
+    for lo in range(0, n, 20_000):
+        sl = slice(lo, lo + 20_000)
+        writer.write_dict("ais", ids[sl], {
+            **{k: v[sl] for k, v in data.items()}, "geom": (x[sl], y[sl])})
+    writer.compact("ais")
+    q = ("BBOX(geom, -80, 30, -60, 45) AND dtg DURING "
+         "2020-01-03T00:00:00Z/2020-01-10T00:00:00Z")
+    attr = "speed > 25 AND BBOX(geom, -100, -40, 100, 40)"
+    got = {}
+    for device in (None, "cpu"):
+        ds = FileSystemDataStore(root, device=device)
+        pruned = ds.query(q, "ais").ids.tolist()
+        attr_ids = ds.query(attr, "ais").ids.tolist()
+        ds.load_resident("ais")
+        monkeypatch.setenv("GEOMESA_SCAN_HOST_ROWS", "0")
+        monkeypatch.setenv("GEOMESA_SCAN_INDEX_THRESHOLD", "1.0")
+        kernels.reset_launches()
+        resident = ds.query(q, "ais").ids.tolist()
+        if device is None:
+            assert kernels.launches["scan_mask_gather"] >= 1
+            full = [m for k, m in ds._state("ais").cache.items()
+                    if k[1] is None and k[2] is None]
+            assert full[0]._types["ais"].scan_data.xhi.device.type == "cuda"
+        monkeypatch.setattr(zkeys, "sort_bin_z", None)
+        reopened = FileSystemDataStore(root, device=device).query(
+            q, "ais").ids.tolist()
+        monkeypatch.undo()
+        got[device] = (pruned, attr_ids, resident, reopened,
+                       ds.count("ais"))
+    assert got[None] == got["cpu"]
+    pruned, attr_ids, resident, reopened, count = got[None]
+    assert pruned == resident == reopened and len(pruned) > 0
+    assert len(attr_ids) > 0 and count == n
 
 
 def _batch(count, k_boxes=None, intervals=None, seed=0):
