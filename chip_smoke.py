@@ -7,8 +7,9 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. build   the CUDA kernels from geomesa_tpu_torch/csrc/scan.cu,
            csrc/batch.cu, csrc/geom.cu, csrc/residual.cu, csrc/density.cu,
-           csrc/extent.cu, csrc/join.cu and csrc/tube.cu (one nvcc per
-           source, started together, then one link; sm_90a), with the
+           csrc/extent.cu, csrc/join.cu, csrc/tube.cu and csrc/standing.cu
+           (one nvcc per source, started together, then one link;
+           sm_90a), with the
            card's name and power limit; then the native host library
            from geomesa_tpu_torch/native/src (one g++), its seconds and
            path.
@@ -136,6 +137,52 @@ Phases, one JSON line each; any failure exits non-zero:
            then the batches into a file store and a durable in-memory
            store on the card, a BBOX+time query on each equal to the
            brute force over the CSV's values.
+           (geofence) bench.py config 15 at its own shapes, nothing
+           cut (a fleet or port operator's geofences on a live feed):
+           (A) a LiveDataStore with a ContinuousQueryPublisher and
+           10,000 filters (bench.py's mix: 0.5-2.5 degree half-width
+           boxes, a tenth with a DURING, a tenth with a speed BETWEEN, a
+           tenth with a LIKE), a warm write, then 4 batches of 8,192
+           rows; on 64 probed topics the published ids equal evaluate
+           per filter over each batch; device rows/s beside the host
+           loop's (the same publisher with the type held on the host)
+           and their ratio. (B) a StandingFilterSet with 100,000 filters
+           and one 1M-row dispatch, id-exact against evaluate on a
+           2,048-filter stride; register/s, the dispatch split (row
+           prep, uploads, kernels, compaction and copies, merge, host
+           patch), padded_cap and the residual fraction. (C) 256
+           unregisters and registers within the cap and another 1M-row
+           dispatch: no new shape class, the device tables' storage
+           unchanged, the replaced filters id-exact. standing_bits held
+           to its plain version on (B)'s first chunk with torch.equal,
+           timed there (held median) beside its plain version and its
+           bound (the operations this chunk's live slots need at
+           33.5 T/s, or the bytes). Launch counts zeroed before the
+           phase and read after (the comparison's launches left out):
+           standing_bits must have launched.
+           (stream) the streaming tiers at a live AIS picture's size:
+           262,144 vessel ids, 32 messages of 8,192 creates, then 32 of
+           upserts of the same ids (cut once past their share of the
+           budget left: ``cut``), into a LiveDataStore whose
+           ContinuousQueryPublisher matches 8 standing queries and
+           publishes to a SocketBroker(root=...) on 127.0.0.1, one
+           subscriber thread a query; the broker stops and restarts on
+           its port and root after the creates. Every matching
+           (message, id) must arrive exactly once, equal to evaluate
+           over what was sent; the live store's north-star query
+           (gathered and dense) and query_count equal a float64 brute
+           force over each id's latest version; expire drops the first
+           half by arrival time. A LambdaDataStore over a
+           FileSystemDataStore: persist moves half, 1,000 persisted ids
+           written again, the union query equal to the brute force with
+           the transient rows winning. A StreamDataStore on a
+           FileTailSource grown over 10 ticks with bench.py config 16's
+           CSV, its query equal to the brute force. Ingest rows/s
+           (creates, upserts), the upsert's id conversion, the CQ
+           publish-to-receive p50, the resume seconds, persist seconds,
+           the union query's p50. The two phases have 150 s together
+           (STREAM_BUDGET_S). Launch counts zeroed before the phase and
+           read after: the scan kernels and standing_bits must launch.
 4. batched the serving path on the store phase's 10M rows: 32 seeded
            queries in the store's dates through query_batched at batch
            sizes 2, 8 and 32, every query's ids equal to the float64
@@ -707,7 +754,7 @@ def phase_kernels(seed: int, rows: int) -> dict:
     flush = _l2_flush(dev)
     stats = {k: {"max_abs_err": 0, "per_query": []} for k in SOURCES
              if k not in PRED_KERNELS + SURFACE_KERNELS + JOIN_KERNELS
-             + ("tube_mask",)}
+             + ("tube_mask", "standing_bits")}
     for qi, (boxes, intervals) in enumerate(KERNEL_QUERIES):
         q = zscan.make_query(boxes, intervals)
         b, t = q.tables(dev)
@@ -2264,6 +2311,686 @@ def phase_convert(seed: int, budget_s: float) -> tuple[dict, dict]:
                                                      "scan_mask_gather")}}
     emit(summary)
     return launches, summary
+
+
+# -- geofence and stream (queue 1 item 5: the streaming tiers) -------------
+
+GEOFENCE_SPEC = "name:String,speed:Double,dtg:Date,*geom:Point:srid=4326"
+GEOFENCE_FILTERS = 10_000         # bench.py config 15 (A)
+GEOFENCE_FILTERS_BIG = 100_000    # (B)
+GEOFENCE_ROWS = 8_192             # (A): rows a batch
+GEOFENCE_BATCHES = 4
+GEOFENCE_BULK = 1_000_000         # (B), (C)
+GEOFENCE_ORACLE = 2_048           # (B): filters checked, a stride
+GEOFENCE_PROBES = 64              # (A): topics probed, a stride
+GEOFENCE_CHURN = 256              # (C)
+STREAM_BUDGET_S = 150.0           # the geofence and stream phases together
+STANDING_BOX_OPS, STANDING_TIME_OPS, STANDING_ATTR_OPS = 15, 6, 4
+SOURCES["standing_bits"] = "geomesa_tpu/scan/standing.py:130 _standing_mask"
+SOURCE_FILES["standing_bits"] = "geomesa_tpu_torch/csrc/standing.cu"
+
+
+def geofence_ecql(rng, i: int) -> str:
+    """bench.py's _geofence_ecql: 0.5-2.5 degree half-width boxes, every
+    tenth filter with a DURING, one with a speed BETWEEN and one with a
+    LIKE (residual)."""
+    cx = float(rng.uniform(-178, 178))
+    cy = float(rng.uniform(-88, 88))
+    w = float(rng.uniform(0.5, 2.5))
+    box = (f"bbox(geom,{cx - w:.4f},{cy - w:.4f},"
+           f"{cx + w:.4f},{cy + w:.4f})")
+    m = i % 10
+    if m == 3:
+        return (f"{box} AND dtg DURING "
+                f"2016-07-01T00:00:00Z/2016-09-01T00:00:00Z")
+    if m == 5:
+        lo = float(rng.uniform(0, 200))
+        return f"{box} AND speed BETWEEN {lo:.2f} AND {lo + 40:.2f}"
+    if m == 7:
+        return f"{box} AND name LIKE 'u{i % 100}%'"
+    return box
+
+
+def geofence_batch(rng, sft, n: int, tag: str):
+    """bench.py's _geofence_batch: names u0..u499, speeds 0-300, the
+    store's 100 days, uniform points."""
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    ms = rng.integers(T0_DAY * MS_DAY, T1_DAY * MS_DAY, n).astype(np.int64)
+    return FeatureBatch.from_dict(
+        sft, [f"{tag}_{i}" for i in range(n)],
+        {"name": [f"u{i % 500}" for i in range(n)],
+         "speed": rng.uniform(0, 300, n), "dtg": ms,
+         "geom": (rng.uniform(-180, 180, n), rng.uniform(-90, 90, n))})
+
+
+def standing_bound(tables, n_valid: int, chunk: int) -> tuple[float, str]:
+    """The standing kernel's bound for one chunk: the operations this
+    chunk's live slots need (per row: a box test per valid box, the
+    time test where the slot has an interval, an attribute test per
+    bounded attribute; STANDING_*_OPS each) at F32_OPS_PER_S, and the
+    bytes (the chunk's rows and the tables read once, the bits and
+    partials written) at HBM_BYTES_PER_S; the larger."""
+    boxes, box_valid, box_any, times, attrs, attr_any, alive = (
+        t.cpu().numpy() for t in tables)
+    f, k, a = boxes.shape[0], boxes.shape[1], attrs.shape[1]
+    live = alive
+    timed = ~((times[:, 0] == -(2 ** 30)) & (times[:, 2] == 2 ** 30))
+    per_slot = (STANDING_BOX_OPS * np.where(box_any, 0, box_valid.sum(1))
+                + STANDING_TIME_OPS * timed
+                + STANDING_ATTR_OPS * (~attr_any).sum(1))
+    ops = float(per_slot[live].sum()) * n_valid
+    words = -(-chunk // 32)
+    nbytes = (chunk * (24 + 8 * a) + f * (32 * k + k + 2 + 16 + 17 * a)
+              + f * words * 4 + f * -(-words // 64) * 4)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def standing_kernel_stats(fset, batch) -> dict:
+    """standing_bits on the first chunk of a dispatch of ``batch``
+    against its plain version on the card (bit for bit), both timed
+    (the kernel held, median of 20; the plain version once after a
+    warm call), with the bound; the compaction at this shape (the prefix
+    kernel held, the wrapper's wall time with its sync); then the
+    dispatch's matching loop split
+    into the kernels alone (CUDA events over every chunk's launch) and
+    the rest of the loop (compaction, its sync, the ids' copy)."""
+    from geomesa_tpu_torch.scan import kernels
+    n = batch.n
+    chunk = fset._chunk_rows(n)
+    rows = fset._rows_device(fset._rows_host(batch), -(-n // chunk) * chunk)
+    tables = fset.device_tables()
+    views = fset._chunk_views(rows, 0, chunk)
+    nv = min(chunk, n)
+    got = kernels.standing_bits(views, tables, nv)
+    want = kernels.standing_bits_plain(views, tables, nv)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise SystemExit("geofence: standing_bits differs from its plain "
+                         "version on the first chunk")
+    out = (torch.zeros_like(got[0]), torch.zeros_like(got[1]))
+    ms = cuda_ms(lambda: kernels.standing_bits(views, tables, nv, out=out),
+                 20)
+    plain_ms = cuda_ms(lambda: kernels.standing_bits_plain(views, tables,
+                                                           nv), 1, warmup=1)
+    bound, by = standing_bound(tables, nv, chunk)
+    # the compaction at this shape: the prefix kernel alone (held), and
+    # compact_bits_device through its wrapper on an idle card (its sync
+    # and the host's work included, host clock)
+    prefix_ms = cuda_ms(lambda: kernels.compact_prefix(out[1]), 20)
+    walls = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernels.compact_bits_device(*out)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    chunks = -(-n // chunk)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for start in range(0, n, chunk):
+        kernels.standing_bits(fset._chunk_views(rows, start, chunk), tables,
+                              min(chunk, n - start), out=out)
+    b.record()
+    b.synchronize()
+    kernels_s = a.elapsed_time(b) / 1e3
+    t0 = time.perf_counter()
+    for start in range(0, n, chunk):
+        kernels.standing_bits(fset._chunk_views(rows, start, chunk), tables,
+                              min(chunk, n - start), out=out)
+        ids, _, totals, _ = kernels.compact_bits_device(*out)
+        ids.cpu()
+    loop_s = time.perf_counter() - t0
+    return {"max_abs_err": _err(got[0], want[0]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "chunk": chunk, "chunks": chunks,
+            "slots": int(tables[0].shape[0]),
+            "live": int(tables[6].sum().item()), "prefix_ms": prefix_ms,
+            "compact_wrapper_ms": statistics.median(walls),
+            "kernels_s": kernels_s,
+            "kernels_and_compaction_s": loop_s}
+
+
+def phase_geofence(seed: int) -> tuple[dict, dict, float]:
+    """bench.py config 15 at its own shapes (nothing cut): a fleet or port
+    operator's 100k geofences alerting on a live vessel or vehicle feed.
+    (A) a LiveDataStore on the card with a ContinuousQueryPublisher and
+    10,000 filters, one warm write, then 4 batches of 8,192 rows; on 64
+    probed topics (a stride) the published ids must equal a host
+    evaluate per filter over each batch; device rows/s beside the host
+    loop's on the same batches (the publisher with the type held on the
+    host), and their ratio. (B) a StandingFilterSet on the card with
+    100,000 filters and one 1M-row dispatch, id-exact against evaluate
+    on a 2,048-filter stride (the residual tenth kept in); register/s,
+    the dispatch split into row prep, uploads, the kernels, the rest of
+    the matching loop (compaction and the copies to the host) and the
+    host patch; padded_cap and the residual fraction. (C) churn: 256
+    unregisters and registers within the cap, then another 1M-row
+    dispatch: no new shape class, the device tables' storage unchanged,
+    the replaced filters id-exact. standing_bits is held to its plain
+    version on (B)'s first chunk and timed there. Launch counts zeroed
+    before the phase, read after; standing_bits must have launched.
+    Returns the kernel's stats, the launch counts and the seconds."""
+    from geomesa_tpu_torch import LiveDataStore
+    from geomesa_tpu_torch.features.sft import parse_spec
+    from geomesa_tpu_torch.filters import evaluate, parse_ecql
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.scan.standing import StandingFilterSet
+    from geomesa_tpu_torch.store.continuous import ContinuousQueryPublisher
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 15)
+    nf, nbig = GEOFENCE_FILTERS, GEOFENCE_FILTERS_BIG
+    ecqls = [geofence_ecql(rng, i) for i in range(max(nf, nbig))]
+    parsed = [parse_ecql(e) for e in ecqls]
+    sft = parse_spec("g15", GEOFENCE_SPEC)
+    feed = [geofence_batch(rng, sft, GEOFENCE_ROWS, f"b{b}")
+            for b in range(GEOFENCE_BATCHES)]
+    warm = geofence_batch(rng, sft, GEOFENCE_ROWS, "warm")
+    sample = list(range(0, nf, max(nf // GEOFENCE_PROBES, 1)))[
+        :GEOFENCE_PROBES]
+    kernels.reset_launches()
+
+    def publisher_run(host: bool):
+        store = LiveDataStore()
+        store.create_schema(parse_spec("g15", GEOFENCE_SPEC))
+        pub = ContinuousQueryPublisher(store)
+        if host:
+            # the type held on the host loop, as a type whose schema the
+            # publisher could not read is
+            pub._host_only.add("g15")
+        t0 = time.perf_counter()
+        for i in range(nf):
+            pub.register(f"q{i}", "g15", ecqls[i])
+        reg_s = time.perf_counter() - t0
+        store.write("g15", warm)
+        probe = {}
+        for i in sample:
+            got = probe[f"q{i}"] = []
+            store.bus.subscribe(f"cq.q{i}", lambda m, g=got: g.extend(
+                str(x) for x in m.batch.ids))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in feed:
+            store.write("g15", b)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        stats = pub.device_stats()
+        pub.close()
+        return elapsed, reg_s, probe, stats
+
+    dev_s, dev_reg_s, dev_probe, dev_stats = publisher_run(host=False)
+    host_s, _, host_probe, _ = publisher_run(host=True)
+    for i in sample:
+        want = [str(x) for b in feed
+                for x in b.ids[np.flatnonzero(evaluate(parsed[i], b))]]
+        if dev_probe[f"q{i}"] != want or host_probe[f"q{i}"] != want:
+            raise SystemExit(f"geofence (A): topic cq.q{i} published "
+                             f"{len(dev_probe[f'q{i}'])} ids, evaluate "
+                             f"{len(want)}")
+    total = GEOFENCE_ROWS * GEOFENCE_BATCHES
+    publisher = {"filters": nf, "register_per_s": nf / dev_reg_s,
+                 "device_s": dev_s, "host_s": host_s,
+                 "device_rows_per_s": total / dev_s,
+                 "host_rows_per_s": total / host_s,
+                 "ratio": host_s / dev_s, "topics_probed": len(sample),
+                 "probed_ids": sum(map(len, dev_probe.values())),
+                 "padded_cap": dev_stats[0]["padded_cap"]}
+    emit({"phase": "geofence", "part": "publisher", **publisher})
+
+    # (B) the bulk dispatch
+    fset = StandingFilterSet(sft)
+    t0 = time.perf_counter()
+    for i in range(nbig):
+        fset.register(f"q{i}", parsed[i])
+    big_reg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bulk = geofence_batch(rng, sft, GEOFENCE_BULK, "bulk")
+    bulk_make_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits = fset.dispatch(bulk)
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+    split = dict(fset.last_split)
+    st = fset.stats()
+    check = list(range(0, nbig, max(nbig // GEOFENCE_ORACLE, 1)))
+    t0 = time.perf_counter()
+    bad = [i for i in check if not np.array_equal(
+        hits[f"q{i}"], np.flatnonzero(evaluate(parsed[i], bulk)))]
+    oracle_s = time.perf_counter() - t0
+    if bad:
+        raise SystemExit(f"geofence (B): {len(bad)} of {len(check)} filters "
+                         f"differ from evaluate (first q{bad[0]})")
+    counted = dict(kernels.launches)      # the comparisons do not count
+    kstats = standing_kernel_stats(fset, bulk)
+    split["kernels_s"] = kstats["kernels_s"]
+    split["compaction_and_copies_s"] = (kstats["kernels_and_compaction_s"]
+                                        - kstats["kernels_s"])
+    split["merge_and_rest_s"] = (split["match_s"]
+                                 - kstats["kernels_and_compaction_s"])
+    cand = sum(len(v) for v in hits.values())
+    bulk_line = {"filters": nbig, "register_per_s": nbig / big_reg_s,
+                 "register_s": big_reg_s, "rows": GEOFENCE_BULK,
+                 "batch_make_s": bulk_make_s, "dispatch_s": bulk_s,
+                 "rows_per_s": GEOFENCE_BULK / bulk_s, "split_s": split,
+                 "padded_cap": st["padded_cap"],
+                 "residual_fraction": st["residual_fraction"],
+                 "hits": cand, "oracle_filters": len(check),
+                 "oracle_s": oracle_s, "id_exact": True,
+                 "chunk": kstats["chunk"], "chunks": kstats["chunks"]}
+    emit({"phase": "geofence", "part": "bulk", **bulk_line})
+    emit({"phase": "geofence", "part": "standing_bits",
+          **{k: v for k, v in kstats.items()
+             if k not in ("kernels_s", "kernels_and_compaction_s")}})
+
+    # (C) churn within the cap
+    misses = fset.cache_misses
+    ptrs = [t.data_ptr() for t in fset.device_tables()]
+    t0 = time.perf_counter()
+    for i in range(GEOFENCE_CHURN):
+        fset.unregister(f"q{i}")
+        fset.register(f"q{i}r", parsed[i])
+    churn_reg_s = time.perf_counter() - t0
+    churn = geofence_batch(rng, sft, GEOFENCE_BULK, "churn")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hits = fset.dispatch(churn)
+    churn_s = time.perf_counter() - t0
+    same_ptrs = [t.data_ptr() for t in fset.device_tables()] == ptrs
+    bad = [i for i in range(GEOFENCE_CHURN) if f"q{i}" in hits
+           or not np.array_equal(hits[f"q{i}r"], np.flatnonzero(
+               evaluate(parsed[i], churn)))]
+    if fset.cache_misses != misses or not same_ptrs or bad:
+        raise SystemExit(f"geofence (C): misses {misses} -> "
+                         f"{fset.cache_misses}, tables kept {same_ptrs}, "
+                         f"{len(bad)} replaced filters differ")
+    launches = {k: v + counted[k] for k, v in kernels.launches.items()}
+    if not launches["standing_bits"]:
+        raise SystemExit("geofence: standing_bits never launched")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "geofence", "part": "churn", "replaced": GEOFENCE_CHURN,
+          "register_s": churn_reg_s, "dispatch_s": churn_s,
+          "split_s": fset.last_split, "new_shape_classes": 0,
+          "tables_kept": same_ptrs, "seconds": seconds,
+          "card": card_line(),
+          "launches": {k: launches[k] for k in ("standing_bits",
+                                                "compact_prefix",
+                                                "compact_bits")}})
+    del fset, hits, bulk, churn
+    torch.cuda.empty_cache()
+    return kstats, launches, seconds
+
+
+STREAM_IDS = 262_144        # vessels live worldwide at one time (AIS)
+STREAM_MSG_ROWS = 8_192     # 32 messages of creates, then 32 of upserts
+STREAM_COLLIDE = 1_000      # lambda: persisted ids written again
+STREAM_TICKS, STREAM_TAIL_ROWS = 10, 100_000   # the tailed CSV feed
+STREAM_UPSERT_SHARE = 0.5   # of the budget left after the creates
+STREAM_QUERIES = [
+    "BBOX(geom, -80, 30, -60, 45)",
+    "BBOX(geom, 100, -10, 120, 10)",
+    "BBOX(geom, -10, 35, 30, 60) AND "
+    "dtg DURING 2016-08-01T00:00:00Z/2016-08-31T00:00:00Z",
+    "speed BETWEEN 20 AND 20.5",
+    "name LIKE 'vessel12%'",
+    "BBOX(geom, 0, 0, 40, 40) OR BBOX(geom, -40, -40, 0, 0)",
+    "dtg DURING 2016-09-01T00:00:00Z/2016-09-05T00:00:00Z AND speed > 25",
+    "BBOX(geom, 140, 30, 150, 40) AND mmsi < 366001000",
+]
+STREAM_NORTH = ("BBOX(geom, -80, 30, -60, 45) AND "
+                "dtg DURING 2016-08-07T00:00:00Z/2016-08-14T00:00:00Z",
+                [(-80, 30, -60, 45)], (17_020 * MS_DAY, 17_027 * MS_DAY))
+
+
+class _Watch:
+    """A ContinuousQuerySubscriber consumed on a thread of its own: long
+    polls until stopped, every create delta kept as (timestamp, ids,
+    host time). A poll that outlives the bus's retry policy while the
+    broker restarts (a refused or reset connection) is counted and
+    polled again, as a consumer does: its offsets are the broker's, so
+    the exactly-once gate still holds; any other error is kept and fails
+    the phase."""
+
+    def __init__(self, sub):
+        import threading
+        self.sub, self.got, self.errors, self.polls = sub, [], [], 0
+        self.outages = 0
+        self.stop = threading.Event()
+        sub.on_message(lambda m: self.got.append(
+            (m.timestamp_ms, [str(i) for i in m.batch.ids], time.time()))
+            if m.kind == "create" else None)
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        while not self.stop.is_set():
+            try:
+                self.sub.poll(wait_s=0.25)
+                self.polls += 1
+            except ConnectionError:
+                self.outages += 1
+                time.sleep(0.05)
+            except Exception as e:   # noqa: BLE001 (kept for the gate)
+                self.errors.append(repr(e))
+                time.sleep(0.05)
+
+    def close(self):
+        self.stop.set()
+        self.thread.join(timeout=10)
+        self.sub.close()
+
+
+def stream_rows(seed: int):
+    """The live picture: STREAM_IDS vessels' creates (fs_rows' columns),
+    and an upsert of each: the same vessels at new positions, times and
+    speeds, in a shuffled order."""
+    d = fs_rows(seed + 18, STREAM_IDS)
+    d["ids"] = np.array([f"m{i}" for i in range(STREAM_IDS)], dtype=object)
+    up = fs_rows(seed + 19, STREAM_IDS)
+    perm = np.random.default_rng(seed + 20).permutation(STREAM_IDS)
+    for k in ("ids", "vessel", "mmsi"):
+        up[k] = d[k][perm]
+    return d, up, perm
+
+
+def phase_stream(seed: int, budget_s: float) -> tuple[dict, dict]:
+    """The streaming tiers on the card at a live AIS picture's size:
+    STREAM_IDS vessels, 32 messages of 8,192 creates, then 32 of upserts
+    of the same ids (a maritime-awareness service keeping every vessel's
+    last position live and pushing alerts).
+    Live + CQ: a LiveDataStore on the card, a ContinuousQueryPublisher
+    with STREAM_QUERIES publishing to a SocketBroker(root=...) on
+    127.0.0.1, one ContinuousQuerySubscriber per query consuming on a
+    thread of its own; after the creates the broker stops and restarts
+    on its port and root, and the subscribers resume. Gates: every
+    matching (message, id) arrives exactly once and equals evaluate over
+    what was sent; the live store's north-star query (gathered and
+    dense tiers) and query_count equal a float64 brute force over each
+    id's latest version; expire with a ttl dropping the first half by
+    arrival time drops that many. The upserts are cut (``cut``) once
+    they would pass their share of the budget left.
+    Lambda: a LambdaDataStore over a FileSystemDataStore on the card;
+    persist moves the first half; STREAM_COLLIDE persisted ids are
+    written again; the union query equals the brute force with the
+    transient rows winning and the count is the ids'.
+    Stream: a StreamDataStore on a FileTailSource that a writer grows
+    with bench.py config 16's CSV, STREAM_TICKS ticks; its query equals
+    the brute force over the lines written.
+    Launch counts zeroed before the phase, read after: scan_mask or
+    scan_mask_gather must launch (the live store, the file store's
+    loads), and standing_bits (the publisher)."""
+    import shutil
+    import tempfile
+
+    from geomesa_tpu_torch import (FileSystemDataStore, FileTailSource,
+                                   LambdaDataStore, LiveDataStore,
+                                   SocketBroker, SocketBus, StreamDataStore)
+    from geomesa_tpu_torch.features.sft import parse_spec
+    from geomesa_tpu_torch.filters import evaluate, parse_ecql
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.store.continuous import (
+        ContinuousQueryPublisher, ContinuousQuerySubscriber)
+    t_phase = time.perf_counter()
+    d, up, perm = stream_rows(seed)
+    sft = parse_spec("ais", FS_SPEC)
+    n_msg = STREAM_IDS // STREAM_MSG_ROWS
+    creates = [fs_batch(sft, d, i * STREAM_MSG_ROWS, (i + 1) * STREAM_MSG_ROWS)
+               for i in range(n_msg)]
+    upserts = [fs_batch(sft, up, i * STREAM_MSG_ROWS,
+                        (i + 1) * STREAM_MSG_ROWS) for i in range(n_msg)]
+    setup_s = time.perf_counter() - t_phase
+    filters = [parse_ecql(q) for q in STREAM_QUERIES]
+    base = int(time.time() * 1000) - 10 * 64_000
+    roots = [tempfile.mkdtemp(prefix=p) for p in (
+        "geomesa-stream-broker-", "geomesa-stream-lambda-",
+        "geomesa-stream-tail-")]
+    kernels.reset_launches()
+    watches, pub_bus, broker = [], None, None
+    out = {"phase": "stream", "ids": STREAM_IDS,
+           "messages_rows": STREAM_MSG_ROWS, "setup_s": setup_s}
+    try:
+        broker = SocketBroker(root=roots[0]).start()
+        port = broker.port
+        # expire's ttl: the upserts' first half by arrival time
+        live = LiveDataStore(ttl_millis=n_msg // 2 * 1000)
+        live.create_schema(sft)
+        pub_bus = SocketBus(broker.host, port, group="cq-pub", timeout_s=10.0)
+        pub = ContinuousQueryPublisher(live, bus=pub_bus)
+        for j, q in enumerate(STREAM_QUERIES):
+            pub.register(f"s{j}", "ais", q)
+        watches = [_Watch(ContinuousQuerySubscriber(
+            f"s{j}", host=broker.host, port=port, group="watch",
+            timeout_s=10.0)) for j in range(len(STREAM_QUERIES))]
+        sent, sent_at = [], {}
+        deletes = {"s": 0.0, "n": 0}
+        real_delete = live._mem.delete
+
+        def timed_delete(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real_delete(*a, **k)
+            finally:
+                deletes["s"] += time.perf_counter() - t0
+                deletes["n"] += 1
+        live._mem.delete = timed_delete
+
+        def send(i, batch):
+            ts = base + i * 1000
+            sent.append((ts, batch))
+            sent_at[ts] = time.time()
+            live.write("ais", batch, timestamp_ms=ts)
+
+        t0 = time.perf_counter()
+        for i, b in enumerate(creates):
+            send(i, b)
+        create_s = time.perf_counter() - t0
+        # the broker stops and restarts on its port and root
+        polls = [w.polls for w in watches]
+        t0 = time.perf_counter()
+        broker.stop()
+        broker = SocketBroker(port=port, root=roots[0]).start()
+        deadline = time.monotonic() + 10.0
+        while (any(w.polls <= p + 1 for w, p in zip(watches, polls))
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        resume_s = time.perf_counter() - t0
+        left = budget_s - (time.perf_counter() - t_phase)
+        fit = int(STREAM_UPSERT_SHARE * left / max(create_s / n_msg, 1e-3))
+        n_up = min(n_msg, max(fit, 8))
+        cut = None if n_up == n_msg else {"upsert_messages": n_up,
+                                          "of": n_msg}
+        deletes.update(s=0.0, n=0)
+        t0 = time.perf_counter()
+        for i, b in enumerate(upserts[:n_up]):
+            send(n_msg + i, b)
+        upsert_s = time.perf_counter() - t0
+        live._mem.delete = real_delete
+        # exactly once: each query's deltas against evaluate over the sent
+        want = [sorted((ts, str(x)) for ts, b in sent
+                       for x in b.ids[np.flatnonzero(evaluate(f, b))])
+                for f in filters]
+        deadline = time.monotonic() + 10.0
+        while (any(sum(len(g[1]) for g in w.got) < len(wt)
+                   for w, wt in zip(watches, want))
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        for w in watches:
+            w.close()
+        errors = [e for w in watches for e in w.errors]
+        lat = []
+        for j, (w, wt) in enumerate(zip(watches, want)):
+            got = sorted((ts, x) for ts, xs, _ in w.got for x in xs)
+            if got != wt:
+                raise SystemExit(
+                    f"stream: query s{j} received {len(got)} (message, id) "
+                    f"pairs ({len(set(got))} distinct), evaluate "
+                    f"{len(wt)}; {STREAM_QUERIES[j]!r}")
+            lat += [(t - sent_at[ts]) * 1e3 for ts, _, t in w.got]
+        # the live picture: each id's latest version
+        latest = {k: d[k].copy() for k in ("x", "y", "ms")}
+        moved = perm[:n_up * STREAM_MSG_ROWS]
+        for k in latest:
+            latest[k][moved] = up[k][:n_up * STREAM_MSG_ROWS]
+        ecql, boxes, iv = STREAM_NORTH
+        brute = _brute(latest["x"], latest["y"], latest["ms"], boxes, iv)
+        want_ids = sorted(f"m{i}" for i in brute)
+        for tier in ("gathered", "dense"):
+            _fs_tier(tier)
+            try:
+                got_ids = sorted(str(i) for i in live.query(ecql, "ais").ids)
+                count = live.query_count(ecql, "ais")
+            finally:
+                _fs_tier(None)
+            if got_ids != want_ids or count != len(want_ids):
+                raise SystemExit(f"stream: the live {tier} query gave "
+                                 f"{len(got_ids)} ids ({count} counted), "
+                                 f"the brute force {len(want_ids)}")
+        # the upsert's id conversion (LiveDataStore._on_message's
+        # astype(str) and isin) on the whole cache, one message's worth
+        cache = live._mem._state("ais").batch.ids
+        t0 = time.perf_counter()
+        incoming = set(upserts[0].ids.astype(str))
+        np.isin(cache.astype(str), list(incoming))
+        conv_s = time.perf_counter() - t0
+        # expire: arrivals before the cutoff, the upserts' first half (or
+        # the creates the cut left)
+        arrival = np.full(STREAM_IDS, 0, dtype=np.int64)
+        for i in range(n_msg):
+            arrival[i * STREAM_MSG_ROWS:(i + 1) * STREAM_MSG_ROWS] = \
+                base + i * 1000
+        for i in range(n_up):
+            arrival[perm[i * STREAM_MSG_ROWS:(i + 1) * STREAM_MSG_ROWS]] = \
+                base + (n_msg + i) * 1000
+        live.ttl_millis = (n_up + 1) // 2 * 1000   # the upserts sent
+        now = base + (n_msg + n_up) * 1000
+        cutoff = now - live.ttl_millis
+        dropped = live.expire("ais", now_ms=now)
+        if (dropped != int((arrival < cutoff).sum())
+                or live.count("ais") != int((arrival >= cutoff).sum())):
+            raise SystemExit(f"stream: expire dropped {dropped}, the "
+                             f"arrivals {int((arrival < cutoff).sum())}")
+        out["live"] = {
+            "creates_rows_per_s": STREAM_IDS / create_s,
+            "create_s": create_s,
+            "upserts_rows_per_s": n_up * STREAM_MSG_ROWS / upsert_s,
+            "upsert_s": upsert_s, "upsert_deletes_s": deletes["s"],
+            "id_conversion_s": conv_s, "id_conversion_cache_rows": len(cache),
+            "cq_p50_ms": float(np.percentile(lat, 50)),
+            "cq_p99_ms": float(np.percentile(lat, 99)),
+            "cq_deltas": len(lat), "resume_s": resume_s,
+            "pairs": [len(w) for w in want],
+            "polls_past_retries": sum(w.outages for w in watches),
+            "north_star_hits": len(want_ids), "expired": dropped,
+            "cut": cut}
+        if errors:
+            raise SystemExit(f"stream: subscriber errors {errors[:3]}")
+        pub.close()
+        pub_bus.close()
+        pub_bus = None
+        broker.stop()
+        broker = None
+        del live
+        emit({**out, "part": "live"})
+
+        # lambda: a transient live tier over a file store on the card
+        lam = LambdaDataStore(persistent=FileSystemDataStore(roots[1]),
+                              persist_after_millis=60_000)
+        lam.create_schema(sft)
+        for i, b in enumerate(creates):
+            lam.write("ais", b, timestamp_ms=base + i * 1000)
+        half = n_msg // 2
+        t0 = time.perf_counter()
+        moved = lam.persist("ais", now_ms=base + half * 1000 + 60_000)
+        persist_s = time.perf_counter() - t0
+        rng = np.random.default_rng(seed + 21)
+        coll = rng.choice(half * STREAM_MSG_ROWS, STREAM_COLLIDE,
+                          replace=False)
+        again = {k: d[k][coll] for k in ("ids", "vessel", "mmsi")}
+        again["vocab"] = d["vocab"]
+        newer = fs_rows(seed + 22, STREAM_COLLIDE)
+        for k in ("ms", "x", "y", "speed", "course", "heading"):
+            again[k] = newer[k]
+        lam.write("ais", fs_batch(sft, again, 0, STREAM_COLLIDE),
+                  timestamp_ms=base + n_msg * 1000)
+        latest = {k: d[k].copy() for k in ("x", "y", "ms")}
+        for k in latest:
+            latest[k][coll] = newer[k]
+        brute = _brute(latest["x"], latest["y"], latest["ms"], boxes, iv)
+        want_ids = sorted(f"m{i}" for i in brute)
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got_ids = sorted(str(i) for i in lam.query(ecql, "ais").ids)
+            runs.append(time.perf_counter() - t0)
+            if got_ids != want_ids:
+                raise SystemExit(f"stream: the lambda union gave "
+                                 f"{len(got_ids)} ids, the brute force "
+                                 f"{len(want_ids)}")
+        total = lam.count("ais")
+        if moved != half * STREAM_MSG_ROWS or total != STREAM_IDS:
+            raise SystemExit(f"stream: persist moved {moved}, the union "
+                             f"counts {total}")
+        out["lambda"] = {"persisted": moved, "persist_s": persist_s,
+                         "collisions": STREAM_COLLIDE,
+                         "union_p50_ms": statistics.median(runs) * 1e3,
+                         "union_hits": len(want_ids), "count": total}
+        lam.close()
+        del lam
+        emit({"phase": "stream", "part": "lambda", **out["lambda"]})
+
+        # stream: a tailed CSV feed through the converter
+        text, x, y, ms = convert_csv(seed + 23, STREAM_TAIL_ROWS)
+        lines = text.splitlines(keepends=True)
+        path = os.path.join(roots[2], "feed.csv")
+        st = StreamDataStore(parse_spec("ais16", FS_SPEC), CONVERT_CSV,
+                             FileTailSource(path))
+        per = -(-len(lines) // STREAM_TICKS)
+        ingested, tick_s = [], []
+        for t in range(STREAM_TICKS):
+            with open(path, "a") as f:
+                f.write("".join(lines[t * per:(t + 1) * per]))
+            t0 = time.perf_counter()
+            ingested.append(st.tick())
+            tick_s.append(time.perf_counter() - t0)
+        week = [int(np.datetime64(f"2017-03-{dd:02d}", "ms").astype(np.int64))
+                for dd in (5, 12)]
+        want = _brute(x, y, ms, [(-80, 30, -60, 45)], week)
+        res = st.query(CONVERT_QUERY, "ais16")
+        got = np.sort(np.array([int(str(i)[1:]) for i in res.ids],
+                               dtype=np.int64))
+        if sum(ingested) != STREAM_TAIL_ROWS or not np.array_equal(got,
+                                                                   want):
+            raise SystemExit(f"stream: the tailed feed ingested "
+                             f"{sum(ingested)} rows and answered "
+                             f"{len(got)} ids, the brute force {len(want)}")
+        out["stream"] = {"rows": STREAM_TAIL_ROWS, "ticks": STREAM_TICKS,
+                         "rows_per_s": STREAM_TAIL_ROWS / sum(tick_s),
+                         "tick_p50_s": statistics.median(tick_s),
+                         "hits": len(want)}
+    finally:
+        for w in watches:
+            if w.thread.is_alive():
+                w.close()
+        if pub_bus is not None:
+            pub_bus.close()
+        if broker is not None:
+            broker.stop()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    launches = dict(kernels.launches)
+    if not (launches["scan_mask"] + launches["scan_mask_gather"]
+            and launches["standing_bits"]):
+        raise SystemExit(f"stream: the scan or standing kernels never "
+                         f"launched ({launches})")
+    out.update(seconds=time.perf_counter() - t_phase, card=card_line(),
+               launches={k: launches[k] for k in (
+                   "scan_mask", "scan_mask_gather", "standing_bits",
+                   "compact_bits")})
+    emit({"phase": "stream", "part": "summary",
+          **{k: out[k] for k in ("stream", "seconds", "card", "launches")}})
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 PLAIN_IDS = 100           # ids in the geometry-less phase's id query
@@ -4981,9 +5708,16 @@ def main():
                                      FS_BUDGET_S - fs_summary["seconds"])
     for name in ("scan_mask", "scan_mask_gather", "scan_count"):
         launches[name] += fs_launches[name] + conv_launches[name]
+    standing, fence_launches, fence_s = phase_geofence(args.seed)
+    stream_launches, _ = phase_stream(args.seed, STREAM_BUDGET_S - fence_s)
+    for name in ("scan_mask", "scan_mask_gather", "scan_count"):
+        launches[name] += stream_launches[name]
+    launches["standing_bits"] = (fence_launches["standing_bits"]
+                                 + stream_launches["standing_bits"])
     batched = phase_batched(args.seed, ds, rows)
     for name in ("scan_batch_bits", "compact_prefix", "compact_bits"):
-        launches[name] = batched[name]
+        launches[name] = (batched[name] + fence_launches[name]
+                          + stream_launches[name])
     join_stats, join_launches = phase_analytics(args.seed, ds, rows)
     launches.update(join_launches)
     del ds
@@ -5032,6 +5766,13 @@ def main():
             "replaces": SOURCES[name], "launches": launches[name],
             **{k: s[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")}})
+    summary.append({                     # at the geofence bulk's chunk
+        "name": "standing_bits", "route": "cuda",
+        "source": SOURCE_FILES["standing_bits"],
+        "replaces": SOURCES["standing_bits"],
+        "launches": launches["standing_bits"],
+        **{k: standing[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"kernels": summary})

@@ -4,8 +4,9 @@ A package of its own beside ``geomesa_tpu`` (the JAX reference), with
 the same module layout. It imports torch and numpy, never jax and
 nothing of ``geomesa_tpu``. The kernels are hand-written CUDA
 (``csrc/*.cu``: the scans, the batched scan, point-in-polygon, the
-attribute residual, the density grid, the extent tristate and the joins
-and KNN of ``analytics/``), built at first use. The stats
+attribute residual, the density grid, the extent tristate, the joins
+and KNN of ``analytics/``, the tube and the standing filters of
+``scan/standing.py``), built at first use. The stats
 (``stats/``) and the Arrow encoding (``arrow/``, pyarrow imported only
 when an Arrow entry point is called) run on the host.
 
@@ -15,7 +16,15 @@ device: ``InMemoryDataStore()`` is ``InMemoryDataStore(device="cuda")``.
 under ``root`` and answers each query from an in-memory store it loads
 on the card (``store/fs.py``); the converters of ``convert/`` turn
 delimited text, JSON, XML, fixed-width, Avro, shapefile, JDBC and OSM
-records into feature batches.
+records into feature batches. The streaming tiers keep a live picture
+on the card: ``LiveDataStore`` applies the creates, deletes and clears
+of a message bus (``MessageBus`` in process, ``FileBus`` over a shared
+directory, ``SocketBus`` against a ``SocketBroker`` over TCP) as
+upserts, ``StreamDataStore`` feeds one from a converter over a tailed
+file or an iterable, and ``LambdaDataStore`` moves aged rows into a
+persistent store and answers the union. A ``ContinuousQueryPublisher``
+matches every create batch against its standing filters on the card
+and publishes the matches per query (``store/continuous.py``).
 """
 
 # equal to the JAX package's: the file store stamps it into each type's
@@ -25,9 +34,18 @@ __version__ = "0.2.0"
 
 from .features import FeatureBatch, SimpleFeatureType, parse_spec  # noqa: E402
 from .index import Query  # noqa: E402
-from .store import (DataStore, FileSystemDataStore,  # noqa: E402
-                    InMemoryDataStore, QueryResult)
+from .store import (DataStore, FileBus, FileSystemDataStore,  # noqa: E402
+                    FileTailSource, GeoMessage, InMemoryDataStore,
+                    IterableSource, LambdaDataStore, LiveDataStore,
+                    MessageBus, QueryResult, SocketBroker, SocketBus,
+                    StreamDataStore, StreamSource)
+from .store.continuous import (ContinuousQueryPublisher,  # noqa: E402
+                               ContinuousQuerySubscriber)
 
-__all__ = ["DataStore", "FeatureBatch", "FileSystemDataStore",
-           "InMemoryDataStore", "Query", "QueryResult", "SimpleFeatureType",
+__all__ = ["ContinuousQueryPublisher", "ContinuousQuerySubscriber",
+           "DataStore", "FeatureBatch", "FileBus", "FileSystemDataStore",
+           "FileTailSource", "GeoMessage", "InMemoryDataStore",
+           "IterableSource", "LambdaDataStore", "LiveDataStore",
+           "MessageBus", "Query", "QueryResult", "SimpleFeatureType",
+           "SocketBroker", "SocketBus", "StreamDataStore", "StreamSource",
            "parse_spec", "__version__"]

@@ -1,10 +1,10 @@
 """The port's kernels: wrappers, launch counts and plain versions.
 
-Fifteen kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
+Sixteen kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
 ``csrc/batch.cu``, ``csrc/geom.cu``, ``csrc/residual.cu``,
-``csrc/density.cu``, ``csrc/extent.cu``, ``csrc/join.cu`` and
-``csrc/tube.cu`` (see the notes at their heads for what they replace and
-what bounds them):
+``csrc/density.cu``, ``csrc/extent.cu``, ``csrc/join.cu``,
+``csrc/tube.cu`` and ``csrc/standing.cu`` (see the notes at their heads
+for what they replace and what bounds them):
 
 - ``scan_mask``: the dense tier, bool[cap] over every row;
 - ``scan_mask_gather``: the gathered tier, bool[m] over rows ``idx``
@@ -65,6 +65,11 @@ what bounds them):
   streaming pass over the time words rejects the rows no interval can
   hold by a time-bucket index and packs the rest, then each is searched
   for over the pairs sorted by their intervals (``tube_pairs``).
+- ``standing_bits``: an ingest chunk's rows against every standing
+  filter slot (``scan/standing.py``): per (slot, row) the slot's boxes,
+  time interval and attribute intervals on the two-float rows, as the
+  batched scan's bitmaps (kind 0 of int32[2, F, words], with their
+  partials), which ``compact_bits`` compacts into filter-major ids.
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device; for ``residual_mask``, its columns). On
@@ -102,7 +107,8 @@ from ..utils.device import resolve_device
 __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "scan_count", "scan_batch_bits", "compact_bits",
            "scan_mask_plain", "scan_mask_gather_plain", "scan_count_plain",
-           "scan_batch_bits_plain", "compact_bits_plain", "compact_prefix",
+           "scan_batch_bits_plain", "compact_bits_plain",
+           "compact_bits_device", "compact_prefix",
            "compact_prefix_plain", "batch_shape", "unpack_bits",
            "build_library", "BuildInfo", "MAX_TABLE_BYTES",
            "BATCH_ROWS_PER_BLOCK", "BATCH_MAX_GROUP", "pip_mask",
@@ -124,12 +130,13 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "knn_plan", "knn_topk_blocks_plain", "tube_mask", "tube_mask_plain",
            "tube_pairs", "tube_index_plain", "tube_mask_index_plain",
            "tube_bucket_bits", "TUBE_STAGE", "TUBE_TILE",
-           "TUBE_MAX_BUCKET_BITS"]
+           "TUBE_MAX_BUCKET_BITS", "standing_bits", "standing_bits_plain"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
             for f in ("scan.cu", "batch.cu", "geom.cu", "residual.cu",
-                      "density.cu", "extent.cu", "join.cu", "tube.cu")]
+                      "density.cu", "extent.cu", "join.cu", "tube.cu",
+                      "standing.cu")]
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -154,7 +161,8 @@ launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0,
             "scan_batch_bits": 0, "compact_prefix": 0, "compact_bits": 0,
             "pip_mask": 0, "residual_mask": 0, "density_grid": 0,
             "extent_tristate": 0, "dwithin_counts": 0, "slab_pairs": 0,
-            "contains_counts": 0, "knn_topk": 0, "tube_mask": 0}
+            "contains_counts": 0, "knn_topk": 0, "tube_mask": 0,
+            "standing_bits": 0}
 
 
 def reset_launches():
@@ -301,13 +309,24 @@ def prefix_plan(rows: int, nb: int) -> tuple[int, int, int]:
     return per_row, rows * per_row, 1 + rows * per_row
 
 
+_PLAIN_COMPACT_ELEMS = 1 << 24
+
+
 def compact_bits_plain(bits, partials):
     """(hit ids, candidate ids, counts): per kind the set rows of query
     0, then query 1, ..., ascending within a query (torch.nonzero), as
     int32; counts int64[2, Qp] on the host, query q's share of kind k."""
     counts = partials.sum(dim=2, dtype=torch.int64).cpu().numpy()
-    return (*(torch.cat([torch.nonzero(unpack_bits(bits[kind, q])).flatten()
-                         .to(torch.int32) for q in range(bits.shape[1])])
+    qp, words = bits.shape[1], bits.shape[2]
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    # groups of queries whose unpacked bits stay near 2^24 elements; the
+    # (query, row) pairs of a group in row-major order are query-major,
+    # rows ascending within a query
+    group = max(1, _PLAIN_COMPACT_ELEMS // max(32 * words, 1))
+    return (*(torch.cat([torch.nonzero(
+        ((bits[kind, q:q + group, :, None] >> shifts) & 1).flatten(1))[:, 1]
+        .to(torch.int32) for q in range(0, qp, group)]
+        or [torch.empty(0, dtype=torch.int32, device=bits.device)])
               for kind in range(2)), counts)
 
 
@@ -424,6 +443,10 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_tube_mask.argtypes = cols + [i64, p, p, p, p, i32, i32,
                                                      p, p]
             lib.geomesa_tube_constant.argtypes = [i32]
+            lib.geomesa_standing_bits.argtypes = (
+                cols + [p, p, i64, i32, i64, i64, p, p, p, p, p, p, p, i32,
+                        i32, p, p, p])
+            lib.geomesa_standing_tile_rows.argtypes = []
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
                        lib.geomesa_compact_prefix, lib.geomesa_compact_bits,
@@ -437,7 +460,8 @@ def _library() -> ctypes.CDLL:
                        lib.geomesa_slab_write, lib.geomesa_contains_counts,
                        lib.geomesa_contains_band_rows, lib.geomesa_knn_plan,
                        lib.geomesa_knn_topk, lib.geomesa_tube_mask,
-                       lib.geomesa_tube_constant):
+                       lib.geomesa_tube_constant, lib.geomesa_standing_bits,
+                       lib.geomesa_standing_tile_rows):
                 fn.restype = ctypes.c_int
             if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
                     or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP
@@ -461,6 +485,9 @@ def _library() -> ctypes.CDLL:
                 raise RuntimeError("csrc/tube.cu and kernels.py disagree on "
                                    "the tube kernel's staging, tiles or "
                                    "buckets")
+            if lib.geomesa_standing_tile_rows() != BATCH_ROWS_PER_BLOCK:
+                raise RuntimeError("csrc/standing.cu and kernels.py disagree "
+                                   "on the rows of a partial")
             _lib["lib"] = lib
         return _lib["lib"]
 
@@ -743,6 +770,36 @@ def compact_prefix(partials):
     return offsets, totals
 
 
+def _check_compact(bits, partials) -> tuple[int, int]:
+    if (bits.dtype != torch.int32 or bits.dim() != 3 or bits.shape[0] != 2
+            or not bits.is_contiguous()):
+        raise ValueError("bits must be a contiguous int32[2, Qp, words]")
+    qp, words = bits.shape[1], bits.shape[2]
+    _check_partials(partials)
+    if tuple(partials.shape) != (2, qp, batch_shape(32 * words)[1]):
+        raise ValueError("partials must be the contiguous int32[2, Qp, nb] "
+                         "of these bits")
+    return qp, words
+
+
+def _compact_launch(bits, partials, offsets, totals, sums):
+    """The compaction kernel into outputs of ``sums`` = (hit, candidate)
+    ids; no launch when both are 0."""
+    qp, words = bits.shape[1], bits.shape[2]
+    dev = bits.device
+    out_hit = torch.empty(sums[0], dtype=torch.int32, device=dev)
+    out_cand = torch.empty(sums[1], dtype=torch.int32, device=dev)
+    if sums[0] + sums[1] == 0:
+        return out_hit, out_cand
+    rc = _library().geomesa_compact_bits(
+        bits.data_ptr(), partials.data_ptr(), offsets.data_ptr(),
+        totals.data_ptr(), qp, partials.shape[2], words, out_hit.data_ptr(),
+        out_cand.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "compact_bits")
+    launches["compact_bits"] += 1
+    return out_hit, out_cand
+
+
 def compact_bits(bits, partials):
     """(hit ids, candidate ids, counts): the ids int32 on the bitmaps'
     device, per kind the rows of query 0, then query 1, ..., each
@@ -752,31 +809,30 @@ def compact_bits(bits, partials):
     and the totals on the device; the totals' copy to the host (the one
     sync) sizes the outputs, and the kernel sums each query's base from
     the totals on the device."""
-    if (bits.dtype != torch.int32 or bits.dim() != 3 or bits.shape[0] != 2
-            or not bits.is_contiguous()):
-        raise ValueError("bits must be a contiguous int32[2, Qp, words]")
-    qp, words = bits.shape[1], bits.shape[2]
-    _check_partials(partials)
-    if tuple(partials.shape) != (2, qp, batch_shape(32 * words)[1]):
-        raise ValueError("partials must be the contiguous int32[2, Qp, nb] "
-                         "of these bits")
+    _check_compact(bits, partials)
     if _on_cpu((bits, partials)):
         return compact_bits_plain(bits, partials)
     offsets, totals = compact_prefix(partials)
     counts = totals.cpu().numpy()
-    hit_total, cand_total = (int(c) for c in counts.sum(axis=1))
-    dev = bits.device
-    out_hit = torch.empty(hit_total, dtype=torch.int32, device=dev)
-    out_cand = torch.empty(cand_total, dtype=torch.int32, device=dev)
-    if hit_total + cand_total == 0:
-        return out_hit, out_cand, counts
-    rc = _library().geomesa_compact_bits(
-        bits.data_ptr(), partials.data_ptr(), offsets.data_ptr(),
-        totals.data_ptr(), qp, partials.shape[2], words, out_hit.data_ptr(),
-        out_cand.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "compact_bits")
-    launches["compact_bits"] += 1
-    return out_hit, out_cand, counts
+    sums = tuple(int(c) for c in counts.sum(axis=1))
+    return (*_compact_launch(bits, partials, offsets, totals, sums), counts)
+
+
+def compact_bits_device(bits, partials):
+    """(hit ids, candidate ids, totals, sums): ``compact_bits`` with the
+    per-query counts left on the device as ``totals`` int64[2, Qp] and
+    only the two kinds' sums, (hit, candidate), copied to the host (the
+    one sync, which sizes the outputs): for callers with many queries or
+    filter slots, whose counts stay on the card."""
+    _check_compact(bits, partials)
+    if _on_cpu((bits, partials)):
+        hit, cand, counts = compact_bits_plain(bits, partials)
+        return (hit, cand, torch.from_numpy(counts),
+                tuple(int(c) for c in counts.sum(axis=1)))
+    offsets, totals = compact_prefix(partials)
+    sums = tuple(int(c) for c in totals.sum(dim=1).tolist())
+    return (*_compact_launch(bits, partials, offsets, totals, sums), totals,
+            sums)
 
 
 # -- point in polygon (csrc/geom.cu) ----------------------------------------
@@ -2460,3 +2516,139 @@ def tube_mask(cols, n: int, boxes, times):
     _raise_on(rc, "tube_mask")
     launches["tube_mask"] += 2
     return out
+
+
+# -- standing filters (csrc/standing.cu) ------------------------------------
+
+_STANDING_TABLES = (("boxes", torch.float32, 3), ("box_valid", torch.bool, 2),
+                    ("box_any", torch.bool, 1), ("times", torch.int32, 2),
+                    ("attrs", torch.float32, 3), ("attr_any", torch.bool, 2),
+                    ("alive", torch.bool, 1))
+
+
+def _check_standing(rows, tables, n_valid: int):
+    """(chunk, F, K, A) of a standing launch; raises on what the kernel
+    does not take."""
+    if len(rows) != 8 or len(tables) != 7:
+        raise ValueError("rows are (xhi, xlo, yhi, ylo, tday, tms, avhi, "
+                         "avlo), tables (boxes, box_valid, box_any, times, "
+                         "attrs, attr_any, alive)")
+    chunk = rows[0].shape[0]
+    for c, dt in zip(rows[:6], _DTYPES):
+        if (c.dtype != dt or c.dim() != 1 or c.shape[0] != chunk
+                or c.stride(0) != 1):
+            raise ValueError(f"row column must be a dense 1-d {dt} of "
+                             f"length {chunk}")
+    for av in rows[6:]:
+        if (av.dtype != torch.float32 or av.dim() != 2
+                or av.shape != rows[6].shape or av.shape[1] != chunk
+                or (av.numel() and (av.stride(1) != 1
+                                    or av.stride() != rows[6].stride()))):
+            raise ValueError("attribute rows must be (A, chunk) float32 "
+                             "views with unit row stride, both alike")
+    for t, (name, dt, dims) in zip(tables, _STANDING_TABLES):
+        if t.dtype != dt or t.dim() != dims or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dims}-d {dt}")
+    f, k = tables[0].shape[0], tables[0].shape[1]
+    a = rows[6].shape[0]
+    if (tables[0].shape[2] != 8 or tables[1].shape != (f, k)
+            or tables[2].shape != (f,) or tables[3].shape != (f, 4)
+            or tables[4].shape != (f, a, 4) or tables[5].shape != (f, a)
+            or tables[6].shape != (f,)):
+        raise ValueError("standing tables must be boxes (F, K, 8), "
+                         "box_valid (F, K), box_any (F,), times (F, 4), "
+                         "attrs (F, A, 4), attr_any (F, A), alive (F,)")
+    if chunk < 1 or f < 1 or k < 1:
+        raise ValueError("a standing launch needs rows, slots and a box "
+                         "width")
+    if not 0 <= n_valid <= chunk:
+        raise ValueError(f"n_valid={n_valid} outside [0, {chunk}]")
+    return chunk, f, k, a
+
+
+def _standing_out(out, f: int, chunk: int, device):
+    words, nb = batch_shape(chunk)
+    if out is None:
+        return (torch.zeros((2, f, words), dtype=torch.int32, device=device),
+                torch.zeros((2, f, nb), dtype=torch.int32, device=device))
+    bits, partials = out
+    if (bits.dtype != torch.int32 or tuple(bits.shape) != (2, f, words)
+            or not bits.is_contiguous() or partials.dtype != torch.int32
+            or tuple(partials.shape) != (2, f, nb)
+            or not partials.is_contiguous()):
+        raise ValueError(f"out must be contiguous int32 (2, {f}, {words}) "
+                         f"bits and (2, {f}, {nb}) partials")
+    return bits, partials
+
+
+def standing_bits_plain(rows, tables, n_valid: int, out=None):
+    """(bits int32[2, F, words], partials int32[2, F, nb]): kind 0 holds,
+    for each filter slot f and chunk row r, whether slot f matches row r
+    (a port of geomesa_tpu.scan.standing._standing_mask); kind 1 is left
+    as ``out`` has it (zeros when it is None)."""
+    chunk, f, k, a = _check_standing(rows, tables, n_valid)
+    xhi, xlo, yhi, ylo, tday, tms, avhi, avlo = rows
+    boxes, box_valid, box_any, times, attrs, attr_any, alive = tables
+    bits, partials = _standing_out(out, f, chunk, xhi.device)
+    words, nb = batch_shape(chunk)
+    row_ok = torch.arange(chunk, device=xhi.device) < n_valid
+    b = boxes[:, None, :, :]                                  # (F, 1, K, 8)
+    xh, xl, yh, yl = (c[None, :, None] for c in (xhi, xlo, yhi, ylo))
+    inside = (_ge2(xh, xl, b[..., 0], b[..., 1])
+              & _le2(xh, xl, b[..., 2], b[..., 3])
+              & _ge2(yh, yl, b[..., 4], b[..., 5])
+              & _le2(yh, yl, b[..., 6], b[..., 7]))           # (F, rows, K)
+    spatial = box_any[:, None] | (inside & box_valid[:, None, :]).any(dim=2)
+    t = times[:, None, :]
+    td, tm = tday[None, :], tms[None, :]
+    after = (td > t[..., 0]) | ((td == t[..., 0]) & (tm >= t[..., 1]))
+    before = (td < t[..., 2]) | ((td == t[..., 2]) & (tm <= t[..., 3]))
+    m = spatial & after & before & alive[:, None] & row_ok[None, :]
+    if a:
+        ab = attrs[:, None, :, :]                             # (F, 1, A, 4)
+        vh, vl = avhi.t()[None], avlo.t()[None]               # (1, rows, A)
+        ok = (_ge2(vh, vl, ab[..., 0], ab[..., 1])
+              & _le2(vh, vl, ab[..., 2], ab[..., 3]))
+        m &= (attr_any[:, None, :] | ok).all(dim=2)
+    padded = torch.zeros((f, nb * BATCH_ROWS_PER_BLOCK), dtype=torch.int32,
+                         device=xhi.device)
+    padded[:, :chunk] = m
+    shifts = torch.arange(32, dtype=torch.int32, device=xhi.device)
+    bits[0] = (padded[:, :words * 32].view(f, words, 32) << shifts).sum(
+        dim=2, dtype=torch.int32)
+    partials[0] = padded.view(f, nb, -1).sum(dim=2, dtype=torch.int32)
+    return bits, partials
+
+
+def standing_bits(rows, tables, n_valid: int, out=None):
+    """One ingest chunk against every standing filter slot: (bits
+    int32[2, F, words], partials int32[2, F, nb]) in the layout of
+    ``scan_batch_bits`` (``batch_shape(chunk)``), for ``compact_bits``.
+
+    ``rows`` are the chunk's (xhi, xlo, yhi, ylo, tday, tms) columns
+    (f32, f32, f32, f32, i32, i32; 1-d views of ``chunk`` rows) and its
+    attributes (avhi, avlo), (A, chunk) f32 views with unit row stride
+    (A may be 0); rows >= ``n_valid`` match nothing. ``tables`` are the
+    set's (boxes (F, K, 8) f32, box_valid (F, K) bool, box_any (F,)
+    bool, times (F, 4) i32, attrs (F, A, 4) f32, attr_any (F, A) bool,
+    alive (F,) bool). Kind 0 holds the matches; kind 1 is not written:
+    ``out``, when given, is a (bits, partials) pair whose kind 1 the
+    caller keeps zero, else both come zeroed. On CUDA one launch,
+    counted; on CPU tensors the plain version."""
+    chunk, f, k, a = _check_standing(rows, tables, n_valid)
+    if _on_cpu(rows, *tables, *(out or ())):
+        return standing_bits_plain(rows, tables, n_valid, out)
+    if any(tables[i].data_ptr() % 16 for i in (0, 3, 4)):
+        raise ValueError("the standing kernel reads boxes, times and attrs "
+                         "as 16-byte vectors: they must be 16-byte aligned")
+    dev = rows[0].device
+    bits, partials = _standing_out(out, f, chunk, dev)
+    words, nb = batch_shape(chunk)
+    rc = _library().geomesa_standing_bits(
+        *_ptrs(rows[:6]), rows[6].data_ptr(), rows[7].data_ptr(),
+        rows[6].stride(0), a, chunk, n_valid,
+        *(t.data_ptr() for t in tables), f, k, bits.data_ptr(),
+        partials.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "standing_bits")
+    launches["standing_bits"] += 1
+    return bits, partials

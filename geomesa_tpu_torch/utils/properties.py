@@ -9,6 +9,7 @@ accessors mirror the reference (`.toInt/.toBoolean` -> as_int/as_bool)."""
 from __future__ import annotations
 
 import os
+import re
 
 __all__ = ["SystemProperty", "HOST_RANGES_TARGET", "WAL_FSYNC",
            "WAL_SEGMENT_BYTES", "WAL_INTERVAL_MS", "INTEGRITY_QUARANTINE"]
@@ -49,6 +50,24 @@ class SystemProperty:
     def as_bool(self) -> bool | None:
         v = self.get()
         return None if v is None else v.strip().lower() in ("true", "1", "yes")
+
+    def as_seconds(self) -> float | None:
+        """Duration strings: '10s', '5 minutes', '100ms', bare seconds."""
+        v = self.get()
+        if v is None:
+            return None
+        m = re.match(r"^\s*([\d.]+)\s*([a-zA-Z]*)\s*$", v)
+        if not m:
+            raise ValueError(f"bad duration {v!r}")
+        n = float(m.group(1))
+        unit = m.group(2).lower()
+        mult = {"": 1.0, "s": 1.0, "sec": 1.0, "second": 1.0, "seconds": 1.0,
+                "ms": 1e-3, "millis": 1e-3, "milliseconds": 1e-3,
+                "m": 60.0, "min": 60.0, "minute": 60.0, "minutes": 60.0,
+                "h": 3600.0, "hour": 3600.0, "hours": 3600.0}.get(unit)
+        if mult is None:
+            raise ValueError(f"bad duration unit {unit!r}")
+        return n * mult
 
 
 # coarser range target for the host index tiers, which re-check every

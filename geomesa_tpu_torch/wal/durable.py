@@ -4,8 +4,7 @@ Two ways to opt in:
 
 - constructor knob — ``InMemoryDataStore(durable_dir=...)`` embeds a
   ``Journal`` and follows the validate → journal → apply discipline
-  natively (the live and lambda stores' knob comes with the streaming
-  tiers, ROADMAP.md section 6);
+  natively (the live and lambda stores take the same knob);
 - wrapper — ``DurableStore(inner, root)`` journals every mutation
   before delegating to any ``DataStore`` implementation, and replays
   the log into it on open.

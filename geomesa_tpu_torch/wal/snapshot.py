@@ -70,13 +70,19 @@ def latest_checkpoint_lsn(root: str) -> int:
 
 def iter_store_states(store):
     """Yield (sft, host batch | None, vis array | None) for every type
-    in a store, reaching through a DurableStore wrapper to its inner
-    store. The live and lambda stores' branches come with the streaming
-    tiers (ROADMAP.md section 6, queue 1 item 5)."""
+    in a store, reaching through the wrapper layers the durable knob
+    composes (live -> memory, lambda -> transient live, DurableStore ->
+    inner)."""
     if hasattr(store, "_types"):          # InMemoryDataStore
         for st in store._types.values():
             st.flush()
             yield st.sft, st._batch, (st._vis if st.has_vis else None)
+        return
+    if hasattr(store, "_mem"):            # LiveDataStore
+        yield from iter_store_states(store._mem)
+        return
+    if hasattr(store, "transient"):       # LambdaDataStore
+        yield from iter_store_states(store.transient)
         return
     if hasattr(store, "inner"):           # DurableStore wrapper
         yield from iter_store_states(store.inner)

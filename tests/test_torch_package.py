@@ -59,7 +59,15 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.convert.formats, "
             "geomesa_tpu_torch.convert.avro_reader, "
             "geomesa_tpu_torch.convert.avro_writer, "
-            "geomesa_tpu_torch.convert.geo_formats\n"
+            "geomesa_tpu_torch.convert.geo_formats, "
+            "geomesa_tpu_torch.resilience, "
+            "geomesa_tpu_torch.resilience.policy, "
+            "geomesa_tpu_torch.filters.compile, "
+            "geomesa_tpu_torch.scan.standing, geomesa_tpu_torch.store.live, "
+            "geomesa_tpu_torch.store.socketbus, "
+            "geomesa_tpu_torch.store.stream, "
+            "geomesa_tpu_torch.store.lambda_store, "
+            "geomesa_tpu_torch.store.continuous\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -107,7 +115,10 @@ def test_no_source_imports_jax_or_reference():
             "convert/vectorized.py", "convert/validators.py",
             "convert/enrichment.py", "convert/formats.py",
             "convert/avro_reader.py", "convert/avro_writer.py",
-            "convert/geo_formats.py"} <= seen
+            "convert/geo_formats.py", "resilience/__init__.py",
+            "resilience/policy.py", "filters/compile.py",
+            "scan/standing.py", "store/socketbus.py", "store/stream.py",
+            "store/lambda_store.py", "store/continuous.py"} <= seen
     # the native library's C++ sources are the port's own copies
     src = os.path.join(PKG, "native", "src")
     assert sorted(os.listdir(src)) == ["feature_codec.cpp", "zbuild.cpp",
@@ -155,6 +166,45 @@ def test_store_defaults_to_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             InMemoryDataStore(device=device, durable_dir=str(tmp_path / "d"))
     assert not (tmp_path / "d").exists()
+
+
+def test_streaming_stores_default_to_cuda(monkeypatch, tmp_path):
+    """The live, stream and lambda stores run on the card unless the
+    caller names a device, and raise without one (before a durable
+    directory is touched); a standing set takes its store's device."""
+    from geomesa_tpu_torch import (IterableSource, LambdaDataStore,
+                                   LiveDataStore, StreamDataStore)
+    from geomesa_tpu_torch.scan.standing import StandingFilterSet
+    from geomesa_tpu_torch.store.continuous import ContinuousQueryPublisher
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = {"type": "delimited-text", "format": "CSV",
+            "id-field": "$1",
+            "fields": [{"name": "dtg", "transform": "isoDate($2)"},
+                       {"name": "geom",
+                        "transform": "point($3::double, $4::double)"}]}
+    spec = "dtg:Date,*geom:Point"
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            LiveDataStore(device=device, durable_dir=str(tmp_path / "d"))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            StreamDataStore("s", conf, IterableSource([]), spec=spec,
+                            device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            LambdaDataStore(device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            StandingFilterSet(parse_spec("t", spec), device=device)
+    assert not (tmp_path / "d").exists()
+    live = LiveDataStore(device="cpu")
+    assert live.device.type == "cpu"
+    assert StreamDataStore("s", conf, IterableSource([]), spec=spec,
+                           device="cpu").device.type == "cpu"
+    lam = LambdaDataStore(device="cpu")
+    assert lam.device.type == lam.persistent.device.type == "cpu"
+    live.create_schema("t", spec)
+    pub = ContinuousQueryPublisher(live)
+    pub.register("q", "t", "BBOX(geom, 0, 0, 1, 1)")
+    assert pub._sets["t"].device.type == "cpu"
+    assert kernels.launches.get("standing_bits") is not None
 
 
 # -- on the card -------------------------------------------------------------
@@ -270,7 +320,8 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                  "dwithin_counts_tiles_plain",
                  "contains_counts_tiles_plain", "slab_pairs_tiles_plain",
                  "_slab_hits", "knn_topk_blocks_plain", "_knn_keys",
-                 "tube_mask_plain", "tube_mask_index_plain"):
+                 "tube_mask_plain", "tube_mask_index_plain",
+                 "standing_bits_plain"):
         monkeypatch.setattr(kernels, name, refuse)
     x, y, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -302,14 +353,20 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
         join.contains_join([parse_wkt(STAR)], x, y, counts_only=counts_only,
                            device_xy=dev)
     tube_select_mask(d, [(-50.0, -40.0, 50.0, 40.0)], [(0, 50 * MS_DAY)])
+    # one standing dispatch: a launch of the standing kernel and one
+    # compaction for its single chunk
+    from geomesa_tpu_torch.scan.standing import StandingFilterSet
+    fset = StandingFilterSet(_attr_batch(1).sft, device=cuda)
+    fset.register("q", parse_ecql("age > 5"))
+    fset.dispatch(_attr_batch(1000))
     assert kernels.launches == {"scan_mask": 1, "scan_mask_gather": 1,
                                 "scan_count": 1, "scan_batch_bits": 1,
-                                "compact_prefix": 1, "compact_bits": 1,
+                                "compact_prefix": 2, "compact_bits": 2,
                                 "pip_mask": 1, "residual_mask": 1,
                                 "density_grid": 1, "extent_tristate": 1,
                                 "dwithin_counts": 1, "slab_pairs": 4,
                                 "contains_counts": 1, "knn_topk": 3,
-                                "tube_mask": 2}
+                                "tube_mask": 2, "standing_bits": 1}
     join.clear_xsort_cache()
 
 
@@ -1997,3 +2054,124 @@ def test_geometry_less_and_versioned_stores_on_cuda_match_cpu(cuda):
             s.reindex("pts")
     assert kernels.launches["residual_mask"] >= 1
     assert stores[0]._state("pts").zindex.version == 2
+
+
+# -- standing filters (csrc/standing.cu) ---------------------------------------
+
+def _standing_case(f, k, a, chunk, n_valid, device, seed=0):
+    """Seeded rows and tables for one standing launch: rows with NaN
+    coordinates and attributes, pre-1970 days, rows sitting on box
+    bounds' hi words; slots dead, box_any, with invalid boxes and with
+    catch-all times."""
+    rng = np.random.default_rng(seed)
+    xhi = rng.uniform(-180, 180, chunk).astype(np.float32)
+    yhi = rng.uniform(-90, 90, chunk).astype(np.float32)
+    xlo = rng.uniform(0, 1e-5, chunk).astype(np.float32)
+    ylo = rng.uniform(0, 1e-5, chunk).astype(np.float32)
+    xhi[rng.random(chunk) < 0.03] = np.nan
+    tday = rng.integers(-400, 400, chunk).astype(np.int32)
+    tms = rng.integers(0, MS_DAY, chunk).astype(np.int32)
+    av = rng.uniform(0, 100, (a, chunk)).astype(np.float32)
+    av[rng.random((a, chunk)) < 0.05] = np.nan
+    cx, cy = rng.uniform(-170, 170, (f, k)), rng.uniform(-80, 80, (f, k))
+    w = rng.uniform(0.5, 40, (f, k))
+    boxes = np.zeros((f, k, 8), np.float32)
+    boxes[..., 0], boxes[..., 2] = cx - w, cx + w
+    boxes[..., 4], boxes[..., 6] = cy - w, cy + w
+    boxes[..., 1::2] = rng.uniform(0, 1e-5, (f, k, 4))
+    # rows on a box's hi words, so the lo compare decides
+    hit = rng.integers(0, chunk, f)
+    boxes[np.arange(f), 0, 0] = xhi[hit]
+    box_valid = rng.random((f, k)) < 0.8
+    box_any = rng.random(f) < 0.1
+    lo = rng.integers(-400, 300, f)
+    times = np.stack([lo, rng.integers(0, MS_DAY, f), lo + rng.integers(
+        0, 300, f), rng.integers(0, MS_DAY, f)], axis=1).astype(np.int32)
+    times[::5] = (-(2 ** 30), 0, 2 ** 30, MS_DAY)
+    alo = rng.uniform(0, 60, (f, a))
+    attrs = np.stack([alo, np.zeros_like(alo), alo + 30, np.zeros_like(alo)],
+                     axis=2).astype(np.float32)
+    attr_any = rng.random((f, a)) < 0.5
+    alive = rng.random(f) < 0.9
+    t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    rows = [t(xhi), t(xlo), t(yhi), t(ylo), t(tday), t(tms), t(av), t(av + 1)]
+    tables = [t(boxes), t(box_valid), t(box_any), t(times), t(attrs),
+              t(attr_any), t(alive)]
+    return rows, tables
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,k,a,chunk,n_valid", [
+    (1000, 1, 1, 1024, 1024), (300, 8, 2, 5000, 4321), (64, 1, 0, 17, 13),
+    (129, 2, 3, 2048, 2048), (7, 1, 1, 70_000, 69_999)])
+def test_standing_kernel_matches_plain(cuda, f, k, a, chunk, n_valid):
+    rows, tables = _standing_case(f, k, a, chunk, n_valid, cuda)
+    kernels.reset_launches()
+    bits, partials = kernels.standing_bits(rows, tables, n_valid)
+    torch.cuda.synchronize()
+    assert kernels.launches["standing_bits"] == 1
+    want = kernels.standing_bits_plain(rows, tables, n_valid)
+    assert torch.equal(bits, want[0]) and torch.equal(partials, want[1])
+    assert bits[0].any() and not bits[1].any()
+    # views of a longer upload, as the dispatch passes them
+    big = [torch.cat([c, c]) if c.dim() == 1 else torch.cat([c, c], dim=1)
+           for c in rows]
+    views = ([c[chunk:] for c in big[:6]]
+             + [c[:, chunk:] for c in big[6:]])
+    got = kernels.standing_bits(views, tables, n_valid)
+    assert torch.equal(got[0], bits) and torch.equal(got[1], partials)
+
+
+@pytest.mark.gpu
+def test_standing_set_on_cuda_matches_cpu(cuda):
+    """2,000 standing filters (boxes, times, speed ranges, LIKEs, ORs)
+    against 50k rows on a CUDA set and a CPU set: the same hits, in
+    several chunks too, with the device tables kept in place through
+    churn."""
+    from geomesa_tpu_torch.scan.standing import (CQ_DEVICE_MAX_CELLS,
+                                                 StandingFilterSet)
+    rng = np.random.default_rng(15)
+    spec = "name:String,speed:Double,dtg:Date,*geom:Point:srid=4326"
+    n = 50_000
+    batch = FeatureBatch.from_dict(
+        parse_spec("g", spec), [f"r{i}" for i in range(n)],
+        {"name": [f"u{i % 500}" for i in range(n)],
+         "speed": rng.uniform(0, 300, n),
+         "dtg": 1_467_331_200_000 + rng.integers(0, 120 * MS_DAY, n),
+         "geom": (rng.uniform(-180, 180, n), rng.uniform(-90, 90, n))})
+
+    def ecql(i):
+        cx, cy = rng.uniform(-170, 170), rng.uniform(-80, 80)
+        w = rng.uniform(0.5, 10)
+        box = (f"bbox(geom,{cx - w:.4f},{cy - w:.4f},"
+               f"{cx + w:.4f},{cy + w:.4f})")
+        return {3: f"{box} AND dtg DURING 2016-07-01T00:00:00Z/"
+                   f"2016-09-01T00:00:00Z",
+                5: f"{box} AND speed BETWEEN 10 AND 50",
+                7: f"{box} AND name LIKE 'u{i % 100}%'",
+                8: f"{box} OR bbox(geom,0,0,5,5)"}.get(i % 10, box)
+
+    filters = [parse_ecql(ecql(i)) for i in range(2000)]
+    sets = [StandingFilterSet(batch.sft, device=d) for d in (cuda, "cpu")]
+    for s in sets:
+        for i, f in enumerate(filters):
+            s.register(f"q{i}", f)
+    kernels.reset_launches()
+    got, want = (s.dispatch(batch) for s in sets)
+    assert kernels.launches["standing_bits"] >= 1
+    assert got.keys() == want.keys()
+    assert all(np.array_equal(got[k], want[k]) for k in got)
+    assert sum(map(len, got.values())) > 0
+    ptrs = [t.data_ptr() for t in sets[0].device_tables()]
+    for s in sets:
+        for i in range(100):
+            s.unregister(f"q{i}")
+            s.register(f"q{i}r", filters[-1 - i])
+    old = CQ_DEVICE_MAX_CELLS.get()
+    try:
+        CQ_DEVICE_MAX_CELLS.set(str(1 << 20))
+        got, want = (s.dispatch(batch) for s in sets)
+    finally:
+        CQ_DEVICE_MAX_CELLS.set(old)
+    assert [t.data_ptr() for t in sets[0].device_tables()] == ptrs
+    assert all(np.array_equal(got[k], want[k]) for k in got)
