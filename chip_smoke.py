@@ -149,17 +149,25 @@ Phases, one JSON line each; any failure exits non-zero:
            and their ratio. (B) a StandingFilterSet with 100,000 filters
            and one 1M-row dispatch, id-exact against evaluate on a
            2,048-filter stride; register/s, the dispatch split (row
-           prep, uploads, kernels, compaction and copies, merge, host
-           patch), padded_cap and the residual fraction. (C) 256
-           unregisters and registers within the cap and another 1M-row
-           dispatch: no new shape class, the device tables' storage
-           unchanged, the replaced filters id-exact. standing_bits held
-           to its plain version on (B)'s first chunk with torch.equal,
-           timed there (held median) beside its plain version and its
-           bound (the operations this chunk's live slots need at
-           33.5 T/s, or the bytes). Launch counts zeroed before the
-           phase and read after (the comparison's launches left out):
-           standing_bits must have launched.
+           prep, uploads, matching with its steps: the slot grid's
+           build, the count passes, the prefix, the write passes, the
+           sort; host patch), padded_cap and the residual fraction. (C)
+           256 unregisters and registers within the cap and another
+           1M-row dispatch: no new shape class, the device tables'
+           storage unchanged, the replaced filters id-exact. The five
+           standing kernels (grid, count, offsets, write, sort) held to
+           their plain version on (B)'s first two chunks pair for pair
+           (a hard gate), each timed (held medians: the count and write
+           passes on a chunk, the grid, prefix and sort once a
+           dispatch) beside its plain version and its bound (the bytes
+           of the rows, the grid lists they read and the pairs written,
+           or the operations of the candidate pairs at 33.5 T/s), the
+           all-pairs kernel's bound (0.0489 ms a chunk) as the old
+           yardstick; the grid's entries, everywhere slots, build time
+           and the candidate pairs tested per row. Launch counts zeroed
+           before the phase and read after (the comparison's launches
+           left out): every standing kernel must have launched, and
+           no bitmap kernel or compaction.
            (stream) the streaming tiers at a live AIS picture's size:
            262,144 vessel ids, 32 messages of 8,192 creates, then 32 of
            upserts of the same ids (cut once past their share of the
@@ -182,7 +190,8 @@ Phases, one JSON line each; any failure exits non-zero:
            publish-to-receive p50, the resume seconds, persist seconds,
            the union query's p50. The two phases have 150 s together
            (STREAM_BUDGET_S). Launch counts zeroed before the phase and
-           read after: the scan kernels and standing_bits must launch.
+           read after: the scan kernels and the standing kernels must
+           launch.
 4. batched the serving path on the store phase's 10M rows: 32 seeded
            queries in the store's dates through query_batched at batch
            sizes 2, 8 and 32, every query's ids equal to the float64
@@ -754,7 +763,7 @@ def phase_kernels(seed: int, rows: int) -> dict:
     flush = _l2_flush(dev)
     stats = {k: {"max_abs_err": 0, "per_query": []} for k in SOURCES
              if k not in PRED_KERNELS + SURFACE_KERNELS + JOIN_KERNELS
-             + ("tube_mask", "standing_bits")}
+             + ("tube_mask",) + STANDING_KERNELS}
     for qi, (boxes, intervals) in enumerate(KERNEL_QUERIES):
         q = zscan.make_query(boxes, intervals)
         b, t = q.tables(dev)
@@ -2326,8 +2335,17 @@ GEOFENCE_PROBES = 64              # (A): topics probed, a stride
 GEOFENCE_CHURN = 256              # (C)
 STREAM_BUDGET_S = 150.0           # the geofence and stream phases together
 STANDING_BOX_OPS, STANDING_TIME_OPS, STANDING_ATTR_OPS = 15, 6, 4
-SOURCES["standing_bits"] = "geomesa_tpu/scan/standing.py:130 _standing_mask"
-SOURCE_FILES["standing_bits"] = "geomesa_tpu_torch/csrc/standing.cu"
+STANDING_KERNELS = ("standing_grid", "standing_count", "standing_offsets",
+                    "standing_write", "standing_sort")
+SOURCES.update({
+    "standing_grid": "geomesa_tpu/scan/standing.py:130 _standing_mask",
+    "standing_count": "geomesa_tpu/scan/standing.py:130 _standing_mask "
+                      "(+ :165 _mask_total)",
+    "standing_offsets": "geomesa_tpu/scan/standing.py:165 _mask_total",
+    "standing_write": "geomesa_tpu/scan/standing.py:170 _flat_nonzero",
+    "standing_sort": "geomesa_tpu/scan/standing.py:170 _flat_nonzero"})
+SOURCE_FILES.update({k: "geomesa_tpu_torch/csrc/standing.cu"
+                     for k in STANDING_KERNELS})
 
 
 def geofence_ecql(rng, i: int) -> str:
@@ -2363,93 +2381,306 @@ def geofence_batch(rng, sft, n: int, tag: str):
          "geom": (rng.uniform(-180, 180, n), rng.uniform(-90, 90, n))})
 
 
-def standing_bound(tables, n_valid: int, chunk: int) -> tuple[float, str]:
-    """The standing kernel's bound for one chunk: the operations this
-    chunk's live slots need (per row: a box test per valid box, the
-    time test where the slot has an interval, an attribute test per
-    bounded attribute; STANDING_*_OPS each) at F32_OPS_PER_S, and the
-    bytes (the chunk's rows and the tables read once, the bits and
-    partials written) at HBM_BYTES_PER_S; the larger."""
+def standing_all_pairs_ms(tables, n_valid: int, chunk: int) -> float:
+    """The yardstick of the all-pairs kernel this design replaces (its
+    bound, PERF.md row K5 before PR 19): the operations of testing every
+    live slot against each of the chunk's rows (a box test per valid box,
+    the time test where the slot has an interval, an attribute test per
+    bounded attribute; STANDING_*_OPS each) at F32_OPS_PER_S, or the
+    bytes of its bitmap layout at HBM_BYTES_PER_S; the larger."""
     boxes, box_valid, box_any, times, attrs, attr_any, alive = (
         t.cpu().numpy() for t in tables)
     f, k, a = boxes.shape[0], boxes.shape[1], attrs.shape[1]
-    live = alive
     timed = ~((times[:, 0] == -(2 ** 30)) & (times[:, 2] == 2 ** 30))
     per_slot = (STANDING_BOX_OPS * np.where(box_any, 0, box_valid.sum(1))
                 + STANDING_TIME_OPS * timed
                 + STANDING_ATTR_OPS * (~attr_any).sum(1))
-    ops = float(per_slot[live].sum()) * n_valid
+    ops = float(per_slot[alive].sum()) * n_valid
     words = -(-chunk // 32)
     nbytes = (chunk * (24 + 8 * a) + f * (32 * k + k + 2 + 16 + 17 * a)
               + f * words * 4 + f * -(-words // 64) * 4)
+    return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+
+
+def _f32_bound(nbytes: float, ops: float) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / F32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def standing_candidates(tables, grid, views, n_valid: int) -> dict:
+    """What the grid sends to the full test for these rows: the candidate
+    (slot, row) pairs, their operations (per slot STANDING_BOX_OPS a
+    valid box unless box_any, STANDING_TIME_OPS a bounded interval,
+    STANDING_ATTR_OPS a bounded attribute), the rows with a cell and the
+    grid entries they read (torch on the card, outside the counted run)."""
+    from geomesa_tpu_torch.scan import kernels
+    boxes, box_valid, box_any, times, attrs, attr_any, alive = tables
+    timed = ~((times[:, 0] == -(2 ** 30)) & (times[:, 2] == 2 ** 30))
+    ops = (STANDING_BOX_OPS * torch.where(box_any, 0, box_valid.sum(1))
+           + STANDING_TIME_OPS * timed
+           + STANDING_ATTR_OPS * (~attr_any).sum(1))
+    start = grid.cell_start.long()
+    sizes = start[1:] - start[:-1]
+    cells = torch.arange(kernels.STANDING_CELLS, device=start.device)
+    cell_ops = torch.zeros(kernels.STANDING_CELLS, dtype=torch.int64,
+                           device=start.device).index_add_(
+        0, torch.repeat_interleave(cells, sizes),
+        ops[grid.cell_slots.long()])
+    cell = kernels.standing_cells_plain(views[0][:n_valid],
+                                        views[2][:n_valid])
+    r = cell[cell >= 0]
+    n_every = int(grid.every.shape[0])
+    listed = int(sizes[r].sum())
+    return {"pairs": listed + n_every * n_valid,
+            "ops": int(cell_ops[r].sum())
+            + int(ops[grid.every.long()].sum()) * n_valid,
+            "rows_with_cell": int(r.shape[0]), "listed": listed,
+            "n_every": n_every}
+
+
+def standing_bounds(tables, grid, views, n_valid: int, hits: int,
+                    pairs: int) -> dict:
+    """Each standing kernel's bound (ms, by) at the shapes timed: the
+    chunk's count and write passes (the rows, 24 B and 8 B an attribute;
+    the cell bounds of a row with a cell, 8 B; the grid lists they read,
+    4 B a listed slot; the everywhere list, 4 B a slot; a hit counted or
+    written, 4 B; or the candidate pairs' operations), the grid's build
+    (the tables' boxes, box_valid, box_any and alive read, the mode, cell
+    starts, lists and everywhere list written; 12 operations a live valid
+    box, 2 an entry), the slots' prefix (counts read, starts and cursor
+    written) and the sort (the dispatch's ``pairs`` read and written, the
+    slots' starts, counts and modes read)."""
+    from geomesa_tpu_torch.scan import kernels
+    f, k, a = (tables[0].shape[0], tables[0].shape[1],
+               tables[4].shape[1])
+    c = standing_candidates(tables, grid, views, n_valid)
+    rows_b = (n_valid * (24 + 8 * a) + 8 * c["rows_with_cell"]
+              + 4 * c["listed"] + 4 * c["n_every"])
+    match = _f32_bound(rows_b + 4 * hits, c["ops"])
+    entries = int(grid.cell_slots.shape[0])
+    live_boxes = int((tables[1] & tables[6][:, None]).sum())
+    grid_b = (f * (32 * k + k + 2) + f
+              + 4 * (kernels.STANDING_CELLS + 1) + 4 * entries
+              + 4 * c["n_every"])
+    return {"standing_grid": _f32_bound(grid_b, 12 * live_boxes
+                                        + 2 * entries),
+            "standing_count": match, "standing_write": match,
+            "standing_offsets": _f32_bound(12 * f + 12, f),
+            "standing_sort": _f32_bound(8 * pairs + 9 * f, pairs),
+            "candidates": c}
+
+
+def _grid_err(got, want) -> int:
+    """0 when two grids list the same slots in the same cells (the
+    kernels list them in no set order), else 1."""
+    from geomesa_tpu_torch.scan import kernels
+    out = []
+    for g in (got, want):
+        f = g.mode.shape[0]
+        start = g.cell_start.long()
+        cell = torch.repeat_interleave(
+            torch.arange(kernels.STANDING_CELLS, device=start.device),
+            start[1:] - start[:-1])
+        out.append((g.mode, g.cell_start,
+                    torch.sort(cell * f + g.cell_slots.long()).values,
+                    torch.sort(g.every).values))
+    return int(not all(x.shape == y.shape and torch.equal(x, y)
+                       for x, y in zip(*out)))
+
+
+def _same(got, want) -> int:
+    return _err(got, want) if got.shape == want.shape else 1
+
+
 def standing_kernel_stats(fset, batch) -> dict:
-    """standing_bits on the first chunk of a dispatch of ``batch``
-    against its plain version on the card (bit for bit), both timed
-    (the kernel held, median of 20; the plain version once after a
-    warm call), with the bound; the compaction at this shape (the prefix
-    kernel held, the wrapper's wall time with its sync); then the
-    dispatch's matching loop split
-    into the kernels alone (CUDA events over every chunk's launch) and
-    the rest of the loop (compaction, its sync, the ids' copy)."""
+    """The standing kernels on a dispatch of ``batch`` (outside the
+    counted run). (1) Held against their plain version on the first two
+    chunks, pair for pair: the grid (its lists compared as sets), the
+    counts, the prefix, the write pass (each segment ordered), the sort,
+    and the whole function against its plain version (the plain grid
+    too); any difference fails the phase. (2) Timed: the grid's two C
+    entries held, and the wrapper's wall time with its sync; the count
+    and write passes held on the first chunk; the prefix held at the
+    slots' counts; the sort held on the dispatch's pairs; each plain
+    version once after a warm call; the prefix beside one torch.cumsum.
+    (3) The whole dispatch's steps spanned by CUDA events (the host's
+    launches included), its wall time and the ids' copy. With the
+    bounds, the all-pairs yardstick, the grid's entries, everywhere
+    slots and candidates per row."""
     from geomesa_tpu_torch.scan import kernels
     n = batch.n
     chunk = fset._chunk_rows(n)
     rows = fset._rows_device(fset._rows_host(batch), -(-n // chunk) * chunk)
     tables = fset.device_tables()
-    views = fset._chunk_views(rows, 0, chunk)
-    nv = min(chunk, n)
-    got = kernels.standing_bits(views, tables, nv)
-    want = kernels.standing_bits_plain(views, tables, nv)
+    dev = rows[0].device
+    f, k = tables[0].shape[0], tables[0].shape[1]
+    chunks = [(fset._chunk_views(rows, s, chunk), min(chunk, n - s), s)
+              for s in range(0, n, chunk)]
+    two = chunks[:2]
+    # (1) the kernels against their plain version on two chunks
+    got = kernels.standing_pairs(two, tables)
+    want = kernels.standing_pairs_plain(two, tables)
+    g = got[2]
+    errs = {"standing_grid": _grid_err(g, want[2])}
+    kc = torch.zeros(f, dtype=torch.int32, device=dev)
+    pc = kc.clone()
+    for views, nv, _ in two:
+        kernels.standing_count(views, tables, g, nv, kc)
+        kernels.standing_count_plain(views, tables, g, nv, pc)
+    errs["standing_count"] = _same(kc, pc)
+    ks, kcur, ktot = kernels.standing_offsets(kc)
+    ps, pcur, ptot = kernels.standing_offsets_plain(pc)
+    errs["standing_offsets"] = max(_same(ks, ps), _same(kcur, pcur),
+                                   abs(ktot - ptot))
+    kout = torch.empty(ktot, dtype=torch.int32, device=dev)
+    pout = torch.empty(ptot, dtype=torch.int32, device=dev)
+    for views, nv, r0 in two:
+        kernels.standing_write(views, tables, g, nv, r0, kcur, kout)
+        kernels.standing_write_plain(views, tables, g, nv, r0, pcur, pout)
+    errs["standing_write"] = max(_same(kernels.standing_sort_plain(
+        kout, ks, kc, g.mode), pout), _same(kcur, pcur))
+    errs["standing_sort"] = _same(kernels.standing_sort(kout, ks, kc, g.mode),
+                                  kernels.standing_sort_plain(kout, ks, kc,
+                                                              g.mode))
     torch.cuda.synchronize()
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        raise SystemExit("geofence: standing_bits differs from its plain "
-                         "version on the first chunk")
-    out = (torch.zeros_like(got[0]), torch.zeros_like(got[1]))
-    ms = cuda_ms(lambda: kernels.standing_bits(views, tables, nv, out=out),
-                 20)
-    plain_ms = cuda_ms(lambda: kernels.standing_bits_plain(views, tables,
-                                                           nv), 1, warmup=1)
-    bound, by = standing_bound(tables, nv, chunk)
-    # the compaction at this shape: the prefix kernel alone (held), and
-    # compact_bits_device through its wrapper on an idle card (its sync
-    # and the host's work included, host clock)
-    prefix_ms = cuda_ms(lambda: kernels.compact_prefix(out[1]), 20)
+    whole_equal = (torch.equal(got[0], want[0])
+                   and torch.equal(got[1], want[1]))
+    if any(errs.values()) or not whole_equal:
+        raise SystemExit(f"geofence: the standing kernels differ from their "
+                         f"plain version on the first two chunks: {errs}, "
+                         f"pairs equal {whole_equal}")
+    two_pairs = int(got[0].shape[0])
+    # (2) each kernel timed, held, at the main path's shapes
+    lib = kernels._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tp = [t.data_ptr() for t in tables]
+    i32 = dict(dtype=torch.int32, device=dev)
+    mode = torch.empty(f, dtype=torch.uint8, device=dev)
+    cell_count = torch.zeros(kernels.STANDING_CELLS, **i32)
+    every = torch.empty(f, **i32)
+    cell_start = torch.empty(kernels.STANDING_CELLS + 1, **i32)
+    cursor = torch.empty(kernels.STANDING_CELLS, **i32)
+    sizes = torch.zeros(2, dtype=torch.int64, device=dev)
+    slots = torch.empty_like(g.cell_slots)
+
+    def grid_count():
+        lib.geomesa_standing_grid_count(
+            *tp, f, k, mode.data_ptr(), cell_count.data_ptr(),
+            every.data_ptr(), cell_start.data_ptr(), cursor.data_ptr(),
+            sizes.data_ptr(), stream)
+
+    def grid_fill():
+        lib.geomesa_standing_grid_fill(*tp, f, k, mode.data_ptr(),
+                                       cursor.data_ptr(), slots.data_ptr(),
+                                       stream)
+    count_ms = cuda_ms(grid_count, 20, flush=lambda: (cell_count.zero_(),
+                                                      sizes.zero_()))
+    fill_ms = cuda_ms(grid_fill, 20, flush=lambda: cursor.copy_(
+        cell_start[:-1]))
     walls = []
-    for _ in range(20):
+    for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        kernels.compact_bits_device(*out)
+        kernels.standing_grid(tables)
         walls.append((time.perf_counter() - t0) * 1e3)
-    chunks = -(-n // chunk)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for start in range(0, n, chunk):
-        kernels.standing_bits(fset._chunk_views(rows, start, chunk), tables,
-                              min(chunk, n - start), out=out)
-    b.record()
-    b.synchronize()
-    kernels_s = a.elapsed_time(b) / 1e3
+    views0, nv0, _ = chunks[0]
+    c0 = torch.zeros(f, **i32)
+    kernels.standing_count(views0, tables, g, nv0, c0)
+    s0, cur0, t0_hits = kernels.standing_offsets(c0)
+    out0 = torch.empty(t0_hits, **i32)
+    scratch = torch.zeros(f, **i32)
+    times = {
+        "standing_grid": count_ms + fill_ms,
+        "standing_count": cuda_ms(lambda: kernels.standing_count(
+            views0, tables, g, nv0, scratch), 20),
+        "standing_write": cuda_ms(lambda: kernels.standing_write(
+            views0, tables, g, nv0, 0, cur0, out0), 20,
+            flush=lambda: cur0.copy_(s0[:-1]))}
+    # (3) the whole dispatch, step by step, on the card's clock
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for start in range(0, n, chunk):
-        kernels.standing_bits(fset._chunk_views(rows, start, chunk), tables,
-                              min(chunk, n - start), out=out)
-        ids, _, totals, _ = kernels.compact_bits_device(*out)
-        ids.cpu()
-    loop_s = time.perf_counter() - t0
-    return {"max_abs_err": _err(got[0], want[0]), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "chunk": chunk, "chunks": chunks,
-            "slots": int(tables[0].shape[0]),
-            "live": int(tables[6].sum().item()), "prefix_ms": prefix_ms,
-            "compact_wrapper_ms": statistics.median(walls),
-            "kernels_s": kernels_s,
-            "kernels_and_compaction_s": loop_s}
+    ev[0].record()
+    grid = kernels.standing_grid(tables)
+    ev[1].record()
+    counts = torch.zeros(f, **i32)
+    for views, nv, _ in chunks:
+        kernels.standing_count(views, tables, grid, nv, counts)
+    ev[2].record()
+    starts, cur, total = kernels.standing_offsets(counts)
+    ev[3].record()
+    pairs = torch.empty(total, **i32)
+    for views, nv, r0 in chunks:
+        kernels.standing_write(views, tables, grid, nv, r0, cur, pairs)
+    ev[4].record()
+    ids = kernels.standing_sort(pairs, starts, counts, grid.mode)
+    ev[5].record()
+    ev[5].synchronize()
+    pipeline_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ids.cpu(), counts.cpu()
+    copy_s = time.perf_counter() - t1
+    steps = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(
+        ("grid_ms", "count_all_ms", "offsets_ms", "write_all_ms",
+         "sort_ms"))}
+    so, scur, stot = (torch.empty(f + 1, **i32), torch.empty(f, **i32),
+                      torch.empty(1, dtype=torch.int64, device=dev))
+    times["standing_offsets"] = cuda_ms(
+        lambda: lib.geomesa_standing_offsets(
+            counts.data_ptr(), f, so.data_ptr(), scur.data_ptr(),
+            stot.data_ptr(), stream), 20)
+    times["standing_sort"] = cuda_ms(
+        lambda: kernels.standing_sort(pairs, starts, counts, grid.mode), 20)
+    library = {"standing_offsets": cuda_ms(lambda: torch.cumsum(counts, 0),
+                                           20)}
+    plain = {
+        "standing_grid": cuda_ms(lambda: kernels.standing_grid_plain(tables),
+                                 1, warmup=1),
+        "standing_count": cuda_ms(lambda: kernels.standing_count_plain(
+            views0, tables, g, nv0, scratch), 1, warmup=1),
+        "standing_write": cuda_ms(lambda: kernels.standing_write_plain(
+            views0, tables, g, nv0, 0, s0[:-1].clone(), out0), 1, warmup=1),
+        "standing_offsets": cuda_ms(lambda: kernels.standing_offsets_plain(
+            counts), 1, warmup=1),
+        "standing_sort": cuda_ms(lambda: kernels.standing_sort_plain(
+            pairs, starts, counts, grid.mode), 1, warmup=1)}
+    bounds = standing_bounds(tables, grid, views0, nv0, t0_hits, total)
+    bulk_cand = standing_candidates(tables, grid, rows, n)
+    per_kernel = {name: {"max_abs_err": errs[name], "ms": times[name],
+                         "plain_ms": plain[name],
+                         "bound_ms": bounds[name][0],
+                         "bound_by": bounds[name][1],
+                         "library_ms": library.get(name)}
+                  for name in STANDING_KERNELS}
+    chunks_n = len(chunks)
+    device_only_ms = (times["standing_grid"] + times["standing_offsets"]
+                      + times["standing_sort"] + chunks_n
+                      * (times["standing_count"] + times["standing_write"]))
+    sizes_all = grid.cell_start.long()
+    return {
+        "kernels": per_kernel, "chunk": chunk, "chunks": chunks_n,
+        "slots": f, "live": int(tables[6].sum().item()),
+        "first_two_chunks": {"pairs": two_pairs, "equal": True},
+        "grid": {"entries": int(grid.cell_slots.shape[0]),
+                 "everywhere": int(grid.every.shape[0]),
+                 "grid_slots": int((grid.mode == kernels.STANDING_GRID)
+                                   .sum()),
+                 "largest_cell": int((sizes_all[1:] - sizes_all[:-1])
+                                     .max()),
+                 "count_scan_ms": count_ms, "fill_ms": fill_ms,
+                 "wrapper_wall_ms": statistics.median(walls)},
+        "candidates_per_row": bulk_cand["pairs"] / n,
+        "hits_per_row": total / n,
+        "chunk0": {"rows": nv0, "hits": t0_hits,
+                   "candidates": bounds["candidates"]["pairs"],
+                   "all_pairs_yardstick_ms": standing_all_pairs_ms(
+                       tables, nv0, chunk)},
+        "dispatch": {"steps_ms": steps, "pipeline_s": pipeline_s,
+                     "ids_copy_s": copy_s, "pairs": total,
+                     "device_only_ms": device_only_ms,
+                     "all_pairs_yardstick_ms": chunks_n
+                     * standing_all_pairs_ms(tables, nv0, chunk)}}
 
 
 def phase_geofence(seed: int) -> tuple[dict, dict, float]:
@@ -2463,15 +2694,18 @@ def phase_geofence(seed: int) -> tuple[dict, dict, float]:
     host), and their ratio. (B) a StandingFilterSet on the card with
     100,000 filters and one 1M-row dispatch, id-exact against evaluate
     on a 2,048-filter stride (the residual tenth kept in); register/s,
-    the dispatch split into row prep, uploads, the kernels, the rest of
-    the matching loop (compaction and the copies to the host) and the
-    host patch; padded_cap and the residual fraction. (C) churn: 256
-    unregisters and registers within the cap, then another 1M-row
-    dispatch: no new shape class, the device tables' storage unchanged,
-    the replaced filters id-exact. standing_bits is held to its plain
-    version on (B)'s first chunk and timed there. Launch counts zeroed
-    before the phase, read after; standing_bits must have launched.
-    Returns the kernel's stats, the launch counts and the seconds."""
+    the dispatch split into row prep, uploads, matching (the grid's
+    build, the kernels and the copies to the host; its steps from a rerun
+    on the card's clock) and the host patch; padded_cap and the residual
+    fraction. (C) churn: 256 unregisters and registers within the cap,
+    then another 1M-row dispatch: no new shape class, the device tables'
+    storage unchanged, the grid rebuilt, the replaced filters id-exact.
+    The standing kernels are held to their plain version on (B)'s first
+    two chunks and timed at (B)'s shapes (standing_kernel_stats). Launch
+    counts zeroed before the phase, read after: every standing kernel
+    must have launched, and the launches line shows that no bitmap
+    kernel or compaction ran. Returns the kernels' stats, the launch
+    counts and the seconds."""
     from geomesa_tpu_torch import LiveDataStore
     from geomesa_tpu_torch.features.sft import parse_spec
     from geomesa_tpu_torch.filters import evaluate, parse_ecql
@@ -2564,11 +2798,9 @@ def phase_geofence(seed: int) -> tuple[dict, dict, float]:
                          f"differ from evaluate (first q{bad[0]})")
     counted = dict(kernels.launches)      # the comparisons do not count
     kstats = standing_kernel_stats(fset, bulk)
-    split["kernels_s"] = kstats["kernels_s"]
-    split["compaction_and_copies_s"] = (kstats["kernels_and_compaction_s"]
-                                        - kstats["kernels_s"])
-    split["merge_and_rest_s"] = (split["match_s"]
-                                 - kstats["kernels_and_compaction_s"])
+    # the matching stage's steps, from a rerun of its pipeline (CUDA
+    # events, the host's launches included)
+    split["match_steps_ms"] = kstats["dispatch"]["steps_ms"]
     cand = sum(len(v) for v in hits.values())
     bulk_line = {"filters": nbig, "register_per_s": nbig / big_reg_s,
                  "register_s": big_reg_s, "rows": GEOFENCE_BULK,
@@ -2580,13 +2812,12 @@ def phase_geofence(seed: int) -> tuple[dict, dict, float]:
                  "oracle_s": oracle_s, "id_exact": True,
                  "chunk": kstats["chunk"], "chunks": kstats["chunks"]}
     emit({"phase": "geofence", "part": "bulk", **bulk_line})
-    emit({"phase": "geofence", "part": "standing_bits",
-          **{k: v for k, v in kstats.items()
-             if k not in ("kernels_s", "kernels_and_compaction_s")}})
+    emit({"phase": "geofence", "part": "standing", **kstats})
 
     # (C) churn within the cap
     misses = fset.cache_misses
     ptrs = [t.data_ptr() for t in fset.device_tables()]
+    grid_before = fset._grid
     t0 = time.perf_counter()
     for i in range(GEOFENCE_CHURN):
         fset.unregister(f"q{i}")
@@ -2598,25 +2829,28 @@ def phase_geofence(seed: int) -> tuple[dict, dict, float]:
     hits = fset.dispatch(churn)
     churn_s = time.perf_counter() - t0
     same_ptrs = [t.data_ptr() for t in fset.device_tables()] == ptrs
+    rebuilt = fset._grid is not grid_before
     bad = [i for i in range(GEOFENCE_CHURN) if f"q{i}" in hits
            or not np.array_equal(hits[f"q{i}r"], np.flatnonzero(
                evaluate(parsed[i], churn)))]
-    if fset.cache_misses != misses or not same_ptrs or bad:
+    if fset.cache_misses != misses or not same_ptrs or not rebuilt or bad:
         raise SystemExit(f"geofence (C): misses {misses} -> "
                          f"{fset.cache_misses}, tables kept {same_ptrs}, "
-                         f"{len(bad)} replaced filters differ")
+                         f"grid rebuilt {rebuilt}, {len(bad)} replaced "
+                         f"filters differ")
     launches = {k: v + counted[k] for k, v in kernels.launches.items()}
-    if not launches["standing_bits"]:
-        raise SystemExit("geofence: standing_bits never launched")
+    missing = [k for k in STANDING_KERNELS if not launches[k]]
+    if missing:
+        raise SystemExit(f"geofence: {missing} never launched")
     seconds = time.perf_counter() - t_phase
     emit({"phase": "geofence", "part": "churn", "replaced": GEOFENCE_CHURN,
           "register_s": churn_reg_s, "dispatch_s": churn_s,
           "split_s": fset.last_split, "new_shape_classes": 0,
-          "tables_kept": same_ptrs, "seconds": seconds,
+          "tables_kept": same_ptrs, "grid_rebuilt": rebuilt,
+          "seconds": seconds,
           "card": card_line(),
-          "launches": {k: launches[k] for k in ("standing_bits",
-                                                "compact_prefix",
-                                                "compact_bits")}})
+          "launches": {k: launches[k] for k in STANDING_KERNELS + (
+              "compact_prefix", "compact_bits", "scan_batch_bits")}})
     del fset, hits, bulk, churn
     torch.cuda.empty_cache()
     return kstats, launches, seconds
@@ -2719,7 +2953,7 @@ def phase_stream(seed: int, budget_s: float) -> tuple[dict, dict]:
     the brute force over the lines written.
     Launch counts zeroed before the phase, read after: scan_mask or
     scan_mask_gather must launch (the live store, the file store's
-    loads), and standing_bits (the publisher)."""
+    loads), and the standing kernels (the publisher)."""
     import shutil
     import tempfile
 
@@ -2980,12 +3214,12 @@ def phase_stream(seed: int, budget_s: float) -> tuple[dict, dict]:
             shutil.rmtree(r, ignore_errors=True)
     launches = dict(kernels.launches)
     if not (launches["scan_mask"] + launches["scan_mask_gather"]
-            and launches["standing_bits"]):
+            and launches["standing_count"]):
         raise SystemExit(f"stream: the scan or standing kernels never "
                          f"launched ({launches})")
     out.update(seconds=time.perf_counter() - t_phase, card=card_line(),
                launches={k: launches[k] for k in (
-                   "scan_mask", "scan_mask_gather", "standing_bits",
+                   "scan_mask", "scan_mask_gather", *STANDING_KERNELS,
                    "compact_bits")})
     emit({"phase": "stream", "part": "summary",
           **{k: out[k] for k in ("stream", "seconds", "card", "launches")}})
@@ -5712,8 +5946,8 @@ def main():
     stream_launches, _ = phase_stream(args.seed, STREAM_BUDGET_S - fence_s)
     for name in ("scan_mask", "scan_mask_gather", "scan_count"):
         launches[name] += stream_launches[name]
-    launches["standing_bits"] = (fence_launches["standing_bits"]
-                                 + stream_launches["standing_bits"])
+    for name in STANDING_KERNELS:
+        launches[name] = fence_launches[name] + stream_launches[name]
     batched = phase_batched(args.seed, ds, rows)
     for name in ("scan_batch_bits", "compact_prefix", "compact_bits"):
         launches[name] = (batched[name] + fence_launches[name]
@@ -5766,13 +6000,13 @@ def main():
             "replaces": SOURCES[name], "launches": launches[name],
             **{k: s[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")}})
-    summary.append({                     # at the geofence bulk's chunk
-        "name": "standing_bits", "route": "cuda",
-        "source": SOURCE_FILES["standing_bits"],
-        "replaces": SOURCES["standing_bits"],
-        "launches": launches["standing_bits"],
-        **{k: standing[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")}})
+    for name in STANDING_KERNELS:        # at the geofence bulk's shapes
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCE_FILES[name],
+            "replaces": SOURCES[name], "launches": launches[name],
+            **{k: standing["kernels"][name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"kernels": summary})

@@ -1,6 +1,6 @@
 """The port's kernels: wrappers, launch counts and plain versions.
 
-Sixteen kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
+Twenty kernels, written in CUDA C++ for Hopper in ``csrc/scan.cu``,
 ``csrc/batch.cu``, ``csrc/geom.cu``, ``csrc/residual.cu``,
 ``csrc/density.cu``, ``csrc/extent.cu``, ``csrc/join.cu``,
 ``csrc/tube.cu`` and ``csrc/standing.cu`` (see the notes at their heads
@@ -65,11 +65,17 @@ for what they replace and what bounds them):
   streaming pass over the time words rejects the rows no interval can
   hold by a time-bucket index and packs the rest, then each is searched
   for over the pairs sorted by their intervals (``tube_pairs``).
-- ``standing_bits``: an ingest chunk's rows against every standing
-  filter slot (``scan/standing.py``): per (slot, row) the slot's boxes,
-  time interval and attribute intervals on the two-float rows, as the
-  batched scan's bitmaps (kind 0 of int32[2, F, words], with their
-  partials), which ``compact_bits`` compacts into filter-major ids.
+- the standing filters (``scan/standing.py``), five wrappers over one
+  source: ``standing_grid`` lists each live slot in the 1-degree cells
+  its boxes reach (or as everywhere) from the set's seven tables;
+  ``standing_count`` and ``standing_write`` test each ingest chunk's
+  rows against their cell's slots and the everywhere slots (per pair the
+  slot's boxes, time interval and attribute intervals on the two-float
+  rows), counting each slot's hits, then writing the hit rows into each
+  slot's segment (``standing_offsets``: the counts' prefix, the one
+  sync); ``standing_sort`` orders each segment, so the pairs come out
+  filter-major and row-ascending (``standing_pairs`` runs them all,
+  ``standing_pairs_plain`` their plain versions).
 
 Each wrapper takes its plain PyTorch version ONLY when the tensors lie
 on the CPU (the tests' device; for ``residual_mask``, its columns). On
@@ -108,7 +114,7 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "scan_count", "scan_batch_bits", "compact_bits",
            "scan_mask_plain", "scan_mask_gather_plain", "scan_count_plain",
            "scan_batch_bits_plain", "compact_bits_plain",
-           "compact_bits_device", "compact_prefix",
+           "compact_prefix",
            "compact_prefix_plain", "batch_shape", "unpack_bits",
            "build_library", "BuildInfo", "MAX_TABLE_BYTES",
            "BATCH_ROWS_PER_BLOCK", "BATCH_MAX_GROUP", "pip_mask",
@@ -130,7 +136,15 @@ __all__ = ["launches", "reset_launches", "scan_mask", "scan_mask_gather",
            "knn_plan", "knn_topk_blocks_plain", "tube_mask", "tube_mask_plain",
            "tube_pairs", "tube_index_plain", "tube_mask_index_plain",
            "tube_bucket_bits", "TUBE_STAGE", "TUBE_TILE",
-           "TUBE_MAX_BUCKET_BITS", "standing_bits", "standing_bits_plain"]
+           "TUBE_MAX_BUCKET_BITS", "StandingGrid", "standing_grid",
+           "standing_grid_plain", "standing_count", "standing_count_plain",
+           "standing_offsets", "standing_offsets_plain", "standing_write",
+           "standing_write_plain", "standing_sort", "standing_sort_plain",
+           "standing_pairs", "standing_pairs_plain", "standing_cells_plain",
+           "STANDING_GRID_X",
+           "STANDING_GRID_Y", "STANDING_CELLS", "STANDING_MAX_SLOT_CELLS",
+           "STANDING_SORT_TILE", "STANDING_NOWHERE", "STANDING_GRID",
+           "STANDING_EVERYWHERE"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
@@ -162,7 +176,8 @@ launches = {"scan_mask": 0, "scan_mask_gather": 0, "scan_count": 0,
             "pip_mask": 0, "residual_mask": 0, "density_grid": 0,
             "extent_tristate": 0, "dwithin_counts": 0, "slab_pairs": 0,
             "contains_counts": 0, "knn_topk": 0, "tube_mask": 0,
-            "standing_bits": 0}
+            "standing_grid": 0, "standing_count": 0, "standing_offsets": 0,
+            "standing_write": 0, "standing_sort": 0}
 
 
 def reset_launches():
@@ -443,10 +458,17 @@ def _library() -> ctypes.CDLL:
             lib.geomesa_tube_mask.argtypes = cols + [i64, p, p, p, p, i32, i32,
                                                      p, p]
             lib.geomesa_tube_constant.argtypes = [i32]
-            lib.geomesa_standing_bits.argtypes = (
-                cols + [p, p, i64, i32, i64, i64, p, p, p, p, p, p, p, i32,
-                        i32, p, p, p])
-            lib.geomesa_standing_tile_rows.argtypes = []
+            tables = [p] * 7
+            lib.geomesa_standing_constant.argtypes = [i32]
+            lib.geomesa_standing_grid_count.argtypes = (
+                tables + [i32, i32, p, p, p, p, p, p, p])
+            lib.geomesa_standing_grid_fill.argtypes = (
+                tables + [i32, i32, p, p, p, p])
+            lib.geomesa_standing_match.argtypes = (
+                [i32] + cols + [p, p, i64, i32, i64] + tables
+                + [i32, i32, p, p, p, p, i32, p, p, p, i32, p])
+            lib.geomesa_standing_offsets.argtypes = [p, i32, p, p, p, p]
+            lib.geomesa_standing_sort.argtypes = [p, p, p, p, p, i32, p]
             for fn in (lib.geomesa_scan_mask, lib.geomesa_scan_mask_gather,
                        lib.geomesa_scan_count, lib.geomesa_scan_batch_bits,
                        lib.geomesa_compact_prefix, lib.geomesa_compact_bits,
@@ -460,8 +482,13 @@ def _library() -> ctypes.CDLL:
                        lib.geomesa_slab_write, lib.geomesa_contains_counts,
                        lib.geomesa_contains_band_rows, lib.geomesa_knn_plan,
                        lib.geomesa_knn_topk, lib.geomesa_tube_mask,
-                       lib.geomesa_tube_constant, lib.geomesa_standing_bits,
-                       lib.geomesa_standing_tile_rows):
+                       lib.geomesa_tube_constant,
+                       lib.geomesa_standing_constant,
+                       lib.geomesa_standing_grid_count,
+                       lib.geomesa_standing_grid_fill,
+                       lib.geomesa_standing_match,
+                       lib.geomesa_standing_offsets,
+                       lib.geomesa_standing_sort):
                 fn.restype = ctypes.c_int
             if (lib.geomesa_batch_rows_per_block() != BATCH_ROWS_PER_BLOCK
                     or lib.geomesa_batch_max_group() != BATCH_MAX_GROUP
@@ -485,9 +512,11 @@ def _library() -> ctypes.CDLL:
                 raise RuntimeError("csrc/tube.cu and kernels.py disagree on "
                                    "the tube kernel's staging, tiles or "
                                    "buckets")
-            if lib.geomesa_standing_tile_rows() != BATCH_ROWS_PER_BLOCK:
+            if (tuple(lib.geomesa_standing_constant(i) for i in range(4))
+                    != (STANDING_GRID_X, STANDING_GRID_Y,
+                        STANDING_MAX_SLOT_CELLS, STANDING_SORT_TILE)):
                 raise RuntimeError("csrc/standing.cu and kernels.py disagree "
-                                   "on the rows of a partial")
+                                   "on the slot grid or the sort's tile")
             _lib["lib"] = lib
         return _lib["lib"]
 
@@ -816,23 +845,6 @@ def compact_bits(bits, partials):
     counts = totals.cpu().numpy()
     sums = tuple(int(c) for c in counts.sum(axis=1))
     return (*_compact_launch(bits, partials, offsets, totals, sums), counts)
-
-
-def compact_bits_device(bits, partials):
-    """(hit ids, candidate ids, totals, sums): ``compact_bits`` with the
-    per-query counts left on the device as ``totals`` int64[2, Qp] and
-    only the two kinds' sums, (hit, candidate), copied to the host (the
-    one sync, which sizes the outputs): for callers with many queries or
-    filter slots, whose counts stay on the card."""
-    _check_compact(bits, partials)
-    if _on_cpu((bits, partials)):
-        hit, cand, counts = compact_bits_plain(bits, partials)
-        return (hit, cand, torch.from_numpy(counts),
-                tuple(int(c) for c in counts.sum(axis=1)))
-    offsets, totals = compact_prefix(partials)
-    sums = tuple(int(c) for c in totals.sum(dim=1).tolist())
-    return (*_compact_launch(bits, partials, offsets, totals, sums), totals,
-            sums)
 
 
 # -- point in polygon (csrc/geom.cu) ----------------------------------------
@@ -2520,19 +2532,67 @@ def tube_mask(cols, n: int, boxes, times):
 
 # -- standing filters (csrc/standing.cu) ------------------------------------
 
+# the slot grid: 1-degree cells over the world from (-180, -90); a slot
+# whose boxes reach more cells is tested against every row instead; the
+# sort kernel's shared-memory tile (ids a segment, else bitmap words)
+STANDING_GRID_X, STANDING_GRID_Y = 360, 180
+STANDING_CELLS = STANDING_GRID_X * STANDING_GRID_Y
+STANDING_MAX_SLOT_CELLS = 1024
+STANDING_SORT_TILE = 4096
+
+# a slot's mode in the grid
+STANDING_NOWHERE, STANDING_GRID, STANDING_EVERYWHERE = 0, 1, 2
+
 _STANDING_TABLES = (("boxes", torch.float32, 3), ("box_valid", torch.bool, 2),
                     ("box_any", torch.bool, 1), ("times", torch.int32, 2),
                     ("attrs", torch.float32, 3), ("attr_any", torch.bool, 2),
                     ("alive", torch.bool, 1))
 
 
-def _check_standing(rows, tables, n_valid: int):
-    """(chunk, F, K, A) of a standing launch; raises on what the kernel
-    does not take."""
-    if len(rows) != 8 or len(tables) != 7:
-        raise ValueError("rows are (xhi, xlo, yhi, ylo, tday, tms, avhi, "
-                         "avlo), tables (boxes, box_valid, box_any, times, "
+class StandingGrid(NamedTuple):
+    """The slot grid of a set's seven tables (``standing_grid``): each
+    slot's mode (uint8 [F]: STANDING_NOWHERE, _GRID or _EVERYWHERE), each
+    cell's start in ``cell_slots`` (int32 [STANDING_CELLS + 1], cell
+    ``cy * STANDING_GRID_X + cx``), the grid slots listed once in each
+    cell their boxes reach (int32 [entries]), and the everywhere slots
+    (int32 [n]). The order within a cell and of ``every`` is the build's
+    (the plain version lists them ascending; the kernels in no set
+    order)."""
+    mode: torch.Tensor
+    cell_start: torch.Tensor
+    cell_slots: torch.Tensor
+    every: torch.Tensor
+
+
+def _check_standing_tables(tables) -> tuple[int, int, int]:
+    """(F, K, A) of a set's seven tables; raises on what the kernels do
+    not take."""
+    if len(tables) != 7:
+        raise ValueError("tables are (boxes, box_valid, box_any, times, "
                          "attrs, attr_any, alive)")
+    for t, (name, dt, dims) in zip(tables, _STANDING_TABLES):
+        if t.dtype != dt or t.dim() != dims or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dims}-d {dt}")
+    f, k, a = tables[0].shape[0], tables[0].shape[1], tables[4].shape[1]
+    if (tables[0].shape[2] != 8 or tables[1].shape != (f, k)
+            or tables[2].shape != (f,) or tables[3].shape != (f, 4)
+            or tables[4].shape != (f, a, 4) or tables[5].shape != (f, a)
+            or tables[6].shape != (f,)):
+        raise ValueError("standing tables must be boxes (F, K, 8), "
+                         "box_valid (F, K), box_any (F,), times (F, 4), "
+                         "attrs (F, A, 4), attr_any (F, A), alive (F,)")
+    if f < 1 or k < 1:
+        raise ValueError("standing tables need a slot and a box width")
+    return f, k, a
+
+
+def _check_standing(rows, tables, n_valid: int):
+    """(chunk, F, K, A) of a chunk's launch; raises on what the kernels do
+    not take."""
+    f, k, a = _check_standing_tables(tables)
+    if len(rows) != 8:
+        raise ValueError("rows are (xhi, xlo, yhi, ylo, tday, tms, avhi, "
+                         "avlo)")
     chunk = rows[0].shape[0]
     for c, dt in zip(rows[:6], _DTYPES):
         if (c.dtype != dt or c.dim() != 1 or c.shape[0] != chunk
@@ -2541,114 +2601,392 @@ def _check_standing(rows, tables, n_valid: int):
                              f"length {chunk}")
     for av in rows[6:]:
         if (av.dtype != torch.float32 or av.dim() != 2
-                or av.shape != rows[6].shape or av.shape[1] != chunk
+                or av.shape != (a, chunk)
                 or (av.numel() and (av.stride(1) != 1
                                     or av.stride() != rows[6].stride()))):
-            raise ValueError("attribute rows must be (A, chunk) float32 "
-                             "views with unit row stride, both alike")
-    for t, (name, dt, dims) in zip(tables, _STANDING_TABLES):
-        if t.dtype != dt or t.dim() != dims or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dims}-d {dt}")
-    f, k = tables[0].shape[0], tables[0].shape[1]
-    a = rows[6].shape[0]
-    if (tables[0].shape[2] != 8 or tables[1].shape != (f, k)
-            or tables[2].shape != (f,) or tables[3].shape != (f, 4)
-            or tables[4].shape != (f, a, 4) or tables[5].shape != (f, a)
-            or tables[6].shape != (f,)):
-        raise ValueError("standing tables must be boxes (F, K, 8), "
-                         "box_valid (F, K), box_any (F,), times (F, 4), "
-                         "attrs (F, A, 4), attr_any (F, A), alive (F,)")
-    if chunk < 1 or f < 1 or k < 1:
-        raise ValueError("a standing launch needs rows, slots and a box "
-                         "width")
+            raise ValueError(f"attribute rows must be ({a}, {chunk}) "
+                             f"float32 views with unit row stride, both "
+                             f"alike")
     if not 0 <= n_valid <= chunk:
         raise ValueError(f"n_valid={n_valid} outside [0, {chunk}]")
     return chunk, f, k, a
 
 
-def _standing_out(out, f: int, chunk: int, device):
-    words, nb = batch_shape(chunk)
-    if out is None:
-        return (torch.zeros((2, f, words), dtype=torch.int32, device=device),
-                torch.zeros((2, f, nb), dtype=torch.int32, device=device))
-    bits, partials = out
-    if (bits.dtype != torch.int32 or tuple(bits.shape) != (2, f, words)
-            or not bits.is_contiguous() or partials.dtype != torch.int32
-            or tuple(partials.shape) != (2, f, nb)
-            or not partials.is_contiguous()):
-        raise ValueError(f"out must be contiguous int32 (2, {f}, {words}) "
-                         f"bits and (2, {f}, {nb}) partials")
-    return bits, partials
+def _check_standing_grid(grid: StandingGrid, f: int):
+    if not isinstance(grid, StandingGrid):
+        raise ValueError("grid must be a StandingGrid (standing_grid)")
+    for name, t, dt, n in (("mode", grid.mode, torch.uint8, f),
+                           ("cell_start", grid.cell_start, torch.int32,
+                            STANDING_CELLS + 1),
+                           ("cell_slots", grid.cell_slots, torch.int32, None),
+                           ("every", grid.every, torch.int32, None)):
+        if (t.dtype != dt or t.dim() != 1 or not t.is_contiguous()
+                or (n is not None and t.shape[0] != n)):
+            raise ValueError(f"grid {name} must be a contiguous 1-d {dt}"
+                             + (f" of length {n}" if n is not None else ""))
 
 
-def standing_bits_plain(rows, tables, n_valid: int, out=None):
-    """(bits int32[2, F, words], partials int32[2, F, nb]): kind 0 holds,
-    for each filter slot f and chunk row r, whether slot f matches row r
-    (a port of geomesa_tpu.scan.standing._standing_mask); kind 1 is left
-    as ``out`` has it (zeros when it is None)."""
-    chunk, f, k, a = _check_standing(rows, tables, n_valid)
+def _check_slot_vec(name: str, t, f: int):
+    if t.dtype != torch.int32 or t.shape != (f,) or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int32 ({f},)")
+
+
+def _check_standing_aligned(tables):
+    if any(tables[i].data_ptr() % 16 for i in (0, 3, 4)):
+        raise ValueError("the standing kernels read boxes, times and attrs "
+                         "as 16-byte vectors: they must be 16-byte aligned")
+
+
+def _standing_axis(h, origin: float, size: int):
+    """The grid's cell function on f32 hi words that are not NaN (as
+    csrc/standing.cu's cell_of): floor(h + origin), clamped to the axis."""
+    return torch.floor(h + origin).clamp(0, size - 1).to(torch.int64)
+
+
+def standing_cells_plain(xhi, yhi):
+    """int64 cell of each row's hi words, -1 where either is NaN."""
+    nan = torch.isnan(xhi) | torch.isnan(yhi)
+    cx = _standing_axis(torch.where(nan, 0.0, xhi), 180.0, STANDING_GRID_X)
+    cy = _standing_axis(torch.where(nan, 0.0, yhi), 90.0, STANDING_GRID_Y)
+    return torch.where(nan, -1, cy * STANDING_GRID_X + cx)
+
+
+def _box_ranges(boxes, box_valid):
+    """(x0, x1, y0, y1, ok), each (F, K): each box's cell ranges, and
+    whether it can hold a row (valid, no NaN hi bound, not inverted past
+    a cell)."""
+    hi = boxes[..., 0::2]                     # xmin, xmax, ymin, ymax
+    nan = torch.isnan(hi).any(dim=2)
+    hi = torch.where(nan[..., None], 0.0, hi)
+    x0, x1 = (_standing_axis(hi[..., i], 180.0, STANDING_GRID_X)
+              for i in (0, 1))
+    y0, y1 = (_standing_axis(hi[..., i], 90.0, STANDING_GRID_Y)
+              for i in (2, 3))
+    ok = box_valid & ~nan & (x0 <= x1) & (y0 <= y1)
+    return x0, x1, y0, y1, ok
+
+
+def _segments(n):
+    """For counts n (int64), each element's segment and its index within
+    it."""
+    seg = torch.repeat_interleave(torch.arange(len(n), device=n.device), n)
+    first = torch.cumsum(n, 0) - n
+    return seg, torch.arange(len(seg), device=n.device) - first[seg]
+
+
+def standing_grid_plain(tables) -> StandingGrid:
+    """The slot grid (csrc/standing.cu's three grid launches), cells
+    listed by slot ascending and the everywhere slots ascending."""
+    f, k, _ = _check_standing_tables(tables)
+    boxes, box_valid, box_any, _, _, _, alive = tables
+    dev = boxes.device
+    x0, x1, y0, y1, ok = _box_ranges(boxes, box_valid)
+    ncell = torch.where(ok, (x1 - x0 + 1) * (y1 - y0 + 1), 0)
+    total = ncell.sum(dim=1)
+    every = alive & (box_any | (total > STANDING_MAX_SLOT_CELLS))
+    gridded = alive & ~every & (total > 0)
+    mode = torch.where(every, STANDING_EVERYWHERE,
+                       torch.where(gridded, STANDING_GRID, STANDING_NOWHERE))
+    fs, ks = torch.nonzero(ok & gridded[:, None], as_tuple=True)
+    seg, i = _segments(ncell[fs, ks])
+    ef, ek = fs[seg], ks[seg]
+    w = x1[ef, ek] - x0[ef, ek] + 1
+    cx, cy = x0[ef, ek] + i % w, y0[ef, ek] + i // w
+    # a cell an earlier box of the slot reaches is listed once
+    earlier = (ok[ef] & (torch.arange(k, device=dev)[None, :] < ek[:, None])
+               & (x0[ef] <= cx[:, None]) & (cx[:, None] <= x1[ef])
+               & (y0[ef] <= cy[:, None]) & (cy[:, None] <= y1[ef]))
+    keep = ~earlier.any(dim=1)
+    cell, slot = (cy * STANDING_GRID_X + cx)[keep], ef[keep]
+    order = torch.argsort(cell * f + slot)
+    start = torch.zeros(STANDING_CELLS + 1, dtype=torch.int64, device=dev)
+    start[1:] = torch.cumsum(torch.bincount(cell, minlength=STANDING_CELLS),
+                             0)
+    return StandingGrid(mode.to(torch.uint8), start.to(torch.int32),
+                        slot[order].to(torch.int32),
+                        torch.nonzero(every).flatten().to(torch.int32))
+
+
+def _standing_candidates(rows, grid: StandingGrid, n_valid: int):
+    """(row, slot) int64 pairs that the grid sends to the full test: each
+    valid row that has a cell with its cell's slots, then each everywhere
+    slot with every valid row."""
+    cell = standing_cells_plain(rows[0][:n_valid], rows[2][:n_valid])
+    r = torch.nonzero(cell >= 0).flatten()
+    start = grid.cell_start.to(torch.int64)
+    lo = start[cell[r]]
+    seg, i = _segments(start[cell[r] + 1] - lo)
+    ev = grid.every.to(torch.int64)
+    all_rows = torch.arange(n_valid, device=r.device)
+    return (torch.cat([r[seg], all_rows.repeat(len(ev))]),
+            torch.cat([grid.cell_slots.to(torch.int64)[lo[seg] + i],
+                       ev.repeat_interleave(n_valid)]))
+
+
+def _standing_holds(rows, tables, r, s):
+    """bool per (row, slot) pair: _standing_mask's test of slot s on row r
+    (alive, its interval, its attribute bounds, box_any or a valid box)."""
     xhi, xlo, yhi, ylo, tday, tms, avhi, avlo = rows
     boxes, box_valid, box_any, times, attrs, attr_any, alive = tables
-    bits, partials = _standing_out(out, f, chunk, xhi.device)
-    words, nb = batch_shape(chunk)
-    row_ok = torch.arange(chunk, device=xhi.device) < n_valid
-    b = boxes[:, None, :, :]                                  # (F, 1, K, 8)
-    xh, xl, yh, yl = (c[None, :, None] for c in (xhi, xlo, yhi, ylo))
+    t, td, tm = times[s], tday[r], tms[r]
+    ok = (alive[s]
+          & ((td > t[:, 0]) | ((td == t[:, 0]) & (tm >= t[:, 1])))
+          & ((td < t[:, 2]) | ((td == t[:, 2]) & (tm <= t[:, 3]))))
+    if avhi.shape[0]:
+        vh, vl, ab = avhi[:, r].t(), avlo[:, r].t(), attrs[s]
+        ok &= (attr_any[s] | (_ge2(vh, vl, ab[..., 0], ab[..., 1])
+                              & _le2(vh, vl, ab[..., 2], ab[..., 3]))).all(1)
+    b = boxes[s]                                              # (P, K, 8)
+    xh, xl, yh, yl = (c[r][:, None] for c in (xhi, xlo, yhi, ylo))
     inside = (_ge2(xh, xl, b[..., 0], b[..., 1])
               & _le2(xh, xl, b[..., 2], b[..., 3])
               & _ge2(yh, yl, b[..., 4], b[..., 5])
-              & _le2(yh, yl, b[..., 6], b[..., 7]))           # (F, rows, K)
-    spatial = box_any[:, None] | (inside & box_valid[:, None, :]).any(dim=2)
-    t = times[:, None, :]
-    td, tm = tday[None, :], tms[None, :]
-    after = (td > t[..., 0]) | ((td == t[..., 0]) & (tm >= t[..., 1]))
-    before = (td < t[..., 2]) | ((td == t[..., 2]) & (tm <= t[..., 3]))
-    m = spatial & after & before & alive[:, None] & row_ok[None, :]
-    if a:
-        ab = attrs[:, None, :, :]                             # (F, 1, A, 4)
-        vh, vl = avhi.t()[None], avlo.t()[None]               # (1, rows, A)
-        ok = (_ge2(vh, vl, ab[..., 0], ab[..., 1])
-              & _le2(vh, vl, ab[..., 2], ab[..., 3]))
-        m &= (attr_any[:, None, :] | ok).all(dim=2)
-    padded = torch.zeros((f, nb * BATCH_ROWS_PER_BLOCK), dtype=torch.int32,
-                         device=xhi.device)
-    padded[:, :chunk] = m
-    shifts = torch.arange(32, dtype=torch.int32, device=xhi.device)
-    bits[0] = (padded[:, :words * 32].view(f, words, 32) << shifts).sum(
-        dim=2, dtype=torch.int32)
-    partials[0] = padded.view(f, nb, -1).sum(dim=2, dtype=torch.int32)
-    return bits, partials
+              & _le2(yh, yl, b[..., 6], b[..., 7]) & box_valid[s])
+    return ok & (box_any[s] | inside.any(dim=1))
 
 
-def standing_bits(rows, tables, n_valid: int, out=None):
-    """One ingest chunk against every standing filter slot: (bits
-    int32[2, F, words], partials int32[2, F, nb]) in the layout of
-    ``scan_batch_bits`` (``batch_shape(chunk)``), for ``compact_bits``.
+def _standing_hits(rows, tables, grid, n_valid: int):
+    r, s = _standing_candidates(rows, grid, n_valid)
+    hit = _standing_holds(rows, tables, r, s)
+    return r[hit], s[hit]
 
-    ``rows`` are the chunk's (xhi, xlo, yhi, ylo, tday, tms) columns
-    (f32, f32, f32, f32, i32, i32; 1-d views of ``chunk`` rows) and its
-    attributes (avhi, avlo), (A, chunk) f32 views with unit row stride
-    (A may be 0); rows >= ``n_valid`` match nothing. ``tables`` are the
-    set's (boxes (F, K, 8) f32, box_valid (F, K) bool, box_any (F,)
-    bool, times (F, 4) i32, attrs (F, A, 4) f32, attr_any (F, A) bool,
-    alive (F,) bool). Kind 0 holds the matches; kind 1 is not written:
-    ``out``, when given, is a (bits, partials) pair whose kind 1 the
-    caller keeps zero, else both come zeroed. On CUDA one launch,
-    counted; on CPU tensors the plain version."""
-    chunk, f, k, a = _check_standing(rows, tables, n_valid)
-    if _on_cpu(rows, *tables, *(out or ())):
-        return standing_bits_plain(rows, tables, n_valid, out)
-    if any(tables[i].data_ptr() % 16 for i in (0, 3, 4)):
-        raise ValueError("the standing kernel reads boxes, times and attrs "
-                         "as 16-byte vectors: they must be 16-byte aligned")
+
+def standing_count_plain(rows, tables, grid: StandingGrid, n_valid: int,
+                         counts):
+    """``counts`` (int32 [F]) plus each slot's hits among the chunk's
+    first ``n_valid`` rows, in place."""
+    _, s = _standing_hits(rows, tables, grid, n_valid)
+    counts += torch.bincount(s, minlength=counts.shape[0]).to(torch.int32)
+    return counts
+
+
+def standing_write_plain(rows, tables, grid: StandingGrid, n_valid: int,
+                         row0: int, cursor, out):
+    """Each hit's row0 + r written into ``out`` at its slot's ``cursor``
+    (int32 [F], advanced in place), row-ascending within the chunk."""
+    r, s = _standing_hits(rows, tables, grid, n_valid)
+    order = torch.argsort(s * max(n_valid, 1) + r)
+    r, s = r[order], s[order]
+    n = torch.bincount(s, minlength=cursor.shape[0])
+    seg, i = _segments(n)
+    out[cursor.to(torch.int64)[seg] + i] = (r + row0).to(torch.int32)
+    cursor += n.to(torch.int32)
+    return out
+
+
+def standing_offsets_plain(counts):
+    """(starts int32 [F + 1], cursor int32 [F], total): each slot's
+    segment of the pairs, exclusive, and the pairs' total."""
+    inc = torch.cumsum(counts.to(torch.int64), 0)
+    total = int(inc[-1])
+    if total >= 1 << 31:
+        raise ValueError(f"{total} standing pairs: more than int32 ids")
+    starts = torch.zeros(counts.shape[0] + 1, dtype=torch.int32,
+                         device=counts.device)
+    starts[1:] = inc.to(torch.int32)
+    return starts, starts[:-1].clone(), total
+
+
+def standing_sort_plain(pairs, starts, counts, mode):
+    """Each slot's segment of ``pairs`` ascending (a new tensor)."""
+    seg = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=pairs.device),
+        counts.to(torch.int64))
+    keys = (seg << 31) + pairs.to(torch.int64)
+    return (torch.sort(keys).values & ((1 << 31) - 1)).to(torch.int32)
+
+
+def standing_grid(tables) -> StandingGrid:
+    """The slot grid of a set's seven device tables (boxes (F, K, 8) f32,
+    box_valid (F, K) bool, box_any (F,) bool, times (F, 4) i32, attrs
+    (F, A, 4) f32, attr_any (F, A) bool, alive (F,) bool): each live slot
+    listed once in each 1-degree cell its boxes reach, or as everywhere
+    (box_any, or more than STANDING_MAX_SLOT_CELLS cells); dead and never
+    slots nowhere. On CUDA three launches, counted (a count pass and the
+    cells' prefix, then the fill once the entries' total, the build's one
+    sync, sizes the lists); on CPU tensors the plain version."""
+    f, k, _ = _check_standing_tables(tables)
+    if _on_cpu(tables):
+        return standing_grid_plain(tables)
+    _check_standing_aligned(tables)
+    dev = tables[0].device
+    i32 = dict(dtype=torch.int32, device=dev)
+    mode = torch.empty(f, dtype=torch.uint8, device=dev)
+    cell_count = torch.zeros(STANDING_CELLS, **i32)
+    every = torch.empty(f, **i32)
+    cell_start = torch.empty(STANDING_CELLS + 1, **i32)
+    cursor = torch.empty(STANDING_CELLS, **i32)
+    sizes = torch.zeros(2, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _library()
+    tp = [t.data_ptr() for t in tables]
+    rc = lib.geomesa_standing_grid_count(
+        *tp, f, k, mode.data_ptr(), cell_count.data_ptr(), every.data_ptr(),
+        cell_start.data_ptr(), cursor.data_ptr(), sizes.data_ptr(), stream)
+    _raise_on(rc, "standing_grid")
+    launches["standing_grid"] += 2
+    entries, n_every = sizes.tolist()
+    cell_slots = torch.empty(entries, **i32)
+    if entries:
+        rc = lib.geomesa_standing_grid_fill(
+            *tp, f, k, mode.data_ptr(), cursor.data_ptr(),
+            cell_slots.data_ptr(), stream)
+        _raise_on(rc, "standing_grid")
+        launches["standing_grid"] += 1
+    return StandingGrid(mode, cell_start, cell_slots, every[:n_every])
+
+
+def _standing_match(write: bool, rows, tables, grid, n_valid: int,
+                    row0: int, counts, cursor, out):
+    _check_standing_aligned(tables)
+    f, k, a = tables[0].shape[0], tables[0].shape[1], tables[4].shape[1]
     dev = rows[0].device
-    bits, partials = _standing_out(out, f, chunk, dev)
-    words, nb = batch_shape(chunk)
-    rc = _library().geomesa_standing_bits(
-        *_ptrs(rows[:6]), rows[6].data_ptr(), rows[7].data_ptr(),
-        rows[6].stride(0), a, chunk, n_valid,
-        *(t.data_ptr() for t in tables), f, k, bits.data_ptr(),
-        partials.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "standing_bits")
-    launches["standing_bits"] += 1
-    return bits, partials
+    rc = _library().geomesa_standing_match(
+        int(write), *_ptrs(rows[:6]), rows[6].data_ptr(), rows[7].data_ptr(),
+        rows[6].stride(0), a, n_valid, *(t.data_ptr() for t in tables), f, k,
+        *(t.data_ptr() for t in grid), grid.every.shape[0],
+        counts.data_ptr() if counts is not None else 0,
+        cursor.data_ptr() if cursor is not None else 0,
+        out.data_ptr() if out is not None else 0, row0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    name = "standing_write" if write else "standing_count"
+    _raise_on(rc, name)
+    launches[name] += 1
+
+
+def standing_count(rows, tables, grid: StandingGrid, n_valid: int, counts):
+    """One ingest chunk against the grid's candidates: ``counts`` (int32
+    [F]) plus each slot's hits among the first ``n_valid`` rows, in
+    place. ``rows`` are the chunk's (xhi, xlo, yhi, ylo, tday, tms)
+    columns (f32, f32, f32, f32, i32, i32; 1-d views) and its attributes
+    (avhi, avlo), (A, chunk) f32 views with unit row stride (A may be 0);
+    ``tables`` and ``grid`` as ``standing_grid``'s. On CUDA one launch,
+    counted (none when n_valid is 0); on CPU tensors the plain version."""
+    _, f, _, _ = _check_standing(rows, tables, n_valid)
+    _check_standing_grid(grid, f)
+    _check_slot_vec("counts", counts, f)
+    if _on_cpu(rows, *tables, *grid, counts):
+        return standing_count_plain(rows, tables, grid, n_valid, counts)
+    if n_valid:
+        _standing_match(False, rows, tables, grid, n_valid, 0, counts, None,
+                        None)
+    return counts
+
+
+def standing_offsets(counts):
+    """(starts int32 [F + 1], cursor int32 [F], total int): the exclusive
+    prefix of the slots' counts, each slot's segment of the pairs, a
+    copy of it as the write pass's cursor, and the total on the host (the
+    dispatch's one sync). On CUDA one launch, counted; on CPU tensors the
+    plain version."""
+    if counts.dtype != torch.int32 or counts.dim() != 1 or \
+            not counts.is_contiguous() or counts.shape[0] < 1:
+        raise ValueError("counts must be a contiguous int32 (F>=1,)")
+    if _on_cpu((counts,)):
+        return standing_offsets_plain(counts)
+    dev = counts.device
+    f = counts.shape[0]
+    starts = torch.empty(f + 1, dtype=torch.int32, device=dev)
+    cursor = torch.empty(f, dtype=torch.int32, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    rc = _library().geomesa_standing_offsets(
+        counts.data_ptr(), f, starts.data_ptr(), cursor.data_ptr(),
+        total.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "standing_offsets")
+    launches["standing_offsets"] += 1
+    t = int(total.item())
+    if t >= 1 << 31:
+        raise ValueError(f"{t} standing pairs: more than int32 ids")
+    return starts, cursor, t
+
+
+def standing_write(rows, tables, grid: StandingGrid, n_valid: int, row0: int,
+                   cursor, out):
+    """One chunk's hits written into ``out`` (int32 [total]): each hit row
+    as ``row0 + r`` at its slot's ``cursor`` (from ``standing_offsets``,
+    advanced in place). An everywhere slot's rows land in row order; a
+    grid slot's in no set order (``standing_sort`` orders them). On CUDA
+    one launch, counted (none when n_valid is 0); on CPU tensors the
+    plain version (row order)."""
+    _, f, _, _ = _check_standing(rows, tables, n_valid)
+    _check_standing_grid(grid, f)
+    _check_slot_vec("cursor", cursor, f)
+    if out.dtype != torch.int32 or out.dim() != 1 or not out.is_contiguous():
+        raise ValueError("out must be a contiguous 1-d int32")
+    if not 0 <= row0 <= (1 << 31) - 1 - n_valid:
+        raise ValueError(f"row0={row0}: ids past int32")
+    if _on_cpu(rows, *tables, *grid, cursor, out):
+        return standing_write_plain(rows, tables, grid, n_valid, row0, cursor,
+                                    out)
+    if n_valid:
+        _standing_match(True, rows, tables, grid, n_valid, row0, None,
+                        cursor, out)
+    return out
+
+
+def standing_sort(pairs, starts, counts, mode):
+    """Each slot's segment of ``pairs`` (``starts``, ``counts`` from
+    ``standing_offsets``) ascending, as a new int32 tensor: the
+    filter-major, row-ascending order of ``_flat_nonzero``. On CUDA one
+    launch, counted (a block a slot: a bitonic sort in shared memory up
+    to STANDING_SORT_TILE ids, a bitmap of the ids' range beyond;
+    everywhere segments, ascending as written, copied); on CPU tensors
+    the plain version."""
+    f = counts.shape[0]
+    _check_slot_vec("counts", counts, f)
+    if (starts.dtype != torch.int32 or starts.shape != (f + 1,)
+            or mode.dtype != torch.uint8 or mode.shape != (f,)
+            or pairs.dtype != torch.int32 or pairs.dim() != 1
+            or not (pairs.is_contiguous() and starts.is_contiguous()
+                    and mode.is_contiguous())):
+        raise ValueError("sort takes int32 pairs, int32 starts (F + 1,), "
+                         "int32 counts (F,) and uint8 mode (F,)")
+    if _on_cpu((pairs, starts, counts, mode)):
+        return standing_sort_plain(pairs, starts, counts, mode)
+    out = torch.empty_like(pairs)
+    if pairs.shape[0]:
+        rc = _library().geomesa_standing_sort(
+            pairs.data_ptr(), out.data_ptr(), starts.data_ptr(),
+            counts.data_ptr(), mode.data_ptr(), f,
+            torch.cuda.current_stream(pairs.device).cuda_stream)
+        _raise_on(rc, "standing_sort")
+        launches["standing_sort"] += 1
+    return out
+
+
+def _standing_pairs(steps, chunks, tables, grid):
+    grid_fn, count, offsets, write, sort = steps
+    if grid is None:
+        grid = grid_fn(tables)
+    counts = torch.zeros(tables[0].shape[0], dtype=torch.int32,
+                         device=tables[0].device)
+    for rows, n_valid, _ in chunks:
+        count(rows, tables, grid, n_valid, counts)
+    starts, cursor, total = offsets(counts)
+    pairs = torch.empty(total, dtype=torch.int32, device=counts.device)
+    if total:
+        for rows, n_valid, row0 in chunks:
+            write(rows, tables, grid, n_valid, row0, cursor, pairs)
+        pairs = sort(pairs, starts, counts, grid.mode)
+    return pairs, counts, grid
+
+
+def standing_pairs_plain(chunks, tables, grid: StandingGrid | None = None):
+    """``standing_pairs`` through the steps' plain versions, on any
+    device: the whole function's plain version."""
+    return _standing_pairs((standing_grid_plain, standing_count_plain,
+                            standing_offsets_plain, standing_write_plain,
+                            standing_sort_plain), chunks, tables, grid)
+
+
+def standing_pairs(chunks, tables, grid: StandingGrid | None = None):
+    """(ids int32, counts int32 [F], grid): every (slot, row) pair for
+    which ``_standing_mask`` holds, over ``chunks`` ((rows, n_valid,
+    row0) each, as ``standing_count`` takes them), as row ids (row0 + r)
+    slot-major and row-ascending (``_flat_nonzero``'s order) and each
+    slot's count. ``grid`` is built when None. Through the wrappers: a
+    count pass a chunk, one prefix (the one sync), a write pass a chunk,
+    one sort."""
+    return _standing_pairs((standing_grid, standing_count, standing_offsets,
+                            standing_write, standing_sort), chunks, tables,
+                           grid)

@@ -4,11 +4,15 @@ The inverse of the batched ad-hoc scan: there the data is resident and
 queries arrive; here the FILTERS are resident (compiled to stacked
 bound tables by filters/compile.py) and data arrives as ingest batches.
 Every create batch is matched against the whole filter population by
-the standing kernel (``kernels.standing_bits``, csrc/standing.cu: one
-launch a chunk of rows, the JAX package's ``_standing_mask``), whose
-bitmaps ``kernels.compact_bits`` compacts into filter-major,
-row-ascending ids, so the host sees per-filter hit lists sized by
-actual matches, not rows*filters.
+the standing kernels (csrc/standing.cu, the JAX package's
+``_standing_mask``, ``_mask_total`` and ``_flat_nonzero``): a slot grid
+built on the card from the tables (``kernels.standing_grid``, rebuilt
+only after the tables change) sends each row to the slots whose boxes
+reach its 1-degree cell and to the everywhere slots; a count pass a
+chunk of rows, one prefix over the slots, a write pass a chunk and a
+sort of each slot's segment (``kernels.standing_pairs``) give
+filter-major, row-ascending ids, so the host sees per-filter hit lists
+sized by actual matches, not rows*filters.
 
 Incrementality is the whole point of a STANDING set:
 
@@ -60,10 +64,10 @@ __all__ = ["StandingFilterSet", "STANDING_MIN_CAP", "CQ_DEVICE_MAX_CELLS"]
 # starting filter capacity (pow2); the set doubles from here on demand
 STANDING_MIN_CAP = 64
 
-# mask-cell budget per kernel launch: dispatch chunks ingest rows so a
-# launch's bitmap never exceeds cap*chunk = this many bits (2^27 bits =
-# 16 MB). 100k filters x a 1M-row bulk write would otherwise need 16 GB
-# of bits; chunking bounds it and every chunk shares one shape
+# mask-cell budget per kernel launch, as the JAX package defines it:
+# dispatch chunks ingest rows so cap*chunk never exceeds this many cells
+# (there a launch's mask; here it bounds the rows a launch takes), and
+# every chunk shares one shape
 CQ_DEVICE_MAX_CELLS = SystemProperty("geomesa.cq.device.max.cells",
                                      str(1 << 27))
 
@@ -130,6 +134,7 @@ class StandingFilterSet:
         self._alloc_host()
         self._dev: list | None = None     # lazy device tables
         self._dirty: set[int] = set()     # slots the device tables lack
+        self._grid = None                 # the tables' slot grid, lazy
         # shape-class observability (scan/batcher.py pattern): a probed
         # key already seen means the dispatch reuses a shape
         self._plan_keys: set[tuple] = set()
@@ -154,12 +159,15 @@ class StandingFilterSet:
         """The seven device tables (boxes, box_valid, box_any, times,
         attrs, attr_any, alive), uploaded on first use; afterwards the
         dirty slots are copied into them in place, one indexed copy a
-        table, so their storage never moves within the cap."""
+        table, so their storage never moves within the cap. Either drops
+        the slot grid, which the next match rebuilds."""
         if self._dev is None:
             self._dev = [torch.from_numpy(getattr(self, t)).to(self.device)
                          for t in _TABLES]
             self._dirty.clear()
+            self._grid = None
         elif self._dirty:
+            self._grid = None
             idx = np.fromiter(sorted(self._dirty), dtype=np.int64)
             didx = torch.from_numpy(idx).to(self.device)
             for d, t in zip(self._dev, _TABLES):
@@ -371,8 +379,8 @@ class StandingFilterSet:
                 + [a[:, start:start + chunk] for a in dev_rows[6:]])
 
     def _chunk_rows(self, n: int) -> int:
-        """Rows per kernel launch: the largest pow2 keeping the launch's
-        bitmap under the cell budget, clamped to the padded batch size."""
+        """Rows per kernel launch: the largest pow2 keeping cap*chunk
+        under the cell budget, clamped to the padded batch size."""
         cells = max(CQ_DEVICE_MAX_CELLS.as_int() or (1 << 27), 1)
         q = max(cells // max(self._cap, 1), 1)
         chunk = 1 << (q.bit_length() - 1)
@@ -391,51 +399,29 @@ class StandingFilterSet:
     def _match(self, dev_rows, tables, n: int, chunk: int):
         """(rows int64 host, counts int64[cap] host): every (filter, row)
         candidate of the batch, filter-major and row-ascending, and each
-        filter's count. One standing launch and one compaction a chunk,
-        whose per-filter counts stay on the card (one sync a chunk, the
-        ids' total); the chunks' ids are merged by a stable sort on the
-        device, and ids and counts come to the host once."""
-        cap = self._cap
-        words, nb = kernels.batch_shape(chunk)
-        dev = self.device
-        # kind 1 of the compaction's (2, cap, ...) layout stays zero
-        bits = torch.zeros((2, cap, words), dtype=torch.int32, device=dev)
-        partials = torch.zeros((2, cap, nb), dtype=torch.int32, device=dev)
-        fid_parts, row_parts = [], []
-        counts = torch.zeros(cap, dtype=torch.int64, device=dev)
-        slots = torch.arange(cap, dtype=torch.int32, device=dev)
-        for start in range(0, n, chunk):
-            kernels.standing_bits(self._chunk_views(dev_rows, start, chunk),
-                                  tables, min(chunk, n - start),
-                                  out=(bits, partials))
-            ids, _, totals, (total, _) = kernels.compact_bits_device(
-                bits, partials)
-            if not total:
-                continue
-            counts += totals[0]
-            fid_parts.append(torch.repeat_interleave(slots, totals[0],
-                                                     output_size=total))
-            row_parts.append(ids.to(torch.int64) + start)
-        counts = counts.cpu().numpy()
-        if not row_parts:
-            return np.empty(0, dtype=np.int64), counts
-        rows = torch.cat(row_parts)
-        if len(row_parts) > 1:
-            # stable: within a filter the chunks' rows stay in order
-            _, order = torch.sort(torch.cat(fid_parts), stable=True)
-            rows = rows[order]
-        return rows.cpu().numpy(), counts
+        filter's count. The slot grid is built first where the tables
+        changed; then a count launch a chunk (the counts accumulate on
+        the card), the slots' prefix (one sync, the pairs' total), a
+        write launch a chunk and one sort; ids and counts come to the
+        host once."""
+        if self._grid is None:
+            self._grid = kernels.standing_grid(tables)
+        chunks = [(self._chunk_views(dev_rows, start, chunk),
+                   min(chunk, n - start), start)
+                  for start in range(0, n, chunk)]
+        rows, counts, _ = kernels.standing_pairs(chunks, tables, self._grid)
+        return (rows.cpu().numpy().astype(np.int64),
+                counts.cpu().numpy().astype(np.int64))
 
     def dispatch(self, batch) -> dict[str, np.ndarray]:
         """Match one ingest batch against every registered filter:
         {filter name: sorted hit row indices}, id-exact vs the
         ``filters.evaluate`` oracle. Rows stream through the kernel in
-        fixed-size chunks (CQ_DEVICE_MAX_CELLS bounds cap*chunk), so a
-        1M-row bulk write at 100k filters runs in bounded device
-        memory. ``last_split`` keeps the host-clock seconds of its
-        stages: row prep, uploads (rows and dirty table slots), matching
-        (kernels, compaction, the merge and its copy to the host) and the
-        host patch."""
+        fixed-size chunks (CQ_DEVICE_MAX_CELLS bounds cap*chunk).
+        ``last_split`` keeps the host-clock seconds of its stages: row
+        prep, uploads (rows and dirty table slots), matching (the grid's
+        build where the tables changed, the kernels and the copies to the
+        host) and the host patch."""
         with self._lock:
             if not self._slots:
                 return {}

@@ -4,7 +4,8 @@
     python3 kernel_ab.py [--seed 0] [--rows 100000000]
                          [--store-rows 10000000] [--predicates-only]
                          [--density-only] [--store-only] [--prefix-only]
-                         [--joins-only] [--tube-only] TREE [TREE ...]
+                         [--joins-only] [--tube-only] [--standing-only]
+                         TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repo (a ``git archive`` of a
 commit unpacked into a git-ignored directory will do). The trees run
@@ -147,6 +148,16 @@ compares two versions within one call. Each process:
   only (tens of seconds); every tree's masks must equal the first
   tree's (sha256). With chip_smoke.py's bound and sector floor of each
   tube (``tube_needs``).
+- ``--standing-only`` times nothing of the above: bench.py config 15's
+  bulk dispatch (``standing_1m_100k``): 100,000 geofences of this
+  checkout's chip_smoke.py mix (``geofence_ecql`` from --seed + 15)
+  registered in the tree's ``StandingFilterSet`` on the card, then one
+  1M-row batch (``geofence_batch`` from --seed + 16) dispatched twice
+  (the first after the registrations, the second with nothing changed
+  between), each dispatch's ``last_split`` (its ``match_s``: the
+  standing work and the copies to the host) and wall time; every
+  tree's hits (each filter's ids, in filter order) must equal the first
+  tree's (sha256).
 
 Medians of 20 launches (CUDA events; 10 for the batched kernels). Every
 gathered and batched result is checked against its plain version.
@@ -163,6 +174,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -1520,6 +1532,44 @@ def tube_case(kernels, zscan, seed: int, rows: int, probe,
     return out
 
 
+def standing_case(smoke, seed: int) -> dict:
+    """config 15's bulk dispatch at 100k filters through the tree's
+    StandingFilterSet.dispatch, twice; the hits' sha256."""
+    import hashlib
+    import torch
+    from geomesa_tpu_torch.features.sft import parse_spec
+    from geomesa_tpu_torch.filters import parse_ecql
+    from geomesa_tpu_torch.scan.standing import StandingFilterSet
+    rng = np.random.default_rng(seed + 15)
+    nf = smoke.GEOFENCE_FILTERS_BIG
+    sft = parse_spec("g15", smoke.GEOFENCE_SPEC)
+    fset = StandingFilterSet(sft)
+    t0 = time.perf_counter()
+    for i in range(nf):
+        fset.register(f"q{i}", parse_ecql(smoke.geofence_ecql(rng, i)))
+    register_s = time.perf_counter() - t0
+    batch = smoke.geofence_batch(np.random.default_rng(seed + 16), sft,
+                                 smoke.GEOFENCE_BULK, "bulk")
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hits = fset.dispatch(batch)
+        torch.cuda.synchronize()
+        runs.append({"dispatch_s": time.perf_counter() - t0,
+                     **fset.last_split})
+    h = hashlib.sha256()
+    for i in range(nf):
+        h.update(np.ascontiguousarray(hits[f"q{i}"], dtype=np.int64)
+                 .tobytes())
+        h.update(b"|")
+    return {"filters": nf, "rows": batch.n, "register_s": register_s,
+            "padded_cap": fset.stats()["padded_cap"],
+            "hits": int(sum(len(v) for v in hits.values())),
+            "match_s": [r["match_s"] for r in runs], "runs": runs,
+            "mask_sha256": h.hexdigest()}
+
+
 def torch_equal(a, b) -> bool:
     import torch
     return torch.equal(a, b)
@@ -1529,7 +1579,7 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
            predicates_only: bool = False, density_only: bool = False,
            store_only: bool = False, prefix_only: bool = False,
            joins_only: bool = False, tube_only: bool = False,
-           plain_check: bool = False) -> dict:
+           plain_check: bool = False, standing_only: bool = False) -> dict:
     sys.path.insert(0, tree)
     import torch
     from geomesa_tpu_torch.index.zkeys import ZKeyIndex, search_rows
@@ -1538,6 +1588,9 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
         raise SystemExit(f"imported {kernels.__file__}, not from {tree}")
     dev = torch.device("cuda")
     kernels.build_library()
+    if standing_only:
+        return {"tree": tree, "standing_1m_100k": standing_case(_smoke(),
+                                                                seed)}
     if predicates_only:
         return {"tree": tree, "predicates_10m": predicate_case(
             _smoke(), seed, store_rows)}
@@ -1671,6 +1724,9 @@ def main():
                     help="time only the tube kernel and its probes "
                          "(tube_sparse_100m, tube_dense_100m, "
                          "tube_year_100m)")
+    ap.add_argument("--standing-only", action="store_true",
+                    help="time only config 15's bulk dispatch through "
+                         "StandingFilterSet.dispatch (standing_1m_100k)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--plain-check", action="store_true",
                     help=argparse.SUPPRESS)
@@ -1680,7 +1736,8 @@ def main():
                                 args.store_rows, args.predicates_only,
                                 args.density_only, args.store_only,
                                 args.prefix_only, args.joins_only,
-                                args.tube_only, args.plain_check)),
+                                args.tube_only, args.plain_check,
+                                args.standing_only)),
               flush=True)
         return 0
     if not args.trees:
@@ -1700,6 +1757,7 @@ def main():
              *(["--prefix-only"] if args.prefix_only else []),
              *(["--joins-only"] if args.joins_only else []),
              *(["--tube-only"] if args.tube_only else []),
+             *(["--standing-only"] if args.standing_only else []),
              *(["--plain-check"] if args.tube_only and i == 0 else [])],
             capture_output=True, text=True, cwd=ROOT)
         if proc.returncode != 0:

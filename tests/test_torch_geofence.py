@@ -8,10 +8,15 @@ the CPU, at small sizes.
   battery;
 - the standing tables (boxes ... alive) equal across packages, slot for
   slot, through growth and churn;
-- ``kernels.standing_bits_plain``, unpacked, equal to the JAX
+- the standing kernels' plain version (``kernels.standing_pairs``: the
+  slot grid, the candidate test, filter-major pairs), and the CPU
+  wrappers over several chunks, equal to np.nonzero of the JAX
   ``_standing_mask`` on the same rows and tables (NaN coordinates, null
   dates and numbers, K = 1, 4 and 64, A = 0 and 2, dead slots, box_any,
-  catch-all and pre-1970 times, row padding, random tables);
+  catch-all and pre-1970 times, row padding, random tables; the grid's
+  edges: whole degrees, NaN, past the world, world-sized boxes,
+  overlapping boxes of a slot, box_any slots, dead and never slots,
+  churn that reuses tombstoned slots);
 - the dispatch: every case of the JAX TestStandingFilterSet and
   TestPublisherDevicePath on the port, the deltas equal to the JAX
   publisher's with ``geomesa.cq.device`` true and false (the port has no
@@ -348,7 +353,7 @@ def test_standing_tables_equal_through_growth_and_churn():
     assert jset.stats() == tset.stats()
 
 
-# -- the kernel's plain version against _standing_mask -----------------------
+# -- the kernels' plain version against _standing_mask ----------------------
 
 def _jax_mask(jset, batch, n_valid, chunk):
     rows = jset._rows_host(batch)
@@ -360,20 +365,52 @@ def _jax_mask(jset, batch, n_valid, chunk):
     return np.asarray(m), rows
 
 
-def _port_mask(rows, tables, n_valid, chunk):
+def _mask_pairs(mask):
+    """_flat_nonzero's answer: the row of each set cell, filter-major and
+    row-ascending, and each filter's count."""
+    return np.nonzero(mask)[1].astype(np.int32), mask.sum(axis=1)
+
+
+def _torch_rows(rows, chunk, n_valid):
+    """Host rows (attributes (n, A)) padded to the chunk as the kernels
+    take them: six columns and (A, chunk) attributes."""
     pad = [np.zeros((chunk,) + a.shape[1:], a.dtype) for a in rows]
     for p, a in zip(pad, rows):
         p[:n_valid] = a[:n_valid]
-    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in pad[:6]]
-    t += [torch.from_numpy(np.ascontiguousarray(a.T)) for a in pad[6:]]
+    return ([torch.from_numpy(np.ascontiguousarray(a)) for a in pad[:6]]
+            + [torch.from_numpy(np.ascontiguousarray(a.T)) for a in pad[6:]])
+
+
+def _port_pairs(rows, tables, n_valid, chunk, pieces=1):
+    """(ids, counts, grid) of the whole plain version on one chunk, after
+    checking that the CPU wrappers give the same pairs over the chunk cut
+    into ``pieces`` launches."""
+    t = _torch_rows(rows, chunk, n_valid)
     tt = [torch.from_numpy(np.ascontiguousarray(a)) for a in tables]
-    bits, partials = kernels.standing_bits_plain(t, tt, n_valid)
-    assert not bits[1].any() and not partials[1].any()
-    f = tables[0].shape[0]
-    m = kernels.unpack_bits(bits[0].flatten()).view(f, -1)[:, :chunk]
+    ids, counts, grid = kernels.standing_pairs_plain([(t, n_valid, 0)], tt)
+    step = -(-chunk // pieces)
+    chunks = [([c[s:s + step] for c in t[:6]]
+               + [c[:, s:s + step] for c in t[6:]],
+               max(min(step, n_valid - s), 0), s)
+              for s in range(0, chunk, step)]
+    got = kernels.standing_pairs(chunks, tt)
+    assert torch.equal(got[0], ids) and torch.equal(got[1], counts)
+    _assert_grid_lists_once(grid)
+    return ids.numpy(), counts.numpy(), grid
+
+
+def _assert_grid_lists_once(grid):
+    """No slot twice in a cell; cell lists only of grid slots; the
+    everywhere list exactly the everywhere slots."""
+    start = grid.cell_start.numpy().astype(np.int64)
+    slots = grid.cell_slots.numpy()
+    cell = np.repeat(np.arange(kernels.STANDING_CELLS), np.diff(start))
+    key = cell * len(grid.mode) + slots
+    assert len(np.unique(key)) == len(key)
+    mode = grid.mode.numpy()
+    assert (mode[slots] == kernels.STANDING_GRID).all()
     np.testing.assert_array_equal(
-        partials[0].sum(dim=1).numpy(), m.sum(dim=1).numpy())
-    return m.numpy()
+        grid.every.numpy(), np.flatnonzero(mode == kernels.STANDING_EVERYWHERE))
 
 
 def _k_filters(k):
@@ -387,11 +424,12 @@ def _k_filters(k):
     ("name:String,dtg:Date,*geom:Point:srid=4326", 1),
     ("name:String,dtg:Date,*geom:Point:srid=4326", 4)])
 @pytest.mark.parametrize("n,chunk", [(700, 1024), (64, 64), (37, 2048)])
-def test_plain_bits_equal_standing_mask(spec, k, n, chunk):
+def test_plain_pairs_equal_standing_mask(spec, k, n, chunk):
     """Filters of ALL_ECQL (less what the schema lacks), dead slots, a
     box_any slot, catch-all and pre-1970 intervals, rows before and
     after 1970 with NaN coordinates and null dates and numbers, padded
-    to the chunk: the plain version's bits equal _standing_mask's."""
+    to the chunk: the plain version's pairs (grid, candidate test,
+    filter-major ids) equal np.nonzero of _standing_mask."""
     jset, tset = _sets(spec)
     has_attrs = "age" in spec
     ecqls = [e for e in ALL_ECQL
@@ -409,27 +447,23 @@ def test_plain_bits_equal_standing_mask(spec, k, n, chunk):
     _assert_tables_equal(jset, tset)
     assert jset._k == k or k == 1
     jb = messy_batch("jax", n, spec=spec, t0=-60 * MS_DAY)
-    want, rows = _jax_mask(jset, jb, n, chunk)
+    want, _ = _jax_mask(jset, jb, n, chunk)
     tables = [getattr(tset, t) for t in _TABLES]
-    got = _port_mask(tset._rows_host(messy_batch("torch", n, spec=spec,
-                                                 t0=-60 * MS_DAY)),
-                     tables, n, chunk)
-    assert want.shape == got.shape
-    np.testing.assert_array_equal(got, want)
+    rows = tset._rows_host(messy_batch("torch", n, spec=spec,
+                                       t0=-60 * MS_DAY))
+    ids, counts, grid = _port_pairs(rows, tables, n, chunk, pieces=3)
+    want_ids, want_counts = _mask_pairs(want)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(counts, want_counts)
     assert want.any() and not want[:, n:].any()
+    mode = grid.mode.numpy()
+    assert (mode[[1, 5]] == kernels.STANDING_NOWHERE).all()   # dead
 
 
-@pytest.mark.parametrize("seed", range(4))
-@pytest.mark.parametrize("f,k,a,chunk,n_valid", [
-    (64, 1, 0, 32, 32), (128, 3, 2, 100, 77), (16, 64, 1, 2100, 2099)])
-def test_plain_bits_equal_standing_mask_random_tables(seed, f, k, a, chunk,
-                                                      n_valid):
-    """Random tables and rows (NaN coordinates and attributes, rows on
-    a box bound's hi word, inverted and catch-all intervals, days both
-    sides of 1970, dead and box_any slots) through the JAX program and
-    the plain version, bit for bit."""
-    import jax.numpy as jnp
-    rng = np.random.default_rng(seed)
+def _random_case(rng, f, k, a, chunk):
+    """Random tables and rows (NaN coordinates and attributes, rows on a
+    box bound's hi word, inverted and catch-all intervals, days both
+    sides of 1970, dead and box_any slots, boxes 2-120 degrees wide)."""
     f32 = np.float32
     xhi = rng.uniform(-180, 180, chunk).astype(f32)
     yhi = rng.uniform(-90, 90, chunk).astype(f32)
@@ -460,35 +494,288 @@ def test_plain_bits_equal_standing_mask_random_tables(seed, f, k, a, chunk,
                       np.zeros((f, a))], 2).astype(f32)
     attr_any = rng.random((f, a)) < 0.4
     alive = rng.random(f) < 0.85
-    rows = (xhi, xlo, yhi, ylo, tday, tms, avhi, avlo)
-    tables = (boxes, box_valid, box_any, times, attrs, attr_any, alive)
-    want = np.asarray(jax_standing._standing_mask(
+    return ([xhi, xlo, yhi, ylo, tday, tms, avhi, avlo],
+            [boxes, box_valid, box_any, times, attrs, attr_any, alive])
+
+
+def _jax_pairs(rows, tables, n_valid):
+    import jax.numpy as jnp
+    mask = np.asarray(jax_standing._standing_mask(
         *(jnp.asarray(r) for r in rows), *(jnp.asarray(t) for t in tables),
         jnp.int32(n_valid)))
-    got = _port_mask(rows, tables, n_valid, chunk)
-    np.testing.assert_array_equal(got, want)
+    return _mask_pairs(mask)
 
 
-def test_plain_bits_keep_kind_one_and_fill_out():
-    """``out``'s kind 1 is left as the caller keeps it, and kind 0 is
-    rewritten whole on a second chunk."""
-    jset, tset = _sets()
-    for i, e in enumerate(EXACT_ECQL):
+def _assert_pairs_equal_jax(rows, tables, n_valid, pieces=1):
+    chunk = len(rows[0])
+    ids, counts, grid = _port_pairs(rows, tables, n_valid, chunk, pieces)
+    want_ids, want_counts = _jax_pairs(rows, tables, n_valid)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(counts, want_counts)
+    return ids, counts, grid
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("f,k,a,chunk,n_valid", [
+    (64, 1, 0, 32, 32), (128, 3, 2, 100, 77), (16, 64, 1, 2100, 2099)])
+def test_plain_pairs_equal_standing_mask_random_tables(seed, f, k, a, chunk,
+                                                       n_valid):
+    """Random tables and rows through the JAX program and the plain
+    version, pair for pair, in one piece and in several."""
+    rows, tables = _random_case(np.random.default_rng(seed), f, k, a, chunk)
+    _assert_pairs_equal_jax(rows, tables, n_valid, pieces=1 + seed)
+
+
+def _edge_case(name):
+    """Tables and rows for one adversarial case of the slot grid."""
+    rng = np.random.default_rng(11)
+    f32 = np.float32
+    rows, tables = _random_case(rng, 40, 4, 1, 300)
+    xhi, xlo, yhi, ylo, tday, tms, avhi, avlo = rows
+    boxes, box_valid, box_any, times, attrs, attr_any, alive = tables
+    box_any[:] = False
+    alive[:] = True
+    # boxes 1-10 degrees wide, so each slot is a grid slot
+    cx, cy = rng.uniform(-170, 170, (40, 4)), rng.uniform(-80, 80, (40, 4))
+    w = rng.uniform(0.5, 5, (40, 4))
+    boxes[..., 0], boxes[..., 2] = cx - w, cx + w
+    boxes[..., 4], boxes[..., 6] = cy - w, cy + w
+    box_valid[:, 0] = True
+    xhi[:150] = np.repeat(cx[:, 0], 4)[:150] + rng.uniform(-5, 5, 150)
+    yhi[:150] = np.repeat(cy[:, 0], 4)[:150] + rng.uniform(-5, 5, 150)
+    tiny = f32(1e-6)
+    if name == "cell_edges":
+        # boxes' hi bounds on whole degrees and on the last f32 below
+        # one; rows on those words (the lo words deciding on both sides)
+        # and on the words next to them, and on the world's edges
+        up, down = f32(np.inf), f32(-np.inf)
+
+        def bounds(lo_edge, hi_edge):
+            e = rng.integers(lo_edge, hi_edge, (40, 4)).astype(f32)
+            w = rng.integers(0, 12, (40, 4)).astype(f32)
+            on = rng.random((2, 40, 4)) < 0.5
+            return (np.where(on[0], e, np.nextafter(e, up)),
+                    np.where(on[1], e + w, np.nextafter(e + w + 1, down)))
+        boxes[..., 0], boxes[..., 2] = bounds(-178, 160)
+        boxes[..., 4], boxes[..., 6] = bounds(-88, 70)
+        boxes[..., 1::2] = rng.choice([-tiny, 0, tiny], (40, 4, 4))
+        box_valid[:] = True
+        pick = rng.integers(0, 160, 240)
+        bx = boxes.reshape(160, 8)[pick]
+        side = rng.integers(0, 2, (2, 240))
+        xhi[:240] = bx[np.arange(240), 2 * side[0]]
+        yhi[:240] = bx[np.arange(240), 4 + 2 * side[1]]
+        step = rng.choice([up, down], (2, 120))
+        xhi[120:240] = np.nextafter(xhi[120:240], step[0])
+        yhi[120:240] = np.nextafter(yhi[120:240], step[1])
+        xlo[:] = rng.choice([-tiny, 0, tiny], 300)
+        ylo[:] = rng.choice([-tiny, 0, tiny], 300)
+        xhi[240:248] = [-180, 180, -180, 180, -0.0, 0.0, 179, -179]
+        yhi[240:248] = [-90, 90, 90, -90, 0.0, -0.0, 89, -89]
+        xhi[248:] = rng.integers(-180, 181, 52)
+        yhi[248:] = rng.integers(-90, 91, 52)
+        # XLA's CPU backend flushes subnormals (the f32 next to 0.0)
+        for c in (xhi, yhi, boxes):
+            c[np.abs(c) < f32(1e-30)] = 0
+        times[:] = (-(2 ** 30), 0, 2 ** 30, MS_DAY)
+        attr_any[:] = True
+    elif name == "nan":
+        for c in (xhi, yhi, xlo, ylo):
+            c[rng.random(300) < 0.2] = np.nan
+        avhi[rng.random(avhi.shape) < 0.2] = np.nan
+        avlo[rng.random(avlo.shape) < 0.2] = np.nan
+        boxes[rng.random((40, 4, 8)) < 0.05] = np.nan   # hi and lo bounds
+        box_any[::7] = True
+    elif name == "outside_world":
+        xhi[:100] = rng.choice([-1e30, -200, -180.5, 180.5, 200, 1e30,
+                                np.inf, -np.inf], 100)
+        yhi[100:200] = rng.choice([-1e30, -95, -90.5, 90.5, 95, 1e30,
+                                   np.inf, -np.inf], 100)
+        boxes[:10, 0, 0] = -1e31          # boxes past the world's edges
+        boxes[10:20, 0, 2] = np.inf
+        boxes[20:30, 0, 4] = -200
+        boxes[30:40, 0, 6] = 1e30
+        box_valid[:, 0] = True
+        times[:] = (-(2 ** 30), 0, 2 ** 30, MS_DAY)
+    elif name == "world_box":
+        boxes[:5, 0] = (-180, 0, 180, 0, -90, 0, 90, 0)
+        boxes[5:10, 0] = (-1e38, 0, 1e38, 0, -1e38, 0, 1e38, 0)
+        box_valid[:10, 0] = True
+        times[:10] = (-(2 ** 30), 0, 2 ** 30, MS_DAY)
+        attr_any[:10] = True
+    elif name == "overlapping_boxes":
+        # K = 4 boxes of each slot over one cell (and around it): a pair
+        # is listed, tested and written once
+        cx = rng.integers(-170, 170, 40)
+        cy = rng.integers(-80, 80, 40)
+        for j in range(4):
+            boxes[:, j, 0] = cx + 0.2 - (j % 2)
+            boxes[:, j, 2] = cx + 0.7 + (j // 2)
+            boxes[:, j, 4] = cy + 0.1
+            boxes[:, j, 6] = cy + 0.9 + (j % 3)
+        boxes[..., 1::2] = 0
+        box_valid[:] = True
+        xhi[:200] = np.repeat(cx, 5) + rng.uniform(0, 1, 200)
+        yhi[:200] = np.repeat(cy, 5) + rng.uniform(0, 1, 200)
+        times[:] = (-(2 ** 30), 0, 2 ** 30, MS_DAY)
+        attr_any[:] = True
+    elif name == "box_any_time_or_attr":
+        box_any[:] = True
+        box_valid[:] = False
+        times[::2] = (-(2 ** 30), 0, 2 ** 30, MS_DAY)   # attribute only
+        attr_any[1::2] = True                            # time only
+    elif name == "dead_and_never":
+        alive[::3] = False
+        box_valid[1::3] = False                          # never: no box
+        box_any[::6] = True                              # dead box_any
+        times[:] = (-(2 ** 30), 0, 2 ** 30, MS_DAY)
+        attr_any[:] = True
+    return rows, tables
+
+
+EDGE_CASES = ("cell_edges", "nan", "outside_world", "world_box",
+              "overlapping_boxes", "box_any_time_or_attr", "dead_and_never")
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_plain_pairs_grid_edges(name):
+    """The grid's edges against the JAX mask, pair for pair: rows and
+    bounds on whole degrees, NaN coordinates, attributes and bounds,
+    coordinates past +/-180 and +/-90, world-sized boxes (everywhere), K
+    = 4 boxes of a slot over one cell, box_any slots with only a time or
+    an attribute bound, dead and never slots (nowhere)."""
+    rows, tables = _edge_case(name)
+    ids, counts, grid = _assert_pairs_equal_jax(rows, tables, 297, pieces=2)
+    mode = grid.mode.numpy()
+    boxes, box_valid, box_any, _, _, _, alive = tables
+    assert counts.sum() > 0 or name == "dead_and_never"
+    if name == "world_box":
+        assert (mode[:10] == kernels.STANDING_EVERYWHERE).all()
+        assert (mode[10:] == kernels.STANDING_GRID).all()
+        held = (~np.isnan(rows[0][:297]) & ~np.isnan(rows[2][:297])).sum()
+        assert (counts[5:10] == held).all()
+    elif name == "overlapping_boxes":
+        assert (mode == kernels.STANDING_GRID).all()
+        start = grid.cell_start.numpy()
+        assert np.diff(start).max() >= 1 and len(grid.every) == 0
+    elif name == "box_any_time_or_attr":
+        assert (mode == kernels.STANDING_EVERYWHERE).all()
+        assert len(grid.cell_slots) == 0
+    elif name == "dead_and_never":
+        assert (mode[::3] == kernels.STANDING_NOWHERE).all()
+        assert (mode[1::3] == kernels.STANDING_NOWHERE).all()
+        assert (mode[2::3] == kernels.STANDING_GRID).all()
+    elif name == "nan":
+        # a row with a NaN hi coordinate has no cell; only everywhere
+        # slots hold it
+        nan_rows = np.flatnonzero(np.isnan(rows[0][:297])
+                                  | np.isnan(rows[2][:297]))
+        hit = np.isin(ids, nan_rows)
+        slot = np.repeat(np.arange(len(counts)), counts)
+        assert hit.any()
+        assert (mode[slot[hit]] == kernels.STANDING_EVERYWHERE).all()
+
+
+def test_plain_cells_are_monotone_and_clamped():
+    """The cell function on hi words: whole degrees start a cell, -0.0
+    and 0.0 share one, values past the world and infinities clamp into
+    the edge cells, NaN has none; and it never decreases."""
+    x = torch.tensor([-np.inf, -1e30, -181, -180, -179.5, -0.0, 0.0, 0.5,
+                      179, 179.99, 180, 1e30, np.inf, np.nan, 5],
+                     dtype=torch.float32)
+    y = torch.tensor([-np.inf, -1e30, -91, -90, -89.5, -0.0, 0.0, 0.5,
+                      89, 89.99, 90, 1e30, np.inf, 5, np.nan],
+                     dtype=torch.float32)
+    c = kernels.standing_cells_plain(x, y).tolist()
+    gx = kernels.STANDING_GRID_X
+    assert c[:13] == [0, 0, 0, 0, 0, 90 * gx + 180, 90 * gx + 180,
+                      90 * gx + 180, 179 * gx + 359, 179 * gx + 359,
+                      179 * gx + 359, 179 * gx + 359, 179 * gx + 359]
+    assert c[13:] == [-1, -1]
+    v = torch.from_numpy(np.sort(np.random.default_rng(2).uniform(
+        -400, 400, 10_000)).astype(np.float32))
+    cx = kernels.standing_cells_plain(v, torch.zeros_like(v)) % gx
+    assert bool((cx[1:] >= cx[:-1]).all())
+
+
+def test_plain_pairs_in_chunks_accumulate_in_place():
+    """The CPU wrappers over three chunks of a dispatch's upload: counts
+    accumulate into the caller's tensor, the write pass advances the
+    caller's cursor to each segment's end, and the pairs equal one
+    chunk's; wrong shapes raise."""
+    _, tset = _sets()
+    for i, e in enumerate(EXACT_ECQL + RESIDUAL_ECQL):
         tset.register(f"q{i}", parse_ecql(e))
     tables = [torch.from_numpy(getattr(tset, t)) for t in _TABLES]
-    r1 = tset._rows_device(tset._rows_host(messy_batch("torch", 300)), 512)
-    r2 = tset._rows_device(tset._rows_host(messy_batch("torch", 300,
-                                                       seed=9)), 512)
-    a = kernels.standing_bits(tset._chunk_views(r1, 0, 512), tables, 300)
-    b = kernels.standing_bits(tset._chunk_views(r2, 0, 512), tables, 300)
-    out = (a[0].clone(), a[1].clone())
-    got = kernels.standing_bits(tset._chunk_views(r2, 0, 512), tables, 300,
-                                out=out)
-    assert got[0] is out[0]
-    assert torch.equal(out[0], b[0]) and torch.equal(out[1], b[1])
-    with pytest.raises(ValueError, match="out must be"):
-        kernels.standing_bits(tset._chunk_views(r2, 0, 512), tables, 300,
-                              out=(out[0][:, :1], out[1]))
+    dev = tset._rows_device(tset._rows_host(messy_batch("torch", 700)), 768)
+    grid = kernels.standing_grid(tables)
+    counts = torch.zeros(tset._cap, dtype=torch.int32)
+    for s in (0, 256, 512):
+        got = kernels.standing_count(tset._chunk_views(dev, s, 256), tables,
+                                     grid, min(256, 700 - s), counts)
+        assert got is counts
+    whole = kernels.standing_pairs([(tset._chunk_views(dev, 0, 768), 700,
+                                     0)], tables, grid)
+    assert torch.equal(whole[1], counts)
+    starts, cursor, total = kernels.standing_offsets(counts)
+    out = torch.full((total,), -1, dtype=torch.int32)
+    for s in (0, 256, 512):
+        kernels.standing_write(tset._chunk_views(dev, s, 256), tables, grid,
+                               min(256, 700 - s), s, cursor, out)
+    assert torch.equal(cursor, starts[1:])
+    got = kernels.standing_sort(out, starts, counts, grid.mode)
+    assert torch.equal(got, whole[0]) and int(out.min()) >= 0
+    with pytest.raises(ValueError, match="counts must be"):
+        kernels.standing_count(tset._chunk_views(dev, 0, 256), tables, grid,
+                               256, counts[:-1])
+    with pytest.raises(ValueError, match="n_valid"):
+        kernels.standing_count(tset._chunk_views(dev, 0, 256), tables, grid,
+                               257, counts)
+    with pytest.raises(ValueError, match="grid"):
+        kernels.standing_count(tset._chunk_views(dev, 0, 256), tables,
+                               grid._replace(mode=grid.mode[:-1]), 256,
+                               counts)
+
+
+def test_grid_rebuilds_after_churn_and_reuses_without(monkeypatch):
+    """Churn that reuses tombstoned slots: the grid is rebuilt after the
+    tables change and reused by a dispatch that follows no change; the
+    set's pairs equal the JAX mask's each time."""
+    jset, tset = _sets()
+    for i, e in enumerate(ALL_ECQL):
+        jset.register(f"q{i}", jax_parse_ecql(e))
+        tset.register(f"q{i}", parse_ecql(e))
+    calls = []
+    real = kernels.standing_grid
+    monkeypatch.setattr(kernels, "standing_grid",
+                        lambda t: (calls.append(1), real(t))[1])
+
+    def check(seed):
+        jb = messy_batch("jax", 500, seed=seed)
+        want, _ = _jax_mask(jset, jb, 500, 512)
+        tb = messy_batch("torch", 500, seed=seed)
+        rows = tset._rows_host(tb)
+        dev = tset._rows_device(rows, 512)
+        ids, counts = tset._match(dev, tset.device_tables(), 500, 512)
+        want_ids, want_counts = _mask_pairs(want)
+        np.testing.assert_array_equal(ids, want_ids)
+        np.testing.assert_array_equal(counts, want_counts)
+
+    check(1)
+    check(2)
+    assert len(calls) == 1
+    for i in (0, 3, 8, 12):
+        jset.unregister(f"q{i}")
+        tset.unregister(f"q{i}")
+    for i, e in enumerate(battery(seed=9, n=6)):
+        jset.register(f"r{i}", jax_parse_ecql(e))
+        tset.register(f"r{i}", parse_ecql(e))
+    assert tset._high == len(ALL_ECQL) + 2    # four tombstones reused
+    _assert_tables_equal(jset, tset)
+    check(3)
+    assert len(calls) == 2
+    check(4)
+    assert len(calls) == 2
 
 
 # -- the dispatch: the JAX TestStandingFilterSet on the port ------------------
@@ -527,10 +814,12 @@ def test_multi_chunk_dispatch_matches_single_chunk(cells, monkeypatch):
     _register_all(fset)
     batch = messy_batch("torch", 1500)
     single = fset.dispatch(batch)
-    calls = []
-    real = kernels.standing_bits
-    monkeypatch.setattr(kernels, "standing_bits",
-                        lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+    calls = {"standing_count": [], "standing_write": []}
+    for name, got in calls.items():
+        real = getattr(kernels, name)
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, r=real, g=got, **k: (g.append(1),
+                                                            r(*a, **k))[1])
     old = CQ_DEVICE_MAX_CELLS.get()
     try:
         # cap is 64 -> 64-row chunks -> 24 launches for 1500 rows
@@ -540,7 +829,8 @@ def test_multi_chunk_dispatch_matches_single_chunk(cells, monkeypatch):
     finally:
         CQ_DEVICE_MAX_CELLS.set(old)
     assert chunk == (64 if cells < 1 << 27 else 2048)
-    assert len(calls) == -(-1500 // chunk)
+    # one count and one write launch a chunk
+    assert [len(c) for c in calls.values()] == [-(-1500 // chunk)] * 2
     for i, e in enumerate(ALL_ECQL):
         np.testing.assert_array_equal(out[f"q{i}"], single[f"q{i}"],
                                       err_msg=e)
@@ -732,14 +1022,14 @@ def test_unreadable_schema_stays_host_only():
     # it, and the type stays on the host loop for good
     cq = pub.register("early", "pts", "age < 10")
     store.create_schema(parse_spec("pts", SPEC))
-    kernels_before = kernels.launches["standing_bits"]
+    kernels_before = dict(kernels.launches)
     store.write("pts", messy_batch("torch", 100))
     assert cq.matched == len(oracle("torch", "age < 10",
                                     messy_batch("torch", 100)))
     assert pub.device_stats() == []
     pub.register("late", "pts", "age < 5")
     assert pub.device_stats() == []
-    assert kernels.launches["standing_bits"] == kernels_before
+    assert kernels.launches == kernels_before
 
 
 def test_dispatch_errors_reach_the_writer(monkeypatch):
@@ -753,7 +1043,7 @@ def test_dispatch_errors_reach_the_writer(monkeypatch):
 
     def boom(*a, **k):
         raise RuntimeError("standing launch failed")
-    monkeypatch.setattr(kernels, "standing_bits", boom)
+    monkeypatch.setattr(kernels, "standing_count", boom)
     with pytest.raises(RuntimeError, match="standing launch failed"):
         store.write("pts", messy_batch("torch", 50))
     assert reg.snapshot()["counters"]["cq.device.errors"] == 1

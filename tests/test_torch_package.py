@@ -204,7 +204,9 @@ def test_streaming_stores_default_to_cuda(monkeypatch, tmp_path):
     pub = ContinuousQueryPublisher(live)
     pub.register("q", "t", "BBOX(geom, 0, 0, 1, 1)")
     assert pub._sets["t"].device.type == "cpu"
-    assert kernels.launches.get("standing_bits") is not None
+    assert all(kernels.launches.get(k) is not None for k in (
+        "standing_grid", "standing_count", "standing_offsets",
+        "standing_write", "standing_sort"))
 
 
 # -- on the card -------------------------------------------------------------
@@ -321,7 +323,9 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
                  "contains_counts_tiles_plain", "slab_pairs_tiles_plain",
                  "_slab_hits", "knn_topk_blocks_plain", "_knn_keys",
                  "tube_mask_plain", "tube_mask_index_plain",
-                 "standing_bits_plain"):
+                 "standing_grid_plain", "standing_count_plain",
+                 "standing_offsets_plain", "standing_write_plain",
+                 "standing_sort_plain", "_standing_hits"):
         monkeypatch.setattr(kernels, name, refuse)
     x, y, _, d = _data(10_000, 16_384, cuda)
     q = zscan.make_query(*QUERIES[0])
@@ -353,20 +357,24 @@ def test_cuda_tensors_never_reach_plain(cuda, monkeypatch):
         join.contains_join([parse_wkt(STAR)], x, y, counts_only=counts_only,
                            device_xy=dev)
     tube_select_mask(d, [(-50.0, -40.0, 50.0, 40.0)], [(0, 50 * MS_DAY)])
-    # one standing dispatch: a launch of the standing kernel and one
-    # compaction for its single chunk
+    # one standing dispatch of one chunk: the grid's count and prefix
+    # (its one slot is everywhere: no cell list to fill), a count and a
+    # write launch, the slots' prefix and the sort; no bitmap and no
+    # compaction
     from geomesa_tpu_torch.scan.standing import StandingFilterSet
     fset = StandingFilterSet(_attr_batch(1).sft, device=cuda)
     fset.register("q", parse_ecql("age > 5"))
     fset.dispatch(_attr_batch(1000))
     assert kernels.launches == {"scan_mask": 1, "scan_mask_gather": 1,
                                 "scan_count": 1, "scan_batch_bits": 1,
-                                "compact_prefix": 2, "compact_bits": 2,
+                                "compact_prefix": 1, "compact_bits": 1,
                                 "pip_mask": 1, "residual_mask": 1,
                                 "density_grid": 1, "extent_tristate": 1,
                                 "dwithin_counts": 1, "slab_pairs": 4,
                                 "contains_counts": 1, "knn_topk": 3,
-                                "tube_mask": 2, "standing_bits": 1}
+                                "tube_mask": 2, "standing_grid": 2,
+                                "standing_count": 1, "standing_offsets": 1,
+                                "standing_write": 1, "standing_sort": 1}
     join.clear_xsort_cache()
 
 
@@ -2100,26 +2108,143 @@ def _standing_case(f, k, a, chunk, n_valid, device, seed=0):
     return rows, tables
 
 
+def _canonical_grid(grid):
+    """A grid's mode and cell starts, its cell lists as sorted (cell,
+    slot) keys and its everywhere slots sorted: the kernels list them in
+    no set order."""
+    f = grid.mode.shape[0]
+    start = grid.cell_start.long()
+    cell = torch.repeat_interleave(
+        torch.arange(kernels.STANDING_CELLS, device=start.device),
+        start[1:] - start[:-1])
+    return (grid.mode, grid.cell_start,
+            torch.sort(cell * f + grid.cell_slots.long()).values,
+            torch.sort(grid.every).values)
+
+
+def _standing_check(rows, tables, chunks):
+    """The kernels' pairs, counts and grid (``standing_pairs`` through the
+    wrappers over ``chunks``) against the plain version's on the same
+    tensors (one chunk), pair for pair; the launches each step made."""
+    n_valid = sum(c[1] for c in chunks)
+    kernels.reset_launches()
+    ids, counts, grid = kernels.standing_pairs(chunks, tables)
+    torch.cuda.synchronize()
+    made = dict(kernels.launches)
+    want = kernels.standing_pairs_plain([(rows, n_valid, 0)], tables)
+    assert torch.equal(counts, want[1])
+    assert torch.equal(ids, want[0])
+    for a, b in zip(_canonical_grid(grid), _canonical_grid(want[2])):
+        assert torch.equal(a, b)
+    entries = int(grid.cell_slots.shape[0])
+    assert made["standing_grid"] == (3 if entries else 2)
+    live = sum(1 for c in chunks if c[1])
+    assert made["standing_count"] == live
+    assert made["standing_offsets"] == 1
+    assert made["standing_write"] == (live if len(ids) else 0)
+    assert made["standing_sort"] == (1 if len(ids) else 0)
+    assert made["compact_prefix"] == made["compact_bits"] == 0
+    return ids, counts, grid
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("f,k,a,chunk,n_valid", [
     (1000, 1, 1, 1024, 1024), (300, 8, 2, 5000, 4321), (64, 1, 0, 17, 13),
     (129, 2, 3, 2048, 2048), (7, 1, 1, 70_000, 69_999)])
 def test_standing_kernel_matches_plain(cuda, f, k, a, chunk, n_valid):
+    """The grid, count, offsets, write and sort kernels against the plain
+    version, pair for pair, on one chunk and on views of a longer upload
+    cut into three chunks, as the dispatch passes them."""
     rows, tables = _standing_case(f, k, a, chunk, n_valid, cuda)
-    kernels.reset_launches()
-    bits, partials = kernels.standing_bits(rows, tables, n_valid)
-    torch.cuda.synchronize()
-    assert kernels.launches["standing_bits"] == 1
-    want = kernels.standing_bits_plain(rows, tables, n_valid)
-    assert torch.equal(bits, want[0]) and torch.equal(partials, want[1])
-    assert bits[0].any() and not bits[1].any()
-    # views of a longer upload, as the dispatch passes them
+    ids, counts, grid = _standing_check(rows, tables, [(rows, n_valid, 0)])
+    assert len(ids) and int(counts.sum()) == len(ids)
     big = [torch.cat([c, c]) if c.dim() == 1 else torch.cat([c, c], dim=1)
            for c in rows]
-    views = ([c[chunk:] for c in big[:6]]
-             + [c[:, chunk:] for c in big[6:]])
-    got = kernels.standing_bits(views, tables, n_valid)
-    assert torch.equal(got[0], bits) and torch.equal(got[1], partials)
+    views = ([c[chunk:] for c in big[:6]] + [c[:, chunk:] for c in big[6:]])
+    step = -(-chunk // 3)
+    chunks = [([c[s:s + step] for c in views[:6]]
+               + [c[:, s:s + step] for c in views[6:]],
+               max(min(step, n_valid - s), 0), s)
+              for s in range(0, chunk, step)]
+    got = _standing_check(views, tables, chunks)
+    assert torch.equal(got[0], ids) and torch.equal(got[1], counts)
+
+
+@pytest.mark.gpu
+def test_standing_grid_edges_and_nan(cuda):
+    """The grid's edges on the card, against the plain version: boxes'
+    hi bounds on whole degrees and on the last f32 below one, rows on
+    those words and next to them, NaN coordinates, attributes and bounds,
+    rows and bounds past the world (and infinite), world-sized boxes,
+    K = 4 overlapping boxes of a slot, box_any slots, dead slots; and a
+    segment longer than the sort's tile (its bitmap path)."""
+    rng = np.random.default_rng(19)
+    f32 = np.float32
+    f, k, n = 400, 4, 30_000
+    up, down = f32(np.inf), f32(-np.inf)
+
+    def bounds(lo, hi):
+        e = rng.integers(lo, hi, (f, k)).astype(f32)
+        w = rng.integers(0, 12, (f, k)).astype(f32)
+        on = rng.random((2, f, k)) < 0.5
+        return (np.where(on[0], e, np.nextafter(e, up)),
+                np.where(on[1], e + w, np.nextafter(e + w + 1, down)))
+    boxes = np.zeros((f, k, 8), f32)
+    boxes[..., 0], boxes[..., 2] = bounds(-178, 160)
+    boxes[..., 4], boxes[..., 6] = bounds(-88, 70)
+    boxes[..., 1::2] = rng.choice([-1e-6, 0, 1e-6], (f, k, 4))
+    boxes[:5, 0] = (-180, 0, 180, 0, -90, 0, 90, 0)        # world-sized
+    boxes[5:10, 0] = (-1e38, 0, np.inf, 0, -np.inf, 0, 1e38, 0)
+    boxes[10:20, 1, 0] = np.nan                            # a NaN bound
+    boxes[20:30, 0, 2] = 400                               # past the world
+    box_valid = rng.random((f, k)) < 0.9
+    box_valid[:10, 0] = True
+    box_any = np.zeros(f, bool)
+    box_any[30:40] = True
+    times = np.tile(np.array([-(2 ** 30), 0, 2 ** 30, MS_DAY], np.int32),
+                    (f, 1))
+    times[30:35] = (0, 0, 100, 0)
+    attrs = np.zeros((f, 1, 4), f32)
+    attrs[:, 0] = (10, 0, 60, 0)
+    attr_any = rng.random((f, 1)) < 0.7
+    alive = rng.random(f) < 0.95
+    pick = rng.integers(40, f * k, n)
+    bx = boxes.reshape(f * k, 8)[pick]
+    side = rng.integers(0, 2, (2, n))
+    xhi = bx[np.arange(n), 2 * side[0]].copy()
+    yhi = bx[np.arange(n), 4 + 2 * side[1]].copy()
+    step = rng.choice([up, down], (2, n))
+    half = n // 2
+    xhi[half:] = np.nextafter(xhi[half:], step[0, half:])
+    yhi[half:] = np.nextafter(yhi[half:], step[1, half:])
+    xhi[:200] = rng.choice([-1e30, -200, 180.5, np.inf, -np.inf, np.nan],
+                           200)
+    yhi[200:400] = rng.choice([-95, 90.5, 1e30, np.nan], 200)
+    # a dense cell: 9,000 rows inside slot 41's first box (a long segment)
+    boxes[41, 0] = (10.0, 0, 12.0, 0, 20.0, 0, 22.0, 0)
+    box_valid[41, 0], alive[41], attr_any[41] = True, True, True
+    xhi[1000:10_000] = rng.uniform(10.2, 11.8, 9000)
+    yhi[1000:10_000] = rng.uniform(20.2, 21.8, 9000)
+    xlo = rng.choice([-1e-6, 0, 1e-6], n).astype(f32)
+    ylo = rng.choice([-1e-6, 0, 1e-6], n).astype(f32)
+    xlo[rng.random(n) < 0.02] = np.nan
+    av = rng.uniform(0, 100, (1, n)).astype(f32)
+    av[rng.random((1, n)) < 0.05] = np.nan
+    tday = rng.integers(-50, 150, n).astype(np.int32)
+    tms = rng.integers(0, MS_DAY, n).astype(np.int32)
+    t = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+    rows = [t(xhi), t(xlo), t(yhi), t(ylo), t(tday), t(tms), t(av),
+            t(np.zeros_like(av))]
+    tables = [t(boxes), t(box_valid), t(box_any), t(times), t(attrs),
+              t(attr_any), t(alive)]
+    chunks = [([c[s:s + 8192] for c in rows[:6]]
+               + [c[:, s:s + 8192] for c in rows[6:]],
+               min(8192, n - 1 - s), s) for s in range(0, n, 8192)]
+    ids, counts, grid = _standing_check(rows, tables, chunks)
+    mode = grid.mode.cpu().numpy()
+    assert (mode[:10][alive[:10]] == kernels.STANDING_EVERYWHERE).all()
+    assert (mode[~alive] == kernels.STANDING_NOWHERE).all()
+    assert int(counts[41]) > kernels.STANDING_SORT_TILE
 
 
 @pytest.mark.gpu
@@ -2158,7 +2283,7 @@ def test_standing_set_on_cuda_matches_cpu(cuda):
             s.register(f"q{i}", f)
     kernels.reset_launches()
     got, want = (s.dispatch(batch) for s in sets)
-    assert kernels.launches["standing_bits"] >= 1
+    assert kernels.launches["standing_count"] >= 1
     assert got.keys() == want.keys()
     assert all(np.array_equal(got[k], want[k]) for k in got)
     assert sum(map(len, got.values())) > 0
