@@ -257,6 +257,15 @@ Phases, one JSON line each; any failure exits non-zero:
            x-sort of the store's and the 100M table's columns on a line
            of its own (analytics_xsort); each call's p50 of 3 host-clock
            runs.
+5b. sql_ais  BASELINE #3 through SQL on the store phase's 10M rows
+           (before they are freed): the analytics phase's 1,000 query
+           points as a second type, SELECT count(*) ... JOIN ... ON
+           ST_DWithin(a.geom, b.geom, 0.25) equal to that phase's f64
+           brute force, its first-call time and p50 of 5 beside the
+           p50 of 5 of the direct dwithin_join(counts_only=True) on the
+           resident columns; the join must receive the store's resident
+           columns; the grouped form (GROUP BY b.__fid__) equal to the
+           brute force per point; a cProfile of one COUNT(*) statement.
 6. predicates  exact polygon and attribute predicates: the earlier
            stores freed, a store of --store-rows rows shaped like a GDELT
            1.0 event record (EventCode:String:index=true with 320
@@ -309,6 +318,25 @@ Phases, one JSON line each; any failure exits non-zero:
            tile (read back through FeatureArrowFileReader, value for
            value) and of the world filter (its ids read back through
            pyarrow), after one untimed call.
+7b. sql_gdelt  bench.py config 19's statements on the predicates
+           phase's store (its GDELT columns in place of config 19's):
+           GROUP BY Actor1CountryCode with COUNT, SUM(NumMentions),
+           MIN/MAX/AVG(AvgTone) under a BBOX+time WHERE of about 29 % of
+           the rows (the gathered kernel), ORDER BY cnt DESC LIMIT 5 and
+           ST_Extent per key over the whole table, the COUNT(*) and
+           grouped ST_Contains joins against config 19's 16 zone boxes,
+           a ST_GeoHash(geom, 25) projection with a LIMIT (against the
+           textbook bisection) and one knn_spiral_process, each against
+           numpy or the f64 brute force over the same columns (exact;
+           an AVG within recursive summation's bound of the fsum mean);
+           then config 19's aggregate statements through
+           partial_aggregate on 4 stores holding a z-prefix split of 2M
+           of the rows, and its two joins through join_partial_leg with
+           the zones broadcast, merged, against one store's SqlEngine
+           over the same 2M rows; cProfiles of the slowest statements.
+           Launch counts are zeroed before each of the two sql phases
+           and read after; the `sql` line has their seconds (budget
+           60 s).
 8. surface the query surface and the pushdowns on the predicates
            phase's store, before it is freed. Launch counts are zeroed,
            then density() draws four grids (a 256x256 tile over a BBOX
@@ -4715,7 +4743,7 @@ def phase_surface(ds, d: dict, ids, queries) -> dict:
     return {"density_grid": stats}, {"density_grid": launches}
 
 
-# -- the extent kernel at --rows, and the extent phase -------------------------
+# -- the extent kernel at --rows, and the extent phase ------------------------
 
 # the kernels phase's extent queries: the four reference queries, then a
 # box and interval whose f64 edges have no exact f32 (MAYBE rows from the
@@ -5913,8 +5941,433 @@ def phase_analytics(seed: int, ds, rows) -> tuple[dict, dict]:
     if missing:
         raise SystemExit(f"join kernels never launched on the analytics "
                          f"path: {missing}")
-    return lines, launches
+    return lines, launches, (qx, qy, dw_counts)
 
+
+# -- the sql phase ------------------------------------------------------------
+
+SQL_BUDGET_S = 60.0       # the sql phase's share of the script's time
+SQL_RUNS = 5              # host-clock runs per timed statement for its p50
+SQL_KERNELS = ("scan_mask", "scan_mask_gather", "scan_count", "pip_mask",
+               "residual_mask", "dwithin_counts", "slab_pairs",
+               "contains_counts")
+# about 29 % of the rows, so the z-index candidates (about 3M of 10M)
+# pass the host tier's 2M and go through the gathered scan kernel
+SQL_WHERE = (f"ST_Contains(ST_MakeBBOX(-120, -60, 120, 70), geom) AND "
+             f"dtg >= '{_iso(T0_DAY + 10)}' AND dtg < '{_iso(T0_DAY + 70)}'")
+SQL_WHERE_BOX = (-120.0, -60.0, 120.0, 70.0)
+SQL_WHERE_DAYS = (T0_DAY + 10, T0_DAY + 70)
+SQL_LEG_ROWS = 2_000_000  # config 19's rows, split over its 4 groups
+SQL_LEGS = 4
+SQL_GEOHASH_ROWS = 1_000
+SQL_KNN = (12.34, 41.2, 10, 0.5)   # qx, qy, k, estimated distance
+# bench.py config 19's statements on the GDELT-shaped columns
+SQL_AGG = [
+    "SELECT Actor1CountryCode, COUNT(*), SUM(NumMentions), MIN(AvgTone), "
+    "MAX(AvgTone), AVG(AvgTone) FROM gdelt GROUP BY Actor1CountryCode",
+    "SELECT Actor1CountryCode, COUNT(*) AS cnt FROM gdelt "
+    "GROUP BY Actor1CountryCode ORDER BY cnt DESC LIMIT 5",
+    "SELECT COUNT(*), SUM(NumMentions), AVG(AvgTone) FROM gdelt",
+    "SELECT Actor1CountryCode, ST_Extent(geom) FROM gdelt "
+    "GROUP BY Actor1CountryCode",
+]
+SQL_JOIN = [
+    "SELECT COUNT(*) FROM gdelt p "
+    "JOIN zones19 z ON ST_Contains(z.geom, p.geom)",
+    "SELECT z.zname, COUNT(*) FROM gdelt p "
+    "JOIN zones19 z ON ST_Contains(z.geom, p.geom) GROUP BY z.zname",
+]
+
+
+def zone19_boxes() -> list:
+    """bench.py config 19's 16 zone boxes: 15 x 25 degrees."""
+    return [(-160.0 + 20 * (i % 16), -60.0 + 30 * (i // 8),
+             -145.0 + 20 * (i % 16), -35.0 + 30 * (i // 8))
+            for i in range(16)]
+
+
+def _sql_launches() -> dict:
+    from geomesa_tpu_torch.scan import kernels
+    return {k: kernels.launches[k] for k in SQL_KERNELS}
+
+
+def _sql_timed(engine, sql: str, runs: int = SQL_RUNS):
+    """(result, first-call ms, p50 ms of ``runs`` more calls)."""
+    t0 = time.perf_counter()
+    res = engine.query(sql)
+    first = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        engine.query(sql)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return res, first, statistics.median(times)
+
+
+def geohash_plain(lon: float, lat: float, chars: int) -> str:
+    """The textbook geohash (geohash.org): bisect lon and lat in turn,
+    lon first, five bits a base-32 character."""
+    alphabet = "0123456789bcdefghjkmnpqrstuvwxyz"
+    lo = [-180.0, -90.0]
+    hi = [180.0, 90.0]
+    v, out = (lon, lat), []
+    bit, ch, even = 0, 0, True
+    while len(out) < chars:
+        d = 0 if even else 1
+        mid = (lo[d] + hi[d]) / 2
+        if v[d] >= mid:
+            ch = ch * 2 + 1
+            lo[d] = mid
+        else:
+            ch = ch * 2
+            hi[d] = mid
+        even = not even
+        bit += 1
+        if bit == 5:
+            out.append(alphabet[ch])
+            bit, ch = 0, 0
+    return "".join(out)
+
+
+def phase_sql_ais(ds, rows, dw) -> tuple[dict, dict]:
+    """BASELINE #3 through SQL on the store phase's 10M rows: the
+    COUNT(*) DWithin join of the analytics phase's 1,000 query points
+    and its grouped form, held to that phase's f64 brute force; the
+    join must reach the kernel with the store's resident columns."""
+    from geomesa_tpu_torch.analytics import join
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.sql import SqlEngine
+    t_phase = time.perf_counter()
+    x, y, _ms, _ids = rows
+    qx, qy, dw_counts = dw
+    st = ds._types["ais"]
+    st.ensure_index()
+    resident = (st.scan_data.xhi, st.scan_data.yhi)
+    ds.create_schema("qpts", "*geom:Point:srid=4326")
+    qids = np.array([f"q{j}" for j in range(len(qx))], dtype=object)
+    ds.write_dict("qpts", qids, {"geom": (qx, qy)})
+    engine = SqlEngine(ds)
+    seen = []
+    real = join.dwithin_join
+
+    def spy(*a, **kw):
+        seen.append(kw.get("device_xy"))
+        return real(*a, **kw)
+    count_sql = ("SELECT count(*) AS n FROM ais a JOIN qpts b "
+                 f"ON ST_DWithin(a.geom, b.geom, {DW_RADIUS})")
+    group_sql = ("SELECT b.__fid__ AS q, COUNT(*) AS n FROM ais a "
+                 f"JOIN qpts b ON ST_DWithin(a.geom, b.geom, {DW_RADIUS}) "
+                 "GROUP BY b.__fid__")
+    wrong = []
+    kernels.reset_launches()
+    join.dwithin_join = spy
+    try:
+        res, first_ms, p50_ms = _sql_timed(engine, count_sql)
+        n_count_calls = len(seen)
+        grouped, g_first_ms, g_p50_ms = _sql_timed(engine, group_sql)
+    finally:
+        join.dwithin_join = real
+    launches = _sql_launches()
+    # the direct call config 3 measures against, outside the counted run
+    direct = []
+    for _ in range(SQL_RUNS + 1):
+        t0 = time.perf_counter()
+        dc, _ = join.dwithin_join(x, y, qx, qy, DW_RADIUS, counts_only=True,
+                                  device_xy=resident)
+        direct.append((time.perf_counter() - t0) * 1e3)
+    direct_p50 = statistics.median(direct[1:])
+    total = int(dw_counts.sum())
+    if res.names != ["n"] or int(res.column("n")[0]) != total:
+        wrong.append(("count", res.names, list(res.column(res.names[0]))))
+    if int(dc.sum()) != total:
+        wrong.append("direct count")
+    resident_ok = (n_count_calls == SQL_RUNS + 1
+                   and all(d is not None and d[0] is resident[0]
+                           and d[1] is resident[1]
+                           for d in seen[:n_count_calls]))
+    if not resident_ok:
+        wrong.append("count join without the resident columns")
+    want = {f"q{j}": int(c) for j, c in enumerate(dw_counts) if c}
+    got = {str(q): int(n) for q, n in grouped.rows()}
+    if grouped.names != ["q", "n"] or got != want:
+        wrong.append(("grouped", len(got), len(want)))
+    if launches["dwithin_counts"] < SQL_RUNS + 1:
+        wrong.append(("dwithin_counts launches", launches["dwithin_counts"]))
+    if launches["slab_pairs"] < SQL_RUNS + 1:
+        wrong.append(("slab_pairs launches", launches["slab_pairs"]))
+    # where the statement's time goes, after the counted run
+    profile = profile_top(lambda: engine.query(count_sql), top=8)
+    ds.remove_schema("qpts")
+    out = {"phase": "sql_ais", "rows": len(x), "queries": len(qx),
+           "radius": DW_RADIUS, "pairs": total,
+           "count_join": {"first_ms": first_ms, "p50_ms": p50_ms,
+                          "direct_p50_ms": direct_p50,
+                          "sql_over_direct": p50_ms / direct_p50,
+                          "resident_columns": resident_ok},
+           "grouped_join": {"first_ms": g_first_ms, "p50_ms": g_p50_ms,
+                            "groups": len(got)},
+           "profile_count_join": profile, "launches": launches,
+           "seconds": time.perf_counter() - t_phase, "wrong": wrong}
+    emit(out)
+    if wrong:
+        raise SystemExit(f"sql_ais: wrong results: {wrong}")
+    return out, launches
+
+
+def _sql_cells(res) -> list:
+    """Rows with the geometry cells as their envelopes' tuples."""
+    out = []
+    for r in res.rows():
+        out.append(tuple((v.envelope.as_tuple() if hasattr(v, "envelope")
+                          else (None if v is None else
+                                v.item() if isinstance(v, np.generic)
+                                else v)) for v in r))
+    return out
+
+
+def _sql_same(got: list, want: list, atol: float = 0.0) -> bool:
+    """Rows equal cell for cell; a float cell within ``atol`` of its
+    counterpart (0: exact)."""
+    if len(got) != len(want):
+        return False
+    for a, b in zip(got, want):
+        if len(a) != len(b):
+            return False
+        for u, v in zip(a, b):
+            if isinstance(u, float) and isinstance(v, float) and atol:
+                if abs(u - v) > atol:
+                    return False
+            elif u != v:
+                return False
+    return True
+
+
+def _group_oracle(d: dict, keep: np.ndarray) -> dict:
+    """{key: (count, SUM(NumMentions), MIN, MAX, exactly rounded AVG of
+    AvgTone, envelope, the AVG's bound)} over the rows ``keep``, the null
+    key as None: numpy over predicate_data's columns, the mean by
+    math.fsum. The bound is recursive summation's, (n - 1) u sum|x| / n
+    with u = 2^-53, doubled for the division: the engine adds a group's
+    values one at a time in its result order."""
+    import math
+    rows = np.flatnonzero(keep)
+    codes = d["ac"][rows].astype(np.int64)
+    order = np.argsort(codes, kind="stable")
+    rows, codes = rows[order], codes[order]
+    starts = np.flatnonzero(np.diff(codes, prepend=codes[0] - 1)) \
+        if len(codes) else np.empty(0, np.int64)
+    ends = np.append(starts[1:], len(codes))
+    out = {}
+    for a, b in zip(starts, ends):
+        r = rows[a:b]
+        c = int(codes[a])
+        key = None if c < 0 else str(d["ac_vocab"][c])
+        mv = d["mentions_valid"][r]
+        tone = d["tone"][r]
+        out[key] = (len(r), float(d["mentions"][r][mv].sum()) if mv.any()
+                    else None, float(tone.min()), float(tone.max()),
+                    math.fsum(tone) / len(r),
+                    (float(d["x"][r].min()), float(d["y"][r].min()),
+                     float(d["x"][r].max()), float(d["y"][r].max())),
+                    len(r) * 2.0 ** -52 * float(np.abs(tone).mean()))
+    return out
+
+
+def phase_sql_gdelt(seed: int, ds, d: dict, ids) -> tuple[dict, dict]:
+    """bench.py config 19's statements on the predicates phase's 10M-row
+    GDELT-shaped store, each held to numpy over the same columns; the
+    distributed legs over 4 stores holding a z-prefix split of 2M of
+    those rows against one store's engine; one geohash-spiral KNN
+    against the f64 brute force."""
+    import math
+    from geomesa_tpu_torch import InMemoryDataStore, parse_spec
+    from geomesa_tpu_torch.analytics import processes
+    from geomesa_tpu_torch.curves.zorder import z2_encode
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.geometry import Polygon
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.sql import SqlEngine, distributed, parse_sql
+    t_phase = time.perf_counter()
+    x, y, ms = d["x"], d["y"], d["ms"]
+    n = len(x)
+    zsft = parse_spec("zones19", "*geom:Polygon:srid=4326,zname:String")
+    boxes = zone19_boxes()
+    zb = FeatureBatch.from_dict(
+        zsft, np.array([f"z{i}" for i in range(16)], dtype=object),
+        {"geom": np.array([Polygon(np.array(
+            [[b[0], b[1]], [b[2], b[1]], [b[2], b[3]], [b[0], b[3]],
+             [b[0], b[1]]], float)) for b in boxes], dtype=object),
+         "zname": np.array([f"zone{i}" for i in range(16)], dtype=object)})
+    ds.create_schema(zsft)
+    ds.write("zones19", zb)
+    engine = SqlEngine(ds)
+    wrong, times = [], {}
+    keep = (_in_box(x, y, SQL_WHERE_BOX) & (ms >= SQL_WHERE_DAYS[0] * MS_DAY)
+            & (ms < SQL_WHERE_DAYS[1] * MS_DAY))
+    t0 = time.perf_counter()
+    where_oracle = _group_oracle(d, keep)
+    all_oracle = _group_oracle(d, np.ones(n, dtype=bool))
+    in_zone = [_in_box(x, y, b) for b in boxes]
+    oracle_s = time.perf_counter() - t0
+
+    kernels.reset_launches()
+    t_main = time.perf_counter()
+    # GROUP BY under a BBOX+time WHERE (the null key, the null mentions)
+    group_sql = ("SELECT Actor1CountryCode AS k, COUNT(*) AS cnt, "
+                 "SUM(NumMentions) AS sm, MIN(AvgTone) AS lo, "
+                 f"MAX(AvgTone) AS hi, AVG(AvgTone) AS av FROM gdelt "
+                 f"WHERE {SQL_WHERE} GROUP BY Actor1CountryCode")
+    res, times["group_where_first"], times["group_where"] = \
+        _sql_timed(engine, group_sql, 2)
+    got = {r[0]: r[1:] for r in _sql_cells(res)}
+    if set(got) != set(where_oracle) or any(
+            got[k][:4] != where_oracle[k][:4]
+            or got[k][4] is None
+            or abs(got[k][4] - where_oracle[k][4]) > where_oracle[k][6]
+            for k in got):
+        wrong.append("group_by_where")
+    # ORDER BY cnt DESC LIMIT 5 over the whole table
+    res, _, times["top5"] = _sql_timed(engine, SQL_AGG[1], 2)
+    top = sorted(((v[0], k) for k, v in all_oracle.items()),
+                 key=lambda t: -t[0])[:5]
+    got = _sql_cells(res)
+    if [c for _, c in got] != [c for c, _ in top] or any(
+            all_oracle[k][0] != c for k, c in got):
+        wrong.append("order_by_limit")
+    # ST_Extent per key over the whole table
+    res, _, times["extent"] = _sql_timed(engine, SQL_AGG[3], 1)
+    got = {r[0]: r[1] for r in _sql_cells(res)}
+    if got != {k: v[5] for k, v in all_oracle.items()}:
+        wrong.append("extent")
+    # the Contains joins against the 16 zones
+    res, times["contains_count_first"], times["contains_count"] = \
+        _sql_timed(engine, SQL_JOIN[0], 2)
+    per_zone = [int(m.sum()) for m in in_zone]
+    if int(res.column(res.names[0])[0]) != sum(per_zone):
+        wrong.append("contains_count")
+    res, _, times["contains_grouped"] = _sql_timed(engine, SQL_JOIN[1], 1)
+    got = {str(k): int(c) for k, c in res.rows()}
+    if got != {f"zone{i}": c for i, c in enumerate(per_zone) if c}:
+        wrong.append("contains_grouped")
+    # a geohash projection with a LIMIT
+    sql = (f"SELECT __fid__, ST_GeoHash(geom, 25) AS h FROM gdelt "
+           f"WHERE {SQL_WHERE} LIMIT {SQL_GEOHASH_ROWS}")
+    res, _, times["geohash"] = _sql_timed(engine, sql, 1)
+    rows_h = np.array([int(f) for f in res.column("__fid__")], np.int64)
+    want_h = [geohash_plain(float(x[r]), float(y[r]), 5) for r in rows_h]
+    if (res.n != SQL_GEOHASH_ROWS or not keep[rows_h].all()
+            or list(res.column("h")) != want_h):
+        wrong.append("geohash")
+    # the geohash-spiral KNN: one BBOX query a cell
+    qx, qy, k, est = SQL_KNN
+    t0 = time.perf_counter()
+    kids, kd = processes.knn_spiral_process(ds, "gdelt", qx, qy, k,
+                                            estimated_distance=est)
+    times["knn_spiral"] = (time.perf_counter() - t0) * 1e3
+    dist = np.hypot(x - qx, y - qy)
+    near = np.argpartition(dist, k)[:k]
+    near = near[np.argsort(dist[near], kind="stable")]
+    if (not np.array_equal(kd, dist[near])
+            or set(kids.astype(str)) != set(ids[near].astype(str))):
+        wrong.append("knn_spiral")
+    store_s = time.perf_counter() - t_main
+    launches = _sql_launches()
+    if launches["contains_counts"] < 3 or launches["slab_pairs"] < 2:
+        wrong.append(("contains launches", launches))
+    if launches["scan_mask"] + launches["scan_mask_gather"] == 0:
+        wrong.append(("scan launches", launches))
+
+    # the distributed legs: a z-prefix split of the first 2M rows over
+    # four stores, merged, against one store's engine over the same rows
+    t0 = time.perf_counter()
+    m = min(SQL_LEG_ROWS, n)
+    nx = np.floor((x[:m] + 180.0) / 360.0 * (1 << 31)).astype(np.int64)
+    ny = np.floor((y[:m] + 90.0) / 180.0 * (1 << 31)).astype(np.int64)
+    nx = np.clip(nx, 0, (1 << 31) - 1)
+    ny = np.clip(ny, 0, (1 << 31) - 1)
+    group = (z2_encode(nx, ny) >> np.uint64(62 - 2)).astype(np.int64)
+    dev = ds.device
+
+    def store_of(sel):
+        s = InMemoryDataStore(device=dev)
+        s.create_schema("gdelt", PRED_SPEC)
+        sub = {k: (v[:m][sel] if isinstance(v, np.ndarray) and len(v) == n
+                   else v) for k, v in d.items()}
+        s.write("gdelt", predicate_batch(s.get_schema("gdelt"), sub,
+                                          ids[:m][sel]))
+        return s
+    one = store_of(np.ones(m, dtype=bool))
+    one.create_schema(zsft)
+    one.write("zones19", zb)
+    legs = [store_of(group == g) for g in range(SQL_LEGS)]
+    leg_rows = [int((group == g).sum()) for g in range(SQL_LEGS)]
+    split_s = time.perf_counter() - t0
+    one_engine = SqlEngine(one)
+
+    def canon(r):
+        return sorted(_sql_cells(r), key=repr)
+    # a merged AVG adds its leg sums in another order than one store's
+    # bincount: each is within the recursive-summation bound of the
+    # exact sum, (m - 1) u sum|x| (|AvgTone| <= 10), so the two means
+    # within twice that over the count (at least 1)
+    avg_atol = 2.0 * m * 2.0 ** -53 * 10.0
+
+    t0 = time.perf_counter()
+    leg_checks = []
+    for sql in SQL_AGG:
+        sel = parse_sql(sql)
+        parts = [distributed.partial_aggregate(s, sql) for s in legs]
+        merged = distributed.merge_partial_legs(sel, parts, qualified=False)
+        want = one_engine.query(sql)
+        ok = (merged.names == want.names
+              and _sql_same(canon(merged), canon(want), avg_atol))
+        leg_checks.append(ok)
+        if not ok:
+            wrong.append(("legs", sql))
+    zres = one.query("INCLUDE", "zones19")
+    payload = distributed._encode_batch("zones19", zsft, zres)
+    for sql, mode in zip(SQL_JOIN, ("count", "agg")):
+        spec = {"sql": sql, "broadcast": "z", "mode": mode,
+                "payload": payload}
+        parts = [distributed.join_partial_leg(s, spec) for s in legs]
+        want = one_engine.query(sql)
+        if mode == "count":
+            ok = sum(p["count"] for p in parts) == \
+                int(want.column(want.names[0])[0])
+        else:
+            merged = distributed.merge_partial_legs(parse_sql(sql), parts,
+                                                    qualified=True)
+            ok = canon(merged) == canon(want)
+        leg_checks.append(ok)
+        if not ok:
+            wrong.append(("join legs", sql))
+    legs_s = time.perf_counter() - t0
+    launches_all = _sql_launches()
+    # where the slowest statements' time goes, after the counted run
+    profiles = {name: profile_top(lambda q=q: engine.query(q), top=8)
+                for name, q in (("group_where", group_sql),
+                                ("extent", SQL_AGG[3]))}
+    profiles["knn_spiral"] = profile_top(
+        lambda: processes.knn_spiral_process(ds, "gdelt", qx, qy, k,
+                                             estimated_distance=est), top=8)
+    del one, legs, one_engine
+    ds.remove_schema("zones19")
+    torch.cuda.empty_cache()
+    out = {"phase": "sql_gdelt", "rows": n, "card": card_line(),
+           "where": SQL_WHERE, "where_rows": int(keep.sum()),
+           "ms": times, "store_s": store_s, "oracle_s": oracle_s,
+           "legs": {"stores": SQL_LEGS, "rows": m, "leg_rows": leg_rows,
+                    "statements": len(leg_checks),
+                    "checks": leg_checks, "split_s": split_s,
+                    "seconds": legs_s},
+           "knn_spiral": {"k": k, "estimated_distance": est,
+                          "max_distance": float(kd[-1])},
+           "profiles": profiles, "launches": launches_all,
+           "seconds": time.perf_counter() - t_phase, "wrong": wrong}
+    emit(out)
+    if wrong:
+        raise SystemExit(f"sql_gdelt: wrong results: {wrong}")
+    return out, launches_all
 
 
 def main():
@@ -5952,8 +6405,9 @@ def main():
     for name in ("scan_batch_bits", "compact_prefix", "compact_bits"):
         launches[name] = (batched[name] + fence_launches[name]
                           + stream_launches[name])
-    join_stats, join_launches = phase_analytics(args.seed, ds, rows)
+    join_stats, join_launches, dw = phase_analytics(args.seed, ds, rows)
     launches.update(join_launches)
+    sql_ais, sql_launches = phase_sql_ais(ds, rows, dw)
     del ds
     torch.cuda.empty_cache()
     pred_stats, pred_counts, pred_ds, pred_data, pred_queries, pred_q = \
@@ -5962,6 +6416,13 @@ def main():
     launches["residual_mask"] += (fs_launches["residual_mask"]
                                   + conv_launches["residual_mask"])
     phase_stats(pred_ds, pred_data, rows[3], pred_queries, pred_q)
+    sql_gdelt, gdelt_launches = phase_sql_gdelt(args.seed, pred_ds,
+                                                pred_data, rows[3])
+    sql_s = sql_ais["seconds"] + sql_gdelt["seconds"]
+    emit({"phase": "sql", "seconds": sql_s, "budget_s": SQL_BUDGET_S,
+          "card": card_line()})
+    for name in SQL_KERNELS:
+        launches[name] += sql_launches[name] + gdelt_launches[name]
     surf_stats, surf_counts = phase_surface(pred_ds, pred_data, rows[3],
                                             pred_queries)
     launches.update(surf_counts)

@@ -25,6 +25,11 @@ file or an iterable, and ``LambdaDataStore`` moves aged rows into a
 persistent store and answers the union. A ``ContinuousQueryPublisher``
 matches every create batch against its standing filters on the card
 and publishes the matches per query (``store/continuous.py``).
+``SqlEngine(store).query(text)`` answers a SELECT over a store's types
+(``sql/``): WHERE pushes down into the store's planner and scan kernels,
+spatial joins run on the join kernels, and GROUP BY, HAVING and the
+aggregates reduce on the host. ``geohash/`` holds the geohash encoding
+and the spiral that ``knn_spiral_process`` walks.
 """
 
 # equal to the JAX package's: the file store stamps it into each type's
@@ -41,11 +46,13 @@ from .store import (DataStore, FileBus, FileSystemDataStore,  # noqa: E402
                     StreamDataStore, StreamSource)
 from .store.continuous import (ContinuousQueryPublisher,  # noqa: E402
                                ContinuousQuerySubscriber)
+from .sql import SqlEngine, SqlError, SqlResult, parse_sql  # noqa: E402
 
 __all__ = ["ContinuousQueryPublisher", "ContinuousQuerySubscriber",
            "DataStore", "FeatureBatch", "FileBus", "FileSystemDataStore",
            "FileTailSource", "GeoMessage", "InMemoryDataStore",
            "IterableSource", "LambdaDataStore", "LiveDataStore",
            "MessageBus", "Query", "QueryResult", "SimpleFeatureType",
-           "SocketBroker", "SocketBus", "StreamDataStore", "StreamSource",
-           "parse_spec", "__version__"]
+           "SocketBroker", "SocketBus", "SqlEngine", "SqlError", "SqlResult",
+           "StreamDataStore", "StreamSource", "parse_spec", "parse_sql",
+           "__version__"]

@@ -4,9 +4,8 @@ WPS-process API shape minus GeoServer.
 
 The device joins and tube select run on the store's resident columns
 (its device) or, for a filtered subset, on the store's device. The
-geohash-spiral KNN and the geohash processes wait for the port's geohash
-module (ROADMAP.md section 6, queue 1 item 10) and raise
-NotImplementedError."""
+geohash-spiral KNN runs one BBOX query per geohash cell through the
+store's scan kernels."""
 
 from __future__ import annotations
 
@@ -38,12 +37,6 @@ def _point_cols(store, type_name):
     if not isinstance(col, PointColumn):
         raise TypeError("process requires a point geometry type")
     return st, col
-
-
-def _later(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it belongs to {where} "
-        f"(ROADMAP.md section 6)")
 
 
 def _resident_xy(st):
@@ -202,11 +195,38 @@ def contains_process(store, type_name: str, polygons,
 
 def knn_spiral_process(store, type_name: str, qx: float, qy: float, k: int,
                        estimated_distance: float = 1.0):
-    """Geohash-spiral KNN (knn/KNNQuery.scala:27,34-81): cells outward
-    from the query point in distance order, cut at the kth distance. It
-    needs the geohash module."""
-    raise _later("the geohash-spiral KNN", "the geohash module, queue 1 "
-                 "item 10")
+    """Geohash-spiral KNN (knn/KNNQuery.scala:27,34-81): iterate cells
+    outward from the query point in distance order, run a bbox query per
+    cell, keep a bounded PQ, and cut the spiral at the kth distance.
+
+    Each cell's BBOX query runs through the store's scan kernels on its
+    device; ``knn_process`` scans the whole column in one kernel top-k,
+    and the spiral bounds the work when the store is huge and the query
+    local (the reference's reason too).
+    """
+    from ..geohash import (BoundedNearestNeighbors, GeoHashSpiral,
+                           decode_bbox, precision_for_radius)
+    st, col = _point_cols(store, type_name)
+    if col is None:
+        return np.empty(0, object), np.empty(0)
+    prec = precision_for_radius(estimated_distance)
+    spiral = GeoHashSpiral(qx, qy, prec)
+    nn = BoundedNearestNeighbors(k)
+    for cell in spiral:
+        xmin, ymin, xmax, ymax = decode_bbox(cell)
+        res = store.query(Query(
+            type_name, f"BBOX({st.sft.geom_field}, "
+                       f"{xmin}, {ymin}, {xmax}, {ymax})"))
+        if res.batch is not None and res.batch.n:
+            c = res.batch.col(st.sft.geom_field)
+            d = np.hypot(c.x - qx, c.y - qy)
+            for dist, fid in zip(d, res.batch.ids):
+                nn.offer(float(dist), fid)
+        if nn.full:
+            spiral.update_max_distance(nn.max_distance)
+    pairs = nn.result()
+    return (np.array([p[1] for p in pairs], dtype=object),
+            np.array([p[0] for p in pairs]))
 
 
 def proximity_process(store, type_name: str, qx, qy,
@@ -471,17 +491,24 @@ def length_spheroid_process(store, type_name: str, attribute: str,
 
 def geohash_process(store, type_name: str, attribute: str,
                     prec: int = 25, ecql=None) -> np.ndarray:
-    """Per-feature geohash of a geometry attribute (process form of
-    ST_GeoHash). It needs the geohash module."""
-    raise _later("the geohash process", "the geohash module, queue 1 "
-                 "item 10")
+    """Per-feature geohash of a geometry attribute at ``prec`` bits
+    (process form of ST_GeoHash); None for null geometries."""
+    from .st_functions import st_geohash
+    res = store.query(Query(type_name, ecql or "INCLUDE"))
+    if res.batch is None or res.n == 0:
+        return np.empty(0, object)
+    col = res.batch.col(attribute)
+    return np.array([st_geohash(g, prec) if (g := col.value(i)) is not None
+                     else None for i in range(res.batch.n)], object)
 
 
 def geohash_decode_process(hashes, prec: int | None = None) -> np.ndarray:
     """Geohash strings back to cell-bbox polygons (process form of
-    ST_GeomFromGeoHash). It needs the geohash module."""
-    raise _later("the geohash decode process", "the geohash module, "
-                 "queue 1 item 10")
+    ST_GeomFromGeoHash); None passes through."""
+    from .st_functions import st_geom_from_geohash
+    return np.array([st_geom_from_geohash(h, prec) if h is not None
+                     else None for h in np.asarray(hashes, object)],
+                    object)
 
 
 def point_n_process(store, type_name: str, attribute: str, n: int,

@@ -8,7 +8,7 @@ operates on scalars or numpy arrays of geometries/coordinates.
 Scalar-geometry functions delegate to the geometry engine; the hot
 point-column forms (st_contains over a PointColumn, st_distance
 point-to-points) are vectorized numpy. ST_GeoHash and ST_GeomFromGeoHash
-wait for the port's geohash module (ROADMAP.md section 6, queue 1).
+go through the port's geohash module.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ __all__ = [
     "st_antimeridian_safe_geom", "st_idl_safe_geom",
     "st_cast_to_point", "st_cast_to_linestring",
     "st_cast_to_polygon", "st_cast_to_geometry", "st_as_binary",
-    "st_geom_from_wkb", "st_as_geojson", "SQL_SCALARS",
+    "st_geom_from_wkb", "st_as_geojson", "st_geohash",
+    "st_geom_from_geohash", "SQL_SCALARS",
     "contains_points", "distance_points",
 ]
 
@@ -461,6 +462,26 @@ def st_idl_safe_geom(g: Geometry) -> Geometry:
     return st_antimeridian_safe_geom(g)
 
 
+def st_geohash(g: Geometry, prec: int = 25) -> str:
+    """Base-32 geohash of the geometry at ``prec`` BITS of precision
+    (the reference's st_geoHash; GeoHash.scala:25 takes bit precision).
+    Non-point geometries hash their centroid. The rendered string
+    carries ceil(prec/5) characters — the 5-bit base-32 granularity."""
+    from ..geohash import encode
+    c = g if isinstance(g, Point) else g.centroid
+    chars = max(1, -(-int(prec) // 5))
+    return encode(float(c.x), float(c.y), chars)
+
+
+def st_geom_from_geohash(gh: str, prec: int | None = None) -> Polygon:
+    """The geohash cell's bbox polygon (the reference's
+    st_geomFromGeoHash); ``prec`` (BITS) truncates to a coarser cell."""
+    from ..geohash import decode_bbox
+    xmin, ymin, xmax, ymax = decode_bbox(
+        str(gh), None if prec is None else int(prec))
+    return Envelope(xmin, ymin, xmax, ymax).to_polygon()
+
+
 # SQL scalar registry: SELECT-list ST_* calls resolve here (uppercased
 # SQL name -> python fn taking (geometry_value, *literal_args)); the
 # SQLSpatialAccessorFunctions / CastFunctions / OutputFunctions /
@@ -494,6 +515,9 @@ SQL_SCALARS = {
     "ST_LENGTHSPHEROID": st_length_spheroid,
     "ST_ANTIMERIDIANSAFEGEOM": st_antimeridian_safe_geom,
     "ST_IDLSAFEGEOM": st_idl_safe_geom,
+    "ST_GEOHASH": lambda g, prec=25: st_geohash(g, int(prec)),
+    "ST_GEOMFROMGEOHASH": lambda gh, prec=None: st_geom_from_geohash(
+        gh, None if prec is None else int(prec)),
     "ST_POINTN": lambda g, n: st_point_n(g, int(n)),
     "ST_EXTERIORRING": st_exterior_ring,
     "ST_NUMPOINTS": st_num_points,

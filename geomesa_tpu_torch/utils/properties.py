@@ -12,7 +12,9 @@ import os
 import re
 
 __all__ = ["SystemProperty", "HOST_RANGES_TARGET", "WAL_FSYNC",
-           "WAL_SEGMENT_BYTES", "WAL_INTERVAL_MS", "INTEGRITY_QUARANTINE"]
+           "WAL_SEGMENT_BYTES", "WAL_INTERVAL_MS", "INTEGRITY_QUARANTINE",
+           "SQL_PLANNER", "PLANNER_RECALIBRATE", "SQL_DISTRIBUTED",
+           "SQL_BROADCAST_ROWS"]
 
 _overrides: dict[str, str] = {}
 
@@ -85,3 +87,17 @@ WAL_INTERVAL_MS = SystemProperty("geomesa.wal.interval.ms", "50")
 
 # rename a checkpoint that fails verification at load to *.corrupt
 INTEGRITY_QUARANTINE = SystemProperty("geomesa.integrity.quarantine", "true")
+
+# the SQL planner (sql/planner.py): "false" restores the exact-count
+# static-threshold strategy choice and keeps joins in statement order;
+# the recalibration of the per-leg cost coefficient from a cluster's
+# observed leg latencies ("false" pins the static default)
+SQL_PLANNER = SystemProperty("geomesa.sql.planner", "true")
+PLANNER_RECALIBRATE = SystemProperty("geomesa.sql.planner.recalibrate",
+                                     "true")
+
+# distributed SQL (sql/distributed.py): "false" sends every statement
+# over a cluster down the single-node path; the largest row count a join
+# side may have and still be broadcast to every shard group
+SQL_DISTRIBUTED = SystemProperty("geomesa.sql.distributed", "true")
+SQL_BROADCAST_ROWS = SystemProperty("geomesa.sql.broadcast.rows", "100000")

@@ -693,9 +693,12 @@ def test_labels_of_a_later_file_are_read(tmp_path):
     for k, (ids, vis) in enumerate(rows):
         data = {"name": ["x"], "dtg": [MS("2017-01-01")],
                 "geom": ([1.0], [1.0])}
+        # the write's file is what the listing gained: a new file's name
+        # is random hex, and may itself start with "f"
+        before = set(os.listdir(pdir)) if pdir.exists() else set()
         t.write_dict("t", ids, data, visibilities=vis)
         ref.write_dict("t", ids, data, visibilities=vis)
-        new = [f for f in os.listdir(pdir) if not f.startswith("f")]
+        new = sorted(set(os.listdir(pdir)) - before)
         os.rename(pdir / new[0], pdir / f"f{k}.parquet")
     for auths in ([], ["secret"]):
         want = sorted(_ids(ref.query(JQuery("t", "INCLUDE", auths=auths))))

@@ -67,7 +67,10 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.store.socketbus, "
             "geomesa_tpu_torch.store.stream, "
             "geomesa_tpu_torch.store.lambda_store, "
-            "geomesa_tpu_torch.store.continuous\n"
+            "geomesa_tpu_torch.store.continuous, geomesa_tpu_torch.geohash, "
+            "geomesa_tpu_torch.sql, geomesa_tpu_torch.sql.parser, "
+            "geomesa_tpu_torch.sql.planner, geomesa_tpu_torch.sql.engine, "
+            "geomesa_tpu_torch.sql.distributed\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -118,7 +121,9 @@ def test_no_source_imports_jax_or_reference():
             "convert/geo_formats.py", "resilience/__init__.py",
             "resilience/policy.py", "filters/compile.py",
             "scan/standing.py", "store/socketbus.py", "store/stream.py",
-            "store/lambda_store.py", "store/continuous.py"} <= seen
+            "store/lambda_store.py", "store/continuous.py",
+            "geohash/__init__.py", "sql/__init__.py", "sql/parser.py",
+            "sql/planner.py", "sql/engine.py", "sql/distributed.py"} <= seen
     # the native library's C++ sources are the port's own copies
     src = os.path.join(PKG, "native", "src")
     assert sorted(os.listdir(src)) == ["feature_codec.cpp", "zbuild.cpp",

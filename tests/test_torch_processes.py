@@ -4,9 +4,8 @@ beside a JAX store holding the same seeded rows.
 
 Tolerance: exact. Ids are equal in the same order, distances and
 counts are equal arrays, process outputs (segments, labels, hashes,
-BIN and Arrow bytes, per-feature geometries) are equal. The processes
-that the port leaves to later slices (the geohash ones) raise
-NotImplementedError naming their slice."""
+BIN and Arrow bytes, per-feature geometries, geohashes and their cells)
+are equal."""
 
 import threading
 
@@ -244,14 +243,43 @@ def test_per_feature_processes(trk, name, args):
                 assert (g is None and w is None) or str(g) == str(w) or g == w
 
 
-def test_later_slices_raise(trk):
-    port, _ = trk
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tp.knn_spiral_process(port, "trk", 0.0, 0.0, 3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tp.geohash_process(port, "trk", "geom")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tp.geohash_decode_process(["9q8y"])
+@pytest.mark.parametrize("qx,qy,k,est", [(0.0, 0.0, 10, 1.0),
+                                         (9.9, -9.9, 17, 0.3),
+                                         (2.2, 7.7, 40, 0.05),
+                                         (20.0, 20.0, 3, 5.0)])
+def test_knn_spiral_process(pts, qx, qy, k, est):
+    """The geohash spiral: one BBOX query per cell through the store."""
+    port, ref = pts
+    _same(tp.knn_spiral_process(port, "pts", qx, qy, k,
+                                estimated_distance=est),
+          jp.knn_spiral_process(ref, "pts", qx, qy, k,
+                                estimated_distance=est))
+
+
+@pytest.mark.parametrize("prec", [1, 5, 12, 25, 32, 45])
+@pytest.mark.parametrize("attribute,ecql", [("geom", None),
+                                            ("route", "boat = 'a'"),
+                                            ("area", None)])
+def test_geohash_process(trk, attribute, ecql, prec):
+    """Per-feature hashes (a null geometry gives None; a line or polygon
+    hashes its centroid)."""
+    port, ref = trk
+    got = tp.geohash_process(port, "trk", attribute, prec=prec, ecql=ecql)
+    want = jp.geohash_process(ref, "trk", attribute, prec=prec, ecql=ecql)
+    assert got.dtype == want.dtype and got.tolist() == want.tolist()
+    assert tp.geohash_process(port, "trk", "geom",
+                              ecql="boat = 'none'").tolist() == []
+
+
+@pytest.mark.parametrize("prec", [None, 1, 8, 13, 25, 30])
+def test_geohash_decode_process(prec):
+    from geomesa_tpu.geometry import to_wkt as jto_wkt
+    from geomesa_tpu_torch.geometry import to_wkt
+    hashes = ["9q8yy", "u60g0", "s", None, "ezs42e44", "zzzzzz"]
+    got = tp.geohash_decode_process(hashes, prec)
+    want = jp.geohash_decode_process(hashes, prec)
+    assert [None if g is None else to_wkt(g) for g in got] == \
+        [None if g is None else jto_wkt(g) for g in want]
 
 
 @pytest.mark.parametrize("bin_millis,max_bins", [(86_400_000, 256),

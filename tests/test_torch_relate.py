@@ -310,10 +310,9 @@ def test_st_functions_match_reference(wkt):
 
 
 def test_st_scalar_registry_matches_reference():
-    """The SQL scalar registry names the same functions, less the geohash
-    pair."""
-    assert set(tst.SQL_SCALARS) == set(jst.SQL_SCALARS) - {
-        "ST_GEOHASH", "ST_GEOMFROMGEOHASH"}
+    """The SQL scalar registry names the same functions, the geohash pair
+    included."""
+    assert set(tst.SQL_SCALARS) == set(jst.SQL_SCALARS)
 
 
 # -- ECQL: DWITHIN, the relate operators, BEYOND ------------------------------
