@@ -212,6 +212,32 @@ Phases, one JSON line each; any failure exits non-zero:
            the result ids, and a cProfile of the call (host clock); and
            the batched kernels timed at this phase's own shape beside
            their bounds (``kernels_32``).
+           (serving) the serving planes over the same store and queries:
+           trace sampling 1, QoS on with three tenants weighted 4:2:1,
+           an AuditLogger writing JSONL under a temporary directory, the
+           continuous profiler at 19 Hz, runtime and SLO at their
+           defaults (on). 32 threads x 8 queries through
+           shared_batcher(ds), each thread under its own tenant_scope
+           and principal_scope. Hard gates: every query's ids equal the
+           float64 brute force; one audit record per query (its
+           tenant's principal, index, hits equal to its ids' count,
+           batched true on fused ones; as many JSONL lines); every
+           caller's trace holds its dispatch subtree; the per-tenant
+           drained counts sum to 256; runtime.compile{domain=batcher}
+           has one miss per shape class and hits after it; the runtime
+           device sample non-zero and within 1 % of
+           torch.cuda.memory_allocated() at the same point;
+           prometheus_text() holds the store.scan, batcher and runtime
+           series; TIMEOUT 1e-9 s raises QueryTimeout and 60 s answers
+           the brute force. Launch counts zeroed before the load and
+           read after; the three batched kernels must launch, and are
+           held to their plain versions on every batch the load ran.
+           Then the same load with the planes at their defaults and
+           with all of them on, alternated, three runs each (queries/s,
+           per-query p50), the north-star query() p50 at defaults, and
+           the card's name and power limit. At the script's end the
+           runtime snapshot's batcher, knn, standing and join domains
+           with their probe and dispatch counts (``runtime``).
 5. analytics  BASELINE.md's joins at their shapes, on the store phase's
            10M rows before they are freed: a DWithin of 1,000 query
            points (r = 0.25) through proximity_process (counts, ids) and
@@ -414,6 +440,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3483,6 +3510,272 @@ def phase_batched(seed: int, ds, rows) -> dict:
     return counts
 
 
+SERVING_TENANTS = {"gold": 4, "silver": 2, "bronze": 1}   # DWRR weights
+SERVING_RUNS = 3          # runs of the load at defaults and with planes on
+NORTH_RUNS = 21           # host-clock runs of the north-star query()
+
+
+def serving_load(batcher, ecqls, scoped: bool) -> dict:
+    """BATCHER_THREADS callers x BATCHER_PER_THREAD queries through
+    ``batcher``; caller t runs as tenant t % 3 with principal
+    "user-<tenant>" when ``scoped``. Returns the results by (t, j), each
+    call's host-clock ms, the wall seconds and any errors."""
+    import threading
+    from geomesa_tpu_torch.audit import principal_scope
+    from geomesa_tpu_torch.tenants import tenant_scope
+    names = list(SERVING_TENANTS)
+    results, lat, errors = {}, [], []
+
+    def caller(t):
+        tenant = names[t % len(names)]
+        try:
+            with tenant_scope(tenant if scoped else None), \
+                    principal_scope(f"user-{tenant}" if scoped else None):
+                for j in range(BATCHER_PER_THREAD):
+                    i = (t * BATCHER_PER_THREAD + j) % len(ecqls)
+                    t0 = time.perf_counter()
+                    r = batcher.query(ecqls[i], "ais")
+                    r.ids
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    results[t, j] = (i, tenant, r)
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            errors.append(repr(e))
+    threads = [threading.Thread(target=caller, args=(t,))
+               for t in range(BATCHER_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600.0)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        errors.append("a caller did not finish in 600 s")
+    return {"results": results, "lat_ms": lat, "seconds": wall,
+            "errors": errors}
+
+
+class _Planes:
+    """Every serving plane on for a block (trace sampling 1, QoS with
+    SERVING_TENANTS' weights, ``audit`` as the store's logger, the
+    profiler at 19 Hz); the defaults restored after, also on error."""
+
+    def __init__(self, ds, audit):
+        from geomesa_tpu_torch.obs.prof import PROF_HZ
+        from geomesa_tpu_torch.obs.trace import TRACE_SAMPLE
+        from geomesa_tpu_torch.tenants import QOS_ENABLED
+        from geomesa_tpu_torch.utils.properties import SystemProperty
+        self.ds, self.audit = ds, audit
+        self.props = [(TRACE_SAMPLE, "1"), (QOS_ENABLED, "true"),
+                      (PROF_HZ, "19")] + [
+            (SystemProperty(f"geomesa.qos.tenant.{t}.weight"), str(w))
+            for t, w in SERVING_TENANTS.items()]
+
+    def __enter__(self):
+        from geomesa_tpu_torch.obs import profiler
+        for p, v in self.props:
+            p.set(v)
+        self.ds.audit = self.audit
+        profiler.start()
+        return self
+
+    def __exit__(self, *exc):
+        from geomesa_tpu_torch.obs import profiler
+        profiler.stop()
+        self.ds.audit = None
+        for p, _ in self.props:
+            p.set(None)
+
+
+def phase_serving(seed: int, ds, rows) -> dict:
+    """The serving planes on the batched phase's store and queries (see
+    the module's head): hard gates, timeouts, then the planes' cost."""
+    import tempfile
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.audit import AuditLogger
+    from geomesa_tpu_torch.metrics import metrics
+    from geomesa_tpu_torch.obs import profiler, runtime, tracer
+    from geomesa_tpu_torch.scan import kernels, zscan
+    from geomesa_tpu_torch.scan.registry import (batcher_registry,
+                                                 shared_batcher)
+    from geomesa_tpu_torch.utils.threads import QueryTimeout
+    x, y, ms, ids = rows
+    specs = store_batch_specs(seed)
+    ecqls = [_ecql(boxes, iv) for boxes, iv in specs]
+    truth = [_brute(x, y, ms, boxes, iv) for boxes, iv in specs]
+    filters = [str(Query("ais", e).filter) for e in ecqls]
+    batcher = shared_batcher(ds)
+    if shared_batcher(ds) is not batcher:
+        raise SystemExit("shared_batcher gave two batchers for one store")
+    tmp = tempfile.mkdtemp(prefix="serving-")
+    audit_path = os.path.join(tmp, "audit.jsonl")
+    audit = AuditLogger(path=audit_path)
+
+    # the counted run with every plane on; each stacked batch recorded
+    seen = []
+    device_path = zscan.batch_hit_rows
+
+    def recording(data, bq):
+        seen.append(bq)
+        return device_path(data, bq)
+    tracer.clear()
+    before = metrics.snapshot()["counters"]
+    rt0 = runtime.snapshot()["compile"].get("batcher", {})
+    kernels.reset_launches()
+    t_main = time.perf_counter()
+    zscan.batch_hit_rows = recording
+    try:
+        with _Planes(ds, audit):
+            run = serving_load(batcher, ecqls, scoped=True)
+            torch.cuda.synchronize()
+            runtime.sample_device_memory()
+            allocated = torch.cuda.memory_allocated()
+            sampled = runtime.snapshot()["device_memory"]
+            prof_stats = profiler.stats()
+    finally:
+        zscan.batch_hit_rows = device_path
+    main_s = time.perf_counter() - t_main
+    counts = dict(kernels.launches)
+    after = metrics.snapshot()["counters"]
+    rt1 = runtime.snapshot()["compile"].get("batcher", {})
+    traces = tracer.traces(limit=10_000)
+    prom = metrics.prometheus_text()
+    tracer.clear()
+
+    errors = list(run["errors"])
+    n_q = BATCHER_THREADS * BATCHER_PER_THREAD
+    if len(run["results"]) != n_q:
+        errors.append(f"{len(run['results'])} results of {n_q}")
+    want_events = []
+    for i, tenant, r in run["results"].values():
+        if not np.array_equal(r.rows, truth[i]):
+            errors.append(f"wrong ids for query {i}")
+        fused = "Fused device scan" in r.explain.text
+        want_events.append((filters[i], f"user-{tenant}", tenant, r.n, fused))
+    events = audit.query("ais")
+    got_events = [(e.filter, e.user, e.tenant, e.hits, e.batched)
+                  for e in events]
+    with open(audit_path) as fh:
+        jsonl = len(fh.read().splitlines())
+    if sorted(got_events) != sorted(want_events) or jsonl != n_q:
+        errors.append(f"audit: {len(events)} events, {jsonl} lines; "
+                      f"equal to the queries: "
+                      f"{sorted(got_events) == sorted(want_events)}")
+    if any(e.index not in ("z3", "z2") for e in events):
+        errors.append("an audit record without its z-index")
+    no_subtree = [t["trace_id"] for t in traces
+                  if not {"batcher-wait", "dispatch",
+                          "store-scan"} <= set(t["kinds"])]
+    if len(traces) != n_q or no_subtree:
+        errors.append(f"{len(traces)} traces, {len(no_subtree)} without "
+                      f"their dispatch subtree")
+    drained = {k: after[k] - before.get(k, 0) for k in after
+               if k.startswith("qos.admission.dispatched")}
+    if sum(drained.values()) != n_q:
+        errors.append(f"drained by tenant {drained}")
+    classes = {c: {"hits": v["hits"] - rt0.get(c, {}).get("hits", 0),
+                   "misses": v["misses"] - rt0.get(c, {}).get("misses", 0)}
+               for c, v in rt1.items()}
+    classes = {c: v for c, v in classes.items() if v["hits"] + v["misses"]}
+    fused = sum(v["hits"] + v["misses"] for v in classes.values())
+    # the shared batcher's table is new: each class misses at its first
+    # fused dispatch and hits at every later one
+    if not classes or any(v["misses"] != 1 for v in classes.values()) \
+            or (fused > len(classes)
+                and not any(v["hits"] for v in classes.values())):
+        errors.append(f"runtime.compile batcher classes {classes}")
+    dev = sampled["devices"].get(f"cuda:{torch.cuda.current_device()}", {})
+    in_use = dev.get("bytes_in_use", 0)
+    if not in_use or abs(in_use - allocated) > 0.01 * allocated \
+            or not sampled["live_bytes"] or not sampled["live_buffers"]:
+        errors.append(f"device sample {dev} against memory_allocated "
+                      f"{allocated}")
+    series = ["geomesa_store_scan_seconds", "geomesa_batcher_queries_total",
+              "geomesa_runtime_compile_total",
+              "geomesa_runtime_dispatch_seconds",
+              "geomesa_runtime_device_bytes"]
+    missing_series = [m for m in series if m not in prom]
+    if missing_series:
+        errors.append(f"prometheus text lacks {missing_series}")
+
+    # timeouts: the reaper's deadline at the store's stage boundaries
+    q = Query("ais", ecqls[0], hints={"TIMEOUT": 1e-9})
+    try:
+        ds.query(q)
+        errors.append("TIMEOUT 1e-9 s answered")
+    except QueryTimeout:
+        pass
+    ok60 = ds.query(Query("ais", ecqls[0], hints={"TIMEOUT": 60}))
+    if not np.array_equal(ok60.rows, truth[0]):
+        errors.append("TIMEOUT 60 s: wrong ids")
+
+    # outside the counted run: the batched kernels against their plain
+    # versions on every batch the load ran
+    data = ds._types["ais"].scan_data
+    wrong = [bq.n_queries for bq in seen if not check_batch(data, bq)]
+
+    # the planes' cost: the same load at defaults and with every plane
+    # on, alternated (the batcher and its plan table already warm)
+    cost = {"defaults": [], "planes_on": []}
+    for k in range(2 * SERVING_RUNS):
+        mode = ("defaults", "planes_on")[k % 2]
+        if mode == "defaults":
+            r = serving_load(batcher, ecqls, scoped=True)
+        else:
+            with _Planes(ds, AuditLogger(path=audit_path)):
+                r = serving_load(batcher, ecqls, scoped=True)
+            tracer.clear()
+        errors += r["errors"]
+        cost[mode].append({"queries_per_s": len(r["results"]) / r["seconds"],
+                           "p50_ms": statistics.median(r["lat_ms"])})
+    spread = {m: {k: [min(v[k] for v in runs), max(v[k] for v in runs)]
+                  for k in ("queries_per_s", "p50_ms")}
+              for m, runs in cost.items()}
+    north = STORE_QUERIES[0][0]
+    north_ms = [_timed(lambda: ds.query(north, "ais").ids)
+                for _ in range(NORTH_RUNS)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    batcher_registry.clear()     # the registry must not pin the store
+    emit({"phase": "serving", "rows": len(x), "queries": n_q,
+          "seconds": main_s, "errors": errors[:5],
+          "audit_events": len(events), "traces": len(traces),
+          "drained": drained, "batcher_classes": classes,
+          "fused_dispatches": fused,
+          "device_sample": dev, "memory_allocated": allocated,
+          "profiler": prof_stats, "checked_batches": len(seen),
+          "wrong_batches": wrong, "cost": cost, "spread": spread,
+          "north_star_p50_ms": statistics.median(north_ms),
+          "launches": counts, "card": card_line()})
+    if errors:
+        raise SystemExit(f"serving planes: {errors[:5]}")
+    if wrong or not seen:
+        raise SystemExit(f"batched kernels disagree with their plain "
+                         f"versions on the serving path: {wrong}")
+    missing = [k for k in ("scan_batch_bits", "compact_prefix",
+                           "compact_bits") if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"kernels never launched on the serving path: "
+                         f"{missing}")
+    return counts
+
+
+def runtime_summary() -> dict:
+    """The runtime plane's domains (batcher, knn, standing, join) with
+    their probe and dispatch counts over the whole run."""
+    from geomesa_tpu_torch.obs import runtime
+    snap = runtime.snapshot()
+    out = {}
+    for domain in ("batcher", "knn", "standing", "join"):
+        comp = snap["compile"].get(domain, {})
+        disp = snap["dispatch"].get(domain, {})
+        out[domain] = {
+            "classes": len(set(comp) | set(disp)),
+            "misses": sum(v["misses"] for v in comp.values()),
+            "hits": sum(v["hits"] for v in comp.values()),
+            "dispatches": sum(v["count"] for v in disp.values()),
+            "dispatch_ms": sum(v["total_ms"] for v in disp.values())}
+    return out
+
+
 def profile_top(fn, top: int = 12) -> list:
     """cProfile of one fn() call: the ``top`` functions by own time,
     as [where, own ms, cumulative ms, calls]."""
@@ -4316,7 +4609,7 @@ def density_split(ds, ecql, bbox, width, height, attr) -> dict:
     xmin, ymin, sx, sy = aggregations.density_scalars(bbox, width, height)
     for _ in range(SURFACE_RUNS):
         t0 = time.perf_counter()
-        rows, _, _ = ds._matching_rows(Query("gdelt", ecql), st, Explainer())
+        rows = ds._matching_rows(Query("gdelt", ecql), st, Explainer())[0]
         t1 = time.perf_counter()
         ids = torch.from_numpy(rows.astype(np.int32)).to(ds.device)
         torch.cuda.synchronize()
@@ -6402,9 +6695,10 @@ def main():
     for name in STANDING_KERNELS:
         launches[name] = fence_launches[name] + stream_launches[name]
     batched = phase_batched(args.seed, ds, rows)
+    serving = phase_serving(args.seed, ds, rows)
     for name in ("scan_batch_bits", "compact_prefix", "compact_bits"):
-        launches[name] = (batched[name] + fence_launches[name]
-                          + stream_launches[name])
+        launches[name] = (batched[name] + serving[name]
+                          + fence_launches[name] + stream_launches[name])
     join_stats, join_launches, dw = phase_analytics(args.seed, ds, rows)
     launches.update(join_launches)
     sql_ais, sql_launches = phase_sql_ais(ds, rows, dw)
@@ -6468,6 +6762,12 @@ def main():
             **{k: standing["kernels"][name][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})
+    runtime = runtime_summary()
+    emit({"phase": "runtime", "domains": runtime})
+    quiet = [d for d, v in runtime.items()
+             if not v["misses"] + v["hits"] + v["dispatches"]]
+    if quiet:
+        raise SystemExit(f"runtime plane heard nothing from {quiet}")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)
     emit({"kernels": summary})

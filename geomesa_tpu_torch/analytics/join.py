@@ -462,11 +462,18 @@ def prewarm_join_kernels(device_xy, nrows: int) -> None:
     library (on the card, once per source hash) and cache the columns'
     x-sort, so the first real join pays neither. The port compiles
     nothing per shape, so the reference's dummy joins have nothing left
-    to warm. Called from the store's bulk ingest
-    (``geomesa.join.prewarm``)."""
+    to warm; the shape classes the reference prewarms (dwithin at 1,024
+    queries, KNN at 1 and 8) are still noted to ``obs.runtime`` as
+    misses of domain ``join``, as the reference notes them. Called from
+    the store's bulk ingest (``geomesa.join.prewarm``)."""
     pxj, pyj = device_xy
     if nrows == 0:
         return
+    from ..obs.runtime import runtime
+    cap = 1 << max(int(nrows - 1).bit_length(), 0)
+    runtime.note_plan_probe("join", ("dwithin", cap, 1024), hit=False)
+    for q in (1, 8):
+        runtime.note_plan_probe("join", ("knn", cap, q), hit=False)
     if pxj.device.type == "cuda":
         kernels._library()
     _sorted_by_x_cached(pxj, pyj, nrows, cacheable=True)

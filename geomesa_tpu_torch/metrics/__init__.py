@@ -1,5 +1,8 @@
-"""Metrics registry of the port (counters, gauges, histogram timers)."""
+"""Metrics registry of the port (counters, gauges, histogram timers,
+the Prometheus exposition) and its reporters."""
 
-from .registry import MetricsRegistry, labeled_key, metrics, sanitize_key
+from .registry import (MetricsRegistry, labeled_key, metrics,
+                       prometheus_text, sanitize_key, split_key)
 
-__all__ = ["MetricsRegistry", "labeled_key", "metrics", "sanitize_key"]
+__all__ = ["MetricsRegistry", "labeled_key", "metrics", "prometheus_text",
+           "sanitize_key", "split_key"]

@@ -19,10 +19,9 @@ stack under ``SocketBus``:
   to connection/timeout types.
 
 Every retry counts ``resilience.retries`` (and a per-site
-``resilience.retries.<name>``) in the metrics registry. The JAX
-package's per-tenant budgets and its retry annotation on the trace come
-with the serving tier (``tenants/``, ``obs/``; ROADMAP.md section 6,
-queue 1 item 7): here a call charges the policy's own budget.
+``resilience.retries.<name>``) in the metrics registry and annotates the
+current trace span. With QoS on and a tenant bound, a call charges that
+tenant's own budget (``tenants.tenant_budget``) instead of the policy's.
 """
 
 from __future__ import annotations
@@ -129,6 +128,15 @@ class RetryPolicy:
         self._rng = rng or random
         self._registry = registry
 
+    def _call_budget(self):
+        """The budget THIS call charges: with QoS on and a tenant bound,
+        the tenant's own RetryBudget (so one tenant exhausting retries
+        cannot drain anybody else's); otherwise the policy's shared
+        budget."""
+        from ..tenants import tenant_budget
+        tb = tenant_budget()
+        return tb if tb is not None else self.budget
+
     def backoff_s(self, attempt: int) -> float:
         """Full jitter: U(0, min(cap, base * 2^(attempt-1)))."""
         ceiling = min(self.cap_s, self.base_s * (2 ** max(attempt - 1, 0)))
@@ -138,7 +146,7 @@ class RetryPolicy:
         classify = retryable or default_retryable
         deadline = (None if self.total_deadline_s is None
                     else time.monotonic() + self.total_deadline_s)
-        budget = self.budget
+        budget = self._call_budget()
         if budget is not None:
             budget.deposit()
         attempt = 0
@@ -159,10 +167,20 @@ class RetryPolicy:
                     raise
                 if budget is not None and not budget.try_withdraw():
                     self._registry.counter("resilience.budget.exhausted")
+                    from ..tenants import active_tenant, tenant_label
+                    t = active_tenant()
+                    if t is not None:
+                        self._registry.counter(
+                            "qos.retry.exhausted",
+                            labels={"tenant": tenant_label(t)})
                     raise
                 self._registry.counter("resilience.retries")
                 if name:
                     self._registry.counter(f"resilience.retries.{name}")
+                from ..obs import annotate
+                annotate("retry", name=name, attempt=attempt,
+                         error=type(e).__name__,
+                         delay_ms=round(delay * 1000, 3))
                 if on_retry is not None:
                     on_retry(e, attempt, delay)
                 self._sleep(delay)

@@ -37,10 +37,10 @@ recheck for compiled-exact filters, the full ``filters.evaluate`` for
 residual ones (LIKE, polygons, OR trees). Either way the final hit set
 is id-exact against the evaluator.
 
-The set's tables live on ``device`` (the store's). The JAX dispatch's
-``obs`` hooks (its plan probe and dispatch notes to the runtime, and its
-stall watchdog) come with the serving tier (ROADMAP.md section 6, queue
-1 item 7); the ``cq.device.*`` metrics are kept.
+The set's tables live on ``device`` (the store's). A dispatch reports
+its shape-class probe and its matching's seconds and transfer bytes to
+``obs.runtime`` (domain ``standing``) and runs under the stall watchdog
+(``dispatch.cq``), beside the ``cq.device.*`` metrics.
 """
 
 from __future__ import annotations
@@ -395,6 +395,8 @@ class StandingFilterSet:
             self.cache_misses += 1
         self._registry.counter("cq.device.plan_cache.hit" if hit
                                else "cq.device.plan_cache.miss")
+        from ..obs.runtime import runtime
+        runtime.note_plan_probe("standing", key, hit)
 
     def _match(self, dev_rows, tables, n: int, chunk: int):
         """(rows int64 host, counts int64[cap] host): every (filter, row)
@@ -437,7 +439,10 @@ class StandingFilterSet:
                 marks.append(time.perf_counter())
                 split[name] = marks[-1] - marks[-2]
 
-            with reg.time("cq.device.dispatch"):
+            from ..obs.prof import watchdog
+            from ..obs.runtime import runtime
+            with reg.time("cq.device.dispatch"), \
+                    watchdog.watch("dispatch.cq"):
                 rows = self._rows_host(batch)
                 chunk = self._chunk_rows(n)
                 key = (self._cap, self._k, len(self.attr_names), chunk)
@@ -448,6 +453,11 @@ class StandingFilterSet:
                 stage("upload_s")
                 hit_rows, counts = self._match(dev_rows, tables, n, chunk)
                 stage("match_s")
+                runtime.note_dispatch(
+                    "standing", key, marks[-1] - marks[0],
+                    h2d_bytes=sum(int(t.numel() * t.element_size())
+                                  for t in dev_rows),
+                    d2h_bytes=int(hit_rows.nbytes + counts.nbytes))
                 hi = np.cumsum(counts)
                 lo = hi - counts
                 out: dict[str, np.ndarray] = {}

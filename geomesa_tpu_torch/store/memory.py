@@ -4,7 +4,11 @@ the GPU.
     write(batch, visibilities=None)
                  -> host columns (pending until the next read)
     query(q)     -> plan (splitter + cost decider over z3, z2 (points) or
-                    xz3, xz2 (extents), id, attr:<name> and fullscan)
+                    xz3, xz2 (extents), id, attr:<name> and fullscan;
+                    cached per type on the filter object until the next
+                    mutation), under the query reaper when the query has
+                    a deadline (the TIMEOUT hint or geomesa.query.timeout,
+                    checked after the plan and after the scan)
                  -> xz3/xz2: the XZ-key index's candidates evaluated
                     exactly on the host when there are at most
                     geomesa.scan.extent.host.rows (50,000) of them; else
@@ -34,7 +38,11 @@ the GPU.
                  -> sort_by, max_features, the projection check
                  -> QueryResult: ids (gathered eagerly up to 100k hits),
                     and a lazy batch that copies columns on first read
-                    (attribute-level redaction materializes it)
+                    (attribute-level redaction materializes it); a plan
+                    the planner proved empty gives an empty batch of the
+                    (projected) schema, a type with no rows None
+                 -> the store.scan timer, an SLO event and an audit
+                    record, inside a store-scan span (obs/, audit/)
     query_batched(qs)
                  -> plan each query; the fusible ones of a type run as
                     ONE pass of the batched kernels (hits, boundary
@@ -121,6 +129,7 @@ import dataclasses
 import functools
 import logging
 import threading
+import time
 import weakref
 from typing import Any, Iterator
 
@@ -152,11 +161,16 @@ from ..security import (evaluate_visibilities, parse_visibility,
 from ..security.visibility import distinct_labels
 from ..stats import DataStoreStats, parse_stat
 from ..utils.device import resolve_device
-from ..utils.properties import SystemProperty
+from ..utils.properties import QUERY_TIMEOUT, SystemProperty
+from ..utils.threads import ManagedQuery, ThreadManagement
 from .api import DataStore
 from .common import sort_order
 
 __all__ = ["InMemoryDataStore", "QueryResult"]
+
+# process-wide query reaper (ThreadManagement.scala's 5 s sweep); its
+# thread starts at the first query that carries a deadline
+_REAPER = ThreadManagement()
 
 # index-pruned candidate sets at or below this size evaluate exactly on
 # the host in f64 instead of a device round trip; larger candidate sets
@@ -176,10 +190,11 @@ JOIN_PREWARM = SystemProperty("geomesa.join.prewarm", "true")
 
 _WHOLE_WORLD = (-180.0, -90.0, 180.0, 90.0)
 
-# the hints query() reads, and those the reference's query() accepts and
-# ignores (its pushdowns take their parameters as arguments)
+# the hints query() reads (TIMEOUT: seconds, the query's deadline), and
+# those the reference's query() accepts and ignores (its pushdowns take
+# their parameters as arguments)
 _READ_HINTS = frozenset({QueryHints.QUERY_INDEX, QueryHints.SAMPLING,
-                         QueryHints.SAMPLE_BY})
+                         QueryHints.SAMPLE_BY, "TIMEOUT"})
 _IGNORED_HINTS = frozenset({
     QueryHints.STATS_STRING, QueryHints.ENCODE_STATS,
     QueryHints.ARROW_ENCODE, QueryHints.ARROW_DICTIONARY_FIELDS,
@@ -191,10 +206,20 @@ _IGNORED_HINTS = frozenset({
     QueryHints.COST_EVALUATION})
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it belongs to the "
-        f"{slice_name} slice (ROADMAP.md section 6)")
+class _PlanArtifacts:
+    """Filter-derived plan state reused across identical queries (cached
+    next to the FilterStrategy in ``_TypeState.plan_cache``): the z3/z2
+    scan inputs (query envelopes, millis intervals, whether an exact
+    geometry predicate follows) and the scan query, whose box and
+    interval tables stay on the store's device once uploaded. All of it
+    derives from the filter alone, so it lives until the plan cache is
+    cleared."""
+
+    __slots__ = ("boxes", "intervals", "needs_exact", "sq")
+
+    def __init__(self):
+        self.boxes = None
+        self.sq = None
 
 
 class _LazyBatch:
@@ -374,6 +399,12 @@ class _TypeState:
         # persisted z-key sort orders (ZKeyIndex.state_dict) that the
         # next index build adopts when they cover its rows
         self.zindex_warm: dict | None = None
+        # (id(filter), QUERY_INDEX hint) -> (filter, FilterStrategy,
+        # _PlanArtifacts): repeated queries skip the splitter, the cost
+        # decision and the scan inputs' extraction. Cleared on every
+        # mutation and analyze(): the row count and the stats feed the
+        # decision
+        self.plan_cache: dict = {}
 
     @property
     def n(self) -> int:
@@ -411,6 +442,7 @@ class _TypeState:
         if vis is not None:
             self.has_vis = True
         self.zindex_warm = None      # persisted orders no longer these rows
+        self.plan_cache.clear()
         self._pending.append((batch, vis))
         self._pending_n += batch.n
         self._detach_live()
@@ -476,6 +508,7 @@ class _TypeState:
         self._detach_live()
         self.flush()
         self.zindex_warm = None
+        self.plan_cache.clear()
         if self._batch is None:
             return
         keep = ~np.isin(self._batch.ids.astype(str), list(ids))
@@ -531,6 +564,7 @@ class _TypeState:
         does not depend on it) and swapped in once it is whole; an
         index not built yet builds at that version on the next read."""
         self.flush()
+        self.plan_cache.clear()
         old = self.zindex
         new = None
         if isinstance(old, ZKeyIndex) and not self.dirty:
@@ -581,6 +615,10 @@ class InMemoryDataStore(DataStore):
     ``device=None`` means ``"cuda"``: the store runs on the GPU unless
     the caller asks for another device, and raises when CUDA is absent.
 
+    ``audit`` is the store's ``AuditLogger``: every query and count
+    records one ``QueryEvent`` there (None: the process-wide logger,
+    ``audit.global_audit()``).
+
     ``durable_dir`` journals every mutation to a write-ahead log under
     that directory (validate, journal, then apply) and, at construction,
     recovers the newest checkpoint and the log's tail into the store on
@@ -594,12 +632,14 @@ class InMemoryDataStore(DataStore):
     # (and ready the join paths) eagerly, so the first query finds it
     _EAGER_INDEX_ROWS = 5_000_000
 
-    def __init__(self, device=None, durable_dir: str | None = None,
+    def __init__(self, device=None, audit=None,
+                 durable_dir: str | None = None,
                  wal_fsync: str | None = None):
         self.device = resolve_device(device)
         self._op_lock = threading.RLock()
         self._types: dict[str, _TypeState] = {}
         self.stats = DataStoreStats()
+        self.audit = audit  # AuditLogger, or None for the global one
         self.journal = None
         if durable_dir:
             from ..wal.durable import Journal
@@ -764,6 +804,7 @@ class InMemoryDataStore(DataStore):
         for a type without rows."""
         st = self._state(type_name)
         self.stats.clear(type_name)
+        st.plan_cache.clear()   # cached strategies used the stale stats
         if st.n:
             self.stats.observe(st.sft, st.batch)
         return self.stats.get(type_name)
@@ -777,8 +818,9 @@ class InMemoryDataStore(DataStore):
             q = Query(type_name, q)
         unknown = set(q.hints) - _READ_HINTS - _IGNORED_HINTS
         if unknown:
-            # TIMEOUT (the query reaper) and any other key
-            raise _later(f"query hints {sorted(unknown)}", "serving")
+            raise NotImplementedError(
+                f"query hints {sorted(unknown)} are not known to the "
+                f"store's query()")
         return q
 
     @_synchronized
@@ -788,12 +830,19 @@ class InMemoryDataStore(DataStore):
         st = self._state(q.type_name)
         explain = Explainer(explain_out)
         explain.push(lambda: f"Planning '{q.type_name}' filter={q.filter}")
-        idx, strategy, attr_mask = self._matching_rows(q, st, explain)
-        if strategy.index == "empty":
-            explain.pop()
-            return QueryResult(idx, np.empty(0, dtype=object), None, explain,
-                               strategy)
-        return self._finish_query(q, st, idx, attr_mask, strategy, explain)
+        if st.n == 0:
+            explain("Store is empty").pop()
+            return QueryResult(np.empty(0, dtype=np.int64),
+                               np.empty(0, dtype=object), None, explain,
+                               FilterStrategy("empty", None, None))
+        from ..obs import tracer
+        with tracer.span("store-scan", q.type_name) as sp:
+            idx, strategy, attr_mask, t_plan, t_scan0 = \
+                self._matching_rows(q, st, explain)
+            sp.set_attr(index=strategy.index, rows=int(st.n),
+                        hits=int(len(idx)))
+            return self._finish_query(q, st, idx, attr_mask, strategy,
+                                      explain, t_plan, t_scan0)
 
     @_synchronized
     def query_batched(self, queries: list[Query],
@@ -833,32 +882,57 @@ class InMemoryDataStore(DataStore):
                                             explain_out=explain_out)
             if not fused:
                 continue
-            rows_per_q = self._batched_scan_rows(st, list(fused.values()))
-            for (i, (strategy, explain, _b, _iv)), idx in zip(fused.items(),
-                                                               rows_per_q):
-                q = queries[i]
-                idx, attr_mask = self._post_scan(q, st, idx, explain)
-                results[i] = self._finish_query(q, st, idx, attr_mask,
-                                                strategy, explain)
+            t_scan0 = time.perf_counter()
+            from ..obs import tracer
+            with tracer.span("store-scan", tn) as sp:
+                sp.set_attr(fused=len(fused), rows=int(st.n))
+                rows_per_q = self._batched_scan_rows(st,
+                                                     list(fused.values()))
+                for (i, (strategy, explain, _a)), idx in zip(
+                        fused.items(), rows_per_q):
+                    q = queries[i]
+                    idx, attr_mask = self._post_scan(q, st, idx, explain)
+                    results[i] = self._finish_query(
+                        q, st, idx, attr_mask, strategy, explain, 0.0,
+                        t_scan0, batched=True)
         return results  # type: ignore[return-value]
 
-    def _fusible_plan(self, q: Query, st: _TypeState, explain_out):
-        """(strategy, explainer, boxes, intervals) when the query can run
-        in the batched scan: a z3/z2 strategy with no secondary filter
-        and no exact geometry predicate (a rectangular INTERSECTS or
-        WITHIN goes through query(), as in the reference); else None."""
-        explain = Explainer(explain_out)
-        explain.push(lambda: f"Batched '{q.type_name}' filter={q.filter}")
-        q = _coerced(q, st.sft)
-        strategy = decide_strategy(st.sft, q, _indices(st.sft), st.n,
+    def _plan_for(self, q: Query, st: _TypeState, explain: Explainer):
+        """(strategy, artifacts) of ``q`` from the type's plan cache,
+        keyed on the filter object and the QUERY_INDEX hint: the ECQL
+        parse cache hands one shared AST per query string, so a repeated
+        query skips the splitter, the cost decision and the scan inputs'
+        extraction. The ``is`` check makes an id reused after a filter's
+        collection harmless."""
+        pkey = (id(q.filter), q.hints.get(QueryHints.QUERY_INDEX))
+        hit = st.plan_cache.get(pkey)
+        if hit is not None and hit[0] is q.filter:
+            strategy, art = hit[1], hit[2]
+            explain(lambda: f"Plan cache hit: {strategy.index}")
+            return strategy, art
+        strategy = decide_strategy(st.sft, _coerced(q, st.sft),
+                                   _indices(st.sft), st.n,
                                    stats=self.stats.get(q.type_name),
                                    explain=explain)
+        art = _PlanArtifacts()
+        if len(st.plan_cache) >= 256:
+            st.plan_cache.pop(next(iter(st.plan_cache)))
+        st.plan_cache[pkey] = (q.filter, strategy, art)
+        return strategy, art
+
+    def _fusible_plan(self, q: Query, st: _TypeState, explain_out):
+        """(strategy, explainer, artifacts) when the query can run in the
+        batched scan: a z3/z2 strategy with no secondary filter and no
+        exact geometry predicate (a rectangular INTERSECTS or WITHIN
+        goes through query(), as in the reference); else None."""
+        explain = Explainer(explain_out)
+        explain.push(lambda: f"Batched '{q.type_name}' filter={q.filter}")
+        strategy, art = self._plan_for(q, st, explain)
         if strategy.index not in ("z3", "z2") or strategy.secondary is not None:
             return None
-        boxes, intervals, needs_exact = _scan_inputs(st.sft, strategy)
-        if needs_exact:
+        if _fill_artifacts(st.sft, strategy, art).needs_exact:
             return None
-        return strategy, explain, boxes, intervals
+        return strategy, explain, art
 
     def _batched_scan_rows(self, st: _TypeState, plans) -> list[np.ndarray]:
         """One pass of the batched kernels over the stacked queries, then
@@ -866,15 +940,14 @@ class InMemoryDataStore(DataStore):
         kernels compacted on the device (no per-query O(n) host work).
         ``plans`` are _fusible_plan's, all of one type."""
         st.ensure_index()
-        sqs = [zscan.make_query(boxes, intervals)
-               for _s, _e, boxes, intervals in plans]
+        sqs = [_scan_query(art) for _s, _e, art in plans]
         bq = zscan.stack_queries(sqs)
         hits, cands = zscan.batch_hit_rows(st.scan_data, bq)
         col = st.batch.col(st.sft.geom_field)
         millis = st._millis(st.batch)
         out = []
-        for (_s, explain, _b, _iv), sq, rows, cand in zip(plans, sqs, hits,
-                                                          cands):
+        for (_s, explain, _a), sq, rows, cand in zip(plans, sqs, hits,
+                                                     cands):
             explain(f"Fused device scan: query {len(out) + 1} of "
                     f"{bq.n_queries}, "
                     f"{sq.n_boxes} box(es), {len(sq.host_intervals)} "
@@ -892,26 +965,57 @@ class InMemoryDataStore(DataStore):
         selection (plan, scan, visibility, sampling), then the length."""
         q = self._as_query(q, type_name)
         st = self._state(q.type_name)
-        idx, _, _ = self._matching_rows(q, st, Explainer())
-        n = len(idx)
-        return n if q.max_features is None else min(n, q.max_features)
+        if st.n == 0:
+            return 0
+        from ..obs import tracer
+        with tracer.span("store-scan", q.type_name) as sp:
+            idx, strategy, _, t_plan, t_scan0 = self._matching_rows(
+                q, st, Explainer())
+            n = len(idx)
+            if q.max_features is not None:
+                n = min(n, q.max_features)
+            sp.set_attr(index=strategy.index, rows=int(st.n), hits=n)
+            from ..audit import audit_query
+            audit_query(self.audit, "memory", q.type_name, str(q.filter),
+                        q.hints, t_plan * 1000,
+                        (time.perf_counter() - t_scan0) * 1000, n,
+                        index=strategy.index, rows_scanned=int(st.n))
+        return n
 
     def _matching_rows(self, q: Query, st: _TypeState, explain: Explainer):
-        """The shared row-selection pipeline: plan, scan, visibility,
-        sampling. (idx, strategy, attr_mask): attr_mask is the rows'
+        """The shared row-selection pipeline: plan, scan (under the query
+        reaper: the TIMEOUT hint, else ``geomesa.query.timeout``, checked
+        after the plan and after the scan), visibility, sampling. (idx,
+        strategy, attr_mask, t_plan, t_scan0): attr_mask is the rows'
         attribute authorization matrix on an attribute-level schema with
-        labels, else None."""
+        labels, else None; t_plan the plan's seconds; t_scan0 the
+        ``perf_counter`` at the scan's start."""
         if st.n == 0:
             explain("Store is empty")
             return (np.empty(0, dtype=np.int64),
-                    FilterStrategy("empty", None, None), None)
-        q = _coerced(q, st.sft)
-        strategy = decide_strategy(st.sft, q, _indices(st.sft), st.n,
-                                   stats=self.stats.get(q.type_name),
-                                   explain=explain)
-        idx = self._execute(st, strategy, explain)
-        idx, attr_mask = self._post_scan(q, st, idx, explain)
-        return idx, strategy, attr_mask
+                    FilterStrategy("empty", None, None), None, 0.0,
+                    time.perf_counter())
+        managed = None
+        timeout_s = q.hints.get("TIMEOUT") or QUERY_TIMEOUT.as_seconds()
+        if timeout_s:
+            managed = _REAPER.register(
+                ManagedQuery(q.type_name, str(q.filter), float(timeout_s)))
+        try:
+            t_plan0 = time.perf_counter()
+            strategy, art = self._plan_for(q, st, explain)
+            t_plan = time.perf_counter() - t_plan0
+            if managed is not None:
+                managed.check()
+            t_scan0 = time.perf_counter()
+            idx = self._execute(st, strategy, explain, art)
+            if managed is not None:
+                managed.check()
+        finally:
+            if managed is not None:
+                _REAPER.complete(managed)
+        idx, attr_mask = self._post_scan(_coerced(q, st.sft), st, idx,
+                                         explain)
+        return idx, strategy, attr_mask, t_plan, t_scan0
 
     def _post_scan(self, q: Query, st: _TypeState, idx: np.ndarray,
                    explain: Explainer):
@@ -974,12 +1078,12 @@ class InMemoryDataStore(DataStore):
 
     def _finish_query(self, q: Query, st: _TypeState, idx: np.ndarray,
                       attr_mask, strategy: FilterStrategy,
-                      explain: Explainer) -> QueryResult:
+                      explain: Explainer, t_plan: float, t_scan0: float,
+                      batched: bool = False) -> QueryResult:
         """Result assembly shared by the scalar and batched pipelines:
         sort, max_features, projection check, lazy batch with
-        attribute-cell redaction, id gather. (The reference's query
-        metrics and audit record wait for the serving item of ROADMAP.md
-        section 6, queue 1.)"""
+        attribute-cell redaction, id gather; then the query's
+        ``store.scan`` timer, its SLO event and its audit record."""
         if q.sort_by is not None:
             hidden = None
             if attr_mask is not None:
@@ -1032,6 +1136,20 @@ class InMemoryDataStore(DataStore):
             src = st.batch
             ids = (lambda: src.ids[idx])
         explain(f"Hits: {len(idx)}").pop()
+        scan_s = time.perf_counter() - t_scan0
+        from ..metrics import metrics
+        metrics.observe("store.scan", scan_s,
+                        labels={"type": q.type_name,
+                                "index": strategy.index or "none"})
+        from ..obs.slo import slo_engine
+        slo_engine.record("store.scan", ok=True, latency_s=scan_s)
+        from ..audit import audit_query, caller_context
+        record = functools.partial(
+            audit_query, self.audit, "memory", q.type_name, str(q.filter),
+            q.hints, t_plan * 1000, scan_s * 1000, len(idx),
+            index=strategy.index, rows_scanned=int(st.n), batched=batched)
+        ctx = caller_context(q)   # a batcher's follower: its own context
+        ctx.run(record) if ctx is not None else record()
         return QueryResult(idx, ids, batch, explain, strategy)
 
     # -- pushdowns -----------------------------------------------------------
@@ -1046,14 +1164,14 @@ class InMemoryDataStore(DataStore):
         point and weight columns it keeps there (uploaded on first use),
         so only the matching row ids cross from the host. A point or
         weight that attribute-level visibility hides counts as null.
-        Computed on every call (the reference's result cache waits for
-        the serving item of ROADMAP.md section 6, queue 1)."""
+        Computed on every call (the reference's result cache, ``cache/``,
+        is queue 1 item 7b of ROADMAP.md section 6)."""
         st = self._state(type_name)
         empty = np.zeros((height, width), dtype=np.float32)
         if st.n == 0:
             return empty
-        idx, _, attr_mask = self._matching_rows(Query(type_name, ecql), st,
-                                                Explainer())
+        idx, _, attr_mask, _, _ = self._matching_rows(
+            Query(type_name, ecql), st, Explainer())
         if not len(idx):
             return empty
         geom = st.sft.geom_field
@@ -1096,8 +1214,8 @@ class InMemoryDataStore(DataStore):
         Stat each call, the caller's to keep or mutate. INCLUDE or None
         observes the stored rows; any other filter runs query(), so
         visibility applies, and observes its result batch. Computed on
-        every call (the reference's result cache waits for the serving
-        item of ROADMAP.md section 6, queue 1)."""
+        every call (the reference's result cache, ``cache/``, is queue 1
+        item 7b of ROADMAP.md section 6)."""
         st = self._state(type_name)
         stat = parse_stat(stat_spec)
         if st.n == 0:
@@ -1131,14 +1249,14 @@ class InMemoryDataStore(DataStore):
         return res.batch.to_arrow()
 
     def _execute(self, st: _TypeState, strategy: FilterStrategy,
-                 explain: Explainer) -> np.ndarray:
+                 explain: Explainer, art: _PlanArtifacts) -> np.ndarray:
         """Run the chosen strategy; returns sorted matching row indices,
         in index space (an index-pruned scan never pays O(n) host work)."""
         if strategy.index == "empty":
             return np.empty(0, dtype=np.int64)
         if strategy.index in ("z3", "z2"):
             st.ensure_index()
-            idx = self._device_scan(st, strategy, explain)
+            idx = self._device_scan(st, strategy, explain, art)
         elif strategy.index in ("xz3", "xz2"):
             st.ensure_index()
             idx = self._device_extent_scan(st, strategy, explain)
@@ -1212,12 +1330,14 @@ class InMemoryDataStore(DataStore):
         return rows[evaluate(strategy.primary, st.batch.take(rows))]
 
     def _device_scan(self, st: _TypeState, strategy: FilterStrategy,
-                     explain: Explainer) -> np.ndarray:
+                     explain: Explainer, art: _PlanArtifacts) -> np.ndarray:
         """The hot path: z-range index pruning -> host-exact tier, or
         the scan kernel over gathered candidates or every row, + exact
         boundary patch + the polygon predicate of INTERSECTS/WITHIN.
         Returns sorted row indices."""
-        boxes, intervals, needs_exact = _scan_inputs(st.sft, strategy)
+        _fill_artifacts(st.sft, strategy, art)
+        boxes, intervals, needs_exact = (art.boxes, art.intervals,
+                                         art.needs_exact)
         block_cap = int(float(SCAN_BLOCK_THRESHOLD.get()) * st.n)
         host_cap = min(block_cap, int(HOST_SCAN_ROWS.get()))
         kind, rows = search_rows(st.zindex, strategy.index, boxes,
@@ -1227,7 +1347,7 @@ class InMemoryDataStore(DataStore):
                     f"{len(boxes)} box(es), {len(intervals)} interval(s)")
             idx = rows
         else:
-            sq = zscan.make_query(boxes, intervals)
+            sq = _scan_query(art)
             if kind == "candidates":
                 idx = self._scan_gathered(st, sq, rows, explain)
             else:
@@ -1374,20 +1494,32 @@ def _project_sft(sft: SimpleFeatureType, props: list[str]) -> SimpleFeatureType:
         sft.user_data)
 
 
-def _scan_inputs(sft: SimpleFeatureType, strategy: FilterStrategy):
-    """(boxes, intervals, needs_exact) of a z3/z2 strategy, for the
-    scalar and the batched scan alike: the query envelopes (the whole
-    world when the filter has none), the inclusive millis intervals (z3
-    only), and whether an exact geometry predicate (INTERSECTS, WITHIN,
-    a non-rectangular geometry) must re-check the scan's rows."""
-    primary = (strategy.primary if strategy.primary is not None
-               else ast.Include())
-    geoms = extract_geometries(primary, sft.geom_field)
-    boxes = [g.envelope.as_tuple() for g in geoms] or [_WHOLE_WORLD]
-    intervals = (_intervals_ms(primary, sft.dtg_field)
-                 if sft.dtg_field is not None and strategy.index == "z3"
-                 else [])
-    return boxes, intervals, _needs_exact(geoms, primary)
+def _fill_artifacts(sft: SimpleFeatureType, strategy: FilterStrategy,
+                    art: _PlanArtifacts) -> _PlanArtifacts:
+    """The scan inputs of a z3/z2 strategy on its plan artifacts, for
+    the scalar and the batched scan alike (derived once a plan): the
+    query envelopes (the whole world when the filter has none), the
+    inclusive millis intervals (z3 only), and whether an exact geometry
+    predicate (INTERSECTS, WITHIN, a non-rectangular geometry) must
+    re-check the scan's rows."""
+    if art.boxes is None:
+        primary = (strategy.primary if strategy.primary is not None
+                   else ast.Include())
+        geoms = extract_geometries(primary, sft.geom_field)
+        art.intervals = (_intervals_ms(primary, sft.dtg_field)
+                         if sft.dtg_field is not None
+                         and strategy.index == "z3" else [])
+        art.needs_exact = _needs_exact(geoms, primary)
+        art.boxes = [g.envelope.as_tuple() for g in geoms] or [_WHOLE_WORLD]
+    return art
+
+
+def _scan_query(art: _PlanArtifacts) -> zscan.ScanQuery:
+    """The plan's padded scan query, built once: its box and interval
+    tables move to a device at their first use there and stay."""
+    if art.sq is None:
+        art.sq = zscan.make_query(art.boxes, art.intervals)
+    return art.sq
 
 
 def _needs_exact(geoms, primary: ast.Filter) -> bool:

@@ -1,11 +1,14 @@
 """Host utilities of the port: configuration flags, device selection,
-the metadata catalog, schema locks, age-off and the version check."""
+the metadata catalog, schema locks, query timeout management, age-off
+and the version check."""
 
 from .device import resolve_device
 from .locking import FileLock, LocalLock, with_lock
 from .metadata import FileMetadata, InMemoryMetadata, MetadataCatalog
 from .properties import SystemProperty
+from .threads import ManagedQuery, QueryTimeout, ThreadManagement
 
 __all__ = ["FileLock", "FileMetadata", "InMemoryMetadata", "LocalLock",
-           "MetadataCatalog", "SystemProperty", "resolve_device",
+           "ManagedQuery", "MetadataCatalog", "QueryTimeout",
+           "SystemProperty", "ThreadManagement", "resolve_device",
            "with_lock"]

@@ -11,10 +11,11 @@ from __future__ import annotations
 import os
 import re
 
-__all__ = ["SystemProperty", "HOST_RANGES_TARGET", "WAL_FSYNC",
-           "WAL_SEGMENT_BYTES", "WAL_INTERVAL_MS", "INTEGRITY_QUARANTINE",
-           "SQL_PLANNER", "PLANNER_RECALIBRATE", "SQL_DISTRIBUTED",
-           "SQL_BROADCAST_ROWS"]
+__all__ = ["SystemProperty", "HOST_RANGES_TARGET", "QUERY_TIMEOUT",
+           "WAL_FSYNC", "WAL_SEGMENT_BYTES", "WAL_INTERVAL_MS",
+           "INTEGRITY_QUARANTINE", "SQL_PLANNER", "PLANNER_RECALIBRATE",
+           "SQL_DISTRIBUTED", "SQL_BROADCAST_ROWS",
+           "INGEST_SHED_QUEUE_DEPTH"]
 
 _overrides: dict[str, str] = {}
 
@@ -38,6 +39,13 @@ class SystemProperty:
             _overrides.pop(self.name, None)
         else:
             _overrides[self.name] = str(value)
+
+    def get_override(self) -> str | None:
+        """The process-wide override layer only (None = unset), ignoring
+        the environment and the default: lets a caller (the SLO reaction
+        loop) save the exact override state it found and later restore
+        it with ``set``."""
+        return _overrides.get(self.name)
 
     # -- typed accessors ---------------------------------------------------
 
@@ -77,6 +85,10 @@ class SystemProperty:
 # selective query stream never earns back
 HOST_RANGES_TARGET = SystemProperty("geomesa.scan.ranges.host", "256")
 
+# a query's deadline in seconds (or a duration string), checked at the
+# store's stage boundaries; the TIMEOUT hint overrides it per query
+QUERY_TIMEOUT = SystemProperty("geomesa.query.timeout", None)
+
 # the write-ahead log (wal/log.py): its fsync policy ("always",
 # "interval" or "never"), its segment rotation threshold in bytes, and
 # the flush cadence of the "interval" policy
@@ -101,3 +113,8 @@ PLANNER_RECALIBRATE = SystemProperty("geomesa.sql.planner.recalibrate",
 # side may have and still be broadcast to every shard group
 SQL_DISTRIBUTED = SystemProperty("geomesa.sql.distributed", "true")
 SQL_BROADCAST_ROWS = SystemProperty("geomesa.sql.broadcast.rows", "100000")
+
+# the ingest pipeline's shed threshold (queued batches); the SLO reaction
+# loop (obs/slo.py) lowers it while a fast burn fires
+INGEST_SHED_QUEUE_DEPTH = SystemProperty("geomesa.ingest.shed.queue.depth",
+                                         "64")

@@ -421,10 +421,12 @@ class WriteAheadLog:
         err: OSError | None = None
         t0 = time.perf_counter()
         try:
-            # the JAX log wraps this in a tracer span and the stall
-            # watchdog (obs/), which come with the serving tier
-            # (ROADMAP.md section 6, queue 1 item 7)
-            with self._lock:
+            from ..obs import tracer
+            from ..obs.prof import watchdog
+            cur = tracer.current()
+            with self._lock, \
+                    watchdog.watch("wal.fsync",
+                                   span=cur[1] if cur else None):
                 fd, path = self._fd, self._seg_path
                 fd.flush()
                 faultfs.fsync(fd.fileno(), path)
@@ -442,10 +444,10 @@ class WriteAheadLog:
         if err is not None:
             self._poison(err)
         self.registry.counter("wal.fsyncs")
-        # the JAX log annotates the current span with lsn, batch and ms
-        # here (obs/, queue 1 item 7); the port keeps the seconds as a
-        # timer of the registry
-        self.registry.observe("wal.fsync", time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.registry.observe("wal.fsync", dt)
+        from ..obs import annotate
+        annotate("wal.fsync", lsn=lsn, batch=batch, ms=round(dt * 1000, 3))
         if batch > 0:
             self.registry.gauge("wal.group_commit.batch", batch)
 

@@ -5,7 +5,7 @@
                          [--store-rows 10000000] [--predicates-only]
                          [--density-only] [--store-only] [--prefix-only]
                          [--joins-only] [--tube-only] [--standing-only]
-                         TREE [TREE ...]
+                         [--serving-only] TREE [TREE ...]
 
 Each TREE is the root of a checkout of the repo (a ``git archive`` of a
 commit unpacked into a git-ignored directory will do). The trees run
@@ -157,6 +157,18 @@ compares two versions within one call. Each process:
   between), each dispatch's ``last_split`` (its ``match_s``: the
   standing work and the copies to the host) and wall time; every
   tree's hits (each filter's ids, in filter order) must equal the first
+  tree's (sha256).
+- ``--serving-only`` times nothing of the above: the tree's store and
+  batched serving at its defaults (``serving_10m``), on this checkout's
+  chip_smoke.py store phase (``phase_store``: 10M rows, chunked
+  writes) and batched phase's 32 seeded queries: each store query
+  STORE_RUNS times in the default, gathered and dense tiers (p50 and
+  quartiles, host clock until the ids are on the host);
+  ``query_batched`` at batch sizes 2, 8 and 32 beside the same queries
+  as sequential ``query()`` calls (SERVING_RUNS passes, p50 a call);
+  and SERVING_RUNS loads of 32 threads x 8 queries through a new
+  ``QueryBatcher(ds)`` (queries/s, per-query p50). Every answer equals
+  the float64 brute force; every tree's ids must equal the first
   tree's (sha256).
 
 Medians of 20 launches (CUDA events; 10 for the batched kernels). Every
@@ -1129,15 +1141,17 @@ def density_case(smoke, seed: int, rows: int, probe) -> dict:
 STORE_RUNS = 21
 
 
-def store_case(smoke, seed: int, rows: int) -> dict:
-    """The tree's store on chip_smoke.py's store phase, each query of it
-    timed STORE_RUNS times per tier (host clock, ids on the host)."""
-    import time
+STORE_TIERS = {"default": (None, None), "gathered": ("0", "1.0"),
+               "dense": ("0", "0")}
+
+
+def tier_p50s(smoke, ds, tiers) -> dict:
+    """Each of chip_smoke.py's store queries STORE_RUNS times in each
+    tier (host clock, ids on the host): p50 and quartiles in ms."""
     from geomesa_tpu_torch.utils.properties import SystemProperty
-    _, ds, _ = smoke.phase_store(seed, rows, {"max_abs_err": 0})
     out = {}
-    for tier, (h, thr) in {"gathered": ("0", "1.0"),
-                           "dense": ("0", "0")}.items():
+    for tier in tiers:
+        h, thr = STORE_TIERS[tier]
         SystemProperty("geomesa.scan.host.rows").set(h)
         SystemProperty("geomesa.scan.index.threshold").set(thr)
         for qi, (ecql, _b, _iv) in enumerate(smoke.STORE_QUERIES):
@@ -1148,6 +1162,14 @@ def store_case(smoke, seed: int, rows: int) -> dict:
                 times.append((time.perf_counter() - t0) * 1e3)
             q1, q2, q3 = statistics.quantiles(times, n=4)
             out[f"{tier}_{qi}"] = {"p50_ms": q2, "q1_ms": q1, "q3_ms": q3}
+    return out
+
+
+def store_case(smoke, seed: int, rows: int) -> dict:
+    """The tree's store on chip_smoke.py's store phase, each query of it
+    timed STORE_RUNS times per tier (host clock, ids on the host)."""
+    _, ds, _ = smoke.phase_store(seed, rows, {"max_abs_err": 0})
+    out = tier_p50s(smoke, ds, ("gathered", "dense"))
     # the dense north-star query in parts: the scan kernel with the
     # mask's copy to the host, the f64 boundary patch, and a cProfile
     # of the whole query (top functions by own time)
@@ -1177,6 +1199,81 @@ def store_case(smoke, seed: int, rows: int) -> dict:
     out["dense_0_parts"] = {k: statistics.median(v) for k, v in parts.items()}
     out["dense_0_profile"] = smoke.profile_top(
         lambda: [ds.query(ecql, "ais").ids for _ in range(5)], top=10)
+    return out
+
+
+SERVING_RUNS = 3
+
+
+def serving_case(smoke, seed: int, rows: int) -> dict:
+    """The tree's store and batched serving at its defaults (see
+    ``--serving-only`` in the module's head)."""
+    import hashlib
+    import threading
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.scan.batcher import QueryBatcher
+    _, ds, (x, y, ms, _ids) = smoke.phase_store(seed, rows,
+                                                {"max_abs_err": 0})
+    out = {"tiers": tier_p50s(smoke, ds, STORE_TIERS)}
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    SystemProperty("geomesa.scan.host.rows").set(None)
+    SystemProperty("geomesa.scan.index.threshold").set(None)
+    specs = smoke.store_batch_specs(seed)
+    ecqls = [smoke._ecql(boxes, iv) for boxes, iv in specs]
+    truth = [smoke._brute(x, y, ms, boxes, iv) for boxes, iv in specs]
+    digest = hashlib.sha256()
+    for e, want in zip(ecqls, truth):
+        got = ds.query(e, "ais").rows
+        if not np.array_equal(got, want):
+            raise SystemExit(f"query() wrong for {e!r}")
+        digest.update(np.asarray(got, dtype=np.int64).tobytes())
+    out["ids_sha256"] = digest.hexdigest()
+    sizes = {}
+    for size in (2, 8, 32):
+        chunks = [[Query("ais", e) for e in ecqls[i:i + size]]
+                  for i in range(0, len(ecqls), size)]
+        batched, seq = [], []
+        for _ in range(SERVING_RUNS):
+            for qs in chunks:
+                t0 = time.perf_counter()
+                [r.ids for r in ds.query_batched(qs)]
+                batched.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                [ds.query(q).ids for q in qs]
+                seq.append((time.perf_counter() - t0) * 1e3)
+        sizes[size] = {"batched_p50_ms": statistics.median(batched),
+                       "sequential_p50_ms": statistics.median(seq)}
+    out["query_batched"] = sizes
+    loads = []
+    for _ in range(SERVING_RUNS):
+        batcher = QueryBatcher(ds)
+        lat, errors = [], []
+
+        def caller(t):
+            for j in range(smoke.BATCHER_PER_THREAD):
+                i = (t * smoke.BATCHER_PER_THREAD + j) % len(ecqls)
+                t0 = time.perf_counter()
+                r = batcher.query(ecqls[i], "ais")
+                r.ids
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if not np.array_equal(r.rows, truth[i]):
+                    errors.append(i)
+        threads = [threading.Thread(target=caller, args=(t,))
+                   for t in range(smoke.BATCHER_THREADS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600.0)
+        wall = time.perf_counter() - t0
+        if errors or len(lat) != smoke.BATCHER_THREADS * \
+                smoke.BATCHER_PER_THREAD:
+            raise SystemExit(f"QueryBatcher: {len(lat)} answers, wrong "
+                             f"{errors[:5]}")
+        loads.append({"queries_per_s": len(lat) / wall,
+                      "p50_ms": statistics.median(lat),
+                      "coalesce_ratio": batcher.stats()["coalesce_ratio"]})
+    out["batcher"] = loads
     return out
 
 
@@ -1579,7 +1676,8 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
            predicates_only: bool = False, density_only: bool = False,
            store_only: bool = False, prefix_only: bool = False,
            joins_only: bool = False, tube_only: bool = False,
-           plain_check: bool = False, standing_only: bool = False) -> dict:
+           plain_check: bool = False, standing_only: bool = False,
+           serving_only: bool = False) -> dict:
     sys.path.insert(0, tree)
     import torch
     from geomesa_tpu_torch.index.zkeys import ZKeyIndex, search_rows
@@ -1597,6 +1695,9 @@ def worker(tree: str, seed: int, rows: int, store_rows: int,
     if store_only:
         return {"tree": tree, "store_10m": store_case(_smoke(), seed,
                                                       store_rows)}
+    if serving_only:
+        return {"tree": tree, "serving_10m": serving_case(_smoke(), seed,
+                                                          store_rows)}
     if joins_only:
         return {"tree": tree, **joins_case(tree, seed, store_rows)}
     has_density = hasattr(kernels, "density_grid")
@@ -1727,6 +1828,9 @@ def main():
     ap.add_argument("--standing-only", action="store_true",
                     help="time only config 15's bulk dispatch through "
                          "StandingFilterSet.dispatch (standing_1m_100k)")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="time only the store's and the batched serving "
+                         "p50s at the tree's defaults (serving_10m)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--plain-check", action="store_true",
                     help=argparse.SUPPRESS)
@@ -1737,7 +1841,7 @@ def main():
                                 args.density_only, args.store_only,
                                 args.prefix_only, args.joins_only,
                                 args.tube_only, args.plain_check,
-                                args.standing_only)),
+                                args.standing_only, args.serving_only)),
               flush=True)
         return 0
     if not args.trees:
@@ -1758,6 +1862,7 @@ def main():
              *(["--joins-only"] if args.joins_only else []),
              *(["--tube-only"] if args.tube_only else []),
              *(["--standing-only"] if args.standing_only else []),
+             *(["--serving-only"] if args.serving_only else []),
              *(["--plain-check"] if args.tube_only and i == 0 else [])],
             capture_output=True, text=True, cwd=ROOT)
         if proc.returncode != 0:
@@ -1766,6 +1871,11 @@ def main():
         line = json.loads(proc.stdout.strip().splitlines()[-1])
         line["card"] = card
         print(json.dumps(line), flush=True)
+        serving = line.get("serving_10m")
+        if serving is not None and hashes.setdefault(
+                "serving_10m", serving["ids_sha256"]) != serving["ids_sha256"]:
+            raise SystemExit(f"{tree}: serving_10m's ids differ from the "
+                             f"first tree's")
         for key, case in line.items():
             if isinstance(case, dict) and "mask_sha256" in case:
                 if hashes.setdefault(key, case["mask_sha256"]) != \

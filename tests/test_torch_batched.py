@@ -472,10 +472,10 @@ def test_store_batched_max_features(stores):
 
 
 def test_store_batched_out_of_slice_raises(stores):
-    """A query outside the port (a TIMEOUT hint: the serving slice)
-    raises through query_batched too."""
+    """A query the store refuses (a hint it does not know) raises
+    through query_batched too."""
     port, _ = stores
     with pytest.raises(NotImplementedError):
         port.query_batched([Query("pts", STORE_QUERIES[0]),
                             Query("pts", STORE_QUERIES[0],
-                                  hints={"TIMEOUT": 1000})])
+                                  hints={"NOT_A_HINT": 1000})])

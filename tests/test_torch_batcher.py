@@ -273,30 +273,32 @@ class TestCoalescing:
 
 class TestPlanCache:
     def test_counters_across_index_version_change(self):
-        """Fused dispatches feed the per-query cost EWMA of their (type,
-        index version); a new index version starts a new estimate."""
+        """Fused dispatches probe the plan shape-class table (type, index
+        version, padded rows, padded batch) and feed the per-query cost
+        EWMA of their (type, index version, padded rows); a new index
+        version starts new classes, as in the JAX batcher."""
         ds = GatingStore()
         _fill(ds, "ships")
         b = QueryBatcher(ds, max_batch=2, linger_us=1_000_000,
                          adaptive=False)
         _stage_coalesced(b, ds, [_bbox("ships", -60, -30),
                                  _bbox("ships", 20, 0)])
-        assert list(b._cost_ewma) == [("ships", 2)]
-        first = b._cost_ewma["ships", 2]
+        assert list(b._cost_ewma) == [("ships", 2, 8192)]
+        first = b._cost_ewma["ships", 2, 8192]
         assert first > 0
         # the same class again: folded into the same estimate
         _stage_coalesced(b, ds, [_bbox("ships", -100, 10),
                                  _bbox("ships", 60, -50)])
-        assert list(b._cost_ewma) == [("ships", 2)]
+        assert list(b._cost_ewma) == [("ships", 2, 8192)]
         # another index version starts a new class
         ds.get_schema("ships").user_data["geomesa.index.version"] = "1"
         _stage_coalesced(b, ds, [_bbox("ships", -60, -30),
                                  _bbox("ships", 20, 0)])
-        assert set(b._cost_ewma) == {("ships", 2), ("ships", 1)}
-        assert b._last_class["ships"] == ("ships", 1)
+        assert set(b._cost_ewma) == {("ships", 2, 8192), ("ships", 1, 8192)}
+        assert b._last_shape["ships"] == ("ships", 1, 8192)
         st = b.stats()
         assert (st["batches"], st["coalesced_queries"]) == (6, 6)
-        assert "plan_cache_hits" not in st
+        assert (st["plan_cache_hits"], st["plan_cache_misses"]) == (1, 2)
 
 
 class TestLatencyCaps:
@@ -305,12 +307,13 @@ class TestLatencyCaps:
                          registry=MetricsRegistry())
         assert b.effective_max_batch("ships") == 32   # no samples yet
         b.store.create_schema("ships", "dtg:Date,*geom:Point:srid=4326")
-        b._observe_cost("ships", 0.002)               # 2 ms per query
+        shape = b._shape_key("ships", 8)
+        b._observe_cost("ships", shape, 0.002)        # 2 ms per query
         assert b.effective_max_batch("ships") == 5
-        b._observe_cost("ships", 0.0001)              # EWMA: 1.62 ms
+        b._observe_cost("ships", shape, 0.0001)       # EWMA: 1.62 ms
         assert b.effective_max_batch("ships") == 6
         b2 = QueryBatcher(b.store, max_batch=32)
-        b2._observe_cost("ships", 1.0)
+        b2._observe_cost("ships", shape, 1.0)
         assert b2.effective_max_batch("ships") == 32  # no budget set
 
 
@@ -340,9 +343,9 @@ class TestErrorIsolation:
         _fill(ds, "ships")
         b = QueryBatcher(ds, max_batch=2, linger_us=1_000_000,
                          adaptive=False)
-        # outside the port (a TIMEOUT hint, the serving slice): raises
+        # a hint the store does not know: raises
         bad = Query("ships", "BBOX(geom, 0, 0, 1, 1)",
-                    hints={"TIMEOUT": 1000})
+                    hints={"NOT_A_HINT": 1000})
         ds.hold = threading.Event()
         warm = threading.Thread(target=b.query, args=(_gated("ships"),))
         warm.start()

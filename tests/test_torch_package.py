@@ -70,7 +70,16 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.store.continuous, geomesa_tpu_torch.geohash, "
             "geomesa_tpu_torch.sql, geomesa_tpu_torch.sql.parser, "
             "geomesa_tpu_torch.sql.planner, geomesa_tpu_torch.sql.engine, "
-            "geomesa_tpu_torch.sql.distributed\n"
+            "geomesa_tpu_torch.sql.distributed, geomesa_tpu_torch.obs, "
+            "geomesa_tpu_torch.obs.trace, geomesa_tpu_torch.obs.prof, "
+            "geomesa_tpu_torch.obs.slo, geomesa_tpu_torch.tenants, "
+            "geomesa_tpu_torch.audit, geomesa_tpu_torch.audit.events, "
+            "geomesa_tpu_torch.audit.hook, "
+            "geomesa_tpu_torch.metrics.reporters, "
+            "geomesa_tpu_torch.scan.registry, "
+            "geomesa_tpu_torch.utils.threads\n"
+            "import importlib; "
+            "importlib.import_module('geomesa_tpu_torch.obs.runtime')\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'geomesa_tpu' "
             "or m.startswith('geomesa_tpu.')]\n"
@@ -123,7 +132,12 @@ def test_no_source_imports_jax_or_reference():
             "scan/standing.py", "store/socketbus.py", "store/stream.py",
             "store/lambda_store.py", "store/continuous.py",
             "geohash/__init__.py", "sql/__init__.py", "sql/parser.py",
-            "sql/planner.py", "sql/engine.py", "sql/distributed.py"} <= seen
+            "sql/planner.py", "sql/engine.py", "sql/distributed.py",
+            "obs/__init__.py", "obs/trace.py", "obs/prof.py",
+            "obs/runtime.py", "obs/slo.py", "tenants/__init__.py",
+            "audit/__init__.py", "audit/events.py", "audit/hook.py",
+            "metrics/reporters.py", "scan/registry.py",
+            "utils/threads.py"} <= seen
     # the native library's C++ sources are the port's own copies
     src = os.path.join(PKG, "native", "src")
     assert sorted(os.listdir(src)) == ["feature_codec.cpp", "zbuild.cpp",
@@ -840,6 +854,96 @@ def test_store_batched_on_cuda_matches_cpu(cuda):
     for g, w, q in zip(got, want, qs):
         assert "Fused device scan" in g.explain.text
         assert list(g.ids) == list(w.ids) == list(stores[1].query(q, "pts").ids)
+
+
+@pytest.mark.gpu
+def test_serving_planes_on_cuda_match_cpu(cuda):
+    """Batched serving through the shared batcher under QoS (three
+    weighted tenants) and full tracing on a CUDA store gives the CPU
+    store's ids, query for query; every caller's trace holds a dispatch
+    and its audit record carries its tenant and principal."""
+    import threading
+    from geomesa_tpu_torch.audit import AuditLogger, principal_scope
+    from geomesa_tpu_torch.obs import tracer
+    from geomesa_tpu_torch.obs.trace import TRACE_SAMPLE
+    from geomesa_tpu_torch.scan.registry import batcher_registry, shared_batcher
+    from geomesa_tpu_torch.tenants import (QOS_ENABLED, tenant_registry,
+                                           tenant_scope)
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    rng = np.random.default_rng(23)
+    n = 60_000
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    ms = 1_577_836_800_000 + rng.integers(0, 100 * MS_DAY, n)
+    ids = [f"f{i}" for i in range(n)]
+    log = AuditLogger()
+    stores = [InMemoryDataStore(audit=log), InMemoryDataStore(device="cpu")]
+    for s in stores:
+        s.create_schema("pts", "dtg:Date,*geom:Point:srid=4326")
+        s.write_dict("pts", ids, {"dtg": ms, "geom": (x, y)})
+    qs = [f"BBOX(geom, {-170 + 20 * i}, -40, {-150 + 20 * i}, 40) AND dtg "
+          f"DURING 2020-01-{5 + i % 20:02d}T00:00:00Z/2020-03-01T00:00:00Z"
+          for i in range(16)]
+    weights = [SystemProperty(f"geomesa.qos.tenant.t{k}.weight")
+               for k in range(3)]
+    QOS_ENABLED.set("true")
+    TRACE_SAMPLE.set("1.0")
+    for k, w in enumerate(weights):
+        w.set(str(4 >> k))
+    tracer.clear()
+    got = [None] * len(qs)
+    try:
+        b = shared_batcher(stores[0], max_batch=8, linger_us=20_000)
+
+        def run(i):
+            with tenant_scope(f"t{i % 3}"), principal_scope(f"user{i % 3}"):
+                got[i] = list(b.query(Query("pts", qs[i])).ids)
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(qs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+            assert not t.is_alive()
+        traces = tracer.traces(limit=100)
+    finally:
+        QOS_ENABLED.set(None)
+        TRACE_SAMPLE.set(None)
+        for w in weights:
+            w.set(None)
+        tracer.clear()
+        tenant_registry.reset()
+        batcher_registry.clear()
+    for q, g in zip(qs, got):
+        assert g == list(stores[1].query(q, "pts").ids)
+    assert len(traces) == len(qs)
+    assert all("dispatch" in t["kinds"] for t in traces)
+    events = log.query("pts")
+    assert len(events) == len(qs)
+    assert sorted((e.tenant, e.user) for e in events) == sorted(
+        (f"t{i % 3}", f"user{i % 3}") for i in range(len(qs)))
+
+
+@pytest.mark.gpu
+def test_runtime_device_memory_matches_memory_stats(cuda):
+    """The runtime plane's device sample is the allocator's own numbers
+    for each card, taken with nothing allocated or freed between."""
+    from geomesa_tpu_torch.metrics import MetricsRegistry
+    from geomesa_tpu_torch.obs.runtime import RuntimeCollector
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    torch.cuda.synchronize()
+    rc = RuntimeCollector(registry=MetricsRegistry())
+    rc.sample_device_memory()
+    stats = torch.cuda.memory_stats(0)
+    mem = rc.snapshot()["device_memory"]
+    dev = mem["devices"]["cuda:0"]
+    assert dev["bytes_in_use"] == stats["allocated_bytes.all.current"] \
+        == torch.cuda.memory_allocated(0) > keep.numel() - 1
+    assert dev["peak_bytes_in_use"] == stats["allocated_bytes.all.peak"]
+    assert mem["live_buffers"] >= 1 and mem["samples"] == 1
+    gauges = rc._registry.snapshot()["gauges"]
+    assert gauges['runtime.device.bytes{device="cuda:0"}'] == \
+        dev["bytes_in_use"]
+    del keep
 
 
 @pytest.mark.gpu

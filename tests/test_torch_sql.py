@@ -918,3 +918,27 @@ def test_file_store_group_by_and_join(tmp_path):
                 port.query(sql)
             continue
         _same(port.query(sql), want, ordered)
+
+
+# -- a plan the planner proves empty ------------------------------------------
+
+EMPTY_PLAN = [
+    "SELECT name, val FROM gdelt WHERE ST_Contains(ST_MakeBBOX(0, 0, 1, 1),"
+    " geom) AND ST_Contains(ST_MakeBBOX(5, 5, 6, 6), geom)",
+    "SELECT * FROM gdelt WHERE ST_Contains(ST_MakeBBOX(-10, 11, 26, 14), "
+    "geom) AND ST_Contains(ST_MakeBBOX(30, -30, 35, -25), geom)",
+    "SELECT a.name, c.bid FROM gdelt a JOIN beacons c ON "
+    "ST_DWithin(a.geom, c.loc, 1.0) WHERE ST_Contains(ST_MakeBBOX(-10, 11, "
+    "26, 14), a.geom) AND ST_Contains(ST_MakeBBOX(30, -30, 35, -25), "
+    "a.geom)",
+]
+
+
+@pytest.mark.parametrize("sql", EMPTY_PLAN)
+def test_empty_plan_answers_the_selected_columns(engines, sql):
+    """A WHERE the planner proves empty (two disjoint boxes under AND)
+    gives the JAX engine's column names and 0 rows, on a projection and
+    on a DWithin join (whose projection reads the empty side's
+    columns)."""
+    got, want = _both(engines, sql)
+    assert got.n == 0 and got.names == want.names

@@ -553,8 +553,8 @@ def test_stats_query_empty_and_bad_spec():
 
 
 def test_ignored_hints_and_refused_ones(gdelt):
-    """query() accepts the hints the reference's query() ignores; the
-    serving slice's TIMEOUT and unknown keys are refused."""
+    """query() accepts the hints the reference's query() ignores, and
+    TIMEOUT (a deadline it reads); unknown keys are refused."""
     from geomesa_tpu_torch.index.api import QueryHints
     port, ref, _, _ = gdelt
     ecql = "BBOX(geom, -80, 30, -60, 45)"
@@ -573,8 +573,10 @@ def test_ignored_hints_and_refused_ones(gdelt):
     want = ref.query(JQuery("g", ecql, hints=dict(hints)))
     assert list(got.ids) == list(want.ids)
     assert port.query_count(Query("g", ecql, hints=hints)) == got.n
-    for bad in ({"TIMEOUT": 5}, {"LAMBDA_QUERY_TRANSIENT": True}):
-        with pytest.raises(NotImplementedError, match="serving slice"):
+    timed = port.query(Query("g", ecql, hints={"TIMEOUT": 60}))
+    assert list(timed.ids) == list(want.ids)
+    for bad in ({"NOT_A_HINT": 5}, {"LAMBDA_QUERY_TRANSIENT": True}):
+        with pytest.raises(NotImplementedError, match="not known"):
             port.query(Query("g", ecql, hints=bad))
 
 

@@ -385,3 +385,115 @@ def test_geometry_less_spatial_entry_points_raise_as_reference(
         for call in calls:
             with pytest.raises(KeyError):
                 call()
+
+
+# -- a plan the planner proves empty keeps its schema -------------------------
+
+EMPTY_ECQL = "BBOX(geom, 0, 0, 1, 1) AND BBOX(geom, 5, 5, 6, 6)"
+
+
+@pytest.fixture(scope="module")
+def small_stores():
+    """Two points in a port store and a JAX store, and a second type
+    created in both with no rows."""
+    from geomesa_tpu.features import parse_spec as jparse_spec
+    from geomesa_tpu_torch.features import parse_spec
+    port, ref = InMemoryDataStore(device="cpu"), JaxStore()
+    for s, parse in ((port, parse_spec), (ref, jparse_spec)):
+        s.create_schema(parse("pts", SPEC))
+        s.write_dict("pts", ["a", "b"], {
+            "name": ["x", "y"], "dtg": [T0, T0 + MS_DAY],
+            "geom": ([0.5, 5.5], [0.5, 5.5])})
+        s.create_schema(parse("none", SPEC))
+    return port, ref
+
+
+def _schema(batch):
+    return ([a.name for a in batch.sft.attributes], list(batch.columns),
+            batch.n, list(batch.ids))
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"properties": ["name"]}, {"properties": ["geom", "dtg"]},
+    {"sort_by": "name", "sort_desc": True, "max_features": 1}])
+def test_empty_plan_batch_matches_reference(small_stores, kw):
+    """query() of a planner-proven empty plan: an empty batch of the
+    type's schema (or the projection's), as in the JAX store, with the
+    plan 'empty' in both."""
+    from geomesa_tpu.index.api import Query as JQuery
+    from geomesa_tpu_torch import Query
+    port, ref = small_stores
+    got = port.query(Query("pts", EMPTY_ECQL, **kw))
+    want = ref.query(JQuery("pts", EMPTY_ECQL, **kw))
+    assert got.plan.index == want.plan.index == "empty"
+    assert got.batch is not None and want.batch is not None
+    assert _schema(got.batch) == _schema(want.batch)
+    assert got.n == want.n == 0 and list(got.ids) == []
+    assert port.query_count(Query("pts", EMPTY_ECQL, **kw)) == 0
+
+
+def test_empty_plan_in_query_batched(small_stores):
+    """The empty plan's entry of query_batched is the same empty batch,
+    beside fused and scalar neighbours."""
+    from geomesa_tpu.index.api import Query as JQuery
+    from geomesa_tpu_torch import Query
+    port, ref = small_stores
+    ecqls = ["BBOX(geom, 0, 0, 1, 1)", EMPTY_ECQL, "BBOX(geom, 5, 5, 6, 6)",
+             "INCLUDE"]
+    got = port.query_batched([Query("pts", e, properties=["name"])
+                              for e in ecqls])
+    want = ref.query_batched([JQuery("pts", e, properties=["name"])
+                              for e in ecqls])
+    for g, w in zip(got, want):
+        assert _schema(g.batch) == _schema(w.batch)
+
+
+def test_empty_plan_arrow_query_columns(small_stores):
+    """arrow_query of an empty plan: an empty table with the JAX
+    store's columns."""
+    port, ref = small_stores
+    got = port.arrow_query("pts", EMPTY_ECQL)
+    want = ref.arrow_query("pts", EMPTY_ECQL)
+    assert got is not None and want is not None
+    assert got.num_rows == want.num_rows == 0
+    assert got.schema.names == want.schema.names
+
+
+def test_type_without_rows_still_answers_none(small_stores):
+    """A type that holds no rows answers batch None in both stores,
+    through query, query_batched and arrow_query."""
+    from geomesa_tpu.index.api import Query as JQuery
+    from geomesa_tpu_torch import Query
+    port, ref = small_stores
+    for ecql in ("INCLUDE", EMPTY_ECQL):
+        got, want = port.query(Query("none", ecql)), ref.query(
+            JQuery("none", ecql))
+        assert got.batch is None and want.batch is None
+        assert got.plan.index == want.plan.index == "empty"
+        pair = port.query_batched([Query("none", ecql), Query("pts", ecql)])
+        assert pair[0].batch is None and pair[1].batch is not None
+        assert port.arrow_query("none", ecql) is None
+        assert ref.arrow_query("none", ecql) is None
+
+
+def test_live_store_empty_plan_matches_reference():
+    """LiveDataStore.query follows the in-memory store: an empty batch
+    of the schema for a planner-proven empty plan."""
+    from geomesa_tpu.features import FeatureBatch as JBatch
+    from geomesa_tpu.features import parse_spec as jparse_spec
+    from geomesa_tpu.store.live import LiveDataStore as JLive
+    from geomesa_tpu.store.live import MessageBus as JBus
+    from geomesa_tpu_torch.features import FeatureBatch, parse_spec
+    from geomesa_tpu_torch.store.live import LiveDataStore, MessageBus
+    out = []
+    for live, batch_cls, parse in (
+            (LiveDataStore(MessageBus(), device="cpu"), FeatureBatch,
+             parse_spec), (JLive(JBus()), JBatch, jparse_spec)):
+        sft = parse("pts", SPEC)
+        live.create_schema(sft)
+        live.write("pts", batch_cls.from_dict(sft, ["a", "b"], {
+            "name": ["x", "y"], "dtg": [T0, T0 + MS_DAY],
+            "geom": ([0.5, 5.5], [0.5, 5.5])}))
+        out.append(_schema(live.query(EMPTY_ECQL, "pts").batch))
+    assert out[0] == out[1]
+    assert out[0][2] == 0
