@@ -188,7 +188,12 @@ Phases, one JSON line each; any failure exits non-zero:
            CSV, its query equal to the brute force. Ingest rows/s
            (creates, upserts), the upsert's id conversion, the CQ
            publish-to-receive p50, the resume seconds, persist seconds,
-           the union query's p50. The two phases have 150 s together
+           the union query's p50. Then, before the broker stops, 32
+           creates of 4 rows published through
+           ChaosProxy(reset_rate=1.0, seed=5) to the broker: resets
+           counted, the log holding each message once and in order, a
+           LiveDataStore on the card consuming it equal to the brute
+           force (``chaos``). The two phases have 150 s together
            (STREAM_BUDGET_S). Launch counts zeroed before the phase and
            read after: the scan kernels and the standing kernels must
            launch.
@@ -343,7 +348,11 @@ Phases, one JSON line each; any failure exits non-zero:
            filter (windows, ids equal to the query's); arrow_ipc of the
            tile (read back through FeatureArrowFileReader, value for
            value) and of the world filter (its ids read back through
-           pyarrow), after one untimed call.
+           pyarrow), after one untimed call. The store's result cache
+           is off for the timing thread in these loops (they time the
+           compute, as before the cache); each line has the time of a
+           cache hit beside it (hit_ms; an Arrow payload over the
+           cache's byte budget is not kept: null).
 7b. sql_gdelt  bench.py config 19's statements on the predicates
            phase's store (its GDELT columns in place of config 19's):
            GROUP BY Actor1CountryCode with COUNT, SUM(NumMentions),
@@ -391,7 +400,10 @@ Phases, one JSON line each; any failure exits non-zero:
            every row in one cell (a 1x1 grid), at the zoom-0 tile and at
            the tile, each with the path it took; one density() call is
            split into the query, the ids' upload, the kernel and the copy
-           back, beside the device columns' first upload. Then 1,000 ids
+           back, beside the device columns' first upload. The p50s of
+           repeated density() and bin_query() calls are timed with the
+           result cache off for the timing thread, each beside a cache
+           hit's time (hit_ms). Then 1,000 ids
            are deleted (delete and rebuild timed) and a z3, a polygon and
            an attribute query are held to the brute force over the kept
            rows, and analyze() must count n - 1,000 rows (the stats stay
@@ -429,6 +441,41 @@ Phases, one JSON line each; any failure exits non-zero:
            lines, p50 of 3 host-clock runs and the tristate's OUT, MAYBE
            and IN counts; then every tristate call of the path held to
            its plain version with torch.equal and timed at its shape.
+11. cache  bench.py config 12 (A-E) on the card: a store ``tiles12``
+           (dtg:Date,*geom:Point) of --store-rows uniform world points
+           (the reference's 100M cut: ``reduced``); density() of 32
+           tiles of 256 x 256 on a 45-degree grid, 4 hot ones asked 80 %
+           of the time, 32 threads x 12 requests a phase (cut only if
+           phases A and D would pass 60 s: ``cut``): (A) the cache off,
+           (B) cached warm, (C) 32 identical cold requests, (D) cached
+           under a write stream (100 rows every 20 ms) with a
+           CacheRefresher(interval_s=0.05, top_k=4), (E) six tiles'
+           cached grids (hits) byte-equal to a fresh recompute at the
+           same version, tile 0 to the float32 brute force over every
+           row. p50, p95, p99, hot-tile p99, queries/s and the hit rate
+           a phase, the hot-tile p99 speedup. Gates: (C) one cache miss
+           and one density_grid launch; (E) exact; the refresher ran,
+           with no errors and no crashes. Launch counts zeroed after
+           the write and read after (E).
+12. ingest bench.py config 16 whole (A-C) at its own 1M rows into
+           durable stores on the card: (A) the scalar per-write leg
+           (geomesa.ingest.vectorized off for its thread, 4,096 rows a
+           write; cut to its first rows past its share of 90 s:
+           ``cut``) against the columnar converter staging 65,536 rows
+           a batch through IngestPipeline, both under "interval":
+           rows/s, writes, staged batches, groups, fsyncs, the speedup
+           (beside the reference's 5x); (B) 32 reader threads x 4 BBOX
+           queries of 40 x 25 degrees, idle and during a pipeline ingest
+           of 200k new rows: p50, p99 and their ratio (beside the
+           reference's 10), each reader's counts rising and at
+           committed groups' boundaries; (C) under "always", group_rows
+           8,192 and 1,024-row batches, the directory copied while the
+           writer runs and the copy reopened. Gates: counts equal the
+           converter's successes, groups <= staged and fsyncs <= groups
+           + 1 in (A), recovered >= acked, a BBOX+time query on each
+           (A) store (gathered and dense tiers) equal to the brute
+           force over the CSV's values. Launch counts zeroed before (A)
+           and read after (C).
 
 Then the kernels summary line, the card line, and the final
 {"ok": true, ...} line. Without CUDA it exits 1 and prints no result.
@@ -2193,10 +2240,10 @@ def phase_fs(seed: int, rows: int) -> tuple[dict, dict]:
     return launches, summary
 
 
-def convert_csv(seed: int, rows: int):
-    """bench.py config 16's CSV (make_csv's lines) and the float64 values
-    of its rows as the converter reads them (the coordinates parsed from
-    the same text)."""
+def convert_csv(seed: int, rows: int, start: int = 0):
+    """bench.py config 16's CSV (make_csv's lines, mmsi and ids from
+    ``start``) and the float64 values of its rows as the converter reads
+    them (the coordinates parsed from the same text)."""
     rng = np.random.default_rng(seed + 16)
     x, y = rng.uniform(-180, 180, rows), rng.uniform(-90, 90, rows)
     day, hh = rng.integers(1, 28, rows), rng.integers(0, 24, rows)
@@ -2206,7 +2253,8 @@ def convert_csv(seed: int, rows: int):
     text = "".join([
         f"vessel{i % 5000},{i},2017-03-{d:02d}T{h:02d}:15:00Z,{a},{b},"
         f"{s:.2f},{c:.2f},{c:.1f}\n"
-        for i, d, h, a, b, s, c in zip(range(rows), day.tolist(),
+        for i, d, h, a, b, s, c in zip(range(start, start + rows),
+                                       day.tolist(),
                                        hh.tolist(), xs, ys, spd.tolist(),
                                        crs.tolist())])
     t0 = int(np.datetime64("2017-03-01", "ms").astype(np.int64))
@@ -3177,10 +3225,12 @@ def phase_stream(seed: int, budget_s: float) -> tuple[dict, dict]:
         pub.close()
         pub_bus.close()
         pub_bus = None
-        broker.stop()
-        broker = None
         del live
         emit({**out, "part": "live"})
+        out["chaos"] = stream_chaos(seed, broker, n_msg)
+        emit({"phase": "stream", "part": "chaos", **out["chaos"]})
+        broker.stop()
+        broker = None
 
         # lambda: a transient live tier over a file store on the card
         lam = LambdaDataStore(persistent=FileSystemDataStore(roots[1]),
@@ -3280,6 +3330,84 @@ def phase_stream(seed: int, budget_s: float) -> tuple[dict, dict]:
           **{k: out[k] for k in ("stream", "seconds", "card", "launches")}})
     torch.cuda.empty_cache()
     return launches, out
+
+
+STREAM_CHAOS_ROWS = 4       # rows a create: a frame well under 4 KiB
+
+
+def stream_chaos(seed: int, broker, n_msg: int) -> dict:
+    """tests/test_resilience.py's publish-through-resets case at the
+    stream phase's message count: ``n_msg`` creates of STREAM_CHAOS_ROWS
+    rows (their own type) published by a SocketBus through
+    ChaosProxy(reset_rate=1.0, seed=5) to the phase's broker, so every
+    connection is reset within its first 4 KiB. Gates: resets counted;
+    the broker's log holds every message once, in order; a
+    LiveDataStore on the card consuming the log answers a BBOX query as
+    the brute force over the rows sent."""
+    from geomesa_tpu_torch import LiveDataStore, SocketBus
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.sft import parse_spec
+    from geomesa_tpu_torch.resilience import ChaosProxy, RetryPolicy
+    from geomesa_tpu_torch.store.live import GeoMessage
+    t0 = time.perf_counter()
+    sft = parse_spec("ais_chaos", FS_SPEC)
+    k = STREAM_CHAOS_ROWS
+    d = fs_rows(seed + 24, n_msg * k)
+    proxy = ChaosProxy(broker.host, broker.port, reset_rate=1.0,
+                       seed=5).start()
+    buses = []
+    try:
+        pub = SocketBus(proxy.host, proxy.port, group="chaos-pub",
+                        retry_policy=RetryPolicy(
+                            max_attempts=40, base_s=0.02, cap_s=0.25,
+                            total_deadline_s=30.0))
+        buses.append(pub)
+        for i in range(n_msg):
+            sl = slice(i * k, (i + 1) * k)
+            b = FeatureBatch.from_dict(
+                sft, [f"c{j}" for j in range(i * k, (i + 1) * k)],
+                {"name": [str(v) for v in d["vocab"][d["vessel"][sl]]],
+                 "mmsi": d["mmsi"][sl], "dtg": d["ms"][sl],
+                 "speed": d["speed"][sl], "course": d["course"][sl],
+                 "heading": d["heading"][sl],
+                 "geom": (d["x"][sl], d["y"][sl])})
+            pub.publish("ais_chaos", GeoMessage("create", "ais_chaos",
+                                                batch=b,
+                                                timestamp_ms=1000 + i))
+        publish_s = time.perf_counter() - t0
+        stats = dict(proxy.stats)
+        log = SocketBus(broker.host, broker.port, group="chaos-log")
+        buses.append(log)
+        seen = []
+        log.subscribe("ais_chaos", lambda m: seen.append(
+            (m.timestamp_ms, [str(i) for i in m.batch.ids])))
+        log.poll()
+        bus = SocketBus(broker.host, broker.port, group="chaos-live")
+        buses.append(bus)
+        live = LiveDataStore(bus=bus)
+        live.create_schema(sft)
+        bus.poll()
+        ecql = "BBOX(geom, -90, -45, 90, 45)"
+        want = sorted(f"c{j}" for j in np.flatnonzero(
+            _in_box(d["x"], d["y"], (-90, -45, 90, 45))))
+        got = sorted(str(i) for i in live.query(ecql, "ais_chaos").ids)
+        count = live.count("ais_chaos")
+        del live
+    finally:
+        for b in buses:
+            b.close()
+        proxy.stop()
+    want_log = [(1000 + i, [f"c{j}" for j in range(i * k, (i + 1) * k)])
+                for i in range(n_msg)]
+    out = {"messages": n_msg, "rows_each": k, "resets": stats["resets"],
+           "connections": stats["connections"], "publish_s": publish_s,
+           "log_exactly_once_in_order": seen == want_log,
+           "live_hits": len(got), "live_equal": got == want,
+           "live_count": count, "seconds": time.perf_counter() - t0}
+    if not (stats["resets"] > 0 and seen == want_log and got == want
+            and count == n_msg * k):
+        raise SystemExit(f"stream: the chaos leg failed: {out}")
+    return out
 
 
 PLAIN_IDS = 100           # ids in the geometry-less phase's id query
@@ -4389,9 +4517,12 @@ def phase_stats(ds, d: dict, ids, queries, per_q) -> dict:
     after: the filtered stats queries run the store's scans."""
     import pyarrow as pa
     from geomesa_tpu_torch.arrow.io import FeatureArrowFileReader
+    from geomesa_tpu_torch.cache import ResultCache, stats_key
     from geomesa_tpu_torch.filters import parse_ecql
     from geomesa_tpu_torch.scan import kernels
     from geomesa_tpu_torch.stats.estimator import StatsEstimator
+    from geomesa_tpu_torch.stats.serialize import (deserialize_stat,
+                                                   serialize_stat)
     t_phase = time.perf_counter()
     x, y, ms = d["x"], d["y"], d["ms"]
     n = len(x)
@@ -4424,13 +4555,22 @@ def phase_stats(ds, d: dict, ids, queries, per_q) -> dict:
     for fname, ecql, rows in filters:
         for spec in STATS_SPECS:
             want = stats_brute(spec, d, rows)
-            times, stat = _runs(lambda: ds.stats_query("gdelt", spec, ecql))
+            times, stat = _cache_off(lambda: _runs(
+                lambda: ds.stats_query("gdelt", spec, ecql)))
             ok = stats_ok(spec, stat.to_json_object(), want)
             if spec.startswith("Z3Histogram"):
                 ok = ok and stat.total == len(rows)
+            # install the entry a miss would, from the run above at the
+            # same version, so the hit is timed without a second compute
+            ds.result_cache.get_or_compute(
+                "gdelt", stats_key(ecql, spec)[1], lambda: stat,
+                encode=serialize_stat, decode=deserialize_stat)
+            hit = _hit_ms(ds, lambda: ds.stats_query("gdelt", spec, ecql))
+            ok = ok and stats_ok(spec, ds.stats_query(
+                "gdelt", spec, ecql).to_json_object(), want)
             stat_rows.append({"filter": fname, "stat": spec, "exact": ok,
                               "p50_ms": statistics.median(times),
-                              "runs": len(times)})
+                              "runs": len(times), "hit_ms": hit})
             if not ok:
                 wrong.append(("stats_query", fname, spec))
 
@@ -4455,11 +4595,12 @@ def phase_stats(ds, d: dict, ids, queries, per_q) -> dict:
 
     # arrow_ipc: the tile read back value for value, the world by id;
     # one untimed call first pays pyarrow's lazy imports (about 2 s)
-    ds.arrow_ipc("gdelt", _tile_ecql())
+    _cache_off(lambda: ds.arrow_ipc("gdelt", _tile_ecql()))
     arrow = []
     for fname, ecql, rows in (("tile", _tile_ecql(), tile),
                               ("world_73d", world_ecql, world)):
-        times, payload = _runs(lambda: ds.arrow_ipc("gdelt", ecql))
+        times, payload = _cache_off(lambda: _runs(
+            lambda: ds.arrow_ipc("gdelt", ecql)))
         if fname == "tile":
             b = FeatureArrowFileReader(payload).read_all()
             ev = b.col("EventCode")
@@ -4474,9 +4615,13 @@ def phase_stats(ds, d: dict, ids, queries, per_q) -> dict:
             fids = pa.ipc.open_file(pa.BufferReader(payload)).read_all(
             ).column("__fid__").to_numpy(zero_copy_only=False)
             ok = bool(np.array_equal(fids, ids[rows]))
+        # a payload over the cache's byte budget is served, not kept
+        hit = (_hit_ms(ds, lambda: ds.arrow_ipc("gdelt", ecql))
+               if len(payload) <= ResultCache.max_bytes() else None)
         arrow.append({"filter": fname, "rows": len(rows),
                       "bytes": len(payload), "exact": bool(ok),
-                      "ms": statistics.median(times), "runs": len(times)})
+                      "ms": statistics.median(times), "runs": len(times),
+                      "hit_ms": hit})
         if not ok:
             wrong.append(("arrow_ipc", fname))
         del payload
@@ -4623,10 +4768,12 @@ def density_split(ds, ecql, bbox, width, height, attr) -> dict:
         for k, a, b in (("query", t0, t1), ("ids_upload", t1, t2),
                         ("kernel", t2, t3), ("copy_back", t3, t4)):
             steps[k].append((b - a) * 1e3)
-        steps["call"].append(_timed(lambda: ds.density(
-            "gdelt", ecql, bbox, width, height, attr)))
+        steps["call"].append(_cache_off(lambda: _timed(lambda: ds.density(
+            "gdelt", ecql, bbox, width, height, attr))))
     return {"rows": len(rows), "device_columns_s": columns_s,
-            **{f"{k}_ms": statistics.median(v) for k, v in steps.items()}}
+            **{f"{k}_ms": statistics.median(v) for k, v in steps.items()},
+            "hit_ms": _hit_ms(ds, lambda: ds.density(
+                "gdelt", ecql, bbox, width, height, attr))}
 
 
 def density_launch_ok(args, got) -> tuple[bool, float]:
@@ -4886,7 +5033,11 @@ def phase_surface(ds, d: dict, ids, queries) -> dict:
                   and np.array_equal(rec["label"], label[o])
                   and (not sort or bool(np.all(np.diff(rec["secs"]) >= 0))))
             bins.append({"sort": sort, "records": len(rec), "exact": bool(ok),
-                         "p50_ms": _p50(lambda: ds.bin_query(
+                         "p50_ms": _cache_off(lambda: _p50(
+                             lambda: ds.bin_query("gdelt", _tile_ecql(),
+                                                  label="EventCode",
+                                                  sort=sort))),
+                         "hit_ms": _hit_ms(ds, lambda: ds.bin_query(
                              "gdelt", _tile_ecql(), label="EventCode",
                              sort=sort))})
             if not ok:
@@ -4945,8 +5096,8 @@ def phase_surface(ds, d: dict, ids, queries) -> dict:
         "one_cell_ms": cuda_ms(lambda: kernels.density_grid_rows(*one_cell),
                                20),
         "one_cell_bound_ms": bound_ms(density_bytes(one_cell), 0)[0],
-        "one_cell_call_ms": _p50(lambda: ds.density(
-            "gdelt", grids[1][1], WORLD, 1, 1, "NumMentions")),
+        "one_cell_call_ms": _cache_off(lambda: _p50(lambda: ds.density(
+            "gdelt", grids[1][1], WORLD, 1, 1, "NumMentions"))),
         "zoom0": {"rows": int(zoom[0].shape[0]), "width": zoom[7],
                   "height": zoom[8], "path": path(zoom),
                   "ms": cuda_ms(lambda: kernels.density_grid_rows(*zoom), 20),
@@ -4963,8 +5114,12 @@ def phase_surface(ds, d: dict, ids, queries) -> dict:
     split = {name: density_split(ds, ecql, bbox, w, h, attr)
              for name, ecql, bbox, w, h, attr, _m, _w in grids[:2]}
     for g, (name, ecql, bbox, w, h, attr, _m, _w) in zip(density, grids):
-        g["p50_ms"] = (split[name]["call_ms"] if name in split else _p50(
-            lambda: ds.density("gdelt", ecql, bbox, w, h, attr)))
+        g["p50_ms"] = (split[name]["call_ms"] if name in split
+                       else _cache_off(lambda: _p50(lambda: ds.density(
+                           "gdelt", ecql, bbox, w, h, attr))))
+        g["hit_ms"] = (split[name]["hit_ms"] if name in split
+                       else _hit_ms(ds, lambda: ds.density(
+                           "gdelt", ecql, bbox, w, h, attr)))
 
     # delete 1,000 ids, then the rebuild and three strategies
     gone = np.random.default_rng(41).choice(len(x), 1000, replace=False)
@@ -6663,6 +6818,629 @@ def phase_sql_gdelt(seed: int, ds, d: dict, ids) -> tuple[dict, dict]:
     return out, launches_all
 
 
+# -- the result cache and the ingest pipeline (queue 1 item 7b) ------------
+
+CACHE_TILES, CACHE_HOT = 32, 4      # bench.py config 12: a 45-degree grid
+CACHE_TILE_PX = 256
+CACHE_THREADS = 32
+CACHE_REQUESTS = 12                 # per worker and phase, the reference's
+CACHE_BUDGET_S = 60.0               # phases A-E (the write is set-up)
+CACHE_WRITE_ROWS, CACHE_WRITE_S = 100, 0.02    # phase D's write stream
+CACHE_EXACT_TILES = CACHE_HOT + 2
+
+
+def _cache_off(fn):
+    """fn() with the store's result cache off for this thread only (as
+    bench.py config 12 phase E recomputes), so that a loop repeating one
+    pushdown times its compute, as before the cache."""
+    from geomesa_tpu_torch.cache import CACHE_ENABLED
+    CACHE_ENABLED.thread_local_set("false")
+    try:
+        return fn()
+    finally:
+        CACHE_ENABLED.thread_local_set(None)
+
+
+def _hit_ms(ds, fn, runs: int = 3):
+    """Median host-clock ms of ``runs`` cache hits of fn(), after one call
+    that installs its entry (a miss unless an earlier call did). Fails
+    the run if any timed call was not a hit."""
+    fn()
+    h0 = ds.result_cache.hits
+    times = [_timed(fn) for _ in range(runs)]
+    if ds.result_cache.hits - h0 != runs:
+        raise SystemExit("a repeated pushdown was not served from the cache")
+    return statistics.median(times)
+
+
+def _counter(name: str) -> int:
+    from geomesa_tpu_torch.metrics import metrics
+    return metrics.snapshot()["counters"].get(name, 0)
+
+
+def _latency_pcts(lat) -> dict:
+    a = np.asarray(lat) * 1e3
+    return {f"p{q}_ms": float(np.percentile(a, q)) for q in (50, 95, 99)}
+
+
+def cache_tile(i: int) -> tuple:
+    x0 = -180.0 + (i % 8) * 45.0
+    y0 = -90.0 + ((i // 8) % 4) * 45.0
+    return (x0, y0, x0 + 45.0, y0 + 45.0)
+
+
+def phase_cache(seed: int, rows: int) -> tuple[dict, dict]:
+    """bench.py config 12, phases A-E, on the card: hot-tile density
+    serving through the store's result cache. ``tiles12``
+    (dtg:Date,*geom:Point) holds ``rows`` uniform world points (the
+    reference's N_BIG is 100M: ``reduced``). 32 tiles of 256 x 256 on a
+    45-degree grid, 4 hot ones asked 80 % of the time, 32 threads x
+    CACHE_REQUESTS requests a phase, each worker's schedule fixed by its
+    phase's seed. (A) uncached (the cache off process-wide), (B) cached
+    warm, (C) single flight: 32 identical cold requests, (D) cached
+    under a write stream of 100 rows every 20 ms with a
+    CacheRefresher(interval_s=0.05, top_k=4), (E) exactness: six tiles'
+    cached grids against a fresh recompute at the same version (the
+    cache off for this thread), one against density_brute over every
+    row written. Requests a worker are cut (``cut``) only if phases A
+    and D would pass CACHE_BUDGET_S. Launch counts zeroed after the
+    write and read after (E)."""
+    import threading
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.cache import CACHE_ENABLED, CacheRefresher
+    from geomesa_tpu_torch.scan import kernels
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 12)
+    x = rng.uniform(-180, 180, rows)
+    y = rng.uniform(-90, 90, rows)
+    ms = rng.integers(T0_DAY * MS_DAY, T1_DAY * MS_DAY, rows)
+    ds = InMemoryDataStore()
+    ds.create_schema("tiles12", "dtg:Date,*geom:Point:srid=4326")
+    ds.write_dict("tiles12", np.arange(rows).astype(str).astype(object),
+                  {"dtg": ms, "geom": (x, y)})
+    del ms
+    px = CACHE_TILE_PX
+
+    def serve(i):
+        return ds.density("tiles12", "INCLUDE", cache_tile(int(i)), px, px)
+
+    # the first call pays the index, the device columns and the kernel
+    # library; then the uncached cost of one request, for the cut
+    serve(0)
+    setup_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    _cache_off(lambda: [serve(i) for i in range(CACHE_HOT)])
+    probe_s = (time.perf_counter() - t0) / CACHE_HOT
+    nq = min(CACHE_REQUESTS, max(2, int(
+        0.4 * CACHE_BUDGET_S / (CACHE_THREADS * probe_s))))
+    cut = None if nq == CACHE_REQUESTS else {"requests_per_worker": nq,
+                                             "of": CACHE_REQUESTS}
+    kernels.reset_launches()
+    t_main = time.perf_counter()
+
+    def run_phase(phase_seed):
+        prng = np.random.default_rng(phase_seed)
+        sched = [np.where(prng.random(nq) < 0.8,
+                          prng.integers(0, CACHE_HOT, nq),
+                          prng.integers(CACHE_HOT, CACHE_TILES, nq))
+                 for _ in range(CACHE_THREADS)]
+        lat = [[] for _ in range(CACHE_THREADS)]
+        hot = [[] for _ in range(CACHE_THREADS)]
+        barrier = threading.Barrier(CACHE_THREADS)
+        errors = []
+
+        def worker(w):
+            try:
+                barrier.wait(60.0)
+                for i in sched[w]:
+                    t0 = time.perf_counter()
+                    serve(i)
+                    dt = time.perf_counter() - t0
+                    lat[w].append(dt)
+                    if i < CACHE_HOT:
+                        hot[w].append(dt)
+            except Exception as e:   # noqa: BLE001 (fails the phase)
+                errors.append(repr(e))
+        threads = [threading.Thread(target=worker, args=(w,))
+                   for w in range(CACHE_THREADS)]
+        h0, m0 = ds.result_cache.hits, ds.result_cache.misses
+        w0 = ds.result_cache.singleflight_waits
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise SystemExit(f"cache: a worker failed: {errors[:3]}")
+        alls = [v for ws in lat for v in ws]
+        hots = [v for ws in hot for v in ws] or alls
+        hits = ds.result_cache.hits - h0
+        misses = ds.result_cache.misses - m0
+        return {"requests": len(alls), "qps": len(alls) / wall,
+                **_latency_pcts(alls),
+                "hot_p99_ms": _latency_pcts(hots)["p99_ms"],
+                "hits": hits, "misses": misses,
+                "singleflight_waits": ds.result_cache.singleflight_waits - w0,
+                "hit_rate": hits / max(hits + misses, 1), "seconds": wall}
+
+    out = {"phase": "cache", "rows": rows, "card": card_line(),
+           "tiles": CACHE_TILES, "hot": CACHE_HOT, "width": px,
+           "threads": CACHE_THREADS, "requests_per_worker": nq, "cut": cut,
+           "reduced": {"rows": rows, "of": 100_000_000,
+                       "why": "bench.py's N_BIG; the script's other "
+                              "phases hold the card's memory and time"},
+           "setup_s": setup_s, "uncached_probe_ms": probe_s * 1e3}
+    # (A) uncached: the process-wide switch, every thread
+    CACHE_ENABLED.set("false")
+    try:
+        out["uncached"] = run_phase(7)
+    finally:
+        CACHE_ENABLED.set(None)
+    # (B) cached warm: every tile installed at the current version
+    for i in range(CACHE_TILES):
+        serve(i)
+    out["cached"] = run_phase(8)
+    out["hot_p99_speedup"] = (out["uncached"]["hot_p99_ms"]
+                              / max(out["cached"]["hot_p99_ms"], 1e-9))
+    # (C) single flight: 32 identical cold requests, one compute
+    cache = ds.result_cache
+    cache.invalidate()
+    m0, sf0, c0 = (cache.misses, cache.singleflight_waits,
+                   _counter("cache.misses"))
+    launches0 = kernels.launches["density_grid"]
+    barrier = threading.Barrier(CACHE_THREADS)
+    grids = [None] * CACHE_THREADS
+
+    def cold(w):
+        barrier.wait(60.0)
+        grids[w] = serve(0)
+    threads = [threading.Thread(target=cold, args=(w,))
+               for w in range(CACHE_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    flight = {"requests": CACHE_THREADS, "misses": cache.misses - m0,
+              "cache_misses_counter": _counter("cache.misses") - c0,
+              "waits": cache.singleflight_waits - sf0,
+              "launches": kernels.launches["density_grid"] - launches0,
+              "same_grids": all(g is not None
+                                and g.tobytes() == grids[0].tobytes()
+                                for g in grids)}
+    out["singleflight"] = flight
+    del grids
+    # (D) cached under writes, the refresher re-materializing hot tiles
+    stop = threading.Event()
+    written = {"x": [], "y": [], "rows": 0}
+    werrors = []
+
+    def writer():
+        w_rng = np.random.default_rng(seed + 999)
+        try:
+            while not stop.is_set():
+                k = CACHE_WRITE_ROWS
+                wx = w_rng.uniform(-180, 180, k)
+                wy = w_rng.uniform(-90, 90, k)
+                ds.write_dict("tiles12", np.array(
+                    [f"w{written['rows'] + j}" for j in range(k)],
+                    dtype=object), {"dtg": w_rng.integers(
+                        T0_DAY * MS_DAY, T1_DAY * MS_DAY, k),
+                        "geom": (wx, wy)})
+                written["x"].append(wx)
+                written["y"].append(wy)
+                written["rows"] += k
+                stop.wait(CACHE_WRITE_S)
+        except Exception as e:   # noqa: BLE001 (fails the phase)
+            werrors.append(repr(e))
+    e0 = _counter("cache.refresh.errors")
+    k0 = _counter("cache.refresh.crashes")
+    refresher = CacheRefresher(ds, interval_s=0.05, top_k=CACHE_HOT).start()
+    wt = threading.Thread(target=writer)
+    wt.start()
+    try:
+        out["cached_under_writes"] = run_phase(9)
+    finally:
+        stop.set()
+        wt.join()
+        refresher.stop()
+    out["cached_under_writes"].update(
+        rows_written=written["rows"], refresh_runs=refresher.runs,
+        refresh_errors=_counter("cache.refresh.errors") - e0,
+        refresh_crashes=_counter("cache.refresh.crashes") - k0,
+        refreshes=cache.refreshes)
+    out["hot_p99_speedup_under_writes"] = (
+        out["uncached"]["hot_p99_ms"]
+        / max(out["cached_under_writes"]["hot_p99_ms"], 1e-9))
+    # (E) exactness: a cached grid (a hit) against a fresh recompute at
+    # the same version; tile 0 against the brute force over every row
+    # (a density grid clips the rows outside its box to the edge cells)
+    exact, version = [], ds.pushdown_version("tiles12")
+    for i in range(CACHE_EXACT_TILES):
+        serve(i)
+        h0 = cache.hits
+        g_cached = serve(i)
+        g_fresh = _cache_off(lambda: serve(i))
+        exact.append(cache.hits == h0 + 1
+                     and g_cached.tobytes() == g_fresh.tobytes())
+    same_version = ds.pushdown_version("tiles12") == version
+    ax = np.concatenate([x] + written["x"])
+    ay = np.concatenate([y] + written["y"])
+    want, _ = density_brute(ax, ay, np.ones(len(ax), bool), cache_tile(0),
+                            px, px)
+    brute_ok = bool(np.array_equal(serve(0), want))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    out.update(exact_at_version=exact, same_version=same_version,
+               brute_tile0=brute_ok, rows_at_end=ds.count("tiles12"),
+               cache_status={k: v for k, v in ds.cache_status().items()
+                             if k in ("entries", "bytes", "hits", "misses",
+                                      "evictions", "singleflight_waits",
+                                      "refreshes", "invalidations")},
+               launches={"density_grid": launches["density_grid"]},
+               main_s=time.perf_counter() - t_main,
+               seconds=time.perf_counter() - t_phase)
+    for p in ("uncached", "cached", "cached_under_writes"):
+        emit({"phase": "cache", "part": p, **out[p]})
+    wrong = []
+    if werrors:
+        wrong.append(("writer", werrors[:3]))
+    if not (flight["misses"] == 1 and flight["cache_misses_counter"] == 1
+            and flight["launches"] == 1 and flight["same_grids"]):
+        wrong.append(("singleflight", flight))
+    if not (all(exact) and same_version and brute_ok):
+        wrong.append(("exactness", exact, same_version, brute_ok))
+    d = out["cached_under_writes"]
+    if d["refresh_errors"] or d["refresh_crashes"] or not d["refresh_runs"]:
+        wrong.append(("refresher", d["refresh_runs"], d["refresh_errors"],
+                      d["refresh_crashes"]))
+    if ds.count("tiles12") != rows + written["rows"]:
+        wrong.append(("rows", ds.count("tiles12"), rows + written["rows"]))
+    out["wrong"] = wrong
+    emit(out)
+    del ds, ax, ay, x, y
+    torch.cuda.empty_cache()
+    if wrong:
+        raise SystemExit(f"cache: {wrong}")
+    if not launches["density_grid"]:
+        raise SystemExit("cache: density_grid never launched")
+    return launches, out
+
+
+INGEST_ROWS = 1_000_000             # bench.py config 16's own rows
+INGEST_CHUNKS = (4_096, 65_536)     # the scalar leg's writes, the staged
+INGEST_READERS, INGEST_READ_ROUNDS = 32, 4
+INGEST_LIVE_ROWS = 200_000          # (B): the live pipeline ingest
+INGEST_KILL_ROWS, INGEST_KILL_BATCH = 100_000, 1_024   # (C)
+INGEST_KILL_GROUP = 8_192
+INGEST_BUDGET_S = 90.0
+INGEST_SCALAR_SHARE = 0.35          # of the budget: the scalar leg's cut
+
+
+def ingest_queries(m: int, seed: int) -> list:
+    """bench.py config 16 (B)'s reads: BBOX queries of 40 x 25 degrees."""
+    q_rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(m):
+        x0 = float(q_rng.uniform(-150, 110))
+        y0 = float(q_rng.uniform(-70, 45))
+        out.append(f"BBOX(geom, {x0:.4f}, {y0:.4f}, {x0 + 40:.4f}, "
+                   f"{y0 + 25:.4f})")
+    return out
+
+
+def read_battery(ds, seed: int, watch=None) -> dict:
+    """INGEST_READERS threads x INGEST_READ_ROUNDS BBOX queries; each
+    thread also reads the store's count after each query (``watch``
+    collects them, with the thread, in order)."""
+    import threading
+    lat, lock, errors = [], threading.Lock(), []
+    ends = []
+
+    def worker(wid):
+        try:
+            mine, seen = [], []
+            for ecql in ingest_queries(INGEST_READ_ROUNDS, seed + wid):
+                t0 = time.perf_counter()
+                ds.query(ecql, "ais16").ids
+                t1 = time.perf_counter()
+                mine.append(t1 - t0)
+                seen.append(ds.count("ais16"))
+            with lock:
+                lat.extend(mine)
+                ends.append(t1)
+                if watch is not None:
+                    watch.append(seen)
+        except Exception as e:   # noqa: BLE001 (fails the phase)
+            errors.append(repr(e))
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(INGEST_READERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise SystemExit(f"ingest: a reader failed: {errors[:3]}")
+    return {**_latency_pcts(lat), "queries": len(lat),
+            "seconds": time.perf_counter() - t0, "last_end": max(ends)}
+
+
+def phase_ingest(seed: int) -> tuple[dict, dict]:
+    """bench.py config 16 whole (A-C) at its own 1M rows, into durable
+    stores on the card (each under a temporary directory, removed at
+    the end). (A) its CSV converted and written two ways under the
+    "interval" fsync policy: the scalar leg (record-at-a-time
+    transforms, geomesa.ingest.vectorized off for this thread only, one
+    store.write per 4,096 rows; cut to its first rows once past its
+    share of INGEST_BUDGET_S, ``cut``) against the columnar converter
+    staging 65,536-row batches through IngestPipeline; rows/s, writes,
+    staged batches, groups, fsyncs, the speedup beside the reference's
+    5x. (B) 32 reader threads x 4 BBOX queries of 40 x 25 degrees on the
+    pipeline's store, idle, then during a pipeline ingest of 200k new
+    rows: p50 and p99 of each and their ratio beside the reference's 10;
+    every reader's counts after each query only rise, and each is a
+    committed group's boundary. (C) the kill image: under "always",
+    group_rows 8,192 and batches of 1,024, half of 100k rows staged,
+    the directory copied while the writer runs, the copy reopened on
+    the card. Gates: every store's count equals the converter's
+    successes; groups <= staged batches and fsyncs <= groups + 1 in
+    (A); the recovered rows >= the rows acked before the copy; a
+    BBOX+time query on each (A) store, through the gathered and the
+    dense tiers, equals the brute force over the CSV's values. Launch
+    counts zeroed before (A) and read after (C)."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+
+    import pyarrow.csv  # noqa: F401  (the vectorized CSV parse)
+
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.convert import EvaluationContext, converter_for
+    from geomesa_tpu_torch.convert.vectorized import INGEST_VECTORIZED
+    from geomesa_tpu_torch.features.sft import parse_spec
+    from geomesa_tpu_torch.ingest import IngestPipeline
+    from geomesa_tpu_torch.scan import kernels
+    t_phase = time.perf_counter()
+    rows = INGEST_ROWS
+    text, x, y, ms = convert_csv(seed, rows)
+    live_text, lx, ly, lms = convert_csv(seed + 1, INGEST_LIVE_ROWS,
+                                         start=rows)
+    setup_s = time.perf_counter() - t_phase
+    conv = converter_for(parse_spec("ais16", FS_SPEC), CONVERT_CSV)
+    week = [int(np.datetime64(f"2017-03-{dd:02d}", "ms").astype(np.int64))
+            for dd in (5, 12)]
+    roots = [tempfile.mkdtemp(prefix=f"geomesa-ingest16-{p}-")
+             for p in ("scalar", "vec", "kill", "img")]
+    out = {"phase": "ingest", "rows": rows, "card": card_line(),
+           "setup_s": setup_s}
+    wrong = []
+
+    def check(ds, what, n_rows, xs, ys, mss):
+        """count == the rows, a BBOX+time query through both kernel
+        tiers equal to the brute force over those rows."""
+        want = _brute(xs, ys, mss, [(-80, 30, -60, 45)], week)
+        for tier in ("gathered", "dense"):
+            _fs_tier(tier)
+            try:
+                got = np.sort(np.array([int(i[1:]) for i in ds.query(
+                    CONVERT_QUERY, "ais16").ids], dtype=np.int64))
+                count = ds.query_count(CONVERT_QUERY, "ais16")
+            finally:
+                _fs_tier(None)
+            if not (np.array_equal(got, want) and count == len(want)):
+                wrong.append((what, tier, len(got), count, len(want)))
+        if ds.count("ais16") != n_rows:
+            wrong.append((what, "count", ds.count("ais16"), n_rows))
+        return len(want)
+
+    kernels.reset_launches()
+    try:
+        # (A) the scalar leg: a 2 % probe, then the rows its share allows
+        ds = InMemoryDataStore(durable_dir=roots[0], wal_fsync="interval")
+        ds.create_schema(parse_spec("ais16", FS_SPEC))
+        probe = rows // 50
+        probe_text = text[:text.index("\n", len(text) * probe // rows) + 1]
+        INGEST_VECTORIZED.thread_local_set("false")
+        try:
+            t0 = time.perf_counter()
+            n_probe = sum(b.n for b, _ in conv.iter_batches(
+                probe_text, EvaluationContext(),
+                batch_rows=INGEST_CHUNKS[0]))
+            rate = n_probe / (time.perf_counter() - t0)
+            fit = int(rate * INGEST_SCALAR_SHARE * INGEST_BUDGET_S / 2)
+            sub = text if fit >= rows else text[:text.index(
+                "\n", len(text) * fit // rows) + 1]
+            scalar_rows = sub.count("\n")
+            cut = None if scalar_rows == rows else {"scalar_rows":
+                                                    scalar_rows, "of": rows}
+            ctx = EvaluationContext()
+            gc.collect()
+            gc.disable()
+            f0, t0 = _counter("wal.fsyncs"), time.perf_counter()
+            writes = 0
+            for batch, _ in conv.iter_batches(sub, ctx,
+                                              batch_rows=INGEST_CHUNKS[0]):
+                ds.write("ais16", batch)
+                writes += 1
+            scalar_s = time.perf_counter() - t0
+            scalar_fsyncs = _counter("wal.fsyncs") - f0
+        finally:
+            gc.enable()
+            INGEST_VECTORIZED.thread_local_set(None)
+        if ctx.success != scalar_rows:
+            wrong.append(("scalar successes", ctx.success, scalar_rows))
+        check(ds, "scalar", ctx.success, x[:scalar_rows], y[:scalar_rows],
+              ms[:scalar_rows])
+        ds.close()
+        del ds
+        # (A) the pipeline leg: the columnar converter, staged
+        ds = InMemoryDataStore(durable_dir=roots[1], wal_fsync="interval")
+        ds.create_schema(parse_spec("ais16", FS_SPEC))
+        ctx = EvaluationContext()
+        gc.collect()
+        gc.disable()
+        try:
+            f0, g0, t0 = (_counter("wal.fsyncs"), _counter("ingest.groups"),
+                          time.perf_counter())
+            staged = 0
+            with IngestPipeline(ds) as pipe:
+                for batch, _ in conv.iter_batches(
+                        text, ctx, batch_rows=INGEST_CHUNKS[1]):
+                    pipe.write("ais16", batch)
+                    staged += 1
+                pipe.flush()
+                vec_s = time.perf_counter() - t0
+                vec_fsyncs = _counter("wal.fsyncs") - f0
+                vec_groups = _counter("ingest.groups") - g0
+        finally:
+            gc.enable()
+        if ctx.success != rows:
+            wrong.append(("pipeline successes", ctx.success, rows))
+        hits = check(ds, "pipeline", rows, x, y, ms)
+        scalar_rps, vec_rps = scalar_rows / scalar_s, rows / vec_s
+        out["A"] = {
+            "scalar_per_write": {"chunk_rows": INGEST_CHUNKS[0],
+                                 "rows": scalar_rows, "seconds": scalar_s,
+                                 "rows_per_s": scalar_rps, "writes": writes,
+                                 "fsyncs": scalar_fsyncs},
+            "pipeline": {"chunk_rows": INGEST_CHUNKS[1], "rows": rows,
+                         "seconds": vec_s, "rows_per_s": vec_rps,
+                         "staged_batches": staged, "groups": vec_groups,
+                         "fsyncs": vec_fsyncs},
+            "speedup": vec_rps / scalar_rps, "speedup_reference_min": 5.0,
+            "cut": cut, "query_hits": hits}
+        if not (vec_groups <= staged and vec_fsyncs <= vec_groups + 1):
+            wrong.append(("groups/fsyncs", staged, vec_groups, vec_fsyncs))
+        emit({"phase": "ingest", "part": "A", **out["A"]})
+
+        # (B) reads, idle and during a live pipeline ingest
+        ds.query(ingest_queries(1, 5)[0], "ais16")   # warm the plan path
+        idle = read_battery(ds, 1000)
+        boundaries = [ds.count("ais16")]
+        real_many = ds.write_many
+
+        def counted_many(type_name, pairs):
+            r = real_many(type_name, pairs)
+            boundaries.append(boundaries[-1] + sum(b.n for b, _ in pairs))
+            return r
+        ds.write_many = counted_many
+        lctx = EvaluationContext()
+        perrors, pump_end = [], [None]
+        started = threading.Event()
+
+        def pump():
+            try:
+                with IngestPipeline(ds) as pipe:
+                    for batch, _ in conv.iter_batches(
+                            live_text, lctx, batch_rows=INGEST_CHUNKS[1]):
+                        pipe.write("ais16", batch)
+                        started.set()
+                    pipe.flush()
+            except Exception as e:   # noqa: BLE001 (fails the phase)
+                perrors.append(repr(e))
+            finally:
+                started.set()
+                pump_end[0] = time.perf_counter()
+        pumper = threading.Thread(target=pump)
+        watch = []
+        pumper.start()
+        started.wait(60.0)
+        t_load = time.perf_counter()
+        loaded = read_battery(ds, 2000, watch)
+        pumper.join()
+        ds.write_many = real_many
+        rising = all(all(a <= b for a, b in zip(s, s[1:])) for s in watch)
+        bset = set(boundaries)
+        whole = all(c in bset for s in watch for c in s)
+        overlap = ((min(pump_end[0], loaded["last_end"]) - t_load)
+                   / max(loaded["last_end"] - t_load, 1e-9))
+        ratio = loaded["p99_ms"] / max(idle["p99_ms"], 1e-9)
+        out["B"] = {"readers": INGEST_READERS, "rounds": INGEST_READ_ROUNDS,
+                    "idle": idle, "loaded": loaded,
+                    "p50_ratio": loaded["p50_ms"] / max(idle["p50_ms"], 1e-9),
+                    "p99_ratio": ratio, "p99_ratio_reference_max": 10.0,
+                    "live_rows": INGEST_LIVE_ROWS,
+                    "groups_during": len(boundaries) - 1,
+                    "loaded_share_during_ingest": max(0.0, min(1.0, overlap)),
+                    "counts_rise": rising, "counts_at_group_bounds": whole}
+        if perrors:
+            wrong.append(("live pipeline", perrors[:3]))
+        if not (rising and whole):
+            wrong.append(("reads saw a half-applied group", rising, whole))
+        if lctx.success != INGEST_LIVE_ROWS:
+            wrong.append(("live successes", lctx.success))
+        check(ds, "pipeline+live", rows + INGEST_LIVE_ROWS,
+              np.concatenate([x, lx]), np.concatenate([y, ly]),
+              np.concatenate([ms, lms]))
+        emit({"phase": "ingest", "part": "B", **out["B"]})
+        ds.close()
+        del ds
+        gc.collect()
+
+        # (C) the kill image under "always"
+        kill_text = text[:text.index(
+            "\n", len(text) * INGEST_KILL_ROWS // rows) + 1]
+        ds = InMemoryDataStore(durable_dir=roots[2], wal_fsync="always")
+        ds.create_schema(parse_spec("ais16", FS_SPEC))
+        acks, kctx = [], EvaluationContext()
+        half = (INGEST_KILL_ROWS // INGEST_KILL_BATCH) // 2
+        with IngestPipeline(ds, group_rows=INGEST_KILL_GROUP) as pipe:
+            for batch, _ in conv.iter_batches(
+                    kill_text, kctx, batch_rows=INGEST_KILL_BATCH):
+                acks.append((pipe.write("ais16", batch), batch.n))
+                if len(acks) >= half:
+                    break
+            acked = sum(n for a, n in acks if a is not None and a.done)
+            t0 = time.perf_counter()
+            shutil.rmtree(roots[3])
+            shutil.copytree(roots[2], roots[3])
+            copy_s = time.perf_counter() - t0
+        staged_rows = sum(n for _, n in acks)
+        if ds.count("ais16") != staged_rows:
+            wrong.append(("kill store count", ds.count("ais16"),
+                          staged_rows))
+        ds.close()
+        del ds
+        t0 = time.perf_counter()
+        img = InMemoryDataStore(durable_dir=roots[3], wal_fsync="always")
+        recovered = img.count("ais16")
+        reopen_s = time.perf_counter() - t0
+        ids = np.sort(np.array([int(i[1:]) for i in img.query(
+            "INCLUDE", "ais16").ids], dtype=np.int64))
+        img.close()
+        del img
+        if not (recovered >= acked and np.array_equal(
+                ids, np.arange(recovered))):
+            wrong.append(("kill image", acked, recovered))
+        out["C"] = {"group_rows": INGEST_KILL_GROUP,
+                    "batch_rows": INGEST_KILL_BATCH,
+                    "staged_rows": staged_rows, "acked_at_copy": acked,
+                    "recovered": recovered, "copy_s": copy_s,
+                    "reopen_s": reopen_s,
+                    "zero_acked_loss": recovered >= acked}
+        emit({"phase": "ingest", "part": "C", **out["C"]})
+    finally:
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    out.update(launches={k: launches[k] for k in (
+        "scan_mask", "scan_mask_gather", "scan_count")},
+        seconds=time.perf_counter() - t_phase, budget_s=INGEST_BUDGET_S,
+        wrong=wrong)
+    emit({k: out[k] for k in ("phase", "rows", "card", "setup_s", "launches",
+                              "seconds", "budget_s", "wrong")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    if wrong:
+        raise SystemExit(f"ingest: {wrong}")
+    if not launches["scan_mask"] + launches["scan_mask_gather"]:
+        raise SystemExit("ingest: the scan kernels never launched")
+    return launches, out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6727,6 +7505,11 @@ def main():
     del pred_data
     _, launches["extent_tristate"] = phase_extent(args.seed)
     torch.cuda.empty_cache()
+    cache_launches, _ = phase_cache(args.seed, args.store_rows)
+    launches["density_grid"] += cache_launches["density_grid"]
+    ingest_launches, _ = phase_ingest(args.seed)
+    for name in ("scan_mask", "scan_mask_gather", "scan_count"):
+        launches[name] += ingest_launches[name]
     summary = []
     for name, s in stats.items():
         q0 = s["per_query"][0]   # the BBOX+time query (1M random ids

@@ -29,7 +29,14 @@ and publishes the matches per query (``store/continuous.py``).
 (``sql/``): WHERE pushes down into the store's planner and scan kernels,
 spatial joins run on the join kernels, and GROUP BY, HAVING and the
 aggregates reduce on the host. ``geohash/`` holds the geohash encoding
-and the spiral that ``knn_spiral_process`` walks.
+and the spiral that ``knn_spiral_process`` walks. A store's density,
+stats, BIN and Arrow pushdowns are memoized at the type's version (the
+WAL LSN when durable) by ``cache/``'s ``ResultCache``, kept warm under
+writes by its ``CacheRefresher``; ``ingest/``'s ``IngestPipeline``
+group-commits staged batches through one writer thread; ``resilience/``
+holds the retry policy, circuit breakers, hedging and a fault-injecting
+TCP proxy; ``api/``'s ``GeoMesaIndex`` stores serialized values by
+point and time.
 """
 
 # equal to the JAX package's: the file store stamps it into each type's

@@ -49,20 +49,29 @@ the GPU.
                     candidates, compaction on the device), then the
                     per-query f64 patch, visibility, sampling and result
                     assembly; the rest go through query()
-    density(...) -> the query's rows (plan, scan, visibility), then only
-                    their ids to the device: the density kernel reads the
-                    point (an extent's bounding-box centre) and weight
-                    from the device columns, bins and sums them
+    density / bin_query / stats_query / arrow_ipc
+                 -> the result cache (cache/): a canonical plan key and
+                    the type's version (the WAL LSN when durable, else a
+                    store-local counter, advanced by every create,
+                    write, delete and remove), looked up outside the
+                    store's lock; a hit decodes a private copy, and
+                    concurrent misses of one key compute once
+                 -> on a miss, under the lock:
+    density(...) -> the query's rows (plan, scan, visibility; one
+                    store-scan span and audit record, as a query's),
+                    then only their ids to the device: the density kernel
+                    reads the point (an extent's bounding-box centre) and
+                    weight from the device columns, bins and sums them
     bin_query(...)
                  -> the query, then the BIN records on the host
     stats_query(type_name, spec, ecql)
                  -> INCLUDE: the sketch observes the stored rows; any
                     other filter: query() (visibility included), then
                     the sketch observes its result batch, on the host
-    arrow_ipc / arrow_query
-                 -> the query, then the result batch as an Arrow IPC
-                    file (optionally sorted) or a RecordBatch (pyarrow,
-                    imported when called)
+    arrow_ipc    -> the query, then the result batch as an Arrow IPC
+                    file (optionally sorted; pyarrow, imported when
+                    called)
+    arrow_query  -> the query's batch as a RecordBatch (not cached)
     analyze(type_name)
                  -> the type's stats recomputed from its rows
     delete(ids)  -> the rows dropped; the device columns, z-index and
@@ -609,6 +618,13 @@ def _synchronized(fn):
     return wrapper
 
 
+def _grid_copy(grid: np.ndarray) -> np.ndarray:
+    """The cache's encode and decode of a density grid: every hit hands
+    out a private copy, so a caller scribbling on its grid cannot
+    corrupt the memoized original."""
+    return np.asarray(grid).copy()
+
+
 class InMemoryDataStore(DataStore):
     """A GeoTools-DataStore-shaped API over device-resident columns.
 
@@ -640,6 +656,15 @@ class InMemoryDataStore(DataStore):
         self._types: dict[str, _TypeState] = {}
         self.stats = DataStoreStats()
         self.audit = audit  # AuditLogger, or None for the global one
+        # the materialized pushdown cache (cache/): every mutation stamps
+        # the type's version (the WAL LSN when durable, a store-local
+        # counter otherwise), so density, stats, BIN and Arrow results
+        # memoize until the type changes. Created before the journal:
+        # recovery replays through write() and delete(), which stamp them
+        from ..cache import ResultCache
+        self._pushdown_clock = 0
+        self._pushdown_versions: dict[str, int] = {}
+        self.result_cache = ResultCache(self.pushdown_version)
         self.journal = None
         if durable_dir:
             from ..wal.durable import Journal
@@ -660,6 +685,7 @@ class InMemoryDataStore(DataStore):
         self._types[sft.type_name] = _TypeState(sft, self.device)
         # an estimator from creation on: a type with no rows estimates 0
         self.stats.ensure(sft)
+        self._bump_pushdown_version(sft.type_name)
 
     def get_schema(self, type_name: str) -> SimpleFeatureType:
         return self._state(type_name).sft
@@ -685,6 +711,38 @@ class InMemoryDataStore(DataStore):
             # column snapshot
             st._detach_live()
         self.stats.clear(type_name)
+        self._bump_pushdown_version(type_name)
+        self.result_cache.invalidate(type_name)
+
+    # -- pushdown versions (cache/) ------------------------------------------
+
+    def _bump_pushdown_version(self, type_name: str):
+        """Stamp the type's version after a mutation: the WAL LSN when
+        the journal advanced, a store-local counter otherwise (replay
+        suppresses journaling, so the counter also covers recovery)."""
+        prev = self._pushdown_versions.get(type_name, 0)
+        v = self.journal.wal.last_lsn if self.journal is not None else 0
+        if v <= prev:
+            self._pushdown_clock += 1
+            v = max(prev + 1, self._pushdown_clock)
+        self._pushdown_versions[type_name] = v
+
+    def pushdown_version(self, type_name: str) -> int:
+        """The type's cache version: any change to its rows or schema
+        advances it, and an unchanged version means identical pushdown
+        results. Per type, so writes to one type never invalidate
+        another's cached tiles."""
+        return self._pushdown_versions.get(type_name, 0)
+
+    def cache_status(self) -> dict:
+        out = self.result_cache.status()
+        out["versions"] = dict(self._pushdown_versions)
+        return out
+
+    def invalidate_cache(self, type_name: str | None = None) -> int:
+        """Drop the cached pushdown results of one type (None: all);
+        returns how many entries went."""
+        return self.result_cache.invalidate(type_name)
 
     # -- writes --------------------------------------------------------------
 
@@ -708,6 +766,7 @@ class InMemoryDataStore(DataStore):
             self.journal.log_write(type_name, batch, visibilities)
         was_empty = st.n == 0
         st.append(batch, visibilities)
+        self._bump_pushdown_version(type_name)
         # the write-side stats (StatsCombiner analog), on the host batch
         self.stats.observe(st.sft, batch)
         # initial bulk load only: later chunks fold into one incremental
@@ -745,6 +804,7 @@ class InMemoryDataStore(DataStore):
         if self.journal is not None:
             self.journal.log_delete(type_name, sorted(ids))
         st.delete(ids)
+        self._bump_pushdown_version(type_name)
 
     # -- durability (wal/, with durable_dir) ---------------------------------
 
@@ -1136,6 +1196,16 @@ class InMemoryDataStore(DataStore):
             src = st.batch
             ids = (lambda: src.ids[idx])
         explain(f"Hits: {len(idx)}").pop()
+        self._record_scan(q, st, strategy, t_plan, t_scan0, len(idx),
+                          batched=batched)
+        return QueryResult(idx, ids, batch, explain, strategy)
+
+    def _record_scan(self, q: Query, st: _TypeState, strategy: FilterStrategy,
+                     t_plan: float, t_scan0: float, hits: int,
+                     batched: bool = False):
+        """A finished scan's telemetry: the ``store.scan`` timer, its SLO
+        event and its audit record (in the caller's context for a
+        batcher's follower)."""
         scan_s = time.perf_counter() - t_scan0
         from ..metrics import metrics
         metrics.observe("store.scan", scan_s,
@@ -1146,15 +1216,19 @@ class InMemoryDataStore(DataStore):
         from ..audit import audit_query, caller_context
         record = functools.partial(
             audit_query, self.audit, "memory", q.type_name, str(q.filter),
-            q.hints, t_plan * 1000, scan_s * 1000, len(idx),
+            q.hints, t_plan * 1000, scan_s * 1000, hits,
             index=strategy.index, rows_scanned=int(st.n), batched=batched)
         ctx = caller_context(q)   # a batcher's follower: its own context
         ctx.run(record) if ctx is not None else record()
-        return QueryResult(idx, ids, batch, explain, strategy)
 
-    # -- pushdowns -----------------------------------------------------------
+    # -- materialized pushdowns (cache/) -------------------------------------
+    #
+    # The public pushdowns are caching wrappers: the canonical plan key,
+    # the type's version and single-flight coalescing are looked up
+    # OUTSIDE _op_lock, so a repeated tile costs a dict lookup and a herd
+    # of identical cold ones one kernel launch with no lock convoy. The
+    # _*_uncached bodies hold the synchronized compute on the device.
 
-    @_synchronized
     def density(self, type_name: str, ecql, bbox, width: int, height: int,
                 weight_attr: str | None = None) -> np.ndarray:
         """Density surface (DensityScan pushdown analog): the float32
@@ -1164,14 +1238,72 @@ class InMemoryDataStore(DataStore):
         point and weight columns it keeps there (uploaded on first use),
         so only the matching row ids cross from the host. A point or
         weight that attribute-level visibility hides counts as null.
-        Computed on every call (the reference's result cache, ``cache/``,
-        is queue 1 item 7b of ROADMAP.md section 6)."""
+        Memoized at the type's version; every call gets its own copy."""
+        from ..cache import density_key
+        flt, key = density_key(ecql, bbox, width, height, weight_attr)
+        return self.result_cache.get_or_compute(
+            type_name, key,
+            lambda: self._density_uncached(type_name, flt, bbox, width,
+                                           height, weight_attr),
+            encode=_grid_copy, decode=_grid_copy)
+
+    def bin_query(self, type_name: str, ecql, track: str | None = None,
+                  label: str | None = None, sort: bool = False) -> bytes:
+        """BIN-format results (BinAggregatingScan analog): 16-byte (or
+        24-byte labeled) records of the matching features, memoized at
+        the type's version."""
+        from ..cache import bin_key
+        flt, key = bin_key(ecql, track, label, sort)
+        return self.result_cache.get_or_compute(
+            type_name, key,
+            lambda: self._bin_query_uncached(type_name, flt, track=track,
+                                             label=label, sort=sort))
+
+    def stats_query(self, type_name: str, stat_spec: str, ecql=None):
+        """A stat sketch over the query's rows (StatsScan analog): a new
+        Stat each call, the caller's to keep or mutate. INCLUDE or None
+        observes the stored rows; any other filter runs query(), so
+        visibility applies, and observes its result batch. Memoized at
+        the type's version in serialized form (stats/serialize.py), so
+        every hit decodes a private copy."""
+        from ..cache import stats_key
+        from ..stats.serialize import deserialize_stat, serialize_stat
+        flt, key = stats_key(ecql, stat_spec)
+        return self.result_cache.get_or_compute(
+            type_name, key,
+            lambda: self._stats_query_uncached(type_name, stat_spec, flt),
+            encode=serialize_stat, decode=deserialize_stat)
+
+    def arrow_ipc(self, type_name: str, ecql="INCLUDE",
+                  sort_by: str | None = None) -> bytes:
+        """Arrow IPC file of the matching features, readable by
+        FeatureArrowFileReader (the ARROW_ENCODE surface); ``sort_by``
+        sorts the rows by an attribute. Memoized at the type's version.
+        Needs pyarrow."""
+        from ..cache import arrow_key
+        flt, key = arrow_key(ecql, sort_by)
+        return self.result_cache.get_or_compute(
+            type_name, key,
+            lambda: self._arrow_ipc_uncached(type_name, flt,
+                                             sort_by=sort_by))
+
+    @_synchronized
+    def _density_uncached(self, type_name: str, ecql, bbox, width: int,
+                          height: int,
+                          weight_attr: str | None = None) -> np.ndarray:
         st = self._state(type_name)
         empty = np.zeros((height, width), dtype=np.float32)
         if st.n == 0:
             return empty
-        idx, _, attr_mask, _, _ = self._matching_rows(
-            Query(type_name, ecql), st, Explainer())
+        # the scan is a query's: one store-scan span and one audit record
+        q = Query(type_name, ecql)
+        from ..obs import tracer
+        with tracer.span("store-scan", type_name) as sp:
+            idx, strategy, attr_mask, t_plan, t_scan0 = \
+                self._matching_rows(q, st, Explainer())
+            sp.set_attr(index=strategy.index, rows=int(st.n),
+                        hits=int(len(idx)))
+            self._record_scan(q, st, strategy, t_plan, t_scan0, len(idx))
         if not len(idx):
             return empty
         geom = st.sft.geom_field
@@ -1195,10 +1327,10 @@ class InMemoryDataStore(DataStore):
                             height)
 
     @_synchronized
-    def bin_query(self, type_name: str, ecql, track: str | None = None,
-                  label: str | None = None, sort: bool = False) -> bytes:
-        """BIN-format results (BinAggregatingScan analog): 16-byte (or
-        24-byte labeled) records of the matching features."""
+    def _bin_query_uncached(self, type_name: str, ecql,
+                            track: str | None = None,
+                            label: str | None = None,
+                            sort: bool = False) -> bytes:
         st = self._state(type_name)
         res = self.query(Query(type_name, ecql))
         if res.batch is None or res.batch.n == 0:
@@ -1209,13 +1341,8 @@ class InMemoryDataStore(DataStore):
                                 label=label, sort=sort)
 
     @_synchronized
-    def stats_query(self, type_name: str, stat_spec: str, ecql=None):
-        """A stat sketch over the query's rows (StatsScan analog): a new
-        Stat each call, the caller's to keep or mutate. INCLUDE or None
-        observes the stored rows; any other filter runs query(), so
-        visibility applies, and observes its result batch. Computed on
-        every call (the reference's result cache, ``cache/``, is queue 1
-        item 7b of ROADMAP.md section 6)."""
+    def _stats_query_uncached(self, type_name: str, stat_spec: str,
+                              ecql=None):
         st = self._state(type_name)
         stat = parse_stat(stat_spec)
         if st.n == 0:
@@ -1230,11 +1357,8 @@ class InMemoryDataStore(DataStore):
         return stat
 
     @_synchronized
-    def arrow_ipc(self, type_name: str, ecql="INCLUDE",
-                  sort_by: str | None = None) -> bytes:
-        """Arrow IPC file of the matching features, readable by
-        FeatureArrowFileReader (the ARROW_ENCODE surface); ``sort_by``
-        sorts the rows by an attribute. Needs pyarrow."""
+    def _arrow_ipc_uncached(self, type_name: str, ecql="INCLUDE",
+                            sort_by: str | None = None) -> bytes:
         from ..arrow.scan import ArrowScan
         return ArrowScan(self).execute(type_name, _as_filter(ecql),
                                        sort_by=sort_by)

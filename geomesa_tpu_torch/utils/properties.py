@@ -2,14 +2,16 @@
 
 Analog of GeoMesaSystemProperties.SystemProperty (geomesa-utils/.../conf/
 GeoMesaSystemProperties.scala:17-60): a named flag resolved, in order,
-from (1) the process environment (dots become underscores, uppercased),
-(2) a process-wide override map, (3) the declared default. Typed
-accessors mirror the reference (`.toInt/.toBoolean` -> as_int/as_bool)."""
+from (1) a thread-local override, (2) the process environment (dots
+become underscores, uppercased), (3) a process-wide override map, (4) the
+declared default. Typed accessors mirror the reference
+(`.toInt/.toBoolean` -> as_int/as_bool)."""
 
 from __future__ import annotations
 
 import os
 import re
+import threading
 
 __all__ = ["SystemProperty", "HOST_RANGES_TARGET", "QUERY_TIMEOUT",
            "WAL_FSYNC", "WAL_SEGMENT_BYTES", "WAL_INTERVAL_MS",
@@ -18,6 +20,7 @@ __all__ = ["SystemProperty", "HOST_RANGES_TARGET", "QUERY_TIMEOUT",
            "INGEST_SHED_QUEUE_DEPTH"]
 
 _overrides: dict[str, str] = {}
+_tls = threading.local()
 
 
 class SystemProperty:
@@ -26,6 +29,9 @@ class SystemProperty:
         self.default = default
 
     def get(self) -> str | None:
+        tl = getattr(_tls, "values", {})
+        if self.name in tl:
+            return tl[self.name]
         env = self.name.replace(".", "_").upper()
         if env in os.environ:
             return os.environ[env]
@@ -46,6 +52,17 @@ class SystemProperty:
         loop) save the exact override state it found and later restore
         it with ``set``."""
         return _overrides.get(self.name)
+
+    def thread_local_set(self, value: str | None):
+        """Override for the calling thread only (None clears); it wins
+        over the environment and the process-wide override."""
+        tl = getattr(_tls, "values", None)
+        if tl is None:
+            tl = _tls.values = {}
+        if value is None:
+            tl.pop(self.name, None)
+        else:
+            tl[self.name] = str(value)
 
     # -- typed accessors ---------------------------------------------------
 

@@ -108,6 +108,11 @@ def _apply(store, kind: int, payload: bytes, report: RecoveryReport,
         if present:
             store.delete(tn, present)
             ids.difference_update(present)
+        else:
+            # the reference deletes the record's ids unconditionally,
+            # and that delete stamps a pushdown version: stamp one here
+            # too, so the versions after a reopen are the reference's
+            store._bump_pushdown_version(tn)
         store.write(tn, batch,
                     visibilities=None if vis is None else list(vis))
         ids.update(new)

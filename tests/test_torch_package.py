@@ -77,7 +77,14 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.audit.hook, "
             "geomesa_tpu_torch.metrics.reporters, "
             "geomesa_tpu_torch.scan.registry, "
-            "geomesa_tpu_torch.utils.threads\n"
+            "geomesa_tpu_torch.utils.threads, geomesa_tpu_torch.cache, "
+            "geomesa_tpu_torch.cache.keys, "
+            "geomesa_tpu_torch.cache.result_cache, "
+            "geomesa_tpu_torch.cache.refresh, geomesa_tpu_torch.ingest, "
+            "geomesa_tpu_torch.ingest.pipeline, geomesa_tpu_torch.api, "
+            "geomesa_tpu_torch.resilience.breaker, "
+            "geomesa_tpu_torch.resilience.hedge, "
+            "geomesa_tpu_torch.resilience.chaos\n"
             "import importlib; "
             "importlib.import_module('geomesa_tpu_torch.obs.runtime')\n"
             "bad = [m for m in sys.modules if m == 'jax' "
@@ -137,7 +144,11 @@ def test_no_source_imports_jax_or_reference():
             "obs/runtime.py", "obs/slo.py", "tenants/__init__.py",
             "audit/__init__.py", "audit/events.py", "audit/hook.py",
             "metrics/reporters.py", "scan/registry.py",
-            "utils/threads.py"} <= seen
+            "utils/threads.py", "cache/__init__.py", "cache/keys.py",
+            "cache/result_cache.py", "cache/refresh.py",
+            "ingest/__init__.py", "ingest/pipeline.py", "api/__init__.py",
+            "resilience/breaker.py", "resilience/hedge.py",
+            "resilience/chaos.py"} <= seen
     # the native library's C++ sources are the port's own copies
     src = os.path.join(PKG, "native", "src")
     assert sorted(os.listdir(src)) == ["feature_codec.cpp", "zbuild.cpp",
@@ -2409,3 +2420,121 @@ def test_standing_set_on_cuda_matches_cpu(cuda):
         CQ_DEVICE_MAX_CELLS.set(old)
     assert [t.data_ptr() for t in sets[0].device_tables()] == ptrs
     assert all(np.array_equal(got[k], want[k]) for k in got)
+
+
+# -- the result cache and the ingest pipeline on the card ---------------------
+
+def _tile_store(n=200_000, seed=12):
+    rng = np.random.default_rng(seed)
+    ds = InMemoryDataStore()
+    ds.create_schema("tiles", "w:Integer,dtg:Date,*geom:Point:srid=4326")
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    ds.write_dict("tiles", [f"t{i}" for i in range(n)], {
+        "w": rng.integers(0, 9, n), "dtg": rng.integers(0, 50 * MS_DAY, n),
+        "geom": (x, y)})
+    return ds, x, y
+
+
+@pytest.mark.gpu
+def test_cold_density_herd_makes_one_launch(cuda):
+    """8 threads asking one cold tile at once: one density kernel launch
+    (the leader's; the others wait on its flight or hit its entry), and
+    each caller gets its own copy of the same grid."""
+    import threading
+    ds, _, _ = _tile_store()
+    ds.density("tiles", "INCLUDE", (-180, -90, 180, 90), 8, 8)   # warm-up
+    kernels.reset_launches()
+    m0 = ds.result_cache.misses
+    barrier, out = threading.Barrier(8), [None] * 8
+
+    def go(i):
+        barrier.wait(30.0)
+        out[i] = ds.density("tiles", "INCLUDE", (-45, -45, 0, 0), 256, 256)
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60.0)
+    assert not any(t.is_alive() for t in threads)
+    assert kernels.launches["density_grid"] == 1
+    assert ds.result_cache.misses == m0 + 1
+    assert len({id(g) for g in out}) == 8
+    assert all(g.tobytes() == out[0].tobytes() for g in out)
+    assert float(out[0].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_cached_cuda_grids_equal_uncached(cuda):
+    """A cached grid's bytes equal a fresh launch's at the same version
+    and the CPU store's, for several tiles and weights; N cached calls
+    make one launch, and a write makes the next call launch again."""
+    from geomesa_tpu_torch.cache import CACHE_ENABLED
+    ds, x, _ = _tile_store()
+    cpu = InMemoryDataStore(device="cpu")
+    cpu.create_schema("tiles", ds.get_schema("tiles").to_spec())
+    st = ds._state("tiles")
+    cpu.write("tiles", FeatureBatch(cpu.get_schema("tiles"), st.batch.ids,
+                                    st.batch.columns))
+    tiles = [((-180, -90, 180, 90), 64, 32, None, "INCLUDE"),
+             ((-45, -45, 0, 0), 256, 256, None, "INCLUDE"),
+             ((0, 0, 45, 45), 256, 256, "w",
+              "dtg DURING 1970-01-05T00:00:00Z/1970-02-01T00:00:00Z")]
+    for bbox, w, h, attr, ecql in tiles:
+        kernels.reset_launches()
+        grids = [ds.density("tiles", ecql, bbox, w, h, attr)
+                 for _ in range(4)]
+        assert kernels.launches["density_grid"] == 1
+        CACHE_ENABLED.thread_local_set("false")
+        try:
+            fresh = ds.density("tiles", ecql, bbox, w, h, attr)
+        finally:
+            CACHE_ENABLED.thread_local_set(None)
+        assert kernels.launches["density_grid"] == 2
+        want = cpu.density("tiles", ecql, bbox, w, h, attr)
+        for g in grids:
+            assert g.tobytes() == fresh.tobytes() == want.tobytes()
+    for s in (ds, cpu):
+        s.write_dict("tiles", ["new"], {"w": [1], "dtg": [MS_DAY],
+                                        "geom": ([-10.0], [-10.0])})
+    kernels.reset_launches()
+    g = ds.density("tiles", "INCLUDE", (-45, -45, 0, 0), 256, 256)
+    assert kernels.launches["density_grid"] == 1
+    # INCLUDE: every row counts, those outside the box in its edge cells
+    assert float(g.sum()) == len(x) + 1
+    assert g.tobytes() == cpu.density("tiles", "INCLUDE", (-45, -45, 0, 0),
+                                      256, 256).tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("durable", [False, True])
+def test_ingest_pipeline_on_cuda_matches_brute_force(cuda, tmp_path,
+                                                     durable):
+    """Staged batches through the group-commit writer into a store on
+    the card: the count is the rows staged, groups are at most the
+    batches, and a BBOX+time query equals the float64 brute force."""
+    from geomesa_tpu_torch.ingest import IngestPipeline
+    kw = ({"durable_dir": str(tmp_path / "d"), "wal_fsync": "always"}
+          if durable else {})
+    ds = InMemoryDataStore(**kw)
+    ds.create_schema("boats", "dtg:Date,*geom:Point:srid=4326")
+    sft = ds.get_schema("boats")
+    rng = np.random.default_rng(16)
+    n, per = 200_000, 8_192
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    ms = rng.integers(0, 30 * MS_DAY, n)
+    with IngestPipeline(ds, group_rows=65_536) as pipe:
+        acks = [pipe.write("boats", FeatureBatch.from_dict(
+            sft, [f"b{i}" for i in range(lo, min(lo + per, n))],
+            {"dtg": ms[lo:lo + per], "geom": (x[lo:lo + per],
+                                               y[lo:lo + per])}))
+            for lo in range(0, n, per)]
+        for a in acks:
+            a.wait(timeout=60.0)
+    assert ds.count("boats") == n
+    ecql = ("BBOX(geom, -80, 30, -60, 45) AND dtg DURING "
+            "1970-01-05T00:00:00Z/1970-01-20T00:00:00Z")
+    want = np.flatnonzero((x >= -80) & (x <= -60) & (y >= 30) & (y <= 45)
+                          & (ms > 4 * MS_DAY) & (ms < 19 * MS_DAY))
+    got = sorted(int(str(i)[1:]) for i in ds.query(ecql, "boats").ids)
+    assert got == want.tolist()
+    ds.close()
