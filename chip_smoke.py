@@ -297,6 +297,41 @@ Phases, one JSON line each; any failure exits non-zero:
            resident columns; the join must receive the store's resident
            columns; the grouped form (GROUP BY b.__fid__) equal to the
            brute force per point; a cProfile of one COUNT(*) statement.
+5c. web    the REST surface on the same store: (a) a GeoMesaWebServer
+           over it and the port's RemoteDataStore on localhost; the
+           north-star query and the 32 batch queries through /rest/query
+           (Arrow), and the three store queries and their counts with
+           the gathered and the dense tiers forced, ids equal to the
+           f64 brute force; the north star as format=json (timed) and
+           through /rest/count; a 256 x 256 /rest/density tile equal to
+           a direct density() and its repeat with If-None-Match a 304;
+           /rest/bin bytes and /rest/stats MinMax(dtg) equal to direct
+           calls; /rest/knn k=100 equal to knn_process; BASELINE #3's
+           COUNT(*) DWithin join through /rest/sql equal to SqlEngine
+           and to the analytics phase's brute force; 1,000 rows written
+           through /rest/write (the ingest pipeline) and 100 deleted,
+           read back by box and by id. The request threads' CUDA device
+           is the store's. Gates: every answer equal, no server error
+           (resilience.web.errors) and no client retry on these legs,
+           and each of WEB_KERNELS launched by the requests (launch
+           counts zeroed before them and read after; the oracles' direct
+           calls come after). Reported: the north star's p50 of 20
+           through the client beside direct query(); /rest/query p50 and
+           queries/s with 1 and 32 client threads; the 32-thread load's
+           fused dispatches. (b) bench.py config 8 at its shapes: 200k
+           points, 300 BBOX queries direct and through a ChaosProxy with
+           1 % resets and 10 ms jitter (gates: no client error, ids equal
+           between the runs and to the brute force), and the breaker's
+           fast-fail against a black-holed endpoint beside the client's
+           0.3 s timeout; config 8's broker restart runs in the stream
+           phase. (c) bench.py config 13 at its shapes: 200k rows, 16
+           web and 16 embedded callers in one fused dispatch, id-exact;
+           hedged against unhedged p50/p95/p99 of 150 queries through a
+           straggler proxy (10 % of connections stall 0.25 s), with the
+           hedge counters and the budget invariant (gates); the
+           latency-derived batch cap with and without
+           geomesa.batch.latency.budget.ms (gates). One JSON line a
+           part, then the phase's seconds beside WEB_BUDGET_S.
 6. predicates  exact polygon and attribute predicates: the earlier
            stores freed, a store of --store-rows rows shaped like a GDELT
            1.0 event record (EventCode:String:index=true with 320
@@ -6562,6 +6597,698 @@ def phase_sql_ais(ds, rows, dw) -> tuple[dict, dict]:
     return out, launches
 
 
+# -- the web phase: the REST surface and its client on the card's store ------
+
+WEB_BUDGET_S = 90.0       # the web phase's share of the script's time
+WEB_NORTH_RUNS = 20       # the north star through the client and direct
+WEB_LOAD_PER_THREAD = 4   # 32 client threads x 4 of the 32 batch queries
+WEB_WRITE_ROWS, WEB_DELETE_ROWS = 1_000, 100
+WEB_TILE = (-80.0, 30.0, -60.0, 45.0)     # a 256 x 256 density tile
+WEB_KNN = (10.0, 10.0, 100)               # x, y, k
+# the kernels the web requests must reach (scan_count is reported too):
+# the route sweep's, and the batched scan's through the fused /rest/query
+# dispatches (config 13's phase A makes one for certain)
+ROUTE_KERNELS = ("scan_mask", "scan_mask_gather", "density_grid",
+                 "knn_topk", "dwithin_counts", "slab_pairs")
+WEB_KERNELS = ROUTE_KERNELS + ("scan_batch_bits", "compact_prefix",
+                               "compact_bits")
+WEB_KNN_BURST = 32        # concurrent /rest/knn requests, one fused top-k
+WEB_COUNTERS = ("resilience.web.errors", "resilience.retries",
+                "resilience.web.sheds", "resilience.web.stream_aborts")
+CHAOS8_POINTS, CHAOS8_QUERIES = 200_000, 300          # bench.py config 8
+TAIL13_ROWS, TAIL13_WEB, TAIL13_EMB = 200_000, 16, 16  # bench.py config 13
+TAIL13_QUERIES, TAIL13_SLOW_S = 150, 0.25
+
+
+def _web_counters() -> dict:
+    return {k: _counter(k) for k in WEB_COUNTERS}
+
+
+def _web_get(port: int, path: str, body=None, headers=None):
+    """One request to the server on localhost: (status, headers, body)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST" if body is not None else "GET", path, body=body,
+                     headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _pct_ms(lat) -> dict:
+    a = np.asarray(lat) * 1e3
+    return {"p50_ms": float(np.percentile(a, 50)),
+            "p95_ms": float(np.percentile(a, 95)),
+            "p99_ms": float(np.percentile(a, 99))}
+
+
+def web_load(client, ecqls, truth, ids, threads: int, per: int) -> dict:
+    """``threads`` callers x ``per`` of the queries through ``client``
+    (Arrow replies), each checked against its brute-force ids."""
+    import threading
+    lat, wrong, errors = [], [], []
+
+    def caller(t):
+        try:
+            for j in range(per):
+                i = (t * per + j) % len(ecqls)
+                t0 = time.perf_counter()
+                res = client.query(ecqls[i], "ais")
+                lat.append(time.perf_counter() - t0)
+                if not np.array_equal(res.ids, ids[truth[i]]):
+                    wrong.append(i)
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            errors.append(repr(e))
+    th = [threading.Thread(target=caller, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for t in th:
+        t.start()
+    for t in th:
+        t.join(300.0)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in th):
+        errors.append("a caller did not finish in 300 s")
+    return {"threads": threads, "queries": len(lat), "seconds": wall,
+            "queries_per_s": len(lat) / wall,
+            "p50_ms": statistics.median(lat) * 1e3 if lat else None,
+            "wrong": wrong[:5], "errors": errors[:3]}
+
+
+def web_knn_burst(server, ds, points, k: int) -> list:
+    """``points`` as concurrent /rest/knn requests, fused into batched
+    top-k calls by the server's batcher: a gate query holds a dispatch
+    in flight (as bench.py config 13 holds one) and the linger is static
+    and long, so the burst's leader waits for the burst (the queue's cap
+    is the batcher's max_batch, the burst's size; an adaptive linger
+    would size the wait from the first arrivals' gaps). A request that
+    reaches the server late rides a dispatch of its own. Returns the
+    replies in the points' order."""
+    import threading
+    from geomesa_tpu_torch import Query
+    from geomesa_tpu_torch.scan.batcher import BATCH_LINGER_MICROS
+    b = server.batcher
+    if len(points) != b.max_batch:
+        raise SystemExit(f"knn burst of {len(points)} against a batch cap "
+                         f"of {b.max_batch}")
+    hold = threading.Event()
+    gate = Query("ais", "BBOX(geom, 0, 0, 0.001, 0.001)")
+    real = ds.query
+
+    def gated(q, *a, **kw):
+        if q is gate and not hold.wait(60.0):
+            raise RuntimeError("gate never released")
+        return real(q, *a, **kw)
+    replies: list = [None] * len(points)
+    barrier = threading.Barrier(len(points))
+
+    def caller(i):
+        barrier.wait()
+        qx, qy = points[i]
+        replies[i] = json.loads(_web_get(
+            server.port, f"/rest/knn/ais?x={qx!r}&y={qy!r}&k={k}")[2])
+    ds.query = gated
+    adaptive, b.adaptive = b.adaptive, False
+    BATCH_LINGER_MICROS.set(str(int(5e6)))
+    warm = threading.Thread(target=b.query, args=(gate,), daemon=True)
+    try:
+        warm.start()
+        deadline = time.perf_counter() + 30.0
+        while b._in_flight < 1 and time.perf_counter() < deadline:
+            time.sleep(0.001)
+        th = [threading.Thread(target=caller, args=(i,), daemon=True)
+              for i in range(len(points))]
+        for t in th:
+            t.start()
+        for t in th:
+            t.join(120.0)
+    finally:
+        hold.set()
+        warm.join(30.0)
+        del ds.query
+        b.adaptive = adaptive
+        BATCH_LINGER_MICROS.set(None)
+    return replies
+
+
+def web_routes(seed: int, ds, rows, dw) -> tuple[dict, dict]:
+    """(a) Every route against its oracle on the store phase's 10M rows,
+    through a GeoMesaWebServer and the port's RemoteDataStore on
+    localhost; the clean legs' server errors and client retries, and the
+    kernels the routes reached (counts zeroed before, read after the
+    web requests; the oracles' direct calls come after)."""
+    from geomesa_tpu_torch.analytics.processes import knn_process
+    from geomesa_tpu_torch.features import FeatureBatch
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.scan.registry import batcher_registry
+    from geomesa_tpu_torch.sql import SqlEngine
+    from geomesa_tpu_torch.store import RemoteDataStore
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    from geomesa_tpu_torch.web import GeoMesaWebServer
+    from urllib.parse import quote
+    host_rows = SystemProperty("geomesa.scan.host.rows")
+    threshold = SystemProperty("geomesa.scan.index.threshold")
+    x, y, ms, ids = rows
+    qx, qy, dw_counts = dw
+    specs = store_batch_specs(seed)
+    ecqls = [_ecql(boxes, iv) for boxes, iv in specs]
+    truth = [_brute(x, y, ms, boxes, iv) for boxes, iv in specs]
+    north, nboxes, niv = STORE_QUERIES[0]
+    north_truth = _brute(x, y, ms, nboxes, niv)
+    # set-up outside the counted run: the join's query points as a type
+    ds.create_schema("qpts", "*geom:Point:srid=4326")
+    ds.write_dict("qpts", np.array([f"q{j}" for j in range(len(qx))],
+                                   dtype=object), {"geom": (qx, qy)})
+    count_sql = ("SELECT count(*) AS n FROM ais a JOIN qpts b "
+                 f"ON ST_DWithin(a.geom, b.geom, {DW_RADIUS})")
+    rng = np.random.default_rng(seed + 23)
+    w_ids = np.array([f"web{i}" for i in range(WEB_WRITE_ROWS)], dtype=object)
+    # north of 85 degrees (past every join point's radius and the knn
+    # points' reach) and after the store's dates: the oracles computed
+    # after these writes see the rows the requests saw
+    w_x = rng.uniform(20.0, 30.0, WEB_WRITE_ROWS)
+    w_y = rng.uniform(85.0, 89.0, WEB_WRITE_ROWS)
+    w_day = T1_DAY + 10
+    w_ms = rng.integers(w_day * MS_DAY, (w_day + 1) * MS_DAY, WEB_WRITE_ROWS)
+    w_box = (f"BBOX(geom, 20, 85, 30, 89) AND dtg DURING "
+             f"{_iso(w_day - 1)}/{_iso(w_day + 2)}")
+    deleted = w_ids[:WEB_DELETE_ROWS]
+    tile_ecql = north
+    ds.invalidate_cache()        # the pushdowns below are misses
+    batcher_registry.clear()
+    server = GeoMesaWebServer(ds).start()
+    wrong, out = [], {}
+    try:
+        if server._cuda_index != torch.cuda.current_device():
+            wrong.append(("request device", server._cuda_index))
+        client = RemoteDataStore("127.0.0.1", server.port, hedge=False)
+        client.get_schema("ais")
+        sft = client.get_schema("ais")
+        c0 = _web_counters()
+        b0 = (server.batcher.batches, server.batcher.coalesced_queries)
+        kernels.reset_launches()
+        t_main = time.perf_counter()
+        # the north star and the 32 batch queries, one at a time (Arrow)
+        got = [client.query(e, "ais") for e in [north] + ecqls]
+        # the gathered and dense tiers, forced as the store phase does
+        tier_got = {}
+        for tier, (h, thr) in {"gathered": ("0", "1.0"),
+                               "dense": ("0", "0")}.items():
+            host_rows.set(h)
+            threshold.set(thr)
+            try:
+                tier_got[tier] = [(client.query(e, "ais"),
+                                   client.query_count(e, "ais"))
+                                  for e, _, _ in STORE_QUERIES]
+            finally:
+                host_rows.set(None)
+                threshold.set(None)
+        t0 = time.perf_counter()
+        st_json, _, body_json = _web_get(
+            server.port, f"/rest/query/ais?cql={quote(north)}&format=json")
+        json_ms = (time.perf_counter() - t0) * 1e3
+        feats = json.loads(body_json)["features"]
+        n_count = json.loads(_web_get(
+            server.port, f"/rest/count/ais?cql={quote(north)}")[2])["count"]
+        dpath = (f"/rest/density/ais?bbox={','.join(map(str, WEB_TILE))}"
+                 f"&width=256&height=256&cql={quote(tile_ecql)}")
+        st_d, hd, body_d = _web_get(server.port, dpath)
+        web_grid = np.asarray(json.loads(body_d)["grid"], np.float32)
+        st_304, _, body_304 = _web_get(server.port, dpath,
+                                       headers={"If-None-Match":
+                                                hd.get("ETag", "")})
+        web_bin = client.bin_query("ais", north)
+        web_stats = client.stats_query("ais", "MinMax(dtg)", north)
+        kx, ky, kk = WEB_KNN
+        knn_points = [(kx, ky)] + [
+            (float(a), float(b)) for a, b in zip(
+                rng.uniform(-170, 170, WEB_KNN_BURST - 1),
+                rng.uniform(-80, 80, WEB_KNN_BURST - 1))]
+        kb0 = server.batcher.batches
+        knn = web_knn_burst(server, ds, knn_points, kk)
+        knn_dispatches = server.batcher.batches - kb0 - 1   # less the gate
+        sql = json.loads(_web_get(server.port, "/rest/sql",
+                                  body=count_sql.encode())[2])
+        routes_s = time.perf_counter() - t_main
+        # the wire's cost and the load, 1 and 32 client threads
+        wire_ms = [_timed(lambda: client.query(north, "ais").ids)
+                   for _ in range(WEB_NORTH_RUNS)]
+        load1 = web_load(client, ecqls, truth, ids, 1, len(ecqls))
+        bl = (server.batcher.batches, server.batcher.coalesced_queries)
+        load32 = web_load(client, ecqls, truth, ids, BATCHER_THREADS,
+                          WEB_LOAD_PER_THREAD)
+        fused = {"batches": server.batcher.batches - bl[0],
+                 "coalesced_queries": (server.batcher.coalesced_queries
+                                       - bl[1]),
+                 "registry_shared": batcher_registry.get(ds)
+                 is server.batcher}
+        # writes through the ingest pipeline, then deletes; read back by
+        # box and by id (last: the load's answers are the 10M rows')
+        t0 = time.perf_counter()
+        client.write("ais", FeatureBatch.from_dict(
+            sft, w_ids, {"dtg": w_ms, "geom": (w_x, w_y)}))
+        after_write = (sorted(client.query(w_box, "ais").ids),
+                       client.query_count(w_box, "ais"))
+        client.delete("ais", list(deleted))
+        id_ecql = "IN (" + ", ".join(f"'{i}'" for i in w_ids[:200]) + ")"
+        after_delete = (sorted(client.query(w_box, "ais").ids),
+                        sorted(client.query(id_ecql, "ais").ids))
+        write_s = time.perf_counter() - t0
+        main_s = time.perf_counter() - t_main
+        counts = {k: kernels.launches[k] for k in WEB_KERNELS + (
+            "scan_count",)}
+        c1 = _web_counters()
+        batches = server.batcher.batches - b0[0]
+    finally:
+        server.stop()
+        batcher_registry.clear()
+    direct_ms = [_timed(lambda: ds.query(north, "ais").ids)
+                 for _ in range(WEB_NORTH_RUNS)]
+
+    # the oracles, after the counted run
+    for i, (res, want) in enumerate(zip(got, [north_truth] + truth)):
+        if not np.array_equal(res.ids, ids[want]):
+            wrong.append(("query", i))
+    for tier, pairs in tier_got.items():
+        for (res, n), (_e, boxes, iv) in zip(pairs, STORE_QUERIES):
+            want = _brute(x, y, ms, boxes, iv)
+            if not np.array_equal(res.ids, ids[want]) or n != len(want):
+                wrong.append((tier, _e))
+    if st_json != 200 or [f["id"] for f in feats] != list(ids[north_truth]):
+        wrong.append("format=json")
+    if n_count != len(north_truth):
+        wrong.append("count")
+    grid = _cache_off(lambda: np.asarray(ds.density(
+        "ais", tile_ecql, WEB_TILE, 256, 256), np.float32))
+    if st_d != 200 or not np.array_equal(web_grid, grid) or not hd.get(
+            "ETag"):
+        wrong.append("density")
+    if st_304 != 304 or body_304:
+        wrong.append(("density If-None-Match", st_304))
+    if web_bin != _cache_off(lambda: ds.bin_query("ais", north)):
+        wrong.append("bin")
+    if web_stats != _cache_off(lambda: ds.stats_query(
+            "ais", "MinMax(dtg)", north)).to_json_object():
+        wrong.append("stats")
+    for j, ((px, py), reply) in enumerate(zip(knn_points, knn)):
+        k_ids, k_d = knn_process(ds, "ais", px, py, kk)
+        if reply is None or reply["ids"] != [str(i) for i in k_ids] or \
+                reply["distances"] != np.asarray(k_d, np.float64).tolist():
+            wrong.append(("knn", j))
+    direct_sql = SqlEngine(ds).query(count_sql)
+    if sql["rows"] != [[int(direct_sql.column("n")[0])]] or \
+            sql["rows"][0][0] != int(dw_counts.sum()):
+        wrong.append(("sql", sql.get("rows")))
+    if after_write != (sorted(w_ids), WEB_WRITE_ROWS):
+        wrong.append(("write", after_write[1]))
+    if after_delete != (sorted(w_ids[WEB_DELETE_ROWS:]),
+                        sorted(w_ids[WEB_DELETE_ROWS:200])):
+        wrong.append("delete")
+    ds.remove_schema("qpts")
+    clean = {k: c1[k] - c0[k] for k in WEB_COUNTERS}
+    if clean["resilience.web.errors"] or clean["resilience.retries"]:
+        wrong.append(("clean counters", clean))
+    missing = [k for k in ROUTE_KERNELS if counts[k] == 0]
+    if missing:
+        wrong.append(("kernels never launched on the routes", missing))
+    errors = load1["errors"] + load32["errors"]
+    wrong += [("load", w) for w in load1["wrong"] + load32["wrong"]]
+    out = {"part": "routes", "rows": len(x), "routes_s": routes_s,
+           "write_delete_s": write_s, "seconds": main_s, "json_ms": json_ms,
+           "knn_burst": {"requests": len(knn_points), "k": kk,
+                         "dispatches": knn_dispatches},
+           "json_bytes": len(body_json), "json_rows": len(feats),
+           "north_hits": len(north_truth),
+           "north_p50_ms": {"client": statistics.median(wire_ms),
+                            "direct": statistics.median(direct_ms)},
+           "load": {"1": load1, "32": load32}, "fused_32": fused,
+           "dispatches": batches, "clean_counters": clean,
+           "launches": counts, "wrong": wrong[:8], "errors": errors}
+    return out, counts
+
+
+def web_config8(seed: int) -> tuple[dict, dict]:
+    """(b) bench.py config 8 at its shapes: 200k points, 300 BBOX queries
+    through a RemoteDataStore direct, then through a ChaosProxy with 1 %
+    resets and 10 ms jitter; the breaker's fast-fail against a
+    black-holed endpoint. The socket-broker restart leg of config 8 runs
+    in the stream phase (stream_chaos)."""
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.resilience import (BreakerBoard, ChaosProxy,
+                                              CircuitOpenError, RetryPolicy)
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.scan.registry import batcher_registry
+    from geomesa_tpu_torch.store import RemoteDataStore
+    from geomesa_tpu_torch.web import GeoMesaWebServer
+    rng = np.random.default_rng(seed + 80)
+    n, nq = CHAOS8_POINTS, CHAOS8_QUERIES
+    x = rng.uniform(-180, 180, n)
+    y = rng.uniform(-90, 90, n)
+    ids = np.arange(n).astype(str).astype(object)
+    ds = InMemoryDataStore()
+    ds.create_schema("pts8", "*geom:Point:srid=4326")
+    ds.write_dict("pts8", ids, {"geom": (x, y)})
+    q_rng = np.random.default_rng(77)
+    boxes = []
+    for _ in range(nq):
+        x0 = float(q_rng.uniform(-170, 130))
+        y0 = float(q_rng.uniform(-80, 55))
+        boxes.append((x0, y0, x0 + 5, y0 + 5))
+    ecqls = [f"BBOX(geom, {a:.4f}, {b:.4f}, {c:.4f}, {d:.4f})"
+             for a, b, c, d in boxes]
+    truth = [tuple(sorted(ids[_brute(x, y, None, [(float(f"{a:.4f}"),
+                                                   float(f"{b:.4f}"),
+                                                   float(f"{c:.4f}"),
+                                                   float(f"{d:.4f}"))],
+                                     None)]))
+             for a, b, c, d in boxes]
+
+    def run(client):
+        got, times, errors = [], [], 0
+        for e in ecqls:
+            t0 = time.perf_counter()
+            try:
+                got.append(tuple(sorted(client.query(e, "pts8").ids)))
+            except Exception:  # noqa: BLE001 - counted: the gate
+                errors += 1
+                got.append(None)
+            times.append(time.perf_counter() - t0)
+        return got, {"qps": nq / sum(times), **_pct_ms(times),
+                     "client_errors": errors}
+
+    batcher_registry.clear()
+    kernels.reset_launches()
+    srv = GeoMesaWebServer(ds).start()
+    out = {"part": "config8", "points": n, "queries": nq}
+    try:
+        direct = RemoteDataStore("127.0.0.1", srv.port)
+        direct.query(ecqls[0], "pts8")
+        c0 = _web_counters()
+        clean_ids, out["clean"] = run(direct)
+        c1 = _web_counters()
+        out["clean"]["counters"] = {k: c1[k] - c0[k] for k in WEB_COUNTERS}
+        out["clean"]["ids_exact"] = clean_ids == truth
+        proxy = ChaosProxy("127.0.0.1", srv.port, reset_rate=0.01,
+                           jitter_s=0.010, seed=42).start()
+        try:
+            faulty = RemoteDataStore("127.0.0.1", proxy.port, timeout_s=10.0)
+            r0 = _counter("resilience.retries")
+            chaos_ids, chaos = run(faulty)
+            chaos["resets_injected"] = proxy.stats["resets"]
+            chaos["retries"] = _counter("resilience.retries") - r0
+            chaos["ids_exact"] = chaos_ids == clean_ids
+            out["chaos_1pct_resets"] = chaos
+        finally:
+            proxy.stop()
+        hole = ChaosProxy("127.0.0.1", srv.port, blackhole=True).start()
+        try:
+            dead = RemoteDataStore(
+                "127.0.0.1", hole.port, timeout_s=0.3,
+                retry_policy=RetryPolicy(max_attempts=1),
+                breakers=BreakerBoard(failure_threshold=2,
+                                      reset_timeout_s=60.0))
+            trip = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                try:
+                    dead.count("pts8")
+                except Exception:  # noqa: BLE001 - the timeouts that trip
+                    pass
+                trip.append(time.perf_counter() - t0)
+            ff, opened = [], 0
+            for _ in range(20):
+                t0 = time.perf_counter()
+                try:
+                    dead.count("pts8")
+                except CircuitOpenError:
+                    opened += 1
+                ff.append(time.perf_counter() - t0)
+            out["breaker"] = {"timeout_s": 0.3,
+                              "trip_ms": [t * 1e3 for t in trip],
+                              "fast_fail_p50_us": statistics.median(ff) * 1e6,
+                              "fast_fails": opened}
+        finally:
+            hole.stop()
+    finally:
+        srv.stop()
+        batcher_registry.clear()
+    out["launches"] = {k: kernels.launches[k] for k in WEB_KERNELS + (
+        "scan_count",)}
+    out["broker_restart"] = "in the stream phase (stream_chaos)"
+    wrong = []
+    if out["clean"]["client_errors"] or not out["clean"]["ids_exact"] \
+            or out["clean"]["counters"]["resilience.web.errors"] \
+            or out["clean"]["counters"]["resilience.retries"]:
+        wrong.append("clean leg")
+    if chaos["client_errors"] or not chaos["ids_exact"]:
+        wrong.append("chaos leg")
+    if out["breaker"]["fast_fails"] != 20:
+        wrong.append("breaker")
+    out["wrong"] = wrong
+    return out, out["launches"]
+
+
+def web_config13(seed: int) -> tuple[dict, dict]:
+    """(c) bench.py config 13 at its shapes: 200k rows; (A) 16 web and
+    16 embedded callers in one fused dispatch, ids exact against direct
+    store.query; (B) hedged against unhedged p99 through a straggler
+    proxy (10 % of connections stall 0.25 s), the hedge counters and the
+    budget invariant; (C) the latency-derived batch cap."""
+    import threading
+    from geomesa_tpu_torch import InMemoryDataStore, Query
+    from geomesa_tpu_torch.resilience import ChaosProxy
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.scan.batcher import (BATCH_LATENCY_BUDGET_MS,
+                                                BATCH_LINGER_ADAPTIVE,
+                                                BATCH_LINGER_MICROS,
+                                                BATCH_MAX_SIZE)
+    from geomesa_tpu_torch.scan.registry import (batcher_registry,
+                                                 shared_batcher)
+    from geomesa_tpu_torch.store import RemoteDataStore
+    from geomesa_tpu_torch.web import GeoMesaWebServer
+    n, cw, ce = TAIL13_ROWS, TAIL13_WEB, TAIL13_EMB
+    nq, slow = TAIL13_QUERIES, TAIL13_SLOW_S
+    total = cw + ce
+    rng = np.random.default_rng(seed + 130)
+
+    class GateStore(InMemoryDataStore):
+        """Holds the gate query in flight so the burst's leader lingers."""
+
+        def __init__(self):
+            super().__init__()
+            self.hold = threading.Event()
+            self.gate = None
+
+        def query(self, q, *args, **kwargs):
+            if q is self.gate:
+                if not self.hold.wait(60.0):
+                    raise RuntimeError("gate never released")
+            return super().query(q, *args, **kwargs)
+
+    ds = GateStore()
+    ds.create_schema("tail13", "dtg:Date,*geom:Point:srid=4326")
+    ds.write_dict("tail13", np.arange(n).astype(str).astype(object),
+                  {"dtg": rng.integers(T0_DAY * MS_DAY, T1_DAY * MS_DAY, n),
+                   "geom": (rng.uniform(-180, 180, n),
+                            rng.uniform(-90, 90, n))})
+
+    def bbox_q(i, w=4.0, h=4.0):
+        x0 = -170.0 + (i * 37) % 330
+        y0 = -80.0 + (i * 23) % 150
+        return Query("tail13", f"BBOX(geom, {x0}, {y0}, {x0 + w}, {y0 + h})")
+
+    def wait_for(pred, timeout=15.0):
+        deadline = time.perf_counter() + timeout
+        while not pred():
+            if time.perf_counter() > deadline:
+                raise SystemExit("web config 13: staging timed out")
+            time.sleep(0.001)
+
+    out = {"part": "config13", "rows": n, "web_callers": cw,
+           "embedded_callers": ce}
+    kernels.reset_launches()
+    # (A) one fused dispatch for both tiers
+    batcher_registry.clear()
+    BATCH_LINGER_ADAPTIVE.set("false")
+    BATCH_LINGER_MICROS.set(str(int(5e6)))
+    BATCH_MAX_SIZE.set(str(total))
+    server = None
+    try:
+        server = GeoMesaWebServer(ds).start()
+        b = shared_batcher(ds)
+        shared = server.batcher is b
+        client = RemoteDataStore("127.0.0.1", server.port, hedge=False)
+        client.get_schema("tail13")
+        pre = b.batches
+        ds.gate = bbox_q(0, w=0.01, h=0.01)
+        warm = threading.Thread(target=b.query, args=(ds.gate,), daemon=True)
+        warm.start()
+        wait_for(lambda: b._in_flight >= 1 and b.batches == pre + 1)
+        batches0, co0 = b.batches, b.coalesced_queries
+        queries = [bbox_q(i + 1) for i in range(total)]
+        results: list = [None] * total
+        barrier = threading.Barrier(total)
+
+        def web_worker(i):
+            barrier.wait()
+            results[i] = client.query(queries[i])
+
+        def emb_worker(i):
+            barrier.wait()
+            results[i] = b.query(queries[i])
+        threads = [threading.Thread(target=web_worker if i < cw
+                                    else emb_worker, args=(i,), daemon=True)
+                   for i in range(total)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+        stuck = any(t.is_alive() for t in threads)
+        ds.hold.set()
+        warm.join(10.0)
+        exact = not stuck
+        for i, r in enumerate(results):
+            want = InMemoryDataStore.query(ds, queries[i])
+            exact = exact and r is not None and np.array_equal(
+                np.sort(r.ids.astype(str)), np.sort(want.ids.astype(str)))
+        fused = b.batches - batches0
+        health = json.loads(_web_get(server.port, "/rest/health")[2])
+        out["coalesce"] = {
+            "callers": total, "registry_shared_instance": shared,
+            "fused_dispatches": fused,
+            "coalesced_queries": b.coalesced_queries - co0,
+            "single_fused_dispatch": (fused == 1 and b.coalesced_queries
+                                      - co0 == total),
+            "ids_exact": exact,
+            "health_has_batcher": health.get("batcher") is not None}
+    finally:
+        ds.hold.set()
+        BATCH_LINGER_ADAPTIVE.set(None)
+        BATCH_LINGER_MICROS.set(None)
+        BATCH_MAX_SIZE.set(None)
+        if server is not None:
+            server.stop()
+    # (C) the latency-derived cap, from phase A's cost EWMA
+    cost = max(b._cost_ewma.values()) if b._cost_ewma else 0.0
+    eff_unset = b.effective_max_batch("tail13")
+    want_cap = max(1, total // 2)
+    BATCH_LATENCY_BUDGET_MS.set(str(cost * (want_cap + 0.5) * 1e3))
+    try:
+        eff = b.effective_max_batch("tail13")
+    finally:
+        BATCH_LATENCY_BUDGET_MS.set(None)
+    out["batch_caps"] = {
+        "static_max_batch": b.max_batch, "per_query_cost_ms": cost * 1e3,
+        "effective_max_batch": eff,
+        "derived_below_static": cost > 0 and eff < b.max_batch,
+        "uncapped_without_budget": eff_unset == b.max_batch}
+    batcher_registry.clear()
+    # (B) hedged against unhedged through the straggler profile
+    server = GeoMesaWebServer(ds).start()
+    proxy = ChaosProxy("127.0.0.1", server.port, seed=7, slow_rate=0.0,
+                       slow_s=slow).start()
+    try:
+        unhedged = RemoteDataStore("127.0.0.1", proxy.port, hedge=False)
+        hedged = RemoteDataStore("127.0.0.1", proxy.port)
+
+        def stream(c, count):
+            lat = []
+            for i in range(count):
+                t0 = time.perf_counter()
+                c.query(bbox_q(i))
+                lat.append(time.perf_counter() - t0)
+            return lat
+        warmup = max(nq // 5, 10)
+        stream(unhedged, warmup)
+        stream(hedged, warmup)
+        proxy.slow_rate = 0.1
+        c0 = dict(_counter_all())
+        lat_u = stream(unhedged, nq)
+        lat_h = stream(hedged, nq)
+        time.sleep(slow + 0.2)       # the last losers come back
+        c1 = dict(_counter_all())
+
+        def delta(k):
+            return c1.get(k, 0) - c0.get(k, 0)
+        probe_ok = True
+        for i in range(5):
+            got = hedged.query(bbox_q(i))
+            want = InMemoryDataStore.query(ds, bbox_q(i))
+            probe_ok = probe_ok and np.array_equal(
+                np.sort(got.ids.astype(str)), np.sort(want.ids.astype(str)))
+        proxy.slow_rate = 0.0
+        attempts = delta("resilience.hedge.attempts")
+        budget_cap = (nq + warmup + 5) * 0.2 + 10.0
+        out["unhedged"] = {"requests": nq, **_pct_ms(lat_u)}
+        out["hedged"] = {"requests": nq, **_pct_ms(lat_h),
+                         "attempts": attempts,
+                         "wins": delta("resilience.hedge.wins"),
+                         "losses": delta("resilience.hedge.losses"),
+                         "cancelled": delta("resilience.hedge.cancelled"),
+                         "suppressed_budget": delta(
+                             "resilience.hedge.suppressed.budget"),
+                         "budget_cap": budget_cap,
+                         "budget_ok": attempts <= budget_cap,
+                         "ids_exact": probe_ok}
+        out["slow_profile"] = {"slow_rate": 0.1, "slow_s": slow,
+                               "slowed_connections": proxy.stats["slowed"]}
+        out["hedge_p99_speedup"] = (out["unhedged"]["p99_ms"]
+                                    / max(out["hedged"]["p99_ms"], 1e-9))
+    finally:
+        proxy.stop()
+        server.stop()
+        batcher_registry.clear()
+    out["launches"] = {k: kernels.launches[k] for k in WEB_KERNELS + (
+        "scan_count",)}
+    co, h, caps = out["coalesce"], out["hedged"], out["batch_caps"]
+    wrong = []
+    if not (co["single_fused_dispatch"] and co["ids_exact"]
+            and co["registry_shared_instance"] and co["health_has_batcher"]):
+        wrong.append("phase A")
+    if not (h["attempts"] and h["wins"] and h["cancelled"]
+            and h["budget_ok"] and h["ids_exact"]):
+        wrong.append("phase B")
+    if not (caps["derived_below_static"] and caps["uncapped_without_budget"]):
+        wrong.append("phase C")
+    out["wrong"] = wrong
+    return out, out["launches"]
+
+
+def _counter_all() -> dict:
+    from geomesa_tpu_torch.metrics import metrics
+    return metrics.snapshot()["counters"]
+
+
+def phase_web(seed: int, ds, rows, dw) -> dict:
+    """The REST surface on the card (see the module's head): the route
+    sweep at 10M rows, then bench.py configs 8 and 13 at their shapes.
+    Returns the launches of the three parts together."""
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in WEB_KERNELS + ("scan_count",)}
+    wrong = []
+    for name, part in (("routes", lambda: web_routes(seed, ds, rows, dw)),
+                       ("config8", lambda: web_config8(seed)),
+                       ("config13", lambda: web_config13(seed))):
+        t0 = time.perf_counter()
+        out, launches = part()
+        out.update(seconds_part=time.perf_counter() - t0, card=card_line())
+        emit({"phase": "web", **out})
+        for k, v in launches.items():
+            counts[k] += v
+        wrong += [(name, w) for w in out["wrong"] + out.get("errors", [])]
+    missing = [k for k in WEB_KERNELS if counts[k] == 0]
+    if missing:
+        wrong.append(("kernels never launched on the web path", missing))
+    emit({"phase": "web", "part": "total",
+          "seconds": time.perf_counter() - t_phase,
+          "budget_s": WEB_BUDGET_S, "launches": counts,
+          "wrong": wrong[:8], "card": card_line()})
+    if wrong:
+        raise SystemExit(f"web: {wrong[:8]}")
+    return counts
+
+
 def _sql_cells(res) -> list:
     """Rows with the geometry cells as their envelopes' tuples."""
     out = []
@@ -7480,6 +8207,7 @@ def main():
     join_stats, join_launches, dw = phase_analytics(args.seed, ds, rows)
     launches.update(join_launches)
     sql_ais, sql_launches = phase_sql_ais(ds, rows, dw)
+    web_launches = phase_web(args.seed, ds, rows, dw)
     del ds
     torch.cuda.empty_cache()
     pred_stats, pred_counts, pred_ds, pred_data, pred_queries, pred_q = \
@@ -7510,6 +8238,8 @@ def main():
     ingest_launches, _ = phase_ingest(args.seed)
     for name in ("scan_mask", "scan_mask_gather", "scan_count"):
         launches[name] += ingest_launches[name]
+    for name, n in web_launches.items():
+        launches[name] += n
     summary = []
     for name, s in stats.items():
         q0 = s["per_query"][0]   # the BBOX+time query (1M random ids

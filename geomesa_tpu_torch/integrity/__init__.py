@@ -1,12 +1,13 @@
-"""Storage fault tolerance: fault injection (``faultfs``) and end-to-end
-verification of the durable artifacts (``verify``).
+"""Storage fault tolerance: fault injection (``faultfs``), end-to-end
+verification of the durable artifacts (``verify``) and the scrubber
+with its read-only integrity report (``scrub``).
 
 Only :mod:`.faultfs` is imported eagerly: the WAL and the atomic file
 writes route their writes and fsyncs through it on every call, so it
-must be cheap and dependency-free. The verify functions pull in the wal
-and store packages and are exposed lazily, so this package imports from
-inside them without a cycle. The scrubber and the crash harness come
-with the cluster tier (ROADMAP.md section 6).
+must be cheap and dependency-free. Everything else pulls in the wal and
+store packages and is exposed lazily, so this package imports from
+inside them without a cycle. The crash harness comes with the cluster
+tier (ROADMAP.md section 6).
 """
 
 from . import faultfs
@@ -17,14 +18,20 @@ __all__ = [
     # lazy (PEP 562):
     "sha256_hex", "file_sha256", "verify_checkpoint", "verify_wal",
     "ids_digest", "quarantine",
+    "Scrubber", "integrity_report",
 ]
 
-_LAZY = frozenset({"sha256_hex", "file_sha256", "verify_checkpoint",
-                   "verify_wal", "ids_digest", "quarantine"})
+_LAZY = {
+    "sha256_hex": "verify", "file_sha256": "verify",
+    "verify_checkpoint": "verify", "verify_wal": "verify",
+    "ids_digest": "verify", "quarantine": "verify",
+    "Scrubber": "scrub", "integrity_report": "scrub",
+}
 
 
 def __getattr__(name):
-    if name not in _LAZY:
+    mod = _LAZY.get(name)
+    if mod is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    from . import verify
-    return getattr(verify, name)
+    import importlib
+    return getattr(importlib.import_module(f".{mod}", __name__), name)

@@ -4,7 +4,8 @@ the card) with its partition schemes, and the streaming tiers: the live
 store over a message bus (in-process, file or socket), the stream store
 fed by a converter, and the lambda store (a live tier over a persistent
 one). Continuous queries (``store/continuous.py``) publish what
-standing filters match on the card."""
+standing filters match on the card. ``RemoteDataStore``
+(``store/remote.py``) is the client of a ``GeoMesaWebServer``."""
 
 from .api import DataStore
 from .memory import InMemoryDataStore, QueryResult
@@ -13,13 +14,14 @@ from .live import GeoMessage, LiveDataStore, MessageBus
 from .filebus import FileBus
 from .socketbus import SocketBroker, SocketBus
 from .lambda_store import LambdaDataStore
+from .remote import RemoteDataStore
 from .stream import (FileTailSource, IterableSource, StreamDataStore,
                      StreamSource)
 from .partitions import (AttributeScheme, CompositeScheme, DateTimeScheme,
                          PartitionScheme, Z2Scheme, scheme_from_config)
 
 __all__ = ["DataStore", "InMemoryDataStore", "QueryResult",
-           "FileSystemDataStore",
+           "FileSystemDataStore", "RemoteDataStore",
            "GeoMessage", "LiveDataStore", "MessageBus", "LambdaDataStore",
            "FileBus", "SocketBroker", "SocketBus",
            "StreamSource", "StreamDataStore", "FileTailSource",

@@ -2,12 +2,16 @@
 DataStore contract cases of delete, remove_schema, sort and limit,
 projection, sampling, visibilities and BIN output, plus attribute-level
 visibility, SAMPLE_BY, descending sorts over nulls, query_batched with
-the post-scan stages, write_many, and the residual path after a delete.
+the post-scan stages, write_many, and the residual path after a delete;
+and the contract battery's "remote" case: the port's RemoteDataStore
+over the port's GeoMesaWebServer (a CPU store behind it).
 
 Both stores get the same seeded rows (the contract battery's SPEC and
 _populate, copied here); the port runs on the CPU. Tolerance: exact —
 ids in result order, counts, feature values and BIN bytes must be
 equal."""
+
+import json
 
 import numpy as np
 import pytest
@@ -450,3 +454,113 @@ def test_plans_follow_stats_after_delete_and_analyze(pair, ecql):
         assert s.analyze("t").count.count == N - N // 10
     a, b = plans()
     assert a == b
+
+
+# -- the remote case: the port's client over the port's server -------------------
+# (tests/test_datastore_contract.py runs its battery on a "remote" store:
+# a web server fronting a local store, reached through the HTTP client)
+
+@pytest.fixture
+def remote_pair():
+    """(the port's RemoteDataStore over a GeoMesaWebServer fronting a CPU
+    store, the JAX store), the same rows written through each."""
+    from geomesa_tpu_torch.store import RemoteDataStore
+    from geomesa_tpu_torch.web import GeoMesaWebServer
+    server = GeoMesaWebServer(InMemoryDataStore(device="cpu")).start()
+    try:
+        yield (_populate(RemoteDataStore("127.0.0.1", server.port)),
+               _populate(JaxStore(), parse=jparse_spec))
+    finally:
+        server.stop()
+
+
+def _same_remote(remote, ref, q: Query):
+    got, want = remote.query(q), ref.query(_jq(q))
+    assert _ids(got) == _ids(want)
+    assert _features(got) == _features(want)
+    assert remote.query_count(q) == ref.query_count(_jq(q)) == got.n
+    return got
+
+
+REMOTE_QUERIES = [
+    Query("t", "INCLUDE"), Query("t", BBOX),
+    Query("t", BBOX + " AND dtg DURING "
+               "2019-01-10T00:00:00Z/2019-02-10T00:00:00Z"),
+    Query("t", "name = 'n3'"), Query("t", "val > 40 AND val < 60"),
+    Query("t", BBOX, sort_by="val", sort_desc=True, max_features=25),
+    Query("t", BBOX, sort_by="name", max_features=25),
+    Query("t", "name = 'n3'", properties=["dtg", "name"]),
+    Query("t", BBOX, hints={QueryHints.SAMPLING: 0.25}),
+    Query("t", BBOX, hints={QueryHints.SAMPLING: 0.3,
+                            QueryHints.SAMPLE_BY: "name"}),
+]
+
+
+def test_remote_is_spi_instance(remote_pair):
+    from geomesa_tpu_torch.store.api import DataStore
+    remote, ref = remote_pair
+    assert isinstance(remote, DataStore)
+    sft = remote.get_schema("t")
+    assert sft.geom_field == "geom" and sft.dtg_field == "dtg"
+    assert remote.get_type_names() == ref.get_type_names() == ["t"]
+    assert remote.count("t") == ref.count("t") == N
+
+
+@pytest.mark.parametrize("i", range(len(REMOTE_QUERIES)))
+def test_remote_query(remote_pair, i):
+    _same_remote(*remote_pair, REMOTE_QUERIES[i])
+
+
+@pytest.mark.parametrize("ecql", ["INCLUDE", BBOX, "name = 'n3'"])
+def test_remote_delete(remote_pair, ecql):
+    remote, ref = remote_pair
+    victims = [f"f{i}" for i in range(0, 100)] + ["f2500", "nope"]
+    for s in remote_pair:
+        s.delete("t", victims)
+    assert remote.count("t") == ref.count("t") == N - 101
+    got = _same_remote(remote, ref, Query("t", ecql))
+    assert not set(victims) & set(_ids(got))
+
+
+def test_remote_remove_schema(remote_pair):
+    remote, ref = remote_pair
+    for s, parse in ((remote, parse_spec), (ref, jparse_spec)):
+        s.create_schema(parse("gone", "v:Integer,*geom:Point"))
+        s.write_dict("gone", ["a"], {"v": [1], "geom": ([0.0], [0.0])})
+        s.remove_schema("gone")
+        with pytest.raises(KeyError):
+            s.get_schema("gone")
+    assert remote.get_type_names() == ref.get_type_names()
+
+
+@pytest.mark.parametrize("auths", [[], ["admin"], ["admin", "ops"], None])
+def test_remote_visibilities(remote_pair, auths):
+    remote, ref = remote_pair
+    _vis_write(remote, parse_spec, FeatureBatch)
+    _vis_write(ref, jparse_spec, JFeatureBatch)
+    _same_remote(remote, ref, Query("vis", "INCLUDE", auths=auths))
+    assert remote.count("vis") == 40
+
+
+@pytest.mark.parametrize("kwargs", [
+    {}, {"sort": True}, {"track": "val", "label": "dtg", "sort": True}])
+def test_remote_bin_output(remote_pair, kwargs):
+    remote, ref = remote_pair
+    assert remote.bin_query("t", BBOX, **kwargs) == \
+        ref.bin_query("t", BBOX, **kwargs)
+
+
+@pytest.mark.parametrize("spec", ["Count()", "MinMax(val)", "TopK(name,4)"])
+def test_remote_stats_query(remote_pair, spec):
+    remote, ref = remote_pair
+    assert remote.stats_query("t", spec, BBOX) == json.loads(
+        ref.stats_query("t", spec, BBOX).to_json())
+
+
+def test_remote_stream_and_arrow(remote_pair):
+    remote, ref = remote_pair
+    q = Query("t", BBOX, sort_by="dtg")
+    wins = list(remote.query_stream(q, batch_rows=64))
+    assert [str(i) for w in wins for i in w.ids] == _ids(ref.query(_jq(q)))
+    assert remote.arrow_ipc("t", BBOX, sort_by="dtg") == \
+        ref.arrow_ipc("t", BBOX, sort_by="dtg")

@@ -84,7 +84,10 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.ingest.pipeline, geomesa_tpu_torch.api, "
             "geomesa_tpu_torch.resilience.breaker, "
             "geomesa_tpu_torch.resilience.hedge, "
-            "geomesa_tpu_torch.resilience.chaos\n"
+            "geomesa_tpu_torch.resilience.chaos, "
+            "geomesa_tpu_torch.web, geomesa_tpu_torch.web.server, "
+            "geomesa_tpu_torch.store.remote, "
+            "geomesa_tpu_torch.integrity.scrub\n"
             "import importlib; "
             "importlib.import_module('geomesa_tpu_torch.obs.runtime')\n"
             "bad = [m for m in sys.modules if m == 'jax' "
@@ -148,7 +151,8 @@ def test_no_source_imports_jax_or_reference():
             "cache/result_cache.py", "cache/refresh.py",
             "ingest/__init__.py", "ingest/pipeline.py", "api/__init__.py",
             "resilience/breaker.py", "resilience/hedge.py",
-            "resilience/chaos.py"} <= seen
+            "resilience/chaos.py", "web/__init__.py", "web/server.py",
+            "store/remote.py", "integrity/scrub.py"} <= seen
     # the native library's C++ sources are the port's own copies
     src = os.path.join(PKG, "native", "src")
     assert sorted(os.listdir(src)) == ["feature_codec.cpp", "zbuild.cpp",
