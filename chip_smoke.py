@@ -332,6 +332,43 @@ Phases, one JSON line each; any failure exits non-zero:
            latency-derived batch cap with and without
            geomesa.batch.latency.budget.ms (gates). One JSON line a
            part, then the phase's seconds beside WEB_BUDGET_S.
+5d. cluster the replicated and sharded tiers on the card, on the store
+           phase's rows before they are freed; launch counts zeroed
+           before each part and read after, device memory before and
+           after each part (its stores closed; at most
+           CLUSTER_MEM_SLACK more). (a) ``cluster11``, bench.py config
+           11: the store's 10M rows written through
+           ClusterDataStore.write into 4 groups; config 11's 400
+           5-degree boxes (seed 110) as query_count, each equal to the
+           store's, queries/s, p50, p95, p99 and the legs contacted
+           after pruning beside the store's own; the three store
+           queries id-exact against the f64 brute force on the gathered
+           and the dense tiers (gate: scan_mask and scan_mask_gather
+           launched on the groups); 1 and 2 groups at the same rows
+           while CLUSTER_FULL_SHARE of CLUSTER_BUDGET_S holds, else at
+           config 11's 200k (``cut``); at 200k rows, a replicated group 0
+           (its primary durable, behind a web server and a ChaosProxy)
+           killed under ingest and a query stream (gates: promoted by
+           itself, no acked write lost, every query exact or typed),
+           then one group down (gates: typed without
+           geomesa.cluster.allow.partial, flagged with its missing
+           z-ranges with it). (b) ``repl9``, bench.py config 9 at 1M
+           rows: a durable primary (wal_fsync="never", 100 writes, a
+           checkpoint after 50), 4 replicas bootstrapping from it and
+           streaming the rest; 400 box counts at 1, 2 and 4 replicas,
+           each equal to the primary's (queries/s, p50, p95, p99, the
+           staleness hit rate); a half-world count on each replica
+           (gate: scan_mask launched on each); config 9's failover
+           through RemoteDataStore and ChaosProxy (gates: promoted, no
+           acked write lost). (c) ``reshard21``, bench.py config 21:
+           240k rows then 480k in one corner, 32 threads x 6 queries
+           before, under and after; the autoscaler on the real leg
+           latencies, else on config 21's synthetic_hot_signal (marked
+           ``signal``); gates: it fired (``reason`` auto), id-exact
+           against one store across the flip; the heal ratio and the
+           flip's snapshot, copy, delete and swap times. (d) ``sql19``
+           runs in 7b. The phase's total line, with its seconds beside
+           CLUSTER_BUDGET_S, follows sql19.
 6. predicates  exact polygon and attribute predicates: the earlier
            stores freed, a store of --store-rows rows shaped like a GDELT
            1.0 event record (EventCode:String:index=true with 320
@@ -399,11 +436,12 @@ Phases, one JSON line each; any failure exits non-zero:
            textbook bisection) and one knn_spiral_process, each against
            numpy or the f64 brute force over the same columns (exact;
            an AVG within recursive summation's bound of the fsum mean);
-           then config 19's aggregate statements through
-           partial_aggregate on 4 stores holding a z-prefix split of 2M
-           of the rows, and its two joins through join_partial_leg with
-           the zones broadcast, merged, against one store's SqlEngine
-           over the same 2M rows; cProfiles of the slowest statements.
+           then ``sql19`` (the cluster phase's part, 5d): config 19's
+           statements through a SqlEngine over a 4-group
+           ClusterDataStore holding 2M of the rows (the plan says
+           distributed, rows equal to one store's engine over the same
+           rows), the pull path beside three of them, the leg kill;
+           cProfiles of the slowest statements.
            Launch counts are zeroed before each of the two sql phases
            and read after; the `sql` line has their seconds (budget
            60 s).
@@ -491,7 +529,11 @@ Phases, one JSON line each; any failure exits non-zero:
            a phase, the hot-tile p99 speedup. Gates: (C) one cache miss
            and one density_grid launch; (E) exact; the refresher ran,
            with no errors and no crashes. Launch counts zeroed after
-           the write and read after (E).
+           the write and read after (E). Then (F), config 12's
+           replicated bounded-staleness probe: a durable primary, one
+           replica, a router with a lag bound of 50, density reads
+           under 150 one-row writes (gates: no staleness violation and
+           density_grid launched).
 12. ingest bench.py config 16 whole (A-C) at its own 1M rows into
            durable stores on the card: (A) the scalar per-write leg
            (geomesa.ingest.vectorized off for its thread, 4,096 rows a
@@ -7289,6 +7331,887 @@ def phase_web(seed: int, ds, rows, dw) -> dict:
     return counts
 
 
+# -- the replicated and sharded tiers (queue 1 item 8a) ---------------------
+
+CLUSTER_BUDGET_S = 120.0      # the cluster phase's share of the script's time
+CLUSTER_GROUPS = 4            # bench.py config 11's widest cluster
+CLUSTER_QUERIES = 400         # configs 9 and 11: 5-degree box counts
+CLUSTER_N = 200_000           # config 11's own rows (phases 2, 3 and cuts)
+CLUSTER_FULL_SHARE = 0.3      # of the budget: past it 1 and 2 groups are cut
+CLUSTER_MEM_SLACK = 64 << 20  # memory_allocated after a part, at most above
+CLUSTER_HALF = "BBOX(geom, -180, -90, 0, 90)"   # a dense-tier count
+CLUSTER_WORLD = "BBOX(geom, -180, -90, 180, 90)"
+REPL_ROWS = 1_000_000         # config 9's primary at the issue's size
+REPL_CHUNKS = 100             # writes; a checkpoint after half of them
+REPL_REPLICAS = (1, 2, 4)
+RESHARD_N = 240_000           # config 21: uniform rows, then twice that hot
+RESHARD_C = 32                # config 21's client threads
+RESHARD_PER_THREAD = 6        # queries a thread and phase
+RESHARD_HOT = "BBOX(geom, 100, 40, 112, 46)"
+RESHARD_BROAD = "BBOX(geom, -179, -89, 179, 89)"
+SQL19_KERNELS = ("dwithin_counts", "slab_pairs", "contains_counts")
+CLUSTER_KERNELS = ("scan_mask", "scan_mask_gather", "scan_count",
+                   "density_grid") + SQL19_KERNELS
+
+
+class _DownGroup:
+    """A shard group that lost every node: every call fails fast."""
+
+    def close(self):
+        pass
+
+    def __getattr__(self, name):
+        def boom(*a, **kw):
+            raise ConnectionError("shard group down")
+        return boom
+
+
+def _five_degree(seed: int, count: int) -> list:
+    """bench.py configs 9 and 11's box stream: 5-degree boxes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        x0 = float(rng.uniform(-170, 130))
+        y0 = float(rng.uniform(-80, 55))
+        out.append(f"BBOX(geom, {x0:.4f}, {y0:.4f}, "
+                   f"{x0 + 5:.4f}, {y0 + 5:.4f})")
+    return out
+
+
+def _lat(lat_s: list, wall_s: float) -> dict:
+    a = np.asarray(lat_s) * 1e3
+    return {"qps": len(a) / wall_s, "p50_ms": float(np.percentile(a, 50)),
+            "p95_ms": float(np.percentile(a, 95)),
+            "p99_ms": float(np.percentile(a, 99))}
+
+
+def _wait_for(cond, timeout_s: float) -> bool:
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def _launches(names=CLUSTER_KERNELS) -> dict:
+    from geomesa_tpu_torch.scan import kernels
+    return {k: kernels.launches[k] for k in names}
+
+
+def _chaos_group(root: str, sft, name: str):
+    """A replicated group whose primary (durable, on the card) serves
+    through a web server behind a ChaosProxy: (router, server, shipper,
+    proxy)."""
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.replication import (Replica, ReplicatedDataStore,
+                                               WalShipper)
+    from geomesa_tpu_torch.resilience import ChaosProxy, RetryPolicy
+    from geomesa_tpu_torch.store.remote import RemoteDataStore
+    from geomesa_tpu_torch.web import GeoMesaWebServer
+    primary = InMemoryDataStore(durable_dir=os.path.join(root, name),
+                                wal_fsync="never")
+    primary.create_schema(sft)
+    srv = GeoMesaWebServer(primary).start()
+    proxy = ChaosProxy("127.0.0.1", srv.port).start()
+    remote = RemoteDataStore(
+        "127.0.0.1", proxy.port, timeout_s=2.0,
+        retry_policy=RetryPolicy(max_attempts=2, base_s=0.02, cap_s=0.05,
+                                 total_deadline_s=1.0))
+    ship = WalShipper(primary.journal)
+    replicas = [Replica(ship.host, ship.port, name=f"{name}r{i}")
+                for i in range(2)]
+    router = ReplicatedDataStore(primary=remote, replicas=replicas,
+                                 ack_replicas=1, auto_promote=True,
+                                 probe_ms=50, probe_failures=2,
+                                 max_lag_lsn=100_000, max_lag_s=600)
+    return router, srv, ship, proxy
+
+
+def _failover(router, srv, ship, proxy, write, query=None) -> dict:
+    """bench.py configs 9 and 11's kill: ingest (and a query stream)
+    for a second, then the primary's server, shipper and proxy go down;
+    the router must promote by itself and keep every acked write."""
+    import threading
+    from geomesa_tpu_torch.replication import Replica
+    acked, failed = [], [0]
+    stop = threading.Event()
+
+    def ingest():
+        b = 0
+        while not stop.is_set():
+            try:
+                acked.extend(write(b))
+            except Exception:   # noqa: BLE001 - unacked: may be lost
+                failed[0] += 1
+            b += 1
+
+    threads = [threading.Thread(target=ingest, daemon=True)]
+    if query is not None:
+        threads.append(threading.Thread(target=query, args=(stop,),
+                                        daemon=True))
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(1.0)
+        srv.stop()
+        ship.stop()
+        proxy.stop()
+        promoted = _wait_for(lambda: isinstance(router.primary, Replica),
+                             15.0)
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+    st = router.replication_status()
+    return {"auto_promoted": promoted, "failover_s": st.get(
+                "failover_seconds"), "promoted_to": st.get("promoted_to"),
+            "acked": acked, "unacked_write_errors": failed[0]}
+
+
+def cluster11(seed: int, ds, rows) -> tuple[dict, dict, list]:
+    """bench.py config 11 on the card. Phase 1: the store phase's rows
+    written through ``ClusterDataStore.write`` into 4 groups, config
+    11's 400 boxes (seed 110) as ``query_count``, each equal to the
+    store phase's store, and the three store queries id-exact against
+    the float64 brute force on the gathered and the dense tiers (both
+    scan kernels must launch on the groups); 1 and 2 groups at the same
+    rows while the budget holds, else at config 11's 200k (``cut``).
+    Phase 2: a replicated group 0 behind a ChaosProxy fails over inside
+    a 2-group cluster under ingest and a query stream. Phase 3: one
+    group down, typed without partials and flagged with them."""
+    import tempfile
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.cluster import (CLUSTER_ALLOW_PARTIAL,
+                                           ClusterDataStore,
+                                           ShardUnavailableError)
+    from geomesa_tpu_torch.cluster.coordinator import CLUSTER_PRUNE
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.replication import Replica
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    t_part = time.perf_counter()
+    x, y, ms, ids = rows
+    n = len(x)
+    sft = ds.get_schema("ais")
+    wrong = []
+    boxes = _five_degree(110, CLUSTER_QUERIES)
+    ds.query_count(boxes[0], "ais")
+    want, lat = [], []
+    t0 = time.perf_counter()
+    for e in boxes:
+        tq = time.perf_counter()
+        want.append(ds.query_count(e, "ais"))
+        lat.append(time.perf_counter() - tq)
+    out = {"part": "cluster11", "rows": n,
+           "single": _lat(lat, time.perf_counter() - t0), "groups": {}}
+
+    def batch_of(m):
+        return FeatureBatch.from_dict(sft, ids[:m], {"dtg": ms[:m],
+                                                     "geom": (x[:m], y[:m])})
+
+    def scatter(k, m, oracle_counts):
+        groups = [InMemoryDataStore() for _ in range(k)]
+        cluster = ClusterDataStore(groups, leg_deadline_s=60)
+        cluster.create_schema(sft)
+        t0 = time.perf_counter()
+        cluster.write("ais", batch_of(m))
+        cluster.query_count(CLUSTER_WORLD, "ais")    # flush and index
+        write_s = time.perf_counter() - t0
+        lat, legs, got = [], [], []
+        t0 = time.perf_counter()
+        for e in boxes:
+            tq = time.perf_counter()
+            got.append(cluster.query_count(e, "ais"))
+            lat.append(time.perf_counter() - tq)
+            legs.append(len(cluster.last_plan()["contacted"]))
+        line = {"rows": m, "write_s": write_s,
+                **_lat(lat, time.perf_counter() - t0),
+                "legs_contacted_mean": float(np.mean(legs)),
+                "legs_contacted_max": int(max(legs)),
+                "per_group_rows": [g.count("ais") for g in groups],
+                "counts_exact": got == oracle_counts}
+        if not line["counts_exact"]:
+            wrong.append(("counts", k, m))
+        return cluster, groups, line
+
+    cluster, groups, line = scatter(CLUSTER_GROUPS, n, want)
+    # the three store queries on the groups, both device tiers
+    host_rows = SystemProperty("geomesa.scan.host.rows")
+    threshold = SystemProperty("geomesa.scan.index.threshold")
+    before_q = _launches(("scan_mask", "scan_mask_gather"))
+    exact = {}
+    try:
+        for tier, (h, thr) in {"gathered": ("0", "1.0"),
+                               "dense": ("0", "0")}.items():
+            host_rows.set(h)
+            threshold.set(thr)
+            for qi, (ecql, qboxes, iv) in enumerate(STORE_QUERIES):
+                w = _brute(x, y, ms, qboxes, iv)
+                res = cluster.query(ecql, "ais")
+                got = np.sort(np.asarray(res.ids).astype(np.int64))
+                ok = (res.complete and np.array_equal(got, w)
+                      and cluster.query_count(ecql, "ais") == len(w))
+                exact[f"{tier}_{qi}"] = {"hits": len(w), "exact": ok}
+                if not ok:
+                    wrong.append(("store query", tier, ecql))
+    finally:
+        host_rows.set(None)
+        threshold.set(None)
+    line["store_queries"] = exact
+    after_q = _launches(("scan_mask", "scan_mask_gather"))
+    line["store_query_launches"] = {k: after_q[k] - before_q[k]
+                                    for k in after_q}
+    if min(line["store_query_launches"].values()) == 0:
+        wrong.append(("store query kernels", line["store_query_launches"]))
+    out["groups"][str(CLUSTER_GROUPS)] = line
+    cluster.close()
+    del cluster, groups
+    # 1 and 2 groups: the same rows while the budget holds
+    small_want = None
+    for k in (1, 2):
+        full = time.perf_counter() - t_part < \
+            CLUSTER_FULL_SHARE * CLUSTER_BUDGET_S
+        m = n if full else min(CLUSTER_N, n)
+        if not full and small_want is None:
+            one = InMemoryDataStore()
+            one.create_schema(sft)
+            one.write("ais", batch_of(m))
+            small_want = [one.query_count(e, "ais") for e in boxes]
+            del one
+        c, g, line = scatter(k, m, want if full else small_want)
+        if not full:
+            line["cut"] = {"rows": m, "of": n}
+        out["groups"][str(k)] = line
+        c.close()
+        del c, g
+    torch.cuda.synchronize()
+    # phase 2: failover inside the cluster at config 11's rows
+    m = min(CLUSTER_N, n)
+    n_static = min(m, 20_000)
+    sx, sy = x[:n_static], y[:n_static]
+    root = tempfile.mkdtemp(prefix="geomesa-cluster11-")
+    try:
+        router, srv, ship, proxy = _chaos_group(root, sft, "g0")
+        g1 = InMemoryDataStore()
+        g1.create_schema(sft)
+        cluster = ClusterDataStore([router, g1], names=["g0", "g1"],
+                                   leg_deadline_s=5, hedge_ms=50)
+        cluster._sfts["ais"] = sft
+        cluster.write("ais", FeatureBatch.from_dict(
+            sft, np.array([f"s{i}" for i in range(n_static)], object),
+            {"dtg": ms[:n_static], "geom": (sx, sy)}))
+        w_rng = np.random.default_rng(seed + 112)
+        q_ok, q_err, q_wrong = [0], [0], [0]
+
+        def write(b):
+            wids = [f"w{b}_{i}" for i in range(50)]
+            cluster.write("ais", FeatureBatch.from_dict(
+                sft, np.array(wids, dtype=object),
+                {"dtg": np.full(50, T0_DAY * MS_DAY),
+                 "geom": (w_rng.uniform(-180, 180, 50),
+                          w_rng.uniform(-90, 90, 50))}))
+            return wids
+
+        def query(stop):
+            q_rng = np.random.default_rng(seed + 113)
+            while not stop.is_set():
+                x0 = float(q_rng.uniform(-170, 130))
+                y0 = float(q_rng.uniform(-80, 55))
+                try:
+                    res = cluster.query(
+                        f"BBOX(geom, {x0:.4f}, {y0:.4f}, {x0 + 20:.4f}, "
+                        f"{y0 + 20:.4f})", "ais")
+                except Exception:   # noqa: BLE001 - typed, never wrong
+                    q_err[0] += 1
+                    continue
+                got = set(np.asarray(res.ids).astype(str))
+                inb = ((sx >= x0) & (sx <= x0 + 20) & (sy >= y0)
+                       & (sy <= y0 + 20))
+                w = {f"s{i}" for i in np.flatnonzero(inb)}
+                if w - got or any(not g.startswith(("s", "w"))
+                                  for g in got - w):
+                    q_wrong[0] += 1
+                else:
+                    q_ok[0] += 1
+
+        fo = _failover(router, srv, ship, proxy, write, query)
+        survived = (set(np.asarray(cluster.query("INCLUDE", "ais").ids)
+                        .astype(str)) if fo["auto_promoted"] else set())
+        acked = fo.pop("acked")
+        lost = [i for i in acked if i not in survived]
+        fo.update(rows=m, static_rows=n_static, acked_writes=len(acked),
+                  acked_lost=len(lost), queries_ok=q_ok[0],
+                  queries_typed_error=q_err[0],
+                  queries_silently_wrong=q_wrong[0],
+                  promoted_is_replica=isinstance(router.primary, Replica))
+        out["failover"] = fo
+        if not fo["auto_promoted"] or lost or q_wrong[0] or not acked:
+            wrong.append(("failover", {k: fo[k] for k in (
+                "auto_promoted", "acked_writes", "acked_lost",
+                "queries_silently_wrong")}))
+        cluster.close()
+        proxy.stop()
+        del cluster, router, g1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # phase 3: one group down
+    live = InMemoryDataStore()
+    live.create_schema(sft)
+    live.write("ais", batch_of(m))
+    oracle_counts = {}
+    nq3 = max(CLUSTER_QUERIES // 10, 5)
+    probe = _five_degree(114, nq3)
+    for e in probe:
+        oracle_counts[e] = live.query_count(e, "ais")
+    typed = partial = got_rows = 0
+    missing = []
+    CLUSTER_PRUNE.set("false")      # every query reaches the dead group
+    try:
+        half = ClusterDataStore([live, _DownGroup()], names=["up", "down"],
+                                leg_deadline_s=2, hedge_ms=20,
+                                allow_partial=False)
+        half._sfts["ais"] = sft
+        for e in probe:
+            try:
+                half.query_count(e, "ais")
+            except ShardUnavailableError:
+                typed += 1
+        CLUSTER_ALLOW_PARTIAL.set("true")
+        half = ClusterDataStore([live, _DownGroup()], names=["up", "down"],
+                                leg_deadline_s=2, hedge_ms=20)
+        half._sfts["ais"] = sft
+        for e in probe:
+            c = half.query_count(e, "ais")
+            if getattr(c, "complete", True) is False and \
+                    int(c) == oracle_counts[e]:
+                partial += 1
+                missing = c.missing_z_ranges
+            got_rows += int(c)
+    finally:
+        CLUSTER_PRUNE.set(None)
+        CLUSTER_ALLOW_PARTIAL.set(None)
+    out["degraded"] = {"rows": m, "queries": nq3,
+                       "typed_errors_knob_off": typed,
+                       "partial_flagged_knob_on": partial,
+                       "missing_z_ranges": missing}
+    if typed != nq3 or partial != nq3 or not missing:
+        wrong.append(("degraded", out["degraded"]))
+    del live, half
+    out["seconds"] = time.perf_counter() - t_part
+    return out, _launches(), wrong
+
+
+def repl9(seed: int) -> tuple[dict, dict, list]:
+    """bench.py config 9 on the card: a durable primary of REPL_ROWS
+    rows written in REPL_CHUNKS writes (``wal_fsync="never"``), a
+    checkpoint after half of them, so replicas bootstrap from it and
+    stream the rest. 400 box counts through a ReplicatedDataStore at
+    1, 2 and 4 replicas, each equal to the primary's; on each replica
+    one dense-tier count (half the world), which must launch
+    ``scan_mask``. Then config 9's failover through RemoteDataStore
+    and ChaosProxy."""
+    import tempfile
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.features import parse_spec
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.metrics import metrics
+    from geomesa_tpu_torch.replication import (Replica, ReplicatedDataStore,
+                                               WalShipper)
+    from geomesa_tpu_torch.scan import kernels
+    t_part = time.perf_counter()
+    sft = parse_spec("pts9", "*geom:Point:srid=4326")
+    rng = np.random.default_rng(seed + 9)
+    n = REPL_ROWS
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    ids = np.arange(n).astype(str).astype(object)
+    wrong = []
+    out = {"part": "repl9", "rows": n, "chunks": REPL_CHUNKS}
+    root = tempfile.mkdtemp(prefix="geomesa-repl9-")
+    try:
+        primary = InMemoryDataStore(durable_dir=os.path.join(root, "p"),
+                                    wal_fsync="never")
+        primary.create_schema(sft)
+        step = n // REPL_CHUNKS
+        t0 = time.perf_counter()
+        for i in range(REPL_CHUNKS):
+            lo, hi = i * step, (n if i == REPL_CHUNKS - 1 else (i + 1) * step)
+            primary.write_dict("pts9", ids[lo:hi], {"geom": (x[lo:hi],
+                                                             y[lo:hi])})
+            if i == REPL_CHUNKS // 2 - 1:
+                out["checkpoint_lsn"] = primary.checkpoint()["lsn"]
+        out["ingest_s"] = time.perf_counter() - t0
+        tail = primary.journal.wal.last_lsn
+        ship = WalShipper(primary.journal, store=primary)
+        t0 = time.perf_counter()
+        replicas = [Replica(ship.host, ship.port, name=f"r{i}")
+                    for i in range(max(REPL_REPLICAS))]
+        caught = _wait_for(lambda: all(r.applied_lsn >= tail
+                                       for r in replicas), 120.0)
+        out["catch_up_s"] = time.perf_counter() - t0
+        out["bootstraps"] = [r.bootstraps for r in replicas]
+        out["records_applied"] = [r.status()["records_applied"]
+                                  for r in replicas]
+        if not caught or any(b != 1 for b in out["bootstraps"]):
+            wrong.append(("catch-up", caught, out["bootstraps"]))
+        half = {}
+        for r in replicas:
+            before = kernels.launches["scan_mask"]
+            c = r.query_count(CLUSTER_HALF, "pts9")
+            half[r.name] = {"count": c, "scan_mask":
+                            kernels.launches["scan_mask"] - before}
+        want_half = primary.query_count(CLUSTER_HALF, "pts9")
+        out["half_world"] = {"want": want_half, "replicas": half}
+        if any(v["count"] != want_half or v["scan_mask"] < 1
+               for v in half.values()):
+            wrong.append(("half-world count", half))
+        for k in REPL_REPLICAS:
+            boxes = _five_degree(90 + k, CLUSTER_QUERIES)
+            want = [primary.query_count(e, "pts9") for e in boxes]
+            router = ReplicatedDataStore(primary, replicas[:k],
+                                         ack_replicas=0,
+                                         max_lag_lsn=10_000, max_lag_s=600)
+            for r in replicas[:k]:
+                r.query_count("BBOX(geom, 0, 0, 5, 5)", "pts9")
+            c0 = metrics.snapshot()["counters"]
+            lat, got = [], []
+            t0 = time.perf_counter()
+            for e in boxes:
+                tq = time.perf_counter()
+                got.append(router.query_count(e, "pts9"))
+                lat.append(time.perf_counter() - tq)
+            wall = time.perf_counter() - t0
+            c1 = metrics.snapshot()["counters"]
+            on_replica = (c1.get("replication.reads.replica", 0)
+                          - c0.get("replication.reads.replica", 0))
+            out[f"replicas_{k}"] = {
+                **_lat(lat, wall), "staleness_hit_rate": on_replica / len(
+                    boxes), "counts_exact": got == want}
+            if got != want:
+                wrong.append(("replica counts", k))
+        for r in replicas:
+            r.stop()
+        ship.stop()
+        primary.close()
+        del replicas, primary, router
+        # config 9's failover
+        sft9 = sft
+        router, srv, ship, proxy = _chaos_group(root, sft9, "f")
+        w_rng = np.random.default_rng(seed + 91)
+
+        def write(b):
+            wids = [f"w{b}_{i}" for i in range(50)]
+            router.write("pts9", FeatureBatch.from_dict(
+                sft9, wids, {"geom": (w_rng.uniform(-10, 10, 50),
+                                      w_rng.uniform(-10, 10, 50))}))
+            return wids
+
+        fo = _failover(router, srv, ship, proxy, write)
+        survived = (set(np.asarray(router.query("INCLUDE", "pts9").ids)
+                        .astype(str)) if fo["auto_promoted"] else set())
+        acked = fo.pop("acked")
+        lost = [i for i in acked if i not in survived]
+        fo.update(acked_writes=len(acked), acked_lost=len(lost))
+        out["failover"] = fo
+        if not fo["auto_promoted"] or lost or not acked:
+            wrong.append(("failover", fo))
+        router.close()
+        proxy.stop()
+        del router
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_part
+    return out, _launches(), wrong
+
+
+def reshard21(seed: int) -> tuple[dict, dict, list]:
+    """bench.py config 21 on the card: 4 groups, RESHARD_N uniform rows,
+    then twice that in one group's corner; RESHARD_C threads of
+    RESHARD_PER_THREAD queries (every 4th world-spanning) before, under
+    and after the hot ingest; the autoscaler on the real per-leg
+    latencies (config 21's knobs) must split the hot group by itself
+    (``reason`` ``auto``); where the leg latencies do not fire it, it
+    runs again on config 21's ``synthetic_hot_signal`` (rows a group x
+    20 ns), marked so. Id-exact against one store across the flip; the
+    flip's copy, delete and swap times from the resharder's kill-point
+    hooks."""
+    import threading
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.cluster import ClusterDataStore
+    from geomesa_tpu_torch.cluster.autoscale import (RESHARD_AUTO,
+                                                     RESHARD_HOT_FACTOR,
+                                                     RESHARD_HOT_MIN_MS,
+                                                     RESHARD_HOT_SUSTAIN_S,
+                                                     Autoscaler)
+    from geomesa_tpu_torch.features import parse_spec
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    t_part = time.perf_counter()
+    rng = np.random.default_rng(seed + 21)
+    n = RESHARD_N
+    sft = parse_spec("pts21", "*geom:Point:srid=4326,val:Integer")
+    cluster = ClusterDataStore([InMemoryDataStore() for _ in range(4)],
+                               names=["g0", "g1", "g2", "g3"],
+                               leg_deadline_s=120)
+    oracle = InMemoryDataStore()
+    for st in (cluster, oracle):
+        st.create_schema(sft)
+
+    def write_both(prefix, xs, ys):
+        b = FeatureBatch.from_dict(
+            sft, np.array([f"{prefix}{i}" for i in range(len(xs))], object),
+            {"geom": (xs, ys), "val": np.arange(len(xs), dtype=np.int64)})
+        cluster.write("pts21", b)
+        oracle.write("pts21", b)
+
+    def measure(per_thread=RESHARD_PER_THREAD):
+        lats, lock, errors = [], threading.Lock(), []
+
+        def worker():
+            mine = []
+            try:
+                for i in range(per_thread):
+                    cql = RESHARD_BROAD if i % 4 == 3 else RESHARD_HOT
+                    t0 = time.perf_counter()
+                    cluster.query(cql, "pts21")
+                    mine.append((time.perf_counter() - t0) * 1e3)
+            except Exception as e:  # noqa: BLE001 - reported, gated
+                errors.append(repr(e))
+            with lock:
+                lats.extend(mine)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker) for _ in range(RESHARD_C)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        a = np.asarray(lats)
+        return {"p50_ms": float(np.percentile(a, 50)),
+                "p99_ms": float(np.percentile(a, 99)),
+                "queries": len(a), "errors": errors[:3],
+                "seconds": time.perf_counter() - t0}
+
+    wrong = []
+    write_both("u", rng.uniform(-180, 180, n), rng.uniform(-90, 90, n))
+    out = {"part": "reshard21", "n": n, "hot_rows": 2 * n,
+           "concurrency": RESHARD_C, "per_thread": RESHARD_PER_THREAD}
+    measure(1)
+    out["pre"] = measure()
+    write_both("h", rng.uniform(100, 112, 2 * n), rng.uniform(40, 46, 2 * n))
+    out["hot"] = measure()
+    marks = {}
+    r = cluster.resharder
+    r.fault_hook = lambda tag: marks.setdefault(tag, time.perf_counter())
+    RESHARD_AUTO.set("true")
+    RESHARD_HOT_FACTOR.set("1.5")
+    RESHARD_HOT_SUSTAIN_S.set("5")
+    RESHARD_HOT_MIN_MS.set("0")
+    try:
+        def ticks(scaler):
+            return [{k: d.get(k) for k in ("action", "group", "executed",
+                                           "blocked", "hot_p99_s",
+                                           "slo_fast_burning")}
+                    for d in (scaler.run_once(now=0.0),
+                              scaler.run_once(now=6.0))]
+        scaler = Autoscaler(cluster)
+        obs_hot = scaler.observe()
+        out["signal"] = "leg_latency"
+        out["decisions"] = ticks(scaler)
+        if not any(d["executed"] for d in out["decisions"]):
+            scaler = Autoscaler(cluster)
+            scaler.observe = lambda: {
+                name: g.count("pts21") * 20e-9
+                for name, g in zip(cluster._names, cluster._groups)}
+            obs_hot = scaler.observe()
+            out["signal"] = "synthetic_hot_signal"
+            out["decisions"] += ticks(scaler)
+        t_done = time.perf_counter()
+    finally:
+        RESHARD_AUTO.set(None)
+        RESHARD_HOT_FACTOR.set(None)
+        RESHARD_HOT_SUSTAIN_S.set(None)
+        RESHARD_HOT_MIN_MS.set(None)
+        r.fault_hook = None
+    if "flip.copy" in marks:
+        out["flip_ms"] = {
+            "snapshot": (marks["snapshot.done"] - marks["snapshot.start"])
+            * 1e3,
+            "copy": (marks["flip.delete_src"] - marks["flip.copy"]) * 1e3,
+            "delete": (marks["flip.swap"] - marks["flip.delete_src"]) * 1e3,
+            "swap": (t_done - marks["flip.swap"]) * 1e3}
+    out["post"] = measure()
+    obs_post = scaler.observe()
+    real_post = {k: cluster._breakers.latency_p99_s(k)
+                 for k in cluster._names}
+    history = r.status()["history"]
+    out["history"] = [{k: e.get(k) for k in ("epoch", "op", "reason", "src",
+                                             "dst", "rows_moved", "flip_ms")}
+                      for e in history]
+    auto = any(e.get("reason") == "auto" and e.get("op") == "migrate"
+               for e in history)
+    got = cluster.query("INCLUDE", "pts21")
+    want = oracle.query("INCLUDE", "pts21")
+    exact = (set(np.asarray(got.ids).astype(str))
+             == set(np.asarray(want.ids).astype(str))
+             and cluster.count("pts21") == oracle.count("pts21")
+             and set(np.asarray(cluster.query(RESHARD_HOT, "pts21").ids)
+                     .astype(str))
+             == set(np.asarray(oracle.query(RESHARD_HOT, "pts21").ids)
+                    .astype(str))
+             and sum(g.count("pts21") for g in cluster._groups)
+             == oracle.count("pts21"))
+    hot_group = next((e["src"] for e in history
+                      if e.get("reason") == "auto"), None)
+    leg_hot = obs_hot.get(hot_group)
+    leg_post = obs_post.get(hot_group)
+    out.update(auto_fired=auto, exact=bool(exact), hot_group=hot_group,
+               epoch=cluster._part.epoch,
+               leg_p99_ms_hot={k: v * 1e3 for k, v in obs_hot.items()
+                               if v is not None},
+               leg_p99_ms_post={k: v * 1e3 for k, v in obs_post.items()
+                                if v is not None},
+               leg_latency_p99_ms_post={k: v * 1e3 for k, v in
+                                        real_post.items() if v is not None},
+               heal_ratio=(leg_post / max(leg_hot, 1e-12)
+                           if leg_hot is not None and leg_post is not None
+                           else None),
+               per_group_rows=[g.count("pts21") for g in cluster._groups])
+    errors = out["pre"]["errors"] + out["hot"]["errors"] + \
+        out["post"]["errors"]
+    if not auto or not exact or errors:
+        wrong.append(("reshard", auto, exact, errors[:2]))
+    cluster.close()
+    del cluster, oracle
+    out["seconds"] = time.perf_counter() - t_part
+    return out, _launches(), wrong
+
+
+def phase_cluster(seed: int, ds, rows) -> tuple[dict, float]:
+    """The replicated and sharded tiers on the card (see the module's
+    head): cluster11, repl9 and reshard21, one line each with its
+    launches and device memory before and after (its stores closed).
+    Returns the launches of the three parts and their seconds; the
+    phase's total line follows sql19 (phase_sql_gdelt)."""
+    import gc
+    t_phase = time.perf_counter()
+    counts = {k: 0 for k in CLUSTER_KERNELS}
+    wrong = []
+    from geomesa_tpu_torch.scan import kernels
+    for name, part in (("cluster11", lambda: cluster11(seed, ds, rows)),
+                       ("repl9", lambda: repl9(seed)),
+                       ("reshard21", lambda: reshard21(seed))):
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        out, launches, w = part()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        out.update(launches=launches, memory_allocated_before=mem0,
+                   memory_allocated_after=mem1, wrong=w, card=card_line())
+        emit({"phase": "cluster", **out})
+        if mem1 > mem0 + CLUSTER_MEM_SLACK:
+            w = w + [("device memory not returned", mem0, mem1)]
+        for k, v in launches.items():
+            counts[k] += v
+        wrong += [(name, x) for x in w]
+    torch.cuda.empty_cache()
+    if wrong:
+        raise SystemExit(f"cluster: {wrong[:8]}")
+    return counts, time.perf_counter() - t_phase
+
+
+def sql19(d: dict, ids, zsft, zb) -> tuple[dict, list]:
+    """Config 19's statements through ``SqlEngine`` over a 4-group
+    ``ClusterDataStore`` holding SQL_LEG_ROWS of the predicates phase's
+    rows, against one store's engine over the same rows: the plan says
+    distributed and the rows are equal; beside it the pull path
+    (``geomesa.sql.distributed`` off) and config 19's leg kill (typed
+    without partials, flagged with them). The join kernels must launch
+    on the legs."""
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.cluster import (CLUSTER_ALLOW_PARTIAL,
+                                           ClusterDataStore,
+                                           ShardUnavailableError)
+    from geomesa_tpu_torch.sql import SqlEngine
+    from geomesa_tpu_torch.utils.properties import SQL_DISTRIBUTED
+    t_part = time.perf_counter()
+    n = len(d["x"])
+    m = min(SQL_LEG_ROWS, n)
+    sub = {k: (v[:m] if isinstance(v, np.ndarray) and len(v) == n else v)
+           for k, v in d.items()}
+    one = InMemoryDataStore()
+    cluster = ClusterDataStore([InMemoryDataStore() for _ in range(SQL_LEGS)],
+                               leg_deadline_s=60)
+    t0 = time.perf_counter()
+    for st in (one, cluster):
+        st.create_schema("gdelt", PRED_SPEC)
+        st.write("gdelt", predicate_batch(st.get_schema("gdelt"), sub,
+                                          ids[:m]))
+        st.create_schema(zsft)
+        st.write("zones19", zb)
+    write_s = time.perf_counter() - t0
+    ce, oe = SqlEngine(cluster), SqlEngine(one)
+
+    def canon(r):
+        return sorted(_sql_cells(r), key=repr)
+    # a merged AVG adds its leg sums in another order than one store's
+    # bincount: each is within the recursive-summation bound of the
+    # exact sum, (m - 1) u sum|x| (|AvgTone| <= 10), so the two means
+    # within twice that over the count (at least 1)
+    avg_atol = 2.0 * m * 2.0 ** -53 * 10.0
+    wrong, lines = [], []
+    before = _launches(SQL19_KERNELS + ("scan_mask", "scan_mask_gather"))
+    pull = (SQL_AGG[0], SQL_AGG[2], SQL_JOIN[0])
+    for sql in SQL_AGG + SQL_JOIN:
+        want = oe.query(sql)
+        t0 = time.perf_counter()
+        res = ce.query(sql)
+        ms_dist = (time.perf_counter() - t0) * 1e3
+        ok = (res.names == want.names and res.complete
+              and _sql_same(canon(res), canon(want), avg_atol))
+        line = {"sql": sql, "mode": res.plan.get("mode"),
+                "distributed": res.plan.get("distributed"),
+                "legs": len(res.plan.get("legs", [])), "ms": ms_dist,
+                "rows": res.n, "exact": ok}
+        if sql in pull:
+            SQL_DISTRIBUTED.set("false")
+            try:
+                t0 = time.perf_counter()
+                pres = ce.query(sql)
+                line["pull_ms"] = (time.perf_counter() - t0) * 1e3
+            finally:
+                SQL_DISTRIBUTED.set(None)
+            line["pull_mode"] = pres.plan.get("mode")
+            line["pull_exact"] = _sql_same(canon(pres), canon(want),
+                                           avg_atol)
+            if not line["pull_exact"] or line["pull_mode"] != \
+                    "cluster-materialize":
+                wrong.append(("pull", sql))
+        if not ok or res.plan.get("distributed") is not True:
+            wrong.append(("distributed", sql, line["mode"]))
+        lines.append(line)
+    after = _launches(SQL19_KERNELS + ("scan_mask", "scan_mask_gather"))
+    launches = {k: after[k] - before[k] for k in after}
+    if not any(launches[k] for k in SQL19_KERNELS):
+        wrong.append(("join kernels never launched on the legs", launches))
+    # the leg kill: group 2 down
+    kill = {}
+    live = cluster._groups[2]
+    cluster._groups[2] = _DownGroup()
+    try:
+        typed = 0
+        for sql in (SQL_AGG[0], SQL_JOIN[0]):
+            try:
+                ce.query(sql)
+            except ShardUnavailableError as e:
+                typed += e.groups == ["shard2"]
+        CLUSTER_ALLOW_PARTIAL.set("true")
+        res = ce.query(SQL_AGG[0])
+        got = {r[0]: r[1] for r in _sql_cells(res)}
+        full = {r[0]: r[1] for r in _sql_cells(oe.query(SQL_AGG[0]))}
+        kill = {"typed_knob_off": typed, "flagged_knob_on":
+                res.complete is False and res.missing_groups == ["shard2"],
+                "counts_at_most_full": set(got) <= set(full) and all(
+                    got[k] <= full[k] for k in got)}
+    finally:
+        CLUSTER_ALLOW_PARTIAL.set(None)
+        cluster._groups[2] = live
+    if kill.get("typed_knob_off") != 2 or not kill.get("flagged_knob_on") \
+            or not kill.get("counts_at_most_full"):
+        wrong.append(("leg kill", kill))
+    cluster.close()
+    del cluster, one, ce, oe, live
+    out = {"part": "sql19", "rows": m, "groups": SQL_LEGS,
+           "write_s": write_s, "statements": lines, "leg_kill": kill,
+           "launches": launches, "seconds": time.perf_counter() - t_part,
+           "wrong": wrong, "card": card_line()}
+    emit({"phase": "cluster", **out})
+    return out, wrong
+
+
+def cache12f(seed: int) -> tuple[dict, int]:
+    """bench.py config 12's phase F on the card: replicated density
+    reads under a write stream, one row a write, so the primary's LSN
+    maps onto a tile's mass; a tile implying fewer rows than the
+    primary's LSN at request time less the lag bound (50) is a
+    staleness violation. Returns the line and density_grid's launches
+    in it (at least one: the replica's misses recompute on the card)."""
+    import tempfile
+    import threading
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.features import parse_spec
+    from geomesa_tpu_torch.replication import (Replica, ReplicatedDataStore,
+                                               WalShipper)
+    from geomesa_tpu_torch.scan import kernels
+    t_part = time.perf_counter()
+    lag_bound, writes, base = 50, 150, 64
+    root = tempfile.mkdtemp(prefix="geomesa-cache12f-")
+    violations = reads = 0
+    d0 = kernels.launches["density_grid"]
+    try:
+        prim = InMemoryDataStore(durable_dir=os.path.join(root, "p"),
+                                 wal_fsync="never")
+        prim.create_schema(parse_spec("pts12", "*geom:Point:srid=4326"))
+        prim.write_dict("pts12", np.arange(base).astype(str).astype(object),
+                        {"geom": (np.full(base, 0.5), np.full(base, 0.5))})
+        base_lsn = prim.journal.wal.last_lsn
+        ship = WalShipper(prim.journal)
+        replica = Replica(ship.host, ship.port, name="r0")
+        router = ReplicatedDataStore(prim, [replica], ack_replicas=0,
+                                     max_lag_lsn=lag_bound, max_lag_s=600)
+        try:
+            _wait_for(lambda: replica.applied_lsn >= base_lsn, 30.0)
+            bb = (0.0, 0.0, 1.0, 1.0)
+            stop = threading.Event()
+
+            def writer():
+                j = 0
+                while not stop.is_set() and j < writes:
+                    prim.write_dict("pts12", np.array([f"x{j}"], object),
+                                    {"geom": (np.full(1, 0.5),
+                                              np.full(1, 0.5))})
+                    j += 1
+                    stop.wait(0.002)
+
+            w = threading.Thread(target=writer)
+            w.start()
+            try:
+                while w.is_alive() or reads < 20:
+                    lsn_pre = prim.journal.wal.last_lsn
+                    grid = router.density("pts12", "INCLUDE", bb, 8, 8)
+                    implied = base_lsn + int(round(float(np.sum(grid)))) \
+                        - base
+                    reads += 1
+                    violations += implied < lsn_pre - lag_bound
+                    if reads > writes * 4:
+                        break
+            finally:
+                stop.set()
+                w.join()
+            on_replica = replica.cache_status()
+        finally:
+            router.close()
+            ship.stop()
+            prim.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = kernels.launches["density_grid"] - d0
+    out = {"phase": "cache", "part": "F_replicated", "reads": reads,
+           "writes": writes, "lag_bound": lag_bound,
+           "staleness_violations": violations,
+           "replica_cache": {k: on_replica.get(k) for k in (
+               "hits", "misses", "applied_lsn")},
+           "launches": {"density_grid": launches},
+           "seconds": time.perf_counter() - t_part, "card": card_line()}
+    emit(out)
+    if violations or reads < 20 or not launches:
+        raise SystemExit(f"cache F: {violations} staleness violations in "
+                         f"{reads} reads, {launches} density launches")
+    return out, launches
+
+
 def _sql_cells(res) -> list:
     """Rows with the geometry cells as their envelopes' tuples."""
     out = []
@@ -7351,17 +8274,15 @@ def _group_oracle(d: dict, keep: np.ndarray) -> dict:
 def phase_sql_gdelt(seed: int, ds, d: dict, ids) -> tuple[dict, dict]:
     """bench.py config 19's statements on the predicates phase's 10M-row
     GDELT-shaped store, each held to numpy over the same columns; the
-    distributed legs over 4 stores holding a z-prefix split of 2M of
-    those rows against one store's engine; one geohash-spiral KNN
-    against the f64 brute force."""
-    import math
-    from geomesa_tpu_torch import InMemoryDataStore, parse_spec
+    statements through a 4-group ClusterDataStore holding 2M of those
+    rows against one store's engine (``sql19``, the cluster phase's
+    part); one geohash-spiral KNN against the f64 brute force."""
+    from geomesa_tpu_torch import parse_spec
     from geomesa_tpu_torch.analytics import processes
-    from geomesa_tpu_torch.curves.zorder import z2_encode
     from geomesa_tpu_torch.features.batch import FeatureBatch
     from geomesa_tpu_torch.geometry import Polygon
     from geomesa_tpu_torch.scan import kernels
-    from geomesa_tpu_torch.sql import SqlEngine, distributed, parse_sql
+    from geomesa_tpu_torch.sql import SqlEngine
     t_phase = time.perf_counter()
     x, y, ms = d["x"], d["y"], d["ms"]
     n = len(x)
@@ -7452,71 +8373,10 @@ def phase_sql_gdelt(seed: int, ds, d: dict, ids) -> tuple[dict, dict]:
     if launches["scan_mask"] + launches["scan_mask_gather"] == 0:
         wrong.append(("scan launches", launches))
 
-    # the distributed legs: a z-prefix split of the first 2M rows over
-    # four stores, merged, against one store's engine over the same rows
-    t0 = time.perf_counter()
-    m = min(SQL_LEG_ROWS, n)
-    nx = np.floor((x[:m] + 180.0) / 360.0 * (1 << 31)).astype(np.int64)
-    ny = np.floor((y[:m] + 90.0) / 180.0 * (1 << 31)).astype(np.int64)
-    nx = np.clip(nx, 0, (1 << 31) - 1)
-    ny = np.clip(ny, 0, (1 << 31) - 1)
-    group = (z2_encode(nx, ny) >> np.uint64(62 - 2)).astype(np.int64)
-    dev = ds.device
-
-    def store_of(sel):
-        s = InMemoryDataStore(device=dev)
-        s.create_schema("gdelt", PRED_SPEC)
-        sub = {k: (v[:m][sel] if isinstance(v, np.ndarray) and len(v) == n
-                   else v) for k, v in d.items()}
-        s.write("gdelt", predicate_batch(s.get_schema("gdelt"), sub,
-                                          ids[:m][sel]))
-        return s
-    one = store_of(np.ones(m, dtype=bool))
-    one.create_schema(zsft)
-    one.write("zones19", zb)
-    legs = [store_of(group == g) for g in range(SQL_LEGS)]
-    leg_rows = [int((group == g).sum()) for g in range(SQL_LEGS)]
-    split_s = time.perf_counter() - t0
-    one_engine = SqlEngine(one)
-
-    def canon(r):
-        return sorted(_sql_cells(r), key=repr)
-    # a merged AVG adds its leg sums in another order than one store's
-    # bincount: each is within the recursive-summation bound of the
-    # exact sum, (m - 1) u sum|x| (|AvgTone| <= 10), so the two means
-    # within twice that over the count (at least 1)
-    avg_atol = 2.0 * m * 2.0 ** -53 * 10.0
-
-    t0 = time.perf_counter()
-    leg_checks = []
-    for sql in SQL_AGG:
-        sel = parse_sql(sql)
-        parts = [distributed.partial_aggregate(s, sql) for s in legs]
-        merged = distributed.merge_partial_legs(sel, parts, qualified=False)
-        want = one_engine.query(sql)
-        ok = (merged.names == want.names
-              and _sql_same(canon(merged), canon(want), avg_atol))
-        leg_checks.append(ok)
-        if not ok:
-            wrong.append(("legs", sql))
-    zres = one.query("INCLUDE", "zones19")
-    payload = distributed._encode_batch("zones19", zsft, zres)
-    for sql, mode in zip(SQL_JOIN, ("count", "agg")):
-        spec = {"sql": sql, "broadcast": "z", "mode": mode,
-                "payload": payload}
-        parts = [distributed.join_partial_leg(s, spec) for s in legs]
-        want = one_engine.query(sql)
-        if mode == "count":
-            ok = sum(p["count"] for p in parts) == \
-                int(want.column(want.names[0])[0])
-        else:
-            merged = distributed.merge_partial_legs(parse_sql(sql), parts,
-                                                    qualified=True)
-            ok = canon(merged) == canon(want)
-        leg_checks.append(ok)
-        if not ok:
-            wrong.append(("join legs", sql))
-    legs_s = time.perf_counter() - t0
+    # config 19 through a real cluster: its statements through the SQL
+    # engine over 4 groups holding 2M of these rows (cluster phase)
+    sql19_out, sql19_wrong = sql19(d, ids, zsft, zb)
+    wrong += [("sql19", w) for w in sql19_wrong]
     launches_all = _sql_launches()
     # where the slowest statements' time goes, after the counted run
     profiles = {name: profile_top(lambda q=q: engine.query(q), top=8)
@@ -7525,16 +8385,13 @@ def phase_sql_gdelt(seed: int, ds, d: dict, ids) -> tuple[dict, dict]:
     profiles["knn_spiral"] = profile_top(
         lambda: processes.knn_spiral_process(ds, "gdelt", qx, qy, k,
                                              estimated_distance=est), top=8)
-    del one, legs, one_engine
     ds.remove_schema("zones19")
     torch.cuda.empty_cache()
     out = {"phase": "sql_gdelt", "rows": n, "card": card_line(),
            "where": SQL_WHERE, "where_rows": int(keep.sum()),
            "ms": times, "store_s": store_s, "oracle_s": oracle_s,
-           "legs": {"stores": SQL_LEGS, "rows": m, "leg_rows": leg_rows,
-                    "statements": len(leg_checks),
-                    "checks": leg_checks, "split_s": split_s,
-                    "seconds": legs_s},
+           "sql19_seconds": sql19_out["seconds"],
+           "sql19_launches": sql19_out["launches"],
            "knn_spiral": {"k": k, "estimated_distance": est,
                           "max_distance": float(kd[-1])},
            "profiles": profiles, "launches": launches_all,
@@ -7831,6 +8688,8 @@ def phase_cache(seed: int, rows: int) -> tuple[dict, dict]:
         raise SystemExit(f"cache: {wrong}")
     if not launches["density_grid"]:
         raise SystemExit("cache: density_grid never launched")
+    out["F_replicated"], f_launches = cache12f(seed)
+    launches["density_grid"] += f_launches
     return launches, out
 
 
@@ -8208,6 +9067,7 @@ def main():
     launches.update(join_launches)
     sql_ais, sql_launches = phase_sql_ais(ds, rows, dw)
     web_launches = phase_web(args.seed, ds, rows, dw)
+    cluster_launches, cluster_s = phase_cluster(args.seed, ds, rows)
     del ds
     torch.cuda.empty_cache()
     pred_stats, pred_counts, pred_ds, pred_data, pred_queries, pred_q = \
@@ -8218,6 +9078,12 @@ def main():
     phase_stats(pred_ds, pred_data, rows[3], pred_queries, pred_q)
     sql_gdelt, gdelt_launches = phase_sql_gdelt(args.seed, pred_ds,
                                                 pred_data, rows[3])
+    for name, n in sql_gdelt["sql19_launches"].items():
+        cluster_launches[name] += n
+    emit({"phase": "cluster", "part": "total",
+          "seconds": cluster_s + sql_gdelt["sql19_seconds"],
+          "budget_s": CLUSTER_BUDGET_S, "launches": cluster_launches,
+          "card": card_line()})
     sql_s = sql_ais["seconds"] + sql_gdelt["seconds"]
     emit({"phase": "sql", "seconds": sql_s, "budget_s": SQL_BUDGET_S,
           "card": card_line()})
@@ -8240,6 +9106,10 @@ def main():
         launches[name] += ingest_launches[name]
     for name, n in web_launches.items():
         launches[name] += n
+    for name in ("scan_mask", "scan_mask_gather", "scan_count",
+                 "density_grid"):     # sql19's are in the sql counts
+        launches[name] += cluster_launches[name] - \
+            sql_gdelt["sql19_launches"].get(name, 0)
     summary = []
     for name, s in stats.items():
         q0 = s["per_query"][0]   # the BBOX+time query (1M random ids

@@ -40,13 +40,18 @@ from ..utils.properties import SystemProperty
 from .io import _empty_col, _rechunk, _schema_meta
 from .vector import ArrowDictionary
 
-__all__ = ["DeltaWriter", "STREAM_BATCH_ROWS", "ARROW_STREAM_MIME",
+__all__ = ["DeltaWriter", "STREAM_BATCH_ROWS", "STREAM_MAX_INFLIGHT",
+           "ARROW_STREAM_MIME",
            "stream_ipc", "stream_bin", "iter_ipc", "slice_batches",
            "merge_sorted_streams", "reassemble_ipc", "empty_batch"]
 
 # rows per streamed record batch (the fixed vector capacity of the
 # wire); 8192 not the reference's 8096 so pow2 shape classes fit
 STREAM_BATCH_ROWS = SystemProperty("geomesa.stream.batch.rows", "8192")
+# bounded producer->consumer depth for streamed scatter legs: a slow
+# consumer backpressures the legs instead of buffering them
+STREAM_MAX_INFLIGHT = SystemProperty("geomesa.stream.max.inflight.batches",
+                                     "4")
 
 # the content type of a chunked ``format=arrow-stream`` reply
 ARROW_STREAM_MIME = "application/vnd.apache.arrow.stream"

@@ -14,13 +14,16 @@ for each index of a schema:
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..features.sft import SimpleFeatureType
 from ..filters import ast
 from ..filters.helper import (extract_attribute_bounds, extract_geometries,
                               extract_intervals)
 from .api import FilterStrategy
 
-__all__ = ["split_filter", "spatial_part", "temporal_part"]
+__all__ = ["split_filter", "spatial_part", "temporal_part",
+           "prefix_histogram", "pick_split_prefix"]
 
 
 def _is_spatial(f: ast.Filter, geom: str) -> bool:
@@ -143,3 +146,76 @@ def split_filter(sft: SimpleFeatureType, f: ast.Filter,
     residual = None if isinstance(f, ast.Include) else f
     options.append(FilterStrategy("fullscan", None, residual))
     return options
+
+
+#
+# The reference's tablet splitter picks split points from the observed
+# key distribution, not the keyspace midpoint (``getSplits`` over the
+# curve). Same idea here: histogram a store's rows by their z-key
+# prefix and split at the weighted median, so a hot range splits into
+# halves of equal ROW count even when the keys are badly skewed.
+
+def _batch_prefixes(sft, batch, prefix_bits: int) -> np.ndarray | None:
+    """Z-key prefix per row (the same routing key the cluster
+    partitioner derives): point coords directly, extent geometries by
+    bbox centroid; None for a geometry-less schema (id-hash routed —
+    no spatial key to histogram)."""
+    from ..curves import zorder
+    from ..curves.sfc import Z2SFC
+    geom = sft.geom_field
+    if geom is None or batch is None or not batch.n:
+        return None
+    col = batch.col(geom)
+    if hasattr(col, "x"):                          # PointColumn
+        x = np.asarray(col.x, np.float64)
+        y = np.asarray(col.y, np.float64)
+    else:                                          # GeometryColumn
+        bounds = np.asarray(col.bounds, np.float64)
+        x = (bounds[:, 0] + bounds[:, 2]) * 0.5
+        y = (bounds[:, 1] + bounds[:, 3]) * 0.5
+        bad = ~np.isfinite(x) | ~np.isfinite(y)
+        x = np.where(bad, 0.0, x)
+        y = np.where(bad, 0.0, y)
+    z = np.asarray(Z2SFC().index(x, y, lenient=True)).astype(np.uint64)
+    shift = np.uint64(2 * zorder.Z2_BITS - prefix_bits)
+    return (z >> shift).astype(np.int64)
+
+
+def prefix_histogram(store, type_name: str, prefix_lo: int,
+                     prefix_hi: int, prefix_bits: int = 16) -> np.ndarray:
+    """Row count per z prefix over ``[prefix_lo, prefix_hi)`` for one
+    type — the key-density profile a reshard split point is chosen
+    from (and the ``GET /rest/topology`` density summary)."""
+    from .api import Query
+    sft = store.get_schema(type_name)
+    out = np.zeros(max(int(prefix_hi) - int(prefix_lo), 0),
+                   dtype=np.int64)
+    if not len(out):
+        return out
+    res = store.query(Query(type_name, "INCLUDE"))
+    prefixes = _batch_prefixes(sft, res.batch, prefix_bits)
+    if prefixes is None:
+        return out
+    in_range = prefixes[(prefixes >= prefix_lo) & (prefixes < prefix_hi)]
+    if len(in_range):
+        np.add.at(out, in_range - prefix_lo, 1)
+    return out
+
+
+def pick_split_prefix(counts: np.ndarray | None, prefix_lo: int,
+                      prefix_hi: int) -> int:
+    """The weighted-median split point for a density profile over
+    ``[prefix_lo, prefix_hi)``: the smallest prefix with at least half
+    the rows strictly below it, clamped inside the open interval so
+    both sides stay non-empty. Falls back to the keyspace midpoint for
+    an empty (or absent) profile."""
+    mid = (int(prefix_lo) + int(prefix_hi)) // 2
+    if counts is None:
+        return mid
+    counts = np.asarray(counts, dtype=np.int64)
+    total = int(counts.sum())
+    if total <= 0 or len(counts) != prefix_hi - prefix_lo:
+        return mid
+    cum = np.cumsum(counts)
+    at = int(prefix_lo) + int(np.searchsorted(cum, total / 2.0)) + 1
+    return int(min(max(at, prefix_lo + 1), prefix_hi - 1))

@@ -6,14 +6,16 @@ and re-verifies WAL segment CRCs and checkpoint digests. Corrupt
 checkpoints are quarantined (renamed ``*.corrupt`` so recovery falls
 back to the next intact snapshot) when ``geomesa.integrity.quarantine``
 is on; corrupt mid-history WAL segments are reported and counted but
-NEVER renamed: pulling a segment out of the log would silently turn a
+NEVER renamed — pulling a segment out of the log would silently turn a
 detected gap into an undetected one (replay must stop at the corrupt
 frame, not skip past it).
 
-The reference's scrubber doubles as a replica's anti-entropy sweep
-(``Scrubber(replica=...)``); replication is not in the port yet
-(ROADMAP.md queue 1 item 8), so here a replica raises
-NotImplementedError.
+On a replica the scrubber doubles as anti-entropy (Dynamo's Merkle
+sweep, one level simpler): it asks the primary for a per-type
+row-count + content digest (the shipper's ``digest`` op), compares the
+replica's own state, and triggers a re-bootstrap on divergence — but
+only when both sides agree the replica is fully caught up, so a
+legitimate streaming lag is never misread as corruption.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import time
 
 from ..metrics import metrics
 from ..utils.properties import SystemProperty
-from .verify import quarantine, verify_checkpoint, verify_wal
+from .verify import ids_digest, quarantine, verify_checkpoint, verify_wal
 
 __all__ = ["Scrubber", "integrity_report", "SCRUB_INTERVAL_S",
            "INTEGRITY_QUARANTINE"]
@@ -53,23 +55,18 @@ def integrity_report(root: str) -> dict:
 
 
 class Scrubber:
-    """Periodic integrity verifier for a durable root.
+    """Periodic integrity verifier for a durable root and/or a replica.
 
-    ``Scrubber(journal=ds.journal).start()`` scrubs a store's WAL +
-    checkpoints; ``run_once()`` is the synchronous unit (POST
-    /rest/integrity/scrub calls it directly). ``replica=`` is the
-    reference's anti-entropy branch and raises NotImplementedError
-    until replication is ported."""
+    ``Scrubber(journal=ds.journal).start()`` scrubs a primary's WAL +
+    checkpoints; ``Scrubber(replica=r)`` adds the anti-entropy digest
+    comparison against ``r``'s primary. ``run_once()`` is the
+    synchronous unit (POST /rest/integrity/scrub calls it directly)."""
 
     def __init__(self, journal=None, replica=None,
                  interval_s: float | None = None,
                  quarantine_corrupt: bool | None = None,
                  registry=metrics):
-        if replica is not None:
-            raise NotImplementedError(
-                "the replica anti-entropy scrub needs replication, which "
-                "is not in the port yet (ROADMAP.md queue 1 item 8)")
-        if journal is None:
+        if journal is None and replica is None:
             raise ValueError("scrubber needs a journal and/or a replica")
         self.journal = journal
         self.replica = replica
@@ -115,7 +112,10 @@ class Scrubber:
     def run_once(self) -> dict:
         t0 = time.perf_counter()
         out: dict = {"ok": True, "quarantined": [], "unreferenced": []}
-        self._scrub_root(out)
+        if self.journal is not None:
+            self._scrub_root(out)
+        if self.replica is not None:
+            self._scrub_replica(out)
         out["seconds"] = round(time.perf_counter() - t0, 4)
         self.runs += 1
         self.last_report = out
@@ -166,6 +166,51 @@ class Scrubber:
             self.registry.counter("integrity.unreferenced",
                                   len(out["unreferenced"]))
         out["checkpoints"] = ckpts
+
+    def _scrub_replica(self, out: dict):
+        from ..replication.sync import ReplClient
+        rep = self.replica
+        anti: dict = {"checked": False, "mismatch": []}
+        out["anti_entropy"] = anti
+        if not rep.attached:
+            return
+        try:
+            client = ReplClient(rep.host, rep.port,
+                                timeout_s=rep.timeout_s)
+            try:
+                remote = client.digest()
+            finally:
+                client.close()
+        except (ConnectionError, TimeoutError, OSError) as e:
+            anti["error"] = repr(e)
+            return
+        if remote.get("error"):
+            anti["error"] = remote["error"]
+            return
+        # only a quiescent, fully caught-up replica is comparable: the
+        # primary must not have advanced while computing, and the
+        # replica must have applied everything shipped
+        if not (remote.get("last_lsn_pre") == remote.get("last_lsn")
+                == rep.applied_lsn and rep.applied_lsn > 0):
+            anti["skipped"] = "replica lagging or primary in flux"
+            return
+        anti["checked"] = True
+        for name, want in remote.get("types", {}).items():
+            try:
+                rows, digest = ids_digest(rep, name)
+            except KeyError:
+                rows, digest = -1, ""
+            if rows != int(want["rows"]) or digest != want["digest"]:
+                anti["mismatch"].append(name)
+        missing = set(t for t in rep.get_type_names()
+                      if t not in remote.get("types", {}))
+        anti["mismatch"].extend(sorted(missing))
+        if anti["mismatch"]:
+            out["ok"] = False
+            self.registry.counter("integrity.antientropy.mismatches")
+            self.registry.counter("integrity.antientropy.rebootstraps")
+            anti["rebootstrap"] = True
+            rep.request_rebootstrap()
 
     # -- status ------------------------------------------------------------
 

@@ -33,8 +33,9 @@ flags the merged result ``complete=False`` instead.
 The leg functions (`partial_aggregate`, `join_partial_leg`,
 `merge_partial_legs`) run over any port store; `try_distributed` needs
 a cluster store (``prune_for``, ``sql_partial``, ``sql_join_partial``,
-``query_stream``), which the engine looks for and the port does not
-have yet, so over a single store every statement stays local. The leg
+``query_stream``): the engine takes this path only over a
+``ClusterDataStore``, and over a single store every statement stays
+local. The leg
 payloads are plain JSON-able dicts: a payload written by either package
 decodes in the other.
 """

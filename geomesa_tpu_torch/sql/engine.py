@@ -415,10 +415,7 @@ class SqlEngine:
     def _cluster_store(self):
         """The store as a ClusterDataStore, or None — the gate for the
         distributed planner."""
-        try:
-            from ..cluster.coordinator import ClusterDataStore
-        except ImportError:          # pragma: no cover
-            return None
+        from ..cluster.coordinator import ClusterDataStore
         return self.store if isinstance(self.store, ClusterDataStore) \
             else None
 

@@ -138,12 +138,15 @@ def _apply(store, kind: int, payload: bytes, report: RecoveryReport,
         raise ValueError(f"unknown record kind {kind}")
 
 
-def replay_into(store, records, report: RecoveryReport | None = None
-                ) -> RecoveryReport:
+def replay_into(store, records, report: RecoveryReport | None = None,
+                held: _HeldIds | None = None) -> RecoveryReport:
     """Redo an iterable of ``(lsn, kind, payload)`` records against a
-    store (journaling suppressed by the caller)."""
+    store (journaling suppressed by the caller). ``held`` carries the
+    id sets across calls for a caller that alone writes the store (a
+    replica applying one record at a time); by default each call reads
+    them anew."""
     report = report if report is not None else RecoveryReport()
-    held = _HeldIds(store)
+    held = _HeldIds(store) if held is None else held
     for lsn, kind, payload in records:
         report.bytes_scanned += _FRAME.size + len(payload)
         try:

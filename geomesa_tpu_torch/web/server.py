@@ -39,7 +39,7 @@ status codes, headers and JSON bodies as ``geomesa_tpu.web.server``:
 
 ``/rest/views`` and ``/rest/evolve`` answer 404 with a JSON error: the
 materialized views and the online schema evolution are not in the port
-yet (ROADMAP.md queue 1 item 8).
+yet (ROADMAP.md queue 1 item 8b).
 
 The server serves the store it is given where its rows are: an
 ``InMemoryDataStore()`` keeps them on the CUDA card, and every request
@@ -69,7 +69,6 @@ Fault surface (resilience layer):
 
 from __future__ import annotations
 
-import contextlib
 import json
 import random
 import threading
@@ -82,6 +81,7 @@ import numpy as np
 from .. import __version__ as _version
 from ..index.api import Query, QueryHints
 from ..metrics import metrics
+from ..utils.device import cuda_index, device_scope
 from ..utils.properties import SystemProperty
 from ..wal.log import DurabilityError
 
@@ -148,7 +148,7 @@ class GeoMesaWebServer:
         # store with a mutation bus)
         self.cq = cq
         self._owns_cq = False
-        self._cuda_index = _cuda_index(store)
+        self._cuda_index = cuda_index(store)
         self.audit = audit if audit is not None \
             else getattr(store, "audit", None)
         self.auth_token = (auth_token if auth_token is not None
@@ -314,10 +314,7 @@ class GeoMesaWebServer:
         """The store's card as this request thread's current CUDA device
         (torch keeps the current device per thread, and a new request
         thread starts on device 0); a no-op for a store on the host."""
-        if self._cuda_index is None:
-            return contextlib.nullcontext()
-        import torch
-        return torch.cuda.device(self._cuda_index)
+        return device_scope(self._cuda_index)
 
     @staticmethod
     def _principal(headers) -> str | None:
@@ -805,10 +802,7 @@ class GeoMesaWebServer:
         if not hasattr(self.store, "resharder"):
             return 404, "application/json", _j(
                 {"error": "store has no elastic topology"})
-        try:
-            from ..cluster.reshard import ReshardError
-        except ImportError:     # no cluster tier in this package yet
-            ReshardError = ()   # noqa: N806 - an except clause's types
+        from ..cluster.reshard import ReshardError
         resharder = self.store.resharder
         if method == "GET" and not parts:
             return 200, "application/json", _j(resharder.status())
@@ -872,7 +866,7 @@ class GeoMesaWebServer:
         with a JSON error (never a 500, which clients retry)."""
         return 404, "application/json", _j(
             {"error": "store has no schema-evolution plane (not in the "
-                      "port yet: ROADMAP.md queue 1 item 8)"})
+                      "port yet: ROADMAP.md queue 1 item 8b)"})
 
     def _wal(self, method, parts, params):
         """Durability admin: GET /rest/wal (stats, open), POST
@@ -1205,7 +1199,7 @@ class GeoMesaWebServer:
         404 with a JSON error (never a 500, which clients retry)."""
         return 404, "application/json", _j(
             {"error": "no materialized views (not in the port yet: "
-                      "ROADMAP.md queue 1 item 8)"})
+                      "ROADMAP.md queue 1 item 8b)"})
 
     def _cache(self, method, parts, params):
         """Materialized-cache admin: GET /rest/cache (status, open),
@@ -1255,19 +1249,6 @@ def _load_arrow():
         import pyarrow  # noqa: F401
     except ImportError:
         pass
-
-
-def _cuda_index(store) -> int | None:
-    """The CUDA device index of a store's rows (None: on the host). A
-    store on ``cuda`` without an index holds its tensors on the current
-    device of the thread that built it, which is this one."""
-    dev = getattr(store, "device", None)
-    if getattr(dev, "type", None) != "cuda":
-        return None
-    if dev.index is not None:
-        return dev.index
-    import torch
-    return torch.cuda.current_device()
 
 
 def _j(obj) -> bytes:

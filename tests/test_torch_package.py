@@ -87,7 +87,16 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.resilience.chaos, "
             "geomesa_tpu_torch.web, geomesa_tpu_torch.web.server, "
             "geomesa_tpu_torch.store.remote, "
-            "geomesa_tpu_torch.integrity.scrub\n"
+            "geomesa_tpu_torch.integrity.scrub, "
+            "geomesa_tpu_torch.replication, "
+            "geomesa_tpu_torch.replication.sync, "
+            "geomesa_tpu_torch.replication.shipper, "
+            "geomesa_tpu_torch.replication.replica, "
+            "geomesa_tpu_torch.replication.router, "
+            "geomesa_tpu_torch.cluster, geomesa_tpu_torch.cluster.partition, "
+            "geomesa_tpu_torch.cluster.reshard, "
+            "geomesa_tpu_torch.cluster.coordinator, "
+            "geomesa_tpu_torch.cluster.autoscale\n"
             "import importlib; "
             "importlib.import_module('geomesa_tpu_torch.obs.runtime')\n"
             "bad = [m for m in sys.modules if m == 'jax' "
@@ -152,7 +161,13 @@ def test_no_source_imports_jax_or_reference():
             "ingest/__init__.py", "ingest/pipeline.py", "api/__init__.py",
             "resilience/breaker.py", "resilience/hedge.py",
             "resilience/chaos.py", "web/__init__.py", "web/server.py",
-            "store/remote.py", "integrity/scrub.py"} <= seen
+            "store/remote.py", "integrity/scrub.py",
+            "replication/__init__.py", "replication/sync.py",
+            "replication/shipper.py", "replication/replica.py",
+            "replication/router.py", "cluster/__init__.py",
+            "cluster/partition.py", "cluster/reshard.py",
+            "cluster/coordinator.py", "cluster/autoscale.py",
+            "index/splitter.py", "utils/device.py"} <= seen
     # the native library's C++ sources are the port's own copies
     src = os.path.join(PKG, "native", "src")
     assert sorted(os.listdir(src)) == ["feature_codec.cpp", "zbuild.cpp",

@@ -942,3 +942,358 @@ def test_empty_plan_answers_the_selected_columns(engines, sql):
     columns)."""
     got, want = _both(engines, sql)
     assert got.n == 0 and got.names == want.names
+
+
+# -- distributed SQL over a real ClusterDataStore (tests/test_sql_distributed.py)
+#
+# The same four-group cluster in both packages (the port's groups on the
+# CPU) and a single store beside each: every statement runs on the port's
+# cluster engine, the port's single-store engine and the JAX cluster
+# engine. The cluster answers as the single store does (rows in order
+# where ORDER BY applies) and as the JAX cluster does (rows in order,
+# plans equal): the engine reaches ``try_distributed`` through its own
+# gate.
+
+from geomesa_tpu.cluster import ClusterDataStore as JCluster  # noqa: E402
+from geomesa_tpu.cluster import \
+    ShardUnavailableError as JShardUnavailable  # noqa: E402
+from geomesa_tpu.features import FeatureBatch as JBatch  # noqa: E402
+from geomesa_tpu.features import parse_spec as jspec  # noqa: E402
+from geomesa_tpu.geometry import Polygon as JPolygon  # noqa: E402
+from geomesa_tpu.sql.distributed import \
+    SQL_BROADCAST_ROWS as JBROADCAST  # noqa: E402
+from geomesa_tpu.sql.distributed import \
+    SQL_DISTRIBUTED as JDISTRIBUTED  # noqa: E402
+from geomesa_tpu.web import GeoMesaWebServer as JServer  # noqa: E402
+from geomesa_tpu_torch.cluster import ClusterDataStore  # noqa: E402
+from geomesa_tpu_torch.cluster import ShardUnavailableError  # noqa: E402
+from geomesa_tpu_torch.features import FeatureBatch  # noqa: E402
+from geomesa_tpu_torch.features import parse_spec  # noqa: E402
+from geomesa_tpu_torch.geometry import Polygon  # noqa: E402
+from geomesa_tpu_torch.utils.properties import (  # noqa: E402
+    SQL_BROADCAST_ROWS, SQL_DISTRIBUTED)
+from geomesa_tpu_torch.web import GeoMesaWebServer  # noqa: E402
+
+D_PTS_SPEC = "*geom:Point:srid=4326,name:String,val:Integer,dtg:Date"
+D_N = 3000
+PORT_SIDE = dict(store=lambda: InMemoryDataStore(device="cpu"),
+                 cluster=ClusterDataStore, batch=FeatureBatch,
+                 spec=parse_spec, poly=Polygon, engine=SqlEngine,
+                 server=GeoMesaWebServer)
+JAX_SIDE = dict(store=JaxStore, cluster=JCluster, batch=JBatch, spec=jspec,
+                poly=JPolygon, engine=JEngine, server=JServer)
+
+
+def _d_seed(side, *stores):
+    """test_sql_distributed.py's pts (3,000), zones (8) and hubs (6)."""
+    psft = side["spec"]("pts", D_PTS_SPEC)
+    zsft = side["spec"]("zones", "*geom:Polygon:srid=4326,zname:String,"
+                                 "zval:Integer")
+    hsft = side["spec"]("hubs", "*geom:Point:srid=4326,hname:String")
+    rng = np.random.default_rng(7)
+    names = np.array(["alpha", "bravo", "charlie", "delta", "echo"],
+                     dtype=object)
+    pb = side["batch"].from_dict(
+        psft, np.array([f"f{i:05d}" for i in range(D_N)], dtype=object), {
+            "geom": (rng.uniform(-170, 170, D_N), rng.uniform(-80, 80, D_N)),
+            "name": names[rng.integers(0, 5, D_N)],
+            "val": rng.permutation(D_N).astype(np.int64),
+            "dtg": np.int64(1_600_000_000_000)
+            + rng.integers(0, 10_000_000, D_N)})
+
+    def box(x0, y0, x1, y1):
+        return side["poly"](np.array([[x0, y0], [x1, y0], [x1, y1],
+                                      [x0, y1], [x0, y0]], float))
+    zb = side["batch"].from_dict(
+        zsft, np.array([f"z{i}" for i in range(8)], dtype=object),
+        {"geom": np.array([box(-160 + 40 * i, -60, -130 + 40 * i, -20)
+                           for i in range(8)], dtype=object),
+         "zname": np.array([f"zone{i}" for i in range(8)], dtype=object),
+         "zval": np.arange(8, dtype=np.int64)})
+    hrng = np.random.default_rng(11)
+    hb = side["batch"].from_dict(
+        hsft, np.array([f"h{i}" for i in range(6)], dtype=object),
+        {"geom": (hrng.uniform(-150, 150, 6), hrng.uniform(-60, 60, 6)),
+         "hname": np.array([f"hub{i}" for i in range(6)], dtype=object)})
+    for st in stores:
+        for sft, batch in ((psft, pb), (zsft, zb), (hsft, hb)):
+            st.create_schema(sft)
+            st.write(sft.type_name, batch)
+
+
+def _d_plane(side, **kw):
+    groups = [side["store"]() for _ in range(4)]
+    cluster = side["cluster"](groups, leg_deadline_s=30, **kw)
+    oracle = side["store"]()
+    _d_seed(side, cluster, oracle)
+    assert all(g.count("pts") > 0 for g in groups)
+    return cluster, oracle
+
+
+@pytest.fixture(scope="module")
+def dplane():
+    pc, po = _d_plane(PORT_SIDE)
+    jc, _ = _d_plane(JAX_SIDE)
+    yield SqlEngine(pc), SqlEngine(po), JEngine(jc)
+    pc.close()
+    jc.close()
+
+
+def _dcmp(dplane, stmt, ordered=False, mode=None):
+    """The port's cluster against its single store and the JAX cluster."""
+    ce, oe, je = dplane
+    got, single, ref = ce.query(stmt), oe.query(stmt), je.query(stmt)
+    _same(got, single, ordered)
+    _same(got, ref, ordered=True)
+    assert _timeless(got.plan) == _timeless(ref.plan)
+    assert got.complete is True
+    if mode is not None:
+        assert got.plan["mode"] == mode, got.plan
+    return got
+
+
+def _timeless(plan):
+    """A plan without the cost model's measured seconds (the planner
+    recalibrates its per-leg cost from observed leg latencies)."""
+    if isinstance(plan, dict):
+        return {k: _timeless(v) for k, v in plan.items()
+                if not (k.endswith("cost_s") or k == "leg_s")}
+    if isinstance(plan, list):
+        return [_timeless(v) for v in plan]
+    return plan
+
+
+def _flip(knob_port, knob_jax, value):
+    knob_port.set(value)
+    knob_jax.set(value)
+
+
+D_AGG_SHAPES = [
+    "SELECT name, COUNT(*), SUM(val), MIN(val), MAX(val), AVG(val) "
+    "FROM pts GROUP BY name",
+    "SELECT name, COUNT(val) AS cv FROM pts GROUP BY name",
+    "SELECT name, COUNT(*) AS n FROM pts WHERE val < 1500 GROUP BY name",
+    "SELECT name, COUNT(*) AS n FROM pts GROUP BY name "
+    "HAVING COUNT(*) > 100",
+    "SELECT name, MIN(val) FROM pts GROUP BY name HAVING COUNT(*) > 550",
+    "SELECT name, ST_ConvexHull(geom) FROM pts GROUP BY name",
+    "SELECT name, ST_Extent(geom) FROM pts GROUP BY name",
+    "SELECT COUNT(*), COUNT(val), SUM(val), MIN(val), MAX(val), "
+    "AVG(val) FROM pts",
+    "SELECT ST_ConvexHull(geom), ST_Extent(geom) FROM pts",
+    "SELECT MIN(dtg), MAX(dtg) FROM pts",
+    "SELECT COUNT(*), SUM(val), MIN(val) FROM pts WHERE val < 0",
+]
+
+
+def test_cluster_store_reaches_try_distributed(dplane, monkeypatch):
+    ce = dplane[0]
+    assert ce._cluster_store() is ce.store
+    seen = []
+    real = tdist.try_distributed
+    monkeypatch.setattr(tdist, "try_distributed",
+                        lambda *a: seen.append(a[3]) or real(*a))
+    ce.query("SELECT COUNT(*) FROM pts")
+    assert seen == ["SELECT COUNT(*) FROM pts"]
+
+
+@pytest.mark.parametrize("stmt", D_AGG_SHAPES)
+def test_distributed_aggregate_equivalent(dplane, stmt):
+    res = _dcmp(dplane, stmt, mode="distributed-aggregate")
+    assert res.plan["distributed"] is True and len(res.plan["legs"]) == 4
+
+
+def test_distributed_order_by_limit_and_merge_plan(dplane):
+    _dcmp(dplane, "SELECT name, COUNT(*) AS cnt FROM pts GROUP BY name "
+                  "ORDER BY cnt DESC LIMIT 2", ordered=True,
+          mode="distributed-aggregate")
+    res = _dcmp(dplane, "SELECT name, AVG(val) FROM pts GROUP BY name")
+    assert res.plan["merge"] == "by-key"
+    assert any("avg" in p for p in res.plan["partials"])
+
+
+def test_distributed_kill_switch_falls_back_exactly(dplane):
+    _flip(SQL_DISTRIBUTED, JDISTRIBUTED, "false")
+    try:
+        res = _dcmp(dplane, "SELECT name, SUM(val) FROM pts GROUP BY name",
+                    mode="cluster-materialize")
+        assert res.plan["distributed"] is False
+    finally:
+        _flip(SQL_DISTRIBUTED, JDISTRIBUTED, None)
+
+
+def test_distributed_streamed_order_limit_exact(dplane):
+    res = _dcmp(dplane, "SELECT __fid__, name, val FROM pts ORDER BY val "
+                        "LIMIT 25", ordered=True, mode="distributed-stream")
+    assert res.plan["merge"] == "k-way-stream"
+
+
+def test_distributed_invalid_statement_raises_like_single_node(dplane):
+    ce, oe, je = dplane
+    stmt = "SELECT name, SUM(nosuch) FROM pts GROUP BY name"
+    errs = []
+    for eng in (ce, oe, je):
+        with pytest.raises(Exception) as e:
+            eng.query(stmt)
+        errs.append((type(e.value).__name__, str(e.value)))
+    assert errs[0] == errs[1] == errs[2]
+
+
+D_JOIN_SHAPES = [
+    ("SELECT COUNT(*) FROM pts p "
+     "JOIN zones z ON ST_Contains(z.geom, p.geom)", False),
+    ("SELECT z.zname, COUNT(*), SUM(p.val) FROM pts p "
+     "JOIN zones z ON ST_Contains(z.geom, p.geom) GROUP BY z.zname", False),
+    ("SELECT p.name, COUNT(*), AVG(p.val) FROM pts p "
+     "JOIN zones z ON ST_Contains(z.geom, p.geom) GROUP BY p.name", False),
+    ("SELECT COUNT(*), SUM(p.val), MIN(p.val), MAX(p.val) FROM pts p "
+     "JOIN zones z ON ST_Contains(z.geom, p.geom)", False),
+    ("SELECT p.__fid__, z.zname, p.val FROM pts p "
+     "JOIN zones z ON ST_Contains(z.geom, p.geom) "
+     "ORDER BY p.val LIMIT 30", True),
+    ("SELECT p.__fid__, z.zname FROM pts p "
+     "JOIN zones z ON ST_Contains(z.geom, p.geom) WHERE p.val < 200", False),
+    ("SELECT h.hname, COUNT(*) FROM pts p "
+     "JOIN hubs h ON ST_DWithin(p.geom, h.geom, 10.0) GROUP BY h.hname",
+     False),
+    ("SELECT COUNT(*) FROM pts p JOIN zones z ON p.name = z.zname", False),
+    ("SELECT p.__fid__, z.zname FROM pts p "
+     "LEFT JOIN zones z ON ST_Contains(z.geom, p.geom) "
+     "WHERE p.val < 100", False),
+    ("SELECT z.zname, COUNT(*) FROM pts p "
+     "LEFT JOIN zones z ON ST_Contains(z.geom, p.geom) "
+     "GROUP BY z.zname", False),
+]
+
+
+@pytest.mark.parametrize("stmt,ordered", D_JOIN_SHAPES)
+def test_broadcast_join_equivalent(dplane, stmt, ordered):
+    res = _dcmp(dplane, stmt, ordered=ordered, mode="broadcast-join")
+    assert res.plan["broadcast"]["rows"] <= SQL_BROADCAST_ROWS.as_int()
+
+
+def test_broadcast_side_choice(dplane):
+    res = _dcmp(dplane, "SELECT COUNT(*) FROM pts p "
+                        "JOIN zones z ON ST_Contains(z.geom, p.geom)")
+    assert res.plan["broadcast"]["table"] == "zones"
+    assert res.plan["broadcast"]["rows"] == 8
+    res = _dcmp(dplane, "SELECT z.zname, p.name FROM zones z "
+                        "LEFT JOIN pts p ON ST_Contains(z.geom, p.geom) "
+                        "WHERE p.val < 3", mode="broadcast-join")
+    assert res.plan["broadcast"]["side"] == "p"
+
+
+@pytest.mark.parametrize("rows,stmt,reason", [
+    ("100", "SELECT z.zname, p.name FROM zones z LEFT JOIN pts p ON "
+            "ST_Contains(z.geom, p.geom) WHERE p.val < 3",
+     "anchors cannot broadcast"),
+    ("1", "SELECT COUNT(*) FROM pts p "
+          "JOIN zones z ON ST_Contains(z.geom, p.geom)",
+     "no broadcastable side")])
+def test_broadcast_falls_back_exactly(dplane, rows, stmt, reason):
+    _flip(SQL_BROADCAST_ROWS, JBROADCAST, rows)
+    try:
+        res = _dcmp(dplane, stmt, mode="cluster-materialize")
+        assert reason in res.plan["fallback_reason"]
+    finally:
+        _flip(SQL_BROADCAST_ROWS, JBROADCAST, None)
+
+
+class _DeadLeg:
+    """Shard whose every call fails (hedges and retries included)."""
+
+    def close(self):
+        pass
+
+    def __getattr__(self, key):
+        def boom(*a, **kw):
+            raise ConnectionError("injected: shard down")
+        return boom
+
+
+def _wounded(side, allow_partial):
+    groups = [side["store"]() for _ in range(4)]
+    cluster = side["cluster"](groups, allow_partial=allow_partial)
+    oracle = side["store"]()
+    _d_seed(side, cluster, oracle)
+    cluster._groups[2] = _DeadLeg()
+    return cluster, oracle
+
+
+@pytest.mark.parametrize("stmt", [
+    "SELECT name, COUNT(*) FROM pts GROUP BY name",
+    "SELECT COUNT(*) FROM pts p JOIN zones z ON ST_Contains(z.geom, p.geom)"])
+def test_dead_group_raises_typed_by_default(stmt):
+    out = []
+    for side, err in ((PORT_SIDE, ShardUnavailableError),
+                      (JAX_SIDE, JShardUnavailable)):
+        cluster, _ = _wounded(side, allow_partial=False)
+        try:
+            with pytest.raises(err) as ei:
+                side["engine"](cluster).query(stmt)
+            assert "shard2" in ei.value.groups and ei.value.z_ranges
+            out.append((ei.value.groups, ei.value.z_ranges))
+        finally:
+            cluster.close()
+    assert out[0] == out[1]
+
+
+def test_dead_group_flagged_when_partials_allowed():
+    stmt = "SELECT name, COUNT(*) FROM pts GROUP BY name"
+    out = []
+    for side in (PORT_SIDE, JAX_SIDE):
+        cluster, oracle = _wounded(side, allow_partial=True)
+        try:
+            res = side["engine"](cluster).query(stmt)
+            assert res.complete is False
+            assert res.missing_groups == ["shard2"] and res.missing_z_ranges
+            got = dict(res.rows())
+            want = dict(side["engine"](oracle).query(stmt).rows())
+            assert set(got) <= set(want)
+            assert all(got[k] <= want[k] for k in got)
+            out.append((_rows(res), res.missing_z_ranges,
+                        _timeless(res.plan)))
+        finally:
+            cluster.close()
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("server", ["port", "jax"])
+def test_rest_legs_match_single_store(server):
+    """The port's ``cluster://`` engine over two web servers of either
+    package, against its single store and the JAX engine over the same
+    servers' twins."""
+    srv_side = PORT_SIDE if server == "port" else JAX_SIDE
+    results = []
+    for side in (PORT_SIDE, JAX_SIDE):
+        backends = [srv_side["store"](), srv_side["store"]()]
+        servers = [srv_side["server"](b).start() for b in backends]
+        try:
+            uri = "cluster://" + ",".join(f"127.0.0.1:{s.port}"
+                                          for s in servers)
+            cluster = side["cluster"].from_uri(uri, leg_deadline_s=30)
+            oracle = side["store"]()
+            _d_seed(side, cluster, oracle)
+            ce, oe = side["engine"](cluster), side["engine"](oracle)
+            got = []
+            for stmt, ordered, mode in [
+                    ("SELECT name, COUNT(*), SUM(val), AVG(val) FROM pts "
+                     "GROUP BY name", False, "distributed-aggregate"),
+                    ("SELECT name, ST_Extent(geom) FROM pts GROUP BY name",
+                     False, "distributed-aggregate"),
+                    ("SELECT z.zname, COUNT(*) FROM pts p JOIN zones z ON "
+                     "ST_Contains(z.geom, p.geom) GROUP BY z.zname", False,
+                     "broadcast-join"),
+                    ("SELECT p.__fid__, z.zname, p.val FROM pts p JOIN zones "
+                     "z ON ST_Contains(z.geom, p.geom) ORDER BY p.val "
+                     "LIMIT 20", True, "broadcast-join")]:
+                a, b = ce.query(stmt), oe.query(stmt)
+                _same(a, b, ordered)
+                assert a.plan["mode"] == mode
+                got.append((_rows(a), a.plan["mode"]))
+            results.append(got)
+            cluster.close()
+        finally:
+            for s in servers:
+                s.stop()
+    assert results[0] == results[1]

@@ -12,8 +12,11 @@ integrity, CQ, KNN, streaming, ingest, health, QoS and tracing suites)
 each have a counterpart here that runs its scenario in both packages
 and holds the answers equal. The scrubber runs on a journal beside the
 JAX one. The routes the port does not have yet (``/rest/views``,
-``/rest/evolve``) and the replica scrubber are pinned to their 404 and
-NotImplementedError.
+``/rest/evolve``) are pinned to their 404. The admin routes of the
+replicated and sharded tiers (``/rest/replication``, ``/rest/cluster``,
+``/rest/topology``, ``/rest/reshard``) answer over a replicated store
+and a cluster as the reference's do (``TestRestSurface`` of
+``tests/test_cluster.py`` and ``tests/test_reshard.py``).
 
 The ``gpu`` tests at the end import no JAX (the module's JAX imports are
 skipped with ``--noconftest``): a server over a CUDA store answers
@@ -449,7 +452,7 @@ ITEM8_ROUTES = [("GET", "/rest/views"), ("GET", "/rest/views/v1"),
 
 @pytest.mark.parametrize("method,path", ITEM8_ROUTES)
 def test_item8_routes_answer_404(method, path):
-    """Views and schema evolution wait for ROADMAP.md queue 1 item 8:
+    """Views and schema evolution wait for ROADMAP.md queue 1 item 8b:
     404 with a JSON error naming it, never a 500 (which a client
     retries); the bearer gate still comes first."""
     with served(T, seeded_store(T), auth_token="tok") as srv:
@@ -1061,12 +1064,209 @@ class TestScrubber:
         assert t == j
 
 
-def test_replica_scrubber_raises():
-    from geomesa_tpu_torch.integrity import Scrubber
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        Scrubber(replica=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        Scrubber(journal=object(), replica=object())
+# -- the replicated and sharded tiers' admin routes ----------------------------
+# (TestRestSurface of tests/test_cluster.py and tests/test_reshard.py)
+
+TIER_SPEC = "*geom:Point:srid=4326,dtg:Date,name:String"
+# per-leg latencies and breaker clocks differ run to run
+TIER_VOLATILE = {"leg_latency", "read_latency", "p99_s", "hot_p99_s",
+                 "sustained_s", "flip_ms", "cooldown_remaining_s",
+                 "failover_seconds", "last_error", "last_decision"}
+
+
+def tier_cluster(P, k=2, names=("east", "west"), down=False, n=600):
+    """A cluster over k CPU groups holding the reshard suite's skewed
+    rows (the last group replaced by a dead one when ``down``)."""
+    cl = mod(P, "cluster")
+    sft = P.parse_spec("pts", TIER_SPEC)
+    rng = np.random.default_rng(3)
+    n_hot = int(n * 0.7)
+    x = np.concatenate([rng.uniform(100, 112, n_hot),
+                        rng.uniform(-180, 180, n - n_hot)])
+    y = np.concatenate([rng.uniform(40, 46, n_hot),
+                        rng.uniform(-90, 90, n - n_hot)])
+    batch = P.FeatureBatch.from_dict(
+        sft, np.array([f"f{i}" for i in range(n)], dtype=object),
+        {"geom": (x, y),
+         "dtg": np.int64(1704067200000) + np.arange(n) * 3_600_000,
+         "name": np.array([f"n{i % 7}" for i in range(n)], dtype=object)})
+    groups = [P.store() for _ in range(k)]
+    if down:
+        groups[0].create_schema(sft)
+        groups[0].write("pts", batch)
+        groups[-1] = _DeadGroup()
+        c = cl.ClusterDataStore(groups, names=list(names), leg_deadline_s=2,
+                                hedge_ms=10, allow_partial=True)
+        c._sfts["pts"] = sft
+        return c
+    c = cl.ClusterDataStore(groups, names=list(names))
+    c.create_schema(sft)
+    c.write("pts", batch)
+    return c
+
+
+class _DeadGroup:
+    def close(self):
+        pass
+
+    def __getattr__(self, name):
+        def boom(*a, **kw):
+            raise ConnectionError("shard group down")
+        return boom
+
+
+def tier_reply(reply):
+    """A reply with the tiers' latency fields left out of its JSON."""
+    st, hdrs, body = reply
+    if hdrs.get("Content-Type") == "application/json" and body:
+        def drop(o):
+            if isinstance(o, dict):
+                return {k: drop(v) for k, v in o.items()
+                        if k not in TIER_VOLATILE}
+            if isinstance(o, list):
+                return [drop(v) for v in o]
+            return o
+        body = json.dumps(drop(json.loads(body))).encode()
+    return st, hdrs, body
+
+
+def tier_session(P, store, requests, token=None):
+    with served(P, store, **({"auth_token": token} if token else {})) \
+            as srv:
+        out = []
+        for method, path, auth in requests:
+            hdrs = {"Authorization": f"Bearer {token}"} if auth else None
+            out.append(tier_reply(call(srv, method, path,
+                                       b"" if method == "POST" else None,
+                                       hdrs)))
+        return out
+
+
+CLUSTER_SESSION = [
+    ("GET", "/rest/cluster", False),
+    ("GET", "/rest/topology", False),
+    ("GET", "/rest/topology?counts=false", False),
+    ("GET", "/rest/reshard", False),
+    ("POST", "/rest/cluster/promote?group=east", False),
+    ("POST", "/rest/cluster/promote?group=east", True),
+    ("POST", "/rest/cluster/promote?group=nope", True),
+    ("POST", "/rest/reshard/split?src=east", False),
+    ("GET", "/rest/query/pts?cql=INCLUDE&maxFeatures=2000", False),
+    ("POST", "/rest/reshard/split", True),
+    ("POST", "/rest/reshard/split?src=east", True),
+    ("GET", "/rest/topology", False),
+    ("GET", "/rest/reshard", False),
+    ("GET", "/rest/cluster", False),
+    ("GET", "/rest/query/pts?cql=BBOX(geom,100,40,112,46)&maxFeatures=2000",
+     False),
+    ("GET", "/rest/count/pts?cql=INCLUDE", False),
+    ("POST", "/rest/reshard/resume", True),
+    ("POST", "/rest/reshard/abort", True),
+    ("POST", "/rest/reshard/nope", True),
+    ("POST", "/rest/reshard/auto?state=on", True),
+    ("POST", "/rest/reshard/auto?state=off", True),
+]
+
+
+@needs_jax
+def test_cluster_admin_routes_equal_reference():
+    """A session over a 2-group cluster on both servers: status,
+    topology, the token gate, a split, the epoch header on queries,
+    typed refusals (400, 409) and the autoscaler's loop (a single
+    tick's decision reads leg latencies, so only its status is held)."""
+    def run(P):
+        c = tier_cluster(P)
+        try:
+            return tier_session(P, c, CLUSTER_SESSION + [
+                ("POST", "/rest/reshard/auto", True)], token="s3cret")
+        finally:
+            c.close()
+    j, t = both(run)
+    assert t.pop()[0] == j.pop()[0] == 200
+    assert len(t) == len(j) == len(CLUSTER_SESSION)
+    for got, want in zip(t, j):
+        same_reply(got, want)
+    assert [r[0] for r in t[:12]] == [200, 200, 200, 200, 403, 400, 400,
+                                      403, 200, 400, 200, 200]
+    assert t[8][1].get("X-GeoMesa-Topology-Epoch") == "0"
+    assert t[14][1].get("X-GeoMesa-Topology-Epoch") == "1"
+
+
+@needs_jax
+def test_reshard_refusal_maps_to_409():
+    def run(P):
+        c = tier_cluster(P, names=("a", "b"))
+        knob = mod(P, "cluster.reshard").RESHARD_ENABLED
+        knob.set("false")
+        try:
+            return tier_session(P, c, [
+                ("POST", "/rest/reshard/split?src=a", False),
+                ("GET", "/rest/reshard", False)])
+        finally:
+            knob.set(None)
+            c.close()
+    j, t = both(run)
+    for got, want in zip(t, j):
+        same_reply(got, want)
+    assert t[0][0] == 409 and jbody(t[0])["retryable"] is False
+
+
+@needs_jax
+def test_partial_count_flagged_over_http():
+    def run(P):
+        c = tier_cluster(P, names=("up", "down"), down=True, n=100)
+        return tier_session(P, c, [
+            ("GET", "/rest/count/pts?cql=INCLUDE&maxFeatures=1000", False),
+            ("GET", "/rest/query/pts?cql=INCLUDE&maxFeatures=1000", False),
+            ("GET", "/rest/cluster", False)])
+    j, t = both(run)
+    for got, want in zip(t, j):
+        same_reply(got, want)
+    assert t[0][1].get("X-GeoMesa-Complete") == "false"
+    assert "down" in t[0][1].get("X-GeoMesa-Missing-Groups", "")
+    assert jbody(t[0])["count"] == 100
+
+
+@needs_jax
+def test_replication_admin_routes_equal_reference(tmp_path):
+    """/rest/replication over a replicated store, then a bearer-gated
+    promote: the same replies from both servers."""
+    def run(P):
+        repl = mod(P, "replication")
+        sft = P.parse_spec("people", SPEC)
+        primary = P.store(durable_dir=str(tmp_path / P.name),
+                          wal_fsync="never")
+        primary.create_schema(sft)
+        ship = repl.WalShipper(primary.journal)
+        kw = {} if P.name == "jax" else {"device": "cpu"}
+        replica = repl.Replica(ship.host, ship.port, name="r0", **kw)
+        router = repl.ReplicatedDataStore(primary, [replica],
+                                          ack_replicas=1,
+                                          auto_promote=False)
+        rng = np.random.default_rng(5)
+        try:
+            router.write("people", make_batch(P, sft, 0, 50, rng))
+            deadline = time.monotonic() + 10
+            while (replica.applied_lsn < primary.journal.wal.last_lsn
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
+            return tier_session(P, router, [
+                ("GET", "/rest/replication", False),
+                ("POST", "/rest/replication/promote", False),
+                ("GET", "/rest/count/people?cql=INCLUDE", False),
+                ("POST", "/rest/replication/promote", True),
+                ("GET", "/rest/replication", False),
+                ("GET", "/rest/cluster", False),
+                ("GET", "/rest/topology", False),
+                ("GET", "/rest/reshard", False)], token="tok")
+        finally:
+            router.close()
+            ship.stop()
+    j, t = both(run)
+    for got, want in zip(t, j):
+        same_reply(got, want)
+    assert [r[0] for r in t] == [200, 403, 200, 200, 200, 404, 404, 404]
+    assert jbody(t[3])["promoted"] == "r0"
 
 
 # -- TestCqRest (test_geofence.py) --------------------------------------------
