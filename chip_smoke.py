@@ -369,6 +369,45 @@ Phases, one JSON line each; any failure exits non-zero:
            flip's snapshot, copy, delete and swap times. (d) ``sql19``
            runs in 7b. The phase's total line, with its seconds beside
            CLUSTER_BUDGET_S, follows sql19.
+5e. lifecycle online schema evolution, views, the crash harness and the
+           batch jobs on the card, after ``cluster`` on the store phase's
+           rows; launch counts zeroed before each part and read after,
+           device memory before and after each part (its stores closed;
+           at most LIFECYCLE_MEM_SLACK more). (a) ``evolve24``, bench.py
+           config 24: 1M rows in a durable store (wal_fsync "never"), 16
+           writer and 16 reader threads, the evolver reindexing the
+           type from version 2 to 1 in the middle (gates: 0 reader
+           mismatches, 0 untyped errors, 0 acked writes lost, one flip,
+           the longest write stall at most 10 s, the shadow's columns
+           on the card); the snapshot, catch-up, index-build and flip
+           times, the cut's ms, typed refusals, schema refreshes,
+           rounds, memory before, after the snapshot, after the
+           shadow's index and after the flip (gate: the losing copy's
+           memory returned); the first query after the flip (rebuilt or
+           merged); the north star's box id-exact against a float64
+           brute force with a scan kernel launched; a crash at a random
+           kill point and resume() (gate: completes once); an abort
+           with the shadow built (gate: its memory returned); the kill
+           switch off beside a twin store (gates). (b) ``evolve10m``:
+           an online update_schema adding an Integer attribute with a
+           default to the store phase's 10M-row type under 8 north-star
+           readers (gates: every read exact or typed, the default on
+           every row, the north star id-exact on the shadow's device
+           columns, the old copy's memory returned); it changes the
+           store's schema, so it is the store's last use. (c)
+           ``views23``, bench.py config 23: 1M rows, a 32-group view,
+           20 commits of 1,000 rows timed with a read beside the p50 of
+           3 full re-executions (the speedup is reported, not gated),
+           a 500-id delete wave with its pre-image timed (gate: the
+           view equals SqlEngine's re-execution), the kill switch off
+           beside a twin (gates). (d) ``harness``: run_crash_workload's
+           harness on a durable card store, 3 rounds of 20 writes
+           (gate: no violation), faults by kind. (e) ``jobs``:
+           SchemaCopyJob from a file store on the card (ids equal),
+           AttributeIndexJob (the next attribute query plans attr: and
+           is exact), ConverterIngestJob over 4 files of config 16's
+           CSV (rows equal to one scalar converter run). Then the
+           phase's seconds beside LIFECYCLE_BUDGET_S.
 6. predicates  exact polygon and attribute predicates: the earlier
            stores freed, a store of --store-rows rows shaped like a GDELT
            1.0 event record (EventCode:String:index=true with 320
@@ -9027,6 +9066,745 @@ def phase_ingest(seed: int) -> tuple[dict, dict]:
     return launches, out
 
 
+# -- the lifecycle: online schema evolution, views, harness, jobs --------------
+
+LIFECYCLE_BUDGET_S = 90.0        # the lifecycle phase's share of the script
+LIFECYCLE_MEM_SLACK = 64 << 20   # memory_allocated after a part, at most above
+EVOLVE24_ROWS = 1_000_000        # bench.py config 24's own rows
+EVOLVE24_C = 32                  # its client threads: 16 writers, 16 readers
+EVOLVE24_WRITE_ROWS = 200        # rows a writer's batch
+EVOLVE24_OFF_ROWS = 20_000       # the kill-switch leg's twin stores
+EVOLVE24_SPEC = "*geom:Point:srid=4326,name:String,val:Integer"
+EVOLVE24_BOX = (-80.0, 30.0, -60.0, 45.0)   # the north star's box (no dtg)
+EVOLVE10M_READERS = 8
+VIEWS23_ROWS = 1_000_000         # bench.py config 23's own rows
+VIEWS23_COMMIT_ROWS = 1_000
+VIEWS23_COMMITS = 20
+VIEWS23_REPS = 3                 # full re-executions for their p50
+VIEWS23_DELETES = 500
+VIEWS23_SQL = ("SELECT name, COUNT(*) AS c, SUM(val) AS s, AVG(val) AS a, "
+               "MIN(val) AS lo, MAX(val) AS hi FROM pts23 GROUP BY name")
+HARNESS_ROUNDS, HARNESS_WRITES = 3, 20
+JOBS_FS_ROWS = 200_000           # the file store SchemaCopyJob reads
+JOBS_CSV_ROWS = 100_000          # the delimited input, in JOBS_CSV_FILES
+JOBS_CSV_FILES = 4
+JOBS_WORKERS = 4
+
+
+def _mem() -> int:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _evolve_probe(ds) -> tuple[dict, dict]:
+    """A fault hook that never fires: it stamps each of the evolver's
+    kill points with the host clock and memory_allocated at the snapshot's
+    end and after the shadow's index build, and times that build alone
+    (wrapping the shadow's ensure_index once the snapshot has built it).
+    Returns (hook, record)."""
+    rec = {"t": {}, "mem": {}}
+
+    def hook(tag):
+        rec["t"].setdefault(tag, time.perf_counter())
+        evo = ds.evolver._active
+        if tag == "snapshot.done":
+            rec["mem"]["after_snapshot"] = _mem()
+            rec["shadow_device"] = str(evo.shadow.device)
+            shadow = evo.shadow
+            build = shadow.ensure_index
+
+            def timed_build():
+                # the evolver's one call; the flipped state's later calls
+                # (queries) go to the class's method again
+                del shadow.ensure_index
+                t0 = time.perf_counter()
+                build()
+                rec["index_build_s"] = time.perf_counter() - t0
+            shadow.ensure_index = timed_build
+        elif tag == "catchup.done":
+            rec["mem"]["after_index_build"] = _mem()
+            sd = evo.shadow.scan_data
+            rec["shadow_columns"] = None if sd is None else str(sd.xhi.device)
+            rec["shadow_scan_data"] = id(sd)
+    return hook, rec
+
+
+def _evolve_times(rec: dict) -> dict:
+    t = rec["t"]
+
+    def span(a, b):
+        return t[b] - t[a] if a in t and b in t else None
+    return {"snapshot_s": span("snapshot.start", "snapshot.done"),
+            "catchup_and_index_s": span("snapshot.done", "catchup.done"),
+            "index_build_s": rec.get("index_build_s"),
+            "flip_s": span("catchup.done", "flip.done"),
+            "cut_ms": (span("flip.cut", "flip.done") or 0.0) * 1e3}
+
+
+def _memory_gate(mem: dict, what: str) -> list:
+    """The superseded copy must leave the card: after the flip (or the
+    abort) the memory is back within a quarter of the shadow's build
+    (plus LIFECYCLE_MEM_SLACK) of where it was before the evolution."""
+    built = max(mem["after_index_build"] - mem.get("after_snapshot",
+                                                   mem["before"]), 0)
+    if mem["after"] > mem["before"] + built // 4 + LIFECYCLE_MEM_SLACK:
+        return [(f"{what}: device memory of the losing copy not returned",
+                 mem)]
+    return []
+
+
+def _first_query(ds, tn: str, ecql: str) -> dict:
+    """The first query on a type after a flip: its seconds, and whether
+    it rebuilt the device structures (the staging deletes drop them) or
+    merged pending rows in place."""
+    st = ds._types[tn]
+    rebuild = st.dirty or st.scan_data is None
+    pending = st._pending_n
+    t0 = time.perf_counter()
+    res = ds.query(ecql, tn)
+    res.ids
+    return {"first_query_s": time.perf_counter() - t0,
+            "rebuilt": bool(rebuild), "pending_rows_merged": int(pending)}
+
+
+def evolve24(seed: int) -> tuple[dict, list]:
+    """bench.py config 24 on the card: a durable store (wal_fsync
+    "never") of 1M rows, 16 writer and 16 reader threads, the evolver
+    reindexing the type from version 2 to version 1 in the middle; then
+    a crash at a random kill point and resume(), an abort that must free
+    the shadow, the kill switch off beside a twin store, and the north
+    star's box on the evolved type against a float64 brute force."""
+    import tempfile
+    import threading
+
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.evolve import (EVOLVE_ENABLED, Evolver,
+                                          SchemaEvolutionError)
+    from geomesa_tpu_torch.features import FeatureBatch, parse_spec
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.utils.device import cuda_index, device_scope
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    wrong = []
+    sft = parse_spec("pts24", EVOLVE24_SPEC)
+    names = np.array([f"grp{i}" for i in range(32)], dtype=object)
+
+    def batch(rng, m, prefix, name=None, bsft=None):
+        ids = np.array([f"{prefix}{i}" for i in range(m)], dtype=object)
+        col = (np.full(m, name, dtype=object) if name is not None
+               else names[rng.integers(0, len(names), m)])
+        return FeatureBatch.from_dict(bsft if bsft is not None else sft, ids, {
+            "geom": (rng.uniform(-170, 170, m), rng.uniform(-80, 80, m)),
+            "name": col,
+            "val": rng.integers(0, 1_000_000, m).astype(np.int64)})
+
+    rng = np.random.default_rng(seed + 24)
+    root = tempfile.mkdtemp(prefix="geomesa-evolve24-")
+    out = {"part": "evolve24", "rows": EVOLVE24_ROWS, "c": EVOLVE24_C}
+    try:
+        t0 = time.perf_counter()
+        ds = InMemoryDataStore(durable_dir=os.path.join(root, "wal"),
+                               wal_fsync="never")
+        ds.create_schema(sft)
+        seed_b = batch(rng, EVOLVE24_ROWS, "s")
+        ds.write("pts24", seed_b)
+        # the readers' truth: writers only append name='writer' rows, so
+        # the grp7 ids stay those of the seed rows through the flip
+        col = seed_b.col("name")
+        expected = set(seed_b.ids[col.vocab[col.codes] == "grp7"].tolist())
+        ds.query("name = 'grp7'", "pts24").ids     # index and columns
+        out["setup_s"] = time.perf_counter() - t0
+        writers = EVOLVE24_C // 2
+        readers = EVOLVE24_C - writers
+        index = cuda_index(ds)
+        stop = threading.Event()
+        acked = [set() for _ in range(writers)]
+        stalls = [0.0] * writers
+        errs = {"mismatch": 0, "typed": 0, "untyped": 0, "refresh": 0,
+                "reads": 0}
+        untyped = []
+        lock = threading.Lock()
+
+        def writer(w):
+            wrng = np.random.default_rng(seed * 1000 + w)
+            k = 0
+            cur = ds.get_schema("pts24")
+            with device_scope(index):
+                while not stop.is_set():
+                    b = batch(wrng, EVOLVE24_WRITE_ROWS, f"w{w}_{k}_",
+                              name="writer", bsft=cur)
+                    t = time.perf_counter()
+                    try:
+                        ds.write("pts24", b)
+                    except SchemaEvolutionError:
+                        with lock:
+                            errs["typed"] += 1
+                        continue
+                    except ValueError:
+                        # the flip changed the schema's index version:
+                        # re-read it and send the same ids again
+                        cur = ds.get_schema("pts24")
+                        with lock:
+                            errs["refresh"] += 1
+                        continue
+                    except Exception as e:   # noqa: BLE001 - counted
+                        with lock:
+                            errs["untyped"] += 1
+                            untyped.append(repr(e)[:200])
+                        continue
+                    stalls[w] = max(stalls[w], time.perf_counter() - t)
+                    acked[w].update(b.ids.tolist())
+                    k += 1
+
+        def reader():
+            with device_scope(index):
+                while not stop.is_set():
+                    try:
+                        got = set(ds.query("name = 'grp7'", "pts24")
+                                  .ids.tolist())
+                    except SchemaEvolutionError:
+                        with lock:
+                            errs["typed"] += 1
+                        continue
+                    except Exception as e:   # noqa: BLE001 - counted
+                        with lock:
+                            errs["untyped"] += 1
+                            untyped.append(repr(e)[:200])
+                        continue
+                    with lock:
+                        errs["reads"] += 1
+                        if got != expected:
+                            errs["mismatch"] += 1
+
+        threads = ([threading.Thread(target=writer, args=(w,), daemon=True)
+                    for w in range(writers)]
+                   + [threading.Thread(target=reader, daemon=True)
+                      for _ in range(readers)])
+        EVOLVE_ENABLED.set("true")
+        try:
+            mem = {"before": _mem()}
+            hook, rec = _evolve_probe(ds)
+            for t in threads:
+                t.start()
+            time.sleep(0.05)
+            ds.evolver.fault_hook = hook
+            t0 = time.perf_counter()
+            entry = ds.evolver.reindex("pts24", 1)
+            reindex_s = time.perf_counter() - t0
+            ds.evolver.fault_hook = None
+            time.sleep(0.05)
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+            mem["after"] = _mem()
+            mem.update(rec["mem"])
+            all_acked = set().union(*acked)
+            final_ids = set(ds.query("INCLUDE", "pts24").ids.tolist())
+            flips = sum(1 for h in ds.evolver.history
+                        if h.get("op") == "reindex")
+            out.update({
+                "reindex_under_load_s": reindex_s, "flip_ms": entry["flip_ms"],
+                "rounds": entry["rounds"], "barrier_lsn": entry["barrier_lsn"],
+                **_evolve_times(rec), "memory": mem,
+                "shadow_device": rec.get("shadow_device"),
+                "shadow_columns": rec.get("shadow_columns"),
+                "index_version": ds.get_schema("pts24").index_version,
+                "rows_final": len(final_ids), "rows_acked": len(all_acked),
+                "reads": errs["reads"],
+                "reader_mismatches": errs["mismatch"],
+                "typed_refusals": errs["typed"],
+                "schema_refreshes": errs["refresh"],
+                "untyped_errors": errs["untyped"],
+                "acked_writes_lost": len(all_acked - final_ids),
+                "flips_recorded": flips,
+                "write_stall_max_s": max(stalls)})
+            wrong += [("untyped error", e) for e in untyped[:3]]
+            if (errs["mismatch"] or errs["untyped"]
+                    or out["acked_writes_lost"] or flips != 1
+                    or max(stalls) > 10.0 or out["index_version"] != 1
+                    or not rec.get("shadow_columns", "").startswith("cuda")):
+                wrong.append(("config 24 gates", {
+                    k: out[k] for k in (
+                        "reader_mismatches", "untyped_errors",
+                        "acked_writes_lost", "flips_recorded",
+                        "write_stall_max_s", "index_version",
+                        "shadow_columns")}))
+            wrong += _memory_gate(mem, "evolve24 flip")
+            # the north star's box on the evolved type, first query timed
+            host_rows = SystemProperty("geomesa.scan.host.rows")
+            ecql = "BBOX(geom, {}, {}, {}, {})".format(*EVOLVE24_BOX)
+            host_rows.set("0")
+            kernels.reset_launches()
+            try:
+                out.update(_first_query(ds, "pts24", ecql))
+                res = ds.query(ecql, "pts24")
+                full = ds.query("INCLUDE", "pts24").batch
+                g = full.col("geom")
+                x0, y0, x1, y1 = EVOLVE24_BOX
+                want = full.ids[(g.x >= x0) & (g.x <= x1)
+                                & (g.y >= y0) & (g.y <= y1)]
+                exact = sorted(res.ids.tolist()) == sorted(want.tolist())
+            finally:
+                host_rows.set(None)
+            scans = {k: kernels.launches[k]
+                     for k in ("scan_mask", "scan_mask_gather")}
+            out["north_star"] = {"hits": len(want), "exact": exact,
+                                 "launches": scans}
+            if not exact or not sum(scans.values()):
+                wrong.append(("north star after the flip", out["north_star"]))
+            # a crash at a random kill point, then resume(): exactly once
+            phase = Evolver.PHASES[int(rng.integers(0, len(Evolver.PHASES)))]
+
+            def crash_at(tag):
+                def fire(t):
+                    if t == tag:
+                        raise RuntimeError(f"injected crash @ {t}")
+                return fire
+            before = flips
+            ds.evolver.fault_hook = crash_at(phase)
+            try:
+                ds.evolver.reindex("pts24", 2)
+                crashed = False
+            except RuntimeError:
+                crashed = True
+            finally:
+                ds.evolver.fault_hook = None
+            t0 = time.perf_counter()
+            ds.evolver.resume()
+            after = sum(1 for h in ds.evolver.history
+                        if h.get("op") == "reindex")
+            once = after == before + 1 and \
+                ds.get_schema("pts24").index_version == 2
+            out.update(crash_phase=phase, crash_injected=crashed,
+                       resume_s=time.perf_counter() - t0,
+                       resume_completed_once=once)
+            if not once:
+                wrong.append(("resume did not complete once", phase))
+            # an abort with the shadow built must give its memory back
+            amem = {"before": _mem()}
+            ahook, arec = _evolve_probe(ds)
+
+            def abort_at(tag):
+                ahook(tag)
+                if tag == "catchup.done":
+                    raise RuntimeError("injected crash @ catchup.done")
+            ds.evolver.fault_hook = abort_at
+            try:
+                ds.evolver.reindex("pts24", 1)
+            except RuntimeError:
+                pass
+            finally:
+                ds.evolver.fault_hook = None
+            ds.evolver.abort()
+            amem["after"] = _mem()
+            amem.update(arec["mem"])
+            out["abort_memory"] = amem
+            wrong += _memory_gate(amem, "evolve24 abort")
+            if ds.get_schema("pts24").index_version != 2:
+                wrong.append(("abort changed the schema", None))
+        finally:
+            EVOLVE_ENABLED.set(None)
+        ds.close()
+        del ds
+        # the kill switch off: the evolver refuses, a twin stays identical
+        b = batch(rng, EVOLVE24_OFF_ROWS, "o")
+        off, twin = InMemoryDataStore(), InMemoryDataStore()
+        for s in (off, twin):
+            s.create_schema(sft)
+            s.write("pts24", b)
+        try:
+            off.evolver.reindex("pts24", 1)
+            refuses = False
+        except SchemaEvolutionError:
+            refuses = True
+        same = (off.query("name = 'grp3'", "pts24").ids.tolist()
+                == twin.query("name = 'grp3'", "pts24").ids.tolist()
+                and off.query("INCLUDE", "pts24").ids.tolist()
+                == twin.query("INCLUDE", "pts24").ids.tolist()
+                and off._evolve_feeds == {}
+                and off.get_schema("pts24") == twin.get_schema("pts24"))
+        out.update(off_refuses=refuses, off_results_identical=same)
+        if not (refuses and same):
+            wrong.append(("kill switch off", (refuses, same)))
+        del off, twin
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out, wrong
+
+
+def evolve10m(ds, rows) -> tuple[dict, list]:
+    """The store phase's 10M-row type: an online update_schema adding an
+    Integer attribute with a default under EVOLVE10M_READERS north-star
+    reader threads; every read exact or typed, the new column equal to
+    its default on every row, the north star id-exact after the flip on
+    the shadow's device columns. Changes the store's schema: the last use
+    of the store."""
+    import threading
+
+    from geomesa_tpu_torch.evolve import EVOLVE_ENABLED, SchemaEvolutionError
+    from geomesa_tpu_torch.scan import kernels
+    from geomesa_tpu_torch.utils.device import cuda_index, device_scope
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    x, y, ms, ids = rows
+    wrong = []
+    ecql, boxes, iv = STORE_QUERIES[0]
+    want = ids[_brute(x, y, ms, boxes, iv)]
+    index = cuda_index(ds)
+    stop = threading.Event()
+    errs = {"reads": 0, "mismatch": 0, "typed": 0, "untyped": 0}
+    untyped = []
+    lock = threading.Lock()
+
+    def reader():
+        with device_scope(index):
+            while not stop.is_set():
+                try:
+                    got = ds.query(ecql, "ais").ids
+                except SchemaEvolutionError:
+                    with lock:
+                        errs["typed"] += 1
+                    continue
+                except Exception as e:   # noqa: BLE001 - counted
+                    with lock:
+                        errs["untyped"] += 1
+                        untyped.append(repr(e)[:200])
+                    continue
+                with lock:
+                    errs["reads"] += 1
+                    if not np.array_equal(got, want):
+                        errs["mismatch"] += 1
+
+    threads = [threading.Thread(target=reader, daemon=True)
+               for _ in range(EVOLVE10M_READERS)]
+    mem = {"before": _mem()}
+    hook, rec = _evolve_probe(ds)
+    EVOLVE_ENABLED.set("true")
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(0.2)
+        ds.evolver.fault_hook = hook
+        t0 = time.perf_counter()
+        entry = ds.evolver.update_schema("ais", [
+            {"op": "add", "name": "tag", "type": "Integer", "default": 7}])
+        update_s = time.perf_counter() - t0
+    finally:
+        ds.evolver.fault_hook = None
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        EVOLVE_ENABLED.set(None)
+    mem["after"] = _mem()
+    mem.update(rec["mem"])
+    host_rows = SystemProperty("geomesa.scan.host.rows")
+    host_rows.set("0")          # a kernel tier for the check
+    kernels.reset_launches()
+    try:
+        first = _first_query(ds, "ais", ecql)
+        res = ds.query(ecql, "ais")
+    finally:
+        host_rows.set(None)
+    exact = np.array_equal(res.ids, want)
+    scans = {k: kernels.launches[k] for k in ("scan_mask", "scan_mask_gather")}
+    st = ds._types["ais"]
+    on_shadow = id(st.scan_data) == rec.get("shadow_scan_data")
+    tag = st.batch.col("tag")
+    defaults = bool(np.all(tag.values == 7) and np.all(tag.valid))
+    out = {"part": "evolve10m", "rows": len(ids), "update_s": update_s,
+           "flip_ms": entry["flip_ms"], "rounds": entry["rounds"],
+           **_evolve_times(rec), **first, "memory": mem,
+           "shadow_device": rec.get("shadow_device"),
+           "shadow_columns": rec.get("shadow_columns"),
+           "columns_after": str(st.scan_data.xhi.device),
+           "spec": ds.get_schema("ais").to_spec(), "reads": errs["reads"],
+           "reader_mismatches": errs["mismatch"],
+           "typed_refusals": errs["typed"], "untyped_errors": errs["untyped"],
+           "north_star": {"hits": len(want), "exact": exact,
+                          "launches": scans,
+                          "on_shadow_columns": on_shadow},
+           "default_on_every_row": defaults}
+    wrong += [("untyped error", e) for e in untyped[:3]]
+    if errs["mismatch"] or errs["untyped"] or not defaults or not exact \
+            or not sum(scans.values()) or not on_shadow \
+            or not str(rec.get("shadow_columns")).startswith("cuda"):
+        wrong.append(("evolve10m gates", {
+            k: out[k] for k in ("reader_mismatches", "untyped_errors",
+                                "default_on_every_row", "north_star",
+                                "shadow_columns")}))
+    wrong += _memory_gate(mem, "evolve10m flip")
+    return out, wrong
+
+
+def views23(seed: int) -> tuple[dict, list]:
+    """bench.py config 23 on the card: a 1M-row type, a standing GROUP BY
+    view over 32 groups, 20 commits of 1,000 rows each timed end to end
+    (the write's fold and a read through the result cache) beside the
+    p50 of full re-executions; a 500-id delete wave (its pre-image query
+    timed apart); the view equal to SqlEngine re-execution (gate); the
+    kill switch off beside a twin store (gates)."""
+    from geomesa_tpu_torch import InMemoryDataStore
+    from geomesa_tpu_torch.features import FeatureBatch, parse_spec
+    from geomesa_tpu_torch.sql import SqlEngine
+    from geomesa_tpu_torch.views import VIEWS_ENABLED, ViewRegistry
+    wrong = []
+    rng = np.random.default_rng(seed + 23)
+    sft = parse_spec("pts23", "*geom:Point:srid=4326,name:String,"
+                              "val:Integer")
+    names = np.array([f"grp{i}" for i in range(32)], dtype=object)
+
+    def batch(m, prefix):
+        ids = np.array([f"{prefix}{i}" for i in range(m)], dtype=object)
+        return FeatureBatch.from_dict(sft, ids, {
+            "geom": (rng.uniform(-170, 170, m), rng.uniform(-80, 80, m)),
+            "name": names[rng.integers(0, len(names), m)],
+            "val": rng.integers(0, 1_000_000, m).astype(np.int64)})
+
+    def canon(res):
+        return [tuple(str(v) for v in r) for r in res.rows()]
+
+    t0 = time.perf_counter()
+    seed_b = batch(VIEWS23_ROWS, "s")
+    ds = InMemoryDataStore()
+    ds.create_schema(sft)
+    ds.write("pts23", seed_b)
+    eng = SqlEngine(ds)
+    eng.query(VIEWS23_SQL)      # warm
+    out = {"part": "views23", "rows": VIEWS23_ROWS,
+           "commit_rows": VIEWS23_COMMIT_ROWS, "commits": VIEWS23_COMMITS,
+           "setup_s": time.perf_counter() - t0}
+    full = [_timed(lambda: eng.query(VIEWS23_SQL)) / 1e3
+            for _ in range(VIEWS23_REPS)]
+    VIEWS_ENABLED.set("true")
+    try:
+        reg = ViewRegistry(ds, restore=False)
+        t0 = time.perf_counter()
+        reg.register("hot23", VIEWS23_SQL)
+        out["register_s"] = time.perf_counter() - t0
+        fire = [batch(VIEWS23_COMMIT_ROWS, f"c{j}_")
+                for j in range(VIEWS23_COMMITS)]
+        inc = []
+        for b in fire:
+            t0 = time.perf_counter()
+            ds.write("pts23", b)
+            reg.result("hot23")
+            inc.append(time.perf_counter() - t0)
+        pre = []
+        orig_pre = reg._pre_image
+
+        def timed_pre(*a):
+            t = time.perf_counter()
+            r = orig_pre(*a)
+            pre.append(time.perf_counter() - t)
+            return r
+        reg._pre_image = timed_pre
+        doom = [f"c0_{i}" for i in range(VIEWS23_DELETES)]
+        t0 = time.perf_counter()
+        ds.delete("pts23", doom)
+        delete_s = time.perf_counter() - t0
+        reg._pre_image = orig_pre
+        exact = canon(reg.result("hot23")) == canon(eng.query(VIEWS23_SQL))
+        st = reg.get("hot23").status()
+        reg.close()
+    finally:
+        VIEWS_ENABLED.set(None)
+    full_s, inc_s = statistics.median(full), statistics.median(inc)
+    out.update({"full_reexec_s": full, "full_p50_s": full_s,
+                "incremental_commit_s": inc, "incremental_p50_s": inc_s,
+                "speedup": full_s / inc_s, "reference_speedup_gate": 5.0,
+                "exact_after_firehose_and_deletes": exact,
+                "delete_wave_s": delete_s, "pre_image_s": sum(pre),
+                "folds": st["folds"], "rows_folded": st["rows_folded"],
+                "retraction_fallbacks": st["retraction_fallbacks"],
+                "replays": st["replays"]})
+    if not exact:
+        wrong.append(("view differs from re-execution", None))
+    del ds, eng, reg
+    # the kill switch off: register refuses, no hook, a twin's results
+    m = min(VIEWS23_ROWS, 100_000)
+    off, twin = InMemoryDataStore(), InMemoryDataStore()
+    for s in (off, twin):
+        s.create_schema(sft)
+        s.write("pts23", seed_b.take(np.arange(m)))
+    off_reg = ViewRegistry(off, restore=False)
+    try:
+        off_reg.register("x", VIEWS23_SQL)
+        refuses = False
+    except ValueError:
+        refuses = True
+    inert = not off_reg._orig and "write" not in off.__dict__
+    same = (canon(SqlEngine(off).query(VIEWS23_SQL))
+            == canon(SqlEngine(twin).query(VIEWS23_SQL)))
+    out.update(off_refuses=refuses, off_write_path_inert=inert,
+               off_results_identical=same)
+    if not (refuses and inert and same):
+        wrong.append(("kill switch off", (refuses, inert, same)))
+    return out, wrong
+
+
+def harness_part(seed: int) -> tuple[dict, list]:
+    """run_crash_workload's harness on a durable store on the card:
+    HARNESS_ROUNDS rounds of HARNESS_WRITES single-feature writes, one
+    random storage fault a round; gate: no violation."""
+    import tempfile
+
+    from geomesa_tpu_torch.integrity import CrashHarness
+    root = tempfile.mkdtemp(prefix="geomesa-harness-")
+    try:
+        t0 = time.perf_counter()
+        h = CrashHarness(root, seed=seed)
+        rep = h.run(rounds=HARNESS_ROUNDS, writes_per_round=HARNESS_WRITES)
+        kinds = {}
+        for _op, _path, kind in h.faults:
+            kinds[kind] = kinds.get(kind, 0) + 1
+        out = {"part": "harness", **rep, "faults_by_kind": kinds,
+               "device": str(h.device), "run_s": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wrong = [] if rep["ok"] and h.device.type == "cuda" else \
+        [("harness", rep["violations"][:3])]
+    return out, wrong
+
+
+def _decoded(batch) -> dict:
+    """A batch's rows sorted by id, each column as plain values (strings
+    decoded, validity applied), so batches built apart compare."""
+    from geomesa_tpu_torch.features.batch import PointColumn, StringColumn
+    order = np.argsort(batch.ids.astype(str), kind="stable")
+    out = {"ids": batch.ids.astype(str)[order].tolist()}
+    for name, col in batch.columns.items():
+        if isinstance(col, StringColumn):
+            codes = col.codes[order]
+            vals = np.where(codes >= 0, col.vocab[np.maximum(codes, 0)]
+                            if len(col.vocab) else None, None)
+            out[name] = vals.tolist()
+        elif isinstance(col, PointColumn):
+            out[name] = (col.x[order].tolist(), col.y[order].tolist())
+        else:
+            vals = getattr(col, "values", getattr(col, "millis", None))
+            out[name] = np.where(col.valid[order], vals[order],
+                                 0).tolist() + col.valid[order].tolist()
+    return out
+
+
+def jobs_part(seed: int) -> tuple[dict, list]:
+    """The batch jobs on the card: SchemaCopyJob from a file store on the
+    card into an in-memory one (the copy's ids equal the source's),
+    ConverterIngestJob over JOBS_CSV_FILES delimited files (config 16's
+    CSV, JOBS_CSV_ROWS rows; the store's rows equal to one scalar
+    converter run over the same text), then AttributeIndexJob, after
+    which an attribute query plans ``attr:`` and is id-exact."""
+    import tempfile
+
+    from geomesa_tpu_torch import FileSystemDataStore, InMemoryDataStore
+    from geomesa_tpu_torch.convert import converter_for
+    from geomesa_tpu_torch.features.sft import parse_spec
+    from geomesa_tpu_torch.jobs import (AttributeIndexJob,
+                                        ConverterIngestJob, SchemaCopyJob)
+    wrong = []
+    root = tempfile.mkdtemp(prefix="geomesa-jobs-")
+    out = {"part": "jobs"}
+    try:
+        d = fs_rows(seed, JOBS_FS_ROWS)
+        sft = parse_spec("ais16", FS_SPEC)
+        fs = FileSystemDataStore(os.path.join(root, "fs"))
+        fs.create_schema(sft)
+        fs.write("ais16", fs_batch(sft, d, 0, JOBS_FS_ROWS))
+        src_ids = sorted(fs.query("INCLUDE", "ais16").ids.tolist())
+        dst = InMemoryDataStore()
+        t0 = time.perf_counter()
+        copied = SchemaCopyJob(fs, dst, n_workers=JOBS_WORKERS).run("ais16")
+        out["copy_s"] = time.perf_counter() - t0
+        copy_ids = sorted(dst.query("INCLUDE", "ais16").ids.tolist())
+        out.update(copied=copied, copy_ids_equal=copy_ids == src_ids)
+        if copied != JOBS_FS_ROWS or copy_ids != src_ids:
+            wrong.append(("SchemaCopyJob ids", copied))
+        # AttributeIndexJob, then an attribute query on the copy
+        mmsi = int(d["mmsi"][0])
+        ecql = f"mmsi = {mmsi}"
+        t0 = time.perf_counter()
+        AttributeIndexJob(dst).run("ais16", "mmsi")
+        res = dst.query(ecql, "ais16")
+        out["attr_query_s"] = time.perf_counter() - t0
+        want = sorted(d["ids"][d["mmsi"] == mmsi].tolist())
+        exact = sorted(res.ids.tolist()) == want
+        out.update(attr_plan=res.plan.index, attr_hits=len(want),
+                   attr_exact=exact)
+        if res.plan.index != "attr:mmsi" or not exact:
+            wrong.append(("AttributeIndexJob", res.plan.index, exact))
+        del dst, fs
+        # ConverterIngestJob over delimited files on disk
+        text, _x, _y, _ms = convert_csv(seed, JOBS_CSV_ROWS)
+        lines = text.splitlines(keepends=True)
+        files = []
+        per = -(-len(lines) // JOBS_CSV_FILES)
+        for i in range(JOBS_CSV_FILES):
+            p = os.path.join(root, f"in{i}.csv")
+            with open(p, "w") as fh:
+                fh.write("".join(lines[i * per:(i + 1) * per]))
+            files.append(p)
+        ing = InMemoryDataStore()
+        t0 = time.perf_counter()
+        counts = ConverterIngestJob(ing, sft, CONVERT_CSV,
+                                    n_workers=JOBS_WORKERS).run(files)
+        out["ingest_s"] = time.perf_counter() - t0
+        scalar, _ctx = converter_for(sft, CONVERT_CSV).process(text)
+        got = ing.query("INCLUDE", "ais16").batch
+        same = _decoded(got) == _decoded(scalar)
+        out.update(ingest_counts=counts, ingest_rows=got.n,
+                   ingest_equal_scalar=same)
+        if counts["success"] != JOBS_CSV_ROWS or counts["failure"] \
+                or not same:
+            wrong.append(("ConverterIngestJob", counts, same))
+        del ing
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out, wrong
+
+
+def phase_lifecycle(seed: int, ds, rows) -> tuple[dict, float]:
+    """Online schema evolution, materialized views, the crash harness and
+    the batch jobs on the card (see the module's head): evolve24,
+    evolve10m (on the store phase's store, its last use), views23,
+    harness and jobs, one line each with its launches and device memory
+    before and after (its stores closed), then the phase's total beside
+    LIFECYCLE_BUDGET_S. Returns the launches of the parts and the
+    phase's seconds."""
+    from geomesa_tpu_torch.scan import kernels
+    t_phase = time.perf_counter()
+    counts = {}
+    wrong = []
+    for name, part in (("evolve24", lambda: evolve24(seed)),
+                       ("evolve10m", lambda: evolve10m(ds, rows)),
+                       ("views23", lambda: views23(seed)),
+                       ("harness", lambda: harness_part(seed)),
+                       ("jobs", lambda: jobs_part(seed))):
+        mem0 = _mem()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out, w = part()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        mem1 = _mem()
+        out.update(seconds=seconds, launches=launches,
+                   memory_allocated_before=mem0, memory_allocated_after=mem1,
+                   wrong=w, card=card_line())
+        emit({"phase": "lifecycle", **out})
+        if name != "evolve10m" and mem1 > mem0 + LIFECYCLE_MEM_SLACK:
+            w = w + [("device memory not returned", mem0, mem1)]
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+        wrong += [(name, x) for x in w]
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lifecycle", "part": "total", "seconds": seconds,
+          "budget_s": LIFECYCLE_BUDGET_S, "launches": counts,
+          "wrong": wrong[:8], "card": card_line()})
+    if wrong:
+        raise SystemExit(f"lifecycle: {wrong[:8]}")
+    return counts, seconds
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9068,6 +9846,7 @@ def main():
     sql_ais, sql_launches = phase_sql_ais(ds, rows, dw)
     web_launches = phase_web(args.seed, ds, rows, dw)
     cluster_launches, cluster_s = phase_cluster(args.seed, ds, rows)
+    life_launches, _ = phase_lifecycle(args.seed, ds, rows)
     del ds
     torch.cuda.empty_cache()
     pred_stats, pred_counts, pred_ds, pred_data, pred_queries, pred_q = \
@@ -9110,6 +9889,9 @@ def main():
                  "density_grid"):     # sql19's are in the sql counts
         launches[name] += cluster_launches[name] - \
             sql_gdelt["sql19_launches"].get(name, 0)
+    for name, n in life_launches.items():
+        if name in launches:
+            launches[name] += n
     summary = []
     for name, s in stats.items():
         q0 = s["per_query"][0]   # the BBOX+time query (1M random ids

@@ -1,13 +1,13 @@
 """Storage fault tolerance: fault injection (``faultfs``), end-to-end
-verification of the durable artifacts (``verify``) and the scrubber
-with its read-only integrity report (``scrub``).
+verification of the durable artifacts (``verify``), the scrubber with
+its read-only integrity report (``scrub``) and the crash-consistency
+harness (``harness``).
 
 Only :mod:`.faultfs` is imported eagerly: the WAL and the atomic file
 writes route their writes and fsyncs through it on every call, so it
 must be cheap and dependency-free. Everything else pulls in the wal and
 store packages and is exposed lazily, so this package imports from
-inside them without a cycle. The crash harness comes with the cluster
-tier (ROADMAP.md section 6).
+inside them without a cycle.
 """
 
 from . import faultfs
@@ -19,6 +19,7 @@ __all__ = [
     "sha256_hex", "file_sha256", "verify_checkpoint", "verify_wal",
     "ids_digest", "quarantine",
     "Scrubber", "integrity_report",
+    "CrashHarness", "run_crash_workload",
 ]
 
 _LAZY = {
@@ -26,6 +27,7 @@ _LAZY = {
     "verify_checkpoint": "verify", "verify_wal": "verify",
     "ids_digest": "verify", "quarantine": "verify",
     "Scrubber": "scrub", "integrity_report": "scrub",
+    "CrashHarness": "harness", "run_crash_workload": "harness",
 }
 
 

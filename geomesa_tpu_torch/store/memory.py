@@ -665,6 +665,11 @@ class InMemoryDataStore(DataStore):
         self._pushdown_clock = 0
         self._pushdown_versions: dict[str, int] = {}
         self.result_cache = ResultCache(self.pushdown_version)
+        # evolve/: the per-type dual-feed taps of an in-flight shadow
+        # schema build (empty: the write path pays one dict test), and
+        # the Evolver behind them, built on first touch
+        self._evolve_feeds: dict = {}
+        self._evolver = None
         self.journal = None
         if durable_dir:
             from ..wal.durable import Journal
@@ -682,10 +687,15 @@ class InMemoryDataStore(DataStore):
             raise ValueError(f"schema {sft.type_name!r} already exists")
         if self.journal is not None:
             self.journal.log_create_schema(sft)
-        self._types[sft.type_name] = _TypeState(sft, self.device)
+        self._types[sft.type_name] = self._new_state(sft)
         # an estimator from creation on: a type with no rows estimates 0
         self.stats.ensure(sft)
         self._bump_pushdown_version(sft.type_name)
+
+    def _new_state(self, sft: SimpleFeatureType) -> _TypeState:
+        """An empty type on the store's own device (an evolution's
+        shadow is built here too, so it lives where the type lives)."""
+        return _TypeState(sft, self.device)
 
     def get_schema(self, type_name: str) -> SimpleFeatureType:
         return self._state(type_name).sft
@@ -696,7 +706,25 @@ class InMemoryDataStore(DataStore):
     def _state(self, type_name: str) -> _TypeState:
         if type_name not in self._types:
             raise KeyError(f"no such schema: {type_name}")
+        if self._evolve_feeds:
+            # a mid-flip evolution fences every op on its type typed
+            # (SchemaEvolutionError) until resume() or abort() restores a
+            # consistent state: exact or typed, never silently stale
+            feed = self._evolve_feeds.get(type_name)
+            if feed is not None:
+                feed.guard()
         return self._types[type_name]
+
+    @property
+    def evolver(self):
+        """The store's online schema-evolution plane (evolve/), built on
+        first touch."""
+        if self._evolver is None:
+            with self._op_lock:
+                if self._evolver is None:
+                    from ..evolve import Evolver
+                    self._evolver = Evolver(self)
+        return self._evolver
 
     @_synchronized
     def remove_schema(self, type_name: str):
@@ -759,6 +787,13 @@ class InMemoryDataStore(DataStore):
             # caller's parse): the stored rows share the type's object,
             # so reindex's version change reaches every one of them
             batch = FeatureBatch(st.sft, batch.ids, batch.columns)
+        feed = self._evolve_feeds.get(type_name) \
+            if self._evolve_feeds else None
+        if feed is not None:
+            # refuse before journaling: a write that conflicts with an
+            # in-flight evolution (non-null values for a mid-drop
+            # attribute) must never be acked
+            feed.check_write(batch)
         if self.journal is not None:
             # write-ahead: validate (so the journaled record is known
             # applyable), journal, then apply
@@ -769,6 +804,10 @@ class InMemoryDataStore(DataStore):
         self._bump_pushdown_version(type_name)
         # the write-side stats (StatsCombiner analog), on the host batch
         self.stats.observe(st.sft, batch)
+        if feed is not None:
+            # dual-feed: a non-durable store queues the acked mutation
+            # for the shadow build (a durable one tails the WAL)
+            feed.on_write(batch, visibilities)
         # initial bulk load only: later chunks fold into one incremental
         # merge at the next read
         if was_empty and batch.n >= self._EAGER_INDEX_ROWS:
@@ -805,6 +844,10 @@ class InMemoryDataStore(DataStore):
             self.journal.log_delete(type_name, sorted(ids))
         st.delete(ids)
         self._bump_pushdown_version(type_name)
+        feed = self._evolve_feeds.get(type_name) \
+            if self._evolve_feeds else None
+        if feed is not None:
+            feed.on_delete(ids)
 
     # -- durability (wal/, with durable_dir) ---------------------------------
 

@@ -31,15 +31,15 @@ status codes, headers and JSON bodies as ``geomesa_tpu.web.server``:
     GET  /rest/wal                          POST /rest/wal/checkpoint|truncate
     GET  /rest/integrity                    POST /rest/integrity/scrub
     POST /rest/reindex/{type}?version=
+    GET  /rest/evolve                       POST /rest/evolve/reindex|update|
+                                                 resume|abort
+    GET  /rest/views[/{name}]               POST /rest/views/register|
+                                                 unregister|refresh
     GET  /rest/replication, /rest/cluster, /rest/topology, /rest/reshard
          (404 on a store without the role)
     GET  /rest/health                       -> liveness (always 200)
     GET  /rest/ready                        -> readiness (503 if the
          store is unreachable or the server is shedding load)
-
-``/rest/views`` and ``/rest/evolve`` answer 404 with a JSON error: the
-materialized views and the online schema evolution are not in the port
-yet (ROADMAP.md queue 1 item 8b).
 
 The server serves the store it is given where its rows are: an
 ``InMemoryDataStore()`` keeps them on the CUDA card, and every request
@@ -140,7 +140,7 @@ class GeoMesaWebServer:
     def __init__(self, store, host: str = "127.0.0.1", port: int = 0,
                  audit=None, auth_token: str | None = None,
                  batcher=None, max_inflight: int | None = None,
-                 cq=None):
+                 cq=None, views=None):
         from ..scan.registry import shared_batcher
         self.store = store
         # continuous-query publisher behind /rest/cq: pass one in, or
@@ -148,6 +148,11 @@ class GeoMesaWebServer:
         # store with a mutation bus)
         self.cq = cq
         self._owns_cq = False
+        # materialized-view registry behind /rest/views: pass one in
+        # (a store may only have ONE registry hooking its write path),
+        # or the first /rest/views request creates it lazily
+        self.views = views
+        self._owns_views = False
         self._cuda_index = cuda_index(store)
         self.audit = audit if audit is not None \
             else getattr(store, "audit", None)
@@ -209,6 +214,8 @@ class GeoMesaWebServer:
             self._ingest_pipeline.close()
         if self._owns_cq and self.cq is not None:
             self.cq.close()
+        if self._owns_views and self.views is not None:
+            self.views.close()
         if self._owns_prof:
             self._owns_prof = False
             from ..obs.prof import profiler
@@ -859,14 +866,67 @@ class GeoMesaWebServer:
         return 404, "application/json", _j({"error": "not found"})
 
     def _evolve(self, method, parts, params, body):
-        """Schema-evolution admin (GET /rest/evolve, POST
-        /rest/evolve/{reindex|update|resume|abort} in the reference):
-        the online evolver is not in this package, so every store
-        answers as the reference's store without the role does, 404
-        with a JSON error (never a 500, which clients retry)."""
-        return 404, "application/json", _j(
-            {"error": "store has no schema-evolution plane (not in the "
-                      "port yet: ROADMAP.md queue 1 item 8b)"})
+        """Schema-evolution admin. GET /rest/evolve reports evolver
+        state (active evolution phase/cursor, history); POST
+        /rest/evolve/reindex?type=&version=, /rest/evolve/update?type=
+        (change list as JSON body or ?changes=), /rest/evolve/resume
+        and /rest/evolve/abort (bearer-gated) drive the verbs. Typed
+        refusals (kill switch, verb in flight, bad change spec,
+        mid-flip fence) map to 409: well-formed request, but the
+        schema cannot change right now."""
+        if not hasattr(self.store, "evolver"):
+            return 404, "application/json", _j(
+                {"error": "store has no schema-evolution plane"})
+        from ..evolve import SchemaEvolutionError
+        evolver = self.store.evolver
+        if method == "GET" and not parts:
+            return 200, "application/json", _j(evolver.status())
+        if method != "POST" or len(parts) != 1:
+            return 404, "application/json", _j({"error": "not found"})
+        verb = parts[0]
+        try:
+            if verb == "reindex":
+                tn = params.get("type", [None])[0]
+                if tn is None:
+                    return 400, "application/json", _j(
+                        {"error": "reindex requires ?type=<name>"})
+                v = params.get("version", [None])[0]
+                entry = evolver.reindex(
+                    tn, int(v) if v is not None else None)
+                return 200, "application/json", _j(entry)
+            if verb == "update":
+                args = {k: v[0] for k, v in params.items()}
+                if body:
+                    try:
+                        parsed = json.loads(body)
+                        if not isinstance(parsed, dict):
+                            raise ValueError("body must be a JSON "
+                                             "object")
+                        args.update(parsed)
+                    except ValueError as e:
+                        return 400, "application/json", _j(
+                            {"error": f"bad JSON body: {e}"})
+                tn = args.get("type")
+                if not tn:
+                    return 400, "application/json", _j(
+                        {"error": "update requires a type"})
+                changes = args.get("changes")
+                if isinstance(changes, str):
+                    try:
+                        changes = json.loads(changes)
+                    except ValueError as e:
+                        return 400, "application/json", _j(
+                            {"error": f"bad changes JSON: {e}"})
+                entry = evolver.update_schema(tn, changes)
+                return 200, "application/json", _j(entry)
+            if verb == "resume":
+                return 200, "application/json", _j(evolver.resume())
+            if verb == "abort":
+                return 200, "application/json", _j(evolver.abort())
+        except SchemaEvolutionError as e:
+            return (409, "application/json",
+                    _j({"error": str(e), "retryable": False}))
+        return 404, "application/json", _j({"error": "not found"})
 
     def _wal(self, method, parts, params):
         """Durability admin: GET /rest/wal (stats, open), POST
@@ -1192,14 +1252,73 @@ class GeoMesaWebServer:
             return 200, "application/json", _j({"unregistered": name})
         return 404, "application/json", _j({"error": "not found"})
 
+    def _views_registry(self):
+        if self.views is None:
+            from ..views import ViewRegistry
+            self.views = ViewRegistry(self.store)
+            self._owns_views = True
+        return self.views
+
     def _views(self, method, parts, params, body, headers=None):
-        """Materialized-view admin (GET /rest/views[/{name}], POST
-        /rest/views/{register|unregister|refresh} in the reference): the
-        view registry is not in this package, so every request answers
-        404 with a JSON error (never a 500, which clients retry)."""
-        return 404, "application/json", _j(
-            {"error": "no materialized views (not in the port yet: "
-                      "ROADMAP.md queue 1 item 8b)"})
+        """Materialized-view admin: GET /rest/views (status, open),
+        GET /rest/views/{name} (rows at the view's LSN — conditional,
+        ETag = exact pushdown version), POST
+        /rest/views/register?name=&sql=, POST
+        /rest/views/unregister?name= and POST /rest/views/refresh?name=
+        (mutating, bearer-gated via _GATED). Register args also
+        accepted as a JSON body — a standing SELECT reads better there
+        than in a query string."""
+        reg = self._views_registry()
+        if method == "GET" and not parts:
+            return 200, "application/json", _j({"views": reg.status()})
+        if method == "GET" and len(parts) == 1:
+            v = reg.get(parts[0])
+            etag = self._etag_for(v.state.table, f"view:{v.name}")
+            if etag is not None and self._not_modified(etag, headers):
+                return 304, "application/json", b"", {"ETag": etag}
+            res = reg.result(parts[0])
+            extra = {"ETag": etag} if etag is not None else {}
+            return (200, "application/json", _j(
+                {"name": v.name, "lsn": v.lsn, "columns": res.names,
+                 "rows": [list(r) for r in res.rows()]}), extra)
+        if method == "POST" and parts in (["register"], ["unregister"],
+                                          ["refresh"]):
+            args = {k: v[0] for k, v in params.items()}
+            if body:
+                try:
+                    parsed = json.loads(body)
+                    if not isinstance(parsed, dict):
+                        raise ValueError("body must be a JSON object")
+                    args.update(parsed)
+                except ValueError as e:
+                    return 400, "application/json", _j(
+                        {"error": f"bad JSON body: {e}"})
+            name = args.get("name")
+            if not name:
+                return 400, "application/json", _j(
+                    {"error": "name required"})
+            if parts == ["register"]:
+                sql = args.get("sql")
+                if not sql:
+                    return 400, "application/json", _j(
+                        {"error": "sql required"})
+                try:
+                    view = reg.register(name, sql)
+                except ValueError as e:
+                    # unsupported/malformed statements refuse typed at
+                    # compile time — surface the parser/planner message
+                    # as a client error, never a 500
+                    return 400, "application/json", _j(
+                        {"error": str(e)})
+                return 201, "application/json", _j(
+                    {"registered": view.name,
+                     "status": view.status(reg._lsn(view.state.table))})
+            if parts == ["refresh"]:
+                return 200, "application/json", _j(
+                    {"refreshed": name, "status": reg.refresh(name)})
+            reg.unregister(name)
+            return 200, "application/json", _j({"unregistered": name})
+        return 404, "application/json", _j({"error": "not found"})
 
     def _cache(self, method, parts, params):
         """Materialized-cache admin: GET /rest/cache (status, open),

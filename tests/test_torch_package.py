@@ -96,7 +96,12 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.cluster, geomesa_tpu_torch.cluster.partition, "
             "geomesa_tpu_torch.cluster.reshard, "
             "geomesa_tpu_torch.cluster.coordinator, "
-            "geomesa_tpu_torch.cluster.autoscale\n"
+            "geomesa_tpu_torch.cluster.autoscale, "
+            "geomesa_tpu_torch.evolve, geomesa_tpu_torch.evolve.evolver, "
+            "geomesa_tpu_torch.views, geomesa_tpu_torch.views.state, "
+            "geomesa_tpu_torch.views.registry, "
+            "geomesa_tpu_torch.views.subscribe, geomesa_tpu_torch.jobs, "
+            "geomesa_tpu_torch.integrity.harness\n"
             "import importlib; "
             "importlib.import_module('geomesa_tpu_torch.obs.runtime')\n"
             "bad = [m for m in sys.modules if m == 'jax' "
@@ -167,7 +172,10 @@ def test_no_source_imports_jax_or_reference():
             "replication/router.py", "cluster/__init__.py",
             "cluster/partition.py", "cluster/reshard.py",
             "cluster/coordinator.py", "cluster/autoscale.py",
-            "index/splitter.py", "utils/device.py"} <= seen
+            "index/splitter.py", "utils/device.py", "evolve/__init__.py",
+            "evolve/evolver.py", "views/__init__.py", "views/state.py",
+            "views/registry.py", "views/subscribe.py", "jobs/__init__.py",
+            "integrity/harness.py"} <= seen
     # the native library's C++ sources are the port's own copies
     src = os.path.join(PKG, "native", "src")
     assert sorted(os.listdir(src)) == ["feature_codec.cpp", "zbuild.cpp",

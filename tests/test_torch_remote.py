@@ -539,3 +539,43 @@ def test_remote_result_is_host_arrays():
                                                           np.ndarray)
     assert res.rows.tolist() == list(range(7)) and res.n == 7
     assert type(res).__module__ == "geomesa_tpu_torch.store.memory"
+
+
+# -- the lifecycle calls: views and schema evolution --------------------------
+
+def test_remote_views_and_evolve_over_writes_equal_reference():
+    """The views and evolve calls through each package's client and
+    server while rows are written and deleted through the same client:
+    the view's rows at each fold and the evolver's documents (times left
+    out) equal the reference's; each view read carries the rows the
+    store's own SQL engine gives."""
+    from test_torch_web import lifecycle_steady, lifecycle_switches
+    sql = ("SELECT name, count(*) AS c, sum(age) AS s FROM people "
+           "GROUP BY name")
+
+    def run(P):
+        rng = np.random.default_rng(11)
+        with lifecycle_switches("true"), \
+                served(P, seeded_store(P), auth_token="tok") as srv:
+            ds = P.Remote("127.0.0.1", srv.port, hedge=False,
+                          auth_token="tok")
+            sft = srv.store.get_schema("people")
+            out = [lifecycle_steady(ds.views_register("v", sql))]
+            for step in range(3):
+                ds.write("people", make_batch(P, sft, 100 + 10 * step, 10,
+                                              rng))
+                ds.delete("people", [f"p{step * 7}", f"p{step * 7 + 1}"])
+                got = ds.views_get("v")
+                engine = mod(P, "sql").SqlEngine(srv.store).query(sql)
+                assert got["rows"] == json.loads(json.dumps(
+                    [[x.item() if isinstance(x, np.generic) else x
+                      for x in r] for r in engine.rows()]))
+                out.append(got)
+            out.append(lifecycle_steady(ds.evolve(
+                "update", type="people", changes=[
+                    {"op": "widen", "name": "age", "type": "Long"}])))
+            out.append(lifecycle_steady(ds.evolve_status()))
+            out.append(lifecycle_steady(ds.views_status()))
+            return out
+    j, t = both(run)
+    assert t == j

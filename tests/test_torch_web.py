@@ -11,8 +11,9 @@ times, trace ids or uptime left out). The JAX suites' web classes
 integrity, CQ, KNN, streaming, ingest, health, QoS and tracing suites)
 each have a counterpart here that runs its scenario in both packages
 and holds the answers equal. The scrubber runs on a journal beside the
-JAX one. The routes the port does not have yet (``/rest/views``,
-``/rest/evolve``) are pinned to their 404. The admin routes of the
+JAX one. The lifecycle routes (``/rest/views``, ``/rest/evolve``)
+answer as the reference's do with the kill switches off and on, through
+either package's client. The admin routes of the
 replicated and sharded tiers (``/rest/replication``, ``/rest/cluster``,
 ``/rest/topology``, ``/rest/reshard``) answer over a replicated store
 and a cluster as the reference's do (``TestRestSurface`` of
@@ -180,11 +181,12 @@ WIRE_HEADERS = ("Content-Type", "ETag", "Transfer-Encoding",
                 "X-GeoMesa-Topology-Epoch")
 
 
-def steady(obj):
+def steady(obj, volatile=VOLATILE):
     if isinstance(obj, dict):
-        return {k: steady(v) for k, v in obj.items() if k not in VOLATILE}
+        return {k: steady(v, volatile) for k, v in obj.items()
+                if k not in volatile}
     if isinstance(obj, list):
-        return [steady(v) for v in obj]
+        return [steady(v, volatile) for v in obj]
     return obj
 
 
@@ -437,7 +439,7 @@ class TestRest:
         assert both(run) == (400, 400)
 
 
-# -- the routes the port does not have yet ------------------------------------
+# -- the lifecycle routes: /rest/views and /rest/evolve -----------------------
 
 ITEM8_ROUTES = [("GET", "/rest/views"), ("GET", "/rest/views/v1"),
                 ("POST", "/rest/views/register?name=v&sql=SELECT%201"),
@@ -448,34 +450,131 @@ ITEM8_ROUTES = [("GET", "/rest/views"), ("GET", "/rest/views/v1"),
                 ("POST", "/rest/evolve/update?type=people"),
                 ("POST", "/rest/evolve/resume"),
                 ("POST", "/rest/evolve/abort")]
+LIFECYCLE_SWITCHES = ("geomesa.views.enabled", "geomesa.evolve.enabled")
+# the evolver's times: left out of the lifecycle documents' comparison
+LIFECYCLE_VOLATILE = VOLATILE | {"flip_ms", "started_ms"}
 
 
+def lifecycle_steady(obj):
+    return steady(obj, LIFECYCLE_VOLATILE)
+
+
+@contextlib.contextmanager
+def lifecycle_switches(value):
+    """Both packages' views and evolve switches set to ``value`` (None:
+    the default, off) for the block."""
+    props = [P.Property(name, "false") for P in PKGS
+             for name in LIFECYCLE_SWITCHES]
+    for prop in props:
+        prop.set(value)
+    try:
+        yield
+    finally:
+        for prop in props:
+            prop.set(None)
+
+
+@needs_jax
+@pytest.mark.parametrize("switch", [None, "true"])
 @pytest.mark.parametrize("method,path", ITEM8_ROUTES)
-def test_item8_routes_answer_404(method, path):
-    """Views and schema evolution wait for ROADMAP.md queue 1 item 8b:
-    404 with a JSON error naming it, never a 500 (which a client
-    retries); the bearer gate still comes first."""
-    with served(T, seeded_store(T), auth_token="tok") as srv:
-        if method == "POST":
-            assert call(srv, method, path, b"")[0] == 403
-        st, hdrs, body = call(srv, method, path, b"" if method == "POST"
-                              else None, {"Authorization": "Bearer tok"})
-    assert st == 404 and hdrs["Content-Type"] == "application/json"
-    assert "queue 1 item 8" in json.loads(body)["error"]
+def test_item8_routes_equal_reference(method, path, switch):
+    """Every route of /rest/views and /rest/evolve answers with the
+    reference server's status, headers and body, with the features' kill
+    switches off and on; the bearer gate comes first on a POST."""
+    def run(P):
+        with lifecycle_switches(switch), \
+                served(P, seeded_store(P), auth_token="tok") as srv:
+            out = []
+            if method == "POST":
+                out.append(call(srv, method, path, b""))
+            out.append(call(srv, method, path, b"" if method == "POST"
+                            else None, {"Authorization": "Bearer tok"}))
+            return out
+    j, t = both(run)
+    for got, want in zip(t, j):
+        for h in WIRE_HEADERS:
+            assert got[1].get(h) == want[1].get(h), h
+        assert (got[0], lifecycle_steady(json.loads(got[2]))) \
+            == (want[0], lifecycle_steady(json.loads(want[2])))
+    if method == "POST":
+        assert t[0][0] == 403
+    assert t[-1][0] != 500
 
 
-def test_remote_item8_calls_raise_keyerror():
-    """The client maps the 404 to KeyError, without a retry."""
-    with served(T, seeded_store(T)) as srv:
-        ds = T.Remote("127.0.0.1", srv.port, hedge=False)
-        r0 = T.metrics.snapshot()["counters"].get("resilience.retries", 0)
-        for fn in (ds.views_status, lambda: ds.views_get("v"),
-                   lambda: ds.views_register("v", "SELECT 1"),
-                   ds.evolve_status, lambda: ds.evolve("resume")):
-            with pytest.raises(KeyError, match="queue 1 item 8"):
-                fn()
-        assert T.metrics.snapshot()["counters"].get(
-            "resilience.retries", 0) == r0
+LIFECYCLE_CALLS = [
+    ("views_status", ()), ("views_get", ("v",)),
+    ("views_register", ("v", "SELECT name, count(*) AS c FROM people "
+                             "GROUP BY name")),
+    ("views_register", ("w", "SELECT count(*) FROM people")),
+    ("views_status", ()), ("views_get", ("v",)), ("views_refresh", ("v",)),
+    ("views_unregister", ("v",)), ("views_get", ("v",)),
+    ("evolve_status", ()), ("evolve", ("reindex",), {"type": "people",
+                                                     "version": 1}),
+    ("evolve", ("update",), {"type": "people", "changes": [
+        {"op": "add", "name": "score", "type": "Double", "default": 2.5}]}),
+    ("evolve", ("update",), {"type": "people", "changes": [
+        {"op": "drop", "name": "geom"}]}),
+    ("evolve", ("resume",)), ("evolve", ("abort",)), ("evolve_status", ()),
+    ("reindex", ("people", 2)),
+]
+
+
+def lifecycle_session(client, calls=LIFECYCLE_CALLS):
+    """Each call's answer (times left out) or its error type and text."""
+    out = []
+    for c in calls:
+        name, args, kw = c if len(c) == 3 else (*c, {})
+        try:
+            out.append(("ok", lifecycle_steady(
+                getattr(client, name)(*args, **kw))))
+        except Exception as e:   # noqa: BLE001 - the error is the answer
+            out.append((type(e).__name__, str(e)))
+    return out
+
+
+@needs_jax
+@pytest.mark.parametrize("switch", [None, "true"])
+def test_remote_item8_calls_equal_reference(switch):
+    """The port's client against the port's server answers every views
+    and evolve call as the JAX client against the JAX server does (the
+    same documents, the same error types and texts), with no retry."""
+    def run(P):
+        with lifecycle_switches(switch), \
+                served(P, seeded_store(P), auth_token="tok") as srv:
+            ds = P.Remote("127.0.0.1", srv.port, hedge=False,
+                          auth_token="tok")
+            r0 = P.metrics.snapshot()["counters"].get(
+                "resilience.retries", 0)
+            out = lifecycle_session(ds)
+            assert P.metrics.snapshot()["counters"].get(
+                "resilience.retries", 0) == r0
+            return out, srv.store.get_schema("people").to_spec()
+    j, t = both(run)
+    assert t == j
+    if switch:
+        assert [k for k, _ in t[0]].count("ok") >= 10
+
+
+@needs_jax
+@pytest.mark.parametrize("client_pkg", ["jax", "torch"])
+def test_lifecycle_session_across_packages(client_pkg):
+    """One package's client drives a views and evolve session through
+    the other package's server: the answers equal the same session
+    within one package (the wire is the reference's both ways)."""
+    C = J if client_pkg == "jax" else T
+    S = T if client_pkg == "jax" else J
+
+    def session(server_pkg, client):
+        with lifecycle_switches("true"), \
+                served(server_pkg, seeded_store(server_pkg),
+                       auth_token="tok") as srv:
+            ds = client.Remote("127.0.0.1", srv.port, hedge=False,
+                               auth_token="tok")
+            return (lifecycle_session(ds),
+                    srv.store.get_schema("people").to_spec(),
+                    sorted(map(str, srv.store.query("INCLUDE",
+                                                    "people").ids)))
+    assert session(S, C) == session(C, C)
 
 
 @needs_jax
