@@ -408,6 +408,47 @@ Phases, one JSON line each; any failure exits non-zero:
            is exact), ConverterIngestJob over 4 files of config 16's
            CSV (rows equal to one scalar converter run). Then the
            phase's seconds beside LIFECYCLE_BUDGET_S.
+5f. mesh   parallel/, DistributedDataStore and
+           FsBackedDistributedDataStore on the card, after ``lifecycle``
+           and before the store phase's store is freed; launch counts
+           zeroed before each part's main path and read after it,
+           device memory before and after each part. (A) ``parallel``:
+           --rows uniform points (the kernels phase's seed) sharded over
+           data_mesh(8), eight shards on the one card (24 B a row), and
+           the same rows as one shard: the north star's hit rows and
+           count, the batched trio over the kernels phase's 32 queries,
+           two density grids, config 5's 10,000 rectangles' contains
+           counts, KNN at k = 10 for four points, the ring's DWithin counts at 1M x 1M (radius 0.25),
+           and the tristate on the kernels phase's extent boxes. Gates:
+           rows, counts and KNN ids in order equal a float64 brute force
+           on the card; the density grids equal a brute force of the
+           raw two-float verdict (the scan's plain version, bincount);
+           256 sampled contains counts equal the f64 closed-box count,
+           and 8 shards equal 1; the ring's (sure, band) arrays equal
+           on 8 shards and 1, and 2,000 sampled left rows' f64 totals
+           lie in [sure, sure + band] (equal to sure without band); the
+           tristate equals its plain version on every shard. p50s of 3
+           host-clock runs on 8 shards and on 1; then each program's
+           kernel launched on the eight shards in one timed loop beside
+           its one launch at the same rows (held medians), and the
+           shard-shaped calls of every kernel of MESH_KERNELS against
+           their plain versions (exact; not counted). (B) ``store``:
+           DistributedDataStore(data_mesh(8)) and a one-shard twin
+           written with the store phase's 10M rows; the north star and
+           a wide box (default tiers and the dense tier forced), their
+           query_count, a world density grid of the north star (held as
+           in A), KNN at four points (f64 brute force, ids in order),
+           a dtg histogram (a float32 numpy brute force), arrow_ipc of
+           the north star (ids, times and points equal), query_batched
+           of the batched phase's 32 queries (equal to the single
+           store's); every query id-exact against the single store and
+           the brute force, p50s beside the single store's (whose calls
+           are left out of the part's launch counts). (C) ``fs``:
+           FsBackedDistributedDataStore on 8 shards at 1M of those rows:
+           write, the north star, persist_index, reopen (gates: the
+           index_mesh sidecar adopted, no z-key sort, ids identical).
+           Gate: every kernel of MESH_KERNELS launched on the mesh's
+           shards. Then the phase's seconds beside MESH_BUDGET_S.
 6. predicates  exact polygon and attribute predicates: the earlier
            stores freed, a store of --store-rows rows shaped like a GDELT
            1.0 event record (EventCode:String:index=true with 320
@@ -600,6 +641,7 @@ Then the kernels summary line, the card line, and the final
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -9805,6 +9847,663 @@ def phase_lifecycle(seed: int, ds, rows) -> tuple[dict, float]:
     return counts, seconds
 
 
+# -- the mesh: parallel/, DistributedDataStore, FsBackedDistributedDataStore --
+
+MESH_BUDGET_S = 120.0        # the mesh phase's share of the script's time
+MESH_SHARDS = 8              # data_mesh(8): eight shards on the one card
+MESH_RUNS = 3                # host-clock runs of a call for its p50
+MESH_POLYGONS = CT_RECTS     # bench.py config 5's rectangles
+MESH_CHECK = 256             # contains counts held to the f64 brute force
+MESH_RING_ROWS = 1_000_000   # each side of the ring's DWithin counts
+MESH_RING_CHECK = 2_000      # left rows whose totals meet the f64 brute force
+MESH_KNN_K = 10
+MESH_FS_ROWS = 1_000_000
+MESH_KERNELS = ("scan_mask", "scan_count", "scan_batch_bits",
+                "compact_prefix", "compact_bits", "density_grid",
+                "contains_counts", "dwithin_counts", "knn_topk",
+                "extent_tristate")
+
+
+def _mesh_p50(fn, runs: int = MESH_RUNS) -> tuple[float, object]:
+    """(p50 ms over ``runs`` synchronised host-clock calls, the first
+    call's result)."""
+    times, first = [], None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if first is None:
+            first = out
+    return statistics.median(times), first
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Launches made inside the block left out of the kernels' counts
+    (the counts are put back as they were on entry)."""
+    from geomesa_tpu_torch.scan import kernels
+    saved = dict(kernels.launches)
+    try:
+        yield
+    finally:
+        kernels.launches.update(saved)
+
+
+def _one_shard(data, mesh):
+    """``data``'s rows as one shard on ``mesh`` (one device): the
+    shards' columns concatenated on the card, the host arrays shared."""
+    from geomesa_tpu_torch.parallel import mesh as pmesh
+    cols = tuple(torch.cat([c[j] for c in data.cols]) for j in range(6))
+    return pmesh.DistributedScanData([cols], data.n, data.n_padded, mesh,
+                                     data.host_x, data.host_y,
+                                     data.host_millis, data.host_xhi,
+                                     data.host_yhi)
+
+
+def _raw_grid(data, q, bbox, width, height) -> torch.Tensor:
+    """The density grid's brute force: the raw two-float verdict (the
+    scan's plain version on every shard), the f32 point xhi + xlo binned
+    by the plain binning, counted by bincount in int64."""
+    from geomesa_tpu_torch.scan import kernels
+    xmin, ymin, xmax, ymax = (float(v) for v in bbox)
+    sx = width / (xmax - xmin)
+    sy = height / (ymax - ymin)
+    dev = data.mesh.devices[0]
+    out = torch.zeros(width * height, dtype=torch.int64, device=dev)
+    for cols in data.cols:
+        b, t = q.tables(cols[0].device)
+        m = kernels.scan_mask_plain(cols, cols[0].shape[0], b, t, q.time_any)
+        cells = kernels.density_cells_plain(
+            (cols[0] + cols[1])[m], (cols[2] + cols[3])[m],
+            *(float(np.float32(v)) for v in (xmin, ymin, sx, sy)), width,
+            height)
+        out += torch.bincount(cells, minlength=width * height).to(dev)
+    return out.view(height, width)
+
+
+def _shard_ms(fn_shard, shards, fn_single, iters: int = 10) -> dict:
+    """The kernel of one program launched on every shard (summed in one
+    timed loop) beside its one launch at the same rows, held medians."""
+    return {"shards_ms": cuda_ms(lambda: [fn_shard(s) for s in shards],
+                                 iters),
+            "single_ms": cuda_ms(fn_single, iters)}
+
+
+def mesh_parallel(seed: int, rows: int):
+    """Part A: parallel/ at --rows uniform points over data_mesh(8) (and
+    the same rows as one shard), each program held to a float64 brute
+    force on the card; then each program's kernel on the eight shards
+    beside its one launch at the same rows, and the shard-shaped calls
+    against their plain versions. Returns (line, wrong, launches)."""
+    from geomesa_tpu_torch import parallel as par
+    from geomesa_tpu_torch.geometry import parse_wkt
+    from geomesa_tpu_torch.parallel import mesh as pmesh
+    from geomesa_tpu_torch.scan import gscan, kernels, zscan
+    from geomesa_tpu_torch.utils.fp import f32_band
+    dev = torch.device("cuda")
+    wrong, out = [], {"part": "parallel", "rows": rows,
+                      "shards": MESH_SHARDS}
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-180, 180, rows)
+    y = rng.uniform(-90, 90, rows)
+    ms = rng.integers(0, 1000 * MS_DAY, rows)
+    mesh8, mesh1 = par.data_mesh(MESH_SHARDS), par.data_mesh(1)
+    t0 = time.perf_counter()
+    d8 = par.shard_scan_data(x, y, ms, mesh8)
+    torch.cuda.synchronize()
+    out["shard_s"] = time.perf_counter() - t0
+    d1 = _one_shard(d8, mesh1)
+    data = {MESH_SHARDS: d8, 1: d1}
+    out["device_bytes"] = d8.nbytes
+    X, Y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    M = torch.from_numpy(ms).to(dev)
+
+    def brute(boxes, ivs) -> torch.Tensor:
+        hit = torch.zeros(rows, dtype=torch.bool, device=dev)
+        for x0, y0, x1, y1 in boxes:
+            hit |= (X >= x0) & (X <= x1) & (Y >= y0) & (Y <= y1)
+        if ivs:
+            t = torch.zeros_like(hit)
+            for lo, hi in ivs:
+                t |= (M >= lo) & (M <= hi)
+            hit &= t
+        return hit
+
+    def rows_of(mask) -> np.ndarray:
+        return torch.nonzero(mask).flatten().cpu().numpy()
+
+    kernels.reset_launches()
+    # the north star: hit rows and count on 8 shards and on 1
+    q0 = zscan.make_query(*KERNEL_QUERIES[0])
+    want0 = brute(*KERNEL_QUERIES[0])
+    want_rows = rows_of(want0)
+    p = {}
+    for k, d in data.items():
+        runs = MESH_RUNS if k == MESH_SHARDS else 1
+        p[f"hit_rows_{k}"], got = _mesh_p50(
+            lambda: par.exact_hit_rows(d, q0), runs)
+        if not np.array_equal(got, want_rows):
+            wrong.append(("exact_hit_rows", k))
+        p[f"count_{k}"], n = _mesh_p50(
+            lambda: par.distributed_count(d, q0), runs)
+        if n != len(want_rows):
+            wrong.append(("distributed_count", k, n, len(want_rows)))
+    out["north_star_hits"] = len(want_rows)
+    # the batched north star: 32 queries through the batched trio
+    specs = kernel_batch_specs(seed)
+    bq = zscan.stack_queries([zscan.make_query(*s) for s in specs])
+    # (one call: its host patch of millions of hit rows a query leads;
+    # the kernels' cost on 8 shards against 1 is timed below)
+    p[f"batch_{MESH_SHARDS}"], got = _mesh_p50(
+        lambda: pmesh.batch_exact_hit_rows(d8, bq), 1)
+    bad = [i for i, (s, g) in enumerate(zip(specs, got))
+           if not np.array_equal(g, rows_of(brute(*s)))]
+    if bad:
+        wrong.append(("batch_exact_hit_rows", bad[:4]))
+    out["batch_queries"] = len(specs)
+    # density: the north star's box, and the world over 100 days
+    grids = []
+    for qi, bbox, w, h in ((0, (-80.0, 30.0, -60.0, 45.0), 512, 384),
+                           (3, (-180.0, -90.0, 180.0, 90.0), 1024, 512)):
+        q = zscan.make_query(*KERNEL_QUERIES[qi])
+        want = _raw_grid(d8, q, bbox, w, h)
+        for k, d in data.items():
+            p[f"density{qi}_{k}"], g = _mesh_p50(
+                lambda: par.distributed_density(d, q, bbox, w, h))
+            if not np.array_equal(g, want.cpu().numpy().astype(np.float32)):
+                wrong.append(("distributed_density", qi, k))
+        grids.append((q, bbox, w, h))
+    # contains: config 5's rectangles
+    wkts, _stars = contains_polygons(seed)
+    npoly = MESH_POLYGONS
+    out["polygons"] = npoly
+    polys = [parse_wkt(w) for w in wkts[:npoly]]
+    cnt = {}
+    for k, d in data.items():
+        t0 = time.perf_counter()
+        cnt[k] = pmesh.distributed_contains_counts(d, polys)
+        p[f"contains_first_{k}"] = (time.perf_counter() - t0) * 1e3
+    p[f"contains_{MESH_SHARDS}"], again = _mesh_p50(
+        lambda: pmesh.distributed_contains_counts(d8, polys), 2)
+    if not np.array_equal(again, cnt[MESH_SHARDS]):
+        wrong.append(("contains repeat",))
+    if not np.array_equal(cnt[MESH_SHARDS], cnt[1]):
+        wrong.append(("contains 8 != 1",))
+    sample = np.random.default_rng(seed + 29).choice(
+        npoly, min(MESH_CHECK, npoly), replace=False)
+    bad = []
+    for j in sample:
+        env = polys[j].envelope    # a rectangle: its closed box
+        n = int(((X >= env.xmin) & (X <= env.xmax) & (Y >= env.ymin)
+                 & (Y <= env.ymax)).sum())
+        if n != cnt[MESH_SHARDS][j]:
+            bad.append(int(j))
+    if bad:
+        wrong.append(("contains counts", bad[:4]))
+    out["contains_checked"] = len(sample)
+    out["contains_total"] = int(cnt[MESH_SHARDS].sum())
+    # knn at k = 10 through the shards' two-float columns
+    for k, d in data.items():
+        sp, valid, _n = d.knn_split()
+        times = []
+        for qx, qy in KNN_POINTS[:4]:
+            t, got = _mesh_p50(lambda: par.distributed_knn(
+                None, None, valid, d.mesh, rows, qx, qy, MESH_KNN_K,
+                split=sp))
+            times.append(t)
+            d2 = (X - qx) ** 2 + (Y - qy) ** 2
+            want = torch.sort(d2, stable=True).indices[:MESH_KNN_K]
+            if not np.array_equal(got, want.cpu().numpy()):
+                wrong.append(("distributed_knn", k, qx, qy))
+        p[f"knn_{k}"] = statistics.median(times)
+    # the ring's DWithin counts at 1M x 1M
+    rr = np.random.default_rng(seed + 31)
+    lx, ly, rx, ry = (rr.uniform(-180, 180, MESH_RING_ROWS) if i % 2 == 0
+                      else rr.uniform(-90, 90, MESH_RING_ROWS)
+                      for i in range(4))
+    ring = {}
+    for k, m in ((MESH_SHARDS, mesh8), (1, mesh1)):
+        left, right = par.shard_points(lx, ly, m), par.shard_points(rx, ry, m)
+        p[f"ring_{k}"], ring[k] = _mesh_p50(lambda: par.ring_dwithin_counts(
+            *left[:3], *right[:3], m, DW_RADIUS))
+    if not all(np.array_equal(a, b)
+               for a, b in zip(ring[MESH_SHARDS], ring[1])):
+        wrong.append(("ring 8 != 1",))
+    sure, band = (a[:MESH_RING_ROWS] for a in ring[MESH_SHARDS])
+    RX, RY = torch.from_numpy(rx).to(dev), torch.from_numpy(ry).to(dev)
+    check = np.random.default_rng(seed + 37).choice(
+        MESH_RING_ROWS, MESH_RING_CHECK, replace=False)
+    exact = np.array([int((((RX - lx[i]) ** 2 + (RY - ly[i]) ** 2)
+                           <= DW_RADIUS * DW_RADIUS).sum()) for i in check])
+    ok = ((sure[check] <= exact) & (exact <= sure[check] + band[check])
+          & ((band[check] > 0) | (exact == sure[check])))
+    if not ok.all():
+        wrong.append(("ring totals", int((~ok).sum())))
+    out.update(ring_rows=MESH_RING_ROWS, ring_radius=DW_RADIUS,
+               ring_sure=int(sure.sum()), ring_band_rows=int((band > 0).sum()),
+               ring_checked=MESH_RING_CHECK)
+    del RX, RY
+    # the tristate on the kernels phase's extent boxes
+    bounds, ems = extent_rows(seed, rows)
+    t0 = time.perf_counter()
+    ext = par.shard_extent_data(bounds, ems, mesh8)
+    torch.cuda.synchronize()
+    out["extent_shard_s"] = time.perf_counter() - t0
+    del bounds, ems
+    tri = []
+    for qi, (boxes, ivs) in enumerate(EXTENT_KERNEL_QUERIES):
+        eq = gscan.extent_query(boxes, ivs)
+        t, got = _mesh_p50(lambda: par.distributed_tristate(ext, eq))
+        o, i_, tt = eq.tables(dev)
+        want = torch.cat([kernels.extent_tristate_plain(
+            s.bounds, s.valid, s.times, o, i_, tt) for s in ext.shards])
+        if not np.array_equal(got, want[:rows].cpu().numpy()):
+            wrong.append(("distributed_tristate", qi))
+        tri.append(t)
+    p["tristate_8"] = statistics.median(tri)
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    out["p50_ms"] = p
+
+    # -- each program's kernel on the shards beside one launch, and the
+    # shard-shaped calls against their plain versions (not counted) --
+    ktime, plain = {}, {}
+    b, t = q0.tables(dev)
+    ta = q0.time_any
+    per = d8.per
+    one = d1.cols[0]
+    ktime["scan_mask"] = _shard_ms(
+        lambda c: kernels.scan_mask(c, per, b, t, ta), d8.cols,
+        lambda: kernels.scan_mask(one, d1.n_padded, b, t, ta))
+    ktime["scan_count"] = _shard_ms(
+        lambda c: kernels.scan_count(c, per, b, t, ta), d8.cols,
+        lambda: kernels.scan_count(one, d1.n_padded, b, t, ta))
+    bb, bt = bq.tables(dev)
+    bc = bq.counts(dev)
+    ktime["scan_batch_bits"] = _shard_ms(
+        lambda c: kernels.scan_batch_bits(c, per, bb, bt, bc), d8.cols,
+        lambda: kernels.scan_batch_bits(one, d1.n_padded, bb, bt, bc), 5)
+    bits8 = [kernels.scan_batch_bits(c, per, bb, bt, bc) for c in d8.cols]
+    bits1 = kernels.scan_batch_bits(one, d1.n_padded, bb, bt, bc)
+    ktime["compact_bits"] = _shard_ms(
+        lambda bp: kernels.compact_bits(*bp), bits8,
+        lambda: kernels.compact_bits(*bits1), 5)
+    ktime["compact_prefix"] = _shard_ms(
+        lambda bp: kernels.compact_prefix(bp[1]), bits8,
+        lambda: kernels.compact_prefix(bits1[1]))
+    q, bbox, w, h = grids[1]
+    gb, gt = q.tables(dev)
+    sc = [float(np.float32(v)) for v in (bbox[0], bbox[1],
+                                         w / (bbox[2] - bbox[0]),
+                                         h / (bbox[3] - bbox[1]))]
+    pts8 = [(c[0] + c[1], c[2] + c[3],
+             kernels.scan_mask(c, per, gb, gt, q.time_any)) for c in d8.cols]
+    pts1 = (one[0] + one[1], one[2] + one[3],
+            kernels.scan_mask(one, d1.n_padded, gb, gt, q.time_any))
+    ktime["density_grid"] = _shard_ms(
+        lambda s: kernels.density_grid(s[0], s[1], None, s[2], *sc, w, h),
+        pts8, lambda: kernels.density_grid(pts1[0], pts1[1], None, pts1[2],
+                                           *sc, w, h))
+    eo, ei, et = gscan.extent_query(*EXTENT_KERNEL_QUERIES[0]).tables(dev)
+    ecat = [torch.cat([getattr(s, f) for s in ext.shards])
+            for f in ("bounds", "valid", "times")]
+    ktime["extent_tristate"] = _shard_ms(
+        lambda s: kernels.extent_tristate(s.bounds, s.valid, s.times, eo,
+                                          ei, et), ext.shards,
+        lambda: kernels.extent_tristate(*ecat, eo, ei, et))
+    qx32 = torch.tensor([KNN_POINTS[0][0]], dtype=torch.float32, device=dev)
+    qy32 = torch.tensor([KNN_POINTS[0][1]], dtype=torch.float32, device=dev)
+    fetch = 2 * MESH_KNN_K + 16
+    ktime["knn_topk"] = _shard_ms(
+        lambda c: kernels.knn_topk(c[0], c[2], qx32, qy32, fetch, per),
+        d8.cols,
+        lambda: kernels.knn_topk(one[0], one[2], qx32, qy32, fetch, rows))
+    r2_hi, r2_lo = (float(np.float32(v)) for v in f32_band(DW_RADIUS, 360.0))
+    left8, right8 = par.shard_points(lx, ly, mesh8), par.shard_points(rx, ry,
+                                                                      mesh8)
+    xs8 = [kernels.sorted_by_x(px, py, px.shape[0])
+           for px, py in zip(right8[0], right8[1])]
+    blocks = [(qx, qy, px, py, xs) for qx, qy in zip(left8[0], left8[1])
+              for px, py, xs in zip(right8[0], right8[1], xs8)]
+    L = par.shard_points(lx, ly, mesh1)
+    R = par.shard_points(rx, ry, mesh1)
+    xs1 = kernels.sorted_by_x(R[0][0], R[1][0], MESH_RING_ROWS)
+    ktime["dwithin_counts"] = _shard_ms(
+        lambda bk: kernels.dwithin_counts(bk[2], bk[3], bk[0], bk[1], r2_hi,
+                                          r2_lo, bk[2].shape[0],
+                                          xsorted=bk[4]), blocks,
+        lambda: kernels.dwithin_counts(R[0][0], R[1][0], L[0][0], L[1][0],
+                                       r2_hi, r2_lo, MESH_RING_ROWS,
+                                       xsorted=xs1), 3)
+    ktime["dwithin_counts"]["blocks"] = len(blocks)
+    # contains_counts: each shard's tables as distributed_contains_counts
+    # builds them, against the same over the one shard's sort
+    from geomesa_tpu_torch.analytics.join import (_contains_slab_setup,
+                                                  _poly_pad,
+                                                  pack_polygon_batch)
+    from geomesa_tpu_torch.scan.gscan import EDGE_EPS, EDGE_EPS2
+    kp = _poly_pad(npoly)
+    edges, evalid, pboxes = pack_polygon_batch(polys, pad_to=kp)
+    boxes64 = np.array([pp.envelope.as_tuple() for pp in polys], np.float64)
+    ecount = torch.from_numpy(evalid.sum(axis=1).astype(np.int32)).to(dev)
+    edges_t, pboxes_t = (torch.from_numpy(a).to(dev) for a in (edges, pboxes))
+    eps = float(np.float32(EDGE_EPS))
+
+    def ctables(xs_ord):
+        xs, ys, order = xs_ord
+        _, _, los, widths = _contains_slab_setup(xs, boxes64)
+        lp, wp = np.zeros(kp, np.int32), np.zeros(kp, np.int32)
+        lp[:npoly], wp[:npoly] = los, widths
+        return (xs, ys, order, torch.from_numpy(lp).to(dev),
+                torch.from_numpy(wp).to(dev), pboxes_t, edges_t, ecount)
+    ct8 = [ctables(s) for s in pmesh._xsorted(d8)]
+    ct1 = ctables(pmesh._xsorted(d1)[0])
+    ktime["contains_counts"] = _shard_ms(
+        lambda tb: kernels.contains_counts(*tb, eps, EDGE_EPS2, 512), ct8,
+        lambda: kernels.contains_counts(*ct1, eps, EDGE_EPS2, 512), 3)
+    # the shard-shaped calls against their plain versions (exact)
+    c0 = d8.cols[0]
+    s0 = ext.shards[0]
+    checks = {
+        "scan_mask": (lambda: kernels.scan_mask(c0, per, b, t, ta),
+                      lambda: kernels.scan_mask_plain(c0, per, b, t, ta)),
+        "scan_count": (lambda: kernels.scan_count(c0, per, b, t, ta),
+                       lambda: kernels.scan_count_plain(c0, per, b, t, ta)),
+        "density_grid": (
+            lambda: kernels.density_grid(*pts8[0][:2], None, pts8[0][2], *sc,
+                                         w, h),
+            lambda: kernels.density_grid_plain(*pts8[0][:2], None,
+                                               pts8[0][2], *sc, w, h)),
+        "extent_tristate": (
+            lambda: kernels.extent_tristate(s0.bounds, s0.valid, s0.times,
+                                            eo, ei, et),
+            lambda: kernels.extent_tristate_plain(s0.bounds, s0.valid,
+                                                  s0.times, eo, ei, et)),
+        "knn_topk": (
+            lambda: kernels.knn_topk(c0[0], c0[2], qx32, qy32, fetch, per),
+            lambda: kernels.knn_topk_plain(c0[0], c0[2], qx32, qy32, fetch,
+                                           per)),
+        "dwithin_counts": (
+            lambda: kernels.dwithin_counts(*blocks[9][2:4], *blocks[9][:2],
+                                           r2_hi, r2_lo,
+                                           blocks[9][2].shape[0],
+                                           xsorted=blocks[9][4]),
+            lambda: kernels.dwithin_counts_plain(*blocks[9][2:4],
+                                                 *blocks[9][:2], r2_hi,
+                                                 r2_lo,
+                                                 blocks[9][2].shape[0])),
+        "scan_batch_bits": (
+            lambda: bits8[0],
+            lambda: kernels.scan_batch_bits_plain(c0, per, bb, bt, bc)),
+        "compact_prefix": (
+            lambda: kernels.compact_prefix(bits8[0][1]),
+            lambda: kernels.compact_prefix_plain(bits8[0][1])),
+        "compact_bits": (
+            lambda: kernels.compact_bits(*bits8[0]),
+            lambda: kernels.compact_bits_plain(*bits8[0])),
+        "contains_counts": (
+            lambda: kernels.contains_counts(*ct8[0], eps, EDGE_EPS2, 512),
+            lambda: kernels.contains_counts_plain(*ct8[0], eps, EDGE_EPS2,
+                                                  512)),
+    }
+    for name, (kern, pl) in checks.items():
+        got, want = kern(), pl()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        plain[name] = len(got) == len(want) and all(
+            np.array_equal(g, v) if isinstance(g, np.ndarray)
+            else torch.equal(g, v) for g, v in zip(got, want))
+        if not plain[name]:
+            wrong.append(("plain", name))
+    out.update(kernel_ms=ktime, plain_equal=plain)
+    del d8, d1, data, X, Y, M, ext, ecat, pts8, pts1, bits8, bits1, ct8, ct1
+    torch.cuda.empty_cache()
+    return out, wrong, launches
+
+
+def mesh_store_part(seed: int, ds, rows):
+    """Part B: DistributedDataStore(data_mesh(8)) and a one-shard twin on
+    the store phase's rows, each call held against the single CUDA store
+    ``ds`` on the same rows (density as in part A, KNN and the histogram
+    against a float64 / float32 brute force), p50s beside ``ds``'s. The
+    launches are the mesh stores' only: ``ds``'s calls run uncounted.
+    Returns (line, wrong, launches)."""
+    from geomesa_tpu_torch import DistributedDataStore, Query
+    from geomesa_tpu_torch.arrow.io import FeatureArrowFileReader
+    from geomesa_tpu_torch.parallel import data_mesh
+    from geomesa_tpu_torch.scan import kernels, zscan
+    from geomesa_tpu_torch.utils.properties import SystemProperty
+    host_rows = SystemProperty("geomesa.scan.host.rows")
+    threshold = SystemProperty("geomesa.scan.index.threshold")
+    x, y, ms, ids = rows
+    n = len(x)
+    wrong, out = [], {"part": "store", "rows": n}
+    spec = "dtg:Date,*geom:Point:srid=4326"
+    kernels.reset_launches()
+    stores, write_s = {}, {}
+    for k in (MESH_SHARDS, 1):
+        t0 = time.perf_counter()
+        s = DistributedDataStore(data_mesh(k))
+        s.create_schema("ais", spec)
+        s.write_dict("ais", ids, {"dtg": ms, "geom": (x, y)})
+        torch.cuda.synchronize()
+        write_s[k] = time.perf_counter() - t0
+        stores[k] = s
+    out["write_s"] = write_s
+    p, tiers = {}, {}
+    for ecql, boxes, iv in (STORE_QUERIES[0], STORE_QUERIES[2]):
+        want = _brute(x, y, ms, boxes, iv)
+        tag = "north" if iv else "wide"
+        for tier, (h, thr) in (("default", (None, None)),
+                               ("dense", ("0", "0"))):
+            host_rows.set(h)
+            threshold.set(thr)
+            try:
+                for k, s in stores.items():
+                    res = s.query(ecql, "ais")
+                    tiers[f"{tag}_{tier}_{k}"] = res.explain.text.split(
+                        "\n")[-2:]
+                    if not np.array_equal(res.ids, ids[want]):
+                        wrong.append(("query", tag, tier, k))
+                    p[f"{tag}_{tier}_{k}"], _ = _mesh_p50(
+                        lambda: s.query(ecql, "ais").ids)
+                    p[f"{tag}_{tier}_count_{k}"], c = _mesh_p50(
+                        lambda: s.query_count(ecql, "ais"))
+                    if c != len(want):
+                        wrong.append(("query_count", tag, tier, k, c))
+                with _uncounted():
+                    p[f"{tag}_{tier}_single"], got = _mesh_p50(
+                        lambda: ds.query(ecql, "ais").ids)
+                if not np.array_equal(got, ids[want]):
+                    wrong.append(("single store", tag, tier))
+            finally:
+                host_rows.set(None)
+                threshold.set(None)
+    out["explain"] = tiers
+    # density of the north star over the world, held as in part A
+    ecql, boxes, iv = STORE_QUERIES[0]
+    bbox, w, h = (-180.0, -90.0, 180.0, 90.0), 720, 360
+    sq = zscan.make_query(boxes, [(iv[0] + 1, iv[1] - 1)])
+    want = sum(_raw_grid(seg, sq, bbox, w, h)
+               for seg in stores[MESH_SHARDS]._state("ais").segments)
+    for k, s in stores.items():
+        s.invalidate_cache("ais")
+        p[f"density_{k}"], g = _mesh_p50(lambda: (
+            s.invalidate_cache("ais"), s.density("ais", ecql, bbox, w, h))[1])
+        if not np.array_equal(g, want.cpu().numpy().astype(np.float32)):
+            wrong.append(("density", k))
+    with _uncounted():
+        ds.invalidate_cache("ais")
+        p["density_single"], g1 = _mesh_p50(lambda: (
+            ds.invalidate_cache("ais"),
+            ds.density("ais", ecql, bbox, w, h))[1])
+    out["density_cells_differing_from_single"] = int((g1 != g).sum())
+    # knn, the histogram, Arrow and query_batched
+    knn_want = []
+    for qx, qy in KNN_POINTS[:4]:
+        # the f64 top k in (d2, row) order: every row within the k-th
+        # smallest d2, then a stable sort of those
+        d2 = (x - qx) ** 2 + (y - qy) ** 2
+        cand = np.flatnonzero(d2 <= np.partition(d2, MESH_KNN_K - 1)
+                              [MESH_KNN_K - 1])
+        knn_want.append(ids[cand[np.argsort(d2[cand],
+                                            kind="stable")][:MESH_KNN_K]])
+    for k, s in stores.items():
+        times = []
+        for (qx, qy), want_k in zip(KNN_POINTS[:4], knn_want):
+            t, got = _mesh_p50(lambda: s.knn("ais", qx, qy, MESH_KNN_K))
+            times.append(t)
+            if not np.array_equal(got, want_k):
+                wrong.append(("knn", k, qx, qy))
+        p[f"knn_{k}"] = statistics.median(times)
+    lo, hi, nb = float(T0_DAY * MS_DAY), float(T1_DAY * MS_DAY), 100
+    v32 = ms.astype(np.float32)
+    keep = (v32 >= np.float32(lo)) & (v32 <= np.float32(hi))
+    binned = ((v32[keep] - np.float32(lo))
+              * np.float32(nb / (hi - lo))).astype(np.int64)
+    want_h = np.bincount(np.clip(binned, 0, nb - 1), minlength=nb)
+    for k, s in stores.items():
+        p[f"histogram_{k}"], got = _mesh_p50(
+            lambda: s.histogram("ais", "dtg", nb, lo, hi))
+        if not np.array_equal(got, want_h):
+            wrong.append(("histogram", k))
+    want = _brute(x, y, ms, boxes, iv)
+    for k, s in stores.items():
+        s.invalidate_cache("ais")
+        p[f"arrow_{k}"], payload = _mesh_p50(lambda: (
+            s.invalidate_cache("ais"), s.arrow_ipc("ais", ecql))[1])
+        batch = FeatureArrowFileReader(payload, s.get_schema("ais")).read_all()
+        col = batch.col("geom")
+        if not (np.array_equal(batch.ids, ids[want])
+                and np.array_equal(batch.col("dtg").millis, ms[want])
+                and np.array_equal(col.x, x[want])
+                and np.array_equal(col.y, y[want])):
+            wrong.append(("arrow_ipc", k))
+    qs = [Query("ais", _ecql(b, i)) for b, i in store_batch_specs(seed)]
+    with _uncounted():
+        ds.invalidate_cache("ais")
+        p["arrow_single"], _ = _mesh_p50(lambda: (
+            ds.invalidate_cache("ais"), ds.arrow_ipc("ais", ecql))[1])
+        p["batched_single"], want_b = _mesh_p50(lambda: ds.query_batched(qs))
+    want_b = [list(r.ids) for r in want_b]
+    for k, s in stores.items():
+        p[f"batched_{k}"], got = _mesh_p50(lambda: s.query_batched(qs))
+        if [list(r.ids) for r in got] != want_b:
+            wrong.append(("query_batched", k))
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    out["p50_ms"] = p
+    del stores
+    torch.cuda.empty_cache()
+    return out, wrong, launches
+
+
+def mesh_fs_part(rows):
+    """Part C: FsBackedDistributedDataStore at MESH_FS_ROWS of the store
+    phase's rows: write, the north star (the brute force's ids, in the
+    partition-grouped row order), persist_index, reopen (the sidecar
+    adopted: no z-key sort), the north star again, its ids identical.
+    Returns (line, wrong, launches)."""
+    import tempfile
+
+    from geomesa_tpu_torch import FsBackedDistributedDataStore
+    from geomesa_tpu_torch.index import zkeys
+    from geomesa_tpu_torch.parallel import data_mesh
+    from geomesa_tpu_torch.scan import kernels
+    x, y, ms, ids = (a[:MESH_FS_ROWS] for a in rows)
+    ecql, boxes, iv = STORE_QUERIES[0]
+    want = ids[_brute(x, y, ms, boxes, iv)]
+    wrong, out = [], {"part": "fs", "rows": len(x)}
+    root = tempfile.mkdtemp(prefix="geomesa-fsmesh-")
+    sorts = {"n": 0}
+    real = (zkeys.sort_bin_z, zkeys.sort_z)
+
+    def counted(fn):
+        def run(*a, **k):
+            sorts["n"] += 1
+            return fn(*a, **k)
+        return run
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        fsm = FsBackedDistributedDataStore(root, data_mesh(MESH_SHARDS))
+        fsm.create_schema("ais", "dtg:Date,*geom:Point:srid=4326")
+        fsm.write_dict("ais", ids, {"dtg": ms, "geom": (x, y)})
+        out["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        first = fsm.query(ecql, "ais").ids
+        out["first_query_s"] = time.perf_counter() - t0
+        # rows serve grouped by partition, so the ids come in that order
+        if not np.array_equal(np.sort(first.astype(str)),
+                              np.sort(want.astype(str))):
+            wrong.append(("fs-mesh query",))
+        t0 = time.perf_counter()
+        persisted = fsm.persist_index("ais")
+        out["persist_s"] = time.perf_counter() - t0
+        out["partitions"] = len(fsm.partitions("ais"))
+        shards = fsm.partition_shards("ais")
+        out["shards_served"] = len(set().union(*shards.values()))
+        del fsm
+        zkeys.sort_bin_z, zkeys.sort_z = (counted(f) for f in real)
+        t0 = time.perf_counter()
+        re = FsBackedDistributedDataStore(root, data_mesh(MESH_SHARDS))
+        torch.cuda.synchronize()
+        out["reopen_s"] = time.perf_counter() - t0
+        adopted = re._state("ais").zindex_warm is not None
+        t0 = time.perf_counter()
+        got = re.query(ecql, "ais").ids
+        out["reopen_query_s"] = time.perf_counter() - t0
+        same = bool(np.array_equal(got, first))
+        out.update(persisted=persisted, sidecar_adopted=adopted,
+                   zkey_sorts_after_reopen=sorts["n"],
+                   hits=len(want), ids_identical=same)
+        if not (persisted and adopted and sorts["n"] == 0 and same):
+            wrong.append(("reopen", persisted, adopted, sorts["n"]))
+        del re
+    finally:
+        zkeys.sort_bin_z, zkeys.sort_z = real
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    torch.cuda.empty_cache()
+    return out, wrong, launches
+
+
+def phase_mesh(seed: int, rows: int, ds, store_rows) -> tuple[dict, float]:
+    """parallel/, DistributedDataStore and FsBackedDistributedDataStore on
+    the card (see the module's head): parts A (``parallel``), B
+    (``store``) and C (``fs``), one line each with its launches and
+    device memory before and after, then the phase's total beside
+    MESH_BUDGET_S. Gates: every part's answers, and every kernel of
+    MESH_KERNELS launched on the mesh's shards. Returns the parts'
+    launches and the phase's seconds."""
+    t_phase = time.perf_counter()
+    counts, wrong = {}, []
+    for name, part in (("parallel", lambda: mesh_parallel(seed, rows)),
+                       ("store", lambda: mesh_store_part(seed, ds, store_rows)),
+                       ("fs", lambda: mesh_fs_part(store_rows))):
+        mem0 = _mem()
+        t0 = time.perf_counter()
+        out, w, launches = part()
+        out.update(seconds=time.perf_counter() - t0, launches=launches,
+                   memory_allocated_before=mem0,
+                   memory_allocated_after=_mem(), wrong=w,
+                   card=card_line())
+        emit({"phase": "mesh", **out})
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+        wrong += [(name, x) for x in w]
+    missing = [k for k in MESH_KERNELS if not counts.get(k)]
+    if missing:
+        wrong.append(("kernels never launched on the mesh", missing))
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "mesh", "part": "total", "seconds": seconds,
+          "budget_s": MESH_BUDGET_S, "launches": counts,
+          "wrong": wrong[:8], "card": card_line()})
+    if wrong:
+        raise SystemExit(f"mesh: {wrong[:8]}")
+    return counts, seconds
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9847,6 +10546,7 @@ def main():
     web_launches = phase_web(args.seed, ds, rows, dw)
     cluster_launches, cluster_s = phase_cluster(args.seed, ds, rows)
     life_launches, _ = phase_lifecycle(args.seed, ds, rows)
+    mesh_launches, _ = phase_mesh(args.seed, args.rows, ds, rows)
     del ds
     torch.cuda.empty_cache()
     pred_stats, pred_counts, pred_ds, pred_data, pred_queries, pred_q = \
@@ -9889,7 +10589,7 @@ def main():
                  "density_grid"):     # sql19's are in the sql counts
         launches[name] += cluster_launches[name] - \
             sql_gdelt["sql19_launches"].get(name, 0)
-    for name, n in life_launches.items():
+    for name, n in (*life_launches.items(), *mesh_launches.items()):
         if name in launches:
             launches[name] += n
     summary = []

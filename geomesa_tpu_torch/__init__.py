@@ -36,7 +36,10 @@ writes by its ``CacheRefresher``; ``ingest/``'s ``IngestPipeline``
 group-commits staged batches through one writer thread; ``resilience/``
 holds the retry policy, circuit breakers, hedging and a fault-injecting
 TCP proxy; ``api/``'s ``GeoMesaIndex`` stores serialized values by
-point and time.
+point and time. ``DistributedDataStore`` shards the scan columns over a
+mesh of torch devices (``parallel/``: several shards on one card, each
+shard's work on the same kernels, the reduces in shard order), and
+``FsBackedDistributedDataStore`` serves a file-store root from one.
 """
 
 # equal to the JAX package's: the file store stamps it into each type's
@@ -46,8 +49,10 @@ __version__ = "0.2.0"
 
 from .features import FeatureBatch, SimpleFeatureType, parse_spec  # noqa: E402
 from .index import Query  # noqa: E402
-from .store import (DataStore, FileBus, FileSystemDataStore,  # noqa: E402
-                    FileTailSource, GeoMessage, InMemoryDataStore,
+from .store import (DataStore, DistributedDataStore,  # noqa: E402
+                    FileBus, FileSystemDataStore, FileTailSource,
+                    FsBackedDistributedDataStore, GeoMessage,
+                    InMemoryDataStore,
                     IterableSource, LambdaDataStore, LiveDataStore,
                     MessageBus, QueryResult, SocketBroker, SocketBus,
                     StreamDataStore, StreamSource)
@@ -56,8 +61,9 @@ from .store.continuous import (ContinuousQueryPublisher,  # noqa: E402
 from .sql import SqlEngine, SqlError, SqlResult, parse_sql  # noqa: E402
 
 __all__ = ["ContinuousQueryPublisher", "ContinuousQuerySubscriber",
-           "DataStore", "FeatureBatch", "FileBus", "FileSystemDataStore",
-           "FileTailSource", "GeoMessage", "InMemoryDataStore",
+           "DataStore", "DistributedDataStore", "FeatureBatch", "FileBus",
+           "FileSystemDataStore", "FileTailSource",
+           "FsBackedDistributedDataStore", "GeoMessage", "InMemoryDataStore",
            "IterableSource", "LambdaDataStore", "LiveDataStore",
            "MessageBus", "Query", "QueryResult", "SimpleFeatureType",
            "SocketBroker", "SocketBus", "SqlEngine", "SqlError", "SqlResult",

@@ -555,6 +555,16 @@ class ZKeyIndex:
             keep &= tk
         return keep
 
+    @staticmethod
+    def _eval_sorted(xs, ys, ms, pos, boxes, intervals_ms) -> np.ndarray:
+        """``_keep`` over the rows ``pos`` of (xs, ys, ms), no time test
+        without ms (the reference's ZKeyIndex._eval_sorted; the mesh
+        store's gathered tier). Returns the keep mask over pos."""
+        if ms is None:
+            return ZKeyIndex._keep(xs[pos], ys[pos], None, boxes, [])
+        return ZKeyIndex._keep(xs[pos], ys[pos], ms[pos], boxes,
+                               intervals_ms)
+
     def query_rows(self, index_name: str, boxes, intervals_ms,
                    host_cap: int | None, block_cap: int | None):
         """ONE range decomposition serving both index tiers: returns

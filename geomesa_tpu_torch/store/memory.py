@@ -471,7 +471,7 @@ class _TypeState:
             return
         delta = FeatureBatch.concat_all([b for b, _ in self._pending])
         can_merge = (self._batch is not None and not self.dirty
-                     and self.scan_data is not None)
+                     and self.has_point_scan())
         old_n = 0 if self._batch is None else self._batch.n
         if self._vis is not None or any(v is not None
                                         for _, v in self._pending):
@@ -492,6 +492,31 @@ class _TypeState:
             return
         col = delta.col(self.sft.geom_field)
         dmillis = self._millis(delta)
+        # the device tier first: when it declines (a subclass's segment
+        # cap), the z-index merge is not paid for nothing, and the state
+        # stays dirty, so the next read rebuilds
+        if not self._extend_device_index(col, dmillis):
+            return
+        self.zindex = self.zindex.extend(
+            col.x, col.y, dmillis if self.sft.dtg_field else None)
+        self.dirty = False
+
+    # -- the device tier's hooks (a subclass swaps the tier: store/
+    # mesh_store.py keeps sharded segments instead) ------------------------
+
+    def has_point_scan(self) -> bool:
+        """Whether the point scan's device structure is built."""
+        return self.scan_data is not None
+
+    def has_extent_scan(self) -> bool:
+        return self.extent_data is not None
+
+    def _extend_device_index(self, col: PointColumn,
+                             dmillis: np.ndarray) -> bool:
+        """Append a flushed delta to the device columns in place (a
+        rebuild with power-of-two headroom when the capacity runs out)
+        and to the host split; False would leave the state dirty for the
+        next read to rebuild."""
         dxhi, dxlo = zscan.split_two_float(col.x)
         dyhi, dylo = zscan.split_two_float(col.y)
         data = zscan.extend_scan_data(self.scan_data, col.x, col.y, dmillis,
@@ -505,9 +530,27 @@ class _TypeState:
         self.scan_data = data
         self.host_xhi = np.concatenate([self.host_xhi, dxhi])
         self.host_yhi = np.concatenate([self.host_yhi, dyhi])
-        self.zindex = self.zindex.extend(
-            col.x, col.y, dmillis if self.sft.dtg_field else None)
-        self.dirty = False
+        return True
+
+    def _clear_device_index(self):
+        """Drop the device structures and the host split."""
+        self.scan_data = self.extent_data = None
+        self.host_xhi = self.host_yhi = None
+
+    def _build_point_index(self, x, y, millis):
+        """The point scan's device columns (capacity the next power of
+        two) and the host split of the coordinates."""
+        xhi, xlo = zscan.split_two_float(x)
+        yhi, ylo = zscan.split_two_float(y)
+        self.scan_data = zscan.build_scan_data(
+            x, y, millis, self.device, cap=zscan.next_pow2(len(x)),
+            xy_split=(xhi, xlo, yhi, ylo))
+        self.host_xhi, self.host_yhi = xhi, yhi
+
+    def _build_extent_index(self, bounds, millis):
+        """An extent schema's tristate columns on the device."""
+        self.extent_data = gscan.build_extent_data(bounds, millis,
+                                                   self.device)
 
     def delete(self, ids: set[str]):
         """Drop the rows with these feature ids. The device columns,
@@ -524,9 +567,8 @@ class _TypeState:
         self._batch = self._batch.take(np.flatnonzero(keep))
         if self._vis is not None:
             self._vis = self._vis[keep]
-        self.scan_data = self.extent_data = None
+        self._clear_device_index()
         self.zindex = None
-        self.host_xhi = self.host_yhi = None
         self.attr_idx.clear()
         self.devcols = None
         self.dirty = True
@@ -539,25 +581,19 @@ class _TypeState:
             # a geometry-less schema: nothing to build
             self.dirty = False
             return
-        if not self.dirty and (self.scan_data is not None
-                               or self.extent_data is not None):
+        if not self.dirty and (self.has_point_scan()
+                               or self.has_extent_scan()):
             return
         col = self._batch.col(self.sft.geom_field)
         if isinstance(col, GeometryColumn):
             millis = (self._batch.col(self.sft.dtg_field).millis
                       if self.sft.dtg_field is not None else None)
-            self.extent_data = gscan.build_extent_data(col.bounds, millis,
-                                                       self.device)
+            self._build_extent_index(col.bounds, millis)
             self.zindex = XZKeyIndex(col.bounds, millis, self.sft.z3_interval)
             self.dirty = False
             return
         millis = self._millis(self._batch)
-        xhi, xlo = zscan.split_two_float(col.x)
-        yhi, ylo = zscan.split_two_float(col.y)
-        self.scan_data = zscan.build_scan_data(
-            col.x, col.y, millis, self.device,
-            cap=zscan.next_pow2(self._batch.n), xy_split=(xhi, xlo, yhi, ylo))
-        self.host_xhi, self.host_yhi = xhi, yhi
+        self._build_point_index(col.x, col.y, millis)
         self.zindex = ZKeyIndex(col.x, col.y,
                                 millis if self.sft.dtg_field else None,
                                 self.sft.z3_interval,
@@ -1560,9 +1596,7 @@ class InMemoryDataStore(DataStore):
                 return rows
             return np.sort(rows[evaluate(primary, st.batch.take(rows))])
 
-        # the states' copy to the host is the sync point
-        state = gscan.extent_tristate(
-            st.extent_data, gscan.extent_query(boxes, intervals)).cpu().numpy()
+        state = self._extent_states(st, gscan.extent_query(boxes, intervals))
         explain(f"Device extent scan: {len(boxes)} box(es), "
                 f"{len(intervals)} interval(s), n={st.n}")
         needs_exact = _needs_exact(geoms, primary)
@@ -1581,6 +1615,12 @@ class InMemoryDataStore(DataStore):
             mask[check[evaluate(spatial_f, st.batch.take(check))]] = True
             explain(f"Exact predicate on {len(check)} candidate(s)")
         return np.flatnonzero(mask)
+
+    def _extent_states(self, st: _TypeState,
+                       eq: gscan.ExtentQuery) -> np.ndarray:
+        """The extent tristate of every row on the host, int8[n] (0 OUT,
+        1 MAYBE, 2 IN); the copy to the host is the sync point."""
+        return gscan.extent_tristate(st.extent_data, eq).cpu().numpy()
 
     def _pip_residual(self, st: _TypeState, spatial_f, col: PointColumn,
                       candidates: np.ndarray, explain: Explainer):

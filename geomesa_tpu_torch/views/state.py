@@ -30,6 +30,10 @@ several non-obvious choices:
 - Group keys follow the engine's factorize order: None first, values
   ascending, NaN last (``np.unique`` collapses NaNs). NaN float keys
   are normalized to a singleton sentinel so they can live in a dict.
+  This is a departure from the reference, whose ``_sort_key`` puts a
+  None key last and so orders its groups (and what an ORDER BY with a
+  LIMIT keeps of their ties) unlike its own engine (ROADMAP.md
+  section 3); where no key is null the two packages' views agree.
 """
 
 from __future__ import annotations
@@ -81,7 +85,10 @@ def _denorm_key(v):
 
 
 def _sort_key(kt):
-    return tuple((x is None, x) for x in kt)
+    # None first, as the engine's factorize codes it (a departure from
+    # geomesa_tpu/views/state.py:83-84, which sorts None last and so
+    # lists a null group key after the values, unlike SqlEngine)
+    return tuple((x is not None, x) for x in kt)
 
 
 class _NanKeyReplay(Exception):

@@ -3,8 +3,11 @@ DataStore contract cases of delete, remove_schema, sort and limit,
 projection, sampling, visibilities and BIN output, plus attribute-level
 visibility, SAMPLE_BY, descending sorts over nulls, query_batched with
 the post-scan stages, write_many, and the residual path after a delete;
-and the contract battery's "remote" case: the port's RemoteDataStore
-over the port's GeoMesaWebServer (a CPU store behind it).
+the contract battery's "remote" case: the port's RemoteDataStore
+over the port's GeoMesaWebServer (a CPU store behind it); and its
+"mesh" and "fs_mesh" cases: the port's DistributedDataStore and
+FsBackedDistributedDataStore on eight CPU shards against the JAX
+package's on its eight virtual devices.
 
 Both stores get the same seeded rows (the contract battery's SPEC and
 _populate, copied here); the port runs on the CPU. Tolerance: exact —
@@ -454,6 +457,83 @@ def test_plans_follow_stats_after_delete_and_analyze(pair, ecql):
         assert s.analyze("t").count.count == N - N // 10
     a, b = plans()
     assert a == b
+
+
+# -- the contract battery's mesh and fs_mesh backends -----------------------------
+# (tests/test_datastore_contract.py runs its battery on a DistributedDataStore
+# and an FsBackedDistributedDataStore over the 8-device mesh): the port's
+# stores on 8 CPU shards against the JAX package's on its 8 virtual devices
+
+@pytest.fixture(params=["mesh", "fs_mesh"])
+def mesh_pair(request, tmp_path):
+    """(the port's mesh store of this kind on ``data_mesh(8, "cpu")``,
+    the JAX package's on its ``data_mesh()``), the same rows in each."""
+    from geomesa_tpu.parallel import data_mesh as jdata_mesh
+    from geomesa_tpu.store import DistributedDataStore as JDist
+    from geomesa_tpu.store import FsBackedDistributedDataStore as JFsMesh
+    from geomesa_tpu_torch.parallel import data_mesh
+    from geomesa_tpu_torch.store import (DistributedDataStore,
+                                         FsBackedDistributedDataStore)
+    mesh = data_mesh(8, device="cpu")
+    if request.param == "mesh":
+        port, ref = DistributedDataStore(mesh), JDist(jdata_mesh())
+    else:
+        port = FsBackedDistributedDataStore(str(tmp_path / "port"), mesh)
+        ref = JFsMesh(str(tmp_path / "ref"), jdata_mesh())
+    return _populate(port), _populate(ref, parse=jparse_spec)
+
+
+def _spi(pair):
+    from geomesa_tpu_torch.store.api import DataStore
+    port, _ = pair
+    assert isinstance(port, DataStore) and isinstance(port, InMemoryDataStore)
+    sft = port.get_schema("t")
+    assert sft.geom_field == "geom" and sft.dtg_field == "dtg"
+    assert port.get_type_names() == ["t"] and port.count("t") == N
+    assert port.mesh.size == 8
+
+
+MESH_CASES = (
+    [("spi", _spi, {})]
+    + [(f"delete-{e}", test_delete, {"ecql": e}) for e in (
+        "INCLUDE", BBOX, "name = 'n3'", "val > 40 AND val < 60")]
+    + [("delete_then_write", test_delete_then_write_and_delete_all, {}),
+       ("remove_schema", test_remove_schema, {})]
+    + [(f"sort-{k}-{d}", test_sort_and_limit, {"key": k, "desc": d})
+       for k in ("val", "name", "dtg") for d in (False, True)]
+    + [(f"projection-{'-'.join(p)}", test_projection, {"props": p})
+       for p in (["name", "geom"], ["val"])]
+    + [(f"sampling-{r}", test_query_count_honors_sampling, {"rate": r})
+       for r in (0.25, 1.0)]
+    + [(f"visibilities-{a}-{e}", test_visibilities,
+        {"auths": a, "want_n": w, "ecql": e})
+       for a, w in (([], 20), (["admin", "ops"], 40), (None, 20))
+       for e in ("INCLUDE", "BBOX(geom, -45, -30, 45, 30)")]
+    + [(f"bin-{i}", test_bin_output, {"kwargs": kw}) for i, kw in
+       enumerate(({}, {"sort": True}, {"track": "val", "label": "dtg",
+                                       "sort": True}))]
+    + [(f"sample_by-{b}", test_sample_by, {"by": b, "rate": 0.3})
+       for b in ("name", "val")]
+    + [("query_batched", test_query_batched_post_scan, {}),
+       ("write_many", test_write_many, {})]
+    + [(f"residual-{i}", test_residual_after_delete_and_recreate,
+        {"ecql": e}) for i, e in enumerate(RESIDUAL_QUERIES)]
+    + [("arrow", test_arrow_ipc_roundtrip, {})]
+    + [(f"stats-{sp}", test_stats_query, {"spec": sp, "ecql": BBOX})
+       for sp in ("Count()", "MinMax(val)", "Histogram(val,10,0,100)")]
+    + [("query_stream", test_query_stream, {}),
+       ("plans", test_plans_follow_stats_after_delete_and_analyze,
+        {"ecql": BBOX + " AND name = 'n3'"})])
+
+
+@pytest.mark.parametrize("case", MESH_CASES, ids=[c[0] for c in MESH_CASES])
+def test_mesh_backend_contract(mesh_pair, case):
+    """The contract cases above on the mesh and fs_mesh backends, each
+    with its own assertions against the JAX package's store of the same
+    kind (ids in result order, counts, values, BIN bytes, stats, Arrow
+    payloads across packages, plans and costs)."""
+    _name, fn, kwargs = case
+    fn(mesh_pair, **kwargs)
 
 
 # -- the remote case: the port's client over the port's server -------------------

@@ -101,7 +101,12 @@ def test_import_leaves_jax_and_reference_out():
             "geomesa_tpu_torch.views, geomesa_tpu_torch.views.state, "
             "geomesa_tpu_torch.views.registry, "
             "geomesa_tpu_torch.views.subscribe, geomesa_tpu_torch.jobs, "
-            "geomesa_tpu_torch.integrity.harness\n"
+            "geomesa_tpu_torch.integrity.harness, "
+            "geomesa_tpu_torch.parallel, geomesa_tpu_torch.parallel.mesh, "
+            "geomesa_tpu_torch.parallel.ring, "
+            "geomesa_tpu_torch.store.mesh_store, "
+            "geomesa_tpu_torch.store.fs_mesh, "
+            "geomesa_tpu_torch.index.splitters\n"
             "import importlib; "
             "importlib.import_module('geomesa_tpu_torch.obs.runtime')\n"
             "bad = [m for m in sys.modules if m == 'jax' "
@@ -223,6 +228,31 @@ def test_store_defaults_to_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             InMemoryDataStore(device=device, durable_dir=str(tmp_path / "d"))
     assert not (tmp_path / "d").exists()
+
+
+def test_mesh_stores_default_to_cuda(monkeypatch, tmp_path):
+    """A mesh is of CUDA devices unless the caller names another, and
+    the mesh stores and data_mesh raise without CUDA (before the fs-mesh
+    store touches its root)."""
+    from geomesa_tpu_torch import (DistributedDataStore,
+                                   FsBackedDistributedDataStore)
+    from geomesa_tpu_torch.parallel import data_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            data_mesh(device=device)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            data_mesh(8, device=device)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DistributedDataStore()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FsBackedDistributedDataStore(str(tmp_path / "fsm"))
+    assert not (tmp_path / "fsm").exists()
+    mesh = data_mesh(8, device="cpu")
+    ds = DistributedDataStore(mesh)
+    assert ds.device.type == "cpu" and ds.mesh is mesh
+    fsm = FsBackedDistributedDataStore(str(tmp_path / "fsm"), mesh)
+    assert fsm.fs.device.type == "cpu"
 
 
 def test_streaming_stores_default_to_cuda(monkeypatch, tmp_path):
@@ -2565,3 +2595,134 @@ def test_ingest_pipeline_on_cuda_matches_brute_force(cuda, tmp_path,
     got = sorted(int(str(i)[1:]) for i in ds.query(ecql, "boats").ids)
     assert got == want.tolist()
     ds.close()
+
+
+# -- the mesh (parallel/, store/mesh_store.py) on the card ---------------------
+
+def _mesh_rows(n, seed):
+    rng = np.random.default_rng(seed)
+    x, y = rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)
+    ms = 1_577_836_800_000 + rng.integers(0, 100 * MS_DAY, n)
+    x[:64] = x[64:128]        # duplicate points: KNN ties
+    y[:64] = y[64:128]
+    return x, y, ms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8])
+def test_parallel_on_cuda_matches_cpu_mesh(cuda, k):
+    """Every sharded program on k shards of the card against the same
+    program on k CPU shards (the kernels' plain versions): hit rows,
+    counts, batched rows, the density grid bit for bit, contains counts,
+    the ring's (sure, band), KNN ids in order, tristate states; and each
+    program launched its kernels on the card."""
+    from geomesa_tpu_torch import parallel as par
+    from geomesa_tpu_torch.geometry.base import Polygon
+    from geomesa_tpu_torch.parallel import mesh as pmesh
+    n = 200_003
+    x, y, ms = _mesh_rows(n, 5)
+    dev_mesh, cpu_mesh = par.data_mesh(k), par.data_mesh(k, device="cpu")
+    assert all(d.type == "cuda" for d in dev_mesh.devices)
+    on = par.shard_scan_data(x, y, ms, dev_mesh)
+    off = par.shard_scan_data(x, y, ms, cpu_mesh)
+    q = zscan.make_query([(-80.0, 30.0, -60.0, 45.0), (x[3], y[3], 20, 20)],
+                         [(int(ms[0]), int(ms[0]) + 40 * MS_DAY)])
+    kernels.reset_launches()
+    assert np.array_equal(par.exact_hit_rows(on, q),
+                          par.exact_hit_rows(off, q))
+    assert par.distributed_count(on, q) == par.distributed_count(off, q)
+    bq = zscan.stack_queries([q, zscan.make_query([(-10, -10, 10, 10)], [])])
+    for a, b in zip(pmesh.batch_exact_hit_rows(on, bq),
+                    pmesh.batch_exact_hit_rows(off, bq)):
+        assert np.array_equal(a, b)
+    bbox = (-180.0, -90.0, 180.0, 90.0)
+    assert par.distributed_density(on, q, bbox, 360, 180).tobytes() == \
+        par.distributed_density(off, q, bbox, 360, 180).tobytes()
+    polys = [Polygon([(cx - 3, cy - 2), (cx + 3, cy - 2), (cx + 3, cy + 2),
+                      (cx - 3, cy + 2)])
+             for cx, cy in ((0.0, 0.0), (x[9], y[9]), (100.0, -40.0))]
+    assert np.array_equal(pmesh.distributed_contains_counts(on, polys),
+                          pmesh.distributed_contains_counts(off, polys))
+    left = [par.shard_points(x[:20_000], y[:20_000], m)
+            for m in (dev_mesh, cpu_mesh)]
+    right = [par.shard_points(x[20_000:60_000], y[20_000:60_000], m)
+             for m in (dev_mesh, cpu_mesh)]
+    got = [par.ring_dwithin_counts(*lp[:3], *rp[:3], m, 1.5)
+           for lp, rp, m in zip(left, right, (dev_mesh, cpu_mesh))]
+    assert all(np.array_equal(a, b) for a, b in zip(*got))
+    sp = [par.shard_points_split(x, y, m) for m in (dev_mesh, cpu_mesh)]
+    for qx, qy, kk in ((x[70], y[70], 10), (12.3, -45.6, 50)):
+        assert np.array_equal(
+            par.distributed_knn(None, None, sp[0][1], dev_mesh, n, qx, qy,
+                                kk, split=sp[0][0]),
+            par.distributed_knn(None, None, sp[1][1], cpu_mesh, n, qx, qy,
+                                kk, split=sp[1][0]))
+    bounds = np.stack([x, y, x + 0.5, y + 0.25], axis=1)[:50_001]
+    eq = gscan.extent_query([(-20.0, -15.0, 31.5, 42.25)],
+                            [(int(ms[0]), int(ms[0]) + 30 * MS_DAY)])
+    assert np.array_equal(
+        par.distributed_tristate(par.shard_extent_data(
+            bounds, ms[:50_001], dev_mesh), eq),
+        par.distributed_tristate(par.shard_extent_data(
+            bounds, ms[:50_001], cpu_mesh), eq))
+    for name in ("scan_mask", "scan_count", "scan_batch_bits",
+                 "compact_bits", "compact_prefix", "density_grid",
+                 "contains_counts", "dwithin_counts", "knn_topk",
+                 "extent_tristate"):
+        assert kernels.launches[name] >= k, name
+    join.clear_xsort_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8])
+def test_mesh_store_on_cuda_matches_cpu(cuda, k, monkeypatch):
+    """DistributedDataStore on k shards of the card against the same
+    store on k CPU shards and against the single CUDA store: ids in
+    order, counts, density, KNN, histogram, query_batched, Arrow bytes."""
+    from geomesa_tpu_torch import DistributedDataStore
+    from geomesa_tpu_torch.parallel import data_mesh
+    n = 120_007
+    x, y, ms = _mesh_rows(n, 6)
+    ids = [f"f{i}" for i in range(n)]
+    rng = np.random.default_rng(6)
+    data = {"age": rng.integers(0, 100, n), "dtg": ms, "geom": (x, y)}
+    spec = "age:Integer,dtg:Date,*geom:Point:srid=4326"
+    mesh_cuda = DistributedDataStore(data_mesh(k))
+    mesh_cpu = DistributedDataStore(data_mesh(k, device="cpu"))
+    single = InMemoryDataStore()
+    for s in (mesh_cuda, mesh_cpu, single):
+        s.create_schema("pts", spec)
+        s.write_dict("pts", ids, data)
+    ecqls = ["BBOX(geom, -80, 30, -60, 45) AND dtg DURING "
+             "2020-01-10T00:00:00Z/2020-02-20T00:00:00Z",
+             "BBOX(geom, -180, -90, 180, 0)",
+             "BBOX(geom, -20, -15, 31.5, 42.25) AND age > 50"]
+    for host, thr in (("0", "1.0"), ("0", "0"), (None, None)):
+        for var, v in (("GEOMESA_SCAN_HOST_ROWS", host),
+                       ("GEOMESA_SCAN_INDEX_THRESHOLD", thr)):
+            if v is None:
+                monkeypatch.delenv(var, raising=False)
+            else:
+                monkeypatch.setenv(var, v)
+        for e in ecqls:
+            got = list(mesh_cuda.query(e, "pts").ids)
+            assert got == list(mesh_cpu.query(e, "pts").ids)
+            assert got == list(single.query(e, "pts").ids)
+            assert mesh_cuda.query_count(e, "pts") == len(got)
+    kernels.reset_launches()
+    bbox = (-180.0, -90.0, 180.0, 90.0)
+    g = mesh_cuda.density("pts", ecqls[1], bbox, 256, 128)
+    assert g.tobytes() == mesh_cpu.density("pts", ecqls[1], bbox, 256,
+                                           128).tobytes()
+    assert kernels.launches["density_grid"] == k
+    assert list(mesh_cuda.knn("pts", x[70], y[70], 20)) == list(
+        mesh_cpu.knn("pts", x[70], y[70], 20))
+    assert np.array_equal(mesh_cuda.histogram("pts", "age", 10, 0, 100),
+                          mesh_cpu.histogram("pts", "age", 10, 0, 100))
+    res = mesh_cuda.query_batched([Query("pts", e) for e in ecqls[:2]])
+    assert [list(r.ids) for r in res] == [
+        list(single.query(e, "pts").ids) for e in ecqls[:2]]
+    assert mesh_cuda.arrow_ipc("pts", ecqls[0]) == mesh_cpu.arrow_ipc(
+        "pts", ecqls[0])
+    assert kernels.launches["knn_topk"] > 0
+    assert kernels.launches["scan_batch_bits"] >= k

@@ -577,6 +577,153 @@ def test_view_sidecar_restores_across_packages(tmp_path, monkeypatch,
     ds2.close()
 
 
+# -- null group keys --------------------------------------------------------
+#
+# The port lists a null group key first, as SqlEngine does; the reference's
+# views list it last (its _sort_key), unlike its own engine. So here the
+# oracle is the engine's re-execution in both packages, never the JAX view.
+
+NULL_CATS = ("b", None, "a", "b", None, "a", "c")
+NULL_SQL = "SELECT cat, count(*) AS c FROM t GROUP BY cat"
+NULL_LIMIT_SQL = ("SELECT cat, n, count(*) AS c FROM t GROUP BY cat, n "
+                  "ORDER BY n LIMIT 3")
+
+
+def null_batch(P, sft, cats=NULL_CATS, id_prefix="f"):
+    """Rows whose ``cat`` holds nulls; ``n`` ties across the groups."""
+    k = len(cats)
+    return P.FeatureBatch.from_dict(
+        sft, np.array([f"{id_prefix}{i}" for i in range(k)], dtype=object),
+        {"cat": np.array(cats, dtype=object),
+         "n": np.array([1, 1, 1, 2, 2, 1, 2][:k] * (k // 7 + 1))[:k],
+         "v": np.arange(k, dtype=np.float64),
+         "geom": (np.zeros(k), np.zeros(k))})
+
+
+def null_store(P, cats=NULL_CATS, **store_kw):
+    ds, sft = fresh_store(P, **store_kw)
+    ds.write("t", null_batch(P, sft, cats))
+    return ds, sft
+
+
+def engine_rows(P, ds, sql):
+    return canon(P, P.SqlEngine(ds).query(sql))
+
+
+@needs_jax
+def test_null_group_key_listed_first():
+    """ROADMAP's smallest case: ``cat`` in (b, NULL, a, b) lists NULL, a,
+    b, as both packages' engines do, before and after a fold."""
+    ds, sft = null_store(T, cats=("b", None, "a", "b"))
+    jds, _ = null_store(J, cats=("b", None, "a", "b"))
+    reg = T.ViewRegistry(ds)
+    reg.register("s", NULL_SQL)
+    got = canon(T, reg.result("s"))
+    assert [r[0] for r in got[2]] == [None, "a", "b"]
+    assert got == engine_rows(T, ds, NULL_SQL) == engine_rows(J, jds,
+                                                              NULL_SQL)
+    for P, s in ((T, ds), (J, jds)):
+        s.write("t", null_batch(P, P.parse_spec("t", SPEC),
+                                cats=(None, "c"), id_prefix="g"))
+        s.delete("t", ["f2"])
+    got = canon(T, reg.result("s"))
+    assert [r[0] for r in got[2]] == [None, "b", "c"]
+    assert got == engine_rows(T, ds, NULL_SQL) == engine_rows(J, jds,
+                                                              NULL_SQL)
+
+
+@needs_jax
+def test_null_key_order_decides_limit():
+    """Two group keys, ORDER BY one of them and a LIMIT: the groups tied
+    on ``n`` keep the engine's order, so the limit keeps the engine's
+    groups (the null one among them)."""
+    ds, sft = null_store(T)
+    jds, _ = null_store(J)
+    reg = T.ViewRegistry(ds)
+    reg.register("l", NULL_LIMIT_SQL)
+    got = canon(T, reg.result("l"))
+    assert [r[:2] for r in got[2]] == [(None, 1), ("a", 1), ("b", 1)]
+    assert got == engine_rows(T, ds, NULL_LIMIT_SQL) == engine_rows(
+        J, jds, NULL_LIMIT_SQL)
+    for P, s in ((T, ds), (J, jds)):
+        s.delete("t", ["f1"])   # the null group of n = 1 goes
+    got = canon(T, reg.result("l"))
+    assert [r[:2] for r in got[2]] == [("a", 1), ("b", 1), (None, 2)]
+    assert got == engine_rows(T, ds, NULL_LIMIT_SQL) == engine_rows(
+        J, jds, NULL_LIMIT_SQL)
+
+
+@needs_jax
+def test_rest_views_null_key_order():
+    """``/rest/views/<name>`` serves the rows in the engine's order, the
+    null group first, equal to both packages' engines."""
+    ds, sft = null_store(T)
+    jds, _ = null_store(J)
+    srv = T.m("web").GeoMesaWebServer(ds, port=0,
+                                      auth_token="sekret").start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}/rest"
+        body = json.dumps({"name": "s", "sql": NULL_SQL}).encode()
+        status, _h, _b = _req(base, "POST", "/views/register", body,
+                              {"Authorization": "Bearer sekret"})
+        assert status == 201
+        status, _h, reply = _req(base, "GET", "/views/s")
+        assert status == 200
+    finally:
+        srv.stop()
+    wire = [tuple(r) for r in json.loads(reply)["rows"]]
+    assert wire == [(None, 2), ("a", 2), ("b", 2), ("c", 1)]
+    for P, s in ((T, ds), (J, jds)):
+        assert wire == [tuple(x.item() if isinstance(x, np.generic) else x
+                              for x in r)
+                        for r in P.SqlEngine(s).query(NULL_SQL).rows()]
+
+
+@needs_jax
+@pytest.mark.parametrize("writer,reader", [("jax", "torch"),
+                                           ("torch", "jax")])
+def test_null_key_sidecar_restores_across_packages(tmp_path, monkeypatch,
+                                                   writer, reader):
+    """A sidecar holding a null group, written by either package,
+    restores in the other without a rebuild: the restored view equals the
+    reader's own view of the same rows (the port's equals the engine,
+    null first), and it keeps folding there."""
+    W = J if writer == "jax" else T
+    R = J if reader == "jax" else T
+    root = str(tmp_path / "dur")
+    ds, sft = null_store(W, durable_dir=root, wal_fsync="never")
+    reg = W.ViewRegistry(ds)
+    reg.register("s", NULL_SQL)
+    reg.register("l", NULL_LIMIT_SQL)
+    ds.write("t", null_batch(W, sft, cats=(None, "d"), id_prefix="g"))
+    reg.result("s")
+    ds.checkpoint()
+    ds.close()
+    builds = _count_builds(R, monkeypatch)
+    ds2 = R.store(durable_dir=root, wal_fsync="never")
+    reg2 = R.ViewRegistry(ds2)
+    assert builds == []
+    fresh, _ = null_store(R)
+    fresh.write("t", null_batch(R, R.parse_spec("t", SPEC), cats=(None, "d"),
+                                id_prefix="g"))
+    own = R.ViewRegistry(fresh)
+    own.register("s", NULL_SQL)
+    own.register("l", NULL_LIMIT_SQL)
+    for name in ("s", "l"):
+        assert canon(R, reg2.result(name)) == canon(R, own.result(name))
+    if R is T:
+        matches_scratch(T, reg2, ds2, "s", NULL_SQL)
+        matches_scratch(T, reg2, ds2, "l", NULL_LIMIT_SQL)
+    ds2.write("t", null_batch(R, R.parse_spec("t", SPEC),
+                              cats=(None, "e"), id_prefix="h"))
+    fresh.write("t", null_batch(R, R.parse_spec("t", SPEC),
+                                cats=(None, "e"), id_prefix="h"))
+    assert canon(R, reg2.result("s")) == canon(R, own.result("s"))
+    own.close()
+    reg2.close()
+    ds2.close()
+
+
 # -- on the card ------------------------------------------------------------
 
 @pytest.mark.gpu
